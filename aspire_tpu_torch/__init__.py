@@ -1,0 +1,21 @@
+"""aspire_tpu_torch: the PyTorch + CUDA port of ``aspire_tpu``.
+
+The main path of the JAX package - fit a coupling-flow proposal to
+existing posterior samples, then run adaptive-tempered SMC with tpCN
+mutations and read off the evidence - on an explicit torch device. On an
+NVIDIA H100 the coupling-flow pass and the whole mutation chain run as
+hand-written CUDA kernels (``csrc/``, built with nvcc at first use); on a
+CPU tensor every kernel wrapper runs its plain torch version. The package
+imports torch and numpy, never JAX.
+"""
+
+import logging
+
+__version__ = "0.1.0"
+
+from .samples import BaseSamples, Samples, SMCSamples  # noqa: E402,F401
+from .aspire import Aspire  # noqa: E402,F401
+
+logging.getLogger("aspire_tpu_torch").addHandler(logging.NullHandler())
+
+__all__ = ["Aspire", "BaseSamples", "Samples", "SMCSamples", "__version__"]

@@ -1,0 +1,124 @@
+"""Flow wrapper: architecture + data transform + training.
+
+Counterpart of ``aspire_tpu/flows/base.py`` (no HDF5 persistence yet).
+The wrapper owns the parameter dict, the fitted data transform, its
+device and a ``torch.Generator`` for initialisation and sampling;
+``log_prob``/``sample`` compose the data transform's log-Jacobians as the
+JAX package does.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any
+
+import torch
+
+from ..transforms import BaseTransform, IdentityTransform
+from ..utils import as_tensor, resolve_device, resolve_dtype
+from .architectures import Coupling, get_architecture
+from .bijectors import standard_normal_log_prob, standard_normal_sample
+from .train import TrainConfig, fit_flow
+
+logger = logging.getLogger("aspire_tpu_torch")
+
+_FIT_ALIASES = {
+    "lr": "learning_rate",
+    "clip_grad": "max_grad_norm",
+    "lr_annealing": "annealing",
+}
+
+
+class Flow:
+    """A trainable coupling-flow proposal on an explicit device (``device``
+    is required: nothing picks one for the caller)."""
+
+    def __init__(
+        self,
+        dims: int,
+        architecture: str | Coupling = "nsf",
+        data_transform: BaseTransform | None = None,
+        seed: int | None = None,
+        dtype: str = "float32",
+        device: Any = None,
+        **architecture_kwargs: Any,
+    ):
+        self.dims = dims
+        self.dtype = resolve_dtype(dtype)
+        self.device = resolve_device(device)
+        if isinstance(architecture, Coupling):
+            self.architecture = architecture
+        else:
+            self.architecture = get_architecture(
+                architecture, dims, dtype=str(dtype).replace("torch.", ""),
+                **architecture_kwargs,
+            )
+        self.data_transform = data_transform or IdentityTransform(
+            dtype=self.dtype, device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(0 if seed is None else int(seed))
+        self.params = self.architecture.init(self.generator, self.device)
+
+    # -- densities ---------------------------------------------------------
+
+    def _as(self, x) -> torch.Tensor:
+        return as_tensor(x, dtype=self.dtype, device=self.device)
+
+    def log_prob(self, x) -> torch.Tensor:
+        x_t, log_j = self.data_transform.forward(self._as(x))
+        z, log_det = self.architecture.forward(self.params, x_t)
+        return standard_normal_log_prob(z) + log_det + log_j
+
+    def forward(self, x) -> tuple[torch.Tensor, torch.Tensor]:
+        x_t, log_j = self.data_transform.forward(self._as(x))
+        z, log_det = self.architecture.forward(self.params, x_t)
+        return z, log_det + log_j
+
+    def inverse(self, z) -> tuple[torch.Tensor, torch.Tensor]:
+        x_t, log_det = self.architecture.inverse(self.params, self._as(z))
+        x, log_j = self.data_transform.inverse(x_t)
+        return x, log_det + log_j
+
+    def sample(self, n: int, generator: torch.Generator | None = None):
+        return self.sample_and_log_prob(n, generator=generator)[0]
+
+    def sample_and_log_prob(self, n: int,
+                            generator: torch.Generator | None = None):
+        z = standard_normal_sample(
+            (n, self.dims), generator or self.generator, dtype=self.dtype,
+            device=self.device)
+        x_t, log_det = self.architecture.inverse(self.params, z)
+        log_q = standard_normal_log_prob(z) - log_det
+        x, log_j = self.data_transform.inverse(x_t)
+        return x, log_q - log_j
+
+    # -- training ----------------------------------------------------------
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean negative log-likelihood in the transformed space."""
+        z, log_det = self.architecture.forward(params, batch)
+        return -torch.mean(standard_normal_log_prob(z) + log_det)
+
+    def fit(self, x, **kwargs):
+        """Fit the data transform, then train by maximum likelihood."""
+        x_t = self.data_transform.fit(self._as(x))
+        for old, new in _FIT_ALIASES.items():
+            if old in kwargs:
+                if new in kwargs and kwargs[new] != kwargs[old]:
+                    raise ValueError(
+                        f"Conflicting fit kwargs: {old}={kwargs[old]!r} "
+                        f"and {new}={kwargs[new]!r}")
+                value = kwargs.pop(old)
+                if value is not None:
+                    kwargs[new] = value
+        if kwargs.get("patience", 0) is None:
+            kwargs["patience"] = int(kwargs.get("n_epochs", 100))
+        fields = TrainConfig.__dataclass_fields__
+        unknown = set(kwargs) - set(fields)
+        if unknown:
+            logger.warning("Ignoring unknown fit kwargs: %s", sorted(unknown))
+        config = TrainConfig(**{k: v for k, v in kwargs.items()
+                                if k in fields})
+        self.params, history = fit_flow(
+            self.loss_fn, self.params, x_t, self.generator, config)
+        return history

@@ -1,0 +1,120 @@
+"""Build the CUDA kernels with nvcc at first use and bind them with ctypes.
+
+The sources in ``aspire_tpu_torch/csrc`` compile into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+cached under ``aspire_tpu_torch/_build`` by a hash of the sources and
+flags. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-lineinfo",
+]
+
+_lib: ctypes.CDLL | None = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint32
+
+
+def find_nvcc() -> str:
+    for candidate in (
+        os.environ.get("CUDA_HOME") and
+        os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if candidate and os.path.exists(candidate):
+            return candidate
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libaspire_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless a build of these exact sources exists.
+
+    The compiler's resource report (``-Xptxas -v``: registers, shared
+    memory and spills of every kernel) is kept beside the library.
+    """
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first use in this process."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    lib.aspire_max_shared_bytes.argtypes = []
+    lib.aspire_max_shared_bytes.restype = _I
+    lib.aspire_layer_floats.argtypes = [_I]
+    lib.aspire_layer_floats.restype = _I
+    lib.aspire_coupling.argtypes = [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P]
+    lib.aspire_coupling.restype = _I
+    lib.aspire_chain_tile.argtypes = []
+    lib.aspire_chain_tile.restype = _I
+    lib.aspire_consts_floats.argtypes = [_I]
+    lib.aspire_consts_floats.restype = _I
+    lib.aspire_chain.argtypes = (
+        [_P] * 11 + [_I] * 9 + [_F] * 6 + [_U, _U, _I, _P]
+    )
+    lib.aspire_chain.restype = _I
+    _lib = lib
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    if code == -1:
+        raise ValueError(f"{what}: configuration not compiled into the "
+                         "kernel library")
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
+
+
+class LaunchCounter:
+    """A plain count of kernel launches, bumped by a wrapper right where
+    it launches its kernel."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0

@@ -1,0 +1,260 @@
+"""Sample containers (counterpart of ``aspire_tpu/samples.py``).
+
+:class:`Samples` carries importance weights, the evidence and the ESS;
+:class:`SMCSamples` carries particles at an inverse temperature ``beta``
+with the per-step evidence ratio and resampling. The MCMC containers and
+HDF5 persistence are not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+from .ops.resampling import get_resampler
+from .ops.special import effective_sample_size, logsumexp
+from .utils import as_tensor, resolve_dtype
+
+logger = logging.getLogger("aspire_tpu_torch")
+
+
+def incremental_log_weights(log_q, log_likelihood, log_prior, beta_prev,
+                            beta):
+    """``(beta_prev - beta) log_q + (beta - beta_prev)(logL + logPi)``,
+    NaN -> -inf."""
+    log_w = (beta_prev - beta) * log_q + (beta - beta_prev) * (
+        log_likelihood + log_prior
+    )
+    return torch.where(torch.isnan(log_w),
+                       torch.full_like(log_w, -math.inf), log_w)
+
+
+def _maybe(fn, value):
+    return fn(value) if value is not None else None
+
+
+@dataclass
+class BaseSamples:
+    """Samples ``x`` of shape ``(n, d)`` with log-density annotations."""
+
+    x: Any
+    log_likelihood: Any = None
+    log_prior: Any = None
+    log_q: Any = None
+    parameters: list[str] | None = None
+    dtype: Any = None
+    device: Any = None
+
+    def __post_init__(self):
+        self.dtype = resolve_dtype(self.dtype)
+        device = self.device
+        if device is None:
+            device = (self.x.device if isinstance(self.x, torch.Tensor)
+                      else "cpu")
+        self.device = torch.device(device)
+        self.x = as_tensor(self.x, dtype=self.dtype, device=self.device)
+        if self.x.dim() == 1:
+            self.x = self.x[:, None]
+        if self.dtype is None:
+            if not self.x.is_floating_point():
+                self.x = self.x.to(torch.get_default_dtype())
+            self.dtype = self.x.dtype
+
+        def conv(v):
+            return as_tensor(v, dtype=self.dtype,
+                             device=self.device).reshape(-1)
+
+        self.log_likelihood = _maybe(conv, self.log_likelihood)
+        self.log_prior = _maybe(conv, self.log_prior)
+        self.log_q = _maybe(conv, self.log_q)
+        if self.parameters is None:
+            self.parameters = [f"x_{i}" for i in range(self.dims)]
+        else:
+            self.parameters = list(self.parameters)
+
+    @property
+    def dims(self) -> int:
+        return self.x.shape[1] if self.x.dim() > 1 else 1
+
+    def __len__(self) -> int:
+        return len(self.x)
+
+    def _fields(self, idx) -> dict:
+        return dict(
+            x=self.x[idx],
+            log_likelihood=_maybe(lambda v: v[idx], self.log_likelihood),
+            log_prior=_maybe(lambda v: v[idx], self.log_prior),
+            log_q=_maybe(lambda v: v[idx], self.log_q),
+            parameters=self.parameters,
+            dtype=self.dtype,
+            device=self.device,
+        )
+
+    def __getitem__(self, idx):
+        return self.__class__(**self._fields(idx))
+
+    @classmethod
+    def concatenate(cls, samples: list) -> "BaseSamples":
+        if not samples:
+            raise ValueError("No samples to concatenate")
+
+        def cat(name):
+            values = [getattr(s, name) for s in samples]
+            if any(v is None for v in values):
+                return None
+            return torch.cat(values, dim=0)
+
+        return cls(
+            x=cat("x"),
+            log_likelihood=cat("log_likelihood"),
+            log_prior=cat("log_prior"),
+            log_q=cat("log_q"),
+            parameters=samples[0].parameters,
+            dtype=samples[0].dtype,
+            device=samples[0].device,
+        )
+
+    @classmethod
+    def from_samples(cls, samples: "BaseSamples", **kwargs):
+        kwargs.setdefault("dtype", samples.dtype)
+        kwargs.setdefault("parameters", samples.parameters)
+        kwargs.setdefault("device", samples.device)
+        return cls(
+            x=samples.x,
+            log_likelihood=samples.log_likelihood,
+            log_prior=samples.log_prior,
+            log_q=samples.log_q,
+            **kwargs,
+        )
+
+
+@dataclass
+class Samples(BaseSamples):
+    """Weighted (importance) samples."""
+
+    log_evidence: Any = None
+    log_evidence_error: Any = None
+    log_w: Any = field(init=False, default=None)
+    weights: Any = field(init=False, default=None)
+    effective_sample_size: Any = field(init=False, default=None)
+
+    def __post_init__(self):
+        super().__post_init__()
+        if all(v is not None
+               for v in (self.log_likelihood, self.log_prior, self.log_q)):
+            self.compute_weights()
+
+    def compute_weights(self) -> None:
+        """log_w = logL + logPi - log_q; evidence, delta-method error, ESS."""
+        self.log_w = self.log_likelihood + self.log_prior - self.log_q
+        n = len(self.x)
+        self.log_evidence = logsumexp(self.log_w) - math.log(n)
+        self.weights = torch.exp(self.log_w)
+        m = torch.max(self.log_w)
+        u = torch.exp(torch.clamp(self.log_w - m, max=0.0))
+        u_mean = torch.mean(u)
+        sigma_u = torch.sqrt(torch.sum((u - u_mean) ** 2) / (n * (n - 1.0)))
+        self.log_evidence_error = torch.where(
+            u_mean > 0, sigma_u / u_mean, torch.full_like(u_mean, math.inf)
+        )
+        self.effective_sample_size = effective_sample_size(self.log_w - m)
+
+    @property
+    def efficiency(self):
+        if self.log_w is None:
+            raise RuntimeError("Samples do not contain weights!")
+        return self.effective_sample_size / len(self.x)
+
+    def __getitem__(self, idx):
+        sliced = super().__getitem__(idx)
+        sliced.log_evidence = self.log_evidence
+        sliced.log_evidence_error = self.log_evidence_error
+        return sliced
+
+
+@dataclass
+class SMCSamples(BaseSamples):
+    """Particles at ``beta`` on ``log p_t = (1-beta) log_q + beta (logL +
+    logPi)``."""
+
+    beta: float | None = None
+    log_evidence: float | None = None
+    log_evidence_error: float | None = None
+
+    def unnormalized_log_weights(self, beta) -> torch.Tensor:
+        return incremental_log_weights(
+            self.log_q, self.log_likelihood, self.log_prior, self.beta, beta
+        )
+
+    def log_evidence_ratio(self, beta) -> torch.Tensor:
+        log_w = self.unnormalized_log_weights(beta)
+        return logsumexp(log_w) - math.log(len(self.x))
+
+    def log_evidence_ratio_variance(self, beta) -> torch.Tensor:
+        """Delta-method variance of the per-step evidence ratio."""
+        log_w = self.unnormalized_log_weights(beta)
+        m = torch.max(log_w)
+        u = torch.exp(torch.clamp(log_w - m, max=0.0))
+        mean_w = torch.mean(u)
+        var_w = torch.var(u, correction=0)
+        return torch.where(mean_w != 0, var_w / (len(self) * mean_w**2),
+                           torch.full_like(mean_w, math.nan))
+
+    def log_weights(self, beta) -> torch.Tensor:
+        if bool(torch.isnan(self.log_q).any()
+                | torch.isnan(self.log_likelihood).any()
+                | torch.isnan(self.log_prior).any()):
+            raise ValueError(f"Log weights contain NaN values for beta={beta}")
+        log_w = self.unnormalized_log_weights(beta)
+        return log_w + logsumexp(log_w) - math.log(len(self.x))
+
+    def resample(self, beta, generator: torch.Generator,
+                 n_samples: int | None = None,
+                 method: str = "systematic") -> "SMCSamples":
+        """Resample the particles to temperature ``beta``."""
+        n = len(self.x)
+        if n_samples is None:
+            n_samples = n
+        if beta == self.beta and n_samples == n:
+            logger.warning(
+                "Resampling with the same beta value, returning identical "
+                "samples"
+            )
+            return self
+        if beta == self.beta:
+            log_w = torch.zeros(n, dtype=self.x.dtype, device=self.x.device)
+        else:
+            log_w = self.unnormalized_log_weights(beta)
+        idx = get_resampler(method)(generator, log_w, int(n_samples))
+        return self.__class__(
+            x=self.x[idx],
+            log_likelihood=self.log_likelihood[idx],
+            log_prior=self.log_prior[idx],
+            log_q=self.log_q[idx],
+            beta=beta,
+            dtype=self.dtype,
+            parameters=self.parameters,
+            device=self.device,
+        )
+
+    def to_standard_samples(self) -> Samples:
+        return Samples(
+            x=self.x,
+            log_likelihood=self.log_likelihood,
+            log_prior=self.log_prior,
+            parameters=self.parameters,
+            log_evidence=self.log_evidence,
+            log_evidence_error=self.log_evidence_error,
+            device=self.device,
+        )
+
+    def __getitem__(self, idx):
+        sliced = super().__getitem__(idx)
+        sliced.beta = self.beta
+        sliced.log_evidence = self.log_evidence
+        sliced.log_evidence_error = self.log_evidence_error
+        return sliced

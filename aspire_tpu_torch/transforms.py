@@ -1,0 +1,393 @@
+"""Invertible data transforms with log-abs-det Jacobians.
+
+Counterpart of ``aspire_tpu/transforms.py`` (``FlowPreconditioningTransform``
+is not ported yet). Every ``forward``/``inverse`` returns ``(y, log_j)``
+with the Jacobian reduced over the feature axis, shape ``(n,)``. Fitted
+state (the affine mean/std) lives on the transform's device.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from .utils import as_tensor, resolve_dtype
+
+logger = logging.getLogger("aspire_tpu_torch")
+
+
+def _name_list(names) -> list:
+    return [] if names is None else list(names)
+
+
+class BaseTransform:
+    def __init__(self, dtype: Any = None, device: Any = "cpu"):
+        self.dtype = resolve_dtype(dtype)
+        self.device = torch.device(device)
+
+    def _as(self, x) -> torch.Tensor:
+        return as_tensor(x, dtype=self.dtype, device=self.device)
+
+    def fit(self, x):
+        raise NotImplementedError
+
+    def forward(self, x):
+        raise NotImplementedError
+
+    def inverse(self, y):
+        raise NotImplementedError
+
+    def config_dict(self) -> dict:
+        return {"dtype": str(self.dtype).replace("torch.", "")
+                if self.dtype else None}
+
+
+class IdentityTransform(BaseTransform):
+    def fit(self, x):
+        return self._as(x)
+
+    def forward(self, x):
+        x = self._as(x)
+        return x, torch.zeros(len(x), dtype=x.dtype, device=x.device)
+
+    def inverse(self, y):
+        y = self._as(y)
+        return y, torch.zeros(len(y), dtype=y.dtype, device=y.device)
+
+
+class PeriodicTransform(BaseTransform):
+    """Wrap values into ``[lower, upper)`` with zero Jacobian."""
+
+    def __init__(self, lower, upper, dtype: Any = None, device="cpu"):
+        super().__init__(dtype=dtype, device=device)
+        self.lower = self._as(lower)
+        self.upper = self._as(upper)
+
+    def fit(self, x):
+        return self.forward(x)[0]
+
+    def _wrap(self, x):
+        # Floor modulo (sign of the divisor), as numpy/jax ``%``.
+        return self.lower + torch.remainder(x - self.lower,
+                                            self.upper - self.lower)
+
+    def forward(self, x):
+        y = self._wrap(x)
+        return y, torch.zeros(y.shape[0], dtype=y.dtype, device=y.device)
+
+    def inverse(self, y):
+        x = self._wrap(y)
+        return x, torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+
+    def config_dict(self):
+        return super().config_dict() | {
+            "lower": self.lower.tolist(), "upper": self.upper.tolist(),
+        }
+
+
+class BoundedTransform(BaseTransform):
+    """Linear map ``[lower, upper] <-> [0, 1]``; subclasses unbound it."""
+
+    def __init__(self, lower, upper, eps: float = 1e-6, dtype: Any = None,
+                 device="cpu"):
+        super().__init__(dtype=dtype, device=device)
+        self.lower = torch.atleast_1d(self._as(lower))
+        self.upper = torch.atleast_1d(self._as(upper))
+        self.eps = eps
+        if bool(torch.any((self.upper - self.lower) == 0.0)):
+            raise ValueError(
+                f"Current floating precision ({self.dtype}) is too small "
+                "for specified parameter ranges"
+            )
+
+    @property
+    def _denom(self):
+        return self.upper - self.lower
+
+    def _scale_log_j(self):
+        return -torch.log(self._denom).sum()
+
+    def to_unit_interval(self, x):
+        y = (x - self.lower) / self._denom
+        return y, self._scale_log_j() * torch.ones(
+            y.shape[0], dtype=y.dtype, device=y.device)
+
+    def from_unit_interval(self, y):
+        x = self._denom * y + self.lower
+        return x, -self._scale_log_j() * torch.ones(
+            x.shape[0], dtype=x.dtype, device=x.device)
+
+    def fit(self, x):
+        return self.forward(x)[0]
+
+    def config_dict(self):
+        return super().config_dict() | {
+            "lower": self.lower.tolist(), "upper": self.upper.tolist(),
+            "eps": self.eps,
+        }
+
+
+class ProbitTransform(BoundedTransform):
+    def forward(self, x):
+        y, log_j_unit = self.to_unit_interval(x)
+        y = torch.clamp(y, self.eps, 1.0 - self.eps)
+        y = torch.erfinv(2 * y - 1) * math.sqrt(2)
+        log_j = 0.5 * (math.log(2 * math.pi) + y**2).sum(-1)
+        return y, log_j + log_j_unit
+
+    def inverse(self, y):
+        log_j = -(0.5 * (math.log(2 * math.pi) + y**2)).sum(-1)
+        x = 0.5 * (1 + torch.erf(y / math.sqrt(2)))
+        x, log_j_unit = self.from_unit_interval(x)
+        return x, log_j + log_j_unit
+
+
+class LogitTransform(BoundedTransform):
+    def forward(self, x):
+        y, log_j_unit = self.to_unit_interval(x)
+        y = torch.clamp(y, self.eps, 1.0 - self.eps)
+        z = torch.log(y) - torch.log1p(-y)
+        log_j = -(torch.log(y) + torch.log1p(-y)).sum(-1)
+        return z, log_j + log_j_unit
+
+    def inverse(self, z):
+        y = torch.sigmoid(z)
+        log_j = (torch.nn.functional.logsigmoid(z)
+                 + torch.nn.functional.logsigmoid(-z)).sum(-1)
+        x, log_j_unit = self.from_unit_interval(y)
+        return x, log_j + log_j_unit
+
+
+class AffineTransform(BaseTransform):
+    """Whitening fit to the data's mean and (population) std."""
+
+    def __init__(self, dtype: Any = None, device="cpu"):
+        super().__init__(dtype=dtype, device=device)
+        self._mean = None
+        self._std = None
+
+    def _log_j(self):
+        return -torch.log(torch.abs(self._std)).sum()
+
+    def fit(self, x):
+        x = self._as(x)
+        self._mean = x.mean(0)
+        self._std = x.std(0, correction=0)
+        return self.forward(x)[0]
+
+    def forward(self, x):
+        y = (x - self._mean) / self._std
+        return y, self._log_j() * torch.ones(
+            y.shape[0], dtype=y.dtype, device=y.device)
+
+    def inverse(self, y):
+        x = y * self._std + self._mean
+        return x, -self._log_j() * torch.ones(
+            y.shape[0], dtype=y.dtype, device=y.device)
+
+
+class CompositeTransform(BaseTransform):
+    """Masked composition: periodic wrap, bounded -> unbounded, affine."""
+
+    def __init__(
+        self,
+        parameters: list[str],
+        periodic_parameters: list[str] | None = None,
+        prior_bounds: dict | None = None,
+        bounded_to_unbounded: bool = True,
+        bounded_transform: str = "probit",
+        affine_transform: bool = True,
+        eps: float = 1e-6,
+        dtype: Any = None,
+        device: Any = "cpu",
+    ):
+        super().__init__(dtype=dtype, device=device)
+        if prior_bounds is None:
+            logger.warning(
+                "Missing prior bounds, some transforms may not be applied."
+            )
+        periodic_parameters = _name_list(periodic_parameters)
+        if periodic_parameters and not prior_bounds:
+            raise ValueError(
+                "Must specify prior bounds to use periodic parameters."
+            )
+        self.parameters = list(parameters)
+        self.periodic_parameters = periodic_parameters
+        self.bounded_to_unbounded = bounded_to_unbounded
+        self.bounded_transform = bounded_transform
+        self.affine_transform = affine_transform
+        self.eps = eps
+        if prior_bounds is None:
+            self._prior_bounds_config = None
+            self.bounded_parameters = []
+            lower = upper = None
+        else:
+            self._prior_bounds_config = {
+                k: [float(v) for v in np.asarray(prior_bounds[k]).ravel()]
+                for k in self.parameters
+            }
+            lower = np.asarray(
+                [self._prior_bounds_config[p][0] for p in self.parameters])
+            upper = np.asarray(
+                [self._prior_bounds_config[p][1] for p in self.parameters])
+            if bounded_to_unbounded:
+                finite = np.isfinite(lower) & np.isfinite(upper)
+                self.bounded_parameters = [
+                    p for p, ok in zip(self.parameters, finite)
+                    if ok and p not in self.periodic_parameters
+                ]
+            else:
+                self.bounded_parameters = []
+        self._periodic_mask = np.asarray(
+            [p in self.periodic_parameters for p in self.parameters])
+        self._bounded_mask = np.asarray(
+            [p in self.bounded_parameters for p in self.parameters])
+        kw = dict(dtype=self.dtype, device=self.device)
+        self._periodic_transform = (
+            PeriodicTransform(lower[self._periodic_mask],
+                              upper[self._periodic_mask], **kw)
+            if self.periodic_parameters else None
+        )
+        if self.bounded_parameters:
+            cls = {"probit": ProbitTransform,
+                   "logit": LogitTransform}.get(bounded_transform)
+            if cls is None:
+                raise ValueError(
+                    f"Unknown bounded transform: {bounded_transform}")
+            self._bounded_transform = cls(
+                lower[self._bounded_mask], upper[self._bounded_mask],
+                eps=eps, **kw)
+        else:
+            self._bounded_transform = None
+        self._affine_transform = (
+            AffineTransform(**kw) if affine_transform else None
+        )
+
+    @property
+    def is_identity(self) -> bool:
+        return (self._periodic_transform is None
+                and self._bounded_transform is None
+                and self._affine_transform is None)
+
+    @property
+    def affine_only(self) -> bool:
+        """Only the affine part is active (the in-kernel data transform)."""
+        return (self._periodic_transform is None
+                and self._bounded_transform is None
+                and self._affine_transform is not None)
+
+    def _masked(self, x, mask, fn):
+        x = x.clone()
+        y, lj = fn(x[:, mask])
+        x[:, mask] = y.to(x.dtype)
+        return x, lj
+
+    def fit(self, x):
+        x = torch.atleast_2d(self._as(x))
+        if self._periodic_transform is not None:
+            x, _ = self._masked(x, self._periodic_mask,
+                                self._periodic_transform.forward)
+        if self._bounded_transform is not None:
+            x, _ = self._masked(x, self._bounded_mask,
+                                self._bounded_transform.forward)
+        if self._affine_transform is not None:
+            x = self._affine_transform.fit(x)
+        return x
+
+    def forward(self, x):
+        x = torch.atleast_2d(self._as(x))
+        log_j = torch.zeros(len(x), dtype=x.dtype, device=x.device)
+        if self._periodic_transform is not None:
+            x, lj = self._masked(x, self._periodic_mask,
+                                 self._periodic_transform.forward)
+            log_j = log_j + lj
+        if self._bounded_transform is not None:
+            x, lj = self._masked(x, self._bounded_mask,
+                                 self._bounded_transform.forward)
+            log_j = log_j + lj
+        if self._affine_transform is not None:
+            x, lj = self._affine_transform.forward(x)
+            log_j = log_j + lj
+        return x, log_j
+
+    def inverse(self, y):
+        y = torch.atleast_2d(self._as(y))
+        log_j = torch.zeros(len(y), dtype=y.dtype, device=y.device)
+        if self._affine_transform is not None:
+            y, lj = self._affine_transform.inverse(y)
+            log_j = log_j + lj
+        if self._bounded_transform is not None:
+            y, lj = self._masked(y, self._bounded_mask,
+                                 self._bounded_transform.inverse)
+            log_j = log_j + lj
+        if self._periodic_transform is not None:
+            y, lj = self._masked(y, self._periodic_mask,
+                                 self._periodic_transform.inverse)
+            log_j = log_j + lj
+        return y, log_j
+
+    def config_dict(self):
+        return super().config_dict() | {
+            "parameters": self.parameters,
+            "periodic_parameters": self.periodic_parameters,
+            "prior_bounds": self._prior_bounds_config,
+            "bounded_to_unbounded": self.bounded_to_unbounded,
+            "bounded_transform": self.bounded_transform,
+            "affine_transform": self.affine_transform,
+            "eps": self.eps,
+        }
+
+
+class FlowTransform(CompositeTransform):
+    """Composite without periodic support: the flow's data transform."""
+
+    def __init__(
+        self,
+        parameters: list[str],
+        prior_bounds: dict | None = None,
+        bounded_to_unbounded: bool = True,
+        bounded_transform: str = "probit",
+        affine_transform: bool = True,
+        eps: float = 1e-6,
+        dtype: Any = None,
+        device: Any = "cpu",
+    ):
+        super().__init__(
+            parameters=parameters,
+            periodic_parameters=[],
+            prior_bounds=prior_bounds,
+            bounded_to_unbounded=bounded_to_unbounded,
+            bounded_transform=bounded_transform,
+            affine_transform=affine_transform,
+            eps=eps,
+            dtype=dtype,
+            device=device,
+        )
+
+    def config_dict(self):
+        cfg = super().config_dict()
+        cfg.pop("periodic_parameters", None)
+        return cfg
+
+
+def affine_state(transform) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """``(mean, std)`` when ``transform`` is an identity (returns None for
+    the mean/std) or a fitted affine-only map the kernels can apply;
+    raises LookupError for anything else."""
+    if transform is None or isinstance(transform, IdentityTransform):
+        return None
+    if isinstance(transform, AffineTransform):
+        affine = transform
+    elif isinstance(transform, CompositeTransform) and transform.is_identity:
+        return None
+    elif isinstance(transform, CompositeTransform) and transform.affine_only:
+        affine = transform._affine_transform
+    else:
+        raise LookupError(f"{type(transform).__name__} is not affine-only")
+    if affine._mean is None:
+        raise LookupError("affine transform is not fitted")
+    return affine._mean, affine._std

@@ -1,0 +1,109 @@
+"""Dtype/device resolution and converters from the JAX package's state.
+
+The port never imports JAX. The converters take the JAX package's flow
+parameter pytree (nested dicts of arrays) and its fitted transform
+objects duck-typed: anything ``numpy.asarray`` can read is accepted, so a
+JAX array, a numpy array or a list all convert the same way.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+_DTYPES = {
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+}
+
+
+def resolve_dtype(dtype: Any) -> torch.dtype | None:
+    """Resolve a dtype given as a string, numpy dtype, torch dtype or None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = np.dtype(dtype).name if not isinstance(dtype, str) else dtype
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"Unsupported dtype: {dtype!r}") from None
+
+
+def resolve_device(device: Any) -> torch.device:
+    """An explicit device; ``None`` is refused rather than guessed."""
+    if device is None:
+        raise ValueError(
+            "device must be given explicitly (e.g. 'cuda' or 'cpu')"
+        )
+    return torch.device(device)
+
+
+def as_tensor(x: Any, dtype: Any = None, device: Any = None) -> torch.Tensor:
+    """Tensor view of array-like input (no copy when already matching)."""
+    dtype = resolve_dtype(dtype)
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device if device is not None else x.device,
+                    dtype=dtype if dtype is not None else x.dtype)
+    arr = np.asarray(x)
+    t = torch.as_tensor(arr)
+    return t.to(device=device if device is not None else "cpu",
+                dtype=dtype if dtype is not None else t.dtype)
+
+
+def flow_params_from_jax(tree: dict, dtype: Any = None,
+                         device: Any = "cpu") -> dict:
+    """Convert a JAX flow parameter pytree to the port's parameter dict.
+
+    ``tree`` is ``{"layers": [{"layers": [{"w", "b"}, ...]}, ...]}``
+    (``aspire_tpu/flows/nets.py`` MLPs stacked by
+    ``aspire_tpu/flows/architectures.py``); the port keeps the same
+    nesting and the same ``(in, out)`` weight layout.
+    """
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        return as_tensor(np.array(node), dtype=dtype, device=device)
+
+    return convert(tree)
+
+
+def transform_from_jax(transform, dtype: Any = None, device: Any = "cpu"):
+    """Rebuild a fitted JAX transform (Identity/Affine/Logit/Probit/
+    Periodic/Composite/FlowTransform) as the port's equivalent.
+
+    Reads the object's ``config_dict()`` and, for the affine part, its
+    fitted ``_mean``/``_std`` arrays.
+    """
+    from . import transforms as T
+
+    name = type(transform).__name__
+    if name == "IdentityTransform":
+        return T.IdentityTransform(dtype=dtype, device=device)
+    config = dict(transform.config_dict())
+    config["dtype"] = dtype
+    config["device"] = device
+    if name == "AffineTransform":
+        out = T.AffineTransform(dtype=dtype, device=device)
+        _copy_affine_state(transform, out, dtype, device)
+        return out
+    if name in ("LogitTransform", "ProbitTransform", "PeriodicTransform"):
+        return getattr(T, name)(**config)
+    if name in ("CompositeTransform", "FlowTransform"):
+        out = getattr(T, name)(**config)
+        sub = getattr(transform, "_affine_transform", None)
+        if sub is not None and out._affine_transform is not None:
+            _copy_affine_state(sub, out._affine_transform, dtype, device)
+        return out
+    raise ValueError(f"Cannot convert transform of type {name}")
+
+
+def _copy_affine_state(src, dst, dtype, device) -> None:
+    if getattr(src, "_mean", None) is None:
+        return
+    dst._mean = as_tensor(np.array(src._mean), dtype=dtype, device=device)
+    dst._std = as_tensor(np.array(src._std), dtype=dtype, device=device)

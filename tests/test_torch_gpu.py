@@ -1,0 +1,38 @@
+"""The CUDA kernels against their plain torch versions, on the card.
+
+Marked ``gpu``: they skip without a CUDA device (the kernels have no CPU
+mode) and run on the H100 with
+``python -m pytest --noconftest tests/test_torch_gpu.py`` (that machine has
+no JAX, which ``tests/conftest.py`` imports). The
+checks and tolerances are ``chip_smoke.py``'s, at smaller sizes.
+"""
+
+import pytest
+import torch
+
+import chip_smoke
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_coupling_kernel_matches_plain(cuda):
+    out = chip_smoke.phase_coupling(cuda, 8192)
+    assert out["ill_conditioned_points"] <= 8192 * 4 * 6 * 1e-4
+
+
+def test_chain_kernel_matches_plain(cuda):
+    out = chip_smoke.phase_chain(cuda, 2048, 5)
+    assert abs(out["acceptance_kernel"] - out["acceptance_plain"]) < 0.1
+
+
+def test_main_path_routes_through_the_kernels(cuda):
+    out = chip_smoke.phase_main_path(cuda, 8192, 8192)
+    assert out["launches"]["coupling"] > 0 and out["launches"]["chain"] > 0
