@@ -1,11 +1,13 @@
 """aspire_tpu_torch: the PyTorch + CUDA port of ``aspire_tpu``.
 
-The main path of the JAX package - fit a coupling-flow proposal to
-existing posterior samples, then run adaptive-tempered SMC with tpCN
-mutations and read off the evidence - on an explicit torch device. On an
-NVIDIA H100 the coupling-flow pass and the whole mutation chain run as
-hand-written CUDA kernels (``csrc/``, built with nvcc at first use); on a
-CPU tensor every kernel wrapper runs its plain torch version. The package
+The main path of the JAX package - fit a flow proposal (a masked
+autoregressive flow by default, or a coupling flow) to existing
+posterior samples, then run adaptive-tempered SMC with tpCN mutations
+and read off the evidence - on an explicit torch device. On an NVIDIA
+H100 the coupling-flow passes, the whole mutation chain and the MAF-RQS
+density pass run as hand-written CUDA kernels (``csrc/``, built with
+nvcc at first use); on a CPU tensor every kernel wrapper runs its plain
+torch version. The package
 imports torch and numpy, never JAX.
 """
 

@@ -44,7 +44,7 @@ class Aspire:
         bounded_to_unbounded: bool = True,
         bounded_transform: str = "logit",
         flow: Flow | None = None,
-        flow_backend: str = "nsf",
+        flow_backend: str = "maf",
         eps: float = 1e-6,
         dtype: Any = None,
         seed: int | None = None,

@@ -1,34 +1,42 @@
-"""Normalizing flows: coupling architectures, training, factory."""
+"""Normalizing flows: MAF and coupling architectures, training, factory.
+
+Backend names and defaults follow ``aspire_tpu/flows/__init__.py``: MAF
+is the default, and the reference-style names ``jax``, ``flowjax``,
+``native``, ``zuko`` and ``torch`` map to it.
+"""
 
 from __future__ import annotations
 
-from .architectures import ARCHITECTURES, Coupling, get_architecture  # noqa: F401
+from .architectures import (  # noqa: F401
+    ARCHITECTURES,
+    MAF,
+    Architecture,
+    Coupling,
+    get_architecture,
+)
 from .base import Flow  # noqa: F401
 from .train import TrainConfig, fit_flow  # noqa: F401
 
-_KNOWN_BACKENDS = {
-    "nsf": Flow,
-    "nsf-tpu": Flow,
-    "realnvp": Flow,
-    "coupling": Flow,
-    "torch": Flow,
-}
+_ALIASES = ("jax", "flowjax", "native", "zuko", "torch")
+_KNOWN_BACKENDS = {name: Flow for name in (*ARCHITECTURES, *_ALIASES)}
+_NOT_PORTED = ("flow_matching", "cnf")
 
 
-def get_flow_class(backend: str = "nsf", flow_matching: bool = False) -> type:
+def get_flow_class(backend: str = "maf", flow_matching: bool = False) -> type:
     """Resolve a flow class from a backend/architecture name."""
-    if flow_matching:
+    name = (backend or "maf").lower()
+    if flow_matching or name in _NOT_PORTED:
         raise NotImplementedError(
             "flow-matching (CNF) flows are not ported yet")
-    name = (backend or "nsf").lower()
     if name in _KNOWN_BACKENDS:
         return _KNOWN_BACKENDS[name]
     raise ValueError(
         f"Unknown flow backend '{backend}'. Known backends: "
-        f"{sorted(_KNOWN_BACKENDS)} (MAF is not ported yet)"
+        f"{sorted(_KNOWN_BACKENDS)}"
     )
 
 
 def default_architecture_for_backend(backend: str) -> str:
-    name = (backend or "nsf").lower()
-    return name if name in ARCHITECTURES else "nsf"
+    """Map a backend name to the architecture string for :class:`Flow`."""
+    name = (backend or "maf").lower()
+    return name if name in ARCHITECTURES else "maf"

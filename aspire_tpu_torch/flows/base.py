@@ -16,7 +16,7 @@ import torch
 
 from ..transforms import BaseTransform, IdentityTransform
 from ..utils import as_tensor, resolve_device, resolve_dtype
-from .architectures import Coupling, get_architecture
+from .architectures import Architecture, get_architecture
 from .bijectors import standard_normal_log_prob, standard_normal_sample
 from .train import TrainConfig, fit_flow
 
@@ -30,13 +30,13 @@ _FIT_ALIASES = {
 
 
 class Flow:
-    """A trainable coupling-flow proposal on an explicit device (``device``
-    is required: nothing picks one for the caller)."""
+    """A trainable flow proposal (MAF or coupling) on an explicit device
+    (``device`` is required: nothing picks one for the caller)."""
 
     def __init__(
         self,
         dims: int,
-        architecture: str | Coupling = "nsf",
+        architecture: str | Architecture = "maf",
         data_transform: BaseTransform | None = None,
         seed: int | None = None,
         dtype: str = "float32",
@@ -46,7 +46,7 @@ class Flow:
         self.dims = dims
         self.dtype = resolve_dtype(dtype)
         self.device = resolve_device(device)
-        if isinstance(architecture, Coupling):
+        if isinstance(architecture, Architecture):
             self.architecture = architecture
         else:
             self.architecture = get_architecture(

@@ -97,6 +97,10 @@ def load_library() -> ctypes.CDLL:
         [_P] * 11 + [_I] * 9 + [_F] * 6 + [_U, _U, _I, _P]
     )
     lib.aspire_chain.restype = _I
+    lib.aspire_maf_layer_floats.argtypes = [_I]
+    lib.aspire_maf_layer_floats.restype = _I
+    lib.aspire_maf.argtypes = [_P, _P, _P, _P, _I, _I, _F, _I, _P]
+    lib.aspire_maf.restype = _I
     _lib = lib
     return lib
 

@@ -23,6 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..flows.architectures import Coupling
 from ..history import SMCHistory
 from ..ops import fused_mutation as FM
 from ..ops.special import effective_sample_size
@@ -188,13 +189,17 @@ class SMCSampler(Sampler):
     def _fused_chain_spec(self, kwargs, n: int, dtype) -> dict | None:
         """Dispatch predicate for the whole-chain kernel (None -> split).
 
-        Mirrors the JAX package's ``_fused_chain_spec``: float32, a coupling
-        flow, an identity or affine-only data transform, no
+        Mirrors the JAX package's ``_fused_chain_spec``: a coupling flow
+        (a MAF always takes the split chain, on every device), float32, an
+        identity or affine-only data transform, no
         preconditioning, a target with an in-kernel id, an integer
         ``nu + d`` for tpCN, whole tiles, and on a CUDA device a kernel
         compiled for the flow's shape.
         """
         if kwargs.get("fused_chain", "auto") in (False, "off"):
+            return None
+        arch = self.prior_flow.architecture
+        if not isinstance(arch, Coupling):
             return None
         kcfg = self._fused_kernel_config(kwargs)
         if (kcfg is None or self.preconditioning_transform is not None
@@ -208,7 +213,6 @@ class SMCSampler(Sampler):
                         gamma_odd=int(round(k2)) % 2)
         else:
             kcfg = dict(kcfg, gamma_m=0, gamma_odd=0)
-        arch = self.prior_flow.architecture
         try:
             kcfg["data_transform"] = affine_state(
                 self.prior_flow.data_transform)

@@ -12,11 +12,18 @@ Phases (each raises on failure, so the script exits non-zero):
    injected noise (exact acceptance counts), the in-kernel Philox stream
    against the same stream injected (bit-identical), and Philox against
    independent noise (statistical bounds);
-5. the main path: fit an nsf-tpu flow to 4000 draws of the 4-d Gaussian
+5. the MAF-RQS density kernel against the plain torch path at maf_rqs(4)
+   shapes, n = 131072, float32 with TF32 off;
+6. the main path: fit an nsf-tpu flow to 4000 draws of the 4-d Gaussian
    mixture, adaptive-tempered SMC at n = 8192 (log Z against the analytic
    value, every mutation on the chain kernel, launch counts), the same
    with the split chain, then the 131072-particle pipeline time;
-6. print kernel and plain times (median of per-call CUDA-event times), the
+7. the MAF path: fit a maf-rqs flow to the same draws, SMC at n = 8192
+   (log Z against the analytic value, every mutation on the split chain,
+   every density pass of it on the MAF kernel: launch counts), the
+   default flow_backend ("maf", affine, plain torch) at n = 8192, then
+   the maf-rqs 131072-particle pipeline time;
+8. print kernel and plain times (median of per-call CUDA-event times), the
    kernels JSON line and the result line.
 """
 
@@ -69,12 +76,14 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return times[reps // 2]
 
 
-def perturbed_flow(device, seed: int = 0):
+def perturbed_flow(device, seed: int = 0, arch=None):
+    """``arch`` (default nsf-tpu at d = 4) with its identity initialisation
+    perturbed by 0.1 N(0, 1) noise on every weight and bias."""
     import torch
 
     from aspire_tpu_torch.flows.architectures import nsf_tpu
 
-    arch = nsf_tpu(4)
+    arch = arch or nsf_tpu(4)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = arch.init(gen, device)
@@ -84,6 +93,21 @@ def perturbed_flow(device, seed: int = 0):
                 layer[k] = layer[k] + 0.1 * torch.randn(
                     layer[k].shape, generator=gen, device=device)
     return arch, params
+
+
+def as_float64(params):
+    return {"layers": [{"layers": [{k: v.double() for k, v in l.items()}
+                                   for l in net["layers"]]}
+                       for net in params["layers"]]}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    for counter in (FC.launches, FC.maf_launches, FM.launches):
+        counter.reset()
 
 
 def max_err(a, b) -> float:
@@ -120,9 +144,7 @@ def phase_coupling(device, n: int) -> dict:
     from aspire_tpu_torch.ops import fused_coupling as FC
 
     arch, params = perturbed_flow(device)
-    params64 = {"layers": [{"layers": [{k: v.double() for k, v in l.items()}
-                                       for l in net["layers"]]}
-                           for net in params["layers"]]}
+    params64 = as_float64(params)
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     x = 2.0 * torch.randn((n, 4), generator=gen, device=device)
@@ -155,6 +177,39 @@ def phase_coupling(device, n: int) -> dict:
         out["wrapper_ms"] = cuda_ms(
             lambda: FC.coupling_kernel_apply(arch, "forward", params, x))
     log(f"coupling kernel vs plain at n={n}: {out}")
+    return out
+
+
+def phase_maf(device, n: int) -> dict:
+    """The MAF-RQS density kernel (B4) against MAF.forward_plain at
+    maf_rqs(4) shapes, with a float64 plain run deciding f32-ill-conditioned
+    points."""
+    import torch
+
+    from aspire_tpu_torch.flows.architectures import maf_rqs
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    arch, params = perturbed_flow(device, seed=4, arch=maf_rqs(4))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    x = 2.0 * torch.randn((n, 4), generator=gen, device=device)
+    z_k, ld_k = FC.maf_kernel_apply(arch, params, x)
+    z_p, ld_p = arch.forward_plain(params, x)
+    z_e, ld_e = arch.forward_plain(as_float64(params), x.double())
+    n_bad = assert_kernel_close(z_k, z_p, z_e, "MAF density z")
+    n_bad += assert_kernel_close(ld_k, ld_p, ld_e, "MAF density log_det")
+    out = {"max_abs_err": max(max_err(z_k, z_p), max_err(ld_k, ld_p)),
+           "ill_conditioned_points": n_bad}
+    if device.type == "cuda":
+        w = FC.prepare_maf_params(arch, params)
+        out["ms"] = cuda_ms(lambda: FC.launch_maf(arch, w, x))
+        out["plain_ms"] = cuda_ms(lambda: arch.forward_plain(params, x))
+        # Through the autograd wrapper the main path calls: weights
+        # packed once per parameter set.
+        out["wrapper_ms"] = cuda_ms(
+            lambda: FC.fused_maf_forward(arch, params, x))
+        out["pack_ms"] = cuda_ms(lambda: FC.prepare_maf_params(arch, params))
+    log(f"MAF kernel vs plain at n={n}: {out}")
     return out
 
 
@@ -283,12 +338,12 @@ def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
     asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
                  dims=4, parameters=p.parameters, flow_backend="nsf",
                  architecture="nsf-tpu", seed=1, device=device)
-    FC.launches.reset()
-    FM.launches.reset()
+    reset_launch_counts()
     asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
     samples = asp.sample_posterior(sampler="smc", n_samples=n_anchor,
                                    sampler_kwargs=dict(n_steps=CHAIN_STEPS))
-    launches = {"coupling": FC.launches.count, "chain": FM.launches.count}
+    launches = {"coupling": FC.launches.count, "chain": FM.launches.count,
+                "maf": FC.maf_launches.count}
     routes = asp.sampler.history.mutation_route
     log(f"anchor: log Z {samples.log_evidence:.4f} +/- "
         f"{samples.log_evidence_error:.4f} (truth {truth:.4f}), "
@@ -327,6 +382,80 @@ def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
             "log_z_err": samples.log_evidence_error, "truth": truth,
             "pipeline_s": walls[1],
             "n_mutations": len(routes)}
+
+
+def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
+    """The MAF path: a maf-rqs flow fitted and run through SMC, where
+    every mutation takes the split chain and every density pass of it the
+    MAF kernel; then the default flow_backend ("maf", affine) anchor and
+    the maf-rqs pipeline."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.flows.architectures import MAF
+    from aspire_tpu_torch.models import GaussianMixtureProblem
+    from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    p = GaussianMixtureProblem(dims=4)
+    truth = p.true_log_evidence()
+    init = Samples(p.draw_initial_samples(np.random.default_rng(42), 4000))
+    kw = dict(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+              dims=4, parameters=p.parameters, seed=1, device=device)
+    fit_kw = dict(n_epochs=20, batch_size=512, learning_rate=3e-3)
+    run_kw = dict(sampler="smc", sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    asp = Aspire(flow_backend="maf-rqs", **kw)
+    reset_launch_counts()
+    asp.fit(init, **fit_kw)
+    samples = asp.sample_posterior(n_samples=n_anchor, **run_kw)
+    launches = {"maf": FC.maf_launches.count,
+                "coupling": FC.launches.count, "chain": FM.launches.count}
+    routes = asp.sampler.history.mutation_route
+    log(f"maf-rqs anchor: log Z {samples.log_evidence:.4f} +/- "
+        f"{samples.log_evidence_error:.4f} (truth {truth:.4f}), "
+        f"{len(routes)} mutations {set(routes)}, launches {launches}")
+    if set(routes) != {"split"}:
+        raise AssertionError(f"a MAF mutation left the split chain: {routes}")
+    # One density pass for the start state, one per step, one after.
+    need = (CHAIN_STEPS + 2) * len(routes)
+    if device.type == "cuda" and (launches["maf"] < max(need, 1)
+                                  or launches["coupling"]
+                                  or launches["chain"]):
+        raise AssertionError(
+            f"the MAF path's density passes left the MAF kernel: "
+            f"{launches}, need >= {need} MAF launches")
+    check_result(samples, n_anchor, truth)
+
+    default = Aspire(**kw)
+    default.fit(init, **fit_kw)
+    arch = default.flow.architecture
+    if not (isinstance(arch, MAF) and arch.transformer == "affine"):
+        raise AssertionError(f"the default flow is not affine MAF: {arch}")
+    dpost = default.sample_posterior(n_samples=n_anchor, **run_kw)
+    log(f"default (maf) anchor: log Z {dpost.log_evidence:.4f} +/- "
+        f"{dpost.log_evidence_error:.4f}, routes "
+        f"{set(default.sampler.history.mutation_route)}")
+    check_result(dpost, n_anchor, truth)
+
+    asp.sample_posterior(n_samples=n_pipeline, **run_kw)
+    walls = []
+    for _ in range(3):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big = asp.sample_posterior(n_samples=n_pipeline, **run_kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check_result(big, n_pipeline, truth)
+    walls.sort()
+    log(f"maf-rqs {n_pipeline}-particle pipeline walls: {walls}")
+    return {"launches": launches, "log_z": samples.log_evidence,
+            "log_z_err": samples.log_evidence_error, "truth": truth,
+            "default_log_z": dpost.log_evidence,
+            "default_log_z_err": dpost.log_evidence_error,
+            "pipeline_s": walls[1], "n_mutations": len(routes)}
 
 
 def check_result(samples, n: int, truth: float) -> None:
@@ -370,7 +499,9 @@ def main() -> int:
 
     coupling = phase_coupling(device, N_COUPLING)
     chain = phase_chain(device, N_CHAIN, CHAIN_STEPS)
+    maf = phase_maf(device, N_COUPLING)
     main_path = phase_main_path(device, N_CHAIN, N_PIPELINE)
+    maf_path = phase_maf_main_path(device, N_CHAIN, N_PIPELINE)
     chain_t = time_chain(device, N_PIPELINE, CHAIN_STEPS)
 
     print(f"[{card}] coupling kernel, density pass, n={N_COUPLING}: "
@@ -385,6 +516,17 @@ def main() -> int:
           f"{main_path['pipeline_s']:.4f} s (median of 3); anchor log Z "
           f"{main_path['log_z']:.4f} +/- {main_path['log_z_err']:.4f} vs "
           f"{main_path['truth']:.4f}", flush=True)
+    print(f"[{card}] MAF kernel, density pass, maf_rqs(4), n={N_COUPLING}: "
+          f"{maf['ms']:.4f} ms (plain torch {maf['plain_ms']:.4f} ms; through "
+          f"the wrapper, packed once per parameter set, "
+          f"{maf['wrapper_ms']:.4f} ms; one packing {maf['pack_ms']:.4f} ms)")
+    print(f"[{card}] maf-rqs sample_posterior pipeline, n={N_PIPELINE}: "
+          f"{maf_path['pipeline_s']:.4f} s (median of 3); anchor log Z "
+          f"{maf_path['log_z']:.4f} +/- {maf_path['log_z_err']:.4f}, default "
+          f"maf {maf_path['default_log_z']:.4f} +/- "
+          f"{maf_path['default_log_z_err']:.4f} vs {maf_path['truth']:.4f}; "
+          f"{maf_path['launches']['maf']} MAF launches in "
+          f"{maf_path['n_mutations']} mutations", flush=True)
     kernels = [
         {"name": "coupling_kernel (B1 density / B3 sampling)",
          "route": "cuda", "source": "aspire_tpu_torch/csrc/coupling.cu",
@@ -400,6 +542,13 @@ def main() -> int:
          "launches": main_path["launches"]["chain"],
          "max_abs_err": chain["max_abs_err"],
          "ms": chain_t["ms"], "plain_ms": chain_t["plain_ms"]},
+        {"name": "maf_kernel (B4)", "route": "cuda",
+         "source": "aspire_tpu_torch/csrc/maf.cu",
+         "replaces": "aspire_tpu/ops/fused_coupling.py:598",
+         "launches": maf_path["launches"]["maf"],
+         "max_abs_err": maf["max_abs_err"],
+         "ms": maf["ms"], "plain_ms": maf["plain_ms"],
+         "wrapper_ms": maf["wrapper_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,3 +36,14 @@ def test_chain_kernel_matches_plain(cuda):
 def test_main_path_routes_through_the_kernels(cuda):
     out = chip_smoke.phase_main_path(cuda, 8192, 8192)
     assert out["launches"]["coupling"] > 0 and out["launches"]["chain"] > 0
+
+
+def test_maf_kernel_matches_plain(cuda):
+    out = chip_smoke.phase_maf(cuda, 8192)
+    assert out["ill_conditioned_points"] <= 8192 * 5 * 1e-4
+
+
+def test_maf_path_routes_through_the_maf_kernel(cuda):
+    out = chip_smoke.phase_maf_main_path(cuda, 8192, 8192)
+    assert out["launches"]["maf"] >= (chip_smoke.CHAIN_STEPS + 2) * out[
+        "n_mutations"] > 0
