@@ -65,23 +65,6 @@ struct ChainArgs {
   uint32_t seed0, seed1;
 };
 
-// Philox4x32-10 (Salmon et al. 2011, the Random123 constants).
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
 // The uniforms of one particle's step, in increasing row order.
 struct NoiseStream {
   const float* noise;  // injected (n_steps, rows, n), or nullptr

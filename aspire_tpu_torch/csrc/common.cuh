@@ -1,8 +1,10 @@
 // Device functions shared by the coupling-flow kernel (coupling.cu), the
-// whole-chain Metropolis kernel (chain.cu) and the MAF density kernel
-// (maf.cu): the conditioner MLP of one coupling layer, the
-// rational-quadratic spline and affine transformers, and the whole
-// multi-layer coupling-flow pass for ONE particle held in registers.
+// whole-chain Metropolis kernel (chain.cu), the MAF density kernel
+// (maf.cu), the tile-cooperative coupling kernels (staged_coupling.cu)
+// and the uniforms kernel (prng.cu): the conditioner MLP of one coupling
+// layer, the rational-quadratic spline and affine transformers, the whole
+// multi-layer coupling-flow pass for ONE particle held in registers, and
+// Philox4x32-10.
 //
 // Replaces the per-tile helpers of the TPU kernels in
 // aspire_tpu/ops/fused_coupling.py (_layer_matmuls, _layer_transform,
@@ -271,6 +273,25 @@ __device__ __forceinline__ void flow_pass(const float* __restrict__ w,
   }
 }
 
+// Philox4x32-10 (Salmon et al. 2011, the Random123 constants): the
+// chain kernel's proposal noise (chain.cu) and the uniforms kernel
+// (prng.cu).
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
 // Cooperative copy of `n4` float4s from global to shared memory.
 __device__ __forceinline__ void load_shared(float4* dst,
                                             const float4* __restrict__ src,
@@ -292,3 +313,17 @@ __device__ __forceinline__ void load_shared(float4* dst,
 // Configurations of the MAF-RQS density kernel: (id, D, H1, H2, K).
 // ops/fused_coupling.py::MAF_KERNEL_CONFIGS mirrors this list.
 #define ASPIRE_MAF_CONFIGS(X) X(0, 4, 64, 64, 8)
+
+// Configurations of the tile-cooperative coupling density pass
+// (staged_coupling.cu): (id, D, H1, H2, K, Q, S, PAIRED, MICRO) with Q
+// sub-tiles of S particles per block. S is the largest multiple of 16 whose
+// Q * S * StagedBuffers::SIZE floats fit beside 4 layers' weights in one
+// block's shared memory; ops/staged_coupling.py::STAGED_CONFIGS mirrors
+// this list and ::sub_tile gives the same S.
+#define ASPIRE_STAGED_CONFIGS(X)          \
+  X(0, 4, 64, 64, 8, 2, 64, false, false) \
+  X(1, 4, 64, 64, 8, 3, 48, false, false) \
+  X(2, 4, 64, 64, 8, 4, 32, false, false) \
+  X(3, 4, 64, 64, 8, 8, 16, false, false) \
+  X(4, 4, 64, 64, 8, 2, 64, true, false)  \
+  X(5, 4, 64, 64, 8, 2, 64, true, true)

@@ -3,7 +3,8 @@
 The sources in ``aspire_tpu_torch/csrc`` compile into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 cached under ``aspire_tpu_torch/_build`` by a hash of the sources and
-flags. Nothing here runs at import time.
+flags: one ``nvcc -c`` per source, all started together, then one link.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,13 +14,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v", "-lineinfo",
 ]
 
@@ -57,23 +59,37 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the library unless a build of these exact sources exists.
 
-    The compiler's resource report (``-Xptxas -v``: registers, shared
-    memory and spills of every kernel) is kept beside the library.
+    Every ``.cu`` file compiles in its own ``nvcc -c``, all at once, into a
+    private directory; one ``nvcc -shared`` links the objects. The
+    compiler's resource report (``-Xptxas -v``: registers, shared memory
+    and spills of every kernel) is kept beside the library.
     """
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp, f"{src.stem}.o")) for src in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)], text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for src, obj in zip(srcs, objs)]
+        steps = [(src.name, proc.communicate()[0], proc.returncode)
+                 for src, proc in zip(srcs, procs)]
+        lib = Path(tmp, out.name)
+        if not any(rc for *_, rc in steps):
+            link = subprocess.run([nvcc, "-shared", "-o", str(lib), *objs],
+                                  capture_output=True, text=True)
+            steps.append(("link", link.stdout + link.stderr, link.returncode))
+        out.with_suffix(".log").write_text(
+            "".join(f"== {name}\n{text}" for name, text, _ in steps))
+        failed = [f"{name} ({rc}):\n{text[-4000:]}"
+                  for name, text, rc in steps if rc]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(lib, out)
     return out
 
 
@@ -101,6 +117,12 @@ def load_library() -> ctypes.CDLL:
     lib.aspire_maf_layer_floats.restype = _I
     lib.aspire_maf.argtypes = [_P, _P, _P, _P, _I, _I, _F, _I, _P]
     lib.aspire_maf.restype = _I
+    lib.aspire_staged_config.argtypes = [_I, _P]
+    lib.aspire_staged_config.restype = _I
+    lib.aspire_staged.argtypes = [_P, _P, _P, _P, _I, _I, _F, _I, _P]
+    lib.aspire_staged.restype = _I
+    lib.aspire_prng_uniforms.argtypes = [_P, ctypes.c_longlong, _U, _U, _P]
+    lib.aspire_prng_uniforms.restype = _I
     _lib = lib
     return lib
 

@@ -23,8 +23,17 @@ Phases (each raises on failure, so the script exits non-zero):
    every density pass of it on the MAF kernel: launch counts), the
    default flow_backend ("maf", affine, plain torch) at n = 8192, then
    the maf-rqs 131072-particle pipeline time;
-8. print kernel and plain times (median of per-call CUDA-event times), the
-   kernels JSON line and the result line.
+8. the staged coupling kernels (D1-D3), as the dev scripts'
+   A/B runs them: their flow (4 coupling layers, (64, 64), 8 bins) at
+   n = 131072, each variant through its wrapper and timed in turns with
+   the coupling kernel B1 (B1, variant, variant, B1), then held against
+   its plain schedule (float64 deciding f32-ill-conditioned points) and,
+   but for D3 with rqs_micro, against B1;
+9. the uniforms kernel (D4): the probe's (8, 256) at seed (3, 7) and the
+   131072 x 8 x 20 uniforms of a 20-step chain, bit for bit against the
+   plain Philox stream, beside torch.rand;
+10. print kernel and plain times (median of per-call CUDA-event times),
+   each kernel's bound, the kernels JSON line and the result line.
 """
 
 from __future__ import annotations
@@ -44,6 +53,10 @@ CHAIN_STEPS = 20
 COUPLING_TOL = dict(rtol=1e-3, atol=1e-4)
 # The JAX package's fused-chain parity bounds (tests/test_fused_mutation.py).
 Z_ATOL, DENSITY_ATOL, STEP_RTOL, STATS_RTOL = 2e-4, 2e-3, 1e-5, 1e-4
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): FP32
+# outside the tensor cores, TF32 in them, HBM3 bandwidth.
+FP32_FLOP_S, TF32_FLOP_S, HBM_BYTE_S = 67e12, 495e12, 3.35e12
+PROBE_SEED = (3, 7)
 
 
 def log(msg: str) -> None:
@@ -105,9 +118,54 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from aspire_tpu_torch.ops import fused_coupling as FC
     from aspire_tpu_torch.ops import fused_mutation as FM
+    from aspire_tpu_torch.ops import prng as PR
+    from aspire_tpu_torch.ops import staged_coupling as SC
 
-    for counter in (FC.launches, FC.maf_launches, FM.launches):
+    for counter in (FC.launches, FC.maf_launches, FM.launches,
+                    SC.interleaved_launches, SC.q_launches,
+                    SC.packed_launches, PR.launches):
         counter.reset()
+
+
+def coupling_flop(arch) -> int:
+    """FLOP per particle of one coupling-flow pass: per layer the
+    conditioner's products over the conditioning inputs, both hidden
+    layers and the active dims' spline parameters, 2 FLOP per
+    multiply-add (the splines' few hundred operations are not counted)."""
+    h1, h2 = arch.n_hidden
+    flop = 0
+    for layer in range(arch.n_layers):
+        active = len([i for i in range(arch.dims) if i % 2 == layer % 2])
+        flop += 2 * ((arch.dims - active) * h1 + h1 * h2
+                     + h2 * active * arch.n_params_per_dim)
+    return flop
+
+
+def maf_flop(arch) -> int:
+    """FLOP per particle of the MAF density pass: per layer the MADE's
+    products by the weights its masks keep (a masked weight is zero and
+    needs no product), 2 FLOP per multiply-add."""
+    from aspire_tpu_torch.flows.nets import made_masks
+
+    masks, _ = made_masks(arch.dims, list(arch.n_hidden),
+                          arch.n_params_per_dim)
+    return arch.n_layers * 2 * int(sum(int(m.sum()) for m in masks))
+
+
+def bound(flop: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the FP32 compute
+    time and the time to move each input and output byte once (and the
+    TF32 compute time, for a tensor-core design)."""
+    t_op, t_mem = flop / FP32_FLOP_S, nbytes / HBM_BYTE_S
+    return {"bound_ms": 1e3 * max(t_op, t_mem),
+            "bound_by": "operations" if t_op >= t_mem else "bytes",
+            "bound_tf32_ms": 1e3 * max(flop / TF32_FLOP_S, t_mem),
+            "flop": flop, "bytes": nbytes}
+
+
+def density_bytes(arch, n: int, weight_bytes: int) -> int:
+    """x read, z and log_det written, the weights read once."""
+    return n * (2 * arch.dims + 1) * 4 + weight_bytes
 
 
 def max_err(a, b) -> float:
@@ -210,6 +268,156 @@ def phase_maf(device, n: int) -> dict:
             lambda: FC.fused_maf_forward(arch, params, x))
         out["pack_ms"] = cuda_ms(lambda: FC.prepare_maf_params(arch, params))
     log(f"MAF kernel vs plain at n={n}: {out}")
+    return out
+
+
+def phase_staged_coupling(device, n: int) -> dict:
+    """D1-D3 as the dev scripts' A/B runs them: their flow and init
+    (4 coupling layers, (64, 64), 8 bins, 0.1 N(0, 1) perturbation) on
+    n standard-normal inputs; every variant through its wrapper and timed
+    in turns with B1 (B1, variant, variant, B1), with the launch counts of
+    that run; then each held against its plain schedule and, but for D3
+    with rqs_micro, against B1 on the same inputs."""
+    import torch
+
+    from aspire_tpu_torch.flows.architectures import Coupling
+    from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.ops import staged_coupling as SC
+
+    arch, params = perturbed_flow(device, seed=6, arch=Coupling(
+        dims=4, n_layers=4, n_hidden=(64, 64), transformer="rqs"))
+    params64 = as_float64(params)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    x = torch.randn((n, 4), generator=gen, device=device)
+    x64 = x.double()
+    w = FC.prepare_params(arch, params)
+
+    def b1():
+        return FC.launch_packed(arch, "forward", w, x)
+
+    def variant(apply, launch, plain, exact=None, against_b1=True):
+        return dict(apply=apply, launch=launch, plain=plain, exact=exact,
+                    against_b1=against_b1)
+
+    # D1 is D2's q = 2 configuration: its run stands for that Q.
+    variants = {"D1": variant(
+        lambda: SC.interleaved_apply(arch, params, x),
+        lambda: SC.launch_interleaved(arch, w, x),
+        lambda: SC.staged_plain(arch, params, x, 2, SC.sub_tile(arch, 2)))}
+    for q in (q for q in SC.COMPILED_Q if q != 2):
+        variants[f"D2 q={q}"] = variant(
+            lambda q=q: SC.q_apply(arch, params, x, q),
+            lambda q=q: SC.launch_q(arch, w, x, q),
+            lambda q=q: SC.staged_plain(arch, params, x, q,
+                                        SC.sub_tile(arch, q)))
+    s2 = SC.sub_tile(arch, 2)
+    variants["D3"] = variant(
+        lambda: SC.packed_apply(arch, params, x),
+        lambda: SC.launch_packed(arch, w, x),
+        lambda: SC.paired_plain(arch, params, x, s2))
+    variants["D3 micro"] = variant(
+        lambda: SC.packed_apply(arch, params, x, micro=True),
+        lambda: SC.launch_packed(arch, w, x, micro=True),
+        lambda: SC.paired_plain(arch, params, x, s2, micro=True),
+        exact=lambda: SC.paired_plain(arch, params64, x64, s2, micro=True),
+        against_b1=False)
+
+    # The A/B path: each variant through its wrapper, then timed in turns
+    # with B1, as the dev scripts time `current` before and after.
+    reset_launch_counts()
+    runs = {}
+    for key, v in variants.items():
+        out = v["apply"]()
+        b1_a = cuda_ms(b1)
+        ms_a, ms_b = cuda_ms(v["launch"]), cuda_ms(v["launch"])
+        b1_b = cuda_ms(b1)
+        runs[key] = {"out": out, "ms": 0.5 * (ms_a + ms_b),
+                     "b1_ms": 0.5 * (b1_a + b1_b),
+                     "turns_ms": [b1_a, ms_a, ms_b, b1_b]}
+        log(f"{key}: B1, variant, variant, B1 = {runs[key]['turns_ms']}")
+    launches = {"D1": SC.interleaved_launches.count,
+                "D2": SC.q_launches.count, "D3": SC.packed_launches.count}
+    log(f"staged A/B path launches: {launches}")
+    if device.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"a staged kernel never ran: {launches}")
+
+    # Checks, outside the path's launch counts.
+    z_b1, ld_b1 = b1()
+    z_e, ld_e = arch.forward_plain(params64, x64)
+    results = {}
+    for key, v in variants.items():
+        z_k, ld_k = runs[key]["out"]
+        z_p, ld_p = v["plain"]()
+        z_x, ld_x = v["exact"]() if v["exact"] else (z_e, ld_e)
+        n_bad = assert_kernel_close(z_k, z_p, z_x, f"{key} z")
+        n_bad += assert_kernel_close(ld_k, ld_p, ld_x, f"{key} log_det")
+        b1_err = None
+        if v["against_b1"]:
+            n_bad += assert_kernel_close(z_k, z_b1, z_e, f"{key} z vs B1")
+            n_bad += assert_kernel_close(ld_k, ld_b1, ld_e,
+                                         f"{key} log_det vs B1")
+            b1_err = max(max_err(z_k, z_b1), max_err(ld_k, ld_b1))
+        results[key] = {
+            "ms": runs[key]["ms"], "b1_ms": runs[key]["b1_ms"],
+            "turns_ms": runs[key]["turns_ms"],
+            "plain_ms": cuda_ms(v["plain"], reps=5),
+            "max_abs_err": max(max_err(z_k, z_p), max_err(ld_k, ld_p)),
+            "max_abs_err_vs_b1": b1_err, "ill_conditioned_points": n_bad}
+        log(f"{key} vs plain at n={n}: {results[key]}")
+    return {"variants": results, "launches": launches,
+            **bound(n * coupling_flop(arch),
+                    density_bytes(arch, n, FC.weight_bytes(arch)))}
+
+
+def phase_prng(device, n: int) -> dict:
+    """D4: the probe's (8, 256) uniforms at seed (3, 7), and the
+    n x 8 x CHAIN_STEPS uniforms of a chain, each bit for bit against the
+    plain Philox stream, with torch.rand on a CUDA generator timed beside
+    the large draw."""
+    import torch
+
+    from aspire_tpu_torch.ops import prng as PR
+
+    shape = (CHAIN_STEPS, 8, n)
+    reset_launch_counts()
+    probe = PR.prng_uniforms(PROBE_SEED, (8, 256), device)
+    draws = PR.prng_uniforms(PROBE_SEED, shape, device)
+    ms = cuda_ms(lambda: PR.prng_uniforms(PROBE_SEED, shape, device))
+    launches = PR.launches.count
+    if device.type == "cuda" and launches < 1:
+        raise AssertionError("the uniforms kernel never ran")
+
+    stats = {"mean": float(probe.mean()), "min": float(probe.min()),
+             "max": float(probe.max())}
+    log(f"probe (8, 256), seed {PROBE_SEED}: {stats}")
+    if not (0.0 < stats["min"] and stats["max"] < 1.0):
+        raise AssertionError(f"probe uniforms outside (0, 1): {stats}")
+    err = 0.0
+    for got, want in ((probe, PR.prng_plain(PROBE_SEED, (8, 256), "cpu")),
+                      (probe, PR.prng_plain(PROBE_SEED, (8, 256), device)),
+                      (draws, PR.prng_plain(PROBE_SEED, shape, device))):
+        err = max(err, max_err(got.cpu(), want.cpu()))
+        if not torch.equal(got.cpu(), want.cpu()):
+            raise AssertionError("uniforms kernel differs from plain Philox")
+    # The probe's conversion in float32 maps the largest word to 1.0.
+    if not (float(draws.min()) > 0.0 and float(draws.max()) <= 1.0):
+        raise AssertionError("uniforms outside (0, 1]")
+    m = draws.numel()
+    mean, var = float(draws.double().mean()), float(draws.double().var())
+    if abs(mean - 0.5) > 5 * math.sqrt(1 / 12 / m) or abs(
+            var - 1 / 12) > 5 * math.sqrt((1 / 80 - 1 / 144) / m):
+        raise AssertionError(f"uniform moments off: {mean}, {var}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    out = {"probe": stats, "launches": launches, "ms": ms, "n": m,
+           "max_abs_err": err,
+           "plain_ms": cuda_ms(lambda: PR.prng_plain(PROBE_SEED, shape,
+                                                     device), reps=5),
+           "library_ms": cuda_ms(lambda: torch.rand(
+               shape, generator=gen, device=device)),
+           **bound(0, 4 * m)}
+    log(f"uniforms kernel, {m} draws: {out}")
     return out
 
 
@@ -503,6 +711,8 @@ def main() -> int:
     main_path = phase_main_path(device, N_CHAIN, N_PIPELINE)
     maf_path = phase_maf_main_path(device, N_CHAIN, N_PIPELINE)
     chain_t = time_chain(device, N_PIPELINE, CHAIN_STEPS)
+    staged = phase_staged_coupling(device, N_COUPLING)
+    uniforms = phase_prng(device, N_PIPELINE)
 
     print(f"[{card}] coupling kernel, density pass, n={N_COUPLING}: "
           f"{coupling['ms']:.4f} ms (plain torch {coupling['plain_ms']:.4f} ms;"
@@ -527,6 +737,37 @@ def main() -> int:
           f"{maf_path['default_log_z_err']:.4f} vs {maf_path['truth']:.4f}; "
           f"{maf_path['launches']['maf']} MAF launches in "
           f"{maf_path['n_mutations']} mutations", flush=True)
+    from aspire_tpu_torch.flows.architectures import maf_rqs, nsf_tpu
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    nsf4, maf4 = nsf_tpu(4), maf_rqs(4)
+    b1_bound = bound(N_COUPLING * coupling_flop(nsf4),
+                     density_bytes(nsf4, N_COUPLING, FC.weight_bytes(nsf4)))
+    # B2: one flow density per step and one for the start, z0 read, z and
+    # four per-particle outputs written.
+    b2_bound = bound(
+        (CHAIN_STEPS + 1) * N_PIPELINE * coupling_flop(nsf4),
+        N_PIPELINE * (2 * 4 + 4) * 4 + FC.weight_bytes(nsf4))
+    b4_bound = bound(
+        N_COUPLING * maf_flop(maf4),
+        density_bytes(maf4, N_COUPLING,
+                      4 * maf4.n_layers * FC.maf_layer_floats(maf4)))
+    var = staged["variants"]
+    staged_bound = {k: staged[k] for k in
+                    ("bound_ms", "bound_by", "bound_tf32_ms", "flop",
+                     "bytes")}
+    d2 = {"2": var["D1"], **{k[5:]: v for k, v in var.items()
+                             if k.startswith("D2")}}
+    for key, v in var.items():
+        print(f"[{card}] {key}, staged coupling density pass, 4 layers, "
+              f"n={N_COUPLING}: {v['ms']:.4f} ms (B1 in turns "
+              f"{v['b1_ms']:.4f} ms; plain torch {v['plain_ms']:.4f} ms; "
+              f"bound {staged['bound_ms']:.4f} ms FP32)")
+    print(f"[{card}] uniforms kernel (D4), {uniforms['n']} draws: "
+          f"{uniforms['ms']:.4f} ms (plain torch {uniforms['plain_ms']:.4f} "
+          f"ms; torch.rand {uniforms['library_ms']:.4f} ms; bound "
+          f"{uniforms['bound_ms']:.4f} ms); probe (8, 256) seed "
+          f"{PROBE_SEED}: {uniforms['probe']}", flush=True)
     kernels = [
         {"name": "coupling_kernel (B1 density / B3 sampling)",
          "route": "cuda", "source": "aspire_tpu_torch/csrc/coupling.cu",
@@ -534,6 +775,7 @@ def main() -> int:
          "launches": main_path["launches"]["coupling"],
          "max_abs_err": coupling["max_abs_err"],
          "ms": coupling["ms"], "plain_ms": coupling["plain_ms"],
+         **b1_bound, "library_ms": None,
          "inverse_ms": coupling["inverse_ms"],
          "inverse_plain_ms": coupling["inverse_plain_ms"]},
         {"name": "chain_kernel (B2)", "route": "cuda",
@@ -541,14 +783,52 @@ def main() -> int:
          "replaces": "aspire_tpu/ops/fused_mutation.py:1038",
          "launches": main_path["launches"]["chain"],
          "max_abs_err": chain["max_abs_err"],
-         "ms": chain_t["ms"], "plain_ms": chain_t["plain_ms"]},
+         "ms": chain_t["ms"], "plain_ms": chain_t["plain_ms"],
+         **b2_bound, "library_ms": None},
         {"name": "maf_kernel (B4)", "route": "cuda",
          "source": "aspire_tpu_torch/csrc/maf.cu",
          "replaces": "aspire_tpu/ops/fused_coupling.py:598",
          "launches": maf_path["launches"]["maf"],
          "max_abs_err": maf["max_abs_err"],
          "ms": maf["ms"], "plain_ms": maf["plain_ms"],
+         **b4_bound, "library_ms": None,
          "wrapper_ms": maf["wrapper_ms"]},
+        {"name": "staged_kernel interleaved (D1)", "route": "cuda",
+         "source": "aspire_tpu_torch/csrc/staged_coupling.cu",
+         "replaces": "benchmarks/dev/interleave_ab.py:122",
+         "launches": staged["launches"]["D1"],
+         "max_abs_err": var["D1"]["max_abs_err"],
+         "ms": var["D1"]["ms"], "plain_ms": var["D1"]["plain_ms"],
+         **staged_bound, "library_ms": None, "b1_ms": var["D1"]["b1_ms"]},
+        {"name": "staged_kernel q (D2)", "route": "cuda",
+         "source": "aspire_tpu_torch/csrc/staged_coupling.cu",
+         "replaces": "benchmarks/dev/quad_interleave_ab.py:96",
+         "launches": staged["launches"]["D2"],
+         "max_abs_err": max(v["max_abs_err"] for v in d2.values()),
+         "ms": var["D2 q=4"]["ms"], "plain_ms": var["D2 q=4"]["plain_ms"],
+         **staged_bound, "library_ms": None,
+         "ms_by_q": {q: v["ms"] for q, v in d2.items()},
+         "plain_ms_by_q": {q: v["plain_ms"] for q, v in d2.items()},
+         "b1_ms_by_q": {q: v["b1_ms"] for q, v in d2.items()}},
+        {"name": "staged_kernel packed (D3)", "route": "cuda",
+         "source": "aspire_tpu_torch/csrc/staged_coupling.cu",
+         "replaces": "benchmarks/dev/packed_ab.py:147",
+         "launches": staged["launches"]["D3"],
+         "max_abs_err": max(var["D3"]["max_abs_err"],
+                            var["D3 micro"]["max_abs_err"]),
+         "ms": var["D3"]["ms"], "plain_ms": var["D3"]["plain_ms"],
+         **staged_bound, "library_ms": None, "b1_ms": var["D3"]["b1_ms"],
+         "micro_ms": var["D3 micro"]["ms"],
+         "micro_plain_ms": var["D3 micro"]["plain_ms"]},
+        {"name": "prng_uniforms (D4)", "route": "cuda",
+         "source": "aspire_tpu_torch/csrc/prng.cu",
+         "replaces": "benchmarks/dev/prng_probe.py:15",
+         "launches": uniforms["launches"],
+         "max_abs_err": uniforms["max_abs_err"],
+         "ms": uniforms["ms"], "plain_ms": uniforms["plain_ms"],
+         **{k: uniforms[k] for k in ("bound_ms", "bound_by", "flop",
+                                     "bytes")},
+         "library_ms": uniforms["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

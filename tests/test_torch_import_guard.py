@@ -40,7 +40,19 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)", re.MULTILINE)
-    offenders = [str(p) for p in PACKAGE.rglob("*.py")
-                 if pattern.search(p.read_text())]
+    """No port source and not ``chip_smoke.py`` imports JAX or anything of
+    the JAX package ``aspire_tpu`` (``aspire_tpu_torch`` is the port)."""
+    patterns = [
+        re.compile(r"^\s*(import jax|from jax)", re.MULTILINE),
+        re.compile(r"^\s*(import|from)\s+aspire_tpu(?![\w])", re.MULTILINE),
+    ]
+    sources = [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]
+    offenders = [(str(p), pattern.pattern) for p in sources
+                 for pattern in patterns if pattern.search(p.read_text())]
     assert offenders == []
+    # The patterns see what they must, and not the port's own name.
+    assert patterns[1].search("from aspire_tpu.ops import fused_coupling")
+    assert patterns[1].search("import aspire_tpu")
+    assert patterns[1].search("from aspire_tpu import Aspire")
+    assert not patterns[1].search("from aspire_tpu_torch import Aspire")
+    assert not patterns[1].search("import aspire_tpu_torch.ops")
