@@ -1,9 +1,9 @@
 """The user-facing ``Aspire`` facade (counterpart of ``aspire_tpu/aspire.py``
 without checkpointing, resume, pools or replicated evidence).
 
-``device`` is explicit and required: the flow, the samplers and every
-tensor they make live there. Nothing detects a missing GPU and moves to
-the CPU.
+``device`` defaults to the card (``"cuda"``): the flow, the samplers and
+every tensor they make live there. A caller who wants the CPU passes
+``device="cpu"``. Nothing detects a missing GPU and moves to the CPU.
 """
 
 from __future__ import annotations
@@ -25,8 +25,9 @@ logger = logging.getLogger("aspire_tpu_torch")
 class Aspire:
     """Sequential posterior inference via reuse, on one torch device.
 
-    Parameters mirror the JAX package's ``Aspire``; ``device`` (e.g.
-    ``"cuda"`` or ``"cpu"``) places the flow and the samplers; extra
+    Parameters mirror the JAX package's ``Aspire``; ``device`` (the card,
+    ``"cuda"``, by default; ``"cpu"`` on request) places the flow and the
+    samplers; extra
     keyword arguments go to the flow constructor (``architecture``,
     ``n_layers``, ``n_hidden``, ...).
     """
@@ -37,7 +38,7 @@ class Aspire:
         log_likelihood: Callable,
         log_prior: Callable,
         dims: int,
-        device: Any,
+        device: Any = "cuda",
         parameters: list[str] | None = None,
         periodic_parameters: list[str] | None = None,
         prior_bounds: dict | None = None,

@@ -40,30 +40,6 @@ constexpr float kHalfLog2Pi = 0.91893853320467274f;
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 
-// Packed MAF weight layout (built by ops/fused_coupling.py::
-// prepare_maf_params), per flow layer, every MADE weight premultiplied by
-// its mask and every section starting on a multiple of 4 floats:
-//   W1  (H1 x D)       W1[j*D + i]         = w0[i][j] * m0[i][j]
-//   b1  (H1)
-//   W2  (H1 x H2)      W2[j*H2 + k]        = w1[j][k] * m1[j][k]
-//   b2  (H2)
-//   W3  (D x H2 x G)   W3[(i*H2 + k)*G + q] = w2[k][i*P + q] * m2[..], q < P
-//   b3  (D x G)        b3[i*G + q]         = b2[i*P + q]
-// where P = 3K-1 spline parameters of dim i are padded to G = round4(P).
-template <int D, int H1, int H2, int K>
-struct MafShape {
-  static_assert(H1 % 4 == 0 && H2 % 4 == 0, "hidden widths must be /4");
-  static constexpr int P = 3 * K - 1;
-  static constexpr int G = round4(P);
-  static constexpr int W1 = 0;
-  static constexpr int B1 = round4(W1 + H1 * D);
-  static constexpr int W2 = round4(B1 + H1);
-  static constexpr int B2 = round4(W2 + H1 * H2);
-  static constexpr int W3 = round4(B2 + H2);
-  static constexpr int B3 = round4(W3 + D * H2 * G);
-  static constexpr int SIZE = round4(B3 + D * G);  // floats per layer
-};
-
 template <int D, int H1, int H2, int K, bool RQS>
 struct Shape {
   static_assert(H1 % 4 == 0 && H2 % 4 == 0, "hidden widths must be /4");
@@ -310,7 +286,8 @@ __device__ __forceinline__ void load_shared(float4* dst,
 // Configurations of the whole-chain kernel (a subset of the above).
 #define ASPIRE_CHAIN_CONFIGS(X) X(0, 4, 64, 64, 8, true)
 
-// Configurations of the MAF-RQS density kernel: (id, D, H1, H2, K).
+// Configurations of the MAF-RQS density kernel (maf.cu, whose MafShape is
+// the packed layout): (id, D, H1, H2, K), hidden widths multiples of 8.
 // ops/fused_coupling.py::MAF_KERNEL_CONFIGS mirrors this list.
 #define ASPIRE_MAF_CONFIGS(X) X(0, 4, 64, 64, 8)
 

@@ -52,9 +52,13 @@ extern "C" {
 int aspire_prng_uniforms(float* out, long long n, uint32_t seed0,
                          uint32_t seed1, void* stream) {
   if (n <= 0) return 0;
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  // Queried once per process (one card).
+  static int sms = 0;
+  if (sms == 0) {
+    int device = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
   const int threads = 256;
   const long long groups = (n + 3) / 4;
   long long blocks = (groups + threads - 1) / threads;

@@ -30,8 +30,8 @@ _FIT_ALIASES = {
 
 
 class Flow:
-    """A trainable flow proposal (MAF or coupling) on an explicit device
-    (``device`` is required: nothing picks one for the caller)."""
+    """A trainable flow proposal (MAF or coupling) on ``device``, the card
+    (``"cuda"``) unless the caller asks for another."""
 
     def __init__(
         self,
@@ -40,7 +40,7 @@ class Flow:
         data_transform: BaseTransform | None = None,
         seed: int | None = None,
         dtype: str = "float32",
-        device: Any = None,
+        device: Any = "cuda",
         **architecture_kwargs: Any,
     ):
         self.dims = dims

@@ -115,6 +115,10 @@ def load_library() -> ctypes.CDLL:
     lib.aspire_chain.restype = _I
     lib.aspire_maf_layer_floats.argtypes = [_I]
     lib.aspire_maf_layer_floats.restype = _I
+    lib.aspire_maf_stage_floats.argtypes = [_I]
+    lib.aspire_maf_stage_floats.restype = _I
+    lib.aspire_maf_ksteps.argtypes = [_I, _P, _I]
+    lib.aspire_maf_ksteps.restype = _I
     lib.aspire_maf.argtypes = [_P, _P, _P, _P, _I, _I, _F, _I, _P]
     lib.aspire_maf.restype = _I
     lib.aspire_staged_config.argtypes = [_I, _P]

@@ -1,12 +1,15 @@
 """Wrappers for the CUDA flow kernels: the coupling flow (density and
 sampling passes) and the MAF-RQS density pass.
 
-Counterpart of ``aspire_tpu/ops/fused_coupling.py``. Each kernel
-(``csrc/coupling.cu``, ``csrc/maf.cu``) runs every layer of the flow for
-one particle per thread, with all layers' weights in shared memory; this
-module packs those weights, checks and launches, counts launches, and
-wraps the call in a ``torch.autograd.Function`` whose backward recomputes
-through the plain torch path (the JAX package's ``custom_vjp``).
+Counterpart of ``aspire_tpu/ops/fused_coupling.py``. Each kernel runs
+every layer of the flow with all layers' weights in shared memory: the
+coupling kernel (``csrc/coupling.cu``) one particle per thread, the MAF
+kernel (``csrc/maf.cu``) 16 particles per warp on the tensor cores, over
+the blocks its MADE masks keep. This module packs those weights (for the
+MAF kernel in degree order, as mma fragments), checks and launches,
+counts launches, and wraps the call in a ``torch.autograd.Function``
+whose backward recomputes through the plain torch path (the JAX
+package's ``custom_vjp``).
 
 On a CPU tensor a wrapper runs the plain torch version
 (``Coupling.forward_plain``/``inverse_plain``, ``MAF.forward_plain``); on
@@ -15,6 +18,7 @@ a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -142,8 +146,9 @@ def _append_sections(chunks: list, sections: list) -> None:
         chunks.append(sections[0].new_zeros(tail))
 
 
-def _concat(chunks: list, floats: int, arch) -> torch.Tensor:
-    out = torch.cat(chunks).to(torch.float32).contiguous()
+def _concat(chunks: list, floats: int, arch,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    out = torch.cat(chunks).to(dtype).contiguous()
     if out.numel() != floats:
         raise ValueError(f"parameters do not match {arch}")
     return out
@@ -151,8 +156,9 @@ def _concat(chunks: list, floats: int, arch) -> torch.Tensor:
 
 def _check_launch(lib, what: str, arch, weights: torch.Tensor,
                   x: torch.Tensor, layer_floats_lib: int,
-                  layer_floats_py: int) -> None:
-    """Refuse what a flow kernel does not take, before launching it."""
+                  layer_floats_py: int, smem: int | None = None) -> None:
+    """Refuse what a flow kernel does not take, before launching it
+    (``smem``: the block's shared bytes, by default the weights')."""
     if x.dtype != torch.float32 or weights.dtype != torch.float32:
         raise TypeError(f"the {what} takes float32 only")
     if x.dim() != 2 or x.shape[1] != arch.dims:
@@ -161,7 +167,7 @@ def _check_launch(lib, what: str, arch, weights: torch.Tensor,
         raise ValueError(f"the {what} takes contiguous tensors")
     if weights.device != x.device:
         raise ValueError("weights and input must be on the same device")
-    smem = 4 * weights.numel()
+    smem = 4 * weights.numel() if smem is None else smem
     if smem > lib.aspire_max_shared_bytes():
         raise ValueError(
             f"flow weights ({smem} bytes) exceed one block's shared memory"
@@ -281,23 +287,82 @@ def maf_config_id(arch) -> int | None:
 
 
 def maf_group(arch) -> int:
-    """Floats per dim's parameter group: ``3K - 1`` rounded up to 4."""
-    return _round4(arch.n_params_per_dim)
+    """Floats per dim's parameter group: ``3K - 1`` rounded up to 8, the
+    width of the kernel's mma n-tiles."""
+    return -(-arch.n_params_per_dim // 8) * 8
+
+
+def _max_degree(arch) -> int:
+    return max(arch.dims - 1, 1)
+
+
+def _hidden_degrees(arch, width: int) -> torch.Tensor:
+    """MADE degrees of a hidden layer's units, ``j % (D - 1) + 1`` for unit
+    ``j`` (as ``made_masks``)."""
+    return torch.arange(width) % _max_degree(arch) + 1
+
+
+def degree_order(arch, width: int) -> torch.Tensor:
+    """The hidden units of a MADE layer sorted by degree, stably: the
+    kernel's unit order."""
+    return torch.argsort(_hidden_degrees(arch, width), stable=True)
+
+
+def degree_ends(arch, width: int) -> list[int]:
+    """``ends[d]``: the number of hidden units of degree <= d, for
+    d = 0 .. D - 1 (the ends of the sorted degree segments)."""
+    degrees = _hidden_degrees(arch, width)
+    return [int((degrees <= d).sum()) for d in range(_max_degree(arch) + 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def maf_ksteps(arch) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """The 8-wide k-steps the kernel multiplies, in sorted unit order:
+    per n-tile ``j`` of W2 (output units ``8j .. 8j+7`` read the first-layer
+    units up to the highest degree among them) and per dim ``i`` of W3
+    (dim ``i`` reads the second-layer units of degree <= i; none for dim
+    0)."""
+    h1, h2 = tuple(arch.n_hidden)
+    e1, e2 = degree_ends(arch, h1), degree_ends(arch, h2)
+    deg2 = torch.sort(_hidden_degrees(arch, h2)).values
+    ks2 = tuple(-(-e1[int(deg2[8 * j + 7])] // 8) for j in range(h2 // 8))
+    ks3 = tuple(-(-e2[min(i, _max_degree(arch))] // 8)
+                for i in range(arch.dims))
+    return ks2, ks3
 
 
 def maf_sections(arch) -> list[tuple[str, tuple]]:
     """Sections of one layer of the packed MAF buffer, in order, with
-    their shapes (csrc/common.cuh MafShape): W1 ``(H1, D)``, b1,
-    W2 ``(H1, H2)`` (input-major), b2, W3 ``(D, H2, G)``, b3 ``(D, G)``."""
+    their shapes (csrc/maf.cu MafShape), hidden units in degree order:
+    W1 ``(H1, D)``, b1, W2 as ``(F2, 32, 2)`` mma B fragments (the kept
+    blocks only), b2, W3 as ``(F3, 32, 2)`` fragments (dims 1..D-1), b3
+    ``(D, G)``."""
     d, (h1, h2), g = arch.dims, tuple(arch.n_hidden), maf_group(arch)
-    return [("w1", (h1, d)), ("b1", (h1,)), ("w2", (h1, h2)), ("b2", (h2,)),
-            ("w3", (d, h2, g)), ("b3", (d, g))]
+    ks2, ks3 = maf_ksteps(arch)
+    f2, f3 = sum(ks2), (g // 8) * sum(ks3)
+    return [("w1", (h1, d)), ("b1", (h1,)), ("w2", (f2, 32, 2)),
+            ("b2", (h2,)), ("w3", (f3, 32, 2)), ("b3", (d, g))]
 
 
+@functools.lru_cache(maxsize=None)
 def maf_layer_floats(arch) -> int:
     """Floats per layer of the packed MAF buffer (MafShape::SIZE)."""
     return _packed_floats(int(torch.Size(shape).numel())
                           for _, shape in maf_sections(arch))
+
+
+def maf_stage_floats(arch) -> int:
+    """Floats of one warp's shared buffer in the MAF kernel
+    (MafShape::STAGE): 16 particles' coordinates and the spline parameters
+    of dims 1..D-1."""
+    d = arch.dims
+    return 16 * d + (d - 1) * 16 * maf_group(arch)
+
+
+def maf_shared_bytes(arch) -> int:
+    """Shared memory of a MAF kernel block with one warp: every layer's
+    packed weights and one warp's buffer."""
+    return 4 * (arch.n_layers * maf_layer_floats(arch) + maf_stage_floats(arch))
 
 
 def should_fuse_maf(arch, x: torch.Tensor) -> bool:
@@ -311,29 +376,147 @@ def should_fuse_maf(arch, x: torch.Tensor) -> bool:
         and x.shape[0] >= MIN_FUSED_N
         and x.dtype == torch.float32
         and maf_config_id(arch) is not None
-        and 4 * arch.n_layers * maf_layer_floats(arch) <= MAX_SHARED_BYTES
+        and maf_shared_bytes(arch) <= MAX_SHARED_BYTES
     )
 
 
-def prepare_maf_params(arch, params: dict) -> torch.Tensor:
-    """Pack every layer's MADE into the MAF kernel's flat layout, weights
-    premultiplied by their masks (the JAX package's
-    ``prepare_maf_params``); dim ``i``'s output columns become the
-    zero-padded group ``W3[i]`` of ``maf_group(arch)`` floats per hidden
-    unit."""
+@functools.lru_cache(maxsize=None)
+def _maf_fragments(arch):
+    """(row, column) of every entry of the packed W2 and W3 fragments,
+    each a ``(F, 32, 2)`` index pair into the sorted ``(H1, H2)`` W2 and
+    ``(H2, D * G)`` W3: lane ``4g + t`` of the fragment for k-step ``s``
+    and n-tile ``j`` holds rows ``8s + 2t`` and ``8s + 2t + 1`` of column
+    ``8j + g`` (the mma B fragment, with the k order that lets one
+    product's accumulator serve as the next one's A fragment)."""
+    lane = torch.arange(32)
+    rows = 2 * (lane % 4)[:, None] + torch.arange(2)[None, :]
+    cols = (lane // 4)[:, None].expand(32, 2)
+    g, nt = maf_group(arch), maf_group(arch) // 8
+    ks2, ks3 = maf_ksteps(arch)
+    w2 = [(8 * s + rows, 8 * j + cols)
+          for j, k in enumerate(ks2) for s in range(k)]
+    w3 = [(8 * s + rows, i * g + 8 * m + cols)
+          for i, k in enumerate(ks3) for s in range(k) for m in range(nt)]
+
+    def stack(frags):
+        if not frags:
+            return (torch.zeros((0, 32, 2), dtype=torch.long),) * 2
+        return tuple(torch.stack(f) for f in zip(*frags))
+
+    return stack(w2), stack(w3)
+
+
+def _maf_sorted_weights(arch, net: dict):
+    """One layer's MADE, mask-premultiplied, hidden units in degree order:
+    W1 ``(H1, D)``, b1, W2 ``(H1, H2)``, b2, W3 ``(H2, D * G)``, b3
+    ``(D, G)`` (each dim's P parameters zero-padded to G)."""
     d, P, G = arch.dims, arch.n_params_per_dim, maf_group(arch)
+    h1, h2 = tuple(arch.n_hidden)
+    if h1 % 8 or h2 % 8:
+        raise ValueError(f"the MAF kernel takes hidden widths /8: {arch}")
+    l1, l2, l3 = net["layers"]
+    m1, m2, m3 = arch.masks(l1["w"])
+    o1 = degree_order(arch, h1).to(l1["w"].device)
+    o2 = degree_order(arch, h2).to(l1["w"].device)
+    w3 = torch.nn.functional.pad((l3["w"] * m3)[o2].reshape(h2, d, P),
+                                 (0, G - P)).reshape(h2, d * G)
+    b3 = torch.nn.functional.pad(l3["b"].reshape(d, P), (0, G - P))
+    return ((l1["w"] * m1)[:, o1].t(), l1["b"][o1],
+            (l2["w"] * m2)[o1][:, o2], l2["b"][o2], w3, b3)
+
+
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to the nearest TF32 value (10 mantissa bits), ties
+    away from zero: ``cvt.rna.tf32.f32``."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32_sum(w: torch.Tensor) -> torch.Tensor:
+    """``hi + lo`` with ``hi`` = w cut to TF32 (its top 11 significant
+    bits) and ``lo`` = the rest rounded to TF32: w to within 2^-21 of
+    itself, in at most 22 significant bits, so the kernel splits it back
+    into the same two TF32 values exactly (the operand split of its 3xTF32
+    products)."""
+    hi = (w.view(torch.int32) & -0x2000).view(torch.float32)
+    return hi + _round_tf32(w - hi)
+
+
+def prepare_maf_params(arch, params: dict) -> torch.Tensor:
+    """Pack every layer's MADE into the MAF kernel's flat layout
+    (:func:`maf_sections`), in the parameters' dtype: weights
+    premultiplied by their masks (the JAX package's
+    ``prepare_maf_params``), hidden units in degree order, W2 and W3 as
+    the mma fragments of the blocks the masks keep, in float32 each as the
+    sum of two TF32 values (:func:`split_tf32_sum`). Float64 parameters
+    (tests of the layout) keep their weights as they are."""
     chunks = []
+    (r2, c2), (r3, c3) = _maf_fragments(arch)
     for net in params["layers"]:
-        l1, l2, l3 = net["layers"]
-        m1, m2, m3 = arch.masks(l1["w"])
-        h2 = l3["w"].shape[0]
-        w3 = (l3["w"] * m3).reshape(h2, d, P).permute(1, 0, 2)
-        _append_sections(chunks, [
-            (l1["w"] * m1).t(), l1["b"], l2["w"] * m2, l2["b"],
-            torch.nn.functional.pad(w3, (0, G - P)),
-            torch.nn.functional.pad(l3["b"].reshape(d, P), (0, G - P)),
-        ])
-    return _concat(chunks, arch.n_layers * maf_layer_floats(arch), arch)
+        w1, b1, w2, b2, w3, b3 = _maf_sorted_weights(arch, net)
+        dev = w1.device
+        w2, w3 = w2[r2.to(dev), c2.to(dev)], w3[r3.to(dev), c3.to(dev)]
+        if w2.dtype == torch.float32:
+            w2, w3 = split_tf32_sum(w2), split_tf32_sum(w3)
+        _append_sections(chunks, [w1, b1, w2, b2, w3, b3])
+    return _concat(chunks, arch.n_layers * maf_layer_floats(arch), arch,
+                   chunks[0].dtype)
+
+
+def unpack_maf_layer(arch, layer: torch.Tensor) -> dict:
+    """One layer of the packed buffer as its sections (by name), the
+    fragments scattered back into the sorted ``(H1, H2)`` W2 and
+    ``(H2, D * G)`` W3 (zeros outside the kept blocks)."""
+    sections, off = {}, 0
+    for name, shape in maf_sections(arch):
+        off = _round4(off)
+        size = int(torch.Size(shape).numel())
+        sections[name] = layer[off:off + size].reshape(shape)
+        off += size
+    h1, h2 = tuple(arch.n_hidden)
+    (r2, c2), (r3, c3) = _maf_fragments(arch)
+    dev = layer.device
+    for name, (rows, cols), shape in (
+            ("w2", (r2, c2), (h1, h2)),
+            ("w3", (r3, c3), (h2, arch.dims * maf_group(arch)))):
+        dense = layer.new_zeros(shape)
+        dense[rows.to(dev), cols.to(dev)] = sections[name]
+        sections[name] = dense
+    return sections
+
+
+def maf_packed_plain(arch, packed: torch.Tensor, x: torch.Tensor):
+    """The MAF density pass computed from the kernel's packed buffer the
+    way the kernel reads it, in plain torch: hidden units in degree order,
+    only the 8-wide blocks the masks keep multiplied (a first-layer unit
+    of degree d by inputs < d), dim 0's spline parameters from its bias
+    alone, then the inverse spline of every dim and the reversal of dims.
+    For tests of the layout: no kernel path calls it."""
+    d, P, G = arch.dims, arch.n_params_per_dim, maf_group(arch)
+    h1, h2 = tuple(arch.n_hidden)
+    e1 = degree_ends(arch, h1)
+    ks2, ks3 = maf_ksteps(arch)
+    n = x.shape[0]
+    log_det = x.new_zeros(n)
+    z = x
+    for layer in packed.reshape(arch.n_layers, -1):
+        sec = unpack_maf_layer(arch, layer)
+        h = x.new_empty((n, h1))
+        for deg in range(1, len(e1)):
+            seg = slice(e1[deg - 1], e1[deg])
+            h[:, seg] = z[:, :deg] @ sec["w1"][seg, :deg].t() + sec["b1"][seg]
+        h = torch.relu(h)
+        hh = torch.cat([h[:, :8 * k] @ sec["w2"][:8 * k, 8 * j:8 * j + 8]
+                        for j, k in enumerate(ks2)], dim=1)
+        hh = torch.relu(hh + sec["b2"])
+        par = [sec["b3"][0, :P].expand(n, P)]
+        for i in range(1, d):
+            cols = slice(i * G, i * G + P)
+            par.append(hh[:, :8 * ks3[i]] @ sec["w3"][:8 * ks3[i], cols]
+                       + sec["b3"][i, :P])
+        y, eld = arch._elementwise(z, torch.stack(par, dim=1), inverse=True)
+        log_det = log_det + eld.sum(-1)
+        z = y.flip(-1)
+    return z, log_det
 
 
 _maf_pack_cache: dict = {}
@@ -360,6 +543,20 @@ def packed_maf_params(arch, params: dict) -> torch.Tensor:
     return packed
 
 
+@functools.lru_cache(maxsize=None)
+def _maf_library_layout(cfg: int) -> tuple[int, int, tuple[int, ...]]:
+    """The loaded library's layout of MAF configuration ``cfg``: floats per
+    layer, floats per warp buffer, and the k-steps of W2's n-tiles then
+    W3's dims (MafBlocks), read once per process."""
+    lib = load_library()
+    out = (ctypes.c_int * 256)()
+    count = lib.aspire_maf_ksteps(cfg, out, len(out))
+    if not 0 <= count <= len(out):
+        raise RuntimeError(f"MAF configuration {cfg} has no k-step table")
+    return (lib.aspire_maf_layer_floats(cfg), lib.aspire_maf_stage_floats(cfg),
+            tuple(out[:count]))
+
+
 def launch_maf(arch, weights: torch.Tensor, x: torch.Tensor):
     """Launch the MAF density kernel on a CUDA ``x`` with weights already
     packed by :func:`prepare_maf_params`."""
@@ -367,8 +564,12 @@ def launch_maf(arch, weights: torch.Tensor, x: torch.Tensor):
     cfg = maf_config_id(arch)
     if cfg is None:
         raise ValueError(f"no MAF kernel compiled for {arch}")
-    _check_launch(lib, "MAF kernel", arch, weights, x,
-                  lib.aspire_maf_layer_floats(cfg), maf_layer_floats(arch))
+    layer, stage, ksteps = _maf_library_layout(cfg)
+    _check_launch(lib, "MAF kernel", arch, weights, x, layer,
+                  maf_layer_floats(arch), maf_shared_bytes(arch))
+    ks2, ks3 = maf_ksteps(arch)
+    if stage != maf_stage_floats(arch) or ksteps != ks2 + ks3:
+        raise RuntimeError("MAF buffer layout disagrees with the kernel library")
     n = x.shape[0]
     z = torch.empty_like(x)
     ld = torch.empty(n, dtype=x.dtype, device=x.device)

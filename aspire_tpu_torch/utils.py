@@ -33,12 +33,9 @@ def resolve_dtype(dtype: Any) -> torch.dtype | None:
 
 
 def resolve_device(device: Any) -> torch.device:
-    """An explicit device; ``None`` is refused rather than guessed."""
-    if device is None:
-        raise ValueError(
-            "device must be given explicitly (e.g. 'cuda' or 'cpu')"
-        )
-    return torch.device(device)
+    """The device asked for; ``None`` means the card (``"cuda"``). Nothing
+    checks for a GPU: without one, the first tensor made there raises."""
+    return torch.device("cuda" if device is None else device)
 
 
 def as_tensor(x: Any, dtype: Any = None, device: Any = None) -> torch.Tensor:

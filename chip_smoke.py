@@ -3,7 +3,8 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases (each raises on failure, so the script exits non-zero):
+Phases (each raises on failure, so the script exits non-zero), the two
+main paths (6, 7) right after the build:
 1. require a CUDA device; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from aspire_tpu_torch/csrc with nvcc;
 3. the coupling kernel (density and sampling modes) against the plain
@@ -13,7 +14,8 @@ Phases (each raises on failure, so the script exits non-zero):
    against the same stream injected (bit-identical), and Philox against
    independent noise (statistical bounds);
 5. the MAF-RQS density kernel against the plain torch path at maf_rqs(4)
-   shapes, n = 131072, float32 with TF32 off;
+   shapes, n = 131072, 8192 and 8192 + 37 (a ragged last tile), float32
+   with TF32 off;
 6. the main path: fit an nsf-tpu flow to 4000 draws of the 4-d Gaussian
    mixture, adaptive-tempered SMC at n = 8192 (log Z against the analytic
    value, every mutation on the chain kernel, launch counts), the same
@@ -29,11 +31,20 @@ Phases (each raises on failure, so the script exits non-zero):
    the coupling kernel B1 (B1, variant, variant, B1), then held against
    its plain schedule (float64 deciding f32-ill-conditioned points) and,
    but for D3 with rqs_micro, against B1;
-9. the uniforms kernel (D4): the probe's (8, 256) at seed (3, 7) and the
-   131072 x 8 x 20 uniforms of a 20-step chain, bit for bit against the
-   plain Philox stream, beside torch.rand;
-10. print kernel and plain times (median of per-call CUDA-event times),
-   each kernel's bound, the kernels JSON line and the result line.
+9. the uniforms kernel (D4): the probe's (8, 256) at seed (3, 7), the
+   131072 x 8 x 20 uniforms of a 20-step chain and a draw whose size is
+   no multiple of 4, bit for bit against the plain Philox stream; timed in
+   turns with torch.rand (D4, torch.rand, torch.rand, D4);
+10. print kernel and plain times, each kernel's bound, the kernels JSON
+   line and the result line. A time is device time: one CUDA-event pair
+   around 20 back-to-back calls after a warm-up (cuda_ms); the earlier
+   yardstick, an event pair around each single call (cuda_ms_single), is
+   kept beside it as ms_single_call, and the kernel alone, as the
+   profiler's CUDA activity records it (kernel_ms), with it. Every
+   kernel_ms reading is made after every event time and pipeline: once
+   the profiler has traced the card, each launch costs the host more.
+   A bound is the least time on the pipes the kernel computes with (the
+   FP32 pipe; for B4 its split-TF32 tensor-core products).
 """
 
 from __future__ import annotations
@@ -72,8 +83,30 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
-    """Median over ``reps`` calls of the CUDA-event time of one call
-    (after a warm-up call)."""
+    """Device time of one call: one CUDA-event pair around ``reps``
+    back-to-back calls (after a warm-up call), divided by ``reps``. The
+    host enqueues the next call while the device runs the last, so the
+    host's per-call work is hidden wherever it is shorter than the call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_ms_single(fn, reps: int = 20) -> float:
+    """The earlier yardstick, kept to compare methods: median over
+    ``reps`` calls of an event pair around each ONE call (after a warm-up
+    call). Where the device waits for the host, the start event fires
+    before the call is enqueued, so the host's work counts as the
+    call's."""
     import torch
 
     fn()
@@ -87,6 +120,48 @@ def cuda_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     times = sorted(start.elapsed_time(end) for start, end in events)
     return times[reps // 2]
+
+
+def kernel_ms(fn, match: str, reps: int = 20) -> float:
+    """Device time of one call's kernels whose name contains ``match``:
+    their durations as the profiler's CUDA activity (CUPTI) records them,
+    over ``reps`` calls after a warm-up, per call. The kernel alone: where
+    a wrapper's host work per call is as long as its kernel, cuda_ms
+    measures the host instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+             if match in e.key)
+    if us <= 0:
+        raise AssertionError(f"the profiler recorded no kernel {match!r}")
+    return us / reps / 1e3
+
+
+# kernel_ms readings the phases note, made by read_kernel_ms at the end of
+# the run: once torch.profiler has traced the card (CUPTI), every later
+# launch costs the host more, so no event time and no pipeline may follow.
+_KERNEL_MS_LATER: list = []
+
+
+def kernel_ms_later(out: dict, key: str, fn, match: str,
+                    reps: int = 20) -> None:
+    """Note a kernel_ms reading of ``fn`` for ``out[key]``."""
+    _KERNEL_MS_LATER.append((out, key, fn, match, reps))
+
+
+def read_kernel_ms() -> None:
+    """Make every noted kernel_ms reading, in the order noted."""
+    for out, key, fn, match, reps in _KERNEL_MS_LATER:
+        out[key] = kernel_ms(fn, match, reps)
+    _KERNEL_MS_LATER.clear()
 
 
 def perturbed_flow(device, seed: int = 0, arch=None):
@@ -141,26 +216,34 @@ def coupling_flop(arch) -> int:
     return flop
 
 
-def maf_flop(arch) -> int:
+def maf_flop(arch) -> tuple[int, int]:
     """FLOP per particle of the MAF density pass: per layer the MADE's
     products by the weights its masks keep (a masked weight is zero and
-    needs no product), 2 FLOP per multiply-add."""
+    needs no product), 2 FLOP per multiply-add; as (first layer, the
+    two wide layers), the part the MAF kernel runs on the FP32 pipe and
+    the part it runs on the tensor cores."""
     from aspire_tpu_torch.flows.nets import made_masks
 
     masks, _ = made_masks(arch.dims, list(arch.n_hidden),
                           arch.n_params_per_dim)
-    return arch.n_layers * 2 * int(sum(int(m.sum()) for m in masks))
+    kept = [arch.n_layers * 2 * int(m.sum()) for m in masks]
+    return kept[0], kept[1] + kept[2]
 
 
-def bound(flop: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of the FP32 compute
-    time and the time to move each input and output byte once (and the
-    TF32 compute time, for a tensor-core design)."""
-    t_op, t_mem = flop / FP32_FLOP_S, nbytes / HBM_BYTE_S
+def bound(flop: float, nbytes: float, tensor_flop: float = 0.0) -> dict:
+    """The least time the card could take for the work, on the pipes the
+    kernel computes it with: the larger of the time of ``flop`` on the
+    FP32 pipe, of ``tensor_flop`` on the tensor cores in TF32 at three
+    products each (the split form that keeps float32 accuracy), and of
+    moving each input and output byte once. Beside it, all of the work on
+    the FP32 pipe and all of it in one TF32 pass."""
+    t_op = max(flop / FP32_FLOP_S, 3 * tensor_flop / TF32_FLOP_S)
+    t_mem, total = nbytes / HBM_BYTE_S, flop + tensor_flop
     return {"bound_ms": 1e3 * max(t_op, t_mem),
             "bound_by": "operations" if t_op >= t_mem else "bytes",
-            "bound_tf32_ms": 1e3 * max(flop / TF32_FLOP_S, t_mem),
-            "flop": flop, "bytes": nbytes}
+            "bound_fp32_ms": 1e3 * max(total / FP32_FLOP_S, t_mem),
+            "bound_tf32_ms": 1e3 * max(total / TF32_FLOP_S, t_mem),
+            "flop": total, "tensor_flop": tensor_flop, "bytes": nbytes}
 
 
 def density_bytes(arch, n: int, weight_bytes: int) -> int:
@@ -227,9 +310,17 @@ def phase_coupling(device, n: int) -> dict:
         # small torch ops) is host time that would hide it.
         w = FC.prepare_params(arch, params)
         out["ms"] = cuda_ms(lambda: FC.launch_packed(arch, "forward", w, x))
+        out["ms_single_call"] = cuda_ms_single(
+            lambda: FC.launch_packed(arch, "forward", w, x))
+        kernel_ms_later(out, "kernel_ms",
+                        lambda: FC.launch_packed(arch, "forward", w, x),
+                        "coupling_kernel")
         out["plain_ms"] = cuda_ms(lambda: arch.forward_plain(params, x))
         out["inverse_ms"] = cuda_ms(
             lambda: FC.launch_packed(arch, "inverse", w, z_p))
+        kernel_ms_later(out, "inverse_kernel_ms",
+                        lambda: FC.launch_packed(arch, "inverse", w, z_p),
+                        "coupling_kernel")
         out["inverse_plain_ms"] = cuda_ms(
             lambda: arch.inverse_plain(params, z_p))
         out["wrapper_ms"] = cuda_ms(
@@ -238,36 +329,51 @@ def phase_coupling(device, n: int) -> dict:
     return out
 
 
-def phase_maf(device, n: int) -> dict:
+def phase_maf(device, n: int, n_small: int = N_CHAIN) -> dict:
     """The MAF-RQS density kernel (B4) against MAF.forward_plain at
     maf_rqs(4) shapes, with a float64 plain run deciding f32-ill-conditioned
-    points."""
+    points: at n, at n_small (the anchors' size) and at n_small + 37 (a
+    ragged last tile); the kernel timed at n and n_small."""
     import torch
 
     from aspire_tpu_torch.flows.architectures import maf_rqs
     from aspire_tpu_torch.ops import fused_coupling as FC
 
     arch, params = perturbed_flow(device, seed=4, arch=maf_rqs(4))
+    params64 = as_float64(params)
+    w = FC.prepare_maf_params(arch, params)
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
-    x = 2.0 * torch.randn((n, 4), generator=gen, device=device)
-    z_k, ld_k = FC.maf_kernel_apply(arch, params, x)
-    z_p, ld_p = arch.forward_plain(params, x)
-    z_e, ld_e = arch.forward_plain(as_float64(params), x.double())
-    n_bad = assert_kernel_close(z_k, z_p, z_e, "MAF density z")
-    n_bad += assert_kernel_close(ld_k, ld_p, ld_e, "MAF density log_det")
-    out = {"max_abs_err": max(max_err(z_k, z_p), max_err(ld_k, ld_p)),
-           "ill_conditioned_points": n_bad}
+    out = {"max_abs_err": 0.0, "ill_conditioned_points": 0, "checked_n": []}
+    for m in dict.fromkeys((n, n_small, n_small + 37)):
+        x = 2.0 * torch.randn((m, 4), generator=gen, device=device)
+        z_k, ld_k = FC.maf_kernel_apply(arch, params, x)
+        z_p, ld_p = arch.forward_plain(params, x)
+        z_e, ld_e = arch.forward_plain(params64, x.double())
+        out["ill_conditioned_points"] += assert_kernel_close(
+            z_k, z_p, z_e, f"MAF density z, n={m}")
+        out["ill_conditioned_points"] += assert_kernel_close(
+            ld_k, ld_p, ld_e, f"MAF density log_det, n={m}")
+        out["max_abs_err"] = max(out["max_abs_err"], max_err(z_k, z_p),
+                                 max_err(ld_k, ld_p))
+        out["checked_n"].append(m)
+        if device.type != "cuda" or m == n_small + 37:
+            continue
+        key = "" if m == n else f"_n{m}"
+        out["ms" + key] = cuda_ms(lambda: FC.launch_maf(arch, w, x))
+        out["ms_single_call" + key] = cuda_ms_single(
+            lambda: FC.launch_maf(arch, w, x))
+        kernel_ms_later(out, "kernel_ms" + key,
+                        lambda x=x: FC.launch_maf(arch, w, x), "maf_kernel")
+        if m == n:
+            out["plain_ms"] = cuda_ms(lambda: arch.forward_plain(params, x))
+            # Through the autograd wrapper the main path calls: weights
+            # packed once per parameter set.
+            out["wrapper_ms"] = cuda_ms(
+                lambda: FC.fused_maf_forward(arch, params, x))
     if device.type == "cuda":
-        w = FC.prepare_maf_params(arch, params)
-        out["ms"] = cuda_ms(lambda: FC.launch_maf(arch, w, x))
-        out["plain_ms"] = cuda_ms(lambda: arch.forward_plain(params, x))
-        # Through the autograd wrapper the main path calls: weights
-        # packed once per parameter set.
-        out["wrapper_ms"] = cuda_ms(
-            lambda: FC.fused_maf_forward(arch, params, x))
         out["pack_ms"] = cuda_ms(lambda: FC.prepare_maf_params(arch, params))
-    log(f"MAF kernel vs plain at n={n}: {out}")
+    log(f"MAF kernel vs plain at n={out['checked_n']}: {out}")
     return out
 
 
@@ -334,7 +440,8 @@ def phase_staged_coupling(device, n: int) -> dict:
         b1_b = cuda_ms(b1)
         runs[key] = {"out": out, "ms": 0.5 * (ms_a + ms_b),
                      "b1_ms": 0.5 * (b1_a + b1_b),
-                     "turns_ms": [b1_a, ms_a, ms_b, b1_b]}
+                     "turns_ms": [b1_a, ms_a, ms_b, b1_b],
+                     "ms_single_call": cuda_ms_single(v["launch"])}
         log(f"{key}: B1, variant, variant, B1 = {runs[key]['turns_ms']}")
     launches = {"D1": SC.interleaved_launches.count,
                 "D2": SC.q_launches.count, "D3": SC.packed_launches.count}
@@ -361,9 +468,12 @@ def phase_staged_coupling(device, n: int) -> dict:
         results[key] = {
             "ms": runs[key]["ms"], "b1_ms": runs[key]["b1_ms"],
             "turns_ms": runs[key]["turns_ms"],
-            "plain_ms": cuda_ms(v["plain"], reps=5),
+            "ms_single_call": runs[key]["ms_single_call"],
+            "plain_ms": cuda_ms(v["plain"]),
             "max_abs_err": max(max_err(z_k, z_p), max_err(ld_k, ld_p)),
             "max_abs_err_vs_b1": b1_err, "ill_conditioned_points": n_bad}
+        kernel_ms_later(results[key], "kernel_ms", v["launch"],
+                        "staged_kernel")
         log(f"{key} vs plain at n={n}: {results[key]}")
     return {"variants": results, "launches": launches,
             **bound(n * coupling_flop(arch),
@@ -380,10 +490,25 @@ def phase_prng(device, n: int) -> dict:
     from aspire_tpu_torch.ops import prng as PR
 
     shape = (CHAIN_STEPS, 8, n)
+    # A draw whose size is no multiple of 4 (a ragged last Philox block).
+    ragged = (3, N_CHAIN + 37)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    def d4():
+        return PR.prng_uniforms(PROBE_SEED, shape, device)
+
+    def rand():
+        return torch.rand(shape, generator=gen, device=device)
+
     reset_launch_counts()
     probe = PR.prng_uniforms(PROBE_SEED, (8, 256), device)
-    draws = PR.prng_uniforms(PROBE_SEED, shape, device)
-    ms = cuda_ms(lambda: PR.prng_uniforms(PROBE_SEED, shape, device))
+    draws = d4()
+    odd = PR.prng_uniforms(PROBE_SEED, ragged, device)
+    # In turns (D4, torch.rand, torch.rand, D4), as phase_staged_coupling
+    # times each variant against B1.
+    turns = [cuda_ms(d4), cuda_ms(rand), cuda_ms(rand), cuda_ms(d4)]
+    log(f"D4, torch.rand, torch.rand, D4 = {turns}")
     launches = PR.launches.count
     if device.type == "cuda" and launches < 1:
         raise AssertionError("the uniforms kernel never ran")
@@ -396,7 +521,8 @@ def phase_prng(device, n: int) -> dict:
     err = 0.0
     for got, want in ((probe, PR.prng_plain(PROBE_SEED, (8, 256), "cpu")),
                       (probe, PR.prng_plain(PROBE_SEED, (8, 256), device)),
-                      (draws, PR.prng_plain(PROBE_SEED, shape, device))):
+                      (draws, PR.prng_plain(PROBE_SEED, shape, device)),
+                      (odd, PR.prng_plain(PROBE_SEED, ragged, device))):
         err = max(err, max_err(got.cpu(), want.cpu()))
         if not torch.equal(got.cpu(), want.cpu()):
             raise AssertionError("uniforms kernel differs from plain Philox")
@@ -408,15 +534,17 @@ def phase_prng(device, n: int) -> dict:
     if abs(mean - 0.5) > 5 * math.sqrt(1 / 12 / m) or abs(
             var - 1 / 12) > 5 * math.sqrt((1 / 80 - 1 / 144) / m):
         raise AssertionError(f"uniform moments off: {mean}, {var}")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    out = {"probe": stats, "launches": launches, "ms": ms, "n": m,
-           "max_abs_err": err,
+    out = {"probe": stats, "launches": launches, "n": m, "max_abs_err": err,
+           "ms": 0.5 * (turns[0] + turns[3]),
+           "library_ms": 0.5 * (turns[1] + turns[2]), "turns_ms": turns,
            "plain_ms": cuda_ms(lambda: PR.prng_plain(PROBE_SEED, shape,
-                                                     device), reps=5),
-           "library_ms": cuda_ms(lambda: torch.rand(
-               shape, generator=gen, device=device)),
+                                                     device)),
            **bound(0, 4 * m)}
+    if device.type == "cuda":
+        out["ms_single_call"] = cuda_ms_single(d4)
+        out["library_ms_single_call"] = cuda_ms_single(rand)
+        kernel_ms_later(out, "kernel_ms", d4, "prng_kernel")
+        kernel_ms_later(out, "library_kernel_ms", rand, "distribution")
     log(f"uniforms kernel, {m} draws: {out}")
     return out
 
@@ -521,14 +649,19 @@ def time_chain(device, n: int, steps: int) -> dict:
     cfg, params, z0, beta, step0, refs, target, dt, _ = chain_setup(
         device, n, steps)
     seed = (1, 2)
-    return {
-        "ms": cuda_ms(lambda: FM.fused_mh_chain(
-            cfg, params, z0, beta, seed, step0, *refs, target,
-            data_transform=dt), reps=5),
+    def kernel():
+        return FM.fused_mh_chain(cfg, params, z0, beta, seed, step0, *refs,
+                                 target, data_transform=dt)
+
+    out = {
+        "ms": cuda_ms(kernel),
+        "ms_single_call": cuda_ms_single(kernel),
         "plain_ms": cuda_ms(lambda: FM.chain_plain(
             cfg, params, z0, beta, step0, *refs, target,
-            data_transform=dt, seed=seed), reps=3),
+            data_transform=dt, seed=seed)),
     }
+    kernel_ms_later(out, "kernel_ms", kernel, "chain_kernel", reps=5)
+    return out
 
 
 def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
@@ -705,14 +838,17 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(line.strip())
 
+    main_path = phase_main_path(device, N_CHAIN, N_PIPELINE)
+    maf_path = phase_maf_main_path(device, N_CHAIN, N_PIPELINE)
     coupling = phase_coupling(device, N_COUPLING)
     chain = phase_chain(device, N_CHAIN, CHAIN_STEPS)
     maf = phase_maf(device, N_COUPLING)
-    main_path = phase_main_path(device, N_CHAIN, N_PIPELINE)
-    maf_path = phase_maf_main_path(device, N_CHAIN, N_PIPELINE)
     chain_t = time_chain(device, N_PIPELINE, CHAIN_STEPS)
     staged = phase_staged_coupling(device, N_COUPLING)
     uniforms = phase_prng(device, N_PIPELINE)
+    # The profiler last: after it has traced the card, every launch costs
+    # the host more, and the pipelines and short kernels' events show it.
+    read_kernel_ms()
 
     print(f"[{card}] coupling kernel, density pass, n={N_COUPLING}: "
           f"{coupling['ms']:.4f} ms (plain torch {coupling['plain_ms']:.4f} ms;"
@@ -727,7 +863,9 @@ def main() -> int:
           f"{main_path['log_z']:.4f} +/- {main_path['log_z_err']:.4f} vs "
           f"{main_path['truth']:.4f}", flush=True)
     print(f"[{card}] MAF kernel, density pass, maf_rqs(4), n={N_COUPLING}: "
-          f"{maf['ms']:.4f} ms (plain torch {maf['plain_ms']:.4f} ms; through "
+          f"{maf['ms']:.4f} ms, at n={N_CHAIN} {maf[f'ms_n{N_CHAIN}']:.4f} ms; "
+          f"the kernel alone {maf['kernel_ms']:.4f} ms, at n={N_CHAIN} "
+          f"{maf[f'kernel_ms_n{N_CHAIN}']:.4f} ms (plain torch {maf['plain_ms']:.4f} ms; through "
           f"the wrapper, packed once per parameter set, "
           f"{maf['wrapper_ms']:.4f} ms; one packing {maf['pack_ms']:.4f} ms)")
     print(f"[{card}] maf-rqs sample_posterior pipeline, n={N_PIPELINE}: "
@@ -748,14 +886,18 @@ def main() -> int:
     b2_bound = bound(
         (CHAIN_STEPS + 1) * N_PIPELINE * coupling_flop(nsf4),
         N_PIPELINE * (2 * 4 + 4) * 4 + FC.weight_bytes(nsf4))
-    b4_bound = bound(
-        N_COUPLING * maf_flop(maf4),
-        density_bytes(maf4, N_COUPLING,
-                      4 * maf4.n_layers * FC.maf_layer_floats(maf4)))
+    # B4: the first MADE layer on the FP32 pipe, the two wide ones on the
+    # tensor cores in split TF32 (three products each).
+    fp32_flop, tensor_flop = maf_flop(maf4)
+    b4_bound, b4_bound_small = (bound(
+        m * fp32_flop,
+        density_bytes(maf4, m, 4 * maf4.n_layers * FC.maf_layer_floats(maf4)),
+        tensor_flop=m * tensor_flop)
+        for m in (N_COUPLING, N_CHAIN))
     var = staged["variants"]
     staged_bound = {k: staged[k] for k in
-                    ("bound_ms", "bound_by", "bound_tf32_ms", "flop",
-                     "bytes")}
+                    ("bound_ms", "bound_by", "bound_fp32_ms", "bound_tf32_ms",
+                     "flop", "tensor_flop", "bytes")}
     d2 = {"2": var["D1"], **{k[5:]: v for k, v in var.items()
                              if k.startswith("D2")}}
     for key, v in var.items():
@@ -765,7 +907,9 @@ def main() -> int:
               f"bound {staged['bound_ms']:.4f} ms FP32)")
     print(f"[{card}] uniforms kernel (D4), {uniforms['n']} draws: "
           f"{uniforms['ms']:.4f} ms (plain torch {uniforms['plain_ms']:.4f} "
-          f"ms; torch.rand {uniforms['library_ms']:.4f} ms; bound "
+          f"ms; torch.rand in turns {uniforms['library_ms']:.4f} ms; kernels "
+          f"alone {uniforms['kernel_ms']:.4f} ms vs torch.rand's "
+          f"{uniforms['library_kernel_ms']:.4f} ms; bound "
           f"{uniforms['bound_ms']:.4f} ms); probe (8, 256) seed "
           f"{PROBE_SEED}: {uniforms['probe']}", flush=True)
     kernels = [
@@ -774,38 +918,51 @@ def main() -> int:
          "replaces": "aspire_tpu/ops/fused_coupling.py:445",
          "launches": main_path["launches"]["coupling"],
          "max_abs_err": coupling["max_abs_err"],
-         "ms": coupling["ms"], "plain_ms": coupling["plain_ms"],
-         **b1_bound, "library_ms": None,
+         "ms": coupling["ms"], "ms_single_call": coupling["ms_single_call"],
+         "kernel_ms": coupling["kernel_ms"],
+         "plain_ms": coupling["plain_ms"], **b1_bound, "library_ms": None,
          "inverse_ms": coupling["inverse_ms"],
+         "inverse_kernel_ms": coupling["inverse_kernel_ms"],
          "inverse_plain_ms": coupling["inverse_plain_ms"]},
         {"name": "chain_kernel (B2)", "route": "cuda",
          "source": "aspire_tpu_torch/csrc/chain.cu",
          "replaces": "aspire_tpu/ops/fused_mutation.py:1038",
          "launches": main_path["launches"]["chain"],
          "max_abs_err": chain["max_abs_err"],
-         "ms": chain_t["ms"], "plain_ms": chain_t["plain_ms"],
-         **b2_bound, "library_ms": None},
+         "ms": chain_t["ms"], "ms_single_call": chain_t["ms_single_call"],
+         "kernel_ms": chain_t["kernel_ms"],
+         "plain_ms": chain_t["plain_ms"], **b2_bound, "library_ms": None},
         {"name": "maf_kernel (B4)", "route": "cuda",
          "source": "aspire_tpu_torch/csrc/maf.cu",
          "replaces": "aspire_tpu/ops/fused_coupling.py:598",
          "launches": maf_path["launches"]["maf"],
          "max_abs_err": maf["max_abs_err"],
-         "ms": maf["ms"], "plain_ms": maf["plain_ms"],
-         **b4_bound, "library_ms": None,
+         "ms": maf["ms"], "ms_single_call": maf["ms_single_call"],
+         "kernel_ms": maf["kernel_ms"],
+         f"kernel_ms_n{N_CHAIN}": maf[f"kernel_ms_n{N_CHAIN}"],
+         "plain_ms": maf["plain_ms"], **b4_bound, "library_ms": None,
+         f"ms_n{N_CHAIN}": maf[f"ms_n{N_CHAIN}"],
+         f"ms_single_call_n{N_CHAIN}": maf[f"ms_single_call_n{N_CHAIN}"],
+         f"bound_ms_n{N_CHAIN}": b4_bound_small["bound_ms"],
          "wrapper_ms": maf["wrapper_ms"]},
         {"name": "staged_kernel interleaved (D1)", "route": "cuda",
          "source": "aspire_tpu_torch/csrc/staged_coupling.cu",
          "replaces": "benchmarks/dev/interleave_ab.py:122",
          "launches": staged["launches"]["D1"],
          "max_abs_err": var["D1"]["max_abs_err"],
-         "ms": var["D1"]["ms"], "plain_ms": var["D1"]["plain_ms"],
+         "ms": var["D1"]["ms"], "ms_single_call": var["D1"]["ms_single_call"],
+         "kernel_ms": var["D1"]["kernel_ms"],
+         "plain_ms": var["D1"]["plain_ms"],
          **staged_bound, "library_ms": None, "b1_ms": var["D1"]["b1_ms"]},
         {"name": "staged_kernel q (D2)", "route": "cuda",
          "source": "aspire_tpu_torch/csrc/staged_coupling.cu",
          "replaces": "benchmarks/dev/quad_interleave_ab.py:96",
          "launches": staged["launches"]["D2"],
          "max_abs_err": max(v["max_abs_err"] for v in d2.values()),
-         "ms": var["D2 q=4"]["ms"], "plain_ms": var["D2 q=4"]["plain_ms"],
+         "ms": var["D2 q=4"]["ms"],
+         "ms_single_call": var["D2 q=4"]["ms_single_call"],
+         "kernel_ms": var["D2 q=4"]["kernel_ms"],
+         "plain_ms": var["D2 q=4"]["plain_ms"],
          **staged_bound, "library_ms": None,
          "ms_by_q": {q: v["ms"] for q, v in d2.items()},
          "plain_ms_by_q": {q: v["plain_ms"] for q, v in d2.items()},
@@ -816,7 +973,9 @@ def main() -> int:
          "launches": staged["launches"]["D3"],
          "max_abs_err": max(var["D3"]["max_abs_err"],
                             var["D3 micro"]["max_abs_err"]),
-         "ms": var["D3"]["ms"], "plain_ms": var["D3"]["plain_ms"],
+         "ms": var["D3"]["ms"], "ms_single_call": var["D3"]["ms_single_call"],
+         "kernel_ms": var["D3"]["kernel_ms"],
+         "plain_ms": var["D3"]["plain_ms"],
          **staged_bound, "library_ms": None, "b1_ms": var["D3"]["b1_ms"],
          "micro_ms": var["D3 micro"]["ms"],
          "micro_plain_ms": var["D3 micro"]["plain_ms"]},
@@ -825,10 +984,15 @@ def main() -> int:
          "replaces": "benchmarks/dev/prng_probe.py:15",
          "launches": uniforms["launches"],
          "max_abs_err": uniforms["max_abs_err"],
-         "ms": uniforms["ms"], "plain_ms": uniforms["plain_ms"],
+         "ms": uniforms["ms"], "ms_single_call": uniforms["ms_single_call"],
+         "kernel_ms": uniforms["kernel_ms"],
+         "plain_ms": uniforms["plain_ms"],
          **{k: uniforms[k] for k in ("bound_ms", "bound_by", "flop",
                                      "bytes")},
-         "library_ms": uniforms["library_ms"]},
+         "library_ms": uniforms["library_ms"],
+         "library_ms_single_call": uniforms["library_ms_single_call"],
+         "library_kernel_ms": uniforms["library_kernel_ms"],
+         "turns_ms": uniforms["turns_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

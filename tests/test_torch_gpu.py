@@ -39,8 +39,10 @@ def test_main_path_routes_through_the_kernels(cuda):
 
 
 def test_maf_kernel_matches_plain(cuda):
+    """B4 at n = 8192 and at 8192 + 37, a ragged last 16-particle tile."""
     out = chip_smoke.phase_maf(cuda, 8192)
-    assert out["ill_conditioned_points"] <= 8192 * 5 * 1e-4
+    assert out["checked_n"] == [8192, 8192 + 37]
+    assert out["ill_conditioned_points"] <= 2 * 8229 * 5 * 1e-4
 
 
 def test_maf_path_routes_through_the_maf_kernel(cuda):
@@ -60,6 +62,7 @@ def test_staged_coupling_kernels_match_plain(cuda):
 
 
 def test_prng_kernel_matches_plain_philox(cuda):
+    """D4 bit for bit, a draw of no multiple of 4 elements included."""
     out = chip_smoke.phase_prng(cuda, 8192)
     assert out["launches"] > 0 and out["max_abs_err"] == 0.0
 

@@ -194,47 +194,163 @@ def test_maf_adam_step_matches_optax_f64():
 
 @pytest.mark.parametrize("bins", [4, 8])
 def test_prepare_maf_params_matches_jax_sections(bins):
-    """Every section of the packed buffer holds the JAX package's
-    mask-premultiplied weights, and is zero where the masks are zero."""
+    """The packed buffer, un-permuted from degree order and with the
+    blocks the masks zero put back as zeros, holds the JAX package's
+    ``prepare_maf_params`` sections (mask-premultiplied weights)."""
     jarch, params, tarch, tparams = _pair(dtype="float32", bins=bins)
     packed = FC.prepare_maf_params(tarch, tparams)
     L, P, G = tarch.n_layers, tarch.n_params_per_dim, FC.maf_group(tarch)
-    assert packed.dtype == torch.float32
+    h1, h2 = HIDDEN
+    assert packed.dtype == torch.float32 and G % 8 == 0
     assert packed.numel() == L * FC.maf_layer_floats(tarch)
     jw = [np.asarray(a) for a in j_prepare_maf_params(jarch, params)]
     jG = jw[4].shape[1] // 4
     want = {
         "w1": jw[0], "b1": jw[1][..., 0],
         "w2": jw[2].transpose(0, 2, 1), "b2": jw[3][..., 0],
-        "w3": jw[4].reshape(L, 4, jG, -1)[:, :, :P].transpose(0, 1, 3, 2),
+        "w3": jw[4].reshape(L, 4, jG, -1)[:, :, :P].transpose(0, 3, 1, 2),
         "b3": jw[5][..., 0].reshape(L, 4, jG)[..., :P],
     }
-    masks = tarch.masks(packed)
-    mask_of = {"w1": masks[0].t(), "w2": masks[1],
-               "w3": masks[2].reshape(-1, 4, P).permute(1, 0, 2)}
-    layers = packed.reshape(L, -1)
-    off = 0
-    for name, shape in FC.maf_sections(tarch):
-        off = -(-off // 4) * 4
-        size = int(np.prod(shape))
-        sec = layers[:, off:off + size].reshape(L, *shape)
-        off += size
-        if name in ("w3", "b3"):
-            assert bool((sec[..., P:] == 0).all())
-            sec = sec[..., :P]
-        np.testing.assert_allclose(sec.numpy(), want[name], rtol=1e-6,
-                                   atol=1e-7)
-        if name in mask_of:
-            assert bool((sec[:, mask_of[name] == 0] == 0).all())
+    o1 = FC.degree_order(tarch, h1)
+    o2 = FC.degree_order(tarch, h2)
+    for layer, buf in enumerate(packed.reshape(L, -1)):
+        sec = FC.unpack_maf_layer(tarch, buf)
+        got = {"w1": torch.zeros(h1, 4), "b1": torch.zeros(h1),
+               "w2": torch.zeros(h1, h2), "b2": torch.zeros(h2),
+               "w3": torch.zeros(h2, 4, G)}
+        got["w1"][o1] = sec["w1"]
+        got["b1"][o1] = sec["b1"]
+        got["w2"][o1[:, None], o2[None, :]] = sec["w2"]
+        got["b2"][o2] = sec["b2"]
+        got["w3"][o2] = sec["w3"].reshape(h2, 4, G)
+        assert bool((got["w3"][..., P:] == 0).all())
+        assert bool((sec["b3"][:, P:] == 0).all())
+        got["w3"] = got["w3"][..., :P]
+        got["b3"] = sec["b3"][:, :P]
+        for name, value in got.items():
+            np.testing.assert_allclose(value.numpy(), want[name][layer],
+                                       rtol=1e-6, atol=1e-7, err_msg=name)
 
 
 def test_maf_kernel_layout_fits_one_block():
-    """maf_rqs(4) is compiled, has the kernel's layer size (10720 floats)
-    and fits one block's shared memory."""
+    """maf_rqs(4) is compiled, has the kernel's layer size (6816 floats:
+    48 W2 and 51 W3 fragments of the kept 8-wide blocks, against 10720 for
+    the dense layout), and its weights with 16 warps' buffers fit one
+    block's shared memory."""
     arch = maf_rqs(4)
     assert FC.maf_config_id(arch) == 0
-    assert FC.maf_layer_floats(arch) == 10720
-    assert 4 * 4 * 10720 <= FC.MAX_SHARED_BYTES
+    ks2, ks3 = FC.maf_ksteps(arch)
+    assert ks2 == (3, 3, 6, 6, 6, 8, 8, 8) and ks3 == (0, 3, 6, 8)
+    assert dict(FC.maf_sections(arch))["w2"] == (48, 32, 2)
+    assert dict(FC.maf_sections(arch))["w3"] == (51, 32, 2)
+    assert FC.maf_layer_floats(arch) == 6816
+    assert FC.maf_stage_floats(arch) == 1216
+    assert 4 * (4 * 6816 + 16 * 1216) <= FC.MAX_SHARED_BYTES
+    assert FC.maf_shared_bytes(arch) == 4 * (4 * 6816 + 1216)
+
+
+def test_maf_kernel_configs_mirror_common_cuh():
+    """``MAF_KERNEL_CONFIGS`` is ``ASPIRE_MAF_CONFIGS``, and every compiled
+    shape takes the kernel's hidden widths (multiples of 8)."""
+    import re
+    from pathlib import Path
+
+    text = (Path(__file__).resolve().parent.parent / "aspire_tpu_torch"
+            / "csrc" / "common.cuh").read_text()
+    body = text[text.index("#define ASPIRE_MAF_CONFIGS"):]
+    rows = re.findall(r"X\(([^)]*)\)", body.split("\n\n")[0])
+    parsed = {}
+    for row in rows:
+        f = [int(v) for v in row.split(",")]
+        parsed[(f[1], (f[2], f[3]), f[4])] = f[0]
+    assert parsed == FC.MAF_KERNEL_CONFIGS
+    assert all(h % 8 == 0 for _, hidden, _ in parsed for h in hidden)
+
+
+@pytest.mark.parametrize("dims,hidden", [(1, (8, 8)), (2, (16, 8)),
+                                         (4, (16, 16)), (4, (64, 64)),
+                                         (5, (24, 16))])
+def test_maf_kept_blocks_cover_every_mask_entry(dims, hidden):
+    """In degree order the blocks the kernel multiplies hold every weight
+    the MADE masks keep: W1 row u sees inputs below its degree, W2 n-tile j
+    reads its first 8 * ks2[j] units, dim i's W3 columns its first
+    8 * ks3[i] (none for dim 0)."""
+    arch = maf_rqs(dims, n_hidden=hidden)
+    m1, m2, m3 = tnets.made_masks(dims, list(hidden), arch.n_params_per_dim)[0]
+    o1, o2 = FC.degree_order(arch, hidden[0]), FC.degree_order(arch, hidden[1])
+    e1 = FC.degree_ends(arch, hidden[0])
+    ks2, ks3 = FC.maf_ksteps(arch)
+    w1 = m1[:, o1].t()
+    for deg in range(1, len(e1)):
+        seg = w1[e1[deg - 1]:e1[deg]]
+        assert bool((seg[:, deg:] == 0).all()) and bool((seg[:, :deg] == 1).all())
+    w2 = m2[o1][:, o2]
+    for j, k in enumerate(ks2):
+        assert bool((w2[8 * k:, 8 * j:8 * j + 8] == 0).all())
+    w3 = m3[o2].reshape(hidden[1], dims, -1)
+    for i, k in enumerate(ks3):
+        assert bool((w3[8 * k:, i] == 0).all())
+    assert ks3[0] == 0 and bool((w3[:, 0] == 0).all())
+
+
+def _maf_rqs4_pair(n_layers, dtype):
+    """A ``maf_rqs(4)``-shaped flow ((64, 64) hidden, 8 bins) of
+    ``n_layers`` layers in both packages, perturbed from its init."""
+    kw = dict(dims=4, n_layers=n_layers, n_hidden=(64, 64), transformer="rqs",
+              num_bins=8, dtype=dtype)
+    jarch = JMAF(**kw)
+    params = jarch.init(jax.random.key(3))
+    params = jax.tree.map(
+        lambda p: p + 0.1 * jax.random.normal(jax.random.key(4), p.shape,
+                                              p.dtype), params)
+    return jarch, params, MAF(**kw), flow_params_from_jax(params, dtype=dtype)
+
+
+@pytest.mark.parametrize("n_layers", [2, 4])
+def test_maf_packed_plain_matches_jax_f64(n_layers):
+    """The kernel's reading of its buffer (degree order, kept blocks only,
+    dim 0 from the bias) against the JAX package's ``_forward_xla`` in
+    float64 (float64 parameters pack to a float64 buffer, unrounded)."""
+    jarch, params, tarch, tparams = _maf_rqs4_pair(n_layers, "float64")
+    x = _x(300, seed=n_layers)
+    zj, ldj = jarch._forward_xla(params, jnp.asarray(x))
+    packed = FC.prepare_maf_params(tarch, tparams)
+    assert packed.dtype == torch.float64
+    z, ld = FC.maf_packed_plain(tarch, packed, torch.as_tensor(x))
+    np.testing.assert_allclose(z.numpy(), np.asarray(zj), atol=1e-10, rtol=0)
+    np.testing.assert_allclose(ld.numpy(), np.asarray(ldj), atol=1e-10,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("n_layers", [2, 4])
+def test_maf_packed_plain_matches_jax_pallas_interpret(n_layers):
+    """The same against the JAX Pallas MAF kernel in interpret mode, in
+    float32 at the JAX package's own kernel bound."""
+    jarch, params, tarch, tparams = _maf_rqs4_pair(n_layers, "float32")
+    x = _x(256, np.float32, seed=10 + n_layers, scale=1.5)
+    zj, ldj = _pallas_maf_forward(jarch, j_prepare_maf_params(jarch, params),
+                                  jnp.asarray(x), interpret=True)
+    packed = FC.prepare_maf_params(tarch, tparams)
+    z, ld = FC.maf_packed_plain(tarch, packed, torch.as_tensor(x))
+    np.testing.assert_allclose(z.numpy(), np.asarray(zj), rtol=1e-3,
+                               atol=1e-4)
+    np.testing.assert_allclose(ld.numpy(), np.asarray(ldj), rtol=1e-3,
+                               atol=1e-4)
+
+
+def test_maf_main_path_never_reads_the_packed_plain(monkeypatch):
+    """The kernel wrapper and the flow's density pass do not go through
+    ``maf_packed_plain`` (it exists for the layout's tests)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("maf_packed_plain on the main path")
+
+    monkeypatch.setattr(FC, "maf_packed_plain", refuse)
+    _, _, tarch, tparams = _pair(dtype="float32")
+    x = torch.as_tensor(_x(64, np.float32))
+    z, ld = FC.fused_maf_forward(tarch, tparams, x)
+    z2, ld2 = tarch.forward(tparams, x)
+    torch.testing.assert_close(z, z2)
+    torch.testing.assert_close(ld, ld2)
 
 
 def test_maf_and_coupling_kernel_tables_stay_apart():

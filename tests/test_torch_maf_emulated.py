@@ -1,0 +1,312 @@
+"""The MAF kernel's CUDA source (``csrc/maf.cu``), run on the CPU.
+
+The machine that runs the tests has no ``nvcc`` and no card, so the
+kernel's lane-level logic (the mma fragment layouts, the accumulator
+reused as the next product's operand, the masked blocks, the per-warp
+buffers, the ragged last tile, the persistent tile loop) would otherwise
+be checked only on the card. Here the unchanged source is compiled as
+C++ with a small stand-in for the CUDA runtime: one ``std::thread`` per
+CUDA thread, barriers for ``__syncthreads``/``__syncwarp``, and the
+warp's ``mma.sync`` m16n8k8 TF32 computed from all 32 lanes' fragments
+(operands cut to their top 19 bits, as the tensor core reads them). The
+result is held against ``MAF.forward_plain`` at the card check's
+tolerance (``chip_smoke.COUPLING_TOL`` with float64 arbitration) and
+against ``maf_packed_plain``; the kernel's layout tables, as the compiled
+source reports them, against the Python packing's. Skips where no ``g++``
+with C++20 ``<barrier>`` is installed.
+"""
+
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from aspire_tpu_torch.flows.architectures import maf_rqs
+from aspire_tpu_torch.ops import fused_coupling as FC
+
+CSRC = Path(__file__).resolve().parent.parent / "aspire_tpu_torch" / "csrc"
+
+RUNTIME = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__
+#define __shared__
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
+struct dim3s { unsigned x, y, z; };
+inline thread_local dim3s threadIdx, blockIdx;
+inline dim3s blockDim, gridDim;
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
+inline float __uint_as_float(unsigned u) {
+  float f; std::memcpy(&f, &u, 4); return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u; std::memcpy(&u, &f, 4); return u;
+}
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
+inline std::unique_ptr<std::barrier<>> emu_block;
+inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp;
+struct EmuLanes { float f[32][6]; };
+inline std::vector<EmuLanes> emu_lanes;
+inline void __syncthreads() { emu_block->arrive_and_wait(); }
+inline void __syncwarp() { emu_warp[threadIdx.x / 32]->arrive_and_wait(); }
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_lanes[w].f[l][0] = v;
+  __syncwarp();
+  const float r = emu_lanes[w].f[l ^ mask][0];
+  __syncwarp();
+  return r;
+}
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 over the warp.
+inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                    uint32_t b1) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  float* me = emu_lanes[w].f[l];
+  for (int r = 0; r < 4; ++r) me[r] = __uint_as_float(a[r] & 0xFFFFE000u);
+  me[4] = __uint_as_float(b0 & 0xFFFFE000u);
+  me[5] = __uint_as_float(b1 & 0xFFFFE000u);
+  __syncwarp();
+  auto A = [&](int row, int k) {
+    return emu_lanes[w].f[(row % 8) * 4 + k % 4][(row < 8 ? 0 : 1) +
+                                                (k < 4 ? 0 : 2)];
+  };
+  auto B = [&](int k, int col) {
+    return emu_lanes[w].f[col * 4 + k % 4][k < 4 ? 4 : 5];
+  };
+  const int g = l / 4, t = l % 4;
+  const int rows[4] = {g, g, g + 8, g + 8};
+  const int cols[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
+  float out[4];
+  for (int r = 0; r < 4; ++r) {
+    float acc = d[r];
+    for (int k = 0; k < 8; ++k) acc = std::fma(A(rows[r], k), B(k, cols[r]), acc);
+    out[r] = acc;
+  }
+  __syncwarp();
+  for (int r = 0; r < 4; ++r) d[r] = out[r];
+}
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidConfiguration = 9 };
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerBlockOptin
+};
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+inline cudaError_t cudaGetDevice(int*) { return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int) {
+  return cudaSuccess;
+}
+template <class T>
+cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+"""
+
+HARNESS = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <thread>
+#include "maf_emulated.cpp"
+namespace aspire { float4 maf_smem4[232448 / 16]; }
+int main(int argc, char** argv) {
+  if (argc == 2) {  // the layout: configuration 0's C entries, then H's
+    int ks[256];
+    const int count = aspire_maf_ksteps(0, ks, 256);
+    printf("%d %d", aspire_maf_layer_floats(0), aspire_maf_stage_floats(0));
+    for (int e = 0; e < count; ++e) printf(" %d", ks[e]);
+    using B = aspire::MafShape<4, H, H, 8>;
+    printf("\n%d %d", B::SIZE, B::STAGE);
+    for (int j = 0; j < H / 8; ++j) printf(" %d", B::ks2(j));
+    for (int i = 0; i < 4; ++i) printf(" %d", B::ks3(i));
+    printf("\n");
+    return 0;
+  }
+  const int n = atoi(argv[1]), layers = atoi(argv[2]);
+  const int blocks = atoi(argv[3]), warps = atoi(argv[4]);
+  using S = aspire::MafShape<4, H, H, 8>;
+  std::vector<float> x(4 * n), z(4 * n, -1.f), ld(n, -1.f);
+  std::vector<float> w(layers * S::SIZE);
+  FILE* f = fopen(argv[5], "rb");
+  if (fread(x.data(), 4, x.size(), f) != x.size()) return 2;
+  if (fread(w.data(), 4, w.size(), f) != w.size()) return 3;
+  fclose(f);
+  blockDim = {(unsigned)(32 * warps), 1, 1};
+  gridDim = {(unsigned)blocks, 1, 1};
+  for (int b = 0; b < blocks; ++b) {
+    emu_block = std::make_unique<std::barrier<>>(32 * warps);
+    emu_warp.clear();
+    for (int i = 0; i < warps; ++i)
+      emu_warp.push_back(std::make_unique<std::barrier<>>(32));
+    emu_lanes.assign(warps, EmuLanes{});
+    std::vector<std::thread> threads;
+    for (int t = 0; t < 32 * warps; ++t) {
+      threads.emplace_back([&, b, t] {
+        threadIdx = {(unsigned)t, 0, 0};
+        blockIdx = {(unsigned)b, 0, 0};
+        aspire::maf_kernel<4, H, H, 8>(x.data(), z.data(), ld.data(),
+                                       w.data(), n, layers, 5.0f);
+      });
+    }
+    for (auto& t : threads) t.join();
+  }
+  f = fopen(argv[6], "wb");
+  fwrite(z.data(), 4, z.size(), f);
+  fwrite(ld.data(), 4, ld.size(), f);
+  fclose(f);
+  return 0;
+}
+"""
+
+
+SPLIT_PRODUCTS = """  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);"""
+
+
+def _emulated_source(single_pass: bool = False) -> str:
+    """maf.cu with its one piece of inline PTX, the mma, routed to the
+    emulation, and the launch syntax (host code the harness bypasses)
+    removed; with ``single_pass``, each block takes one TF32 product
+    (hi . hi) instead of the three of the split form."""
+    src = (CSRC / "maf.cu").read_text()
+    if single_pass:
+        assert src.count(SPLIT_PRODUCTS) == 1
+        src = src.replace(SPLIT_PRODUCTS, "  mma_tf32(d, ah, bh0, bh1);")
+    src, n_mma = re.subn(
+        r"(void mma_tf32\(float \(&d\)\[4\], const uint32_t \(&a\)\[4\],"
+        r"\s*uint32_t b0, uint32_t b1\)) \{.*?\n\}\n",
+        r"\1 { emu_mma(d, a, b0, b1); }\n", src, flags=re.S)
+    assert n_mma == 1, "mma_tf32 not found in maf.cu"
+    assert "asm(" not in src, "maf.cu has inline PTX the emulation lacks"
+    return re.sub(r"<<<[^>]*>>>", "", src)
+
+
+@pytest.fixture(scope="module")
+def harnesses(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel source for the CPU")
+    root = tmp_path_factory.mktemp("maf_emulated")
+    probe = root / "barrier_probe.cpp"
+    probe.write_text("#include <barrier>\nint main() { return 0; }\n")
+    if subprocess.run([gxx, "-std=c++20", "-fsyntax-only", str(probe)],
+                      capture_output=True).returncode:
+        pytest.skip("needs a g++ with C++20 <barrier> for the stand-in "
+                    "CUDA runtime")
+    builds = {"16": (16, False), "64": (64, False), "64_single": (64, True)}
+    procs = {}
+    for name, (h, single) in builds.items():
+        sub = root / name
+        sub.mkdir()
+        (sub / "cuda_runtime.h").write_text(RUNTIME)
+        shutil.copy(CSRC / "common.cuh", sub / "common.cuh")
+        (sub / "maf_emulated.cpp").write_text(_emulated_source(single))
+        (sub / "harness.cpp").write_text(HARNESS)
+        procs[name] = subprocess.Popen(
+            [gxx, "-std=c++20", "-O1", "-pthread", "-w", f"-DH={h}",
+             f"-I{sub}", "-o", str(root / f"harness{name}"),
+             str(sub / "harness.cpp")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for h, proc in procs.items():
+        out = proc.communicate()[0]
+        assert proc.returncode == 0, out[-4000:]
+    return root
+
+
+def _run(root, build: str, arch, params, x, blocks: int, warps: int):
+    """The emulated kernel on x: (z, log_det)."""
+    n = x.shape[0]
+    packed = FC.prepare_maf_params(arch, params)
+    inp, out = root / f"in_{build}_{n}.bin", root / f"out_{build}_{n}.bin"
+    np.concatenate([x.numpy().ravel(), packed.numpy()]).tofile(inp)
+    subprocess.run([str(root / f"harness{build}"), str(n),
+                    str(arch.n_layers), str(blocks), str(warps), str(inp),
+                    str(out)], check=True, timeout=300)
+    res = torch.as_tensor(np.fromfile(out, dtype=np.float32))
+    return res[:4 * n].reshape(n, 4), res[4 * n:]
+
+
+def _case(hidden: int, n_layers: int, n: int):
+    arch, params = chip_smoke.perturbed_flow(
+        torch.device("cpu"), seed=hidden + n_layers,
+        arch=maf_rqs(4, n_layers=n_layers, n_hidden=(hidden, hidden)))
+    x = 2.0 * torch.as_tensor(
+        np.random.default_rng(n).normal(size=(n, 4)).astype(np.float32))
+    return arch, params, x
+
+
+@pytest.mark.parametrize("hidden", [16, 64])
+def test_kernel_layout_tables_match_python(harnesses, hidden):
+    """The kernel's own layout, as MafShape/MafBlocks compute it and the C
+    entries the wrapper checks at launch report it: floats per layer and
+    per warp buffer, and the k-steps of every W2 n-tile and W3 dim, equal
+    the Python packing's (``maf_layer_floats``, ``maf_stage_floats``,
+    ``maf_ksteps``), for configuration 0 and for this build's widths."""
+    lines = subprocess.run([str(harnesses / f"harness{hidden}"), "layout"],
+                           check=True, capture_output=True, text=True,
+                           timeout=60).stdout.splitlines()
+    for line, arch in ((lines[0], maf_rqs(4)),
+                       (lines[1], maf_rqs(4, n_hidden=(hidden, hidden)))):
+        ks2, ks3 = FC.maf_ksteps(arch)
+        want = [FC.maf_layer_floats(arch), FC.maf_stage_floats(arch),
+                *ks2, *ks3]
+        assert [int(v) for v in line.split()] == want
+
+
+@pytest.mark.parametrize("hidden,n_layers,n,blocks,warps", [
+    (64, 4, 100, 3, 2),   # maf_rqs(4): 7 tiles, the last ragged
+    (64, 2, 16, 2, 2),    # one tile, idle warps
+    (16, 3, 77, 2, 3),    # another shape of the same layout
+])
+def test_maf_kernel_source_matches_plain(harnesses, hidden, n_layers, n,
+                                         blocks, warps):
+    arch, params, x = _case(hidden, n_layers, n)
+    z, ld = _run(harnesses, str(hidden), arch, params, x, blocks, warps)
+    z_p, ld_p = arch.forward_plain(params, x)
+    z_e, ld_e = arch.forward_plain(chip_smoke.as_float64(params), x.double())
+    chip_smoke.assert_kernel_close(z, z_p, z_e, "emulated MAF z")
+    chip_smoke.assert_kernel_close(ld, ld_p, ld_e, "emulated MAF log_det")
+    z_r, ld_r = FC.maf_packed_plain(arch, FC.prepare_maf_params(arch, params),
+                                    x)
+    torch.testing.assert_close(z, z_r, **chip_smoke.COUPLING_TOL)
+    torch.testing.assert_close(ld, ld_r, **chip_smoke.COUPLING_TOL)
+
+
+def test_single_pass_tf32_misses_the_card_tolerance(harnesses):
+    """Why the kernel takes three TF32 products per block: with one (the
+    operands rounded to TF32 alone), its maf_rqs(4) density pass misses
+    the card check's tolerance against the float32 plain path, with no
+    float64 arbitration to excuse it."""
+    arch, params, x = _case(64, 4, 300)
+    z, _ = _run(harnesses, "64_single", arch, params, x, 3, 2)
+    z_p, _ = arch.forward_plain(params, x)
+    z_e, _ = arch.forward_plain(chip_smoke.as_float64(params), x.double())
+    with pytest.raises(AssertionError, match="beyond tolerance"):
+        chip_smoke.assert_kernel_close(z, z_p, z_e, "single-pass MAF z")

@@ -17,7 +17,11 @@ from aspire_tpu.models import GaussianMixtureProblem as JMixture
 from aspire_tpu_torch import Aspire, Samples
 from aspire_tpu_torch.flows import Flow
 from aspire_tpu_torch.models import GaussianMixtureProblem
-from aspire_tpu_torch.utils import flow_params_from_jax, transform_from_jax
+from aspire_tpu_torch.utils import (
+    flow_params_from_jax,
+    resolve_device,
+    transform_from_jax,
+)
 
 torch.set_num_threads(1)
 
@@ -92,7 +96,29 @@ def test_slice_runs_with_the_port_fitting_its_own_flow():
 
 
 def test_aspire_requires_an_explicit_device():
+    """Without an explicit device the entry points take the card:
+    ``resolve_device(None)`` and ``Aspire`` (which only stores its device)
+    give ``cuda``; the CPU is used only when asked for."""
     p = GaussianMixtureProblem(dims=4)
-    with pytest.raises(ValueError):
-        Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
-               dims=4, device=None)
+    assert resolve_device(None) == torch.device("cuda")
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=4)
+    assert asp.device == torch.device("cuda")
+    assert Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                  dims=4, device="cpu").device == torch.device("cpu")
+
+
+def test_default_device_raises_without_a_card():
+    """No fallback: without a card, a default ``Flow`` and fitting a
+    default ``Aspire`` raise rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    p = GaussianMixtureProblem(dims=2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        Flow(dims=2)
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=2, seed=0)
+    init = Samples(p.draw_initial_samples(np.random.default_rng(0), 64))
+    with pytest.raises((RuntimeError, AssertionError)):
+        asp.fit(init, n_epochs=1, batch_size=32)
+    assert asp.flow is None or asp.flow.device.type == "cuda"
