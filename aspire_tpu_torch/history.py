@@ -30,3 +30,6 @@ class SMCHistory:
     #: per mutation, particles whose log-prior or log-likelihood came back
     #: non-finite
     nonfinite_target: list = field(default_factory=list)
+    #: host (numpy) snapshots of the population: before the first
+    #: temperature, then after every mutation
+    sample_history: list = field(default_factory=list)

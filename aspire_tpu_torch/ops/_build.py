@@ -113,6 +113,8 @@ def load_library() -> ctypes.CDLL:
         [_P] * 11 + [_I] * 9 + [_F] * 6 + [_U, _U, _I, _P]
     )
     lib.aspire_chain.restype = _I
+    lib.aspire_chain_layout.argtypes = [_I, _P, _I]
+    lib.aspire_chain_layout.restype = _I
     lib.aspire_maf_layer_floats.argtypes = [_I]
     lib.aspire_maf_layer_floats.restype = _I
     lib.aspire_maf_stage_floats.argtypes = [_I]

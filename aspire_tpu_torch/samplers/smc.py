@@ -35,6 +35,9 @@ from . import kernels as K
 logger = logging.getLogger("aspire_tpu_torch")
 
 DEFAULT_BETA_TOLERANCE = 1e-8
+#: sampler_kwargs the JAX package reads and the port does not implement:
+#: each raises when set rather than being ignored
+UNPORTED_SAMPLER_KWARGS = ("waste_free", "windowed_tau", "flow_moves")
 
 
 class BetaScheduleError(RuntimeError):
@@ -360,11 +363,16 @@ class SMCSampler(Sampler):
         if device_ladder:
             raise NotImplementedError(
                 "the device ladder is not ported; the host ladder runs")
-        if store_sample_history:
-            raise NotImplementedError(
-                "per-iteration sample history is not ported")
         self.sampler_kwargs = dict(self.default_sampler_kwargs)
         self.sampler_kwargs.update(sampler_kwargs or {})
+        for name in UNPORTED_SAMPLER_KWARGS:
+            if self.sampler_kwargs.get(name):
+                raise NotImplementedError(
+                    f"sampler_kwargs[{name!r}] is not ported")
+        if store_sample_history is None:
+            # One host copy of the population per temperature: by default
+            # only at plot sizes, as in the JAX package.
+            store_sample_history = n_samples <= 10_000
         n_final_steps = self.sampler_kwargs.pop("n_final_steps", None)
         self._step_size_carry = None
         self._step_size_carry_fused = None
@@ -374,6 +382,8 @@ class SMCSampler(Sampler):
         init = self.draw_initial_samples(n_samples)
         samples = SMCSamples.from_samples(init, beta=0.0, dtype=self.dtype)
         beta = 0.0
+        if store_sample_history:
+            self.history.sample_history.append(samples.to_numpy())
         for name in ("log_q", "log_prior", "log_likelihood"):
             if bool(torch.isnan(getattr(samples, name)).any()):
                 raise ValueError(
@@ -440,6 +450,8 @@ class SMCSampler(Sampler):
             self._update_lineage_after_resample(ess, n_before)
             samples = self.mutate(samples, beta)
             self._update_lineage_after_mutation()
+            if store_sample_history:
+                self.history.sample_history.append(samples.to_numpy())
             if beta == 1.0 or (max_n_steps is not None
                                and iterations >= max_n_steps):
                 break

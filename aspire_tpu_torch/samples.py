@@ -8,6 +8,8 @@ HDF5 persistence are not ported yet.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import logging
 import math
 from dataclasses import dataclass, field
@@ -96,6 +98,16 @@ class BaseSamples:
 
     def __getitem__(self, idx):
         return self.__class__(**self._fields(idx))
+
+    def to_numpy(self) -> "BaseSamples":
+        """A host copy: every tensor field as a numpy array (the JAX
+        package's ``to_numpy``)."""
+        out = copy.copy(self)
+        for f in dataclasses.fields(self):
+            value = getattr(self, f.name)
+            if isinstance(value, torch.Tensor):
+                setattr(out, f.name, value.detach().cpu().numpy().copy())
+        return out
 
     @classmethod
     def concatenate(cls, samples: list) -> "BaseSamples":

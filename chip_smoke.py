@@ -9,7 +9,7 @@ main paths (6, 7) right after the build:
 2. build the CUDA kernels from aspire_tpu_torch/csrc with nvcc;
 3. the coupling kernel (density and sampling modes) against the plain
    torch path at nsf-tpu shapes, n = 131072, float32 with TF32 off;
-4. the whole-chain kernel against the plain chain at n = 8192, 20 steps:
+4. the whole-chain kernel (B2) against the plain chain at n = 8192, 20 steps:
    injected noise (exact acceptance counts), the in-kernel Philox stream
    against the same stream injected (bit-identical), and Philox against
    independent noise (statistical bounds);
@@ -44,7 +44,13 @@ main paths (6, 7) right after the build:
    kernel_ms reading is made after every event time and pipeline: once
    the profiler has traced the card, each launch costs the host more.
    A bound is the least time on the pipes the kernel computes with (the
-   FP32 pipe; for B4 its split-TF32 tensor-core products).
+   FP32 pipe; for B2 and B4 their split-TF32 tensor-core products beside
+   it).
+
+``python3 chip_smoke.py --chain-ab PARENT`` runs none of that: it times
+the chain kernel B2 of the checkout at PARENT (e.g. a ``git archive`` of
+the parent commit) and of this checkout in turns, each turn a process of
+its own (``chain_ab``).
 """
 
 from __future__ import annotations
@@ -202,18 +208,25 @@ def reset_launch_counts() -> None:
         counter.reset()
 
 
-def coupling_flop(arch) -> int:
-    """FLOP per particle of one coupling-flow pass: per layer the
-    conditioner's products over the conditioning inputs, both hidden
-    layers and the active dims' spline parameters, 2 FLOP per
-    multiply-add (the splines' few hundred operations are not counted)."""
+def coupling_flop_parts(arch) -> tuple[int, int]:
+    """FLOP per particle of one coupling-flow pass, 2 per multiply-add, as
+    (first layer, the two wide layers): per layer the conditioner's
+    products over the conditioning inputs, then both hidden layers and the
+    active dims' spline parameters (the splines' few hundred operations
+    are not counted). The chain kernel runs the first part on the FP32
+    pipe and the second on the tensor cores."""
     h1, h2 = arch.n_hidden
-    flop = 0
+    first = wide = 0
     for layer in range(arch.n_layers):
         active = len([i for i in range(arch.dims) if i % 2 == layer % 2])
-        flop += 2 * ((arch.dims - active) * h1 + h1 * h2
-                     + h2 * active * arch.n_params_per_dim)
-    return flop
+        first += 2 * (arch.dims - active) * h1
+        wide += 2 * (h1 * h2 + h2 * active * arch.n_params_per_dim)
+    return first, wide
+
+
+def coupling_flop(arch) -> int:
+    """FLOP per particle of one coupling-flow pass (both parts)."""
+    return sum(coupling_flop_parts(arch))
 
 
 def maf_flop(arch) -> tuple[int, int]:
@@ -570,6 +583,42 @@ def chain_setup(device, n: int, steps: int):
     return cfg, params, z0, 0.7, step0, refs, target, dt, gen
 
 
+def nudge_accept_uniforms(noise, acc) -> None:
+    """Keep every accept uniform (the last row of ``noise``) a relative
+    1e-3 away from its acceptance probability ``acc`` (the plain chain's
+    per-step ones), on the same side, so the plain trajectory is unchanged:
+    f32 differences between two correct implementations can then not flip
+    a Metropolis decision. In place."""
+    import torch
+
+    u = noise[:, -1]
+    noise[:, -1] = torch.where(u < acc, torch.minimum(u, acc * (1 - 1e-3)),
+                               torch.clamp(torch.maximum(u, acc * (1 + 1e-3)),
+                                           max=1.0))
+
+
+def assert_chain_close(kern, plain) -> float:
+    """A chain's outputs against the plain chain's on the same nudged
+    noise: acceptance counts exact, z, the densities, the step sizes and
+    the combined statistics at the JAX package's parity bounds. Returns
+    the largest difference of z and the densities."""
+    import torch
+
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    torch.testing.assert_close(kern[4], plain[4], rtol=0, atol=0)
+    torch.testing.assert_close(kern[0], plain[0], rtol=0, atol=Z_ATOL)
+    for i in (1, 2, 3):
+        torch.testing.assert_close(kern[i], plain[i], rtol=0,
+                                   atol=DENSITY_ATOL)
+    torch.testing.assert_close(kern[5], plain[5], rtol=STEP_RTOL, atol=0)
+    tau_k, mix_k = FM.combine_tile_stats(kern[6], 4)
+    tau_p, mix_p = FM.combine_tile_stats(plain[6], 4)
+    torch.testing.assert_close(tau_k, tau_p, rtol=STATS_RTOL, atol=0)
+    torch.testing.assert_close(mix_k, mix_p, rtol=STATS_RTOL, atol=0)
+    return max(max_err(kern[i], plain[i]) for i in range(4))
+
+
 def phase_chain(device, n: int, steps: int) -> dict:
     import torch
 
@@ -582,28 +631,10 @@ def phase_chain(device, n: int, steps: int) -> dict:
     plain = FM.chain_plain(cfg, params, z0, beta, step0, *refs, target,
                            data_transform=dt, noise=noise,
                            return_acc_probs=True)
-    # Keep every accept uniform a relative 1e-3 away from its acceptance
-    # probability (same side, so the plain trajectory is unchanged): f32
-    # differences between two correct implementations can then not flip
-    # a Metropolis decision.
-    acc = plain[-1]
-    u = noise[:, -1]
-    noise[:, -1] = torch.where(u < acc, torch.minimum(u, acc * (1 - 1e-3)),
-                               torch.clamp(torch.maximum(u, acc * (1 + 1e-3)),
-                                           max=1.0))
+    nudge_accept_uniforms(noise, plain[-1])
     kern = FM.fused_mh_chain(cfg, params, z0, beta, None, step0, *refs,
                              target, data_transform=dt, noise=noise)
-    torch.testing.assert_close(kern[4], plain[4], rtol=0, atol=0)
-    torch.testing.assert_close(kern[0], plain[0], rtol=0, atol=Z_ATOL)
-    for i in (1, 2, 3):
-        torch.testing.assert_close(kern[i], plain[i], rtol=0,
-                                   atol=DENSITY_ATOL)
-    torch.testing.assert_close(kern[5], plain[5], rtol=STEP_RTOL, atol=0)
-    tau_k, mix_k = FM.combine_tile_stats(kern[6], 4)
-    tau_p, mix_p = FM.combine_tile_stats(plain[6], 4)
-    torch.testing.assert_close(tau_k, tau_p, rtol=STATS_RTOL, atol=0)
-    torch.testing.assert_close(mix_k, mix_p, rtol=STATS_RTOL, atol=0)
-    err = max(max_err(kern[i], plain[i]) for i in range(4))
+    err = assert_chain_close(kern, plain)
 
     # The in-kernel Philox stream against the same stream injected.
     seed = (0x12345678, 0x9ABCDEF0)
@@ -662,6 +693,50 @@ def time_chain(device, n: int, steps: int) -> dict:
     }
     kernel_ms_later(out, "kernel_ms", kernel, "chain_kernel", reps=5)
     return out
+
+
+# One turn of chain_ab, run by a process of its own from the root of the
+# checkout timed: that checkout's B2 through its own wrapper, on
+# time_chain's inputs, by events and then alone.
+CHAIN_AB_TURN = """
+import json, torch
+import chip_smoke as cs
+from aspire_tpu_torch.ops import fused_mutation as FM
+cfg, params, z0, beta, step0, refs, target, dt, _ = cs.chain_setup(
+    torch.device("cuda"), {n}, {steps})
+def chain():
+    return FM.fused_mh_chain(cfg, params, z0, beta, (1, 2), step0, *refs,
+                             target, data_transform=dt)
+out = {{"ms": cs.cuda_ms(chain), "ms_single_call": cs.cuda_ms_single(chain)}}
+out["kernel_ms"] = cs.kernel_ms(chain, "chain_kernel", reps=5)
+print(json.dumps(out))
+"""
+
+
+def chain_ab(parent: str) -> dict:
+    """B2 of the checkout at ``parent`` against this one's, at
+    n = N_PIPELINE and CHAIN_STEPS steps, in turns (parent, change, change,
+    parent) on the same card; each turn a process of its own, which builds
+    its checkout's kernels (a first call, not timed) and reads the kernel
+    alone after its events."""
+    from pathlib import Path
+
+    here = str(Path(__file__).resolve().parent)
+    code = CHAIN_AB_TURN.format(n=N_PIPELINE, steps=CHAIN_STEPS)
+    turns = []
+    for name, root in (("parent", parent), ("change", here),
+                       ("change", here), ("parent", parent)):
+        done = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        if done.returncode:
+            raise RuntimeError(f"{name} turn failed:\n{done.stderr[-4000:]}")
+        turns.append({"checkout": name,
+                      **json.loads(done.stdout.splitlines()[-1])})
+        log(f"chain A/B turn: {turns[-1]}")
+    return {"turns": turns, **{
+        name: {key: sum(t[key] for t in turns if t["checkout"] == name) / 2
+               for key in ("ms", "ms_single_call", "kernel_ms")}
+        for name in ("parent", "change")}}
 
 
 def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
@@ -856,8 +931,6 @@ def main() -> int:
     print(f"[{card}] coupling kernel, sampling pass, n={N_COUPLING}: "
           f"{coupling['inverse_ms']:.4f} ms (plain torch "
           f"{coupling['inverse_plain_ms']:.4f} ms)")
-    print(f"[{card}] chain kernel, n={N_PIPELINE}, {CHAIN_STEPS} steps: "
-          f"{chain_t['ms']:.4f} ms (plain torch {chain_t['plain_ms']:.4f} ms)")
     print(f"[{card}] sample_posterior pipeline, n={N_PIPELINE}: "
           f"{main_path['pipeline_s']:.4f} s (median of 3); anchor log Z "
           f"{main_path['log_z']:.4f} +/- {main_path['log_z_err']:.4f} vs "
@@ -877,15 +950,25 @@ def main() -> int:
           f"{maf_path['n_mutations']} mutations", flush=True)
     from aspire_tpu_torch.flows.architectures import maf_rqs, nsf_tpu
     from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.ops import fused_mutation as FM
 
     nsf4, maf4 = nsf_tpu(4), maf_rqs(4)
     b1_bound = bound(N_COUPLING * coupling_flop(nsf4),
                      density_bytes(nsf4, N_COUPLING, FC.weight_bytes(nsf4)))
     # B2: one flow density per step and one for the start, z0 read, z and
-    # four per-particle outputs written.
+    # four per-particle outputs written, the packed weights read once; the
+    # conditioner's first layer on the FP32 pipe, its two wide ones on the
+    # tensor cores in split TF32.
+    b2_first, b2_wide = ((CHAIN_STEPS + 1) * N_PIPELINE * f
+                         for f in coupling_flop_parts(nsf4))
     b2_bound = bound(
-        (CHAIN_STEPS + 1) * N_PIPELINE * coupling_flop(nsf4),
-        N_PIPELINE * (2 * 4 + 4) * 4 + FC.weight_bytes(nsf4))
+        b2_first, N_PIPELINE * (2 * 4 + 4) * 4
+        + 4 * nsf4.n_layers * FM.chain_layout(nsf4)[0], tensor_flop=b2_wide)
+    print(f"[{card}] chain kernel, n={N_PIPELINE}, {CHAIN_STEPS} steps: "
+          f"{chain_t['ms']:.4f} ms, the kernel alone "
+          f"{chain_t['kernel_ms']:.4f} ms (plain torch "
+          f"{chain_t['plain_ms']:.4f} ms; bound {b2_bound['bound_ms']:.4f} "
+          f"ms, split TF32)")
     # B4: the first MADE layer on the FP32 pipe, the two wide ones on the
     # tensor cores in split TF32 (three products each).
     fp32_flop, tensor_flop = maf_flop(maf4)
@@ -1002,4 +1085,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--chain-ab":
+        print(card_line(), flush=True)
+        print(json.dumps({"chain_ab": chain_ab(sys.argv[2])}), flush=True)
+        sys.exit(0)
     sys.exit(main())

@@ -4,8 +4,9 @@ The port's whole-chain wrapper on a CPU tensor (its plain version) runs
 with injected noise beside the JAX package's fused chain kernel in Pallas
 interpret mode: the same flow, start points, reference, target and
 uniforms go into both. Also the chain statistics, the Gaussian
-reference, and the port's Philox4x32-10 against its published
-known-answer vectors.
+reference, the port's Philox4x32-10 against its published
+known-answer vectors, and the chain kernel's packed weights (read back
+in float64) against the JAX conditioner and the coupling kernel's layout.
 """
 
 import jax
@@ -14,14 +15,17 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from aspire_tpu import transforms as JT
 from aspire_tpu.flows.architectures import nsf as jnsf
+from aspire_tpu.flows.nets import apply_mlp as japply_mlp
 from aspire_tpu.models import GaussianMixtureProblem as JMixture
 from aspire_tpu.models import GaussianProblem as JGaussian
 from aspire_tpu.ops import fused_mutation as JFM
 from aspire_tpu.samplers import kernels as JK
 from aspire_tpu_torch.flows.architectures import nsf
 from aspire_tpu_torch.models import GaussianMixtureProblem, GaussianProblem
+from aspire_tpu_torch.ops import fused_coupling as FC
 from aspire_tpu_torch.ops import fused_mutation as FM
 from aspire_tpu_torch.samplers import kernels as K
 from aspire_tpu_torch.utils import flow_params_from_jax
@@ -203,3 +207,82 @@ def test_split_chain_keeps_a_gaussian_invariant(step):
     np.testing.assert_allclose(final.x.var(0).numpy(), 1.0, atol=0.1)
     assert 1.0 <= float(stats.tau) and 0.0 <= float(stats.mixing) <= 1.0
     assert final.n_evals == 10 * 4000
+
+
+def _coupling_layout_conditioner(arch, packed, layer, x):
+    """The spline parameters of layer ``layer``'s active dims, from the
+    coupling kernel's buffer (``prepare_params``: W1 (H1, D), b1, W2
+    (H2, H1), b2, W3 (H2, OUTP) of the active groups, b3)."""
+    d, P = arch.dims, arch.n_params_per_dim
+    h1, h2 = arch.n_hidden
+    outp = FC._round4((d + 1) // 2 * P)
+    buf = packed.reshape(arch.n_layers, -1)[layer]
+    sec, off = [], 0
+    for size in (h1 * d, h1, h2 * h1, h2, h2 * outp, outp):
+        off = FC._round4(off)
+        sec.append(buf[off:off + size])
+        off += size
+    w1, b1, w2, b2, w3, b3 = sec
+    cond = torch.tensor([(i % 2) != (layer % 2) for i in range(d)])
+    h = torch.relu(torch.where(cond, x, 0.0) @ w1.reshape(h1, d).t() + b1)
+    h = torch.relu(h @ w2.reshape(h2, h1).t() + b2)
+    out = h @ w3.reshape(h2, outp) + b3
+    return out[:, :d // 2 * P].reshape(-1, d // 2, P)
+
+
+@pytest.mark.parametrize("hidden,bins", [(64, 8), (16, 4)])
+def test_chain_packing_matches_jax_and_the_coupling_layout(hidden, bins):
+    """Float64: the chain kernel's packed buffer, read back the way the
+    kernel reads it (``chain_conditioner_plain``), gives every layer's
+    spline parameters as the JAX ``Coupling``'s conditioner on the same
+    weights (carried across by ``flow_params_from_jax``) and as the
+    coupling kernel's ``prepare_params`` layout. The weights are float32
+    values, so the three agree to float64 rounding."""
+    jarch = jnsf(dims=4, n_layers=3, n_hidden=(hidden, hidden),
+                 num_bins=bins)
+    jparams = jax.tree.map(
+        lambda p: p + 0.1 * jax.random.normal(jax.random.key(3), p.shape,
+                                              p.dtype),
+        jarch.init(jax.random.key(0)))
+    tarch = nsf(dims=4, n_layers=3, n_hidden=(hidden, hidden),
+                num_bins=bins)
+    tparams = flow_params_from_jax(jparams, dtype="float64")
+    chain_packed = FM.prepare_chain_params(tarch, tparams)
+    coupling_packed = FC.prepare_params(tarch, tparams).double()
+    x = np.random.default_rng(4).normal(size=(200, 4)) * 2.0
+    for layer in range(3):
+        cond = np.array([(i % 2) != (layer % 2) for i in range(4)])
+        want = np.asarray(japply_mlp(
+            jparams["layers"][layer],
+            jnp.where(cond, jnp.asarray(x), 0.0))).reshape(200, 4, -1)
+        want = want[:, ~cond]
+        got = FM.chain_conditioner_plain(tarch, chain_packed, layer,
+                                         torch.as_tensor(x))
+        other = _coupling_layout_conditioner(tarch, coupling_packed, layer,
+                                             torch.as_tensor(x))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-10, rtol=0)
+        np.testing.assert_allclose(got.numpy(), other.numpy(), atol=1e-10,
+                                   rtol=0)
+
+
+def test_chain_packing_rounds_wide_weights_to_tf32_sums():
+    """In float32 every packed W2 and W3 weight is a sum of two TF32 values
+    within 2^-21 of the weight (the kernel splits it exactly), and W1 and
+    the biases are packed as they are."""
+    _, _, tarch, tparams = _flow()
+    exact = FM.prepare_chain_params(tarch, chip_smoke.as_float64(tparams))
+    packed = FM.prepare_chain_params(tarch, tparams)
+    names = [name for name, _ in FM.chain_sections(tarch)]
+    layout = FM.chain_layout(tarch)
+    for layer in range(tarch.n_layers):
+        base = layer * layout[0]
+        ends = list(layout[2:7]) + [layout[0]]
+        for name, start, end in zip(names, layout[1:7], ends):
+            a = packed[base + start:base + end]
+            b = exact[base + start:base + end]
+            if name in ("w2", "w3"):
+                assert torch.equal(FC.split_tf32_sum(a), a)
+                np.testing.assert_allclose(a.double().numpy(), b.numpy(),
+                                           rtol=2.0**-21, atol=0)
+            else:
+                assert torch.equal(a.double(), b)

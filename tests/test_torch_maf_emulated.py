@@ -190,12 +190,12 @@ SPLIT_PRODUCTS = """  mma_tf32(d, al, bh0, bh1);
   mma_tf32(d, ah, bh0, bh1);"""
 
 
-def _emulated_source(single_pass: bool = False) -> str:
-    """maf.cu with its one piece of inline PTX, the mma, routed to the
-    emulation, and the launch syntax (host code the harness bypasses)
-    removed; with ``single_pass``, each block takes one TF32 product
-    (hi . hi) instead of the three of the split form."""
-    src = (CSRC / "maf.cu").read_text()
+def emulated_source(name: str, single_pass: bool = False) -> str:
+    """csrc/``name`` with its one piece of inline PTX, the mma, routed to
+    the emulation, and the launch syntax (host code the harness bypasses)
+    removed; with ``single_pass`` (maf.cu), each block takes one TF32
+    product (hi . hi) instead of the three of the split form."""
+    src = (CSRC / name).read_text()
     if single_pass:
         assert src.count(SPLIT_PRODUCTS) == 1
         src = src.replace(SPLIT_PRODUCTS, "  mma_tf32(d, ah, bh0, bh1);")
@@ -203,23 +203,30 @@ def _emulated_source(single_pass: bool = False) -> str:
         r"(void mma_tf32\(float \(&d\)\[4\], const uint32_t \(&a\)\[4\],"
         r"\s*uint32_t b0, uint32_t b1\)) \{.*?\n\}\n",
         r"\1 { emu_mma(d, a, b0, b1); }\n", src, flags=re.S)
-    assert n_mma == 1, "mma_tf32 not found in maf.cu"
-    assert "asm(" not in src, "maf.cu has inline PTX the emulation lacks"
+    assert n_mma == 1, f"mma_tf32 not found in {name}"
+    assert "asm(" not in src, f"{name} has inline PTX the emulation lacks"
     return re.sub(r"<<<[^>]*>>>", "", src)
 
 
-@pytest.fixture(scope="module")
-def harnesses(tmp_path_factory):
+def cxx20_compiler(root: Path) -> str:
+    """A g++ that has C++20 ``<barrier>`` (the stand-in runtime's), or
+    skip the calling test."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")
-    root = tmp_path_factory.mktemp("maf_emulated")
     probe = root / "barrier_probe.cpp"
     probe.write_text("#include <barrier>\nint main() { return 0; }\n")
     if subprocess.run([gxx, "-std=c++20", "-fsyntax-only", str(probe)],
                       capture_output=True).returncode:
         pytest.skip("needs a g++ with C++20 <barrier> for the stand-in "
                     "CUDA runtime")
+    return gxx
+
+
+@pytest.fixture(scope="module")
+def harnesses(tmp_path_factory):
+    root = tmp_path_factory.mktemp("maf_emulated")
+    gxx = cxx20_compiler(root)
     builds = {"16": (16, False), "64": (64, False), "64_single": (64, True)}
     procs = {}
     for name, (h, single) in builds.items():
@@ -227,7 +234,8 @@ def harnesses(tmp_path_factory):
         sub.mkdir()
         (sub / "cuda_runtime.h").write_text(RUNTIME)
         shutil.copy(CSRC / "common.cuh", sub / "common.cuh")
-        (sub / "maf_emulated.cpp").write_text(_emulated_source(single))
+        (sub / "maf_emulated.cpp").write_text(emulated_source("maf.cu",
+                                                              single))
         (sub / "harness.cpp").write_text(HARNESS)
         procs[name] = subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-pthread", "-w", f"-DH={h}",

@@ -1,6 +1,8 @@
 """aspire_tpu_torch SMC building blocks against the JAX package (float64):
 the beta bisection and per-iteration statistics, resampling with a fixed
-uniform, the evidence reductions of the sample containers."""
+uniform, the evidence reductions of the sample containers; the sampler's
+per-temperature sample history against the JAX package's, and the
+sampler options the port refuses."""
 
 import jax
 import jax.numpy as jnp
@@ -8,7 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from aspire_tpu import Aspire as JAspire
+from aspire_tpu import Samples as JSamples
 from aspire_tpu import samples as JS
+from aspire_tpu.models import GaussianMixtureProblem as JMixture
+from aspire_tpu_torch import Aspire, Samples
+from aspire_tpu_torch.models import GaussianMixtureProblem
 from aspire_tpu.ops import resampling as JR
 from aspire_tpu.ops import special as JSP
 from aspire_tpu.samplers import smc as JSMC
@@ -117,3 +124,74 @@ def test_special_reductions_match_jax(case):
         want = JSP.log_evidence_from_log_weights(jnp.asarray(log_w))
         got = TSP.log_evidence_from_log_weights(torch.as_tensor(log_w))
         _close([float(g) for g in got], [float(w) for w in want])
+
+
+# A small problem run by both packages: a 2-d mixture, a small nsf flow
+# fitted briefly, a fixed 4-rung ladder (beta 0.25, 0.5, 0.75, 1), so both
+# run the same number of temperatures whatever their random streams.
+HISTORY_FLOW = dict(flow_backend="nsf", n_hidden=(8, 8), n_layers=2)
+HISTORY_FIT = dict(n_epochs=2, batch_size=128, learning_rate=3e-3)
+HISTORY_RUN = dict(sampler="smc", n_steps=4, adaptive=False,
+                   sampler_kwargs=dict(n_steps=2))
+
+
+def _port_sampler(n, **kw):
+    p = GaussianMixtureProblem(dims=2)
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=2, seed=1, device="cpu", **HISTORY_FLOW)
+    asp.fit(Samples(p.draw_initial_samples(np.random.default_rng(0), 512)),
+            **HISTORY_FIT)
+    asp.sample_posterior(n_samples=n, **HISTORY_RUN, **kw)
+    return asp.sampler
+
+
+@pytest.fixture(scope="module")
+def jax_history():
+    p = JMixture(dims=2)
+    asp = JAspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                  dims=2, seed=1, **HISTORY_FLOW)
+    asp.fit(JSamples(p.draw_initial_samples(np.random.default_rng(0), 512)),
+            **HISTORY_FIT)
+    asp.sample_posterior(n_samples=256, **HISTORY_RUN)
+    return asp.sampler.history
+
+
+def test_sample_history_matches_jax(jax_history):
+    """``store_sample_history=None`` at n <= 10 000 records, as in the JAX
+    package, the population before the first temperature and after every
+    mutation: the same number of snapshots, the same shapes, the rungs in
+    the same order (the values differ: the random streams do)."""
+    history = _port_sampler(256).history
+    want, got = jax_history.sample_history, history.sample_history
+    assert len(got) == len(want) == len(history.beta) + 1 == 5
+    for g, w in zip(got, want):
+        for name in ("x", "log_q", "log_prior", "log_likelihood"):
+            value = getattr(g, name)
+            assert isinstance(value, np.ndarray)
+            assert value.shape == np.shape(getattr(w, name))
+    betas = [float(s.beta) for s in got]
+    assert betas == [float(s.beta) for s in want] == [0.0, *history.beta]
+    assert not np.shares_memory(got[0].x, got[1].x)
+
+
+@pytest.mark.parametrize("n,store,count", [
+    (10_240, None, 0),   # above 10 000: nothing by default
+    (10_240, True, 5),   # asked for: recorded at any size
+    (256, False, 0),     # refused at a small size
+])
+def test_sample_history_follows_its_option(n, store, count):
+    history = _port_sampler(n, store_sample_history=store).history
+    assert len(history.sample_history) == count
+    assert all(s.x.shape == (n, 2) for s in history.sample_history)
+
+
+@pytest.mark.parametrize("name", ["waste_free", "windowed_tau",
+                                  "flow_moves"])
+def test_unported_sampler_options_raise(name):
+    """Options the JAX package reads and the port does not implement
+    raise rather than return a standard-SMC result."""
+    sampler = TSMC.PCNSMC(log_likelihood=lambda x: x.sum(-1),
+                          log_prior=lambda x: x.sum(-1), dims=2,
+                          prior_flow=None, device="cpu")
+    with pytest.raises(NotImplementedError, match=name):
+        sampler.sample(64, sampler_kwargs={name: True})
