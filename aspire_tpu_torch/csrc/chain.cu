@@ -25,28 +25,19 @@
 // per chain; device memory is touched only at the start and the end.
 //
 // Design:
-// - Tensor cores for the conditioner. A warp's 32 particles are two 16-row
-//   tiles of mma.sync m16n8k8 TF32. The two wide products, h1 . W2 and
-//   h2 . W3, run in split form (3xTF32: every operand a = hi + lo in two
-//   TF32 values, each product lo.hi + hi.lo + hi.hi), which keeps float32
-//   accuracy; each weight fragment is read from shared memory once for both
-//   row tiles. The packed W2 and W3 weights are sums of two TF32 values
-//   (ops/fused_coupling.py::split_tf32_sum), so their split is exact, and
-//   are stored in the mma B-fragment order with the k order that makes one
-//   product's accumulator the next one's A fragment: h1 and h2 never leave
-//   the warp's registers. W1 (the D/2 conditioning inputs) stays on FP32
-//   FMAs; the inputs reach the fragment rows by warp shuffles.
-// - One particle per thread everywhere else. The spline parameters go from
-//   the accumulator fragments to their particle's thread through a per-warp
-//   shared buffer, and each thread runs the D/2 inverse splines of its own
-//   particle (rqs<K, true> of common.cuh), so the coordinates, the log-det
-//   and the chain state never leave its registers.
+// - The flow density is the tensor-core coupling pass of coupling_mma.cuh,
+//   shared with the coupling-flow kernel (coupling.cu): a warp's 32
+//   particles are two 16-row tiles of mma.sync m16n8k8 TF32 for the
+//   conditioner's two wide products in split form (float32 accuracy), W1
+//   on FP32 FMAs, and every thread runs the inverse splines of its own
+//   particle, so the coordinates, the log-det and the chain state never
+//   leave its registers. All layers' weights stay in shared memory.
 // - The block's 256 particles are both the adaptation tile (the step size
 //   adapts on their mean acceptance probability) and the Philox tile (a
 //   particle's counter holds threadIdx.x and blockIdx.x). The per-step tile
 //   sum takes one barrier (two scratch rows, used in turn).
 
-#include "common.cuh"
+#include "coupling_mma.cuh"
 
 namespace aspire {
 
@@ -54,46 +45,6 @@ constexpr int kTile = 256;          // particles per block: one tile
 constexpr int kWarps = kTile / 32;  // each warp: two 16-row mma tiles
 enum ChainKernel { kTPCN = 0, kPCN = 1, kRWMH = 2 };
 enum TargetId { kGaussianMixture = 1, kGaussian = 2 };
-
-// Packed chain weight layout (built by ops/fused_mutation.py::
-// prepare_chain_params), per coupling layer, every section starting on a
-// multiple of 4 floats. Layer l transforms the A = D/2 active dims
-// 2a + (l & 1), conditioned on the C = D/2 dims 2c + 1 - (l & 1):
-//   W1  (H1 x C)            W1[u*C + c] = w0[conditioning dim c][u]
-//   b1  (H1)
-//   W2  KS1 x KS2 fragments k-step s, n-tile j at index s * KS2 + j
-//   b2  (H2)
-//   W3  KS2 x NT fragments  k-step s, n-tile m at index s * NT + m
-//   b3  (A x G)             b3[a*G + q] = b2[active dim a][q], q < P
-// A fragment is 32 lanes x 2 floats: lane 4g + t holds W[8s + 2t][8j + g]
-// and W[8s + 2t + 1][8j + g] (rows: input units; W3's columns: the active
-// dims' P = 3K - 1 spline parameters, each dim's group zero-padded to G, a
-// multiple of 8). Every W2 and W3 weight is the sum of two TF32 values.
-template <int D, int H1, int H2, int K>
-struct ChainShape {
-  static_assert(D % 2 == 0, "the chain kernel takes an even dimension");
-  static_assert(H1 % 8 == 0 && H2 % 8 == 0, "hidden widths must be /8");
-  static constexpr int A = D / 2;
-  static constexpr int C = D / 2;
-  static constexpr int P = 3 * K - 1;
-  static constexpr int G = (P + 7) / 8 * 8;
-  static constexpr int OUT = A * G;
-  static constexpr int KS1 = H1 / 8;  // k-steps of W2
-  static constexpr int KS2 = H2 / 8;  // n-tiles of W2, k-steps of W3
-  static constexpr int NT = OUT / 8;  // n-tiles of W3
-  static constexpr int W1 = 0;
-  static constexpr int B1 = round4(W1 + H1 * C);
-  static constexpr int W2 = round4(B1 + H1);
-  static constexpr int B2 = W2 + 64 * KS1 * KS2;
-  static constexpr int W3 = round4(B2 + H2);
-  static constexpr int B3 = W3 + 64 * KS2 * NT;
-  static constexpr int SIZE = round4(B3 + OUT);  // floats per layer
-  // A warp's buffer of spline parameters: its 32 particles' OUT floats,
-  // rows ROW floats apart (the 4 extra floats put the 8 rows a quarter
-  // warp reads with float4 loads in distinct banks).
-  static constexpr int ROW = OUT + 4;
-  static constexpr int STAGE = 32 * ROW;
-};
 
 // Constant block layout (floats): reference mean (D), chol (D x D), ichol
 // (D x D), data-transform mean (D) and std (D), target constants.
@@ -227,211 +178,6 @@ __device__ __forceinline__ float tile_sum(float v, float* scratch,
   return total;
 }
 
-// x = hi + lo: hi is x rounded to the nearest TF32 value (ties away from
-// zero, cvt.rna.tf32.f32 done in integer ops), lo = x - hi exactly; the
-// tensor core reads lo's top 11 significant bits, which leaves an error
-// below 2^-21 |x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// A packed weight is the sum of two TF32 values, so cutting it to TF32
-// gives hi, and w - hi = lo exactly.
-__device__ __forceinline__ void split_weight(float w, uint32_t& hi,
-                                             uint32_t& lo) {
-  hi = __float_as_uint(w) & 0xFFFFE000u;
-  lo = __float_as_uint(w - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A lane's B fragment of packed weights, split.
-struct WeightFragment {
-  uint32_t h0, h1, l0, l1;
-
-  __device__ __forceinline__ explicit WeightFragment(const float* p) {
-    const float2 b = *reinterpret_cast<const float2*>(p);
-    split_weight(b.x, h0, l0);
-    split_weight(b.y, h1, l1);
-  }
-};
-
-// d += A . B in split TF32, the small terms first.
-__device__ __forceinline__ void mma_split(float (&d)[4],
-                                          const uint32_t (&ah)[4],
-                                          const uint32_t (&al)[4],
-                                          const WeightFragment& b) {
-  mma_tf32(d, al, b.h0, b.h1);
-  mma_tf32(d, ah, b.l0, b.l1);
-  mma_tf32(d, ah, b.h0, b.h1);
-}
-
-// The conditioner of one coupling layer for the warp's 32 particles. Lane
-// 4g + t brings u[r][c], conditioning input c of particle g + 8r (row tile
-// r / 2), and gets, as does every lane, the rows g + 8r of the fragments;
-// the spline parameters of particle p's active dim a go to
-// buf[p * ROW + a * G + q].
-template <int D, int H1, int H2, int K>
-__device__ __forceinline__ void conditioner_mma(const float* __restrict__ w,
-                                                const float (&u)[4][D / 2],
-                                                float* __restrict__ buf,
-                                                int lane) {
-  using S = ChainShape<D, H1, H2, K>;
-  const int g = lane >> 2, t = lane & 3;
-  // Second hidden layer's accumulators: row tile m, n-tile j.
-  float acc[2][S::KS2][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int j = 0; j < S::KS2; ++j) {
-      acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < S::KS1; ++s) {
-    // First hidden layer, units 8s + 2t + e, in each row tile's A-fragment
-    // order: (g, e = 0), (g + 8, 0), (g, 1), (g + 8, 1).
-    uint32_t hh[2][4], hl[2][4];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int unit = 8 * s + 2 * t + e;
-      const float bias = w[S::B1 + unit];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float a = 0.f;
-#pragma unroll
-        for (int c = 0; c < S::C; ++c) {
-          a = fmaf(w[S::W1 + unit * S::C + c], u[r][c], a);
-        }
-        const int q = 2 * e + (r & 1);
-        split_tf32(fmaxf(a + bias, 0.f), hh[r >> 1][q], hl[r >> 1][q]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < S::KS2; ++j) {
-      const WeightFragment b(w + S::W2 + 64 * (s * S::KS2 + j) + 2 * lane);
-      mma_split(acc[0][j], hh[0], hl[0], b);
-      mma_split(acc[1][j], hh[1], hl[1], b);
-    }
-  }
-  // h2 = relu(acc + b2), kept as the accumulator fragments.
-#pragma unroll
-  for (int j = 0; j < S::KS2; ++j) {
-    const float2 bias =
-        *reinterpret_cast<const float2*>(w + S::B2 + 8 * j + 2 * t);
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      acc[m][j][0] = fmaxf(acc[m][j][0] + bias.x, 0.f);
-      acc[m][j][1] = fmaxf(acc[m][j][1] + bias.y, 0.f);
-      acc[m][j][2] = fmaxf(acc[m][j][2] + bias.x, 0.f);
-      acc[m][j][3] = fmaxf(acc[m][j][3] + bias.y, 0.f);
-    }
-  }
-  // Output layer, k-step outer so the accumulators free up as it goes.
-  float out[2][S::NT][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int n = 0; n < S::NT; ++n) {
-      out[m][n][0] = out[m][n][1] = out[m][n][2] = out[m][n][3] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < S::KS2; ++s) {
-    // The accumulator of n-tile s, (g, 2t), (g, 2t+1), (g+8, 2t),
-    // (g+8, 2t+1), is the A fragment of k-step s in the order (g, 2t),
-    // (g+8, 2t), (g, 2t+1), (g+8, 2t+1).
-    uint32_t ah[2][4], al[2][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      split_tf32(acc[m][s][0], ah[m][0], al[m][0]);
-      split_tf32(acc[m][s][2], ah[m][1], al[m][1]);
-      split_tf32(acc[m][s][1], ah[m][2], al[m][2]);
-      split_tf32(acc[m][s][3], ah[m][3], al[m][3]);
-    }
-#pragma unroll
-    for (int n = 0; n < S::NT; ++n) {
-      const WeightFragment b(w + S::W3 + 64 * (s * S::NT + n) + 2 * lane);
-      mma_split(out[0][n], ah[0], al[0], b);
-      mma_split(out[1][n], ah[1], al[1], b);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < S::NT; ++n) {
-    const int q = 8 * n + 2 * t;
-    const float2 bias = *reinterpret_cast<const float2*>(w + S::B3 + q);
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const int row = 16 * m + g;
-      *reinterpret_cast<float2*>(buf + row * S::ROW + q) =
-          make_float2(out[m][n][0] + bias.x, out[m][n][1] + bias.y);
-      *reinterpret_cast<float2*>(buf + (row + 8) * S::ROW + q) =
-          make_float2(out[m][n][2] + bias.x, out[m][n][3] + bias.y);
-    }
-  }
-}
-
-// The flow density pass (data -> latent, layers in order) of the warp's
-// 32 particles, lane l holding particle l: f is transformed in place and
-// the log-det added to log_det. All 32 lanes call it together.
-template <int D, int H1, int H2, int K>
-__device__ __forceinline__ void flow_density(const float* __restrict__ w,
-                                             int n_layers, float tb,
-                                             float* __restrict__ buf,
-                                             int lane, float (&f)[D],
-                                             float& log_det) {
-  using S = ChainShape<D, H1, H2, K>;
-  __syncwarp();
-#pragma unroll 1
-  for (int layer = 0; layer < n_layers; ++layer) {
-    const bool odd = layer & 1;
-    float u[4][S::C];
-#pragma unroll
-    for (int c = 0; c < S::C; ++c) {
-      const float v = odd ? f[2 * c] : f[2 * c + 1];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        u[r][c] = __shfl_sync(0xffffffffu, v, (lane >> 2) + 8 * r);
-      }
-    }
-    conditioner_mma<D, H1, H2, K>(w + layer * S::SIZE, u, buf, lane);
-    __syncwarp();
-    float ld = 0.f;
-#pragma unroll
-    for (int a = 0; a < S::A; ++a) {
-      const float4* src =
-          reinterpret_cast<const float4*>(buf + lane * S::ROW + a * S::G);
-      float par[S::P];
-#pragma unroll
-      for (int c = 0; c < S::G / 4; ++c) {
-        const float4 v = src[c];
-        if (4 * c + 0 < S::P) par[4 * c + 0] = v.x;
-        if (4 * c + 1 < S::P) par[4 * c + 1] = v.y;
-        if (4 * c + 2 < S::P) par[4 * c + 2] = v.z;
-        if (4 * c + 3 < S::P) par[4 * c + 3] = v.w;
-      }
-      float y, e;
-      rqs<K, true>(odd ? f[2 * a + 1] : f[2 * a], par, tb, y, e);
-      if (odd) {
-        f[2 * a + 1] = y;
-      } else {
-        f[2 * a] = y;
-      }
-      ld += e;
-    }
-    log_det += ld;
-    __syncwarp();
-  }
-}
-
 template <int D, int H1, int H2, int K>
 __device__ __forceinline__ void tempered(const ChainArgs& a,
                                          const float* __restrict__ w,
@@ -448,7 +194,8 @@ __device__ __forceinline__ void tempered(const ChainArgs& a,
                        : x[i];
   }
   float ld = 0.f;
-  flow_density<D, H1, H2, K>(w, a.n_layers, a.tail_bound, buf, lane, f, ld);
+  flow_density<MmaShape<D, H1, H2, K, true>>(w, a.n_layers, a.tail_bound,
+                                             buf, lane, f, ld);
   float zz = 0.f;
 #pragma unroll
   for (int i = 0; i < D; ++i) zz += f[i] * f[i];
@@ -477,7 +224,7 @@ __device__ __forceinline__ float mahal2(const float* __restrict__ c,
 template <int D, int H1, int H2, int K, bool RQS>
 __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
   static_assert(RQS, "the chain kernel's flow is a neural spline flow");
-  using S = ChainShape<D, H1, H2, K>;
+  using S = MmaShape<D, H1, H2, K, true>;
   using C = Consts<D>;
   extern __shared__ float4 smem4[];
   float* w = reinterpret_cast<float*>(smem4);
@@ -641,7 +388,7 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
 
 template <int D, int H1, int H2, int K, bool RQS>
 int launch_chain(const ChainArgs& a, cudaStream_t stream) {
-  using S = ChainShape<D, H1, H2, K>;
+  using S = MmaShape<D, H1, H2, K, true>;
   const size_t smem =
       sizeof(float) * ((size_t)a.n_layers * S::SIZE + Consts<D>::SIZE +
                        2 * kWarps + kWarps * S::STAGE);
@@ -670,14 +417,14 @@ int aspire_consts_floats(int dims) {
   return -1;
 }
 
-// The packed layout of chain configuration `config`, as ChainShape
+// The packed layout of chain configuration `config`, as MmaShape
 // computes it: floats per layer, the offsets of W1, b1, W2, b2, W3 and b3,
 // then the warp buffer's row stride and size, into out (up to capacity
 // entries). Returns their number, or -1 for an unknown configuration.
 int aspire_chain_layout(int config, int* out, int capacity) {
 #define ASPIRE_CHAIN_LAYOUT_CASE(ID, D, H1, H2, K, RQS)                  \
   if (config == ID) {                                                   \
-    using S = aspire::ChainShape<D, H1, H2, K>;                         \
+    using S = aspire::MmaShape<D, H1, H2, K, true>;                     \
     const int v[] = {S::SIZE, S::W1, S::B1, S::W2, S::B2,               \
                      S::W3,   S::B3, S::ROW, S::STAGE};                 \
     const int count = (int)(sizeof(v) / sizeof(v[0]));                  \

@@ -1,22 +1,19 @@
-// Device functions shared by the coupling-flow kernel (coupling.cu), the
-// whole-chain Metropolis kernel (chain.cu), the MAF density kernel
-// (maf.cu), the tile-cooperative coupling kernels (staged_coupling.cu)
-// and the uniforms kernel (prng.cu): the conditioner MLP of one coupling
-// layer, the rational-quadratic spline and affine transformers, the whole
-// multi-layer coupling-flow pass for ONE particle held in registers, and
-// Philox4x32-10.
+// Device functions shared by the CUDA kernels: the rational-quadratic
+// spline and affine transformers of one value (the coupling-flow kernel
+// coupling.cu and the whole-chain kernel chain.cu through
+// coupling_mma.cuh, the MAF density kernel maf.cu, the tile-cooperative
+// coupling kernels staged_coupling.cu), the per-particle packed layout of
+// staged_coupling.cu, and Philox4x32-10 (chain.cu, prng.cu).
 //
 // Replaces the per-tile helpers of the TPU kernels in
-// aspire_tpu/ops/fused_coupling.py (_layer_matmuls, _layer_transform,
-// _rqs_rows, _affine_rows). The TPU layout (features on sublanes, padded
-// 8-row parameter groups, lane-half MXU/VPU pipelining) is not carried
-// over: here one thread owns one particle, every thread of a warp reads
-// the same weight at the same time (a shared-memory broadcast), and the
-// arithmetic is the plain per-particle formula of
-// aspire_tpu_torch/flows/bijectors.py.
+// aspire_tpu/ops/fused_coupling.py (_rqs_rows, _affine_rows). The TPU
+// layout (features on sublanes, padded 8-row parameter groups, lane-half
+// MXU/VPU pipelining) is not carried over: the transformers are the plain
+// per-value formulas of aspire_tpu_torch/flows/bijectors.py.
 //
-// Packed weight layout (built by ops/fused_coupling.py::prepare_params),
-// per flow layer, every section starting on a multiple of 4 floats:
+// Per-particle packed weight layout of the staged coupling kernels (built
+// by ops/fused_coupling.py::prepare_params), per flow layer, every section
+// starting on a multiple of 4 floats:
 //   W1  (H1 x D)     W1[j*D + i]      = w0[i][j]
 //   b1  (H1)
 //   W2  (H2 x H1)    W2[k*H1 + j]     = w1[j][k]
@@ -65,54 +62,6 @@ __device__ __forceinline__ bool is_active(int i, int layer) {
 
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-// Conditioner MLP of one layer: masked input -> relu -> relu -> linear.
-// The second hidden layer is streamed into the output accumulators one
-// unit at a time, so only h1 (H1 floats) and out (OUTP floats) are live.
-template <int D, int H1, int H2, int K, bool RQS>
-__device__ __forceinline__ void conditioner(
-    const float* __restrict__ w, int layer, const float (&x)[D],
-    float (&out)[Shape<D, H1, H2, K, RQS>::OUTP]) {
-  using S = Shape<D, H1, H2, K, RQS>;
-  float h1[H1];
-#pragma unroll
-  for (int j = 0; j < H1; ++j) {
-    float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      if (!is_active(i, layer)) acc = fmaf(w[S::W1 + j * D + i], x[i], acc);
-    }
-    h1[j] = fmaxf(acc + w[S::B1 + j], 0.f);
-  }
-#pragma unroll
-  for (int o = 0; o < S::OUTP; ++o) out[o] = 0.f;
-#pragma unroll 1
-  for (int k = 0; k < H2; ++k) {
-    const float4* row = reinterpret_cast<const float4*>(w + S::W2 + k * H1);
-    float acc = 0.f;
-#pragma unroll
-    for (int j4 = 0; j4 < H1 / 4; ++j4) {
-      const float4 v = row[j4];
-      acc = fmaf(v.x, h1[4 * j4 + 0], acc);
-      acc = fmaf(v.y, h1[4 * j4 + 1], acc);
-      acc = fmaf(v.z, h1[4 * j4 + 2], acc);
-      acc = fmaf(v.w, h1[4 * j4 + 3], acc);
-    }
-    const float h2 = fmaxf(acc + w[S::B2 + k], 0.f);
-    const float4* col =
-        reinterpret_cast<const float4*>(w + S::W3 + k * S::OUTP);
-#pragma unroll
-    for (int o4 = 0; o4 < S::OUTP / 4; ++o4) {
-      const float4 v = col[o4];
-      out[4 * o4 + 0] = fmaf(v.x, h2, out[4 * o4 + 0]);
-      out[4 * o4 + 1] = fmaf(v.y, h2, out[4 * o4 + 1]);
-      out[4 * o4 + 2] = fmaf(v.z, h2, out[4 * o4 + 2]);
-      out[4 * o4 + 3] = fmaf(v.w, h2, out[4 * o4 + 3]);
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < S::OUTP; ++o) out[o] += w[S::B3 + o];
 }
 
 // Rational-quadratic spline of one value; raw = its 3K-1 parameters.
@@ -212,43 +161,6 @@ __device__ __forceinline__ void affine(float v, const float (&raw)[2],
   }
 }
 
-// The whole multi-layer coupling flow for one particle.
-// DENSITY: data -> latent, layers in order, transformer inverse.
-// Otherwise latent -> data, layers reversed, transformer forward.
-template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
-__device__ __forceinline__ void flow_pass(const float* __restrict__ w,
-                                          int n_layers, float tb,
-                                          float (&x)[D], float& log_det) {
-  using S = Shape<D, H1, H2, K, RQS>;
-#pragma unroll 1
-  for (int step = 0; step < n_layers; ++step) {
-    const int layer = DENSITY ? step : n_layers - 1 - step;
-    const float* wl = w + layer * S::SIZE;
-    float out[S::OUTP];
-    conditioner<D, H1, H2, K, RQS>(wl, layer, x, out);
-    float ld = 0.f;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      if (is_active(i, layer)) {
-        // Copy the group out by constant indices so `out` stays in
-        // registers (a pointer into it would demote it to local memory).
-        float raw[S::P];
-#pragma unroll
-        for (int q = 0; q < S::P; ++q) raw[q] = out[(i / 2) * S::P + q];
-        float y, e;
-        if constexpr (RQS) {
-          rqs<K, DENSITY>(x[i], raw, tb, y, e);
-        } else {
-          affine<DENSITY>(x[i], raw, y, e);
-        }
-        x[i] = y;
-        ld += e;
-      }
-    }
-    log_det += ld;
-  }
-}
-
 // Philox4x32-10 (Salmon et al. 2011, the Random123 constants): the
 // chain kernel's proposal noise (chain.cu) and the uniforms kernel
 // (prng.cu).
@@ -277,8 +189,9 @@ __device__ __forceinline__ void load_shared(float4* dst,
 
 }  // namespace aspire
 
-// Kernel configurations compiled into the library: (id, D, H1, H2, K, RQS).
-// ops/fused_coupling.py::KERNEL_CONFIGS mirrors this list.
+// Coupling-flow kernel configurations compiled into the library: (id, D,
+// H1, H2, K, RQS), D even and hidden widths multiples of 8 (coupling_mma.cuh
+// MmaShape). ops/fused_coupling.py::KERNEL_CONFIGS mirrors this list.
 #define ASPIRE_COUPLING_CONFIGS(X) \
   X(0, 4, 64, 64, 8, true)         \
   X(1, 4, 64, 64, 1, false)

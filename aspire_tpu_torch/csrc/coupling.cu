@@ -3,61 +3,130 @@
 // Replaces the TPU kernel aspire_tpu/ops/fused_coupling.py::_coupling_kernel
 // (called through _pallas_apply, modes "forward" and "inverse").
 //
-// What bounds it on an H100: arithmetic. Per particle and layer the
-// conditioner costs about H1*D/2 + H1*H2 + H2*A*P fused multiply-adds
-// (~7.1k for nsf-tpu at d = 4, three layers ~21k), against 20 bytes of
-// input and output, so device memory is idle and the FP32 pipes (no tensor
-// cores in this simple design) set the time. The design keeps every
-// intermediate of the MLP and the spline in registers: one thread owns one
-// particle, all layers' weights (~90 KB for nsf-tpu at d = 4) sit in
-// dynamic shared memory for the whole block, and every thread of a warp
-// reads the same weight at once, so each shared load is a broadcast. Only
-// the transformer parameters of the active half are computed, and the
-// second hidden layer is streamed into the output accumulators to keep
-// register pressure down.
+// What bounds it on an H100: operations. Per particle and layer the
+// conditioner costs about H1*D/2 + H1*H2 + H2*A*P multiply-adds (~7.1k
+// for nsf-tpu at d = 4, three layers ~21k) against 20 bytes of input and
+// output, so device memory is idle.
+//
+// Design:
+// - The tensor-core coupling pass of coupling_mma.cuh, shared with the
+//   whole-chain kernel (chain.cu): a warp's 32 particles are two 16-row
+//   tiles of mma.sync m16n8k8 for the conditioner's two wide products in
+//   split TF32 (float32 accuracy), W1 on FP32 FMAs, and each thread runs
+//   the transformers (spline or affine, inverse for the density pass,
+//   forward for sampling) of its own particle.
+// - Weights streamed one layer at a time. A block keeps two layer buffers
+//   in shared memory: while its warps compute layer l from one, cp.async
+//   copies the next layer of the pass (l + 1, or l - 1 when sampling) into
+//   the other, and one barrier per layer hands the buffers over. So the
+//   block's shared memory does not grow with depth (2 x 29,888 B of
+//   weights and 8 warp buffers of 6,656 B for nsf-tpu at d = 4), and every
+//   depth the per-particle design took still runs here.
+// - One block per tile of up to 8 warps. A block takes 32 particles per
+//   warp and as many warps as spread n over every SM (n = 8192: 2 warps),
+//   at most 8; lanes past n compute on zeros and store nothing. Two blocks
+//   share an SM: the launch bounds cap a thread at 128 registers (the
+//   spline modes spill a few bytes), which ran 7-12% faster than one
+//   block of 168-174 registers, and than 12 warps per block (PERF.md).
 
-#include "common.cuh"
+#include "coupling_mma.cuh"
 
 namespace aspire {
 
-constexpr int kCouplingThreads = 256;
+constexpr int kCouplingWarps = 8;  // most warps per block
+
+// 16 bytes from global to shared memory, asynchronously (cp.async, L2
+// only: every block reads the same weights).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Wait for every cp.async this thread issued.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The block's threads start copying one packed layer (S::SIZE floats, a
+// multiple of 4) into dst.
+template <class S>
+__device__ __forceinline__ void copy_layer(float* dst,
+                                           const float* __restrict__ src) {
+  for (int i = 4 * threadIdx.x; i < S::SIZE; i += 4 * blockDim.x) {
+    cp_async16(dst + i, src + i);
+  }
+}
 
 template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
-__global__ void __launch_bounds__(kCouplingThreads)
+__global__ void __launch_bounds__(32 * kCouplingWarps, 2)
     coupling_kernel(const float* __restrict__ x, float* __restrict__ z,
                     float* __restrict__ log_det,
                     const float* __restrict__ weights, int n, int n_layers,
                     float tail_bound) {
-  using S = Shape<D, H1, H2, K, RQS>;
-  extern __shared__ float4 smem4[];
-  load_shared(smem4, reinterpret_cast<const float4*>(weights),
-              n_layers * S::SIZE / 4);
-  __syncthreads();
+  using S = MmaShape<D, H1, H2, K, RQS>;
+  extern __shared__ float4 coupling_smem4[];
+  float* layers = reinterpret_cast<float*>(coupling_smem4);
+  float* buf = layers + 2 * S::SIZE + (threadIdx.x >> 5) * S::STAGE;
+  const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  float v[D];
+  const bool live = p < n;
+  // Step s of the pass runs layer s (density) or n_layers - 1 - s
+  // (sampling), from buffer s & 1.
+  copy_layer<S>(layers,
+                weights + (size_t)(DENSITY ? 0 : n_layers - 1) * S::SIZE);
+  float f[D];
 #pragma unroll
-  for (int i = 0; i < D; ++i) v[i] = x[(size_t)p * D + i];
+  for (int i = 0; i < D; ++i) f[i] = live ? x[(size_t)p * D + i] : 0.f;
   float ld = 0.f;
-  flow_pass<D, H1, H2, K, RQS, DENSITY>(reinterpret_cast<float*>(smem4),
-                                        n_layers, tail_bound, v, ld);
+#pragma unroll 1
+  for (int step = 0; step < n_layers; ++step) {
+    // This step's layer has landed (each thread waits for its own copies,
+    // the barrier for everyone's), and every warp is done with the last
+    // step's buffer, which the next copy overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < n_layers) {
+      const int next = DENSITY ? step + 1 : n_layers - 2 - step;
+      copy_layer<S>(layers + ((step + 1) & 1) * S::SIZE,
+                    weights + (size_t)next * S::SIZE);
+    }
+    coupling_layer_mma<S, DENSITY, true>(layers + (step & 1) * S::SIZE,
+                                         DENSITY ? step : n_layers - 1 - step,
+                                         tail_bound, buf, lane, f, ld);
+  }
+  if (live) {
 #pragma unroll
-  for (int i = 0; i < D; ++i) z[(size_t)p * D + i] = v[i];
-  log_det[p] = ld;
+    for (int i = 0; i < D; ++i) z[(size_t)p * D + i] = f[i];
+    log_det[p] = ld;
+  }
 }
 
 template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
 int launch_coupling(const float* x, float* z, float* ld, const float* w,
                     int n, int n_layers, float tb, cudaStream_t stream) {
-  using S = Shape<D, H1, H2, K, RQS>;
-  const size_t smem = sizeof(float) * (size_t)n_layers * S::SIZE;
+  using S = MmaShape<D, H1, H2, K, RQS>;
+  if (n <= 0 || n_layers <= 0) return 0;
+  static int sms = 0;  // queried once per process (one card)
+  if (sms == 0) {
+    int device = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  // Enough warps per block to give every SM a block, at most kCouplingWarps.
+  int warps = ((n + 31) / 32 + sms - 1) / sms;
+  warps = warps < 1 ? 1 : (warps > kCouplingWarps ? kCouplingWarps : warps);
+  const int threads = 32 * warps;
+  const int smem = (int)sizeof(float) * (2 * S::SIZE + warps * S::STAGE);
+  const int max_smem =
+      (int)sizeof(float) * (2 * S::SIZE + kCouplingWarps * S::STAGE);
   auto kernel = coupling_kernel<D, H1, H2, K, RQS, DENSITY>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + kCouplingThreads - 1) / kCouplingThreads;
-  kernel<<<blocks, kCouplingThreads, smem, stream>>>(x, z, ld, w, n,
-                                                      n_layers, tb);
+  const int blocks = (n + threads - 1) / threads;
+  kernel<<<blocks, threads, smem, stream>>>(x, z, ld, w, n, n_layers, tb);
   return (int)cudaGetLastError();
 }
 
@@ -74,12 +143,24 @@ int aspire_max_shared_bytes() {
   return value;
 }
 
-// Floats per layer of the packed weight buffer for a configuration id.
-int aspire_layer_floats(int config) {
-#define ASPIRE_SIZE_CASE(ID, D, H1, H2, K, RQS) \
-  if (config == ID) return aspire::Shape<D, H1, H2, K, RQS>::SIZE;
-  ASPIRE_COUPLING_CONFIGS(ASPIRE_SIZE_CASE)
-#undef ASPIRE_SIZE_CASE
+// The packed layout of coupling configuration `config`, as MmaShape
+// computes it: floats per layer, the offsets of W1, b1, W2, b2, W3 and b3,
+// the warp buffer's row stride and size, then the most warps per block,
+// into out (up to capacity entries). Returns their number, or -1 for an
+// unknown configuration.
+int aspire_coupling_layout(int config, int* out, int capacity) {
+#define ASPIRE_COUPLING_LAYOUT_CASE(ID, D, H1, H2, K, RQS)              \
+  if (config == ID) {                                                  \
+    using S = aspire::MmaShape<D, H1, H2, K, RQS>;                     \
+    const int v[] = {S::SIZE, S::W1,  S::B1,    S::W2,                 \
+                     S::B2,   S::W3,  S::B3,    S::ROW,                \
+                     S::STAGE, aspire::kCouplingWarps};                \
+    const int count = (int)(sizeof(v) / sizeof(v[0]));                 \
+    for (int e = 0; e < count && e < capacity; ++e) out[e] = v[e];     \
+    return count;                                                      \
+  }
+  ASPIRE_COUPLING_CONFIGS(ASPIRE_COUPLING_LAYOUT_CASE)
+#undef ASPIRE_COUPLING_LAYOUT_CASE
   return -1;
 }
 

@@ -101,8 +101,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.aspire_max_shared_bytes.argtypes = []
     lib.aspire_max_shared_bytes.restype = _I
-    lib.aspire_layer_floats.argtypes = [_I]
-    lib.aspire_layer_floats.restype = _I
+    lib.aspire_coupling_layout.argtypes = [_I, _P, _I]
+    lib.aspire_coupling_layout.restype = _I
     lib.aspire_coupling.argtypes = [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P]
     lib.aspire_coupling.restype = _I
     lib.aspire_chain_tile.argtypes = []

@@ -1,15 +1,20 @@
 """Wrappers for the CUDA flow kernels: the coupling flow (density and
 sampling passes) and the MAF-RQS density pass.
 
-Counterpart of ``aspire_tpu/ops/fused_coupling.py``. Each kernel runs
-every layer of the flow with all layers' weights in shared memory: the
-coupling kernel (``csrc/coupling.cu``) one particle per thread, the MAF
-kernel (``csrc/maf.cu``) 16 particles per warp on the tensor cores, over
-the blocks its MADE masks keep. This module packs those weights (for the
-MAF kernel in degree order, as mma fragments), checks and launches,
-counts launches, and wraps the call in a ``torch.autograd.Function``
-whose backward recomputes through the plain torch path (the JAX
-package's ``custom_vjp``).
+Counterpart of ``aspire_tpu/ops/fused_coupling.py``. Both kernels run the
+conditioner's two wide products on the tensor cores in split TF32: the
+coupling kernel (``csrc/coupling.cu``) 32 particles per warp with the
+weights streamed through shared memory one layer at a time, in the
+packed layout it shares with the whole-chain kernel (``csrc/chain.cu``,
+:func:`prepare_mma_params`); the MAF kernel (``csrc/maf.cu``) 16
+particles per warp with all layers' weights in shared memory, over the
+blocks its MADE masks keep (:func:`prepare_maf_params`, in degree order).
+This module packs those weights (once per parameter set), checks the
+packing against the library's and launches, counts launches, and wraps
+the call in a ``torch.autograd.Function`` whose backward recomputes
+through the plain torch path (the JAX package's ``custom_vjp``).
+:func:`prepare_params` packs the per-particle layout of the staged
+coupling kernels (``ops/staged_coupling.py``).
 
 On a CPU tensor a wrapper runs the plain torch version
 (``Coupling.forward_plain``/``inverse_plain``, ``MAF.forward_plain``); on
@@ -31,7 +36,8 @@ from ._build import LaunchCounter, check, load_library
 MIN_FUSED_N = 4096
 
 #: (transformer, dims, n_hidden, num_bins) -> configuration id compiled
-#: into the library; mirrors ASPIRE_COUPLING_CONFIGS in csrc/common.cuh.
+#: into the library; mirrors ASPIRE_COUPLING_CONFIGS in csrc/common.cuh
+#: (even dims, hidden widths multiples of 8).
 KERNEL_CONFIGS = {
     ("rqs", 4, (64, 64), 8): 0,
     ("affine", 4, (64, 64), None): 1,
@@ -46,6 +52,9 @@ MAF_KERNEL_CONFIGS = {
 
 #: Shared memory one block may hold on an H100 (227 KB).
 MAX_SHARED_BYTES = 232448
+
+#: Most warps in a block of the coupling kernel (kCouplingWarps).
+COUPLING_WARPS = 8
 
 launches = LaunchCounter()
 maf_launches = LaunchCounter()
@@ -74,7 +83,8 @@ def _packed_floats(sections) -> int:
 
 
 def layer_floats(arch) -> int:
-    """Floats per layer of the packed buffer (csrc/common.cuh Shape::SIZE)."""
+    """Floats per layer of the per-particle packed buffer of the staged
+    coupling kernels (csrc/common.cuh Shape::SIZE)."""
     d = arch.dims
     h1, h2 = arch.n_hidden
     outp = _round4(((d + 1) // 2) * arch.n_params_per_dim)
@@ -82,7 +92,17 @@ def layer_floats(arch) -> int:
 
 
 def weight_bytes(arch) -> int:
+    """Bytes of every layer in the per-particle packed layout."""
     return 4 * arch.n_layers * layer_floats(arch)
+
+
+def coupling_shared_bytes(arch) -> int:
+    """Shared memory of a coupling kernel block at its most warps: two
+    layers of the tensor-core layout (the kernel streams the weights one
+    layer at a time, so depth does not count) and a warp buffer of
+    transformer parameters per warp."""
+    layout = mma_layout(arch)
+    return 4 * (2 * layout[0] + COUPLING_WARPS * layout[-1])
 
 
 def should_fuse(arch, x: torch.Tensor) -> bool:
@@ -94,12 +114,13 @@ def should_fuse(arch, x: torch.Tensor) -> bool:
         and x.dtype == torch.float32
         and len(arch.n_hidden) == 2
         and config_id(arch) is not None
-        and weight_bytes(arch) <= MAX_SHARED_BYTES
+        and coupling_shared_bytes(arch) <= MAX_SHARED_BYTES
     )
 
 
 def prepare_params(arch, params: dict) -> torch.Tensor:
-    """Pack every layer's MLP weights into the kernel's flat layout.
+    """Pack every layer's MLP weights into the staged coupling kernels'
+    per-particle flat layout.
 
     Per layer: W1 (H1, D), b1, W2 (H2, H1), b2, W3 (H2, OUTP), b3 - the
     output layer keeps only the parameter columns of the dims the layer
@@ -176,16 +197,197 @@ def _check_launch(lib, what: str, arch, weights: torch.Tensor,
         raise RuntimeError("packed layout disagrees with the kernel library")
 
 
+# ---------------------------------------------------------------------------
+# The tensor-core layout of the coupling kernel and the whole-chain kernel
+# (csrc/coupling_mma.cuh MmaShape)
+# ---------------------------------------------------------------------------
+
+
+def mma_group(arch) -> int:
+    """Floats per active dim's transformer parameter group: ``3K - 1``
+    (spline) or 2 (affine) rounded up to 8, the width of the kernel's mma
+    n-tiles."""
+    return -(-arch.n_params_per_dim // 8) * 8
+
+
+def mma_sections(arch) -> list[tuple[str, tuple]]:
+    """Sections of one layer of the packed buffer, in order, with their
+    shapes: W1 ``(H1, D/2)`` of the conditioning inputs, b1, W2 as
+    ``(H1/8 * H2/8, 32, 2)`` mma B fragments, b2, W3 as
+    ``(H2/8 * D/2 * G/8, 32, 2)`` fragments, b3 ``(D/2, G)``."""
+    h1, h2 = tuple(arch.n_hidden)
+    half, g = arch.dims // 2, mma_group(arch)
+    return [("w1", (h1, half)), ("b1", (h1,)),
+            ("w2", (h1 // 8 * (h2 // 8), 32, 2)), ("b2", (h2,)),
+            ("w3", (h2 // 8 * (half * g // 8), 32, 2)), ("b3", (half, g))]
+
+
+@functools.lru_cache(maxsize=None)
+def mma_layout(arch) -> tuple[int, ...]:
+    """The layout as the library reports it (``aspire_chain_layout``, the
+    first entries of ``aspire_coupling_layout``): floats per layer, the
+    offset of each section, then the row stride and the floats of a warp's
+    buffer of transformer parameters (32 rows)."""
+    offsets, off = [], 0
+    for _, shape in mma_sections(arch):
+        off = _round4(off)
+        offsets.append(off)
+        off += int(torch.Size(shape).numel())
+    row = arch.dims // 2 * mma_group(arch) + 4
+    return (_round4(off), *offsets, row, 32 * row)
+
+
+@functools.lru_cache(maxsize=None)
+def _fragments(k_in: int, n_out: int, device: torch.device):
+    """(row, column) of every entry of the mma B fragments of a
+    ``(k_in, n_out)`` matrix, each a ``(k_in/8 * n_out/8, 32, 2)`` index
+    tensor on ``device`` (kept, so a packing copies no index to the card):
+    lane ``4g + t`` of the fragment of k-step ``s`` and n-tile ``j`` (at
+    ``s * n_out/8 + j``) holds rows ``8s + 2t`` and ``8s + 2t + 1`` of
+    column ``8j + g`` (the k order that lets one product's accumulator
+    serve as the next one's A fragment)."""
+    lane = torch.arange(32)
+    rows = 2 * (lane % 4)[:, None] + torch.arange(2)[None, :]
+    cols = (lane // 4)[:, None].expand(32, 2)
+    tiles = [(s, j) for s in range(k_in // 8) for j in range(n_out // 8)]
+    return (torch.stack([8 * s + rows for s, _ in tiles]).to(device),
+            torch.stack([8 * j + cols for _, j in tiles]).to(device))
+
+
+def _layer_dims(layer: int) -> tuple[slice, slice]:
+    """(active, conditioning) dims of coupling layer ``layer``, as slices:
+    views, so a packing on the card copies no index to it."""
+    odd = layer % 2
+    return slice(odd, None, 2), slice(1 - odd, None, 2)
+
+
+def _dense_layer(arch, layer: int, net: dict):
+    """One layer's conditioner as the kernel computes it: W1 ``(H1, D/2)``
+    on the conditioning inputs, b1, W2 ``(H1, H2)``, b2, W3
+    ``(H2, D/2 * G)`` and b3 ``(D/2, G)`` of the active dims' parameter
+    groups, each zero-padded to G."""
+    d, P, G = arch.dims, arch.n_params_per_dim, mma_group(arch)
+    active, cond = _layer_dims(layer)
+    l1, l2, l3 = net["layers"]
+    h2 = l3["w"].shape[0]
+    pad = torch.nn.functional.pad
+    w3 = pad(l3["w"].reshape(h2, d, P)[:, active], (0, G - P))
+    b3 = pad(l3["b"].reshape(d, P)[active], (0, G - P))
+    return (l1["w"][cond].t(), l1["b"], l2["w"], l2["b"],
+            w3.reshape(h2, -1), b3)
+
+
+def prepare_mma_params(arch, params: dict) -> torch.Tensor:
+    """Pack every layer's conditioner into the tensor-core flat layout
+    (:func:`mma_sections`), in the parameters' dtype: W2 and W3 as mma B
+    fragments, in float32 each weight the sum of two TF32 values
+    (:func:`split_tf32_sum`, so the kernel splits it exactly); float64
+    parameters (tests of the layout) are kept as they are."""
+    h1, h2 = tuple(arch.n_hidden)
+    if arch.dims % 2 or h1 % 8 or h2 % 8:
+        raise ValueError(f"the tensor-core pass takes an even-d coupling "
+                         f"flow with hidden widths /8: {arch}")
+    dev = params["layers"][0]["layers"][0]["w"].device
+    (r2, c2), (r3, c3) = (
+        _fragments(h1, h2, dev),
+        _fragments(h2, arch.dims // 2 * mma_group(arch), dev))
+    chunks = []
+    for layer, net in enumerate(params["layers"]):
+        w1, b1, w2, b2, w3, b3 = _dense_layer(arch, layer, net)
+        w2, w3 = w2[r2, c2], w3[r3, c3]
+        if w2.dtype == torch.float32:
+            w2, w3 = split_tf32_sum(w2), split_tf32_sum(w3)
+        _append_sections(chunks, [w1, b1, w2, b2, w3, b3])
+    return _concat(chunks, arch.n_layers * mma_layout(arch)[0], arch,
+                   chunks[0].dtype)
+
+
+def mma_conditioner_plain(arch, packed: torch.Tensor, layer: int,
+                          x: torch.Tensor) -> torch.Tensor:
+    """The ``(n, D/2, P)`` transformer parameters that layer ``layer``'s
+    conditioner gives the active dims of ``x``, read from the packed
+    buffer the way the kernels read it: W1 on the conditioning inputs, the
+    fragments gathered back into W2 and W3, each active dim's padded group
+    cut to its parameters. For tests of the layout: no kernel path calls
+    it."""
+    h1, h2 = tuple(arch.n_hidden)
+    half, G = arch.dims // 2, mma_group(arch)
+    buf = packed.reshape(arch.n_layers, -1)[layer]
+    sec = {name: buf[off:off + int(torch.Size(shape).numel())].reshape(shape)
+           for (name, shape), off in zip(mma_sections(arch),
+                                         mma_layout(arch)[1:7])}
+    for name, k_in, n_out in (("w2", h1, h2), ("w3", h2, half * G)):
+        rows, cols = _fragments(k_in, n_out, buf.device)
+        dense = buf.new_zeros((k_in, n_out))
+        dense[rows, cols] = sec[name]
+        sec[name] = dense
+    _, cond = _layer_dims(layer)
+    h = torch.relu(x[:, cond] @ sec["w1"].t() + sec["b1"])
+    h = torch.relu(h @ sec["w2"] + sec["b2"])
+    out = h @ sec["w3"] + sec["b3"].reshape(-1)
+    return out.reshape(-1, half, G)[:, :, :arch.n_params_per_dim]
+
+
+def coupling_packed_plain(arch, mode: str, packed: torch.Tensor,
+                          x: torch.Tensor):
+    """The coupling kernel's pass computed from its packed buffer the way
+    it reads it, in plain torch: layer by layer (reversed when sampling),
+    :func:`mma_conditioner_plain` then the transformers of the layer's
+    active dims, inverse for the density pass (``mode="forward"``). For
+    tests of the layout: no kernel path calls it."""
+    density = mode == "forward"
+    steps = range(arch.n_layers)
+    y = x.clone()
+    log_det = x.new_zeros(x.shape[0])
+    for layer in (steps if density else reversed(steps)):
+        active, _ = _layer_dims(layer)
+        raw = mma_conditioner_plain(arch, packed, layer, y)
+        v, eld = arch._elementwise(y[:, active], raw, inverse=density)
+        y[:, active] = v
+        log_det = log_det + eld.sum(-1)
+    return y, log_det
+
+
+_coupling_pack_cache: dict = {}
+
+
+def packed_coupling_params(arch, params: dict) -> torch.Tensor:
+    """:func:`prepare_mma_params`, packed once per set of parameters (as
+    :func:`packed_maf_params`): the ``n_steps + 2`` density passes of a
+    split-chain mutation pack once."""
+    return _pack_once(_coupling_pack_cache, prepare_mma_params, arch, params)
+
+
+@functools.lru_cache(maxsize=None)
+def _coupling_library_layout(cfg: int) -> tuple[int, ...]:
+    """The loaded library's layout of coupling configuration ``cfg``
+    (``aspire_coupling_layout``), read once per process."""
+    lib = load_library()
+    out = (ctypes.c_int * 16)()
+    count = lib.aspire_coupling_layout(cfg, out, len(out))
+    if not 0 <= count <= len(out):
+        raise RuntimeError(f"coupling configuration {cfg} has no layout table")
+    return tuple(out[:count])
+
+
 def launch_packed(arch, mode: str, weights: torch.Tensor,
                   x: torch.Tensor):
     """Launch the kernel on a CUDA ``x`` with weights already packed by
-    :func:`prepare_params`."""
+    :func:`prepare_mma_params`."""
     lib = load_library()
     cfg = config_id(arch)
     if cfg is None:
         raise ValueError(f"no coupling kernel compiled for {arch}")
-    _check_launch(lib, "coupling kernel", arch, weights, x,
-                  lib.aspire_layer_floats(cfg), layer_floats(arch))
+    layout = mma_layout(arch)
+    library = _coupling_library_layout(cfg)
+    _check_launch(lib, "coupling kernel", arch, weights, x, library[0],
+                  layout[0], coupling_shared_bytes(arch))
+    if library != (*layout, COUPLING_WARPS):
+        raise RuntimeError("coupling weight layout disagrees with the kernel "
+                           "library")
+    if weights.numel() != arch.n_layers * layout[0] or weights.data_ptr() % 16:
+        raise ValueError(f"weights are not a 16-byte aligned packing of "
+                         f"{arch}")
     n = x.shape[0]
     z = torch.empty_like(x)
     ld = torch.empty(n, dtype=x.dtype, device=x.device)
@@ -207,7 +409,8 @@ def coupling_kernel_apply(arch, mode: str, params: dict, x: torch.Tensor):
         return fn(params, x)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
-    return launch_packed(arch, mode, prepare_params(arch, params), x)
+    return launch_packed(arch, mode, packed_coupling_params(arch, params),
+                         x.contiguous())
 
 
 class _FusedPass(torch.autograd.Function):
@@ -519,28 +722,32 @@ def maf_packed_plain(arch, packed: torch.Tensor, x: torch.Tensor):
     return z, log_det
 
 
+def _pack_once(cache: dict, pack, arch, params: dict) -> torch.Tensor:
+    """``pack(arch, params)``, kept in ``cache`` with the parameter tensors
+    themselves and their in-place version counters: the same tensors at
+    the same versions give the kept packing; a new or updated tensor packs
+    anew (an update made through ``.data`` bypasses the version counter
+    and is not seen)."""
+    _, leaves = _flatten(params)
+    key = (arch, tuple(t._version for t in leaves))
+    hit = cache.get("key")
+    if (hit is not None and hit[0] == key
+            and len(hit[1]) == len(leaves)
+            and all(a is b for a, b in zip(hit[1], leaves))):
+        return cache["packed"]
+    packed = pack(arch, params)
+    cache.update(key=(key, tuple(leaves)), packed=packed)
+    return packed
+
+
 _maf_pack_cache: dict = {}
 
 
 def packed_maf_params(arch, params: dict) -> torch.Tensor:
-    """:func:`prepare_maf_params`, packed once per set of parameters.
-
-    The last packing is kept with the parameter tensors themselves and
-    their in-place version counters, so the ``n_steps + 2`` density passes
-    of a split-chain mutation pack once; a new or updated tensor packs
-    anew (an update made through ``.data`` bypasses the version counter
-    and is not seen).
-    """
-    _, leaves = _flatten(params)
-    key = (arch, tuple(t._version for t in leaves))
-    hit = _maf_pack_cache.get("key")
-    if (hit is not None and hit[0] == key
-            and len(hit[1]) == len(leaves)
-            and all(a is b for a, b in zip(hit[1], leaves))):
-        return _maf_pack_cache["packed"]
-    packed = prepare_maf_params(arch, params)
-    _maf_pack_cache.update(key=(key, tuple(leaves)), packed=packed)
-    return packed
+    """:func:`prepare_maf_params`, packed once per set of parameters
+    (:func:`_pack_once`), so the ``n_steps + 2`` density passes of a
+    split-chain mutation pack once."""
+    return _pack_once(_maf_pack_cache, prepare_maf_params, arch, params)
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,10 +3,11 @@
 Counterpart of ``aspire_tpu/ops/fused_mutation.py``. One launch of the
 kernel (``csrc/chain.cu``) runs an entire k-step tpCN / pCN / RWMH chain;
 each 256-particle tile adapts its own step size. The kernel runs the flow's
-conditioner products on the tensor cores, 32 particles per warp; this
-module packs its weights for that (:func:`prepare_chain_params`: mma
-fragments of split-TF32 weights), checks the packing against the
-library's and launches. :func:`chain_plain` is the same algorithm in
+conditioner products on the tensor cores, 32 particles per warp, in the
+packed layout of the coupling kernel (:func:`prepare_chain_params` is
+``fused_coupling.prepare_mma_params``: mma fragments of split-TF32
+weights); this module checks the packing against the library's and
+launches. :func:`chain_plain` is the same algorithm in
 torch: the version a CPU tensor runs and the one the kernel is held
 against on the card.
 
@@ -30,6 +31,14 @@ from ..flows.architectures import Coupling
 from ..models.targets import target_densities
 from . import fused_coupling as FC
 from ._build import LaunchCounter, check, load_library
+
+# The chain kernel's weight layout is the tensor-core pass's it shares with
+# the coupling kernel (csrc/coupling_mma.cuh), under the chain's names.
+from .fused_coupling import mma_conditioner_plain as chain_conditioner_plain
+from .fused_coupling import mma_group as chain_group
+from .fused_coupling import mma_layout as chain_layout
+from .fused_coupling import mma_sections as chain_sections
+from .fused_coupling import prepare_mma_params as prepare_chain_params
 
 TILE = 256
 KERNELS = {"tpcn": 0, "pcn": 1, "rwmh": 2}
@@ -276,134 +285,6 @@ def combine_tile_stats(stats: torch.Tensor, d: int, tile: int = TILE):
 
 
 # ---------------------------------------------------------------------------
-# The kernel's weight layout (csrc/chain.cu ChainShape)
-# ---------------------------------------------------------------------------
-
-
-def chain_group(arch) -> int:
-    """Floats per active dim's spline parameter group: ``3K - 1`` rounded
-    up to 8, the width of the kernel's mma n-tiles."""
-    return -(-arch.n_params_per_dim // 8) * 8
-
-
-def chain_sections(arch) -> list[tuple[str, tuple]]:
-    """Sections of one layer of the packed chain buffer, in order, with
-    their shapes: W1 ``(H1, D/2)`` of the conditioning inputs, b1, W2 as
-    ``(H1/8 * H2/8, 32, 2)`` mma B fragments, b2, W3 as
-    ``(H2/8 * D/2 * G/8, 32, 2)`` fragments, b3 ``(D/2, G)``."""
-    h1, h2 = tuple(arch.n_hidden)
-    half, g = arch.dims // 2, chain_group(arch)
-    return [("w1", (h1, half)), ("b1", (h1,)),
-            ("w2", (h1 // 8 * (h2 // 8), 32, 2)), ("b2", (h2,)),
-            ("w3", (h2 // 8 * (half * g // 8), 32, 2)), ("b3", (half, g))]
-
-
-@functools.lru_cache(maxsize=None)
-def chain_layout(arch) -> tuple[int, ...]:
-    """The layout as the library reports it (``aspire_chain_layout``):
-    floats per layer, the offset of each section, then the row stride and
-    the floats of a warp's buffer of spline parameters (32 rows)."""
-    offsets, off = [], 0
-    for _, shape in chain_sections(arch):
-        off = FC._round4(off)
-        offsets.append(off)
-        off += int(torch.Size(shape).numel())
-    row = arch.dims // 2 * chain_group(arch) + 4
-    return (FC._round4(off), *offsets, row, 32 * row)
-
-
-@functools.lru_cache(maxsize=None)
-def _fragments(k_in: int, n_out: int, device: torch.device):
-    """(row, column) of every entry of the mma B fragments of a
-    ``(k_in, n_out)`` matrix, each a ``(k_in/8 * n_out/8, 32, 2)`` index
-    tensor on ``device`` (kept, so a packing copies no index to the card):
-    lane ``4g + t`` of the fragment of k-step ``s`` and n-tile ``j`` (at
-    ``s * n_out/8 + j``) holds rows ``8s + 2t`` and ``8s + 2t + 1`` of
-    column ``8j + g`` (the k order that lets one product's accumulator
-    serve as the next one's A fragment)."""
-    lane = torch.arange(32)
-    rows = 2 * (lane % 4)[:, None] + torch.arange(2)[None, :]
-    cols = (lane // 4)[:, None].expand(32, 2)
-    tiles = [(s, j) for s in range(k_in // 8) for j in range(n_out // 8)]
-    return (torch.stack([8 * s + rows for s, _ in tiles]).to(device),
-            torch.stack([8 * j + cols for _, j in tiles]).to(device))
-
-
-def _layer_dims(layer: int) -> tuple[slice, slice]:
-    """(active, conditioning) dims of coupling layer ``layer``, as slices:
-    views, so a packing on the card copies no index to it."""
-    odd = layer % 2
-    return slice(odd, None, 2), slice(1 - odd, None, 2)
-
-
-def _dense_layer(arch, layer: int, net: dict):
-    """One layer's conditioner as the kernel computes it: W1 ``(H1, D/2)``
-    on the conditioning inputs, b1, W2 ``(H1, H2)``, b2, W3
-    ``(H2, D/2 * G)`` and b3 ``(D/2, G)`` of the active dims' parameter
-    groups, each zero-padded to G."""
-    d, P, G = arch.dims, arch.n_params_per_dim, chain_group(arch)
-    active, cond = _layer_dims(layer)
-    l1, l2, l3 = net["layers"]
-    h2 = l3["w"].shape[0]
-    pad = torch.nn.functional.pad
-    w3 = pad(l3["w"].reshape(h2, d, P)[:, active], (0, G - P))
-    b3 = pad(l3["b"].reshape(d, P)[active], (0, G - P))
-    return (l1["w"][cond].t(), l1["b"], l2["w"], l2["b"],
-            w3.reshape(h2, -1), b3)
-
-
-def prepare_chain_params(arch, params: dict) -> torch.Tensor:
-    """Pack every layer's conditioner into the chain kernel's flat layout
-    (:func:`chain_sections`), in the parameters' dtype: W2 and W3 as mma B
-    fragments, in float32 each weight the sum of two TF32 values
-    (:func:`~.fused_coupling.split_tf32_sum`, so the kernel splits it
-    exactly); float64 parameters (tests of the layout) are kept as they
-    are."""
-    if arch.dims % 2 or arch.transformer != "rqs":
-        raise ValueError(f"the chain kernel takes an even-d spline flow: {arch}")
-    h1, h2 = tuple(arch.n_hidden)
-    dev = params["layers"][0]["layers"][0]["w"].device
-    (r2, c2), (r3, c3) = (
-        _fragments(h1, h2, dev),
-        _fragments(h2, arch.dims // 2 * chain_group(arch), dev))
-    chunks = []
-    for layer, net in enumerate(params["layers"]):
-        w1, b1, w2, b2, w3, b3 = _dense_layer(arch, layer, net)
-        w2, w3 = w2[r2, c2], w3[r3, c3]
-        if w2.dtype == torch.float32:
-            w2, w3 = FC.split_tf32_sum(w2), FC.split_tf32_sum(w3)
-        FC._append_sections(chunks, [w1, b1, w2, b2, w3, b3])
-    return FC._concat(chunks, arch.n_layers * chain_layout(arch)[0], arch,
-                      chunks[0].dtype)
-
-
-def chain_conditioner_plain(arch, packed: torch.Tensor, layer: int,
-                            x: torch.Tensor) -> torch.Tensor:
-    """The ``(n, D/2, 3K - 1)`` spline parameters that layer ``layer``'s
-    conditioner gives the active dims of ``x``, read from the kernel's
-    packed buffer the way the kernel reads it: W1 on the conditioning
-    inputs, the fragments gathered back into W2 and W3, each active dim's
-    padded group cut to its parameters. For tests of the layout: no kernel
-    path calls it."""
-    h1, h2 = tuple(arch.n_hidden)
-    half, G = arch.dims // 2, chain_group(arch)
-    buf = packed.reshape(arch.n_layers, -1)[layer]
-    sec = {name: buf[off:off + int(torch.Size(shape).numel())].reshape(shape)
-           for (name, shape), off in zip(chain_sections(arch),
-                                         chain_layout(arch)[1:7])}
-    for name, k_in, n_out in (("w2", h1, h2), ("w3", h2, half * G)):
-        rows, cols = _fragments(k_in, n_out, buf.device)
-        dense = buf.new_zeros((k_in, n_out))
-        dense[rows, cols] = sec[name]
-        sec[name] = dense
-    _, cond = _layer_dims(layer)
-    h = torch.relu(x[:, cond] @ sec["w1"].t() + sec["b1"])
-    h = torch.relu(h @ sec["w2"] + sec["b2"])
-    out = h @ sec["w3"] + sec["b3"].reshape(-1)
-    return out.reshape(-1, half, G)[:, :, :arch.n_params_per_dim]
-
-
-# ---------------------------------------------------------------------------
 # The kernel wrapper
 # ---------------------------------------------------------------------------
 
@@ -487,7 +368,7 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     if _chain_library_layout(FC.config_id(arch)) != layout:
         raise RuntimeError("chain weight layout disagrees with the kernel "
                            "library")
-    weights = prepare_chain_params(arch, params)
+    weights = FC.packed_coupling_params(arch, params)
     warps = TILE // 32
     smem = 4 * (weights.numel() + lib.aspire_consts_floats(d) + 2 * warps
                 + warps * layout[-1])

@@ -7,8 +7,10 @@ Phases (each raises on failure, so the script exits non-zero), the two
 main paths (6, 7) right after the build:
 1. require a CUDA device; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from aspire_tpu_torch/csrc with nvcc;
-3. the coupling kernel (density and sampling modes) against the plain
-   torch path at nsf-tpu shapes, n = 131072, float32 with TF32 off;
+3. the coupling kernel (density and sampling modes, and the round trip)
+   against the plain torch path at n = 131072, float32 with TF32 off, for
+   nsf-tpu, realnvp (the affine configuration) and a 7-layer nsf (the
+   deepest spline flow the kernel took before it streamed its weights);
 4. the whole-chain kernel (B2) against the plain chain at n = 8192, 20 steps:
    injected noise (exact acceptance counts), the in-kernel Philox stream
    against the same stream injected (bit-identical), and Philox against
@@ -19,7 +21,9 @@ main paths (6, 7) right after the build:
 6. the main path: fit an nsf-tpu flow to 4000 draws of the 4-d Gaussian
    mixture, adaptive-tempered SMC at n = 8192 (log Z against the analytic
    value, every mutation on the chain kernel, launch counts), the same
-   with the split chain, then the 131072-particle pipeline time;
+   with the split chain (at least n_steps + 2 coupling-kernel launches per
+   mutation, counted over that run alone), then the 131072-particle
+   pipeline time;
 7. the MAF path: fit a maf-rqs flow to the same draws, SMC at n = 8192
    (log Z against the analytic value, every mutation on the split chain,
    every density pass of it on the MAF kernel: launch counts), the
@@ -44,13 +48,16 @@ main paths (6, 7) right after the build:
    kernel_ms reading is made after every event time and pipeline: once
    the profiler has traced the card, each launch costs the host more.
    A bound is the least time on the pipes the kernel computes with (the
-   FP32 pipe; for B2 and B4 their split-TF32 tensor-core products beside
-   it).
+   FP32 pipe; for B1/B3, B2 and B4 their split-TF32 tensor-core products
+   beside it).
 
 ``python3 chip_smoke.py --chain-ab PARENT`` runs none of that: it times
 the chain kernel B2 of the checkout at PARENT (e.g. a ``git archive`` of
 the parent commit) and of this checkout in turns, each turn a process of
-its own (``chain_ab``).
+its own (``chain_ab``). ``--coupling-ab PARENT`` does the same for the
+coupling kernel's two modes, B1 and B3, on the flows of phase 3, and
+reads phase 3's check of both checkouts' kernels on 20 input draws per
+flow (``coupling_ab``).
 """
 
 from __future__ import annotations
@@ -170,9 +177,9 @@ def read_kernel_ms() -> None:
     _KERNEL_MS_LATER.clear()
 
 
-def perturbed_flow(device, seed: int = 0, arch=None):
+def perturbed_flow(device, seed: int = 0, arch=None, scale: float = 0.1):
     """``arch`` (default nsf-tpu at d = 4) with its identity initialisation
-    perturbed by 0.1 N(0, 1) noise on every weight and bias."""
+    perturbed by ``scale`` N(0, 1) noise on every weight and bias."""
     import torch
 
     from aspire_tpu_torch.flows.architectures import nsf_tpu
@@ -184,7 +191,7 @@ def perturbed_flow(device, seed: int = 0, arch=None):
     for net in params["layers"]:
         for layer in net["layers"]:
             for k in ("w", "b"):
-                layer[k] = layer[k] + 0.1 * torch.randn(
+                layer[k] = layer[k] + scale * torch.randn(
                     layer[k].shape, generator=gen, device=device)
     return arch, params
 
@@ -268,78 +275,208 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
-def assert_kernel_close(kern, plain, exact, what: str) -> int:
-    """Kernel against the plain float32 path at COUPLING_TOL.
-
-    Where the two disagree by more, the point must be ill-conditioned in
-    float32: the plain float32 path itself is off the float64 result by a
-    comparable amount, the kernel is no farther from float64 than twice
-    the plain path (plus the tolerance), and such points are rare (at most
-    1e-4 of them). Returns their number.
-    """
+def rule_points(kern, plain, exact):
+    """The card rule's reading of a kernel output: at the points where
+    the kernel and the plain float32 path differ by more than
+    COUPLING_TOL, the kernel's and the plain path's errors against the
+    float64 result ``exact``, and the tolerance there."""
     tol = COUPLING_TOL["atol"] + COUPLING_TOL["rtol"] * plain.abs()
     bad = (kern - plain).abs() > tol
-    n_bad = int(bad.sum())
-    if n_bad:
-        e_k = (kern.double() - exact).abs()[bad]
-        e_p = (plain.double() - exact).abs()[bad]
-        if n_bad > 1e-4 * plain.numel() or bool(
-                (e_k > 2 * e_p + tol[bad].double()).any()):
-            raise AssertionError(
-                f"{what}: {n_bad} elements beyond tolerance; kernel error "
-                f"vs float64 up to {float(e_k.max()):.3g}, plain float32 "
-                f"error {float(e_p.max()):.3g}")
-    return n_bad
+    return ((kern.double() - exact).abs()[bad],
+            (plain.double() - exact).abs()[bad], tol[bad].double())
 
 
-def phase_coupling(device, n: int) -> dict:
+def rule_holds(e_k, e_p, tol, numel: int) -> bool:
+    """The card rule on ``rule_points``: a point where kernel and plain
+    disagree must be ill-conditioned in float32 (the plain path itself off
+    the float64 result by a comparable amount: the kernel no farther from
+    it than twice the plain path plus the tolerance), and such points rare
+    (at most 1e-4 of ``numel``)."""
+    return e_k.numel() <= 1e-4 * numel and not bool(
+        (e_k > 2 * e_p + tol).any())
+
+
+def assert_kernel_close(kern, plain, exact, what: str) -> int:
+    """Kernel against the plain float32 path at COUPLING_TOL, float64
+    deciding the points where they disagree (``rule_holds``). Returns the
+    number of such points."""
+    e_k, e_p, tol = rule_points(kern, plain, exact)
+    if not rule_holds(e_k, e_p, tol, plain.numel()):
+        raise AssertionError(
+            f"{what}: {e_k.numel()} elements beyond tolerance; kernel error "
+            f"vs float64 up to {float(e_k.max()):.3g}, plain float32 "
+            f"error {float(e_p.max()):.3g}")
+    return e_k.numel()
+
+
+def coupling_flows() -> dict:
+    """The coupling flows the coupling kernel is held to, each with the
+    seed and scale of its perturbed weights: nsf-tpu (the main path's),
+    realnvp (the affine configuration) and a 7-layer nsf (the deepest
+    spline flow the per-particle kernel took, whose layers the kernel
+    streams). The 7-layer flow's weights are perturbed by half as much:
+    perturbed by 0.1 its plain float32 sampling pass, the check's
+    reference, is itself beyond COUPLING_TOL of float64 at more points
+    than the check lets kernel and plain disagree (1e-4 of them), so any
+    other float32 pass would miss the check there, whatever its
+    rounding (``test_seven_layer_check_flow_is_float32_conditioned``;
+    ``coupling_accuracy`` reads both scales on the card)."""
+    from aspire_tpu_torch.flows.architectures import nsf, nsf_tpu, realnvp
+
+    return {"nsf-tpu": (nsf_tpu(4), 0, 0.1), "realnvp": (realnvp(4), 8, 0.1),
+            "nsf-7": (nsf(4, n_layers=7), 9, 0.05)}
+
+
+def coupling_outputs(device, flow: tuple, n: int, draw: int) -> dict:
+    """B1 and B3 of ``flow`` (an entry of ``coupling_flows``) through the
+    wrapper, each output beside the plain float32 path's and the float64
+    one: the density pass on n inputs (input draw ``draw``), the sampling
+    pass on the plain path's latents, and the round trip through both
+    kernel modes. Returns them with the flow's inputs and parameters."""
     import torch
 
     from aspire_tpu_torch.ops import fused_coupling as FC
 
-    arch, params = perturbed_flow(device)
+    arch, seed, scale = flow
+    arch, params = perturbed_flow(device, seed, arch, scale)
     params64 = as_float64(params)
     gen = torch.Generator(device=device)
-    gen.manual_seed(1)
+    gen.manual_seed(draw)
     x = 2.0 * torch.randn((n, 4), generator=gen, device=device)
+    if device.type == "cuda" and not FC.should_fuse(arch, x):
+        raise AssertionError("the coupling kernel refuses the flow")
     z_k, ld_k = FC.coupling_kernel_apply(arch, "forward", params, x)
     z_p, ld_p = arch.forward_plain(params, x)
     z_e, ld_e = arch.forward_plain(params64, x.double())
-    n_bad = assert_kernel_close(z_k, z_p, z_e, "density z")
-    n_bad += assert_kernel_close(ld_k, ld_p, ld_e, "density log_det")
     x_k, li_k = FC.coupling_kernel_apply(arch, "inverse", params, z_p)
     x_p, li_p = arch.inverse_plain(params, z_p)
     x_e, li_e = arch.inverse_plain(params64, z_p.double())
-    n_bad += assert_kernel_close(x_k, x_p, x_e, "sampling x")
-    n_bad += assert_kernel_close(li_k, li_p, li_e, "sampling log_det")
-    # Round trip through both kernel modes.
-    n_bad += assert_kernel_close(x_k, x, x.double(), "round trip x")
-    n_bad += assert_kernel_close(li_k, -ld_k, -ld_e, "round trip log_det")
-    err = max(max_err(z_k, z_p), max_err(ld_k, ld_p), max_err(x_k, x_p),
-              max_err(li_k, li_p))
-    out = {"max_abs_err": err, "ill_conditioned_points": n_bad}
-    if device.type == "cuda":
-        # The kernel alone: the wrapper's per-call weight packing (~60
-        # small torch ops) is host time that would hide it.
-        w = FC.prepare_params(arch, params)
-        out["ms"] = cuda_ms(lambda: FC.launch_packed(arch, "forward", w, x))
-        out["ms_single_call"] = cuda_ms_single(
-            lambda: FC.launch_packed(arch, "forward", w, x))
-        kernel_ms_later(out, "kernel_ms",
-                        lambda: FC.launch_packed(arch, "forward", w, x),
-                        "coupling_kernel")
-        out["plain_ms"] = cuda_ms(lambda: arch.forward_plain(params, x))
-        out["inverse_ms"] = cuda_ms(
-            lambda: FC.launch_packed(arch, "inverse", w, z_p))
-        kernel_ms_later(out, "inverse_kernel_ms",
-                        lambda: FC.launch_packed(arch, "inverse", w, z_p),
-                        "coupling_kernel")
-        out["inverse_plain_ms"] = cuda_ms(
-            lambda: arch.inverse_plain(params, z_p))
-        out["wrapper_ms"] = cuda_ms(
-            lambda: FC.coupling_kernel_apply(arch, "forward", params, x))
-    log(f"coupling kernel vs plain at n={n}: {out}")
+    return {"arch": arch, "params": params, "x": x, "z": z_p, "outputs": {
+        "density z": (z_k, z_p, z_e), "density log_det": (ld_k, ld_p, ld_e),
+        "sampling x": (x_k, x_p, x_e), "sampling log_det": (li_k, li_p, li_e),
+        "round trip x": (x_k, x, x.double()),
+        "round trip log_det": (li_k, -ld_k, -ld_e)}}
+
+
+def check_coupling_flow(device, name: str, n: int) -> dict:
+    """``coupling_outputs`` of the flow ``name`` on input draw 1, every
+    output held to the card rule (``assert_kernel_close``). Returns the
+    flow's inputs, parameters and errors."""
+    c = coupling_outputs(device, coupling_flows()[name], n, 1)
+    n_bad = sum(assert_kernel_close(*v, f"{name} {what}")
+                for what, v in c["outputs"].items())
+    err = max(max_err(k, p) for what, (k, p, _) in c["outputs"].items()
+              if not what.startswith("round trip"))
+    log(f"{name} coupling kernel vs plain at n={n}: max abs {err:.3g}, "
+        f"{n_bad} ill-conditioned points")
+    return {**{k: c[k] for k in ("arch", "params", "x", "z")},
+            "max_abs_err": err, "ill_conditioned_points": n_bad}
+
+
+def check_coupling(device, n: int) -> dict:
+    """``check_coupling_flow`` of every flow of ``coupling_flows``."""
+    return {name: check_coupling_flow(device, name, n)
+            for name in coupling_flows()}
+
+
+def coupling_accuracy(device, n: int, draws: int) -> dict:
+    """The card rule on input draws 1..``draws`` of every flow of
+    ``coupling_flows``, and of the 7-layer flow perturbed by 0.1, read
+    rather than asserted. Per flow: the draws it misses; at the points it
+    flags, the quantiles of the kernel's error against float64 over the
+    plain float32 path's, and the largest share of its limit
+    (2 x plain + tolerance) the kernel's error takes; the points where
+    the plain path itself is beyond COUPLING_TOL of float64, which no
+    kernel changes; and per output over every point of every draw, the
+    root mean square and the mean of the kernel's and the plain path's
+    errors against float64 (a one-sided rounding shows as a mean far from
+    0)."""
+    import torch
+
+    from aspire_tpu_torch.flows.architectures import nsf
+
+    flows = {**coupling_flows(), "nsf-7 at 0.1": (nsf(4, n_layers=7), 9, 0.1)}
+    out = {}
+    for name, flow in flows.items():
+        missed, ratios, margin, plain_beyond, sums = [], [], 0.0, 0, {}
+        for draw in range(1, draws + 1):
+            ok = True
+            for what, (k, p, e) in coupling_outputs(
+                    device, flow, n, draw)["outputs"].items():
+                e_k, e_p, tol = rule_points(k, p, e)
+                ok = ok and rule_holds(e_k, e_p, tol, p.numel())
+                ratios.append(e_k / e_p.clamp_min(1e-30))
+                if e_k.numel():
+                    margin = max(margin, float((e_k / (2 * e_p + tol)).max()))
+                if what.startswith("round trip"):
+                    continue
+                d_k, d_p = k.double() - e, p.double() - e
+                plain_beyond += int((d_p.abs() > COUPLING_TOL["atol"]
+                                     + COUPLING_TOL["rtol"] * e.abs()).sum())
+                acc = sums.setdefault(what, torch.zeros(5, dtype=torch.float64,
+                                                        device=device))
+                acc += torch.stack([d_k.square().sum(), d_p.square().sum(),
+                                    d_k.sum(), d_p.sum(),
+                                    torch.tensor(float(e.numel()),
+                                                 device=device)])
+            if not ok:
+                missed.append(draw)
+        r = torch.cat(ratios)
+        q = ([float(v) for v in torch.quantile(
+            r, torch.tensor([0.5, 0.9, 1.0], dtype=r.dtype, device=device))]
+            if r.numel() else [])
+        errors = {}
+        for what, (ssk, ssp, sk, sp, m) in ((w, a.tolist())
+                                            for w, a in sums.items()):
+            errors[what] = {"rms_kernel": math.sqrt(ssk / m),
+                            "rms_plain": math.sqrt(ssp / m),
+                            "mean_kernel": sk / m, "mean_plain": sp / m}
+        out[name] = {"draws": draws, "missed": missed,
+                     "flagged_points": int(r.numel()),
+                     "ratio_q50_q90_max": q, "worst_share_of_limit": margin,
+                     "plain_beyond_tol": plain_beyond, "errors": errors}
     return out
+
+
+def phase_coupling(device, n: int) -> dict:
+    """``check_coupling`` at n, then each flow's kernel timed in both modes
+    on weights packed once: events, single calls and alone, beside the
+    plain path; nsf-tpu's through the wrapper too."""
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    flows = {}
+    for name, c in check_coupling(device, n).items():
+        arch, params, x, z = c["arch"], c["params"], c["x"], c["z"]
+        out = {"n_layers": arch.n_layers, "transformer": arch.transformer,
+               "max_abs_err": c["max_abs_err"],
+               "ill_conditioned_points": c["ill_conditioned_points"]}
+        flows[name] = out
+        if device.type != "cuda":
+            continue
+        w = FC.prepare_mma_params(arch, params)
+        for mode, key, inp, plain in (
+                ("forward", "", x, arch.forward_plain),
+                ("inverse", "inverse_", z, arch.inverse_plain)):
+            def run(arch=arch, mode=mode, w=w, inp=inp):
+                return FC.launch_packed(arch, mode, w, inp)
+
+            out[key + "ms"] = cuda_ms(run)
+            out[key + "ms_single_call"] = cuda_ms_single(run)
+            kernel_ms_later(out, key + "kernel_ms", run, "coupling_kernel")
+            out[key + "plain_ms"] = cuda_ms(
+                lambda plain=plain, inp=inp: plain(params, inp))
+        if name == "nsf-tpu":
+            # Through the wrapper the main path calls: weights packed once
+            # per parameter set.
+            out["wrapper_ms"] = cuda_ms(
+                lambda: FC.coupling_kernel_apply(arch, "forward", params, x))
+            out["pack_ms"] = cuda_ms(
+                lambda: FC.prepare_mma_params(arch, params))
+        log(f"{name} coupling kernel at n={n}: {out}")
+    return {**flows["nsf-tpu"], "flows": flows,
+            "max_abs_err": max(v["max_abs_err"] for v in flows.values()),
+            "ill_conditioned_points": sum(v["ill_conditioned_points"]
+                                          for v in flows.values())}
 
 
 def phase_maf(device, n: int, n_small: int = N_CHAIN) -> dict:
@@ -410,10 +547,12 @@ def phase_staged_coupling(device, n: int) -> dict:
     gen.manual_seed(7)
     x = torch.randn((n, 4), generator=gen, device=device)
     x64 = x.double()
+    # The staged kernels' per-particle layout, and B1's own.
     w = FC.prepare_params(arch, params)
+    w_b1 = FC.prepare_mma_params(arch, params)
 
     def b1():
-        return FC.launch_packed(arch, "forward", w, x)
+        return FC.launch_packed(arch, "forward", w_b1, x)
 
     def variant(apply, launch, plain, exact=None, against_b1=True):
         return dict(apply=apply, launch=launch, plain=plain, exact=exact,
@@ -713,16 +852,14 @@ print(json.dumps(out))
 """
 
 
-def chain_ab(parent: str) -> dict:
-    """B2 of the checkout at ``parent`` against this one's, at
-    n = N_PIPELINE and CHAIN_STEPS steps, in turns (parent, change, change,
-    parent) on the same card; each turn a process of its own, which builds
-    its checkout's kernels (a first call, not timed) and reads the kernel
-    alone after its events."""
+def ab_turns(parent: str, code: str, what: str) -> list:
+    """``python -c code`` in the checkout at ``parent`` and in this one, in
+    turns (parent, change, change, parent), each a process of its own
+    that prints one JSON object last; the objects, each with its
+    checkout's name."""
     from pathlib import Path
 
     here = str(Path(__file__).resolve().parent)
-    code = CHAIN_AB_TURN.format(n=N_PIPELINE, steps=CHAIN_STEPS)
     turns = []
     for name, root in (("parent", parent), ("change", here),
                        ("change", here), ("parent", parent)):
@@ -732,10 +869,91 @@ def chain_ab(parent: str) -> dict:
             raise RuntimeError(f"{name} turn failed:\n{done.stderr[-4000:]}")
         turns.append({"checkout": name,
                       **json.loads(done.stdout.splitlines()[-1])})
-        log(f"chain A/B turn: {turns[-1]}")
+        log(f"{what} A/B turn: {turns[-1]}")
+    return turns
+
+
+def chain_ab(parent: str) -> dict:
+    """B2 of the checkout at ``parent`` against this one's, at
+    n = N_PIPELINE and CHAIN_STEPS steps, in turns (parent, change, change,
+    parent) on the same card; each turn a process of its own, which builds
+    its checkout's kernels (a first call, not timed) and reads the kernel
+    alone after its events."""
+    turns = ab_turns(parent, CHAIN_AB_TURN.format(n=N_PIPELINE,
+                                                  steps=CHAIN_STEPS), "chain")
     return {"turns": turns, **{
         name: {key: sum(t[key] for t in turns if t["checkout"] == name) / 2
                for key in ("ms", "ms_single_call", "kernel_ms")}
+        for name in ("parent", "change")}}
+
+
+def coupling_turn(n: int, draws: int) -> dict:
+    """One turn of ``coupling_ab``, in the checkout whose
+    ``aspire_tpu_torch`` the process imports: B1 and B3 of every flow of
+    ``coupling_flows`` on input draw 1, packed once in that checkout's
+    layout and launched through its ``launch_packed``, by events and then
+    alone; and ``coupling_accuracy`` of its wrapper on ``draws`` draws."""
+    import torch
+
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    pack = getattr(FC, "prepare_mma_params", None) or FC.prepare_params
+    times, later = {}, []
+    for name, (arch, seed, scale) in coupling_flows().items():
+        arch, params = perturbed_flow(dev, seed, arch, scale)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        x = 2.0 * torch.randn((n, 4), generator=gen, device=dev)
+        w = pack(arch, params)
+        for mode in ("forward", "inverse"):
+            def run(arch=arch, mode=mode, w=w, x=x):
+                return FC.launch_packed(arch, mode, w, x)
+
+            key = f"{name} {mode}"
+            times[key] = {"ms": cuda_ms(run),
+                          "ms_single_call": cuda_ms_single(run)}
+            later.append((key, run))
+    accuracy = coupling_accuracy(dev, n, draws)
+    for key, run in later:
+        times[key]["kernel_ms"] = kernel_ms(run, "coupling_kernel")
+    return {"times": times, "accuracy": accuracy}
+
+
+# One turn of coupling_ab, run by a process of its own from the root of
+# the checkout measured: this file, loaded by path, measures the kernel of
+# that checkout.
+COUPLING_AB_TURN = """
+import importlib.util, json
+spec = importlib.util.spec_from_file_location("chip_smoke_turn", {here!r})
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+print(json.dumps(cs.coupling_turn({n}, {draws})))
+"""
+
+
+def coupling_ab(parent: str, draws: int = 20) -> dict:
+    """B1 (density) and B3 (sampling) of the checkout at ``parent``
+    against this one's, for every flow of ``coupling_flows`` at
+    n = N_COUPLING, in turns (parent, change, change, parent) on the same
+    card, each turn a process of its own as in ``chain_ab``: their times,
+    and the card rule read on ``draws`` input draws per flow (the same in
+    both turns of a checkout: the kernels are deterministic)."""
+    from pathlib import Path
+
+    turns = ab_turns(parent, COUPLING_AB_TURN.format(
+        here=str(Path(__file__).resolve()), n=N_COUPLING, draws=draws),
+        "coupling")
+    cases = list(turns[0]["times"])
+    return {"turns": [{"checkout": t["checkout"], **t["times"]}
+                      for t in turns], **{
+        name: {**{case: {key: sum(t["times"][case][key] for t in turns
+                                  if t["checkout"] == name) / 2
+                         for key in ("ms", "ms_single_call", "kernel_ms")}
+                  for case in cases},
+               "accuracy": next(t["accuracy"] for t in turns
+                                if t["checkout"] == name)}
         for name in ("parent", "change")}}
 
 
@@ -771,12 +989,27 @@ def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
         raise AssertionError(f"mutations left the chain kernel: {routes}")
     check_result(samples, n_anchor, truth)
 
+    # The split chain: every density pass through Flow.log_prob, so on B1.
+    reset_launch_counts()
     split = asp.sample_posterior(
         sampler="smc", n_samples=n_anchor,
         sampler_kwargs=dict(n_steps=CHAIN_STEPS, fused_chain=False))
+    split_launches = {"coupling": FC.launches.count,
+                      "chain": FM.launches.count,
+                      "maf": FC.maf_launches.count}
+    split_routes = asp.sampler.history.mutation_route
     log(f"split chain: log Z {split.log_evidence:.4f} +/- "
-        f"{split.log_evidence_error:.4f}, routes "
-        f"{set(asp.sampler.history.mutation_route)}")
+        f"{split.log_evidence_error:.4f}, {len(split_routes)} mutations "
+        f"{set(split_routes)}, launches {split_launches}")
+    if set(split_routes) != {"split"}:
+        raise AssertionError(f"a mutation left the split chain: {split_routes}")
+    # One density pass for the start state, one per step, one after.
+    need = (CHAIN_STEPS + 2) * len(split_routes)
+    if device.type == "cuda" and (split_launches["coupling"] < max(need, 1)
+                                  or split_launches["chain"]):
+        raise AssertionError(
+            f"the split chain's density passes left the coupling kernel: "
+            f"{split_launches}, need >= {need} coupling launches")
     check_result(split, n_anchor, truth)
 
     pipeline = dict(sampler="smc", n_samples=n_pipeline,
@@ -796,8 +1029,11 @@ def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
     log(f"{n_pipeline}-particle pipeline walls: {walls}")
     return {"launches": launches, "log_z": samples.log_evidence,
             "log_z_err": samples.log_evidence_error, "truth": truth,
-            "pipeline_s": walls[1],
-            "n_mutations": len(routes)}
+            "pipeline_s": walls[1], "pipeline_walls_s": walls,
+            "n_mutations": len(routes), "split_launches": split_launches,
+            "split_n_mutations": len(split_routes),
+            "split_log_z": split.log_evidence,
+            "split_log_z_err": split.log_evidence_error}
 
 
 def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
@@ -871,7 +1107,8 @@ def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
             "log_z_err": samples.log_evidence_error, "truth": truth,
             "default_log_z": dpost.log_evidence,
             "default_log_z_err": dpost.log_evidence_error,
-            "pipeline_s": walls[1], "n_mutations": len(routes)}
+            "pipeline_s": walls[1], "pipeline_walls_s": walls,
+            "n_mutations": len(routes)}
 
 
 def check_result(samples, n: int, truth: float) -> None:
@@ -888,6 +1125,32 @@ def check_result(samples, n: int, truth: float) -> None:
         raise AssertionError(
             f"|log Z - truth| = {abs(samples.log_evidence - truth):.4f} "
             f">= {tol:.4f}")
+
+
+def coupling_bound(arch, n: int) -> dict:
+    """B1/B3's bound at n: the conditioner's first layer on the FP32 pipe,
+    its two wide layers on the tensor cores in split TF32 (as B2's); x
+    read, z and log_det written, the packed weights read once."""
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    first, wide = coupling_flop_parts(arch)
+    return bound(n * first, density_bytes(
+        arch, n, 4 * arch.n_layers * FC.mma_layout(arch)[0]),
+        tensor_flop=n * wide)
+
+
+def coupling_entry(coupling: dict, name: str) -> dict:
+    """The kernels line's numbers of one flow of ``phase_coupling``, with
+    its bound at N_COUPLING."""
+    arch = coupling_flows()[name][0]
+    v = coupling["flows"][name]
+    return {"n_layers": arch.n_layers, "transformer": arch.transformer,
+            "max_abs_err": v["max_abs_err"],
+            **{k: v[k] for k in (
+                "ms", "ms_single_call", "kernel_ms", "plain_ms",
+                "inverse_ms", "inverse_ms_single_call", "inverse_kernel_ms",
+                "inverse_plain_ms")},
+            **coupling_bound(arch, N_COUPLING)}
 
 
 def main() -> int:
@@ -925,16 +1188,26 @@ def main() -> int:
     # the host more, and the pipelines and short kernels' events show it.
     read_kernel_ms()
 
-    print(f"[{card}] coupling kernel, density pass, n={N_COUPLING}: "
-          f"{coupling['ms']:.4f} ms (plain torch {coupling['plain_ms']:.4f} ms;"
-          f" through the wrapper with packing {coupling['wrapper_ms']:.4f} ms)")
-    print(f"[{card}] coupling kernel, sampling pass, n={N_COUPLING}: "
-          f"{coupling['inverse_ms']:.4f} ms (plain torch "
-          f"{coupling['inverse_plain_ms']:.4f} ms)")
+    for name, (arch, *_) in coupling_flows().items():
+        v = coupling["flows"][name]
+        b = coupling_bound(arch, N_COUPLING)
+        print(f"[{card}] coupling kernel, {name} ({arch.n_layers} layers, "
+              f"{arch.transformer}), n={N_COUPLING}: density {v['ms']:.4f} "
+              f"ms events, {v['kernel_ms']:.4f} ms alone (plain torch "
+              f"{v['plain_ms']:.4f} ms); sampling {v['inverse_ms']:.4f} ms "
+              f"events, {v['inverse_kernel_ms']:.4f} ms alone (plain torch "
+              f"{v['inverse_plain_ms']:.4f} ms); bound {b['bound_ms']:.4f} "
+              f"ms, split TF32")
+    print(f"[{card}] nsf-tpu coupling kernel through the wrapper, packed once "
+          f"per parameter set: {coupling['wrapper_ms']:.4f} ms; one packing "
+          f"{coupling['pack_ms']:.4f} ms")
     print(f"[{card}] sample_posterior pipeline, n={N_PIPELINE}: "
           f"{main_path['pipeline_s']:.4f} s (median of 3); anchor log Z "
           f"{main_path['log_z']:.4f} +/- {main_path['log_z_err']:.4f} vs "
-          f"{main_path['truth']:.4f}", flush=True)
+          f"{main_path['truth']:.4f}; split chain {main_path['split_log_z']:.4f}"
+          f" +/- {main_path['split_log_z_err']:.4f}, "
+          f"{main_path['split_launches']['coupling']} coupling launches in "
+          f"{main_path['split_n_mutations']} mutations", flush=True)
     print(f"[{card}] MAF kernel, density pass, maf_rqs(4), n={N_COUPLING}: "
           f"{maf['ms']:.4f} ms, at n={N_CHAIN} {maf[f'ms_n{N_CHAIN}']:.4f} ms; "
           f"the kernel alone {maf['kernel_ms']:.4f} ms, at n={N_CHAIN} "
@@ -953,8 +1226,6 @@ def main() -> int:
     from aspire_tpu_torch.ops import fused_mutation as FM
 
     nsf4, maf4 = nsf_tpu(4), maf_rqs(4)
-    b1_bound = bound(N_COUPLING * coupling_flop(nsf4),
-                     density_bytes(nsf4, N_COUPLING, FC.weight_bytes(nsf4)))
     # B2: one flow density per step and one for the start, z0 read, z and
     # four per-particle outputs written, the packed weights read once; the
     # conditioner's first layer on the FP32 pipe, its two wide ones on the
@@ -999,14 +1270,17 @@ def main() -> int:
         {"name": "coupling_kernel (B1 density / B3 sampling)",
          "route": "cuda", "source": "aspire_tpu_torch/csrc/coupling.cu",
          "replaces": "aspire_tpu/ops/fused_coupling.py:445",
-         "launches": main_path["launches"]["coupling"],
+         "launches": sum(main_path[k]["coupling"]
+                         for k in ("launches", "split_launches")),
+         "launches_fused_anchor": main_path["launches"]["coupling"],
+         "launches_split_anchor": main_path["split_launches"]["coupling"],
+         "split_anchor_mutations": main_path["split_n_mutations"],
          "max_abs_err": coupling["max_abs_err"],
-         "ms": coupling["ms"], "ms_single_call": coupling["ms_single_call"],
-         "kernel_ms": coupling["kernel_ms"],
-         "plain_ms": coupling["plain_ms"], **b1_bound, "library_ms": None,
-         "inverse_ms": coupling["inverse_ms"],
-         "inverse_kernel_ms": coupling["inverse_kernel_ms"],
-         "inverse_plain_ms": coupling["inverse_plain_ms"]},
+         **coupling_entry(coupling, "nsf-tpu"), "library_ms": None,
+         "wrapper_ms": coupling["wrapper_ms"],
+         "pack_ms": coupling["pack_ms"],
+         "affine": coupling_entry(coupling, "realnvp"),
+         "nsf_7_layers": coupling_entry(coupling, "nsf-7")},
         {"name": "chain_kernel (B2)", "route": "cuda",
          "source": "aspire_tpu_torch/csrc/chain.cu",
          "replaces": "aspire_tpu/ops/fused_mutation.py:1038",
@@ -1088,5 +1362,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--chain-ab":
         print(card_line(), flush=True)
         print(json.dumps({"chain_ab": chain_ab(sys.argv[2])}), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--coupling-ab":
+        print(card_line(), flush=True)
+        print(json.dumps({"coupling_ab": coupling_ab(sys.argv[2])}),
+              flush=True)
         sys.exit(0)
     sys.exit(main())

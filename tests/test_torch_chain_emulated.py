@@ -64,9 +64,9 @@ HARNESS = r"""
 #include <thread>
 #include "chain_emulated.cpp"
 namespace aspire { float4 smem4[232448 / 16]; }
-using S = aspire::ChainShape<4, 64, 64, 8>;
+using S = aspire::MmaShape<4, 64, 64, 8, true>;
 int main(int argc, char** argv) {
-  if (argc == 2) {  // the layout: the C entries, then ChainShape's own
+  if (argc == 2) {  // the layout: the C entries, then MmaShape's own
     int v[16];
     const int count = aspire_chain_layout(0, v, 16);
     for (int e = 0; e < count; ++e) printf("%d ", v[e]);
@@ -185,7 +185,7 @@ def _run(harness, cfg, params, z0, beta, step0, refs, target, dt,
 
 def test_chain_layout_table_matches_python(harness):
     """The layout the kernel reads, as the C entry the wrapper checks at
-    launch and ChainShape report it, equals the Python packing's
+    launch and MmaShape report it, equals the Python packing's
     (``chain_layout``): floats per layer, section offsets, the warp
     buffer's row stride and size; the tile and the constant block too."""
     library, shape, (tile, consts) = _layout(harness)

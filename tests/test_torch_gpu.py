@@ -24,8 +24,12 @@ def cuda():
 
 
 def test_coupling_kernel_matches_plain(cuda):
+    """B1 and B3 of nsf-tpu, realnvp (affine) and a 7-layer nsf (weights
+    streamed through shared memory), both modes and the round trip."""
     out = chip_smoke.phase_coupling(cuda, 8192)
-    assert out["ill_conditioned_points"] <= 8192 * 4 * 6 * 1e-4
+    assert sorted(out["flows"]) == ["nsf-7", "nsf-tpu", "realnvp"]
+    for name, v in out["flows"].items():
+        assert v["ill_conditioned_points"] <= 8192 * 4 * 6 * 1e-4, name
 
 
 def test_chain_kernel_matches_plain(cuda):
@@ -34,8 +38,12 @@ def test_chain_kernel_matches_plain(cuda):
 
 
 def test_main_path_routes_through_the_kernels(cuda):
+    """The fused anchor through B3 and B2; the split anchor's every density
+    pass through B1."""
     out = chip_smoke.phase_main_path(cuda, 8192, 8192)
     assert out["launches"]["coupling"] > 0 and out["launches"]["chain"] > 0
+    assert out["split_launches"]["coupling"] >= (
+        chip_smoke.CHAIN_STEPS + 2) * out["split_n_mutations"] > 0
 
 
 def test_maf_kernel_matches_plain(cuda):

@@ -189,13 +189,32 @@ SPLIT_PRODUCTS = """  mma_tf32(d, al, bh0, bh1);
   mma_tf32(d, ah, bl0, bl1);
   mma_tf32(d, ah, bh0, bh1);"""
 
+#: The source's inline PTX besides the mma, each function's stand-in
+#: body: cp.async copies at once (a synchronous stand-in, so a later
+#: wait has nothing left to wait for).
+PTX_STAND_INS = {
+    "cp_async16": "std::memcpy(dst, src, 16);",
+    "cp_async_wait_all": "",
+}
+
+
+def _inline_headers(src: str) -> str:
+    """``src`` with each csrc header it includes but ``common.cuh`` (which
+    the harnesses copy) pasted in place, so its PTX is routed too."""
+    def paste(match):
+        if match[1] == "common.cuh":
+            return match[0]
+        return _inline_headers((CSRC / match[1]).read_text())
+    return re.sub(r'#include "(\w+\.cuh)"', paste, src)
+
 
 def emulated_source(name: str, single_pass: bool = False) -> str:
-    """csrc/``name`` with its one piece of inline PTX, the mma, routed to
-    the emulation, and the launch syntax (host code the harness bypasses)
-    removed; with ``single_pass`` (maf.cu), each block takes one TF32
-    product (hi . hi) instead of the three of the split form."""
-    src = (CSRC / name).read_text()
+    """csrc/``name``, with the csrc headers it includes pasted in, its
+    inline PTX routed to the emulation (the mma, and the cp.async copies
+    of ``PTX_STAND_INS``), and the launch syntax (host code the harness
+    bypasses) removed; with ``single_pass`` (maf.cu), each block takes one
+    TF32 product (hi . hi) instead of the three of the split form."""
+    src = _inline_headers((CSRC / name).read_text())
     if single_pass:
         assert src.count(SPLIT_PRODUCTS) == 1
         src = src.replace(SPLIT_PRODUCTS, "  mma_tf32(d, ah, bh0, bh1);")
@@ -204,7 +223,11 @@ def emulated_source(name: str, single_pass: bool = False) -> str:
         r"\s*uint32_t b0, uint32_t b1\)) \{.*?\n\}\n",
         r"\1 { emu_mma(d, a, b0, b1); }\n", src, flags=re.S)
     assert n_mma == 1, f"mma_tf32 not found in {name}"
-    assert "asm(" not in src, f"{name} has inline PTX the emulation lacks"
+    for fn, body in PTX_STAND_INS.items():
+        src = re.sub(rf"(void {fn}\([^)]*\)) \{{.*?\n\}}\n",
+                     rf"\1 {{ {body} }}\n", src, flags=re.S)
+    assert not re.search(r"\basm\b", src), (
+        f"{name} has inline PTX the emulation lacks")
     return re.sub(r"<<<[^>]*>>>", "", src)
 
 
