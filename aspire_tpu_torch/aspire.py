@@ -147,11 +147,15 @@ class Aspire:
 
     def sample_posterior(self, n_samples: int = 1000,
                          sampler: str = "importance",
+                         return_history: bool = False,
                          preconditioning: str | None = None,
                          preconditioning_kwargs: dict | None = None,
                          **kwargs: Any):
         """Draw posterior samples with a fresh sampler (seeded from
-        ``seed + 1``, so a fixed seed repeats the run)."""
+        ``seed + 1``, so a fixed seed repeats the run). With
+        ``return_history``, ``(samples, history)``: the sampler's history,
+        or None for a sampler without one (importance), as in the JAX
+        package."""
         SamplerClass = get_sampler_class(sampler)
         init_params: dict = {}
         for klass in SamplerClass.__mro__:
@@ -170,4 +174,6 @@ class Aspire:
             preconditioning_kwargs=preconditioning_kwargs, **init_kwargs)
         samples = self.sampler.sample(n_samples, **sample_kwargs)
         samples.parameters = self.parameters
+        if return_history:
+            return samples, getattr(self.sampler, "history", None)
         return samples

@@ -36,6 +36,11 @@
 //   adapts on their mean acceptance probability) and the Philox tile (a
 //   particle's counter holds threadIdx.x and blockIdx.x). The per-step tile
 //   sum takes one barrier (two scratch rows, used in turn).
+// - Shapes whose layers the whole-layer pass cannot hold (MmaShape::WIDE:
+//   BASELINE config 5's d = 32, 6 x (128, 128) flow, 1.6 MB of weights)
+//   take chain_kernel_wide: the same chain with its state in shared memory
+//   and the flow's layers streamed through the block per pass (the wide
+//   form of coupling_mma.cuh, rounded k-step sums).
 
 #include "coupling_mma.cuh"
 
@@ -44,7 +49,7 @@ namespace aspire {
 constexpr int kTile = 256;          // particles per block: one tile
 constexpr int kWarps = kTile / 32;  // each warp: two 16-row mma tiles
 enum ChainKernel { kTPCN = 0, kPCN = 1, kRWMH = 2 };
-enum TargetId { kGaussianMixture = 1, kGaussian = 2 };
+enum TargetId { kGaussianMixture = 1, kGaussian = 2, kHierarchical = 3 };
 
 // Constant block layout (floats): reference mean (D), chol (D x D), ichol
 // (D x D), data-transform mean (D) and std (D), target constants.
@@ -71,6 +76,7 @@ struct ChainArgs {
   float* ll;
   float* nacc;
   float* stats;
+  float* scratch;  // wide form: per-particle statistics, (3, D, n)
   int n, n_layers, n_steps, kernel, gamma_m, gamma_odd, rows, dt_affine,
       target_id;
   float beta, nu, target_acc, adapt_rate, max_log_step, tail_bound;
@@ -120,11 +126,13 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
   return m + log1pf(expf(-fabsf(a - b)));
 }
 
-// In-kernel targets (models/targets.py carries the ids and constants).
-template <int D>
+// In-kernel targets (models/targets.py carries the ids and constants); x
+// is anything x[i] reads coordinate i of (a register array, or a Strided
+// view of shared memory).
+template <int D, class X>
 __device__ __forceinline__ void target_densities(int id, const float* c,
-                                                 const float (&x)[D],
-                                                 float& lpi, float& ll) {
+                                                 const X& x, float& lpi,
+                                                 float& ll) {
   const float log2pi = 2.f * kHalfLog2Pi;
   if (id == kGaussianMixture) {
     // c = [mu1 (D), mu2 (D), var1, var2]
@@ -142,6 +150,25 @@ __device__ __forceinline__ void target_densities(int id, const float* c,
     const float c2 = -0.5f * q2 / v2 - 0.5f * D * log2pi - 0.5f * D * logf(v2);
     ll = logaddexp(c1, c2) - 0.69314718055994531f;
     lpi = -0.5f * q0 - 0.5f * D * log2pi;
+  } else if (id == kHierarchical) {
+    // c = [y (D - 2)]; x = [m, s, theta (D - 2)]: y_i ~ N(theta_i, 1),
+    // theta_i ~ N(m, e^s), m ~ N(0, 25), s ~ N(0, 1).
+    const float m = x[0], s = x[1];
+    const float scale = expf(s);
+    const float log_scale = logf(scale);
+    float lik = 0.f, lth = 0.f;
+#pragma unroll 8
+    for (int i = 0; i + 2 < D; ++i) {
+      const float r = c[i] - x[i + 2];
+      lik += -0.5f * r * r - kHalfLog2Pi;
+      const float v = (x[i + 2] - m) / scale;
+      lth += -0.5f * v * v - log_scale - kHalfLog2Pi;
+    }
+    const float mm = m / 5.f;
+    ll = lik;
+    // 0.5 log(2 pi 25) = 2.5283764456...
+    lpi = (-0.5f * mm * mm - 2.52837644563877295f) +
+          (-0.5f * s * s - kHalfLog2Pi) + lth;
   } else {
     // c = [mu, sigma, lower, upper]
     const float mu = c[0], sigma = c[1], lower = c[2], upper = c[3];
@@ -204,9 +231,9 @@ __device__ __forceinline__ void tempered(const ChainArgs& a,
   lp = nan_to_neg_inf((1.f - a.beta) * lq + a.beta * (ll + lpi));
 }
 
-template <int D>
+template <int D, class X>
 __device__ __forceinline__ float mahal2(const float* __restrict__ c,
-                                        const float (&x)[D]) {
+                                        const X& x) {
   float r2 = 0.f;
 #pragma unroll
   for (int i = 0; i < D; ++i) {
@@ -386,13 +413,227 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
   }
 }
 
+// Coordinate i of a particle whose coordinates lie kTile floats apart in
+// shared memory (the wide form's [D][kTile] arrays).
+struct Strided {
+  const float* p;
+  __device__ __forceinline__ float operator[](int i) const {
+    return p[i * kTile];
+  }
+};
+
+// The wide form's tempered density of the particle at xs (a Strided view):
+// the data transform into the lane's row of the warp's buffer F, the flow's
+// density pass (flow_pass_wide, every thread of the block together), the
+// target.
+template <class S, int D>
+__device__ __forceinline__ void tempered_wide(
+    const ChainArgs& a, WideStream<S>& ws, const float* __restrict__ c,
+    float* __restrict__ F, float* __restrict__ pb, int lane, float dt_lj,
+    Strided xs, float& lp, float& lq, float& lpi, float& ll) {
+  float* f = F + lane * S::FROW;
+#pragma unroll 8
+  for (int i = 0; i < D; ++i) {
+    f[i] = a.dt_affine ? (xs[i] - c[Consts<D>::DT_MEAN + i]) /
+                             c[Consts<D>::DT_STD + i]
+                       : xs[i];
+  }
+  float ld = 0.f;
+  flow_pass_wide<S, true>(ws, a.tail_bound, F, pb, lane, ld);
+  float zz = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < D; ++i) zz += f[i] * f[i];
+  lq = -0.5f * zz - D * kHalfLog2Pi + ld + dt_lj;
+  target_densities<D>(a.target_id, c + Consts<D>::TARGET, xs, lpi, ll);
+  lp = nan_to_neg_inf((1.f - a.beta) * lq + a.beta * (ll + lpi));
+}
+
+// The chain in the wide form (MmaShape::WIDE: BASELINE config 5's d = 32,
+// (128, 128) flow), the same algorithm, tile, Philox stream and arithmetic
+// of the chain as chain_kernel. A thread's state does not fit its
+// registers at this d, so the block keeps its particles' current state and
+// proposal as [D][kTile] arrays in shared memory (32 KB each at d = 32), a
+// particle's normals in its row of its warp's flow buffer while the flow
+// is idle, and the running sums of the mixing statistics in global memory
+// (a.scratch, (3, D, n), each thread's own, read and written coalesced);
+// the previous step's deviation is x - x0 before the step's update. The
+// flow's weights stream through the block per pass (WideStream). Shared
+// memory: constants, two [D][kTile] arrays, the stream's slots and the
+// warps' buffers: 192,208 B at d = 32, one block per SM.
+template <int D, int H1, int H2, int K, bool RQS>
+__global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
+  using S = MmaShape<D, H1, H2, K, true>;
+  using C = Consts<D>;
+  extern __shared__ float4 smem4[];
+  float* c = reinterpret_cast<float*>(smem4);
+  float* scratch = c + C::SIZE;
+  float* X = scratch + 2 * kWarps;
+  float* XP = X + D * kTile;
+  float* res = XP + D * kTile;
+  float* ring = res + 2 * S::RES;
+  const int tid = threadIdx.x, lane = tid & 31;
+  float* pb = ring + 2 * S::CHUNK + (tid >> 5) * S::STAGE;
+  float* F = pb + 16 * S::ROW;
+  float* xi = F + lane * S::FROW;
+  WideStream<S> ws{res, ring, a.weights, a.n_layers, true, 0};
+  load_shared(smem4, reinterpret_cast<const float4*>(a.consts), C::SIZE / 4);
+  __syncthreads();
+
+  const int p = blockIdx.x * kTile + tid;
+  const size_t n = (size_t)a.n;
+  float dt_lj = 0.f;
+  if (a.dt_affine) {
+#pragma unroll 8
+    for (int i = 0; i < D; ++i) dt_lj -= logf(fabsf(c[C::DT_STD + i]));
+  }
+  const float* x0 = a.z0 + (size_t)p * D;
+  float* s1 = a.scratch + p;
+  float* s2 = s1 + D * n;
+  float* c1 = s2 + D * n;
+  for (int i = 0; i < D; ++i) {
+    X[i * kTile + tid] = x0[i];
+    s1[i * n] = s2[i * n] = c1[i * n] = 0.f;
+  }
+  const Strided x{X + tid}, xp{XP + tid};
+  float lp, lq, lpi, ll;
+  tempered_wide<S, D>(a, ws, c, F, pb, lane, dt_lj, x, lp, lq, lpi, ll);
+  float r2 = (a.kernel == kRWMH) ? 0.f : mahal2<D>(c, x);
+  float s = a.step0[blockIdx.x];
+  float nacc = 0.f;
+  const float alpha_g = 0.5f * (a.nu + D);
+  int phase = 0;
+
+  NoiseStream ns;
+  ns.noise = a.noise;
+  ns.n = a.n;
+  ns.rows = a.rows;
+  ns.p = p;
+  ns.local = tid;
+  ns.tile = blockIdx.x;
+  ns.key = make_uint2(a.seed0, a.seed1);
+
+#pragma unroll 1
+  for (int t = 0; t < a.n_steps; ++t) {
+    ns.step = t;
+    ns.group = -1;
+    for (int i = 0; i < D; ++i) xi[i] = normal_from_uniform(ns.get(i));
+    float w_raw = 0.f;
+    if (a.kernel == kTPCN) {
+      int row = D;
+      for (int j = 0; j + 1 < a.gamma_m; j += 2) {
+        const float u1 = ns.get(row + j), u2 = ns.get(row + j + 1);
+        w_raw -= logf((1.f - u1) * (1.f - u2));
+      }
+      if (a.gamma_m & 1) w_raw -= logf(1.f - ns.get(row + a.gamma_m - 1));
+      row += a.gamma_m;
+      if (a.gamma_odd) {
+        const float g = normal_from_uniform(ns.get(row));
+        w_raw += 0.5f * g * g;
+      }
+    }
+    const float u_acc = ns.get(a.rows - 1);
+
+    float rot = 1.f, scale = s;
+    if (a.kernel != kRWMH) {
+      const float s_c = fminf(s, 1.f);
+      rot = sqrtf(fmaxf(1.f - s_c * s_c, 0.f));
+      scale = s_c;
+      if (a.kernel == kTPCN) {
+        const float wg = w_raw / (0.5f * (a.nu + r2));
+        scale = s_c / sqrtf(wg);
+      }
+    }
+    for (int i = 0; i < D; ++i) {
+      float lxi = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < D; ++j) lxi = fmaf(c[C::CHOL + i * D + j], xi[j], lxi);
+      if (a.kernel == kRWMH) {
+        XP[i * kTile + tid] = x[i] + s * lxi;
+      } else {
+        const float m = c[C::MEAN + i];
+        XP[i * kTile + tid] = m + rot * (x[i] - m) + scale * lxi;
+      }
+    }
+    float r2n = r2, corr = 0.f;
+    if (a.kernel != kRWMH) {
+      r2n = mahal2<D>(c, xp);
+      corr = (a.kernel == kPCN) ? 0.5f * (r2n - r2)
+                                : alpha_g * logf((a.nu + r2n) / (a.nu + r2));
+    }
+    float lp_p, lq_p, lpi_p, ll_p;
+    tempered_wide<S, D>(a, ws, c, F, pb, lane, dt_lj, xp, lp_p, lq_p, lpi_p,
+                        ll_p);
+    const float log_alpha = nan_to_neg_inf(lp_p - lp + corr);
+    const float acc_p = expf(fminf(log_alpha, 0.f));
+    const bool accept = u_acc < acc_p;
+    if (accept) {
+      lp = lp_p;
+      lq = lq_p;
+      lpi = lpi_p;
+      ll = ll_p;
+      r2 = r2n;
+      nacc += 1.f;
+    }
+    for (int i = 0; i < D; ++i) {
+      const float old = X[i * kTile + tid];
+      const float now = accept ? XP[i * kTile + tid] : old;
+      X[i * kTile + tid] = now;
+      const float delta = now - x0[i];
+      const float prev = old - x0[i];
+      s1[i * n] += delta;
+      s2[i * n] += delta * delta;
+      c1[i * n] += delta * prev;
+    }
+    const float acc_mean = tile_sum(acc_p, scratch, phase) / kTile;
+    s = expf(fminf(fmaxf(logf(s) + a.adapt_rate * (acc_mean - a.target_acc),
+                         -10.f),
+                   a.max_log_step));
+  }
+
+  for (int i = 0; i < D; ++i) a.z[(size_t)p * D + i] = X[i * kTile + tid];
+  a.lq[p] = lq;
+  a.lpi[p] = lpi;
+  a.ll[p] = ll;
+  a.nacc[p] = nacc;
+
+  const float m = (float)(a.n_steps + 1);
+  float* row = a.stats + (size_t)blockIdx.x * (4 * D + 1);
+  if (tid == 0) row[0] = s;
+  for (int i = 0; i < D; ++i) {
+    const float dev_mean = s1[i * n] / m;
+    const float var = s2[i * n] / m - dev_mean * dev_mean;
+    const float cov1 = c1[i * n] / (float)a.n_steps - dev_mean * dev_mean;
+    const float rho = var > 1e-12f ? cov1 / fmaxf(var, 1e-12f) : 1.f;
+    const float wm = x0[i] + dev_mean;
+    const float rho_sum = tile_sum(rho, scratch, phase);
+    const float within_sum = tile_sum(var, scratch, phase);
+    const float wm_sum = tile_sum(wm, scratch, phase);
+    const float dv = wm - wm_sum / kTile;
+    const float wm_m2 = tile_sum(dv * dv, scratch, phase);
+    if (tid == 0) {
+      row[1 + i] = rho_sum;
+      row[1 + D + i] = within_sum;
+      row[1 + 2 * D + i] = wm_sum;
+      row[1 + 3 * D + i] = wm_m2;
+    }
+  }
+}
+
 template <int D, int H1, int H2, int K, bool RQS>
 int launch_chain(const ChainArgs& a, cudaStream_t stream) {
   using S = MmaShape<D, H1, H2, K, true>;
-  const size_t smem =
-      sizeof(float) * ((size_t)a.n_layers * S::SIZE + Consts<D>::SIZE +
-                       2 * kWarps + kWarps * S::STAGE);
-  auto kernel = chain_kernel<D, H1, H2, K, RQS>;
+  // Every layer's weights, or (wide) two [D][kTile] arrays and the
+  // stream's slots.
+  const size_t state = S::WIDE ? 2 * D * kTile + 2 * (S::RES + S::CHUNK)
+                               : (size_t)a.n_layers * S::SIZE;
+  const size_t smem = sizeof(float) * (state + Consts<D>::SIZE + 2 * kWarps +
+                                       kWarps * S::STAGE);
+  void (*kernel)(ChainArgs);
+  if constexpr (S::WIDE) {
+    kernel = chain_kernel_wide<D, H1, H2, K, RQS>;
+  } else {
+    kernel = chain_kernel<D, H1, H2, K, RQS>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -419,14 +660,16 @@ int aspire_consts_floats(int dims) {
 
 // The packed layout of chain configuration `config`, as MmaShape
 // computes it: floats per layer, the offsets of W1, b1, W2, b2, W3 and b3,
-// then the warp buffer's row stride and size, into out (up to capacity
+// the warp buffer's row stride and size, then the wide form's resident
+// part and chunk (0 for the whole-layer form), into out (up to capacity
 // entries). Returns their number, or -1 for an unknown configuration.
 int aspire_chain_layout(int config, int* out, int capacity) {
 #define ASPIRE_CHAIN_LAYOUT_CASE(ID, D, H1, H2, K, RQS)                  \
   if (config == ID) {                                                   \
     using S = aspire::MmaShape<D, H1, H2, K, true>;                     \
-    const int v[] = {S::SIZE, S::W1, S::B1, S::W2, S::B2,               \
-                     S::W3,   S::B3, S::ROW, S::STAGE};                 \
+    const int v[] = {S::SIZE, S::W1,  S::B1,    S::W2,                  \
+                     S::B2,   S::W3,  S::B3,    S::ROW,                 \
+                     S::STAGE, S::RES, S::CHUNK};                       \
     const int count = (int)(sizeof(v) / sizeof(v[0]));                  \
     for (int e = 0; e < count && e < capacity; ++e) out[e] = v[e];      \
     return count;                                                       \
@@ -437,10 +680,12 @@ int aspire_chain_layout(int config, int* out, int capacity) {
 }
 
 // Returns the launch's cudaError_t; -1 for an unknown configuration and
-// -2 when n is not a multiple of the tile.
+// -2 when n is not a multiple of the tile. scratch: 3 * D * n floats for a
+// wide configuration (MmaShape::WIDE), else unused.
 int aspire_chain(const float* z0, const float* weights, const float* consts,
                  const float* step0, const float* noise, float* z, float* lq,
-                 float* lpi, float* ll, float* nacc, float* stats, int n,
+                 float* lpi, float* ll, float* nacc, float* stats,
+                 float* scratch, int n,
                  int n_layers, int n_steps, int kernel, int gamma_m,
                  int gamma_odd, int rows, int dt_affine, int target_id,
                  float beta, float nu, float target_acc, float adapt_rate,
@@ -448,7 +693,7 @@ int aspire_chain(const float* z0, const float* weights, const float* consts,
                  unsigned seed1, int config, void* stream) {
   if (n % aspire::kTile != 0) return -2;
   aspire::ChainArgs a{z0, weights, consts, step0, noise, z, lq, lpi, ll,
-                      nacc, stats, n, n_layers, n_steps, kernel, gamma_m,
+                      nacc, stats, scratch, n, n_layers, n_steps, kernel, gamma_m,
                       gamma_odd, rows, dt_affine, target_id, beta, nu,
                       target_acc, adapt_rate, max_log_step, tail_bound,
                       seed0, seed1};

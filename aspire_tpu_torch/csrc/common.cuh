@@ -192,12 +192,17 @@ __device__ __forceinline__ void load_shared(float4* dst,
 // Coupling-flow kernel configurations compiled into the library: (id, D,
 // H1, H2, K, RQS), D even and hidden widths multiples of 8 (coupling_mma.cuh
 // MmaShape). ops/fused_coupling.py::KERNEL_CONFIGS mirrors this list.
+// Configuration 2 is BASELINE config 5's flow (nsf, 6 x (128, 128) at
+// d = 32; depth is no part of a configuration).
 #define ASPIRE_COUPLING_CONFIGS(X) \
   X(0, 4, 64, 64, 8, true)         \
-  X(1, 4, 64, 64, 1, false)
+  X(1, 4, 64, 64, 1, false)        \
+  X(2, 32, 128, 128, 8, true)
 
 // Configurations of the whole-chain kernel (a subset of the above).
-#define ASPIRE_CHAIN_CONFIGS(X) X(0, 4, 64, 64, 8, true)
+#define ASPIRE_CHAIN_CONFIGS(X) \
+  X(0, 4, 64, 64, 8, true)      \
+  X(2, 32, 128, 128, 8, true)
 
 // Configurations of the MAF-RQS density kernel (maf.cu, whose MafShape is
 // the packed layout): (id, D, H1, H2, K), hidden widths multiples of 8.

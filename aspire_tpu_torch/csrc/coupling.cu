@@ -28,26 +28,18 @@
 //   share an SM: the launch bounds cap a thread at 128 registers (the
 //   spline modes spill a few bytes), which ran 7-12% faster than one
 //   block of 168-174 registers, and than 12 warps per block (PERF.md).
+// - Shapes too wide for a whole layer in shared memory or for a layer's
+//   accumulators in registers (MmaShape::WIDE: BASELINE config 5's d = 32,
+//   6 x (128, 128), 8 bins, 761,856 tensor-core FLOP per particle and pass)
+//   take coupling_kernel_wide: each layer streamed in chunks of W2 and W3
+//   through two shared slots, one row tile and one group of two active
+//   dims at a time (coupling_mma.cuh, coupling_layer_wide).
 
 #include "coupling_mma.cuh"
 
 namespace aspire {
 
 constexpr int kCouplingWarps = 8;  // most warps per block
-
-// 16 bytes from global to shared memory, asynchronously (cp.async, L2
-// only: every block reads the same weights).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-
-// Wait for every cp.async this thread issued.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // The block's threads start copying one packed layer (S::SIZE floats, a
 // multiple of 4) into dst.
@@ -92,15 +84,48 @@ __global__ void __launch_bounds__(32 * kCouplingWarps, 2)
       copy_layer<S>(layers + ((step + 1) & 1) * S::SIZE,
                     weights + (size_t)next * S::SIZE);
     }
-    coupling_layer_mma<S, DENSITY, true>(layers + (step & 1) * S::SIZE,
-                                         DENSITY ? step : n_layers - 1 - step,
-                                         tail_bound, buf, lane, f, ld);
+    coupling_layer_mma<S, DENSITY>(layers + (step & 1) * S::SIZE,
+                                   DENSITY ? step : n_layers - 1 - step,
+                                   tail_bound, buf, lane, f, ld);
   }
   if (live) {
 #pragma unroll
     for (int i = 0; i < D; ++i) z[(size_t)p * D + i] = f[i];
     log_det[p] = ld;
   }
+}
+
+// The wide form (MmaShape::WIDE, coupling_layer_wide): each warp's 32
+// particles in its shared buffer, each layer streamed through the block in
+// chunks (WideStream), one block of up to 8 warps per SM (117,760 B of
+// shared memory at d = 32, (128, 128)).
+template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
+__global__ void __launch_bounds__(32 * kCouplingWarps, 1)
+    coupling_kernel_wide(const float* __restrict__ x, float* __restrict__ z,
+                         float* __restrict__ log_det,
+                         const float* __restrict__ weights, int n,
+                         int n_layers, float tail_bound) {
+  using S = MmaShape<D, H1, H2, K, RQS>;
+  extern __shared__ float4 coupling_smem4[];
+  float* smem = reinterpret_cast<float*>(coupling_smem4);
+  WideStream<S> ws{smem, smem + 2 * S::RES, weights, n_layers, DENSITY, 0};
+  const int lane = threadIdx.x & 31;
+  float* pb = smem + 2 * S::RES + 2 * S::CHUNK + (threadIdx.x >> 5) * S::STAGE;
+  float* F = pb + 16 * S::ROW;
+  // The warp's particles, read and written as one contiguous run.
+  const size_t first = (size_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31u);
+  const size_t end = (size_t)n * D;
+  for (int k = lane; k < 32 * D; k += 32) {
+    const size_t e = first * D + k;
+    F[(k / D) * S::FROW + k % D] = e < end ? x[e] : 0.f;
+  }
+  float ld = 0.f;
+  flow_pass_wide<S, DENSITY>(ws, tail_bound, F, pb, lane, ld);
+  for (int k = lane; k < 32 * D; k += 32) {
+    const size_t e = first * D + k;
+    if (e < end) z[e] = F[(k / D) * S::FROW + k % D];
+  }
+  if (first + lane < (size_t)n) log_det[first + lane] = ld;
 }
 
 template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
@@ -118,10 +143,18 @@ int launch_coupling(const float* x, float* z, float* ld, const float* w,
   int warps = ((n + 31) / 32 + sms - 1) / sms;
   warps = warps < 1 ? 1 : (warps > kCouplingWarps ? kCouplingWarps : warps);
   const int threads = 32 * warps;
-  const int smem = (int)sizeof(float) * (2 * S::SIZE + warps * S::STAGE);
+  // Weight buffers: two whole layers, or (wide) two resident parts and two
+  // chunks.
+  const int weights = S::WIDE ? 2 * (S::RES + S::CHUNK) : 2 * S::SIZE;
+  const int smem = (int)sizeof(float) * (weights + warps * S::STAGE);
   const int max_smem =
-      (int)sizeof(float) * (2 * S::SIZE + kCouplingWarps * S::STAGE);
-  auto kernel = coupling_kernel<D, H1, H2, K, RQS, DENSITY>;
+      (int)sizeof(float) * (weights + kCouplingWarps * S::STAGE);
+  void (*kernel)(const float*, float*, float*, const float*, int, int, float);
+  if constexpr (S::WIDE) {
+    kernel = coupling_kernel_wide<D, H1, H2, K, RQS, DENSITY>;
+  } else {
+    kernel = coupling_kernel<D, H1, H2, K, RQS, DENSITY>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   if (err != cudaSuccess) return (int)err;
@@ -145,16 +178,17 @@ int aspire_max_shared_bytes() {
 
 // The packed layout of coupling configuration `config`, as MmaShape
 // computes it: floats per layer, the offsets of W1, b1, W2, b2, W3 and b3,
-// the warp buffer's row stride and size, then the most warps per block,
+// the warp buffer's row stride and size, the wide form's resident part and
+// chunk (0 for the whole-layer form), then the most warps per block,
 // into out (up to capacity entries). Returns their number, or -1 for an
 // unknown configuration.
 int aspire_coupling_layout(int config, int* out, int capacity) {
 #define ASPIRE_COUPLING_LAYOUT_CASE(ID, D, H1, H2, K, RQS)              \
   if (config == ID) {                                                  \
     using S = aspire::MmaShape<D, H1, H2, K, RQS>;                     \
-    const int v[] = {S::SIZE, S::W1,  S::B1,    S::W2,                 \
-                     S::B2,   S::W3,  S::B3,    S::ROW,                \
-                     S::STAGE, aspire::kCouplingWarps};                \
+    const int v[] = {S::SIZE,  S::W1,  S::B1,    S::W2,                \
+                     S::B2,    S::W3,  S::B3,    S::ROW,               \
+                     S::STAGE, S::RES, S::CHUNK, aspire::kCouplingWarps}; \
     const int count = (int)(sizeof(v) / sizeof(v[0]));                 \
     for (int e = 0; e < count && e < capacity; ++e) out[e] = v[e];     \
     return count;                                                      \

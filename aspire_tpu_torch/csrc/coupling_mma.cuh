@@ -16,6 +16,15 @@
 // transformer parameters go from the accumulator fragments to their
 // particle's thread through a per-warp shared buffer, and each thread runs
 // the D/2 transformers (rqs or affine of common.cuh) of its own particle.
+//
+// That whole-layer form keeps a layer's weights in shared memory and the
+// warp's two row tiles of h2 and of the output in registers. Where those
+// do not fit (MmaShape::WIDE: BASELINE config 5's d = 32, (128, 128) flow
+// needs 273 KB per layer and 512 accumulator floats per thread), the wide
+// form (coupling_layer_wide) streams each layer through the block's
+// shared memory in chunks, takes one 16-row tile at a time, computes the
+// output layer by groups of two active dims and applies their transformers
+// at once, the warp's particles kept in shared memory.
 
 #pragma once
 
@@ -38,6 +47,12 @@ namespace aspire {
 // dims' P transformer parameters, 3K - 1 for a spline and 2 for an affine
 // map, each dim's group zero-padded to G, a multiple of 8). Every W2 and
 // W3 weight is the sum of two TF32 values.
+//
+// The wide layout (MmaShape::WIDE) puts the sections a layer reads
+// throughout first, then the streamed ones in the order the warps read
+// them: W1, b1, b2, b3, then W2 (as above), then W3 by groups of GD = 2
+// active dims, the fragment of group q, k-step s and the group's n-tile m
+// at index (q * KS2 + s) * NG + m (NG = GD * G / 8 n-tiles per group).
 template <int D_, int H1_, int H2_, int K_, bool RQS_>
 struct MmaShape {
   static_assert(D_ % 2 == 0, "the tensor-core pass takes an even dimension");
@@ -52,31 +67,76 @@ struct MmaShape {
   static constexpr int KS1 = H1 / 8;  // k-steps of W2
   static constexpr int KS2 = H2 / 8;  // n-tiles of W2, k-steps of W3
   static constexpr int NT = OUT / 8;  // n-tiles of W3
+  // The whole-layer form holds acc[2][KS2][4] and out[2][NT][4] per
+  // thread; past 128 floats the shape takes the wide form.
+  static constexpr bool WIDE = 8 * (KS2 + NT) > 128;
+  static constexpr int GD = 2;           // active dims per output group
+  static constexpr int NG = GD * G / 8;  // n-tiles per group
+  static_assert(!WIDE || A % GD == 0, "the wide form takes D/2 even");
   static constexpr int W1 = 0;
   static constexpr int B1 = round4(W1 + H1 * C);
-  static constexpr int W2 = round4(B1 + H1);
-  static constexpr int B2 = W2 + 64 * KS1 * KS2;
-  static constexpr int W3 = round4(B2 + H2);
-  static constexpr int B3 = W3 + 64 * KS2 * NT;
-  static constexpr int SIZE = round4(B3 + OUT);  // floats per layer
+  static constexpr int W2 =
+      WIDE ? round4(round4(round4(B1 + H1) + H2) + OUT) : round4(B1 + H1);
+  static constexpr int B2 = WIDE ? round4(B1 + H1) : W2 + 64 * KS1 * KS2;
+  static constexpr int W3 = WIDE ? W2 + 64 * KS1 * KS2 : round4(B2 + H2);
+  static constexpr int B3 = WIDE ? round4(B2 + H2) : W3 + 64 * KS2 * NT;
+  static constexpr int SIZE =
+      WIDE ? W3 + 64 * KS2 * NT : round4(B3 + OUT);  // floats per layer
   // A warp's buffer of transformer parameters: its 32 particles' OUT
-  // floats, rows ROW floats apart (the 4 extra floats put the 8 rows a
-  // quarter warp reads with float4 loads in distinct banks).
-  static constexpr int ROW = OUT + 4;
-  static constexpr int STAGE = 32 * ROW;
+  // floats (wide: one row tile's GD groups), rows ROW floats apart (the 4
+  // extra floats put the 8 rows a quarter warp reads with float4 loads in
+  // distinct banks). Wide: then the warp's 32 particles, FROW apart.
+  static constexpr int ROW = (WIDE ? GD * G : OUT) + 4;
+  static constexpr int FROW = D + 4;
+  static constexpr int STAGE = WIDE ? 16 * ROW + 32 * FROW : 32 * ROW;
+  // Wide streaming: the resident part (W1 .. b3) of a layer, and its W2
+  // and W3 in chunks of KW2 k-steps (all n-tiles) and of KW3 k-steps of
+  // one group; a row tile reads NC2 + NC3 chunks, a layer CPL.
+  static constexpr int RES = WIDE ? W2 : 0;
+  static constexpr int KW2 = KS1 % 4 == 0 ? 4 : (KS1 % 2 == 0 ? 2 : 1);
+  static constexpr int KW3 =
+      KS2 % 8 == 0 ? 8 : (KS2 % 4 == 0 ? 4 : (KS2 % 2 == 0 ? 2 : 1));
+  static constexpr int C2 = 64 * KW2 * KS2;
+  static constexpr int C3 = 64 * KW3 * NG;
+  static constexpr int NC2 = KS1 / KW2;
+  static constexpr int NC3 = A / GD * (KS2 / KW3);
+  static constexpr int CPL = 2 * (NC2 + NC3);
+  static constexpr int CHUNK = WIDE ? (C2 > C3 ? C2 : C3) : 0;
 };
 
+// 16 bytes from global to shared memory, asynchronously (cp.async, L2
+// only: every block reads the same weights).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Wait for every cp.async this thread issued.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The block's threads start copying `floats` (a multiple of 4) into dst.
+__device__ __forceinline__ void copy_async(float* dst,
+                                           const float* __restrict__ src,
+                                           int floats) {
+  for (int i = 4 * threadIdx.x; i < floats; i += 4 * blockDim.x) {
+    cp_async16(dst + i, src + i);
+  }
+}
+
 // x = hi + lo: hi is x rounded to the nearest TF32 value (ties away from
-// zero, cvt.rna.tf32.f32 done in integer ops). With ROUND_LO, lo is x - hi
-// rounded the same way, which leaves an error below 2^-23 |x|; without,
-// lo = x - hi exactly and the tensor core reads its top 11 significant
-// bits, which leaves an error below 2^-21 |x|.
-template <bool ROUND_LO>
+// zero, cvt.rna.tf32.f32 done in integer ops), lo is x - hi rounded the
+// same way, which leaves an error below 2^-23 |x| (left to the tensor
+// core, which reads lo's top 11 significant bits, it would be a one-sided
+// error below 2^-21 |x|).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
-  if constexpr (ROUND_LO) lo = (lo + 0x1000u) & 0xFFFFE000u;
+  lo = (lo + 0x1000u) & 0xFFFFE000u;
 }
 
 // A packed weight is the sum of two TF32 values, so cutting it to TF32
@@ -119,37 +179,29 @@ __device__ __forceinline__ void mma_split(float (&d)[4],
   mma_tf32(d, ah, b.h0, b.h1);
 }
 
-// d += A . B for one k-step in the pass's arithmetic. ROUNDED (the
-// coupling kernel's): lo rounded to TF32 (split_tf32<true>), and the
-// k-step's three products summed from zero and added to d in float32
-// (round to nearest): one cut per k-step, at the scale of the k-step's own
-// sum rather than of d. Otherwise (the chain kernel's): lo cut by the
-// tensor core, every product summed into d. Over a 64-wide product the
-// cuts of the second add up to an error of one sign, twice float32's in
-// root mean square on the coupling flows checked (tests/
+// d += A . B for one k-step: the k-step's three products summed from zero
+// and added to d in float32 (round to nearest), one cut per k-step at the
+// scale of the k-step's own sum rather than of d. Summed into d in place,
+// the cuts of a 64-wide product add up to an error of one sign, twice
+// float32's in root mean square on the coupling flows checked (tests/
 // test_torch_coupling_layout.py::test_kstep_sums_keep_the_card_tolerance
 // models it).
-template <bool ROUNDED>
 __device__ __forceinline__ void mma_split_step(float (&d)[4],
                                                const uint32_t (&ah)[4],
                                                const uint32_t (&al)[4],
                                                const WeightFragment& b) {
-  if constexpr (ROUNDED) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_split(s, ah, al, b);
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_split(s, ah, al, b);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) d[i] += s[i];
-  } else {
-    mma_split(d, ah, al, b);
-  }
+  for (int i = 0; i < 4; ++i) d[i] += s[i];
 }
 
 // The conditioner of one coupling layer for the warp's 32 particles. Lane
 // 4g + t brings u[r][c], conditioning input c of particle g + 8r (row tile
 // r / 2), and gets, as does every lane, the rows g + 8r of the fragments;
 // the transformer parameters of particle p's active dim a go to
-// buf[p * ROW + a * G + q]. ROUNDED: see mma_split_step.
-template <class S, bool ROUNDED>
+// buf[p * ROW + a * G + q].
+template <class S>
 __device__ __forceinline__ void conditioner_mma(const float* __restrict__ w,
                                                 const float (&u)[4][S::C],
                                                 float* __restrict__ buf,
@@ -181,15 +233,15 @@ __device__ __forceinline__ void conditioner_mma(const float* __restrict__ w,
           a = fmaf(w[S::W1 + unit * S::C + c], u[r][c], a);
         }
         const int q = 2 * e + (r & 1);
-        split_tf32<ROUNDED>(fmaxf(a + bias, 0.f), hh[r >> 1][q],
+        split_tf32(fmaxf(a + bias, 0.f), hh[r >> 1][q],
                             hl[r >> 1][q]);
       }
     }
 #pragma unroll
     for (int j = 0; j < S::KS2; ++j) {
       const WeightFragment b(w + S::W2 + 64 * (s * S::KS2 + j) + 2 * lane);
-      mma_split_step<ROUNDED>(acc[0][j], hh[0], hl[0], b);
-      mma_split_step<ROUNDED>(acc[1][j], hh[1], hl[1], b);
+      mma_split_step(acc[0][j], hh[0], hl[0], b);
+      mma_split_step(acc[1][j], hh[1], hl[1], b);
     }
   }
   // h2 = relu(acc + b2), kept as the accumulator fragments.
@@ -222,16 +274,16 @@ __device__ __forceinline__ void conditioner_mma(const float* __restrict__ w,
     uint32_t ah[2][4], al[2][4];
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
-      split_tf32<ROUNDED>(acc[m][s][0], ah[m][0], al[m][0]);
-      split_tf32<ROUNDED>(acc[m][s][2], ah[m][1], al[m][1]);
-      split_tf32<ROUNDED>(acc[m][s][1], ah[m][2], al[m][2]);
-      split_tf32<ROUNDED>(acc[m][s][3], ah[m][3], al[m][3]);
+      split_tf32(acc[m][s][0], ah[m][0], al[m][0]);
+      split_tf32(acc[m][s][2], ah[m][1], al[m][1]);
+      split_tf32(acc[m][s][1], ah[m][2], al[m][2]);
+      split_tf32(acc[m][s][3], ah[m][3], al[m][3]);
     }
 #pragma unroll
     for (int n = 0; n < S::NT; ++n) {
       const WeightFragment b(w + S::W3 + 64 * (s * S::NT + n) + 2 * lane);
-      mma_split_step<ROUNDED>(out[0][n], ah[0], al[0], b);
-      mma_split_step<ROUNDED>(out[1][n], ah[1], al[1], b);
+      mma_split_step(out[0][n], ah[0], al[0], b);
+      mma_split_step(out[1][n], ah[1], al[1], b);
     }
   }
 #pragma unroll
@@ -254,8 +306,7 @@ __device__ __forceinline__ void conditioner_mma(const float* __restrict__ w,
 // runs the transformers' inverse (rqs<K, true> / affine<true>), sampling
 // their forward; the layer's log-det is added to log_det. All 32 lanes
 // call it together, after a __syncwarp since the buffer's last reads.
-// ROUNDED: see mma_split_step.
-template <class S, bool DENSITY, bool ROUNDED>
+template <class S, bool DENSITY>
 __device__ __forceinline__ void coupling_layer_mma(const float* __restrict__ w,
                                                    int layer, float tb,
                                                    float* __restrict__ buf,
@@ -271,7 +322,7 @@ __device__ __forceinline__ void coupling_layer_mma(const float* __restrict__ w,
       u[r][c] = __shfl_sync(0xffffffffu, v, (lane >> 2) + 8 * r);
     }
   }
-  conditioner_mma<S, ROUNDED>(w, u, buf, lane);
+  conditioner_mma<S>(w, u, buf, lane);
   __syncwarp();
   float ld = 0.f;
 #pragma unroll
@@ -305,8 +356,7 @@ __device__ __forceinline__ void coupling_layer_mma(const float* __restrict__ w,
 }
 
 // The flow density pass (data -> latent, layers in order) of the warp's
-// 32 particles with every layer's packed weights at w, in the chain
-// kernel's arithmetic.
+// 32 particles with every layer's packed weights at w.
 template <class S>
 __device__ __forceinline__ void flow_density(const float* __restrict__ w,
                                              int n_layers, float tb,
@@ -316,9 +366,247 @@ __device__ __forceinline__ void flow_density(const float* __restrict__ w,
   __syncwarp();
 #pragma unroll 1
   for (int layer = 0; layer < n_layers; ++layer) {
-    coupling_layer_mma<S, true, false>(w + layer * S::SIZE, layer, tb, buf,
-                                       lane, f, log_det);
+    coupling_layer_mma<S, true>(w + layer * S::SIZE, layer, tb, buf, lane,
+                                f, log_det);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The wide form (MmaShape::WIDE)
+// ---------------------------------------------------------------------------
+
+// A pass's weights streamed through the block's shared memory: two slots
+// for a layer's resident part (RES floats: W1, b1, b2, b3) and two for its
+// chunks of W2 and W3 (CHUNK floats), in the order the warps read them
+// (per layer and row tile: W2's NC2 chunks, then W3's NC3 by groups). Every
+// thread of the block calls begin() and next() in the same order.
+template <class S>
+struct WideStream {
+  float* res;                   // 2 x S::RES floats
+  float* ring;                  // 2 x S::CHUNK floats
+  const float* w;  // every layer's packed weights
+  int n_layers;
+  bool density;  // layers in order (density) or reversed (sampling)
+  int k;         // chunks handed out in this pass
+
+  __device__ __forceinline__ int layer_of(int step) const {
+    return density ? step : n_layers - 1 - step;
+  }
+
+  __device__ __forceinline__ const float* layer_src(int step) const {
+    return w + (size_t)layer_of(step) * S::SIZE;
+  }
+
+  // Chunk j of the pass: its source, and its floats in `floats`.
+  __device__ __forceinline__ const float* chunk_src(int j, int& floats) const {
+    const float* base = layer_src(j / S::CPL);
+    const int i = (j % S::CPL) % (S::NC2 + S::NC3);  // both row tiles
+    if (i < S::NC2) {
+      floats = S::C2;
+      return base + S::W2 + i * S::C2;
+    }
+    floats = S::C3;
+    return base + S::W3 + (i - S::NC2) * S::C3;
+  }
+
+  // Start a pass: once every warp is done with the slots, copy the first
+  // layer's resident part and first chunk.
+  __device__ __forceinline__ void begin() {
+    __syncthreads();
+    k = 0;
+    copy_async(res, layer_src(0), S::RES);
+    int floats;
+    const float* src = chunk_src(0, floats);
+    copy_async(ring, src, floats);
+  }
+
+  // The next chunk, once it has landed; then start copying the chunk after
+  // it, and at a layer's first chunk the next layer's resident part, into
+  // the slots every warp is done with (the barrier says so).
+  __device__ __forceinline__ const float* next() {
+    cp_async_wait_all();
+    __syncthreads();
+    const int j = k++;
+    if (j + 1 < n_layers * S::CPL) {
+      int floats;
+      const float* src = chunk_src(j + 1, floats);
+      copy_async(ring + ((j + 1) & 1) * S::CHUNK, src, floats);
+    }
+    const int step = j / S::CPL;
+    if (j % S::CPL == 0 && step + 1 < n_layers) {
+      copy_async(res + ((step + 1) & 1) * S::RES, layer_src(step + 1),
+                 S::RES);
+    }
+    return ring + (j & 1) * S::CHUNK;
+  }
+
+  // Step `step`'s resident part: valid after the step's first next().
+  __device__ __forceinline__ const float* resident(int step) const {
+    return res + (step & 1) * S::RES;
+  }
+};
+
+// One coupling layer (pass step `step`) of the warp's 32 particles in the
+// wide form. F holds particle p's coordinates at F[p * FROW + i]; pb is the
+// warp's buffer of one row tile's group parameters (16 x ROW). Per row tile
+// m (particles 16m .. 16m + 15): h1 on FP32 FMAs from the conditioning
+// inputs, h2 = relu(h1 . W2 + b2) in registers (acc[KS2][4]) from W2's
+// chunks; then per group of GD = 2 active dims their 2G output columns
+// (out[NG][4]) from W3's chunks, to pb, and their transformers, lane l
+// taking row l & 15 and the group's dim l >> 4: 32 transformers at once.
+// The products summed by k-steps (mma_split_step). ldp[m]: the
+// log-dets of the lane's (row, dim) transformers of row tile m.
+template <class S, bool DENSITY>
+__device__ __forceinline__ void coupling_layer_wide(
+    WideStream<S>& ws, int step, float tb, float* __restrict__ F,
+    float* __restrict__ pb, int lane, float (&ldp)[2]) {
+  static_assert(S::GD == 2, "a lane per (row of a tile, dim of a group)");
+  const int odd = ws.layer_of(step) & 1;
+  const int g = lane >> 2, t = lane & 3;
+  const float* res = ws.resident(step);
+#pragma unroll 1
+  for (int m = 0; m < 2; ++m) {
+    // The conditioning inputs of rows g and g + 8 of the tile.
+    float u[2][S::C];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int c = 0; c < S::C; ++c) {
+        u[h][c] = F[(16 * m + g + 8 * h) * S::FROW + 2 * c + 1 - odd];
+      }
+    }
+    float acc[S::KS2][4];
+#pragma unroll
+    for (int j = 0; j < S::KS2; ++j) {
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int c2 = 0; c2 < S::NC2; ++c2) {
+      const float* wc = ws.next();
+#pragma unroll
+      for (int sl = 0; sl < S::KW2; ++sl) {
+        // First hidden layer, units 8s + 2t + e of rows g + 8h, in the A
+        // fragment order (g, e = 0), (g + 8, 0), (g, 1), (g + 8, 1).
+        const int s = c2 * S::KW2 + sl;
+        uint32_t hh[4], hl[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int unit = 8 * s + 2 * t + e;
+          const float bias = res[S::B1 + unit];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float a = 0.f;
+#pragma unroll
+            for (int c = 0; c < S::C; ++c) {
+              a = fmaf(res[S::W1 + unit * S::C + c], u[h][c], a);
+            }
+            split_tf32(fmaxf(a + bias, 0.f), hh[2 * e + h],
+                             hl[2 * e + h]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < S::KS2; ++j) {
+          const WeightFragment b(wc + 64 * (sl * S::KS2 + j) + 2 * lane);
+          mma_split_step(acc[j], hh, hl, b);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < S::KS2; ++j) {
+      const float2 bias =
+          *reinterpret_cast<const float2*>(res + S::B2 + 8 * j + 2 * t);
+      acc[j][0] = fmaxf(acc[j][0] + bias.x, 0.f);
+      acc[j][1] = fmaxf(acc[j][1] + bias.y, 0.f);
+      acc[j][2] = fmaxf(acc[j][2] + bias.x, 0.f);
+      acc[j][3] = fmaxf(acc[j][3] + bias.y, 0.f);
+    }
+#pragma unroll 1
+    for (int q = 0; q < S::A / S::GD; ++q) {
+      float out[S::NG][4];
+#pragma unroll
+      for (int n = 0; n < S::NG; ++n) {
+        out[n][0] = out[n][1] = out[n][2] = out[n][3] = 0.f;
+      }
+#pragma unroll
+      for (int c3 = 0; c3 < S::KS2 / S::KW3; ++c3) {
+        const float* wc = ws.next();
+#pragma unroll
+        for (int sl = 0; sl < S::KW3; ++sl) {
+          // h2's n-tile s is the A fragment of k-step s (as in
+          // conditioner_mma).
+          const int s = c3 * S::KW3 + sl;
+          uint32_t ah[4], al[4];
+          split_tf32(acc[s][0], ah[0], al[0]);
+          split_tf32(acc[s][2], ah[1], al[1]);
+          split_tf32(acc[s][1], ah[2], al[2]);
+          split_tf32(acc[s][3], ah[3], al[3]);
+#pragma unroll
+          for (int n = 0; n < S::NG; ++n) {
+            const WeightFragment b(wc + 64 * (sl * S::NG + n) + 2 * lane);
+            mma_split_step(out[n], ah, al, b);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < S::NG; ++n) {
+        const int col = 8 * n + 2 * t;
+        const float2 bias = *reinterpret_cast<const float2*>(
+            res + S::B3 + q * S::GD * S::G + col);
+        *reinterpret_cast<float2*>(pb + g * S::ROW + col) =
+            make_float2(out[n][0] + bias.x, out[n][1] + bias.y);
+        *reinterpret_cast<float2*>(pb + (g + 8) * S::ROW + col) =
+            make_float2(out[n][2] + bias.x, out[n][3] + bias.y);
+      }
+      __syncwarp();
+      const int r = lane & 15, ad = lane >> 4;
+      const float4* src =
+          reinterpret_cast<const float4*>(pb + r * S::ROW + ad * S::G);
+      float par[S::P];
+#pragma unroll
+      for (int c = 0; c < (S::P + 3) / 4; ++c) {
+        const float4 v = src[c];
+        if (4 * c + 0 < S::P) par[4 * c + 0] = v.x;
+        if (4 * c + 1 < S::P) par[4 * c + 1] = v.y;
+        if (4 * c + 2 < S::P) par[4 * c + 2] = v.z;
+        if (4 * c + 3 < S::P) par[4 * c + 3] = v.w;
+      }
+      float* v = F + (16 * m + r) * S::FROW + 2 * (q * S::GD + ad) + odd;
+      float y, e;
+      if constexpr (S::RQS) {
+        rqs<S::K, DENSITY>(*v, par, tb, y, e);
+      } else {
+        affine<DENSITY>(*v, par, y, e);
+      }
+      *v = y;
+      // (selects, not ldp[m]: a register array takes no runtime index)
+      ldp[0] += m == 0 ? e : 0.f;
+      ldp[1] += m == 1 ? e : 0.f;
+      __syncwarp();
+    }
+  }
+}
+
+// A whole pass in the wide form: the warp's 32 particles at F (row p for
+// particle p, written by every lane before the call), every layer in the
+// direction of `ws`, through the block's stream (all of the block's threads
+// call it together). Adds lane l's particle's log-det to log_det; F then
+// holds the pass's output.
+template <class S, bool DENSITY>
+__device__ __forceinline__ void flow_pass_wide(WideStream<S>& ws, float tb,
+                                               float* __restrict__ F,
+                                               float* __restrict__ pb,
+                                               int lane, float& log_det) {
+  __syncwarp();
+  ws.begin();
+  float ldp[2] = {0.f, 0.f};
+#pragma unroll 1
+  for (int step = 0; step < ws.n_layers; ++step) {
+    coupling_layer_wide<S, DENSITY>(ws, step, tb, F, pb, lane, ldp);
+  }
+  // Particle r + 16m's log-det: its two lanes' (r and r + 16) sums.
+  const float a0 = ldp[0] + __shfl_xor_sync(0xffffffffu, ldp[0], 16);
+  const float a1 = ldp[1] + __shfl_xor_sync(0xffffffffu, ldp[1], 16);
+  log_det += lane < 16 ? a0 : a1;
 }
 
 }  // namespace aspire

@@ -144,12 +144,14 @@ __device__ __forceinline__ void static_for(F&& f) {
 
 // x = hi + lo: hi is x rounded to the nearest TF32 value (ties away from
 // zero, cvt.rna.tf32.f32 done in integer ops that issue at the full rate),
-// lo = x - hi exactly; the tensor core reads lo's top 11 significant bits,
-// which leaves an error below 2^-21 |x|.
+// lo = x - hi rounded the same way, which leaves an error below
+// 2^-23 |x| (left to the tensor core, which reads lo's top 11 significant
+// bits, a one-sided error below 2^-21 |x|).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
+  lo = (lo + 0x1000u) & 0xFFFFE000u;
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -170,17 +172,24 @@ __device__ __forceinline__ void split_weight(float w, uint32_t& hi,
   lo = __float_as_uint(w - __uint_as_float(hi));
 }
 
-// d += A . B in split TF32, the small terms first; b is the lane's B
-// fragment of packed weights.
-__device__ __forceinline__ void mma_split(float (&d)[4],
+// acc += A . B in split TF32 for one block (k-step), the small terms
+// first; b is the lane's B fragment of packed weights. The block's three
+// products are summed from zero (d) and added to acc in float32: the
+// tensor core cuts (does not round) its sums, and summed into acc in place
+// those cuts gave the pass a one-sided error (as coupling_mma.cuh's
+// mma_split_step says).
+__device__ __forceinline__ void mma_split(float (&acc)[4],
                                           const uint32_t (&ah)[4],
                                           const uint32_t (&al)[4], float2 b) {
   uint32_t bh0, bl0, bh1, bl1;
   split_weight(b.x, bh0, bl0);
   split_weight(b.y, bh1, bl1);
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
   mma_tf32(d, al, bh0, bh1);
   mma_tf32(d, ah, bl0, bl1);
   mma_tf32(d, ah, bh0, bh1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += d[i];
 }
 
 // One MADE over the warp's tile (coordinates xs, [16][D]): the spline

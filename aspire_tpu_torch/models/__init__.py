@@ -1,6 +1,7 @@
 from .targets import (  # noqa: F401
     GaussianMixtureProblem,
     GaussianProblem,
+    HierarchicalProblem,
     Problem,
     target_densities,
 )

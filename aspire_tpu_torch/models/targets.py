@@ -19,6 +19,7 @@ import torch
 
 GAUSSIAN_MIXTURE = 1
 GAUSSIAN = 2
+HIERARCHICAL = 3
 
 _LOG_2PI = math.log(2 * math.pi)
 
@@ -50,9 +51,27 @@ def target_densities(target_id: int, consts: torch.Tensor,
         inside = torch.all((x >= lower) & (x <= upper), dim=-1)
         lpi = torch.where(inside, -d * torch.log(upper - lower),
                           torch.full_like(ll, -math.inf))
+    elif target_id == HIERARCHICAL:
+        ll, lpi = _hierarchical(consts[:d - 2], x)
     else:
         raise ValueError(f"unknown in-kernel target id {target_id}")
     return _neg_inf_if_nan(lpi), _neg_inf_if_nan(ll)
+
+
+def _hierarchical(y: torch.Tensor, x: torch.Tensor):
+    """``(log_likelihood, log_prior)`` of :class:`HierarchicalProblem` with
+    data ``y`` at ``x = [m, s, theta]``."""
+    m, s, theta = x[..., 0], x[..., 1], x[..., 2:]
+    ll = torch.sum(-0.5 * (y - theta) ** 2 - 0.5 * _LOG_2PI, dim=-1)
+    scale = torch.exp(s)
+    log_p_m = -0.5 * (m / 5.0) ** 2 - 0.5 * math.log(2 * math.pi * 25.0)
+    log_p_s = -0.5 * s**2 - 0.5 * _LOG_2PI
+    log_p_theta = torch.sum(
+        -0.5 * ((theta - m[..., None]) / scale[..., None]) ** 2
+        - torch.log(scale[..., None]) - 0.5 * _LOG_2PI,
+        dim=-1,
+    )
+    return ll, log_p_m + log_p_s + log_p_theta
 
 
 @dataclasses.dataclass
@@ -169,3 +188,67 @@ class GaussianMixtureProblem(Problem):
             ],
             axis=0,
         )
+
+
+@dataclasses.dataclass
+class HierarchicalProblem(Problem):
+    """d-dimensional hierarchical Gaussian posterior (BASELINE config 5).
+
+    A global mean ``m`` and log-scale ``s`` with per-group effects:
+    x = [m, s, theta_1..theta_{d-2}]; observations y_i ~ N(theta_i, 1),
+    theta_i ~ N(m, exp(s)), m ~ N(0, 25), s ~ N(0, 1). ``y_obs`` comes from
+    ``numpy.random.default_rng(seed)``, as in the JAX package, so both see
+    the same data.
+    """
+
+    dims: int = 32
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.y_obs = rng.normal(1.0, 1.2, size=(self.dims - 2,))
+
+    def _y(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(self.y_obs, dtype=x.dtype, device=x.device)
+
+    def log_likelihood(self, samples):
+        x = samples.x
+        return _hierarchical(self._y(x), x)[0]
+
+    def log_prior(self, samples):
+        x = samples.x
+        return _hierarchical(self._y(x), x)[1]
+
+    def kernel_target(self, device="cpu"):
+        return HIERARCHICAL, torch.tensor(self.y_obs, dtype=torch.float32,
+                                          device=device)
+
+    def draw_initial_samples(self, rng, n: int) -> np.ndarray:
+        m = rng.normal(1.0, 0.5, size=(n, 1))
+        s = rng.normal(0.0, 0.3, size=(n, 1))
+        theta = rng.normal(self.y_obs, 1.0, size=(n, self.dims - 2))
+        return np.concatenate([m, s, theta], axis=1)
+
+    def log_evidence_quadrature(self, m_points: int = 2801,
+                                s_points: int = 2001) -> float:
+        """log Z by quadrature: theta integrates out (y_i ~ N(m, 1 +
+        e^{2s}) given m and s), leaving a 2-d integral over m and s,
+        summed on an (m_points, s_points) grid over m in [-15, 15] and
+        s in [-10, 10] (the trapezoid rule, in float64 and log space)."""
+        y = np.asarray(self.y_obs, dtype=np.float64)
+        m = np.linspace(-15.0, 15.0, m_points)[:, None]
+        s = np.linspace(-10.0, 10.0, s_points)[None, :]
+        var = 1.0 + np.exp(2.0 * s)
+        # sum_i log N(y_i; m, var) from the sufficient statistics of y.
+        sq = (np.sum(y**2) - 2.0 * m * np.sum(y) + y.size * m**2)
+        log_f = (-0.5 * sq / var - 0.5 * y.size * np.log(2 * np.pi * var)
+                 - 0.5 * m**2 / 25.0 - 0.5 * np.log(2 * np.pi * 25.0)
+                 - 0.5 * s**2 - 0.5 * np.log(2 * np.pi))
+        w = np.ones_like(log_f)
+        w[0, :] *= 0.5
+        w[-1, :] *= 0.5
+        w[:, 0] *= 0.5
+        w[:, -1] *= 0.5
+        top = log_f.max()
+        cell = (m[1, 0] - m[0, 0]) * (s[0, 1] - s[0, 0])
+        return float(top + np.log(np.sum(w * np.exp(log_f - top)) * cell))

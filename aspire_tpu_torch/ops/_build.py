@@ -110,7 +110,7 @@ def load_library() -> ctypes.CDLL:
     lib.aspire_consts_floats.argtypes = [_I]
     lib.aspire_consts_floats.restype = _I
     lib.aspire_chain.argtypes = (
-        [_P] * 11 + [_I] * 9 + [_F] * 6 + [_U, _U, _I, _P]
+        [_P] * 12 + [_I] * 9 + [_F] * 6 + [_U, _U, _I, _P]
     )
     lib.aspire_chain.restype = _I
     lib.aspire_chain_layout.argtypes = [_I, _P, _I]

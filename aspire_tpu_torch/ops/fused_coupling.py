@@ -4,7 +4,8 @@ sampling passes) and the MAF-RQS density pass.
 Counterpart of ``aspire_tpu/ops/fused_coupling.py``. Both kernels run the
 conditioner's two wide products on the tensor cores in split TF32: the
 coupling kernel (``csrc/coupling.cu``) 32 particles per warp with the
-weights streamed through shared memory one layer at a time, in the
+weights streamed through shared memory one layer at a time (or, for a
+shape too wide for that, :func:`mma_wide`, in chunks of a layer), in the
 packed layout it shares with the whole-chain kernel (``csrc/chain.cu``,
 :func:`prepare_mma_params`); the MAF kernel (``csrc/maf.cu``) 16
 particles per warp with all layers' weights in shared memory, over the
@@ -37,10 +38,13 @@ MIN_FUSED_N = 4096
 
 #: (transformer, dims, n_hidden, num_bins) -> configuration id compiled
 #: into the library; mirrors ASPIRE_COUPLING_CONFIGS in csrc/common.cuh
-#: (even dims, hidden widths multiples of 8).
+#: (even dims, hidden widths multiples of 8). Configuration 2 is BASELINE
+#: config 5's flow (nsf, 6 x (128, 128) at d = 32): depth is no part of
+#: the key.
 KERNEL_CONFIGS = {
     ("rqs", 4, (64, 64), 8): 0,
     ("affine", 4, (64, 64), None): 1,
+    ("rqs", 32, (128, 128), 8): 2,
 }
 
 #: (dims, n_hidden, num_bins) of an RQS MAF -> configuration id of the MAF
@@ -96,13 +100,20 @@ def weight_bytes(arch) -> int:
     return 4 * arch.n_layers * layer_floats(arch)
 
 
+def mma_weight_buffers(arch) -> int:
+    """Floats of a block's weight buffers in the tensor-core pass: two
+    whole layers, or in the wide form two resident parts and two chunks
+    (neither grows with depth)."""
+    size, *_, stage, res, chunk = mma_layout(arch)
+    return 2 * (res + chunk) if mma_wide(arch) else 2 * size
+
+
 def coupling_shared_bytes(arch) -> int:
-    """Shared memory of a coupling kernel block at its most warps: two
-    layers of the tensor-core layout (the kernel streams the weights one
-    layer at a time, so depth does not count) and a warp buffer of
-    transformer parameters per warp."""
-    layout = mma_layout(arch)
-    return 4 * (2 * layout[0] + COUPLING_WARPS * layout[-1])
+    """Shared memory of a coupling kernel block at its most warps: its
+    weight buffers (:func:`mma_weight_buffers`) and a warp buffer per
+    warp."""
+    return 4 * (mma_weight_buffers(arch)
+                + COUPLING_WARPS * mma_layout(arch)[8])
 
 
 def should_fuse(arch, x: torch.Tensor) -> bool:
@@ -210,46 +221,102 @@ def mma_group(arch) -> int:
     return -(-arch.n_params_per_dim // 8) * 8
 
 
+#: Active dims per output group of the wide form (MmaShape::GD).
+WIDE_GROUP_DIMS = 2
+
+
+def _mma_tiles(arch) -> tuple[int, int, int]:
+    """(KS1, KS2, NT): W2's k-steps, W2's n-tiles (W3's k-steps) and W3's
+    n-tiles."""
+    h1, h2 = tuple(arch.n_hidden)
+    return h1 // 8, h2 // 8, arch.dims // 2 * mma_group(arch) // 8
+
+
+def mma_wide(arch) -> bool:
+    """Whether the shape takes the wide form (MmaShape::WIDE): the
+    whole-layer form's accumulators of both row tiles, ``8 * (KS2 + NT)``
+    floats a thread, pass 128."""
+    _, ks2, nt = _mma_tiles(arch)
+    return 8 * (ks2 + nt) > 128
+
+
+def _w3_group_cols(arch) -> int:
+    """W3 columns per fragment group: a group of two active dims in the
+    wide form, all of them otherwise."""
+    half, g = arch.dims // 2, mma_group(arch)
+    return WIDE_GROUP_DIMS * g if mma_wide(arch) else half * g
+
+
 def mma_sections(arch) -> list[tuple[str, tuple]]:
     """Sections of one layer of the packed buffer, in order, with their
     shapes: W1 ``(H1, D/2)`` of the conditioning inputs, b1, W2 as
     ``(H1/8 * H2/8, 32, 2)`` mma B fragments, b2, W3 as
-    ``(H2/8 * D/2 * G/8, 32, 2)`` fragments, b3 ``(D/2, G)``."""
+    ``(H2/8 * D/2 * G/8, 32, 2)`` fragments, b3 ``(D/2, G)``. The wide
+    form puts the sections a layer reads throughout first (W1, b1, b2, b3)
+    and then the streamed ones (W2, then W3 by groups of two active
+    dims)."""
     h1, h2 = tuple(arch.n_hidden)
     half, g = arch.dims // 2, mma_group(arch)
-    return [("w1", (h1, half)), ("b1", (h1,)),
-            ("w2", (h1 // 8 * (h2 // 8), 32, 2)), ("b2", (h2,)),
-            ("w3", (h2 // 8 * (half * g // 8), 32, 2)), ("b3", (half, g))]
+    sec = {"w1": (h1, half), "b1": (h1,),
+           "w2": (h1 // 8 * (h2 // 8), 32, 2), "b2": (h2,),
+           "w3": (h2 // 8 * (half * g // 8), 32, 2), "b3": (half, g)}
+    order = (("w1", "b1", "b2", "b3", "w2", "w3") if mma_wide(arch) else
+             ("w1", "b1", "w2", "b2", "w3", "b3"))
+    return [(name, sec[name]) for name in order]
+
+
+def _section_offsets(arch) -> tuple[dict, int]:
+    """Each section's offset in a packed layer, and the layer's floats."""
+    offsets, off = {}, 0
+    for name, shape in mma_sections(arch):
+        off = _round4(off)
+        offsets[name] = off
+        off += int(torch.Size(shape).numel())
+    return offsets, _round4(off)
 
 
 @functools.lru_cache(maxsize=None)
 def mma_layout(arch) -> tuple[int, ...]:
     """The layout as the library reports it (``aspire_chain_layout``, the
     first entries of ``aspire_coupling_layout``): floats per layer, the
-    offset of each section, then the row stride and the floats of a warp's
-    buffer of transformer parameters (32 rows)."""
-    offsets, off = [], 0
-    for _, shape in mma_sections(arch):
-        off = _round4(off)
-        offsets.append(off)
-        off += int(torch.Size(shape).numel())
-    row = arch.dims // 2 * mma_group(arch) + 4
-    return (_round4(off), *offsets, row, 32 * row)
+    offsets of W1, b1, W2, b2, W3 and b3, the row stride and the floats of
+    a warp's buffer (whole-layer form: the transformer parameters of 32
+    rows; wide form: those of one 16-row tile's group, then the warp's 32
+    particles, ``D + 4`` floats apart), then the wide form's resident part
+    and largest chunk (0 and 0 otherwise)."""
+    offsets, size = _section_offsets(arch)
+    ks1, ks2, _ = _mma_tiles(arch)
+    names = ("w1", "b1", "w2", "b2", "w3", "b3")
+    if not mma_wide(arch):
+        row = arch.dims // 2 * mma_group(arch) + 4
+        return (size, *(offsets[k] for k in names), row, 32 * row, 0, 0)
+    row = _w3_group_cols(arch) + 4
+    kw2 = 4 if ks1 % 4 == 0 else (2 if ks1 % 2 == 0 else 1)
+    kw3 = next(k for k in (8, 4, 2, 1) if ks2 % k == 0)
+    chunk = max(64 * kw2 * ks2, 64 * kw3 * _w3_group_cols(arch) // 8)
+    return (size, *(offsets[k] for k in names), row,
+            16 * row + 32 * (arch.dims + 4), offsets["w2"], chunk)
 
 
 @functools.lru_cache(maxsize=None)
-def _fragments(k_in: int, n_out: int, device: torch.device):
+def _fragments(k_in: int, n_out: int, device: torch.device,
+               group: int | None = None):
     """(row, column) of every entry of the mma B fragments of a
     ``(k_in, n_out)`` matrix, each a ``(k_in/8 * n_out/8, 32, 2)`` index
     tensor on ``device`` (kept, so a packing copies no index to the card):
-    lane ``4g + t`` of the fragment of k-step ``s`` and n-tile ``j`` (at
-    ``s * n_out/8 + j``) holds rows ``8s + 2t`` and ``8s + 2t + 1`` of
-    column ``8j + g`` (the k order that lets one product's accumulator
-    serve as the next one's A fragment)."""
+    lane ``4g + t`` of the fragment of k-step ``s`` and n-tile ``j`` holds
+    rows ``8s + 2t`` and ``8s + 2t + 1`` of column ``8j + g`` (the k order
+    that lets one product's accumulator serve as the next one's A
+    fragment). The columns go by groups of ``group`` (all of them by
+    default), and the fragments group by group, k-step by k-step, n-tile
+    by n-tile: at ``(q * k_in/8 + s) * group/8 + j`` for n-tile ``j`` of
+    group ``q``."""
+    group = group or n_out
     lane = torch.arange(32)
     rows = 2 * (lane % 4)[:, None] + torch.arange(2)[None, :]
     cols = (lane // 4)[:, None].expand(32, 2)
-    tiles = [(s, j) for s in range(k_in // 8) for j in range(n_out // 8)]
+    tiles = [(s, q * group // 8 + j) for q in range(n_out // group)
+             for s in range(k_in // 8) for j in range(group // 8)]
     return (torch.stack([8 * s + rows for s, _ in tiles]).to(device),
             torch.stack([8 * j + cols for _, j in tiles]).to(device))
 
@@ -277,6 +344,14 @@ def _dense_layer(arch, layer: int, net: dict):
             w3.reshape(h2, -1), b3)
 
 
+def _mma_fragment_indices(arch, device):
+    """The fragment index pairs of W2 and W3 (:func:`_fragments`)."""
+    h1, h2 = tuple(arch.n_hidden)
+    return (_fragments(h1, h2, device),
+            _fragments(h2, arch.dims // 2 * mma_group(arch), device,
+                       _w3_group_cols(arch)))
+
+
 def prepare_mma_params(arch, params: dict) -> torch.Tensor:
     """Pack every layer's conditioner into the tensor-core flat layout
     (:func:`mma_sections`), in the parameters' dtype: W2 and W3 as mma B
@@ -288,16 +363,16 @@ def prepare_mma_params(arch, params: dict) -> torch.Tensor:
         raise ValueError(f"the tensor-core pass takes an even-d coupling "
                          f"flow with hidden widths /8: {arch}")
     dev = params["layers"][0]["layers"][0]["w"].device
-    (r2, c2), (r3, c3) = (
-        _fragments(h1, h2, dev),
-        _fragments(h2, arch.dims // 2 * mma_group(arch), dev))
+    (r2, c2), (r3, c3) = _mma_fragment_indices(arch, dev)
+    order = [name for name, _ in mma_sections(arch)]
     chunks = []
     for layer, net in enumerate(params["layers"]):
         w1, b1, w2, b2, w3, b3 = _dense_layer(arch, layer, net)
         w2, w3 = w2[r2, c2], w3[r3, c3]
         if w2.dtype == torch.float32:
             w2, w3 = split_tf32_sum(w2), split_tf32_sum(w3)
-        _append_sections(chunks, [w1, b1, w2, b2, w3, b3])
+        sec = dict(w1=w1, b1=b1, w2=w2, b2=b2, w3=w3, b3=b3)
+        _append_sections(chunks, [sec[name] for name in order])
     return _concat(chunks, arch.n_layers * mma_layout(arch)[0], arch,
                    chunks[0].dtype)
 
@@ -313,11 +388,13 @@ def mma_conditioner_plain(arch, packed: torch.Tensor, layer: int,
     h1, h2 = tuple(arch.n_hidden)
     half, G = arch.dims // 2, mma_group(arch)
     buf = packed.reshape(arch.n_layers, -1)[layer]
-    sec = {name: buf[off:off + int(torch.Size(shape).numel())].reshape(shape)
-           for (name, shape), off in zip(mma_sections(arch),
-                                         mma_layout(arch)[1:7])}
-    for name, k_in, n_out in (("w2", h1, h2), ("w3", h2, half * G)):
-        rows, cols = _fragments(k_in, n_out, buf.device)
+    offsets, _ = _section_offsets(arch)
+    sec = {name: buf[offsets[name]:offsets[name]
+                     + int(torch.Size(shape).numel())].reshape(shape)
+           for name, shape in mma_sections(arch)}
+    for name, (rows, cols), k_in, n_out in zip(
+            ("w2", "w3"), _mma_fragment_indices(arch, buf.device),
+            (h1, h2), (h2, half * G)):
         dense = buf.new_zeros((k_in, n_out))
         dense[rows, cols] = sec[name]
         sec[name] = dense

@@ -7,7 +7,9 @@ conditioner products on the tensor cores, 32 particles per warp, in the
 packed layout of the coupling kernel (:func:`prepare_chain_params` is
 ``fused_coupling.prepare_mma_params``: mma fragments of split-TF32
 weights); this module checks the packing against the library's and
-launches. :func:`chain_plain` is the same algorithm in
+launches. A shape in the wide form (``fused_coupling.mma_wide``, BASELINE
+config 5's d = 32 flow) keeps its chain state in shared memory and its
+per-particle running sums in a scratch tensor the wrapper allocates. :func:`chain_plain` is the same algorithm in
 torch: the version a CPU tensor runs and the one the kernel is held
 against on the card.
 
@@ -43,7 +45,7 @@ from .fused_coupling import prepare_mma_params as prepare_chain_params
 TILE = 256
 KERNELS = {"tpcn": 0, "pcn": 1, "rwmh": 2}
 #: configuration ids the chain kernel is compiled for (ASPIRE_CHAIN_CONFIGS)
-CHAIN_CONFIGS = {0}
+CHAIN_CONFIGS = {0, 2}
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 launches = LaunchCounter()
@@ -317,6 +319,18 @@ def chain_consts(size: int, d: int, ref_mean, ref_chol, ref_ichol,
     return torch.nn.functional.pad(flat, (0, size - flat.numel())).contiguous()
 
 
+def chain_shared_bytes(arch, consts_floats: int) -> int:
+    """Shared memory of a chain kernel block: the constant block, two
+    rows of tile-sum scratch, a warp buffer per warp, and every layer's
+    weights, or in the wide form two ``(d, TILE)`` state arrays and the
+    weight stream's buffers (:func:`FC.mma_weight_buffers`)."""
+    layout = chain_layout(arch)
+    warps = TILE // 32
+    state = (2 * arch.dims * TILE + FC.mma_weight_buffers(arch)
+             if FC.mma_wide(arch) else arch.n_layers * layout[0])
+    return 4 * (state + consts_floats + 2 * warps + warps * layout[8])
+
+
 @functools.lru_cache(maxsize=None)
 def _chain_library_layout(cfg: int) -> tuple[int, ...]:
     """The loaded library's layout of chain configuration ``cfg``
@@ -369,9 +383,7 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
         raise RuntimeError("chain weight layout disagrees with the kernel "
                            "library")
     weights = FC.packed_coupling_params(arch, params)
-    warps = TILE // 32
-    smem = 4 * (weights.numel() + lib.aspire_consts_floats(d) + 2 * warps
-                + warps * layout[-1])
+    smem = chain_shared_bytes(arch, lib.aspire_consts_floats(d))
     if smem > lib.aspire_max_shared_bytes():
         raise ValueError(f"chain kernel needs {smem} bytes of shared memory")
     target_id, tconsts = target
@@ -382,11 +394,15 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
                                      device=z0.device) for _ in range(4))
     stats = torch.empty((nt, 4 * d + 1), dtype=torch.float32,
                         device=z0.device)
+    # The wide form's per-particle running sums (3, d, n).
+    scratch = (torch.empty(3 * d * n, dtype=torch.float32, device=z0.device)
+               if FC.mma_wide(arch) else None)
     code = lib.aspire_chain(
         z0.data_ptr(), weights.data_ptr(), consts.data_ptr(),
         step0.data_ptr(), noise.data_ptr() if noise is not None else None,
         z.data_ptr(), lq.data_ptr(), lpi.data_ptr(), ll.data_ptr(),
         nacc.data_ptr(), stats.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
         n, arch.n_layers, cfg.n_steps, KERNELS[cfg.kernel], cfg.gamma_m,
         cfg.gamma_odd, cfg.noise_rows, 0 if data_transform is None else 1,
         int(target_id), float(beta), float(cfg.nu),

@@ -3,8 +3,8 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases (each raises on failure, so the script exits non-zero), the two
-main paths (6, 7) right after the build:
+Phases (each raises on failure, so the script exits non-zero), the
+main paths (6, 7, 8) right after the build:
 1. require a CUDA device; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from aspire_tpu_torch/csrc with nvcc;
 3. the coupling kernel (density and sampling modes, and the round trip)
@@ -29,17 +29,26 @@ main paths (6, 7) right after the build:
    every density pass of it on the MAF kernel: launch counts), the
    default flow_backend ("maf", affine, plain torch) at n = 8192, then
    the maf-rqs 131072-particle pipeline time;
-8. the staged coupling kernels (D1-D3), as the dev scripts'
+8. BASELINE config 5 (``phase_hierarchical``): the d = 32 hierarchical
+   posterior with an nsf 6 x (128, 128), 8-bin flow at its full width
+   and n: B1/B3 at that shape against plain at n = 16384 and 1048576, B2
+   on the hierarchical target against the plain chain at 8192 x 32 steps;
+   the pipeline (fit on 32768 draws, importance sampling on 262144, SMC on
+   1048576 particles with 32-step tpCN: every mutation on B2, the draws
+   on B3; launch counts); the whole-chain and split routes (every split
+   density pass on B1) agreeing on log Z at n = 131072; the log Z printed
+   beside the quadrature truth and the reference's TPU record;
+9. the staged coupling kernels (D1-D3), as the dev scripts'
    A/B runs them: their flow (4 coupling layers, (64, 64), 8 bins) at
    n = 131072, each variant through its wrapper and timed in turns with
    the coupling kernel B1 (B1, variant, variant, B1), then held against
    its plain schedule (float64 deciding f32-ill-conditioned points) and,
    but for D3 with rqs_micro, against B1;
-9. the uniforms kernel (D4): the probe's (8, 256) at seed (3, 7), the
+10. the uniforms kernel (D4): the probe's (8, 256) at seed (3, 7), the
    131072 x 8 x 20 uniforms of a 20-step chain and a draw whose size is
    no multiple of 4, bit for bit against the plain Philox stream; timed in
    turns with torch.rand (D4, torch.rand, torch.rand, D4);
-10. print kernel and plain times, each kernel's bound, the kernels JSON
+11. print kernel and plain times, each kernel's bound, the kernels JSON
    line and the result line. A time is device time: one CUDA-event pair
    around 20 back-to-back calls after a warm-up (cuda_ms); the earlier
    yardstick, an event pair around each single call (cuda_ms_single), is
@@ -57,7 +66,9 @@ the parent commit) and of this checkout in turns, each turn a process of
 its own (``chain_ab``). ``--coupling-ab PARENT`` does the same for the
 coupling kernel's two modes, B1 and B3, on the flows of phase 3, and
 reads phase 3's check of both checkouts' kernels on 20 input draws per
-flow (``coupling_ab``).
+flow (``coupling_ab``); ``--maf-ab PARENT`` the same for the MAF kernel
+B4 (``maf_ab``). ``--accumulation`` reads B2's flow density and B4
+against float64 over 20 draws each (``accumulation``).
 """
 
 from __future__ import annotations
@@ -81,6 +92,14 @@ Z_ATOL, DENSITY_ATOL, STEP_RTOL, STATS_RTOL = 2e-4, 2e-3, 1e-5, 1e-4
 # outside the tensor cores, TF32 in them, HBM3 bandwidth.
 FP32_FLOP_S, TF32_FLOP_S, HBM_BYTE_S = 67e12, 495e12, 3.35e12
 PROBE_SEED = (3, 7)
+# BASELINE config 5 (benchmarks/hierarchical.py): n, mutation steps, the
+# kernel checks' smaller n and the route agreement's n.
+N_HIER, HIER_STEPS, N_HIER_CHECK, N_HIER_ROUTES = 1_048_576, 32, 16384, 131072
+# Its fit draws and importance draws.
+N_HIER_TRAIN, N_HIER_IMPORTANCE = 32768, 262_144
+# The reference's record of config 5 (benchmarks/RESULTS.md:122-130, a TPU
+# v5 run of the JAX package): SMC log Z and its error.
+HIER_TPU_RECORD = (-47.3499, 0.0027)
 
 
 def log(msg: str) -> None:
@@ -146,16 +165,20 @@ def kernel_ms(fn, match: str, reps: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-             if match in e.key)
-    if us <= 0:
-        raise AssertionError(f"the profiler recorded no kernel {match!r}")
-    return us / reps / 1e3
+    # A trace can come back without the card's activity (seen once, late
+    # in a run of many traces): trace again, at most twice more.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0)
+                 for e in prof.key_averages() if match in e.key)
+        if us > 0:
+            return us / reps / 1e3
+        log(f"the profiler recorded no kernel {match!r} (trace {attempt})")
+    raise AssertionError(f"the profiler recorded no kernel {match!r}")
 
 
 # kernel_ms readings the phases note, made by read_kernel_ms at the end of
@@ -194,6 +217,15 @@ def perturbed_flow(device, seed: int = 0, arch=None, scale: float = 0.1):
                 layer[k] = layer[k] + scale * torch.randn(
                     layer[k].shape, generator=gen, device=device)
     return arch, params
+
+
+def hierarchical_flow(n_layers: int = 6):
+    """BASELINE config 5's flow, as ``Aspire(flow_backend="nsf", dims=32,
+    n_layers=6, n_hidden=(128, 128))`` builds it (8 bins, tail bound 5),
+    at ``n_layers``."""
+    from aspire_tpu_torch.flows.architectures import nsf
+
+    return nsf(32, n_layers=n_layers, n_hidden=(128, 128))
 
 
 def as_float64(params):
@@ -327,12 +359,25 @@ def coupling_flows() -> dict:
             "nsf-7": (nsf(4, n_layers=7), 9, 0.05)}
 
 
+def in_chunks(fn, params, x, chunk: int = N_COUPLING):
+    """``fn(params, x)`` of a plain pass, ``chunk`` rows at a time (the
+    plain spline pass holds several (n, d, K) intermediates: at
+    n = 1,048,576 and d = 32 each is a GB)."""
+    import torch
+
+    if x.shape[0] <= chunk:
+        return fn(params, x)
+    parts = [fn(params, x[i:i + chunk]) for i in range(0, x.shape[0], chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def coupling_outputs(device, flow: tuple, n: int, draw: int) -> dict:
-    """B1 and B3 of ``flow`` (an entry of ``coupling_flows``) through the
-    wrapper, each output beside the plain float32 path's and the float64
-    one: the density pass on n inputs (input draw ``draw``), the sampling
-    pass on the plain path's latents, and the round trip through both
-    kernel modes. Returns them with the flow's inputs and parameters."""
+    """B1 and B3 of ``flow`` (an entry of ``coupling_flows``, or config 5's
+    ``(hierarchical_flow(), seed, scale)``) through the wrapper, each
+    output beside the plain float32 path's and the float64 one: the
+    density pass on n inputs (input draw ``draw``), the sampling pass on
+    the plain path's latents, and the round trip through both kernel
+    modes. Returns them with the flow's inputs and parameters."""
     import torch
 
     from aspire_tpu_torch.ops import fused_coupling as FC
@@ -342,15 +387,15 @@ def coupling_outputs(device, flow: tuple, n: int, draw: int) -> dict:
     params64 = as_float64(params)
     gen = torch.Generator(device=device)
     gen.manual_seed(draw)
-    x = 2.0 * torch.randn((n, 4), generator=gen, device=device)
+    x = 2.0 * torch.randn((n, arch.dims), generator=gen, device=device)
     if device.type == "cuda" and not FC.should_fuse(arch, x):
         raise AssertionError("the coupling kernel refuses the flow")
     z_k, ld_k = FC.coupling_kernel_apply(arch, "forward", params, x)
-    z_p, ld_p = arch.forward_plain(params, x)
-    z_e, ld_e = arch.forward_plain(params64, x.double())
+    z_p, ld_p = in_chunks(arch.forward_plain, params, x)
+    z_e, ld_e = in_chunks(arch.forward_plain, params64, x.double())
     x_k, li_k = FC.coupling_kernel_apply(arch, "inverse", params, z_p)
-    x_p, li_p = arch.inverse_plain(params, z_p)
-    x_e, li_e = arch.inverse_plain(params64, z_p.double())
+    x_p, li_p = in_chunks(arch.inverse_plain, params, z_p)
+    x_e, li_e = in_chunks(arch.inverse_plain, params64, z_p.double())
     return {"arch": arch, "params": params, "x": x, "z": z_p, "outputs": {
         "density z": (z_k, z_p, z_e), "density log_det": (ld_k, ld_p, ld_e),
         "sampling x": (x_k, x_p, x_e), "sampling log_det": (li_k, li_p, li_e),
@@ -377,6 +422,32 @@ def check_coupling(device, n: int) -> dict:
     """``check_coupling_flow`` of every flow of ``coupling_flows``."""
     return {name: check_coupling_flow(device, name, n)
             for name in coupling_flows()}
+
+
+def error_sums(kern, plain, exact, sums: dict, what: str) -> None:
+    """Add the kernel's and the plain float32 path's errors against the
+    float64 result to ``sums[what]``: sums of squares, sums, count."""
+    import torch
+
+    d_k, d_p = kern.double() - exact, plain.double() - exact
+    acc = sums.setdefault(what, torch.zeros(5, dtype=torch.float64,
+                                            device=exact.device))
+    acc += torch.stack([d_k.square().sum(), d_p.square().sum(), d_k.sum(),
+                        d_p.sum(), torch.tensor(float(exact.numel()),
+                                                device=exact.device)])
+
+
+def error_summary(sums: dict) -> dict:
+    """Per output: root mean square and mean of the kernel's and the plain
+    path's errors against float64 (a one-sided rounding shows as a mean
+    far from 0 beside the plain path's)."""
+    out = {}
+    for what, acc in sums.items():
+        ssk, ssp, sk, sp, m = acc.tolist()
+        out[what] = {"rms_kernel": math.sqrt(ssk / m),
+                     "rms_plain": math.sqrt(ssp / m),
+                     "mean_kernel": sk / m, "mean_plain": sp / m}
+    return out
 
 
 def coupling_accuracy(device, n: int, draws: int) -> dict:
@@ -410,31 +481,21 @@ def coupling_accuracy(device, n: int, draws: int) -> dict:
                     margin = max(margin, float((e_k / (2 * e_p + tol)).max()))
                 if what.startswith("round trip"):
                     continue
-                d_k, d_p = k.double() - e, p.double() - e
-                plain_beyond += int((d_p.abs() > COUPLING_TOL["atol"]
+                plain_beyond += int(((p.double() - e).abs()
+                                     > COUPLING_TOL["atol"]
                                      + COUPLING_TOL["rtol"] * e.abs()).sum())
-                acc = sums.setdefault(what, torch.zeros(5, dtype=torch.float64,
-                                                        device=device))
-                acc += torch.stack([d_k.square().sum(), d_p.square().sum(),
-                                    d_k.sum(), d_p.sum(),
-                                    torch.tensor(float(e.numel()),
-                                                 device=device)])
+                error_sums(k, p, e, sums, what)
             if not ok:
                 missed.append(draw)
         r = torch.cat(ratios)
         q = ([float(v) for v in torch.quantile(
             r, torch.tensor([0.5, 0.9, 1.0], dtype=r.dtype, device=device))]
             if r.numel() else [])
-        errors = {}
-        for what, (ssk, ssp, sk, sp, m) in ((w, a.tolist())
-                                            for w, a in sums.items()):
-            errors[what] = {"rms_kernel": math.sqrt(ssk / m),
-                            "rms_plain": math.sqrt(ssp / m),
-                            "mean_kernel": sk / m, "mean_plain": sp / m}
         out[name] = {"draws": draws, "missed": missed,
                      "flagged_points": int(r.numel()),
                      "ratio_q50_q90_max": q, "worst_share_of_limit": margin,
-                     "plain_beyond_tol": plain_beyond, "errors": errors}
+                     "plain_beyond_tol": plain_beyond,
+                     "errors": error_summary(sums)}
     return out
 
 
@@ -722,6 +783,36 @@ def chain_setup(device, n: int, steps: int):
     return cfg, params, z0, 0.7, step0, refs, target, dt, gen
 
 
+def hierarchical_chain_setup(device, n: int, steps: int, n_layers: int = 6):
+    """``chain_setup`` on BASELINE config 5: the hierarchical target at
+    d = 32, its flow shape perturbed by 0.05, start points from the
+    problem's initial draws (seed 3), their Gaussian reference and affine
+    data transform, tpCN at nu = 5 (nu + d = 37: gamma_m 18, gamma_odd 1),
+    beta 0.7, initial step 0.5."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch.models import HierarchicalProblem
+    from aspire_tpu_torch.ops import fused_mutation as FM
+    from aspire_tpu_torch.samplers import kernels as K
+
+    problem = HierarchicalProblem(32)
+    arch, params = perturbed_flow(device, 12, hierarchical_flow(n_layers),
+                                  0.05)
+    cfg = FM.ChainConfig(arch, "tpcn", steps, nu=5.0, gamma_m=18,
+                         gamma_odd=1)
+    z0 = torch.as_tensor(problem.draw_initial_samples(
+        np.random.default_rng(3), n), dtype=torch.float32, device=device)
+    ref = K.fit_gaussian_reference(z0)
+    dt = (z0.mean(dim=0), z0.std(dim=0))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    step0 = torch.full((n // FM.TILE,), 0.5, device=device)
+    refs = (ref.mean, ref.chol, ref.inv_chol)
+    return (cfg, params, z0, 0.7, step0, refs,
+            problem.kernel_target(device), dt, gen)
+
+
 def nudge_accept_uniforms(noise, acc) -> None:
     """Keep every accept uniform (the last row of ``noise``) a relative
     1e-3 away from its acceptance probability ``acc`` (the plain chain's
@@ -751,19 +842,24 @@ def assert_chain_close(kern, plain) -> float:
         torch.testing.assert_close(kern[i], plain[i], rtol=0,
                                    atol=DENSITY_ATOL)
     torch.testing.assert_close(kern[5], plain[5], rtol=STEP_RTOL, atol=0)
-    tau_k, mix_k = FM.combine_tile_stats(kern[6], 4)
-    tau_p, mix_p = FM.combine_tile_stats(plain[6], 4)
+    d = kern[0].shape[1]
+    tau_k, mix_k = FM.combine_tile_stats(kern[6], d)
+    tau_p, mix_p = FM.combine_tile_stats(plain[6], d)
     torch.testing.assert_close(tau_k, tau_p, rtol=STATS_RTOL, atol=0)
     torch.testing.assert_close(mix_k, mix_p, rtol=STATS_RTOL, atol=0)
     return max(max_err(kern[i], plain[i]) for i in range(4))
 
 
-def phase_chain(device, n: int, steps: int) -> dict:
+def phase_chain(device, n: int, steps: int, setup=chain_setup) -> dict:
+    """B2 against the plain chain on ``setup``'s chain (``chain_setup``:
+    nsf-tpu on the mixture; ``hierarchical_chain_setup``: config 5):
+    injected noise, the in-kernel Philox stream against its replay, and
+    Philox against independent noise."""
     import torch
 
     from aspire_tpu_torch.ops import fused_mutation as FM
 
-    cfg, params, z0, beta, step0, refs, target, dt, gen = chain_setup(
+    cfg, params, z0, beta, step0, refs, target, dt, gen = setup(
         device, n, steps)
     noise = torch.rand((steps, cfg.noise_rows, n), generator=gen,
                        device=device).clamp(1e-4, 1 - 1e-4)
@@ -799,7 +895,7 @@ def phase_chain(device, n: int, steps: int) -> dict:
     acc_tol = 6 * math.sqrt(2 * 0.25 / (n * steps)) + 0.01
     if abs(acc_k - acc_p) > acc_tol:
         raise AssertionError(f"acceptance {acc_k} vs {acc_p} > {acc_tol}")
-    for j in range(4):
+    for j in range(z0.shape[1]):
         zk, zp = philox[0][:, j], indep[0][:, j]
         var = float(0.5 * (zk.var() + zp.var()))
         d_mean = abs(float(zk.mean() - zp.mean()))
@@ -887,6 +983,47 @@ def chain_ab(parent: str) -> dict:
         for name in ("parent", "change")}}
 
 
+# One turn of maf_ab, run by a process of its own from the root of the
+# checkout timed: that checkout's B4 through its launch_maf on phase_maf's
+# flow and inputs, by events and then alone.
+MAF_AB_TURN = """
+import json, torch
+import chip_smoke as cs
+from aspire_tpu_torch.flows.architectures import maf_rqs
+from aspire_tpu_torch.ops import fused_coupling as FC
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+arch, params = cs.perturbed_flow(dev, seed=4, arch=maf_rqs(4))
+w = FC.prepare_maf_params(arch, params)
+gen = torch.Generator(device=dev)
+gen.manual_seed(5)
+out, runs = {{}}, []
+for n in ({n}, {n_small}):
+    x = 2.0 * torch.randn((n, 4), generator=gen, device=dev)
+    def run(x=x):
+        return FC.launch_maf(arch, w, x)
+    out[f"ms_n{{n}}"] = cs.cuda_ms(run)
+    out[f"ms_single_call_n{{n}}"] = cs.cuda_ms_single(run)
+    runs.append((n, run))
+for n, run in runs:
+    out[f"kernel_ms_n{{n}}"] = cs.kernel_ms(run, "maf_kernel")
+print(json.dumps(out))
+"""
+
+
+def maf_ab(parent: str) -> dict:
+    """B4 of the checkout at ``parent`` against this one's, at
+    n = N_COUPLING and N_CHAIN, in turns (parent, change, change, parent),
+    each turn a process of its own as in ``chain_ab``."""
+    turns = ab_turns(parent, MAF_AB_TURN.format(n=N_COUPLING,
+                                                n_small=N_CHAIN), "maf")
+    keys = [k for k in turns[0] if k != "checkout"]
+    return {"turns": turns, **{
+        name: {key: sum(t[key] for t in turns if t["checkout"] == name) / 2
+               for key in keys}
+        for name in ("parent", "change")}}
+
+
 def coupling_turn(n: int, draws: int) -> dict:
     """One turn of ``coupling_ab``, in the checkout whose
     ``aspire_tpu_torch`` the process imports: B1 and B3 of every flow of
@@ -955,6 +1092,75 @@ def coupling_ab(parent: str, draws: int = 20) -> dict:
                "accuracy": next(t["accuracy"] for t in turns
                                 if t["checkout"] == name)}
         for name in ("parent", "change")}}
+
+
+def chain_accuracy(device, draws: int = 20, n: int = N_CHAIN,
+                   steps: int = CHAIN_STEPS, setup=chain_setup) -> dict:
+    """B2's flow density against float64, read over ``draws`` Philox
+    seeds of ``setup``'s chain: at each chain's final points, the
+    kernel's lq (its flow pass at those points, in its arithmetic) and
+    the plain float32 lq, each against the float64 lq."""
+    import torch
+
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    cfg, params, z0, beta, step0, refs, target, dt, _ = setup(device, n,
+                                                              steps)
+    arch, d = cfg.arch, z0.shape[1]
+    params64 = as_float64(params)
+
+    def lq(p, x):
+        xf = (x - dt[0].to(x)) / dt[1].to(x)
+        z, ld = arch.forward_plain(p, xf)
+        return (-0.5 * torch.sum(z * z, dim=-1) - d * 0.5 * math.log(
+            2 * math.pi) + ld - torch.sum(torch.log(torch.abs(dt[1].to(x)))))
+
+    sums = {}
+    for draw in range(1, draws + 1):
+        z, lq_k = FM.fused_mh_chain(cfg, params, z0, beta, (draw, 7), step0,
+                                    *refs, target, data_transform=dt)[:2]
+        error_sums(lq_k, lq(params, z), lq(params64, z.double()), sums,
+                   "lq")
+    return {"draws": draws, "n": n, "errors": error_summary(sums)}
+
+
+def maf_accuracy(device, draws: int = 20, n: int = N_COUPLING) -> dict:
+    """B4 against float64 over ``draws`` input draws of ``phase_maf``'s
+    flow: rms and mean errors of z and log det, kernel and plain float32,
+    and the draws the card rule misses."""
+    import torch
+
+    from aspire_tpu_torch.flows.architectures import maf_rqs
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    arch, params = perturbed_flow(device, seed=4, arch=maf_rqs(4))
+    params64 = as_float64(params)
+    sums, missed = {}, []
+    for draw in range(1, draws + 1):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(draw)
+        x = 2.0 * torch.randn((n, 4), generator=gen, device=device)
+        outs = zip(("z", "log_det"), FC.maf_kernel_apply(arch, params, x),
+                   arch.forward_plain(params, x),
+                   arch.forward_plain(params64, x.double()))
+        ok = True
+        for what, k, p, e in outs:
+            error_sums(k, p, e, sums, what)
+            ok = ok and rule_holds(*rule_points(k, p, e), p.numel())
+        if not ok:
+            missed.append(draw)
+    return {"draws": draws, "n": n, "missed": missed,
+            "errors": error_summary(sums)}
+
+
+def accumulation() -> dict:
+    """``chain_accuracy`` and ``maf_accuracy``: B2 and B4 read against
+    float64 over 20 draws each (their split products' accumulation)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    return {"chain": chain_accuracy(dev), "maf": maf_accuracy(dev)}
 
 
 def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
@@ -1111,6 +1317,243 @@ def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
             "n_mutations": len(routes)}
 
 
+def hierarchical_truth() -> dict:
+    """log Z of config 5's target by quadrature (theta integrates out):
+    the problem's trapezoid grid in numpy, and scipy's dblquad."""
+    import numpy as np
+    from scipy import integrate
+
+    from aspire_tpu_torch.models import HierarchicalProblem
+
+    p = HierarchicalProblem(32)
+    grid = p.log_evidence_quadrature()
+    y = np.asarray(p.y_obs)
+
+    def density(s, m):
+        var = 1.0 + math.exp(2.0 * s)
+        log_f = (-0.5 * float(np.sum((y - m) ** 2)) / var
+                 - 0.5 * y.size * math.log(2 * math.pi * var)
+                 - 0.5 * m * m / 25.0 - 0.5 * math.log(2 * math.pi * 25.0)
+                 - 0.5 * s * s - 0.5 * math.log(2 * math.pi))
+        return math.exp(log_f - grid)
+
+    value, _ = integrate.dblquad(density, -15.0, 15.0, -10.0, 10.0,
+                                 epsabs=1e-12, epsrel=1e-10)
+    return {"grid": grid, "dblquad": grid + math.log(value)}
+
+
+def coupling_times(arch, params, x, z, out: dict, key: str = "",
+                   reps: int = 20) -> None:
+    """B1 and B3 of ``arch`` on x (density) and z (sampling), weights
+    packed once, into ``out``: events and single calls (at config 5's
+    milliseconds a call, host work is no part of either)."""
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    w = FC.prepare_mma_params(arch, params)
+    for mode, prefix, inp in (("forward", "", x), ("inverse", "inverse_", z)):
+        def run(mode=mode, inp=inp):
+            return FC.launch_packed(arch, mode, w, inp)
+
+        out[prefix + "ms" + key] = cuda_ms(run, reps)
+        out[prefix + "ms_single_call" + key] = cuda_ms_single(run, reps)
+
+
+def chain_bound(arch, n: int, steps: int) -> dict:
+    """B2's bound for one ``steps``-step chain of n particles: one flow
+    density per step and one for the start (the first conditioner layer
+    on the FP32 pipe, the two wide ones on the tensor cores in split
+    TF32); z0 read, z and four per-particle outputs written, the packed
+    weights read once."""
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    first, wide = ((steps + 1) * n * f for f in coupling_flop_parts(arch))
+    return bound(first, n * (2 * arch.dims + 4) * 4
+                 + 4 * arch.n_layers * FM.chain_layout(arch)[0],
+                 tensor_flop=wide)
+
+
+def phase_hierarchical(device) -> dict:
+    """BASELINE config 5 (benchmarks/hierarchical.py) at its full width:
+    the d = 32 hierarchical posterior, nsf 6 x (128, 128), 8 bins.
+
+    1. B1 and B3 at the config's flow shape against the plain pass (float64
+       deciding the points where they disagree), at N_HIER_CHECK and N_HIER;
+       B2 on the hierarchical target against the plain chain (injected
+       noise, Philox replay, independent noise) at 8192 x HIER_STEPS.
+    2. The pipeline, launch counts from 0: fit on 32,768 draws (20 epochs,
+       batch 1024), importance sampling on 262,144 draws, SMC on N_HIER
+       particles with HIER_STEPS-step tpCN mutations: every mutation on
+       B2 (one launch per temperature), the initial and importance draws on
+       B3.
+    3. Route agreement at N_HIER_ROUTES: the whole-chain route and the
+       split chain (fused_chain=False, every density pass on B1: at least
+       HIER_STEPS + 2 launches per mutation) agree on log Z within
+       max(5 combined sigma, 0.15).
+    4. Printed beside the run's log Z, not asserted: the quadrature truth
+       and the reference's TPU record (the reference's SMC sits below the
+       truth; PERF.md section 7).
+    Then the kernels' times at the config's n (plain torch at
+    N_HIER_ROUTES).
+    """
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import HierarchicalProblem
+    from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    out = {"truth": hierarchical_truth()}
+    log(f"config 5 quadrature log Z: {out['truth']}")
+
+    # 1. The kernels at the config's shape.
+    flow = (hierarchical_flow(), 12, 0.05)
+    checks = {}
+    for n in (N_HIER_CHECK, N_HIER):
+        c = coupling_outputs(device, flow, n, 1)
+        bad = {what: assert_kernel_close(*v, f"config 5 {what}, n={n}")
+               for what, v in c["outputs"].items()}
+        err = max(max_err(k, p) for what, (k, p, _) in c["outputs"].items()
+                  if not what.startswith("round trip"))
+        checks[n] = {"max_abs_err": err, "ill_conditioned_points": bad}
+        log(f"config 5 coupling kernel vs plain at n={n}: {checks[n]}")
+    out["coupling_checks"] = checks
+    out["chain_check"] = phase_chain(device, N_CHAIN, HIER_STEPS,
+                                     setup=hierarchical_chain_setup)
+
+    # 2. The pipeline.
+    problem = HierarchicalProblem(32)
+    initial = Samples(problem.draw_initial_samples(np.random.default_rng(7),
+                                                   N_HIER_TRAIN))
+    asp = Aspire(log_likelihood=problem.log_likelihood,
+                 log_prior=problem.log_prior, dims=32, flow_backend="nsf",
+                 n_layers=6, n_hidden=(128, 128), seed=3, device=device)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    asp.fit(initial, n_epochs=20, batch_size=1024)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    arch = asp.flow.architecture
+    if FC.config_id(arch) != 2 or arch.n_layers != 6:
+        raise AssertionError(f"config 5's flow is not configuration 2: {arch}")
+    t0 = time.perf_counter()
+    is_post = asp.sample_posterior(sampler="importance",
+                                   n_samples=N_HIER_IMPORTANCE)
+    torch.cuda.synchronize()
+    importance_s = time.perf_counter() - t0
+    is_launches = FC.launches.count
+    t0 = time.perf_counter()
+    post, hist = asp.sample_posterior(
+        sampler="smc", n_samples=N_HIER,
+        sampler_kwargs=dict(n_steps=HIER_STEPS), store_sample_history=False,
+        return_history=True)
+    torch.cuda.synchronize()
+    smc_s = time.perf_counter() - t0
+    launches = {"coupling": FC.launches.count, "chain": FM.launches.count,
+                "maf": FC.maf_launches.count,
+                "coupling_importance": is_launches}
+    routes = hist.mutation_route
+    log(f"config 5 pipeline: fit {fit_s:.2f} s, importance "
+        f"{importance_s:.2f} s, SMC {smc_s:.2f} s, "
+        f"{len(hist.beta)} temperatures, routes {set(routes)}, launches "
+        f"{launches}; log Z {post.log_evidence:.4f} +/- "
+        f"{post.log_evidence_error:.4f}, importance "
+        f"{float(is_post.log_evidence):.4f} +/- "
+        f"{float(is_post.log_evidence_error):.4f}")
+    on_card = device.type == "cuda"
+    if set(routes) != {"fused_kernel"} or len(routes) != len(hist.beta) or (
+            on_card and launches["chain"] != len(routes)):
+        raise AssertionError(f"config 5 mutations left B2: {routes}, "
+                             f"{launches}, {len(hist.beta)} temperatures")
+    # The importance draws, then SMC's initial draws: B3 each time.
+    if on_card and (is_launches < 1 or launches["coupling"] < 2):
+        raise AssertionError(f"config 5 draws left B3: {launches}")
+    for samples, n in ((post, N_HIER), (is_post, N_HIER_IMPORTANCE)):
+        if tuple(samples.x.shape) != (n, 32) or not bool(
+                torch.isfinite(samples.x).all()):
+            raise AssertionError("config 5 samples are not finite (n, 32)")
+    if not (math.isfinite(post.log_evidence)
+            and math.isfinite(post.log_evidence_error)):
+        raise AssertionError("config 5 log Z is not finite")
+
+    # 3. Route agreement.
+    routes_out = {}
+    for route, kw in (("fused_kernel", {}), ("split", {"fused_chain": False})):
+        reset_launch_counts()
+        r, h = asp.sample_posterior(
+            sampler="smc", n_samples=N_HIER_ROUTES,
+            sampler_kwargs=dict(n_steps=HIER_STEPS, **kw),
+            store_sample_history=False, return_history=True)
+        n_mut = len(h.mutation_route)
+        counts = {"coupling": FC.launches.count, "chain": FM.launches.count}
+        routes_out[route] = {"log_z": r.log_evidence,
+                             "log_z_err": r.log_evidence_error,
+                             "n_mutations": n_mut, "launches": counts}
+        log(f"config 5 at n={N_HIER_ROUTES}, {route}: {routes_out[route]}")
+        if set(h.mutation_route) != {route}:
+            raise AssertionError(f"{route} run took {h.mutation_route}")
+        if on_card and route == "split" and (
+                counts["chain"] or counts["coupling"]
+                < (HIER_STEPS + 2) * n_mut):
+            raise AssertionError(
+                f"the split chain's density passes left B1: {counts}, need "
+                f">= {(HIER_STEPS + 2) * n_mut}")
+        if on_card and route == "fused_kernel" and counts["chain"] != n_mut:
+            raise AssertionError(f"fused run: {counts}, {n_mut} mutations")
+    a, b = routes_out["fused_kernel"], routes_out["split"]
+    tol = max(5 * math.hypot(a["log_z_err"], b["log_z_err"]), 0.15)
+    if abs(a["log_z"] - b["log_z"]) >= tol:
+        raise AssertionError(f"routes disagree on log Z: {a} vs {b}")
+    out.update({
+        "fit_s": fit_s, "importance_s": importance_s, "smc_wall_s": smc_s,
+        "n_temperatures": len(hist.beta),
+        "log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
+        "log_z_importance": float(is_post.log_evidence),
+        "log_z_importance_err": float(is_post.log_evidence_error),
+        "launches": launches, "routes": routes_out,
+        "routes_tolerance": tol,
+        "mutation_particle_steps_per_s":
+            N_HIER * HIER_STEPS * len(routes) / smc_s})
+
+    if not on_card:
+        return out
+    # Times at the config's n; plain torch at N_HIER_ROUTES.
+    arch, params = perturbed_flow(device, 12, hierarchical_flow(), 0.05)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    times = {}
+    for n, key, reps in ((N_HIER, "", 5), (N_HIER_ROUTES, "_n131072", 20)):
+        x = 2.0 * torch.randn((n, 32), generator=gen, device=device)
+        z = in_chunks(arch.forward_plain, params, x)[0]
+        coupling_times(arch, params, x, z, times, key, reps)
+        if n == N_HIER_ROUTES:
+            times["plain_ms"] = cuda_ms(
+                lambda: arch.forward_plain(params, x), 3)
+            times["inverse_plain_ms"] = cuda_ms(
+                lambda: arch.inverse_plain(params, z), 3)
+    out["coupling_times"] = times
+    chain = {}
+    for n, key, reps in ((N_HIER, "", 2), (N_HIER_ROUTES, "_n131072", 5)):
+        cfg, cparams, z0, beta, step0, refs, target, dt, _ = (
+            hierarchical_chain_setup(device, n, HIER_STEPS))
+
+        def kernel(cfg=cfg, cparams=cparams, z0=z0, step0=step0, refs=refs,
+                   target=target, dt=dt):
+            return FM.fused_mh_chain(cfg, cparams, z0, 0.7, (1, 2), step0,
+                                     *refs, target, data_transform=dt)
+
+        chain["ms" + key] = cuda_ms(kernel, reps)
+        chain["ms_single_call" + key] = cuda_ms_single(kernel, reps)
+        if n == N_HIER_ROUTES:
+            chain["plain_ms"] = cuda_ms(lambda: FM.chain_plain(
+                cfg, cparams, z0, 0.7, step0, *refs, target,
+                data_transform=dt, seed=(1, 2)), 1)
+    out["chain_times"] = chain
+    log(f"config 5 kernel times: {times}, chain {chain}")
+    return out
+
+
 def check_result(samples, n: int, truth: float) -> None:
     import torch
 
@@ -1178,6 +1621,7 @@ def main() -> int:
 
     main_path = phase_main_path(device, N_CHAIN, N_PIPELINE)
     maf_path = phase_maf_main_path(device, N_CHAIN, N_PIPELINE)
+    hier = phase_hierarchical(device)
     coupling = phase_coupling(device, N_COUPLING)
     chain = phase_chain(device, N_CHAIN, CHAIN_STEPS)
     maf = phase_maf(device, N_COUPLING)
@@ -1226,15 +1670,7 @@ def main() -> int:
     from aspire_tpu_torch.ops import fused_mutation as FM
 
     nsf4, maf4 = nsf_tpu(4), maf_rqs(4)
-    # B2: one flow density per step and one for the start, z0 read, z and
-    # four per-particle outputs written, the packed weights read once; the
-    # conditioner's first layer on the FP32 pipe, its two wide ones on the
-    # tensor cores in split TF32.
-    b2_first, b2_wide = ((CHAIN_STEPS + 1) * N_PIPELINE * f
-                         for f in coupling_flop_parts(nsf4))
-    b2_bound = bound(
-        b2_first, N_PIPELINE * (2 * 4 + 4) * 4
-        + 4 * nsf4.n_layers * FM.chain_layout(nsf4)[0], tensor_flop=b2_wide)
+    b2_bound = chain_bound(nsf4, N_PIPELINE, CHAIN_STEPS)
     print(f"[{card}] chain kernel, n={N_PIPELINE}, {CHAIN_STEPS} steps: "
           f"{chain_t['ms']:.4f} ms, the kernel alone "
           f"{chain_t['kernel_ms']:.4f} ms (plain torch "
@@ -1266,6 +1702,46 @@ def main() -> int:
           f"{uniforms['library_kernel_ms']:.4f} ms; bound "
           f"{uniforms['bound_ms']:.4f} ms); probe (8, 256) seed "
           f"{PROBE_SEED}: {uniforms['probe']}", flush=True)
+    wide = hierarchical_flow()
+    ht, hc = hier["coupling_times"], hier["chain_times"]
+    hb1 = coupling_bound(wide, N_HIER)
+    hb2 = chain_bound(wide, N_HIER, HIER_STEPS)
+    hier_err = max(v["max_abs_err"] for v in hier["coupling_checks"].values())
+    print(f"[{card}] BASELINE config 5 (d=32 hierarchical, nsf 6 x (128, "
+          f"128), 8 bins), n={N_HIER}, {HIER_STEPS}-step tpCN: SMC log Z "
+          f"{hier['log_z']:.4f} +/- {hier['log_z_err']:.4f} in "
+          f"{hier['n_temperatures']} temperatures; importance (262144) "
+          f"{hier['log_z_importance']:.4f} +/- "
+          f"{hier['log_z_importance_err']:.4f}; fit_s {hier['fit_s']:.2f}, "
+          f"importance_s {hier['importance_s']:.2f}, smc_wall_s "
+          f"{hier['smc_wall_s']:.2f}; quadrature truth "
+          f"{hier['truth']['grid']:.4f} (dblquad "
+          f"{hier['truth']['dblquad']:.5f}); reference TPU record "
+          f"{HIER_TPU_RECORD[0]} +/- {HIER_TPU_RECORD[1]}", flush=True)
+    r = hier["routes"]
+    print(f"[{card}] config 5 routes at n={N_HIER_ROUTES}: whole chain "
+          f"{r['fused_kernel']['log_z']:.4f} +/- "
+          f"{r['fused_kernel']['log_z_err']:.4f}, split "
+          f"{r['split']['log_z']:.4f} +/- {r['split']['log_z_err']:.4f} "
+          f"(tolerance {hier['routes_tolerance']:.4f}); "
+          f"{r['split']['launches']['coupling']} B1 launches in "
+          f"{r['split']['n_mutations']} split mutations")
+    print(f"[{card}] config 5 kernels, n={N_HIER}: B1 {ht['ms']:.4f} ms "
+          f"events; B3 {ht['inverse_ms']:.4f} ms events (bound "
+          f"{hb1['bound_ms']:.4f}); B2 {hc['ms']:.4f} ms events (bound "
+          f"{hb2['bound_ms']:.4f}); at n={N_HIER_ROUTES}: B1 "
+          f"{ht['ms_n131072']:.4f} ms vs plain torch {ht['plain_ms']:.4f}, "
+          f"B2 {hc['ms_n131072']:.4f} vs plain torch {hc['plain_ms']:.4f}",
+          flush=True)
+
+    def hier_row(name, prefix, launches, b):
+        return {"name": name, "route": "cuda",
+                "config": "BASELINE config 5: d=32, nsf 6 x (128, 128), 8 "
+                          "bins", "launches": launches,
+                **{k: ht[prefix + k] for k in (
+                    "ms", "ms_single_call", "plain_ms", "ms_n131072")},
+                **b, "library_ms": None}
+
     kernels = [
         {"name": "coupling_kernel (B1 density / B3 sampling)",
          "route": "cuda", "source": "aspire_tpu_torch/csrc/coupling.cu",
@@ -1350,6 +1826,28 @@ def main() -> int:
          "library_ms_single_call": uniforms["library_ms_single_call"],
          "library_kernel_ms": uniforms["library_kernel_ms"],
          "turns_ms": uniforms["turns_ms"]},
+        {**hier_row("coupling_kernel B1, config 5", "",
+                    r["split"]["launches"]["coupling"], hb1),
+         "source": "aspire_tpu_torch/csrc/coupling.cu",
+         "replaces": "aspire_tpu/ops/fused_coupling.py:445",
+         "launches_run": "split route at n=131072",
+         "max_abs_err": hier_err},
+        {**hier_row("coupling_kernel B3, config 5", "inverse_",
+                    hier["launches"]["coupling"], hb1),
+         "source": "aspire_tpu_torch/csrc/coupling.cu",
+         "replaces": "aspire_tpu/ops/fused_coupling.py:445",
+         "launches_run": "config 5 pipeline", "max_abs_err": hier_err},
+        {"name": "chain_kernel B2, config 5", "route": "cuda",
+         "config": "BASELINE config 5: d=32, nsf 6 x (128, 128), 8 bins, "
+                   "hierarchical target, 32 steps",
+         "source": "aspire_tpu_torch/csrc/chain.cu",
+         "replaces": "aspire_tpu/ops/fused_mutation.py:1038",
+         "launches": hier["launches"]["chain"],
+         "launches_run": "config 5 pipeline",
+         "max_abs_err": hier["chain_check"]["max_abs_err"],
+         **{k: hc[k] for k in ("ms", "ms_single_call", "plain_ms",
+                               "ms_n131072")},
+         **hb2, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1362,6 +1860,14 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--chain-ab":
         print(card_line(), flush=True)
         print(json.dumps({"chain_ab": chain_ab(sys.argv[2])}), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--maf-ab":
+        print(card_line(), flush=True)
+        print(json.dumps({"maf_ab": maf_ab(sys.argv[2])}), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--accumulation":
+        print(card_line(), flush=True)
+        print(json.dumps({"accumulation": accumulation()}), flush=True)
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--coupling-ab":
         print(card_line(), flush=True)

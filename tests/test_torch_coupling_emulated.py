@@ -43,7 +43,8 @@ HARNESS = r"""
 #include <thread>
 #include "coupling_emulated.cpp"
 namespace aspire { float4 coupling_smem4[232448 / 16]; }
-template <bool RQS, bool DENSITY>
+// Configuration CFG of ASPIRE_COUPLING_CONFIGS, one block after another.
+template <int CFG, bool DENSITY>
 void launch(const float* x, float* z, float* ld, const float* w, int n,
             int layers, int blocks) {
   for (int b = 0; b < blocks; ++b) {
@@ -58,8 +59,16 @@ void launch(const float* x, float* z, float* ld, const float* w, int n,
       pool.emplace_back([&, b, t] {
         threadIdx = {(unsigned)t, 0, 0};
         blockIdx = {(unsigned)b, 0, 0};
-        aspire::coupling_kernel<4, 64, 64, RQS ? 8 : 1, RQS, DENSITY>(
-            x, z, ld, w, n, layers, 5.0f);
+        if constexpr (CFG == 0) {
+          aspire::coupling_kernel<4, 64, 64, 8, true, DENSITY>(
+              x, z, ld, w, n, layers, 5.0f);
+        } else if constexpr (CFG == 1) {
+          aspire::coupling_kernel<4, 64, 64, 1, false, DENSITY>(
+              x, z, ld, w, n, layers, 5.0f);
+        } else {
+          aspire::coupling_kernel_wide<32, 128, 128, 8, true, DENSITY>(
+              x, z, ld, w, n, layers, 5.0f);
+        }
       });
     }
     for (auto& t : pool) t.join();
@@ -67,7 +76,7 @@ void launch(const float* x, float* z, float* ld, const float* w, int n,
 }
 int main(int argc, char** argv) {
   if (argc == 2) {  // the layout table of each configuration
-    for (int cfg = 0; cfg < 2; ++cfg) {
+    for (int cfg = 0; cfg < 3; ++cfg) {
       int v[16];
       const int count = aspire_coupling_layout(cfg, v, 16);
       for (int e = 0; e < count; ++e) printf("%d ", v[e]);
@@ -75,10 +84,10 @@ int main(int argc, char** argv) {
     }
     return 0;
   }
-  const int n = atoi(argv[1]), layers = atoi(argv[2]), rqs = atoi(argv[3]);
+  const int n = atoi(argv[1]), layers = atoi(argv[2]), cfg = atoi(argv[3]);
   const int density = atoi(argv[4]), warps = atoi(argv[5]);
-  const int floats = atoi(argv[6]);
-  std::vector<float> x(4 * n), w(floats), z(4 * n, -1.f), ld(n, -1.f);
+  const int floats = atoi(argv[6]), d = cfg == 2 ? 32 : 4;
+  std::vector<float> x(d * n), w(floats), z(d * n, -1.f), ld(n, -1.f);
   FILE* f = fopen(argv[7], "rb");
   if (fread(x.data(), 4, x.size(), f) != x.size()) return 2;
   if (fread(w.data(), 4, w.size(), f) != w.size()) return 3;
@@ -86,9 +95,13 @@ int main(int argc, char** argv) {
   blockDim = {(unsigned)(32 * warps), 1, 1};
   const int blocks = (n + 32 * warps - 1) / (32 * warps);
   gridDim = {(unsigned)blocks, 1, 1};
-  auto* run = rqs ? (density ? launch<true, true> : launch<true, false>)
-                  : (density ? launch<false, true> : launch<false, false>);
-  run(x.data(), z.data(), ld.data(), w.data(), n, layers, blocks);
+  using L = void (*)(const float*, float*, float*, const float*, int, int,
+                     int);
+  const L runs[3][2] = {{launch<0, false>, launch<0, true>},
+                        {launch<1, false>, launch<1, true>},
+                        {launch<2, false>, launch<2, true>}};
+  runs[cfg][density](x.data(), z.data(), ld.data(), w.data(), n, layers,
+                     blocks);
   f = fopen(argv[8], "wb");
   fwrite(z.data(), 4, z.size(), f);
   fwrite(ld.data(), 4, ld.size(), f);
@@ -117,17 +130,17 @@ def harness(tmp_path_factory):
 
 def _run(harness, arch, mode: str, packed, x, warps: int):
     """The emulated kernel on x: (y, log_det)."""
-    n = x.shape[0]
+    n, d = x.shape
     root = harness.parent
-    tag = f"{arch.transformer}{arch.n_layers}_{mode}_{n}"
+    tag = f"{arch.transformer}{d}_{arch.n_layers}_{mode}_{n}"
     inp, out = root / f"in_{tag}.bin", root / f"out_{tag}.bin"
     np.concatenate([x.numpy().ravel(), packed.numpy()]).astype(
         np.float32).tofile(inp)
-    args = [n, arch.n_layers, int(arch.transformer == "rqs"),
-            int(mode == "forward"), warps, packed.numel(), inp, out]
+    args = [n, arch.n_layers, FC.config_id(arch), int(mode == "forward"),
+            warps, packed.numel(), inp, out]
     subprocess.run([str(harness), *map(str, args)], check=True, timeout=600)
     res = torch.as_tensor(np.fromfile(out, dtype=np.float32))
-    return res[:4 * n].reshape(n, 4), res[4 * n:]
+    return res[:d * n].reshape(n, d), res[d * n:]
 
 
 def test_coupling_layout_table_matches_python(harness):
@@ -138,9 +151,12 @@ def test_coupling_layout_table_matches_python(harness):
     out = subprocess.run([str(harness), "layout"], check=True,
                          capture_output=True, text=True, timeout=60).stdout
     rows = [[int(v) for v in line.split()] for line in out.splitlines()]
+    wide = chip_smoke.hierarchical_flow()
     assert rows == [[*FC.mma_layout(nsf_tpu(4)), FC.COUPLING_WARPS],
-                    [*FC.mma_layout(realnvp(4)), FC.COUPLING_WARPS]]
+                    [*FC.mma_layout(realnvp(4)), FC.COUPLING_WARPS],
+                    [*FC.mma_layout(wide), FC.COUPLING_WARPS]]
     assert FC.config_id(nsf_tpu(4)) == 0 and FC.config_id(realnvp(4)) == 1
+    assert FC.config_id(wide) == 2 and FC.mma_wide(wide)
 
 
 @pytest.mark.parametrize("n,warps", [(512, 8), (512 + 37, 2)])
@@ -165,6 +181,35 @@ def test_coupling_kernel_source_matches_plain(harness, flow, mode, n, warps):
     chip_smoke.assert_kernel_close(y, y_p, y_e, f"emulated {flow} {mode} y")
     chip_smoke.assert_kernel_close(ld, ld_p, ld_e,
                                    f"emulated {flow} {mode} log_det")
+    y_r, ld_r = FC.coupling_packed_plain(arch, mode, packed, x)
+    torch.testing.assert_close(y, y_r, **chip_smoke.COUPLING_TOL)
+    torch.testing.assert_close(ld, ld_r, **chip_smoke.COUPLING_TOL)
+
+
+@pytest.mark.parametrize("n,warps", [(64, 2), (32 + 5, 1)])
+@pytest.mark.parametrize("mode", ["forward", "inverse"])
+def test_wide_coupling_kernel_source_matches_plain(harness, mode, n, warps):
+    """The wide form (BASELINE config 5's d = 32, (128, 128), 8-bin flow,
+    cut to 2 layers so the stand-in stays quick): its chunked weight
+    stream, row tiles, groups of active dims and per-lane transformers, in
+    both directions, on a full block of two warps and a ragged n, against
+    the plain pass (card tolerance, float64 arbitration) and the packed
+    reader."""
+    arch, params = chip_smoke.perturbed_flow(
+        torch.device("cpu"), 11, chip_smoke.hierarchical_flow(n_layers=2),
+        0.05)
+    x = torch.as_tensor(np.random.default_rng(n).normal(
+        size=(n, 32)).astype(np.float32))
+    if mode == "forward":
+        x = 2.0 * x
+    packed = FC.prepare_mma_params(arch, params)
+    y, ld = _run(harness, arch, mode, packed, x, warps)
+    plain = arch.forward_plain if mode == "forward" else arch.inverse_plain
+    y_p, ld_p = plain(params, x)
+    y_e, ld_e = plain(chip_smoke.as_float64(params), x.double())
+    chip_smoke.assert_kernel_close(y, y_p, y_e, f"emulated wide {mode} y")
+    chip_smoke.assert_kernel_close(ld, ld_p, ld_e,
+                                   f"emulated wide {mode} log_det")
     y_r, ld_r = FC.coupling_packed_plain(arch, mode, packed, x)
     torch.testing.assert_close(y, y_r, **chip_smoke.COUPLING_TOL)
     torch.testing.assert_close(ld, ld_r, **chip_smoke.COUPLING_TOL)

@@ -166,9 +166,9 @@ def _split_mlp(round_lo: bool, sums: str = "exact"):
     lo.hi + hi.lo + hi.hi exact. ``sums``: "exact" rounds their whole sum
     once to float32; the others model ``mma.sync``, which returns its
     8-wide k-step's exact sum plus the accumulator cut to float32: "in
-    place" sums every product into the running accumulator
-    (``mma_split_step<false>``), "k-step" sums a k-step's three from zero
-    and adds them to it in float32 (``mma_split_step<true>``)."""
+    place" sums every product into the running accumulator, "k-step" sums
+    a k-step's three from zero and adds them to it in float32
+    (``mma_split_step``)."""
     def cut(t):
         return (t.view(torch.int32) & -0x2000).view(torch.float32)
 
@@ -222,8 +222,8 @@ def test_rounded_lo_split_keeps_the_card_tolerance(monkeypatch):
 
 
 def test_kstep_sums_keep_the_card_tolerance(monkeypatch):
-    """Why the coupling kernel sums each k-step's split products from zero
-    (``mma_split_step<true>``): the tensor core cuts the sum it returns to
+    """Why the tensor-core kernels sum each k-step's split products from
+    zero (``mma_split_step``): the tensor core cuts the sum it returns to
     float32, an error of one sign. Summed into the running accumulator,
     every product costs it such a cut; on chip_smoke's nsf-tpu check flow
     and an 8192-point draw the density pass then misses the card rule;

@@ -80,3 +80,20 @@ def test_chain_philox_bit_exact_after_move(cuda):
     still equals the injected torch stream bit for bit (phase_chain
     raises otherwise) at the pipeline's tile count."""
     chip_smoke.phase_chain(cuda, 8192, 3)
+
+
+def test_config5_coupling_kernel_matches_plain(cuda):
+    """B1 and B3 at BASELINE config 5's flow shape (d = 32, 6 x (128, 128),
+    8 bins: the wide form), both modes and the round trip at n = 16384."""
+    c = chip_smoke.coupling_outputs(
+        cuda, (chip_smoke.hierarchical_flow(), 12, 0.05), 16384, 1)
+    for what, v in c["outputs"].items():
+        chip_smoke.assert_kernel_close(*v, f"config 5 {what}")
+
+
+def test_config5_chain_kernel_matches_plain(cuda):
+    """B2 on the hierarchical target at config 5's flow shape: injected
+    noise, the Philox replay and independent noise, 2048 x 8 steps."""
+    out = chip_smoke.phase_chain(cuda, 2048, 8,
+                                 setup=chip_smoke.hierarchical_chain_setup)
+    assert abs(out["acceptance_kernel"] - out["acceptance_plain"]) < 0.1
