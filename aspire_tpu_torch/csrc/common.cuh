@@ -3,7 +3,8 @@
 // coupling.cu and the whole-chain kernel chain.cu through
 // coupling_mma.cuh, the MAF density kernel maf.cu, the tile-cooperative
 // coupling kernels staged_coupling.cu), the per-particle packed layout of
-// staged_coupling.cu, and Philox4x32-10 (chain.cu, prng.cu).
+// staged_coupling.cu's paired schedule (D3), and Philox4x32-10 (chain.cu,
+// prng.cu).
 //
 // Replaces the per-tile helpers of the TPU kernels in
 // aspire_tpu/ops/fused_coupling.py (_rqs_rows, _affine_rows). The TPU
@@ -11,9 +12,9 @@
 // MXU/VPU pipelining) is not carried over: the transformers are the plain
 // per-value formulas of aspire_tpu_torch/flows/bijectors.py.
 //
-// Per-particle packed weight layout of the staged coupling kernels (built
-// by ops/fused_coupling.py::prepare_params), per flow layer, every section
-// starting on a multiple of 4 floats:
+// Per-particle packed weight layout of the paired staged coupling kernel
+// (D3; built by ops/fused_coupling.py::prepare_params), per flow layer,
+// every section starting on a multiple of 4 floats:
 //   W1  (H1 x D)     W1[j*D + i]      = w0[i][j]
 //   b1  (H1)
 //   W2  (H2 x H1)    W2[k*H1 + j]     = w1[j][k]
@@ -212,13 +213,15 @@ __device__ __forceinline__ void load_shared(float4* dst,
 // Configurations of the tile-cooperative coupling density pass
 // (staged_coupling.cu): (id, D, H1, H2, K, Q, S, PAIRED, MICRO) with Q
 // sub-tiles of S particles per block. S is the largest multiple of 16 whose
-// Q * S * StagedBuffers::SIZE floats fit beside 4 layers' weights in one
-// block's shared memory; ops/staged_coupling.py::STAGED_CONFIGS mirrors
-// this list and ::sub_tile gives the same S.
-#define ASPIRE_STAGED_CONFIGS(X)          \
-  X(0, 4, 64, 64, 8, 2, 64, false, false) \
-  X(1, 4, 64, 64, 8, 3, 48, false, false) \
-  X(2, 4, 64, 64, 8, 4, 32, false, false) \
-  X(3, 4, 64, 64, 8, 8, 16, false, false) \
-  X(4, 4, 64, 64, 8, 2, 64, true, false)  \
+// Q sub-tile buffers fit beside 4 layers' weights in one block's shared
+// memory, in the variant's layout (StagedLayout); for D1/D2 (not PAIRED)
+// also with at most 512 threads (2QS) in the block, 128 registers each.
+// ops/staged_coupling.py::STAGED_CONFIGS mirrors this list and ::sub_tile
+// gives the same S.
+#define ASPIRE_STAGED_CONFIGS(X)           \
+  X(0, 4, 64, 64, 8, 2, 128, false, false) \
+  X(1, 4, 64, 64, 8, 3, 80, false, false)  \
+  X(2, 4, 64, 64, 8, 4, 64, false, false)  \
+  X(3, 4, 64, 64, 8, 8, 32, false, false)  \
+  X(4, 4, 64, 64, 8, 2, 64, true, false)   \
   X(5, 4, 64, 64, 8, 2, 64, true, true)

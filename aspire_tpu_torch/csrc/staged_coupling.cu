@@ -10,36 +10,49 @@
 //
 // The function is the density mode of coupling.cu. The form is the
 // prototypes': a block takes Q sub-tiles of S particles; a layer's
-// conditioner is a product W (out x in) . X (in x S) over a sub-tile held
-// in shared memory (h1, h2 and the spline parameters are [units][S]
-// arrays), then the spline runs per particle and active dim.
+// conditioner is a product over a sub-tile held in shared memory, then the
+// spline runs per particle and active dim, one thread per (active dim,
+// particle) pair.
 //
-// - D1/D2: sub-tile q is owned by its own group of 2S threads, which
-//   synchronises only among itself (named barrier 1 + q). The groups run
-//   their layers independently, so the warp schedulers interleave one
-//   group's FMA products with another's spline (SFU and branch work): the
-//   native form of the TPU's MXU/VPU overlap, with no lock-step stagger.
-// - D3 (PAIRED): two sub-tiles one layer apart in lock step. Per dense
-//   level one 128-row pass over the block (rows 0..63 sub-tile A with
-//   layer l's weights, rows 64..127 sub-tile B with layer l-1's) computes
-//   both sub-tiles' outputs; the TPU's block-diagonal zero blocks, a fill
-//   for its 128 x 128 matrix unit, are not stored.
+// - D1/D2 (staged_mma_kernel): sub-tile q is owned by its own group of 2S
+//   threads, which synchronises only among itself (named barrier 1 + q).
+//   The groups run their layers independently, so the warp schedulers
+//   interleave one group's tensor-core products with another's spline
+//   (SFU and branch work): the native form of the TPU's MXU/VPU overlap,
+//   with no lock-step stagger.
+// - D3 (PAIRED, paired_kernel): two sub-tiles one layer apart in lock
+//   step. Per dense level one 128-row pass over the block (rows 0..63
+//   sub-tile A with layer l's weights, rows 64..127 sub-tile B with layer
+//   l-1's) computes both sub-tiles' outputs; the TPU's block-diagonal zero
+//   blocks, a fill for its 128 x 128 matrix unit, are not stored.
 //
-// What bounds it on an H100: FP32 arithmetic. A 4-layer (64, 64) x 8-bin
-// flow costs 57,344 FLOP per particle against 36 bytes of input and
-// output, so device memory is idle and the FP32 pipes set the time (no
-// tensor cores in this simple design). What the design does about it:
-// every layer's weights stay in shared memory for the block's whole life
-// (a persistent grid of one block per SM walks over the tiles), each
-// thread keeps a register tile of RO outputs x 4 particles, so one float4
-// of activations and RO/2 or RO/4 vector loads of weights feed 4 * RO
-// FMAs, and only the active half's spline parameters are computed.
+// What bounds it on an H100: arithmetic. A 4-layer (64, 64) x 8-bin flow
+// costs 57,344 FLOP per particle against 36 bytes of input and output, so
+// device memory is idle. What the design does about it: every layer's
+// weights stay in shared memory for the block's whole life (a persistent
+// grid of one block per SM walks over the tiles), and
+// - D1/D2 run the conditioner's two wide products, h1 . W2 and h2 . W3
+//   (56,320 of those FLOP), on the tensor cores: each warp of a group owns
+//   one 16-row tile of its sub-tile and runs the split-TF32 mma.sync
+//   m16n8k8 pass of coupling_mma.cuh on it (each k-step's three products
+//   summed from zero, the tensor core's cut undone on average, then added
+//   in float32), h1 computed on FP32 FMAs straight into the A fragments
+//   and h2 kept in the accumulators, from the packed weights of the
+//   coupling kernel B1 (prepare_mma_params); only the transformer
+//   parameters go through shared memory, to the spline threads. With no
+//   hidden layer in shared memory, registers bound the sub-tile: a block
+//   takes up to 512 threads (S = 128, 80, 64, 32 at Q = 2, 3, 4, 8), 128
+//   registers each, 16 warps to hide the mma and spline latencies;
+// - D3 stays on the FP32 pipe: each thread keeps a register tile of RO
+//   outputs x 4 particles, so one float4 of activations and RO/2 or RO/4
+//   vector loads of weights feed 4 * RO FMAs, and only the active half's
+//   spline parameters are computed.
 
-#include "common.cuh"
+#include "coupling_mma.cuh"
 
 namespace aspire {
 
-// Per sub-tile shared buffers, each [rows][S]: the coordinates, both
+// D3's per sub-tile shared buffers, each [rows][S]: the coordinates, both
 // hidden layers, the spline parameters and the per-thread log-det sums.
 template <int D, int H1, int H2, int K, int S>
 struct StagedBuffers {
@@ -52,15 +65,22 @@ struct StagedBuffers {
   static constexpr int SIZE = LD + 2 * S;  // floats per sub-tile
 };
 
-// Barrier of one sub-tile's group (named barrier 1 + g over its threads),
-// or of the whole block when the schedule is paired.
-template <bool PAIRED>
-__device__ __forceinline__ void group_sync(int g, int threads) {
-  if constexpr (PAIRED) {
-    __syncthreads();
-  } else {
-    asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(threads) : "memory");
-  }
+// D1/D2's per sub-tile shared buffers: the coordinates [D][S], the
+// transformer parameters of each particle in a row of M::ROW floats (the
+// coupling kernel's warp-buffer rows: the 4 extra floats put the 8 rows a
+// quarter warp reads with float4 loads in distinct banks), and the
+// per-thread log-det sums [2][S].
+template <class M, int S>
+struct MmaStagedBuffers {
+  static constexpr int X = 0;
+  static constexpr int OUT = X + M::D * S;
+  static constexpr int LD = OUT + S * M::ROW;
+  static constexpr int SIZE = LD + 2 * S;  // floats per sub-tile
+};
+
+// Barrier of one sub-tile's group: named barrier `id` over its `threads`.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <int RO>
@@ -253,26 +273,175 @@ __device__ __forceinline__ void load_staged_weights(
   }
 }
 
-template <int D, int H1, int H2, int K, int Q, int S, bool PAIRED,
-          bool MICRO>
+// mma_split_step with the tensor core's cut undone on average. mma.sync
+// returns the k-step's sum cut toward zero, by 0 to 1 ulp: one k-step's
+// error has a mean of half an ulp against the sum's sign, which over a
+// flow's 8-step products biased D1/D2's log det (mean error 2x plain
+// float32's against float64 on the dev scripts' flow). Adding one ulp in
+// magnitude where the sum's last bit is set (independent of the cut)
+// restores half an ulp on average: the error's mean goes to zero and its
+// root mean square stays.
+__device__ __forceinline__ void mma_split_step_unbiased(
+    float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+    const WeightFragment& b) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_split(s, ah, al, b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t u = __float_as_uint(s[i]);
+    d[i] += __uint_as_float(u + (u & 1u));
+  }
+}
+
+// D1/D2's conditioner of layer `layer` for rows r0 .. r0 + 15 of a
+// sub-tile (xs: its coordinates, [D][S]), by one warp, from the packed
+// layer w of the coupling kernel B1 (coupling_mma.cuh MmaShape): the pass
+// of conditioner_mma on one row tile. h1 on FP32 FMAs straight into the A
+// fragments, h1 . W2 and h2 . W3 as split-TF32 mma.sync m16n8k8 summed by
+// k-steps (mma_split_step_unbiased), h2 kept in the accumulator fragments.
+// The transformer parameters of row p's active dim a go to
+// out[p * ROW + a * G + q].
+template <class M, int S>
+__device__ __forceinline__ void tile_conditioner(const float* __restrict__ w,
+                                                 const float* __restrict__ xs,
+                                                 float* __restrict__ out,
+                                                 int layer, int r0,
+                                                 int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int odd = layer & 1;
+  // The conditioning inputs of rows g and g + 8 of the tile.
+  float u[2][M::C];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int c = 0; c < M::C; ++c) {
+      u[h][c] = xs[(2 * c + 1 - odd) * S + r0 + g + 8 * h];
+    }
+  }
+  float acc[M::KS2][4];
+#pragma unroll
+  for (int j = 0; j < M::KS2; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+#pragma unroll
+  for (int s = 0; s < M::KS1; ++s) {
+    // First hidden layer, units 8s + 2t + e of rows g + 8h, in the A
+    // fragment order (g, e = 0), (g + 8, 0), (g, 1), (g + 8, 1).
+    uint32_t hh[4], hl[4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int unit = 8 * s + 2 * t + e;
+      const float bias = w[M::B1 + unit];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float a = 0.f;
+#pragma unroll
+        for (int c = 0; c < M::C; ++c) {
+          a = fmaf(w[M::W1 + unit * M::C + c], u[h][c], a);
+        }
+        split_tf32(fmaxf(a + bias, 0.f), hh[2 * e + h], hl[2 * e + h]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < M::KS2; ++j) {
+      const WeightFragment b(w + M::W2 + 64 * (s * M::KS2 + j) + 2 * lane);
+      mma_split_step_unbiased(acc[j], hh, hl, b);
+    }
+  }
+  // h2 = relu(acc + b2), kept as the accumulator fragments.
+#pragma unroll
+  for (int j = 0; j < M::KS2; ++j) {
+    const float2 bias =
+        *reinterpret_cast<const float2*>(w + M::B2 + 8 * j + 2 * t);
+    acc[j][0] = fmaxf(acc[j][0] + bias.x, 0.f);
+    acc[j][1] = fmaxf(acc[j][1] + bias.y, 0.f);
+    acc[j][2] = fmaxf(acc[j][2] + bias.x, 0.f);
+    acc[j][3] = fmaxf(acc[j][3] + bias.y, 0.f);
+  }
+  float o[M::NT][4];
+#pragma unroll
+  for (int n = 0; n < M::NT; ++n) {
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  }
+#pragma unroll
+  for (int s = 0; s < M::KS2; ++s) {
+    // h2's n-tile s is the A fragment of k-step s (as in conditioner_mma).
+    uint32_t ah[4], al[4];
+    split_tf32(acc[s][0], ah[0], al[0]);
+    split_tf32(acc[s][2], ah[1], al[1]);
+    split_tf32(acc[s][1], ah[2], al[2]);
+    split_tf32(acc[s][3], ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < M::NT; ++n) {
+      const WeightFragment b(w + M::W3 + 64 * (s * M::NT + n) + 2 * lane);
+      mma_split_step_unbiased(o[n], ah, al, b);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < M::NT; ++n) {
+    const int col = 8 * n + 2 * t;
+    const float2 bias = *reinterpret_cast<const float2*>(w + M::B3 + col);
+    *reinterpret_cast<float2*>(out + (r0 + g) * M::ROW + col) =
+        make_float2(o[n][0] + bias.x, o[n][1] + bias.y);
+    *reinterpret_cast<float2*>(out + (r0 + g + 8) * M::ROW + col) =
+        make_float2(o[n][2] + bias.x, o[n][3] + bias.y);
+  }
+}
+
+// D1/D2's splines: as spline_phase, thread t taking the (active dim a,
+// particle p) pairs j = t, t + 2S, ... (a = j / S, p = j % S), each pair's
+// parameters read from the particle's row of out as float4s.
+template <class M, int S>
+__device__ __forceinline__ float tile_splines(const float* __restrict__ out,
+                                              float* __restrict__ xs, int t,
+                                              int layer, float tb) {
+  float sum = 0.f;
+  for (int j = t; j < M::A * S; j += 2 * S) {
+    const int a = j / S, p = j % S;
+    const int i = 2 * a + (layer & 1);  // the a-th active dim
+    const float4* src =
+        reinterpret_cast<const float4*>(out + p * M::ROW + a * M::G);
+    float raw[M::P];
+#pragma unroll
+    for (int c = 0; c < (M::P + 3) / 4; ++c) {
+      const float4 v = src[c];
+      if (4 * c + 0 < M::P) raw[4 * c + 0] = v.x;
+      if (4 * c + 1 < M::P) raw[4 * c + 1] = v.y;
+      if (4 * c + 2 < M::P) raw[4 * c + 2] = v.z;
+      if (4 * c + 3 < M::P) raw[4 * c + 3] = v.w;
+    }
+    float y, e;
+    rqs<M::K, true>(xs[i * S + p], raw, tb, y, e);
+    xs[i * S + p] = y;
+    sum += e;
+  }
+  return sum;
+}
+
+// D1 (Q = 2) and D2: Q sub-tiles of S particles per tile, each owned by a
+// group of 2S threads = S/16 warps, warp k of a group the conditioner of
+// rows 16k .. 16k + 15 of its sub-tile. Every layer's packed weights
+// (prepare_mma_params) in shared memory.
+template <int D, int H1, int H2, int K, int Q, int S>
 __global__ void __launch_bounds__(2 * Q * S, 1)
-    staged_kernel(const float* __restrict__ x, float* __restrict__ z,
-                  float* __restrict__ log_det,
-                  const float* __restrict__ weights, int n, int n_layers,
-                  float tb) {
-  using Sh = Shape<D, H1, H2, K, true>;
-  using Buf = StagedBuffers<D, H1, H2, K, S>;
-  constexpr int T = 2 * S;  // threads per sub-tile
-  static_assert(!PAIRED || Q == 2, "the paired schedule takes two sub-tiles");
+    staged_mma_kernel(const float* __restrict__ x, float* __restrict__ z,
+                      float* __restrict__ log_det,
+                      const float* __restrict__ weights, int n, int n_layers,
+                      float tb) {
+  using M = MmaShape<D, H1, H2, K, true>;
+  using Buf = MmaStagedBuffers<M, S>;
+  constexpr int T = 2 * S;  // threads per sub-tile, a warp per 16 rows
+  static_assert(S % 16 == 0, "sub-tiles are multiples of 16 particles");
   extern __shared__ float4 smem4[];
   float* w = reinterpret_cast<float*>(smem4);
-  load_staged_weights<D, H1, H2, K>(w, weights, n_layers);
+  load_shared(smem4, reinterpret_cast<const float4*>(weights),
+              n_layers * M::SIZE / 4);
   __syncthreads();
   const int g = threadIdx.x / T, t = threadIdx.x % T;
-  float* buf = w + n_layers * Sh::SIZE + g * Buf::SIZE;
+  const int lane = t & 31, r0 = 16 * (t >> 5);
+  float* buf = w + n_layers * M::SIZE + g * Buf::SIZE;
   float* xs = buf + Buf::X;
   const int n_tiles = (n + Q * S - 1) / (Q * S);
-  const int stages = PAIRED ? n_layers + Q - 1 : n_layers;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int base = tile * Q * S + g * S;
     // The sub-tile, zeros past n (the ragged last tile).
@@ -281,35 +450,15 @@ __global__ void __launch_bounds__(2 * Q * S, 1)
       xs[i * S + p] = base + p < n ? x[(size_t)(base + p) * D + i] : 0.f;
     }
     float part = 0.f;
-    for (int stage = 0; stage < stages; ++stage) {
-      const int layer = PAIRED ? stage - g : stage;
-      const bool live = layer >= 0 && layer < n_layers;
-      const float* wl = w + (live ? layer : 0) * Sh::SIZE;
-      group_sync<PAIRED>(g, T);
-      if (live) {
-        dense<D, H1, S, true, true>(wl + Sh::W1, wl + Sh::B1, xs,
-                                    buf + Buf::H1S, t, layer);
-      }
-      group_sync<PAIRED>(g, T);
-      if (live) {
-        dense<H1, H2, S, true, false>(wl + Sh::W2, wl + Sh::B2,
-                                      buf + Buf::H1S, buf + Buf::H2S, t,
-                                      layer);
-      }
-      group_sync<PAIRED>(g, T);
-      if (live) {
-        dense<H2, Sh::OUTP, S, false, false>(wl + Sh::W3, wl + Sh::B3,
-                                             buf + Buf::H2S, buf + Buf::OUT,
-                                             t, layer);
-      }
-      group_sync<PAIRED>(g, T);
-      if (live) {
-        part += spline_phase<D, H1, H2, K, S, MICRO>(buf + Buf::OUT, xs, t,
-                                                     layer, tb);
-      }
+    for (int layer = 0; layer < n_layers; ++layer) {
+      named_barrier(g + 1, T);
+      tile_conditioner<M, S>(w + layer * M::SIZE, xs, buf + Buf::OUT, layer,
+                             r0, lane);
+      named_barrier(g + 1, T);
+      part += tile_splines<M, S>(buf + Buf::OUT, xs, t, layer, tb);
     }
     buf[Buf::LD + t] = part;
-    group_sync<PAIRED>(g, T);
+    named_barrier(g + 1, T);
     if (t < S && base + t < n) {
       log_det[base + t] = buf[Buf::LD + t] + buf[Buf::LD + S + t];
     }
@@ -317,20 +466,106 @@ __global__ void __launch_bounds__(2 * Q * S, 1)
       const int p = e / D, i = e % D;
       if (base + p < n) z[(size_t)(base + p) * D + i] = xs[i * S + p];
     }
-    group_sync<PAIRED>(g, T);
+    named_barrier(g + 1, T);
   }
 }
+
+// D3: two sub-tiles of S particles per tile, one layer apart, the whole
+// block in lock step; every layer's per-particle packed weights
+// (prepare_params) in shared memory.
+template <int D, int H1, int H2, int K, int S, bool MICRO>
+__global__ void __launch_bounds__(4 * S, 1)
+    paired_kernel(const float* __restrict__ x, float* __restrict__ z,
+                  float* __restrict__ log_det,
+                  const float* __restrict__ weights, int n, int n_layers,
+                  float tb) {
+  using Sh = Shape<D, H1, H2, K, true>;
+  using Buf = StagedBuffers<D, H1, H2, K, S>;
+  constexpr int Q = 2, T = 2 * S;  // sub-tiles, threads per sub-tile
+  extern __shared__ float4 smem4[];
+  float* w = reinterpret_cast<float*>(smem4);
+  load_staged_weights<D, H1, H2, K>(w, weights, n_layers);
+  __syncthreads();
+  const int g = threadIdx.x / T, t = threadIdx.x % T;
+  float* buf = w + n_layers * Sh::SIZE + g * Buf::SIZE;
+  float* xs = buf + Buf::X;
+  const int n_tiles = (n + Q * S - 1) / (Q * S);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * Q * S + g * S;
+    // The sub-tile, zeros past n (the ragged last tile).
+    for (int e = t; e < S * D; e += T) {
+      const int p = e / D, i = e % D;
+      xs[i * S + p] = base + p < n ? x[(size_t)(base + p) * D + i] : 0.f;
+    }
+    float part = 0.f;
+    for (int stage = 0; stage < n_layers + Q - 1; ++stage) {
+      const int layer = stage - g;
+      const bool live = layer >= 0 && layer < n_layers;
+      const float* wl = w + (live ? layer : 0) * Sh::SIZE;
+      __syncthreads();
+      if (live) {
+        dense<D, H1, S, true, true>(wl + Sh::W1, wl + Sh::B1, xs,
+                                    buf + Buf::H1S, t, layer);
+      }
+      __syncthreads();
+      if (live) {
+        dense<H1, H2, S, true, false>(wl + Sh::W2, wl + Sh::B2,
+                                      buf + Buf::H1S, buf + Buf::H2S, t,
+                                      layer);
+      }
+      __syncthreads();
+      if (live) {
+        dense<H2, Sh::OUTP, S, false, false>(wl + Sh::W3, wl + Sh::B3,
+                                             buf + Buf::H2S, buf + Buf::OUT,
+                                             t, layer);
+      }
+      __syncthreads();
+      if (live) {
+        part += spline_phase<D, H1, H2, K, S, MICRO>(buf + Buf::OUT, xs, t,
+                                                     layer, tb);
+      }
+    }
+    buf[Buf::LD + t] = part;
+    __syncthreads();
+    if (t < S && base + t < n) {
+      log_det[base + t] = buf[Buf::LD + t] + buf[Buf::LD + S + t];
+    }
+    for (int e = t; e < S * D; e += T) {
+      const int p = e / D, i = e % D;
+      if (base + p < n) z[(size_t)(base + p) * D + i] = xs[i * S + p];
+    }
+    __syncthreads();
+  }
+}
+
+// Floats per packed layer and per sub-tile buffer of a schedule: D3's
+// per-particle layout (Shape, StagedBuffers), or D1/D2's tensor-core one
+// (MmaShape, the coupling kernel's packing; MmaStagedBuffers).
+template <int D, int H1, int H2, int K, int S, bool PAIRED>
+struct StagedLayout {
+  using M = MmaShape<D, H1, H2, K, true>;
+  static constexpr int LAYER =
+      PAIRED ? Shape<D, H1, H2, K, true>::SIZE : M::SIZE;
+  static constexpr int BUFFER = PAIRED ? StagedBuffers<D, H1, H2, K, S>::SIZE
+                                       : MmaStagedBuffers<M, S>::SIZE;
+};
 
 template <int D, int H1, int H2, int K, int Q, int S, bool PAIRED,
           bool MICRO>
 int launch_staged(const float* x, float* z, float* ld, const float* w,
                   int n, int n_layers, float tb, cudaStream_t stream) {
-  using Sh = Shape<D, H1, H2, K, true>;
-  using Buf = StagedBuffers<D, H1, H2, K, S>;
+  static_assert(!PAIRED || Q == 2, "the paired schedule takes two sub-tiles");
+  static_assert(PAIRED || !MICRO, "rqs_micro is the paired schedule's");
+  using L = StagedLayout<D, H1, H2, K, S, PAIRED>;
   const size_t smem =
-      sizeof(float) * ((size_t)n_layers * Sh::SIZE + (size_t)Q * Buf::SIZE);
+      sizeof(float) * ((size_t)n_layers * L::LAYER + (size_t)Q * L::BUFFER);
   const int threads = 2 * Q * S;
-  auto kernel = staged_kernel<D, H1, H2, K, Q, S, PAIRED, MICRO>;
+  void (*kernel)(const float*, float*, float*, const float*, int, int, float);
+  if constexpr (PAIRED) {
+    kernel = paired_kernel<D, H1, H2, K, S, MICRO>;
+  } else {
+    kernel = staged_mma_kernel<D, H1, H2, K, Q, S>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -352,15 +587,17 @@ int launch_staged(const float* x, float* z, float* ld, const float* w,
 
 extern "C" {
 
-// The row (D, H1, H2, K, Q, S, PAIRED, MICRO) of a configuration id, and
-// its packed floats per layer; -1 for an unknown id.
+// The row (D, H1, H2, K, Q, S, PAIRED, MICRO) of a configuration id, then
+// its packed floats per layer and its shared floats per sub-tile buffer;
+// -1 for an unknown id.
 int aspire_staged_config(int config, int* row) {
-#define ASPIRE_STAGED_ROW(ID, D, H1, H2, K, Q, S, PAIRED, MICRO)  \
-  if (config == ID) {                                            \
-    const int v[9] = {D, H1, H2, K, Q, S, PAIRED, MICRO,         \
-                      aspire::Shape<D, H1, H2, K, true>::SIZE};  \
-    for (int i = 0; i < 9; ++i) row[i] = v[i];                   \
-    return 0;                                                    \
+#define ASPIRE_STAGED_ROW(ID, D, H1, H2, K, Q, S, PAIRED, MICRO)       \
+  if (config == ID) {                                                 \
+    using L = aspire::StagedLayout<D, H1, H2, K, S, PAIRED>;          \
+    const int v[10] = {D, H1, H2, K, Q, S, PAIRED, MICRO, L::LAYER,   \
+                       L::BUFFER};                                    \
+    for (int i = 0; i < 10; ++i) row[i] = v[i];                       \
+    return 0;                                                         \
   }
   ASPIRE_STAGED_CONFIGS(ASPIRE_STAGED_ROW)
 #undef ASPIRE_STAGED_ROW

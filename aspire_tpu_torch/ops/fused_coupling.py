@@ -14,8 +14,9 @@ This module packs those weights (once per parameter set), checks the
 packing against the library's and launches, counts launches, and wraps
 the call in a ``torch.autograd.Function`` whose backward recomputes
 through the plain torch path (the JAX package's ``custom_vjp``).
-:func:`prepare_params` packs the per-particle layout of the staged
-coupling kernels (``ops/staged_coupling.py``).
+:func:`prepare_params` packs the per-particle layout of the paired
+staged coupling kernel D3 (``ops/staged_coupling.py``; D1/D2 take the
+coupling kernel's :func:`prepare_mma_params`).
 
 On a CPU tensor a wrapper runs the plain torch version
 (``Coupling.forward_plain``/``inverse_plain``, ``MAF.forward_plain``); on
@@ -87,8 +88,8 @@ def _packed_floats(sections) -> int:
 
 
 def layer_floats(arch) -> int:
-    """Floats per layer of the per-particle packed buffer of the staged
-    coupling kernels (csrc/common.cuh Shape::SIZE)."""
+    """Floats per layer of the per-particle packed buffer of the paired
+    staged coupling kernel (csrc/common.cuh Shape::SIZE)."""
     d = arch.dims
     h1, h2 = arch.n_hidden
     outp = _round4(((d + 1) // 2) * arch.n_params_per_dim)
@@ -130,8 +131,8 @@ def should_fuse(arch, x: torch.Tensor) -> bool:
 
 
 def prepare_params(arch, params: dict) -> torch.Tensor:
-    """Pack every layer's MLP weights into the staged coupling kernels'
-    per-particle flat layout.
+    """Pack every layer's MLP weights into the paired staged coupling
+    kernel's per-particle flat layout.
 
     Per layer: W1 (H1, D), b1, W2 (H2, H1), b2, W3 (H2, OUTP), b3 - the
     output layer keeps only the parameter columns of the dims the layer

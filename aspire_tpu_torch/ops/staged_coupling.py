@@ -16,10 +16,12 @@ transformer inverse per active dim, log-dets summed), the function of
   over sub-tile B.
 
 :func:`staged_plain` and :func:`paired_plain` run those schedules in torch
-(a ragged last tile is padded and cut); the wrappers take the weights of
-``fused_coupling.prepare_params`` (no zero blocks) and launch
-``csrc/staged_coupling.cu`` on a CUDA tensor, or run the plain version on
-a CPU tensor.
+(a ragged last tile is padded and cut). On a CUDA tensor the wrappers
+launch ``csrc/staged_coupling.cu``: D1/D2 on the tensor cores with the
+coupling kernel's packed weights (``fused_coupling.packed_coupling_params``,
+packed once per parameter set), D3 on the FP32 pipe with the per-particle
+weights of ``fused_coupling.prepare_params`` (no zero blocks). On a CPU
+tensor they run the plain version.
 """
 
 from __future__ import annotations
@@ -43,10 +45,10 @@ from ._build import LaunchCounter, check, load_library
 #: id compiled into the library; mirrors ASPIRE_STAGED_CONFIGS in
 #: csrc/common.cuh. ``s`` is :func:`sub_tile` of the row.
 STAGED_CONFIGS = {
-    0: (4, (64, 64), 8, 2, 64, False, False),
-    1: (4, (64, 64), 8, 3, 48, False, False),
-    2: (4, (64, 64), 8, 4, 32, False, False),
-    3: (4, (64, 64), 8, 8, 16, False, False),
+    0: (4, (64, 64), 8, 2, 128, False, False),
+    1: (4, (64, 64), 8, 3, 80, False, False),
+    2: (4, (64, 64), 8, 4, 64, False, False),
+    3: (4, (64, 64), 8, 8, 32, False, False),
     4: (4, (64, 64), 8, 2, 64, True, False),
     5: (4, (64, 64), 8, 2, 64, True, True),
 }
@@ -61,20 +63,55 @@ packed_launches = LaunchCounter()
 
 
 def buffer_floats(arch) -> int:
-    """Shared floats per particle of a sub-tile (csrc StagedBuffers): the
-    coordinates, both hidden layers, the spline parameters, two log-det
+    """Shared floats per particle of a D3 sub-tile (csrc StagedBuffers):
+    the coordinates, both hidden layers, the spline parameters, two log-det
     partial sums."""
     h1, h2 = arch.n_hidden
     outp = FC._round4(((arch.dims + 1) // 2) * arch.n_params_per_dim)
     return arch.dims + h1 + h2 + outp + 2
 
 
-def sub_tile(arch, q: int) -> int:
-    """Particles per sub-tile: the largest multiple of 16 for which ``q``
-    sub-tiles' buffers fit beside every layer's weights in one block's
-    shared memory (at least 16)."""
-    room = FC.MAX_SHARED_BYTES - FC.weight_bytes(arch)
-    return max(16, room // (4 * q * buffer_floats(arch)) // 16 * 16)
+def mma_buffer_floats(arch) -> int:
+    """Shared floats per particle of a D1/D2 sub-tile (csrc
+    MmaStagedBuffers): the coordinates, the particle's row of transformer
+    parameters (the coupling kernel's warp-buffer row, ``mma_layout``'s
+    row stride), two log-det partial sums. h1 and h2 stay in registers."""
+    return arch.dims + FC.mma_layout(arch)[7] + 2
+
+
+#: Most threads of a D1/D2 block: each then keeps 128 of an SM's 65,536
+#: registers, which hold a warp's accumulators and fragments unspilled.
+MMA_BLOCK_THREADS = 512
+
+
+def sub_tile(arch, q: int, paired: bool = False) -> int:
+    """Particles per sub-tile, a multiple of 16 (at least 16): the most for
+    which ``q`` sub-tiles' buffers fit beside every layer's packed weights
+    in one block's shared memory, in the variant's layout; for D1/D2 also
+    at most ``MMA_BLOCK_THREADS`` threads in the block (2S a sub-tile),
+    which binds first: their buffers hold no hidden layer."""
+    if paired:
+        room = FC.MAX_SHARED_BYTES - FC.weight_bytes(arch)
+        return max(16, room // (4 * q * buffer_floats(arch)) // 16 * 16)
+    room = FC.MAX_SHARED_BYTES - 4 * arch.n_layers * layer_floats(arch, False)
+    most = min(room // (4 * q * mma_buffer_floats(arch)),
+               MMA_BLOCK_THREADS // (2 * q))
+    return max(16, most // 16 * 16)
+
+
+def layer_floats(arch, paired: bool) -> int:
+    """Packed floats per layer of the weights the variant takes: the
+    per-particle layout (D3) or the coupling kernel's (D1/D2)."""
+    return FC.layer_floats(arch) if paired else FC.mma_layout(arch)[0]
+
+
+def shared_bytes(arch, q: int, paired: bool) -> int:
+    """A block's shared memory: every layer's packed weights and ``q``
+    sub-tile buffers of :func:`sub_tile` particles, in the variant's
+    layout."""
+    per_particle = buffer_floats(arch) if paired else mma_buffer_floats(arch)
+    return 4 * (arch.n_layers * layer_floats(arch, paired)
+                + q * sub_tile(arch, q, paired) * per_particle)
 
 
 def staged_config(arch, q: int, paired: bool = False,
@@ -83,7 +120,7 @@ def staged_config(arch, q: int, paired: bool = False,
     if not (isinstance(arch, Coupling) and arch.transformer == "rqs"):
         return None
     key = (arch.dims, tuple(arch.n_hidden), arch.num_bins, q,
-           sub_tile(arch, q), paired, micro)
+           sub_tile(arch, q, paired), paired, micro)
     for cid, row in STAGED_CONFIGS.items():
         if row == key:
             return cid
@@ -274,14 +311,20 @@ def _launch(counter: LaunchCounter, arch, weights: torch.Tensor,
         raise ValueError(f"the staged coupling kernel takes CUDA tensors, "
                          f"got {x.device}")
     lib = load_library()
-    row = (ctypes.c_int * 9)()
+    s = sub_tile(arch, q, paired)
+    buffer = s * (buffer_floats(arch) if paired else mma_buffer_floats(arch))
+    row = (ctypes.c_int * 10)()
     if lib.aspire_staged_config(cfg, row) != 0 or tuple(row[:8]) != (
-            arch.dims, *arch.n_hidden, arch.num_bins, q, sub_tile(arch, q),
-            int(paired), int(micro)):
+            arch.dims, *arch.n_hidden, arch.num_bins, q, s, int(paired),
+            int(micro)) or row[9] != buffer:
         raise RuntimeError("staged configuration table disagrees with the "
                            "kernel library")
+    layer = layer_floats(arch, paired)
     FC._check_launch(lib, "staged coupling kernel", arch, weights, x, row[8],
-                     FC.layer_floats(arch))
+                     layer, shared_bytes(arch, q, paired))
+    if weights.numel() != arch.n_layers * layer or weights.data_ptr() % 16:
+        raise ValueError(f"weights are not a 16-byte aligned packing of "
+                         f"{arch} for this schedule")
     n = x.shape[0]
     z = torch.empty_like(x)
     ld = torch.empty(n, dtype=x.dtype, device=x.device)
@@ -295,18 +338,20 @@ def _launch(counter: LaunchCounter, arch, weights: torch.Tensor,
 
 
 def launch_interleaved(arch, weights: torch.Tensor, x: torch.Tensor):
-    """D1 on a CUDA ``x``, weights packed by ``prepare_params``."""
+    """D1 on a CUDA ``x``, weights packed by
+    ``fused_coupling.prepare_mma_params``."""
     return _launch(interleaved_launches, arch, weights, x, 2, False, False)
 
 
 def launch_q(arch, weights: torch.Tensor, x: torch.Tensor, q: int):
-    """D2 with ``q`` sub-tiles on a CUDA ``x``."""
+    """D2 with ``q`` sub-tiles on a CUDA ``x``, weights as D1's."""
     return _launch(q_launches, arch, weights, x, q, False, False)
 
 
 def launch_packed(arch, weights: torch.Tensor, x: torch.Tensor,
                   micro: bool = False):
-    """D3 (with ``rqs_micro`` if ``micro``) on a CUDA ``x``."""
+    """D3 (with ``rqs_micro`` if ``micro``) on a CUDA ``x``, weights packed
+    by ``fused_coupling.prepare_params``."""
     return _launch(packed_launches, arch, weights, x, 2, True, micro)
 
 
@@ -314,7 +359,7 @@ def interleaved_apply(arch, params: dict, x: torch.Tensor):
     """D1: the density pass over two sub-tiles per tile."""
     if x.device.type == "cpu":
         return staged_plain(arch, params, x, 2, sub_tile(arch, 2))
-    return launch_interleaved(arch, FC.prepare_params(arch, params),
+    return launch_interleaved(arch, FC.packed_coupling_params(arch, params),
                               x.contiguous())
 
 
@@ -322,13 +367,15 @@ def q_apply(arch, params: dict, x: torch.Tensor, q: int):
     """D2: the density pass over ``q`` sub-tiles per tile."""
     if x.device.type == "cpu":
         return staged_plain(arch, params, x, q, sub_tile(arch, q))
-    return launch_q(arch, FC.prepare_params(arch, params), x.contiguous(), q)
+    return launch_q(arch, FC.packed_coupling_params(arch, params),
+                    x.contiguous(), q)
 
 
 def packed_apply(arch, params: dict, x: torch.Tensor, micro: bool = False):
     """D3: the density pass over two sub-tiles one layer apart, one product
     per dense level; ``micro`` swaps in :func:`rqs_micro`."""
     if x.device.type == "cpu":
-        return paired_plain(arch, params, x, sub_tile(arch, 2), micro)
+        return paired_plain(arch, params, x, sub_tile(arch, 2, True),
+                            micro)
     return launch_packed(arch, FC.prepare_params(arch, params),
                          x.contiguous(), micro)

@@ -43,7 +43,8 @@ main paths (6, 7, 8) right after the build:
    n = 131072, each variant through its wrapper and timed in turns with
    the coupling kernel B1 (B1, variant, variant, B1), then held against
    its plain schedule (float64 deciding f32-ill-conditioned points) and,
-   but for D3 with rqs_micro, against B1;
+   but for D3 with rqs_micro, against B1 (D1/D2 on the tensor cores, D3
+   on the FP32 pipe);
 10. the uniforms kernel (D4): the probe's (8, 256) at seed (3, 7), the
    131072 x 8 x 20 uniforms of a 20-step chain and a draw whose size is
    no multiple of 4, bit for bit against the plain Philox stream; timed in
@@ -57,8 +58,8 @@ main paths (6, 7, 8) right after the build:
    kernel_ms reading is made after every event time and pipeline: once
    the profiler has traced the card, each launch costs the host more.
    A bound is the least time on the pipes the kernel computes with (the
-   FP32 pipe; for B1/B3, B2 and B4 their split-TF32 tensor-core products
-   beside it).
+   FP32 pipe for D3; for B1/B3, B2, B4, D1 and D2 their split-TF32
+   tensor-core products beside it).
 
 ``python3 chip_smoke.py --chain-ab PARENT`` runs none of that: it times
 the chain kernel B2 of the checkout at PARENT (e.g. a ``git archive`` of
@@ -67,8 +68,11 @@ its own (``chain_ab``). ``--coupling-ab PARENT`` does the same for the
 coupling kernel's two modes, B1 and B3, on the flows of phase 3, and
 reads phase 3's check of both checkouts' kernels on 20 input draws per
 flow (``coupling_ab``); ``--maf-ab PARENT`` the same for the MAF kernel
-B4 (``maf_ab``). ``--accumulation`` reads B2's flow density and B4
-against float64 over 20 draws each (``accumulation``).
+B4 (``maf_ab``); ``--staged-ab PARENT`` the same for D1, D2 at each
+compiled Q, D3 and B1 on phase 9's flow, with their errors against
+float64 on 20 input draws (``staged_ab``). ``--accumulation`` reads B2's
+flow density and B4 against float64 over 20 draws each
+(``accumulation``).
 """
 
 from __future__ import annotations
@@ -588,57 +592,79 @@ def phase_maf(device, n: int, n_small: int = N_CHAIN) -> dict:
     return out
 
 
+def staged_flow(device):
+    """The dev scripts' A/B flow and init, as D1-D3 are held to it: 4
+    coupling layers, (64, 64), 8 bins, 0.1 N(0, 1) perturbation."""
+    from aspire_tpu_torch.flows.architectures import Coupling
+
+    return perturbed_flow(device, seed=6, arch=Coupling(
+        dims=4, n_layers=4, n_hidden=(64, 64), transformer="rqs"))
+
+
+def staged_bounds(arch, n: int) -> dict:
+    """Bounds of the staged kernels at n, on the pipes each computes with:
+    D1/D2's first conditioner layer on FP32 and the two wide ones on the
+    tensor cores in split TF32, with the coupling kernel's packed weights
+    (``coupling_bound``; all on FP32 beside it as ``bound_fp32_ms``); D3's
+    all on FP32 with the per-particle weights."""
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    return {"split TF32": coupling_bound(arch, n),
+            "FP32": bound(n * coupling_flop(arch),
+                          density_bytes(arch, n, FC.weight_bytes(arch)))}
+
+
 def phase_staged_coupling(device, n: int) -> dict:
-    """D1-D3 as the dev scripts' A/B runs them: their flow and init
-    (4 coupling layers, (64, 64), 8 bins, 0.1 N(0, 1) perturbation) on
-    n standard-normal inputs; every variant through its wrapper and timed
+    """D1-D3 as the dev scripts' A/B runs them: ``staged_flow`` on n
+    standard-normal inputs; every variant through its wrapper and timed
     in turns with B1 (B1, variant, variant, B1), with the launch counts of
     that run; then each held against its plain schedule and, but for D3
-    with rqs_micro, against B1 on the same inputs."""
+    with rqs_micro, against B1 on the same inputs. Each variant's bound
+    is that of its pipe (``staged_bounds``)."""
     import torch
 
-    from aspire_tpu_torch.flows.architectures import Coupling
     from aspire_tpu_torch.ops import fused_coupling as FC
     from aspire_tpu_torch.ops import staged_coupling as SC
 
-    arch, params = perturbed_flow(device, seed=6, arch=Coupling(
-        dims=4, n_layers=4, n_hidden=(64, 64), transformer="rqs"))
+    arch, params = staged_flow(device)
     params64 = as_float64(params)
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
     x = torch.randn((n, 4), generator=gen, device=device)
     x64 = x.double()
-    # The staged kernels' per-particle layout, and B1's own.
+    # D3's per-particle layout; B1's own, which D1/D2 take too.
     w = FC.prepare_params(arch, params)
-    w_b1 = FC.prepare_mma_params(arch, params)
+    w_mma = FC.prepare_mma_params(arch, params)
 
     def b1():
-        return FC.launch_packed(arch, "forward", w_b1, x)
+        return FC.launch_packed(arch, "forward", w_mma, x)
 
-    def variant(apply, launch, plain, exact=None, against_b1=True):
-        return dict(apply=apply, launch=launch, plain=plain, exact=exact,
-                    against_b1=against_b1)
+    def variant(apply, launch, plain, pipe, exact=None, against_b1=True):
+        return dict(apply=apply, launch=launch, plain=plain, pipe=pipe,
+                    exact=exact, against_b1=against_b1)
 
     # D1 is D2's q = 2 configuration: its run stands for that Q.
     variants = {"D1": variant(
         lambda: SC.interleaved_apply(arch, params, x),
-        lambda: SC.launch_interleaved(arch, w, x),
-        lambda: SC.staged_plain(arch, params, x, 2, SC.sub_tile(arch, 2)))}
+        lambda: SC.launch_interleaved(arch, w_mma, x),
+        lambda: SC.staged_plain(arch, params, x, 2, SC.sub_tile(arch, 2)),
+        "split TF32")}
     for q in (q for q in SC.COMPILED_Q if q != 2):
         variants[f"D2 q={q}"] = variant(
             lambda q=q: SC.q_apply(arch, params, x, q),
-            lambda q=q: SC.launch_q(arch, w, x, q),
+            lambda q=q: SC.launch_q(arch, w_mma, x, q),
             lambda q=q: SC.staged_plain(arch, params, x, q,
-                                        SC.sub_tile(arch, q)))
-    s2 = SC.sub_tile(arch, 2)
+                                        SC.sub_tile(arch, q)),
+            "split TF32")
+    s2 = SC.sub_tile(arch, 2, paired=True)
     variants["D3"] = variant(
         lambda: SC.packed_apply(arch, params, x),
         lambda: SC.launch_packed(arch, w, x),
-        lambda: SC.paired_plain(arch, params, x, s2))
+        lambda: SC.paired_plain(arch, params, x, s2), "FP32")
     variants["D3 micro"] = variant(
         lambda: SC.packed_apply(arch, params, x, micro=True),
         lambda: SC.launch_packed(arch, w, x, micro=True),
-        lambda: SC.paired_plain(arch, params, x, s2, micro=True),
+        lambda: SC.paired_plain(arch, params, x, s2, micro=True), "FP32",
         exact=lambda: SC.paired_plain(arch, params64, x64, s2, micro=True),
         against_b1=False)
 
@@ -682,15 +708,15 @@ def phase_staged_coupling(device, n: int) -> dict:
             "ms": runs[key]["ms"], "b1_ms": runs[key]["b1_ms"],
             "turns_ms": runs[key]["turns_ms"],
             "ms_single_call": runs[key]["ms_single_call"],
-            "plain_ms": cuda_ms(v["plain"]),
+            "plain_ms": cuda_ms(v["plain"]), "pipe": v["pipe"],
             "max_abs_err": max(max_err(z_k, z_p), max_err(ld_k, ld_p)),
             "max_abs_err_vs_b1": b1_err, "ill_conditioned_points": n_bad}
         kernel_ms_later(results[key], "kernel_ms", v["launch"],
-                        "staged_kernel")
+                        "staged_mma_kernel" if v["pipe"] == "split TF32"
+                        else "paired_kernel")
         log(f"{key} vs plain at n={n}: {results[key]}")
     return {"variants": results, "launches": launches,
-            **bound(n * coupling_flop(arch),
-                    density_bytes(arch, n, FC.weight_bytes(arch)))}
+            "bounds": staged_bounds(arch, n)}
 
 
 def phase_prng(device, n: int) -> dict:
@@ -1082,6 +1108,121 @@ def coupling_ab(parent: str, draws: int = 20) -> dict:
     turns = ab_turns(parent, COUPLING_AB_TURN.format(
         here=str(Path(__file__).resolve()), n=N_COUPLING, draws=draws),
         "coupling")
+    cases = list(turns[0]["times"])
+    return {"turns": [{"checkout": t["checkout"], **t["times"]}
+                      for t in turns], **{
+        name: {**{case: {key: sum(t["times"][case][key] for t in turns
+                                  if t["checkout"] == name) / 2
+                         for key in ("ms", "ms_single_call", "kernel_ms")}
+                  for case in cases},
+               "accuracy": next(t["accuracy"] for t in turns
+                                if t["checkout"] == name)}
+        for name in ("parent", "change")}}
+
+
+def staged_launchers(arch, params) -> dict:
+    """D1, D2 at each other compiled Q, D3 and B1 of the checkout whose
+    ``aspire_tpu_torch`` the process imports: per name, a function of x
+    that launches the kernel on weights packed once in the layout it takes
+    (D1/D2 took D3's per-particle ``prepare_params`` before they moved to
+    the tensor cores, where they take B1's), and what the profiler's name
+    of the kernel contains (each function launches one kernel)."""
+    from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.ops import staged_coupling as SC
+
+    w_b1, w_d3 = (FC.prepare_mma_params(arch, params),
+                  FC.prepare_params(arch, params))
+    w = w_b1 if hasattr(SC, "mma_buffer_floats") else w_d3
+    out = {"D1": (lambda x: SC.launch_interleaved(arch, w, x), "staged")}
+    for q in (q for q in SC.COMPILED_Q if q != 2):
+        out[f"D2 q={q}"] = (lambda x, q=q: SC.launch_q(arch, w, x, q),
+                            "staged")
+    out["D3"] = (lambda x: SC.launch_packed(arch, w_d3, x), "_kernel")
+    out["B1"] = (lambda x: FC.launch_packed(arch, "forward", w_b1, x),
+                 "coupling_kernel")
+    return out
+
+
+def staged_accuracy(device, launchers: dict, arch, params, n: int,
+                    draws: int) -> dict:
+    """Each of ``launchers`` (``staged_launchers``) against float64 over
+    input draws 1..``draws`` of n standard normals: per kernel the draws
+    the card rule misses and the rms and mean errors of z and log det,
+    the kernel's and the plain float32 pass's (``error_summary``)."""
+    import torch
+
+    params64 = as_float64(params)
+    sums = {key: {} for key in launchers}
+    missed = {key: [] for key in launchers}
+    for draw in range(1, draws + 1):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(draw)
+        x = torch.randn((n, arch.dims), generator=gen, device=device)
+        plain = arch.forward_plain(params, x)
+        exact = arch.forward_plain(params64, x.double())
+        for key, (launch, _) in launchers.items():
+            ok = True
+            for what, k, p, e in zip(("z", "log_det"), launch(x), plain,
+                                     exact):
+                error_sums(k, p, e, sums[key], what)
+                ok = ok and rule_holds(*rule_points(k, p, e), p.numel())
+            if not ok:
+                missed[key].append(draw)
+    return {key: {"draws": draws, "n": n, "missed": missed[key],
+                  "errors": error_summary(sums[key])} for key in launchers}
+
+
+def staged_turn(n: int, draws: int) -> dict:
+    """One turn of ``staged_ab``, in the checkout whose ``aspire_tpu_torch``
+    the process imports: ``staged_launchers`` on ``phase_staged_coupling``'s
+    flow and inputs, each by events, single calls and then alone; and
+    ``staged_accuracy`` of them on ``draws`` draws."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    arch, params = staged_flow(dev)
+    launchers = staged_launchers(arch, params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn((n, 4), generator=gen, device=dev)
+    times, later = {}, []
+    for key, (launch, match) in launchers.items():
+        def run(launch=launch):
+            return launch(x)
+
+        times[key] = {"ms": cuda_ms(run), "ms_single_call": cuda_ms_single(run)}
+        later.append((key, run, match))
+    accuracy = staged_accuracy(dev, launchers, arch, params, n, draws)
+    for key, run, match in later:
+        times[key]["kernel_ms"] = kernel_ms(run, match)
+    return {"times": times, "accuracy": accuracy}
+
+
+# One turn of staged_ab, run by a process of its own from the root of the
+# checkout measured: this file, loaded by path, measures the kernels of
+# that checkout.
+STAGED_AB_TURN = """
+import importlib.util, json
+spec = importlib.util.spec_from_file_location("chip_smoke_turn", {here!r})
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+print(json.dumps(cs.staged_turn({n}, {draws})))
+"""
+
+
+def staged_ab(parent: str, draws: int = 20) -> dict:
+    """D1, D2 at each compiled Q, D3 and B1 of the checkout at ``parent``
+    against this one's, at n = N_COUPLING, in turns (parent, change,
+    change, parent) on the same card, each turn a process of its own as in
+    ``chain_ab``: their times, and their errors against float64 on
+    ``draws`` input draws (the same in both turns of a checkout: the
+    kernels are deterministic)."""
+    from pathlib import Path
+
+    turns = ab_turns(parent, STAGED_AB_TURN.format(
+        here=str(Path(__file__).resolve()), n=N_COUPLING, draws=draws),
+        "staged")
     cases = list(turns[0]["times"])
     return {"turns": [{"checkout": t["checkout"], **t["times"]}
                       for t in turns], **{
@@ -1684,17 +1825,17 @@ def main() -> int:
         density_bytes(maf4, m, 4 * maf4.n_layers * FC.maf_layer_floats(maf4)),
         tensor_flop=m * tensor_flop)
         for m in (N_COUPLING, N_CHAIN))
-    var = staged["variants"]
-    staged_bound = {k: staged[k] for k in
-                    ("bound_ms", "bound_by", "bound_fp32_ms", "bound_tf32_ms",
-                     "flop", "tensor_flop", "bytes")}
+    var, staged_bound = staged["variants"], staged["bounds"]
     d2 = {"2": var["D1"], **{k[5:]: v for k, v in var.items()
                              if k.startswith("D2")}}
     for key, v in var.items():
+        b = staged_bound[v["pipe"]]
         print(f"[{card}] {key}, staged coupling density pass, 4 layers, "
-              f"n={N_COUPLING}: {v['ms']:.4f} ms (B1 in turns "
+              f"n={N_COUPLING}: {v['ms']:.4f} ms events, "
+              f"{v['kernel_ms']:.4f} ms alone (B1 in turns "
               f"{v['b1_ms']:.4f} ms; plain torch {v['plain_ms']:.4f} ms; "
-              f"bound {staged['bound_ms']:.4f} ms FP32)")
+              f"bound {b['bound_ms']:.4f} ms {v['pipe']}, all on FP32 "
+              f"{b['bound_fp32_ms']:.4f} ms)")
     print(f"[{card}] uniforms kernel (D4), {uniforms['n']} draws: "
           f"{uniforms['ms']:.4f} ms (plain torch {uniforms['plain_ms']:.4f} "
           f"ms; torch.rand in turns {uniforms['library_ms']:.4f} ms; kernels "
@@ -1778,7 +1919,7 @@ def main() -> int:
          f"ms_single_call_n{N_CHAIN}": maf[f"ms_single_call_n{N_CHAIN}"],
          f"bound_ms_n{N_CHAIN}": b4_bound_small["bound_ms"],
          "wrapper_ms": maf["wrapper_ms"]},
-        {"name": "staged_kernel interleaved (D1)", "route": "cuda",
+        {"name": "staged_mma_kernel interleaved (D1)", "route": "cuda",
          "source": "aspire_tpu_torch/csrc/staged_coupling.cu",
          "replaces": "benchmarks/dev/interleave_ab.py:122",
          "launches": staged["launches"]["D1"],
@@ -1786,8 +1927,9 @@ def main() -> int:
          "ms": var["D1"]["ms"], "ms_single_call": var["D1"]["ms_single_call"],
          "kernel_ms": var["D1"]["kernel_ms"],
          "plain_ms": var["D1"]["plain_ms"],
-         **staged_bound, "library_ms": None, "b1_ms": var["D1"]["b1_ms"]},
-        {"name": "staged_kernel q (D2)", "route": "cuda",
+         **staged_bound["split TF32"], "bound_pipe": "split TF32",
+         "library_ms": None, "b1_ms": var["D1"]["b1_ms"]},
+        {"name": "staged_mma_kernel q (D2)", "route": "cuda",
          "source": "aspire_tpu_torch/csrc/staged_coupling.cu",
          "replaces": "benchmarks/dev/quad_interleave_ab.py:96",
          "launches": staged["launches"]["D2"],
@@ -1796,11 +1938,13 @@ def main() -> int:
          "ms_single_call": var["D2 q=4"]["ms_single_call"],
          "kernel_ms": var["D2 q=4"]["kernel_ms"],
          "plain_ms": var["D2 q=4"]["plain_ms"],
-         **staged_bound, "library_ms": None,
+         **staged_bound["split TF32"], "bound_pipe": "split TF32",
+         "library_ms": None,
+         "kernel_ms_by_q": {q: v["kernel_ms"] for q, v in d2.items()},
          "ms_by_q": {q: v["ms"] for q, v in d2.items()},
          "plain_ms_by_q": {q: v["plain_ms"] for q, v in d2.items()},
          "b1_ms_by_q": {q: v["b1_ms"] for q, v in d2.items()}},
-        {"name": "staged_kernel packed (D3)", "route": "cuda",
+        {"name": "paired_kernel packed (D3)", "route": "cuda",
          "source": "aspire_tpu_torch/csrc/staged_coupling.cu",
          "replaces": "benchmarks/dev/packed_ab.py:147",
          "launches": staged["launches"]["D3"],
@@ -1809,7 +1953,8 @@ def main() -> int:
          "ms": var["D3"]["ms"], "ms_single_call": var["D3"]["ms_single_call"],
          "kernel_ms": var["D3"]["kernel_ms"],
          "plain_ms": var["D3"]["plain_ms"],
-         **staged_bound, "library_ms": None, "b1_ms": var["D3"]["b1_ms"],
+         **staged_bound["FP32"], "bound_pipe": "FP32",
+         "library_ms": None, "b1_ms": var["D3"]["b1_ms"],
          "micro_ms": var["D3 micro"]["ms"],
          "micro_plain_ms": var["D3 micro"]["plain_ms"]},
         {"name": "prng_uniforms (D4)", "route": "cuda",
@@ -1868,6 +2013,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--accumulation":
         print(card_line(), flush=True)
         print(json.dumps({"accumulation": accumulation()}), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--staged-ab":
+        print(card_line(), flush=True)
+        print(json.dumps({"staged_ab": staged_ab(sys.argv[2])}), flush=True)
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--coupling-ab":
         print(card_line(), flush=True)

@@ -36,6 +36,7 @@ RUNTIME = r"""
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <vector>
@@ -76,6 +77,14 @@ struct EmuLanes { float f[32][6]; };
 inline std::vector<EmuLanes> emu_lanes;
 inline void __syncthreads() { emu_block->arrive_and_wait(); }
 inline void __syncwarp() { emu_warp[threadIdx.x / 32]->arrive_and_wait(); }
+// bar.sync id, threads: barrier `id` of those a harness makes, each for
+// the count it was made with.
+inline std::vector<std::unique_ptr<std::barrier<>>> emu_named;
+inline std::vector<int> emu_named_threads;
+inline void emu_bar_sync(int id, int threads) {
+  if (emu_named_threads.at(id) != threads) std::abort();
+  emu_named[id]->arrive_and_wait();
+}
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   emu_lanes[w].f[l][0] = v;
@@ -191,10 +200,12 @@ SPLIT_PRODUCTS = """  mma_tf32(d, al, bh0, bh1);
 
 #: The source's inline PTX besides the mma, each function's stand-in
 #: body: cp.async copies at once (a synchronous stand-in, so a later
-#: wait has nothing left to wait for).
+#: wait has nothing left to wait for); a named barrier (bar.sync id,
+#: threads) as the runtime's barrier of that id.
 PTX_STAND_INS = {
     "cp_async16": "std::memcpy(dst, src, 16);",
     "cp_async_wait_all": "",
+    "named_barrier": "emu_bar_sync(id, threads);",
 }
 
 

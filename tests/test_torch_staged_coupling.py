@@ -213,7 +213,9 @@ def test_rqs_micro_nan_where_every_width_underflows():
 
 def test_config_table_mirrors_common_cuh():
     """``STAGED_CONFIGS`` is ``ASPIRE_STAGED_CONFIGS``, every S is the
-    shared-memory rule's, and every dev-sweep Q is compiled."""
+    shared-memory rule's, every variant's block (weights and buffers in
+    its own layout) fits one block's shared memory, and every dev-sweep Q
+    is compiled."""
     text = (ROOT / "aspire_tpu_torch" / "csrc" / "common.cuh").read_text()
     body = text[text.index("#define ASPIRE_STAGED_CONFIGS"):]
     rows = re.findall(r"X\(([^)]*)\)", body.split("\n\n")[0])
@@ -226,10 +228,16 @@ def test_config_table_mirrors_common_cuh():
     assert parsed == SC.STAGED_CONFIGS
     for cid, (d, hidden, k, q, s, paired, micro) in parsed.items():
         arch = Coupling(dims=d, n_layers=L, n_hidden=hidden, num_bins=k)
-        assert SC.sub_tile(arch, q) == s
+        assert SC.sub_tile(arch, q, paired) == s
         assert SC.staged_config(arch, q, paired, micro) == cid
-        assert q * s * SC.buffer_floats(arch) * 4 + FC.weight_bytes(
-            arch) <= FC.MAX_SHARED_BYTES
+        assert not micro or paired
+        assert SC.shared_bytes(arch, q, paired) <= FC.MAX_SHARED_BYTES
+        if paired:
+            assert q * s * SC.buffer_floats(arch) * 4 + FC.weight_bytes(
+                arch) <= FC.MAX_SHARED_BYTES
+        else:  # the tensor-core layout: a warp per 16 rows, 512 threads
+            assert s % 16 == 0 and 2 * q * s <= SC.MMA_BLOCK_THREADS
+            assert SC.layer_floats(arch, False) == FC.mma_layout(arch)[0]
     arch = Coupling(dims=D, n_layers=L, n_hidden=(64, 64))
     assert all(SC.staged_config(arch, q) is not None for q in SC.COMPILED_Q)
 
@@ -263,3 +271,96 @@ def test_wrappers_on_cpu_run_plain_and_launch_nothing(flow):
         torch.testing.assert_close(z, z0, **TOL)
         torch.testing.assert_close(ld, ld0, **TOL)
     assert [c.count for c in counters] == [0, 0, 0]
+
+
+_SCHEDULES = {
+    "D1": lambda a, p, x: SC.interleaved_apply(a, p, x),
+    **{f"D2 q={q}": (lambda a, p, x, q=q: SC.q_apply(a, p, x, q))
+       for q in SC.COMPILED_Q},
+    "D3": lambda a, p, x: SC.packed_apply(a, p, x),
+    "D3 micro": lambda a, p, x: SC.packed_apply(a, p, x, micro=True),
+}
+
+
+@pytest.mark.parametrize("schedule", sorted(_SCHEDULES))
+def test_wrapper_packs_the_layout_of_its_kernel(flow, monkeypatch,
+                                                schedule):
+    """Off the CPU a wrapper hands its launcher the weights its kernel
+    reads: D1/D2 the coupling kernel's packing (``prepare_mma_params``),
+    packed once per parameter set through the cache B1 uses; D3 the
+    per-particle ``prepare_params``. (The launchers are replaced: a
+    ``meta`` tensor stands for the card's, which this machine lacks.)"""
+    _, tarch, tparams = flow
+    calls, packs = [], []
+    for name in ("launch_interleaved", "launch_q", "launch_packed"):
+        monkeypatch.setattr(SC, name, lambda arch, w, x, *a, name=name,
+                            **k: calls.append((name, w)) or (x, x[:, 0]))
+    for name in ("prepare_mma_params", "prepare_params"):
+        real = getattr(FC, name)
+        monkeypatch.setattr(FC, name, lambda arch, params, real=real,
+                            name=name: packs.append(name) or real(arch,
+                                                                  params))
+    monkeypatch.setattr(FC, "_coupling_pack_cache", {})
+    x = torch.empty((300, D), device="meta")
+    for _ in range(3):
+        _SCHEDULES[schedule](tarch, tparams, x)
+    paired = schedule.startswith("D3")
+    want = (FC.prepare_params if paired else FC.prepare_mma_params)(
+        tarch, tparams)
+    assert len(calls) == 3
+    for _, w in calls:
+        torch.testing.assert_close(w, want, rtol=0, atol=0)
+        assert w.numel() == L * SC.layer_floats(tarch, paired)
+    if paired:
+        assert packs == ["prepare_params"] * 4
+    else:
+        assert packs == ["prepare_mma_params"] * 2  # once, then `want`
+        assert calls[0][1] is calls[2][1]
+
+
+@pytest.mark.parametrize("schedule", sorted(_SCHEDULES))
+def test_each_wrapper_on_cpu_runs_its_plain_schedule(flow, monkeypatch,
+                                                     schedule):
+    """On a CPU tensor every wrapper returns its plain schedule's result
+    exactly, packs nothing and launches nothing."""
+    _, tarch, tparams = flow
+    for name in ("prepare_mma_params", "prepare_params", "load_library"):
+        monkeypatch.setattr(FC, name, None)
+    monkeypatch.setattr(SC, "load_library", None)
+    counters = (SC.interleaved_launches, SC.q_launches, SC.packed_launches)
+    for c in counters:
+        c.reset()
+    x = torch.as_tensor(_x(300, 5))
+    z, ld = _SCHEDULES[schedule](tarch, tparams, x)
+    if schedule.startswith("D3"):
+        z0, ld0 = SC.paired_plain(tarch, tparams, x,
+                                  SC.sub_tile(tarch, 2, paired=True),
+                                  micro=schedule.endswith("micro"))
+    else:
+        q = 2 if schedule == "D1" else int(schedule.split("=")[1])
+        z0, ld0 = SC.staged_plain(tarch, tparams, x, q, SC.sub_tile(tarch, q))
+    torch.testing.assert_close(z, z0, rtol=0, atol=0)
+    torch.testing.assert_close(ld, ld0, rtol=0, atol=0)
+    assert [c.count for c in counters] == [0, 0, 0]
+
+
+def test_last_bit_restores_the_tensor_cores_cut_on_average():
+    """Why D1/D2 add one ulp in magnitude to each k-step's sum whose last
+    bit is set (``mma_split_step_unbiased`` in csrc/staged_coupling.cu):
+    ``mma.sync`` returns the sum cut toward zero, an error of half an ulp
+    against the sum's sign on average; with the last bit's ulp added back
+    the mean is zero and the root mean square stays that of the cut (an
+    error uniform over one ulp either way: 1/3 ulp^2)."""
+    from test_torch_coupling_layout import _cut_to_float32
+
+    gen = torch.Generator().manual_seed(0)
+    exact = torch.randn(1_000_000, generator=gen, dtype=torch.float64)
+    exact = exact * 2.0 ** torch.randint(-20, 20, exact.shape, generator=gen)
+    cut = _cut_to_float32(exact)
+    bits = cut.view(torch.int32)
+    restored = (bits + (bits & 1)).view(torch.float32)
+    ulp = 2.0 ** (torch.floor(torch.log2(exact.abs())) - 23)
+    for value, mean in ((cut, -0.5), (restored, 0.0)):
+        err = (value.double() - exact) * exact.sign() / ulp
+        assert abs(float(err.mean()) - mean) < 2e-3
+        assert abs(float(err.square().mean()) - 1 / 3) < 2e-3
