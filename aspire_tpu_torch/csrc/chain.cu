@@ -459,7 +459,7 @@ __device__ __forceinline__ void tempered_wide(
 // the previous step's deviation is x - x0 before the step's update. The
 // flow's weights stream through the block per pass (WideStream). Shared
 // memory: constants, two [D][kTile] arrays, the stream's slots and the
-// warps' buffers: 192,208 B at d = 32, one block per SM.
+// warps' buffers: 189,136 B at d = 32, one block per SM.
 template <int D, int H1, int H2, int K, bool RQS>
 __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
   using S = MmaShape<D, H1, H2, K, true>;

@@ -97,10 +97,12 @@ __global__ void __launch_bounds__(32 * kCouplingWarps, 2)
 
 // The wide form (MmaShape::WIDE, coupling_layer_wide): each warp's 32
 // particles in its shared buffer, each layer streamed through the block in
-// chunks (WideStream), one block of up to 8 warps per SM (117,760 B of
-// shared memory at d = 32, (128, 128)).
+// chunks (WideStream), blocks of up to 8 warps, two per SM (114,688 B of
+// shared memory each at d = 32, (128, 128); 128 registers, a few hundred
+// bytes of spill): 9-10% faster than one block of 255 registers (NVIDIA
+// H100 80GB HBM3 at 700 W, PERF.md).
 template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
-__global__ void __launch_bounds__(32 * kCouplingWarps, 1)
+__global__ void __launch_bounds__(32 * kCouplingWarps, 2)
     coupling_kernel_wide(const float* __restrict__ x, float* __restrict__ z,
                          float* __restrict__ log_det,
                          const float* __restrict__ weights, int n,

@@ -85,13 +85,17 @@ struct MmaShape {
   // A warp's buffer of transformer parameters: its 32 particles' OUT
   // floats (wide: one row tile's GD groups), rows ROW floats apart (the 4
   // extra floats put the 8 rows a quarter warp reads with float4 loads in
-  // distinct banks). Wide: then the warp's 32 particles, FROW apart.
+  // distinct banks). Wide: then the warp's 32 particles, FROW apart (read
+  // and written one float at a time).
   static constexpr int ROW = (WIDE ? GD * G : OUT) + 4;
-  static constexpr int FROW = D + 4;
+  static constexpr int FROW = D + 1;
   static constexpr int STAGE = WIDE ? 16 * ROW + 32 * FROW : 32 * ROW;
   // Wide streaming: the resident part (W1 .. b3) of a layer, and its W2
   // and W3 in chunks of KW2 k-steps (all n-tiles) and of KW3 k-steps of
-  // one group; a row tile reads NC2 + NC3 chunks, a layer CPL.
+  // one group; a row tile reads NC2 + NC3 chunks, a layer CPL (40 at
+  // d = 32, (128, 128): 16 KB chunks; 32 KB chunks, 20 a layer, ran B1
+  // 3.5% faster and B2 1.1% slower, and leave no room for B1's second
+  // block: PERF.md).
   static constexpr int RES = WIDE ? W2 : 0;
   static constexpr int KW2 = KS1 % 4 == 0 ? 4 : (KS1 % 2 == 0 ? 2 : 1);
   static constexpr int KW3 =
@@ -185,7 +189,16 @@ __device__ __forceinline__ void mma_split(float (&d)[4],
 // the cuts of a 64-wide product add up to an error of one sign, twice
 // float32's in root mean square on the coupling flows checked (tests/
 // test_torch_coupling_layout.py::test_kstep_sums_keep_the_card_tolerance
-// models it).
+// models it). mma.sync returns the k-step's sum cut toward zero, by 0 to
+// 1 ulp. LAST_BIT (D1/D2 only) adds one ulp in magnitude where the sum's
+// last bit is set, which undoes the cut on average where the sum was cut:
+// D1/D2's mean error against float64 on the dev scripts' flow went from
+// twice plain float32's to about plain's. A sum the tensor core returns
+// exact gains half an ulp instead (29% of k-step sums of N(0, 1) TF32
+// values on an NVIDIA H100 80GB HBM3 at 700 W), and B1 with LAST_BIT read
+// mean errors 4-7x plain's the other way on nsf-tpu, realnvp and a 7-layer
+// flow, so B1/B3 and B2 leave the cut (PERF.md).
+template <bool LAST_BIT = false>
 __device__ __forceinline__ void mma_split_step(float (&d)[4],
                                                const uint32_t (&ah)[4],
                                                const uint32_t (&al)[4],
@@ -193,7 +206,14 @@ __device__ __forceinline__ void mma_split_step(float (&d)[4],
   float s[4] = {0.f, 0.f, 0.f, 0.f};
   mma_split(s, ah, al, b);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += s[i];
+  for (int i = 0; i < 4; ++i) {
+    if (LAST_BIT) {
+      const uint32_t u = __float_as_uint(s[i]);
+      d[i] += __uint_as_float(u + (u & 1u));
+    } else {
+      d[i] += s[i];
+    }
+  }
 }
 
 // The conditioner of one coupling layer for the warp's 32 particles. Lane
@@ -446,63 +466,77 @@ struct WideStream {
   }
 };
 
+__device__ __forceinline__ float dot4(float4 w, float4 u, float a) {
+  a = fmaf(w.x, u.x, a);
+  a = fmaf(w.y, u.y, a);
+  a = fmaf(w.z, u.z, a);
+  return fmaf(w.w, u.w, a);
+}
+
 // One coupling layer (pass step `step`) of the warp's 32 particles in the
 // wide form. F holds particle p's coordinates at F[p * FROW + i]; pb is the
 // warp's buffer of one row tile's group parameters (16 x ROW). Per row tile
-// m (particles 16m .. 16m + 15): h1 on FP32 FMAs from the conditioning
-// inputs, h2 = relu(h1 . W2 + b2) in registers (acc[KS2][4]) from W2's
-// chunks; then per group of GD = 2 active dims their 2G output columns
-// (out[NG][4]) from W3's chunks, to pb, and their transformers, lane l
-// taking row l & 15 and the group's dim l >> 4: 32 transformers at once.
-// The products summed by k-steps (mma_split_step). ldp[m]: the
-// log-dets of the lane's (row, dim) transformers of row tile m.
+// m (particles 16m .. 16m + 15): its conditioning inputs copied to pb
+// (which the groups do not need yet) and read from there at each k-step;
+// h1 on FP32 FMAs, h2 = relu(h1 . W2 + b2) in registers (acc[KS2][4]) from
+// W2's chunks, one k-step at a time (the loops over W2's k-steps are not
+// unrolled, so no k-step's loads are hoisted into another's registers);
+// then per group of GD = 2 active dims their 2G output columns (out[NG][4])
+// from W3's chunks, to pb, and their transformers, lane l taking row l & 15
+// and the group's dim l >> 4: 32 transformers at once. The products summed
+// by k-steps (mma_split_step). ldp[m]: the log-dets of the lane's (row,
+// dim) transformers of row tile m.
 template <class S, bool DENSITY>
 __device__ __forceinline__ void coupling_layer_wide(
     WideStream<S>& ws, int step, float tb, float* __restrict__ F,
     float* __restrict__ pb, int lane, float (&ldp)[2]) {
   static_assert(S::GD == 2, "a lane per (row of a tile, dim of a group)");
+  static_assert(S::C % 4 == 0 && 16 * S::C <= 16 * S::ROW,
+                "the tile's inputs are read as float4s from pb");
   const int odd = ws.layer_of(step) & 1;
   const int g = lane >> 2, t = lane & 3;
   const float* res = ws.resident(step);
 #pragma unroll 1
   for (int m = 0; m < 2; ++m) {
-    // The conditioning inputs of rows g and g + 8 of the tile.
-    float u[2][S::C];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int c = 0; c < S::C; ++c) {
-        u[h][c] = F[(16 * m + g + 8 * h) * S::FROW + 2 * c + 1 - odd];
-      }
+    // The conditioning inputs of the tile's row r at pb[r * C + c] (the
+    // last group's transformers are done with pb: __syncwarp below them).
+    for (int e = lane; e < 16 * S::C; e += 32) {
+      pb[e] = F[(16 * m + e / S::C) * S::FROW + 2 * (e % S::C) + 1 - odd];
     }
+    __syncwarp();
+    const float4* u0 = reinterpret_cast<const float4*>(pb + g * S::C);
+    const float4* u1 = reinterpret_cast<const float4*>(pb + (g + 8) * S::C);
     float acc[S::KS2][4];
 #pragma unroll
     for (int j = 0; j < S::KS2; ++j) {
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     }
-#pragma unroll
+#pragma unroll 1
     for (int c2 = 0; c2 < S::NC2; ++c2) {
       const float* wc = ws.next();
-#pragma unroll
+#pragma unroll 1
       for (int sl = 0; sl < S::KW2; ++sl) {
         // First hidden layer, units 8s + 2t + e of rows g + 8h, in the A
         // fragment order (g, e = 0), (g + 8, 0), (g, 1), (g + 8, 1).
         const int s = c2 * S::KW2 + sl;
+        const int unit = 8 * s + 2 * t;
+        const float4* w0 =
+            reinterpret_cast<const float4*>(res + S::W1 + unit * S::C);
+        const float4* w1 = w0 + S::C / 4;
+        float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < S::C / 4; ++c) {
+          const float4 x0 = u0[c], x1 = u1[c], v0 = w0[c], v1 = w1[c];
+          a[0] = dot4(v0, x0, a[0]);
+          a[1] = dot4(v0, x1, a[1]);
+          a[2] = dot4(v1, x0, a[2]);
+          a[3] = dot4(v1, x1, a[3]);
+        }
         uint32_t hh[4], hl[4];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int unit = 8 * s + 2 * t + e;
-          const float bias = res[S::B1 + unit];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float a = 0.f;
-#pragma unroll
-            for (int c = 0; c < S::C; ++c) {
-              a = fmaf(res[S::W1 + unit * S::C + c], u[h][c], a);
-            }
-            split_tf32(fmaxf(a + bias, 0.f), hh[2 * e + h],
-                             hl[2 * e + h]);
-          }
+        for (int i = 0; i < 4; ++i) {
+          split_tf32(fmaxf(a[i] + res[S::B1 + unit + (i >> 1)], 0.f), hh[i],
+                     hl[i]);
         }
 #pragma unroll
         for (int j = 0; j < S::KS2; ++j) {
@@ -520,6 +554,7 @@ __device__ __forceinline__ void coupling_layer_wide(
       acc[j][2] = fmaxf(acc[j][2] + bias.x, 0.f);
       acc[j][3] = fmaxf(acc[j][3] + bias.y, 0.f);
     }
+    __syncwarp();  // every lane's reads of the inputs in pb are done
 #pragma unroll 1
     for (int q = 0; q < S::A / S::GD; ++q) {
       float out[S::NG][4];

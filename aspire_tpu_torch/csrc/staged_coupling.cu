@@ -273,32 +273,13 @@ __device__ __forceinline__ void load_staged_weights(
   }
 }
 
-// mma_split_step with the tensor core's cut undone on average. mma.sync
-// returns the k-step's sum cut toward zero, by 0 to 1 ulp: one k-step's
-// error has a mean of half an ulp against the sum's sign, which over a
-// flow's 8-step products biased D1/D2's log det (mean error 2x plain
-// float32's against float64 on the dev scripts' flow). Adding one ulp in
-// magnitude where the sum's last bit is set (independent of the cut)
-// restores half an ulp on average: the error's mean goes to zero and its
-// root mean square stays.
-__device__ __forceinline__ void mma_split_step_unbiased(
-    float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
-    const WeightFragment& b) {
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_split(s, ah, al, b);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t u = __float_as_uint(s[i]);
-    d[i] += __uint_as_float(u + (u & 1u));
-  }
-}
-
 // D1/D2's conditioner of layer `layer` for rows r0 .. r0 + 15 of a
 // sub-tile (xs: its coordinates, [D][S]), by one warp, from the packed
 // layer w of the coupling kernel B1 (coupling_mma.cuh MmaShape): the pass
 // of conditioner_mma on one row tile. h1 on FP32 FMAs straight into the A
 // fragments, h1 . W2 and h2 . W3 as split-TF32 mma.sync m16n8k8 summed by
-// k-steps (mma_split_step_unbiased), h2 kept in the accumulator fragments.
+// k-steps with the last bit's correction (mma_split_step<true>), h2 kept
+// in the accumulator fragments.
 // The transformer parameters of row p's active dim a go to
 // out[p * ROW + a * G + q].
 template <class M, int S>
@@ -345,7 +326,7 @@ __device__ __forceinline__ void tile_conditioner(const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < M::KS2; ++j) {
       const WeightFragment b(w + M::W2 + 64 * (s * M::KS2 + j) + 2 * lane);
-      mma_split_step_unbiased(acc[j], hh, hl, b);
+      mma_split_step<true>(acc[j], hh, hl, b);
     }
   }
   // h2 = relu(acc + b2), kept as the accumulator fragments.
@@ -374,7 +355,7 @@ __device__ __forceinline__ void tile_conditioner(const float* __restrict__ w,
 #pragma unroll
     for (int n = 0; n < M::NT; ++n) {
       const WeightFragment b(w + M::W3 + 64 * (s * M::NT + n) + 2 * lane);
-      mma_split_step_unbiased(o[n], ah, al, b);
+      mma_split_step<true>(o[n], ah, al, b);
     }
   }
 #pragma unroll

@@ -283,7 +283,7 @@ def mma_layout(arch) -> tuple[int, ...]:
     offsets of W1, b1, W2, b2, W3 and b3, the row stride and the floats of
     a warp's buffer (whole-layer form: the transformer parameters of 32
     rows; wide form: those of one 16-row tile's group, then the warp's 32
-    particles, ``D + 4`` floats apart), then the wide form's resident part
+    particles, ``D + 1`` floats apart), then the wide form's resident part
     and largest chunk (0 and 0 otherwise)."""
     offsets, size = _section_offsets(arch)
     ks1, ks2, _ = _mma_tiles(arch)
@@ -296,7 +296,7 @@ def mma_layout(arch) -> tuple[int, ...]:
     kw3 = next(k for k in (8, 4, 2, 1) if ks2 % k == 0)
     chunk = max(64 * kw2 * ks2, 64 * kw3 * _w3_group_cols(arch) // 8)
     return (size, *(offsets[k] for k in names), row,
-            16 * row + 32 * (arch.dims + 4), offsets["w2"], chunk)
+            16 * row + 32 * (arch.dims + 1), offsets["w2"], chunk)
 
 
 @functools.lru_cache(maxsize=None)

@@ -70,8 +70,11 @@ reads phase 3's check of both checkouts' kernels on 20 input draws per
 flow (``coupling_ab``); ``--maf-ab PARENT`` the same for the MAF kernel
 B4 (``maf_ab``); ``--staged-ab PARENT`` the same for D1, D2 at each
 compiled Q, D3 and B1 on phase 9's flow, with their errors against
-float64 on 20 input draws (``staged_ab``). ``--accumulation`` reads B2's
-flow density and B4 against float64 over 20 draws each
+float64 on 20 input draws (``staged_ab``); ``--wide-ab PARENT`` the same
+for config 5's wide kernels B1, B3 and B2 at n = 1048576 and 131072,
+with their errors against float64 and each checkout's ptxas report
+(``wide_ab``). ``--accumulation`` reads B2's flow density (on the d = 4
+chain and on config 5's) and B4 against float64 over 20 draws each
 (``accumulation``).
 """
 
@@ -314,10 +317,11 @@ def max_err(a, b) -> float:
 def rule_points(kern, plain, exact):
     """The card rule's reading of a kernel output: at the points where
     the kernel and the plain float32 path differ by more than
-    COUPLING_TOL, the kernel's and the plain path's errors against the
-    float64 result ``exact``, and the tolerance there."""
+    COUPLING_TOL (or where either is not a number), the kernel's and the
+    plain path's errors against the float64 result ``exact``, and the
+    tolerance there."""
     tol = COUPLING_TOL["atol"] + COUPLING_TOL["rtol"] * plain.abs()
-    bad = (kern - plain).abs() > tol
+    bad = ~((kern - plain).abs() <= tol)
     return ((kern.double() - exact).abs()[bad],
             (plain.double() - exact).abs()[bad], tol[bad].double())
 
@@ -327,9 +331,10 @@ def rule_holds(e_k, e_p, tol, numel: int) -> bool:
     disagree must be ill-conditioned in float32 (the plain path itself off
     the float64 result by a comparable amount: the kernel no farther from
     it than twice the plain path plus the tolerance), and such points rare
-    (at most 1e-4 of ``numel``)."""
-    return e_k.numel() <= 1e-4 * numel and not bool(
-        (e_k > 2 * e_p + tol).any())
+    (at most 1e-4 of ``numel``). A kernel output that is not a number
+    fails it."""
+    return e_k.numel() <= 1e-4 * numel and bool(
+        (e_k <= 2 * e_p + tol).all())
 
 
 def assert_kernel_close(kern, plain, exact, what: str) -> int:
@@ -454,10 +459,11 @@ def error_summary(sums: dict) -> dict:
     return out
 
 
-def coupling_accuracy(device, n: int, draws: int) -> dict:
+def coupling_accuracy(device, n: int, draws: int,
+                      flows: dict | None = None) -> dict:
     """The card rule on input draws 1..``draws`` of every flow of
-    ``coupling_flows``, and of the 7-layer flow perturbed by 0.1, read
-    rather than asserted. Per flow: the draws it misses; at the points it
+    ``flows`` (by default ``coupling_flows`` and the 7-layer flow
+    perturbed by 0.1), read rather than asserted. Per flow: the draws it misses; at the points it
     flags, the quantiles of the kernel's error against float64 over the
     plain float32 path's, and the largest share of its limit
     (2 x plain + tolerance) the kernel's error takes; the points where
@@ -470,7 +476,9 @@ def coupling_accuracy(device, n: int, draws: int) -> dict:
 
     from aspire_tpu_torch.flows.architectures import nsf
 
-    flows = {**coupling_flows(), "nsf-7 at 0.1": (nsf(4, n_layers=7), 9, 0.1)}
+    if flows is None:
+        flows = {**coupling_flows(),
+                 "nsf-7 at 0.1": (nsf(4, n_layers=7), 9, 0.1)}
     out = {}
     for name, flow in flows.items():
         missed, ratios, margin, plain_beyond, sums = [], [], 0.0, 0, {}
@@ -956,24 +964,6 @@ def time_chain(device, n: int, steps: int) -> dict:
     return out
 
 
-# One turn of chain_ab, run by a process of its own from the root of the
-# checkout timed: that checkout's B2 through its own wrapper, on
-# time_chain's inputs, by events and then alone.
-CHAIN_AB_TURN = """
-import json, torch
-import chip_smoke as cs
-from aspire_tpu_torch.ops import fused_mutation as FM
-cfg, params, z0, beta, step0, refs, target, dt, _ = cs.chain_setup(
-    torch.device("cuda"), {n}, {steps})
-def chain():
-    return FM.fused_mh_chain(cfg, params, z0, beta, (1, 2), step0, *refs,
-                             target, data_transform=dt)
-out = {{"ms": cs.cuda_ms(chain), "ms_single_call": cs.cuda_ms_single(chain)}}
-out["kernel_ms"] = cs.kernel_ms(chain, "chain_kernel", reps=5)
-print(json.dumps(out))
-"""
-
-
 def ab_turns(parent: str, code: str, what: str) -> list:
     """``python -c code`` in the checkout at ``parent`` and in this one, in
     turns (parent, change, change, parent), each a process of its own
@@ -995,59 +985,56 @@ def ab_turns(parent: str, code: str, what: str) -> list:
     return turns
 
 
-def chain_ab(parent: str) -> dict:
-    """B2 of the checkout at ``parent`` against this one's, at
-    n = N_PIPELINE and CHAIN_STEPS steps, in turns (parent, change, change,
-    parent) on the same card; each turn a process of its own, which builds
-    its checkout's kernels (a first call, not timed) and reads the kernel
-    alone after its events."""
-    turns = ab_turns(parent, CHAIN_AB_TURN.format(n=N_PIPELINE,
-                                                  steps=CHAIN_STEPS), "chain")
-    return {"turns": turns, **{
-        name: {key: sum(t[key] for t in turns if t["checkout"] == name) / 2
-               for key in ("ms", "ms_single_call", "kernel_ms")}
-        for name in ("parent", "change")}}
+def chain_turn() -> dict:
+    """One turn of ``chain_ab``, in the checkout whose ``aspire_tpu_torch``
+    the process imports: its B2 through its wrapper on ``time_chain``'s
+    inputs, by events and single calls, then alone."""
+    import torch
+
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    cfg, params, z0, beta, step0, refs, target, dt, _ = chain_setup(
+        torch.device("cuda"), N_PIPELINE, CHAIN_STEPS)
+
+    def chain():
+        return FM.fused_mh_chain(cfg, params, z0, beta, (1, 2), step0, *refs,
+                                 target, data_transform=dt)
+
+    times = {"B2": {"ms": cuda_ms(chain),
+                    "ms_single_call": cuda_ms_single(chain)}}
+    times["B2"]["kernel_ms"] = kernel_ms(chain, "chain_kernel", reps=5)
+    return {"times": times}
 
 
-# One turn of maf_ab, run by a process of its own from the root of the
-# checkout timed: that checkout's B4 through its launch_maf on phase_maf's
-# flow and inputs, by events and then alone.
-MAF_AB_TURN = """
-import json, torch
-import chip_smoke as cs
-from aspire_tpu_torch.flows.architectures import maf_rqs
-from aspire_tpu_torch.ops import fused_coupling as FC
-torch.backends.cuda.matmul.allow_tf32 = False
-dev = torch.device("cuda")
-arch, params = cs.perturbed_flow(dev, seed=4, arch=maf_rqs(4))
-w = FC.prepare_maf_params(arch, params)
-gen = torch.Generator(device=dev)
-gen.manual_seed(5)
-out, runs = {{}}, []
-for n in ({n}, {n_small}):
-    x = 2.0 * torch.randn((n, 4), generator=gen, device=dev)
-    def run(x=x):
-        return FC.launch_maf(arch, w, x)
-    out[f"ms_n{{n}}"] = cs.cuda_ms(run)
-    out[f"ms_single_call_n{{n}}"] = cs.cuda_ms_single(run)
-    runs.append((n, run))
-for n, run in runs:
-    out[f"kernel_ms_n{{n}}"] = cs.kernel_ms(run, "maf_kernel")
-print(json.dumps(out))
-"""
+def maf_turn() -> dict:
+    """One turn of ``maf_ab``, in the checkout whose ``aspire_tpu_torch``
+    the process imports: its B4 through ``launch_maf`` on ``phase_maf``'s
+    flow at n = N_COUPLING and N_CHAIN, by events and single calls, then
+    alone."""
+    import torch
 
+    from aspire_tpu_torch.flows.architectures import maf_rqs
+    from aspire_tpu_torch.ops import fused_coupling as FC
 
-def maf_ab(parent: str) -> dict:
-    """B4 of the checkout at ``parent`` against this one's, at
-    n = N_COUPLING and N_CHAIN, in turns (parent, change, change, parent),
-    each turn a process of its own as in ``chain_ab``."""
-    turns = ab_turns(parent, MAF_AB_TURN.format(n=N_COUPLING,
-                                                n_small=N_CHAIN), "maf")
-    keys = [k for k in turns[0] if k != "checkout"]
-    return {"turns": turns, **{
-        name: {key: sum(t[key] for t in turns if t["checkout"] == name) / 2
-               for key in keys}
-        for name in ("parent", "change")}}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    arch, params = perturbed_flow(dev, seed=4, arch=maf_rqs(4))
+    w = FC.prepare_maf_params(arch, params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    times, later = {}, []
+    for n in (N_COUPLING, N_CHAIN):
+        x = 2.0 * torch.randn((n, 4), generator=gen, device=dev)
+
+        def run(x=x):
+            return FC.launch_maf(arch, w, x)
+
+        key = f"B4 n={n}"
+        times[key] = {"ms": cuda_ms(run), "ms_single_call": cuda_ms_single(run)}
+        later.append((key, run))
+    for key, run in later:
+        times[key]["kernel_ms"] = kernel_ms(run, "maf_kernel")
+    return {"times": times}
 
 
 def coupling_turn(n: int, draws: int) -> dict:
@@ -1084,16 +1071,56 @@ def coupling_turn(n: int, draws: int) -> dict:
     return {"times": times, "accuracy": accuracy}
 
 
-# One turn of coupling_ab, run by a process of its own from the root of
-# the checkout measured: this file, loaded by path, measures the kernel of
-# that checkout.
-COUPLING_AB_TURN = """
+# One turn of an A/B (chain_ab, maf_ab, coupling_ab, staged_ab, wide_ab),
+# run by a process of its own from the root of the checkout measured: this file, loaded by path,
+# calls its turn function ``fn`` there, which measures the kernels of that
+# checkout.
+PATH_AB_TURN = """
 import importlib.util, json
 spec = importlib.util.spec_from_file_location("chip_smoke_turn", {here!r})
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
-print(json.dumps(cs.coupling_turn({n}, {draws})))
+print(json.dumps(cs.{fn}({args})))
 """
+
+
+def path_ab(parent: str, fn: str, args: str, what: str,
+            shared: tuple = ("accuracy",)) -> dict:
+    """``ab_turns`` of this file's turn function ``fn(args)`` (which
+    returns its times per case under "times"): the turns' times, and per
+    checkout each case's times over its two turns and the entries
+    ``shared`` of its first turn (the same in both: the kernels are
+    deterministic)."""
+    from pathlib import Path
+
+    turns = ab_turns(parent, PATH_AB_TURN.format(
+        here=str(Path(__file__).resolve()), fn=fn, args=args), what)
+    cases = list(turns[0]["times"])
+    return {"turns": [{"checkout": t["checkout"], **t["times"]}
+                      for t in turns], **{
+        name: {**{case: {key: sum(t["times"][case][key] for t in turns
+                                  if t["checkout"] == name) / 2
+                         for key in ("ms", "ms_single_call", "kernel_ms")}
+                  for case in cases},
+               **{key: next(t[key] for t in turns if t["checkout"] == name)
+                  for key in shared}}
+        for name in ("parent", "change")}}
+
+
+def chain_ab(parent: str) -> dict:
+    """B2 of the checkout at ``parent`` against this one's, at
+    n = N_PIPELINE and CHAIN_STEPS steps, in turns (parent, change, change,
+    parent) on the same card; each turn a process of its own, which builds
+    its checkout's kernels (a first call, not timed) and reads the kernel
+    alone after its events (``chain_turn``)."""
+    return path_ab(parent, "chain_turn", "", "chain", ())
+
+
+def maf_ab(parent: str) -> dict:
+    """B4 of the checkout at ``parent`` against this one's, at
+    n = N_COUPLING and N_CHAIN, in turns (parent, change, change, parent),
+    each turn a process of its own as in ``chain_ab`` (``maf_turn``)."""
+    return path_ab(parent, "maf_turn", "", "maf", ())
 
 
 def coupling_ab(parent: str, draws: int = 20) -> dict:
@@ -1103,21 +1130,8 @@ def coupling_ab(parent: str, draws: int = 20) -> dict:
     card, each turn a process of its own as in ``chain_ab``: their times,
     and the card rule read on ``draws`` input draws per flow (the same in
     both turns of a checkout: the kernels are deterministic)."""
-    from pathlib import Path
-
-    turns = ab_turns(parent, COUPLING_AB_TURN.format(
-        here=str(Path(__file__).resolve()), n=N_COUPLING, draws=draws),
-        "coupling")
-    cases = list(turns[0]["times"])
-    return {"turns": [{"checkout": t["checkout"], **t["times"]}
-                      for t in turns], **{
-        name: {**{case: {key: sum(t["times"][case][key] for t in turns
-                                  if t["checkout"] == name) / 2
-                         for key in ("ms", "ms_single_call", "kernel_ms")}
-                  for case in cases},
-               "accuracy": next(t["accuracy"] for t in turns
-                                if t["checkout"] == name)}
-        for name in ("parent", "change")}}
+    return path_ab(parent, "coupling_turn", f"{N_COUPLING}, {draws}",
+                   "coupling")
 
 
 def staged_launchers(arch, params) -> dict:
@@ -1199,18 +1213,6 @@ def staged_turn(n: int, draws: int) -> dict:
     return {"times": times, "accuracy": accuracy}
 
 
-# One turn of staged_ab, run by a process of its own from the root of the
-# checkout measured: this file, loaded by path, measures the kernels of
-# that checkout.
-STAGED_AB_TURN = """
-import importlib.util, json
-spec = importlib.util.spec_from_file_location("chip_smoke_turn", {here!r})
-cs = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(cs)
-print(json.dumps(cs.staged_turn({n}, {draws})))
-"""
-
-
 def staged_ab(parent: str, draws: int = 20) -> dict:
     """D1, D2 at each compiled Q, D3 and B1 of the checkout at ``parent``
     against this one's, at n = N_COUPLING, in turns (parent, change,
@@ -1218,21 +1220,8 @@ def staged_ab(parent: str, draws: int = 20) -> dict:
     ``chain_ab``: their times, and their errors against float64 on
     ``draws`` input draws (the same in both turns of a checkout: the
     kernels are deterministic)."""
-    from pathlib import Path
-
-    turns = ab_turns(parent, STAGED_AB_TURN.format(
-        here=str(Path(__file__).resolve()), n=N_COUPLING, draws=draws),
-        "staged")
-    cases = list(turns[0]["times"])
-    return {"turns": [{"checkout": t["checkout"], **t["times"]}
-                      for t in turns], **{
-        name: {**{case: {key: sum(t["times"][case][key] for t in turns
-                                  if t["checkout"] == name) / 2
-                         for key in ("ms", "ms_single_call", "kernel_ms")}
-                  for case in cases},
-               "accuracy": next(t["accuracy"] for t in turns
-                                if t["checkout"] == name)}
-        for name in ("parent", "change")}}
+    return path_ab(parent, "staged_turn", f"{N_COUPLING}, {draws}",
+                   "staged")
 
 
 def chain_accuracy(device, draws: int = 20, n: int = N_CHAIN,
@@ -1295,13 +1284,113 @@ def maf_accuracy(device, draws: int = 20, n: int = N_COUPLING) -> dict:
 
 
 def accumulation() -> dict:
-    """``chain_accuracy`` and ``maf_accuracy``: B2 and B4 read against
-    float64 over 20 draws each (their split products' accumulation)."""
+    """``chain_accuracy`` and ``maf_accuracy``: B2 (on the d = 4 chain and
+    on config 5's, the wide form) and B4 read against float64 over 20
+    draws each (their split products' accumulation)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    return {"chain": chain_accuracy(dev), "maf": maf_accuracy(dev)}
+    return {"chain": chain_accuracy(dev),
+            "chain_config5": chain_accuracy(
+                dev, steps=HIER_STEPS, setup=hierarchical_chain_setup),
+            "maf": maf_accuracy(dev)}
+
+
+def ptxas_report(text: str, match: str = "kernel_wide") -> dict:
+    """From an ``nvcc -Xptxas -v`` log, per kernel whose mangled name
+    contains ``match``: its registers and bytes of stack, spill stores and
+    spill loads."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry[1] if match in entry[1] else None
+            if name:
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if frame:
+            out[name].update(zip(("stack", "spill_stores", "spill_loads"),
+                                 map(int, frame.groups())))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[name]["registers"] = int(used[1])
+    return out
+
+
+def wide_turn(draws: int) -> dict:
+    """One turn of ``wide_ab``, in the checkout whose ``aspire_tpu_torch``
+    the process imports: config 5's B1, B3 (weights packed once, through
+    ``launch_packed``) and B2 (``hierarchical_chain_setup``'s chain,
+    HIER_STEPS steps) at N_HIER and N_HIER_ROUTES, by events and single
+    calls, then alone; their errors against float64 (B1/B3 over ``draws``
+    input draws at N_HIER_CHECK, B2's lq over ``draws`` Philox seeds at
+    N_CHAIN); and the ptxas report of the wide kernels as this checkout's
+    build logged it."""
+    import torch
+
+    from aspire_tpu_torch.ops import _build
+    from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    ptxas = ptxas_report(_build.build().with_suffix(".log").read_text())
+    arch, params = perturbed_flow(dev, 12, hierarchical_flow(), 0.05)
+    w = FC.prepare_mma_params(arch, params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    times, later = {}, []
+    for n, reps, chain_reps in ((N_HIER, 5, 3), (N_HIER_ROUTES, 20, 10)):
+        x = 2.0 * torch.randn((n, 32), generator=gen, device=dev)
+        z = in_chunks(arch.forward_plain, params, x)[0]
+        for name, mode, inp in (("B1", "forward", x), ("B3", "inverse", z)):
+            def run(mode=mode, inp=inp):
+                return FC.launch_packed(arch, mode, w, inp)
+
+            key = f"{name} n={n}"
+            times[key] = {"ms": cuda_ms(run, reps),
+                          "ms_single_call": cuda_ms_single(run, reps)}
+            later.append((key, run, "coupling_kernel_wide", reps))
+        cfg, cparams, z0, beta, step0, refs, target, dt, _ = (
+            hierarchical_chain_setup(dev, n, HIER_STEPS))
+
+        def chain(cfg=cfg, cparams=cparams, z0=z0, beta=beta, step0=step0,
+                  refs=refs, target=target, dt=dt):
+            return FM.fused_mh_chain(cfg, cparams, z0, beta, (1, 2), step0,
+                                     *refs, target, data_transform=dt)
+
+        key = f"B2 n={n}"
+        times[key] = {"ms": cuda_ms(chain, chain_reps),
+                      "ms_single_call": cuda_ms_single(chain, chain_reps)}
+        later.append((key, chain, "chain_kernel_wide", chain_reps))
+        del x, z, z0
+    accuracy = {"coupling": coupling_accuracy(
+                    dev, N_HIER_CHECK, draws,
+                    {"config 5": (hierarchical_flow(), 12, 0.05)}),
+                "chain": chain_accuracy(dev, draws, N_CHAIN, HIER_STEPS,
+                                        setup=hierarchical_chain_setup)}
+    for key, run, match, reps in later:
+        times[key]["kernel_ms"] = kernel_ms(run, match, reps)
+    return {"times": times, "accuracy": accuracy, "ptxas": ptxas}
+
+
+def wide_ab(parent: str, draws: int = 10) -> dict:
+    """Config 5's wide kernels B1, B3 and B2 of the checkout at ``parent``
+    against this one's, at N_HIER and N_HIER_ROUTES, in turns (parent,
+    change, change, parent) on the same card, each turn a process of its
+    own as in ``chain_ab`` (``wide_turn``): their times by events and
+    alone, their errors against float64 on ``draws`` draws (the same in
+    both turns of a checkout: the kernels are deterministic), and each
+    checkout's ptxas report of its wide kernels."""
+    return path_ab(parent, "wide_turn", f"{draws}", "wide",
+                   ("accuracy", "ptxas"))
 
 
 def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
@@ -2001,26 +2090,19 @@ def main() -> int:
     return 0
 
 
+# The modes that compare this checkout with the one at PARENT.
+AB_MODES = {"--chain-ab": chain_ab, "--maf-ab": maf_ab,
+            "--coupling-ab": coupling_ab, "--staged-ab": staged_ab,
+            "--wide-ab": wide_ab}
+
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--chain-ab":
+    if len(sys.argv) == 3 and sys.argv[1] in AB_MODES:
         print(card_line(), flush=True)
-        print(json.dumps({"chain_ab": chain_ab(sys.argv[2])}), flush=True)
-        sys.exit(0)
-    if len(sys.argv) == 3 and sys.argv[1] == "--maf-ab":
-        print(card_line(), flush=True)
-        print(json.dumps({"maf_ab": maf_ab(sys.argv[2])}), flush=True)
+        print(json.dumps({sys.argv[1][2:].replace("-", "_"):
+                          AB_MODES[sys.argv[1]](sys.argv[2])}), flush=True)
         sys.exit(0)
     if len(sys.argv) == 2 and sys.argv[1] == "--accumulation":
         print(card_line(), flush=True)
         print(json.dumps({"accumulation": accumulation()}), flush=True)
-        sys.exit(0)
-    if len(sys.argv) == 3 and sys.argv[1] == "--staged-ab":
-        print(card_line(), flush=True)
-        print(json.dumps({"staged_ab": staged_ab(sys.argv[2])}), flush=True)
-        sys.exit(0)
-    if len(sys.argv) == 3 and sys.argv[1] == "--coupling-ab":
-        print(card_line(), flush=True)
-        print(json.dumps({"coupling_ab": coupling_ab(sys.argv[2])}),
-              flush=True)
         sys.exit(0)
     sys.exit(main())

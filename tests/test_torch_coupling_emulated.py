@@ -7,8 +7,10 @@ m16n8k8 TF32 computed from its lanes' fragments, ``__shfl_sync``), the
 unchanged source with the tensor-core pass it includes
 (``csrc/coupling_mma.cuh``) is compiled as C++ at the configurations the
 library compiles (8-bin splines and affine maps at d = 4, (64, 64)
-hidden). Its ``cp.async`` weight copies become plain copies
-(``PTX_STAND_INS``). Checked, in both modes, at n = 512 and at a ragged
+hidden). Its ``cp.async`` weight copies land at the copying thread's
+wait, their destination NaN until then (``PTX_STAND_INS``), so a weight
+stream that reads a buffer before its wait, or overwrites one a warp
+still reads, fails here as on the card. Checked, in both modes, at n = 512 and at a ragged
 512 + 37, for the flows ``chip_smoke.phase_coupling`` checks on the card
 (nsf-tpu(4), realnvp(4), and a 7-layer nsf(4) whose layers stream
 through the two buffers more than once): the kernel against

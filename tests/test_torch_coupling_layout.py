@@ -152,9 +152,8 @@ def test_chain_kernel_shares_the_layout():
 def _cut_to_float32(x: torch.Tensor) -> torch.Tensor:
     """float64 to float32 rounded toward zero."""
     y = x.float()
-    over = y.double().abs() > x.abs()
-    y[over] = torch.nextafter(y[over], torch.zeros_like(y[over]))
-    return y
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
 
 
 def _split_mlp(round_lo: bool, sums: str = "exact"):
@@ -260,6 +259,77 @@ def test_kstep_sums_keep_the_card_tolerance(monkeypatch):
                         lambda *args: 0)
     rms, mean = check("in place")
     assert rms > 2 and mean > 0.5
+
+
+def test_card_rule_fails_a_kernel_output_that_is_not_a_number():
+    """``chip_smoke.assert_kernel_close`` holds a kernel output that is
+    NaN (a buffer read before its copy landed, say) as beyond the
+    tolerance, wherever it lies: ``(kern - plain).abs() > tol`` alone is
+    false at NaN."""
+    gen = torch.Generator().manual_seed(0)
+    exact = torch.randn(20000, generator=gen, dtype=torch.float64)
+    plain = exact.float()
+    assert chip_smoke.assert_kernel_close(plain.clone(), plain, exact,
+                                          "same") == 0
+    kern = plain.clone()
+    kern[7] = float("nan")
+    with pytest.raises(AssertionError, match="beyond tolerance"):
+        chip_smoke.assert_kernel_close(kern, plain, exact, "nan")
+
+
+def test_ptxas_report_reads_registers_and_spills_per_kernel():
+    """``chip_smoke.ptxas_report`` (``--wide-ab``) takes each wide
+    kernel's registers, stack and spill bytes from an ``-Xptxas -v`` log
+    and leaves the other kernels out."""
+    log = """ptxas info    : Compiling entry function '_Z20coupling_kernel_wideILb1EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z20coupling_kernel_wideILb1EEvv
+    96 bytes stack frame, 8 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 96 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z14coupling_kernelv' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers
+ptxas info    : Compiling entry function '_Z17chain_kernel_widev' for 'sm_90a'
+ptxas info    : Used 200 registers
+"""
+    assert chip_smoke.ptxas_report(log) == {
+        "_Z20coupling_kernel_wideILb1EEvv": {
+            "stack": 96, "spill_stores": 8, "spill_loads": 20,
+            "registers": 255},
+        "_Z17chain_kernel_widev": {"registers": 200}}
+
+
+@pytest.mark.parametrize("shared", [(), ("accuracy", "ptxas")])
+def test_path_ab_averages_each_case_over_its_two_turns(monkeypatch, shared):
+    """``chip_smoke.path_ab`` (every ``--*-ab`` mode) runs this file's turn
+    function in both checkouts in turns (parent, change, change, parent)
+    and gives, per checkout, each case's times averaged over its two
+    turns and the entries ``shared`` of its first turn."""
+    def turn(checkout, t):
+        return {"checkout": checkout,
+                "times": {"B2": {"ms": t, "ms_single_call": t + 1,
+                                 "kernel_ms": t + 2}},
+                **{key: f"{checkout} {t}" for key in shared}}
+
+    seen = {}
+
+    def fake_turns(parent, code, what):
+        seen.update(parent=parent, code=code, what=what)
+        return [turn("parent", 1.0), turn("change", 2.0),
+                turn("change", 4.0), turn("parent", 3.0)]
+
+    monkeypatch.setattr(chip_smoke, "ab_turns", fake_turns)
+    out = chip_smoke.path_ab("../parent", "chain_turn", "", "chain", shared)
+    assert (seen["parent"], seen["what"]) == ("../parent", "chain")
+    assert "cs.chain_turn()" in seen["code"]
+    assert out["parent"]["B2"] == {"ms": 2.0, "ms_single_call": 3.0,
+                                   "kernel_ms": 4.0}
+    assert out["change"]["B2"] == {"ms": 3.0, "ms_single_call": 4.0,
+                                   "kernel_ms": 5.0}
+    assert [t["checkout"] for t in out["turns"]] == [
+        "parent", "change", "change", "parent"]
+    for key in shared:
+        assert out["parent"][key] == "parent 1.0"
+        assert out["change"][key] == "change 2.0"
 
 
 def test_seven_layer_check_flow_is_float32_conditioned(monkeypatch):

@@ -85,6 +85,33 @@ inline void emu_bar_sync(int id, int threads) {
   if (emu_named_threads.at(id) != threads) std::abort();
   emu_named[id]->arrive_and_wait();
 }
+// cp.async as the card orders it: a thread's copies land at its wait that
+// covers them (wait_all, or wait_group N once N or fewer of its newer
+// committed groups are left), and until then their destination reads as
+// NaN; so a kernel that reads a chunk before its wait, or lets a copy
+// overwrite a slot a warp still reads, computes on NaN here too.
+struct EmuCopy { float* dst; const float* src; };
+inline thread_local std::vector<EmuCopy> emu_open_copies;
+inline thread_local std::vector<std::vector<EmuCopy>> emu_copy_groups;
+inline void emu_cp_async16(float* dst, const float* src) {
+  for (int i = 0; i < 4; ++i) dst[i] = NAN;
+  emu_open_copies.push_back({dst, src});
+}
+inline void emu_cp_async_commit() {
+  emu_copy_groups.push_back(std::move(emu_open_copies));
+  emu_open_copies.clear();
+}
+inline void emu_cp_async_wait_group(size_t pending) {
+  while (emu_copy_groups.size() > pending) {
+    for (const EmuCopy& c : emu_copy_groups.front())
+      std::memcpy(c.dst, c.src, 16);
+    emu_copy_groups.erase(emu_copy_groups.begin());
+  }
+}
+inline void emu_cp_async_wait_all() {
+  emu_cp_async_commit();
+  emu_cp_async_wait_group(0);
+}
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   emu_lanes[w].f[l][0] = v;
@@ -199,12 +226,15 @@ SPLIT_PRODUCTS = """  mma_tf32(d, al, bh0, bh1);
   mma_tf32(d, ah, bh0, bh1);"""
 
 #: The source's inline PTX besides the mma, each function's stand-in
-#: body: cp.async copies at once (a synchronous stand-in, so a later
-#: wait has nothing left to wait for); a named barrier (bar.sync id,
-#: threads) as the runtime's barrier of that id.
+#: body: a cp.async copy lands at the thread's wait that covers it
+#: (``emu_cp_async16``: its destination reads as NaN until then;
+#: ``cp.async.commit_group``, ``wait_group N``, ``wait_all``); a named
+#: barrier (bar.sync id, threads) as the runtime's barrier of that id.
 PTX_STAND_INS = {
-    "cp_async16": "std::memcpy(dst, src, 16);",
-    "cp_async_wait_all": "",
+    "cp_async16": "emu_cp_async16(dst, src);",
+    "cp_async_commit": "emu_cp_async_commit();",
+    "cp_async_wait_group": "emu_cp_async_wait_group(N);",
+    "cp_async_wait_all": "emu_cp_async_wait_all();",
     "named_barrier": "emu_bar_sync(id, threads);",
 }
 
@@ -352,3 +382,45 @@ def test_single_pass_tf32_misses_the_card_tolerance(harnesses):
     z_e, _ = arch.forward_plain(chip_smoke.as_float64(params), x.double())
     with pytest.raises(AssertionError, match="beyond tolerance"):
         chip_smoke.assert_kernel_close(z, z_p, z_e, "single-pass MAF z")
+
+
+ORDER_PROBE = r"""
+#include <cstdio>
+#include "cuda_runtime.h"
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  emu_cp_async16(dst, src);
+}
+int main() {
+  float src[12], dst[12];
+  for (int i = 0; i < 12; ++i) src[i] = dst[i] = (float)i;
+  cp_async16(dst, src + 8);  // group 0
+  emu_cp_async_commit();
+  cp_async16(dst + 4, src);  // group 1
+  emu_cp_async_commit();
+  cp_async16(dst + 8, src + 4);  // not committed
+  printf("%d", std::isnan(dst[0]) && std::isnan(dst[4]) && std::isnan(dst[8]));
+  emu_cp_async_wait_group(1);  // the newest committed group may pend
+  printf(" %g %d", dst[0], (int)std::isnan(dst[4]));
+  emu_cp_async_wait_all();
+  printf(" %g %g\n", dst[4], dst[8]);
+  return 0;
+}
+"""
+
+
+def test_stand_in_copies_land_at_their_wait(tmp_path):
+    """The stand-in runtime orders ``cp.async`` as the card does: a copy's
+    destination reads as NaN until the copying thread's wait covers it,
+    ``wait_group N`` leaving the newest N committed groups pending and
+    ``wait_all`` none (so the emulated kernels fail where one reads a
+    slot before its wait)."""
+    gxx = cxx20_compiler(tmp_path)
+    (tmp_path / "cuda_runtime.h").write_text(RUNTIME)
+    (tmp_path / "probe.cpp").write_text(ORDER_PROBE)
+    subprocess.run([gxx, "-std=c++20", "-O1", "-w", f"-I{tmp_path}", "-o",
+                    str(tmp_path / "probe"), str(tmp_path / "probe.cpp")],
+                   check=True)
+    out = subprocess.run([str(tmp_path / "probe")], check=True,
+                         capture_output=True, text=True,
+                         timeout=60).stdout.split()
+    assert out == ["1", "8", "1", "0", "4"]

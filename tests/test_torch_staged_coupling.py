@@ -346,7 +346,7 @@ def test_each_wrapper_on_cpu_runs_its_plain_schedule(flow, monkeypatch,
 
 def test_last_bit_restores_the_tensor_cores_cut_on_average():
     """Why D1/D2 add one ulp in magnitude to each k-step's sum whose last
-    bit is set (``mma_split_step_unbiased`` in csrc/staged_coupling.cu):
+    bit is set (``mma_split_step<true>`` in csrc/coupling_mma.cuh):
     ``mma.sync`` returns the sum cut toward zero, an error of half an ulp
     against the sum's sign on average; with the last bit's ulp added back
     the mean is zero and the root mean square stays that of the cut (an
