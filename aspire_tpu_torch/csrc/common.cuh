@@ -1,29 +1,15 @@
 // Device functions shared by the CUDA kernels: the rational-quadratic
 // spline and affine transformers of one value (the coupling-flow kernel
-// coupling.cu and the whole-chain kernel chain.cu through
-// coupling_mma.cuh, the MAF density kernel maf.cu, the tile-cooperative
-// coupling kernels staged_coupling.cu), the per-particle packed layout of
-// staged_coupling.cu's paired schedule (D3), and Philox4x32-10 (chain.cu,
-// prng.cu).
+// coupling.cu, the whole-chain kernel chain.cu and the tile-cooperative
+// coupling kernels staged_coupling.cu through coupling_mma.cuh, and the MAF
+// density kernel maf.cu), the dev prototypes' rqs_micro spline
+// (staged_coupling.cu's D3), and Philox4x32-10 (chain.cu, prng.cu).
 //
 // Replaces the per-tile helpers of the TPU kernels in
 // aspire_tpu/ops/fused_coupling.py (_rqs_rows, _affine_rows). The TPU
 // layout (features on sublanes, padded 8-row parameter groups, lane-half
 // MXU/VPU pipelining) is not carried over: the transformers are the plain
 // per-value formulas of aspire_tpu_torch/flows/bijectors.py.
-//
-// Per-particle packed weight layout of the paired staged coupling kernel
-// (D3; built by ops/fused_coupling.py::prepare_params), per flow layer,
-// every section starting on a multiple of 4 floats:
-//   W1  (H1 x D)     W1[j*D + i]      = w0[i][j]
-//   b1  (H1)
-//   W2  (H2 x H1)    W2[k*H1 + j]     = w1[j][k]
-//   b2  (H2)
-//   W3  (H2 x OUTP)  W3[k*OUTP + o]   = w2[k][col(o)], active dims only
-//   b3  (OUTP)
-// where OUT = A*P columns hold the transformer parameters of the A =
-// (D+1)/2 active dims (P per dim; a zero dummy group pads odd D) and
-// OUTP rounds OUT up to 4.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,29 +23,6 @@ constexpr float kMinDerivative = 1e-3f;
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
-
-template <int D, int H1, int H2, int K, bool RQS>
-struct Shape {
-  static_assert(H1 % 4 == 0 && H2 % 4 == 0, "hidden widths must be /4");
-  static constexpr int P = RQS ? 3 * K - 1 : 2;
-  static constexpr int A = (D + 1) / 2;
-  static constexpr int OUT = A * P;
-  static constexpr int OUTP = round4(OUT);
-  static constexpr int W1 = 0;
-  static constexpr int B1 = round4(W1 + H1 * D);
-  static constexpr int W2 = round4(B1 + H1);
-  static constexpr int B2 = round4(W2 + H2 * H1);
-  static constexpr int W3 = round4(B2 + H2);
-  static constexpr int B3 = round4(W3 + H2 * OUTP);
-  static constexpr int SIZE = round4(B3 + OUTP);  // floats per layer
-};
-
-// Dim i is transformed (active) by layer `layer` iff its parity matches
-// the layer's: the complement of the JAX package's conditioning mask
-// ((i % 2) + layer) % 2 == 1. An active dim's parameter group is i / 2.
-__device__ __forceinline__ bool is_active(int i, int layer) {
-  return (i & 1) == (layer & 1);
-}
 
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
@@ -148,6 +111,72 @@ __device__ __forceinline__ void rqs(float v, const float (&raw)[3 * K - 1],
   ld = inside ? l : 0.f;
 }
 
+// benchmarks/dev/packed_ab.py::rqs_micro, density direction: the bin
+// softmax without its max subtraction (exp(min(r, 60))) and the minimum
+// width folded into the 2 * tail_bound scale. Not the same function as
+// rqs<K, true> where every raw width or height of a row is below about
+// -87 (exp leaves the normal float32 range) and, below about -104, exp
+// underflows to 0 and the row normalises 0 / 0.
+template <int K>
+__device__ __forceinline__ void rqs_micro(float v,
+                                          const float (&raw)[3 * K - 1],
+                                          float tb, float& y, float& ld) {
+  const float c0 = 2.f * tb * kMinBinWidth;
+  const float c1 = 2.f * tb * (1.f - kMinBinWidth * K);
+  float ew[K], eh[K], sw = 0.f, sh = 0.f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    ew[j] = expf(fminf(raw[j], 60.f));
+    eh[j] = expf(fminf(raw[K + j], 60.f));
+    sw += ew[j];
+    sh += eh[j];
+  }
+  const bool inside = (v > -tb) && (v < tb);
+  const float safe = fminf(fmaxf(v, -tb), tb);
+  float cx = 0.f, cy = 0.f;
+  float x_k = 0.f, y_k = 0.f, w = 1.f, h = 1.f;
+  int k = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const float ws = c0 + c1 * (ew[j] / sw);
+    const float hs = c0 + c1 * (eh[j] / sh);
+    cx += ws;
+    cy += hs;
+    const float x_lo = (cx - tb) - ws;
+    const float y_lo = (cy - tb) - hs;
+    if (j == 0 || safe >= y_lo) {
+      k = j;
+      x_k = x_lo;
+      y_k = y_lo;
+      w = ws;
+      h = hs;
+    }
+  }
+  float rl = 0.f, rr = 0.f;
+#pragma unroll
+  for (int j = 0; j < K - 1; ++j) {
+    if (j == k - 1) rl = raw[2 * K + j];
+    if (j == k) rr = raw[2 * K + j];
+  }
+  const float d_k = (k == 0) ? 1.f : kMinDerivative + softplus(rl);
+  const float d_k1 = (k == K - 1) ? 1.f : kMinDerivative + softplus(rr);
+  const float s = h / w;
+  const float t = d_k1 + d_k - 2.f * s;
+  const float y_rel = safe - y_k;
+  const float a = h * (s - d_k) + y_rel * t;
+  const float b = h * d_k - y_rel * t;
+  const float c = -s * y_rel;
+  const float disc = fmaxf(b * b - 4.f * a * c, 0.f);
+  const float xi = fminf(fmaxf((2.f * c) / (-b - sqrtf(disc)), 0.f), 1.f);
+  const float xm = 1.f - xi;
+  const float den = s + t * xi * xm;
+  const float l = 2.f * logf(s) +
+                  logf(d_k1 * xi * xi + 2.f * s * xi * xm + d_k * xm * xm) -
+                  2.f * logf(den);
+  y = inside ? xi * w + x_k : v;
+  ld = inside ? -l : 0.f;
+}
+
 template <bool INVERSE>
 __device__ __forceinline__ void affine(float v, const float (&raw)[2],
                                        float& y, float& ld) {
@@ -211,17 +240,17 @@ __device__ __forceinline__ void load_shared(float4* dst,
 #define ASPIRE_MAF_CONFIGS(X) X(0, 4, 64, 64, 8)
 
 // Configurations of the tile-cooperative coupling density pass
-// (staged_coupling.cu): (id, D, H1, H2, K, Q, S, PAIRED, MICRO) with Q
-// sub-tiles of S particles per block. S is the largest multiple of 16 whose
-// Q sub-tile buffers fit beside 4 layers' weights in one block's shared
-// memory, in the variant's layout (StagedLayout); for D1/D2 (not PAIRED)
-// also with at most 512 threads (2QS) in the block, 128 registers each.
-// ops/staged_coupling.py::STAGED_CONFIGS mirrors this list and ::sub_tile
-// gives the same S.
+// (staged_coupling.cu): (id, D, H1, H2, K, Q, S, PAIRED, MICRO), Q sub-tiles
+// of S particles. D1/D2 (not PAIRED): a block's tile; S is the largest
+// multiple of 16 whose Q sub-tile buffers fit beside 4 layers' weights in
+// one block's shared memory with at most 512 threads (2QS) in the block,
+// 128 registers each. D3 (PAIRED): a warp's tile, two 16-row tiles (Q = 2,
+// S = 16). ops/staged_coupling.py::STAGED_CONFIGS mirrors this list and
+// ::sub_tile gives the same S.
 #define ASPIRE_STAGED_CONFIGS(X)           \
   X(0, 4, 64, 64, 8, 2, 128, false, false) \
   X(1, 4, 64, 64, 8, 3, 80, false, false)  \
   X(2, 4, 64, 64, 8, 4, 64, false, false)  \
   X(3, 4, 64, 64, 8, 8, 32, false, false)  \
-  X(4, 4, 64, 64, 8, 2, 64, true, false)   \
-  X(5, 4, 64, 64, 8, 2, 64, true, true)
+  X(4, 4, 64, 64, 8, 2, 16, true, false)   \
+  X(5, 4, 64, 64, 8, 2, 16, true, true)

@@ -189,16 +189,13 @@ __device__ __forceinline__ void mma_split(float (&d)[4],
 // the cuts of a 64-wide product add up to an error of one sign, twice
 // float32's in root mean square on the coupling flows checked (tests/
 // test_torch_coupling_layout.py::test_kstep_sums_keep_the_card_tolerance
-// models it). mma.sync returns the k-step's sum cut toward zero, by 0 to
-// 1 ulp. LAST_BIT (D1/D2 only) adds one ulp in magnitude where the sum's
-// last bit is set, which undoes the cut on average where the sum was cut:
-// D1/D2's mean error against float64 on the dev scripts' flow went from
-// twice plain float32's to about plain's. A sum the tensor core returns
-// exact gains half an ulp instead (29% of k-step sums of N(0, 1) TF32
-// values on an NVIDIA H100 80GB HBM3 at 700 W), and B1 with LAST_BIT read
-// mean errors 4-7x plain's the other way on nsf-tpu, realnvp and a 7-layer
-// flow, so B1/B3 and B2 leave the cut (PERF.md).
-template <bool LAST_BIT = false>
+// models it). mma.sync returns the k-step's sum cut toward zero; its cut
+// is left: adding back an ulp where the sum's last bit is set also raises
+// half the 29% of sums the card returns exact (N(0, 1) TF32 values, NVIDIA
+// H100 80GB HBM3 at 700 W), which moved the passes' mean errors past plain
+// float32's the other way on the flows read (PERF.md; the model of tests/
+// test_torch_staged_coupling.py::
+// test_card_cut_model_flips_the_last_bits_sign).
 __device__ __forceinline__ void mma_split_step(float (&d)[4],
                                                const uint32_t (&ah)[4],
                                                const uint32_t (&al)[4],
@@ -206,31 +203,29 @@ __device__ __forceinline__ void mma_split_step(float (&d)[4],
   float s[4] = {0.f, 0.f, 0.f, 0.f};
   mma_split(s, ah, al, b);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (LAST_BIT) {
-      const uint32_t u = __float_as_uint(s[i]);
-      d[i] += __uint_as_float(u + (u & 1u));
-    } else {
-      d[i] += s[i];
-    }
-  }
+  for (int i = 0; i < 4; ++i) d[i] += s[i];
 }
 
-// The conditioner of one coupling layer for the warp's 32 particles. Lane
-// 4g + t brings u[r][c], conditioning input c of particle g + 8r (row tile
-// r / 2), and gets, as does every lane, the rows g + 8r of the fragments;
-// the transformer parameters of particle p's active dim a go to
-// buf[p * ROW + a * G + q].
-template <class S>
-__device__ __forceinline__ void conditioner_mma(const float* __restrict__ w,
-                                                const float (&u)[4][S::C],
-                                                float* __restrict__ buf,
-                                                int lane) {
+// The conditioner of one coupling layer for T row tiles of 16 particles
+// (T = 2: a warp's 32). Lane 4g + t brings u[r][c], conditioning input c
+// of row g + 8r (row tile r / 2), and gets, as does every lane, the rows
+// g + 8r of the fragments; the transformer parameters of row p's active
+// dim a go to buf[p * ROW + a * G + q]. Every row tile runs the layer at w,
+// whose B fragments each k-step reads once for all of them; with PAIRED
+// (T = 2) row tile 1 runs another layer, at w1, and reads its own: two
+// independent chains of products in one k-loop.
+template <class S, int T = 2, bool PAIRED = false>
+__device__ __forceinline__ void conditioner_mma(
+    const float* __restrict__ w, const float (&u)[2 * T][S::C],
+    float* __restrict__ buf, int lane,
+    const float* __restrict__ w1 = nullptr) {
+  static_assert(T == 1 || T == 2, "one or two row tiles");
+  static_assert(!PAIRED || T == 2, "a pair is two row tiles");
   const int g = lane >> 2, t = lane & 3;
   // Second hidden layer's accumulators: row tile m, n-tile j.
-  float acc[2][S::KS2][4];
+  float acc[T][S::KS2][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < T; ++m) {
 #pragma unroll
     for (int j = 0; j < S::KS2; ++j) {
       acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
@@ -240,37 +235,49 @@ __device__ __forceinline__ void conditioner_mma(const float* __restrict__ w,
   for (int s = 0; s < S::KS1; ++s) {
     // First hidden layer, units 8s + 2t + e, in each row tile's A-fragment
     // order: (g, e = 0), (g + 8, 0), (g, 1), (g + 8, 1).
-    uint32_t hh[2][4], hl[2][4];
+    uint32_t hh[T][4], hl[T][4];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int unit = 8 * s + 2 * t + e;
       const float bias = w[S::B1 + unit];
+      const float bias1 = PAIRED ? w1[S::B1 + unit] : bias;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < 2 * T; ++r) {
+        const float* wr = PAIRED && r >= 2 ? w1 : w;
         float a = 0.f;
 #pragma unroll
         for (int c = 0; c < S::C; ++c) {
-          a = fmaf(w[S::W1 + unit * S::C + c], u[r][c], a);
+          a = fmaf(wr[S::W1 + unit * S::C + c], u[r][c], a);
         }
         const int q = 2 * e + (r & 1);
-        split_tf32(fmaxf(a + bias, 0.f), hh[r >> 1][q],
-                            hl[r >> 1][q]);
+        split_tf32(fmaxf(a + (PAIRED && r >= 2 ? bias1 : bias), 0.f),
+                   hh[r >> 1][q], hl[r >> 1][q]);
       }
     }
 #pragma unroll
     for (int j = 0; j < S::KS2; ++j) {
-      const WeightFragment b(w + S::W2 + 64 * (s * S::KS2 + j) + 2 * lane);
+      const int at = S::W2 + 64 * (s * S::KS2 + j) + 2 * lane;
+      const WeightFragment b(w + at);
       mma_split_step(acc[0][j], hh[0], hl[0], b);
-      mma_split_step(acc[1][j], hh[1], hl[1], b);
+      if constexpr (PAIRED) {
+        const WeightFragment b1(w1 + at);
+        mma_split_step(acc[1][j], hh[1], hl[1], b1);
+      } else if constexpr (T == 2) {
+        mma_split_step(acc[1][j], hh[1], hl[1], b);
+      }
     }
   }
   // h2 = relu(acc + b2), kept as the accumulator fragments.
 #pragma unroll
   for (int j = 0; j < S::KS2; ++j) {
-    const float2 bias =
+    const float2 bias0 =
         *reinterpret_cast<const float2*>(w + S::B2 + 8 * j + 2 * t);
+    const float2 bias1 =
+        PAIRED ? *reinterpret_cast<const float2*>(w1 + S::B2 + 8 * j + 2 * t)
+               : bias0;
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < T; ++m) {
+      const float2 bias = PAIRED && m ? bias1 : bias0;
       acc[m][j][0] = fmaxf(acc[m][j][0] + bias.x, 0.f);
       acc[m][j][1] = fmaxf(acc[m][j][1] + bias.y, 0.f);
       acc[m][j][2] = fmaxf(acc[m][j][2] + bias.x, 0.f);
@@ -278,9 +285,9 @@ __device__ __forceinline__ void conditioner_mma(const float* __restrict__ w,
     }
   }
   // Output layer, k-step outer so the accumulators free up as it goes.
-  float out[2][S::NT][4];
+  float out[T][S::NT][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < T; ++m) {
 #pragma unroll
     for (int n = 0; n < S::NT; ++n) {
       out[m][n][0] = out[m][n][1] = out[m][n][2] = out[m][n][3] = 0.f;
@@ -291,9 +298,9 @@ __device__ __forceinline__ void conditioner_mma(const float* __restrict__ w,
     // The accumulator of n-tile s, (g, 2t), (g, 2t+1), (g+8, 2t),
     // (g+8, 2t+1), is the A fragment of k-step s in the order (g, 2t),
     // (g+8, 2t), (g, 2t+1), (g+8, 2t+1).
-    uint32_t ah[2][4], al[2][4];
+    uint32_t ah[T][4], al[T][4];
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < T; ++m) {
       split_tf32(acc[m][s][0], ah[m][0], al[m][0]);
       split_tf32(acc[m][s][2], ah[m][1], al[m][1]);
       split_tf32(acc[m][s][1], ah[m][2], al[m][2]);
@@ -301,17 +308,26 @@ __device__ __forceinline__ void conditioner_mma(const float* __restrict__ w,
     }
 #pragma unroll
     for (int n = 0; n < S::NT; ++n) {
-      const WeightFragment b(w + S::W3 + 64 * (s * S::NT + n) + 2 * lane);
+      const int at = S::W3 + 64 * (s * S::NT + n) + 2 * lane;
+      const WeightFragment b(w + at);
       mma_split_step(out[0][n], ah[0], al[0], b);
-      mma_split_step(out[1][n], ah[1], al[1], b);
+      if constexpr (PAIRED) {
+        const WeightFragment b1(w1 + at);
+        mma_split_step(out[1][n], ah[1], al[1], b1);
+      } else if constexpr (T == 2) {
+        mma_split_step(out[1][n], ah[1], al[1], b);
+      }
     }
   }
 #pragma unroll
   for (int n = 0; n < S::NT; ++n) {
     const int q = 8 * n + 2 * t;
-    const float2 bias = *reinterpret_cast<const float2*>(w + S::B3 + q);
+    const float2 bias0 = *reinterpret_cast<const float2*>(w + S::B3 + q);
+    const float2 bias1 =
+        PAIRED ? *reinterpret_cast<const float2*>(w1 + S::B3 + q) : bias0;
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < T; ++m) {
+      const float2 bias = PAIRED && m ? bias1 : bias0;
       const int row = 16 * m + g;
       *reinterpret_cast<float2*>(buf + row * S::ROW + q) =
           make_float2(out[m][n][0] + bias.x, out[m][n][1] + bias.y);
@@ -319,6 +335,48 @@ __device__ __forceinline__ void conditioner_mma(const float* __restrict__ w,
           make_float2(out[m][n][2] + bias.x, out[m][n][3] + bias.y);
     }
   }
+}
+
+// The transformers of lane l's particle f for a layer of parity `odd`,
+// from row l of buf (conditioner_mma's output): its active dims 2a + odd
+// through rqs<K, DENSITY> (rqs_micro<K> with MICRO, density only) or
+// affine<DENSITY>. Returns their log-det sum.
+template <class S, bool DENSITY, bool MICRO = false>
+__device__ __forceinline__ float transformers_mma(
+    const float* __restrict__ buf, int lane, bool odd, float tb,
+    float (&f)[S::D]) {
+  static_assert(!MICRO || (DENSITY && S::RQS),
+                "rqs_micro is a density spline");
+  float ld = 0.f;
+#pragma unroll
+  for (int a = 0; a < S::A; ++a) {
+    const float4* src =
+        reinterpret_cast<const float4*>(buf + lane * S::ROW + a * S::G);
+    float par[S::P];
+#pragma unroll
+    for (int c = 0; c < (S::P + 3) / 4; ++c) {
+      const float4 v = src[c];
+      if (4 * c + 0 < S::P) par[4 * c + 0] = v.x;
+      if (4 * c + 1 < S::P) par[4 * c + 1] = v.y;
+      if (4 * c + 2 < S::P) par[4 * c + 2] = v.z;
+      if (4 * c + 3 < S::P) par[4 * c + 3] = v.w;
+    }
+    float y, e;
+    if constexpr (MICRO) {
+      rqs_micro<S::K>(odd ? f[2 * a + 1] : f[2 * a], par, tb, y, e);
+    } else if constexpr (S::RQS) {
+      rqs<S::K, DENSITY>(odd ? f[2 * a + 1] : f[2 * a], par, tb, y, e);
+    } else {
+      affine<DENSITY>(odd ? f[2 * a + 1] : f[2 * a], par, y, e);
+    }
+    if (odd) {
+      f[2 * a + 1] = y;
+    } else {
+      f[2 * a] = y;
+    }
+    ld += e;
+  }
+  return ld;
 }
 
 // One coupling layer of the warp's 32 particles, lane l holding particle
@@ -344,34 +402,7 @@ __device__ __forceinline__ void coupling_layer_mma(const float* __restrict__ w,
   }
   conditioner_mma<S>(w, u, buf, lane);
   __syncwarp();
-  float ld = 0.f;
-#pragma unroll
-  for (int a = 0; a < S::A; ++a) {
-    const float4* src =
-        reinterpret_cast<const float4*>(buf + lane * S::ROW + a * S::G);
-    float par[S::P];
-#pragma unroll
-    for (int c = 0; c < (S::P + 3) / 4; ++c) {
-      const float4 v = src[c];
-      if (4 * c + 0 < S::P) par[4 * c + 0] = v.x;
-      if (4 * c + 1 < S::P) par[4 * c + 1] = v.y;
-      if (4 * c + 2 < S::P) par[4 * c + 2] = v.z;
-      if (4 * c + 3 < S::P) par[4 * c + 3] = v.w;
-    }
-    float y, e;
-    if constexpr (S::RQS) {
-      rqs<S::K, DENSITY>(odd ? f[2 * a + 1] : f[2 * a], par, tb, y, e);
-    } else {
-      affine<DENSITY>(odd ? f[2 * a + 1] : f[2 * a], par, y, e);
-    }
-    if (odd) {
-      f[2 * a + 1] = y;
-    } else {
-      f[2 * a] = y;
-    }
-    ld += e;
-  }
-  log_det += ld;
+  log_det += transformers_mma<S, DENSITY>(buf, lane, odd, tb, f);
   __syncwarp();
 }
 

@@ -8,62 +8,48 @@
 //   PAIRED            benchmarks/dev/packed_ab.py::_packed_kernel (D3);
 //                     with MICRO, its rqs_micro spline (packed_ab.py:164)
 //
-// The function is the density mode of coupling.cu. The form is the
-// prototypes': a block takes Q sub-tiles of S particles; a layer's
-// conditioner is a product over a sub-tile held in shared memory, then the
-// spline runs per particle and active dim, one thread per (active dim,
-// particle) pair.
-//
-// - D1/D2 (staged_mma_kernel): sub-tile q is owned by its own group of 2S
-//   threads, which synchronises only among itself (named barrier 1 + q).
-//   The groups run their layers independently, so the warp schedulers
-//   interleave one group's tensor-core products with another's spline
-//   (SFU and branch work): the native form of the TPU's MXU/VPU overlap,
-//   with no lock-step stagger.
-// - D3 (PAIRED, paired_kernel): two sub-tiles one layer apart in lock
-//   step. Per dense level one 128-row pass over the block (rows 0..63
-//   sub-tile A with layer l's weights, rows 64..127 sub-tile B with layer
-//   l-1's) computes both sub-tiles' outputs; the TPU's block-diagonal zero
-//   blocks, a fill for its 128 x 128 matrix unit, are not stored.
+// The function is the density mode of coupling.cu. The schedules are the
+// prototypes':
+// - D1/D2 (staged_mma_kernel): a block takes Q sub-tiles of S particles,
+//   sub-tile q owned by its own group of 2S threads, which synchronises
+//   only among itself (named barrier 1 + q). The groups run their layers
+//   independently, so the warp schedulers interleave one group's
+//   tensor-core products with another's spline (SFU and branch work): the
+//   native form of the TPU's MXU/VPU overlap, with no lock-step stagger.
+// - D3 (PAIRED, paired_kernel): two groups of particles one layer apart,
+//   each dense level computing both groups' conditioners. The TPU kernel
+//   fills its 128 x 128 matrix unit with block-diag(W_l, W_{l-1}); a warp's
+//   mma.sync needs no fill, so here the pair lives in the warp: its 32
+//   particles are two 16-row tiles, tile 0 (group A) at layer `stage` and
+//   tile 1 (group B) at layer `stage - 1`, whose two chains of products
+//   interleave in one k-loop (conditioner_mma's PAIRED form), with no zero
+//   blocks.
 //
 // What bounds it on an H100: arithmetic. A 4-layer (64, 64) x 8-bin flow
 // costs 57,344 FLOP per particle against 36 bytes of input and output, so
-// device memory is idle. What the design does about it: every layer's
-// weights stay in shared memory for the block's whole life (a persistent
-// grid of one block per SM walks over the tiles), and
-// - D1/D2 run the conditioner's two wide products, h1 . W2 and h2 . W3
-//   (56,320 of those FLOP), on the tensor cores: each warp of a group owns
-//   one 16-row tile of its sub-tile and runs the split-TF32 mma.sync
-//   m16n8k8 pass of coupling_mma.cuh on it (each k-step's three products
-//   summed from zero, the tensor core's cut undone on average, then added
-//   in float32), h1 computed on FP32 FMAs straight into the A fragments
-//   and h2 kept in the accumulators, from the packed weights of the
-//   coupling kernel B1 (prepare_mma_params); only the transformer
-//   parameters go through shared memory, to the spline threads. With no
-//   hidden layer in shared memory, registers bound the sub-tile: a block
-//   takes up to 512 threads (S = 128, 80, 64, 32 at Q = 2, 3, 4, 8), 128
-//   registers each, 16 warps to hide the mma and spline latencies;
-// - D3 stays on the FP32 pipe: each thread keeps a register tile of RO
-//   outputs x 4 particles, so one float4 of activations and RO/2 or RO/4
-//   vector loads of weights feed 4 * RO FMAs, and only the active half's
-//   spline parameters are computed.
+// device memory is idle. What the design does about it: every schedule
+// runs the conditioner's two wide products, h1 . W2 and h2 . W3 (56,320 of
+// those FLOP), on the tensor cores in the split-TF32 mma.sync m16n8k8 pass
+// of coupling_mma.cuh (conditioner_mma: h1 on FP32 FMAs straight into the
+// A fragments, h2 kept in the accumulators, each k-step's three products
+// summed from zero then added in float32), from the coupling kernel B1's
+// packed weights (prepare_mma_params), every layer's resident in shared
+// memory for the block's whole life (a persistent grid of one block per SM
+// walks over the tiles). Only the transformer parameters go through shared
+// memory, to the spline threads. With no hidden layer in shared memory,
+// registers bound a block at 512 threads, 128 registers each, 16 warps to
+// hide the mma and spline latencies:
+// - D1/D2: each warp of a group owns one 16-row tile of its sub-tile (S =
+//   128, 80, 64, 32 at Q = 2, 3, 4, 8), and the group's splines run one
+//   thread per (active dim, particle) pair;
+// - D3: warps are independent (a __syncwarp between the phases, no block
+//   barrier), each walks over tiles of 32 particles through the L + 1
+//   stages of the pair, the one live tile alone at stage 0 and L, and each
+//   lane runs its own particle's splines at its own layer (as B1 does).
 
 #include "coupling_mma.cuh"
 
 namespace aspire {
-
-// D3's per sub-tile shared buffers, each [rows][S]: the coordinates, both
-// hidden layers, the spline parameters and the per-thread log-det sums.
-template <int D, int H1, int H2, int K, int S>
-struct StagedBuffers {
-  using Sh = Shape<D, H1, H2, K, true>;
-  static constexpr int X = 0;
-  static constexpr int H1S = X + D * S;
-  static constexpr int H2S = H1S + H1 * S;
-  static constexpr int OUT = H2S + H2 * S;
-  static constexpr int LD = OUT + Sh::OUTP * S;
-  static constexpr int SIZE = LD + 2 * S;  // floats per sub-tile
-};
 
 // D1/D2's per sub-tile shared buffers: the coordinates [D][S], the
 // transformer parameters of each particle in a row of M::ROW floats (the
@@ -83,295 +69,10 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <int RO>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         float (&w)[RO]) {
-  if constexpr (RO % 4 == 0) {
-#pragma unroll
-    for (int r = 0; r < RO; r += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(src + r);
-      w[r] = v.x;
-      w[r + 1] = v.y;
-      w[r + 2] = v.z;
-      w[r + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < RO; r += 2) {
-      const float2 v = *reinterpret_cast<const float2*>(src + r);
-      w[r] = v.x;
-      w[r + 1] = v.y;
-    }
-  }
-}
-
-// One dense level over a sub-tile by its 2S threads:
-// out[o][p] = act(sum_k W[k][o] in[k][p] + b[o]) for o < NOUT, p < S.
-// W is input-major (NIN x NOUT); thread t owns outputs og*RO .. og*RO+RO-1
-// of particles 4*pg .. 4*pg+3. MASKED skips the inputs the layer
-// transforms (the conditioner sees only the conditioning half).
-template <int NIN, int NOUT, int S, bool RELU, bool MASKED>
-__device__ __forceinline__ void dense(const float* __restrict__ W,
-                                      const float* __restrict__ b,
-                                      const float* __restrict__ in,
-                                      float* __restrict__ out, int t,
-                                      int layer) {
-  constexpr int PG = S / 4;
-  constexpr int OG = 8;  // 2S threads over S/4 particle groups
-  static_assert(S % 16 == 0, "sub-tiles are multiples of 16 particles");
-  static_assert(NOUT % (2 * OG) == 0, "outputs per thread must be even");
-  constexpr int RO = NOUT / OG;
-  const int pg = t % PG, og = t / PG;
-  const float* wcol = W + og * RO;
-  float acc[RO][4];
-#pragma unroll
-  for (int r = 0; r < RO; ++r) {
-    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-  }
-#pragma unroll 4
-  for (int k = 0; k < NIN; ++k) {
-    if (MASKED && is_active(k, layer)) continue;
-    const float4 v = *reinterpret_cast<const float4*>(in + k * S + 4 * pg);
-    float w[RO];
-    load_row<RO>(wcol + k * NOUT, w);
-#pragma unroll
-    for (int r = 0; r < RO; ++r) {
-      acc[r][0] = fmaf(w[r], v.x, acc[r][0]);
-      acc[r][1] = fmaf(w[r], v.y, acc[r][1]);
-      acc[r][2] = fmaf(w[r], v.z, acc[r][2]);
-      acc[r][3] = fmaf(w[r], v.w, acc[r][3]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RO; ++r) {
-    const float bias = b[og * RO + r];
-    float4 o = make_float4(acc[r][0] + bias, acc[r][1] + bias,
-                           acc[r][2] + bias, acc[r][3] + bias);
-    if (RELU) {
-      o.x = fmaxf(o.x, 0.f);
-      o.y = fmaxf(o.y, 0.f);
-      o.z = fmaxf(o.z, 0.f);
-      o.w = fmaxf(o.w, 0.f);
-    }
-    *reinterpret_cast<float4*>(out + (og * RO + r) * S + 4 * pg) = o;
-  }
-}
-
-// benchmarks/dev/packed_ab.py::rqs_micro, density direction: the bin
-// softmax without its max subtraction (exp(min(r, 60))) and the minimum
-// width folded into the 2 * tail_bound scale. Not the same function as
-// rqs<K, true> where every raw width or height of a row is below about
-// -87 (exp leaves the normal float32 range) and, below about -104, exp
-// underflows to 0 and the row normalises 0 / 0.
-template <int K>
-__device__ __forceinline__ void rqs_micro(float v,
-                                          const float (&raw)[3 * K - 1],
-                                          float tb, float& y, float& ld) {
-  const float c0 = 2.f * tb * kMinBinWidth;
-  const float c1 = 2.f * tb * (1.f - kMinBinWidth * K);
-  float ew[K], eh[K], sw = 0.f, sh = 0.f;
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    ew[j] = expf(fminf(raw[j], 60.f));
-    eh[j] = expf(fminf(raw[K + j], 60.f));
-    sw += ew[j];
-    sh += eh[j];
-  }
-  const bool inside = (v > -tb) && (v < tb);
-  const float safe = fminf(fmaxf(v, -tb), tb);
-  float cx = 0.f, cy = 0.f;
-  float x_k = 0.f, y_k = 0.f, w = 1.f, h = 1.f;
-  int k = 0;
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const float ws = c0 + c1 * (ew[j] / sw);
-    const float hs = c0 + c1 * (eh[j] / sh);
-    cx += ws;
-    cy += hs;
-    const float x_lo = (cx - tb) - ws;
-    const float y_lo = (cy - tb) - hs;
-    if (j == 0 || safe >= y_lo) {
-      k = j;
-      x_k = x_lo;
-      y_k = y_lo;
-      w = ws;
-      h = hs;
-    }
-  }
-  float rl = 0.f, rr = 0.f;
-#pragma unroll
-  for (int j = 0; j < K - 1; ++j) {
-    if (j == k - 1) rl = raw[2 * K + j];
-    if (j == k) rr = raw[2 * K + j];
-  }
-  const float d_k = (k == 0) ? 1.f : kMinDerivative + softplus(rl);
-  const float d_k1 = (k == K - 1) ? 1.f : kMinDerivative + softplus(rr);
-  const float s = h / w;
-  const float t = d_k1 + d_k - 2.f * s;
-  const float y_rel = safe - y_k;
-  const float a = h * (s - d_k) + y_rel * t;
-  const float b = h * d_k - y_rel * t;
-  const float c = -s * y_rel;
-  const float disc = fmaxf(b * b - 4.f * a * c, 0.f);
-  const float xi = fminf(fmaxf((2.f * c) / (-b - sqrtf(disc)), 0.f), 1.f);
-  const float xm = 1.f - xi;
-  const float den = s + t * xi * xm;
-  const float l = 2.f * logf(s) +
-                  logf(d_k1 * xi * xi + 2.f * s * xi * xm + d_k * xm * xm) -
-                  2.f * logf(den);
-  y = inside ? xi * w + x_k : v;
-  ld = inside ? -l : 0.f;
-}
-
-// The spline of every active dim of the sub-tile: thread t takes the
-// (slot a, particle p) pairs j = t, t + 2S, ... with p = t % S, so all of a
-// thread's pairs belong to one particle. Returns their log-det sum.
-template <int D, int H1, int H2, int K, int S, bool MICRO>
-__device__ __forceinline__ float spline_phase(const float* __restrict__ out,
-                                              float* __restrict__ xs, int t,
-                                              int layer, float tb) {
-  using Sh = Shape<D, H1, H2, K, true>;
-  float sum = 0.f;
-  for (int j = t; j < Sh::A * S; j += 2 * S) {
-    const int a = j / S, p = j % S;
-    const int i = 2 * a + (layer & 1);  // the a-th active dim
-    if (i >= D) continue;               // odd D: the dummy group
-    float raw[Sh::P];
-#pragma unroll
-    for (int q = 0; q < Sh::P; ++q) raw[q] = out[(a * Sh::P + q) * S + p];
-    float y, e;
-    if constexpr (MICRO) {
-      rqs_micro<K>(xs[i * S + p], raw, tb, y, e);
-    } else {
-      rqs<K, true>(xs[i * S + p], raw, tb, y, e);
-    }
-    xs[i * S + p] = y;
-    sum += e;
-  }
-  return sum;
-}
-
-// All layers' packed weights (ops/fused_coupling.py::prepare_params) into
-// shared memory, W1 and W2 transposed to input-major so a thread's RO
-// consecutive outputs are one vector load.
-template <int D, int H1, int H2, int K>
-__device__ __forceinline__ void load_staged_weights(
-    float* __restrict__ dst, const float* __restrict__ src, int n_layers) {
-  using Sh = Shape<D, H1, H2, K, true>;
-  const int total = n_layers * Sh::SIZE;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int layer = e / Sh::SIZE, r = e % Sh::SIZE;
-    int to = r;
-    if (r >= Sh::W1 && r < Sh::W1 + H1 * D) {  // (H1 x D) -> (D x H1)
-      const int q = r - Sh::W1;
-      to = Sh::W1 + (q % D) * H1 + q / D;
-    } else if (r >= Sh::W2 && r < Sh::W2 + H2 * H1) {  // (H2 x H1) -> (H1 x H2)
-      const int q = r - Sh::W2;
-      to = Sh::W2 + (q % H1) * H2 + q / H1;
-    }
-    dst[layer * Sh::SIZE + to] = src[e];
-  }
-}
-
-// D1/D2's conditioner of layer `layer` for rows r0 .. r0 + 15 of a
-// sub-tile (xs: its coordinates, [D][S]), by one warp, from the packed
-// layer w of the coupling kernel B1 (coupling_mma.cuh MmaShape): the pass
-// of conditioner_mma on one row tile. h1 on FP32 FMAs straight into the A
-// fragments, h1 . W2 and h2 . W3 as split-TF32 mma.sync m16n8k8 summed by
-// k-steps with the last bit's correction (mma_split_step<true>), h2 kept
-// in the accumulator fragments.
-// The transformer parameters of row p's active dim a go to
-// out[p * ROW + a * G + q].
-template <class M, int S>
-__device__ __forceinline__ void tile_conditioner(const float* __restrict__ w,
-                                                 const float* __restrict__ xs,
-                                                 float* __restrict__ out,
-                                                 int layer, int r0,
-                                                 int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int odd = layer & 1;
-  // The conditioning inputs of rows g and g + 8 of the tile.
-  float u[2][M::C];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int c = 0; c < M::C; ++c) {
-      u[h][c] = xs[(2 * c + 1 - odd) * S + r0 + g + 8 * h];
-    }
-  }
-  float acc[M::KS2][4];
-#pragma unroll
-  for (int j = 0; j < M::KS2; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  }
-#pragma unroll
-  for (int s = 0; s < M::KS1; ++s) {
-    // First hidden layer, units 8s + 2t + e of rows g + 8h, in the A
-    // fragment order (g, e = 0), (g + 8, 0), (g, 1), (g + 8, 1).
-    uint32_t hh[4], hl[4];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int unit = 8 * s + 2 * t + e;
-      const float bias = w[M::B1 + unit];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float a = 0.f;
-#pragma unroll
-        for (int c = 0; c < M::C; ++c) {
-          a = fmaf(w[M::W1 + unit * M::C + c], u[h][c], a);
-        }
-        split_tf32(fmaxf(a + bias, 0.f), hh[2 * e + h], hl[2 * e + h]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < M::KS2; ++j) {
-      const WeightFragment b(w + M::W2 + 64 * (s * M::KS2 + j) + 2 * lane);
-      mma_split_step<true>(acc[j], hh, hl, b);
-    }
-  }
-  // h2 = relu(acc + b2), kept as the accumulator fragments.
-#pragma unroll
-  for (int j = 0; j < M::KS2; ++j) {
-    const float2 bias =
-        *reinterpret_cast<const float2*>(w + M::B2 + 8 * j + 2 * t);
-    acc[j][0] = fmaxf(acc[j][0] + bias.x, 0.f);
-    acc[j][1] = fmaxf(acc[j][1] + bias.y, 0.f);
-    acc[j][2] = fmaxf(acc[j][2] + bias.x, 0.f);
-    acc[j][3] = fmaxf(acc[j][3] + bias.y, 0.f);
-  }
-  float o[M::NT][4];
-#pragma unroll
-  for (int n = 0; n < M::NT; ++n) {
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  }
-#pragma unroll
-  for (int s = 0; s < M::KS2; ++s) {
-    // h2's n-tile s is the A fragment of k-step s (as in conditioner_mma).
-    uint32_t ah[4], al[4];
-    split_tf32(acc[s][0], ah[0], al[0]);
-    split_tf32(acc[s][2], ah[1], al[1]);
-    split_tf32(acc[s][1], ah[2], al[2]);
-    split_tf32(acc[s][3], ah[3], al[3]);
-#pragma unroll
-    for (int n = 0; n < M::NT; ++n) {
-      const WeightFragment b(w + M::W3 + 64 * (s * M::NT + n) + 2 * lane);
-      mma_split_step<true>(o[n], ah, al, b);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < M::NT; ++n) {
-    const int col = 8 * n + 2 * t;
-    const float2 bias = *reinterpret_cast<const float2*>(w + M::B3 + col);
-    *reinterpret_cast<float2*>(out + (r0 + g) * M::ROW + col) =
-        make_float2(o[n][0] + bias.x, o[n][1] + bias.y);
-    *reinterpret_cast<float2*>(out + (r0 + g + 8) * M::ROW + col) =
-        make_float2(o[n][2] + bias.x, o[n][3] + bias.y);
-  }
-}
-
-// D1/D2's splines: as spline_phase, thread t taking the (active dim a,
-// particle p) pairs j = t, t + 2S, ... (a = j / S, p = j % S), each pair's
-// parameters read from the particle's row of out as float4s.
+// D1/D2's splines: thread t takes the (active dim a, particle p) pairs
+// j = t, t + 2S, ... (a = j / S, p = j % S), so all of a thread's pairs
+// belong to one particle; each pair's parameters are read from the
+// particle's row of out as float4s. Returns their log-det sum.
 template <class M, int S>
 __device__ __forceinline__ float tile_splines(const float* __restrict__ out,
                                               float* __restrict__ xs, int t,
@@ -402,7 +103,8 @@ __device__ __forceinline__ float tile_splines(const float* __restrict__ out,
 // D1 (Q = 2) and D2: Q sub-tiles of S particles per tile, each owned by a
 // group of 2S threads = S/16 warps, warp k of a group the conditioner of
 // rows 16k .. 16k + 15 of its sub-tile. Every layer's packed weights
-// (prepare_mma_params) in shared memory.
+// (prepare_mma_params) in shared memory, with per sub-tile buffers
+// (MmaStagedBuffers).
 template <int D, int H1, int H2, int K, int Q, int S>
 __global__ void __launch_bounds__(2 * Q * S, 1)
     staged_mma_kernel(const float* __restrict__ x, float* __restrict__ z,
@@ -433,8 +135,19 @@ __global__ void __launch_bounds__(2 * Q * S, 1)
     float part = 0.f;
     for (int layer = 0; layer < n_layers; ++layer) {
       named_barrier(g + 1, T);
-      tile_conditioner<M, S>(w + layer * M::SIZE, xs, buf + Buf::OUT, layer,
-                             r0, lane);
+      // The warp's rows r0 .. r0 + 15: conditioner_mma on one row tile,
+      // its conditioning inputs (rows g and g + 8) from xs.
+      const int odd = layer & 1;
+      float u[2][M::C];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int c = 0; c < M::C; ++c) {
+          u[h][c] = xs[(2 * c + 1 - odd) * S + r0 + (lane >> 2) + 8 * h];
+        }
+      }
+      conditioner_mma<M, 1>(w + layer * M::SIZE, u,
+                            buf + Buf::OUT + r0 * M::ROW, lane);
       named_barrier(g + 1, T);
       part += tile_splines<M, S>(buf + Buf::OUT, xs, t, layer, tb);
     }
@@ -451,114 +164,156 @@ __global__ void __launch_bounds__(2 * Q * S, 1)
   }
 }
 
-// D3: two sub-tiles of S particles per tile, one layer apart, the whole
-// block in lock step; every layer's per-particle packed weights
-// (prepare_params) in shared memory.
-template <int D, int H1, int H2, int K, int S, bool MICRO>
-__global__ void __launch_bounds__(4 * S, 1)
+constexpr int kPairedWarps = 16;  // most warps per D3 block
+
+// One stage of D3's schedule for the warp's 32 particles, lane l holding
+// particle l in f: rows 0-15 (row tile 0, group A) run layer `stage`, rows
+// 16-31 (row tile 1, group B) layer `stage - 1`, each from its layer's
+// packed weights in w. Both tiles live: one paired conditioner_mma, the two
+// tiles' chains of products interleaved in one k-loop; at stage 0 and
+// n_layers the one live tile alone. Then each lane runs the transformers of
+// its own particle at its own tile's layer. All 32 lanes call it together,
+// after a __syncwarp since the buffer's last reads.
+template <class M, bool MICRO>
+__device__ __forceinline__ void paired_stage(const float* __restrict__ w,
+                                             int stage, int n_layers,
+                                             float tb, float* __restrict__ buf,
+                                             int lane, float (&f)[M::D],
+                                             float& log_det) {
+  const int layer = stage - (lane >> 4);  // the lane's row tile's
+  const bool odd = layer & 1;
+  float v[M::C];  // the lane's conditioning inputs at that layer
+#pragma unroll
+  for (int c = 0; c < M::C; ++c) v[c] = odd ? f[2 * c] : f[2 * c + 1];
+  const int g = lane >> 2;
+  if (stage > 0 && stage < n_layers) {
+    float u[4][M::C];
+#pragma unroll
+    for (int c = 0; c < M::C; ++c) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        u[r][c] = __shfl_sync(0xffffffffu, v[c], g + 8 * r);
+      }
+    }
+    conditioner_mma<M, 2, true>(w + stage * M::SIZE, u, buf, lane,
+                                w + (stage - 1) * M::SIZE);
+  } else {
+    const int m = stage == 0 ? 0 : 1;  // the live row tile
+    float u[2][M::C];
+#pragma unroll
+    for (int c = 0; c < M::C; ++c) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        u[h][c] = __shfl_sync(0xffffffffu, v[c], 16 * m + g + 8 * h);
+      }
+    }
+    conditioner_mma<M, 1>(w + (stage - m) * M::SIZE, u,
+                          buf + 16 * m * M::ROW, lane);
+  }
+  __syncwarp();
+  if (layer >= 0 && layer < n_layers) {
+    log_det += transformers_mma<M, true, MICRO>(buf, lane, odd, tb, f);
+  }
+  __syncwarp();
+}
+
+// D3: a persistent block of up to kPairedWarps independent warps with
+// every layer's packed weights (prepare_mma_params) in shared memory, and
+// a buffer of 32 rows of transformer parameters per warp. A warp takes
+// tiles of 32 particles (group A: the first 16, group B: the next 16)
+// through the n_layers + 1 stages of the pair.
+template <int D, int H1, int H2, int K, bool MICRO>
+__global__ void __launch_bounds__(32 * kPairedWarps, 1)
     paired_kernel(const float* __restrict__ x, float* __restrict__ z,
                   float* __restrict__ log_det,
                   const float* __restrict__ weights, int n, int n_layers,
                   float tb) {
-  using Sh = Shape<D, H1, H2, K, true>;
-  using Buf = StagedBuffers<D, H1, H2, K, S>;
-  constexpr int Q = 2, T = 2 * S;  // sub-tiles, threads per sub-tile
+  using M = MmaShape<D, H1, H2, K, true>;
   extern __shared__ float4 smem4[];
   float* w = reinterpret_cast<float*>(smem4);
-  load_staged_weights<D, H1, H2, K>(w, weights, n_layers);
+  load_shared(smem4, reinterpret_cast<const float4*>(weights),
+              n_layers * M::SIZE / 4);
   __syncthreads();
-  const int g = threadIdx.x / T, t = threadIdx.x % T;
-  float* buf = w + n_layers * Sh::SIZE + g * Buf::SIZE;
-  float* xs = buf + Buf::X;
-  const int n_tiles = (n + Q * S - 1) / (Q * S);
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * Q * S + g * S;
-    // The sub-tile, zeros past n (the ragged last tile).
-    for (int e = t; e < S * D; e += T) {
-      const int p = e / D, i = e % D;
-      xs[i * S + p] = base + p < n ? x[(size_t)(base + p) * D + i] : 0.f;
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  float* buf = w + n_layers * M::SIZE + (threadIdx.x >> 5) * 32 * M::ROW;
+  const int stages = n_layers > 0 ? n_layers + 1 : 0;
+  const int n_tiles = (n + 31) / 32;
+  for (int tile = blockIdx.x * warps + (threadIdx.x >> 5); tile < n_tiles;
+       tile += gridDim.x * warps) {
+    const int p = 32 * tile + lane;
+    const bool live = p < n;
+    float f[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) f[i] = live ? x[(size_t)p * D + i] : 0.f;
+    float ld = 0.f;
+#pragma unroll 1
+    for (int stage = 0; stage < stages; ++stage) {
+      paired_stage<M, MICRO>(w, stage, n_layers, tb, buf, lane, f, ld);
     }
-    float part = 0.f;
-    for (int stage = 0; stage < n_layers + Q - 1; ++stage) {
-      const int layer = stage - g;
-      const bool live = layer >= 0 && layer < n_layers;
-      const float* wl = w + (live ? layer : 0) * Sh::SIZE;
-      __syncthreads();
-      if (live) {
-        dense<D, H1, S, true, true>(wl + Sh::W1, wl + Sh::B1, xs,
-                                    buf + Buf::H1S, t, layer);
-      }
-      __syncthreads();
-      if (live) {
-        dense<H1, H2, S, true, false>(wl + Sh::W2, wl + Sh::B2,
-                                      buf + Buf::H1S, buf + Buf::H2S, t,
-                                      layer);
-      }
-      __syncthreads();
-      if (live) {
-        dense<H2, Sh::OUTP, S, false, false>(wl + Sh::W3, wl + Sh::B3,
-                                             buf + Buf::H2S, buf + Buf::OUT,
-                                             t, layer);
-      }
-      __syncthreads();
-      if (live) {
-        part += spline_phase<D, H1, H2, K, S, MICRO>(buf + Buf::OUT, xs, t,
-                                                     layer, tb);
-      }
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) z[(size_t)p * D + i] = f[i];
+      log_det[p] = ld;
     }
-    buf[Buf::LD + t] = part;
-    __syncthreads();
-    if (t < S && base + t < n) {
-      log_det[base + t] = buf[Buf::LD + t] + buf[Buf::LD + S + t];
-    }
-    for (int e = t; e < S * D; e += T) {
-      const int p = e / D, i = e % D;
-      if (base + p < n) z[(size_t)(base + p) * D + i] = xs[i * S + p];
-    }
-    __syncthreads();
   }
 }
 
-// Floats per packed layer and per sub-tile buffer of a schedule: D3's
-// per-particle layout (Shape, StagedBuffers), or D1/D2's tensor-core one
-// (MmaShape, the coupling kernel's packing; MmaStagedBuffers).
+// Floats per packed layer (B1's packing, MmaShape, for every schedule) and
+// per sub-tile buffer: D1/D2's MmaStagedBuffers, or D3's 16 rows of a
+// warp's transformer parameters (its coordinates and log-dets stay in
+// registers).
 template <int D, int H1, int H2, int K, int S, bool PAIRED>
 struct StagedLayout {
   using M = MmaShape<D, H1, H2, K, true>;
-  static constexpr int LAYER =
-      PAIRED ? Shape<D, H1, H2, K, true>::SIZE : M::SIZE;
-  static constexpr int BUFFER = PAIRED ? StagedBuffers<D, H1, H2, K, S>::SIZE
-                                       : MmaStagedBuffers<M, S>::SIZE;
+  static constexpr int LAYER = M::SIZE;
+  static constexpr int BUFFER =
+      PAIRED ? S * M::ROW : MmaStagedBuffers<M, S>::SIZE;
 };
 
+// A block takes the weights and Q sub-tile buffers: D1/D2 one tile of Q
+// sub-tiles (2QS threads), D3 one of Q = 2 per warp, as many warps as fit
+// (at most kPairedWarps). A persistent grid of as many blocks as fit on
+// the SMs at once, or as the tiles need.
 template <int D, int H1, int H2, int K, int Q, int S, bool PAIRED,
           bool MICRO>
 int launch_staged(const float* x, float* z, float* ld, const float* w,
                   int n, int n_layers, float tb, cudaStream_t stream) {
-  static_assert(!PAIRED || Q == 2, "the paired schedule takes two sub-tiles");
+  static_assert(!PAIRED || (Q == 2 && S == 16),
+                "the paired schedule: two 16-row tiles per warp");
   static_assert(PAIRED || !MICRO, "rqs_micro is the paired schedule's");
   using L = StagedLayout<D, H1, H2, K, S, PAIRED>;
-  const size_t smem =
-      sizeof(float) * ((size_t)n_layers * L::LAYER + (size_t)Q * L::BUFFER);
-  const int threads = 2 * Q * S;
+  int device = 0, sms = 0, max_smem = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  const long long weights = 4LL * n_layers * L::LAYER;
+  const long long buffers = 4LL * Q * L::BUFFER;
+  int warps = 2 * Q * S / 32, per_block = 1;  // tiles a block takes at once
+  if constexpr (PAIRED) {
+    const long long fit = (max_smem - weights) / buffers;
+    warps = fit < kPairedWarps ? (int)fit : kPairedWarps;
+    if (warps < 1) return (int)cudaErrorInvalidConfiguration;
+    per_block = warps;
+  }
+  const size_t smem = weights + (size_t)per_block * buffers;
+  const int threads = 32 * warps;
   void (*kernel)(const float*, float*, float*, const float*, int, int, float);
   if constexpr (PAIRED) {
-    kernel = paired_kernel<D, H1, H2, K, S, MICRO>;
+    kernel = paired_kernel<D, H1, H2, K, MICRO>;
   } else {
     kernel = staged_mma_kernel<D, H1, H2, K, Q, S>;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       threads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int tiles = (n + Q * S - 1) / (Q * S);
-  const int blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
+  const int want = (tiles + per_block - 1) / per_block;
+  const int blocks = want < sms * per_sm ? want : sms * per_sm;
   if (blocks == 0) return 0;
   kernel<<<blocks, threads, smem, stream>>>(x, z, ld, w, n, n_layers, tb);
   return (int)cudaGetLastError();

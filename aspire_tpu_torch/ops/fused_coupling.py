@@ -13,10 +13,9 @@ blocks its MADE masks keep (:func:`prepare_maf_params`, in degree order).
 This module packs those weights (once per parameter set), checks the
 packing against the library's and launches, counts launches, and wraps
 the call in a ``torch.autograd.Function`` whose backward recomputes
-through the plain torch path (the JAX package's ``custom_vjp``).
-:func:`prepare_params` packs the per-particle layout of the paired
-staged coupling kernel D3 (``ops/staged_coupling.py``; D1/D2 take the
-coupling kernel's :func:`prepare_mma_params`).
+through the plain torch path (the JAX package's ``custom_vjp``). The
+staged coupling kernels D1-D3 (``ops/staged_coupling.py``) take the
+coupling kernel's :func:`prepare_mma_params` too.
 
 On a CPU tensor a wrapper runs the plain torch version
 (``Coupling.forward_plain``/``inverse_plain``, ``MAF.forward_plain``); on
@@ -87,20 +86,6 @@ def _packed_floats(sections) -> int:
     return _round4(size)
 
 
-def layer_floats(arch) -> int:
-    """Floats per layer of the per-particle packed buffer of the paired
-    staged coupling kernel (csrc/common.cuh Shape::SIZE)."""
-    d = arch.dims
-    h1, h2 = arch.n_hidden
-    outp = _round4(((d + 1) // 2) * arch.n_params_per_dim)
-    return _packed_floats((h1 * d, h1, h2 * h1, h2, h2 * outp, outp))
-
-
-def weight_bytes(arch) -> int:
-    """Bytes of every layer in the per-particle packed layout."""
-    return 4 * arch.n_layers * layer_floats(arch)
-
-
 def mma_weight_buffers(arch) -> int:
     """Floats of a block's weight buffers in the tensor-core pass: two
     whole layers, or in the wide form two resident parts and two chunks
@@ -128,40 +113,6 @@ def should_fuse(arch, x: torch.Tensor) -> bool:
         and config_id(arch) is not None
         and coupling_shared_bytes(arch) <= MAX_SHARED_BYTES
     )
-
-
-def prepare_params(arch, params: dict) -> torch.Tensor:
-    """Pack every layer's MLP weights into the paired staged coupling
-    kernel's per-particle flat layout.
-
-    Per layer: W1 (H1, D), b1, W2 (H2, H1), b2, W3 (H2, OUTP), b3 - the
-    output layer keeps only the parameter columns of the dims the layer
-    transforms (group ``i // 2`` for active dim ``i``; a zero group pads
-    odd ``D``), as the JAX package's ``prepare_params`` does.
-    """
-    d = arch.dims
-    P = arch.n_params_per_dim
-    a = (d + 1) // 2
-    outp = _round4(a * P)
-    chunks = []
-    for layer, net in enumerate(params["layers"]):
-        (l1, l2, l3) = net["layers"]
-        w3 = l3["w"].reshape(l3["w"].shape[0], d, P)
-        b3 = l3["b"].reshape(d, P)
-        w3_sel = torch.zeros(w3.shape[0], a, P, dtype=w3.dtype,
-                             device=w3.device)
-        b3_sel = torch.zeros(a, P, dtype=w3.dtype, device=w3.device)
-        for i in range(d):
-            if (i % 2) == (layer % 2):
-                w3_sel[:, i // 2] = w3[:, i]
-                b3_sel[i // 2] = b3[i]
-        w3_sel = w3_sel.reshape(w3.shape[0], a * P)
-        _append_sections(chunks, [
-            l1["w"].t(), l1["b"], l2["w"].t(), l2["b"],
-            torch.nn.functional.pad(w3_sel, (0, outp - a * P)),
-            torch.nn.functional.pad(b3_sel.reshape(-1), (0, outp - a * P)),
-        ])
-    return _concat(chunks, arch.n_layers * layer_floats(arch), arch)
 
 
 def _append_sections(chunks: list, sections: list) -> None:

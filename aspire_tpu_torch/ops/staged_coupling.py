@@ -17,11 +17,11 @@ transformer inverse per active dim, log-dets summed), the function of
 
 :func:`staged_plain` and :func:`paired_plain` run those schedules in torch
 (a ragged last tile is padded and cut). On a CUDA tensor the wrappers
-launch ``csrc/staged_coupling.cu``: D1/D2 on the tensor cores with the
-coupling kernel's packed weights (``fused_coupling.packed_coupling_params``,
-packed once per parameter set), D3 on the FP32 pipe with the per-particle
-weights of ``fused_coupling.prepare_params`` (no zero blocks). On a CPU
-tensor they run the plain version.
+launch ``csrc/staged_coupling.cu``, every schedule on the tensor cores with
+the coupling kernel's packed weights
+(``fused_coupling.packed_coupling_params``, packed once per parameter set);
+D3's pair is a warp's two 16-row tiles (sub-tiles of 16). On a CPU tensor
+they run the plain version.
 """
 
 from __future__ import annotations
@@ -49,8 +49,8 @@ STAGED_CONFIGS = {
     1: (4, (64, 64), 8, 3, 80, False, False),
     2: (4, (64, 64), 8, 4, 64, False, False),
     3: (4, (64, 64), 8, 8, 32, False, False),
-    4: (4, (64, 64), 8, 2, 64, True, False),
-    5: (4, (64, 64), 8, 2, 64, True, True),
+    4: (4, (64, 64), 8, 2, 16, True, False),
+    5: (4, (64, 64), 8, 2, 16, True, True),
 }
 
 #: Q values of the D2 kernels compiled into the library (the dev sweep's).
@@ -62,56 +62,54 @@ q_launches = LaunchCounter()
 packed_launches = LaunchCounter()
 
 
-def buffer_floats(arch) -> int:
-    """Shared floats per particle of a D3 sub-tile (csrc StagedBuffers):
-    the coordinates, both hidden layers, the spline parameters, two log-det
-    partial sums."""
-    h1, h2 = arch.n_hidden
-    outp = FC._round4(((arch.dims + 1) // 2) * arch.n_params_per_dim)
-    return arch.dims + h1 + h2 + outp + 2
+def buffer_floats(arch, paired: bool) -> int:
+    """Shared floats per particle of a sub-tile (h1 and h2 stay in
+    registers): D1/D2's (csrc MmaStagedBuffers) the coordinates, the
+    particle's row of transformer parameters (the coupling kernel's
+    warp-buffer row, ``mma_layout``'s row stride) and two log-det partial
+    sums; D3's the row alone (its coordinates and log-dets stay in
+    registers too)."""
+    row = FC.mma_layout(arch)[7]
+    return row if paired else arch.dims + row + 2
 
 
-def mma_buffer_floats(arch) -> int:
-    """Shared floats per particle of a D1/D2 sub-tile (csrc
-    MmaStagedBuffers): the coordinates, the particle's row of transformer
-    parameters (the coupling kernel's warp-buffer row, ``mma_layout``'s
-    row stride), two log-det partial sums. h1 and h2 stay in registers."""
-    return arch.dims + FC.mma_layout(arch)[7] + 2
-
-
-#: Most threads of a D1/D2 block: each then keeps 128 of an SM's 65,536
+#: Most threads of a block: each then keeps 128 of an SM's 65,536
 #: registers, which hold a warp's accumulators and fragments unspilled.
 MMA_BLOCK_THREADS = 512
 
 
+def paired_warps(arch) -> int:
+    """Warps of a D3 block: as many as fit their buffers (two sub-tiles of
+    16) beside every layer's weights in one block's shared memory, at most
+    ``MMA_BLOCK_THREADS / 32`` (csrc kPairedWarps); 0 where the weights
+    leave room for none."""
+    room = FC.MAX_SHARED_BYTES - 4 * arch.n_layers * FC.mma_layout(arch)[0]
+    return max(0, min(room // (4 * 2 * 16 * buffer_floats(arch, True)),
+                      MMA_BLOCK_THREADS // 32))
+
+
 def sub_tile(arch, q: int, paired: bool = False) -> int:
-    """Particles per sub-tile, a multiple of 16 (at least 16): the most for
-    which ``q`` sub-tiles' buffers fit beside every layer's packed weights
-    in one block's shared memory, in the variant's layout; for D1/D2 also
-    at most ``MMA_BLOCK_THREADS`` threads in the block (2S a sub-tile),
-    which binds first: their buffers hold no hidden layer."""
+    """Particles per sub-tile: D3's a warp's 16-row tile; for D1/D2 the
+    most, a multiple of 16 (at least 16), for which ``q`` sub-tiles'
+    buffers fit beside every layer's packed weights in one block's shared
+    memory with at most ``MMA_BLOCK_THREADS`` threads in the block (2S a
+    sub-tile), which binds first: their buffers hold no hidden layer."""
     if paired:
-        room = FC.MAX_SHARED_BYTES - FC.weight_bytes(arch)
-        return max(16, room // (4 * q * buffer_floats(arch)) // 16 * 16)
-    room = FC.MAX_SHARED_BYTES - 4 * arch.n_layers * layer_floats(arch, False)
-    most = min(room // (4 * q * mma_buffer_floats(arch)),
+        return 16
+    room = FC.MAX_SHARED_BYTES - 4 * arch.n_layers * FC.mma_layout(arch)[0]
+    most = min(room // (4 * q * buffer_floats(arch, False)),
                MMA_BLOCK_THREADS // (2 * q))
     return max(16, most // 16 * 16)
 
 
-def layer_floats(arch, paired: bool) -> int:
-    """Packed floats per layer of the weights the variant takes: the
-    per-particle layout (D3) or the coupling kernel's (D1/D2)."""
-    return FC.layer_floats(arch) if paired else FC.mma_layout(arch)[0]
-
-
 def shared_bytes(arch, q: int, paired: bool) -> int:
-    """A block's shared memory: every layer's packed weights and ``q``
-    sub-tile buffers of :func:`sub_tile` particles, in the variant's
-    layout."""
-    per_particle = buffer_floats(arch) if paired else mma_buffer_floats(arch)
-    return 4 * (arch.n_layers * layer_floats(arch, paired)
-                + q * sub_tile(arch, q, paired) * per_particle)
+    """A block's shared memory: every layer's packed weights and the
+    buffers of its sub-tiles of :func:`sub_tile` particles (D1/D2: ``q``;
+    D3: ``q`` per warp, :func:`paired_warps` warps, at least one)."""
+    tiles = max(1, paired_warps(arch)) if paired else 1
+    return 4 * (arch.n_layers * FC.mma_layout(arch)[0]
+                + tiles * q * sub_tile(arch, q, paired)
+                * buffer_floats(arch, paired))
 
 
 def staged_config(arch, q: int, paired: bool = False,
@@ -312,14 +310,13 @@ def _launch(counter: LaunchCounter, arch, weights: torch.Tensor,
                          f"got {x.device}")
     lib = load_library()
     s = sub_tile(arch, q, paired)
-    buffer = s * (buffer_floats(arch) if paired else mma_buffer_floats(arch))
     row = (ctypes.c_int * 10)()
     if lib.aspire_staged_config(cfg, row) != 0 or tuple(row[:8]) != (
             arch.dims, *arch.n_hidden, arch.num_bins, q, s, int(paired),
-            int(micro)) or row[9] != buffer:
+            int(micro)) or row[9] != s * buffer_floats(arch, paired):
         raise RuntimeError("staged configuration table disagrees with the "
                            "kernel library")
-    layer = layer_floats(arch, paired)
+    layer = FC.mma_layout(arch)[0]
     FC._check_launch(lib, "staged coupling kernel", arch, weights, x, row[8],
                      layer, shared_bytes(arch, q, paired))
     if weights.numel() != arch.n_layers * layer or weights.data_ptr() % 16:
@@ -350,8 +347,8 @@ def launch_q(arch, weights: torch.Tensor, x: torch.Tensor, q: int):
 
 def launch_packed(arch, weights: torch.Tensor, x: torch.Tensor,
                   micro: bool = False):
-    """D3 (with ``rqs_micro`` if ``micro``) on a CUDA ``x``, weights packed
-    by ``fused_coupling.prepare_params``."""
+    """D3 (with ``rqs_micro`` if ``micro``) on a CUDA ``x``, weights as
+    D1's."""
     return _launch(packed_launches, arch, weights, x, 2, True, micro)
 
 
@@ -377,5 +374,5 @@ def packed_apply(arch, params: dict, x: torch.Tensor, micro: bool = False):
     if x.device.type == "cpu":
         return paired_plain(arch, params, x, sub_tile(arch, 2, True),
                             micro)
-    return launch_packed(arch, FC.prepare_params(arch, params),
+    return launch_packed(arch, FC.packed_coupling_params(arch, params),
                          x.contiguous(), micro)

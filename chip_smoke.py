@@ -43,8 +43,8 @@ main paths (6, 7, 8) right after the build:
    n = 131072, each variant through its wrapper and timed in turns with
    the coupling kernel B1 (B1, variant, variant, B1), then held against
    its plain schedule (float64 deciding f32-ill-conditioned points) and,
-   but for D3 with rqs_micro, against B1 (D1/D2 on the tensor cores, D3
-   on the FP32 pipe);
+   but for D3 with rqs_micro, against B1 (all on the tensor cores, with
+   B1's packed weights);
 10. the uniforms kernel (D4): the probe's (8, 256) at seed (3, 7), the
    131072 x 8 x 20 uniforms of a 20-step chain and a draw whose size is
    no multiple of 4, bit for bit against the plain Philox stream; timed in
@@ -57,9 +57,9 @@ main paths (6, 7, 8) right after the build:
    profiler's CUDA activity records it (kernel_ms), with it. Every
    kernel_ms reading is made after every event time and pipeline: once
    the profiler has traced the card, each launch costs the host more.
-   A bound is the least time on the pipes the kernel computes with (the
-   FP32 pipe for D3; for B1/B3, B2, B4, D1 and D2 their split-TF32
-   tensor-core products beside it).
+   A bound is the least time on the pipes the kernel computes with (for
+   every kernel but D4 its split-TF32 tensor-core products beside the FP32
+   pipe's first conditioner layer).
 
 ``python3 chip_smoke.py --chain-ab PARENT`` runs none of that: it times
 the chain kernel B2 of the checkout at PARENT (e.g. a ``git archive`` of
@@ -70,7 +70,9 @@ reads phase 3's check of both checkouts' kernels on 20 input draws per
 flow (``coupling_ab``); ``--maf-ab PARENT`` the same for the MAF kernel
 B4 (``maf_ab``); ``--staged-ab PARENT`` the same for D1, D2 at each
 compiled Q, D3 and B1 on phase 9's flow, with their errors against
-float64 on 20 input draws (``staged_ab``); ``--wide-ab PARENT`` the same
+float64 on 20 input draws of that flow and of nsf-tpu, read by the rule
+that decides an arithmetic such as a k-step sum correction
+(``staged_ab``, ``mean_rule``); ``--wide-ab PARENT`` the same
 for config 5's wide kernels B1, B3 and B2 at n = 1048576 and 131072,
 with their errors against float64 and each checkout's ptxas report
 (``wide_ab``). ``--accumulation`` reads B2's flow density (on the d = 4
@@ -455,7 +457,8 @@ def error_summary(sums: dict) -> dict:
         ssk, ssp, sk, sp, m = acc.tolist()
         out[what] = {"rms_kernel": math.sqrt(ssk / m),
                      "rms_plain": math.sqrt(ssp / m),
-                     "mean_kernel": sk / m, "mean_plain": sp / m}
+                     "mean_kernel": sk / m, "mean_plain": sp / m,
+                     "count": m}
     return out
 
 
@@ -609,26 +612,14 @@ def staged_flow(device):
         dims=4, n_layers=4, n_hidden=(64, 64), transformer="rqs"))
 
 
-def staged_bounds(arch, n: int) -> dict:
-    """Bounds of the staged kernels at n, on the pipes each computes with:
-    D1/D2's first conditioner layer on FP32 and the two wide ones on the
-    tensor cores in split TF32, with the coupling kernel's packed weights
-    (``coupling_bound``; all on FP32 beside it as ``bound_fp32_ms``); D3's
-    all on FP32 with the per-particle weights."""
-    from aspire_tpu_torch.ops import fused_coupling as FC
-
-    return {"split TF32": coupling_bound(arch, n),
-            "FP32": bound(n * coupling_flop(arch),
-                          density_bytes(arch, n, FC.weight_bytes(arch)))}
-
-
 def phase_staged_coupling(device, n: int) -> dict:
     """D1-D3 as the dev scripts' A/B runs them: ``staged_flow`` on n
     standard-normal inputs; every variant through its wrapper and timed
     in turns with B1 (B1, variant, variant, B1), with the launch counts of
     that run; then each held against its plain schedule and, but for D3
-    with rqs_micro, against B1 on the same inputs. Each variant's bound
-    is that of its pipe (``staged_bounds``)."""
+    with rqs_micro, against B1 on the same inputs. Every variant runs B1's
+    pass on B1's packed weights, so B1's bound is theirs
+    (``coupling_bound``)."""
     import torch
 
     from aspire_tpu_torch.ops import fused_coupling as FC
@@ -640,39 +631,35 @@ def phase_staged_coupling(device, n: int) -> dict:
     gen.manual_seed(7)
     x = torch.randn((n, 4), generator=gen, device=device)
     x64 = x.double()
-    # D3's per-particle layout; B1's own, which D1/D2 take too.
-    w = FC.prepare_params(arch, params)
-    w_mma = FC.prepare_mma_params(arch, params)
+    w_mma = FC.prepare_mma_params(arch, params)  # B1's, which D1-D3 take
 
     def b1():
         return FC.launch_packed(arch, "forward", w_mma, x)
 
-    def variant(apply, launch, plain, pipe, exact=None, against_b1=True):
-        return dict(apply=apply, launch=launch, plain=plain, pipe=pipe,
-                    exact=exact, against_b1=against_b1)
+    def variant(apply, launch, plain, exact=None, against_b1=True):
+        return dict(apply=apply, launch=launch, plain=plain, exact=exact,
+                    against_b1=against_b1)
 
     # D1 is D2's q = 2 configuration: its run stands for that Q.
     variants = {"D1": variant(
         lambda: SC.interleaved_apply(arch, params, x),
         lambda: SC.launch_interleaved(arch, w_mma, x),
-        lambda: SC.staged_plain(arch, params, x, 2, SC.sub_tile(arch, 2)),
-        "split TF32")}
+        lambda: SC.staged_plain(arch, params, x, 2, SC.sub_tile(arch, 2)))}
     for q in (q for q in SC.COMPILED_Q if q != 2):
         variants[f"D2 q={q}"] = variant(
             lambda q=q: SC.q_apply(arch, params, x, q),
             lambda q=q: SC.launch_q(arch, w_mma, x, q),
             lambda q=q: SC.staged_plain(arch, params, x, q,
-                                        SC.sub_tile(arch, q)),
-            "split TF32")
+                                        SC.sub_tile(arch, q)))
     s2 = SC.sub_tile(arch, 2, paired=True)
     variants["D3"] = variant(
         lambda: SC.packed_apply(arch, params, x),
-        lambda: SC.launch_packed(arch, w, x),
-        lambda: SC.paired_plain(arch, params, x, s2), "FP32")
+        lambda: SC.launch_packed(arch, w_mma, x),
+        lambda: SC.paired_plain(arch, params, x, s2))
     variants["D3 micro"] = variant(
         lambda: SC.packed_apply(arch, params, x, micro=True),
-        lambda: SC.launch_packed(arch, w, x, micro=True),
-        lambda: SC.paired_plain(arch, params, x, s2, micro=True), "FP32",
+        lambda: SC.launch_packed(arch, w_mma, x, micro=True),
+        lambda: SC.paired_plain(arch, params, x, s2, micro=True),
         exact=lambda: SC.paired_plain(arch, params64, x64, s2, micro=True),
         against_b1=False)
 
@@ -716,15 +703,15 @@ def phase_staged_coupling(device, n: int) -> dict:
             "ms": runs[key]["ms"], "b1_ms": runs[key]["b1_ms"],
             "turns_ms": runs[key]["turns_ms"],
             "ms_single_call": runs[key]["ms_single_call"],
-            "plain_ms": cuda_ms(v["plain"]), "pipe": v["pipe"],
+            "plain_ms": cuda_ms(v["plain"]),
             "max_abs_err": max(max_err(z_k, z_p), max_err(ld_k, ld_p)),
             "max_abs_err_vs_b1": b1_err, "ill_conditioned_points": n_bad}
         kernel_ms_later(results[key], "kernel_ms", v["launch"],
-                        "staged_mma_kernel" if v["pipe"] == "split TF32"
-                        else "paired_kernel")
+                        "paired_kernel" if key.startswith("D3")
+                        else "staged_mma_kernel")
         log(f"{key} vs plain at n={n}: {results[key]}")
     return {"variants": results, "launches": launches,
-            "bounds": staged_bounds(arch, n)}
+            "bound": coupling_bound(arch, n)}
 
 
 def phase_prng(device, n: int) -> dict:
@@ -1049,14 +1036,13 @@ def coupling_turn(n: int, draws: int) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    pack = getattr(FC, "prepare_mma_params", None) or FC.prepare_params
     times, later = {}, []
     for name, (arch, seed, scale) in coupling_flows().items():
         arch, params = perturbed_flow(dev, seed, arch, scale)
         gen = torch.Generator(device=dev)
         gen.manual_seed(1)
         x = 2.0 * torch.randn((n, 4), generator=gen, device=dev)
-        w = pack(arch, params)
+        w = FC.prepare_mma_params(arch, params)
         for mode in ("forward", "inverse"):
             def run(arch=arch, mode=mode, w=w, x=x):
                 return FC.launch_packed(arch, mode, w, x)
@@ -1138,63 +1124,87 @@ def staged_launchers(arch, params) -> dict:
     """D1, D2 at each other compiled Q, D3 and B1 of the checkout whose
     ``aspire_tpu_torch`` the process imports: per name, a function of x
     that launches the kernel on weights packed once in the layout it takes
-    (D1/D2 took D3's per-particle ``prepare_params`` before they moved to
-    the tensor cores, where they take B1's), and what the profiler's name
-    of the kernel contains (each function launches one kernel)."""
+    (D3 took a per-particle ``prepare_params`` before it moved to the
+    tensor cores, where it takes B1's, as D1/D2 do; the per-particle D3
+    was compiled for 4-layer flows only), and what the profiler's name of
+    the kernel contains (each function launches one kernel)."""
     from aspire_tpu_torch.ops import fused_coupling as FC
     from aspire_tpu_torch.ops import staged_coupling as SC
 
-    w_b1, w_d3 = (FC.prepare_mma_params(arch, params),
-                  FC.prepare_params(arch, params))
-    w = w_b1 if hasattr(SC, "mma_buffer_floats") else w_d3
+    w = FC.prepare_mma_params(arch, params)
+    w_d3 = (FC.prepare_params(arch, params) if hasattr(FC, "prepare_params")
+            else w)
     out = {"D1": (lambda x: SC.launch_interleaved(arch, w, x), "staged")}
     for q in (q for q in SC.COMPILED_Q if q != 2):
         out[f"D2 q={q}"] = (lambda x, q=q: SC.launch_q(arch, w, x, q),
                             "staged")
-    out["D3"] = (lambda x: SC.launch_packed(arch, w_d3, x), "_kernel")
-    out["B1"] = (lambda x: FC.launch_packed(arch, "forward", w_b1, x),
+    if SC.staged_config(arch, 2, True) is not None:
+        out["D3"] = (lambda x: SC.launch_packed(arch, w_d3, x), "paired")
+    out["B1"] = (lambda x: FC.launch_packed(arch, "forward", w, x),
                  "coupling_kernel")
     return out
 
 
-def staged_accuracy(device, launchers: dict, arch, params, n: int,
-                    draws: int) -> dict:
-    """Each of ``launchers`` (``staged_launchers``) against float64 over
-    input draws 1..``draws`` of n standard normals: per kernel the draws
-    the card rule misses and the rms and mean errors of z and log det,
-    the kernel's and the plain float32 pass's (``error_summary``)."""
+def staged_flows(device) -> dict:
+    """The flows the staged kernels' errors are read on, each with the
+    scale of its standard-normal inputs: the dev scripts' flow
+    (``staged_flow``, as ``phase_staged_coupling`` feeds it) and nsf-tpu
+    (3 layers of the same shape, as ``coupling_accuracy`` feeds it)."""
+    arch, seed, scale = coupling_flows()["nsf-tpu"]
+    return {"dev": (*staged_flow(device), 1.0),
+            "nsf-tpu": (*perturbed_flow(device, seed, arch, scale), 2.0)}
+
+
+def staged_accuracy(device, n: int, draws: int) -> dict:
+    """``staged_launchers`` of every flow of ``staged_flows`` against
+    float64 over input draws 1..``draws`` of n inputs: per flow and
+    kernel the draws the card rule misses and the rms and mean errors of
+    z and log det, the kernel's and the plain float32 pass's
+    (``error_summary``)."""
     import torch
 
-    params64 = as_float64(params)
-    sums = {key: {} for key in launchers}
-    missed = {key: [] for key in launchers}
-    for draw in range(1, draws + 1):
-        gen = torch.Generator(device=device)
-        gen.manual_seed(draw)
-        x = torch.randn((n, arch.dims), generator=gen, device=device)
-        plain = arch.forward_plain(params, x)
-        exact = arch.forward_plain(params64, x.double())
-        for key, (launch, _) in launchers.items():
-            ok = True
-            for what, k, p, e in zip(("z", "log_det"), launch(x), plain,
-                                     exact):
-                error_sums(k, p, e, sums[key], what)
-                ok = ok and rule_holds(*rule_points(k, p, e), p.numel())
-            if not ok:
-                missed[key].append(draw)
-    return {key: {"draws": draws, "n": n, "missed": missed[key],
-                  "errors": error_summary(sums[key])} for key in launchers}
+    out = {}
+    for flow, (arch, params, scale) in staged_flows(device).items():
+        launchers = staged_launchers(arch, params)
+        params64 = as_float64(params)
+        sums = {key: {} for key in launchers}
+        missed = {key: [] for key in launchers}
+        for draw in range(1, draws + 1):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(draw)
+            x = scale * torch.randn((n, arch.dims), generator=gen,
+                                    device=device)
+            plain = arch.forward_plain(params, x)
+            exact = arch.forward_plain(params64, x.double())
+            for key, (launch, _) in launchers.items():
+                ok = True
+                for what, k, p, e in zip(("z", "log_det"), launch(x), plain,
+                                         exact):
+                    error_sums(k, p, e, sums[key], what)
+                    ok = ok and rule_holds(*rule_points(k, p, e), p.numel())
+                if not ok:
+                    missed[key].append(draw)
+        out[flow] = {key: {"draws": draws, "n": n, "missed": missed[key],
+                           "errors": error_summary(sums[key])}
+                     for key in launchers}
+    return out
 
 
 def staged_turn(n: int, draws: int) -> dict:
     """One turn of ``staged_ab``, in the checkout whose ``aspire_tpu_torch``
     the process imports: ``staged_launchers`` on ``phase_staged_coupling``'s
-    flow and inputs, each by events, single calls and then alone; and
-    ``staged_accuracy`` of them on ``draws`` draws."""
+    flow and inputs, each by events, single calls and then alone;
+    ``staged_accuracy`` of them on ``draws`` draws; and the ptxas report of
+    the staged kernels as this checkout's build logged it."""
     import torch
+
+    from aspire_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    log_text = _build.build().with_suffix(".log").read_text()
+    ptxas = {**ptxas_report(log_text, "staged"),
+             **ptxas_report(log_text, "paired")}
     arch, params = staged_flow(dev)
     launchers = staged_launchers(arch, params)
     gen = torch.Generator(device=dev)
@@ -1207,10 +1217,40 @@ def staged_turn(n: int, draws: int) -> dict:
 
         times[key] = {"ms": cuda_ms(run), "ms_single_call": cuda_ms_single(run)}
         later.append((key, run, match))
-    accuracy = staged_accuracy(dev, launchers, arch, params, n, draws)
+    accuracy = staged_accuracy(dev, n, draws)
     for key, run, match in later:
         times[key]["kernel_ms"] = kernel_ms(run, match)
-    return {"times": times, "accuracy": accuracy}
+    return {"times": times, "accuracy": accuracy, "ptxas": ptxas}
+
+
+def largest_mean_ratio(accuracy: dict, key: str) -> float:
+    """Kernel ``key``'s largest |mean error| / |plain float32's mean error|
+    against float64 over the flows and outputs of ``staged_accuracy``'s
+    ``accuracy``, counting only the outputs where plain's mean is clear of
+    its noise (beyond 3 standard errors, rms / sqrt(count))."""
+    ratios = [abs(e["mean_kernel"] / e["mean_plain"])
+              for flow in accuracy.values()
+              for e in flow[key]["errors"].values()
+              if abs(e["mean_plain"]) > 3 * e["rms_plain"] / math.sqrt(
+                  e["count"])]
+    return max(ratios) if ratios else float("nan")
+
+
+def mean_rule(accuracy: dict, other: dict, key: str) -> dict:
+    """The rule that decides an arithmetic, such as a correction of the
+    tensor core's cut k-step sums: kernel ``key`` of ``accuracy`` against
+    the same kernel of ``other`` (say with and without the correction). It
+    is kept only where, over the flows both read, its largest mean ratio
+    (``largest_mean_ratio``) is at least 20% smaller than ``other``'s and
+    its rms error is within 1.1x of ``other``'s on every output."""
+    flows = [f for f in accuracy if key in accuracy[f] and key in other[f]]
+    mine, theirs = (largest_mean_ratio({f: acc[f] for f in flows}, key)
+                    for acc in (accuracy, other))
+    rms = max(e["rms_kernel"] / other[f][key]["errors"][what]["rms_kernel"]
+              for f in flows
+              for what, e in accuracy[f][key]["errors"].items())
+    return {"largest_mean_ratio": mine, "other_largest_mean_ratio": theirs,
+            "rms_ratio": rms, "keeps": mine <= 0.8 * theirs and rms <= 1.1}
 
 
 def staged_ab(parent: str, draws: int = 20) -> dict:
@@ -1218,10 +1258,17 @@ def staged_ab(parent: str, draws: int = 20) -> dict:
     against this one's, at n = N_COUPLING, in turns (parent, change,
     change, parent) on the same card, each turn a process of its own as in
     ``chain_ab``: their times, and their errors against float64 on
-    ``draws`` input draws (the same in both turns of a checkout: the
-    kernels are deterministic)."""
-    return path_ab(parent, "staged_turn", f"{N_COUPLING}, {draws}",
-                   "staged")
+    ``draws`` input draws per flow of ``staged_flows`` (the same in both
+    turns of a checkout: the kernels are deterministic); each checkout's
+    ptxas report of the staged kernels; and per kernel of both,
+    ``mean_rule`` of the parent's arithmetic against this checkout's."""
+    out = path_ab(parent, "staged_turn", f"{N_COUPLING}, {draws}", "staged",
+                  ("accuracy", "ptxas"))
+    acc_p, acc_c = out["parent"]["accuracy"], out["change"]["accuracy"]
+    out["mean_rule_parent_over_change"] = {
+        key: mean_rule(acc_p, acc_c, key)
+        for key in acc_p["dev"] if key in acc_c["dev"]}
+    return out
 
 
 def chain_accuracy(device, draws: int = 20, n: int = N_CHAIN,
@@ -1914,17 +1961,16 @@ def main() -> int:
         density_bytes(maf4, m, 4 * maf4.n_layers * FC.maf_layer_floats(maf4)),
         tensor_flop=m * tensor_flop)
         for m in (N_COUPLING, N_CHAIN))
-    var, staged_bound = staged["variants"], staged["bounds"]
+    var, staged_bound = staged["variants"], staged["bound"]
     d2 = {"2": var["D1"], **{k[5:]: v for k, v in var.items()
                              if k.startswith("D2")}}
     for key, v in var.items():
-        b = staged_bound[v["pipe"]]
         print(f"[{card}] {key}, staged coupling density pass, 4 layers, "
               f"n={N_COUPLING}: {v['ms']:.4f} ms events, "
               f"{v['kernel_ms']:.4f} ms alone (B1 in turns "
               f"{v['b1_ms']:.4f} ms; plain torch {v['plain_ms']:.4f} ms; "
-              f"bound {b['bound_ms']:.4f} ms {v['pipe']}, all on FP32 "
-              f"{b['bound_fp32_ms']:.4f} ms)")
+              f"bound {staged_bound['bound_ms']:.4f} ms split TF32, all on "
+              f"FP32 {staged_bound['bound_fp32_ms']:.4f} ms)")
     print(f"[{card}] uniforms kernel (D4), {uniforms['n']} draws: "
           f"{uniforms['ms']:.4f} ms (plain torch {uniforms['plain_ms']:.4f} "
           f"ms; torch.rand in turns {uniforms['library_ms']:.4f} ms; kernels "
@@ -2016,7 +2062,7 @@ def main() -> int:
          "ms": var["D1"]["ms"], "ms_single_call": var["D1"]["ms_single_call"],
          "kernel_ms": var["D1"]["kernel_ms"],
          "plain_ms": var["D1"]["plain_ms"],
-         **staged_bound["split TF32"], "bound_pipe": "split TF32",
+         **staged_bound, "bound_pipe": "split TF32",
          "library_ms": None, "b1_ms": var["D1"]["b1_ms"]},
         {"name": "staged_mma_kernel q (D2)", "route": "cuda",
          "source": "aspire_tpu_torch/csrc/staged_coupling.cu",
@@ -2027,7 +2073,7 @@ def main() -> int:
          "ms_single_call": var["D2 q=4"]["ms_single_call"],
          "kernel_ms": var["D2 q=4"]["kernel_ms"],
          "plain_ms": var["D2 q=4"]["plain_ms"],
-         **staged_bound["split TF32"], "bound_pipe": "split TF32",
+         **staged_bound, "bound_pipe": "split TF32",
          "library_ms": None,
          "kernel_ms_by_q": {q: v["kernel_ms"] for q, v in d2.items()},
          "ms_by_q": {q: v["ms"] for q, v in d2.items()},
@@ -2042,7 +2088,7 @@ def main() -> int:
          "ms": var["D3"]["ms"], "ms_single_call": var["D3"]["ms_single_call"],
          "kernel_ms": var["D3"]["kernel_ms"],
          "plain_ms": var["D3"]["plain_ms"],
-         **staged_bound["FP32"], "bound_pipe": "FP32",
+         **staged_bound, "bound_pipe": "split TF32",
          "library_ms": None, "b1_ms": var["D3"]["b1_ms"],
          "micro_ms": var["D3 micro"]["ms"],
          "micro_plain_ms": var["D3 micro"]["plain_ms"]},

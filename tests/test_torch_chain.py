@@ -6,7 +6,8 @@ interpret mode: the same flow, start points, reference, target and
 uniforms go into both. Also the chain statistics, the Gaussian
 reference, the port's Philox4x32-10 against its published
 known-answer vectors, and the chain kernel's packed weights (read back
-in float64) against the JAX conditioner and the coupling kernel's layout.
+in float64) against the JAX conditioner and the JAX coupling kernel's
+packed layout.
 """
 
 import jax
@@ -21,6 +22,7 @@ from aspire_tpu.flows.architectures import nsf as jnsf
 from aspire_tpu.flows.nets import apply_mlp as japply_mlp
 from aspire_tpu.models import GaussianMixtureProblem as JMixture
 from aspire_tpu.models import GaussianProblem as JGaussian
+from aspire_tpu.ops import fused_coupling as JFC
 from aspire_tpu.ops import fused_mutation as JFM
 from aspire_tpu.samplers import kernels as JK
 from aspire_tpu_torch.flows.architectures import nsf
@@ -209,25 +211,20 @@ def test_split_chain_keeps_a_gaussian_invariant(step):
     assert final.n_evals == 10 * 4000
 
 
-def _coupling_layout_conditioner(arch, packed, layer, x):
-    """The spline parameters of layer ``layer``'s active dims, from the
-    coupling kernel's buffer (``prepare_params``: W1 (H1, D), b1, W2
-    (H2, H1), b2, W3 (H2, OUTP) of the active groups, b3)."""
-    d, P = arch.dims, arch.n_params_per_dim
-    h1, h2 = arch.n_hidden
-    outp = FC._round4((d + 1) // 2 * P)
-    buf = packed.reshape(arch.n_layers, -1)[layer]
-    sec, off = [], 0
-    for size in (h1 * d, h1, h2 * h1, h2, h2 * outp, outp):
-        off = FC._round4(off)
-        sec.append(buf[off:off + size])
-        off += size
-    w1, b1, w2, b2, w3, b3 = sec
-    cond = torch.tensor([(i % 2) != (layer % 2) for i in range(d)])
-    h = torch.relu(torch.where(cond, x, 0.0) @ w1.reshape(h1, d).t() + b1)
-    h = torch.relu(h @ w2.reshape(h2, h1).t() + b2)
-    out = h @ w3.reshape(h2, outp) + b3
-    return out[:, :d // 2 * P].reshape(-1, d // 2, P)
+def _coupling_layout_conditioner(jarch, prepared, layer, x):
+    """The spline parameters of layer ``layer``'s active dims, from the JAX
+    coupling kernel's packed weights (``prepare_params``: per dense level
+    W (L, out, in) and b (L, out, 1); the output level's rows the active
+    dims' groups, each P parameters zero-padded to its group size)."""
+    d, P = jarch.dims, jarch._n_params_per_dim
+    cond = np.array([(i % 2) != (layer % 2) for i in range(d)])
+    h = np.where(cond, x, 0.0)
+    levels = [np.asarray(a[layer], dtype=np.float64) for a in prepared]
+    for j in range(0, len(levels), 2):
+        h = h @ levels[j].T + levels[j + 1][:, 0]
+        if j + 2 < len(levels):
+            h = np.maximum(h, 0.0)
+    return h.reshape(x.shape[0], (d + 1) // 2, -1)[:, :, :P]
 
 
 @pytest.mark.parametrize("hidden,bins", [(64, 8), (16, 4)])
@@ -236,8 +233,8 @@ def test_chain_packing_matches_jax_and_the_coupling_layout(hidden, bins):
     kernel reads it (``chain_conditioner_plain``), gives every layer's
     spline parameters as the JAX ``Coupling``'s conditioner on the same
     weights (carried across by ``flow_params_from_jax``) and as the
-    coupling kernel's ``prepare_params`` layout. The weights are float32
-    values, so the three agree to float64 rounding."""
+    JAX coupling kernel's packed layout (``prepare_params``). The weights
+    are float32 values, so the three agree to float64 rounding."""
     jarch = jnsf(dims=4, n_layers=3, n_hidden=(hidden, hidden),
                  num_bins=bins)
     jparams = jax.tree.map(
@@ -248,7 +245,7 @@ def test_chain_packing_matches_jax_and_the_coupling_layout(hidden, bins):
                 num_bins=bins)
     tparams = flow_params_from_jax(jparams, dtype="float64")
     chain_packed = FM.prepare_chain_params(tarch, tparams)
-    coupling_packed = FC.prepare_params(tarch, tparams).double()
+    coupling_packed = JFC.prepare_params(jarch, jparams)
     x = np.random.default_rng(4).normal(size=(200, 4)) * 2.0
     for layer in range(3):
         cond = np.array([(i % 2) != (layer % 2) for i in range(4)])
@@ -258,11 +255,10 @@ def test_chain_packing_matches_jax_and_the_coupling_layout(hidden, bins):
         want = want[:, ~cond]
         got = FM.chain_conditioner_plain(tarch, chain_packed, layer,
                                          torch.as_tensor(x))
-        other = _coupling_layout_conditioner(tarch, coupling_packed, layer,
-                                             torch.as_tensor(x))
+        other = _coupling_layout_conditioner(jarch, coupling_packed, layer,
+                                             x)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-10, rtol=0)
-        np.testing.assert_allclose(got.numpy(), other.numpy(), atol=1e-10,
-                                   rtol=0)
+        np.testing.assert_allclose(got.numpy(), other, atol=1e-10, rtol=0)
 
 
 def test_chain_packing_rounds_wide_weights_to_tf32_sums():

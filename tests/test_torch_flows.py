@@ -25,8 +25,6 @@ from aspire_tpu_torch.flows.train import TrainConfig, make_optimizer, param_leav
 from aspire_tpu_torch.ops.fused_coupling import (
     coupling_kernel_apply,
     fused_coupling_apply,
-    layer_floats,
-    prepare_params as t_prepare_params,
 )
 from aspire_tpu_torch.utils import flow_params_from_jax
 
@@ -147,17 +145,6 @@ def test_fused_coupling_autograd_recomputes_plain(mode):
         [x, *leaves])
     for a, b in zip(g, g_ref):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
-
-
-def test_prepare_params_layout_size():
-    """The packed buffer has the kernel's per-layer size and keeps only
-    the active dims' output columns."""
-    tarch = Coupling(dims=4, n_layers=3, n_hidden=(64, 64), num_bins=8)
-    gen = torch.Generator().manual_seed(0)
-    params = tarch.init(gen)
-    packed = t_prepare_params(tarch, params)
-    assert packed.numel() == 3 * layer_floats(tarch) == 3 * 7600
-    assert packed.dtype == torch.float32
 
 
 @pytest.mark.parametrize("max_grad_norm", [5.0, 0.05])

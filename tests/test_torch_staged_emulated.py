@@ -8,14 +8,14 @@ thread, barriers for ``__syncthreads``/``__syncwarp``, the warp's
 unchanged source with the tensor-core pass it includes
 (``csrc/coupling_mma.cuh``) is compiled as C++; each group's named barrier
 (``bar.sync 1 + q, 2S``) becomes a barrier of its own (``PTX_STAND_INS``).
-Every configuration of ``ASPIRE_STAGED_CONFIGS`` runs: D1 (Q = 2) and D2
-(Q = 3, 4, 8) on the tensor cores, D3 with and without ``rqs_micro`` on
-the FP32 pipe, on the dev scripts' flow (``chip_smoke.staged_flow``) at
-n = 512 and a ragged 512 + 37, over two persistent blocks that each take
-several tiles. Each is held against its plain schedule
-(``staged_plain``/``paired_plain``) at the card check's tolerance
-(``chip_smoke.COUPLING_TOL``, float64 arbitration), D1/D2 also against
-the packed reader of their weights (``coupling_packed_plain``); and each
+Every configuration of ``ASPIRE_STAGED_CONFIGS`` runs on the tensor
+cores: D1 (Q = 2), D2 (Q = 3, 4, 8) and D3 with and without
+``rqs_micro``, on the dev scripts' flow (``chip_smoke.staged_flow``) at
+n = 512 and a ragged 512 + 37, over two persistent blocks (D3: of two
+warps) that each take several tiles. Each is held against its plain
+schedule (``staged_plain``/``paired_plain``) at the card check's tolerance
+(``chip_smoke.COUPLING_TOL``, float64 arbitration) and against the packed
+reader of its weights (``coupling_packed_plain``); and each
 configuration's row, as the C entry the wrapper checks at launch reports
 it, against ``STAGED_CONFIGS`` and the Python layouts. Skips where no
 ``g++`` with C++20 ``<barrier>`` is installed.
@@ -55,12 +55,13 @@ HARNESS = r"""
 #include <thread>
 #include "staged_emulated.cpp"
 namespace aspire { float4 smem4[232448 / 16]; }
-// One configuration on `blocks` persistent blocks, one after another.
+// One configuration on `blocks` persistent blocks, one after another: a
+// tile of Q sub-tiles each (D1/D2), or two warps (D3).
 template <int D, int H1, int H2, int K, int Q, int S, bool PAIRED,
           bool MICRO>
 void launch(const float* x, float* z, float* ld, const float* w, int n,
             int layers, int blocks) {
-  const int threads = 2 * Q * S;
+  const int threads = PAIRED ? 64 : 2 * Q * S;
   blockDim = {(unsigned)threads, 1, 1};
   gridDim = {(unsigned)blocks, 1, 1};
   for (int b = 0; b < blocks; ++b) {
@@ -82,8 +83,8 @@ void launch(const float* x, float* z, float* ld, const float* w, int n,
         threadIdx = {(unsigned)t, 0, 0};
         blockIdx = {(unsigned)b, 0, 0};
         if constexpr (PAIRED) {
-          aspire::paired_kernel<D, H1, H2, K, S, MICRO>(x, z, ld, w, n,
-                                                        layers, 5.0f);
+          aspire::paired_kernel<D, H1, H2, K, MICRO>(x, z, ld, w, n,
+                                                     layers, 5.0f);
         } else {
           aspire::staged_mma_kernel<D, H1, H2, K, Q, S>(x, z, ld, w, n,
                                                         layers, 5.0f);
@@ -166,9 +167,9 @@ def _run(harness, arch, cfg: int, weights, x, blocks: int = 2):
 def test_staged_config_rows_match_python(harness, flow):
     """The row the kernel library reports per configuration (the wrapper
     checks it at every launch) is ``STAGED_CONFIGS``' row, then the packed
-    floats per layer and the shared floats per sub-tile of the variant's
-    layout: B1's packing and the tensor-core buffers for D1/D2, the
-    per-particle ones for D3."""
+    floats per layer, B1's for every variant, and the shared floats per
+    sub-tile of the variant's buffers: coordinates, parameter rows and
+    log-det sums for D1/D2, D3's 16 parameter rows."""
     arch, _ = flow
     out = subprocess.run([str(harness), "layout"], check=True,
                          capture_output=True, text=True, timeout=60).stdout
@@ -176,38 +177,37 @@ def test_staged_config_rows_match_python(harness, flow):
     want = []
     for cid, (d, hidden, k, q, s, paired, micro) in sorted(
             SC.STAGED_CONFIGS.items()):
-        per_particle = (SC.buffer_floats(arch) if paired
-                        else SC.mma_buffer_floats(arch))
         want.append([d, *hidden, k, q, s, int(paired), int(micro),
-                     SC.layer_floats(arch, paired), s * per_particle])
+                     FC.mma_layout(arch)[0],
+                     s * SC.buffer_floats(arch, paired)])
     assert rows == want
-    assert {r[8] for r in rows if not r[6]} == {FC.mma_layout(arch)[0]}
+    assert [r[9] for r in rows if r[6]] == [16 * 52] * 2
 
 
 @pytest.mark.parametrize("n", [512, 512 + 37])
 @pytest.mark.parametrize("cfg", sorted(SC.STAGED_CONFIGS))
 def test_staged_kernel_source_matches_plain(harness, flow, cfg, n):
     """Each configuration on the dev scripts' flow against its plain
-    schedule, float64 deciding the points where they disagree; D1/D2 also
-    against ``coupling_packed_plain`` of their packed weights."""
+    schedule, float64 deciding the points where they disagree, and against
+    ``coupling_packed_plain`` of its packed weights (B1's: the reader runs
+    the pass with ``rational_quadratic_spline``, which ``rqs_micro``
+    equals but for rounding)."""
     arch, params = flow
     _, _, _, q, s, paired, micro = SC.STAGED_CONFIGS[cfg]
     x = torch.as_tensor(np.random.default_rng(n).normal(
         size=(n, 4)).astype(np.float32))
     params64, x64 = chip_smoke.as_float64(params), x.double()
+    weights = FC.prepare_mma_params(arch, params)
     if paired:
-        weights = FC.prepare_params(arch, params)
         z_p, ld_p = SC.paired_plain(arch, params, x, s, micro)
         z_e, ld_e = SC.paired_plain(arch, params64, x64, s, micro)
     else:
-        weights = FC.prepare_mma_params(arch, params)
         z_p, ld_p = SC.staged_plain(arch, params, x, q, s)
         z_e, ld_e = arch.forward_plain(params64, x64)
     z, ld = _run(harness, arch, cfg, weights, x)
     what = f"emulated staged config {cfg}"
     chip_smoke.assert_kernel_close(z, z_p, z_e, f"{what} z")
     chip_smoke.assert_kernel_close(ld, ld_p, ld_e, f"{what} log_det")
-    if not paired:
-        z_r, ld_r = FC.coupling_packed_plain(arch, "forward", weights, x)
-        torch.testing.assert_close(z, z_r, **chip_smoke.COUPLING_TOL)
-        torch.testing.assert_close(ld, ld_r, **chip_smoke.COUPLING_TOL)
+    z_r, ld_r = FC.coupling_packed_plain(arch, "forward", weights, x)
+    torch.testing.assert_close(z, z_r, **chip_smoke.COUPLING_TOL)
+    torch.testing.assert_close(ld, ld_r, **chip_smoke.COUPLING_TOL)

@@ -1,6 +1,7 @@
-// How mma.sync m16n8k8 TF32 rounds its FP32 sum, the question behind the
-// LAST_BIT option of aspire_tpu_torch/csrc/coupling_mma.cuh's
-// mma_split_step. A program of its own, for an sm_90a card; from the root
+// How mma.sync m16n8k8 TF32 rounds its FP32 sum, the question behind
+// aspire_tpu_torch/csrc/coupling_mma.cuh's mma_split_step (which leaves the
+// cut: tests/test_torch_staged_coupling.py models it from these shares).
+// A program of its own, for an sm_90a card; from the root
 // of the repository:
 //   mkdir -p aspire_tpu_torch/_build && nvcc -gencode arch=compute_90a,code=sm_90a -O2 \
 //        -o aspire_tpu_torch/_build/mma_probe tools/mma_rounding_probe.cu
