@@ -14,7 +14,7 @@ from typing import Any, Callable
 
 from .flows import Flow, default_architecture_for_backend, get_flow_class
 from .history import FlowHistory
-from .samplers import get_sampler_class
+from .samplers import SMCSampler, get_sampler_class
 from .samples import Samples
 from .transforms import CompositeTransform, FlowTransform
 from .utils import resolve_device
@@ -68,6 +68,12 @@ class Aspire:
         self.seed = seed
         self.flow = flow
         self.sampler = None
+        #: the last device ladder captured, kept across
+        #: ``sample_posterior`` calls (each builds a fresh sampler): a run
+        #: with the same shapes, options, target and flow parameters
+        #: replays the graph an earlier call captured; any other run
+        #: replaces it
+        self.ladder_cache: dict = {}
 
     def init_flow(self) -> None:
         FlowClass = get_flow_class(self.flow_backend)
@@ -133,6 +139,8 @@ class Aspire:
                 f"Unknown or unported preconditioning: {preconditioning}")
         if self.seed is not None:
             kwargs.setdefault("rng", self.seed + 1)
+        if issubclass(SamplerClass, SMCSampler):
+            kwargs.setdefault("ladder_cache", self.ladder_cache)
         return SamplerClass(
             log_likelihood=self.log_likelihood,
             log_prior=self.log_prior,
@@ -155,7 +163,9 @@ class Aspire:
         ``seed + 1``, so a fixed seed repeats the run). With
         ``return_history``, ``(samples, history)``: the sampler's history,
         or None for a sampler without one (importance), as in the JAX
-        package."""
+        package. SMC takes ``device_ladder`` and ``device_ladder_max_iters``
+        (:meth:`SMCSampler.sample`); its device ladder's graph stays in
+        ``ladder_cache`` for the next call."""
         SamplerClass = get_sampler_class(sampler)
         init_params: dict = {}
         for klass in SamplerClass.__mro__:

@@ -52,7 +52,9 @@ enum ChainKernel { kTPCN = 0, kPCN = 1, kRWMH = 2 };
 enum TargetId { kGaussianMixture = 1, kGaussian = 2, kHierarchical = 3 };
 
 // Constant block layout (floats): reference mean (D), chol (D x D), ichol
-// (D x D), data-transform mean (D) and std (D), target constants.
+// (D x D), data-transform mean (D) and std (D), target constants, then
+// the launch's beta and seed pair (the seed as two uint32 words), which
+// the block writes itself (store_launch_scalars).
 template <int D>
 struct Consts {
   static constexpr int MEAN = 0;
@@ -61,7 +63,9 @@ struct Consts {
   static constexpr int DT_MEAN = ICHOL + D * D;
   static constexpr int DT_STD = DT_MEAN + D;
   static constexpr int TARGET = DT_STD + D;
-  static constexpr int SIZE = round4(TARGET + 2 * D + 2);
+  static constexpr int BETA = TARGET + 2 * D + 2;
+  static constexpr int KEY = BETA + 1;
+  static constexpr int SIZE = round4(KEY + 2);
 };
 
 struct ChainArgs {
@@ -79,16 +83,35 @@ struct ChainArgs {
   float* scratch;  // wide form: per-particle statistics, (3, D, n)
   int n, n_layers, n_steps, kernel, gamma_m, gamma_odd, rows, dt_affine,
       target_id;
-  float beta, nu, target_acc, adapt_rate, max_log_step, tail_bound;
-  uint32_t seed0, seed1;
+  float nu, target_acc, adapt_rate, max_log_step, tail_bound;
+  // The launch's beta and seed pair (each read as its low 32 bits) in
+  // device memory, so a launch captured in a CUDA graph reads each
+  // replay's values.
+  const float* beta_in;
+  const long long* seed_in;
 };
+
+// Thread 0 copies the launch's beta and seed pair into the block's
+// constant block, once per block, after the block has loaded its
+// constants (the caller's barriers order the two). Every use then reads
+// shared memory, as for the other constants, and holds no register
+// across the chain.
+template <int D>
+__device__ __forceinline__ void store_launch_scalars(const ChainArgs& a,
+                                                     float* c) {
+  using C = Consts<D>;
+  uint32_t* key = reinterpret_cast<uint32_t*>(c + C::KEY);
+  c[C::BETA] = *a.beta_in;
+  key[0] = (uint32_t)a.seed_in[0];
+  key[1] = (uint32_t)a.seed_in[1];
+}
 
 // The uniforms of one particle's step, in increasing row order.
 struct NoiseStream {
   const float* noise;  // injected (n_steps, rows, n), or nullptr
   int n, rows, p, step;
   uint32_t local, tile;
-  uint2 key;
+  const uint32_t* key;  // the seed pair, in the block's constant block
   uint4 block;
   int group;
 
@@ -99,7 +122,8 @@ struct NoiseStream {
     const int g = row >> 2;
     if (g != group) {
       block = philox4x32_10(
-          make_uint4(local, (uint32_t)step, (uint32_t)g, tile), key);
+          make_uint4(local, (uint32_t)step, (uint32_t)g, tile),
+          make_uint2(key[0], key[1]));
       group = g;
     }
     const int r = row & 3;
@@ -228,7 +252,8 @@ __device__ __forceinline__ void tempered(const ChainArgs& a,
   for (int i = 0; i < D; ++i) zz += f[i] * f[i];
   lq = -0.5f * zz - D * kHalfLog2Pi + ld + dt_lj;
   target_densities<D>(a.target_id, c + Consts<D>::TARGET, x, lpi, ll);
-  lp = nan_to_neg_inf((1.f - a.beta) * lq + a.beta * (ll + lpi));
+  const float beta = c[Consts<D>::BETA];
+  lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi));
 }
 
 template <int D, class X>
@@ -264,6 +289,8 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
   load_shared(reinterpret_cast<float4*>(c),
               reinterpret_cast<const float4*>(a.consts), C::SIZE / 4);
   __syncthreads();
+  if (threadIdx.x == 0) store_launch_scalars<D>(a, c);
+  __syncthreads();
 
   const int p = blockIdx.x * kTile + threadIdx.x;
   float dt_lj = 0.f;
@@ -293,7 +320,7 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
   ns.p = p;
   ns.local = threadIdx.x;
   ns.tile = blockIdx.x;
-  ns.key = make_uint2(a.seed0, a.seed1);
+  ns.key = reinterpret_cast<const uint32_t*>(c + C::KEY);
 
 #pragma unroll 1
   for (int t = 0; t < a.n_steps; ++t) {
@@ -445,7 +472,8 @@ __device__ __forceinline__ void tempered_wide(
   for (int i = 0; i < D; ++i) zz += f[i] * f[i];
   lq = -0.5f * zz - D * kHalfLog2Pi + ld + dt_lj;
   target_densities<D>(a.target_id, c + Consts<D>::TARGET, xs, lpi, ll);
-  lp = nan_to_neg_inf((1.f - a.beta) * lq + a.beta * (ll + lpi));
+  const float beta = c[Consts<D>::BETA];
+  lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi));
 }
 
 // The chain in the wide form (MmaShape::WIDE: BASELINE config 5's d = 32,
@@ -477,6 +505,8 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
   float* xi = F + lane * S::FROW;
   WideStream<S> ws{res, ring, a.weights, a.n_layers, true, 0};
   load_shared(smem4, reinterpret_cast<const float4*>(a.consts), C::SIZE / 4);
+  __syncthreads();
+  if (tid == 0) store_launch_scalars<D>(a, c);
   __syncthreads();
 
   const int p = blockIdx.x * kTile + tid;
@@ -510,7 +540,7 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
   ns.p = p;
   ns.local = tid;
   ns.tile = blockIdx.x;
-  ns.key = make_uint2(a.seed0, a.seed1);
+  ns.key = reinterpret_cast<const uint32_t*>(c + C::KEY);
 
 #pragma unroll 1
   for (int t = 0; t < a.n_steps; ++t) {
@@ -681,22 +711,24 @@ int aspire_chain_layout(int config, int* out, int capacity) {
 
 // Returns the launch's cudaError_t; -1 for an unknown configuration and
 // -2 when n is not a multiple of the tile. scratch: 3 * D * n floats for a
-// wide configuration (MmaShape::WIDE), else unused.
+// wide configuration (MmaShape::WIDE), else unused. beta (one float) and
+// seed (two 64-bit integers, each read as its low 32 bits) are device
+// memory, read when the kernel runs.
 int aspire_chain(const float* z0, const float* weights, const float* consts,
                  const float* step0, const float* noise, float* z, float* lq,
                  float* lpi, float* ll, float* nacc, float* stats,
                  float* scratch, int n,
                  int n_layers, int n_steps, int kernel, int gamma_m,
                  int gamma_odd, int rows, int dt_affine, int target_id,
-                 float beta, float nu, float target_acc, float adapt_rate,
-                 float max_log_step, float tail_bound, unsigned seed0,
-                 unsigned seed1, int config, void* stream) {
+                 const float* beta, float nu, float target_acc,
+                 float adapt_rate, float max_log_step, float tail_bound,
+                 const long long* seed, int config, void* stream) {
   if (n % aspire::kTile != 0) return -2;
   aspire::ChainArgs a{z0, weights, consts, step0, noise, z, lq, lpi, ll,
                       nacc, stats, scratch, n, n_layers, n_steps, kernel, gamma_m,
-                      gamma_odd, rows, dt_affine, target_id, beta, nu,
+                      gamma_odd, rows, dt_affine, target_id, nu,
                       target_acc, adapt_rate, max_log_step, tail_bound,
-                      seed0, seed1};
+                      beta, seed};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ASPIRE_CHAIN_CASE(ID, D, H1, H2, K, RQS) \
   if (config == ID) return aspire::launch_chain<D, H1, H2, K, RQS>(a, s);

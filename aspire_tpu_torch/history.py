@@ -23,12 +23,12 @@ class SMCHistory:
     mcmc_autocorr: list = field(default_factory=list)
     mcmc_acceptance: list = field(default_factory=list)
     lineage_fraction: list = field(default_factory=list)
-    #: which chain ran each mutation: "fused_kernel" (the whole-chain
-    #: kernel, or its plain version on a CPU tensor) or "split" (the
-    #: per-step torch chain)
+    #: which chain ran each mutation, one entry per temperature on either
+    #: ladder: "fused_kernel" (the whole-chain kernel, or its plain
+    #: version on a CPU tensor) or "split" (the per-step torch chain)
     mutation_route: list = field(default_factory=list)
     #: per mutation, particles whose log-prior or log-likelihood came back
-    #: non-finite
+    #: non-finite (the device ladder reads it with the rung's flags)
     nonfinite_target: list = field(default_factory=list)
     #: host (numpy) snapshots of the population: before the first
     #: temperature, then after every mutation

@@ -7,6 +7,11 @@ and, for the problems the whole-chain kernel evaluates in-kernel,
 and constant layouts match ``target_densities`` in ``csrc/chain.cu``;
 :func:`target_densities` is the same arithmetic in torch (the plain
 version the kernel is held against).
+
+A density makes no tensor from host data after its first call on a
+device: its constants are kept per ``(device, dtype)``
+(:func:`_constant`), so the device ladder can capture it in a CUDA graph
+(a pageable host-to-device copy cannot be captured).
 """
 
 from __future__ import annotations
@@ -22,6 +27,17 @@ GAUSSIAN = 2
 HIERARCHICAL = 3
 
 _LOG_2PI = math.log(2 * math.pi)
+
+
+def _constant(owner, name: str, value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a tensor on ``like``'s device and dtype, made once per
+    ``(name, device, dtype)`` and kept on ``owner``."""
+    cache = owner.__dict__.setdefault("_constants", {})
+    key = (name, like.device, like.dtype)
+    if key not in cache:
+        cache[key] = torch.as_tensor(np.asarray(value), dtype=like.dtype,
+                                     device=like.device)
+    return cache[key]
 
 
 def _neg_inf_if_nan(v: torch.Tensor) -> torch.Tensor:
@@ -145,16 +161,16 @@ class GaussianMixtureProblem(Problem):
         self.var1 = 0.5
         self.var2 = 1.0
 
-    def _comp(self, x, mu, var):
+    def _comp(self, x, name, var):
         d = self.dims
-        mu = torch.as_tensor(mu, dtype=x.dtype, device=x.device)
+        mu = _constant(self, name, getattr(self, name), x)
         return (-0.5 * torch.sum((x - mu) ** 2, dim=-1) / var
                 - 0.5 * d * _LOG_2PI - 0.5 * d * math.log(var))
 
     def log_likelihood(self, samples):
         x = samples.x
-        return torch.logaddexp(self._comp(x, self.mu1, self.var1),
-                               self._comp(x, self.mu2, self.var2)
+        return torch.logaddexp(self._comp(x, "mu1", self.var1),
+                               self._comp(x, "mu2", self.var2)
                                ) - math.log(2.0)
 
     def log_prior(self, samples):
@@ -209,7 +225,7 @@ class HierarchicalProblem(Problem):
         self.y_obs = rng.normal(1.0, 1.2, size=(self.dims - 2,))
 
     def _y(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.as_tensor(self.y_obs, dtype=x.dtype, device=x.device)
+        return _constant(self, "y_obs", self.y_obs, x)
 
     def log_likelihood(self, samples):
         x = samples.x

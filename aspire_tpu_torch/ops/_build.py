@@ -110,7 +110,7 @@ def load_library() -> ctypes.CDLL:
     lib.aspire_consts_floats.argtypes = [_I]
     lib.aspire_consts_floats.restype = _I
     lib.aspire_chain.argtypes = (
-        [_P] * 12 + [_I] * 9 + [_F] * 6 + [_U, _U, _I, _P]
+        [_P] * 12 + [_I] * 9 + [_P] + [_F] * 5 + [_P, _I, _P]
     )
     lib.aspire_chain.restype = _I
     lib.aspire_chain_layout.argtypes = [_I, _P, _I]
@@ -145,8 +145,26 @@ class LaunchCounter:
     """A plain count of kernel launches, bumped by a wrapper right where
     it launches its kernel."""
 
+    #: every counter made, in order: a CUDA graph counts the launches it
+    #: captured (:func:`launch_counts` before and after the capture) and
+    #: adds them on each replay (:func:`add_launches`), so a count stays
+    #: the launches on the card
+    made: list = []
+
     def __init__(self) -> None:
         self.count = 0
+        LaunchCounter.made.append(self)
 
     def reset(self) -> None:
         self.count = 0
+
+
+def launch_counts() -> tuple[int, ...]:
+    """Every counter's count, in the order of ``LaunchCounter.made``."""
+    return tuple(c.count for c in LaunchCounter.made)
+
+
+def add_launches(counts) -> None:
+    """Add ``counts`` (one per counter, as :func:`launch_counts`)."""
+    for counter, k in zip(LaunchCounter.made, counts):
+        counter.count += k

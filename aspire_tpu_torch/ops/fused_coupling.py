@@ -772,6 +772,14 @@ def _pack_once(cache: dict, pack, arch, params: dict) -> torch.Tensor:
 _maf_pack_cache: dict = {}
 
 
+def kept_packings() -> tuple:
+    """The packings the caches hold now. A CUDA graph that launched a
+    kernel on one holds it, since a cache keeps only its latest packing."""
+    return tuple(cache["packed"] for cache in (_coupling_pack_cache,
+                                               _maf_pack_cache)
+                 if "packed" in cache)
+
+
 def packed_maf_params(arch, params: dict) -> torch.Tensor:
     """:func:`prepare_maf_params`, packed once per set of parameters
     (:func:`_pack_once`), so the ``n_steps + 2`` density passes of a

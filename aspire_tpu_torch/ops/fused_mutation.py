@@ -343,14 +343,32 @@ def _chain_library_layout(cfg: int) -> tuple[int, ...]:
     return tuple(out[:count])
 
 
+def _device_scalars(values, dtype, device) -> torch.Tensor:
+    """``values`` (a tensor, a number or a sequence of numbers) as a
+    contiguous tensor of ``dtype`` on ``device``; a tensor already there is
+    used as it is. Numbers are filled in on the device: a pageable
+    host-to-device copy would wait for the work before it."""
+    if isinstance(values, torch.Tensor):
+        return values.to(device=device, dtype=dtype).reshape(-1).contiguous()
+    values = list(values) if isinstance(values, (tuple, list)) else [values]
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
+
+
 def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
                    seed, step0: torch.Tensor, ref_mean, ref_chol, ref_ichol,
                    target, data_transform=None, noise=None):
     """Run the whole chain: the kernel on a CUDA tensor, the plain version
     (:func:`chain_plain`) on a CPU tensor. Same returns as ``chain_plain``.
 
-    ``seed`` is a pair of 32-bit integers (ignored with ``noise``); ``step0``
-    the ``(n_tiles,)`` initial step sizes.
+    ``beta`` is a number or a one-element tensor; ``seed`` a pair of
+    32-bit integers or a two-element integer tensor (ignored with
+    ``noise``); ``step0`` the ``(n_tiles,)`` initial step sizes. The kernel
+    reads ``beta`` and ``seed`` from device memory when it runs, so a
+    launch captured in a CUDA graph takes each replay's values from the
+    tensors passed at capture.
     """
     if z0.device.type == "cpu":
         return chain_plain(cfg, params, z0, beta, step0, ref_mean, ref_chol,
@@ -389,6 +407,14 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     target_id, tconsts = target
     consts = chain_consts(lib.aspire_consts_floats(d), d, ref_mean,
                           ref_chol, ref_ichol, data_transform, tconsts)
+    beta_dev = _device_scalars(beta, torch.float32, z0.device)
+    if seed is None:
+        seed = (0, 0)
+    elif not isinstance(seed, torch.Tensor):
+        seed = tuple(int(v) & _MASK for v in seed)
+    seed_dev = _device_scalars(seed, torch.int64, z0.device)
+    if beta_dev.numel() != 1 or seed_dev.numel() != 2:
+        raise ValueError("beta takes one value and seed two")
     z = torch.empty_like(z0)
     lq, lpi, ll, nacc = (torch.empty(n, dtype=torch.float32,
                                      device=z0.device) for _ in range(4))
@@ -405,11 +431,9 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
         scratch.data_ptr() if scratch is not None else None,
         n, arch.n_layers, cfg.n_steps, KERNELS[cfg.kernel], cfg.gamma_m,
         cfg.gamma_odd, cfg.noise_rows, 0 if data_transform is None else 1,
-        int(target_id), float(beta), float(cfg.nu),
+        int(target_id), beta_dev.data_ptr(), float(cfg.nu),
         float(cfg.target_acceptance), float(cfg.adaptation_rate),
-        float(cfg.max_log_step), float(arch.tail_bound),
-        int(seed[0]) & _MASK if seed is not None else 0,
-        int(seed[1]) & _MASK if seed is not None else 0,
+        float(cfg.max_log_step), float(arch.tail_bound), seed_dev.data_ptr(),
         FC.config_id(arch), torch.cuda.current_stream(z0.device).cuda_stream,
     )
     launches.count += 1

@@ -16,8 +16,30 @@ def _normalized_weights(log_w: torch.Tensor) -> torch.Tensor:
     return torch.exp(log_w - torch.logsumexp(log_w, dim=0))
 
 
+#: the row length of :func:`rowwise_cumsum`
+SCAN_ROW = 1024
+
+
+def rowwise_cumsum(w: torch.Tensor) -> torch.Tensor:
+    """The running sum of a 1-D tensor in one fixed order: within rows of
+    ``SCAN_ROW``, then over the rows' totals. torch scans a 1-D CUDA tensor
+    with CUB, whose float sum order changes from run to run (CUB's
+    decoupled look-back), so a fixed seed would not repeat a resampling;
+    torch scans along the last dim of a 2-D tensor of two rows or more in
+    one order."""
+    n = w.shape[0]
+    m = max(-(-n // SCAN_ROW), 2)
+    rows = torch.nn.functional.pad(w, (0, m * SCAN_ROW - n)).reshape(
+        m, SCAN_ROW).cumsum(1)
+    totals = rows[:, -1]
+    ends = torch.stack([totals, totals]).cumsum(1)[0]
+    offsets = torch.nn.functional.pad(ends[:-1], (1, 0))
+    return (rows + offsets[:, None]).reshape(-1)[:n]
+
+
 def _cdf(log_w: torch.Tensor) -> torch.Tensor:
-    cdf = torch.cumsum(_normalized_weights(log_w), dim=0)
+    w = _normalized_weights(log_w)
+    cdf = rowwise_cumsum(w) if w.is_cuda else torch.cumsum(w, dim=0)
     return cdf / cdf[-1]
 
 

@@ -77,6 +77,7 @@ class Sampler:
             device if device is not None else prior_flow.device)
         self.generator = make_generator(rng, self.device)
         self.n_likelihood_evaluations = 0
+        self._capturable_target = None
 
     def _make_view(self, x) -> _SamplesView:
         return _SamplesView(x, parameters=self.parameters)
@@ -89,6 +90,49 @@ class Sampler:
     def evaluate_log_prior(self, x) -> torch.Tensor:
         out = self.log_prior(self._make_view(x))
         return torch.as_tensor(out, device=x.device).reshape(-1)
+
+    def target_is_capturable(self) -> bool:
+        """True if the user ``log_likelihood``/``log_prior`` can run inside
+        the device ladder: the port's counterpart of the JAX package's
+        ``target_is_jittable``, decided once per sampler.
+
+        On a CUDA device, one call of each on a ``(2, d)`` tensor is
+        captured in a CUDA graph on a side stream, after one eager call
+        (a host read or a pageable host-to-device copy fails the capture).
+        On the CPU, each must take the view of a ``(2, d)`` tensor and
+        return a tensor of shape ``(2,)``. Any error gives False, logged.
+        """
+        if self._capturable_target is None:
+            x = torch.zeros((2, self.dims), dtype=self.prior_flow.dtype,
+                            device=self.device)
+
+            def probe():
+                view = self._make_view(x)
+                out = (self.log_likelihood(view), self.log_prior(view))
+                if not all(isinstance(v, torch.Tensor) and v.shape == (2,)
+                           for v in out):
+                    raise TypeError("the target did not return (2,) tensors")
+
+            try:
+                probe()
+                if x.is_cuda:
+                    # capture_begin/end, not torch.cuda.graph: that one
+                    # synchronises and empties the allocator's cache on
+                    # entry, which a probe per sampler would pay for.
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.stream(torch.cuda.Stream(x.device)):
+                        graph.capture_begin()
+                        try:
+                            probe()
+                        finally:
+                            graph.capture_end()
+                self._capturable_target = True
+            except Exception as err:  # noqa: BLE001 - any capture failure
+                logger.info(
+                    "Target density cannot be captured in a CUDA graph (%s: "
+                    "%s); the host ladder runs it.", type(err).__name__, err)
+                self._capturable_target = False
+        return self._capturable_target
 
     # -- preconditioning ---------------------------------------------------
 

@@ -38,16 +38,36 @@ class ChainStats(NamedTuple):
     mixing: torch.Tensor
 
 
-def fit_gaussian_reference(x: torch.Tensor,
-                           jitter: float = 1e-6) -> GaussianReference:
-    """Ensemble mean and covariance of the particles."""
+def gaussian_reference_info(x: torch.Tensor, jitter: float = 1e-6
+                            ) -> tuple[GaussianReference, torch.Tensor]:
+    """Ensemble mean and covariance of the particles, and ``cholesky_ex``'s
+    ``info`` (0 where the covariance factorised), with no host sync: the
+    device ladder carries ``info`` into its fault flags."""
     mean = torch.mean(x, dim=0)
     xc = x - mean
     eye = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
     cov = (xc.T @ xc) / x.shape[0] + jitter * eye
-    chol = torch.linalg.cholesky(cov)
+    chol, info = torch.linalg.cholesky_ex(cov)
     inv_chol = torch.linalg.solve_triangular(chol, eye, upper=False)
-    return GaussianReference(mean=mean, chol=chol, inv_chol=inv_chol)
+    return GaussianReference(mean=mean, chol=chol, inv_chol=inv_chol), info
+
+
+def check_factorised(info, where: str = "") -> None:
+    """Raise where ``cholesky_ex`` found the covariance not positive
+    definite (``info``, a tensor or a number: a host read)."""
+    if int(info):
+        raise torch.linalg.LinAlgError(
+            f"{where}the particles' covariance is not positive-definite (the "
+            f"leading minor of order {int(info)} is not)")
+
+
+def fit_gaussian_reference(x: torch.Tensor,
+                           jitter: float = 1e-6) -> GaussianReference:
+    """Ensemble mean and covariance of the particles; raises where the
+    covariance does not factorise."""
+    ref, info = gaussian_reference_info(x, jitter)
+    check_factorised(info)
+    return ref
 
 
 def mahalanobis_sq(ref: GaussianReference, x: torch.Tensor) -> torch.Tensor:

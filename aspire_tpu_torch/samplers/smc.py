@@ -1,10 +1,21 @@
-"""Adaptive-tempered Sequential Monte Carlo with a host-driven ladder.
+"""Adaptive-tempered Sequential Monte Carlo: the host ladder and the device
+ladder.
 
-Counterpart of ``aspire_tpu/samplers/smc.py`` (``SMCSampler``, ``PCNSMC``)
-run with the JAX package's ``device_ladder=False`` semantics: the host
-loops over temperatures; per temperature one batch of device work bisects
-for the next beta and computes the ESS and evidence increment (fetched in
-one transfer), then the population is resampled and mutated.
+Counterpart of ``aspire_tpu/samplers/smc.py`` (``SMCSampler``, ``PCNSMC``).
+Two ladders walk the temperatures, as in the JAX package:
+
+- the **host ladder** (``device_ladder=False``): per temperature one batch
+  of device work bisects for the next beta and computes the ESS and
+  evidence increment (fetched in one transfer), then the population is
+  resampled and mutated;
+- the **device ladder** (``_run_device_ladder``, the JAX package's
+  ``while_loop`` ladder): one rung (bisection, statistics, resampling,
+  mutation, lineage, history) is one function of a dict of device tensors
+  (:meth:`SMCSampler._ladder_body`). On the card it is captured once in a
+  CUDA graph (:class:`DeviceLadder`) and replayed once per temperature,
+  each replay followed by one small read of the rung's flags; on the CPU
+  the same body runs eagerly. ``sample`` selects it by the JAX package's
+  rule.
 
 Each mutation runs either the whole-chain CUDA kernel
 (:func:`aspire_tpu_torch.ops.fused_mutation.fused_mh_chain`; its plain
@@ -18,16 +29,20 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Callable
+import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..flows.architectures import Coupling
 from ..history import SMCHistory
+from ..ops import fused_coupling as FC
 from ..ops import fused_mutation as FM
+from ..ops._build import add_launches, launch_counts
+from ..ops.resampling import get_resampler
 from ..ops.special import effective_sample_size
-from ..samples import Samples, SMCSamples
+from ..samples import Samples, SMCSamples, incremental_log_weights
 from ..transforms import affine_state
 from .base import Sampler
 from . import kernels as K
@@ -38,14 +53,29 @@ DEFAULT_BETA_TOLERANCE = 1e-8
 #: sampler_kwargs the JAX package reads and the port does not implement:
 #: each raises when set rather than being ignored
 UNPORTED_SAMPLER_KWARGS = ("waste_free", "windowed_tau", "flow_moves")
+#: the rung flags the device ladder reads back after each rung, in order
+LADDER_FLAGS = ("it", "done", "stalled", "running", "nan_q", "nonfinite",
+                "nan_target", "chol_info")
+#: its history buffers, one entry per rung (``_replay_ladder_history``)
+LADDER_HISTORY = ("beta_h", "ess_h", "ess1_h", "ratio_h", "var_h", "acc_h",
+                  "tau_h", "lin_h")
+_UNSET = object()
 
 
 class BetaScheduleError(RuntimeError):
     """The adaptive beta ladder stalled."""
 
 
-def bisect_beta(delta: torch.Tensor, beta_prev, target_eff: float,
-                tol: float) -> torch.Tensor:
+def _scalar(value, like: dict) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype and device; a tensor is
+    used as it is (a number fills on the device, with no host copy)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.full((), value, **like)
+
+
+def bisect_beta(delta: torch.Tensor, beta_prev, target_eff,
+                tol) -> torch.Tensor:
     """Largest beta whose incremental weights ``(beta - beta_prev) delta``
     keep ESS / n >= ``target_eff`` (fixed-trip bisection on the device)."""
     n = delta.shape[0]
@@ -57,29 +87,30 @@ def bisect_beta(delta: torch.Tensor, beta_prev, target_eff: float,
                                   delta.device)
 
 
-def iteration_stats(log_l, log_pi, log_q, beta_prev: float,
-                    beta_fixed: float, target_eff: float, tol: float,
-                    min_beta_step: float, max_beta_step: float, *,
-                    adaptive: bool, adaptive_min_step: bool):
+def iteration_stats(log_l, log_pi, log_q, beta_prev, beta_fixed, target_eff,
+                    tol, min_beta_step, max_beta_step, *, adaptive: bool,
+                    adaptive_min_step: bool):
     """Next beta, the step floor, the bisected beta, both ESS values and the
-    evidence increment with its variance, as one ``(7,)`` tensor."""
+    evidence increment with its variance, as one ``(7,)`` tensor. The
+    scalars are numbers (the host ladder) or 0-d device tensors (the device
+    ladder); nothing reads back to the host."""
     delta = log_l + log_pi - log_q
     dt = dict(dtype=delta.dtype, device=delta.device)
     if adaptive:
         beta_star = bisect_beta(delta, beta_prev, target_eff, tol)
+        floor = _scalar(min_beta_step, dt)
         if adaptive_min_step:
             min_step = torch.where(
                 beta_star < 1.0,
-                min_beta_step * (1 - beta_prev) / (1 - beta_star),
-                torch.full((), min_beta_step, **dt))
+                min_beta_step * (1 - beta_prev) / (1 - beta_star), floor)
         else:
-            min_step = torch.full((), min_beta_step, **dt)
+            min_step = floor
         beta = torch.maximum(beta_star, beta_prev + min_step)
         beta = torch.clamp(torch.clamp(beta, max=beta_prev + max_beta_step),
                            max=1.0)
     else:
-        beta_star = beta = torch.full((), beta_fixed, **dt)
-        min_step = torch.full((), min_beta_step, **dt)
+        beta_star = beta = _scalar(beta_fixed, dt)
+        min_step = _scalar(min_beta_step, dt)
     log_w = (beta - beta_prev) * delta
     ess = effective_sample_size(log_w)
     ess_at_one = effective_sample_size((1.0 - beta_prev) * delta)
@@ -110,15 +141,138 @@ def _check_beta_progress(beta, beta_star, beta_prev, target_eff,
             f"({target_eff}).")
 
 
+class Mutation(NamedTuple):
+    """One mutation's outputs, all on the device: the particles and their
+    densities, the acceptance rate, the chain's autocorrelation time and
+    mixing ratio, the adapted step size(s), ``cholesky_ex``'s info of the
+    Gaussian reference, and the target evaluations it made (a number)."""
+
+    x: torch.Tensor
+    lq: torch.Tensor
+    lpi: torch.Tensor
+    ll: torch.Tensor
+    acceptance: torch.Tensor
+    tau: torch.Tensor
+    mixing: torch.Tensor
+    step: torch.Tensor
+    info: torch.Tensor
+    evals: int
+
+
+def mutation_faults(m: Mutation) -> tuple:
+    """``(nan_q, nonfinite, nan_target)`` counts of a mutation's outputs:
+    NaN proposal densities, non-finite and NaN target densities."""
+    return (torch.isnan(m.lq).sum(),
+            (~torch.isfinite(m.lpi) | ~torch.isfinite(m.ll)).sum(),
+            (torch.isnan(m.lpi) | torch.isnan(m.ll)).sum())
+
+
+def raise_mutation_faults(nan_q, nan_target, info, where: str = "") -> None:
+    """The port's rule for a mutation's faults (NaN is raised, not carried
+    as the JAX package does): a covariance that did not factorise, NaN
+    proposal densities, NaN target densities."""
+    K.check_factorised(info, where)
+    if nan_q:
+        raise ValueError(f"{where}Log proposal contains {int(nan_q)} NaN "
+                         "values")
+    if nan_target:
+        raise ValueError(
+            f"{where}log_prior/log_likelihood returned NaN for mutated "
+            "particles (return -inf for invalid points instead)")
+
+
+class DeviceLadder:
+    """One rung of the device ladder: its body (a function of the state
+    dict, :meth:`SMCSampler._ladder_body`), its state, and on the card the
+    rung captured in a CUDA graph.
+
+    On a CUDA device the first rung runs eagerly on a side stream (the
+    capture's warm-up, which also fills the kernels' packed-weight caches)
+    and the next is captured; from then on every rung, in this call and in
+    later calls that find the ladder in the cache, is one replay. The
+    graph draws from ``generator``, registered with it, whose state the
+    sampler loads before a run and takes back after it. A replay runs no
+    Python, so it adds the launches the capture counted to the wrappers'
+    counters (``captured``). On the CPU the body runs eagerly every rung.
+    """
+
+    def __init__(self, body: Callable, state: dict,
+                 generator: torch.Generator, keep=()):
+        self.body, self.state, self.generator = body, state, generator
+        self.on_card = state["x"].is_cuda
+        #: what the graph reads and nothing else holds: the flow's
+        #: parameters, the run's chain spec and the packed weights
+        self.keep = keep
+        self.graph = None
+        self.captured: tuple = ()
+        self.replays = 0
+        self.capture_s = None
+        self._pinned = (torch.empty(len(LADDER_FLAGS), dtype=torch.int64,
+                                    pin_memory=True)
+                        if self.on_card else None)
+
+    def rung(self) -> None:
+        """Run one rung: a replay, or the body eagerly."""
+        if self.graph is not None:
+            self.graph.replay()
+            add_launches(self.captured)
+            self.replays += 1
+        elif self.on_card:
+            device = self.state["x"].device
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                self.body(self.state)
+            torch.cuda.current_stream(device).wait_stream(side)
+        else:
+            self.body(self.state)
+
+    def capture(self) -> None:
+        """Capture the body in a CUDA graph (the launches it records are
+        not counted: a capture runs nothing)."""
+        t0 = time.perf_counter()
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        with torch.cuda.graph(graph):
+            self.body(self.state)
+        self.captured = tuple(a - b for a, b in zip(launch_counts(), before))
+        add_launches(tuple(-k for k in self.captured))
+        self.keep = (*self.keep, *FC.kept_packings())
+        self.graph = graph
+        torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0
+        logger.info("Captured the device ladder's rung in a CUDA graph in "
+                    "%.3f s (%d kernel-wrapper launches per replay)",
+                    self.capture_s, sum(self.captured))
+
+    def read_flags(self) -> dict:
+        """The rung's flags (``LADDER_FLAGS``): one small device-to-host
+        read, into pinned memory on the card, waited on."""
+        flags = self.state["flags"]
+        if self.on_card:
+            self._pinned.copy_(flags, non_blocking=True)
+            torch.cuda.current_stream(flags.device).synchronize()
+            flags = self._pinned
+        return dict(zip(LADDER_FLAGS, flags.tolist()))
+
+
 class SMCSampler(Sampler):
-    """Adaptive-tempered SMC; subclasses provide the mutation kernel."""
+    """Adaptive-tempered SMC; subclasses provide the mutation kernel.
+
+    ``ladder_cache`` holds the last device ladder captured, under its key,
+    across runs (``Aspire`` passes its own, so a sampler built per call
+    replays the graph an earlier call captured); by default the sampler's
+    own. A run with another key replaces it.
+    """
 
     default_sampler_kwargs: dict = {}
 
     def __init__(self, *args, resampling_method: str = "systematic",
-                 **kwargs):
+                 ladder_cache: dict | None = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.resampling_method = resampling_method
+        self.ladder_cache = {} if ladder_cache is None else ladder_cache
         self.history = SMCHistory()
         self.sampler_kwargs: dict = {}
         self._adaptive_target_efficiency = False
@@ -126,6 +280,8 @@ class SMCSampler(Sampler):
         self._step_size_carry_fused = None
         self._lineage_fraction = 1.0
         self._last_chain_stats = None
+        self._kernel_target_value = _UNSET
+        self.ladder = None
 
     # -- target efficiency schedule ----------------------------------------
 
@@ -159,7 +315,7 @@ class SMCSampler(Sampler):
 
     # -- tempered target ---------------------------------------------------
 
-    def tempered_log_prob(self, z: torch.Tensor, beta: float):
+    def tempered_log_prob(self, z: torch.Tensor, beta):
         """``(1-beta) log q + beta (logL + logPi) + log|J|`` in the
         preconditioned space, NaN -> -inf."""
         x, log_j = self.invert_preconditioning(z)
@@ -173,7 +329,7 @@ class SMCSampler(Sampler):
 
     # -- mutation ----------------------------------------------------------
 
-    def _kernel_step_builder(self, log_prob_fn, ref):
+    def _kernel_step_builder(self, log_prob_fn, ref, generator):
         """Return ``(step_fn, init_step)``; overridden."""
         raise NotImplementedError
 
@@ -182,12 +338,17 @@ class SMCSampler(Sampler):
 
     def _kernel_target(self):
         """``(id, constants)`` when both user callables are bound to one
-        problem object that carries an in-kernel target."""
-        owner = getattr(self.log_likelihood, "__self__", None)
-        if owner is None or getattr(self.log_prior, "__self__", None) is not owner:
-            return None
-        fn = getattr(owner, "kernel_target", None)
-        return fn(self.device) if fn is not None else None
+        problem object that carries an in-kernel target; built once per
+        run."""
+        if self._kernel_target_value is _UNSET:
+            owner = getattr(self.log_likelihood, "__self__", None)
+            fn = getattr(owner, "kernel_target", None)
+            if (fn is None
+                    or getattr(self.log_prior, "__self__", None) is not owner):
+                self._kernel_target_value = None
+            else:
+                self._kernel_target_value = fn(self.device)
+        return self._kernel_target_value
 
     def _fused_chain_spec(self, kwargs, n: int, dtype) -> dict | None:
         """Dispatch predicate for the whole-chain kernel (None -> split).
@@ -231,96 +392,100 @@ class SMCSampler(Sampler):
             return None
         return kcfg
 
-    def _mutate_fused(self, z, beta, n_steps, spec):
+    def _mutate_fused(self, z, beta, n_steps, spec, step0,
+                      generator) -> Mutation:
+        """The whole-chain kernel at ``beta`` from per-tile step sizes
+        ``step0`` (entries <= 0 take the initial step size); its seed is
+        drawn on the device, so nothing here reads back to the host."""
         n, d = z.shape
-        nt = n // FM.TILE
-        carry = self._step_size_carry_fused
-        if carry is not None and carry.shape == (nt,):
-            step0 = carry
-        else:
-            step0 = torch.full((nt,), spec["init_step"], dtype=torch.float32,
-                               device=z.device)
-        ref = K.fit_gaussian_reference(z)
-        seed = torch.randint(0, 2**32, (2,), generator=self.generator,
-                             device=self.device).tolist()
+        ref, info = K.gaussian_reference_info(z)
+        seed = torch.randint(0, 2**32, (2,), generator=generator,
+                             device=z.device)
         cfg = FM.ChainConfig(
             self.prior_flow.architecture, spec["kernel"], n_steps,
             nu=spec["nu"], target_acceptance=spec["target_acceptance"],
             adaptation_rate=spec["adaptation_rate"],
             gamma_m=spec["gamma_m"], gamma_odd=spec["gamma_odd"])
+        step0 = torch.where(step0 > 0, step0, spec["init_step"])
         x, lq, lpi, ll, nacc, steps, stats = FM.fused_mh_chain(
             cfg, self.prior_flow.params, z, beta, seed, step0, ref.mean,
             ref.chol, ref.inv_chol, spec["target"],
             data_transform=spec["data_transform"])
-        self._step_size_carry_fused = steps
         tau, mixing = FM.combine_tile_stats(stats, d, FM.TILE)
         acceptance = torch.mean(nacc) / max(n_steps, 1)
-        return x, lq, lpi, ll, acceptance, tau, mixing, (n_steps + 1) * n
+        return Mutation(x, lq, lpi, ll, acceptance, tau, mixing, steps, info,
+                        (n_steps + 1) * n)
 
-    def _mutate_split(self, z, beta, n_steps, kwargs):
-        ref = K.fit_gaussian_reference(z)
+    def _mutate_split(self, z, beta, n_steps, step0, generator) -> Mutation:
+        """The per-step chain at ``beta`` from the step size ``step0``
+        (<= 0 takes the initial step size), then the densities refreshed."""
+        ref, info = K.gaussian_reference_info(z)
 
         def log_prob_fn(zz):
             return self.tempered_log_prob(zz, beta)
 
-        step_fn, init_step = self._kernel_step_builder(log_prob_fn, ref)
-        carry = self._step_size_carry
-        step0 = (carry if carry is not None else
-                 torch.tensor(float(init_step), dtype=z.dtype,
-                              device=z.device))
-        state = K.ChainState(x=z, log_prob=log_prob_fn(z), step_size=step0,
-                             n_accept=torch.zeros_like(z[:, 0]))
+        step_fn, init_step = self._kernel_step_builder(log_prob_fn, ref,
+                                                       generator)
+        state = K.ChainState(
+            x=z, log_prob=log_prob_fn(z),
+            step_size=torch.where(step0 > 0, step0, float(init_step)),
+            n_accept=torch.zeros_like(z[:, 0]))
         final, stats = K.run_chain(step_fn, state, n_steps)
-        self._step_size_carry = final.step_size
         x, _ = self.invert_preconditioning(final.x)
         log_q = self.prior_flow.log_prob(x)
         log_pi = self.evaluate_log_prior(x)
         view = self._make_view(x)
         log_l = torch.as_tensor(self.log_likelihood(view)).reshape(-1)
         acceptance = torch.mean(final.n_accept / max(n_steps, 1))
-        evals = final.n_evals + z.shape[0] + x.shape[0]
-        return (x, log_q, log_pi, log_l, acceptance, stats.tau, stats.mixing,
-                evals)
+        return Mutation(x, log_q, log_pi, log_l, acceptance, stats.tau,
+                        stats.mixing, final.step_size, info,
+                        final.n_evals + z.shape[0] + x.shape[0])
+
+    def _mutation_kwargs(self) -> dict:
+        kwargs = dict(self.default_sampler_kwargs)
+        kwargs.update(self.sampler_kwargs or {})
+        return kwargs
 
     def mutate(self, samples: SMCSamples, beta: float,
                n_steps: int | None = None) -> SMCSamples:
         """Fit the preconditioning, run the chain at ``beta``, and return
         the mutated particles with refreshed densities."""
-        kwargs = dict(self.default_sampler_kwargs)
-        kwargs.update(self.sampler_kwargs or {})
+        kwargs = self._mutation_kwargs()
         n_steps = int(n_steps or kwargs.get("n_steps") or 5 * self.dims)
         z = self.fit_preconditioning_transform(samples.x)
         spec = self._fused_chain_spec(kwargs, z.shape[0], z.dtype)
+        unset = dict(dtype=z.dtype, device=z.device)
         if spec is not None:
-            out = self._mutate_fused(z.contiguous(), beta, n_steps, spec)
+            carry, nt = self._step_size_carry_fused, z.shape[0] // FM.TILE
+            step0 = (carry if carry is not None and carry.shape == (nt,)
+                     else torch.full((nt,), -1.0, **unset))
+            m = self._mutate_fused(z.contiguous(), beta, n_steps, spec, step0,
+                                   self.generator)
+            self._step_size_carry_fused = m.step
             route = "fused_kernel"
         else:
-            out = self._mutate_split(z, beta, n_steps, kwargs)
+            carry = self._step_size_carry
+            step0 = carry if carry is not None else torch.full((), -1.0,
+                                                               **unset)
+            m = self._mutate_split(z, beta, n_steps, step0, self.generator)
+            self._step_size_carry = m.step
             route = "split"
-        x, log_q, log_pi, log_l, acceptance, tau, mixing, evals = out
-        nan_q = torch.isnan(log_q).sum()
-        nonfinite = (~torch.isfinite(log_pi) | ~torch.isfinite(log_l)).sum()
-        nan_target = (torch.isnan(log_pi) | torch.isnan(log_l)).sum()
-        acceptance, tau, mixing, nan_q, nonfinite, nan_target = torch.stack([
-            acceptance.float(), tau.float(), mixing.float(), nan_q.float(),
-            nonfinite.float(), nan_target.float()]).tolist()
-        self.n_likelihood_evaluations += int(evals)
+        (acceptance, tau, mixing, nan_q, nonfinite, nan_target,
+         info) = torch.stack([
+             v.double() for v in (m.acceptance, m.tau, m.mixing,
+                                  *mutation_faults(m), m.info)]).tolist()
+        self.n_likelihood_evaluations += int(m.evals)
         self.history.mcmc_acceptance.append(acceptance)
         self.history.mcmc_autocorr.append(tau)
         self.history.mutation_route.append(route)
         self.history.nonfinite_target.append(int(nonfinite))
         self._last_chain_stats = (tau, mixing)
-        if nan_q:
-            raise ValueError(f"Log proposal contains {int(nan_q)} NaN values")
-        if nan_target:
-            raise ValueError(
-                "log_prior/log_likelihood returned NaN for mutated particles "
-                "(return -inf for invalid points instead)")
-        new = SMCSamples(x=x, beta=beta, dtype=self.dtype,
+        raise_mutation_faults(nan_q, nan_target, info)
+        new = SMCSamples(x=m.x, beta=beta, dtype=self.dtype,
                          parameters=self.parameters, device=self.device)
-        new.log_q = log_q
-        new.log_prior = log_pi
-        new.log_likelihood = log_l
+        new.log_q = m.lq
+        new.log_prior = m.lpi
+        new.log_likelihood = m.ll
         return new
 
     # -- lineage bookkeeping -------------------------------------------------
@@ -337,6 +502,303 @@ class SMCSampler(Sampler):
         rho = max((tau - 1.0) / (tau + 1.0), 0.0)
         recovered = (1.0 - rho ** (2 * k)) * mixing
         self._lineage_fraction += (1.0 - self._lineage_fraction) * recovered
+
+    # -- the device ladder ---------------------------------------------------
+
+    def _ladder_refusal(self) -> str | None:
+        """Why this run cannot take the device ladder, or None: the JAX
+        package's three conditions, and a chain that reads back from the
+        device (tpCN's Gamma variate by rejection, for a non-integer
+        ``nu + d`` on the split chain)."""
+        if not self.adaptive:
+            return "device_ladder requires adaptive=True"
+        if self.preconditioning_transform is not None:
+            return ("device_ladder does not support preconditioning "
+                    "transforms; use preconditioning=None")
+        if not self.target_is_capturable():
+            return ("device_ladder requires a log_likelihood/log_prior that "
+                    "a CUDA graph can capture (see target_is_capturable)")
+        kwargs = self._mutation_kwargs()
+        if kwargs.get("step_fn", "tpcn") == "tpcn" and "nu" in kwargs:
+            k2 = float(kwargs["nu"]) + self.dims
+            if abs(k2 - round(k2)) > 1e-9:
+                return ("device_ladder cannot capture tpCN's Gamma variate "
+                        f"for a non-integer nu + d ({k2}): it is drawn by "
+                        "rejection, which reads back from the device")
+        return None
+
+    def _ladder_body(self, spec: dict | None, n_steps: int,
+                     generator: torch.Generator) -> Callable:
+        """One rung of the device ladder as a function of its state dict,
+        the JAX package's ``while_loop`` body (``smc.py:1754-2024``) in
+        its order: the target efficiency at the previous beta, the
+        statistics and the bisection, the stall flag, the incremental
+        weights, resampling, the mutation (``spec``: the whole-chain
+        kernel, None: the split chain), the lineage recursion, the history
+        buffers at index ``it`` and the flags. The new state is copied into
+        the state's own tensors, so a CUDA graph of the body reads and
+        writes the same memory on every replay; nothing reads back."""
+        resampler = get_resampler(self.resampling_method)
+        adaptive_min_step = self.adaptive_min_beta_step
+
+        def body(s: dict) -> None:
+            with torch.no_grad():
+                n = s["x"].shape[0]
+                beta_prev = s["beta"]
+                target_eff = (s["eff_lo"] + (s["eff_hi"] - s["eff_lo"])
+                              * beta_prev.double() ** s["eff_rate"]
+                              ).to(beta_prev.dtype)
+                (beta, min_step, _, ess, ess1, ratio,
+                 var) = iteration_stats(
+                    s["ll"], s["lpi"], s["lq"], beta_prev, 1.0, target_eff,
+                    s["tol"], s["min_step"], s["max_step"], adaptive=True,
+                    adaptive_min_step=adaptive_min_step).unbind()
+                stalled = beta <= beta_prev
+                log_w = incremental_log_weights(s["lq"], s["ll"], s["lpi"],
+                                                beta_prev, beta)
+                x_r = s["x"][resampler(generator, log_w, n)]
+                f_lin = torch.clamp(
+                    s["f_lin"] * torch.clamp(ess.double(), min=1.0) / n,
+                    min=1.0 / n, max=1.0)
+                if spec is not None:
+                    m = self._mutate_fused(x_r, beta, n_steps, spec,
+                                           s["step"], generator)
+                else:
+                    m = self._mutate_split(x_r, beta, n_steps, s["step"],
+                                           generator)
+                tau, mixing = m.tau.double(), m.mixing.double()
+                rho = torch.clamp((tau - 1.0) / (tau + 1.0), min=0.0)
+                f_lin = f_lin + (1.0 - f_lin) * (
+                    (1.0 - rho ** (2 * n_steps)) * mixing)
+                i = s["it"]
+                for name, v in zip(LADDER_HISTORY, (
+                        beta, ess, ess1, ratio, var.double() / s["f_lin"],
+                        m.acceptance, tau, s["f_lin"])):
+                    s[name].index_copy_(0, i, v.double().reshape(1))
+                s["ev_h"].index_fill_(0, i, m.evals)
+                done = beta >= 1.0
+                it = i + 1
+                running = ~done & ~stalled & (it < s["iter_cap"])
+                s["flags"].copy_(torch.stack([
+                    v.reshape(()).to(torch.int64) for v in (
+                        it, done, stalled, running, *mutation_faults(m),
+                        m.info)]))
+                for name, v in (("x", m.x), ("lq", m.lq), ("lpi", m.lpi),
+                                ("ll", m.ll), ("beta", beta),
+                                ("min_step", min_step), ("step", m.step),
+                                ("it", it), ("done", done),
+                                ("stalled", stalled), ("f_lin", f_lin)):
+                    s[name].copy_(v)
+
+        return body
+
+    def _ladder_state(self, samples: SMCSamples, spec, max_iters: int
+                      ) -> dict:
+        """The device ladder's state tensors (contents set by
+        :meth:`_load_ladder`)."""
+        x = samples.x
+        n, dt = x.shape[0], dict(dtype=x.dtype, device=x.device)
+        f64 = dict(dtype=torch.float64, device=x.device)
+        step_shape = (n // FM.TILE,) if spec is not None else ()
+        return {
+            "x": torch.empty_like(x), "ll": torch.empty(n, **dt),
+            "lpi": torch.empty(n, **dt), "lq": torch.empty(n, **dt),
+            "beta": torch.empty((), **dt), "min_step": torch.empty((), **dt),
+            "step": torch.empty(step_shape, **dt),
+            "it": torch.empty(1, dtype=torch.int64, device=x.device),
+            "done": torch.empty((), dtype=torch.bool, device=x.device),
+            "stalled": torch.empty((), dtype=torch.bool, device=x.device),
+            "f_lin": torch.empty((), **f64),
+            **{name: torch.empty(max_iters, **f64)
+               for name in LADDER_HISTORY},
+            "ev_h": torch.empty(max_iters, dtype=torch.int64,
+                                device=x.device),
+            "flags": torch.empty(len(LADDER_FLAGS), dtype=torch.int64,
+                                 device=x.device),
+            "max_step": torch.empty((), **dt), "tol": torch.empty((), **dt),
+            "eff_lo": torch.empty((), **f64), "eff_hi": torch.empty((), **f64),
+            "eff_rate": torch.empty((), **f64),
+            "iter_cap": torch.empty(1, dtype=torch.int64, device=x.device),
+        }
+
+    def _load_ladder(self, state: dict, samples: SMCSamples, *,
+                     min_beta_step, max_beta_step, beta_tolerance,
+                     max_iters) -> None:
+        """Write this run's population and scalars into the ladder's state:
+        the values that change from call to call are never part of a
+        graph."""
+        if self._adaptive_target_efficiency:
+            eff_lo, eff_hi = self._target_efficiency
+        else:
+            eff_lo = eff_hi = float(self._target_efficiency)
+        for name, value in (("x", samples.x), ("ll", samples.log_likelihood),
+                            ("lpi", samples.log_prior), ("lq", samples.log_q)):
+            state[name].copy_(value)
+        for name, value in (
+                ("beta", samples.beta or 0.0), ("min_step", min_beta_step),
+                ("step", -1.0), ("it", 0), ("done", False),
+                ("stalled", False), ("f_lin", self._lineage_fraction),
+                ("ev_h", 0), ("flags", 0), ("max_step", max_beta_step),
+                ("tol", beta_tolerance), ("eff_lo", eff_lo),
+                ("eff_hi", eff_hi),
+                ("eff_rate", float(self.target_efficiency_rate)),
+                ("iter_cap", max_iters),
+                *((name, 0.0) for name in LADDER_HISTORY)):
+            state[name].fill_(value)
+
+    def _ladder_key(self, spec, n_steps: int, max_iters: int, samples):
+        """What a captured rung depends on besides the state it reads: the
+        JAX package's cache key (``smc.py:1623-1630``) and the population's
+        size and dtype, the resampler, the target and the flow."""
+        return ("ladder", type(self), n_steps, max_iters,
+                self.adaptive_min_beta_step,
+                "fused_kernel" if spec is not None else "split",
+                repr(sorted(self.sampler_kwargs.items())),
+                self.resampling_method, tuple(samples.x.shape),
+                samples.x.dtype, str(samples.x.device), self.log_likelihood,
+                self.log_prior, id(self.prior_flow))
+
+    def _device_ladder(self, samples, spec, n_steps: int,
+                       max_iters: int) -> DeviceLadder:
+        """This run's ladder: on the card the cached one while its key and
+        the flow's parameters (the same tensors at the same versions) hold,
+        else a new one, which takes the cached one's place; on the CPU a
+        new one on the sampler's generator."""
+        if not samples.x.is_cuda:
+            return DeviceLadder(
+                self._ladder_body(spec, n_steps, self.generator),
+                self._ladder_state(samples, spec, max_iters), self.generator)
+        _, leaves = FC._flatten(self.prior_flow.params)
+        params = tuple((t, t._version) for t in leaves)
+        key = self._ladder_key(spec, n_steps, max_iters, samples)
+        kept, ladder = self.ladder_cache.get(key, ((), None))
+        if ladder is not None and len(kept) == len(params) and all(
+                a is b and v == w for (a, v), (b, w) in zip(kept, params)):
+            return ladder
+        # One ladder at a time: the one it replaces (its graph, the graph's
+        # memory pool and its state) is freed before the new one is made.
+        self.ladder_cache.clear()
+        generator = torch.Generator(device=samples.x.device)
+        ladder = DeviceLadder(
+            self._ladder_body(spec, n_steps, generator),
+            self._ladder_state(samples, spec, max_iters), generator,
+            keep=(self.prior_flow, spec))
+        self.ladder_cache[key] = (params, ladder)
+        return ladder
+
+    def _replay_ladder_history(self, history: SMCHistory, it: int,
+                               buffers: dict) -> None:
+        """Append ``it`` rungs of the device ladder's history buffers to
+        ``history`` (the JAX package's ``_replay_ladder_history``)."""
+        for i in range(it):
+            beta = buffers["beta_h"][i]
+            history.beta.append(beta)
+            history.eff_target.append(
+                float(self.current_target_efficiency(beta)))
+            history.ess.append(buffers["ess_h"][i])
+            history.ess_target.append(buffers["ess1_h"][i])
+            history.log_norm_ratio.append(buffers["ratio_h"][i])
+            history.log_norm_ratio_var.append(buffers["var_h"][i])
+            history.mcmc_acceptance.append(buffers["acc_h"][i])
+            history.mcmc_autocorr.append(buffers["tau_h"][i])
+            history.lineage_fraction.append(buffers["lin_h"][i])
+
+    def _run_device_ladder(self, samples: SMCSamples, *, min_beta_step,
+                           max_beta_step, beta_tolerance, max_iters: int,
+                           store_history: bool = False
+                           ) -> tuple[SMCSamples, int]:
+        """Run the adaptive ladder rung by rung on the device: a replay of
+        the captured rung per temperature on the card, the body eagerly on
+        the CPU, each followed by one read of the rung's flags; at most
+        ``max_iters`` rungs. The history buffers are fetched once, at the
+        end (or at a fault, which raises after the rungs that ran are in
+        the history)."""
+        reason = self._ladder_refusal()
+        if reason is not None:
+            raise ValueError(reason)
+        kwargs = self._mutation_kwargs()
+        n_steps = int(kwargs.get("n_steps") or 5 * self.dims)
+        n = len(samples)
+        spec = self._fused_chain_spec(kwargs, n, samples.x.dtype)
+        route = "fused_kernel" if spec is not None else "split"
+        ladder = self._device_ladder(samples, spec, n_steps, max_iters)
+        self.ladder = ladder
+        self._load_ladder(ladder.state, samples, min_beta_step=min_beta_step,
+                          max_beta_step=max_beta_step,
+                          beta_tolerance=beta_tolerance, max_iters=max_iters)
+        if ladder.on_card:
+            ladder.generator.set_state(self.generator.get_state())
+        state = ladder.state
+        while True:
+            ladder.rung()
+            flags = ladder.read_flags()
+            it = flags["it"]
+            self.history.mutation_route.append(route)
+            self.history.nonfinite_target.append(flags["nonfinite"])
+            if store_history:
+                self.history.sample_history.append(self._ladder_samples(
+                    state, float(state["beta"]), clone=False).to_numpy())
+            if flags["nan_q"] or flags["nan_target"] or flags["chol_info"]:
+                self._finish_ladder(ladder, it)
+                raise_mutation_faults(flags["nan_q"], flags["nan_target"],
+                                      flags["chol_info"],
+                                      where=f"device ladder rung {it}: ")
+            if not flags["running"]:
+                break
+            if ladder.on_card and ladder.graph is None:
+                ladder.capture()
+        beta = self._finish_ladder(ladder, it)
+        if flags["stalled"]:
+            raise BetaScheduleError(
+                "Device ladder stalled: beta did not increase. Consider "
+                f"adjusting beta_tolerance ({beta_tolerance}), "
+                f"min_beta_step ({min_beta_step}) or the target "
+                "efficiency.")
+        return self._ladder_samples(state, beta, clone=True), it
+
+    def _finish_ladder(self, ladder: DeviceLadder, it: int) -> float:
+        """Fetch the ``it`` rungs' history buffers, the lineage fraction and
+        the evaluation count in one transfer, replay them into the history
+        and the sampler, keep the step-size carry, and give the
+        generator's state back to the sampler. Returns the last beta."""
+        state = ladder.state
+        if ladder.on_card:
+            self.generator.set_state(ladder.generator.get_state())
+        rows = torch.cat([
+            torch.stack([state[name][:it] for name in LADDER_HISTORY]
+                        ).reshape(-1),
+            torch.stack([state["f_lin"], state["ev_h"][:it].sum().double()]),
+        ]).tolist()
+        buffers = {name: rows[k * it:(k + 1) * it]
+                   for k, name in enumerate(LADDER_HISTORY)}
+        self._replay_ladder_history(self.history, it, buffers)
+        n = state["x"].shape[0]
+        for i in range(it):
+            logger.info("it %d - beta %.6g, ESS %.1f (%.2f eff), log ratio "
+                        "%.3f", i + 1, buffers["beta_h"][i],
+                        buffers["ess_h"][i], buffers["ess_h"][i] / n,
+                        buffers["ratio_h"][i])
+        self._lineage_fraction, evals = rows[-2:]
+        self.n_likelihood_evaluations += int(evals)
+        step = state["step"].clone()
+        if step.dim():
+            self._step_size_carry_fused = step
+        else:
+            self._step_size_carry = step
+        return buffers["beta_h"][-1]
+
+    def _ladder_samples(self, state: dict, beta: float,
+                        clone: bool) -> SMCSamples:
+        """The ladder's population as samples at ``beta``; cloned out of
+        the state, which a later run of a cached ladder overwrites."""
+        copy = (lambda t: t.clone()) if clone else (lambda t: t)
+        new = SMCSamples(x=copy(state["x"]), beta=beta,
+                         dtype=self.dtype, parameters=self.parameters,
+                         device=self.device)
+        new.log_q = copy(state["lq"])
+        new.log_prior = copy(state["lpi"])
+        new.log_likelihood = copy(state["ll"])
+        return new
 
     # -- main loop ---------------------------------------------------------
 
@@ -355,14 +817,21 @@ class SMCSampler(Sampler):
         store_sample_history: bool | None = None,
         beta_tolerance: float = DEFAULT_BETA_TOLERANCE,
         device_ladder: bool | None = None,
+        device_ladder_max_iters: int = 256,
     ) -> Samples:
         """Run adaptive-tempered SMC; returns posterior samples with the
         log evidence and its error. ``n_steps`` fixes the beta ladder
         (``1 / n_steps`` increments); the mutation length is
-        ``sampler_kwargs["n_steps"]``."""
-        if device_ladder:
-            raise NotImplementedError(
-                "the device ladder is not ported; the host ladder runs")
+        ``sampler_kwargs["n_steps"]``.
+
+        ``device_ladder=True`` runs the temperatures on the device ladder
+        (one CUDA graph replay per temperature on the card), ``False`` on
+        the host ladder; None selects the device ladder when the schedule
+        is adaptive, there is no preconditioning and no sample history,
+        and the target can be captured, as the JAX package does.
+        ``device_ladder_max_iters`` sizes its history buffers: a run that
+        needs more rungs continues on the host ladder (``max_n_steps``, a
+        cumulative cap, takes its place when set)."""
         self.sampler_kwargs = dict(self.default_sampler_kwargs)
         self.sampler_kwargs.update(sampler_kwargs or {})
         for name in UNPORTED_SAMPLER_KWARGS:
@@ -377,7 +846,9 @@ class SMCSampler(Sampler):
         self._step_size_carry = None
         self._step_size_carry_fused = None
         self._lineage_fraction = 1.0
+        self._kernel_target_value = _UNSET
         self.history = SMCHistory()
+        self.ladder = None
 
         init = self.draw_initial_samples(n_samples)
         samples = SMCSamples.from_samples(init, beta=0.0, dtype=self.dtype)
@@ -414,8 +885,40 @@ class SMCSampler(Sampler):
         else:
             max_beta_step = 1.0
 
+        if device_ladder is None:
+            device_ladder = (self.adaptive
+                             and self.preconditioning_transform is None
+                             and not store_sample_history
+                             and self._ladder_refusal() is None)
+            if device_ladder:
+                logger.info(
+                    "Auto-selected the device ladder (a target a CUDA graph "
+                    "can capture, no preconditioning; pass "
+                    "device_ladder=False to force the host ladder).")
+
         iterations = 0
-        while True:
+        run_host_ladder = True
+        if device_ladder:
+            samples, ladder_iters = self._run_device_ladder(
+                samples, min_beta_step=min_beta_step,
+                max_beta_step=max_beta_step, beta_tolerance=beta_tolerance,
+                # max_n_steps is a cumulative cap, as in the JAX package.
+                max_iters=(max(max_n_steps - iterations, 1)
+                           if max_n_steps is not None
+                           else device_ladder_max_iters),
+                store_history=store_sample_history)
+            iterations += ladder_iters
+            beta = samples.beta
+            if beta < 1.0 and max_n_steps is None:
+                logger.warning(
+                    "Device ladder hit its %d-iteration buffer at beta=%.4f; "
+                    "continuing on the host ladder (raise "
+                    "device_ladder_max_iters to keep such runs on the "
+                    "device).", device_ladder_max_iters, beta)
+            else:
+                run_host_ladder = False
+
+        while run_host_ladder:
             iterations += 1
             beta_prev = samples.beta
             target_eff = float(self.current_target_efficiency(beta_prev))
@@ -505,14 +1008,14 @@ class PCNSMC(SMCSampler):
             "init_step": float(kwargs.get("initial_step_size", 0.5)),
         }
 
-    def _kernel_step_builder(self, log_prob_fn: Callable, ref):
-        kwargs = dict(self.default_sampler_kwargs)
-        kwargs.update(self.sampler_kwargs or {})
+    def _kernel_step_builder(self, log_prob_fn: Callable, ref,
+                             generator: torch.Generator):
+        kwargs = self._mutation_kwargs()
         step_name = kwargs.get("step_fn", "tpcn")
         common = dict(
             target_acceptance=kwargs.get("target_acceptance_rate", 0.234),
             adaptation_rate=kwargs.get("adaptation_rate", 0.1))
-        gen = self.generator
+        gen = generator
         if step_name == "pcn":
             def step(state):
                 return K.pcn_step(state, gen, log_prob_fn, ref, **common)

@@ -23,21 +23,36 @@ main paths (6, 7, 8) right after the build:
    value, every mutation on the chain kernel, launch counts), the same
    with the split chain (at least n_steps + 2 coupling-kernel launches per
    mutation, counted over that run alone), then the 131072-particle
-   pipeline time;
+   pipeline on the device ladder, auto-selected, timed in turns with the
+   host ladder (``ladder_turns``: each device run replays the cached graph
+   once per rung, with >= 1 chain-kernel launch per rung counted per
+   replay; log Z against the host ladder's and the truth), one replayed
+   rung against the eager body, every state tensor bit for bit
+   (``replay_check``; the kernels one replay runs, read by the profiler
+   at the end of the run, against the launches its capture counted), and
+   the device ladder on the split chain (>= n_steps + 2 coupling-kernel
+   launches per rung; ``replay_check`` again);
+   then a target that reads back to the host (``phase_uncapturable_target``:
+   the host ladder by default, ValueError when the device ladder is
+   forced);
 7. the MAF path: fit a maf-rqs flow to the same draws, SMC at n = 8192
    (log Z against the analytic value, every mutation on the split chain,
    every density pass of it on the MAF kernel: launch counts), the
    default flow_backend ("maf", affine, plain torch) at n = 8192, then
-   the maf-rqs 131072-particle pipeline time;
+   the maf-rqs 131072-particle pipeline, device ladder against host ladder
+   in turns (>= n_steps + 2 MAF-kernel launches per rung;
+   ``replay_check``);
 8. BASELINE config 5 (``phase_hierarchical``): the d = 32 hierarchical
    posterior with an nsf 6 x (128, 128), 8-bin flow at its full width
    and n: B1/B3 at that shape against plain at n = 16384 and 1048576, B2
    on the hierarchical target against the plain chain at 8192 x 32 steps;
    the pipeline (fit on 32768 draws, importance sampling on 262144, SMC on
    1048576 particles with 32-step tpCN: every mutation on B2, the draws
-   on B3; launch counts); the whole-chain and split routes (every split
-   density pass on B1) agreeing on log Z at n = 131072; the log Z printed
-   beside the quadrature truth and the reference's TPU record;
+   on B3; launch counts; the device ladder, captured on this run, then
+   timed in turns with the host ladder; ``replay_check``); the
+   whole-chain and split routes (every split density pass on B1)
+   agreeing on log Z at n = 131072; the log Z printed beside the
+   quadrature truth and the reference's TPU record;
 9. the staged coupling kernels (D1-D3), as the dev scripts'
    A/B runs them: their flow (4 coupling layers, (64, 64), 8 bins) at
    n = 131072, each variant through its wrapper and timed in turns with
@@ -77,7 +92,8 @@ for config 5's wide kernels B1, B3 and B2 at n = 1048576 and 131072,
 with their errors against float64 and each checkout's ptxas report
 (``wide_ab``). ``--accumulation`` reads B2's flow density (on the d = 4
 chain and on config 5's) and B4 against float64 over 20 draws each
-(``accumulation``).
+(``accumulation``). ``--ladder-profile`` profiles one warmed device-ladder
+pipeline of nsf-tpu and of maf-rqs (``ladder_profile``).
 """
 
 from __future__ import annotations
@@ -190,23 +206,69 @@ def kernel_ms(fn, match: str, reps: int = 20) -> float:
     raise AssertionError(f"the profiler recorded no kernel {match!r}")
 
 
-# kernel_ms readings the phases note, made by read_kernel_ms at the end of
-# the run: once torch.profiler has traced the card (CUPTI), every later
-# launch costs the host more, so no event time and no pipeline may follow.
+# profiler readings the phases note (kernel_ms, replay_kernels), made by
+# read_kernel_ms at the end of the run: once torch.profiler has traced the
+# card (CUPTI), every later launch costs the host more, so no event time
+# and no pipeline may follow.
 _KERNEL_MS_LATER: list = []
 
 
 def kernel_ms_later(out: dict, key: str, fn, match: str,
                     reps: int = 20) -> None:
     """Note a kernel_ms reading of ``fn`` for ``out[key]``."""
-    _KERNEL_MS_LATER.append((out, key, fn, match, reps))
+    _KERNEL_MS_LATER.append(
+        lambda: out.__setitem__(key, kernel_ms(fn, match, reps)))
 
 
 def read_kernel_ms() -> None:
-    """Make every noted kernel_ms reading, in the order noted."""
-    for out, key, fn, match, reps in _KERNEL_MS_LATER:
-        out[key] = kernel_ms(fn, match, reps)
+    """Make every noted profiler reading, in the order noted."""
+    for reading in _KERNEL_MS_LATER:
+        reading()
     _KERNEL_MS_LATER.clear()
+
+
+#: the kernels of a device-ladder rung, by the name the profiler gives
+#: them, and the wrapper counter of each (``launch_counts``)
+LADDER_KERNELS = {"coupling_kernel": "coupling", "chain_kernel": "chain",
+                  "maf_kernel": "maf"}
+
+
+def replay_kernels(ladder) -> dict:
+    """The kernels one replay of ``ladder``'s graph runs on the card, per
+    ``LADDER_KERNELS`` name, from ``torch.profiler``'s CUDA activity,
+    against the launches its capture counted (``ladder.captured``), which
+    every replay adds to the wrapper counters: they must be equal."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aspire_tpu_torch.ops import _build
+    from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    counters = {"coupling": FC.launches, "chain": FM.launches,
+                "maf": FC.maf_launches}
+    made = _build.LaunchCounter.made
+    counted = {k: ladder.captured[made.index(c)] for k, c in counters.items()}
+    for attempt in range(3):  # a trace can come back without the card's
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ladder.graph.replay()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+        log(f"the profiler recorded no replayed kernel (trace {attempt})")
+    ran = {k: sum(e.count for e in kernels if name in e.key)
+           for name, k in LADDER_KERNELS.items()}
+    out = {"replay_kernels": ran, "captured_launches": counted,
+           "replay_device_ops": sum(e.count for e in kernels)}
+    log(f"one replay's kernels on the card: {out}")
+    if ran != counted:
+        raise AssertionError(f"a replay ran {ran} on the card, its capture "
+                             f"counted {counted}")
+    return out
 
 
 def perturbed_flow(device, seed: int = 0, arch=None, scale: float = 0.1):
@@ -245,15 +307,20 @@ def as_float64(params):
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
+    from aspire_tpu_torch.ops import _build
+
+    for counter in _build.LaunchCounter.made:
+        counter.reset()
+
+
+def launch_counts() -> dict:
+    """B1/B3's, B2's and B4's launch counts (a CUDA graph's replays add
+    the launches it captured)."""
     from aspire_tpu_torch.ops import fused_coupling as FC
     from aspire_tpu_torch.ops import fused_mutation as FM
-    from aspire_tpu_torch.ops import prng as PR
-    from aspire_tpu_torch.ops import staged_coupling as SC
 
-    for counter in (FC.launches, FC.maf_launches, FM.launches,
-                    SC.interleaved_launches, SC.q_launches,
-                    SC.packed_launches, PR.launches):
-        counter.reset()
+    return {"coupling": FC.launches.count, "chain": FM.launches.count,
+            "maf": FC.maf_launches.count}
 
 
 def coupling_flop_parts(arch) -> tuple[int, int]:
@@ -990,7 +1057,17 @@ def chain_turn() -> dict:
     times = {"B2": {"ms": cuda_ms(chain),
                     "ms_single_call": cuda_ms_single(chain)}}
     times["B2"]["kernel_ms"] = kernel_ms(chain, "chain_kernel", reps=5)
-    return {"times": times}
+    return {"times": times, "digest": digest(chain())}
+
+
+def digest(tensors) -> str:
+    """A SHA-256 of the tensors' bytes: equal digests, equal outputs."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def maf_turn() -> dict:
@@ -1098,8 +1175,12 @@ def chain_ab(parent: str) -> dict:
     n = N_PIPELINE and CHAIN_STEPS steps, in turns (parent, change, change,
     parent) on the same card; each turn a process of its own, which builds
     its checkout's kernels (a first call, not timed) and reads the kernel
-    alone after its events (``chain_turn``)."""
-    return path_ab(parent, "chain_turn", "", "chain", ())
+    alone after its events (``chain_turn``); and whether both checkouts'
+    outputs are the same bits (``digest``, for beta 0.7 and seed (1, 2))."""
+    out = path_ab(parent, "chain_turn", "", "chain", ("digest",))
+    out["outputs_identical"] = (out["parent"]["digest"]
+                                == out["change"]["digest"])
+    return out
 
 
 def maf_ab(parent: str) -> dict:
@@ -1344,6 +1425,62 @@ def accumulation() -> dict:
             "maf": maf_accuracy(dev)}
 
 
+def ladder_profile(top: int = 6) -> dict:
+    """Where a warmed device-ladder pipeline spends its time, for nsf-tpu
+    and maf-rqs at N_PIPELINE (the main paths' flows and fits): the wall
+    (host clock to a synchronise), the initial draws alone, and from
+    ``torch.profiler``'s CUDA activity of one pipeline the device's busy
+    time (the sum of its kernels' times: one stream, so no overlap), its
+    kernels' count and the ``top`` kernels by device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import GaussianMixtureProblem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p = GaussianMixtureProblem(dims=4)
+    init = Samples(p.draw_initial_samples(np.random.default_rng(42), 4000))
+    run = dict(sampler="smc", n_samples=N_PIPELINE, store_sample_history=False,
+               sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    out = {}
+    for name, kw in (("nsf-tpu", dict(flow_backend="nsf",
+                                      architecture="nsf-tpu")),
+                     ("maf-rqs", dict(flow_backend="maf-rqs"))):
+        asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                     dims=4, parameters=p.parameters, seed=1, device="cuda",
+                     **kw)
+        asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
+        for _ in range(2):  # the capture, then a warm replay
+            asp.sample_posterior(**run)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        asp.sampler.draw_initial_samples(N_PIPELINE)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            asp.sample_posterior(**run)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        kernels.sort(key=lambda e: -e.self_device_time_total)
+        out[name] = {
+            "wall_s": wall, "draw_initial_samples_s": draw_s,
+            "device_busy_s": busy, "device_busy_share": busy / wall,
+            "device_ops": sum(e.count for e in kernels),
+            "rungs": len(asp.sampler.history.beta),
+            "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                    for e in kernels[:top]]}
+        log(f"{name} device-ladder pipeline profile: {out[name]}")
+    return out
+
+
 def ptxas_report(text: str, match: str = "kernel_wide") -> dict:
     """From an ``nvcc -Xptxas -v`` log, per kernel whose mangled name
     contains ``match``: its registers and bytes of stack, spill stores and
@@ -1440,14 +1577,225 @@ def wide_ab(parent: str, draws: int = 10) -> dict:
                    ("accuracy", "ptxas"))
 
 
-def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
-    import numpy as np
+def ladder_turns(asp, run: dict, need: dict, truth: float | None = None,
+                 warm: bool = True) -> dict:
+    """The default path, the device ladder auto-selected, against the
+    host ladder (``device_ladder=False``) on ``run``, in turns (device,
+    host, host, device, device, host) after a warm-up of each: host clock
+    to ``torch.cuda.synchronize()``, medians of 3. Every device run must
+    take the ladder's graph, replay it once per rung when the ladder came
+    from ``asp.ladder_cache``, and launch each kernel of ``need`` at least
+    that many times per rung (a replay counts what its graph captured).
+    The last runs' log Z must agree within max(5 combined sigma, 0.15),
+    and each pass ``check_result`` when ``truth`` is given. On the card
+    every run of a ladder must give the population its first run gave
+    (one seed repeats a run: the resampling sums in a fixed order);
+    whether the two ladders give one population is reported.
+    ``warm=False`` when the caller's own run was the device ladder's
+    warm-up."""
     import torch
+
+    turns = ["device", "host", "host", "device", "device", "host"]
+    runs = (["device", "host"] if warm else []) + turns
+    walls = {"device": [], "host": []}
+    last, first, repeats = {}, {}, {"device": True, "host": True}
+    on_card = asp.device.type == "cuda"
+    for i, ladder in enumerate(runs):
+        replays = {id(v[1]): v[1].replays for v in asp.ladder_cache.values()}
+        reset_launch_counts()
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post, hist = asp.sample_posterior(
+            **run, return_history=True,
+            device_ladder=None if ladder == "device" else False)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if i >= len(runs) - len(turns):
+            walls[ladder].append(wall)
+        lad, rungs = asp.sampler.ladder, len(hist.beta)
+        log(f"{ladder} ladder run {i}: {wall:.4f} s, {rungs} rungs"
+            + (f", {lad.replays - replays.get(id(lad), 0)} replays"
+               f"{'' if id(lad) in replays else ' (captured)'}"
+               if lad is not None else ""))
+        if ladder == "host":
+            if lad is not None:
+                raise AssertionError("device_ladder=False took the device "
+                                     "ladder")
+        elif lad is None or (on_card and lad.graph is None):
+            raise AssertionError("the default path did not take the device "
+                                 "ladder's graph")
+        else:
+            replayed = lad.replays - replays.get(id(lad), 0)
+            counts = launch_counts()
+            if on_card and ((id(lad) in replays and replayed != rungs) or any(
+                    counts[k] < v * rungs for k, v in need.items())):
+                raise AssertionError(
+                    f"device ladder: {replayed} replays for {rungs} rungs, "
+                    f"launches {counts}, need per rung {need}")
+            last.update(capture_s=lad.capture_s, launches=counts)
+        last[ladder] = (post, rungs)
+        if ladder in first:
+            repeats[ladder] &= torch.equal(first[ladder], post.x)
+        else:
+            first[ladder] = post.x
+    (dpost, rungs), (hpost, host_rungs) = last["device"], last["host"]
+    tol = max(5 * math.hypot(dpost.log_evidence_error,
+                             hpost.log_evidence_error), 0.15)
+    if abs(dpost.log_evidence - hpost.log_evidence) >= tol:
+        raise AssertionError(
+            f"ladders disagree on log Z: device {dpost.log_evidence} +/- "
+            f"{dpost.log_evidence_error}, host {hpost.log_evidence} +/- "
+            f"{hpost.log_evidence_error}")
+    if truth is not None:
+        for post in (dpost, hpost):
+            check_result(post, run["n_samples"], truth)
+    out = {"device_s": sorted(walls["device"])[1],
+           "host_s": sorted(walls["host"])[1],
+           "device_walls_s": walls["device"], "host_walls_s": walls["host"],
+           "rungs": rungs, "host_rungs": host_rungs,
+           "capture_s": last["capture_s"], "launches": last["launches"],
+           "log_z": dpost.log_evidence, "log_z_err": dpost.log_evidence_error,
+           "host_log_z": hpost.log_evidence,
+           "host_log_z_err": hpost.log_evidence_error, "tolerance": tol,
+           "runs_repeat": repeats,
+           "ladders_agree_bitwise": torch.equal(first["device"],
+                                                first["host"])}
+    log(f"ladders in turns: {out}")
+    if on_card and not all(repeats.values()):
+        raise AssertionError(f"one seed did not repeat a run: {repeats}")
+    return out
+
+
+def replay_check(asp) -> dict:
+    """One rung replayed from the graph of the device ladder in
+    ``asp.ladder_cache`` (the last one a run of ``asp`` captured), on
+    ``asp.sampler`` (a run of the same options), against its body run
+    eagerly twice,
+    from the same state (the sampler's initial draws at beta 0) and the
+    same generator state: every state tensor (the particles and their
+    densities after the mutation, the step sizes, the history buffers, the
+    flags) and the generator state after the rung must be the same bits
+    in all three. The body sums in fixed orders on the card (the
+    resampling's CDF by ``resampling.rowwise_cumsum``), so its eager runs
+    repeat; a replay that froze a value of the capture (B2's beta or seed,
+    a packed weight) or lost an update differs. Notes a profiler reading of
+    the kernels one replay runs (``replay_kernels``) for the end of the
+    run, under ``replay_kernels``."""
+    import torch
+
+    from aspire_tpu_torch.samples import SMCSamples
+
+    (_, lad), = asp.ladder_cache.values()
+    sampler = asp.sampler
+    if lad.graph is None:
+        raise AssertionError("the device ladder was never captured")
+    n = lad.state["x"].shape[0]
+    init = SMCSamples.from_samples(sampler.draw_initial_samples(n), beta=0.0,
+                                   dtype=sampler.dtype)
+    sampler._load_ladder(lad.state, init, min_beta_step=0.0,
+                         max_beta_step=1.0, beta_tolerance=1e-8,
+                         max_iters=lad.state["beta_h"].numel())
+    start = {k: v.clone() for k, v in lad.state.items()}
+    gen0 = lad.generator.get_state()
+
+    def from_start(step):
+        for k, v in start.items():
+            lad.state[k].copy_(v)
+        lad.generator.set_state(gen0)
+        step()
+        torch.cuda.synchronize()
+        return ({k: v.clone() for k, v in lad.state.items()},
+                lad.generator.get_state())
+
+    replay, gen_replay = from_start(lad.graph.replay)
+    eager, gen_eager = from_start(lambda: lad.body(lad.state))
+    again, gen_again = from_start(lambda: lad.body(lad.state))
+    differ = sorted(k for k in replay if not torch.equal(replay[k], eager[k]))
+    repeat = sorted(k for k in again if not torch.equal(again[k], eager[k]))
+    moved = bool((replay["x"] != start["x"]).any())
+    out = {"route": sampler.history.mutation_route[-1], "n": n,
+           "fields": len(replay), "differ": differ,
+           "differ_between_eager_runs": repeat,
+           "random_numbers_equal": bool(torch.equal(gen_replay, gen_eager)
+                                        and torch.equal(gen_again, gen_eager)),
+           "beta": float(replay["beta"]),
+           "acceptance": float(replay["acc_h"][0]),
+           "particles_moved": moved}
+    log(f"graph replay vs eager rung: {out}")
+    if differ or repeat or not out["random_numbers_equal"] or not moved:
+        raise AssertionError(f"graph replay vs eager rung: {out}")
+    _KERNEL_MS_LATER.append(lambda: out.update(replay_kernels(lad)))
+    return out
+
+
+def phase_device_ladder_check(device, n: int) -> dict:
+    """``replay_check`` on a device-ladder run of the main path's flow
+    (nsf-tpu fitted as ``phase_main_path`` fits it) at ``n``."""
+    import numpy as np
 
     from aspire_tpu_torch import Aspire, Samples
     from aspire_tpu_torch.models import GaussianMixtureProblem
-    from aspire_tpu_torch.ops import fused_coupling as FC
-    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    p = GaussianMixtureProblem(dims=4)
+    init = Samples(p.draw_initial_samples(np.random.default_rng(42), 4000))
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=4, parameters=p.parameters, flow_backend="nsf",
+                 architecture="nsf-tpu", seed=1, device=device)
+    asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
+    run = dict(sampler="smc", n_samples=n, store_sample_history=False,
+               sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    check_result(asp.sample_posterior(**run), n, p.true_log_evidence())
+    return {"replay_vs_eager": replay_check(asp)}
+
+
+def phase_uncapturable_target(device, n: int) -> dict:
+    """A target that reads a value back to the host cannot be captured:
+    ``target_is_capturable`` says so before any ladder capture, the
+    default path then runs the host ladder (log Z against the truth) and
+    ``device_ladder=True`` raises ``ValueError``. The card runs on after
+    the failed capture (the next phases launch every kernel)."""
+    import numpy as np
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import GaussianMixtureProblem
+
+    p = GaussianMixtureProblem(dims=4)
+
+    def log_likelihood(samples):
+        out = p.log_likelihood(samples)
+        if float(out.max()) > 1e30:  # a host read, as user code may do
+            raise ValueError("log likelihood out of range")
+        return out
+
+    init = Samples(p.draw_initial_samples(np.random.default_rng(42), 4000))
+    asp = Aspire(log_likelihood=log_likelihood, log_prior=p.log_prior,
+                 dims=4, parameters=p.parameters, flow_backend="nsf",
+                 architecture="nsf-tpu", seed=1, device=device)
+    asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
+    run = dict(sampler="smc", n_samples=n, store_sample_history=False,
+               sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    post = asp.sample_posterior(**run)
+    check_result(post, n, p.true_log_evidence())
+    out = {"auto": "host" if asp.sampler.ladder is None else "device",
+           "capturable": asp.sampler.target_is_capturable()}
+    try:
+        asp.sample_posterior(**run, device_ladder=True)
+        out["forced"] = "ran"
+    except ValueError:
+        out["forced"] = "ValueError"
+    log(f"a target with a host read: {out}")
+    if out != {"auto": "host", "capturable": False, "forced": "ValueError"}:
+        raise AssertionError(f"a target with a host read: {out}")
+    return out
+
+
+def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
+    import numpy as np
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import GaussianMixtureProblem
 
     p = GaussianMixtureProblem(dims=4)
     truth = p.true_log_evidence()
@@ -1459,8 +1807,7 @@ def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
     asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
     samples = asp.sample_posterior(sampler="smc", n_samples=n_anchor,
                                    sampler_kwargs=dict(n_steps=CHAIN_STEPS))
-    launches = {"coupling": FC.launches.count, "chain": FM.launches.count,
-                "maf": FC.maf_launches.count}
+    launches = launch_counts()
     routes = asp.sampler.history.mutation_route
     log(f"anchor: log Z {samples.log_evidence:.4f} +/- "
         f"{samples.log_evidence_error:.4f} (truth {truth:.4f}), "
@@ -1477,9 +1824,7 @@ def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
     split = asp.sample_posterior(
         sampler="smc", n_samples=n_anchor,
         sampler_kwargs=dict(n_steps=CHAIN_STEPS, fused_chain=False))
-    split_launches = {"coupling": FC.launches.count,
-                      "chain": FM.launches.count,
-                      "maf": FC.maf_launches.count}
+    split_launches = launch_counts()
     split_routes = asp.sampler.history.mutation_route
     log(f"split chain: log Z {split.log_evidence:.4f} +/- "
         f"{split.log_evidence_error:.4f}, {len(split_routes)} mutations "
@@ -1495,24 +1840,26 @@ def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
             f"{split_launches}, need >= {need} coupling launches")
     check_result(split, n_anchor, truth)
 
+    # The pipeline: the default path takes the device ladder (B2 once per
+    # rung), timed in turns with the host ladder; then the ladder on the
+    # split chain (every density pass on B1, counted per replay).
     pipeline = dict(sampler="smc", n_samples=n_pipeline,
+                    store_sample_history=False,
                     sampler_kwargs=dict(n_steps=CHAIN_STEPS))
-    asp.sample_posterior(**pipeline)
-    walls = []
-    for _ in range(3):
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        big = asp.sample_posterior(**pipeline)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    check_result(big, n_pipeline, truth)
-    walls.sort()
-    log(f"{n_pipeline}-particle pipeline walls: {walls}")
+    on_card = device.type == "cuda"
+    ladders = ladder_turns(asp, pipeline, {"chain": 1}, truth)
+    replay = replay_check(asp) if on_card else None
+    split_pipeline = dict(pipeline, sampler_kwargs=dict(
+        n_steps=CHAIN_STEPS, fused_chain=False))
+    ladder_split = ladder_turns(asp, split_pipeline,
+                                {"coupling": CHAIN_STEPS + 2}, truth)
+    replay_split = replay_check(asp) if on_card else None
     return {"launches": launches, "log_z": samples.log_evidence,
             "log_z_err": samples.log_evidence_error, "truth": truth,
-            "pipeline_s": walls[1], "pipeline_walls_s": walls,
+            "pipeline_s": ladders["device_s"],
+            "pipeline_walls_s": ladders["device_walls_s"],
+            "ladders": ladders, "ladders_split": ladder_split,
+            "replay_vs_eager": replay, "replay_vs_eager_split": replay_split,
             "n_mutations": len(routes), "split_launches": split_launches,
             "split_n_mutations": len(split_routes),
             "split_log_z": split.log_evidence,
@@ -1525,13 +1872,10 @@ def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
     MAF kernel; then the default flow_backend ("maf", affine) anchor and
     the maf-rqs pipeline."""
     import numpy as np
-    import torch
 
     from aspire_tpu_torch import Aspire, Samples
     from aspire_tpu_torch.flows.architectures import MAF
     from aspire_tpu_torch.models import GaussianMixtureProblem
-    from aspire_tpu_torch.ops import fused_coupling as FC
-    from aspire_tpu_torch.ops import fused_mutation as FM
 
     p = GaussianMixtureProblem(dims=4)
     truth = p.true_log_evidence()
@@ -1544,8 +1888,7 @@ def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
     reset_launch_counts()
     asp.fit(init, **fit_kw)
     samples = asp.sample_posterior(n_samples=n_anchor, **run_kw)
-    launches = {"maf": FC.maf_launches.count,
-                "coupling": FC.launches.count, "chain": FM.launches.count}
+    launches = launch_counts()
     routes = asp.sampler.history.mutation_route
     log(f"maf-rqs anchor: log Z {samples.log_evidence:.4f} +/- "
         f"{samples.log_evidence_error:.4f} (truth {truth:.4f}), "
@@ -1573,24 +1916,19 @@ def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
         f"{set(default.sampler.history.mutation_route)}")
     check_result(dpost, n_anchor, truth)
 
-    asp.sample_posterior(n_samples=n_pipeline, **run_kw)
-    walls = []
-    for _ in range(3):
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        big = asp.sample_posterior(n_samples=n_pipeline, **run_kw)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    check_result(big, n_pipeline, truth)
-    walls.sort()
-    log(f"maf-rqs {n_pipeline}-particle pipeline walls: {walls}")
+    # The pipeline on the device ladder (every density pass of its split
+    # chains on B4, counted per replay), timed in turns with the host one.
+    ladders = ladder_turns(asp, dict(n_samples=n_pipeline,
+                                     store_sample_history=False, **run_kw),
+                           {"maf": CHAIN_STEPS + 2}, truth)
+    replay = replay_check(asp) if device.type == "cuda" else None
     return {"launches": launches, "log_z": samples.log_evidence,
             "log_z_err": samples.log_evidence_error, "truth": truth,
             "default_log_z": dpost.log_evidence,
             "default_log_z_err": dpost.log_evidence_error,
-            "pipeline_s": walls[1], "pipeline_walls_s": walls,
+            "pipeline_s": ladders["device_s"],
+            "pipeline_walls_s": ladders["device_walls_s"],
+            "ladders": ladders, "replay_vs_eager": replay,
             "n_mutations": len(routes)}
 
 
@@ -1720,16 +2058,15 @@ def phase_hierarchical(device) -> dict:
     torch.cuda.synchronize()
     importance_s = time.perf_counter() - t0
     is_launches = FC.launches.count
+    smc_run = dict(sampler="smc", n_samples=N_HIER,
+                   sampler_kwargs=dict(n_steps=HIER_STEPS),
+                   store_sample_history=False)
     t0 = time.perf_counter()
-    post, hist = asp.sample_posterior(
-        sampler="smc", n_samples=N_HIER,
-        sampler_kwargs=dict(n_steps=HIER_STEPS), store_sample_history=False,
-        return_history=True)
+    post, hist = asp.sample_posterior(**smc_run, return_history=True)
     torch.cuda.synchronize()
     smc_s = time.perf_counter() - t0
-    launches = {"coupling": FC.launches.count, "chain": FM.launches.count,
-                "maf": FC.maf_launches.count,
-                "coupling_importance": is_launches}
+    capture_s = asp.sampler.ladder.capture_s
+    launches = {**launch_counts(), "coupling_importance": is_launches}
     routes = hist.mutation_route
     log(f"config 5 pipeline: fit {fit_s:.2f} s, importance "
         f"{importance_s:.2f} s, SMC {smc_s:.2f} s, "
@@ -1753,6 +2090,9 @@ def phase_hierarchical(device) -> dict:
     if not (math.isfinite(post.log_evidence)
             and math.isfinite(post.log_evidence_error)):
         raise AssertionError("config 5 log Z is not finite")
+    # The device ladder (this run's was its capture) against the host one.
+    ladders = ladder_turns(asp, smc_run, {"chain": 1}, warm=False)
+    replay = replay_check(asp) if on_card else None
 
     # 3. Route agreement.
     routes_out = {}
@@ -1763,7 +2103,7 @@ def phase_hierarchical(device) -> dict:
             sampler_kwargs=dict(n_steps=HIER_STEPS, **kw),
             store_sample_history=False, return_history=True)
         n_mut = len(h.mutation_route)
-        counts = {"coupling": FC.launches.count, "chain": FM.launches.count}
+        counts = launch_counts()
         routes_out[route] = {"log_z": r.log_evidence,
                              "log_z_err": r.log_evidence_error,
                              "n_mutations": n_mut, "launches": counts}
@@ -1784,7 +2124,8 @@ def phase_hierarchical(device) -> dict:
         raise AssertionError(f"routes disagree on log Z: {a} vs {b}")
     out.update({
         "fit_s": fit_s, "importance_s": importance_s, "smc_wall_s": smc_s,
-        "n_temperatures": len(hist.beta),
+        "smc_capture_s": capture_s, "ladders": ladders,
+        "replay_vs_eager": replay, "n_temperatures": len(hist.beta),
         "log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
         "log_z_importance": float(is_post.log_evidence),
         "log_z_importance_err": float(is_post.log_evidence_error),
@@ -1897,6 +2238,8 @@ def main() -> int:
             log(line.strip())
 
     main_path = phase_main_path(device, N_CHAIN, N_PIPELINE)
+    main_path["uncapturable_target"] = phase_uncapturable_target(device,
+                                                                 N_CHAIN)
     maf_path = phase_maf_main_path(device, N_CHAIN, N_PIPELINE)
     hier = phase_hierarchical(device)
     coupling = phase_coupling(device, N_COUPLING)
@@ -1942,9 +2285,29 @@ def main() -> int:
           f"{maf_path['default_log_z_err']:.4f} vs {maf_path['truth']:.4f}; "
           f"{maf_path['launches']['maf']} MAF launches in "
           f"{maf_path['n_mutations']} mutations", flush=True)
+    ladders = {"nsf-tpu": main_path["ladders"],
+               "nsf-tpu, split chain": main_path["ladders_split"],
+               "maf-rqs": maf_path["ladders"],
+               f"config 5 (n={N_HIER})": hier["ladders"]}
+    for name, v in ladders.items():
+        print(f"[{card}] {name} sample_posterior, device ladder (the default "
+              f"path) vs host ladder in turns: {v['device_s']:.4f} s vs "
+              f"{v['host_s']:.4f} s (medians of 3); capture "
+              f"{v['capture_s']:.4f} s on its first call; {v['rungs']} "
+              f"rungs, launches per device run {v['launches']}; log Z "
+              f"{v['log_z']:.4f} +/- {v['log_z_err']:.4f} vs host "
+              f"{v['host_log_z']:.4f} +/- {v['host_log_z_err']:.4f}",
+              flush=True)
+    for name, v in (("nsf-tpu", main_path["replay_vs_eager"]),
+                    ("nsf-tpu, split chain",
+                     main_path["replay_vs_eager_split"]),
+                    ("maf-rqs", maf_path["replay_vs_eager"]),
+                    (f"config 5 (n={N_HIER})", hier["replay_vs_eager"])):
+        print(f"[{card}] {name}, graph replay vs eager rung (bit for bit, "
+              f"and one replay's kernels on the card against its capture's "
+              f"count): {v}", flush=True)
     from aspire_tpu_torch.flows.architectures import maf_rqs, nsf_tpu
     from aspire_tpu_torch.ops import fused_coupling as FC
-    from aspire_tpu_torch.ops import fused_mutation as FM
 
     nsf4, maf4 = nsf_tpu(4), maf_rqs(4)
     b2_bound = chain_bound(nsf4, N_PIPELINE, CHAIN_STEPS)
@@ -2026,6 +2389,10 @@ def main() -> int:
                          for k in ("launches", "split_launches")),
          "launches_fused_anchor": main_path["launches"]["coupling"],
          "launches_split_anchor": main_path["split_launches"]["coupling"],
+         "launches_device_ladder_split": main_path["ladders_split"][
+             "launches"]["coupling"],
+         "launches_per_replay_profiled": main_path["replay_vs_eager_split"][
+             "replay_kernels"]["coupling"],
          "split_anchor_mutations": main_path["split_n_mutations"],
          "max_abs_err": coupling["max_abs_err"],
          **coupling_entry(coupling, "nsf-tpu"), "library_ms": None,
@@ -2037,6 +2404,10 @@ def main() -> int:
          "source": "aspire_tpu_torch/csrc/chain.cu",
          "replaces": "aspire_tpu/ops/fused_mutation.py:1038",
          "launches": main_path["launches"]["chain"],
+         "launches_device_ladder": main_path["ladders"]["launches"]["chain"],
+         "device_ladder_rungs": main_path["ladders"]["rungs"],
+         "launches_per_replay_profiled": main_path["replay_vs_eager"][
+             "replay_kernels"]["chain"],
          "max_abs_err": chain["max_abs_err"],
          "ms": chain_t["ms"], "ms_single_call": chain_t["ms_single_call"],
          "kernel_ms": chain_t["kernel_ms"],
@@ -2045,6 +2416,9 @@ def main() -> int:
          "source": "aspire_tpu_torch/csrc/maf.cu",
          "replaces": "aspire_tpu/ops/fused_coupling.py:598",
          "launches": maf_path["launches"]["maf"],
+         "launches_device_ladder": maf_path["ladders"]["launches"]["maf"],
+         "launches_per_replay_profiled": maf_path["replay_vs_eager"][
+             "replay_kernels"]["maf"],
          "max_abs_err": maf["max_abs_err"],
          "ms": maf["ms"], "ms_single_call": maf["ms_single_call"],
          "kernel_ms": maf["kernel_ms"],
@@ -2150,5 +2524,9 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--accumulation":
         print(card_line(), flush=True)
         print(json.dumps({"accumulation": accumulation()}), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--ladder-profile":
+        print(card_line(), flush=True)
+        print(json.dumps({"ladder_profile": ladder_profile()}), flush=True)
         sys.exit(0)
     sys.exit(main())

@@ -110,8 +110,8 @@ int main(int argc, char** argv) {
   const int n = atoi(argv[1]), layers = atoi(argv[2]), steps = atoi(argv[3]);
   const int kernel = atoi(argv[4]), gm = atoi(argv[5]), go = atoi(argv[6]);
   const int rows = atoi(argv[7]), dt = atoi(argv[8]), target = atoi(argv[9]);
-  const unsigned seed0 = strtoul(argv[10], nullptr, 10);
-  const unsigned seed1 = strtoul(argv[11], nullptr, 10);
+  const long long seed[2] = {strtoll(argv[10], nullptr, 10),
+                             strtoll(argv[11], nullptr, 10)};
   const int injected = atoi(argv[12]);
   const float beta = atof(argv[13]), nu = atof(argv[14]);
   const float target_acc = atof(argv[15]), rate = atof(argv[16]);
@@ -132,8 +132,8 @@ int main(int argc, char** argv) {
                       injected ? noise.data() : nullptr, z.data(), lq.data(),
                       lpi.data(), ll.data(), nacc.data(), stats.data(),
                       scratch.data(), n, layers, steps, kernel, gm, go, rows,
-                      dt, target, beta, nu, target_acc, rate, max_log_step,
-                      tail, seed0, seed1};
+                      dt, target, nu, target_acc, rate, max_log_step,
+                      tail, &beta, seed};
   blockDim = {256, 1, 1};
   gridDim = {(unsigned)nt, 1, 1};
   if (cfg == 2) {
