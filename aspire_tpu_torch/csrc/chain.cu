@@ -13,8 +13,10 @@
 // rows, n) array), turn d of them into inverse-CDF normals, build the tpCN
 // Gamma variate from pair-products of exponentials, propose around the
 // Gaussian reference while carrying the reference Mahalanobis distance r^2,
-// run the affine data transform and the flow density, evaluate the target
-// by its id, guard NaN -> -inf, and do the Metropolis select. Once per step
+// map the proposal from the preconditioned space to data space (the
+// preconditioning's inverse) and on to the flow's space (the flow's data
+// transform), run the flow density, evaluate the target by its id, guard
+// NaN -> -inf, and do the Metropolis select. Once per step
 // a tile sum of the acceptance probabilities drives the tile's
 // Robbins-Monro step size; at the end tile sums write the tile's AR(1) and
 // mixing sums in the 4d+1 layout of fused_mutation.py::_stats_rows.
@@ -51,21 +53,56 @@ constexpr int kWarps = kTile / 32;  // each warp: two 16-row mma tiles
 enum ChainKernel { kTPCN = 0, kPCN = 1, kRWMH = 2 };
 enum TargetId { kGaussianMixture = 1, kGaussian = 2, kHierarchical = 3 };
 
+// A transform program (fused_mutation.py's TDProgram, lowered by
+// program_block): per dimension an op code (ProgOp: periodic wrap, logit or
+// probit, 0 for none) and the ops' coefficients; then the ops present (the
+// codes' union, kAffine for the affine map), the bounded op's eps and the
+// log-widths of its dimensions summed. The ops are fixed for a launch and
+// the same for every thread, so the branches on them do not diverge.
+// Forward (data to the flow's space) runs periodic, bounded, affine;
+// inverse the reverse, as CompositeTransform does.
+template <int D>
+struct Prog {
+  static constexpr int CODE = 0;         // ProgOp bits per dimension
+  static constexpr int P_LO = D;         // periodic: lower bound
+  static constexpr int P_W = 2 * D;      //   width (upper - lower)
+  static constexpr int B_LO = 3 * D;     // logit/probit: lower bound
+  static constexpr int B_W = 4 * D;      //   width
+  static constexpr int B_INV = 5 * D;    //   1 / width
+  static constexpr int A_MEAN = 6 * D;   // affine: mean
+  static constexpr int A_STD = 7 * D;    //   std
+  static constexpr int FLAGS = 8 * D;    // ops present
+  static constexpr int EPS = FLAGS + 1;  // the bounded op's clip
+  static constexpr int LOG_W = FLAGS + 2;  // sum of its log-widths
+  static constexpr int SIZE = FLAGS + 3;
+};
+enum ProgOp { kPeriodic = 1, kLogit = 2, kProbit = 4, kAffine = 8 };
+constexpr int kBounded = kLogit | kProbit;
+// What a launch's programs need (ChainArgs::programs): none, an affine
+// data transform alone, or anything else. The first two run the kernel
+// instance without programs (PROGS false): the affine map inline, its
+// log-Jacobian once per thread, the target on the chain state, as the
+// chain computed before it took programs; the last runs the instance that
+// applies both programs (PROGS true).
+enum ProgramLevel { kNoProgram = 0, kAffineData = 1, kPrograms = 2 };
+
 // Constant block layout (floats): reference mean (D), chol (D x D), ichol
-// (D x D), data-transform mean (D) and std (D), target constants, then
-// the launch's beta and seed pair (the seed as two uint32 words), which
-// the block writes itself (store_launch_scalars).
+// (D x D), the data transform's program and the preconditioning's, target
+// constants, then what the block writes itself (store_launch_scalars): the
+// launch's beta and seed pair (the seed as two uint32 words) and the two
+// programs' constant log-Jacobians (prog_const_log_j).
 template <int D>
 struct Consts {
   static constexpr int MEAN = 0;
   static constexpr int CHOL = MEAN + D;
   static constexpr int ICHOL = CHOL + D * D;
-  static constexpr int DT_MEAN = ICHOL + D * D;
-  static constexpr int DT_STD = DT_MEAN + D;
-  static constexpr int TARGET = DT_STD + D;
+  static constexpr int DT = ICHOL + D * D;
+  static constexpr int PC = DT + Prog<D>::SIZE;
+  static constexpr int TARGET = PC + Prog<D>::SIZE;
   static constexpr int BETA = TARGET + 2 * D + 2;
   static constexpr int KEY = BETA + 1;
-  static constexpr int SIZE = round4(KEY + 2);
+  static constexpr int LOG_J = KEY + 2;  // data transform's, then pc's
+  static constexpr int SIZE = round4(LOG_J + 2);
 };
 
 struct ChainArgs {
@@ -81,7 +118,7 @@ struct ChainArgs {
   float* nacc;
   float* stats;
   float* scratch;  // wide form: per-particle statistics, (3, D, n)
-  int n, n_layers, n_steps, kernel, gamma_m, gamma_odd, rows, dt_affine,
+  int n, n_layers, n_steps, kernel, gamma_m, gamma_odd, rows, programs,
       target_id;
   float nu, target_acc, adapt_rate, max_log_step, tail_bound;
   // The launch's beta and seed pair (each read as its low 32 bits) in
@@ -91,12 +128,134 @@ struct ChainArgs {
   const long long* seed_in;
 };
 
-// Thread 0 copies the launch's beta and seed pair into the block's
-// constant block, once per block, after the block has loaded its
-// constants (the caller's barriers order the two). Every use then reads
-// shared memory, as for the other constants, and holds no register
-// across the chain.
 template <int D>
+__device__ __forceinline__ int prog_flags(const float* __restrict__ p) {
+  return (int)p[Prog<D>::FLAGS];
+}
+
+// x - lower mod width into [lower, lower + width): the floor modulo of
+// jnp.mod (the sign of the divisor), not fmodf's truncated one alone.
+__device__ __forceinline__ float periodic_wrap(float v, float lo, float w) {
+  float r = fmodf(v - lo, w);
+  if (r != 0.f && ((r < 0.f) != (w < 0.f))) r += w;
+  return lo + r;
+}
+
+// The log-Jacobian of program p that does not depend on the point, once
+// per block: forward (sign 1) the affine map's -sum log|std| (summed in the
+// kernel's order of old) and the bounded op's -sum log(width); inverse
+// (sign -1) the negation of each.
+template <int D>
+__device__ __forceinline__ float prog_const_log_j(const float* __restrict__ p,
+                                                  float sign) {
+  using P = Prog<D>;
+  const int flags = prog_flags<D>(p);
+  float lj = 0.f;
+  if (flags & kAffine) {
+    for (int i = 0; i < D; ++i) lj -= sign * logf(fabsf(p[P::A_STD + i]));
+  }
+  if (flags & kBounded) lj -= sign * p[P::LOG_W];
+  return lj;
+}
+
+// Program p on the D coordinates at v, in place: forward (data to the
+// flow's space: periodic, bounded, affine) or inverse (the reverse).
+// Returns the log-Jacobian's terms that depend on the point (the bounded
+// op's; prog_const_log_j has the rest). Forward, u = (v - lower) / width
+// clipped to [eps, 1 - eps] and y = log u - log1p(-u) (logit) or
+// sqrt(2) erfinv(2u - 1) (probit); inverse, x = width u + lower with
+// u = sigmoid(v) (log-Jacobian log_sigmoid(v) + log_sigmoid(-v) =
+// -|v| - 2 log1p(e^-|v|), no overflow at any |v|) or (1 + erf(v / sqrt 2))
+// / 2 (-(log(2 pi) + v^2) / 2).
+//
+// Out of line, called only for a program with more than an affine map, so
+// that the ops' branches stay out of the flow pass's register allocation.
+template <int D, bool INVERSE>
+__device__ __noinline__ float td_general(const float* __restrict__ p,
+                                         float* __restrict__ v) {
+  using P = Prog<D>;
+  const int flags = prog_flags<D>(p);
+  float lj = 0.f;
+  for (int i = 0; i < D; ++i) {
+    float x = v[i];
+    const int code = (int)p[P::CODE + i];
+    if (INVERSE && (flags & kAffine)) {
+      x = x * p[P::A_STD + i] + p[P::A_MEAN + i];
+    }
+    if (!INVERSE && (code & kPeriodic)) {
+      x = periodic_wrap(x, p[P::P_LO + i], p[P::P_W + i]);
+    }
+    if (code & kBounded) {
+      const float lo = p[P::B_LO + i];
+      if (!INVERSE) {
+        const float eps = p[P::EPS];
+        const float u = fminf(fmaxf((x - lo) * p[P::B_INV + i], eps),
+                              1.f - eps);
+        if (code & kLogit) {
+          const float lu = logf(u), lv = log1pf(-u);
+          x = lu - lv;
+          lj -= lu + lv;
+        } else {
+          x = 1.41421356237309515f * erfinvf(2.f * u - 1.f);
+          lj += kHalfLog2Pi + 0.5f * x * x;
+        }
+      } else {
+        float u;
+        if (code & kLogit) {
+          const float e = expf(-fabsf(x));
+          const float r = 1.f / (1.f + e);
+          u = x >= 0.f ? r : e * r;
+          lj -= fabsf(x) + 2.f * log1pf(e);
+        } else {
+          u = 0.5f * (1.f + erff(x * 0.70710678118654752f));
+          lj -= kHalfLog2Pi + 0.5f * x * x;
+        }
+        x = p[P::B_W + i] * u + lo;
+      }
+    }
+    if (INVERSE && (code & kPeriodic)) {
+      x = periodic_wrap(x, p[P::P_LO + i], p[P::P_W + i]);
+    }
+    if (!INVERSE && (flags & kAffine)) {
+      x = (x - p[P::A_MEAN + i]) / p[P::A_STD + i];
+    }
+    v[i] = x;
+  }
+  return lj;
+}
+
+// Program p on x (anything x[i] reads) into y (a register array or a row
+// of shared memory; it may be x), forward or inverse; returns td_general's
+// log-Jacobian. An identity or affine program forward takes the affine
+// loop inline; any other goes through td_general on a copy in local
+// memory, so that no register array's address escapes.
+template <int D, bool INVERSE, class X, class Y>
+__device__ __forceinline__ float td_apply(const float* __restrict__ p,
+                                          const X& x, Y& y) {
+  using P = Prog<D>;
+  const int flags = prog_flags<D>(p);
+  if (!INVERSE && !(flags & (kPeriodic | kBounded))) {
+    const bool affine = flags & kAffine;
+    constexpr int kAffineUnroll = D <= 8 ? D : 8;
+#pragma unroll(kAffineUnroll)
+    for (int i = 0; i < D; ++i) {
+      y[i] = affine ? (x[i] - p[P::A_MEAN + i]) / p[P::A_STD + i] : x[i];
+    }
+    return 0.f;
+  }
+  float v[D];
+  for (int i = 0; i < D; ++i) v[i] = x[i];
+  const float lj = td_general<D, INVERSE>(p, v);
+  for (int i = 0; i < D; ++i) y[i] = v[i];
+  return lj;
+}
+
+// Thread 0 copies the launch's beta and seed pair into the block's
+// constant block and computes the programs' constant log-Jacobians there,
+// once per block, after the block has loaded its constants (the caller's
+// barriers order the two). Every use then reads shared memory, as for the
+// other constants, and holds no register across the chain.
+template <int D, bool PROGS>
 __device__ __forceinline__ void store_launch_scalars(const ChainArgs& a,
                                                      float* c) {
   using C = Consts<D>;
@@ -104,6 +263,10 @@ __device__ __forceinline__ void store_launch_scalars(const ChainArgs& a,
   c[C::BETA] = *a.beta_in;
   key[0] = (uint32_t)a.seed_in[0];
   key[1] = (uint32_t)a.seed_in[1];
+  if constexpr (PROGS) {
+    c[C::LOG_J] = prog_const_log_j<D>(c + C::DT, 1.f);
+    c[C::LOG_J + 1] = prog_const_log_j<D>(c + C::PC, -1.f);
+  }
 }
 
 // The uniforms of one particle's step, in increasing row order.
@@ -229,31 +392,76 @@ __device__ __forceinline__ float tile_sum(float v, float* scratch,
   return total;
 }
 
-template <int D, int H1, int H2, int K>
+// The tempered density of the chain state z (the preconditioned space):
+// x = the preconditioning's inverse of z, the flow's density of x after the
+// data transform (lq, in data space), the target at x, and
+// lp = (1 - beta) lq + beta (ll + lpi) + the inverse's log-Jacobian. With
+// PROGS, the data transform's terms that depend on x start the flow's
+// log-det, and the programs' constant terms and ops are read from the
+// constant block where they are used, so that no register holds them
+// across the flow. Without, the data transform is the affine map or none
+// (ChainArgs::programs), dt_lj its log-Jacobian, and x = z.
+template <int D, int H1, int H2, int K, bool PROGS>
 __device__ __forceinline__ void tempered(const ChainArgs& a,
                                          const float* __restrict__ w,
                                          const float* __restrict__ c,
                                          float* __restrict__ buf, int lane,
-                                         float dt_lj, const float (&x)[D],
+                                         float dt_lj, const float (&z)[D],
                                          float& lp, float& lq, float& lpi,
                                          float& ll) {
+  using C = Consts<D>;
+  using P = Prog<D>;
   float f[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    f[i] = a.dt_affine ? (x[i] - c[Consts<D>::DT_MEAN + i]) /
-                             c[Consts<D>::DT_STD + i]
-                       : x[i];
-  }
   float ld = 0.f;
+  if constexpr (PROGS) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) f[i] = z[i];
+    if (prog_flags<D>(c + C::PC)) td_apply<D, true>(c + C::PC, f, f);
+    ld = td_apply<D, false>(c + C::DT, f, f);
+    dt_lj = c[C::LOG_J];
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      f[i] = a.programs == kAffineData
+                 ? (z[i] - c[C::DT + P::A_MEAN + i]) / c[C::DT + P::A_STD + i]
+                 : z[i];
+    }
+  }
   flow_density<MmaShape<D, H1, H2, K, true>>(w, a.n_layers, a.tail_bound,
                                              buf, lane, f, ld);
   float zz = 0.f;
 #pragma unroll
   for (int i = 0; i < D; ++i) zz += f[i] * f[i];
   lq = -0.5f * zz - D * kHalfLog2Pi + ld + dt_lj;
-  target_densities<D>(a.target_id, c + Consts<D>::TARGET, x, lpi, ll);
-  const float beta = c[Consts<D>::BETA];
-  lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi));
+  const float beta = c[C::BETA];
+  if constexpr (PROGS) {
+    const bool precond = prog_flags<D>(c + C::PC) != 0;
+    float x[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) x[i] = z[i];
+    float pc_lj = 0.f;
+    if (precond) pc_lj = c[C::LOG_J + 1] + td_apply<D, true>(c + C::PC, z, x);
+    target_densities<D>(a.target_id, c + C::TARGET, x, lpi, ll);
+    lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi) + pc_lj);
+  } else {
+    target_densities<D>(a.target_id, c + C::TARGET, z, lpi, ll);
+    lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi));
+  }
+}
+
+// The affine data transform's log-Jacobian, -sum log|std|, for the kernel
+// instance without programs (0 for no data transform).
+template <int D, int UNROLL>
+__device__ __forceinline__ float affine_log_j(const ChainArgs& a,
+                                              const float* __restrict__ c) {
+  float dt_lj = 0.f;
+  if (a.programs == kAffineData) {
+#pragma unroll(UNROLL)
+    for (int i = 0; i < D; ++i) {
+      dt_lj -= logf(fabsf(c[Consts<D>::DT + Prog<D>::A_STD + i]));
+    }
+  }
+  return dt_lj;
 }
 
 template <int D, class X>
@@ -273,7 +481,7 @@ __device__ __forceinline__ float mahal2(const float* __restrict__ c,
   return r2;
 }
 
-template <int D, int H1, int H2, int K, bool RQS>
+template <int D, int H1, int H2, int K, bool RQS, bool PROGS>
 __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
   static_assert(RQS, "the chain kernel's flow is a neural spline flow");
   using S = MmaShape<D, H1, H2, K, true>;
@@ -289,15 +497,11 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
   load_shared(reinterpret_cast<float4*>(c),
               reinterpret_cast<const float4*>(a.consts), C::SIZE / 4);
   __syncthreads();
-  if (threadIdx.x == 0) store_launch_scalars<D>(a, c);
+  if (threadIdx.x == 0) store_launch_scalars<D, PROGS>(a, c);
   __syncthreads();
 
   const int p = blockIdx.x * kTile + threadIdx.x;
-  float dt_lj = 0.f;
-  if (a.dt_affine) {
-#pragma unroll
-    for (int i = 0; i < D; ++i) dt_lj -= logf(fabsf(c[C::DT_STD + i]));
-  }
+  const float dt_lj = PROGS ? 0.f : affine_log_j<D, D>(a, c);
 
   float x[D], x0[D], prev[D], s1[D], s2[D], c1[D];
 #pragma unroll
@@ -306,7 +510,8 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
     prev[i] = s1[i] = s2[i] = c1[i] = 0.f;
   }
   float lp, lq, lpi, ll;
-  tempered<D, H1, H2, K>(a, w, c, buf, lane, dt_lj, x, lp, lq, lpi, ll);
+  tempered<D, H1, H2, K, PROGS>(a, w, c, buf, lane, dt_lj, x, lp, lq, lpi,
+                                ll);
   float r2 = (a.kernel == kRWMH) ? 0.f : mahal2<D>(c, x);
   float s = a.step0[blockIdx.x];
   float nacc = 0.f;
@@ -378,8 +583,8 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
                                 : alpha_g * logf((a.nu + r2n) / (a.nu + r2));
     }
     float lp_p, lq_p, lpi_p, ll_p;
-    tempered<D, H1, H2, K>(a, w, c, buf, lane, dt_lj, xp, lp_p, lq_p, lpi_p,
-                           ll_p);
+    tempered<D, H1, H2, K, PROGS>(a, w, c, buf, lane, dt_lj, xp, lp_p, lq_p,
+                                  lpi_p, ll_p);
     const float log_alpha = nan_to_neg_inf(lp_p - lp + corr);
     const float acc_p = expf(fminf(log_alpha, 0.f));
     const bool accept = u_acc < acc_p;
@@ -449,31 +654,52 @@ struct Strided {
   }
 };
 
-// The wide form's tempered density of the particle at xs (a Strided view):
-// the data transform into the lane's row of the warp's buffer F, the flow's
-// density pass (flow_pass_wide, every thread of the block together), the
-// target.
-template <class S, int D>
+// The wide form's tempered density of the chain state at zs (a Strided
+// view), as tempered's: the preconditioning's inverse and the data
+// transform into the lane's row of the warp's buffer F, the flow's density
+// pass (flow_pass_wide, every thread of the block together), then the
+// target at the data-space point, which a preconditioned run writes into
+// the row again once the pass has read it (no register holds it across
+// the pass). Without PROGS, as tempered's.
+template <class S, int D, bool PROGS>
 __device__ __forceinline__ void tempered_wide(
     const ChainArgs& a, WideStream<S>& ws, const float* __restrict__ c,
     float* __restrict__ F, float* __restrict__ pb, int lane, float dt_lj,
-    Strided xs, float& lp, float& lq, float& lpi, float& ll) {
+    Strided zs, float& lp, float& lq, float& lpi, float& ll) {
+  using C = Consts<D>;
+  using P = Prog<D>;
   float* f = F + lane * S::FROW;
-#pragma unroll 8
-  for (int i = 0; i < D; ++i) {
-    f[i] = a.dt_affine ? (xs[i] - c[Consts<D>::DT_MEAN + i]) /
-                             c[Consts<D>::DT_STD + i]
-                       : xs[i];
-  }
   float ld = 0.f;
+  if constexpr (PROGS) {
+    if (prog_flags<D>(c + C::PC)) {
+      td_apply<D, true>(c + C::PC, zs, f);
+      ld = td_apply<D, false>(c + C::DT, f, f);
+    } else {
+      ld = td_apply<D, false>(c + C::DT, zs, f);
+    }
+    dt_lj = c[C::LOG_J];
+  } else {
+#pragma unroll 8
+    for (int i = 0; i < D; ++i) {
+      f[i] = a.programs == kAffineData
+                 ? (zs[i] - c[C::DT + P::A_MEAN + i]) / c[C::DT + P::A_STD + i]
+                 : zs[i];
+    }
+  }
   flow_pass_wide<S, true>(ws, a.tail_bound, F, pb, lane, ld);
   float zz = 0.f;
 #pragma unroll 8
   for (int i = 0; i < D; ++i) zz += f[i] * f[i];
   lq = -0.5f * zz - D * kHalfLog2Pi + ld + dt_lj;
-  target_densities<D>(a.target_id, c + Consts<D>::TARGET, xs, lpi, ll);
-  const float beta = c[Consts<D>::BETA];
-  lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi));
+  const float beta = c[C::BETA];
+  if (PROGS && prog_flags<D>(c + C::PC)) {
+    const float pc_lj = c[C::LOG_J + 1] + td_apply<D, true>(c + C::PC, zs, f);
+    target_densities<D>(a.target_id, c + C::TARGET, f, lpi, ll);
+    lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi) + pc_lj);
+  } else {
+    target_densities<D>(a.target_id, c + C::TARGET, zs, lpi, ll);
+    lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi));
+  }
 }
 
 // The chain in the wide form (MmaShape::WIDE: BASELINE config 5's d = 32,
@@ -488,7 +714,7 @@ __device__ __forceinline__ void tempered_wide(
 // flow's weights stream through the block per pass (WideStream). Shared
 // memory: constants, two [D][kTile] arrays, the stream's slots and the
 // warps' buffers: 189,136 B at d = 32, one block per SM.
-template <int D, int H1, int H2, int K, bool RQS>
+template <int D, int H1, int H2, int K, bool RQS, bool PROGS>
 __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
   using S = MmaShape<D, H1, H2, K, true>;
   using C = Consts<D>;
@@ -506,16 +732,12 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
   WideStream<S> ws{res, ring, a.weights, a.n_layers, true, 0};
   load_shared(smem4, reinterpret_cast<const float4*>(a.consts), C::SIZE / 4);
   __syncthreads();
-  if (tid == 0) store_launch_scalars<D>(a, c);
+  if (tid == 0) store_launch_scalars<D, PROGS>(a, c);
   __syncthreads();
 
   const int p = blockIdx.x * kTile + tid;
   const size_t n = (size_t)a.n;
-  float dt_lj = 0.f;
-  if (a.dt_affine) {
-#pragma unroll 8
-    for (int i = 0; i < D; ++i) dt_lj -= logf(fabsf(c[C::DT_STD + i]));
-  }
+  const float dt_lj = PROGS ? 0.f : affine_log_j<D, 8>(a, c);
   const float* x0 = a.z0 + (size_t)p * D;
   float* s1 = a.scratch + p;
   float* s2 = s1 + D * n;
@@ -526,7 +748,8 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
   }
   const Strided x{X + tid}, xp{XP + tid};
   float lp, lq, lpi, ll;
-  tempered_wide<S, D>(a, ws, c, F, pb, lane, dt_lj, x, lp, lq, lpi, ll);
+  tempered_wide<S, D, PROGS>(a, ws, c, F, pb, lane, dt_lj, x, lp, lq, lpi,
+                             ll);
   float r2 = (a.kernel == kRWMH) ? 0.f : mahal2<D>(c, x);
   float s = a.step0[blockIdx.x];
   float nacc = 0.f;
@@ -591,8 +814,8 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
                                 : alpha_g * logf((a.nu + r2n) / (a.nu + r2));
     }
     float lp_p, lq_p, lpi_p, ll_p;
-    tempered_wide<S, D>(a, ws, c, F, pb, lane, dt_lj, xp, lp_p, lq_p, lpi_p,
-                        ll_p);
+    tempered_wide<S, D, PROGS>(a, ws, c, F, pb, lane, dt_lj, xp, lp_p, lq_p,
+                               lpi_p, ll_p);
     const float log_alpha = nan_to_neg_inf(lp_p - lp + corr);
     const float acc_p = expf(fminf(log_alpha, 0.f));
     const bool accept = u_acc < acc_p;
@@ -658,11 +881,14 @@ int launch_chain(const ChainArgs& a, cudaStream_t stream) {
                                : (size_t)a.n_layers * S::SIZE;
   const size_t smem = sizeof(float) * (state + Consts<D>::SIZE + 2 * kWarps +
                                        kWarps * S::STAGE);
+  const bool progs = a.programs == kPrograms;
   void (*kernel)(ChainArgs);
   if constexpr (S::WIDE) {
-    kernel = chain_kernel_wide<D, H1, H2, K, RQS>;
+    kernel = progs ? chain_kernel_wide<D, H1, H2, K, RQS, true>
+                   : chain_kernel_wide<D, H1, H2, K, RQS, false>;
   } else {
-    kernel = chain_kernel<D, H1, H2, K, RQS>;
+    kernel = progs ? chain_kernel<D, H1, H2, K, RQS, true>
+                   : chain_kernel<D, H1, H2, K, RQS, false>;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -677,14 +903,23 @@ extern "C" {
 
 int aspire_chain_tile() { return aspire::kTile; }
 
-int aspire_consts_floats(int dims) {
-  switch (dims) {
-#define ASPIRE_CONSTS_CASE(ID, D, H1, H2, K, RQS) \
-  case D:                                        \
-    return aspire::Consts<D>::SIZE;
-    ASPIRE_CHAIN_CONFIGS(ASPIRE_CONSTS_CASE)
-#undef ASPIRE_CONSTS_CASE
+// The constant block at `dims`: the offsets of the data-transform
+// program, the preconditioning program, the target constants, beta, the
+// seed pair and the programs' constant log-Jacobians, then its size in
+// floats, into out (up to capacity entries).
+// Returns their number, or -1 for a d no chain configuration has.
+int aspire_consts_layout(int dims, int* out, int capacity) {
+#define ASPIRE_CONSTS_CASE(ID, D, H1, H2, K, RQS)                       \
+  if (dims == D) {                                                     \
+    using C = aspire::Consts<D>;                                       \
+    const int v[] = {C::DT,   C::PC,    C::TARGET, C::BETA,            \
+                     C::KEY,  C::LOG_J, C::SIZE};                      \
+    const int count = (int)(sizeof(v) / sizeof(v[0]));                 \
+    for (int e = 0; e < count && e < capacity; ++e) out[e] = v[e];     \
+    return count;                                                      \
   }
+  ASPIRE_CHAIN_CONFIGS(ASPIRE_CONSTS_CASE)
+#undef ASPIRE_CONSTS_CASE
   return -1;
 }
 
@@ -719,14 +954,14 @@ int aspire_chain(const float* z0, const float* weights, const float* consts,
                  float* lpi, float* ll, float* nacc, float* stats,
                  float* scratch, int n,
                  int n_layers, int n_steps, int kernel, int gamma_m,
-                 int gamma_odd, int rows, int dt_affine, int target_id,
+                 int gamma_odd, int rows, int programs, int target_id,
                  const float* beta, float nu, float target_acc,
                  float adapt_rate, float max_log_step, float tail_bound,
                  const long long* seed, int config, void* stream) {
   if (n % aspire::kTile != 0) return -2;
   aspire::ChainArgs a{z0, weights, consts, step0, noise, z, lq, lpi, ll,
                       nacc, stats, scratch, n, n_layers, n_steps, kernel, gamma_m,
-                      gamma_odd, rows, dt_affine, target_id, nu,
+                      gamma_odd, rows, programs, target_id, nu,
                       target_acc, adapt_rate, max_log_step, tail_bound,
                       beta, seed};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -107,8 +107,8 @@ def load_library() -> ctypes.CDLL:
     lib.aspire_coupling.restype = _I
     lib.aspire_chain_tile.argtypes = []
     lib.aspire_chain_tile.restype = _I
-    lib.aspire_consts_floats.argtypes = [_I]
-    lib.aspire_consts_floats.restype = _I
+    lib.aspire_consts_layout.argtypes = [_I, _P, _I]
+    lib.aspire_consts_layout.restype = _I
     lib.aspire_chain.argtypes = (
         [_P] * 12 + [_I] * 9 + [_P] + [_F] * 5 + [_P, _I, _P]
     )

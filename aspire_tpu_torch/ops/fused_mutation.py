@@ -13,6 +13,13 @@ per-particle running sums in a scratch tensor the wrapper allocates. :func:`chai
 torch: the version a CPU tensor runs and the one the kernel is held
 against on the card.
 
+The chain's tempered density runs the preconditioning inverse and the
+flow's data transform as transform programs (:class:`TDProgram`,
+:func:`canonicalize_transform`, :func:`td_apply`: the JAX package's "TD
+programs"): identity, affine, logit, probit and periodic maps, masked
+per dimension in a composite. The kernel reads a program as per-dimension
+op codes and coefficients in its constant block (:func:`program_block`).
+
 Semantics deltas against the JAX package's XLA chain, as for its TPU
 kernel: per-tile step-size adaptation (over this port's 256-particle
 tile); proposal noise from Philox4x32-10 (:func:`philox_uniforms`, the
@@ -25,10 +32,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import itertools
 import math
 
+import numpy as np
 import torch
 
+from .. import transforms as T
 from ..flows.architectures import Coupling
 from ..models.targets import target_densities
 from . import fused_coupling as FC
@@ -131,22 +141,196 @@ def _neg_inf_if_nan(v: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Transform programs ("TD programs", the JAX package's fused_mutation.py)
+# ---------------------------------------------------------------------------
+
+
+class TDProgram:
+    """Static op list and parameter tensors of one elementwise transform.
+
+    ``ops`` is a tuple of ``(kind, has_mask)``, kind one of ``"affine"``,
+    ``"logit"``, ``"probit"`` and ``"periodic"``; ``params`` the flat list
+    :func:`td_apply` consumes in order: a 0/1 float mask first where
+    ``has_mask``, then the op's own (affine mean, std; logit and probit
+    lower, upper, eps; periodic lower, upper), each a ``(d,)`` tensor but
+    eps, ``(1,)``.
+    """
+
+    def __init__(self, ops=(), params=(), n_params_per_op=()):
+        self.ops = tuple(ops)
+        self.params = list(params)
+        self.n_params_per_op = tuple(n_params_per_op)
+
+
+def _col(v, d: int, dtype) -> torch.Tensor:
+    a = torch.as_tensor(v).to(dtype=dtype).reshape(-1)
+    return (a.expand(d) if a.numel() == 1 and d > 1 else a).reshape(d)
+
+
+def _expand_masked(values, mask, fill: float, d: int, dtype) -> torch.Tensor:
+    """Masked sub-transform parameters scattered back to a full ``(d,)``
+    column, ``fill`` where the mask is off."""
+    values = torch.as_tensor(values)
+    out = torch.full((d,), fill, dtype=dtype, device=values.device)
+    out[torch.as_tensor(np.nonzero(mask)[0], device=values.device)] = (
+        values.to(dtype).reshape(-1))
+    return out
+
+
+def _mask_col(mask, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(mask, dtype=np.float32), device=device)
+
+
+def affine_program(mean, std) -> TDProgram:
+    """The program of the affine map ``(x - mean) / std``."""
+    return TDProgram((("affine", False),), (mean, std), (2,))
+
+
+def canonicalize_transform(t, dims: int,
+                           dtype=torch.float32) -> TDProgram | None:
+    """Lower a fitted transform of ``aspire_tpu_torch.transforms`` to a
+    program (None: it does not lower). Parameters in ``dtype``, float32 by
+    default as in the JAX package; masked ops fill the unmasked dims with
+    lower 0 and upper 1."""
+    if t is None or isinstance(t, T.IdentityTransform):
+        return TDProgram()
+    if isinstance(t, T.AffineTransform):
+        if t._mean is None:
+            return TDProgram()
+        return affine_program(_col(t._mean, dims, dtype),
+                              _col(t._std, dims, dtype))
+    if isinstance(t, (T.LogitTransform, T.ProbitTransform)):
+        kind = "logit" if isinstance(t, T.LogitTransform) else "probit"
+        lower, upper = _col(t.lower, dims, dtype), _col(t.upper, dims, dtype)
+        eps = torch.full((1,), t.eps, dtype=dtype, device=lower.device)
+        return TDProgram(((kind, False),), (lower, upper, eps), (3,))
+    if isinstance(t, T.PeriodicTransform):
+        return TDProgram((("periodic", False),),
+                         (_col(t.lower, dims, dtype),
+                          _col(t.upper, dims, dtype)), (2,))
+    if isinstance(t, T.CompositeTransform):
+        ops, params, nper = [], [], []
+        if t._periodic_transform is not None:
+            mask = np.asarray(t._periodic_mask, bool)
+            sub = t._periodic_transform
+            ops.append(("periodic", True))
+            params += [_mask_col(mask, sub.lower.device),
+                       _expand_masked(sub.lower, mask, 0.0, dims, dtype),
+                       _expand_masked(sub.upper, mask, 1.0, dims, dtype)]
+            nper.append(3)
+        if t._bounded_transform is not None:
+            mask = np.asarray(t._bounded_mask, bool)
+            sub = t._bounded_transform
+            ops.append(("logit" if isinstance(sub, T.LogitTransform)
+                        else "probit", True))
+            params += [_mask_col(mask, sub.lower.device),
+                       _expand_masked(sub.lower, mask, 0.0, dims, dtype),
+                       _expand_masked(sub.upper, mask, 1.0, dims, dtype),
+                       torch.full((1,), sub.eps, dtype=dtype,
+                                  device=sub.lower.device)]
+            nper.append(4)
+        if t._affine_transform is not None:
+            sub = t._affine_transform
+            if sub._mean is None:
+                return None
+            ops.append(("affine", False))
+            params += [_col(sub._mean, dims, dtype),
+                       _col(sub._std, dims, dtype)]
+            nper.append(2)
+        return TDProgram(ops, params, nper)
+    return None
+
+
+def _floor_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a mod b`` with the sign of the divisor, as ``jnp.mod``: the
+    truncated remainder, plus ``b`` where the two signs differ."""
+    r = torch.fmod(a, b)
+    return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+
+
+def _masked_logj(mask, per_dim: torch.Tensor) -> torch.Tensor:
+    if mask is not None:
+        per_dim = torch.where(mask, per_dim, torch.zeros_like(per_dim))
+    return torch.sum(per_dim, dim=-1)
+
+
+def td_apply(prog: TDProgram, params, x: torch.Tensor, inverse: bool):
+    """Apply a program to ``(n, d)`` points: ``(y, log_j (n,))``. Forward
+    maps data to the flow's space (``CompositeTransform.forward``); inverse
+    runs the ops reversed. Terms of the parameters alone are computed in
+    the parameters' type, as in the JAX package."""
+    log_j = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    offs = [0, *itertools.accumulate(prog.n_params_per_op)]
+    order = range(len(prog.ops))
+    for i in (reversed(order) if inverse else order):
+        kind, has_mask = prog.ops[i]
+        p = list(params[offs[i]:offs[i + 1]])
+        mask = p.pop(0) > 0.5 if has_mask else None
+        if kind == "affine":
+            mean, std = p
+            if not inverse:
+                x, lj = (x - mean) / std, -torch.log(torch.abs(std))
+            else:
+                x, lj = x * std + mean, torch.log(torch.abs(std))
+            log_j = log_j + torch.sum(lj)
+            continue
+        if kind == "periodic":
+            lower, upper = p
+            y = lower + _floor_mod(x - lower, upper - lower)
+            x = torch.where(mask, y, x) if mask is not None else y
+            continue
+        if kind not in ("logit", "probit"):
+            raise ValueError(f"unknown transform op {kind!r}")
+        lower, upper, eps = p
+        denom = upper - lower
+        if not inverse:
+            u = torch.minimum(torch.maximum((x - lower) / denom, eps),
+                              1.0 - eps)
+            if kind == "logit":
+                y = torch.log(u) - torch.log1p(-u)
+                lj = -(torch.log(u) + torch.log1p(-u))
+            else:
+                y = torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
+                lj = 0.5 * math.log(2 * math.pi) + 0.5 * y**2
+            lj = lj - torch.log(denom)
+        else:
+            if kind == "logit":
+                u = torch.sigmoid(x)
+                lj = (torch.nn.functional.logsigmoid(x)
+                      + torch.nn.functional.logsigmoid(-x))
+            else:
+                u = 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+                lj = -(0.5 * math.log(2 * math.pi) + 0.5 * x**2)
+            y = denom * u + lower
+            lj = lj + torch.log(denom)
+        x = torch.where(mask, y, x) if mask is not None else y
+        log_j = log_j + _masked_logj(mask, lj)
+    return x, log_j
+
+
+# ---------------------------------------------------------------------------
 # The plain version
 # ---------------------------------------------------------------------------
 
 
 def chain_plain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
                 step0: torch.Tensor, ref_mean, ref_chol, ref_ichol,
-                target, data_transform=None, noise=None, seed=None,
-                return_acc_probs: bool = False):
+                target, data_transform=None, precond=None, noise=None,
+                seed=None, return_acc_probs: bool = False):
     """The whole chain in torch, tile by tile in lockstep.
 
     ``target`` is ``(id, constants)`` of an in-kernel target;
-    ``data_transform`` is ``(mean, std)`` of the affine data transform or
-    None. Uniforms come from ``noise`` (``(n_steps, rows, n)``) when given,
-    else from :func:`philox_uniforms` with ``seed``. Returns ``(z, lq, lpi,
-    ll, n_accept, step_sizes (n_tiles,), stats (n_tiles, 4d + 1))``, plus
-    the per-step acceptance probabilities when ``return_acc_probs``.
+    ``data_transform`` and ``precond`` are the programs (:class:`TDProgram`,
+    None for the identity) of the flow's data transform and of the
+    preconditioning. The chain runs in the preconditioned space: its state,
+    proposals, statistics and the returned z; the tempered density maps a
+    point to data space by the preconditioning's inverse (adding its
+    log-Jacobian), evaluates the target there and the flow after the data
+    transform, as the JAX package's kernel does. Uniforms come from
+    ``noise`` (``(n_steps, rows, n)``) when given, else from
+    :func:`philox_uniforms` with ``seed``. Returns ``(z, lq, lpi, ll,
+    n_accept, step_sizes (n_tiles,), stats (n_tiles, 4d + 1))``, plus the
+    per-step acceptance probabilities when ``return_acc_probs``.
     """
     arch = cfg.arch
     n, d = z0.shape
@@ -158,18 +342,19 @@ def chain_plain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     needs_r2 = cfg.kernel != "rwmh"
     alpha_g = 0.5 * (cfg.nu + d)
 
-    def tempered(x):
-        if data_transform is None:
-            xf, dt_lj = x, 0.0
-        else:
-            mean, std = data_transform
-            xf = (x - mean) / std
-            dt_lj = -torch.sum(torch.log(torch.abs(std)))
-        z, ld = arch.forward_plain(params, xf)
-        lq = (-0.5 * torch.sum(z * z, dim=-1) - d * _HALF_LOG_2PI + ld
+    dt = data_transform if data_transform is not None else TDProgram()
+    pc = precond if precond is not None else TDProgram()
+
+    def tempered(z):
+        x, pc_lj = (td_apply(pc, pc.params, z, inverse=True) if pc.ops
+                    else (z, 0.0))
+        xf, dt_lj = (td_apply(dt, dt.params, x, inverse=False) if dt.ops
+                     else (x, 0.0))
+        zl, ld = arch.forward_plain(params, xf)
+        lq = (-0.5 * torch.sum(zl * zl, dim=-1) - d * _HALF_LOG_2PI + ld
               + dt_lj)
         lpi, ll = target_densities(target_id, consts, x)
-        lp = _neg_inf_if_nan((1.0 - beta) * lq + beta * (ll + lpi))
+        lp = _neg_inf_if_nan((1.0 - beta) * lq + beta * (ll + lpi) + pc_lj)
         return lp, lq, lpi, ll
 
     def mahal2(x):
@@ -299,22 +484,98 @@ def kernel_supports(cfg: ChainConfig) -> bool:
             and cfg.kernel in KERNELS)
 
 
-def chain_consts(size: int, d: int, ref_mean, ref_chol, ref_ichol,
-                 data_transform, consts) -> torch.Tensor:
-    """The kernel's constant block of ``size`` floats (the library's
-    ``aspire_consts_floats(d)``): reference mean, Cholesky factor and its
-    inverse, data-transform mean and std, target constants, zero-padded."""
-    if size < 0:
-        raise ValueError(f"no chain kernel compiled for d={d}")
+#: a lowered program's per-dimension op codes, and the ops-present flag
+#: of the affine map (csrc/chain.cu ``ProgOp``)
+PROG_CODES = {"periodic": 1, "logit": 2, "probit": 4, "affine": 8}
+# The kernel applies a program's ops forward in this order, inverse in the
+# reverse: the order canonicalize_transform gives a composite's.
+_PROG_ORDER = ("periodic", "bounded", "affine")
+
+
+def program_floats(d: int) -> int:
+    """Floats of one lowered program (csrc/chain.cu ``Prog<D>::SIZE``)."""
+    return 8 * d + 3
+
+
+def consts_layout(d: int) -> tuple[int, ...]:
+    """The chain kernel's constant block at ``d``, as the library's
+    ``aspire_consts_layout`` gives it: the offsets of the data-transform
+    program, the preconditioning program, the target constants, beta, the
+    seed pair and the programs' constant log-Jacobians (the last three
+    written by the kernel), then the block's size in floats. Before the
+    programs: the reference mean, its Cholesky factor and the factor's
+    inverse."""
+    dt = d + 2 * d * d
+    pc = dt + program_floats(d)
+    target = pc + program_floats(d)
+    beta = target + 2 * d + 2
+    return dt, pc, target, beta, beta + 1, beta + 3, 4 * -(-(beta + 5) // 4)
+
+
+def program_block(prog: TDProgram | None, d: int, device) -> torch.Tensor:
+    """A program as the kernel reads it (``Prog<D>``): per dimension its op
+    code (``PROG_CODES``: 0 where no op touches the dimension), the
+    periodic lower bound and width, the bounded lower bound, width and the
+    width's reciprocal, the affine mean and std; then the ops present (the
+    codes' union, 8 for affine), the bounded op's eps and its dimensions'
+    log-widths summed; zeros (no op present) for no program. Device
+    operations only. Raises for ops out of the kernel's order."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if prog is None or not prog.ops:
+        return torch.zeros(program_floats(d), **f32)
+    zeros, ones = torch.zeros(d, **f32), torch.ones(d, **f32)
+    code, p_lo, p_w, b_lo, b_w, mean, std = (zeros, zeros, ones, zeros, ones,
+                                             zeros, ones)
+    eps, log_w = torch.zeros(1, **f32), torch.zeros(1, **f32)
+    offs = [0, *itertools.accumulate(prog.n_params_per_op)]
+    flags, last = 0, -1
+    for i, (kind, has_mask) in enumerate(prog.ops):
+        rank = _PROG_ORDER.index(
+            "bounded" if kind in ("logit", "probit") else kind)
+        if rank <= last:
+            raise ValueError(f"the chain kernel takes a program's ops once "
+                             f"each, in the order {_PROG_ORDER}: {prog.ops}")
+        last, flags = rank, flags | PROG_CODES[kind]
+        p = [q.to(**f32) for q in prog.params[offs[i]:offs[i + 1]]]
+        mask = p.pop(0) if has_mask else ones
+        if kind == "affine":
+            mean, std = p
+        elif kind == "periodic":
+            code, p_lo, p_w = code + PROG_CODES[kind] * mask, p[0], p[1] - p[0]
+        else:
+            code, b_lo, b_w = code + PROG_CODES[kind] * mask, p[0], p[1] - p[0]
+            eps = p[2].reshape(1)
+            log_w = torch.sum(mask * torch.log(b_w)).reshape(1)
+    return torch.cat([code, p_lo, p_w, b_lo, b_w, 1.0 / b_w, mean, std,
+                      torch.full((1,), float(flags), **f32), eps, log_w])
+
+
+def program_level(data_transform: TDProgram | None,
+                  precond: TDProgram | None) -> int:
+    """The kernel instance the two programs need (csrc/chain.cu
+    ``ProgramLevel``): 0 for none, 1 for an affine data transform alone
+    (the instance without programs), 2 for any other."""
+    if precond is not None and precond.ops:
+        return 2
+    ops = data_transform.ops if data_transform is not None else ()
+    if not ops:
+        return 0
+    return 1 if ops == (("affine", False),) else 2
+
+
+def chain_consts(d: int, ref_mean, ref_chol, ref_ichol, dt_block, pc_block,
+                 consts) -> torch.Tensor:
+    """The kernel's constant block (``consts_layout(d)``): reference mean,
+    Cholesky factor and its inverse, the data transform's and the
+    preconditioning's programs as :func:`program_block` lowers them, the
+    target constants, zero-padded; the kernel writes beta, the seed and
+    the programs' constant log-Jacobians itself."""
     dev = ref_mean.device
-    if data_transform is None:
-        dt = [torch.zeros(d, device=dev), torch.ones(d, device=dev)]
-    else:
-        dt = [data_transform[0].reshape(d), data_transform[1].reshape(d)]
-    parts = [ref_mean.reshape(d), ref_chol.reshape(-1),
-             ref_ichol.reshape(-1), *dt, consts.reshape(-1)]
+    parts = [ref_mean.reshape(d), ref_chol.reshape(-1), ref_ichol.reshape(-1),
+             dt_block, pc_block, consts.reshape(-1)]
     flat = torch.cat([p.to(device=dev, dtype=torch.float32) for p in parts])
-    if flat.numel() > size:
+    beta, size = consts_layout(d)[3], consts_layout(d)[-1]
+    if flat.numel() > beta:
         raise ValueError("target constants exceed the kernel's block")
     return torch.nn.functional.pad(flat, (0, size - flat.numel())).contiguous()
 
@@ -343,6 +604,17 @@ def _chain_library_layout(cfg: int) -> tuple[int, ...]:
     return tuple(out[:count])
 
 
+@functools.lru_cache(maxsize=None)
+def _consts_library_layout(d: int) -> tuple[int, ...]:
+    """The loaded library's constant block at ``d``
+    (``aspire_consts_layout``), read once per process."""
+    out = (ctypes.c_int * 8)()
+    count = load_library().aspire_consts_layout(d, out, len(out))
+    if not 0 <= count <= len(out):
+        raise ValueError(f"no chain kernel compiled for d={d}")
+    return tuple(out[:count])
+
+
 def _device_scalars(values, dtype, device) -> torch.Tensor:
     """``values`` (a tensor, a number or a sequence of numbers) as a
     contiguous tensor of ``dtype`` on ``device``; a tensor already there is
@@ -359,9 +631,14 @@ def _device_scalars(values, dtype, device) -> torch.Tensor:
 
 def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
                    seed, step0: torch.Tensor, ref_mean, ref_chol, ref_ichol,
-                   target, data_transform=None, noise=None):
+                   target, data_transform=None, precond=None, noise=None,
+                   blocks=None):
     """Run the whole chain: the kernel on a CUDA tensor, the plain version
-    (:func:`chain_plain`) on a CPU tensor. Same returns as ``chain_plain``.
+    (:func:`chain_plain`) on a CPU tensor. Same arguments and returns as
+    ``chain_plain``; ``blocks``, the two programs as :func:`program_block`
+    lowers them on the card, when the caller has them (the sampler lowers
+    them once per spec, outside any CUDA graph capture), else they are
+    lowered here.
 
     ``beta`` is a number or a one-element tensor; ``seed`` a pair of
     32-bit integers or a two-element integer tensor (ignored with
@@ -373,7 +650,7 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     if z0.device.type == "cpu":
         return chain_plain(cfg, params, z0, beta, step0, ref_mean, ref_chol,
                            ref_ichol, target, data_transform=data_transform,
-                           noise=noise, seed=seed)
+                           precond=precond, noise=noise, seed=seed)
     if not z0.is_cuda:
         raise ValueError(f"unsupported device {z0.device}")
     lib = load_library()
@@ -400,13 +677,18 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     if _chain_library_layout(FC.config_id(arch)) != layout:
         raise RuntimeError("chain weight layout disagrees with the kernel "
                            "library")
+    if _consts_library_layout(d) != consts_layout(d):
+        raise RuntimeError("chain constant block disagrees with the kernel "
+                           "library")
     weights = FC.packed_coupling_params(arch, params)
-    smem = chain_shared_bytes(arch, lib.aspire_consts_floats(d))
+    smem = chain_shared_bytes(arch, consts_layout(d)[-1])
     if smem > lib.aspire_max_shared_bytes():
         raise ValueError(f"chain kernel needs {smem} bytes of shared memory")
     target_id, tconsts = target
-    consts = chain_consts(lib.aspire_consts_floats(d), d, ref_mean,
-                          ref_chol, ref_ichol, data_transform, tconsts)
+    if blocks is None:
+        blocks = (program_block(data_transform, d, z0.device),
+                  program_block(precond, d, z0.device))
+    consts = chain_consts(d, ref_mean, ref_chol, ref_ichol, *blocks, tconsts)
     beta_dev = _device_scalars(beta, torch.float32, z0.device)
     if seed is None:
         seed = (0, 0)
@@ -430,7 +712,7 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
         nacc.data_ptr(), stats.data_ptr(),
         scratch.data_ptr() if scratch is not None else None,
         n, arch.n_layers, cfg.n_steps, KERNELS[cfg.kernel], cfg.gamma_m,
-        cfg.gamma_odd, cfg.noise_rows, 0 if data_transform is None else 1,
+        cfg.gamma_odd, cfg.noise_rows, program_level(data_transform, precond),
         int(target_id), beta_dev.data_ptr(), float(cfg.nu),
         float(cfg.target_acceptance), float(cfg.adaptation_rate),
         float(cfg.max_log_step), float(arch.tail_bound), seed_dev.data_ptr(),

@@ -43,7 +43,7 @@ from ..ops._build import add_launches, launch_counts
 from ..ops.resampling import get_resampler
 from ..ops.special import effective_sample_size
 from ..samples import Samples, SMCSamples, incremental_log_weights
-from ..transforms import affine_state
+from ..transforms import BaseTransform
 from .base import Sampler
 from . import kernels as K
 
@@ -139,6 +139,18 @@ def _check_beta_progress(beta, beta_star, beta_prev, target_eff,
             f"beta. Consider adjusting beta_tolerance ({beta_tolerance}), "
             f"min_beta_step ({min_beta_step}) or target_efficiency "
             f"({target_eff}).")
+
+
+def _tensors_of(transform) -> list:
+    """The tensors a transform holds, its sub-transforms' included, in the
+    order they were set (none for None)."""
+    out = []
+    for v in vars(transform).values() if transform is not None else ():
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, BaseTransform):
+            out += _tensors_of(v)
+    return out
 
 
 class Mutation(NamedTuple):
@@ -354,11 +366,16 @@ class SMCSampler(Sampler):
         """Dispatch predicate for the whole-chain kernel (None -> split).
 
         Mirrors the JAX package's ``_fused_chain_spec``: a coupling flow
-        (a MAF always takes the split chain, on every device), float32, an
-        identity or affine-only data transform, no
-        preconditioning, a target with an in-kernel id, an integer
-        ``nu + d`` for tpCN, whole tiles, and on a CUDA device a kernel
-        compiled for the flow's shape.
+        (a MAF always takes the split chain, on every device), float32, a
+        data transform and a preconditioning transform (or none) that lower
+        to programs (``FM.canonicalize_transform``: identity, affine,
+        logit, probit, periodic and their masked composites), a target with
+        an in-kernel id, an integer ``nu + d`` for tpCN, whole tiles, and on
+        a CUDA device a kernel compiled for the flow's shape. The spec holds
+        both programs, the preconditioning's from the transform as fitted
+        when the spec is made (``mutate`` makes one per mutation, after the
+        fit), and both lowered for the kernel (``blocks``), here, outside
+        any CUDA graph capture.
         """
         if kwargs.get("fused_chain", "auto") in (False, "off"):
             return None
@@ -366,8 +383,7 @@ class SMCSampler(Sampler):
         if not isinstance(arch, Coupling):
             return None
         kcfg = self._fused_kernel_config(kwargs)
-        if (kcfg is None or self.preconditioning_transform is not None
-                or dtype != torch.float32 or n % FM.TILE):
+        if kcfg is None or dtype != torch.float32 or n % FM.TILE:
             return None
         if kcfg["kernel"] == "tpcn":
             k2 = kcfg["nu"] + self.dims
@@ -377,10 +393,11 @@ class SMCSampler(Sampler):
                         gamma_odd=int(round(k2)) % 2)
         else:
             kcfg = dict(kcfg, gamma_m=0, gamma_odd=0)
-        try:
-            kcfg["data_transform"] = affine_state(
-                self.prior_flow.data_transform)
-        except LookupError:
+        kcfg["data_transform"] = FM.canonicalize_transform(
+            self.prior_flow.data_transform, self.dims)
+        kcfg["precond"] = FM.canonicalize_transform(
+            self.preconditioning_transform, self.dims)
+        if kcfg["data_transform"] is None or kcfg["precond"] is None:
             return None
         kcfg["target"] = self._kernel_target()
         if kcfg["target"] is None:
@@ -390,12 +407,17 @@ class SMCSampler(Sampler):
             gamma_m=kcfg["gamma_m"], gamma_odd=kcfg["gamma_odd"])
         if self.device.type == "cuda" and not FM.kernel_supports(cfg):
             return None
+        kcfg["blocks"] = tuple(
+            FM.program_block(kcfg[k], self.dims, self.device)
+            for k in ("data_transform", "precond"))
         return kcfg
 
     def _mutate_fused(self, z, beta, n_steps, spec, step0,
                       generator) -> Mutation:
         """The whole-chain kernel at ``beta`` from per-tile step sizes
-        ``step0`` (entries <= 0 take the initial step size); its seed is
+        ``step0`` (entries <= 0 take the initial step size), on ``z`` in the
+        preconditioned space; returns the particles in data space (the
+        preconditioning's inverse), as the JAX package does. Its seed is
         drawn on the device, so nothing here reads back to the host."""
         n, d = z.shape
         ref, info = K.gaussian_reference_info(z)
@@ -407,10 +429,13 @@ class SMCSampler(Sampler):
             adaptation_rate=spec["adaptation_rate"],
             gamma_m=spec["gamma_m"], gamma_odd=spec["gamma_odd"])
         step0 = torch.where(step0 > 0, step0, spec["init_step"])
-        x, lq, lpi, ll, nacc, steps, stats = FM.fused_mh_chain(
+        z, lq, lpi, ll, nacc, steps, stats = FM.fused_mh_chain(
             cfg, self.prior_flow.params, z, beta, seed, step0, ref.mean,
             ref.chol, ref.inv_chol, spec["target"],
-            data_transform=spec["data_transform"])
+            data_transform=spec["data_transform"], precond=spec["precond"],
+            blocks=spec["blocks"])
+        precond = self.preconditioning_transform
+        x = precond.inverse(z)[0] if precond is not None else z
         tau, mixing = FM.combine_tile_stats(stats, d, FM.TILE)
         acceptance = torch.mean(nacc) / max(n_steps, 1)
         return Mutation(x, lq, lpi, ll, acceptance, tau, mixing, steps, info,
@@ -660,15 +685,17 @@ class SMCSampler(Sampler):
 
     def _device_ladder(self, samples, spec, n_steps: int,
                        max_iters: int) -> DeviceLadder:
-        """This run's ladder: on the card the cached one while its key and
-        the flow's parameters (the same tensors at the same versions) hold,
-        else a new one, which takes the cached one's place; on the CPU a
-        new one on the sampler's generator."""
+        """This run's ladder: on the card the cached one while its key, the
+        flow's parameters and its data transform's tensors (the same
+        tensors at the same versions, on either route: the graph reads
+        them) hold, else a new one, which takes the cached one's place; on
+        the CPU a new one on the sampler's generator."""
         if not samples.x.is_cuda:
             return DeviceLadder(
                 self._ladder_body(spec, n_steps, self.generator),
                 self._ladder_state(samples, spec, max_iters), self.generator)
         _, leaves = FC._flatten(self.prior_flow.params)
+        leaves = [*leaves, *_tensors_of(self.prior_flow.data_transform)]
         params = tuple((t, t._version) for t in leaves)
         key = self._ladder_key(spec, n_steps, max_iters, samples)
         kept, ladder = self.ladder_cache.get(key, ((), None))

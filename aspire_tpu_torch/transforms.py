@@ -266,6 +266,12 @@ class CompositeTransform(BaseTransform):
         self._affine_transform = (
             AffineTransform(**kw) if affine_transform else None
         )
+        # The masks' dims as index tensors on the transform's device, made
+        # once: indexing by a numpy mask copies it to the device at every
+        # call, which a CUDA graph (the device ladder) cannot capture.
+        self._periodic_index, self._bounded_index = (
+            torch.as_tensor(np.flatnonzero(m), device=self.device)
+            for m in (self._periodic_mask, self._bounded_mask))
 
     @property
     def is_identity(self) -> bool:
@@ -273,26 +279,17 @@ class CompositeTransform(BaseTransform):
                 and self._bounded_transform is None
                 and self._affine_transform is None)
 
-    @property
-    def affine_only(self) -> bool:
-        """Only the affine part is active (the in-kernel data transform)."""
-        return (self._periodic_transform is None
-                and self._bounded_transform is None
-                and self._affine_transform is not None)
-
-    def _masked(self, x, mask, fn):
-        x = x.clone()
-        y, lj = fn(x[:, mask])
-        x[:, mask] = y.to(x.dtype)
-        return x, lj
+    def _masked(self, x, index, fn):
+        y, lj = fn(x.index_select(1, index))
+        return x.index_copy(1, index, y.to(x.dtype)), lj
 
     def fit(self, x):
         x = torch.atleast_2d(self._as(x))
         if self._periodic_transform is not None:
-            x, _ = self._masked(x, self._periodic_mask,
+            x, _ = self._masked(x, self._periodic_index,
                                 self._periodic_transform.forward)
         if self._bounded_transform is not None:
-            x, _ = self._masked(x, self._bounded_mask,
+            x, _ = self._masked(x, self._bounded_index,
                                 self._bounded_transform.forward)
         if self._affine_transform is not None:
             x = self._affine_transform.fit(x)
@@ -302,11 +299,11 @@ class CompositeTransform(BaseTransform):
         x = torch.atleast_2d(self._as(x))
         log_j = torch.zeros(len(x), dtype=x.dtype, device=x.device)
         if self._periodic_transform is not None:
-            x, lj = self._masked(x, self._periodic_mask,
+            x, lj = self._masked(x, self._periodic_index,
                                  self._periodic_transform.forward)
             log_j = log_j + lj
         if self._bounded_transform is not None:
-            x, lj = self._masked(x, self._bounded_mask,
+            x, lj = self._masked(x, self._bounded_index,
                                  self._bounded_transform.forward)
             log_j = log_j + lj
         if self._affine_transform is not None:
@@ -321,11 +318,11 @@ class CompositeTransform(BaseTransform):
             y, lj = self._affine_transform.inverse(y)
             log_j = log_j + lj
         if self._bounded_transform is not None:
-            y, lj = self._masked(y, self._bounded_mask,
+            y, lj = self._masked(y, self._bounded_index,
                                  self._bounded_transform.inverse)
             log_j = log_j + lj
         if self._periodic_transform is not None:
-            y, lj = self._masked(y, self._periodic_mask,
+            y, lj = self._masked(y, self._periodic_index,
                                  self._periodic_transform.inverse)
             log_j = log_j + lj
         return y, log_j
@@ -373,21 +370,3 @@ class FlowTransform(CompositeTransform):
         cfg.pop("periodic_parameters", None)
         return cfg
 
-
-def affine_state(transform) -> tuple[torch.Tensor, torch.Tensor] | None:
-    """``(mean, std)`` when ``transform`` is an identity (returns None for
-    the mean/std) or a fitted affine-only map the kernels can apply;
-    raises LookupError for anything else."""
-    if transform is None or isinstance(transform, IdentityTransform):
-        return None
-    if isinstance(transform, AffineTransform):
-        affine = transform
-    elif isinstance(transform, CompositeTransform) and transform.is_identity:
-        return None
-    elif isinstance(transform, CompositeTransform) and transform.affine_only:
-        affine = transform._affine_transform
-    else:
-        raise LookupError(f"{type(transform).__name__} is not affine-only")
-    if affine._mean is None:
-        raise LookupError("affine transform is not fitted")
-    return affine._mean, affine._std

@@ -34,7 +34,18 @@ main paths (6, 7, 8) right after the build:
    launches per rung; ``replay_check`` again);
    then a target that reads back to the host (``phase_uncapturable_target``:
    the host ladder by default, ValueError when the device ladder is
-   forced);
+   forced); then runs with prior bounds (``phase_bounded_path``), B2
+   running the data transform and the preconditioning as transform
+   programs: the bounded 4-d Gaussian with a logit data transform (the
+   anchor, every mutation on B2; the 131072 pipeline on the device ladder,
+   one B2 launch and no B1 a rung, in turns with the host ladder, one
+   population for both; ``replay_check``; the split route in turns), with
+   a periodic parameter (a periodic preconditioning: the host ladder, B2
+   with its program, against the split route in turns) and with a probit
+   data transform (the anchor); B2 against the plain chain with each
+   program (``PROGRAMS``, n = 8192 x 20 steps; config 5's wide B2 with the
+   logit program at 16384 x 32), and B2 alone with each program in turns
+   with the affine-only chain;
 7. the MAF path: fit a maf-rqs flow to the same draws, SMC at n = 8192
    (log Z against the analytic value, every mutation on the split chain,
    every density pass of it on the MAF kernel: launch counts), the
@@ -90,7 +101,8 @@ that decides an arithmetic such as a k-step sum correction
 (``staged_ab``, ``mean_rule``); ``--wide-ab PARENT`` the same
 for config 5's wide kernels B1, B3 and B2 at n = 1048576 and 131072,
 with their errors against float64 and each checkout's ptxas report
-(``wide_ab``). ``--accumulation`` reads B2's flow density (on the d = 4
+(``wide_ab``).
+``--accumulation`` reads B2's flow density (on the d = 4
 chain and on config 5's) and B4 against float64 over 20 draws each
 (``accumulation``). ``--ladder-profile`` profiles one warmed device-ladder
 pipeline of nsf-tpu and of maf-rqs (``ladder_profile``).
@@ -233,15 +245,9 @@ LADDER_KERNELS = {"coupling_kernel": "coupling", "chain_kernel": "chain",
                   "maf_kernel": "maf"}
 
 
-def replay_kernels(ladder) -> dict:
-    """The kernels one replay of ``ladder``'s graph runs on the card, per
-    ``LADDER_KERNELS`` name, from ``torch.profiler``'s CUDA activity,
-    against the launches its capture counted (``ladder.captured``), which
-    every replay adds to the wrapper counters: they must be equal."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def captured_launches(ladder) -> dict:
+    """The launches of B1/B3, B2 and B4 that ``ladder``'s capture counted
+    (``ladder.captured``): what each replay of its graph adds."""
     from aspire_tpu_torch.ops import _build
     from aspire_tpu_torch.ops import fused_coupling as FC
     from aspire_tpu_torch.ops import fused_mutation as FM
@@ -249,7 +255,19 @@ def replay_kernels(ladder) -> dict:
     counters = {"coupling": FC.launches, "chain": FM.launches,
                 "maf": FC.maf_launches}
     made = _build.LaunchCounter.made
-    counted = {k: ladder.captured[made.index(c)] for k, c in counters.items()}
+    return {k: ladder.captured[made.index(c)] for k, c in counters.items()}
+
+
+def replay_kernels(ladder) -> dict:
+    """The kernels one replay of ``ladder``'s graph runs on the card, per
+    ``LADDER_KERNELS`` name, from ``torch.profiler``'s CUDA activity,
+    against the launches its capture counted (``captured_launches``),
+    which every replay adds to the wrapper counters: they must be equal."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counted = captured_launches(ladder)
     for attempt in range(3):  # a trace can come back without the card's
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -863,8 +881,8 @@ def chain_setup(device, n: int, steps: int):
     gen.manual_seed(3)
     z0 = torch.randn((n, 4), generator=gen, device=device) * 1.5 + 0.5
     ref = K.fit_gaussian_reference(z0)
-    dt = (torch.full((4,), 0.3, device=device),
-          torch.full((4,), 1.7, device=device))
+    dt = FM.affine_program(torch.full((4,), 0.3, device=device),
+                           torch.full((4,), 1.7, device=device))
     target = GaussianMixtureProblem(4).kernel_target(device)
     step0 = torch.full((n // FM.TILE,), 0.5, device=device)
     refs = (ref.mean, ref.chol, ref.inv_chol)
@@ -892,7 +910,7 @@ def hierarchical_chain_setup(device, n: int, steps: int, n_layers: int = 6):
     z0 = torch.as_tensor(problem.draw_initial_samples(
         np.random.default_rng(3), n), dtype=torch.float32, device=device)
     ref = K.fit_gaussian_reference(z0)
-    dt = (z0.mean(dim=0), z0.std(dim=0))
+    dt = FM.affine_program(z0.mean(dim=0), z0.std(dim=0))
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
     step0 = torch.full((n // FM.TILE,), 0.5, device=device)
@@ -936,6 +954,87 @@ def assert_chain_close(kern, plain) -> float:
     torch.testing.assert_close(tau_k, tau_p, rtol=STATS_RTOL, atol=0)
     torch.testing.assert_close(mix_k, mix_p, rtol=STATS_RTOL, atol=0)
     return max(max_err(kern[i], plain[i]) for i in range(4))
+
+
+#: the transform programs B2 is held to beside its affine data transform
+#: (``bounded_programs``)
+PROGRAMS = ("logit", "probit", "periodic", "affine_pc")
+
+
+def bounded_programs(x, kind: str):
+    """Start points and transform programs for B2 on the data-space points
+    ``x`` (n, d), each dim bounded at 1.5 times the points' extent:
+    ``(z0, dt, pc)``, z0 in the preconditioned space, pc None without
+    preconditioning. ``kind`` (``PROGRAMS``): ``logit`` and ``probit``, the
+    flow's data transform under prior bounds (the bounded map, then
+    affine); ``periodic``, a periodic run's: the preconditioning a periodic
+    wrap of dim 0, the data transform periodic on dim 0, logit on the
+    others, then affine; ``affine_pc``, the logit data transform under an
+    affine preconditioning (``preconditioning="standard"`` with
+    ``affine_transform=True``)."""
+    from aspire_tpu_torch import transforms as TT
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    d = x.shape[1]
+    names = [f"x_{i}" for i in range(d)]
+    lo, hi = x.min(dim=0).values.tolist(), x.max(dim=0).values.tolist()
+    bounds = {p: [0.5 * (a + b) - 0.75 * (b - a), 0.5 * (a + b)
+                  + 0.75 * (b - a)] for p, a, b in zip(names, lo, hi)}
+    kw = dict(parameters=names, prior_bounds=bounds, dtype=x.dtype,
+              device=x.device)
+    periodic = names[:1] if kind == "periodic" else []
+    dt = TT.CompositeTransform(
+        periodic_parameters=periodic,
+        bounded_transform="probit" if kind == "probit" else "logit", **kw)
+    dt.fit(x)
+    pc = None
+    if kind in ("periodic", "affine_pc"):
+        pc = TT.CompositeTransform(periodic_parameters=periodic,
+                                   bounded_to_unbounded=False,
+                                   affine_transform=kind == "affine_pc", **kw)
+    z0 = pc.fit(x) if pc is not None else x
+    return (z0.contiguous(), FM.canonicalize_transform(dt, d),
+            FM.canonicalize_transform(pc, d) if pc is not None else None)
+
+
+def program_chain_setup(device, n: int, steps: int, kind: str,
+                        setup=chain_setup):
+    """``setup``'s chain with ``bounded_programs``'s ``kind`` in place of
+    its affine data transform: its start points mapped to the
+    preconditioned space, the reference fitted there. Returns ``setup``'s
+    tuple with the preconditioning's program last."""
+    from aspire_tpu_torch.samplers import kernels as K
+
+    cfg, params, x0, beta, step0, _, target, _, gen = setup(device, n, steps)
+    z0, dt, pc = bounded_programs(x0, kind)
+    ref = K.fit_gaussian_reference(z0)
+    return (cfg, params, z0, beta, step0, (ref.mean, ref.chol, ref.inv_chol),
+            target, dt, gen, pc)
+
+
+def check_chain_program(device, n: int, steps: int, kind: str,
+                        setup=chain_setup) -> float:
+    """B2 against the plain chain with ``kind``'s programs on injected,
+    nudged noise (``assert_chain_close``); the largest difference."""
+    import torch
+
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    cfg, params, z0, beta, step0, refs, target, dt, gen, pc = (
+        program_chain_setup(device, n, steps, kind, setup))
+    noise = torch.rand((steps, cfg.noise_rows, n), generator=gen,
+                       device=device).clamp(1e-4, 1 - 1e-4)
+    plain = FM.chain_plain(cfg, params, z0, beta, step0, *refs, target,
+                           data_transform=dt, precond=pc, noise=noise,
+                           return_acc_probs=True)
+    nudge_accept_uniforms(noise, plain[-1])
+    kern = FM.fused_mh_chain(cfg, params, z0, beta, None, step0, *refs,
+                             target, data_transform=dt, precond=pc,
+                             noise=noise)
+    err = assert_chain_close(kern, plain)
+    if not 0 < float(kern[4].sum()) < n * steps:
+        raise AssertionError(f"{kind}: every proposal accepted or none")
+    return err
 
 
 def phase_chain(device, n: int, steps: int, setup=chain_setup) -> dict:
@@ -1366,12 +1465,13 @@ def chain_accuracy(device, draws: int = 20, n: int = N_CHAIN,
                                                               steps)
     arch, d = cfg.arch, z0.shape[1]
     params64 = as_float64(params)
+    mean, std = dt.params
 
     def lq(p, x):
-        xf = (x - dt[0].to(x)) / dt[1].to(x)
+        xf = (x - mean.to(x)) / std.to(x)
         z, ld = arch.forward_plain(p, xf)
         return (-0.5 * torch.sum(z * z, dim=-1) - d * 0.5 * math.log(
-            2 * math.pi) + ld - torch.sum(torch.log(torch.abs(dt[1].to(x)))))
+            2 * math.pi) + ld - torch.sum(torch.log(torch.abs(std.to(x)))))
 
     sums = {}
     for draw in range(1, draws + 1):
@@ -1503,8 +1603,9 @@ def ptxas_report(text: str, match: str = "kernel_wide") -> dict:
             out[name].update(zip(("stack", "spill_stores", "spill_loads"),
                                  map(int, frame.groups())))
         used = re.search(r"Used (\d+) registers", line)
-        if used:
+        if used:  # the entry's last line (device functions' lines follow)
             out[name]["registers"] = int(used[1])
+            name = None
     return out
 
 
@@ -1515,8 +1616,9 @@ def wide_turn(draws: int) -> dict:
     HIER_STEPS steps) at N_HIER and N_HIER_ROUTES, by events and single
     calls, then alone; their errors against float64 (B1/B3 over ``draws``
     input draws at N_HIER_CHECK, B2's lq over ``draws`` Philox seeds at
-    N_CHAIN); and the ptxas report of the wide kernels as this checkout's
-    build logged it."""
+    N_CHAIN); the ptxas report of the wide kernels as this checkout's
+    build logged it; and a digest of B2's outputs at N_HIER_ROUTES (beta
+    0.7, seed (1, 2))."""
     import torch
 
     from aspire_tpu_torch.ops import _build
@@ -1554,6 +1656,8 @@ def wide_turn(draws: int) -> dict:
         times[key] = {"ms": cuda_ms(chain, chain_reps),
                       "ms_single_call": cuda_ms_single(chain, chain_reps)}
         later.append((key, chain, "chain_kernel_wide", chain_reps))
+        if n == N_HIER_ROUTES:
+            b2_digest = digest(chain())
         del x, z, z0
     accuracy = {"coupling": coupling_accuracy(
                     dev, N_HIER_CHECK, draws,
@@ -1562,7 +1666,8 @@ def wide_turn(draws: int) -> dict:
                                         setup=hierarchical_chain_setup)}
     for key, run, match, reps in later:
         times[key]["kernel_ms"] = kernel_ms(run, match, reps)
-    return {"times": times, "accuracy": accuracy, "ptxas": ptxas}
+    return {"times": times, "accuracy": accuracy, "ptxas": ptxas,
+            "digest": b2_digest}
 
 
 def wide_ab(parent: str, draws: int = 10) -> dict:
@@ -1571,10 +1676,14 @@ def wide_ab(parent: str, draws: int = 10) -> dict:
     change, change, parent) on the same card, each turn a process of its
     own as in ``chain_ab`` (``wide_turn``): their times by events and
     alone, their errors against float64 on ``draws`` draws (the same in
-    both turns of a checkout: the kernels are deterministic), and each
-    checkout's ptxas report of its wide kernels."""
-    return path_ab(parent, "wide_turn", f"{draws}", "wide",
-                   ("accuracy", "ptxas"))
+    both turns of a checkout: the kernels are deterministic), each
+    checkout's ptxas report of its wide kernels, and whether both
+    checkouts' B2 outputs are the same bits (``digest``)."""
+    out = path_ab(parent, "wide_turn", f"{draws}", "wide",
+                  ("accuracy", "ptxas", "digest"))
+    out["outputs_identical"] = (out["parent"]["digest"]
+                                == out["change"]["digest"])
+    return out
 
 
 def ladder_turns(asp, run: dict, need: dict, truth: float | None = None,
@@ -1864,6 +1973,208 @@ def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
             "split_n_mutations": len(split_routes),
             "split_log_z": split.log_evidence,
             "split_log_z_err": split.log_evidence_error}
+
+
+def bounded_aspire(device, **kw):
+    """``GaussianProblem(dims=4)`` (N(2, 1) likelihood, U(-10, 10)^4
+    prior, log Z = -4 ln 20) on its prior bounds, with an nsf-tpu flow
+    fitted as ``phase_main_path`` fits its own: the flow's data transform
+    is the bounded map (logit unless ``kw`` says otherwise), then affine.
+    ``kw`` goes to ``Aspire``."""
+    import numpy as np
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import GaussianProblem
+
+    p = GaussianProblem(dims=4)
+    init = Samples(p.draw_initial_samples(np.random.default_rng(42), 4000))
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=4, parameters=p.parameters,
+                 prior_bounds=p.prior_bounds, flow_backend="nsf",
+                 architecture="nsf-tpu", seed=1, device=device, **kw)
+    asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
+    return p, asp
+
+
+def program_ops(transform) -> list:
+    """The op kinds of ``transform``'s program (``[]`` for none)."""
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    prog = FM.canonicalize_transform(transform, 4)
+    return [] if prog is None else [op for op, _ in prog.ops]
+
+
+def bounded_anchor(p, asp, n: int, dt_ops: list, pc_ops: list) -> dict:
+    """SMC at n on ``asp``'s default path: every mutation on B2, one launch
+    each, with the data transform's and the preconditioning's programs
+    ``dt_ops`` and ``pc_ops``; log Z against the truth (``check_result``)."""
+    reset_launch_counts()
+    samples = asp.sample_posterior(sampler="smc", n_samples=n,
+                                   sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    launches = launch_counts()
+    sampler = asp.sampler
+    routes = sampler.history.mutation_route
+    out = {"log_z": samples.log_evidence,
+           "log_z_err": samples.log_evidence_error,
+           "truth": p.true_log_evidence, "n_mutations": len(routes),
+           "launches": launches,
+           "dt_ops": program_ops(asp.flow.data_transform),
+           "pc_ops": program_ops(sampler.preconditioning_transform)
+           if sampler.preconditioning_transform is not None else [],
+           "ladder": "device" if sampler.ladder is not None else "host"}
+    log(f"bounded anchor, n={n}: {out}")
+    if set(routes) != {"fused_kernel"}:
+        raise AssertionError(f"mutations left the chain kernel: {routes}")
+    if (out["dt_ops"], out["pc_ops"]) != (dt_ops, pc_ops):
+        raise AssertionError(f"programs {out['dt_ops']}, {out['pc_ops']}; "
+                             f"expected {dt_ops}, {pc_ops}")
+    if asp.device.type == "cuda" and launches["chain"] != len(routes):
+        raise AssertionError(f"{launches['chain']} B2 launches for "
+                             f"{len(routes)} mutations")
+    check_result(samples, n, p.true_log_evidence)
+    return out
+
+
+def route_turns(asp, run: dict) -> dict:
+    """``run`` on its default ladder with the whole-chain kernel against
+    ``fused_chain=False`` (the split chain), in turns (fused, split, split,
+    fused, fused, split) after a warm-up of each: host clock to
+    ``torch.cuda.synchronize()``, medians of 3; the routes each took, and
+    the last runs' log Z within max(5 combined sigma, 0.15)."""
+    import torch
+
+    on_card = asp.device.type == "cuda"
+    split_kwargs = dict(run["sampler_kwargs"], fused_chain=False)
+    walls, last = {"fused_kernel": [], "split": []}, {}
+    turns = ["fused_kernel", "split", "split", "fused_kernel",
+             "fused_kernel", "split"]
+    for i, route in enumerate(["fused_kernel", "split"] + turns):
+        kw = dict(run, sampler_kwargs=split_kwargs) if route == "split" else run
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post = asp.sample_posterior(**kw)
+        if on_card:
+            torch.cuda.synchronize()
+        if i >= 2:
+            walls[route].append(time.perf_counter() - t0)
+        if set(asp.sampler.history.mutation_route) != {route}:
+            raise AssertionError(f"a {route} run took "
+                                 f"{set(asp.sampler.history.mutation_route)}")
+        last[route] = post
+    f, s = last["fused_kernel"], last["split"]
+    tol = max(5 * math.hypot(f.log_evidence_error, s.log_evidence_error),
+              0.15)
+    out = {"fused_s": sorted(walls["fused_kernel"])[1],
+           "split_s": sorted(walls["split"])[1], "walls_s": walls,
+           "log_z": f.log_evidence, "log_z_err": f.log_evidence_error,
+           "split_log_z": s.log_evidence,
+           "split_log_z_err": s.log_evidence_error, "tolerance": tol,
+           "ladder": "device" if asp.sampler.ladder is not None else "host"}
+    log(f"routes in turns: {out}")
+    if abs(f.log_evidence - s.log_evidence) >= tol:
+        raise AssertionError(f"routes disagree on log Z: {out}")
+    return out
+
+
+def time_chain_programs(device, n: int, steps: int) -> dict:
+    """B2 with each of ``PROGRAMS`` on ``chain_setup``'s flow and target
+    (``program_chain_setup``) in turns with the same chain's affine-only
+    B2 (affine, the programs, the programs reversed, affine): events
+    (``cuda_ms``) per turn, the kernel alone noted for the end of the run
+    (``kernel_ms_later``), and the plain chain with the logit program."""
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    runs = {"affine": (*chain_setup(device, n, steps), None)}
+    runs.update({kind: program_chain_setup(device, n, steps, kind)
+                 for kind in PROGRAMS})
+
+    def call(kind):
+        cfg, params, z0, beta, step0, refs, target, dt, _, pc = runs[kind]
+        return lambda: FM.fused_mh_chain(
+            cfg, params, z0, beta, (1, 2), step0, *refs, target,
+            data_transform=dt, precond=pc)
+
+    out = {kind: {"ms": []} for kind in runs}
+    for kind in ("affine", *PROGRAMS, *PROGRAMS[::-1], "affine"):
+        out[kind]["ms"].append(cuda_ms(call(kind)))
+    for kind in runs:
+        kernel_ms_later(out[kind], "kernel_ms", call(kind), "chain_kernel",
+                        reps=5)
+    cfg, params, z0, beta, step0, refs, target, dt, _, pc = runs["logit"]
+    out["logit"]["plain_ms"] = cuda_ms(lambda: FM.chain_plain(
+        cfg, params, z0, beta, step0, *refs, target, data_transform=dt,
+        precond=pc, seed=(1, 2)), reps=3)
+    log(f"B2 with each program in turns with affine-only, n={n}: {out}")
+    return out
+
+
+def phase_bounded_path(device, n_anchor: int, n_pipeline: int) -> dict:
+    """Runs with prior bounds, B2 running the transform programs:
+
+    (a) the bounded Gaussian (``bounded_aspire``; a logit + affine data
+    transform): the anchor at ``n_anchor`` (every mutation on B2); the
+    ``n_pipeline`` pipeline on the default device ladder in turns with the
+    host ladder (``ladder_turns``: one B2 launch a rung and no B1, one
+    population for both ladders), ``replay_check``, and the split route
+    (``fused_chain=False``, the route such runs took before B2 took
+    programs) in turns the same way;
+    (b) the same problem with a periodic parameter: a masked periodic
+    preconditioning, so the host ladder, every mutation on B2 with its
+    program; the anchor, and the pipeline against its split route;
+    (c) the probit data transform: the anchor;
+    (d) B2 against the plain chain with each of ``PROGRAMS`` at
+    ``n_anchor`` x CHAIN_STEPS, and config 5's wide B2 with the logit
+    program at N_HIER_CHECK x HIER_STEPS (injected, nudged noise);
+    (e) B2 alone with each program (``time_chain_programs``).
+    """
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    on_card = device.type == "cuda"
+    pipeline = dict(sampler="smc", n_samples=n_pipeline,
+                    store_sample_history=False,
+                    sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    p, asp = bounded_aspire(device)
+    out = {"logit": {"anchor": bounded_anchor(p, asp, n_anchor,
+                                              ["logit", "affine"], [])}}
+    ladders = ladder_turns(asp, pipeline, {"chain": 1}, p.true_log_evidence)
+    (_, lad), = asp.ladder_cache.values() if on_card else ((None, None),)
+    per_rung = captured_launches(lad) if on_card else None
+    log(f"bounded device ladder, launches a rung: {per_rung}")
+    if on_card and (per_rung != {"coupling": 0, "chain": 1, "maf": 0}
+                    or not ladders["ladders_agree_bitwise"]):
+        raise AssertionError(f"bounded device ladder: {per_rung} a rung, "
+                             f"{ladders}")
+    out["logit"].update(ladders=ladders, per_rung=per_rung,
+                        replay_vs_eager=replay_check(asp) if on_card
+                        else None)
+    split = dict(pipeline, sampler_kwargs=dict(n_steps=CHAIN_STEPS,
+                                               fused_chain=False))
+    out["logit"]["ladders_split"] = ladder_turns(
+        asp, split, {"coupling": CHAIN_STEPS + 2}, p.true_log_evidence)
+
+    p, asp = bounded_aspire(device, periodic_parameters=["x_0"])
+    out["periodic"] = {
+        "anchor": bounded_anchor(p, asp, n_anchor, ["logit", "affine"],
+                                 ["periodic"]),
+        "routes": route_turns(asp, pipeline)}
+    if out["periodic"]["routes"]["ladder"] != "host":
+        raise AssertionError("a preconditioned run took the device ladder")
+    p, asp = bounded_aspire(device, bounded_transform="probit")
+    out["probit"] = {"anchor": bounded_anchor(p, asp, n_anchor,
+                                              ["probit", "affine"], [])}
+
+    out["check_max_abs_err"] = {
+        kind: check_chain_program(device, n_anchor, CHAIN_STEPS, kind)
+        for kind in PROGRAMS}
+    out["check_max_abs_err"]["wide logit"] = check_chain_program(
+        device, N_HIER_CHECK, HIER_STEPS, "logit",
+        setup=hierarchical_chain_setup)
+    out["times"] = time_chain_programs(device, n_pipeline, CHAIN_STEPS)
+    out["shared_bytes_d32"] = FM.chain_shared_bytes(
+        hierarchical_flow(), FM.consts_layout(32)[-1])
+    log(f"bounded path: {out}")
+    return out
 
 
 def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
@@ -2237,21 +2548,53 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(line.strip())
 
-    main_path = phase_main_path(device, N_CHAIN, N_PIPELINE)
-    main_path["uncapturable_target"] = phase_uncapturable_target(device,
-                                                                 N_CHAIN)
-    maf_path = phase_maf_main_path(device, N_CHAIN, N_PIPELINE)
-    hier = phase_hierarchical(device)
-    coupling = phase_coupling(device, N_COUPLING)
-    chain = phase_chain(device, N_CHAIN, CHAIN_STEPS)
-    maf = phase_maf(device, N_COUPLING)
-    chain_t = time_chain(device, N_PIPELINE, CHAIN_STEPS)
-    staged = phase_staged_coupling(device, N_COUPLING)
-    uniforms = phase_prng(device, N_PIPELINE)
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__] = time.perf_counter() - t
+        return out
+
+    main_path = timed(phase_main_path, device, N_CHAIN, N_PIPELINE)
+    main_path["uncapturable_target"] = timed(phase_uncapturable_target,
+                                             device, N_CHAIN)
+    bounded = timed(phase_bounded_path, device, N_CHAIN, N_PIPELINE)
+    maf_path = timed(phase_maf_main_path, device, N_CHAIN, N_PIPELINE)
+    hier = timed(phase_hierarchical, device)
+    coupling = timed(phase_coupling, device, N_COUPLING)
+    chain = timed(phase_chain, device, N_CHAIN, CHAIN_STEPS)
+    maf = timed(phase_maf, device, N_COUPLING)
+    chain_t = timed(time_chain, device, N_PIPELINE, CHAIN_STEPS)
+    staged = timed(phase_staged_coupling, device, N_COUPLING)
+    uniforms = timed(phase_prng, device, N_PIPELINE)
     # The profiler last: after it has traced the card, every launch costs
     # the host more, and the pipelines and short kernels' events show it.
-    read_kernel_ms()
+    timed(read_kernel_ms)
+    log(f"seconds per phase: {seconds}; in all "
+        f"{time.perf_counter() - t0:.1f} s")
 
+    bl, bp, bt = bounded["logit"], bounded["periodic"], bounded["times"]
+    print(f"[{card}] bounded Gaussian (d=4, U(-10, 10), logit + affine data "
+          f"transform), n={N_PIPELINE}: device ladder "
+          f"{bl['ladders']['device_s']:.4f} s vs host ladder "
+          f"{bl['ladders']['host_s']:.4f} s (medians of 3 in turns; "
+          f"{bl['ladders']['rungs']} rungs, per rung {bl['per_rung']}); "
+          f"split route: device ladder {bl['ladders_split']['device_s']:.4f} "
+          f"s vs host ladder {bl['ladders_split']['host_s']:.4f} s; anchor "
+          f"log Z {bl['anchor']['log_z']:.4f} +/- "
+          f"{bl['anchor']['log_z_err']:.4f} vs {bl['anchor']['truth']:.4f}; "
+          f"periodic (host ladder, pc program): B2 {bp['routes']['fused_s']:.4f}"
+          f" s vs split {bp['routes']['split_s']:.4f} s, anchor log Z "
+          f"{bp['anchor']['log_z']:.4f} +/- {bp['anchor']['log_z_err']:.4f}; "
+          f"probit anchor {bounded['probit']['anchor']['log_z']:.4f} +/- "
+          f"{bounded['probit']['anchor']['log_z_err']:.4f}", flush=True)
+    print(f"[{card}] chain kernel with transform programs, n={N_PIPELINE}, "
+          f"{CHAIN_STEPS} steps, in turns with affine-only: " + "; ".join(
+              f"{k} {v['ms']} ms events, {v['kernel_ms']:.4f} ms alone"
+              for k, v in bt.items()) + f"; plain torch (logit) "
+          f"{bt['logit']['plain_ms']:.4f} ms; shared memory at d=32 "
+          f"{bounded['shared_bytes_d32']} B", flush=True)
     for name, (arch, *_) in coupling_flows().items():
         v = coupling["flows"][name]
         b = coupling_bound(arch, N_COUPLING)
@@ -2299,6 +2642,7 @@ def main() -> int:
               f"{v['host_log_z']:.4f} +/- {v['host_log_z_err']:.4f}",
               flush=True)
     for name, v in (("nsf-tpu", main_path["replay_vs_eager"]),
+                    ("bounded nsf-tpu", bl["replay_vs_eager"]),
                     ("nsf-tpu, split chain",
                      main_path["replay_vs_eager_split"]),
                     ("maf-rqs", maf_path["replay_vs_eager"]),
@@ -2412,6 +2756,23 @@ def main() -> int:
          "ms": chain_t["ms"], "ms_single_call": chain_t["ms_single_call"],
          "kernel_ms": chain_t["kernel_ms"],
          "plain_ms": chain_t["plain_ms"], **b2_bound, "library_ms": None},
+        {"name": "chain_kernel B2, transform programs", "route": "cuda",
+         "config": "bounded GaussianProblem(dims=4), nsf-tpu; logit + affine "
+                   "data transform (times: chain_setup's flow and target)",
+         "source": "aspire_tpu_torch/csrc/chain.cu",
+         "replaces": "aspire_tpu/ops/fused_mutation.py:1038",
+         "launches": bl["ladders"]["launches"]["chain"],
+         "launches_run": "bounded pipeline, device ladder",
+         "device_ladder_rungs": bl["ladders"]["rungs"],
+         "launches_per_rung": bl["per_rung"],
+         "launches_per_replay_profiled": bl["replay_vs_eager"][
+             "replay_kernels"]["chain"],
+         "max_abs_err": max(bounded["check_max_abs_err"].values()),
+         "max_abs_err_by_program": bounded["check_max_abs_err"],
+         "ms": sum(bt["logit"]["ms"]) / 2, "kernel_ms": bt["logit"][
+             "kernel_ms"], "plain_ms": bt["logit"]["plain_ms"],
+         **b2_bound, "library_ms": None,
+         "by_program": bt, "shared_bytes_d32": bounded["shared_bytes_d32"]},
         {"name": "maf_kernel (B4)", "route": "cuda",
          "source": "aspire_tpu_torch/csrc/maf.cu",
          "replaces": "aspire_tpu/ops/fused_coupling.py:598",

@@ -64,8 +64,8 @@ def _run_both(kernel, problem="mixture", affine_dt=False, seed=3):
         jt = JT.AffineTransform(dtype="float32")
         jt.fit(jnp.asarray(1.3 * x0 + 0.4))
         jcfg_kw["dt_prog"] = JFM.canonicalize_transform(jt, d)
-        dt = (torch.as_tensor(np.array(jt._mean)),
-              torch.as_tensor(np.array(jt._std)))
+        dt = FM.affine_program(torch.as_tensor(np.array(jt._mean)),
+                               torch.as_tensor(np.array(jt._std)))
     jcfg = JFM.ChainConfig(jarch, kernel, STEPS, **jcfg_kw)
     noise = np.clip(rng.uniform(size=(STEPS, jcfg.noise_rows, N)),
                     1e-4, 1 - 1e-4).astype(np.float32)

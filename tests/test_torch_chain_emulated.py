@@ -35,6 +35,7 @@ from test_torch_maf_emulated import (
 N, STEPS = 512, 3
 
 CHAIN_RUNTIME = r"""
+#define __noinline__
 using std::isnan;
 inline float __shfl_sync(unsigned, float v, int src) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
@@ -67,8 +68,10 @@ HARNESS = r"""
 namespace aspire { float4 smem4[232448 / 16]; }
 using S = aspire::MmaShape<4, 64, 64, 8, true>;
 using W = aspire::MmaShape<32, 128, 128, 8, true>;
-// Configuration 0 (nsf-tpu at d = 4) or 2 (the wide form at d = 32).
-template <int CFG>
+// Configuration 0 (nsf-tpu at d = 4) or 2 (the wide form at d = 32), the
+// instance that applies programs or the one without (launch_chain's
+// choice).
+template <int CFG, bool PROGS>
 void run_chain(const aspire::ChainArgs& a, int nt) {
   for (int b = 0; b < nt; ++b) {
     emu_block = std::make_unique<std::barrier<>>(256);
@@ -82,9 +85,9 @@ void run_chain(const aspire::ChainArgs& a, int nt) {
         threadIdx = {(unsigned)t, 0, 0};
         blockIdx = {(unsigned)b, 0, 0};
         if constexpr (CFG == 0) {
-          aspire::chain_kernel<4, 64, 64, 8, true>(a);
+          aspire::chain_kernel<4, 64, 64, 8, true, PROGS>(a);
         } else {
-          aspire::chain_kernel_wide<32, 128, 128, 8, true>(a);
+          aspire::chain_kernel_wide<32, 128, 128, 8, true, PROGS>(a);
         }
       });
     }
@@ -103,27 +106,34 @@ int main(int argc, char** argv) {
            S::W2, S::B2, S::W3, S::B3, S::ROW, S::STAGE, S::RES, S::CHUNK);
     printf("%d %d %d %d %d %d %d %d %d %d %d\n", W::SIZE, W::W1, W::B1,
            W::W2, W::B2, W::W3, W::B3, W::ROW, W::STAGE, W::RES, W::CHUNK);
-    printf("%d %d %d\n", aspire_chain_tile(), aspire_consts_floats(4),
-           aspire_consts_floats(32));
+    printf("%d\n", aspire_chain_tile());
+    for (int d : {4, 32}) {
+      int v[8];
+      const int count = aspire_consts_layout(d, v, 8);
+      for (int e = 0; e < count; ++e) printf("%d ", v[e]);
+      printf("\n");
+    }
     return 0;
   }
   const int n = atoi(argv[1]), layers = atoi(argv[2]), steps = atoi(argv[3]);
   const int kernel = atoi(argv[4]), gm = atoi(argv[5]), go = atoi(argv[6]);
-  const int rows = atoi(argv[7]), dt = atoi(argv[8]), target = atoi(argv[9]);
-  const long long seed[2] = {strtoll(argv[10], nullptr, 10),
-                             strtoll(argv[11], nullptr, 10)};
-  const int injected = atoi(argv[12]);
-  const float beta = atof(argv[13]), nu = atof(argv[14]);
-  const float target_acc = atof(argv[15]), rate = atof(argv[16]);
-  const float max_log_step = atof(argv[17]), tail = atof(argv[18]);
-  const int cfg = atoi(argv[21]), d = cfg == 2 ? 32 : 4;
-  const int nt = n / 256, cs = aspire_consts_floats(d);
+  const int rows = atoi(argv[7]), target = atoi(argv[8]);
+  const int programs = atoi(argv[21]);
+  const long long seed[2] = {strtoll(argv[9], nullptr, 10),
+                             strtoll(argv[10], nullptr, 10)};
+  const int injected = atoi(argv[11]);
+  const float beta = atof(argv[12]), nu = atof(argv[13]);
+  const float target_acc = atof(argv[14]), rate = atof(argv[15]);
+  const float max_log_step = atof(argv[16]), tail = atof(argv[17]);
+  const int cfg = atoi(argv[20]), d = cfg == 2 ? 32 : 4;
+  int layout[8];
+  const int nt = n / 256, cs = layout[aspire_consts_layout(d, layout, 8) - 1];
   const int size = cfg == 2 ? W::SIZE : S::SIZE;
   std::vector<float> z0(d * n), w(layers * size), c(cs), step0(nt);
   std::vector<float> noise(injected ? (size_t)steps * rows * n : 0);
   std::vector<float> z(d * n), lq(n), lpi(n), ll(n), nacc(n);
   std::vector<float> stats(nt * (4 * d + 1)), scratch(3 * d * n, -7.f);
-  FILE* f = fopen(argv[19], "rb");
+  FILE* f = fopen(argv[18], "rb");
   for (auto* v : {&z0, &w, &c, &step0, &noise}) {
     if (fread(v->data(), 4, v->size(), f) != v->size()) return 2;
   }
@@ -132,16 +142,17 @@ int main(int argc, char** argv) {
                       injected ? noise.data() : nullptr, z.data(), lq.data(),
                       lpi.data(), ll.data(), nacc.data(), stats.data(),
                       scratch.data(), n, layers, steps, kernel, gm, go, rows,
-                      dt, target, nu, target_acc, rate, max_log_step,
+                      programs, target, nu, target_acc, rate, max_log_step,
                       tail, &beta, seed};
   blockDim = {256, 1, 1};
   gridDim = {(unsigned)nt, 1, 1};
+  const bool progs = programs == aspire::kPrograms;
   if (cfg == 2) {
-    run_chain<2>(a, nt);
+    progs ? run_chain<2, true>(a, nt) : run_chain<2, false>(a, nt);
   } else {
-    run_chain<0>(a, nt);
+    progs ? run_chain<0, true>(a, nt) : run_chain<0, false>(a, nt);
   }
-  f = fopen(argv[20], "wb");
+  f = fopen(argv[19], "wb");
   for (auto* v : {&z, &lq, &lpi, &ll, &nacc, &stats}) {
     fwrite(v->data(), 4, v->size(), f);
   }
@@ -182,27 +193,27 @@ def _setup(kernel: str):
 
 
 def _run(harness, cfg, params, z0, beta, step0, refs, target, dt,
-         noise=None, seed=(0, 0)):
+         noise=None, seed=(0, 0), pc=None):
     """The emulated kernel: the wrapper's returns, ``(z, lq, lpi, ll,
     n_accept, step_sizes, stats)``."""
     arch = cfg.arch
     n, d = z0.shape
-    consts = FM.chain_consts(_layout(harness)[4][1 if d == 4 else 2], d,
-                             *refs, dt, target[1])
+    consts = FM.chain_consts(d, *refs, FM.program_block(dt, d, "cpu"),
+                             FM.program_block(pc, d, "cpu"), target[1])
     inputs = [z0, FM.prepare_chain_params(arch, params), consts, step0]
     if noise is not None:
         inputs.append(noise)
     root = harness.parent
-    tag = f"{d}_{cfg.kernel}_{seed[0]}_{noise is not None}"
+    tag = f"{d}_{cfg.kernel}_{seed[0]}_{noise is not None}_{pc is not None}"
     inp, out = root / f"in_{tag}.bin", root / f"out_{tag}.bin"
     np.concatenate([t.numpy().ravel() for t in inputs]).astype(
         np.float32).tofile(inp)
     args = [n, arch.n_layers, cfg.n_steps, FM.KERNELS[cfg.kernel],
-            cfg.gamma_m, cfg.gamma_odd, cfg.noise_rows,
-            int(dt is not None), int(target[0]), seed[0], seed[1],
+            cfg.gamma_m, cfg.gamma_odd, cfg.noise_rows, int(target[0]),
+            seed[0], seed[1],
             int(noise is not None), beta, cfg.nu, cfg.target_acceptance,
             cfg.adaptation_rate, cfg.max_log_step, arch.tail_bound, inp, out,
-            FC.config_id(arch)]
+            FC.config_id(arch), FM.program_level(dt, pc)]
     subprocess.run([str(harness), *map(str, args)], check=True, timeout=600)
     res = torch.as_tensor(np.fromfile(out, dtype=np.float32))
     z, rest = res[:d * n].reshape(n, d), res[d * n:]
@@ -215,15 +226,17 @@ def test_chain_layout_table_matches_python(harness):
     """The layout the kernel reads, as the C entry the wrapper checks at
     launch and MmaShape report it, equals the Python packing's
     (``chain_layout``): floats per layer, section offsets, the warp
-    buffer's row stride and size; the tile and the constant block too."""
-    library, wide_library, shape, wide_shape, (tile, consts, consts32) = (
+    buffer's row stride and size; the tile, and the constant block's
+    offsets and size (``consts_layout``) at d = 4 and 32."""
+    library, wide_library, shape, wide_shape, (tile,), consts, consts32 = (
         _layout(harness))
     want = list(FM.chain_layout(nsf_tpu(4)))
     assert library == shape == want
     assert wide_library == wide_shape == list(
         FM.chain_layout(chip_smoke.hierarchical_flow()))
-    assert tile == FM.TILE == 256 and consts >= 2 * 4 * 4 + 5 * 4 + 2
-    assert consts32 >= 2 * 32 * 32 + 5 * 32 + 2
+    assert tile == FM.TILE == 256
+    assert consts == list(FM.consts_layout(4))
+    assert consts32 == list(FM.consts_layout(32))
     assert len(FM.prepare_chain_params(*chip_smoke.perturbed_flow(
         torch.device("cpu")))) == 3 * want[0]
 
@@ -300,3 +313,43 @@ def test_wide_chain_kernel_source_matches_plain(harness):
                   noise=injected)
     for a, b in zip(drawn, replay):
         assert torch.equal(a, b)
+
+
+def _program_case(harness, cfg, params, z0, beta, step0, refs, target, dt,
+                  gen, pc):
+    """The emulated kernel with programs dt and pc against the plain chain
+    on injected, nudged noise (``chip_smoke.check_chain_program``'s
+    check)."""
+    n = z0.shape[0]
+    noise = torch.rand((cfg.n_steps, cfg.noise_rows, n), generator=gen).clamp(
+        1e-4, 1 - 1e-4)
+    plain = FM.chain_plain(cfg, params, z0, beta, step0, *refs, target,
+                           data_transform=dt, precond=pc, noise=noise,
+                           return_acc_probs=True)
+    chip_smoke.nudge_accept_uniforms(noise, plain[-1])
+    kern = _run(harness, cfg, params, z0, beta, step0, refs, target, dt,
+                noise=noise, pc=pc)
+    chip_smoke.assert_chain_close(kern, plain)
+    assert 0 < float(kern[4].sum()) < n * cfg.n_steps
+
+
+def test_chain_kernel_source_runs_the_programs(harness):
+    """The narrow form with a periodic run's programs
+    (``chip_smoke.bounded_programs``: a masked periodic preconditioning, a
+    periodic + logit + affine data transform) on two tiles, three steps, at
+    the card check's tolerances."""
+    setup = chip_smoke.program_chain_setup(torch.device("cpu"), N, STEPS,
+                                           "periodic")
+    assert [op for op, _ in setup[7].ops] == ["periodic", "logit", "affine"]
+    assert setup[-1].ops == (("periodic", True),)
+    _program_case(harness, *setup)
+
+
+def test_wide_chain_kernel_source_runs_the_programs(harness):
+    """The wide form (config 5's shape cut to 2 layers, one tile, two
+    steps) with the same programs, at the card check's tolerances."""
+    setup = chip_smoke.program_chain_setup(
+        torch.device("cpu"), FM.TILE, 2, "periodic",
+        setup=lambda device, n, steps: chip_smoke.hierarchical_chain_setup(
+            device, n, steps, n_layers=2))
+    _program_case(harness, *setup)

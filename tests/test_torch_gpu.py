@@ -37,6 +37,13 @@ def test_chain_kernel_matches_plain(cuda):
     assert abs(out["acceptance_kernel"] - out["acceptance_plain"]) < 0.1
 
 
+@pytest.mark.parametrize("program", chip_smoke.PROGRAMS)
+def test_chain_kernel_runs_the_transform_programs(cuda, program):
+    """B2 with a bounded data transform, and a periodic or affine
+    preconditioning, against the plain chain on injected noise."""
+    assert chip_smoke.check_chain_program(cuda, 2048, 5, program) < 2e-3
+
+
 def test_main_path_routes_through_the_kernels(cuda):
     """The fused anchor through B3 and B2; the split anchor's every density
     pass through B1."""

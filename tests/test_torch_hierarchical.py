@@ -134,8 +134,8 @@ def test_chain_matches_jax_fused_chain_on_hierarchical():
     x0 = tp.draw_initial_samples(rng, N).astype(np.float32)
     jt = JT.AffineTransform(dtype="float32")
     jt.fit(jnp.asarray(x0))
-    dt = (torch.as_tensor(np.array(jt._mean)),
-          torch.as_tensor(np.array(jt._std)))
+    dt = FM.affine_program(torch.as_tensor(np.array(jt._mean)),
+                           torch.as_tensor(np.array(jt._std)))
     jcfg = JFM.ChainConfig(jarch, "tpcn", STEPS, nu=nu,
                            target_acceptance=0.234, adaptation_rate=0.1,
                            gamma_m=gm, gamma_odd=go,

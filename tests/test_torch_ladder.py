@@ -100,6 +100,63 @@ def test_device_ladder_repeats_the_host_ladder(fitted, flow, chain, route):
     assert dev.log_evidence == pytest.approx(host.log_evidence, rel=1e-6)
 
 
+def test_device_ladder_repeats_the_host_ladder_with_bounds():
+    """Prior bounds give the flow a logit + affine data transform, which
+    the whole-chain kernel runs as a program: both ladders take it on
+    every rung and give one run for one seed, bit for bit."""
+    p = GaussianProblem(dims=4)
+    init = Samples(p.draw_initial_samples(np.random.default_rng(42), 1000))
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=4, prior_bounds=p.prior_bounds, seed=1, device="cpu",
+                 **FLOWS["nsf"])
+    asp.fit(init, n_epochs=3, batch_size=256, learning_rate=3e-3)
+    assert [op for op, _ in FM.canonicalize_transform(
+        asp.flow.data_transform, 4).ops] == ["logit", "affine"]
+    host, hh, hs = _run(asp, device_ladder=False)
+    dev, dh, ds = _run(asp, device_ladder=True)
+    assert hs.ladder is None and ds.ladder is not None
+    assert dh.mutation_route == hh.mutation_route == (
+        ["fused_kernel"] * len(hh.beta))
+    assert dh.beta[-1] == 1.0 and len(dh.beta) > 1
+    for name in HISTORY:
+        assert getattr(dh, name) == getattr(hh, name), name
+    assert torch.equal(dev.x, host.x)
+    assert dev.log_evidence == host.log_evidence
+
+
+def test_ladder_cache_compares_the_data_transform_tensors():
+    """What the card's ladder cache compares besides the flow's parameters
+    (on the B2 route and the split route alike, whose graph reads the
+    transform through the flow's density): every tensor the flow's data
+    transform holds, its sub-transforms' too; a refit gives the affine map
+    new tensors, so a refitted transform no longer matches."""
+    from aspire_tpu_torch.transforms import CompositeTransform
+
+    x = torch.as_tensor(np.random.default_rng(5).uniform(-5, 5, (200, 3)))
+    names = ["a", "b", "c"]
+    t = CompositeTransform(parameters=names, periodic_parameters=["a"],
+                           prior_bounds={k: [-6.0, 6.0] for k in names},
+                           bounded_transform="logit", device="cpu",
+                           dtype=torch.float64)
+    def ids(tensors):
+        return [id(v) for v in tensors]
+
+    # the periodic and logit maps' bounds, the masks' index tensors
+    held = TSMC._tensors_of(t)
+    assert len(held) == 6
+    assert set(ids(held)) >= set(ids([
+        t._periodic_transform.lower, t._bounded_transform.upper,
+        t._periodic_index, t._bounded_index]))
+    t.fit(x)
+    fitted = TSMC._tensors_of(t)
+    mean, std = t._affine_transform._mean, t._affine_transform._std
+    assert len(fitted) == 8
+    assert set(ids(fitted)) == set(ids(held)) | {id(mean), id(std)}
+    t.fit(x + 1.0)
+    assert id(mean) not in ids(TSMC._tensors_of(t))
+    assert TSMC._tensors_of(None) == []
+
+
 @pytest.fixture(scope="module")
 def jax_fit():
     p = JMixture(dims=4)

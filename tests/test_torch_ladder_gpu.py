@@ -83,3 +83,53 @@ def test_the_ladder_cache_keeps_one_ladder(cuda):
 def test_a_target_that_reads_back_takes_the_host_ladder(cuda):
     out = chip_smoke.phase_uncapturable_target(cuda, 8192)
     assert out["auto"] == "host" and out["forced"] == "ValueError"
+
+
+@pytest.mark.parametrize("fused_chain", ["auto", False])
+def test_refitted_data_transform_recaptures(cuda, fused_chain):
+    """The bounded run's ladder reads its data transform, through B2's
+    program or (``fused_chain=False``) the flow's density: a second run
+    with the same transform replays the cached ladder, a run after the
+    transform is refitted (new mean and std tensors) captures a new one,
+    which gives a freshly made ladder's population and, on B2, the host
+    ladder's (the split route's ladders agree on log Z only, as
+    ``chip_smoke.ladder_turns`` reads them)."""
+    _, asp = chip_smoke.bounded_aspire(cuda)
+    run = dict(sampler="smc", n_samples=8192, store_sample_history=False,
+               sampler_kwargs=dict(n_steps=5, fused_chain=fused_chain))
+
+    def device_run():
+        post = asp.sample_posterior(**run)
+        (_, ladder), = asp.ladder_cache.values()
+        return post, ladder
+
+    _, first = device_run()
+    _, again = device_run()
+    assert again is first
+    x = asp.flow.data_transform.inverse(
+        torch.randn((4000, 4), device=cuda))[0]
+    asp.flow.data_transform.fit(x)
+    post, refit = device_run()
+    assert refit is not first
+    asp.ladder_cache.clear()
+    fresh, _ = device_run()
+    assert torch.equal(post.x, fresh.x)
+    if fused_chain == "auto":
+        host = asp.sample_posterior(**run, device_ladder=False)
+        assert torch.equal(post.x, host.x)
+
+
+def test_bounded_split_chain_is_captured(cuda):
+    """A bounded run on the split chain (``fused_chain=False``, or any MAF
+    flow) takes the device ladder: its data transform's masked dims index
+    by device tensors, so the rung's graph captures (indexing by a numpy
+    mask copied it to the card at every call, which no graph can
+    capture)."""
+    p, asp = chip_smoke.bounded_aspire(cuda)
+    post = asp.sample_posterior(
+        sampler="smc", n_samples=8192, store_sample_history=False,
+        sampler_kwargs=dict(n_steps=5, fused_chain=False))
+    assert asp.sampler.ladder is not None
+    assert asp.sampler.ladder.graph is not None
+    assert set(asp.sampler.history.mutation_route) == {"split"}
+    chip_smoke.check_result(post, 8192, p.true_log_evidence)

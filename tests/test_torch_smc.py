@@ -195,3 +195,21 @@ def test_unported_sampler_options_raise(name):
                           prior_flow=None, device="cpu")
     with pytest.raises(NotImplementedError, match=name):
         sampler.sample(64, sampler_kwargs={name: True})
+
+
+@pytest.mark.parametrize("where", ["Aspire", "sample_posterior"])
+@pytest.mark.parametrize("name,value", [("prng_impl", "rbg"),
+                                        ("resampling_impl", "ring")])
+def test_unported_impl_options_raise(name, value, where):
+    """``prng_impl`` and ``resampling_impl`` are in no signature of the
+    port: given to ``Aspire`` (which hands unknown keywords to the flow)
+    or to ``sample_posterior``, they raise instead of being dropped."""
+    p = GaussianMixtureProblem(dims=2)
+    init = Samples(p.draw_initial_samples(np.random.default_rng(0), 64))
+    kw = {name: value}
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=2, device="cpu", flow_backend="nsf",
+                 **(kw if where == "Aspire" else {}))
+    with pytest.raises(TypeError, match=name):
+        asp.fit(init, n_epochs=1, batch_size=32)
+        asp.sample_posterior(sampler="smc", n_samples=256, **kw)

@@ -79,17 +79,3 @@ def test_flow_transform_converts_from_jax():
     _close(yt, yj)
     _close(lt, lj)
 
-
-def test_affine_state_for_the_kernels():
-    """Only an identity or a fitted affine-only transform reaches the
-    in-kernel data transform."""
-    x = torch.as_tensor(_x()[:, 2:])
-    flow_t = TT.FlowTransform(parameters=["c", "d"], dtype="float64")
-    assert flow_t.affine_only
-    flow_t.fit(x)
-    mean, std = TT.affine_state(flow_t)
-    torch.testing.assert_close(mean, x.mean(0))
-    assert TT.affine_state(TT.IdentityTransform()) is None
-    bounded = TT.FlowTransform(parameters=PARAMS, prior_bounds=BOUNDS)
-    with pytest.raises(LookupError):
-        TT.affine_state(bounded)
