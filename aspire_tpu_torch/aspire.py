@@ -76,16 +76,11 @@ class Aspire:
         self.ladder_cache: dict = {}
 
     def init_flow(self) -> None:
+        """The flow, and its data transform in the flow's dtype: with
+        ``dtype=None`` the flow's float32, not the float64 of the prior
+        bounds as given, so its density is float32 on every route (as the
+        whole-chain kernel's programs, lowered to float32, compute it)."""
         FlowClass = get_flow_class(self.flow_backend)
-        data_transform = FlowTransform(
-            parameters=self.parameters,
-            prior_bounds=self.prior_bounds,
-            bounded_to_unbounded=self.bounded_to_unbounded,
-            bounded_transform=self.bounded_transform,
-            eps=self.eps,
-            dtype=self.dtype,
-            device=self.device,
-        )
         flow_kwargs = dict(self.flow_kwargs)
         flow_kwargs.setdefault(
             "architecture", default_architecture_for_backend(self.flow_backend))
@@ -93,8 +88,17 @@ class Aspire:
             flow_kwargs.setdefault("dtype", str(self.dtype))
         if self.seed is not None:
             flow_kwargs.setdefault("seed", self.seed)
-        self.flow = FlowClass(dims=self.dims, data_transform=data_transform,
-                              device=self.device, **flow_kwargs)
+        self.flow = FlowClass(dims=self.dims, device=self.device,
+                              **flow_kwargs)
+        self.flow.data_transform = FlowTransform(
+            parameters=self.parameters,
+            prior_bounds=self.prior_bounds,
+            bounded_to_unbounded=self.bounded_to_unbounded,
+            bounded_transform=self.bounded_transform,
+            eps=self.eps,
+            dtype=self.flow.dtype,
+            device=self.device,
+        )
 
     def fit(self, samples: Samples, **kwargs: Any) -> FlowHistory:
         """Fit the flow proposal to existing posterior samples."""

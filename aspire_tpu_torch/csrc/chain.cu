@@ -38,6 +38,10 @@
 //   adapts on their mean acceptance probability) and the Philox tile (a
 //   particle's counter holds threadIdx.x and blockIdx.x). The per-step tile
 //   sum takes one barrier (two scratch rows, used in turn).
+// - The chain state is d floats a particle at any d; at an odd d (the
+//   funnel's validation row, d = 5) only the flow pads a layer's halves
+//   to (d + 1) / 2 dims (coupling_mma.cuh), the Philox rows, the programs
+//   and the target run at the true d.
 // - Shapes whose layers the whole-layer pass cannot hold (MmaShape::WIDE:
 //   BASELINE config 5's d = 32, 6 x (128, 128) flow, 1.6 MB of weights)
 //   take chain_kernel_wide: the same chain with its state in shared memory
@@ -51,7 +55,17 @@ namespace aspire {
 constexpr int kTile = 256;          // particles per block: one tile
 constexpr int kWarps = kTile / 32;  // each warp: two 16-row mma tiles
 enum ChainKernel { kTPCN = 0, kPCN = 1, kRWMH = 2 };
-enum TargetId { kGaussianMixture = 1, kGaussian = 2, kHierarchical = 3 };
+enum TargetId {
+  kGaussianMixture = 1,
+  kGaussian = 2,
+  kHierarchical = 3,
+  kRosenbrock = 4,
+  kFunnel = 5
+};
+// The last target id a configuration compiles (ASPIRE_CHAIN_CONFIGS'
+// TARGETS column: all of them, or the first three, which keeps the d = 4
+// and d = 32 kernels the code they had before ids 4 and 5).
+constexpr int kLastTarget[2] = {kHierarchical, kFunnel};
 
 // A transform program (fused_mutation.py's TDProgram, lowered by
 // program_block): per dimension an op code (ProgOp: periodic wrap, logit or
@@ -313,10 +327,30 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
   return m + log1pf(expf(-fabsf(a - b)));
 }
 
+// The Gaussian target: c = [mu, sigma, lower, upper].
+template <int D, class X>
+__device__ __forceinline__ void gaussian_target(const float* c, const X& x,
+                                                float& lpi, float& ll) {
+  const float mu = c[0], sigma = c[1], lower = c[2], upper = c[3];
+  float acc = 0.f;
+  bool inside = true;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    const float r = (x[i] - mu) / sigma;
+    acc += -0.5f * r * r - 0.5f * logf(6.28318530717958648f * sigma * sigma);
+    inside = inside && (x[i] >= lower) && (x[i] <= upper);
+  }
+  ll = acc;
+  lpi = inside ? -D * logf(upper - lower) : -INFINITY;
+}
+
 // In-kernel targets (models/targets.py carries the ids and constants); x
 // is anything x[i] reads coordinate i of (a register array, or a Strided
-// view of shared memory).
-template <int D, class X>
+// view of shared memory). TARGETS (ASPIRE_CHAIN_CONFIGS): with 0 the ids
+// up to kHierarchical, with 1 also kRosenbrock and kFunnel, whose
+// arithmetic follows the torch version's order (its constant terms formed
+// once: log 2 pi scale^2, log 2 pi prior_scale^2, d log width).
+template <int D, int TARGETS, class X>
 __device__ __forceinline__ void target_densities(int id, const float* c,
                                                  const X& x, float& lpi,
                                                  float& ll) {
@@ -356,19 +390,47 @@ __device__ __forceinline__ void target_densities(int id, const float* c,
     // 0.5 log(2 pi 25) = 2.5283764456...
     lpi = (-0.5f * mm * mm - 2.52837644563877295f) +
           (-0.5f * s * s - kHalfLog2Pi) + lth;
-  } else {
-    // c = [mu, sigma, lower, upper]
-    const float mu = c[0], sigma = c[1], lower = c[2], upper = c[3];
-    float acc = 0.f;
-    bool inside = true;
+  } else if constexpr (TARGETS == 1) {
+    if (id == kRosenbrock) {
+      // c = [lower, upper]: -sum 100 (x_{i+1} - x_i^2)^2 + (1 - x_i)^2, on
+      // the closed box.
+      const float lower = c[0], upper = c[1];
+      float acc = 0.f;
+      bool inside = true;
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      const float r = (x[i] - mu) / sigma;
-      acc += -0.5f * r * r - 0.5f * logf(6.28318530717958648f * sigma * sigma);
-      inside = inside && (x[i] >= lower) && (x[i] <= upper);
+      for (int i = 0; i < D; ++i) {
+        if (i + 1 < D) {
+          const float r = x[i + 1] - x[i] * x[i];
+          const float q = 1.f - x[i];
+          acc += 100.f * (r * r) + q * q;
+        }
+        inside = inside && (x[i] >= lower) && (x[i] <= upper);
+      }
+      ll = -acc;
+      lpi = inside ? -D * logf(upper - lower) : -INFINITY;
+    } else if (id == kFunnel) {
+      // c = [scale, prior_scale]; x = [v, rest]: v ~ N(0, scale^2),
+      // rest ~ N(0, e^v); every coordinate ~ N(0, prior_scale^2) in the
+      // prior. exp(-v) overflows below v ~ -88: -inf, or NaN -> -inf.
+      const float scale = c[0], ps = c[1], v = x[0];
+      float rest = 0.f, q = 0.f;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        const float r = x[i] / ps;
+        q += r * r;
+        if (i > 0) rest += x[i] * x[i];
+      }
+      const float a = v / scale;
+      ll = (-0.5f * (a * a) -
+            0.5f * logf(6.28318530717958648f * (scale * scale))) +
+           (-0.5f * rest * expf(-v) - 0.5f * (D - 1) * (log2pi + v));
+      lpi = -0.5f * q -
+            D * (0.5f * logf(6.28318530717958648f * (ps * ps)));
+    } else {
+      gaussian_target<D>(c, x, lpi, ll);
     }
-    ll = acc;
-    lpi = inside ? -D * logf(upper - lower) : -INFINITY;
+  } else {
+    gaussian_target<D>(c, x, lpi, ll);
   }
   lpi = nan_to_neg_inf(lpi);
   ll = nan_to_neg_inf(ll);
@@ -401,7 +463,7 @@ __device__ __forceinline__ float tile_sum(float v, float* scratch,
 // constant block where they are used, so that no register holds them
 // across the flow. Without, the data transform is the affine map or none
 // (ChainArgs::programs), dt_lj its log-Jacobian, and x = z.
-template <int D, int H1, int H2, int K, bool PROGS>
+template <int D, int H1, int H2, int K, bool PROGS, int TARGETS>
 __device__ __forceinline__ void tempered(const ChainArgs& a,
                                          const float* __restrict__ w,
                                          const float* __restrict__ c,
@@ -411,7 +473,9 @@ __device__ __forceinline__ void tempered(const ChainArgs& a,
                                          float& ll) {
   using C = Consts<D>;
   using P = Prog<D>;
-  float f[D];
+  using S = MmaShape<D, H1, H2, K, true>;
+  float f[S::DP];  // and the flow's padding slot at an odd D, 0
+  if constexpr (S::DP > D) f[D] = 0.f;
   float ld = 0.f;
   if constexpr (PROGS) {
 #pragma unroll
@@ -427,8 +491,7 @@ __device__ __forceinline__ void tempered(const ChainArgs& a,
                  : z[i];
     }
   }
-  flow_density<MmaShape<D, H1, H2, K, true>>(w, a.n_layers, a.tail_bound,
-                                             buf, lane, f, ld);
+  flow_density<S>(w, a.n_layers, a.tail_bound, buf, lane, f, ld);
   float zz = 0.f;
 #pragma unroll
   for (int i = 0; i < D; ++i) zz += f[i] * f[i];
@@ -441,10 +504,10 @@ __device__ __forceinline__ void tempered(const ChainArgs& a,
     for (int i = 0; i < D; ++i) x[i] = z[i];
     float pc_lj = 0.f;
     if (precond) pc_lj = c[C::LOG_J + 1] + td_apply<D, true>(c + C::PC, z, x);
-    target_densities<D>(a.target_id, c + C::TARGET, x, lpi, ll);
+    target_densities<D, TARGETS>(a.target_id, c + C::TARGET, x, lpi, ll);
     lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi) + pc_lj);
   } else {
-    target_densities<D>(a.target_id, c + C::TARGET, z, lpi, ll);
+    target_densities<D, TARGETS>(a.target_id, c + C::TARGET, z, lpi, ll);
     lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi));
   }
 }
@@ -481,7 +544,7 @@ __device__ __forceinline__ float mahal2(const float* __restrict__ c,
   return r2;
 }
 
-template <int D, int H1, int H2, int K, bool RQS, bool PROGS>
+template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS>
 __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
   static_assert(RQS, "the chain kernel's flow is a neural spline flow");
   using S = MmaShape<D, H1, H2, K, true>;
@@ -510,8 +573,8 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
     prev[i] = s1[i] = s2[i] = c1[i] = 0.f;
   }
   float lp, lq, lpi, ll;
-  tempered<D, H1, H2, K, PROGS>(a, w, c, buf, lane, dt_lj, x, lp, lq, lpi,
-                                ll);
+  tempered<D, H1, H2, K, PROGS, TARGETS>(a, w, c, buf, lane, dt_lj, x, lp,
+                                         lq, lpi, ll);
   float r2 = (a.kernel == kRWMH) ? 0.f : mahal2<D>(c, x);
   float s = a.step0[blockIdx.x];
   float nacc = 0.f;
@@ -583,8 +646,8 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
                                 : alpha_g * logf((a.nu + r2n) / (a.nu + r2));
     }
     float lp_p, lq_p, lpi_p, ll_p;
-    tempered<D, H1, H2, K, PROGS>(a, w, c, buf, lane, dt_lj, xp, lp_p, lq_p,
-                                  lpi_p, ll_p);
+    tempered<D, H1, H2, K, PROGS, TARGETS>(a, w, c, buf, lane, dt_lj, xp,
+                                           lp_p, lq_p, lpi_p, ll_p);
     const float log_alpha = nan_to_neg_inf(lp_p - lp + corr);
     const float acc_p = expf(fminf(log_alpha, 0.f));
     const bool accept = u_acc < acc_p;
@@ -661,7 +724,7 @@ struct Strided {
 // target at the data-space point, which a preconditioned run writes into
 // the row again once the pass has read it (no register holds it across
 // the pass). Without PROGS, as tempered's.
-template <class S, int D, bool PROGS>
+template <class S, int D, bool PROGS, int TARGETS>
 __device__ __forceinline__ void tempered_wide(
     const ChainArgs& a, WideStream<S>& ws, const float* __restrict__ c,
     float* __restrict__ F, float* __restrict__ pb, int lane, float dt_lj,
@@ -694,10 +757,10 @@ __device__ __forceinline__ void tempered_wide(
   const float beta = c[C::BETA];
   if (PROGS && prog_flags<D>(c + C::PC)) {
     const float pc_lj = c[C::LOG_J + 1] + td_apply<D, true>(c + C::PC, zs, f);
-    target_densities<D>(a.target_id, c + C::TARGET, f, lpi, ll);
+    target_densities<D, TARGETS>(a.target_id, c + C::TARGET, f, lpi, ll);
     lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi) + pc_lj);
   } else {
-    target_densities<D>(a.target_id, c + C::TARGET, zs, lpi, ll);
+    target_densities<D, TARGETS>(a.target_id, c + C::TARGET, zs, lpi, ll);
     lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi));
   }
 }
@@ -714,7 +777,7 @@ __device__ __forceinline__ void tempered_wide(
 // flow's weights stream through the block per pass (WideStream). Shared
 // memory: constants, two [D][kTile] arrays, the stream's slots and the
 // warps' buffers: 189,136 B at d = 32, one block per SM.
-template <int D, int H1, int H2, int K, bool RQS, bool PROGS>
+template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS>
 __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
   using S = MmaShape<D, H1, H2, K, true>;
   using C = Consts<D>;
@@ -748,8 +811,8 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
   }
   const Strided x{X + tid}, xp{XP + tid};
   float lp, lq, lpi, ll;
-  tempered_wide<S, D, PROGS>(a, ws, c, F, pb, lane, dt_lj, x, lp, lq, lpi,
-                             ll);
+  tempered_wide<S, D, PROGS, TARGETS>(a, ws, c, F, pb, lane, dt_lj, x, lp,
+                                      lq, lpi, ll);
   float r2 = (a.kernel == kRWMH) ? 0.f : mahal2<D>(c, x);
   float s = a.step0[blockIdx.x];
   float nacc = 0.f;
@@ -814,8 +877,8 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
                                 : alpha_g * logf((a.nu + r2n) / (a.nu + r2));
     }
     float lp_p, lq_p, lpi_p, ll_p;
-    tempered_wide<S, D, PROGS>(a, ws, c, F, pb, lane, dt_lj, xp, lp_p, lq_p,
-                               lpi_p, ll_p);
+    tempered_wide<S, D, PROGS, TARGETS>(a, ws, c, F, pb, lane, dt_lj, xp,
+                                        lp_p, lq_p, lpi_p, ll_p);
     const float log_alpha = nan_to_neg_inf(lp_p - lp + corr);
     const float acc_p = expf(fminf(log_alpha, 0.f));
     const bool accept = u_acc < acc_p;
@@ -872,7 +935,7 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
   }
 }
 
-template <int D, int H1, int H2, int K, bool RQS>
+template <int D, int H1, int H2, int K, bool RQS, int TARGETS>
 int launch_chain(const ChainArgs& a, cudaStream_t stream) {
   using S = MmaShape<D, H1, H2, K, true>;
   // Every layer's weights, or (wide) two [D][kTile] arrays and the
@@ -881,14 +944,15 @@ int launch_chain(const ChainArgs& a, cudaStream_t stream) {
                                : (size_t)a.n_layers * S::SIZE;
   const size_t smem = sizeof(float) * (state + Consts<D>::SIZE + 2 * kWarps +
                                        kWarps * S::STAGE);
+  if (a.target_id < 1 || a.target_id > kLastTarget[TARGETS]) return -3;
   const bool progs = a.programs == kPrograms;
   void (*kernel)(ChainArgs);
   if constexpr (S::WIDE) {
-    kernel = progs ? chain_kernel_wide<D, H1, H2, K, RQS, true>
-                   : chain_kernel_wide<D, H1, H2, K, RQS, false>;
+    kernel = progs ? chain_kernel_wide<D, H1, H2, K, RQS, true, TARGETS>
+                   : chain_kernel_wide<D, H1, H2, K, RQS, false, TARGETS>;
   } else {
-    kernel = progs ? chain_kernel<D, H1, H2, K, RQS, true>
-                   : chain_kernel<D, H1, H2, K, RQS, false>;
+    kernel = progs ? chain_kernel<D, H1, H2, K, RQS, true, TARGETS>
+                   : chain_kernel<D, H1, H2, K, RQS, false, TARGETS>;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -909,7 +973,7 @@ int aspire_chain_tile() { return aspire::kTile; }
 // floats, into out (up to capacity entries).
 // Returns their number, or -1 for a d no chain configuration has.
 int aspire_consts_layout(int dims, int* out, int capacity) {
-#define ASPIRE_CONSTS_CASE(ID, D, H1, H2, K, RQS)                       \
+#define ASPIRE_CONSTS_CASE(ID, D, H1, H2, K, RQS, TARGETS)                       \
   if (dims == D) {                                                     \
     using C = aspire::Consts<D>;                                       \
     const int v[] = {C::DT,   C::PC,    C::TARGET, C::BETA,            \
@@ -929,7 +993,7 @@ int aspire_consts_layout(int dims, int* out, int capacity) {
 // part and chunk (0 for the whole-layer form), into out (up to capacity
 // entries). Returns their number, or -1 for an unknown configuration.
 int aspire_chain_layout(int config, int* out, int capacity) {
-#define ASPIRE_CHAIN_LAYOUT_CASE(ID, D, H1, H2, K, RQS)                  \
+#define ASPIRE_CHAIN_LAYOUT_CASE(ID, D, H1, H2, K, RQS, TARGETS)                  \
   if (config == ID) {                                                   \
     using S = aspire::MmaShape<D, H1, H2, K, true>;                     \
     const int v[] = {S::SIZE, S::W1,  S::B1,    S::W2,                  \
@@ -944,9 +1008,11 @@ int aspire_chain_layout(int config, int* out, int capacity) {
   return -1;
 }
 
-// Returns the launch's cudaError_t; -1 for an unknown configuration and
-// -2 when n is not a multiple of the tile. scratch: 3 * D * n floats for a
-// wide configuration (MmaShape::WIDE), else unused. beta (one float) and
+// Returns the launch's cudaError_t; -1 for an unknown configuration, -2
+// when n is not a multiple of the tile and -3 for a target id the
+// configuration does not compile (ASPIRE_CHAIN_CONFIGS' TARGETS).
+// scratch: 3 * D * n floats for a wide configuration (MmaShape::WIDE),
+// else unused. beta (one float) and
 // seed (two 64-bit integers, each read as its low 32 bits) are device
 // memory, read when the kernel runs.
 int aspire_chain(const float* z0, const float* weights, const float* consts,
@@ -965,8 +1031,10 @@ int aspire_chain(const float* z0, const float* weights, const float* consts,
                       target_acc, adapt_rate, max_log_step, tail_bound,
                       beta, seed};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ASPIRE_CHAIN_CASE(ID, D, H1, H2, K, RQS) \
-  if (config == ID) return aspire::launch_chain<D, H1, H2, K, RQS>(a, s);
+#define ASPIRE_CHAIN_CASE(ID, D, H1, H2, K, RQS, TARGETS) \
+  if (config == ID) {                                     \
+    return aspire::launch_chain<D, H1, H2, K, RQS, TARGETS>(a, s); \
+  }
   ASPIRE_CHAIN_CONFIGS(ASPIRE_CHAIN_CASE)
 #undef ASPIRE_CHAIN_CASE
   return -1;

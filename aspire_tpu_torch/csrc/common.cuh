@@ -220,19 +220,28 @@ __device__ __forceinline__ void load_shared(float4* dst,
 }  // namespace aspire
 
 // Coupling-flow kernel configurations compiled into the library: (id, D,
-// H1, H2, K, RQS), D even and hidden widths multiples of 8 (coupling_mma.cuh
-// MmaShape). ops/fused_coupling.py::KERNEL_CONFIGS mirrors this list.
-// Configuration 2 is BASELINE config 5's flow (nsf, 6 x (128, 128) at
-// d = 32; depth is no part of a configuration).
+// H1, H2, K, RQS), hidden widths multiples of 8 (coupling_mma.cuh
+// MmaShape; an odd D pads each half of a layer to (D + 1) / 2 dims).
+// ops/fused_coupling.py::KERNEL_CONFIGS mirrors this list. Configuration 2
+// is BASELINE config 5's flow (nsf, 6 x (128, 128) at d = 32; depth is no
+// part of a configuration); 3 and 4 are nsf-tpu at d = 2 and d = 5, the
+// JAX package's validation rows (Rosenbrock, Neal's funnel).
 #define ASPIRE_COUPLING_CONFIGS(X) \
   X(0, 4, 64, 64, 8, true)         \
   X(1, 4, 64, 64, 1, false)        \
-  X(2, 32, 128, 128, 8, true)
+  X(2, 32, 128, 128, 8, true)      \
+  X(3, 2, 64, 64, 8, true)         \
+  X(4, 5, 64, 64, 8, true)
 
-// Configurations of the whole-chain kernel (a subset of the above).
-#define ASPIRE_CHAIN_CONFIGS(X) \
-  X(0, 4, 64, 64, 8, true)      \
-  X(2, 32, 128, 128, 8, true)
+// Configurations of the whole-chain kernel (a subset of the above), with
+// the in-kernel targets each compiles (TARGETS, chain.cu kLastTarget: 0
+// for ids 1-3, 1 for ids 1-5). ops/fused_mutation.py::CHAIN_CONFIGS
+// mirrors this list.
+#define ASPIRE_CHAIN_CONFIGS(X)  \
+  X(0, 4, 64, 64, 8, true, 0)    \
+  X(2, 32, 128, 128, 8, true, 0) \
+  X(3, 2, 64, 64, 8, true, 1)    \
+  X(4, 5, 64, 64, 8, true, 1)
 
 // Configurations of the MAF-RQS density kernel (maf.cu, whose MafShape is
 // the packed layout): (id, D, H1, H2, K), hidden widths multiples of 8.

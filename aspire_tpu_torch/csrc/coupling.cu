@@ -34,6 +34,12 @@
 //   take coupling_kernel_wide: each layer streamed in chunks of W2 and W3
 //   through two shared slots, one row tile and one group of two active
 //   dims at a time (coupling_mma.cuh, coupling_layer_wide).
+// - Odd d (nsf-tpu at d = 5, the funnel's validation row) pads both halves
+//   of a layer to (d + 1) / 2 dims with a zero-weight slot; its output
+//   layer goes one active dim at a time (MmaShape::BY_DIM), which keeps a
+//   thread's accumulators at 88 floats, and its block (150 KB of shared
+//   memory) takes an SM alone, with 255 registers a thread
+//   (CouplingBlocks).
 
 #include "coupling_mma.cuh"
 
@@ -51,8 +57,22 @@ __device__ __forceinline__ void copy_layer(float* dst,
   }
 }
 
+// Blocks of coupling_kernel an SM holds at the most warps: two where two
+// fit its shared memory (228 KB, 1 KB reserved a block), capping a thread
+// at 128 registers, else one, which leaves it 255 (nsf-tpu at d = 5, whose
+// 128-register build spilled 1.2-2 KB).
+template <class S>
+struct CouplingBlocks {
+  static constexpr int PER_SM =
+      2 * (4 * (2 * S::SIZE + kCouplingWarps * S::STAGE) + 1024) <= 233472
+          ? 2
+          : 1;
+};
+
 template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
-__global__ void __launch_bounds__(32 * kCouplingWarps, 2)
+__global__ void __launch_bounds__(
+    32 * kCouplingWarps,
+    CouplingBlocks<MmaShape<D, H1, H2, K, RQS>>::PER_SM)
     coupling_kernel(const float* __restrict__ x, float* __restrict__ z,
                     float* __restrict__ log_det,
                     const float* __restrict__ weights, int n, int n_layers,
@@ -68,9 +88,10 @@ __global__ void __launch_bounds__(32 * kCouplingWarps, 2)
   // (sampling), from buffer s & 1.
   copy_layer<S>(layers,
                 weights + (size_t)(DENSITY ? 0 : n_layers - 1) * S::SIZE);
-  float f[D];
+  float f[S::DP];
 #pragma unroll
   for (int i = 0; i < D; ++i) f[i] = live ? x[(size_t)p * D + i] : 0.f;
+  if constexpr (S::DP > D) f[D] = 0.f;  // the padding slot
   float ld = 0.f;
 #pragma unroll 1
   for (int step = 0; step < n_layers; ++step) {

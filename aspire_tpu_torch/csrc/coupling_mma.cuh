@@ -11,15 +11,22 @@
 // (ops/fused_coupling.py::split_tf32_sum), so their split is exact, and are
 // stored in the mma B-fragment order with the k order that makes one
 // product's accumulator the next one's A fragment: h1 and h2 never leave
-// the warp's registers. W1 (the D/2 conditioning inputs) stays on FP32
+// the warp's registers. W1 (the C conditioning inputs) stays on FP32
 // FMAs; the inputs reach the fragment rows by warp shuffles. The
 // transformer parameters go from the accumulator fragments to their
 // particle's thread through a per-warp shared buffer, and each thread runs
-// the D/2 transformers (rqs or affine of common.cuh) of its own particle.
+// the A transformers (rqs or affine of common.cuh) of its own particle.
 //
 // That whole-layer form keeps a layer's weights in shared memory and the
-// warp's two row tiles of h2 and of the output in registers. Where those
-// do not fit (MmaShape::WIDE: BASELINE config 5's d = 32, (128, 128) flow
+// warp's two row tiles of h2 and of the output in registers. Where the
+// output's accumulators would push a thread past 128 floats (MmaShape::
+// BY_DIM: nsf-tpu at d = 5), it computes the output layer one active dim's
+// parameter group at a time into the warp's buffer, then the transformers
+// (h2 is dead by then, as in the one-pass output).
+// At an odd D both halves take (D + 1) / 2 dims: the last slot of an odd
+// layer's active half and of an even layer's conditioning half is dim D,
+// a padding slot (zero weights, read as 0, never transformed). Where
+// those do not fit (MmaShape::WIDE: BASELINE config 5's d = 32, (128, 128) flow
 // needs 273 KB per layer and 512 accumulator floats per thread), the wide
 // form (coupling_layer_wide) streams each layer through the block's
 // shared memory in chunks, takes one 16-row tile at a time, computes the
@@ -34,8 +41,9 @@ namespace aspire {
 
 // Packed weight layout (built by ops/fused_coupling.py::prepare_mma_params),
 // per coupling layer, every section starting on a multiple of 4 floats.
-// Layer l transforms the A = D/2 active dims 2a + (l & 1), conditioned on
-// the C = D/2 dims 2c + 1 - (l & 1):
+// Layer l transforms the A = (D + 1) / 2 active dims 2a + (l & 1),
+// conditioned on the C = (D + 1) / 2 dims 2c + 1 - (l & 1) (at an odd D,
+// the slot whose dim is D has zero weights):
 //   W1  (H1 x C)            W1[u*C + c] = w0[conditioning dim c][u]
 //   b1  (H1)
 //   W2  KS1 x KS2 fragments k-step s, n-tile j at index s * KS2 + j
@@ -55,24 +63,31 @@ namespace aspire {
 // at index (q * KS2 + s) * NG + m (NG = GD * G / 8 n-tiles per group).
 template <int D_, int H1_, int H2_, int K_, bool RQS_>
 struct MmaShape {
-  static_assert(D_ % 2 == 0, "the tensor-core pass takes an even dimension");
   static_assert(H1_ % 8 == 0 && H2_ % 8 == 0, "hidden widths must be /8");
   static constexpr int D = D_, H1 = H1_, H2 = H2_, K = K_;
   static constexpr bool RQS = RQS_;
-  static constexpr int A = D / 2;
-  static constexpr int C = D / 2;
+  // Active and conditioning dims of a layer, with the padding slot at an
+  // odd D; DP floats hold a particle's coordinates and that slot.
+  static constexpr int A = (D + 1) / 2;
+  static constexpr int C = (D + 1) / 2;
+  static constexpr int DP = 2 * A;
   static constexpr int P = RQS ? 3 * K - 1 : 2;
   static constexpr int G = (P + 7) / 8 * 8;
   static constexpr int OUT = A * G;
   static constexpr int KS1 = H1 / 8;  // k-steps of W2
   static constexpr int KS2 = H2 / 8;  // n-tiles of W2, k-steps of W3
   static constexpr int NT = OUT / 8;  // n-tiles of W3
+  static constexpr int NTD = G / 8;   // n-tiles of one active dim's group
   // The whole-layer form holds acc[2][KS2][4] and out[2][NT][4] per
-  // thread; past 128 floats the shape takes the wide form.
-  static constexpr bool WIDE = 8 * (KS2 + NT) > 128;
+  // thread; past 128 floats it takes the output one dim at a time
+  // (BY_DIM: out[2][NTD][4]; 88 floats at d = 5, against 136), and where
+  // that passes 128 too the shape takes the wide form.
+  static constexpr bool WIDE = 8 * (KS2 + NTD) > 128;
+  static constexpr bool BY_DIM = !WIDE && 8 * (KS2 + NT) > 128;
   static constexpr int GD = 2;           // active dims per output group
   static constexpr int NG = GD * G / 8;  // n-tiles per group
-  static_assert(!WIDE || A % GD == 0, "the wide form takes D/2 even");
+  static_assert(!WIDE || (D % 2 == 0 && A % GD == 0),
+                "the wide form takes D/2 even");
   static constexpr int W1 = 0;
   static constexpr int B1 = round4(W1 + H1 * C);
   static constexpr int W2 =
@@ -206,6 +221,58 @@ __device__ __forceinline__ void mma_split_step(float (&d)[4],
   for (int i = 0; i < 4; ++i) d[i] += s[i];
 }
 
+// The output layer's columns of active dim a (its G parameters) for the
+// warp's two row tiles, from h2 in acc (conditioner_mma's), to
+// buf[p * ROW + a * G + q] for row p: the products of conditioner_mma's
+// one-pass output layer for those columns, in its order, so they give its
+// bits.
+template <class S>
+__device__ __forceinline__ void output_dim_mma(
+    const float* __restrict__ w, const float (&acc)[2][S::KS2][4], int a,
+    float* __restrict__ buf, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float out[2][S::NTD][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int n = 0; n < S::NTD; ++n) {
+      out[m][n][0] = out[m][n][1] = out[m][n][2] = out[m][n][3] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S::KS2; ++s) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      split_tf32(acc[m][s][0], ah[m][0], al[m][0]);
+      split_tf32(acc[m][s][2], ah[m][1], al[m][1]);
+      split_tf32(acc[m][s][1], ah[m][2], al[m][2]);
+      split_tf32(acc[m][s][3], ah[m][3], al[m][3]);
+    }
+#pragma unroll
+    for (int n = 0; n < S::NTD; ++n) {
+      const WeightFragment b(
+          w + S::W3 + 64 * (s * S::NT + a * S::NTD + n) + 2 * lane);
+      mma_split_step(out[0][n], ah[0], al[0], b);
+      mma_split_step(out[1][n], ah[1], al[1], b);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < S::NTD; ++n) {
+    const int q = 8 * n + 2 * t;
+    const float2 bias =
+        *reinterpret_cast<const float2*>(w + S::B3 + a * S::G + q);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int row = 16 * m + g;
+      *reinterpret_cast<float2*>(buf + row * S::ROW + a * S::G + q) =
+          make_float2(out[m][n][0] + bias.x, out[m][n][1] + bias.y);
+      *reinterpret_cast<float2*>(buf + (row + 8) * S::ROW + a * S::G + q) =
+          make_float2(out[m][n][2] + bias.x, out[m][n][3] + bias.y);
+    }
+  }
+}
+
 // The conditioner of one coupling layer for T row tiles of 16 particles
 // (T = 2: a warp's 32). Lane 4g + t brings u[r][c], conditioning input c
 // of row g + 8r (row tile r / 2), and gets, as does every lane, the rows
@@ -214,11 +281,15 @@ __device__ __forceinline__ void mma_split_step(float (&d)[4],
 // whose B fragments each k-step reads once for all of them; with PAIRED
 // (T = 2) row tile 1 runs another layer, at w1, and reads its own: two
 // independent chains of products in one k-loop.
+//
+// BY_DIM (T = 2, not PAIRED): the output layer one active dim's G columns
+// at a time (output_dim_mma), the first `live` dims only (a padding slot
+// last is skipped).
 template <class S, int T = 2, bool PAIRED = false>
 __device__ __forceinline__ void conditioner_mma(
     const float* __restrict__ w, const float (&u)[2 * T][S::C],
     float* __restrict__ buf, int lane,
-    const float* __restrict__ w1 = nullptr) {
+    const float* __restrict__ w1 = nullptr, int live = S::A) {
   static_assert(T == 1 || T == 2, "one or two row tiles");
   static_assert(!PAIRED || T == 2, "a pair is two row tiles");
   const int g = lane >> 2, t = lane & 3;
@@ -284,72 +355,83 @@ __device__ __forceinline__ void conditioner_mma(
       acc[m][j][3] = fmaxf(acc[m][j][3] + bias.y, 0.f);
     }
   }
-  // Output layer, k-step outer so the accumulators free up as it goes.
-  float out[T][S::NT][4];
+  if constexpr (S::BY_DIM) {
+    static_assert(T == 2 && !PAIRED, "the output by dims takes two tiles");
 #pragma unroll
-  for (int m = 0; m < T; ++m) {
-#pragma unroll
-    for (int n = 0; n < S::NT; ++n) {
-      out[m][n][0] = out[m][n][1] = out[m][n][2] = out[m][n][3] = 0.f;
+    for (int a = 0; a < S::A; ++a) {
+      if (a < live) output_dim_mma<S>(w, acc, a, buf, lane);
     }
-  }
-#pragma unroll
-  for (int s = 0; s < S::KS2; ++s) {
-    // The accumulator of n-tile s, (g, 2t), (g, 2t+1), (g+8, 2t),
-    // (g+8, 2t+1), is the A fragment of k-step s in the order (g, 2t),
-    // (g+8, 2t), (g, 2t+1), (g+8, 2t+1).
-    uint32_t ah[T][4], al[T][4];
+  } else {
+    // Output layer, k-step outer so the accumulators free up as it goes.
+    float out[T][S::NT][4];
 #pragma unroll
     for (int m = 0; m < T; ++m) {
-      split_tf32(acc[m][s][0], ah[m][0], al[m][0]);
-      split_tf32(acc[m][s][2], ah[m][1], al[m][1]);
-      split_tf32(acc[m][s][1], ah[m][2], al[m][2]);
-      split_tf32(acc[m][s][3], ah[m][3], al[m][3]);
-    }
 #pragma unroll
-    for (int n = 0; n < S::NT; ++n) {
-      const int at = S::W3 + 64 * (s * S::NT + n) + 2 * lane;
-      const WeightFragment b(w + at);
-      mma_split_step(out[0][n], ah[0], al[0], b);
-      if constexpr (PAIRED) {
-        const WeightFragment b1(w1 + at);
-        mma_split_step(out[1][n], ah[1], al[1], b1);
-      } else if constexpr (T == 2) {
-        mma_split_step(out[1][n], ah[1], al[1], b);
+      for (int n = 0; n < S::NT; ++n) {
+        out[m][n][0] = out[m][n][1] = out[m][n][2] = out[m][n][3] = 0.f;
       }
     }
-  }
 #pragma unroll
-  for (int n = 0; n < S::NT; ++n) {
-    const int q = 8 * n + 2 * t;
-    const float2 bias0 = *reinterpret_cast<const float2*>(w + S::B3 + q);
-    const float2 bias1 =
-        PAIRED ? *reinterpret_cast<const float2*>(w1 + S::B3 + q) : bias0;
+    for (int s = 0; s < S::KS2; ++s) {
+      // The accumulator of n-tile s, (g, 2t), (g, 2t+1), (g+8, 2t),
+      // (g+8, 2t+1), is the A fragment of k-step s in the order (g, 2t),
+      // (g+8, 2t), (g, 2t+1), (g+8, 2t+1).
+      uint32_t ah[T][4], al[T][4];
 #pragma unroll
-    for (int m = 0; m < T; ++m) {
-      const float2 bias = PAIRED && m ? bias1 : bias0;
-      const int row = 16 * m + g;
-      *reinterpret_cast<float2*>(buf + row * S::ROW + q) =
-          make_float2(out[m][n][0] + bias.x, out[m][n][1] + bias.y);
-      *reinterpret_cast<float2*>(buf + (row + 8) * S::ROW + q) =
-          make_float2(out[m][n][2] + bias.x, out[m][n][3] + bias.y);
+      for (int m = 0; m < T; ++m) {
+        split_tf32(acc[m][s][0], ah[m][0], al[m][0]);
+        split_tf32(acc[m][s][2], ah[m][1], al[m][1]);
+        split_tf32(acc[m][s][1], ah[m][2], al[m][2]);
+        split_tf32(acc[m][s][3], ah[m][3], al[m][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < S::NT; ++n) {
+        const int at = S::W3 + 64 * (s * S::NT + n) + 2 * lane;
+        const WeightFragment b(w + at);
+        mma_split_step(out[0][n], ah[0], al[0], b);
+        if constexpr (PAIRED) {
+          const WeightFragment b1(w1 + at);
+          mma_split_step(out[1][n], ah[1], al[1], b1);
+        } else if constexpr (T == 2) {
+          mma_split_step(out[1][n], ah[1], al[1], b);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < S::NT; ++n) {
+      const int q = 8 * n + 2 * t;
+      const float2 bias0 = *reinterpret_cast<const float2*>(w + S::B3 + q);
+      const float2 bias1 =
+          PAIRED ? *reinterpret_cast<const float2*>(w1 + S::B3 + q) : bias0;
+#pragma unroll
+      for (int m = 0; m < T; ++m) {
+        const float2 bias = PAIRED && m ? bias1 : bias0;
+        const int row = 16 * m + g;
+        *reinterpret_cast<float2*>(buf + row * S::ROW + q) =
+            make_float2(out[m][n][0] + bias.x, out[m][n][1] + bias.y);
+        *reinterpret_cast<float2*>(buf + (row + 8) * S::ROW + q) =
+            make_float2(out[m][n][2] + bias.x, out[m][n][3] + bias.y);
+      }
     }
   }
 }
 
 // The transformers of lane l's particle f for a layer of parity `odd`,
 // from row l of buf (conditioner_mma's output): its active dims 2a + odd
-// through rqs<K, DENSITY> (rqs_micro<K> with MICRO, density only) or
-// affine<DENSITY>. Returns their log-det sum.
+// (but the padding slot) through rqs<K, DENSITY> (rqs_micro<K> with MICRO,
+// density only) or affine<DENSITY>. Returns their log-det sum.
 template <class S, bool DENSITY, bool MICRO = false>
 __device__ __forceinline__ float transformers_mma(
     const float* __restrict__ buf, int lane, bool odd, float tb,
-    float (&f)[S::D]) {
+    float (&f)[S::DP]) {
   static_assert(!MICRO || (DENSITY && S::RQS),
                 "rqs_micro is a density spline");
   float ld = 0.f;
 #pragma unroll
   for (int a = 0; a < S::A; ++a) {
+    if constexpr (S::D % 2 == 1) {
+      if (odd && a == S::A - 1) continue;  // the padding slot, dim D
+    }
     const float4* src =
         reinterpret_cast<const float4*>(buf + lane * S::ROW + a * S::G);
     float par[S::P];
@@ -384,11 +466,12 @@ __device__ __forceinline__ float transformers_mma(
 // runs the transformers' inverse (rqs<K, true> / affine<true>), sampling
 // their forward; the layer's log-det is added to log_det. All 32 lanes
 // call it together, after a __syncwarp since the buffer's last reads.
+// f[D], the padding slot at an odd D, holds 0.
 template <class S, bool DENSITY>
 __device__ __forceinline__ void coupling_layer_mma(const float* __restrict__ w,
                                                    int layer, float tb,
                                                    float* __restrict__ buf,
-                                                   int lane, float (&f)[S::D],
+                                                   int lane, float (&f)[S::DP],
                                                    float& log_det) {
   const bool odd = layer & 1;
   float u[4][S::C];
@@ -400,7 +483,12 @@ __device__ __forceinline__ void coupling_layer_mma(const float* __restrict__ w,
       u[r][c] = __shfl_sync(0xffffffffu, v, (lane >> 2) + 8 * r);
     }
   }
-  conditioner_mma<S>(w, u, buf, lane);
+  if constexpr (S::BY_DIM) {
+    conditioner_mma<S>(w, u, buf, lane, nullptr,
+                       S::D % 2 && odd ? S::A - 1 : S::A);
+  } else {
+    conditioner_mma<S>(w, u, buf, lane);
+  }
   __syncwarp();
   log_det += transformers_mma<S, DENSITY>(buf, lane, odd, tb, f);
   __syncwarp();
@@ -412,7 +500,7 @@ template <class S>
 __device__ __forceinline__ void flow_density(const float* __restrict__ w,
                                              int n_layers, float tb,
                                              float* __restrict__ buf,
-                                             int lane, float (&f)[S::D],
+                                             int lane, float (&f)[S::DP],
                                              float& log_det) {
   __syncwarp();
 #pragma unroll 1

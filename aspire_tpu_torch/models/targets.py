@@ -25,6 +25,8 @@ import torch
 GAUSSIAN_MIXTURE = 1
 GAUSSIAN = 2
 HIERARCHICAL = 3
+ROSENBROCK = 4
+FUNNEL = 5
 
 _LOG_2PI = math.log(2 * math.pi)
 
@@ -69,6 +71,11 @@ def target_densities(target_id: int, consts: torch.Tensor,
                           torch.full_like(ll, -math.inf))
     elif target_id == HIERARCHICAL:
         ll, lpi = _hierarchical(consts[:d - 2], x)
+    elif target_id == ROSENBROCK:
+        ll = _rosenbrock(x)
+        lpi = _box(x, consts[0], consts[1])
+    elif target_id == FUNNEL:
+        ll, lpi = _funnel(x, consts[0], consts[1])
     else:
         raise ValueError(f"unknown in-kernel target id {target_id}")
     return _neg_inf_if_nan(lpi), _neg_inf_if_nan(ll)
@@ -90,6 +97,46 @@ def _hierarchical(y: torch.Tensor, x: torch.Tensor):
     return ll, log_p_m + log_p_s + log_p_theta
 
 
+def _log(v):
+    """log of a number or of a tensor (a target's constants are numbers in
+    its own methods and tensor entries in :func:`target_densities`)."""
+    return torch.log(v) if isinstance(v, torch.Tensor) else math.log(v)
+
+
+def _rosenbrock(x: torch.Tensor) -> torch.Tensor:
+    """The Rosenbrock log-likelihood, ``-sum 100 (x_{i+1} - x_i^2)^2 +
+    (1 - x_i)^2``."""
+    return -torch.sum(100.0 * (x[..., 1:] - x[..., :-1] ** 2) ** 2
+                      + (1 - x[..., :-1]) ** 2, dim=-1)
+
+
+def _box(x: torch.Tensor, lower, upper) -> torch.Tensor:
+    """The uniform log-prior on the closed box ``[lower, upper]^d``:
+    ``-d log(upper - lower)`` inside, -inf outside."""
+    inside = torch.all((x >= lower) & (x <= upper), dim=-1)
+    log_p = -x.shape[-1] * _log(upper - lower)
+    return torch.where(inside, log_p, torch.full_like(x[..., 0], -math.inf))
+
+
+def _funnel(x: torch.Tensor, scale, prior_scale):
+    """``(log_likelihood, log_prior)`` of :class:`FunnelProblem` at
+    ``x = [v, rest]``: v ~ N(0, scale^2), rest ~ N(0, e^v) in the
+    likelihood, every coordinate ~ N(0, prior_scale^2) in the prior, the
+    constant terms ``log 2 pi scale^2`` and ``log 2 pi prior_scale^2``
+    formed once, as the chain kernel forms them. In float32 exp(-v)
+    overflows below v ~ -88: the likelihood is then -inf, or NaN where
+    every rest coordinate is 0 (0 * inf), which the samplers and
+    :func:`target_densities` turn to -inf."""
+    d = x.shape[-1]
+    v, rest = x[..., 0], x[..., 1:]
+    log_p_v = -0.5 * (v / scale) ** 2 - 0.5 * _log(2 * math.pi * scale**2)
+    log_p_rest = (-0.5 * torch.sum(rest**2, dim=-1) * torch.exp(-v)
+                  - 0.5 * (d - 1) * (_LOG_2PI + v))
+    lpi = (torch.sum(-0.5 * (x / prior_scale) ** 2, dim=-1)
+           - d * (0.5 * _log(2 * math.pi * prior_scale**2)))
+    return log_p_v + log_p_rest, lpi
+
+
 @dataclasses.dataclass
 class Problem:
     dims: int
@@ -99,6 +146,9 @@ class Problem:
         return [f"x_{i}" for i in range(self.dims)]
 
     prior_bounds = None
+    #: analytic log Z where there is one (the quadrature truths of the
+    #: validation rows are no part of the package, as in the JAX package)
+    true_log_evidence = None
 
     def kernel_target(self, device="cpu"):
         """``(id, constants)`` for the in-kernel target, or None."""
@@ -206,6 +256,73 @@ class GaussianMixtureProblem(Problem):
         )
 
 
+def _kernel_constants(owner, values, device):
+    """The in-kernel constants ``values`` as float32 on ``device``, made
+    once per device and kept on ``owner`` (as :func:`_constant`), so a
+    device ladder built on them captures no host copy."""
+    like = torch.empty(0, dtype=torch.float32, device=device)
+    return _constant(owner, "kernel_target", values, like)
+
+
+@dataclasses.dataclass
+class RosenbrockProblem(Problem):
+    """Rosenbrock likelihood x uniform prior (BASELINE.json config 4)."""
+
+    dims: int = 2
+    lower: float = -5.0
+    upper: float = 5.0
+
+    @property
+    def prior_bounds(self):
+        return {p: [self.lower, self.upper] for p in self.parameters}
+
+    def log_likelihood(self, samples):
+        return _rosenbrock(samples.x)
+
+    def log_prior(self, samples):
+        return _box(samples.x, self.lower, self.upper)
+
+    def kernel_target(self, device="cpu"):
+        return ROSENBROCK, _kernel_constants(self, [self.lower, self.upper],
+                                             device)
+
+    def draw_initial_samples(self, rng, n: int) -> np.ndarray:
+        """Points along the banana, x_{i+1} = x_i^2 + N(0, 0.5^2), clipped
+        to the box less 0.1 on each side."""
+        x0 = rng.normal(1.0, 1.0, size=(n, 1))
+        cols = [x0]
+        for _ in range(self.dims - 1):
+            cols.append(cols[-1] ** 2 + rng.normal(0, 0.5, size=(n, 1)))
+        x = np.concatenate(cols, axis=1)
+        return np.clip(x, self.lower + 0.1, self.upper - 0.1)
+
+
+@dataclasses.dataclass
+class FunnelProblem(Problem):
+    """Neal's funnel as a likelihood x wide-normal prior."""
+
+    dims: int = 10
+    scale: float = 3.0
+    #: scale of the wide-normal prior (the quadrature truth of
+    #: ``benchmarks/validate.py`` reads it too)
+    prior_scale: float = 10.0
+
+    def log_likelihood(self, samples):
+        return _funnel(samples.x, self.scale, self.prior_scale)[0]
+
+    def log_prior(self, samples):
+        return _funnel(samples.x, self.scale, self.prior_scale)[1]
+
+    def kernel_target(self, device="cpu"):
+        return FUNNEL, _kernel_constants(self, [self.scale, self.prior_scale],
+                                         device)
+
+    def draw_initial_samples(self, rng, n: int) -> np.ndarray:
+        v = rng.normal(0, self.scale, size=(n, 1))
+        rest = rng.normal(size=(n, self.dims - 1)) * np.exp(v / 2)
+        return np.concatenate([v, rest], axis=1)
+
+
 @dataclasses.dataclass
 class HierarchicalProblem(Problem):
     """d-dimensional hierarchical Gaussian posterior (BASELINE config 5).
@@ -268,3 +385,21 @@ class HierarchicalProblem(Problem):
         top = log_f.max()
         cell = (m[1, 0] - m[0, 0]) * (s[0, 1] - s[0, 0])
         return float(top + np.log(np.sum(w * np.exp(log_f - top)) * cell))
+
+
+_PROBLEMS = {
+    "gaussian": GaussianProblem,
+    "gaussian_mixture": GaussianMixtureProblem,
+    "rosenbrock": RosenbrockProblem,
+    "funnel": FunnelProblem,
+    "hierarchical": HierarchicalProblem,
+}
+
+
+def get_problem(name: str, **kwargs) -> Problem:
+    try:
+        return _PROBLEMS[name.lower()](**kwargs)
+    except KeyError:
+        raise ValueError(
+            f"Unknown problem '{name}'. Choose from {sorted(_PROBLEMS)}"
+        ) from None

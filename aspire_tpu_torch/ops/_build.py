@@ -137,6 +137,9 @@ def check(code: int, what: str) -> None:
     if code == -1:
         raise ValueError(f"{what}: configuration not compiled into the "
                          "kernel library")
+    if code == -3:
+        raise ValueError(f"{what}: target not compiled into this "
+                         "configuration")
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
 

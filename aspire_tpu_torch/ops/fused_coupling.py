@@ -38,13 +38,16 @@ MIN_FUSED_N = 4096
 
 #: (transformer, dims, n_hidden, num_bins) -> configuration id compiled
 #: into the library; mirrors ASPIRE_COUPLING_CONFIGS in csrc/common.cuh
-#: (even dims, hidden widths multiples of 8). Configuration 2 is BASELINE
-#: config 5's flow (nsf, 6 x (128, 128) at d = 32): depth is no part of
-#: the key.
+#: (hidden widths multiples of 8; an odd d pads each half of a layer to
+#: (d + 1) // 2 dims). Configuration 2 is BASELINE config 5's flow (nsf,
+#: 6 x (128, 128) at d = 32): depth is no part of the key; 3 and 4 are
+#: nsf-tpu at d = 2 and d = 5, the JAX package's validation rows.
 KERNEL_CONFIGS = {
     ("rqs", 4, (64, 64), 8): 0,
     ("affine", 4, (64, 64), None): 1,
     ("rqs", 32, (128, 128), 8): 2,
+    ("rqs", 2, (64, 64), 8): 3,
+    ("rqs", 5, (64, 64), 8): 4,
 }
 
 #: (dims, n_hidden, num_bins) of an RQS MAF -> configuration id of the MAF
@@ -177,38 +180,47 @@ def mma_group(arch) -> int:
 WIDE_GROUP_DIMS = 2
 
 
+def mma_half(arch) -> int:
+    """Dims in each half of a coupling layer (MmaShape::A and C):
+    ``(d + 1) // 2``; at an odd d the last slot of an odd layer's active
+    half and of an even layer's conditioning half is a padding slot, dim
+    d, with zero weights."""
+    return (arch.dims + 1) // 2
+
+
 def _mma_tiles(arch) -> tuple[int, int, int]:
     """(KS1, KS2, NT): W2's k-steps, W2's n-tiles (W3's k-steps) and W3's
     n-tiles."""
     h1, h2 = tuple(arch.n_hidden)
-    return h1 // 8, h2 // 8, arch.dims // 2 * mma_group(arch) // 8
+    return h1 // 8, h2 // 8, mma_half(arch) * mma_group(arch) // 8
 
 
 def mma_wide(arch) -> bool:
-    """Whether the shape takes the wide form (MmaShape::WIDE): the
-    whole-layer form's accumulators of both row tiles, ``8 * (KS2 + NT)``
-    floats a thread, pass 128."""
-    _, ks2, nt = _mma_tiles(arch)
-    return 8 * (ks2 + nt) > 128
+    """Whether the shape takes the wide form (MmaShape::WIDE): even the
+    output one active dim at a time leaves both row tiles' accumulators,
+    ``8 * (KS2 + G/8)`` floats a thread, past 128."""
+    _, ks2, _ = _mma_tiles(arch)
+    return 8 * (ks2 + mma_group(arch) // 8) > 128
 
 
 def _w3_group_cols(arch) -> int:
     """W3 columns per fragment group: a group of two active dims in the
     wide form, all of them otherwise."""
-    half, g = arch.dims // 2, mma_group(arch)
+    half, g = mma_half(arch), mma_group(arch)
     return WIDE_GROUP_DIMS * g if mma_wide(arch) else half * g
 
 
 def mma_sections(arch) -> list[tuple[str, tuple]]:
     """Sections of one layer of the packed buffer, in order, with their
-    shapes: W1 ``(H1, D/2)`` of the conditioning inputs, b1, W2 as
-    ``(H1/8 * H2/8, 32, 2)`` mma B fragments, b2, W3 as
-    ``(H2/8 * D/2 * G/8, 32, 2)`` fragments, b3 ``(D/2, G)``. The wide
+    shapes (``half`` = :func:`mma_half`): W1 ``(H1, half)`` of the
+    conditioning inputs, b1, W2 as ``(H1/8 * H2/8, 32, 2)`` mma B
+    fragments, b2, W3 as ``(H2/8 * half * G/8, 32, 2)`` fragments, b3
+    ``(half, G)``. The wide
     form puts the sections a layer reads throughout first (W1, b1, b2, b3)
     and then the streamed ones (W2, then W3 by groups of two active
     dims)."""
     h1, h2 = tuple(arch.n_hidden)
-    half, g = arch.dims // 2, mma_group(arch)
+    half, g = mma_half(arch), mma_group(arch)
     sec = {"w1": (h1, half), "b1": (h1,),
            "w2": (h1 // 8 * (h2 // 8), 32, 2), "b2": (h2,),
            "w3": (h2 // 8 * (half * g // 8), 32, 2), "b3": (half, g)}
@@ -240,7 +252,7 @@ def mma_layout(arch) -> tuple[int, ...]:
     ks1, ks2, _ = _mma_tiles(arch)
     names = ("w1", "b1", "w2", "b2", "w3", "b3")
     if not mma_wide(arch):
-        row = arch.dims // 2 * mma_group(arch) + 4
+        row = mma_half(arch) * mma_group(arch) + 4
         return (size, *(offsets[k] for k in names), row, 32 * row, 0, 0)
     row = _w3_group_cols(arch) + 4
     kw2 = 4 if ks1 % 4 == 0 else (2 if ks1 % 2 == 0 else 1)
@@ -281,18 +293,23 @@ def _layer_dims(layer: int) -> tuple[slice, slice]:
 
 
 def _dense_layer(arch, layer: int, net: dict):
-    """One layer's conditioner as the kernel computes it: W1 ``(H1, D/2)``
-    on the conditioning inputs, b1, W2 ``(H1, H2)``, b2, W3
-    ``(H2, D/2 * G)`` and b3 ``(D/2, G)`` of the active dims' parameter
+    """One layer's conditioner as the kernel computes it, each half of
+    the layer :func:`mma_half` dims (a padding slot's weights zero): W1
+    ``(H1, half)`` on the conditioning inputs, b1, W2 ``(H1, H2)``, b2, W3
+    ``(H2, half * G)`` and b3 ``(half, G)`` of the active dims' parameter
     groups, each zero-padded to G."""
     d, P, G = arch.dims, arch.n_params_per_dim, mma_group(arch)
+    half = mma_half(arch)
     active, cond = _layer_dims(layer)
     l1, l2, l3 = net["layers"]
     h2 = l3["w"].shape[0]
     pad = torch.nn.functional.pad
-    w3 = pad(l3["w"].reshape(h2, d, P)[:, active], (0, G - P))
-    b3 = pad(l3["b"].reshape(d, P)[active], (0, G - P))
-    return (l1["w"][cond].t(), l1["b"], l2["w"], l2["b"],
+    w3 = l3["w"].reshape(h2, d, P)[:, active]
+    w3 = pad(w3, (0, G - P, 0, half - w3.shape[1]))
+    b3 = l3["b"].reshape(d, P)[active]
+    b3 = pad(b3, (0, G - P, 0, half - b3.shape[0]))
+    w1 = l1["w"][cond].t()
+    return (pad(w1, (0, half - w1.shape[1])), l1["b"], l2["w"], l2["b"],
             w3.reshape(h2, -1), b3)
 
 
@@ -300,7 +317,7 @@ def _mma_fragment_indices(arch, device):
     """The fragment index pairs of W2 and W3 (:func:`_fragments`)."""
     h1, h2 = tuple(arch.n_hidden)
     return (_fragments(h1, h2, device),
-            _fragments(h2, arch.dims // 2 * mma_group(arch), device,
+            _fragments(h2, mma_half(arch) * mma_group(arch), device,
                        _w3_group_cols(arch)))
 
 
@@ -311,9 +328,9 @@ def prepare_mma_params(arch, params: dict) -> torch.Tensor:
     (:func:`split_tf32_sum`, so the kernel splits it exactly); float64
     parameters (tests of the layout) are kept as they are."""
     h1, h2 = tuple(arch.n_hidden)
-    if arch.dims % 2 or h1 % 8 or h2 % 8:
-        raise ValueError(f"the tensor-core pass takes an even-d coupling "
-                         f"flow with hidden widths /8: {arch}")
+    if h1 % 8 or h2 % 8:
+        raise ValueError(f"the tensor-core pass takes a coupling flow with "
+                         f"hidden widths /8: {arch}")
     dev = params["layers"][0]["layers"][0]["w"].device
     (r2, c2), (r3, c3) = _mma_fragment_indices(arch, dev)
     order = [name for name, _ in mma_sections(arch)]
@@ -331,14 +348,14 @@ def prepare_mma_params(arch, params: dict) -> torch.Tensor:
 
 def mma_conditioner_plain(arch, packed: torch.Tensor, layer: int,
                           x: torch.Tensor) -> torch.Tensor:
-    """The ``(n, D/2, P)`` transformer parameters that layer ``layer``'s
-    conditioner gives the active dims of ``x``, read from the packed
-    buffer the way the kernels read it: W1 on the conditioning inputs, the
-    fragments gathered back into W2 and W3, each active dim's padded group
-    cut to its parameters. For tests of the layout: no kernel path calls
-    it."""
+    """The ``(n, a, P)`` transformer parameters that layer ``layer``'s
+    conditioner gives the ``a`` active dims of ``x``, read from the packed
+    buffer the way the kernels read it: W1 on the conditioning inputs (a
+    padding slot's input 0), the fragments gathered back into W2 and W3,
+    each active dim's padded group cut to its parameters (the padding
+    slot's dropped). For tests of the layout: no kernel path calls it."""
     h1, h2 = tuple(arch.n_hidden)
-    half, G = arch.dims // 2, mma_group(arch)
+    half, G = mma_half(arch), mma_group(arch)
     buf = packed.reshape(arch.n_layers, -1)[layer]
     offsets, _ = _section_offsets(arch)
     sec = {name: buf[offsets[name]:offsets[name]
@@ -350,11 +367,14 @@ def mma_conditioner_plain(arch, packed: torch.Tensor, layer: int,
         dense = buf.new_zeros((k_in, n_out))
         dense[rows, cols] = sec[name]
         sec[name] = dense
-    _, cond = _layer_dims(layer)
-    h = torch.relu(x[:, cond] @ sec["w1"].t() + sec["b1"])
+    active, cond = _layer_dims(layer)
+    xc = x[:, cond]
+    xc = torch.nn.functional.pad(xc, (0, half - xc.shape[1]))
+    h = torch.relu(xc @ sec["w1"].t() + sec["b1"])
     h = torch.relu(h @ sec["w2"] + sec["b2"])
     out = h @ sec["w3"] + sec["b3"].reshape(-1)
-    return out.reshape(-1, half, G)[:, :, :arch.n_params_per_dim]
+    n_active = x[:, active].shape[1]
+    return out.reshape(-1, half, G)[:, :n_active, :arch.n_params_per_dim]
 
 
 def coupling_packed_plain(arch, mode: str, packed: torch.Tensor,

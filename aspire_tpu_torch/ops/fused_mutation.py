@@ -54,8 +54,12 @@ from .fused_coupling import prepare_mma_params as prepare_chain_params
 
 TILE = 256
 KERNELS = {"tpcn": 0, "pcn": 1, "rwmh": 2}
-#: configuration ids the chain kernel is compiled for (ASPIRE_CHAIN_CONFIGS)
-CHAIN_CONFIGS = {0, 2}
+#: configuration id the chain kernel is compiled for -> the in-kernel
+#: target ids it compiles (ASPIRE_CHAIN_CONFIGS and its TARGETS column:
+#: ids 4 and 5 only at d = 2 and d = 5, so the d = 4 and d = 32 kernels
+#: keep the code they had before them)
+CHAIN_CONFIGS = {0: (1, 2, 3), 2: (1, 2, 3), 3: (1, 2, 3, 4, 5),
+                 4: (1, 2, 3, 4, 5)}
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 launches = LaunchCounter()
@@ -476,12 +480,15 @@ def combine_tile_stats(stats: torch.Tensor, d: int, tile: int = TILE):
 # ---------------------------------------------------------------------------
 
 
-def kernel_supports(cfg: ChainConfig) -> bool:
-    """Whether the chain kernel is compiled for this flow configuration."""
+def kernel_supports(cfg: ChainConfig, target_id: int | None = None) -> bool:
+    """Whether the chain kernel is compiled for this flow configuration
+    (and, given, for the in-kernel target ``target_id``)."""
     arch = cfg.arch
     return (isinstance(arch, Coupling) and len(arch.n_hidden) == 2
             and FC.config_id(arch) in CHAIN_CONFIGS
-            and cfg.kernel in KERNELS)
+            and cfg.kernel in KERNELS
+            and (target_id is None
+                 or int(target_id) in CHAIN_CONFIGS[FC.config_id(arch)]))
 
 
 #: a lowered program's per-dimension op codes, and the ops-present flag
@@ -656,8 +663,9 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     lib = load_library()
     arch = cfg.arch
     n, d = z0.shape
-    if not kernel_supports(cfg):
-        raise ValueError(f"no chain kernel compiled for {arch}/{cfg.kernel}")
+    if not kernel_supports(cfg, target[0]):
+        raise ValueError(f"no chain kernel compiled for {arch}/{cfg.kernel} "
+                         f"with target {int(target[0])}")
     if z0.dtype != torch.float32 or not z0.is_contiguous():
         raise TypeError("the chain kernel takes a contiguous float32 z0")
     if d != arch.dims or n % TILE or lib.aspire_chain_tile() != TILE:

@@ -405,7 +405,8 @@ class SMCSampler(Sampler):
         cfg = FM.ChainConfig(
             arch, kcfg["kernel"], 1, nu=kcfg["nu"],
             gamma_m=kcfg["gamma_m"], gamma_odd=kcfg["gamma_odd"])
-        if self.device.type == "cuda" and not FM.kernel_supports(cfg):
+        if self.device.type == "cuda" and not FM.kernel_supports(
+                cfg, kcfg["target"][0]):
             return None
         kcfg["blocks"] = tuple(
             FM.program_block(kcfg[k], self.dims, self.device)

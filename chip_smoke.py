@@ -45,7 +45,14 @@ main paths (6, 7, 8) right after the build:
    data transform (the anchor); B2 against the plain chain with each
    program (``PROGRAMS``, n = 8192 x 20 steps; config 5's wide B2 with the
    logit program at 16384 x 32), and B2 alone with each program in turns
-   with the affine-only chain;
+   with the affine-only chain; then the JAX package's validation rows
+   (``phase_validate_targets``): Rosenbrock at d = 2 (logit + affine data
+   transform) and Neal's funnel at d = 5 (affine) with nsf-tpu fitted as
+   ``benchmarks/validate.py`` fits it, B1/B3 at both shapes and B2 on each
+   row against plain, the anchors at n = 16384 against the quadrature
+   truths (the funnel's from three fits, combined as the reference
+   combines replicates), and the 131072 pipelines on both ladders and
+   both routes;
 7. the MAF path: fit a maf-rqs flow to the same draws, SMC at n = 8192
    (log Z against the analytic value, every mutation on the split chain,
    every density pass of it on the MAF kernel: launch counts), the
@@ -120,6 +127,8 @@ N_COUPLING = 131072
 N_CHAIN = 8192
 N_PIPELINE = 131072
 CHAIN_STEPS = 20
+# The validation rows' SMC n (benchmarks/validate.py --n default).
+N_VALIDATE = 16384
 # f32 kernel vs f32 plain path: the kernel sums the conditioner in another
 # order (sequential FMAs vs cuBLAS) - the JAX package's own kernel bound.
 COUPLING_TOL = dict(rtol=1e-3, atol=1e-4)
@@ -919,6 +928,51 @@ def hierarchical_chain_setup(device, n: int, steps: int, n_layers: int = 6):
             problem.kernel_target(device), dt, gen)
 
 
+#: The JAX package's validation rows (benchmarks/validate.py:299,309), each
+#: with the nsf-tpu flow at its d: (problem name, d).
+VALIDATE_ROWS = {"rosenbrock": ("rosenbrock", 2), "funnel": ("funnel", 5)}
+
+
+def validate_chain_setup(device, n: int, steps: int, row: str):
+    """``program_chain_setup``'s tuple on a validation row (``VALIDATE_ROWS``):
+    the problem's in-kernel target, nsf-tpu at its d perturbed by 0.1,
+    start points from its initial draws (seed 3), the data transform
+    ``Aspire`` gives it (logit + affine on Rosenbrock's prior bounds,
+    affine for the unbounded funnel) fitted on them, lowered to programs,
+    their Gaussian reference, tpCN at nu = 5 (nu + d = 7: gamma_m 3,
+    gamma_odd 1; 10: 5, 0), beta 0.7, initial step 0.5, no
+    preconditioning."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch.flows.architectures import nsf_tpu
+    from aspire_tpu_torch.models import get_problem
+    from aspire_tpu_torch.ops import fused_mutation as FM
+    from aspire_tpu_torch.samplers import kernels as K
+    from aspire_tpu_torch.transforms import FlowTransform
+
+    name, d = VALIDATE_ROWS[row]
+    problem = get_problem(name, dims=d)
+    arch, params = perturbed_flow(device, 4, nsf_tpu(d), 0.1)
+    k2 = 5 + d
+    cfg = FM.ChainConfig(arch, "tpcn", steps, nu=5.0, gamma_m=k2 // 2,
+                         gamma_odd=k2 % 2)
+    z0 = torch.as_tensor(problem.draw_initial_samples(
+        np.random.default_rng(3), n), dtype=torch.float32, device=device)
+    transform = FlowTransform(parameters=problem.parameters,
+                              prior_bounds=problem.prior_bounds,
+                              bounded_transform="logit", dtype="float32",
+                              device=device)
+    transform.fit(z0)
+    dt = FM.canonicalize_transform(transform, d)
+    ref = K.fit_gaussian_reference(z0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    step0 = torch.full((n // FM.TILE,), 0.5, device=device)
+    return (cfg, params, z0, 0.7, step0, (ref.mean, ref.chol, ref.inv_chol),
+            problem.kernel_target(device), dt, gen, None)
+
+
 def nudge_accept_uniforms(noise, acc) -> None:
     """Keep every accept uniform (the last row of ``noise``) a relative
     1e-3 away from its acceptance probability ``acc`` (the plain chain's
@@ -1012,18 +1066,18 @@ def program_chain_setup(device, n: int, steps: int, kind: str,
             target, dt, gen, pc)
 
 
-def check_chain_program(device, n: int, steps: int, kind: str,
-                        setup=chain_setup) -> float:
-    """B2 against the plain chain with ``kind``'s programs on injected,
-    nudged noise (``assert_chain_close``); the largest difference."""
+def assert_program_chain(setup: tuple, what: str) -> float:
+    """B2 against the plain chain on ``setup`` (``program_chain_setup``'s
+    tuple) on injected, nudged noise (``assert_chain_close``); the largest
+    difference."""
     import torch
 
     from aspire_tpu_torch.ops import fused_mutation as FM
 
-    cfg, params, z0, beta, step0, refs, target, dt, gen, pc = (
-        program_chain_setup(device, n, steps, kind, setup))
+    cfg, params, z0, beta, step0, refs, target, dt, gen, pc = setup
+    n, steps = z0.shape[0], cfg.n_steps
     noise = torch.rand((steps, cfg.noise_rows, n), generator=gen,
-                       device=device).clamp(1e-4, 1 - 1e-4)
+                       device=z0.device).clamp(1e-4, 1 - 1e-4)
     plain = FM.chain_plain(cfg, params, z0, beta, step0, *refs, target,
                            data_transform=dt, precond=pc, noise=noise,
                            return_acc_probs=True)
@@ -1033,8 +1087,15 @@ def check_chain_program(device, n: int, steps: int, kind: str,
                              noise=noise)
     err = assert_chain_close(kern, plain)
     if not 0 < float(kern[4].sum()) < n * steps:
-        raise AssertionError(f"{kind}: every proposal accepted or none")
+        raise AssertionError(f"{what}: every proposal accepted or none")
     return err
+
+
+def check_chain_program(device, n: int, steps: int, kind: str,
+                        setup=chain_setup) -> float:
+    """``assert_program_chain`` with ``kind``'s programs."""
+    return assert_program_chain(
+        program_chain_setup(device, n, steps, kind, setup), kind)
 
 
 def phase_chain(device, n: int, steps: int, setup=chain_setup) -> dict:
@@ -1759,7 +1820,7 @@ def ladder_turns(asp, run: dict, need: dict, truth: float | None = None,
             f"{hpost.log_evidence_error}")
     if truth is not None:
         for post in (dpost, hpost):
-            check_result(post, run["n_samples"], truth)
+            check_result(post, run["n_samples"], truth, asp.dims)
     out = {"device_s": sorted(walls["device"])[1],
            "host_s": sorted(walls["host"])[1],
            "device_walls_s": walls["device"], "host_walls_s": walls["host"],
@@ -2177,6 +2238,245 @@ def phase_bounded_path(device, n_anchor: int, n_pipeline: int) -> dict:
     return out
 
 
+def rosenbrock_truth(lower: float = -5.0, upper: float = 5.0) -> float:
+    """log Z of ``RosenbrockProblem(dims=2)``: ``benchmarks/validate.py::
+    analytic_log_z``'s quadrature, copied (the likelihood summed on a
+    6001 x 6001 grid over the box, by log-sum-exp), its grid taken 1000
+    rows at a time."""
+    import numpy as np
+    from scipy.special import logsumexp as lse
+
+    g = np.linspace(lower, upper, 6001)
+    dx = g[1] - g[0]
+    parts = []
+    for i in range(0, g.size, 1000):
+        X, Y = np.meshgrid(g[i:i + 1000], g, indexing="ij")
+        parts.append(lse(-(100.0 * (Y - X**2) ** 2 + (1 - X) ** 2)))
+    width = upper - lower
+    return float(lse(parts) + 2 * np.log(dx) - 2 * np.log(width))
+
+
+def funnel_truth(dims: int = 5, scale: float = 3.0,
+                 prior_scale: float = 10.0) -> float:
+    """log Z of ``FunnelProblem(dims)``: ``benchmarks/validate.py::
+    analytic_log_z``'s quadrature, copied (the rest dims integrate out in
+    closed form given v, leaving a 1-d sum over 400,001 points of v in
+    [-60, 60])."""
+    import numpy as np
+    from scipy.special import logsumexp as lse
+
+    s, d = prior_scale, dims - 1
+    v = np.linspace(-60.0, 60.0, 400001)
+    dv = v[1] - v[0]
+    log_int = (
+        -0.5 * v**2 / scale**2
+        - 0.5 * np.log(2 * np.pi * scale**2)
+        - 0.5 * v**2 / s**2
+        - 0.5 * np.log(2 * np.pi * s**2)
+        - 0.5 * d * np.log(2 * np.pi * (np.exp(v) + s**2))
+    )
+    return float(lse(log_int) + np.log(dv))
+
+
+def combine_replicates(logzs, errs) -> tuple[float, float]:
+    """The replicates' log Z and its error: ``aspire_tpu/samplers/base.py::
+    combine_replicates``'s arithmetic, copied (the mean; the between-run
+    spread over sqrt(k) where it agrees with the single-run errors, the
+    spread itself where it does not, at least their rms over sqrt(k))."""
+    import numpy as np
+
+    k = len(logzs)
+    between_sd = float(np.std(logzs, ddof=1))
+    single_rms = float(np.sqrt(np.mean(np.square(errs))))
+    consistent = between_sd <= 1.5 * single_rms
+    between = between_sd / math.sqrt(k) if consistent else between_sd
+    return float(np.mean(logzs)), max(between, single_rms / math.sqrt(k))
+
+
+def validate_aspire(device, row: str, seed: int = 1):
+    """A validation row as ``benchmarks/validate.py`` runs it: the problem
+    (``VALIDATE_ROWS``) on its prior bounds, an nsf-tpu flow at the given
+    seed fitted for 25 epochs at batch 512 on 8192 of its initial draws
+    (``default_rng(0)``)."""
+    import numpy as np
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import get_problem
+
+    name, d = VALIDATE_ROWS[row]
+    p = get_problem(name, dims=d)
+    init = Samples(p.draw_initial_samples(np.random.default_rng(0), 8192))
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=d, prior_bounds=p.prior_bounds, flow_backend="nsf",
+                 architecture="nsf-tpu", seed=seed, device=device)
+    asp.fit(init, n_epochs=25, batch_size=512)
+    return p, asp
+
+
+def validate_anchor(asp, n: int) -> dict:
+    """SMC at n with 20-step tpCN on ``asp``'s default path: every mutation
+    one B2 launch (counted), finite samples of the problem's shape."""
+    import torch
+
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    reset_launch_counts()
+    post = asp.sample_posterior(sampler="smc", n_samples=n,
+                                sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    launches = launch_counts()
+    sampler = asp.sampler
+    routes = sampler.history.mutation_route
+    out = {"log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
+           "n_mutations": len(routes), "launches": launches,
+           "config": FC.config_id(asp.flow.architecture),
+           "ladder": "device" if sampler.ladder is not None else "host"}
+    if set(routes) != {"fused_kernel"}:
+        raise AssertionError(f"mutations left the chain kernel: {routes}")
+    if asp.device.type == "cuda" and (launches["chain"] != len(routes)
+                                      or launches["coupling"] < 1):
+        raise AssertionError(f"{launches} for {len(routes)} mutations")
+    if tuple(post.x.shape) != (n, asp.dims) or not bool(
+            torch.isfinite(post.x).all()) or not (
+            math.isfinite(post.log_evidence)
+            and math.isfinite(post.log_evidence_error)):
+        raise AssertionError(f"anchor samples or log Z not finite: {out}")
+    return out
+
+
+def validate_kernels(device, row: str, n: int, n_chain: int,
+                     n_pipeline: int) -> dict:
+    """B1/B3 and B2 at a validation row's shape: B1/B3 of nsf-tpu at its d
+    (perturbed by 0.1, seed 5) against plain at n under float64
+    arbitration, and timed with plain torch beside; B2 on the row's
+    chain (``validate_chain_setup``) against the plain chain at n_chain x
+    CHAIN_STEPS, and timed at n_pipeline with plain torch beside."""
+    import torch
+
+    from aspire_tpu_torch.flows.architectures import nsf_tpu
+    from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    _, d = VALIDATE_ROWS[row]
+    c = coupling_outputs(device, (nsf_tpu(d), 5, 0.1), n, 1)
+    bad = {what: assert_kernel_close(*v, f"{row} d={d} {what}")
+           for what, v in c["outputs"].items()}
+    out = {"d": d, "max_abs_err": max(
+        max_err(k, p) for what, (k, p, _) in c["outputs"].items()
+        if not what.startswith("round trip")),
+        "ill_conditioned_points": bad}
+    if device.type != "cuda":
+        out["chain_max_abs_err"] = assert_program_chain(
+            validate_chain_setup(device, n_chain, CHAIN_STEPS, row), row)
+        return out
+    arch, params, x, z = c["arch"], c["params"], c["x"], c["z"]
+    coupling_times(arch, params, x, z, out)
+    out["plain_ms"] = cuda_ms(lambda: arch.forward_plain(params, x), 5)
+    out["inverse_plain_ms"] = cuda_ms(lambda: arch.inverse_plain(params, z),
+                                      5)
+    w = FC.prepare_mma_params(arch, params)
+    for mode, key, inp in (("forward", "kernel_ms", x),
+                           ("inverse", "inverse_kernel_ms", z)):
+        kernel_ms_later(out, key, lambda mode=mode, inp=inp:
+                        FC.launch_packed(arch, mode, w, inp),
+                        "coupling_kernel")
+    out["chain_max_abs_err"] = assert_program_chain(
+        validate_chain_setup(device, n_chain, CHAIN_STEPS, row), row)
+    cfg, cparams, z0, beta, step0, refs, target, dt, _, _ = (
+        validate_chain_setup(device, n_pipeline, CHAIN_STEPS, row))
+
+    def chain():
+        return FM.fused_mh_chain(cfg, cparams, z0, beta, (1, 2), step0,
+                                 *refs, target, data_transform=dt)
+
+    out["chain_ms"] = cuda_ms(chain)
+    out["chain_ms_single_call"] = cuda_ms_single(chain)
+    out["chain_plain_ms"] = cuda_ms(lambda: FM.chain_plain(
+        cfg, cparams, z0, beta, step0, *refs, target, data_transform=dt,
+        seed=(1, 2)), 3)
+    kernel_ms_later(out, "chain_kernel_ms", chain, "chain_kernel", reps=5)
+    out["chain_program_level"] = FM.program_level(dt, None)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_validate_targets(device, n_anchor: int, n_pipeline: int) -> dict:
+    """The JAX package's validation rows (``benchmarks/validate.py``):
+    Rosenbrock at d = 2 (logit + affine data transform on its box) and
+    Neal's funnel at d = 5 (affine), each fitted as the script fits it
+    (``validate_aspire``), nsf-tpu at B1/B3's and B2's configurations 3
+    and 4:
+
+    (a) B1/B3 at both shapes against plain at N_COUPLING, B2 on each row's
+    chain against the plain chain at N_CHAIN x CHAIN_STEPS, and their
+    times (``validate_kernels``);
+    (b) the anchors at ``n_anchor`` with 20-step tpCN, every mutation one
+    B2 launch: Rosenbrock's log Z within max(5 sigma, 0.02) of the
+    quadrature truth; the funnel's from three fits (seeds 1, 2, 3; the
+    reference gates it on flow-refit replicates) combined as the
+    reference combines them (``combine_replicates``), held the same way;
+    (c) the ``n_pipeline`` pipelines: the device ladder in turns with the
+    host ladder (1 B2 and 0 B1 a rung, one population for both),
+    ``replay_check``, and the split route (B1, CHAIN_STEPS + 2 a rung) in
+    turns the same way, the two routes' log Z within max(5 combined
+    sigma, 0.15).
+    """
+    on_card = device.type == "cuda"
+    out = {"truth": {"rosenbrock": rosenbrock_truth(),
+                     "funnel": funnel_truth()}}
+    log(f"validation rows' quadrature log Z: {out['truth']}")
+    for row in VALIDATE_ROWS:
+        out[row] = {"kernels": validate_kernels(
+            device, row, N_COUPLING, N_CHAIN, n_pipeline)}
+        log(f"{row}: kernels against plain: {out[row]['kernels']}")
+    asps = {}
+    for row in VALIDATE_ROWS:
+        seeds = (1,) if row == "rosenbrock" else (1, 2, 3)
+        anchors = []
+        for seed in seeds:
+            _, asp = validate_aspire(device, row, seed)
+            asps.setdefault(row, asp)
+            anchors.append(validate_anchor(asp, n_anchor))
+        log_z, err = (combine_replicates([a["log_z"] for a in anchors],
+                                         [a["log_z_err"] for a in anchors])
+                      if len(anchors) > 1 else
+                      (anchors[0]["log_z"], anchors[0]["log_z_err"]))
+        out[row]["anchor"] = {"log_z": log_z, "log_z_err": err,
+                              "runs": anchors, "truth": out["truth"][row]}
+        log(f"{row} anchor, n={n_anchor}: {out[row]['anchor']}")
+        # benchmarks/validate.py's gate.
+        if not abs(log_z - out["truth"][row]) < max(5 * err, 0.02):
+            raise AssertionError(f"{row} anchor off the truth: "
+                                 f"{out[row]['anchor']}")
+
+    pipeline = dict(sampler="smc", n_samples=n_pipeline,
+                    store_sample_history=False,
+                    sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    split = dict(pipeline, sampler_kwargs=dict(n_steps=CHAIN_STEPS,
+                                               fused_chain=False))
+    for row, asp in asps.items():
+        ladders = ladder_turns(asp, pipeline, {"chain": 1})
+        (_, lad), = asp.ladder_cache.values() if on_card else ((None, None),)
+        per_rung = captured_launches(lad) if on_card else None
+        if on_card and (per_rung != {"coupling": 0, "chain": 1, "maf": 0}
+                        or not ladders["ladders_agree_bitwise"]):
+            raise AssertionError(f"{row} device ladder: {per_rung} a rung, "
+                                 f"{ladders}")
+        replay = replay_check(asp) if on_card else None
+        ladders_split = ladder_turns(asp, split,
+                                     {"coupling": CHAIN_STEPS + 2})
+        tol = max(5 * math.hypot(ladders["log_z_err"],
+                                 ladders_split["log_z_err"]), 0.15)
+        if abs(ladders["log_z"] - ladders_split["log_z"]) >= tol:
+            raise AssertionError(f"{row}: routes disagree on log Z: B2 "
+                                 f"{ladders}, split {ladders_split}")
+        out[row].update(ladders=ladders, per_rung=per_rung,
+                        replay_vs_eager=replay, ladders_split=ladders_split,
+                        routes_tolerance=tol)
+        log(f"{row} pipelines, n={n_pipeline}: B2 {ladders}; split "
+            f"{ladders_split}")
+    return out
+
+
 def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
     """The MAF path: a maf-rqs flow fitted and run through SMC, where
     every mutation takes the split chain and every density pass of it the
@@ -2483,12 +2783,12 @@ def phase_hierarchical(device) -> dict:
     return out
 
 
-def check_result(samples, n: int, truth: float) -> None:
+def check_result(samples, n: int, truth: float, dims: int = 4) -> None:
     import torch
 
-    if tuple(samples.x.shape) != (n, 4) or not bool(
+    if tuple(samples.x.shape) != (n, dims) or not bool(
             torch.isfinite(samples.x).all()):
-        raise AssertionError("posterior samples are not finite (n, 4)")
+        raise AssertionError(f"posterior samples are not finite (n, {dims})")
     err = samples.log_evidence_error
     if not math.isfinite(samples.log_evidence) or not math.isfinite(err):
         raise AssertionError("log evidence is not finite")
@@ -2560,6 +2860,7 @@ def main() -> int:
     main_path["uncapturable_target"] = timed(phase_uncapturable_target,
                                              device, N_CHAIN)
     bounded = timed(phase_bounded_path, device, N_CHAIN, N_PIPELINE)
+    validate = timed(phase_validate_targets, device, N_VALIDATE, N_PIPELINE)
     maf_path = timed(phase_maf_main_path, device, N_CHAIN, N_PIPELINE)
     hier = timed(phase_hierarchical, device)
     coupling = timed(phase_coupling, device, N_COUPLING)
@@ -2595,6 +2896,24 @@ def main() -> int:
               for k, v in bt.items()) + f"; plain torch (logit) "
           f"{bt['logit']['plain_ms']:.4f} ms; shared memory at d=32 "
           f"{bounded['shared_bytes_d32']} B", flush=True)
+    for row, v in ((r, validate[r]) for r in VALIDATE_ROWS):
+        k, a, lb, ls = (v["kernels"], v["anchor"], v["ladders"],
+                        v["ladders_split"])
+        print(f"[{card}] validation row {row} (d={k['d']}, nsf-tpu, "
+              f"configuration {a['runs'][0]['config']}): anchor n="
+              f"{N_VALIDATE} log Z {a['log_z']:.4f} +/- {a['log_z_err']:.4f}"
+              f" vs quadrature {a['truth']:.4f} ({len(a['runs'])} fit(s)); "
+              f"pipeline n={N_PIPELINE}: device ladder {lb['device_s']:.4f} "
+              f"s vs host ladder {lb['host_s']:.4f} s on B2 ({lb['rungs']} "
+              f"rungs, per rung {v['per_rung']}); split route "
+              f"{ls['device_s']:.4f} s vs {ls['host_s']:.4f} s, log Z "
+              f"{ls['log_z']:.4f} vs B2 {lb['log_z']:.4f}; B1 "
+              f"{k['ms']:.4f} ms events, {k['kernel_ms']:.4f} ms alone "
+              f"(plain {k['plain_ms']:.4f}), B3 {k['inverse_ms']:.4f} / "
+              f"{k['inverse_kernel_ms']:.4f} ms (plain "
+              f"{k['inverse_plain_ms']:.4f}); B2 {k['chain_ms']:.4f} ms "
+              f"events, {k['chain_kernel_ms']:.4f} ms alone (plain "
+              f"{k['chain_plain_ms']:.4f})", flush=True)
     for name, (arch, *_) in coupling_flows().items():
         v = coupling["flows"][name]
         b = coupling_bound(arch, N_COUPLING)
@@ -2864,6 +3183,39 @@ def main() -> int:
                                "ms_n131072")},
          **hb2, "library_ms": None},
     ]
+    for row, v in ((r, validate[r]) for r in VALIDATE_ROWS):
+        k, d = v["kernels"], v["kernels"]["d"]
+        arch = nsf_tpu(d)
+        where = (f"{row} validation row: nsf-tpu at d={d}, configuration "
+                 f"{v['anchor']['runs'][0]['config']}")
+        kernels.append({
+            "name": f"coupling_kernel B1/B3, d={d}", "route": "cuda",
+            "config": where, "source": "aspire_tpu_torch/csrc/coupling.cu",
+            "replaces": "aspire_tpu/ops/fused_coupling.py:445",
+            "launches": v["ladders_split"]["launches"]["coupling"],
+            "launches_run": "split route pipeline, device ladder",
+            "launches_anchor_draws": sum(
+                a["launches"]["coupling"] for a in v["anchor"]["runs"]),
+            "max_abs_err": k["max_abs_err"],
+            **{key: k[key] for key in (
+                "ms", "ms_single_call", "kernel_ms", "plain_ms",
+                "inverse_ms", "inverse_ms_single_call", "inverse_kernel_ms",
+                "inverse_plain_ms")},
+            **coupling_bound(arch, N_COUPLING), "library_ms": None})
+        kernels.append({
+            "name": f"chain_kernel B2, d={d}", "route": "cuda",
+            "config": where + f", {row} target, program level "
+                              f"{k['chain_program_level']}",
+            "source": "aspire_tpu_torch/csrc/chain.cu",
+            "replaces": "aspire_tpu/ops/fused_mutation.py:1038",
+            "launches": v["ladders"]["launches"]["chain"],
+            "launches_run": "pipeline, device ladder",
+            "launches_anchor": sum(a["launches"]["chain"]
+                                   for a in v["anchor"]["runs"]),
+            "max_abs_err": k["chain_max_abs_err"],
+            "ms": k["chain_ms"], "ms_single_call": k["chain_ms_single_call"],
+            "kernel_ms": k["chain_kernel_ms"], "plain_ms": k["chain_plain_ms"],
+            **chain_bound(arch, N_PIPELINE, CHAIN_STEPS), "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

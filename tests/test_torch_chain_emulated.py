@@ -68,9 +68,11 @@ HARNESS = r"""
 namespace aspire { float4 smem4[232448 / 16]; }
 using S = aspire::MmaShape<4, 64, 64, 8, true>;
 using W = aspire::MmaShape<32, 128, 128, 8, true>;
-// Configuration 0 (nsf-tpu at d = 4) or 2 (the wide form at d = 32), the
-// instance that applies programs or the one without (launch_chain's
-// choice).
+using S2 = aspire::MmaShape<2, 64, 64, 8, true>;
+using S5 = aspire::MmaShape<5, 64, 64, 8, true>;
+// Configuration 0 (nsf-tpu at d = 4), 2 (the wide form at d = 32), 3 or 4
+// (nsf-tpu at d = 2 and d = 5, every in-kernel target), the instance that
+// applies programs or the one without (launch_chain's choice).
 template <int CFG, bool PROGS>
 void run_chain(const aspire::ChainArgs& a, int nt) {
   for (int b = 0; b < nt; ++b) {
@@ -85,9 +87,13 @@ void run_chain(const aspire::ChainArgs& a, int nt) {
         threadIdx = {(unsigned)t, 0, 0};
         blockIdx = {(unsigned)b, 0, 0};
         if constexpr (CFG == 0) {
-          aspire::chain_kernel<4, 64, 64, 8, true, PROGS>(a);
+          aspire::chain_kernel<4, 64, 64, 8, true, PROGS, 0>(a);
+        } else if constexpr (CFG == 2) {
+          aspire::chain_kernel_wide<32, 128, 128, 8, true, PROGS, 0>(a);
+        } else if constexpr (CFG == 3) {
+          aspire::chain_kernel<2, 64, 64, 8, true, PROGS, 1>(a);
         } else {
-          aspire::chain_kernel_wide<32, 128, 128, 8, true, PROGS>(a);
+          aspire::chain_kernel<5, 64, 64, 8, true, PROGS, 1>(a);
         }
       });
     }
@@ -115,6 +121,27 @@ int main(int argc, char** argv) {
     }
     return 0;
   }
+  if (argc == 3) {  // configurations 3 and 4: the C entries, MmaShape's
+    for (int cfg : {3, 4}) {
+      int v[16];
+      const int count = aspire_chain_layout(cfg, v, 16);
+      for (int e = 0; e < count; ++e) printf("%d ", v[e]);
+      printf("\n");
+    }
+    printf("%d %d %d %d %d %d %d %d %d %d %d\n", S2::SIZE, S2::W1, S2::B1,
+           S2::W2, S2::B2, S2::W3, S2::B3, S2::ROW, S2::STAGE, S2::RES,
+           S2::CHUNK);
+    printf("%d %d %d %d %d %d %d %d %d %d %d\n", S5::SIZE, S5::W1, S5::B1,
+           S5::W2, S5::B2, S5::W3, S5::B3, S5::ROW, S5::STAGE, S5::RES,
+           S5::CHUNK);
+    for (int d : {2, 5}) {
+      int v[8];
+      const int count = aspire_consts_layout(d, v, 8);
+      for (int e = 0; e < count; ++e) printf("%d ", v[e]);
+      printf("\n");
+    }
+    return 0;
+  }
   const int n = atoi(argv[1]), layers = atoi(argv[2]), steps = atoi(argv[3]);
   const int kernel = atoi(argv[4]), gm = atoi(argv[5]), go = atoi(argv[6]);
   const int rows = atoi(argv[7]), target = atoi(argv[8]);
@@ -125,10 +152,12 @@ int main(int argc, char** argv) {
   const float beta = atof(argv[12]), nu = atof(argv[13]);
   const float target_acc = atof(argv[14]), rate = atof(argv[15]);
   const float max_log_step = atof(argv[16]), tail = atof(argv[17]);
-  const int cfg = atoi(argv[20]), d = cfg == 2 ? 32 : 4;
+  const int cfg = atoi(argv[20]);
+  const int dims[] = {4, 0, 32, 2, 5};
+  const int sizes[] = {S::SIZE, 0, W::SIZE, S2::SIZE, S5::SIZE};
+  const int d = dims[cfg], size = sizes[cfg];
   int layout[8];
   const int nt = n / 256, cs = layout[aspire_consts_layout(d, layout, 8) - 1];
-  const int size = cfg == 2 ? W::SIZE : S::SIZE;
   std::vector<float> z0(d * n), w(layers * size), c(cs), step0(nt);
   std::vector<float> noise(injected ? (size_t)steps * rows * n : 0);
   std::vector<float> z(d * n), lq(n), lpi(n), ll(n), nacc(n);
@@ -149,6 +178,10 @@ int main(int argc, char** argv) {
   const bool progs = programs == aspire::kPrograms;
   if (cfg == 2) {
     progs ? run_chain<2, true>(a, nt) : run_chain<2, false>(a, nt);
+  } else if (cfg == 3) {
+    progs ? run_chain<3, true>(a, nt) : run_chain<3, false>(a, nt);
+  } else if (cfg == 4) {
+    progs ? run_chain<4, true>(a, nt) : run_chain<4, false>(a, nt);
   } else {
     progs ? run_chain<0, true>(a, nt) : run_chain<0, false>(a, nt);
   }
@@ -352,4 +385,34 @@ def test_wide_chain_kernel_source_runs_the_programs(harness):
         torch.device("cpu"), FM.TILE, 2, "periodic",
         setup=lambda device, n, steps: chip_smoke.hierarchical_chain_setup(
             device, n, steps, n_layers=2))
+    _program_case(harness, *setup)
+
+
+def test_validate_shapes_chain_layout_table_matches_python(harness):
+    """Configurations 3 and 4 (nsf-tpu at d = 2 and d = 5): the layout the
+    C entry reports and MmaShape's own equal the Python packing's (d = 5:
+    halves padded to 3 dims), and the constant
+    block at d = 2 and 5 equals ``consts_layout``."""
+    out = subprocess.run([str(harness), "layout", "validate"], check=True,
+                         capture_output=True, text=True, timeout=60).stdout
+    rows = [[int(v) for v in line.split()] for line in out.splitlines()]
+    lib2, lib5, shape2, shape5, consts2, consts5 = rows
+    assert lib2 == shape2 == list(FM.chain_layout(nsf_tpu(2)))
+    assert lib5 == shape5 == list(FM.chain_layout(nsf_tpu(5)))
+    assert consts2 == list(FM.consts_layout(2))
+    assert consts5 == list(FM.consts_layout(5))
+
+
+@pytest.mark.parametrize("row", ["rosenbrock", "funnel"])
+def test_validate_shapes_chain_kernel_source_matches_plain(harness, row):
+    """The validation rows' chains (``chip_smoke.validate_chain_setup``):
+    Rosenbrock at d = 2 with its logit + affine data transform (the
+    instance with programs), the funnel at d = 5 with the affine one (the
+    instance without; the flow's halves padded), their in-kernel targets,
+    two tiles, three steps, on injected nudged noise at the card check's
+    tolerances."""
+    setup = chip_smoke.validate_chain_setup(torch.device("cpu"), N, STEPS,
+                                            row)
+    level = FM.program_level(setup[7], setup[-1])
+    assert level == (2 if row == "rosenbrock" else 1)
     _program_case(harness, *setup)

@@ -67,8 +67,14 @@ void launch(const float* x, float* z, float* ld, const float* w, int n,
         } else if constexpr (CFG == 1) {
           aspire::coupling_kernel<4, 64, 64, 1, false, DENSITY>(
               x, z, ld, w, n, layers, 5.0f);
-        } else {
+        } else if constexpr (CFG == 2) {
           aspire::coupling_kernel_wide<32, 128, 128, 8, true, DENSITY>(
+              x, z, ld, w, n, layers, 5.0f);
+        } else if constexpr (CFG == 3) {
+          aspire::coupling_kernel<2, 64, 64, 8, true, DENSITY>(
+              x, z, ld, w, n, layers, 5.0f);
+        } else {
+          aspire::coupling_kernel<5, 64, 64, 8, true, DENSITY>(
               x, z, ld, w, n, layers, 5.0f);
         }
       });
@@ -78,7 +84,7 @@ void launch(const float* x, float* z, float* ld, const float* w, int n,
 }
 int main(int argc, char** argv) {
   if (argc == 2) {  // the layout table of each configuration
-    for (int cfg = 0; cfg < 3; ++cfg) {
+    for (int cfg = 0; cfg < 5; ++cfg) {
       int v[16];
       const int count = aspire_coupling_layout(cfg, v, 16);
       for (int e = 0; e < count; ++e) printf("%d ", v[e]);
@@ -88,7 +94,8 @@ int main(int argc, char** argv) {
   }
   const int n = atoi(argv[1]), layers = atoi(argv[2]), cfg = atoi(argv[3]);
   const int density = atoi(argv[4]), warps = atoi(argv[5]);
-  const int floats = atoi(argv[6]), d = cfg == 2 ? 32 : 4;
+  const int dims[] = {4, 4, 32, 2, 5};
+  const int floats = atoi(argv[6]), d = dims[cfg];
   std::vector<float> x(d * n), w(floats), z(d * n, -1.f), ld(n, -1.f);
   FILE* f = fopen(argv[7], "rb");
   if (fread(x.data(), 4, x.size(), f) != x.size()) return 2;
@@ -99,9 +106,11 @@ int main(int argc, char** argv) {
   gridDim = {(unsigned)blocks, 1, 1};
   using L = void (*)(const float*, float*, float*, const float*, int, int,
                      int);
-  const L runs[3][2] = {{launch<0, false>, launch<0, true>},
+  const L runs[5][2] = {{launch<0, false>, launch<0, true>},
                         {launch<1, false>, launch<1, true>},
-                        {launch<2, false>, launch<2, true>}};
+                        {launch<2, false>, launch<2, true>},
+                        {launch<3, false>, launch<3, true>},
+                        {launch<4, false>, launch<4, true>}};
   runs[cfg][density](x.data(), z.data(), ld.data(), w.data(), n, layers,
                      blocks);
   f = fopen(argv[8], "wb");
@@ -148,17 +157,17 @@ def _run(harness, arch, mode: str, packed, x, warps: int):
 def test_coupling_layout_table_matches_python(harness):
     """The layout the kernel reads, as the C entry the wrapper checks at
     launch reports it, equals the Python packing's (``mma_layout``, then
-    the most warps per block) for the spline and the affine
-    configuration."""
+    the most warps per block) for every configuration: the spline and the
+    affine one at d = 4, config 5's wide one, and nsf-tpu at d = 2 and at
+    d = 5 (the validation rows; padded halves)."""
     out = subprocess.run([str(harness), "layout"], check=True,
                          capture_output=True, text=True, timeout=60).stdout
     rows = [[int(v) for v in line.split()] for line in out.splitlines()]
     wide = chip_smoke.hierarchical_flow()
-    assert rows == [[*FC.mma_layout(nsf_tpu(4)), FC.COUPLING_WARPS],
-                    [*FC.mma_layout(realnvp(4)), FC.COUPLING_WARPS],
-                    [*FC.mma_layout(wide), FC.COUPLING_WARPS]]
-    assert FC.config_id(nsf_tpu(4)) == 0 and FC.config_id(realnvp(4)) == 1
-    assert FC.config_id(wide) == 2 and FC.mma_wide(wide)
+    flows = [nsf_tpu(4), realnvp(4), wide, nsf_tpu(2), nsf_tpu(5)]
+    assert rows == [[*FC.mma_layout(a), FC.COUPLING_WARPS] for a in flows]
+    assert [FC.config_id(a) for a in flows] == [0, 1, 2, 3, 4]
+    assert FC.mma_wide(wide)
 
 
 @pytest.mark.parametrize("n,warps", [(512, 8), (512 + 37, 2)])
@@ -212,6 +221,35 @@ def test_wide_coupling_kernel_source_matches_plain(harness, mode, n, warps):
     chip_smoke.assert_kernel_close(y, y_p, y_e, f"emulated wide {mode} y")
     chip_smoke.assert_kernel_close(ld, ld_p, ld_e,
                                    f"emulated wide {mode} log_det")
+    y_r, ld_r = FC.coupling_packed_plain(arch, mode, packed, x)
+    torch.testing.assert_close(y, y_r, **chip_smoke.COUPLING_TOL)
+    torch.testing.assert_close(ld, ld_r, **chip_smoke.COUPLING_TOL)
+
+
+@pytest.mark.parametrize("d,mode", [(2, "forward"), (5, "inverse")])
+def test_validate_shapes_coupling_kernel_source_matches_plain(harness, d,
+                                                              mode):
+    """nsf-tpu at the validation rows' d = 2 (one dim a half; the density
+    pass, B1) and d = 5 (halves padded to 3 dims, the output layer one
+    active dim at a time; the sampling pass, B3), 512 particles on full
+    8-warp blocks, against the plain pass (card tolerance, float64
+    arbitration) and the packed reader. The density pass at d = 5 runs in
+    the chain stand-in's flow density too; every direction at both d on
+    the card."""
+    arch, params = chip_smoke.perturbed_flow(torch.device("cpu"), 5,
+                                             nsf_tpu(d), 0.1)
+    x = torch.as_tensor(np.random.default_rng(d).normal(
+        size=(512, d)).astype(np.float32))
+    if mode == "forward":
+        x = 2.0 * x
+    packed = FC.prepare_mma_params(arch, params)
+    y, ld = _run(harness, arch, mode, packed, x, 8)
+    plain = arch.forward_plain if mode == "forward" else arch.inverse_plain
+    y_p, ld_p = plain(params, x)
+    y_e, ld_e = plain(chip_smoke.as_float64(params), x.double())
+    chip_smoke.assert_kernel_close(y, y_p, y_e, f"emulated d={d} {mode} y")
+    chip_smoke.assert_kernel_close(ld, ld_p, ld_e,
+                                   f"emulated d={d} {mode} log_det")
     y_r, ld_r = FC.coupling_packed_plain(arch, mode, packed, x)
     torch.testing.assert_close(y, y_r, **chip_smoke.COUPLING_TOL)
     torch.testing.assert_close(ld, ld_r, **chip_smoke.COUPLING_TOL)

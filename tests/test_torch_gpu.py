@@ -104,3 +104,29 @@ def test_config5_chain_kernel_matches_plain(cuda):
     out = chip_smoke.phase_chain(cuda, 2048, 8,
                                  setup=chip_smoke.hierarchical_chain_setup)
     assert abs(out["acceptance_kernel"] - out["acceptance_plain"]) < 0.1
+
+
+@pytest.mark.parametrize("row", sorted(chip_smoke.VALIDATE_ROWS))
+def test_validate_shapes_kernels_match_plain(cuda, row):
+    """B1/B3 of nsf-tpu at the validation rows' d = 2 and d = 5 (padded
+    halves, the output by dims) against plain under float64 arbitration,
+    and B2 on each row's chain (Rosenbrock with its logit program, the
+    funnel with its affine one) against the plain chain."""
+    from aspire_tpu_torch.flows.architectures import nsf_tpu
+
+    d = chip_smoke.VALIDATE_ROWS[row][1]
+    c = chip_smoke.coupling_outputs(cuda, (nsf_tpu(d), 5, 0.1), 8192, 1)
+    for what, v in c["outputs"].items():
+        chip_smoke.assert_kernel_close(*v, f"{row} {what}")
+    setup = chip_smoke.validate_chain_setup(cuda, 2048, 5, row)
+    assert chip_smoke.assert_program_chain(setup, row) < 2e-3
+
+
+@pytest.mark.parametrize("row", sorted(chip_smoke.VALIDATE_ROWS))
+def test_validate_rows_route_through_the_kernels(cuda, row):
+    """A validation row's anchor at n = 4096 with the fitted flow: every
+    mutation one B2 launch, the initial draws on B3."""
+    _, asp = chip_smoke.validate_aspire(cuda, row)
+    out = chip_smoke.validate_anchor(asp, 4096)
+    assert out["config"] == {"rosenbrock": 3, "funnel": 4}[row]
+    assert out["launches"]["chain"] == out["n_mutations"] > 0

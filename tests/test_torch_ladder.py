@@ -20,9 +20,11 @@ from aspire_tpu.models import GaussianMixtureProblem as JMixture
 from aspire_tpu_torch import Aspire, Samples
 from aspire_tpu_torch.flows import Flow
 from aspire_tpu_torch.models import (
+    FunnelProblem,
     GaussianMixtureProblem,
     GaussianProblem,
     HierarchicalProblem,
+    RosenbrockProblem,
 )
 from aspire_tpu_torch.ops import _build
 from aspire_tpu_torch.ops import fused_coupling as FC
@@ -351,8 +353,11 @@ def test_chain_plain_takes_tensor_arguments():
 
 @pytest.mark.parametrize("problem", [GaussianProblem(4),
                                      GaussianMixtureProblem(4),
-                                     HierarchicalProblem(8)],
-                         ids=["gaussian", "mixture", "hierarchical"])
+                                     HierarchicalProblem(8),
+                                     RosenbrockProblem(2),
+                                     FunnelProblem(5)],
+                         ids=["gaussian", "mixture", "hierarchical",
+                              "rosenbrock", "funnel"])
 def test_targets_make_no_tensor_from_host_data(problem, monkeypatch):
     """After one call on a device, a target's densities make no tensor from
     host data (a pageable host-to-device copy cannot be captured)."""
