@@ -47,8 +47,25 @@
 //   take chain_kernel_wide: the same chain with its state in shared memory
 //   and the flow's layers streamed through the block per pass (the wide
 //   form of coupling_mma.cuh, rounded k-step sums).
+// - A user's own target (models/targets.py KernelSource) is built into an
+//   instance of its own (ops/_build.py::build_user): the build defines
+//   ASPIRE_USER_TARGET as the path of the source, which defines
+//   user_target<D>(c, x, lpi, ll), and ASPIRE_USER_CHAIN_CONFIG(X) as the
+//   flow's row of ASPIRE_CHAIN_CONFIGS, the one configuration it compiles.
+//   That instance evaluates the user's target alone (id kUser), its
+//   constants read from global memory through ChainArgs::user_consts
+//   (any length: the constant block's target region holds 2D + 2
+//   floats), and adds an entry that evaluates user_target alone over n
+//   points (aspire_user_target). Without the define nothing of it is
+//   compiled.
 
 #include "coupling_mma.cuh"
+
+#ifdef ASPIRE_USER_TARGET
+#include ASPIRE_USER_TARGET
+#undef ASPIRE_CHAIN_CONFIGS
+#define ASPIRE_CHAIN_CONFIGS(X) ASPIRE_USER_CHAIN_CONFIG(X)
+#endif
 
 namespace aspire {
 
@@ -60,7 +77,8 @@ enum TargetId {
   kGaussian = 2,
   kHierarchical = 3,
   kRosenbrock = 4,
-  kFunnel = 5
+  kFunnel = 5,
+  kUser = 6  // a user's source: only in an instance built with it
 };
 // The last target id a configuration compiles (ASPIRE_CHAIN_CONFIGS'
 // TARGETS column: all of them, or the first three, which keeps the d = 4
@@ -140,6 +158,9 @@ struct ChainArgs {
   // replay's values.
   const float* beta_in;
   const long long* seed_in;
+#ifdef ASPIRE_USER_TARGET
+  const float* user_consts;  // the user target's constants
+#endif
 };
 
 template <int D>
@@ -354,6 +375,11 @@ template <int D, int TARGETS, class X>
 __device__ __forceinline__ void target_densities(int id, const float* c,
                                                  const X& x, float& lpi,
                                                  float& ll) {
+#ifdef ASPIRE_USER_TARGET
+  // The instance built with a user's source: its target alone (the launch
+  // admits only kUser).
+  ::user_target<D>(c, x, lpi, ll);
+#else
   const float log2pi = 2.f * kHalfLog2Pi;
   if (id == kGaussianMixture) {
     // c = [mu1 (D), mu2 (D), var1, var2]
@@ -432,8 +458,21 @@ __device__ __forceinline__ void target_densities(int id, const float* c,
   } else {
     gaussian_target<D>(c, x, lpi, ll);
   }
+#endif
   lpi = nan_to_neg_inf(lpi);
   ll = nan_to_neg_inf(ll);
+}
+
+// The target's constants: the constant block's target region, or the
+// user target's own array.
+template <int D>
+__device__ __forceinline__ const float* target_consts(
+    const ChainArgs& a, const float* __restrict__ c) {
+#ifdef ASPIRE_USER_TARGET
+  return a.user_consts;
+#else
+  return c + Consts<D>::TARGET;
+#endif
 }
 
 // Sum over the block's tile; every thread gets the same total. Calls use
@@ -504,10 +543,12 @@ __device__ __forceinline__ void tempered(const ChainArgs& a,
     for (int i = 0; i < D; ++i) x[i] = z[i];
     float pc_lj = 0.f;
     if (precond) pc_lj = c[C::LOG_J + 1] + td_apply<D, true>(c + C::PC, z, x);
-    target_densities<D, TARGETS>(a.target_id, c + C::TARGET, x, lpi, ll);
+    target_densities<D, TARGETS>(a.target_id, target_consts<D>(a, c), x,
+                                  lpi, ll);
     lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi) + pc_lj);
   } else {
-    target_densities<D, TARGETS>(a.target_id, c + C::TARGET, z, lpi, ll);
+    target_densities<D, TARGETS>(a.target_id, target_consts<D>(a, c), z,
+                                  lpi, ll);
     lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi));
   }
 }
@@ -757,10 +798,12 @@ __device__ __forceinline__ void tempered_wide(
   const float beta = c[C::BETA];
   if (PROGS && prog_flags<D>(c + C::PC)) {
     const float pc_lj = c[C::LOG_J + 1] + td_apply<D, true>(c + C::PC, zs, f);
-    target_densities<D, TARGETS>(a.target_id, c + C::TARGET, f, lpi, ll);
+    target_densities<D, TARGETS>(a.target_id, target_consts<D>(a, c), f,
+                                  lpi, ll);
     lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi) + pc_lj);
   } else {
-    target_densities<D, TARGETS>(a.target_id, c + C::TARGET, zs, lpi, ll);
+    target_densities<D, TARGETS>(a.target_id, target_consts<D>(a, c), zs,
+                                  lpi, ll);
     lp = nan_to_neg_inf((1.f - beta) * lq + beta * (ll + lpi));
   }
 }
@@ -944,7 +987,11 @@ int launch_chain(const ChainArgs& a, cudaStream_t stream) {
                                : (size_t)a.n_layers * S::SIZE;
   const size_t smem = sizeof(float) * (state + Consts<D>::SIZE + 2 * kWarps +
                                        kWarps * S::STAGE);
+#ifdef ASPIRE_USER_TARGET
+  if (a.target_id != kUser) return -3;
+#else
   if (a.target_id < 1 || a.target_id > kLastTarget[TARGETS]) return -3;
+#endif
   const bool progs = a.programs == kPrograms;
   void (*kernel)(ChainArgs);
   if constexpr (S::WIDE) {
@@ -960,6 +1007,26 @@ int launch_chain(const ChainArgs& a, cudaStream_t stream) {
   kernel<<<a.n / kTile, kTile, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+#ifdef ASPIRE_USER_TARGET
+// The user's target alone at n points x (n, D) of data space, one thread
+// each, through target_densities as the chain evaluates it.
+template <int D>
+__global__ void user_target_kernel(const float* __restrict__ x, int n,
+                                   const float* __restrict__ c,
+                                   float* __restrict__ lpi,
+                                   float* __restrict__ ll) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  float v[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) v[i] = x[(size_t)p * D + i];
+  float a, b;
+  target_densities<D, 0>(kUser, c, v, a, b);
+  lpi[p] = a;
+  ll[p] = b;
+}
+#endif
 
 }  // namespace aspire
 
@@ -1010,12 +1077,19 @@ int aspire_chain_layout(int config, int* out, int capacity) {
 
 // Returns the launch's cudaError_t; -1 for an unknown configuration, -2
 // when n is not a multiple of the tile and -3 for a target id the
-// configuration does not compile (ASPIRE_CHAIN_CONFIGS' TARGETS).
+// configuration does not compile (ASPIRE_CHAIN_CONFIGS' TARGETS; an
+// instance built with a user's source compiles kUser alone, and its entry,
+// aspire_chain_user, takes the user target's constants last).
 // scratch: 3 * D * n floats for a wide configuration (MmaShape::WIDE),
 // else unused. beta (one float) and
 // seed (two 64-bit integers, each read as its low 32 bits) are device
 // memory, read when the kernel runs.
-int aspire_chain(const float* z0, const float* weights, const float* consts,
+#ifdef ASPIRE_USER_TARGET
+int aspire_chain_user(
+#else
+int aspire_chain(
+#endif
+                 const float* z0, const float* weights, const float* consts,
                  const float* step0, const float* noise, float* z, float* lq,
                  float* lpi, float* ll, float* nacc, float* stats,
                  float* scratch, int n,
@@ -1023,13 +1097,20 @@ int aspire_chain(const float* z0, const float* weights, const float* consts,
                  int gamma_odd, int rows, int programs, int target_id,
                  const float* beta, float nu, float target_acc,
                  float adapt_rate, float max_log_step, float tail_bound,
-                 const long long* seed, int config, void* stream) {
+                 const long long* seed, int config, void* stream
+#ifdef ASPIRE_USER_TARGET
+                 , const float* user_consts
+#endif
+                 ) {
   if (n % aspire::kTile != 0) return -2;
   aspire::ChainArgs a{z0, weights, consts, step0, noise, z, lq, lpi, ll,
                       nacc, stats, scratch, n, n_layers, n_steps, kernel, gamma_m,
                       gamma_odd, rows, programs, target_id, nu,
                       target_acc, adapt_rate, max_log_step, tail_bound,
                       beta, seed};
+#ifdef ASPIRE_USER_TARGET
+  a.user_consts = user_consts;
+#endif
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ASPIRE_CHAIN_CASE(ID, D, H1, H2, K, RQS, TARGETS) \
   if (config == ID) {                                     \
@@ -1039,5 +1120,24 @@ int aspire_chain(const float* z0, const float* weights, const float* consts,
 #undef ASPIRE_CHAIN_CASE
   return -1;
 }
+
+#ifdef ASPIRE_USER_TARGET
+// The user's target at n points x (n, dims) of data space into lpi and ll
+// (n each), with constants c. Returns the launch's cudaError_t, or -1 for a
+// dims the instance does not compile.
+int aspire_user_target(const float* x, int n, int dims, const float* c,
+                       float* lpi, float* ll, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ASPIRE_USER_TARGET_CASE(ID, D, H1, H2, K, RQS, TARGETS)       \
+  if (dims == D) {                                                    \
+    aspire::user_target_kernel<D><<<(n + 255) / 256, 256, 0, s>>>(    \
+        x, n, c, lpi, ll);                                            \
+    return (int)cudaGetLastError();                                   \
+  }
+  ASPIRE_CHAIN_CONFIGS(ASPIRE_USER_TARGET_CASE)
+#undef ASPIRE_USER_TARGET_CASE
+  return -1;
+}
+#endif
 
 }  // extern "C"

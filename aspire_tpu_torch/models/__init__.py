@@ -3,8 +3,10 @@ from .targets import (  # noqa: F401
     GaussianMixtureProblem,
     GaussianProblem,
     HierarchicalProblem,
+    KernelSource,
     Problem,
     RosenbrockProblem,
     get_problem,
+    kernel_constants,
     target_densities,
 )

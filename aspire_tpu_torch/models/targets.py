@@ -8,6 +8,29 @@ and constant layouts match ``target_densities`` in ``csrc/chain.cu``;
 :func:`target_densities` is the same arithmetic in torch (the plain
 version the kernel is held against).
 
+A user's own target opts into the whole-chain kernel the same way (the
+port's form of the JAX package's ``log_likelihood_td``/``log_prior_td``
+protocol): ``kernel_target(device)`` on the object both callables are
+bound to returns ``(KernelSource(name, cuda), constants)``, or, for bare
+callables, ``log_likelihood`` and ``log_prior`` both carry the same
+``kernel_target`` attribute. ``cuda`` defines::
+
+    template <int D, class X>
+    __device__ void user_target(const float* c, const X& x, float& lpi,
+                                float& ll);
+
+where ``x[i]`` reads coordinate i of the point in data space (``X`` is a
+register array, or a view of shared memory in the wide form), ``c`` is
+``constants`` (a float32 tensor of any length on the device, made once
+per device, e.g. by :func:`kernel_constants`, so a CUDA graph can capture
+it), and ``lpi``/``ll`` receive the log-prior and log-likelihood (NaN is
+taken as -inf). The source is compiled into a chain kernel instance of
+its own at first use (``ops/_build.py::build_user``), cached by a hash of
+the kernel sources, the flags, the flow's configuration and the source.
+The user's torch ``log_likelihood``/``log_prior`` are its plain version:
+the split chain and the CPU run them. A source that does not build
+raises with nvcc's message; nothing falls back to the split chain.
+
 A density makes no tensor from host data after its first call on a
 device: its constants are kept per ``(device, dtype)``
 (:func:`_constant`), so the device ladder can capture it in a CUDA graph
@@ -40,6 +63,15 @@ def _constant(owner, name: str, value, like: torch.Tensor) -> torch.Tensor:
         cache[key] = torch.as_tensor(np.asarray(value), dtype=like.dtype,
                                      device=like.device)
     return cache[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSource:
+    """A user target's body as CUDA source (the module docstring's
+    ``user_target``), compiled into a chain kernel instance of its own."""
+
+    name: str
+    cuda: str
 
 
 def _neg_inf_if_nan(v: torch.Tensor) -> torch.Tensor:
@@ -151,7 +183,8 @@ class Problem:
     true_log_evidence = None
 
     def kernel_target(self, device="cpu"):
-        """``(id, constants)`` for the in-kernel target, or None."""
+        """``(id or KernelSource, constants)`` for the chain kernel, or
+        None."""
         return None
 
 
@@ -256,7 +289,7 @@ class GaussianMixtureProblem(Problem):
         )
 
 
-def _kernel_constants(owner, values, device):
+def kernel_constants(owner, values, device):
     """The in-kernel constants ``values`` as float32 on ``device``, made
     once per device and kept on ``owner`` (as :func:`_constant`), so a
     device ladder built on them captures no host copy."""
@@ -283,8 +316,8 @@ class RosenbrockProblem(Problem):
         return _box(samples.x, self.lower, self.upper)
 
     def kernel_target(self, device="cpu"):
-        return ROSENBROCK, _kernel_constants(self, [self.lower, self.upper],
-                                             device)
+        return ROSENBROCK, kernel_constants(self, [self.lower, self.upper],
+                                            device)
 
     def draw_initial_samples(self, rng, n: int) -> np.ndarray:
         """Points along the banana, x_{i+1} = x_i^2 + N(0, 0.5^2), clipped
@@ -314,8 +347,8 @@ class FunnelProblem(Problem):
         return _funnel(samples.x, self.scale, self.prior_scale)[1]
 
     def kernel_target(self, device="cpu"):
-        return FUNNEL, _kernel_constants(self, [self.scale, self.prior_scale],
-                                         device)
+        return FUNNEL, kernel_constants(self, [self.scale, self.prior_scale],
+                                        device)
 
     def draw_initial_samples(self, rng, n: int) -> np.ndarray:
         v = rng.normal(0, self.scale, size=(n, 1))

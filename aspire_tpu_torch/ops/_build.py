@@ -4,7 +4,9 @@ The sources in ``aspire_tpu_torch/csrc`` compile into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 cached under ``aspire_tpu_torch/_build`` by a hash of the sources and
 flags: one ``nvcc -c`` per source, all started together, then one link.
-Nothing here runs at import time.
+A user's target (``models/targets.py`` ``KernelSource``) gets a library
+of its own, ``csrc/chain.cu`` compiled for one chain configuration with
+the source in it (:func:`build_user`). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,6 +29,8 @@ NVCC_FLAGS = [
 ]
 
 _lib: ctypes.CDLL | None = None
+#: user-target libraries loaded in this process, by (source, configuration)
+_user_libs: dict[tuple, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -130,6 +135,90 @@ def load_library() -> ctypes.CDLL:
     lib.aspire_prng_uniforms.argtypes = [_P, ctypes.c_longlong, _U, _U, _P]
     lib.aspire_prng_uniforms.restype = _I
     _lib = lib
+    return lib
+
+
+def chain_config_row(config: int) -> str:
+    """Chain configuration ``config``'s row of ``ASPIRE_CHAIN_CONFIGS``
+    in ``csrc/common.cuh``, as ``X(...)``."""
+    text = (CSRC / "common.cuh").read_text()
+    table = re.search(r"#define ASPIRE_CHAIN_CONFIGS\(X\)(.*?)(?:\n\n|\Z)",
+                      text, re.S).group(1)
+    for row in re.findall(r"X\(([^)]*)\)", table):
+        if int(row.split(",")[0]) == config:
+            return f"X({row.strip()})"
+    raise ValueError(f"no chain configuration {config}")
+
+
+def user_library_path(source, config: int) -> Path:
+    """Where :func:`build_user` puts the instance of ``source`` (a
+    ``KernelSource``) for chain configuration ``config``: keyed by a hash
+    of the chain kernel's sources, the flags, the configuration and the
+    user source."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC / "chain.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(chain_config_row(config).encode())
+    digest.update(source.cuda.encode())
+    name = re.sub(r"\W", "_", source.name)[:32]
+    return BUILD_DIR / f"libaspire_user_{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_user(source, config: int) -> Path:
+    """Compile ``csrc/chain.cu`` with the user target ``source`` (a
+    ``KernelSource``) for chain configuration ``config`` alone, unless that
+    instance exists: one ``nvcc`` of a generated file that defines
+    ``ASPIRE_USER_TARGET`` (the source's path) and
+    ``ASPIRE_USER_CHAIN_CONFIG`` (the configuration's row), then includes
+    ``chain.cu``. The ptxas report is kept beside the library. Raises
+    ``RuntimeError`` with nvcc's message when it fails."""
+    out = user_library_path(source, config)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        target = Path(tmp, "user_target.cuh")
+        target.write_text(source.cuda)
+        unit = Path(tmp, "user_chain.cu")
+        unit.write_text(
+            f"#define ASPIRE_USER_TARGET \"{target}\"\n"
+            f"#define ASPIRE_USER_CHAIN_CONFIG(X) "
+            f"{chain_config_row(config)}\n"
+            f"#include \"{CSRC / 'chain.cu'}\"\n")
+        lib = Path(tmp, out.name)
+        run = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+                              str(unit)], capture_output=True, text=True)
+        text = run.stdout + run.stderr
+        out.with_suffix(".log").write_text(f"== {source.name}\n{text}")
+        if run.returncode:
+            raise RuntimeError(f"nvcc failed on the user target "
+                               f"{source.name!r} ({run.returncode}):\n"
+                               f"{text[-4000:]}")
+        os.replace(lib, out)
+    return out
+
+
+def load_user_library(source, config: int) -> ctypes.CDLL:
+    """The chain kernel instance of the user target ``source`` for chain
+    configuration ``config``, built on first use (:func:`build_user`) and
+    loaded once per process (later calls hash no source)."""
+    lib = _user_libs.get((source, config))
+    if lib is None:
+        lib = ctypes.CDLL(str(build_user(source, config)))
+        lib.aspire_chain_tile.argtypes = []
+        lib.aspire_chain_tile.restype = _I
+        lib.aspire_consts_layout.argtypes = [_I, _P, _I]
+        lib.aspire_consts_layout.restype = _I
+        lib.aspire_chain_layout.argtypes = [_I, _P, _I]
+        lib.aspire_chain_layout.restype = _I
+        lib.aspire_chain_user.argtypes = (
+            [_P] * 12 + [_I] * 9 + [_P] + [_F] * 5 + [_P, _I, _P, _P])
+        lib.aspire_chain_user.restype = _I
+        lib.aspire_user_target.argtypes = [_P, _I, _I, _P, _P, _P, _P]
+        lib.aspire_user_target.restype = _I
+        _user_libs[source, config] = lib
     return lib
 
 

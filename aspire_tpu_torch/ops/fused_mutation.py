@@ -20,6 +20,11 @@ programs"): identity, affine, logit, probit and periodic maps, masked
 per dimension in a composite. The kernel reads a program as per-dimension
 op codes and coefficients in its constant block (:func:`program_block`).
 
+The target is an in-kernel id with its constants, or a user's own
+(:class:`UserTarget`: a ``KernelSource`` and its plain version, the
+user's torch callables), which runs on an instance of the kernel built
+with its source at first use (``_build.load_user_library``).
+
 Semantics deltas against the JAX package's XLA chain, as for its TPU
 kernel: per-tile step-size adaptation (over this port's 256-particle
 tile); proposal noise from Philox4x32-10 (:func:`philox_uniforms`, the
@@ -34,15 +39,16 @@ import dataclasses
 import functools
 import itertools
 import math
+from collections.abc import Callable
 
 import numpy as np
 import torch
 
 from .. import transforms as T
 from ..flows.architectures import Coupling
-from ..models.targets import target_densities
+from ..models.targets import KernelSource, target_densities
 from . import fused_coupling as FC
-from ._build import LaunchCounter, check, load_library
+from ._build import LaunchCounter, check, load_library, load_user_library
 
 # The chain kernel's weight layout is the tensor-core pass's it shares with
 # the coupling kernel (csrc/coupling_mma.cuh), under the chain's names.
@@ -61,8 +67,36 @@ KERNELS = {"tpcn": 0, "pcn": 1, "rwmh": 2}
 CHAIN_CONFIGS = {0: (1, 2, 3), 2: (1, 2, 3), 3: (1, 2, 3, 4, 5),
                  4: (1, 2, 3, 4, 5)}
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+#: the user target's id in an instance built with its source (chain.cu
+#: ``kUser``)
+USER_TARGET = 6
 
 launches = LaunchCounter()
+#: launches of a user target's evaluation entry (:func:`user_target_eval`)
+user_target_launches = LaunchCounter()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class UserTarget:
+    """A user's target for the chain: ``source``, its CUDA body, and
+    ``plain``, its plain version, ``x (n, d)`` in data space ->
+    ``(log_prior, log_likelihood)`` (the user's torch callables). A
+    chain's ``target`` is then ``(UserTarget, constants)``, the constants
+    the source reads."""
+
+    source: KernelSource
+    plain: Callable
+
+
+def _densities(target_id, consts, x):
+    """``(log_prior, log_likelihood)`` of the chain's target at ``x``, in
+    x's dtype, NaN -> -inf: an in-kernel id's arithmetic, or a user
+    target's plain version."""
+    if not isinstance(target_id, UserTarget):
+        return target_densities(target_id, consts, x)
+    lpi, ll = target_id.plain(x)
+    return tuple(_neg_inf_if_nan(torch.as_tensor(v).reshape(-1).to(x))
+                 for v in (lpi, ll))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,7 +357,8 @@ def chain_plain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
                 seed=None, return_acc_probs: bool = False):
     """The whole chain in torch, tile by tile in lockstep.
 
-    ``target`` is ``(id, constants)`` of an in-kernel target;
+    ``target`` is ``(id, constants)`` of an in-kernel target, or
+    ``(UserTarget, constants)``;
     ``data_transform`` and ``precond`` are the programs (:class:`TDProgram`,
     None for the identity) of the flow's data transform and of the
     preconditioning. The chain runs in the preconditioned space: its state,
@@ -357,7 +392,7 @@ def chain_plain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
         zl, ld = arch.forward_plain(params, xf)
         lq = (-0.5 * torch.sum(zl * zl, dim=-1) - d * _HALF_LOG_2PI + ld
               + dt_lj)
-        lpi, ll = target_densities(target_id, consts, x)
+        lpi, ll = _densities(target_id, consts, x)
         lp = _neg_inf_if_nan((1.0 - beta) * lq + beta * (ll + lpi) + pc_lj)
         return lp, lq, lpi, ll
 
@@ -480,14 +515,15 @@ def combine_tile_stats(stats: torch.Tensor, d: int, tile: int = TILE):
 # ---------------------------------------------------------------------------
 
 
-def kernel_supports(cfg: ChainConfig, target_id: int | None = None) -> bool:
+def kernel_supports(cfg: ChainConfig, target_id=None) -> bool:
     """Whether the chain kernel is compiled for this flow configuration
-    (and, given, for the in-kernel target ``target_id``)."""
+    (and, given, for the in-kernel target ``target_id``; a
+    :class:`UserTarget` is built for any configuration)."""
     arch = cfg.arch
     return (isinstance(arch, Coupling) and len(arch.n_hidden) == 2
             and FC.config_id(arch) in CHAIN_CONFIGS
             and cfg.kernel in KERNELS
-            and (target_id is None
+            and (target_id is None or isinstance(target_id, UserTarget)
                  or int(target_id) in CHAIN_CONFIGS[FC.config_id(arch)]))
 
 
@@ -600,10 +636,9 @@ def chain_shared_bytes(arch, consts_floats: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _chain_library_layout(cfg: int) -> tuple[int, ...]:
-    """The loaded library's layout of chain configuration ``cfg``
+def _chain_library_layout(lib, cfg: int) -> tuple[int, ...]:
+    """Library ``lib``'s layout of chain configuration ``cfg``
     (``aspire_chain_layout``), read once per process."""
-    lib = load_library()
     out = (ctypes.c_int * 16)()
     count = lib.aspire_chain_layout(cfg, out, len(out))
     if not 0 <= count <= len(out):
@@ -612,11 +647,11 @@ def _chain_library_layout(cfg: int) -> tuple[int, ...]:
 
 
 @functools.lru_cache(maxsize=None)
-def _consts_library_layout(d: int) -> tuple[int, ...]:
-    """The loaded library's constant block at ``d``
-    (``aspire_consts_layout``), read once per process."""
+def _consts_library_layout(lib, d: int) -> tuple[int, ...]:
+    """Library ``lib``'s constant block at ``d`` (``aspire_consts_layout``),
+    read once per process."""
     out = (ctypes.c_int * 8)()
-    count = load_library().aspire_consts_layout(d, out, len(out))
+    count = lib.aspire_consts_layout(d, out, len(out))
     if not 0 <= count <= len(out):
         raise ValueError(f"no chain kernel compiled for d={d}")
     return tuple(out[:count])
@@ -663,12 +698,18 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     lib = load_library()
     arch = cfg.arch
     n, d = z0.shape
-    if not kernel_supports(cfg, target[0]):
+    target_id, tconsts = target
+    user = isinstance(target_id, UserTarget)
+    if not kernel_supports(cfg, target_id):
         raise ValueError(f"no chain kernel compiled for {arch}/{cfg.kernel} "
-                         f"with target {int(target[0])}")
+                         f"with target {target_id}")
+    # A user target runs on its own instance: the chain entry and layouts
+    # of the library built with its source for this configuration.
+    chain_lib = (load_user_library(target_id.source, FC.config_id(arch))
+                 if user else lib)
     if z0.dtype != torch.float32 or not z0.is_contiguous():
         raise TypeError("the chain kernel takes a contiguous float32 z0")
-    if d != arch.dims or n % TILE or lib.aspire_chain_tile() != TILE:
+    if d != arch.dims or n % TILE or chain_lib.aspire_chain_tile() != TILE:
         raise ValueError(f"z0 must be (k * {TILE}, {arch.dims}); got {tuple(z0.shape)}")
     if cfg.n_steps < 1:
         raise ValueError("n_steps must be >= 1")
@@ -682,20 +723,23 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
             raise ValueError(f"noise must have shape "
                              f"{(cfg.n_steps, cfg.noise_rows, n)}")
     layout = chain_layout(arch)
-    if _chain_library_layout(FC.config_id(arch)) != layout:
+    if _chain_library_layout(chain_lib, FC.config_id(arch)) != layout:
         raise RuntimeError("chain weight layout disagrees with the kernel "
                            "library")
-    if _consts_library_layout(d) != consts_layout(d):
+    if _consts_library_layout(chain_lib, d) != consts_layout(d):
         raise RuntimeError("chain constant block disagrees with the kernel "
                            "library")
     weights = FC.packed_coupling_params(arch, params)
     smem = chain_shared_bytes(arch, consts_layout(d)[-1])
     if smem > lib.aspire_max_shared_bytes():
         raise ValueError(f"chain kernel needs {smem} bytes of shared memory")
-    target_id, tconsts = target
     if blocks is None:
         blocks = (program_block(data_transform, d, z0.device),
                   program_block(precond, d, z0.device))
+    if user:
+        user_consts = tconsts.to(device=z0.device,
+                                 dtype=torch.float32).contiguous()
+        tconsts = user_consts[:0]
     consts = chain_consts(d, ref_mean, ref_chol, ref_ichol, *blocks, tconsts)
     beta_dev = _device_scalars(beta, torch.float32, z0.device)
     if seed is None:
@@ -713,7 +757,8 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     # The wide form's per-particle running sums (3, d, n).
     scratch = (torch.empty(3 * d * n, dtype=torch.float32, device=z0.device)
                if FC.mma_wide(arch) else None)
-    code = lib.aspire_chain(
+    launch = chain_lib.aspire_chain_user if user else chain_lib.aspire_chain
+    code = launch(
         z0.data_ptr(), weights.data_ptr(), consts.data_ptr(),
         step0.data_ptr(), noise.data_ptr() if noise is not None else None,
         z.data_ptr(), lq.data_ptr(), lpi.data_ptr(), ll.data_ptr(),
@@ -721,11 +766,39 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
         scratch.data_ptr() if scratch is not None else None,
         n, arch.n_layers, cfg.n_steps, KERNELS[cfg.kernel], cfg.gamma_m,
         cfg.gamma_odd, cfg.noise_rows, program_level(data_transform, precond),
-        int(target_id), beta_dev.data_ptr(), float(cfg.nu),
-        float(cfg.target_acceptance), float(cfg.adaptation_rate),
-        float(cfg.max_log_step), float(arch.tail_bound), seed_dev.data_ptr(),
-        FC.config_id(arch), torch.cuda.current_stream(z0.device).cuda_stream,
+        USER_TARGET if user else int(target_id), beta_dev.data_ptr(),
+        float(cfg.nu), float(cfg.target_acceptance),
+        float(cfg.adaptation_rate), float(cfg.max_log_step),
+        float(arch.tail_bound), seed_dev.data_ptr(), FC.config_id(arch),
+        torch.cuda.current_stream(z0.device).cuda_stream,
+        *((user_consts.data_ptr(),) if user else ()),
     )
     launches.count += 1
     check(code, "chain kernel")
     return z, lq, lpi, ll, nacc, stats[:, 0].clone(), stats
+
+
+def user_target_eval(target: UserTarget, consts: torch.Tensor, config: int,
+                     x: torch.Tensor):
+    """``(log_prior, log_likelihood)`` of the user target at ``x (n, d)``
+    in data space, NaN -> -inf: on a CUDA tensor one launch of the
+    instance built with its source for chain configuration ``config``
+    (the arithmetic the chain runs), on a CPU tensor its plain version."""
+    if x.device.type == "cpu":
+        return _densities(target, consts, x)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise TypeError("the user target takes a float32 (n, d) x")
+    lib = load_user_library(target.source, config)
+    x = x.contiguous()
+    consts = consts.to(device=x.device, dtype=torch.float32).contiguous()
+    n, d = x.shape
+    lpi, ll = (torch.empty(n, dtype=torch.float32, device=x.device)
+               for _ in range(2))
+    code = lib.aspire_user_target(
+        x.data_ptr(), n, d, consts.data_ptr(), lpi.data_ptr(), ll.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    user_target_launches.count += 1
+    check(code, "user target")
+    return lpi, ll

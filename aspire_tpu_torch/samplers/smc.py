@@ -37,9 +37,10 @@ import torch
 
 from ..flows.architectures import Coupling
 from ..history import SMCHistory
+from ..models.targets import KernelSource
 from ..ops import fused_coupling as FC
 from ..ops import fused_mutation as FM
-from ..ops._build import add_launches, launch_counts
+from ..ops._build import add_launches, launch_counts, load_user_library
 from ..ops.resampling import get_resampler
 from ..ops.special import effective_sample_size
 from ..samples import Samples, SMCSamples, incremental_log_weights
@@ -349,18 +350,32 @@ class SMCSampler(Sampler):
         return None
 
     def _kernel_target(self):
-        """``(id, constants)`` when both user callables are bound to one
-        problem object that carries an in-kernel target; built once per
-        run."""
+        """The chain kernel's target, built once per run: ``(id,
+        constants)`` when both user callables are bound to one problem
+        object whose ``kernel_target`` gives an in-kernel id, ``(UserTarget,
+        constants)`` when it gives a ``KernelSource`` (the callables its
+        plain version), or when both bare callables carry the same
+        ``kernel_target`` attribute (``models/targets.py``); else None."""
         if self._kernel_target_value is _UNSET:
             owner = getattr(self.log_likelihood, "__self__", None)
             fn = getattr(owner, "kernel_target", None)
             if (fn is None
                     or getattr(self.log_prior, "__self__", None) is not owner):
-                self._kernel_target_value = None
-            else:
-                self._kernel_target_value = fn(self.device)
+                fn = getattr(self.log_likelihood, "kernel_target", None)
+                if getattr(self.log_prior, "kernel_target", None) is not fn:
+                    fn = None
+            value = fn(self.device) if fn is not None else None
+            if value is not None and isinstance(value[0], KernelSource):
+                value = (FM.UserTarget(value[0], self._user_target_plain),
+                         value[1])
+            self._kernel_target_value = value
         return self._kernel_target_value
+
+    def _user_target_plain(self, x: torch.Tensor):
+        """A user target's plain version for the chain: ``(log_prior,
+        log_likelihood)`` of the user's callables on a view of ``x``."""
+        view = self._make_view(x)
+        return self.log_prior(view), self.log_likelihood(view)
 
     def _fused_chain_spec(self, kwargs, n: int, dtype) -> dict | None:
         """Dispatch predicate for the whole-chain kernel (None -> split).
@@ -370,8 +385,10 @@ class SMCSampler(Sampler):
         data transform and a preconditioning transform (or none) that lower
         to programs (``FM.canonicalize_transform``: identity, affine,
         logit, probit, periodic and their masked composites), a target with
-        an in-kernel id, an integer ``nu + d`` for tpCN, whole tiles, and on
-        a CUDA device a kernel compiled for the flow's shape. The spec holds
+        an in-kernel id or a user's source, an integer ``nu + d`` for tpCN,
+        whole tiles, and on a CUDA device a kernel compiled for the flow's
+        shape. A user's source is built into its instance here, at first
+        use (outside any CUDA graph capture); a failed build raises. The spec holds
         both programs, the preconditioning's from the transform as fitted
         when the spec is made (``mutate`` makes one per mutation, after the
         fit), and both lowered for the kernel (``blocks``), here, outside
@@ -405,9 +422,12 @@ class SMCSampler(Sampler):
         cfg = FM.ChainConfig(
             arch, kcfg["kernel"], 1, nu=kcfg["nu"],
             gamma_m=kcfg["gamma_m"], gamma_odd=kcfg["gamma_odd"])
-        if self.device.type == "cuda" and not FM.kernel_supports(
-                cfg, kcfg["target"][0]):
-            return None
+        if self.device.type == "cuda":
+            if not FM.kernel_supports(cfg, kcfg["target"][0]):
+                return None
+            if isinstance(kcfg["target"][0], FM.UserTarget):
+                load_user_library(kcfg["target"][0].source,
+                                  FC.config_id(arch))
         kcfg["blocks"] = tuple(
             FM.program_block(kcfg[k], self.dims, self.device)
             for k in ("data_transform", "precond"))

@@ -52,7 +52,14 @@ main paths (6, 7, 8) right after the build:
    row against plain, the anchors at n = 16384 against the quadrature
    truths (the funnel's from three fits, combined as the reference
    combines replicates), and the 131072 pipelines on both ladders and
-   both routes;
+   both routes; then a user's own target (``phase_user_target``:
+   ``PolynomialRegression``, its CUDA source built into an instance of
+   B2 of its own, cold and then cached, a broken source refused; the
+   instance's evaluation entry against the user's torch callables; B2
+   against the plain chain on the callables at d = 4 and in the wide form
+   at d = 32; the anchor against the analytic evidence; the 131072
+   pipeline on both ladders and both routes; B2 on it in turns with B2
+   on the mixture);
 7. the MAF path: fit a maf-rqs flow to the same draws, SMC at n = 8192
    (log Z against the analytic value, every mutation on the split chain,
    every density pass of it on the MAF kernel: launch counts), the
@@ -212,19 +219,24 @@ def kernel_ms(fn, match: str, reps: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     # A trace can come back without the card's activity (seen once, late
-    # in a run of many traces): trace again, at most twice more.
+    # in a run of many traces), or without some of its launches (one of
+    # five, once): trace again, at most twice more, until the kernels
+    # recorded are a whole number per call.
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "device_time_total", 0)
-                 for e in prof.key_averages() if match in e.key)
-        if us > 0:
+        found = [e for e in prof.key_averages() if match in e.key]
+        us = sum(getattr(e, "device_time_total", 0) for e in found)
+        count = sum(e.count for e in found)
+        if us > 0 and count % reps == 0:
             return us / reps / 1e3
-        log(f"the profiler recorded no kernel {match!r} (trace {attempt})")
-    raise AssertionError(f"the profiler recorded no kernel {match!r}")
+        log(f"the profiler recorded {count} kernels {match!r} for {reps} "
+            f"calls (trace {attempt})")
+    raise AssertionError(f"the profiler recorded no whole trace of "
+                         f"{match!r}")
 
 
 # profiler readings the phases note (kernel_ms, replay_kernels), made by
@@ -2477,6 +2489,407 @@ def phase_validate_targets(device, n_anchor: int, n_pipeline: int) -> dict:
     return out
 
 
+#: A user's own target on B2 (``models/targets.py``'s protocol): Bayesian
+#: polynomial regression on REGRESSION_POINTS evenly spaced t in [-1, 1],
+#: noise sigma REGRESSION_SIGMA.
+REGRESSION_POINTS, REGRESSION_SIGMA = 128, 0.3
+
+#: ``PolynomialRegression``'s target as CUDA source: the constants are
+#: (t, y, sigma); the mean at t by Horner's rule on the coefficients x.
+REGRESSION_CUDA = r"""
+template <int D, class X>
+__device__ void user_target(const float* c, const X& x, float& lpi,
+                            float& ll) {
+  constexpr int M = 128;
+  constexpr float kHalfLog2Pi = 0.918938533204672742f;
+  const float sigma = c[2 * M];
+  float q = 0.f;
+  for (int j = 0; j < M; ++j) {
+    const float t = c[j];
+    float m = x[D - 1];
+#pragma unroll
+    for (int k = D - 2; k >= 0; --k) m = m * t + x[k];
+    const float r = (c[M + j] - m) / sigma;
+    q += r * r;
+  }
+  ll = -0.5f * q - M * (kHalfLog2Pi + logf(sigma));
+  float p = 0.f;
+#pragma unroll
+  for (int i = 0; i < D; ++i) p += x[i] * x[i];
+  lpi = -0.5f * p - D * kHalfLog2Pi;
+}
+"""
+
+
+class PolynomialRegression:
+    """A user's Bayesian polynomial regression, written as a user of the
+    port would write it: D coefficients theta of the basis t^k (k = 0..D-1)
+    on REGRESSION_POINTS evenly spaced t in [-1, 1]; data y = Phi theta* +
+    sigma eps, sigma = REGRESSION_SIGMA, theta* and eps from
+    ``np.random.default_rng(seed)``; prior theta ~ N(0, I). Its torch
+    ``log_likelihood``/``log_prior`` are the plain version of its CUDA
+    source (``REGRESSION_CUDA``), which ``kernel_target`` hands to the
+    chain kernel. The log-evidence is analytic (``true_log_evidence``);
+    the "existing samples" are the analytic posterior's draws shifted by
+    0.5 of its standard deviation in every coefficient and widened 1.5x
+    (a shift of 0.5 in the coefficients' own units is 3-13 posterior
+    standard deviations: the flow fitted on such draws misses the
+    posterior, and SMC's log Z on the whole-chain route, the plain chain
+    on the CPU, then sat 0.56 below the truth at n = 8192, 11 sigma)."""
+
+    def __init__(self, dims: int = 4, seed: int = 0):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        self.dims = dims
+        self.parameters = [f"theta_{k}" for k in range(dims)]
+        self.t = np.linspace(-1.0, 1.0, REGRESSION_POINTS)
+        self.phi = self.t[:, None] ** np.arange(dims)
+        self.theta_star = rng.normal(size=dims)
+        self.y = (self.phi @ self.theta_star
+                  + REGRESSION_SIGMA * rng.normal(size=REGRESSION_POINTS))
+        self._data = {}
+
+    def _on(self, x):
+        """(t, y) as tensors on x's device and dtype, made once each."""
+        import torch
+
+        key = (x.device, x.dtype)
+        if key not in self._data:
+            self._data[key] = tuple(torch.as_tensor(v, dtype=x.dtype,
+                                                    device=x.device)
+                                    for v in (self.t, self.y))
+        return self._data[key]
+
+    def log_likelihood(self, samples):
+        x = samples.x
+        t, y = self._on(x)
+        m = x[:, -1:].expand(-1, t.numel())
+        for k in range(self.dims - 2, -1, -1):
+            m = m * t + x[:, k:k + 1]
+        r = (y - m) / REGRESSION_SIGMA
+        return (-0.5 * (r * r).sum(dim=-1) - REGRESSION_POINTS
+                * (0.5 * math.log(2 * math.pi) + math.log(REGRESSION_SIGMA)))
+
+    def log_prior(self, samples):
+        x = samples.x
+        return (-0.5 * (x * x).sum(dim=-1)
+                - self.dims * 0.5 * math.log(2 * math.pi))
+
+    def kernel_target(self, device="cpu"):
+        from aspire_tpu_torch.models import KernelSource, kernel_constants
+
+        return (KernelSource("polynomial_regression", REGRESSION_CUDA),
+                kernel_constants(self, [*self.t, *self.y, REGRESSION_SIGMA],
+                                 device))
+
+    def posterior(self):
+        """The analytic posterior's mean and covariance (float64)."""
+        import numpy as np
+
+        prec = np.eye(self.dims) + self.phi.T @ self.phi / REGRESSION_SIGMA**2
+        cov = np.linalg.inv(prec)
+        return cov @ self.phi.T @ self.y / REGRESSION_SIGMA**2, cov
+
+    def true_log_evidence(self) -> float:
+        """log N(y; 0, sigma^2 I + Phi Phi^T), in float64."""
+        import numpy as np
+
+        cov = (REGRESSION_SIGMA**2 * np.eye(REGRESSION_POINTS)
+               + self.phi @ self.phi.T)
+        _, logdet = np.linalg.slogdet(cov)
+        return float(-0.5 * (self.y @ np.linalg.solve(cov, self.y) + logdet
+                             + REGRESSION_POINTS * math.log(2 * math.pi)))
+
+    def posterior_draws(self, rng, n: int, shift: float = 0.0,
+                        widen: float = 1.0):
+        """n draws of the analytic posterior, shifted by ``shift`` of its
+        standard deviation in every coefficient and widened
+        ``widen``-fold about its mean."""
+        import numpy as np
+
+        mean, cov = self.posterior()
+        return rng.multivariate_normal(mean + shift * np.sqrt(np.diag(cov)),
+                                       widen**2 * cov, size=n)
+
+    def draw_initial_samples(self, rng, n: int):
+        return self.posterior_draws(rng, n, shift=0.5, widen=1.5)
+
+
+def user_target_of(problem, device):
+    """``problem``'s chain target as the sampler makes it from its
+    ``kernel_target``: ``(UserTarget, constants)``, the plain version the
+    problem's own callables."""
+    import types
+
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    source, consts = problem.kernel_target(device)
+
+    def plain(x):
+        view = types.SimpleNamespace(x=x)
+        return problem.log_prior(view), problem.log_likelihood(view)
+
+    return FM.UserTarget(source, plain), consts
+
+
+def regression_chain_setup(device, n: int, steps: int, dims: int = 4,
+                           arch=None, scale: float = 0.1):
+    """``program_chain_setup``'s tuple on ``PolynomialRegression(dims)``:
+    ``arch`` (nsf-tpu at dims) perturbed by ``scale``, start points the
+    analytic posterior's draws widened 1.5x (seed 3), their affine data
+    transform and Gaussian reference, tpCN at nu = 5 (gamma_m, gamma_odd
+    from nu + d), beta 0.7, initial step 0.5, no preconditioning."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch.flows.architectures import nsf_tpu
+    from aspire_tpu_torch.ops import fused_mutation as FM
+    from aspire_tpu_torch.samplers import kernels as K
+
+    problem = PolynomialRegression(dims)
+    arch, params = perturbed_flow(device, 6, arch or nsf_tpu(dims), scale)
+    k2 = 5 + dims
+    cfg = FM.ChainConfig(arch, "tpcn", steps, nu=5.0, gamma_m=k2 // 2,
+                         gamma_odd=k2 % 2)
+    z0 = torch.as_tensor(problem.posterior_draws(
+        np.random.default_rng(3), n, widen=1.5), dtype=torch.float32,
+        device=device)
+    ref = K.fit_gaussian_reference(z0)
+    dt = FM.affine_program(z0.mean(dim=0), z0.std(dim=0))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    step0 = torch.full((n // FM.TILE,), 0.5, device=device)
+    return (cfg, params, z0, 0.7, step0, (ref.mean, ref.chol, ref.inv_chol),
+            user_target_of(problem, device), dt, gen, None)
+
+
+def regression_aspire(device):
+    """``PolynomialRegression()`` with the main path's nsf-tpu flow fitted
+    as ``phase_main_path`` fits it: 20 epochs at batch 512 on 4000 of its
+    existing samples (``default_rng(42)``)."""
+    import numpy as np
+
+    from aspire_tpu_torch import Aspire, Samples
+
+    p = PolynomialRegression()
+    init = Samples(p.draw_initial_samples(np.random.default_rng(42), 4000))
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=p.dims, parameters=p.parameters, flow_backend="nsf",
+                 architecture="nsf-tpu", seed=1, device=device)
+    asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
+    return p, asp
+
+
+#: A source the user target's build must refuse.
+BROKEN_CUDA = REGRESSION_CUDA.replace("q += r * r;", "q += r * r")
+
+
+def user_target_build(device) -> dict:
+    """The regression's instance at configuration 0, built cold (any cached
+    build removed first) and then found in the cache, with both times; a
+    source with a syntax error must raise ``RuntimeError`` with nvcc's
+    message."""
+    from aspire_tpu_torch.models import KernelSource
+    from aspire_tpu_torch.ops import _build
+
+    source = PolynomialRegression().kernel_target(device)[0]
+    path = _build.user_library_path(source, 0)
+    path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    _build.build_user(source, 0)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _build.load_user_library(source, 0)
+    cached = time.perf_counter() - t0
+    ptxas = [line.strip() for line in path.with_suffix(".log").read_text()
+             .splitlines() if "registers" in line or "spill" in line]
+    broken = KernelSource("polynomial_regression_broken", BROKEN_CUDA)
+    _build.user_library_path(broken, 0).unlink(missing_ok=True)
+    try:
+        _build.build_user(broken, 0)
+        refused = None
+    except RuntimeError as err:
+        refused = str(err).splitlines()[0]
+    out = {"cold_s": cold, "cached_s": cached, "ptxas": ptxas,
+           "broken_source": refused}
+    log(f"user target build: {out}")
+    if refused is None or "nvcc failed" not in refused:
+        raise AssertionError("a user source with a syntax error built")
+    return out
+
+
+def user_target_eval_check(device, n: int) -> dict:
+    """The instance's evaluation entry (``FM.user_target_eval``) against
+    the user's torch callables at n points (the analytic posterior widened
+    2x, seed 5), float64 deciding: each of log_prior and log_likelihood
+    within 1e-5 relative or 2e-3 absolute of float32's; and their times."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    p = PolynomialRegression()
+    target, consts = user_target_of(p, device)
+    x = torch.as_tensor(p.posterior_draws(np.random.default_rng(5), n,
+                                          widen=2.0), dtype=torch.float32,
+                        device=device)
+    FM.user_target_launches.reset()
+    kern = FM.user_target_eval(target, consts, 0, x)
+    launches = FM.user_target_launches.count
+    plain = target.plain(x)
+    exact = target.plain(x.double())
+    out = {"n": n, "launches": launches}
+    if device.type == "cuda" and launches != 1:
+        raise AssertionError(f"the evaluation entry launched {launches} times")
+    for name, k, q, e in zip(("log_prior", "log_likelihood"), kern, plain,
+                             exact):
+        err = (k.double() - e).abs()
+        tol = 2e-3 + 1e-5 * e.abs()
+        out[f"{name}_max_abs_err"] = max_err(k, q)
+        out[f"{name}_max_err_f64"] = float(err.max())
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"user target {name}: {int((err > tol).sum())}"
+                                 f" points beyond 2e-3 + 1e-5 |f64|")
+    if device.type == "cuda":
+        out["ms"] = cuda_ms(lambda: FM.user_target_eval(target, consts, 0, x))
+        out["plain_ms"] = cuda_ms(lambda: target.plain(x))
+    log(f"user target evaluation against its torch callables: {out}")
+    return out
+
+
+def user_chain_check(device, wide: bool) -> float:
+    """B2 on the regression against the plain chain on the user's
+    callables (``assert_program_chain``): nsf-tpu at d = 4, N_CHAIN x
+    CHAIN_STEPS; or (``wide``) config 5's flow shape at d = 32, one tile x
+    CHAIN_STEPS (``chain_kernel_wide``, the target reading a Strided
+    view); then, on the card, its Philox stream against the same stream
+    injected, bit for bit."""
+    import torch
+
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    setup = (regression_chain_setup(device, FM.TILE, CHAIN_STEPS, 32,
+                                    hierarchical_flow(), 0.05)
+             if wide else regression_chain_setup(device, N_CHAIN,
+                                                 CHAIN_STEPS))
+    err = assert_program_chain(setup, "user target" + " wide" * wide)
+    cfg, params, z0, beta, step0, refs, target, dt, _, _ = setup
+    seed = (0x12345678, 0x9ABCDEF0)
+    drawn = FM.fused_mh_chain(cfg, params, z0, beta, seed, step0, *refs,
+                              target, data_transform=dt)
+    injected = torch.stack([
+        FM.philox_uniforms(seed, t, cfg.noise_rows, z0.shape[0], device)
+        for t in range(cfg.n_steps)])
+    replay = FM.fused_mh_chain(cfg, params, z0, beta, None, step0, *refs,
+                               target, data_transform=dt, noise=injected)
+    if not all(torch.equal(a, b) for a, b in zip(drawn, replay)):
+        raise AssertionError("user target: in-kernel Philox differs from "
+                             "the replay")
+    return err
+
+
+def user_chain_times(device, n: int) -> dict:
+    """B2 on the regression at n x CHAIN_STEPS in turns with B2 on the
+    built-in mixture (``chain_setup``; mixture, user, user, mixture),
+    events, the kernels alone noted for the end of the run, and the plain
+    chain on the user's callables."""
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    runs = {"mixture": (*chain_setup(device, n, CHAIN_STEPS), None),
+            "user": regression_chain_setup(device, n, CHAIN_STEPS)}
+
+    def call(kind):
+        cfg, params, z0, beta, step0, refs, target, dt, _, pc = runs[kind]
+        return lambda: FM.fused_mh_chain(cfg, params, z0, beta, (1, 2),
+                                         step0, *refs, target,
+                                         data_transform=dt, precond=pc)
+
+    out = {kind: {"ms": []} for kind in runs}
+    for kind in ("mixture", "user", "user", "mixture"):
+        out[kind]["ms"].append(cuda_ms(call(kind)))
+    out["user"]["ms_single_call"] = cuda_ms_single(call("user"))
+    for kind in runs:
+        kernel_ms_later(out[kind], "kernel_ms", call(kind), "chain_kernel",
+                        reps=5)
+    cfg, params, z0, beta, step0, refs, target, dt, _, _ = runs["user"]
+    out["user"]["plain_ms"] = cuda_ms(lambda: FM.chain_plain(
+        cfg, params, z0, beta, step0, *refs, target, data_transform=dt,
+        seed=(1, 2)), reps=3)
+    log(f"B2 on the user target in turns with the mixture, n={n}: {out}")
+    return out
+
+
+def phase_user_target(device, n_anchor: int, n_pipeline: int) -> dict:
+    """A user's own target on B2 (``PolynomialRegression``, its CUDA source
+    built into an instance of B2 of its own):
+
+    (a) the build: cold, then cached, with both times and the ptxas line;
+    a source with a syntax error raises (``user_target_build``);
+    (b) the instance's evaluation entry against the user's torch
+    callables at ``n_pipeline`` points (``user_target_eval_check``);
+    (c) B2 against the plain chain on the callables at d = 4 and, in the
+    wide form, at d = 32, the Philox stream against its replay bit for bit
+    (``user_chain_check``);
+    (d) the main path's flow and sizes: nsf-tpu fitted on the existing
+    samples; the anchor at ``n_anchor`` (every mutation one B2 launch, log
+    Z against the analytic evidence); the ``n_pipeline`` pipeline on the
+    device ladder in turns with the host ladder (1 B2 and 0 B1 a rung, one
+    population for both, ``replay_check``) and the split route (B1 and the
+    callables, ``fused_chain=False``) in turns the same way, every run's
+    log Z against the analytic evidence;
+    (e) B2 alone on the regression in turns with B2 on the mixture
+    (``user_chain_times``)."""
+    on_card = device.type == "cuda"
+    out = {"build": user_target_build(device) if on_card else None,
+           "eval": user_target_eval_check(device, n_pipeline)}
+    out["chain_max_abs_err"] = user_chain_check(device, wide=False)
+    out["wide_chain_max_abs_err"] = user_chain_check(device, wide=True)
+    log(f"user target chains against plain: d=4 {out['chain_max_abs_err']},"
+        f" d=32 {out['wide_chain_max_abs_err']}")
+    p, asp = regression_aspire(device)
+    truth = p.true_log_evidence()
+    out["truth"] = truth
+    reset_launch_counts()
+    post = asp.sample_posterior(sampler="smc", n_samples=n_anchor,
+                                sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    launches = launch_counts()
+    routes = asp.sampler.history.mutation_route
+    out["anchor"] = {"log_z": post.log_evidence,
+                     "log_z_err": post.log_evidence_error,
+                     "n_mutations": len(routes), "launches": launches}
+    log(f"user target anchor, n={n_anchor}: {out['anchor']} (truth "
+        f"{truth:.4f})")
+    if set(routes) != {"fused_kernel"}:
+        raise AssertionError(f"user target: mutations left B2: {routes}")
+    if on_card and launches["chain"] != len(routes):
+        raise AssertionError(f"user target: {launches} for {len(routes)} "
+                             "mutations")
+    check_result(post, n_anchor, truth, p.dims)
+    pipeline = dict(sampler="smc", n_samples=n_pipeline,
+                    store_sample_history=False,
+                    sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    ladders = ladder_turns(asp, pipeline, {"chain": 1}, truth)
+    (_, lad), = asp.ladder_cache.values() if on_card else ((None, None),)
+    per_rung = captured_launches(lad) if on_card else None
+    if on_card and (per_rung != {"coupling": 0, "chain": 1, "maf": 0}
+                    or not ladders["ladders_agree_bitwise"]):
+        raise AssertionError(f"user target device ladder: {per_rung} a "
+                             f"rung, {ladders}")
+    replay = replay_check(asp) if on_card else None
+    split = dict(pipeline, sampler_kwargs=dict(n_steps=CHAIN_STEPS,
+                                               fused_chain=False))
+    ladders_split = ladder_turns(asp, split, {"coupling": CHAIN_STEPS + 2},
+                                 truth)
+    out.update(ladders=ladders, per_rung=per_rung, replay_vs_eager=replay,
+               ladders_split=ladders_split)
+    if on_card:
+        out["times"] = user_chain_times(device, n_pipeline)
+    log(f"user target pipelines, n={n_pipeline}: B2 {ladders}; split "
+        f"{ladders_split}")
+    return out
+
+
 def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
     """The MAF path: a maf-rqs flow fitted and run through SMC, where
     every mutation takes the split chain and every density pass of it the
@@ -2584,18 +2997,27 @@ def coupling_times(arch, params, x, z, out: dict, key: str = "",
         out[prefix + "ms_single_call" + key] = cuda_ms_single(run, reps)
 
 
-def chain_bound(arch, n: int, steps: int) -> dict:
+def chain_bound(arch, n: int, steps: int, target_flop: int = 0) -> dict:
     """B2's bound for one ``steps``-step chain of n particles: one flow
     density per step and one for the start (the first conditioner layer
     on the FP32 pipe, the two wide ones on the tensor cores in split
-    TF32); z0 read, z and four per-particle outputs written, the packed
-    weights read once."""
+    TF32), and ``target_flop`` FP32 operations of the target per density;
+    z0 read, z and four per-particle outputs written, the packed weights
+    read once."""
     from aspire_tpu_torch.ops import fused_mutation as FM
 
     first, wide = ((steps + 1) * n * f for f in coupling_flop_parts(arch))
-    return bound(first, n * (2 * arch.dims + 4) * 4
+    return bound(first + (steps + 1) * n * target_flop,
+                 n * (2 * arch.dims + 4) * 4
                  + 4 * arch.n_layers * FM.chain_layout(arch)[0],
                  tensor_flop=wide)
+
+
+def regression_flop(dims: int) -> int:
+    """``REGRESSION_CUDA``'s FP32 operations per point: per data point
+    Horner's 2 (d - 1), the residual, its scaling and its square summed
+    (4); the prior's square sum (2 d)."""
+    return REGRESSION_POINTS * (2 * (dims - 1) + 4) + 2 * dims
 
 
 def phase_hierarchical(device) -> dict:
@@ -2861,6 +3283,7 @@ def main() -> int:
                                              device, N_CHAIN)
     bounded = timed(phase_bounded_path, device, N_CHAIN, N_PIPELINE)
     validate = timed(phase_validate_targets, device, N_VALIDATE, N_PIPELINE)
+    user = timed(phase_user_target, device, N_CHAIN, N_PIPELINE)
     maf_path = timed(phase_maf_main_path, device, N_CHAIN, N_PIPELINE)
     hier = timed(phase_hierarchical, device)
     coupling = timed(phase_coupling, device, N_COUPLING)
@@ -2914,6 +3337,24 @@ def main() -> int:
               f"{k['inverse_plain_ms']:.4f}); B2 {k['chain_ms']:.4f} ms "
               f"events, {k['chain_kernel_ms']:.4f} ms alone (plain "
               f"{k['chain_plain_ms']:.4f})", flush=True)
+    ul, us, ut, ub = (user["ladders"], user["ladders_split"], user["times"],
+                      user["build"])
+    print(f"[{card}] user target (polynomial regression, d=4, "
+          f"{REGRESSION_POINTS} points; its CUDA source in a B2 instance of "
+          f"its own): build {ub['cold_s']:.1f} s cold, {ub['cached_s']:.3f} "
+          f"s cached; anchor n={N_CHAIN} log Z {user['anchor']['log_z']:.4f}"
+          f" +/- {user['anchor']['log_z_err']:.4f} vs analytic "
+          f"{user['truth']:.4f}; pipeline n={N_PIPELINE}: device ladder "
+          f"{ul['device_s']:.4f} s vs host ladder {ul['host_s']:.4f} s on B2 "
+          f"({ul['rungs']} rungs, per rung {user['per_rung']}); split route "
+          f"{us['device_s']:.4f} s vs {us['host_s']:.4f} s, log Z "
+          f"{us['log_z']:.4f} vs B2 {ul['log_z']:.4f}; B2 on it "
+          f"{ut['user']['ms']} ms events, {ut['user']['kernel_ms']:.4f} ms "
+          f"alone, in turns with B2 on the mixture {ut['mixture']['ms']} ms "
+          f"events, {ut['mixture']['kernel_ms']:.4f} ms alone (plain "
+          f"{ut['user']['plain_ms']:.4f}); evaluation entry "
+          f"{user['eval']['ms']:.4f} ms vs callables "
+          f"{user['eval']['plain_ms']:.4f} ms at n={N_PIPELINE}", flush=True)
     for name, (arch, *_) in coupling_flows().items():
         v = coupling["flows"][name]
         b = coupling_bound(arch, N_COUPLING)
@@ -3216,6 +3657,30 @@ def main() -> int:
             "ms": k["chain_ms"], "ms_single_call": k["chain_ms_single_call"],
             "kernel_ms": k["chain_kernel_ms"], "plain_ms": k["chain_plain_ms"],
             **chain_bound(arch, N_PIPELINE, CHAIN_STEPS), "library_ms": None})
+    kernels.append({
+        "name": "chain_kernel B2, user target", "route": "cuda",
+        "config": f"a user's polynomial regression (d=4, {REGRESSION_POINTS}"
+                  " points) as CUDA source, its own instance of B2 at "
+                  "configuration 0 (nsf-tpu)",
+        "source": "aspire_tpu_torch/csrc/chain.cu",
+        "replaces": "aspire_tpu/ops/fused_mutation.py:1038",
+        "launches": ul["launches"]["chain"],
+        "launches_run": "user target pipeline, device ladder",
+        "launches_anchor": user["anchor"]["launches"]["chain"],
+        "max_abs_err": max(user["chain_max_abs_err"],
+                           user["wide_chain_max_abs_err"]),
+        "wide_max_abs_err": user["wide_chain_max_abs_err"],
+        "ms": sum(ut["user"]["ms"]) / 2,
+        "ms_single_call": ut["user"]["ms_single_call"],
+        "kernel_ms": ut["user"]["kernel_ms"],
+        "plain_ms": ut["user"]["plain_ms"],
+        "mixture_ms": ut["mixture"]["ms"],
+        "mixture_kernel_ms": ut["mixture"]["kernel_ms"],
+        **chain_bound(nsf4, N_PIPELINE, CHAIN_STEPS, regression_flop(4)),
+        "library_ms": None, "build_s": ub["cold_s"],
+        "build_cached_s": ub["cached_s"], "ptxas": ub["ptxas"],
+        "eval_ms": user["eval"]["ms"],
+        "eval_plain_ms": user["eval"]["plain_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

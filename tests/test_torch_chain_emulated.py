@@ -1,8 +1,8 @@
 """The chain kernel's CUDA source (``csrc/chain.cu``), run on the CPU.
 
 As ``tests/test_torch_maf_emulated.py`` does for the MAF kernel, and with
-its stand-in CUDA runtime (one ``std::thread`` per CUDA thread, barriers
-for ``__syncthreads``/``__syncwarp``, the warp's ``mma.sync`` m16n8k8
+its stand-in CUDA runtime (each CUDA thread a fiber on one OS thread,
+barriers for ``__syncthreads``/``__syncwarp``, the warp's ``mma.sync`` m16n8k8
 TF32 computed from its lanes' fragments), the unchanged source is compiled
 as C++ at the configuration the library compiles (nsf-tpu at d = 4) and
 run on two 256-particle tiles for three steps. Added here for this kernel:
@@ -38,12 +38,10 @@ CHAIN_RUNTIME = r"""
 #define __noinline__
 using std::isnan;
 inline float __shfl_sync(unsigned, float v, int src) {
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  emu_lanes[w].f[l][0] = v;
+  const int w = threadIdx.x / 32, ph = emu_warp[w].gen & 1;
+  emu_shfl_post(v);
   __syncwarp();
-  const float r = emu_lanes[w].f[src & 31][0];
-  __syncwarp();
-  return r;
+  return emu_lanes[w].f[ph][src & 31][0];
 }
 // erfinv to float precision: Winitzki's approximation, then Newton steps
 // on erf in double.
@@ -63,7 +61,6 @@ inline float erfinvf(float y) {
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
-#include <thread>
 #include "chain_emulated.cpp"
 namespace aspire { float4 smem4[232448 / 16]; }
 using S = aspire::MmaShape<4, 64, 64, 8, true>;
@@ -76,28 +73,17 @@ using S5 = aspire::MmaShape<5, 64, 64, 8, true>;
 template <int CFG, bool PROGS>
 void run_chain(const aspire::ChainArgs& a, int nt) {
   for (int b = 0; b < nt; ++b) {
-    emu_block = std::make_unique<std::barrier<>>(256);
-    emu_warp.clear();
-    for (int i = 0; i < 8; ++i)
-      emu_warp.push_back(std::make_unique<std::barrier<>>(32));
-    emu_lanes.assign(8, EmuLanes{});
-    std::vector<std::thread> threads;
-    for (int t = 0; t < 256; ++t) {
-      threads.emplace_back([&, b, t] {
-        threadIdx = {(unsigned)t, 0, 0};
-        blockIdx = {(unsigned)b, 0, 0};
-        if constexpr (CFG == 0) {
-          aspire::chain_kernel<4, 64, 64, 8, true, PROGS, 0>(a);
-        } else if constexpr (CFG == 2) {
-          aspire::chain_kernel_wide<32, 128, 128, 8, true, PROGS, 0>(a);
-        } else if constexpr (CFG == 3) {
-          aspire::chain_kernel<2, 64, 64, 8, true, PROGS, 1>(a);
-        } else {
-          aspire::chain_kernel<5, 64, 64, 8, true, PROGS, 1>(a);
-        }
-      });
-    }
-    for (auto& t : threads) t.join();
+    emu_run_block(b, 256, [&] {
+      if constexpr (CFG == 0) {
+        aspire::chain_kernel<4, 64, 64, 8, true, PROGS, 0>(a);
+      } else if constexpr (CFG == 2) {
+        aspire::chain_kernel_wide<32, 128, 128, 8, true, PROGS, 0>(a);
+      } else if constexpr (CFG == 3) {
+        aspire::chain_kernel<2, 64, 64, 8, true, PROGS, 1>(a);
+      } else {
+        aspire::chain_kernel<5, 64, 64, 8, true, PROGS, 1>(a);
+      }
+    });
   }
 }
 int main(int argc, char** argv) {

@@ -1,8 +1,8 @@
 """The coupling kernel's CUDA source (``csrc/coupling.cu``), run on the CPU.
 
 As ``tests/test_torch_chain_emulated.py`` does for the chain kernel, and
-with the same stand-in CUDA runtime (one ``std::thread`` per CUDA thread,
-barriers for ``__syncthreads``/``__syncwarp``, the warp's ``mma.sync``
+with the same stand-in CUDA runtime (each CUDA thread a fiber on one OS
+thread, barriers for ``__syncthreads``/``__syncwarp``, the warp's ``mma.sync``
 m16n8k8 TF32 computed from its lanes' fragments, ``__shfl_sync``), the
 unchanged source with the tensor-core pass it includes
 (``csrc/coupling_mma.cuh``) is compiled as C++ at the configurations the
@@ -42,7 +42,6 @@ from test_torch_maf_emulated import (
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
-#include <thread>
 #include "coupling_emulated.cpp"
 namespace aspire { float4 coupling_smem4[232448 / 16]; }
 // Configuration CFG of ASPIRE_COUPLING_CONFIGS, one block after another.
@@ -50,36 +49,24 @@ template <int CFG, bool DENSITY>
 void launch(const float* x, float* z, float* ld, const float* w, int n,
             int layers, int blocks) {
   for (int b = 0; b < blocks; ++b) {
-    const int threads = blockDim.x;
-    emu_block = std::make_unique<std::barrier<>>(threads);
-    emu_warp.clear();
-    for (int i = 0; i < threads / 32; ++i)
-      emu_warp.push_back(std::make_unique<std::barrier<>>(32));
-    emu_lanes.assign(threads / 32, EmuLanes{});
-    std::vector<std::thread> pool;
-    for (int t = 0; t < threads; ++t) {
-      pool.emplace_back([&, b, t] {
-        threadIdx = {(unsigned)t, 0, 0};
-        blockIdx = {(unsigned)b, 0, 0};
-        if constexpr (CFG == 0) {
-          aspire::coupling_kernel<4, 64, 64, 8, true, DENSITY>(
-              x, z, ld, w, n, layers, 5.0f);
-        } else if constexpr (CFG == 1) {
-          aspire::coupling_kernel<4, 64, 64, 1, false, DENSITY>(
-              x, z, ld, w, n, layers, 5.0f);
-        } else if constexpr (CFG == 2) {
-          aspire::coupling_kernel_wide<32, 128, 128, 8, true, DENSITY>(
-              x, z, ld, w, n, layers, 5.0f);
-        } else if constexpr (CFG == 3) {
-          aspire::coupling_kernel<2, 64, 64, 8, true, DENSITY>(
-              x, z, ld, w, n, layers, 5.0f);
-        } else {
-          aspire::coupling_kernel<5, 64, 64, 8, true, DENSITY>(
-              x, z, ld, w, n, layers, 5.0f);
-        }
-      });
-    }
-    for (auto& t : pool) t.join();
+    emu_run_block(b, blockDim.x, [&] {
+      if constexpr (CFG == 0) {
+        aspire::coupling_kernel<4, 64, 64, 8, true, DENSITY>(
+            x, z, ld, w, n, layers, 5.0f);
+      } else if constexpr (CFG == 1) {
+        aspire::coupling_kernel<4, 64, 64, 1, false, DENSITY>(
+            x, z, ld, w, n, layers, 5.0f);
+      } else if constexpr (CFG == 2) {
+        aspire::coupling_kernel_wide<32, 128, 128, 8, true, DENSITY>(
+            x, z, ld, w, n, layers, 5.0f);
+      } else if constexpr (CFG == 3) {
+        aspire::coupling_kernel<2, 64, 64, 8, true, DENSITY>(
+            x, z, ld, w, n, layers, 5.0f);
+      } else {
+        aspire::coupling_kernel<5, 64, 64, 8, true, DENSITY>(
+            x, z, ld, w, n, layers, 5.0f);
+      }
+    });
   }
 }
 int main(int argc, char** argv) {

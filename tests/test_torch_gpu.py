@@ -130,3 +130,17 @@ def test_validate_rows_route_through_the_kernels(cuda, row):
     out = chip_smoke.validate_anchor(asp, 4096)
     assert out["config"] == {"rosenbrock": 3, "funnel": 4}[row]
     assert out["launches"]["chain"] == out["n_mutations"] > 0
+
+
+def test_user_target_evaluation_matches_its_callables(cuda):
+    """The regression's instance (its CUDA source built at configuration
+    0), its evaluation entry against the user's torch callables."""
+    out = chip_smoke.user_target_eval_check(cuda, 8192)
+    assert out["log_likelihood_max_err_f64"] < 1e-2
+
+
+def test_user_target_chain_matches_plain(cuda):
+    """B2 built with the regression's source against the plain chain on
+    the user's callables at d = 4, and its Philox stream against the
+    replay, bit for bit."""
+    assert chip_smoke.user_chain_check(cuda, wide=False) < 2e-3

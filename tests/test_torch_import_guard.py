@@ -56,3 +56,42 @@ def test_port_sources_never_import_jax():
     assert patterns[1].search("from aspire_tpu import Aspire")
     assert not patterns[1].search("from aspire_tpu_torch import Aspire")
     assert not patterns[1].search("import aspire_tpu_torch.ops")
+
+
+_USER_SCRIPT = """
+import sys
+for name in ("jax", "jaxlib", "h5py", "optax"):
+    sys.modules[name] = None
+import numpy as np, torch
+torch.set_num_threads(1)
+import chip_smoke
+from aspire_tpu_torch import Aspire, Samples
+from aspire_tpu_torch.ops import _build
+from aspire_tpu_torch.ops import fused_mutation as FM
+p = chip_smoke.PolynomialRegression()
+asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior, dims=4,
+             flow_backend="nsf", architecture="nsf-tpu", n_hidden=(8, 8),
+             n_layers=2, seed=0, device="cpu")
+asp.fit(Samples(p.draw_initial_samples(np.random.default_rng(0), 512)),
+        n_epochs=2, batch_size=128)
+s = asp.sample_posterior(sampler="smc", n_samples=256,
+                         sampler_kwargs=dict(n_steps=2))
+assert np.isfinite(s.log_evidence)
+assert set(asp.sampler.history.mutation_route) == {"fused_kernel"}
+assert isinstance(asp.sampler._kernel_target()[0], FM.UserTarget)
+assert _build.user_library_path(p.kernel_target()[0], 0).name.startswith(
+    "libaspire_user_polynomial_regression_")
+mods = {m.split(".")[0] for m in sys.modules if sys.modules[m]}
+assert "jax" not in mods and "aspire_tpu" not in mods, mods
+print("ok")
+"""
+
+
+def test_user_target_path_imports_nothing_of_jax():
+    """With a user's own target loaded (``chip_smoke.PolynomialRegression``
+    through ``KernelSource``, its SMC on the whole-chain route on the CPU),
+    neither JAX nor anything of ``aspire_tpu`` is imported."""
+    out = subprocess.run([sys.executable, "-c", _USER_SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")

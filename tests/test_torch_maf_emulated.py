@@ -5,8 +5,9 @@ kernel's lane-level logic (the mma fragment layouts, the accumulator
 reused as the next product's operand, the masked blocks, the per-warp
 buffers, the ragged last tile, the persistent tile loop) would otherwise
 be checked only on the card. Here the unchanged source is compiled as
-C++ with a small stand-in for the CUDA runtime: one ``std::thread`` per
-CUDA thread, barriers for ``__syncthreads``/``__syncwarp``, and the
+C++ with a small stand-in for the CUDA runtime: each CUDA thread a fiber
+(a stack of its own) on the harness's one OS thread, switched at the
+barriers for ``__syncthreads``/``__syncwarp`` (``emu_run_block``), and the
 warp's ``mma.sync`` m16n8k8 TF32 computed from all 32 lanes' fragments
 (operands cut to their top 19 bits, as the tensor core reads them). The
 result is held against ``MAF.forward_plain`` at the card check's
@@ -16,6 +17,7 @@ source reports them, against the Python packing's. Skips where no ``g++``
 with C++20 ``<barrier>`` is installed.
 """
 
+import platform
 import re
 import shutil
 import subprocess
@@ -33,12 +35,13 @@ CSRC = Path(__file__).resolve().parent.parent / "aspire_tpu_torch" / "csrc"
 
 RUNTIME = r"""
 #pragma once
-#include <barrier>
+#include <sys/mman.h>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <memory>
+#include <functional>
 #include <vector>
 #define __global__
 #define __device__
@@ -52,7 +55,9 @@ struct float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 struct dim3s { unsigned x, y, z; };
-inline thread_local dim3s threadIdx, blockIdx;
+// The running CUDA thread's indices: set by the block's scheduler
+// (emu_run_block) each time it resumes a thread.
+inline dim3s threadIdx, blockIdx;
 inline dim3s blockDim, gridDim;
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
@@ -71,82 +76,207 @@ inline unsigned __float_as_uint(float f) {
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
 }
-inline std::unique_ptr<std::barrier<>> emu_block;
-inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp;
-struct EmuLanes { float f[32][6]; };
-inline std::vector<EmuLanes> emu_lanes;
-inline void __syncthreads() { emu_block->arrive_and_wait(); }
-inline void __syncwarp() { emu_warp[threadIdx.x / 32]->arrive_and_wait(); }
-// bar.sync id, threads: barrier `id` of those a harness makes, each for
-// the count it was made with.
-inline std::vector<std::unique_ptr<std::barrier<>>> emu_named;
-inline std::vector<int> emu_named_threads;
-inline void emu_bar_sync(int id, int threads) {
-  if (emu_named_threads.at(id) != threads) std::abort();
-  emu_named[id]->arrive_and_wait();
-}
+// A block's CUDA threads are fibers on the harness's one OS thread: each
+// runs on a stack of its own until it waits at a barrier, then the
+// scheduler resumes the next thread (in threadIdx order, wrapping) whose
+// barrier has completed since it arrived; the last thread to arrive goes
+// on at once. A wait that no thread can complete aborts (a deadlock on
+// the card too). Barriers are __syncthreads (the block's), __syncwarp
+// (its warp's 32 lanes) and bar.sync id (emu_named, emu_named_threads[id]
+// threads each).
+struct EmuBarrier { int count = 0, arrived = 0; unsigned gen = 0; };
 // cp.async as the card orders it: a thread's copies land at its wait that
 // covers them (wait_all, or wait_group N once N or fewer of its newer
 // committed groups are left), and until then their destination reads as
 // NaN; so a kernel that reads a chunk before its wait, or lets a copy
 // overwrite a slot a warp still reads, computes on NaN here too.
 struct EmuCopy { float* dst; const float* src; };
-inline thread_local std::vector<EmuCopy> emu_open_copies;
-inline thread_local std::vector<std::vector<EmuCopy>> emu_copy_groups;
+struct EmuCopies {
+  std::vector<EmuCopy> open;
+  std::vector<std::vector<EmuCopy>> groups;
+};
+struct EmuFiber {
+  void* sp = nullptr;
+  char* stack = nullptr;
+  EmuBarrier* wait = nullptr;
+  unsigned gen = 0;
+  bool done = false;
+  EmuCopies copies;
+};
+constexpr size_t kEmuStack = size_t(1) << 20;  // a guard page at its end
+inline std::vector<EmuFiber> emu_fibers;
+inline int emu_cur = -1;  // the running fiber, -1 outside a block
+inline void* emu_main_sp;
+inline std::function<void()> emu_body;
+inline EmuCopies emu_main_copies;
+inline EmuBarrier emu_block;
+inline std::vector<EmuBarrier> emu_warp, emu_named;
+inline std::vector<int> emu_named_threads;
+struct EmuLanes { float f[2][32][6], d[2][32][4]; };
+inline std::vector<EmuLanes> emu_lanes;
+// emu_switch(from, to): save the callee-saved registers on this stack and
+// its pointer at *from, then resume the stack `to` (x86-64 System V).
+extern "C" void emu_switch(void** from, void* to);
+asm(".text\n.globl emu_switch\n.type emu_switch, @function\n"
+    "emu_switch:\n"
+    "  pushq %rbp\n  pushq %rbx\n  pushq %r12\n  pushq %r13\n"
+    "  pushq %r14\n  pushq %r15\n"
+    "  movq %rsp, (%rdi)\n  movq %rsi, %rsp\n"
+    "  popq %r15\n  popq %r14\n  popq %r13\n  popq %r12\n"
+    "  popq %rbx\n  popq %rbp\n  ret\n"
+    ".size emu_switch, .-emu_switch\n");
+[[noreturn]] inline void emu_fiber_main() {
+  emu_body();
+  emu_fibers[emu_cur].done = true;
+  emu_switch(&emu_fibers[emu_cur].sp, emu_main_sp);
+  std::abort();
+}
+inline EmuCopies& emu_copies() {
+  return emu_cur < 0 ? emu_main_copies : emu_fibers[emu_cur].copies;
+}
+// Arrive at b and wait for its other threads; true for the last to arrive,
+// which goes on at once.
+inline bool emu_arrive(EmuBarrier& b) {
+  if (++b.arrived == b.count) {
+    b.arrived = 0;
+    ++b.gen;
+    return true;
+  }
+  EmuFiber& f = emu_fibers[emu_cur];
+  f.wait = &b;
+  f.gen = b.gen;
+  emu_switch(&f.sp, emu_main_sp);
+  f.wait = nullptr;
+  return false;
+}
+inline bool emu_runnable(const EmuFiber& f) {
+  return !f.done && (f.wait == nullptr || f.wait->gen != f.gen);
+}
+// Block `block` of `threads` CUDA threads (whole warps), each running
+// `body`, to the end of the last.
+inline void emu_run_block(unsigned block, int threads,
+                          std::function<void()> body) {
+  blockIdx = {block, 0, 0};
+  emu_block = EmuBarrier{threads};
+  emu_warp.assign(threads / 32, EmuBarrier{32});
+  emu_lanes.assign(threads / 32, EmuLanes{});
+  emu_named.assign(emu_named_threads.size(), EmuBarrier{});
+  for (size_t i = 0; i < emu_named.size(); ++i)
+    emu_named[i].count = emu_named_threads[i];
+  emu_body = std::move(body);
+  if ((int)emu_fibers.size() < threads) emu_fibers.resize(threads);
+  for (int t = 0; t < threads; ++t) {
+    EmuFiber& f = emu_fibers[t];
+    if (f.stack == nullptr) {
+      void* m = mmap(nullptr, kEmuStack, PROT_READ | PROT_WRITE,
+                     MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+      if (m == MAP_FAILED) std::abort();
+      f.stack = static_cast<char*>(m);
+      mprotect(f.stack, 4096, PROT_NONE);
+    }
+    f.wait = nullptr;
+    f.done = false;
+    f.copies = EmuCopies{};
+    // The first resume "returns" into emu_fiber_main with the stack
+    // aligned as at a function's entry.
+    void** sp = reinterpret_cast<void**>(
+        reinterpret_cast<uintptr_t>(f.stack + kEmuStack) & ~uintptr_t(15));
+    *--sp = nullptr;
+    *--sp = reinterpret_cast<void*>(&emu_fiber_main);
+    for (int r = 0; r < 6; ++r) *--sp = nullptr;
+    f.sp = sp;
+  }
+  int live = threads, t = threads - 1;
+  while (live > 0) {
+    int tried = 0;
+    do {
+      t = (t + 1) % threads;
+    } while (!emu_runnable(emu_fibers[t]) && ++tried < threads);
+    if (!emu_runnable(emu_fibers[t])) {
+      fprintf(stderr, "emulated block %u: every live thread waits\n", block);
+      std::abort();
+    }
+    emu_cur = t;
+    threadIdx = {(unsigned)t, 0, 0};
+    emu_switch(&emu_main_sp, emu_fibers[t].sp);
+    if (emu_fibers[t].done) --live;
+  }
+  emu_cur = -1;
+}
+inline void __syncthreads() { emu_arrive(emu_block); }
+inline void __syncwarp() { emu_arrive(emu_warp[threadIdx.x / 32]); }
+inline void emu_bar_sync(int id, int threads) {
+  if (emu_named_threads.at(id) != threads) std::abort();
+  emu_arrive(emu_named[id]);
+}
 inline void emu_cp_async16(float* dst, const float* src) {
   for (int i = 0; i < 4; ++i) dst[i] = NAN;
-  emu_open_copies.push_back({dst, src});
+  emu_copies().open.push_back({dst, src});
 }
 inline void emu_cp_async_commit() {
-  emu_copy_groups.push_back(std::move(emu_open_copies));
-  emu_open_copies.clear();
+  EmuCopies& c = emu_copies();
+  c.groups.push_back(std::move(c.open));
+  c.open.clear();
 }
 inline void emu_cp_async_wait_group(size_t pending) {
-  while (emu_copy_groups.size() > pending) {
-    for (const EmuCopy& c : emu_copy_groups.front())
-      std::memcpy(c.dst, c.src, 16);
-    emu_copy_groups.erase(emu_copy_groups.begin());
+  EmuCopies& c = emu_copies();
+  while (c.groups.size() > pending) {
+    for (const EmuCopy& e : c.groups.front()) std::memcpy(e.dst, e.src, 16);
+    c.groups.erase(c.groups.begin());
   }
 }
 inline void emu_cp_async_wait_all() {
   emu_cp_async_commit();
   emu_cp_async_wait_group(0);
 }
+// A warp-wide exchange takes one barrier: the lanes write their part into
+// the warp's buffer of the barrier's phase (its generation's parity), the
+// last lane to arrive computes what the warp's op gives (emu_arrive returns
+// true for it, before any lane resumes), and each lane then reads its
+// result; a lane's next op writes the other phase's buffer, which no lane
+// reads until every lane has arrived there.
+inline void emu_shfl_post(float v) {
+  const int w = threadIdx.x / 32;
+  emu_lanes[w].f[emu_warp[w].gen & 1][threadIdx.x % 32][0] = v;
+}
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  emu_lanes[w].f[l][0] = v;
+  const int w = threadIdx.x / 32, ph = emu_warp[w].gen & 1;
+  emu_shfl_post(v);
   __syncwarp();
-  const float r = emu_lanes[w].f[l ^ mask][0];
-  __syncwarp();
-  return r;
+  return emu_lanes[w].f[ph][(threadIdx.x % 32) ^ mask][0];
 }
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 over the warp.
 inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                     uint32_t b1) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  float* me = emu_lanes[w].f[l];
+  EmuLanes& L = emu_lanes[w];
+  const int ph = emu_warp[w].gen & 1;
+  float* me = L.f[ph][l];
   for (int r = 0; r < 4; ++r) me[r] = __uint_as_float(a[r] & 0xFFFFE000u);
   me[4] = __uint_as_float(b0 & 0xFFFFE000u);
   me[5] = __uint_as_float(b1 & 0xFFFFE000u);
-  __syncwarp();
-  auto A = [&](int row, int k) {
-    return emu_lanes[w].f[(row % 8) * 4 + k % 4][(row < 8 ? 0 : 1) +
-                                                (k < 4 ? 0 : 2)];
-  };
-  auto B = [&](int k, int col) {
-    return emu_lanes[w].f[col * 4 + k % 4][k < 4 ? 4 : 5];
-  };
-  const int g = l / 4, t = l % 4;
-  const int rows[4] = {g, g, g + 8, g + 8};
-  const int cols[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
-  float out[4];
-  for (int r = 0; r < 4; ++r) {
-    float acc = d[r];
-    for (int k = 0; k < 8; ++k) acc = std::fma(A(rows[r], k), B(k, cols[r]), acc);
-    out[r] = acc;
+  for (int r = 0; r < 4; ++r) L.d[ph][l][r] = d[r];
+  if (emu_arrive(emu_warp[w])) {
+    auto A = [&](int row, int k) {
+      return L.f[ph][(row % 8) * 4 + k % 4][(row < 8 ? 0 : 1) +
+                                            (k < 4 ? 0 : 2)];
+    };
+    auto B = [&](int k, int col) {
+      return L.f[ph][col * 4 + k % 4][k < 4 ? 4 : 5];
+    };
+    for (int lane = 0; lane < 32; ++lane) {
+      const int g = lane / 4, t = lane % 4;
+      const int rows[4] = {g, g, g + 8, g + 8};
+      const int cols[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
+      for (int r = 0; r < 4; ++r) {
+        float acc = L.d[ph][lane][r];
+        for (int k = 0; k < 8; ++k)
+          acc = std::fma(A(rows[r], k), B(k, cols[r]), acc);
+        L.d[ph][lane][r] = acc;
+      }
+    }
   }
-  __syncwarp();
-  for (int r = 0; r < 4; ++r) d[r] = out[r];
+  for (int r = 0; r < 4; ++r) d[r] = L.d[ph][l][r];
 }
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidConfiguration = 9 };
@@ -196,21 +326,10 @@ int main(int argc, char** argv) {
   blockDim = {(unsigned)(32 * warps), 1, 1};
   gridDim = {(unsigned)blocks, 1, 1};
   for (int b = 0; b < blocks; ++b) {
-    emu_block = std::make_unique<std::barrier<>>(32 * warps);
-    emu_warp.clear();
-    for (int i = 0; i < warps; ++i)
-      emu_warp.push_back(std::make_unique<std::barrier<>>(32));
-    emu_lanes.assign(warps, EmuLanes{});
-    std::vector<std::thread> threads;
-    for (int t = 0; t < 32 * warps; ++t) {
-      threads.emplace_back([&, b, t] {
-        threadIdx = {(unsigned)t, 0, 0};
-        blockIdx = {(unsigned)b, 0, 0};
-        aspire::maf_kernel<4, H, H, 8>(x.data(), z.data(), ld.data(),
-                                       w.data(), n, layers, 5.0f);
-      });
-    }
-    for (auto& t : threads) t.join();
+    emu_run_block(b, 32 * warps, [&] {
+      aspire::maf_kernel<4, H, H, 8>(x.data(), z.data(), ld.data(),
+                                     w.data(), n, layers, 5.0f);
+    });
   }
   f = fopen(argv[6], "wb");
   fwrite(z.data(), 4, z.size(), f);
@@ -273,8 +392,11 @@ def emulated_source(name: str, single_pass: bool = False) -> str:
 
 
 def cxx20_compiler(root: Path) -> str:
-    """A g++ that has C++20 ``<barrier>`` (the stand-in runtime's), or
-    skip the calling test."""
+    """A g++ that has C++20 (``<barrier>`` its probe) on x86-64 (the
+    stand-in runtime's fiber switch), or skip the calling test."""
+    if platform.machine() != "x86_64":
+        pytest.skip("the stand-in runtime switches fibers in x86-64 "
+                    "assembly")
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")

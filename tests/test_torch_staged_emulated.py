@@ -2,8 +2,8 @@
 run on the CPU.
 
 As ``tests/test_torch_coupling_emulated.py`` does for the coupling kernel,
-and with the same stand-in CUDA runtime (one ``std::thread`` per CUDA
-thread, barriers for ``__syncthreads``/``__syncwarp``, the warp's
+and with the same stand-in CUDA runtime (each CUDA thread a fiber on one
+OS thread, barriers for ``__syncthreads``/``__syncwarp``, the warp's
 ``mma.sync`` m16n8k8 TF32 computed from its lanes' fragments), the
 unchanged source with the tensor-core pass it includes
 (``csrc/coupling_mma.cuh``) is compiled as C++; each group's named barrier
@@ -52,7 +52,6 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int,
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
-#include <thread>
 #include "staged_emulated.cpp"
 namespace aspire { float4 smem4[232448 / 16]; }
 // One configuration on `blocks` persistent blocks, one after another: a
@@ -64,34 +63,19 @@ void launch(const float* x, float* z, float* ld, const float* w, int n,
   const int threads = PAIRED ? 64 : 2 * Q * S;
   blockDim = {(unsigned)threads, 1, 1};
   gridDim = {(unsigned)blocks, 1, 1};
+  // Barrier 0 is __syncthreads'; group q's is 1 + q, of 2S threads.
+  emu_named_threads.assign(Q + 1, 0);
+  for (int g = 1; g <= Q; ++g) emu_named_threads[g] = 2 * S;
   for (int b = 0; b < blocks; ++b) {
-    emu_block = std::make_unique<std::barrier<>>(threads);
-    emu_warp.clear();
-    for (int i = 0; i < threads / 32; ++i)
-      emu_warp.push_back(std::make_unique<std::barrier<>>(32));
-    emu_lanes.assign(threads / 32, EmuLanes{});
-    emu_named.clear();
-    emu_named.push_back(nullptr);  // 0 is __syncthreads'
-    emu_named_threads.assign(Q + 1, 0);
-    for (int g = 1; g <= Q; ++g) {
-      emu_named.push_back(std::make_unique<std::barrier<>>(2 * S));
-      emu_named_threads[g] = 2 * S;
-    }
-    std::vector<std::thread> pool;
-    for (int t = 0; t < threads; ++t) {
-      pool.emplace_back([&, b, t] {
-        threadIdx = {(unsigned)t, 0, 0};
-        blockIdx = {(unsigned)b, 0, 0};
-        if constexpr (PAIRED) {
-          aspire::paired_kernel<D, H1, H2, K, MICRO>(x, z, ld, w, n,
-                                                     layers, 5.0f);
-        } else {
-          aspire::staged_mma_kernel<D, H1, H2, K, Q, S>(x, z, ld, w, n,
-                                                        layers, 5.0f);
-        }
-      });
-    }
-    for (auto& t : pool) t.join();
+    emu_run_block(b, threads, [&] {
+      if constexpr (PAIRED) {
+        aspire::paired_kernel<D, H1, H2, K, MICRO>(x, z, ld, w, n, layers,
+                                                   5.0f);
+      } else {
+        aspire::staged_mma_kernel<D, H1, H2, K, Q, S>(x, z, ld, w, n,
+                                                      layers, 5.0f);
+      }
+    });
   }
 }
 int main(int argc, char** argv) {
