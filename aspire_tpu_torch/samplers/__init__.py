@@ -1,23 +1,50 @@
-"""Samplers: importance and adaptive-tempered SMC (the MCMC family,
-ensemble, gradient-based and parallel-tempered samplers are not ported)."""
+"""Samplers: importance and adaptive-tempered SMC with tpCN/pCN, stretch,
+RWMH, MALA, HMC and NUTS mutations (the standalone MCMC and
+parallel-tempered samplers are not ported)."""
 
 from __future__ import annotations
 
 from .base import Sampler  # noqa: F401
 from .importance import ImportanceSampler  # noqa: F401
-from .smc import BetaScheduleError, PCNSMC, SMCSampler  # noqa: F401
+from .smc import (  # noqa: F401
+    BetaScheduleError,
+    EnsembleSMC,
+    GradientSMC,
+    HMCSMC,
+    MALASMC,
+    NUTSSMC,
+    PCNSMC,
+    RWMHSMC,
+    SMCSampler,
+)
 
 SAMPLER_REGISTRY: dict[str, type] = {
     "importance": ImportanceSampler,
     "smc": PCNSMC,
     "pcn_smc": PCNSMC,
     "minipcn_smc": PCNSMC,
+    "ensemble_smc": EnsembleSMC,
+    "emcee_smc": EnsembleSMC,
+    "blackjax_smc": HMCSMC,
+    "hmc_smc": HMCSMC,
+    "nuts_smc": NUTSSMC,
+    "mala_smc": MALASMC,
+    "rwmh_smc": RWMHSMC,
 }
+
+#: the JAX package's standalone MCMC samplers, which need ``MCMCSamples``
+#: and ``PTMCMCSamples``: not ported yet
+_NOT_PORTED = ("mcmc", "pcn", "minipcn", "ensemble", "emcee", "ptmcmc",
+               "parallel_tempered")
 
 
 def get_sampler_class(name: str) -> type:
+    key = name.lower()
+    if key in _NOT_PORTED:
+        raise NotImplementedError(
+            f"the MCMC sampler '{name}' is not ported yet")
     try:
-        return SAMPLER_REGISTRY[name.lower()]
+        return SAMPLER_REGISTRY[key]
     except KeyError:
         raise ValueError(
             f"Unknown sampler '{name}'. Known samplers: "

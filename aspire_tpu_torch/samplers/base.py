@@ -78,6 +78,7 @@ class Sampler:
         self.generator = make_generator(rng, self.device)
         self.n_likelihood_evaluations = 0
         self._capturable_target = None
+        self._differentiable_target = None
 
     def _make_view(self, x) -> _SamplesView:
         return _SamplesView(x, parameters=self.parameters)
@@ -133,6 +134,34 @@ class Sampler:
                     "%s); the host ladder runs it.", type(err).__name__, err)
                 self._capturable_target = False
         return self._capturable_target
+
+    def target_is_differentiable(self) -> bool:
+        """True if autograd can differentiate the user ``log_likelihood``/
+        ``log_prior``: the port's counterpart of the JAX package's rule
+        that a gradient kernel needs a traceable target, decided once per
+        sampler. One call of each on a ``(2, d)`` tensor that requires
+        grad must return tensors, and their gradient with respect to it
+        must be computable (a target that leaves torch, say through
+        ``.numpy()``, fails); a tensor that does not depend on it (a
+        constant prior) passes. Any error gives False, logged."""
+        if self._differentiable_target is None:
+            x = torch.zeros((2, self.dims), dtype=self.prior_flow.dtype,
+                            device=self.device, requires_grad=True)
+            try:
+                with torch.enable_grad():
+                    view = self._make_view(x)
+                    out = (self.log_likelihood(view), self.log_prior(view))
+                    if not all(isinstance(v, torch.Tensor) for v in out):
+                        raise TypeError("the target did not return tensors")
+                    wrt = [v.sum() for v in out if v.requires_grad]
+                    if wrt:
+                        torch.autograd.grad(wrt, x, allow_unused=True)
+                self._differentiable_target = True
+            except Exception as err:  # noqa: BLE001 - any autograd failure
+                logger.info("Target density cannot be differentiated (%s: "
+                            "%s).", type(err).__name__, err)
+                self._differentiable_target = False
+        return self._differentiable_target
 
     # -- preconditioning ---------------------------------------------------
 

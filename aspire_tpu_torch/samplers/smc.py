@@ -1,7 +1,9 @@
 """Adaptive-tempered Sequential Monte Carlo: the host ladder and the device
 ladder.
 
-Counterpart of ``aspire_tpu/samplers/smc.py`` (``SMCSampler``, ``PCNSMC``).
+Counterpart of ``aspire_tpu/samplers/smc.py``: ``SMCSampler`` and its
+mutation kernels, ``PCNSMC`` (tpCN / pCN), ``EnsembleSMC`` (the stretch
+move) and ``GradientSMC`` (RWMH, MALA, HMC, NUTS).
 Two ladders walk the temperatures, as in the JAX package:
 
 - the **host ladder** (``device_ladder=False``): per temperature one batch
@@ -22,14 +24,18 @@ Each mutation runs either the whole-chain CUDA kernel
 torch version on a CPU tensor) or the per-step ("split") chain of
 :mod:`.kernels`, chosen by :meth:`SMCSampler._fused_chain_spec` exactly as
 the JAX package's ``_fused_chain_spec`` chooses between its TPU kernel and
-its XLA chain. History records which ran.
+its XLA chain. History records which ran. A gradient kernel's chain
+differentiates the tempered density with autograd
+(:func:`value_and_grad_batch`), through the flow kernels' backward.
 """
 
 from __future__ import annotations
 
+import gc
 import logging
 import math
 import time
+from functools import partial
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -154,11 +160,24 @@ def _tensors_of(transform) -> list:
     return out
 
 
+def value_and_grad_batch(log_prob_fn: Callable, x: torch.Tensor):
+    """Batched value and gradient of a summed log-density (the JAX
+    package's ``_value_and_grad_batch``): ``torch.autograd.grad`` with
+    autograd on, also inside the device ladder's ``no_grad`` body. A flow
+    kernel's pass differentiates through its plain recompute."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        lp = log_prob_fn(xg)
+        grad, = torch.autograd.grad(lp.sum(), xg)
+    return lp.detach(), grad
+
+
 class Mutation(NamedTuple):
     """One mutation's outputs, all on the device: the particles and their
     densities, the acceptance rate, the chain's autocorrelation time and
     mixing ratio, the adapted step size(s), ``cholesky_ex``'s info of the
-    Gaussian reference, and the target evaluations it made (a number)."""
+    Gaussian reference, and the target evaluations it made (a number, or a
+    0-d int64 tensor on the device for the split chain)."""
 
     x: torch.Tensor
     lq: torch.Tensor
@@ -169,7 +188,7 @@ class Mutation(NamedTuple):
     mixing: torch.Tensor
     step: torch.Tensor
     info: torch.Tensor
-    evals: int
+    evals: int | torch.Tensor
 
 
 def mutation_faults(m: Mutation) -> tuple:
@@ -242,8 +261,13 @@ class DeviceLadder:
 
     def capture(self) -> None:
         """Capture the body in a CUDA graph (the launches it records are
-        not counted: a capture runs nothing)."""
+        not counted: a capture runs nothing). Unreachable objects are
+        collected first: a ladder a run replaced sits in a reference cycle
+        (its body closes over its sampler), and the garbage collector,
+        left to itself, may free its graph in the middle of this capture,
+        which a capture does not allow (it fails)."""
         t0 = time.perf_counter()
+        gc.collect()
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
@@ -343,7 +367,7 @@ class SMCSampler(Sampler):
     # -- mutation ----------------------------------------------------------
 
     def _kernel_step_builder(self, log_prob_fn, ref, generator):
-        """Return ``(step_fn, init_step)``; overridden."""
+        """Return ``(step_fn, init_step, needs_grad)``; overridden."""
         raise NotImplementedError
 
     def _fused_kernel_config(self, kwargs) -> dict | None:
@@ -464,18 +488,24 @@ class SMCSampler(Sampler):
 
     def _mutate_split(self, z, beta, n_steps, step0, generator) -> Mutation:
         """The per-step chain at ``beta`` from the step size ``step0``
-        (<= 0 takes the initial step size), then the densities refreshed."""
+        (<= 0 takes the initial step size), started from the densities and,
+        for a gradient kernel, their gradients; then the densities
+        refreshed."""
         ref, info = K.gaussian_reference_info(z)
 
         def log_prob_fn(zz):
             return self.tempered_log_prob(zz, beta)
 
-        step_fn, init_step = self._kernel_step_builder(log_prob_fn, ref,
-                                                       generator)
+        step_fn, init_step, needs_grad = self._kernel_step_builder(
+            log_prob_fn, ref, generator)
+        if needs_grad:
+            lp, grad = value_and_grad_batch(log_prob_fn, z)
+        else:
+            lp, grad = log_prob_fn(z), None
         state = K.ChainState(
-            x=z, log_prob=log_prob_fn(z),
+            x=z, log_prob=lp,
             step_size=torch.where(step0 > 0, step0, float(init_step)),
-            n_accept=torch.zeros_like(z[:, 0]))
+            n_accept=torch.zeros_like(z[:, 0]), grad=grad)
         final, stats = K.run_chain(step_fn, state, n_steps)
         x, _ = self.invert_preconditioning(final.x)
         log_q = self.prior_flow.log_prob(x)
@@ -621,7 +651,10 @@ class SMCSampler(Sampler):
                         beta, ess, ess1, ratio, var.double() / s["f_lin"],
                         m.acceptance, tau, s["f_lin"])):
                     s[name].index_copy_(0, i, v.double().reshape(1))
-                s["ev_h"].index_fill_(0, i, m.evals)
+                if isinstance(m.evals, torch.Tensor):
+                    s["ev_h"].index_copy_(0, i, m.evals.reshape(1))
+                else:
+                    s["ev_h"].index_fill_(0, i, m.evals)
                 done = beta >= 1.0
                 it = i + 1
                 running = ~done & ~stalled & (it < s["iter_cap"])
@@ -724,7 +757,8 @@ class SMCSampler(Sampler):
                 a is b and v == w for (a, v), (b, w) in zip(kept, params)):
             return ladder
         # One ladder at a time: the one it replaces (its graph, the graph's
-        # memory pool and its state) is freed before the new one is made.
+        # memory pool and its state) is dropped here and collected before
+        # the new one's capture (DeviceLadder.capture).
         self.ladder_cache.clear()
         generator = torch.Generator(device=samples.x.device)
         ladder = DeviceLadder(
@@ -1075,4 +1109,132 @@ class PCNSMC(SMCSampler):
                                    **common)
         else:
             raise ValueError(f"Unknown pCN step function: {step_name}")
-        return step, kwargs.get("initial_step_size", 0.5)
+        return step, kwargs.get("initial_step_size", 0.5), False
+
+
+class EnsembleSMC(SMCSampler):
+    """SMC with the affine-invariant ensemble (stretch) move, red-black
+    halves (the JAX package's ``EnsembleSMC``; ``n_steps = 5 d``, scale
+    ``a = 2``)."""
+
+    @property
+    def default_sampler_kwargs(self):
+        return {"n_steps": 5 * self.dims, "a": 2.0}
+
+    def _kernel_step_builder(self, log_prob_fn, ref, generator):
+        return (partial(K.stretch_step, generator=generator,
+                        log_prob_fn=log_prob_fn,
+                        a=self._mutation_kwargs().get("a", 2.0)),
+                1.0, False)
+
+
+#: why the device ladder cannot run NUTS
+NUTS_LADDER_REFUSAL = (
+    "device_ladder cannot capture NUTS: its doubling loop ends when every "
+    "particle's tree has stopped, which a CUDA graph cannot do (it would "
+    "run all 2^max_depth - 1 leapfrogs every step); the host ladder runs "
+    "it, with one read per doubling and per leaf")
+
+
+class GradientSMC(SMCSampler):
+    """SMC with RWMH, MALA, HMC or NUTS mutation (the JAX package's
+    ``GradientSMC``; ``kernel`` in ``sampler_kwargs``, by default the
+    class's). Defaults: ``n_steps = 5 d``, initial step size 0.1,
+    adaptation rate 0.05, target acceptance 0.234 (RWMH), 0.574 (MALA),
+    0.651 (HMC, ``n_leapfrog`` 10) and 0.8 (NUTS, ``max_depth`` 8).
+
+    RWMH runs on the whole-chain kernel where its predicate holds. MALA,
+    HMC and NUTS differentiate the tempered density with autograd
+    (:func:`value_and_grad_batch`): on the card every value goes through
+    the coupling or MAF kernel and its gradient through that kernel's
+    plain recompute. NUTS runs on the host ladder only
+    (``NUTS_LADDER_REFUSAL``)."""
+
+    kernel_name = "hmc"
+
+    @property
+    def default_sampler_kwargs(self):
+        return {
+            "n_steps": 5 * self.dims,
+            "kernel": self.kernel_name,
+            "step_size": 0.1,
+            "n_leapfrog": 10,  # hmc only
+            "max_depth": 8,  # nuts only
+            "adaptation_rate": 0.05,
+        }
+
+    def _kernel(self, kwargs=None) -> str:
+        return (kwargs or self._mutation_kwargs()).get("kernel",
+                                                       self.kernel_name)
+
+    def _fused_kernel_config(self, kwargs):
+        if self._kernel(kwargs) != "rwmh":
+            return None
+        return {
+            "kernel": "rwmh",
+            "nu": 5.0,
+            "target_acceptance": float(
+                kwargs.get("target_acceptance_rate", 0.234)),
+            "adaptation_rate": float(kwargs.get("adaptation_rate", 0.05)),
+            "init_step": float(kwargs.get("step_size", 0.1)),
+        }
+
+    def _ladder_refusal(self) -> str | None:
+        if self._kernel() == "nuts":
+            return NUTS_LADDER_REFUSAL
+        return super()._ladder_refusal()
+
+    def _kernel_step_builder(self, log_prob_fn, ref, generator):
+        kwargs = self._mutation_kwargs()
+        kernel = self._kernel(kwargs)
+        init_step = kwargs.get("step_size", 0.1)
+        rate = kwargs.get("adaptation_rate", 0.05)
+        if kernel == "rwmh":
+            return (partial(K.rwmh_step, generator=generator,
+                            log_prob_fn=log_prob_fn, ref=ref,
+                            target_acceptance=kwargs.get(
+                                "target_acceptance_rate", 0.234),
+                            adaptation_rate=rate),
+                    init_step, False)
+        if kernel not in ("mala", "hmc", "nuts"):
+            raise ValueError(f"Unknown gradient kernel: {kernel}")
+        if not self.target_is_differentiable():
+            raise ValueError(
+                "Gradient-based mutation kernels require a differentiable "
+                "log-likelihood/log-prior (torch operations autograd can "
+                "differentiate; see target_is_differentiable).")
+        common = dict(generator=generator,
+                      value_and_grad_fn=partial(value_and_grad_batch,
+                                                log_prob_fn),
+                      adaptation_rate=rate)
+        if kernel == "mala":
+            step = partial(K.mala_step, target_acceptance=kwargs.get(
+                "target_acceptance_rate", 0.574), **common)
+        elif kernel == "hmc":
+            step = partial(
+                K.hmc_step, n_leapfrog=kwargs.get("n_leapfrog", 10),
+                target_acceptance=kwargs.get("target_acceptance_rate", 0.651),
+                jitter_trajectory=kwargs.get("jitter_trajectory", False),
+                **common)
+        else:
+            step = partial(
+                K.nuts_step, max_depth=kwargs.get("max_depth", 8),
+                target_acceptance=kwargs.get("target_acceptance_rate", 0.8),
+                **common)
+        return step, init_step, True
+
+
+class RWMHSMC(GradientSMC):
+    kernel_name = "rwmh"
+
+
+class MALASMC(GradientSMC):
+    kernel_name = "mala"
+
+
+class HMCSMC(GradientSMC):
+    kernel_name = "hmc"
+
+
+class NUTSSMC(GradientSMC):
+    kernel_name = "nuts"

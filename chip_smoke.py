@@ -59,7 +59,16 @@ main paths (6, 7, 8) right after the build:
    against the plain chain on the callables at d = 4 and in the wide form
    at d = 32; the anchor against the analytic evidence; the 131072
    pipeline on both ladders and both routes; B2 on it in turns with B2
-   on the mixture);
+   on the mixture); then the gradient and ensemble SMC samplers
+   (``phase_gradient_samplers``): the gradient of the flow density through
+   the coupling and MAF kernels against the plain path's (nsf-tpu at d =
+   2, 4, 5; maf-rqs), B2 with RWMH against the plain chain and in turns
+   with B2's tpCN, the validation rows' samplers on the mixture (and RWMH
+   and HMC on Rosenbrock and the funnel) against their truths at n =
+   16384, BASELINE config 3 (NUTS on the funnel, 500 particles), and the
+   131072 pipelines of RWMH, MALA, HMC and the stretch move on the device
+   ladder in turns with the host ladder (one population, the launches a
+   rung), MALA on maf-rqs (B4), NUTS on the host ladder;
 7. the MAF path: fit a maf-rqs flow to the same draws, SMC at n = 8192
    (log Z against the analytic value, every mutation on the split chain,
    every density pass of it on the MAF kernel: launch counts), the
@@ -1760,7 +1769,9 @@ def wide_ab(parent: str, draws: int = 10) -> dict:
 
 
 def ladder_turns(asp, run: dict, need: dict, truth: float | None = None,
-                 warm: bool = True) -> dict:
+                 warm: bool = True,
+                 turns: tuple = ("device", "host", "host", "device",
+                                 "device", "host")) -> dict:
     """The default path, the device ladder auto-selected, against the
     host ladder (``device_ladder=False``) on ``run``, in turns (device,
     host, host, device, device, host) after a warm-up of each: host clock
@@ -1774,11 +1785,11 @@ def ladder_turns(asp, run: dict, need: dict, truth: float | None = None,
     (one seed repeats a run: the resampling sums in a fixed order);
     whether the two ladders give one population is reported.
     ``warm=False`` when the caller's own run was the device ladder's
-    warm-up."""
+    warm-up; ``turns``, fewer turns for a long run (the medians then of
+    fewer walls)."""
     import torch
 
-    turns = ["device", "host", "host", "device", "device", "host"]
-    runs = (["device", "host"] if warm else []) + turns
+    runs = (["device", "host"] if warm else []) + list(turns)
     walls = {"device": [], "host": []}
     last, first, repeats = {}, {}, {"device": True, "host": True}
     on_card = asp.device.type == "cuda"
@@ -1833,8 +1844,8 @@ def ladder_turns(asp, run: dict, need: dict, truth: float | None = None,
     if truth is not None:
         for post in (dpost, hpost):
             check_result(post, run["n_samples"], truth, asp.dims)
-    out = {"device_s": sorted(walls["device"])[1],
-           "host_s": sorted(walls["host"])[1],
+    out = {"device_s": sorted(walls["device"])[len(walls["device"]) // 2],
+           "host_s": sorted(walls["host"])[len(walls["host"]) // 2],
            "device_walls_s": walls["device"], "host_walls_s": walls["host"],
            "rungs": rungs, "host_rungs": host_rungs,
            "capture_s": last["capture_s"], "launches": last["launches"],
@@ -2890,6 +2901,451 @@ def phase_user_target(device, n_anchor: int, n_pipeline: int) -> dict:
     return out
 
 
+#: the flows whose gradients ``gradient_check`` holds through B1 and B4:
+#: (architecture, its weights' seed)
+def gradient_flows() -> dict:
+    from aspire_tpu_torch.flows.architectures import maf_rqs, nsf_tpu
+
+    return {"nsf-tpu d=2": (nsf_tpu(2), 21), "nsf-tpu d=4": (nsf_tpu(4), 22),
+            "nsf-tpu d=5": (nsf_tpu(5), 23), "maf-rqs d=4": (maf_rqs(4), 24)}
+
+
+def gradient_check(device, name: str, n: int) -> dict:
+    """``Flow.log_prob`` and its gradient in x of ``gradient_flows``'s
+    ``name`` (weights perturbed by 0.1) on n points: through the kernel
+    (B1 or B4 forward, its plain recompute backward) against the plain
+    float32 path. The value meets the card rule (float64 deciding the
+    points where they disagree). The gradient must be the plain path's
+    vector-Jacobian product at the kernel pass's own cotangents bit for
+    bit: the backward is that plain recompute, so a difference is a fault.
+    Beside it, the gradient's largest difference from the plain path's
+    own (whose cotangents come from the plain z) and both against float64,
+    reported."""
+    import torch
+
+    from aspire_tpu_torch.flows import Flow
+    from aspire_tpu_torch.flows.bijectors import standard_normal_log_prob
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    arch, seed = gradient_flows()[name]
+    arch, params = perturbed_flow(device, seed, arch, 0.1)
+    flow = Flow(dims=arch.dims, architecture=arch, device=device)
+    flow.params = params
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = 1.5 * torch.randn((n, arch.dims), generator=gen, device=device)
+    fused = FC.should_fuse_maf if name.startswith("maf") else FC.should_fuse
+    if device.type == "cuda" and not fused(arch, x):
+        raise AssertionError(f"{name}: no kernel takes the flow")
+
+    def tracked(fn, params, x):
+        """``fn(params, x)`` with autograd tracking a copy of x."""
+        xg = x.detach().requires_grad_(True)
+        return fn(params, xg), xg
+
+    before = launch_counts()
+    xg = x.detach().requires_grad_(True)
+    lp_k = flow.log_prob(xg)
+    g_k, = torch.autograd.grad(lp_k.sum(), xg)
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    with torch.no_grad():
+        z_k, _ = arch.forward(params, x)
+    zk = z_k.requires_grad_(True)
+    gz, = torch.autograd.grad(standard_normal_log_prob(zk).sum(), zk)
+    (z_p, ld_p), xp = tracked(arch.forward_plain, params, x)
+    g_vjp, = torch.autograd.grad((z_p, ld_p), xp,
+                                 (gz, torch.ones_like(ld_p)),
+                                 retain_graph=True)
+    lp_p = standard_normal_log_prob(z_p) + ld_p
+    g_p, = torch.autograd.grad(lp_p.sum(), xp)
+    (z_e, ld_e), xe = tracked(arch.forward_plain, as_float64(params),
+                              x.double())
+    lp_e = standard_normal_log_prob(z_e) + ld_e
+    g_e, = torch.autograd.grad(lp_e.sum(), xe)
+    bad = assert_kernel_close(lp_k.detach(), lp_p.detach(), lp_e.detach(),
+                              f"{name} log_prob")
+    out = {"n": n, "launches": launched,
+           "value_max_abs_err": max_err(lp_k.detach(), lp_p.detach()),
+           "value_ill_conditioned_points": bad,
+           "grad_equals_plain_vjp": bool(torch.equal(g_k, g_vjp)),
+           "grad_max_abs_diff_plain": max_err(g_k, g_p),
+           "grad_max_abs_err_f64": max_err(g_k.double(), g_e),
+           "plain_grad_max_abs_err_f64": max_err(g_p.double(), g_e)}
+    log(f"gradient through the kernel, {name}: {out}")
+    kernel = "maf" if name.startswith("maf") else "coupling"
+    if not out["grad_equals_plain_vjp"] or (
+            device.type == "cuda" and launched[kernel] != 1):
+        raise AssertionError(f"{name} gradient: {out}")
+    return out
+
+
+def rwmh_chain_setup(device, n: int, steps: int):
+    """``chain_setup``'s chain with RWMH in place of tpCN, as
+    ``GradientSMC(kernel="rwmh")`` configures it: target acceptance 0.234,
+    adaptation rate 0.05, initial step 0.1 (``max_log_step`` 2.3)."""
+    import torch
+
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    cfg, params, z0, beta, _, refs, target, dt, gen = chain_setup(
+        device, n, steps)
+    cfg = FM.ChainConfig(cfg.arch, "rwmh", steps, target_acceptance=0.234,
+                         adaptation_rate=0.05)
+    step0 = torch.full((n // FM.TILE,), 0.1, device=device)
+    return cfg, params, z0, beta, step0, refs, target, dt, gen
+
+
+def rwmh_chain_times(device, n: int, steps: int) -> dict:
+    """B2 with RWMH and with tpCN (``chain_setup``) on the same flow, start
+    points and target, timed in turns (RWMH, tpCN, tpCN, RWMH: events,
+    single calls), each noted for a reading alone; plain torch beside."""
+    from functools import partial
+
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    calls = {}
+    for kernel, setup in (("rwmh", rwmh_chain_setup), ("tpcn", chain_setup)):
+        cfg, params, z0, beta, step0, refs, target, dt, _ = setup(
+            device, n, steps)
+        calls[kernel] = partial(FM.fused_mh_chain, cfg, params, z0, beta,
+                                (1, 2), step0, *refs, target,
+                                data_transform=dt)
+        if kernel == "rwmh":
+            plain = partial(FM.chain_plain, cfg, params, z0, beta, step0,
+                            *refs, target, data_transform=dt, seed=(1, 2))
+    out = {k: {"ms": [], "ms_single_call": []} for k in calls}
+    for kernel in ("rwmh", "tpcn", "tpcn", "rwmh"):
+        out[kernel]["ms"].append(cuda_ms(calls[kernel]))
+        out[kernel]["ms_single_call"].append(cuda_ms_single(calls[kernel]))
+    out["rwmh"]["plain_ms"] = cuda_ms(plain, 3)
+    for kernel, fn in calls.items():
+        kernel_ms_later(out[kernel], "kernel_ms", fn, "chain_kernel", reps=5)
+    log(f"B2 with RWMH and tpCN in turns, n={n}: {out}")
+    return out
+
+
+#: the samplers of the JAX package's validation rows on the mixture
+#: (``benchmarks/validate.py:30-52``) and their ``sampler_kwargs``
+GRADIENT_ANCHORS = {
+    "rwmh_smc": {"n_steps": 20},
+    "emcee_smc": {"n_steps": 20},
+    "mala_smc": {"n_steps": 100},
+    "hmc_smc": {"n_steps": 5, "n_leapfrog": 10},
+    "nuts_smc": {"n_steps": 5, "n_leapfrog": 10},
+}
+
+#: the 131072 pipelines' samplers on the mixture, both ladders in turns,
+#: with their chain lengths cut (depth, not width) to keep the phase short,
+#: and the B1 launches of a rung that follow from their evaluations: one
+#: for the start, one per target evaluation, one for the refresh (a MALA
+#: step one, an HMC step n_leapfrog, a stretch step two half batches)
+GRADIENT_PIPELINES = {
+    "rwmh_smc": ({"n_steps": 20}, {"coupling": 0, "chain": 1, "maf": 0}),
+    "mala_smc": ({"n_steps": 5}, {"coupling": 7, "chain": 0, "maf": 0}),
+    "hmc_smc": ({"n_steps": 1, "n_leapfrog": 5},
+                {"coupling": 7, "chain": 0, "maf": 0}),
+    "emcee_smc": ({"n_steps": 10}, {"coupling": 22, "chain": 0, "maf": 0}),
+}
+
+#: NUTS at 131072 (the host ladder): its chain and tree depth cut
+NUTS_PIPELINE = {"n_steps": 2, "max_depth": 4}
+
+
+def mixture_aspire(device, seed: int = 1):
+    """The 4-d Gaussian mixture fitted as ``validate_aspire`` fits a
+    validation row: nsf-tpu at ``seed``, 25 epochs at batch 512 on 8192
+    of its initial draws (``default_rng(0)``)."""
+    import numpy as np
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import GaussianMixtureProblem
+
+    p = GaussianMixtureProblem(dims=4)
+    init = Samples(p.draw_initial_samples(np.random.default_rng(0), 8192))
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=4, prior_bounds=p.prior_bounds, flow_backend="nsf",
+                 architecture="nsf-tpu", seed=seed, device=device)
+    asp.fit(init, n_epochs=25, batch_size=512)
+    return p, asp
+
+
+def gradient_anchor(asp, sampler: str, kwargs: dict, n: int,
+                    truth: float | None, kernels: bool = True,
+                    **sample_kw) -> dict:
+    """One SMC run of ``sampler`` at n on ``asp``'s default path: its log
+    Z (gated against ``truth`` by ``benchmarks/validate.py``'s rule when
+    given), routes, ladder, launches and wall; finite samples of the
+    problem's shape. An RWMH run mutates on B2 once per mutation and no
+    B1; a gradient or stretch run on the split chain, on B1 (with
+    ``kernels``; without, on no kernel at all: a flow no kernel takes)."""
+    import torch
+
+    reset_launch_counts()
+    on_card = asp.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post = asp.sample_posterior(sampler=sampler, n_samples=n,
+                                store_sample_history=False,
+                                sampler_kwargs=dict(kwargs), **sample_kw)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sampler_ = asp.sampler
+    routes = sampler_.history.mutation_route
+    launches = launch_counts()
+    out = {"log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
+           "truth": truth, "wall_s": wall, "rungs": len(routes),
+           "routes": sorted(set(routes)), "launches": launches,
+           "ladder": "device" if sampler_.ladder is not None else "host",
+           "evaluations": sampler_.n_likelihood_evaluations}
+    log(f"{sampler} {kwargs} at n={n}: {out}")
+    want = "fused_kernel" if sampler == "rwmh_smc" else "split"
+    if set(routes) != {want}:
+        raise AssertionError(f"{sampler}: mutations off the {want} route: "
+                             f"{routes}")
+    if on_card and (any(launches.values()) if not kernels else (
+            (want == "fused_kernel" and launches["chain"] != len(routes))
+            or (want == "split" and (launches["chain"] or launches[
+                "coupling"] < 2 * len(routes))))):
+        raise AssertionError(f"{sampler}: launches {launches} for "
+                             f"{len(routes)} mutations")
+    if truth is not None:
+        check_result(post, n, truth, asp.dims)
+    return out
+
+
+def baseline_config3(device) -> dict:
+    """BASELINE config 3 as ``examples/gradient_smc_example.py`` runs it:
+    the funnel at d = 5, the default flow (``maf``, affine MAF, plain
+    torch: no kernel at 500 particles) fitted for 30 epochs on 4000 draws
+    of ``default_rng(0)``, ``nuts_smc`` on 500 particles at target
+    efficiency 0.8, 10 steps from step size 0.1, ``max_depth`` 6 (seeded
+    here, so the run repeats); its log Z gated against ``funnel_truth``."""
+    import numpy as np
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import FunnelProblem
+
+    p = FunnelProblem(dims=5)
+    init = Samples(p.draw_initial_samples(np.random.default_rng(0), 4000))
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=5, flow_backend="maf", seed=1, device=device)
+    t0 = time.perf_counter()
+    asp.fit(init, n_epochs=30)
+    fit_s = time.perf_counter() - t0
+    out = gradient_anchor(asp, "nuts_smc", dict(
+        n_steps=10, step_size=0.1, max_depth=6), 500, funnel_truth(),
+        kernels=False, target_efficiency=0.8)
+    return dict(out, fit_s=fit_s)
+
+
+def maf_gradient_pipeline(device, n: int) -> dict:
+    """maf-rqs, fitted as ``phase_maf_main_path`` fits it, with
+    ``mala_smc`` at n (``GRADIENT_PIPELINES``' chain) on the device ladder
+    in turns with the host ladder, two runs each: every value of its
+    chains on B4, the launches a rung its capture counted."""
+    import numpy as np
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import GaussianMixtureProblem
+
+    p = GaussianMixtureProblem(dims=4)
+    init = Samples(p.draw_initial_samples(np.random.default_rng(42), 4000))
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=4, parameters=p.parameters, flow_backend="maf-rqs",
+                 seed=1, device=device)
+    asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
+    kw, per_rung = GRADIENT_PIPELINES["mala_smc"]
+    per_rung = {"coupling": 0, "chain": 0, "maf": per_rung["coupling"]}
+    run = dict(sampler="mala_smc", n_samples=n, store_sample_history=False,
+               sampler_kwargs=kw)
+    ladders = ladder_turns(asp, run, {"maf": per_rung["maf"]},
+                           turns=("device", "host"))
+    on_card = device.type == "cuda"
+    (_, lad), = asp.ladder_cache.values() if on_card else ((None, None),)
+    captured = captured_launches(lad) if on_card else None
+    if not ladders["ladders_agree_bitwise"] or (on_card
+                                                and captured != per_rung):
+        raise AssertionError(f"maf-rqs mala pipeline: {captured} a rung "
+                             f"(want {per_rung}); {ladders}")
+    return dict(ladders, per_rung=captured)
+
+
+def phase_gradient_samplers(device, n_anchor: int, n_pipeline: int) -> dict:
+    """The gradient and ensemble SMC samplers (``rwmh_smc``, ``mala_smc``,
+    ``hmc_smc``/``blackjax_smc``, ``nuts_smc``, ``emcee_smc``) through
+    ``Aspire.sample_posterior``:
+
+    (a) the gradient of ``Flow.log_prob`` through B1 (nsf-tpu at d = 2, 4,
+    5) and B4 (maf-rqs at d = 4) at N_COUPLING (``gradient_check``);
+    (b) B2 with RWMH against the plain chain at N_CHAIN x CHAIN_STEPS
+    (``phase_chain`` on ``rwmh_chain_setup``: injected noise, Philox
+    against its replay, Philox against independent noise), and timed at
+    ``n_pipeline`` in turns with B2's tpCN (``rwmh_chain_times``);
+    (c) the anchors at ``n_anchor`` on the mixture fitted as the
+    validation rows are (``mixture_aspire``), each sampler of
+    ``GRADIENT_ANCHORS`` gated against the analytic log Z; ``rwmh_smc``
+    and ``hmc_smc`` on the Rosenbrock row (one fit) and the funnel row
+    (three fits, combined by ``combine_replicates``), gated against their
+    quadrature truths; ``nuts_smc`` with ``device_ladder=True`` refused;
+    (d) BASELINE config 3 (``baseline_config3``);
+    (e) the ``n_pipeline`` pipelines on the mixture: each of
+    ``GRADIENT_PIPELINES`` on the device ladder in turns with the host
+    ladder (``ladder_turns``), one population for both, the launches its
+    rung captured as listed; maf-rqs with ``mala_smc`` on the device
+    ladder, B4's launches a rung; ``nuts_smc`` on the host ladder
+    (``NUTS_PIPELINE``).
+    """
+    on_card = device.type == "cuda"
+    out = {"gradients": {name: gradient_check(device, name, N_COUPLING)
+                         for name in gradient_flows()}}
+    out["rwmh_chain"] = phase_chain(device, N_CHAIN, CHAIN_STEPS,
+                                    rwmh_chain_setup)
+    if on_card:
+        out["rwmh_times"] = rwmh_chain_times(device, n_pipeline, CHAIN_STEPS)
+
+    p, asp = mixture_aspire(device)
+    truth = p.true_log_evidence()
+    out["anchors"] = {name: gradient_anchor(asp, name, kw, n_anchor, truth)
+                      for name, kw in GRADIENT_ANCHORS.items()}
+    try:
+        asp.sample_posterior(sampler="nuts_smc", n_samples=N_CHAIN,
+                             device_ladder=True,
+                             sampler_kwargs=GRADIENT_ANCHORS["nuts_smc"])
+        raise AssertionError("device_ladder=True ran NUTS")
+    except ValueError as err:
+        out["nuts_device_ladder"] = str(err)
+    rows = {"rosenbrock": rosenbrock_truth(), "funnel": funnel_truth()}
+    out["rows"] = {}
+    for row, row_truth in rows.items():
+        runs = {"rwmh_smc": [], "hmc_smc": []}
+        for seed in ((1,) if row == "rosenbrock" else (1, 2, 3)):
+            _, row_asp = validate_aspire(device, row, seed)
+            for name in runs:
+                runs[name].append(gradient_anchor(
+                    row_asp, name, GRADIENT_ANCHORS[name], n_anchor, None))
+        for name, rr in runs.items():
+            log_z, err = (combine_replicates([r["log_z"] for r in rr],
+                                             [r["log_z_err"] for r in rr])
+                          if len(rr) > 1 else (rr[0]["log_z"],
+                                               rr[0]["log_z_err"]))
+            v = {"log_z": log_z, "log_z_err": err, "truth": row_truth,
+                 "runs": rr}
+            out["rows"][f"{row} {name}"] = v
+            log(f"{row} {name} anchor, n={n_anchor}: {v}")
+            # benchmarks/validate.py's gate.
+            if not abs(log_z - row_truth) < max(5 * err, 0.02):
+                raise AssertionError(f"{row} {name} anchor off the truth: "
+                                     f"{v}")
+    out["config3"] = baseline_config3(device)
+
+    out["pipelines"] = {}
+    for name, (kw, per_rung) in GRADIENT_PIPELINES.items():
+        run = dict(sampler=name, n_samples=n_pipeline,
+                   store_sample_history=False, sampler_kwargs=kw)
+        # Four turns for the gradient chains (seconds a run), six else.
+        turns = (("device", "host", "host", "device")
+                 if name in ("mala_smc", "hmc_smc") else
+                 ("device", "host", "host", "device", "device", "host"))
+        ladders = ladder_turns(asp, run, {k: v for k, v in per_rung.items()
+                                          if v}, turns=turns)
+        (_, lad), = (asp.ladder_cache.values() if on_card
+                     else ((None, None),))
+        captured = captured_launches(lad) if on_card else None
+        out["pipelines"][name] = dict(ladders, per_rung=captured)
+        if not ladders["ladders_agree_bitwise"] or (on_card
+                                                    and captured != per_rung):
+            raise AssertionError(f"{name} pipeline: {captured} a rung (want "
+                                 f"{per_rung}); {ladders}")
+    out["maf_rqs_mala"] = maf_gradient_pipeline(device, n_pipeline)
+    out["nuts_pipeline"] = gradient_anchor(asp, "nuts_smc", NUTS_PIPELINE,
+                                           n_pipeline, None)
+    if out["nuts_pipeline"]["ladder"] != "host":
+        raise AssertionError("nuts_smc took the device ladder")
+    return out
+
+
+def report_gradient(card: str, gradient: dict) -> None:
+    """Print ``phase_gradient_samplers``' results, one line each."""
+    for name, v in gradient["gradients"].items():
+        print(f"[{card}] gradient of Flow.log_prob through the kernel, "
+              f"{name}, n={v['n']}: value max |kernel - plain| "
+              f"{v['value_max_abs_err']:.3g} "
+              f"({v['value_ill_conditioned_points']} ill-conditioned "
+              f"points); gradient the plain VJP at the kernel's cotangents "
+              f"bit for bit: {v['grad_equals_plain_vjp']}; max |gradient - "
+              f"plain gradient| {v['grad_max_abs_diff_plain']:.3g}; vs "
+              f"float64: through the kernel {v['grad_max_abs_err_f64']:.3g},"
+              f" plain {v['plain_grad_max_abs_err_f64']:.3g}", flush=True)
+    rt = gradient["rwmh_times"]
+    print(f"[{card}] chain kernel B2 with RWMH, n={N_PIPELINE}, "
+          f"{CHAIN_STEPS} steps: {rt['rwmh']['ms']} ms events, "
+          f"{rt['rwmh']['kernel_ms']:.4f} ms alone, in turns with tpCN "
+          f"{rt['tpcn']['ms']} ms events, {rt['tpcn']['kernel_ms']:.4f} ms "
+          f"alone (plain torch {rt['rwmh']['plain_ms']:.4f} ms); against "
+          f"the plain chain at {N_CHAIN} x {CHAIN_STEPS}: max |diff| "
+          f"{gradient['rwmh_chain']['max_abs_err']:.3g}", flush=True)
+    for name, v in gradient["anchors"].items():
+        print(f"[{card}] {name} on the 4-d mixture (nsf-tpu, fitted as the "
+              f"validation rows), n={N_VALIDATE}, {GRADIENT_ANCHORS[name]}: "
+              f"log Z {v['log_z']:.4f} +/- {v['log_z_err']:.4f} vs analytic "
+              f"{v['truth']:.4f}; {v['rungs']} rungs on the {v['ladder']} "
+              f"ladder in {v['wall_s']:.3f} s, launches {v['launches']}",
+              flush=True)
+    for key, v in gradient["rows"].items():
+        print(f"[{card}] {key} on its validation row, n={N_VALIDATE}: log Z "
+              f"{v['log_z']:.4f} +/- {v['log_z_err']:.4f} vs quadrature "
+              f"{v['truth']:.4f} ({len(v['runs'])} fit(s); walls "
+              f"{[round(r['wall_s'], 3) for r in v['runs']]} s, launches "
+              f"{v['runs'][0]['launches']})", flush=True)
+    c3 = gradient["config3"]
+    print(f"[{card}] BASELINE config 3 (funnel d=5, maf, nuts_smc, 500 "
+          f"particles, efficiency 0.8, 10 steps, max_depth 6): log Z "
+          f"{c3['log_z']:.4f} +/- {c3['log_z_err']:.4f} vs quadrature "
+          f"{c3['truth']:.4f}; {c3['rungs']} rungs on the {c3['ladder']} "
+          f"ladder, {c3['evaluations']} evaluations, fit {c3['fit_s']:.2f} "
+          f"s, SMC {c3['wall_s']:.3f} s", flush=True)
+    for name, v in (*gradient["pipelines"].items(),
+                    ("maf-rqs mala_smc", gradient["maf_rqs_mala"])):
+        print(f"[{card}] {name} pipeline, n={N_PIPELINE}: device ladder "
+              f"{v['device_s']:.4f} s vs host ladder {v['host_s']:.4f} s "
+              f"(medians in turns; {v['rungs']} rungs, per rung "
+              f"{v['per_rung']}; capture {v['capture_s']:.3f} s); one "
+              f"population: {v['ladders_agree_bitwise']}; log Z "
+              f"{v['log_z']:.4f} +/- {v['log_z_err']:.4f} vs host "
+              f"{v['host_log_z']:.4f}", flush=True)
+    v = gradient["nuts_pipeline"]
+    print(f"[{card}] nuts_smc pipeline, n={N_PIPELINE}, {NUTS_PIPELINE}, "
+          f"host ladder: {v['wall_s']:.3f} s, {v['rungs']} rungs, launches "
+          f"{v['launches']}, {v['evaluations']} evaluations; log Z "
+          f"{v['log_z']:.4f} +/- {v['log_z_err']:.4f}", flush=True)
+
+
+def rwmh_kernel_row(gradient: dict, b2_bound: dict) -> dict:
+    """The kernels line's row of B2 with RWMH."""
+    rt = gradient["rwmh_times"]
+    return {
+        "name": "chain_kernel B2, RWMH", "route": "cuda",
+        "config": "rwmh_smc (GradientSMC, kernel id 2): nsf-tpu on the 4-d "
+                  "mixture; times: chain_setup's flow and target, RWMH from "
+                  "step 0.1",
+        "source": "aspire_tpu_torch/csrc/chain.cu",
+        "replaces": "aspire_tpu/ops/fused_mutation.py:1038",
+        "launches": gradient["pipelines"]["rwmh_smc"]["launches"]["chain"],
+        "launches_run": "rwmh_smc pipeline, device ladder",
+        "launches_per_rung": gradient["pipelines"]["rwmh_smc"]["per_rung"],
+        "launches_anchor": gradient["anchors"]["rwmh_smc"]["launches"][
+            "chain"],
+        "max_abs_err": gradient["rwmh_chain"]["max_abs_err"],
+        "ms": sum(rt["rwmh"]["ms"]) / 2,
+        "ms_single_call": sum(rt["rwmh"]["ms_single_call"]) / 2,
+        "kernel_ms": rt["rwmh"]["kernel_ms"],
+        "plain_ms": rt["rwmh"]["plain_ms"],
+        "tpcn_ms": rt["tpcn"]["ms"], "tpcn_kernel_ms": rt["tpcn"]["kernel_ms"],
+        **b2_bound, "library_ms": None}
+
+
 def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
     """The MAF path: a maf-rqs flow fitted and run through SMC, where
     every mutation takes the split chain and every density pass of it the
@@ -3284,6 +3740,8 @@ def main() -> int:
     bounded = timed(phase_bounded_path, device, N_CHAIN, N_PIPELINE)
     validate = timed(phase_validate_targets, device, N_VALIDATE, N_PIPELINE)
     user = timed(phase_user_target, device, N_CHAIN, N_PIPELINE)
+    gradient = timed(phase_gradient_samplers, device, N_VALIDATE,
+                     N_PIPELINE)
     maf_path = timed(phase_maf_main_path, device, N_CHAIN, N_PIPELINE)
     hier = timed(phase_hierarchical, device)
     coupling = timed(phase_coupling, device, N_COUPLING)
@@ -3355,6 +3813,7 @@ def main() -> int:
           f"{ut['user']['plain_ms']:.4f}); evaluation entry "
           f"{user['eval']['ms']:.4f} ms vs callables "
           f"{user['eval']['plain_ms']:.4f} ms at n={N_PIPELINE}", flush=True)
+    report_gradient(card, gradient)
     for name, (arch, *_) in coupling_flows().items():
         v = coupling["flows"][name]
         b = coupling_bound(arch, N_COUPLING)
@@ -3498,6 +3957,17 @@ def main() -> int:
          "launches_per_replay_profiled": main_path["replay_vs_eager_split"][
              "replay_kernels"]["coupling"],
          "split_anchor_mutations": main_path["split_n_mutations"],
+         "launches_gradient_pipelines": {
+             name: v["launches"]["coupling"]
+             for name, v in gradient["pipelines"].items()},
+         "launches_per_rung_gradient_pipelines": {
+             name: v["per_rung"]
+             for name, v in gradient["pipelines"].items()},
+         "launches_gradient_anchors": {
+             name: v["launches"]["coupling"]
+             for name, v in gradient["anchors"].items()},
+         "gradient_checks": {k: v for k, v in gradient["gradients"].items()
+                             if k.startswith("nsf")},
          "max_abs_err": coupling["max_abs_err"],
          **coupling_entry(coupling, "nsf-tpu"), "library_ms": None,
          "wrapper_ms": coupling["wrapper_ms"],
@@ -3540,6 +4010,11 @@ def main() -> int:
          "launches_device_ladder": maf_path["ladders"]["launches"]["maf"],
          "launches_per_replay_profiled": maf_path["replay_vs_eager"][
              "replay_kernels"]["maf"],
+         "launches_gradient_pipeline": gradient["maf_rqs_mala"]["launches"][
+             "maf"],
+         "launches_per_rung_gradient_pipeline": gradient["maf_rqs_mala"][
+             "per_rung"],
+         "gradient_check": gradient["gradients"]["maf-rqs d=4"],
          "max_abs_err": maf["max_abs_err"],
          "ms": maf["ms"], "ms_single_call": maf["ms_single_call"],
          "kernel_ms": maf["kernel_ms"],
@@ -3681,6 +4156,7 @@ def main() -> int:
         "build_cached_s": ub["cached_s"], "ptxas": ub["ptxas"],
         "eval_ms": user["eval"]["ms"],
         "eval_plain_ms": user["eval"]["plain_ms"]})
+    kernels.append(rwmh_kernel_row(gradient, b2_bound))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
