@@ -15,9 +15,15 @@ import logging
 
 __version__ = "0.1.0"
 
-from .samples import BaseSamples, Samples, SMCSamples  # noqa: E402,F401
+from .samples import (  # noqa: E402,F401
+    BaseSamples,
+    MCMCSamples,
+    Samples,
+    SMCSamples,
+)
 from .aspire import Aspire  # noqa: E402,F401
 
 logging.getLogger("aspire_tpu_torch").addHandler(logging.NullHandler())
 
-__all__ = ["Aspire", "BaseSamples", "Samples", "SMCSamples", "__version__"]
+__all__ = ["Aspire", "BaseSamples", "MCMCSamples", "Samples", "SMCSamples",
+           "__version__"]

@@ -1,6 +1,11 @@
 """The user-facing ``Aspire`` facade (counterpart of ``aspire_tpu/aspire.py``
 without checkpointing, resume, pools or replicated evidence).
 
+``flow_matching=True`` makes the flow a CNF (:class:`~aspire_tpu_torch.
+flows.FlowMatching`); ``preconditioning="flow"`` gives a sampler a flow
+fitted to its particles as the transport map
+(:class:`~aspire_tpu_torch.transforms.FlowPreconditioningTransform`).
+
 ``device`` defaults to the card (``"cuda"``): the flow, the samplers and
 every tensor they make live there. A caller who wants the CPU passes
 ``device="cpu"``. Nothing detects a missing GPU and moves to the CPU.
@@ -16,7 +21,11 @@ from .flows import Flow, default_architecture_for_backend, get_flow_class
 from .history import FlowHistory
 from .samplers import SMCSampler, get_sampler_class
 from .samples import Samples
-from .transforms import CompositeTransform, FlowTransform
+from .transforms import (
+    CompositeTransform,
+    FlowPreconditioningTransform,
+    FlowTransform,
+)
 from .utils import resolve_device
 
 logger = logging.getLogger("aspire_tpu_torch")
@@ -46,6 +55,7 @@ class Aspire:
         bounded_transform: str = "logit",
         flow: Flow | None = None,
         flow_backend: str = "maf",
+        flow_matching: bool = False,
         eps: float = 1e-6,
         dtype: Any = None,
         seed: int | None = None,
@@ -62,6 +72,7 @@ class Aspire:
         self.bounded_to_unbounded = bounded_to_unbounded
         self.bounded_transform = bounded_transform
         self.flow_backend = flow_backend
+        self.flow_matching = flow_matching
         self.flow_kwargs = kwargs
         self.eps = eps
         self.dtype = dtype
@@ -80,10 +91,13 @@ class Aspire:
         ``dtype=None`` the flow's float32, not the float64 of the prior
         bounds as given, so its density is float32 on every route (as the
         whole-chain kernel's programs, lowered to float32, compute it)."""
-        FlowClass = get_flow_class(self.flow_backend)
+        FlowClass = get_flow_class(self.flow_backend,
+                                   flow_matching=self.flow_matching)
         flow_kwargs = dict(self.flow_kwargs)
-        flow_kwargs.setdefault(
-            "architecture", default_architecture_for_backend(self.flow_backend))
+        if FlowClass is Flow:
+            flow_kwargs.setdefault(
+                "architecture",
+                default_architecture_for_backend(self.flow_backend))
         if self.dtype is not None:
             flow_kwargs.setdefault("dtype", str(self.dtype))
         if self.seed is not None:
@@ -118,9 +132,11 @@ class Aspire:
                      preconditioning: str | None = None,
                      preconditioning_kwargs: dict | None = None,
                      **kwargs: Any):
-        """Build a sampler with its preconditioning transform ("none", or
+        """Build a sampler with its preconditioning transform ("none";
         "default"/"standard": the masked periodic/bounded/affine
-        composite, dropped when it is a no-op)."""
+        composite, dropped when it is a no-op; or "flow": a flow of this
+        Aspire's backend, kwargs and ``flow_matching``, with no affine
+        step, refitted to the particles at each use)."""
         SamplerClass = get_sampler_class(sampler_type)
         if sampler_type != "importance" and preconditioning is None:
             preconditioning = "default"
@@ -138,9 +154,20 @@ class Aspire:
                 dtype=self.dtype, device=self.device, **pk)
             if transform.is_identity:
                 transform = None
+        elif preconditioning == "flow":
+            pk = dict(affine_transform=False, parameters=self.parameters,
+                      flow_backend=self.flow_backend,
+                      flow_kwargs=self.flow_kwargs,
+                      flow_matching=self.flow_matching,
+                      periodic_parameters=self.periodic_parameters,
+                      bounded_to_unbounded=self.bounded_to_unbounded,
+                      prior_bounds=self.prior_bounds, dtype=self.dtype,
+                      device=self.device)
+            pk.update(preconditioning_kwargs or {})
+            transform = FlowPreconditioningTransform(**pk)
         else:
             raise ValueError(
-                f"Unknown or unported preconditioning: {preconditioning}")
+                f"Unknown preconditioning: {preconditioning}")
         if self.seed is not None:
             kwargs.setdefault("rng", self.seed + 1)
         if issubclass(SamplerClass, SMCSampler):

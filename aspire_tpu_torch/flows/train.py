@@ -91,21 +91,29 @@ def make_optimizer(params: list[torch.Tensor], config: TrainConfig,
 
 
 def param_leaves(params: dict) -> list[torch.Tensor]:
-    return [t for net in params["layers"] for layer in net["layers"]
-            for t in (layer["w"], layer["b"])]
+    """The parameter tensors of a nested ``{"layers": [...]}`` dict down to
+    its dense layers, each ``w`` then ``b``, in layer order: a flow's stack
+    of networks or one MLP (the CNF's velocity field)."""
+    if "w" in params:
+        return [params["w"], params["b"]]
+    return [t for sub in params["layers"] for t in param_leaves(sub)]
 
 
-def clone_params(params: dict) -> dict:
-    return {"layers": [{"layers": [{k: v.detach().clone()
-                                    for k, v in layer.items()}
-                                   for layer in net["layers"]]}
-                       for net in params["layers"]]}
+def clone_params(params):
+    """A detached copy of a parameter dict, its nesting kept."""
+    if isinstance(params, torch.Tensor):
+        return params.detach().clone()
+    if isinstance(params, dict):
+        return {k: clone_params(v) for k, v in params.items()}
+    return [clone_params(v) for v in params]
 
 
 def fit_flow(loss_fn: Callable, params: dict, x: torch.Tensor,
              generator: torch.Generator, config: TrainConfig
              ) -> tuple[dict, FlowHistory]:
-    """Minimise ``loss_fn(params, batch)``; returns (best params, history)."""
+    """Minimise ``loss_fn(params, batch)``; returns (best params, history).
+    A loss that draws (the CNF's) draws from its own generator at every
+    call, the validation loss's included."""
     if not bool(torch.isfinite(x).all()):
         raise ValueError("Training data contains NaN or inf values")
     n = x.shape[0]
@@ -130,8 +138,11 @@ def fit_flow(loss_fn: Callable, params: dict, x: torch.Tensor,
             n_batches, batch_size, -1)
         losses = []
         for batch in batches:
-            loss = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            # Autograd on also when the caller has it off (a flow
+            # preconditioning fits inside an SMC mutation).
+            with torch.enable_grad():
+                loss = loss_fn(params, batch)
+                grads = torch.autograd.grad(loss, leaves)
             opt.step(list(grads))
             losses.append(loss.detach())
         train_loss = float(torch.stack(losses).mean())

@@ -64,6 +64,9 @@ MAX_SHARED_BYTES = 232448
 COUPLING_WARPS = 8
 
 launches = LaunchCounter()
+#: the coupling kernel's launches in sampling mode (B3) alone, also
+#: counted in ``launches``
+sampling_launches = LaunchCounter()
 maf_launches = LaunchCounter()
 
 
@@ -447,6 +450,8 @@ def launch_packed(arch, mode: str, weights: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     launches.count += 1
+    if mode != "forward":
+        sampling_launches.count += 1
     check(code, "coupling kernel")
     return z, ld
 

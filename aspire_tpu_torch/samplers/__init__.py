@@ -1,11 +1,12 @@
-"""Samplers: importance and adaptive-tempered SMC with tpCN/pCN, stretch,
-RWMH, MALA, HMC and NUTS mutations (the standalone MCMC and
-parallel-tempered samplers are not ported)."""
+"""Samplers: importance, adaptive-tempered SMC with tpCN/pCN, stretch,
+RWMH, MALA, HMC and NUTS mutations, and the standalone pCN and ensemble
+MCMC samplers (the parallel-tempered sampler is not ported)."""
 
 from __future__ import annotations
 
 from .base import Sampler  # noqa: F401
 from .importance import ImportanceSampler  # noqa: F401
+from .mcmc import EnsembleSampler, MCMCSampler, PCNSampler  # noqa: F401
 from .smc import (  # noqa: F401
     BetaScheduleError,
     EnsembleSMC,
@@ -30,12 +31,16 @@ SAMPLER_REGISTRY: dict[str, type] = {
     "nuts_smc": NUTSSMC,
     "mala_smc": MALASMC,
     "rwmh_smc": RWMHSMC,
+    "mcmc": PCNSampler,
+    "pcn": PCNSampler,
+    "minipcn": PCNSampler,
+    "ensemble": EnsembleSampler,
+    "emcee": EnsembleSampler,
 }
 
-#: the JAX package's standalone MCMC samplers, which need ``MCMCSamples``
-#: and ``PTMCMCSamples``: not ported yet
-_NOT_PORTED = ("mcmc", "pcn", "minipcn", "ensemble", "emcee", "ptmcmc",
-               "parallel_tempered")
+#: the JAX package's parallel-tempered sampler, which needs
+#: ``PTMCMCSamples``: not ported yet
+_NOT_PORTED = ("ptmcmc", "parallel_tempered")
 
 
 def get_sampler_class(name: str) -> type:

@@ -548,16 +548,22 @@ def chain_mixing_ratio(x0, s1, s2, n_steps: int) -> torch.Tensor:
 
 
 def run_chain(step_fn: Callable[[ChainState], ChainState],
-              state: ChainState, n_steps: int):
+              state: ChainState, n_steps: int, store_chain: bool = False):
     """Run ``n_steps`` steps, tracking the online AR(1)/mixing sums.
 
-    Returns ``(final_state, ChainStats)``.
+    Returns ``(final_state, ChainStats)``, and with ``store_chain`` the
+    positions after every step, ``(n_steps, n, d)``, as a third value (the
+    JAX package's ``store_chain=True``; its last step is the final state).
     """
     x0 = state.x
     prev_d = torch.zeros_like(x0)
     s1, s2, c1 = prev_d.clone(), prev_d.clone(), prev_d.clone()
-    for _ in range(n_steps):
+    chain = (torch.empty((n_steps, *x0.shape), dtype=x0.dtype,
+                         device=x0.device) if store_chain else None)
+    for i in range(n_steps):
         state = step_fn(state)
+        if store_chain:
+            chain[i] = state.x
         delta = state.x - x0
         s1 = s1 + delta
         s2 = s2 + delta**2
@@ -565,5 +571,5 @@ def run_chain(step_fn: Callable[[ChainState], ChainState],
         prev_d = delta
     stats = ChainStats(tau=lag1_autocorr_time(s1, s2, c1, n_steps),
                        mixing=chain_mixing_ratio(x0, s1, s2, n_steps))
-    return state, stats
+    return (state, stats, chain) if store_chain else (state, stats)
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..flows.architectures import Coupling
+from ..flows.train import param_leaves
 from ..history import SMCHistory
 from ..models.targets import KernelSource
 from ..ops import fused_coupling as FC
@@ -522,10 +523,15 @@ class SMCSampler(Sampler):
         kwargs.update(self.sampler_kwargs or {})
         return kwargs
 
+    @torch.no_grad()
     def mutate(self, samples: SMCSamples, beta: float,
                n_steps: int | None = None) -> SMCSamples:
         """Fit the preconditioning, run the chain at ``beta``, and return
-        the mutated particles with refreshed densities."""
+        the mutated particles with refreshed densities. Autograd is off
+        (as in the device ladder's body): no density holds a graph over a
+        chain, a CNF's 64 ODE steps included; a gradient kernel turns it
+        on for its own evaluations (:func:`value_and_grad_batch`) and a
+        flow preconditioning's fit for its training."""
         kwargs = self._mutation_kwargs()
         n_steps = int(n_steps or kwargs.get("n_steps") or 5 * self.dims)
         z = self.fit_preconditioning_transform(samples.x)
@@ -748,8 +754,8 @@ class SMCSampler(Sampler):
             return DeviceLadder(
                 self._ladder_body(spec, n_steps, self.generator),
                 self._ladder_state(samples, spec, max_iters), self.generator)
-        _, leaves = FC._flatten(self.prior_flow.params)
-        leaves = [*leaves, *_tensors_of(self.prior_flow.data_transform)]
+        leaves = [*param_leaves(self.prior_flow.params),
+                  *_tensors_of(self.prior_flow.data_transform)]
         params = tuple((t, t._version) for t in leaves)
         key = self._ladder_key(spec, n_steps, max_iters, samples)
         kept, ladder = self.ladder_cache.get(key, ((), None))

@@ -2,8 +2,9 @@
 
 :class:`Samples` carries importance weights, the evidence and the ESS;
 :class:`SMCSamples` carries particles at an inverse temperature ``beta``
-with the per-step evidence ratio and resampling. The MCMC containers and
-HDF5 persistence are not ported yet.
+with the per-step evidence ratio and resampling; :class:`MCMCSamples` a
+chain ``(n_steps, n_walkers, d)`` stored flat. The parallel-tempered
+container and HDF5 persistence are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
 import torch
 
 from .ops.resampling import get_resampler
@@ -270,3 +272,111 @@ class SMCSamples(BaseSamples):
         sliced.log_evidence = self.log_evidence
         sliced.log_evidence_error = self.log_evidence_error
         return sliced
+
+
+@dataclass
+class MCMCSamples(BaseSamples):
+    """Chain-shaped samples ``(n_steps, n_walkers, d)`` stored flattened,
+    with the burn-in and thinning already applied and the integrated
+    autocorrelation time once computed."""
+
+    chain_shape: tuple | None = None
+    burn_in: int = 0
+    thin: int = 1
+    autocorrelation_time: Any = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.chain_shape is not None:
+            self.chain_shape = tuple(int(s) for s in self.chain_shape)
+
+    @classmethod
+    def from_chain(cls, chain, parameters: list[str] | None = None,
+                   dtype: Any = None, device: Any = None,
+                   **kwargs) -> "MCMCSamples":
+        """Build from a chain ``(n_steps, n_walkers, d)`` (a 2-d chain is
+        one walker)."""
+        chain = as_tensor(chain, dtype=dtype, device=device)
+        if chain.dim() == 2:
+            chain = chain[:, None, :]
+        return cls(x=chain.reshape(-1, chain.shape[-1]),
+                   chain_shape=tuple(chain.shape[:-1]),
+                   parameters=parameters, dtype=dtype, device=chain.device,
+                   **kwargs)
+
+    def __getitem__(self, idx):
+        """Slice the flat samples: the result is one walker of the sliced
+        length, with the burn-in, thinning and autocorrelation time kept."""
+        sliced = super().__getitem__(idx)
+        sliced.chain_shape = (len(sliced.x), 1)
+        sliced.burn_in = self.burn_in
+        sliced.thin = self.thin
+        sliced.autocorrelation_time = self.autocorrelation_time
+        return sliced
+
+    @property
+    def chain(self) -> torch.Tensor:
+        """The samples reshaped to ``(n_steps, n_walkers, d)``."""
+        if self.chain_shape is None:
+            raise ValueError("chain_shape is not set")
+        return self.x.reshape(*self.chain_shape, self.dims)
+
+    def _reshape_like_chain(self, value) -> torch.Tensor:
+        if self.chain_shape is None:
+            raise ValueError("chain_shape is not set")
+        return value.reshape(*self.chain_shape)
+
+    def compute_autocorrelation_time(self, c: float = 5.0) -> torch.Tensor:
+        """Integrated autocorrelation time per parameter, emcee's way: the
+        FFT autocorrelation averaged over walkers, summed over Sokal's
+        adaptive window (``c`` times the running estimate); NaN for a
+        constant parameter. On the host, in float64."""
+        chain = self.chain.detach().cpu().double().numpy()
+        n = chain.shape[0]
+        taus = []
+        for k in range(chain.shape[-1]):
+            x = chain[:, :, k]
+            x = x - x.mean(axis=0, keepdims=True)
+            nfft = 1 << (2 * n - 1).bit_length()
+            f = np.fft.fft(x, n=nfft, axis=0)
+            acf = np.fft.ifft(f * np.conjugate(f), axis=0)[:n].real
+            acf = acf.mean(axis=1)
+            if acf[0] <= 0:
+                taus.append(np.nan)
+                continue
+            acf /= acf[0]
+            cumulative = 2.0 * np.cumsum(acf) - 1.0
+            window = np.arange(n) < c * cumulative
+            taus.append(cumulative[-1] if window.all()
+                        else cumulative[np.argmin(window)])
+        self.autocorrelation_time = torch.as_tensor(np.array(taus))
+        return self.autocorrelation_time
+
+    def post_process(self, burn_in: int | None = None,
+                     thin: int | None = None) -> "MCMCSamples":
+        """Drop ``burn_in`` steps and keep every ``thin``-th after them.
+        The ``burn_in``/``thin`` attributes record what was already
+        applied and are not applied again: a call with no arguments is a
+        no-op."""
+        if self.chain_shape is None:
+            raise ValueError("chain_shape is not set")
+        burn_in = 0 if burn_in is None else burn_in
+        thin = 1 if thin is None else thin
+        chain = self.chain[burn_in::thin]
+
+        def slice_chain(value):
+            if value is None:
+                return None
+            return self._reshape_like_chain(value)[burn_in::thin].reshape(-1)
+
+        return self.__class__(
+            x=chain.reshape(-1, self.dims),
+            log_likelihood=slice_chain(self.log_likelihood),
+            log_prior=slice_chain(self.log_prior),
+            log_q=slice_chain(self.log_q),
+            parameters=self.parameters, dtype=self.dtype, device=self.device,
+            chain_shape=chain.shape[:-1], burn_in=burn_in, thin=thin,
+        )
+
+    def to_samples(self) -> Samples:
+        return Samples.from_samples(self)

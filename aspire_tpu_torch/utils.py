@@ -71,10 +71,13 @@ def flow_params_from_jax(tree: dict, dtype: Any = None,
 
 def transform_from_jax(transform, dtype: Any = None, device: Any = "cpu"):
     """Rebuild a fitted JAX transform (Identity/Affine/Logit/Probit/
-    Periodic/Composite/FlowTransform) as the port's equivalent.
+    Periodic/Composite/FlowTransform/FlowPreconditioningTransform) as the
+    port's equivalent.
 
-    Reads the object's ``config_dict()`` and, for the affine part, its
-    fitted ``_mean``/``_std`` arrays.
+    Reads the object's ``config_dict()``, for the affine part its fitted
+    ``_mean``/``_std`` arrays, and for a flow preconditioning its inner
+    flow's ``_params`` and ``_inner_data_transform`` (the architecture
+    comes from its ``flow_kwargs``, as the JAX package's ``_arch`` does).
     """
     from . import transforms as T
 
@@ -96,7 +99,34 @@ def transform_from_jax(transform, dtype: Any = None, device: Any = "cpu"):
         if sub is not None and out._affine_transform is not None:
             _copy_affine_state(sub, out._affine_transform, dtype, device)
         return out
+    if name == "FlowPreconditioningTransform":
+        out = T.FlowPreconditioningTransform(**config)
+        if getattr(transform, "_params", None) is not None:
+            out._rebuild_flow(
+                transform_from_jax(transform._inner_data_transform,
+                                   dtype=dtype, device=device),
+                flow_params_from_jax(transform._params, dtype=dtype,
+                                     device=device))
+        return out
     raise ValueError(f"Cannot convert transform of type {name}")
+
+
+def flow_matching_from_jax(flow, dtype: Any = None, device: Any = "cpu"):
+    """The port's :class:`~aspire_tpu_torch.flows.FlowMatching` with the
+    width, step count, parameters and fitted data transform of a JAX
+    package ``FlowMatching``."""
+    from .flows.matching import FlowMatching
+
+    cfg = flow.config_dict()
+    dtype = dtype if dtype is not None else cfg["dtype"]
+    out = FlowMatching(
+        dims=cfg["dims"], dtype=dtype, device=device,
+        data_transform=transform_from_jax(flow.data_transform, dtype=dtype,
+                                          device=device),
+        **cfg["architecture_config"])
+    out.params = flow_params_from_jax(flow.params, dtype=dtype,
+                                      device=device)
+    return out
 
 
 def _copy_affine_state(src, dst, dtype, device) -> None:

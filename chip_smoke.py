@@ -98,7 +98,18 @@ main paths (6, 7, 8) right after the build:
    131072 x 8 x 20 uniforms of a 20-step chain and a draw whose size is
    no multiple of 4, bit for bit against the plain Philox stream; timed in
    turns with torch.rand (D4, torch.rand, torch.rand, D4);
-11. print kernel and plain times, each kernel's bound, the kernels JSON
+11. the flow-matching CNF (``phase_cnf``, plain torch, no kernel): its
+   passes on the card against the CPU, ``benchmarks/validate.py``'s 8 CNF
+   rows (importance and SMC on the Gaussian, the mixture, Rosenbrock and
+   the funnel at n = 16384, the CNF fitted as the script fits it), and
+   the mixture's 131072 pipeline on the device ladder in turns with the
+   host ladder; SMC with ``preconditioning="flow"``
+   (``phase_flow_preconditioning``: nsf-tpu inside, B3 in every chain
+   step, and a CNF inside, on the mixture at n = 16384); the standalone
+   samplers (``phase_mcmc``: minipcn's tpCN and pCN, emcee, and tpCN
+   with a flow preconditioning, 16384 walkers on the bounded Gaussian,
+   each dimension's moments against N(2, 1));
+12. print kernel and plain times, each kernel's bound, the kernels JSON
    line and the result line. A time is device time: one CUDA-event pair
    around 20 back-to-back calls after a warm-up (cuda_ms); the earlier
    yardstick, an event pair around each single call (cuda_ms_single), is
@@ -3346,6 +3357,474 @@ def rwmh_kernel_row(gradient: dict, b2_bound: dict) -> dict:
         **b2_bound, "library_ms": None}
 
 
+#: ``benchmarks/validate.py``'s CNF rows (:370-440), in its order.
+CNF_ROWS = ("gaussian", "mixture", "rosenbrock", "funnel")
+#: Their flow, ``Aspire(flow_matching=True, n_steps=64, seed=1)`` (the
+#: velocity field at its default width, (128, 128, 128)), and its fit.
+CNF_FLOW = dict(flow_matching=True, n_steps=64, seed=1)
+CNF_FIT = dict(n_epochs=120, batch_size=512)
+#: The importance rows' efficiency floor (``run_gate``'s ``eff_floor``).
+CNF_EFF_FLOOR = 0.01
+#: The CNF pipeline's chain, cut in depth from the rows' 20 steps for the
+#: script's time (a 20-step run at n = 131072 took 84-88 s on the H100).
+CNF_PIPELINE_STEPS = 5
+#: The card-against-CPU check's n: the CPU's passes (float32 and float64)
+#: at full width take tens of seconds at 16384.
+CNF_CHECK_N = 2048
+#: The inner flow's training at every fit of a flow preconditioning.
+FLOW_PRECOND_FIT = dict(n_epochs=10, batch_size=1024)
+#: The standalone samplers on the bounded Gaussian: steps and burn-in.
+MCMC_RUNS = {
+    "minipcn tpcn": dict(sampler="minipcn", step_fn="tpcn", n_steps=100,
+                         burn_in=50),
+    "minipcn pcn": dict(sampler="minipcn", step_fn="pcn", n_steps=100,
+                        burn_in=50),
+    "emcee": dict(sampler="emcee", n_steps=300, burn_in=150),
+    "minipcn tpcn, flow preconditioning": dict(
+        sampler="minipcn", step_fn="tpcn", n_steps=100, burn_in=50,
+        preconditioning="flow",
+        preconditioning_kwargs=dict(fit_kwargs=FLOW_PRECOND_FIT)),
+}
+
+
+def mixture_truth(p) -> float:
+    """log Z of ``GaussianMixtureProblem``: ``benchmarks/validate.py::
+    analytic_log_z``'s closed form, copied (each component convolved with
+    the N(0, I) prior)."""
+    import numpy as np
+
+    def comp(mu, var):
+        d = len(mu)
+        return (-0.5 * d * np.log(2 * np.pi * (1 + var))
+                - 0.5 * mu @ mu / (1 + var))
+
+    return float(np.logaddexp(comp(p.mu1, p.var1), comp(p.mu2, p.var2))
+                 - np.log(2.0))
+
+
+def sampling_launches() -> int:
+    """B3's launches alone (the coupling kernel in sampling mode)."""
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    return FC.sampling_launches.count
+
+
+def cnf_row(device, row: str):
+    """A CNF row as ``benchmarks/validate.py`` runs it: the problem on its
+    prior bounds, 8192 fit draws of ``default_rng(0)`` (the Gaussian's
+    N(1, 1.2), the others' own initial draws), the truth; the CNF
+    (``CNF_FLOW``) fitted by ``CNF_FIT``. Returns ``(problem, aspire,
+    truth, fit seconds)``."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import (
+        FunnelProblem,
+        GaussianMixtureProblem,
+        GaussianProblem,
+        RosenbrockProblem,
+    )
+
+    rng = np.random.default_rng(0)
+    if row == "gaussian":
+        p = GaussianProblem(dims=4)
+        x, truth = rng.normal(1.0, 1.2, size=(8192, 4)), p.true_log_evidence
+    else:
+        p = {"mixture": lambda: GaussianMixtureProblem(dims=4),
+             "rosenbrock": lambda: RosenbrockProblem(dims=2),
+             "funnel": lambda: FunnelProblem(dims=5)}[row]()
+        x = p.draw_initial_samples(rng, 8192)
+        truth = {"mixture": lambda: mixture_truth(p),
+                 "rosenbrock": lambda: rosenbrock_truth(p.lower, p.upper),
+                 "funnel": lambda: funnel_truth(p.dims, p.scale,
+                                                p.prior_scale)}[row]()
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=p.dims, prior_bounds=p.prior_bounds, device=device,
+                 **CNF_FLOW)
+    t0 = time.perf_counter()
+    asp.fit(Samples(x), **CNF_FIT)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return p, asp, truth, time.perf_counter() - t0
+
+
+def cnf_gate(asp, sampler: str, n: int, truth: float,
+             informational: bool = False, **kwargs) -> dict:
+    """One CNF row: ``sampler`` at n on ``asp``'s default path, held by
+    ``run_gate``'s rule (|log Z - truth| < max(5 sigma, 0.02); an
+    importance row also an efficiency of at least ``CNF_EFF_FLOOR``),
+    unless ``informational``. No kernel runs (the CNF has none); an SMC
+    row's mutations take the split chain."""
+    import torch
+
+    on_card = asp.device.type == "cuda"
+    reset_launch_counts()
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if sampler != "importance":
+        kwargs["store_sample_history"] = False
+    post = asp.sample_posterior(sampler=sampler, n_samples=n, **kwargs)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lz, err = float(post.log_evidence), float(post.log_evidence_error)
+    tol = max(5 * err, 0.02)
+    out = {"sampler": sampler, "log_z": lz, "log_z_err": err,
+           "truth": truth, "tolerance": tol, "wall_s": wall,
+           "launches": launch_counts()}
+    ok = abs(lz - truth) < tol
+    if sampler == "importance":
+        out["efficiency"] = float(post.efficiency)
+        ok = ok and out["efficiency"] >= CNF_EFF_FLOOR
+    else:
+        sampler_ = asp.sampler
+        routes = sampler_.history.mutation_route
+        out.update(rungs=len(sampler_.history.beta),
+                   routes=sorted(set(routes)),
+                   ladder="device" if sampler_.ladder is not None
+                   else "host")
+        if sampler_.ladder is not None:
+            out["capture_s"] = sampler_.ladder.capture_s
+        if set(routes) != {"split"}:
+            raise AssertionError(f"CNF mutations off the split chain: "
+                                 f"{routes}")
+    out["ok"] = ok
+    if informational:
+        out["informational"] = True
+    log(f"CNF {sampler} at n={n}: {out}")
+    if tuple(post.x.shape) != (n, asp.dims) or not bool(
+            torch.isfinite(post.x).all()):
+        raise AssertionError("CNF posterior samples are not finite")
+    if any(out["launches"].values()):
+        raise AssertionError(f"a kernel ran for the CNF: {out['launches']}")
+    if not ok and not informational:
+        raise AssertionError(f"CNF {sampler} row off its gate: {out}")
+    return out
+
+
+def cnf_device_check(device, n: int, dims: int = 4,
+                     n_hidden=(128, 128, 128), n_steps: int = 64) -> dict:
+    """The CNF's density and sampling passes on ``device`` against the
+    same flow on the CPU (float32, TF32 off; weights perturbed by 0.1 from
+    seed 4 so the field is not the identity) at n, with float64 on the CPU
+    beside: the two within 1e-4, or the device at most twice as far from
+    float64 as the CPU. The device's seconds for each pass after a warm-up
+    call (host clock to a synchronize)."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch.flows import FlowMatching
+    from aspire_tpu_torch.flows.train import param_leaves
+
+    exact = FlowMatching(dims, seed=3, device="cpu", dtype="float64",
+                         n_hidden=n_hidden, n_steps=n_steps)
+    g = torch.Generator().manual_seed(4)
+    for leaf in param_leaves(exact.params):
+        leaf.add_(0.1 * torch.randn(leaf.shape, generator=g,
+                                    dtype=torch.float64))
+
+    def flow(dev):
+        f = FlowMatching(dims, device=dev, n_hidden=n_hidden,
+                         n_steps=n_steps)
+        for leaf, src in zip(param_leaves(f.params),
+                             param_leaves(exact.params)):
+            leaf.copy_(src)
+        return f
+
+    x = torch.as_tensor(np.random.default_rng(5).normal(size=(n, dims)))
+    out = {"n": n, "dims": dims, "n_hidden": list(n_hidden),
+           "n_steps": n_steps}
+    cpu, dev = flow("cpu"), flow(device)
+    with torch.no_grad():
+        for name, fn in (("log_prob", lambda f, v: f.log_prob(v)),
+                         ("inverse", lambda f, v: f.inverse(v)[1])):
+            want = fn(exact, x)
+            plain = fn(cpu, x.float()).double()
+            fn(dev, x.float().to(device))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(dev, x.float().to(device))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            out[f"{name}_s"] = time.perf_counter() - t0
+            got = got.double().cpu()
+            out[f"{name}_max_abs_diff_cpu"] = float((got - plain).abs().max())
+            out[f"{name}_max_abs_err_f64"] = float((got - want).abs().max())
+            out[f"{name}_cpu_max_abs_err_f64"] = float(
+                (plain - want).abs().max())
+            if not (out[f"{name}_max_abs_diff_cpu"] <= 1e-4 or out[
+                    f"{name}_max_abs_err_f64"] <= 2 * out[
+                    f"{name}_cpu_max_abs_err_f64"]):
+                raise AssertionError(f"CNF {name} on {device} against the "
+                                     f"CPU: {out}")
+    log(f"CNF on {device} against the CPU: {out}")
+    return out
+
+
+def cnf_pass_times(asp, n: int) -> dict:
+    """Seconds of one density pass (``log_prob``) and one sampling pass
+    (``sample_and_log_prob``) of ``asp``'s CNF at n, each after a warm-up
+    call (host clock to a synchronize)."""
+    import numpy as np
+    import torch
+
+    x = torch.as_tensor(np.random.default_rng(6).normal(size=(n, asp.dims)),
+                        dtype=torch.float32, device=asp.device)
+    out = {"n": n}
+
+    def sync():
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+
+    for name, fn in (("log_prob_s", lambda: asp.flow.log_prob(x)),
+                     ("sample_s", lambda: asp.flow.sample_and_log_prob(n))):
+        with torch.no_grad():
+            fn()
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+        out[name] = time.perf_counter() - t0
+    log(f"CNF passes at n={n}: {out}")
+    return out
+
+
+def phase_cnf(device, n_anchor: int, n_pipeline: int) -> dict:
+    """The flow-matching CNF (``flows/matching.py``, plain torch: the JAX
+    package runs it on XLA with no Pallas kernel):
+
+    (a) its density and sampling passes on the card against the CPU at
+    CNF_CHECK_N (``cnf_device_check``);
+    (b) ``benchmarks/validate.py``'s 8 CNF rows (``CNF_ROWS``), each
+    problem's CNF fitted as the script fits it (``cnf_row``): importance
+    and SMC with 20-step tpCN at ``n_anchor``, gated by ``cnf_gate``; the
+    mixture's importance row informational, as the script records it;
+    (c) the mixture's CNF at ``n_pipeline``: one density and one
+    sampling pass timed (``cnf_pass_times``); its SMC with
+    CNF_PIPELINE_STEPS-step tpCN on the device ladder (the default path;
+    one CUDA graph a rung of (CNF_PIPELINE_STEPS + 2) x 64 x 4 velocity
+    evaluations) in turns with the host ladder (``ladder_turns``: device,
+    host, device; the second device run replays once per rung): one
+    population for both, their log Z within max(5 combined sigma, 0.15);
+    the capture's seconds, and the kernels one replay runs (read by the
+    profiler at the end of the run, ``replay_kernels``).
+    """
+    on_card = device.type == "cuda"
+    out = {"device_check": cnf_device_check(device, CNF_CHECK_N),
+           "rows": {}}
+    mixture = None
+    for row in CNF_ROWS:
+        p, asp, truth, fit_s = cnf_row(device, row)
+        out["rows"][row] = {
+            "fit_s": fit_s, "dims": p.dims,
+            "importance": cnf_gate(asp, "importance", n_anchor, truth,
+                                   informational=row == "mixture"),
+            "smc": cnf_gate(asp, "smc", n_anchor, truth,
+                            sampler_kwargs=dict(n_steps=CHAIN_STEPS))}
+        if row == "mixture":
+            mixture = asp
+    out["pass_times"] = cnf_pass_times(mixture, n_pipeline)
+    pipeline = dict(sampler="smc", n_samples=n_pipeline,
+                    store_sample_history=False,
+                    sampler_kwargs=dict(n_steps=CNF_PIPELINE_STEPS))
+    ladders = ladder_turns(mixture, pipeline, {}, warm=False,
+                           turns=("device", "host", "device"))
+    out["pipeline"] = ladders
+    if on_card:
+        if not ladders["ladders_agree_bitwise"]:
+            raise AssertionError(f"CNF pipeline: the ladders gave two "
+                                 f"populations: {ladders}")
+        (_, lad), = mixture.ladder_cache.values()
+        _KERNEL_MS_LATER.append(lambda: ladders.update(replay_kernels(lad)))
+    return out
+
+
+def flow_preconditioned_anchor(asp, n: int, truth: float, inner: str
+                               ) -> dict:
+    """SMC with ``preconditioning="flow"`` at n on ``asp`` (nsf-tpu on the
+    mixture), 20-step tpCN, the inner flow refitted at every mutation by
+    ``FLOW_PRECOND_FIT``: nsf-tpu (the Aspire's own backend) or a CNF
+    (``flow_matching=True``, default width). Every mutation on the split
+    route, the host ladder (the device ladder refuses a preconditioning),
+    log Z within max(5 sigma, 0.02) of the truth; on the card B1 and B3
+    counted a rung: with nsf-tpu inside at least CHAIN_STEPS + 1 B3 (the
+    preconditioning's inverse at the chain's start and every step)."""
+    import torch
+
+    kwargs = dict(fit_kwargs=FLOW_PRECOND_FIT)
+    if inner == "cnf":
+        kwargs["flow_matching"] = True
+    on_card = asp.device.type == "cuda"
+    reset_launch_counts()
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post = asp.sample_posterior(
+        sampler="smc", n_samples=n, store_sample_history=False,
+        preconditioning="flow", preconditioning_kwargs=kwargs,
+        sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sampler = asp.sampler
+    routes = sampler.history.mutation_route
+    launches = launch_counts()
+    b3 = sampling_launches()
+    rungs = len(routes)
+    out = {"inner": inner, "fit_kwargs": FLOW_PRECOND_FIT,
+           "log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
+           "truth": truth, "wall_s": wall, "rungs": rungs,
+           "routes": sorted(set(routes)),
+           "ladder": "device" if sampler.ladder is not None else "host",
+           "b1": launches["coupling"] - b3, "b3": b3,
+           "b1_per_rung": (launches["coupling"] - b3) / max(rungs, 1),
+           "b3_per_rung": b3 / max(rungs, 1),
+           "chain_launches": launches["chain"]}
+    log(f"flow preconditioning ({inner} inside) at n={n}: {out}")
+    if set(routes) != {"split"} or out["ladder"] != "host":
+        raise AssertionError(f"flow preconditioning left the split route or "
+                             f"took the device ladder: {out}")
+    if on_card and (launches["chain"] or out["b1"] < (CHAIN_STEPS + 2)
+                    * rungs or (inner == "nsf-tpu"
+                                and b3 < (CHAIN_STEPS + 1) * rungs)):
+        raise AssertionError(f"flow preconditioning's launches: {out}")
+    check_result(post, n, truth, asp.dims)
+    return out
+
+
+def phase_flow_preconditioning(device, n: int) -> dict:
+    """``preconditioning="flow"`` (``FlowPreconditioningTransform``) on
+    the 4-d mixture fitted as the validation rows are (``mixture_aspire``):
+    SMC at n with nsf-tpu inside (B3 in every chain step) and with a CNF
+    inside (``flow_preconditioned_anchor``), each against -9.3709 (the
+    analytic log Z); ``device_ladder=True`` refused."""
+    p, asp = mixture_aspire(device)
+    truth = p.true_log_evidence()
+    out = {inner: flow_preconditioned_anchor(asp, n, truth, inner)
+           for inner in ("nsf-tpu", "cnf")}
+    try:
+        asp.sample_posterior(sampler="smc", n_samples=n, device_ladder=True,
+                             preconditioning="flow",
+                             sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+        raise AssertionError("device_ladder=True ran a flow preconditioning")
+    except ValueError as err:
+        out["device_ladder"] = str(err)
+    return out
+
+
+def mcmc_run(asp, walkers: int, run: dict) -> dict:
+    """One standalone sampler on ``asp`` (the bounded Gaussian): its
+    acceptance, autocorrelation time, seconds and launches, and the gate:
+    each dimension's mean within max(5 SE, 0.02) of 2 and sd within
+    max(5 SE / sqrt 2, 0.02) of 1, SE = sd / sqrt(N_eff), N_eff = walkers x
+    kept steps / tau."""
+    import numpy as np
+    import torch
+
+    on_card = asp.device.type == "cuda"
+    reset_launch_counts()
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = asp.sample_posterior(n_samples=walkers, **run)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tau = samples.compute_autocorrelation_time().numpy()
+    kept = samples.chain_shape[0]
+    x = samples.x.double()
+    mean, sd = x.mean(0).cpu().numpy(), x.std(0).cpu().numpy()
+    se = sd * np.sqrt(tau / (walkers * kept))
+    launches = launch_counts()
+    out = {"n_steps": run["n_steps"], "burn_in": run["burn_in"],
+           "walkers": walkers, "kept_steps": kept,
+           "acceptance": samples.acceptance_rate, "tau": tau.tolist(),
+           "mean": mean.tolist(), "sd": sd.tolist(), "se": se.tolist(),
+           "wall_s": wall, "launches": launches, "b3": sampling_launches(),
+           "evaluations": asp.sampler.n_likelihood_evaluations}
+    ok = (np.all(np.isfinite(tau)) and np.all(np.abs(mean - 2.0) < np.maximum(
+        5 * se, 0.02)) and np.all(np.abs(sd - 1.0) < np.maximum(
+            5 * se / math.sqrt(2), 0.02)))
+    log(f"{run['sampler']} {run.get('step_fn', '')} "
+        f"{run.get('preconditioning', '')}: {out}")
+    if not ok:
+        raise AssertionError(f"standalone sampler off its moments: {out}")
+    return out
+
+
+def phase_mcmc(device, walkers: int) -> dict:
+    """The standalone samplers (``samplers/mcmc.py``) on the bounded 4-d
+    Gaussian of ``phase_bounded_path`` (``bounded_aspire``): each of
+    ``MCMC_RUNS`` with ``walkers`` walkers held by ``mcmc_run``; the
+    flow-preconditioned run inverts its nsf-tpu in every step (B3, at
+    least n_steps + 1 launches, and once over the whole chain)."""
+    _, asp = bounded_aspire(device)
+    out = {name: mcmc_run(asp, walkers, run)
+           for name, run in MCMC_RUNS.items()}
+    flow_run = out["minipcn tpcn, flow preconditioning"]
+    if device.type == "cuda" and flow_run["b3"] < flow_run["n_steps"] + 2:
+        raise AssertionError(f"the flow-preconditioned chain's B3 "
+                             f"launches: {flow_run}")
+    return out
+
+
+def report_new_paths(card: str, cnf: dict, fp: dict, mcmc: dict) -> None:
+    """Print ``phase_cnf``'s, ``phase_flow_preconditioning``'s and
+    ``phase_mcmc``'s results, one line each."""
+    c = cnf["device_check"]
+    print(f"[{card}] CNF (d={c['dims']}, {c['n_hidden']}, {c['n_steps']} RK4 "
+          f"steps), n={c['n']}: log_prob on the card vs the CPU max |diff| "
+          f"{c['log_prob_max_abs_diff_cpu']:.3g} (vs float64: card "
+          f"{c['log_prob_max_abs_err_f64']:.3g}, CPU "
+          f"{c['log_prob_cpu_max_abs_err_f64']:.3g}), one pass "
+          f"{c['log_prob_s']:.4f} s; sampling pass {c['inverse_s']:.4f} s",
+          flush=True)
+    for row, v in cnf["rows"].items():
+        imp, smc = v["importance"], v["smc"]
+        print(f"[{card}] CNF row {row} (d={v['dims']}), fit "
+              f"{v['fit_s']:.2f} s: importance log Z {imp['log_z']:.4f} +/- "
+              f"{imp['log_z_err']:.4f}, efficiency {imp['efficiency']:.4f}"
+              f"{' (informational)' if imp.get('informational') else ''}, "
+              f"{imp['wall_s']:.3f} s; SMC log Z {smc['log_z']:.4f} +/- "
+              f"{smc['log_z_err']:.4f} in {smc['rungs']} rungs on the "
+              f"{smc['ladder']} ladder, {smc['wall_s']:.3f} s (capture "
+              f"{smc.get('capture_s') or 0.0:.3f} s); truth {smc['truth']:.4f}",
+              flush=True)
+    v = cnf["pass_times"]
+    print(f"[{card}] CNF (mixture, fitted), n={v['n']}: one density pass "
+          f"{v['log_prob_s']:.4f} s, one sampling pass {v['sample_s']:.4f} "
+          f"s", flush=True)
+    v = cnf["pipeline"]
+    print(f"[{card}] CNF mixture pipeline, n={N_PIPELINE}, "
+          f"{CNF_PIPELINE_STEPS}-step tpCN: device ladder "
+          f"walls {[round(w, 4) for w in v['device_walls_s']]} s (the first "
+          f"captures) vs host ladder {v['host_s']:.4f} s; {v['rungs']} rungs;"
+          f" capture {v['capture_s'] or 0.0:.3f} s; one replay "
+          f"{v.get('replay_device_ops')} kernels; one population: "
+          f"{v['ladders_agree_bitwise']}; log Z {v['log_z']:.4f} +/- "
+          f"{v['log_z_err']:.4f} vs host {v['host_log_z']:.4f}", flush=True)
+    for inner in ("nsf-tpu", "cnf"):
+        v = fp[inner]
+        print(f"[{card}] SMC with preconditioning=\"flow\" ({inner} inside,"
+              f" refitted by {v['fit_kwargs']}) on the 4-d mixture, "
+              f"n={N_VALIDATE}: log Z {v['log_z']:.4f} +/- "
+              f"{v['log_z_err']:.4f} vs {v['truth']:.4f}; {v['rungs']} rungs "
+              f"on the {v['ladder']} ladder, {v['wall_s']:.3f} s; a rung "
+              f"{v['b3_per_rung']:.1f} B3 and {v['b1_per_rung']:.1f} B1",
+              flush=True)
+    for name, v in mcmc.items():
+        print(f"[{card}] {name} on the bounded Gaussian, {v['walkers']} "
+              f"walkers, {v['n_steps']} steps, burn-in {v['burn_in']}: "
+              f"acceptance {v['acceptance']:.3f}, tau "
+              f"{[round(t, 2) for t in v['tau']]}, mean "
+              f"{[round(m, 4) for m in v['mean']]}, sd "
+              f"{[round(s, 4) for s in v['sd']]}, {v['wall_s']:.3f} s, "
+              f"B3 {v['b3']}", flush=True)
+
+
 def phase_maf_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
     """The MAF path: a maf-rqs flow fitted and run through SMC, where
     every mutation takes the split chain and every density pass of it the
@@ -3750,6 +4229,9 @@ def main() -> int:
     chain_t = timed(time_chain, device, N_PIPELINE, CHAIN_STEPS)
     staged = timed(phase_staged_coupling, device, N_COUPLING)
     uniforms = timed(phase_prng, device, N_PIPELINE)
+    cnf = timed(phase_cnf, device, N_VALIDATE, N_PIPELINE)
+    flow_precond = timed(phase_flow_preconditioning, device, N_VALIDATE)
+    mcmc = timed(phase_mcmc, device, N_VALIDATE)
     # The profiler last: after it has traced the card, every launch costs
     # the host more, and the pipelines and short kernels' events show it.
     timed(read_kernel_ms)
@@ -3814,6 +4296,7 @@ def main() -> int:
           f"{user['eval']['ms']:.4f} ms vs callables "
           f"{user['eval']['plain_ms']:.4f} ms at n={N_PIPELINE}", flush=True)
     report_gradient(card, gradient)
+    report_new_paths(card, cnf, flow_precond, mcmc)
     for name, (arch, *_) in coupling_flows().items():
         v = coupling["flows"][name]
         b = coupling_bound(arch, N_COUPLING)
@@ -3968,6 +4451,11 @@ def main() -> int:
              for name, v in gradient["anchors"].items()},
          "gradient_checks": {k: v for k, v in gradient["gradients"].items()
                              if k.startswith("nsf")},
+         "launches_flow_preconditioning": {
+             inner: {k: flow_precond[inner][k] for k in (
+                 "b1", "b3", "rungs", "b1_per_rung", "b3_per_rung")}
+             for inner in ("nsf-tpu", "cnf")},
+         "launches_b3_mcmc": {name: v["b3"] for name, v in mcmc.items()},
          "max_abs_err": coupling["max_abs_err"],
          **coupling_entry(coupling, "nsf-tpu"), "library_ms": None,
          "wrapper_ms": coupling["wrapper_ms"],

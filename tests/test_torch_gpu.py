@@ -144,3 +144,21 @@ def test_user_target_chain_matches_plain(cuda):
     the user's callables at d = 4, and its Philox stream against the
     replay, bit for bit."""
     assert chip_smoke.user_chain_check(cuda, wide=False) < 2e-3
+
+
+def test_cnf_log_prob_on_the_card_matches_the_cpu(cuda):
+    """The CNF's density and sampling passes on the card against the CPU
+    (plain torch both; ``chip_smoke.cnf_device_check``'s rule)."""
+    out = chip_smoke.cnf_device_check(cuda, 4096, n_hidden=(32, 32),
+                                      n_steps=16)
+    assert out["log_prob_max_abs_err_f64"] < 1e-3
+
+
+def test_flow_preconditioned_chain_launches_b3_every_step(cuda):
+    """SMC with ``preconditioning="flow"`` (nsf-tpu inside) at n = 4096:
+    the split route on the host ladder, at least n_steps + 1 B3 launches
+    a rung (the preconditioning's inverse at every chain step)."""
+    p, asp = chip_smoke.mixture_aspire(cuda)
+    out = chip_smoke.flow_preconditioned_anchor(
+        asp, 4096, p.true_log_evidence(), "nsf-tpu")
+    assert out["b3"] >= (chip_smoke.CHAIN_STEPS + 1) * out["rungs"] > 0

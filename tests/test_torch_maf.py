@@ -393,8 +393,8 @@ def test_backend_names_match_jax(name):
     assert (tflows.default_architecture_for_backend(name)
             == jflows.default_architecture_for_backend(name))
     if name in ("flow_matching", "cnf"):
-        with pytest.raises(NotImplementedError):
-            tflows.get_flow_class(name)
+        assert jflows.get_flow_class(name) is jflows.FlowMatching
+        assert tflows.get_flow_class(name) is tflows.FlowMatching
     else:
         assert jflows.get_flow_class(name) is jflows.Flow
         assert tflows.get_flow_class(name) is tflows.Flow
