@@ -18,12 +18,14 @@ __version__ = "0.1.0"
 from .samples import (  # noqa: E402,F401
     BaseSamples,
     MCMCSamples,
+    PTMCMCSamples,
     Samples,
     SMCSamples,
 )
 from .aspire import Aspire  # noqa: E402,F401
+from .samplers import ParallelTemperedSampler  # noqa: E402,F401
 
 logging.getLogger("aspire_tpu_torch").addHandler(logging.NullHandler())
 
-__all__ = ["Aspire", "BaseSamples", "MCMCSamples", "Samples", "SMCSamples",
-           "__version__"]
+__all__ = ["Aspire", "BaseSamples", "MCMCSamples", "ParallelTemperedSampler",
+           "PTMCMCSamples", "Samples", "SMCSamples", "__version__"]

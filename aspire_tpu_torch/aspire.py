@@ -1,5 +1,5 @@
 """The user-facing ``Aspire`` facade (counterpart of ``aspire_tpu/aspire.py``
-without checkpointing, resume, pools or replicated evidence).
+without checkpointing, resume, pools or the flow-refit replicate tier).
 
 ``flow_matching=True`` makes the flow a CNF (:class:`~aspire_tpu_torch.
 flows.FlowMatching`); ``preconditioning="flow"`` gives a sampler a flow
@@ -29,6 +29,12 @@ from .transforms import (
 from .utils import resolve_device
 
 logger = logging.getLogger("aspire_tpu_torch")
+
+#: keywords of the JAX package's sampler constructors the port does not
+#: implement: given to ``sample_posterior`` they raise, never dropped
+UNPORTED_SAMPLER_INIT_KWARGS = ("mesh", "prng_impl", "resampling_impl")
+#: the JAX package's ``sample_posterior`` checkpoint options (HDF5)
+UNPORTED_CHECKPOINT_KWARGS = ("checkpoint_path", "checkpoint_save_config")
 
 
 class Aspire:
@@ -196,7 +202,22 @@ class Aspire:
         or None for a sampler without one (importance), as in the JAX
         package. SMC takes ``device_ladder`` and ``device_ladder_max_iters``
         (:meth:`SMCSampler.sample`); its device ladder's graph stays in
-        ``ladder_cache`` for the next call."""
+        ``ladder_cache`` for the next call.
+
+        As in the JAX package, keywords that neither the sampler's
+        constructor nor its ``sample`` takes are dropped with a warning;
+        the JAX package's constructor keywords the port lacks
+        (``UNPORTED_SAMPLER_INIT_KWARGS``) raise ``TypeError``, its
+        checkpoint options ``NotImplementedError``."""
+        for name in UNPORTED_SAMPLER_INIT_KWARGS:
+            if name in kwargs:
+                raise TypeError(
+                    f"sample_posterior() got {name!r}, which the port does "
+                    "not implement")
+        for name in UNPORTED_CHECKPOINT_KWARGS:
+            if name in kwargs:
+                raise NotImplementedError(
+                    f"{name} needs HDF5, not ported yet")
         SamplerClass = get_sampler_class(sampler)
         init_params: dict = {}
         for klass in SamplerClass.__mro__:
@@ -208,8 +229,15 @@ class Aspire:
                     "preconditioning_transform", "parameters", "device"}
         init_kwargs = {k: v for k, v in kwargs.items()
                        if k in init_params and k not in reserved}
+        sample_params = signature(SamplerClass.sample).parameters
         sample_kwargs = {k: v for k, v in kwargs.items()
                          if k not in init_kwargs}
+        unknown = sorted(k for k in sample_kwargs if k not in sample_params)
+        if unknown:
+            logger.warning("Ignoring kwargs not supported by %s.sample: %s",
+                           sampler, unknown)
+            sample_kwargs = {k: v for k, v in sample_kwargs.items()
+                             if k in sample_params}
         self.sampler = self.init_sampler(
             sampler, preconditioning=preconditioning,
             preconditioning_kwargs=preconditioning_kwargs, **init_kwargs)

@@ -1,12 +1,17 @@
 """Samplers: importance, adaptive-tempered SMC with tpCN/pCN, stretch,
-RWMH, MALA, HMC and NUTS mutations, and the standalone pCN and ensemble
-MCMC samplers (the parallel-tempered sampler is not ported)."""
+RWMH, MALA, HMC and NUTS mutations, and the standalone pCN, ensemble and
+parallel-tempered MCMC samplers."""
 
 from __future__ import annotations
 
 from .base import Sampler  # noqa: F401
 from .importance import ImportanceSampler  # noqa: F401
-from .mcmc import EnsembleSampler, MCMCSampler, PCNSampler  # noqa: F401
+from .mcmc import (  # noqa: F401
+    EnsembleSampler,
+    MCMCSampler,
+    ParallelTemperedSampler,
+    PCNSampler,
+)
 from .smc import (  # noqa: F401
     BetaScheduleError,
     EnsembleSMC,
@@ -36,18 +41,13 @@ SAMPLER_REGISTRY: dict[str, type] = {
     "minipcn": PCNSampler,
     "ensemble": EnsembleSampler,
     "emcee": EnsembleSampler,
+    "ptmcmc": ParallelTemperedSampler,
+    "parallel_tempered": ParallelTemperedSampler,
 }
-
-#: the JAX package's parallel-tempered sampler, which needs
-#: ``PTMCMCSamples``: not ported yet
-_NOT_PORTED = ("ptmcmc", "parallel_tempered")
 
 
 def get_sampler_class(name: str) -> type:
     key = name.lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the MCMC sampler '{name}' is not ported yet")
     try:
         return SAMPLER_REGISTRY[key]
     except KeyError:

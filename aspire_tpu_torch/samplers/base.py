@@ -1,4 +1,5 @@
-"""Sampler base class: problem definition, evaluation count, initial draws.
+"""Sampler base class: problem definition, evaluation count, initial draws,
+and the replicate tier's statistics.
 
 Counterpart of ``aspire_tpu/samplers/base.py`` without checkpointing. The
 sampler owns the user ``log_likelihood``/``log_prior`` callables (each
@@ -10,6 +11,7 @@ flow proposal, the preconditioning transform, its device and a
 from __future__ import annotations
 
 import logging
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -20,6 +22,30 @@ from ..samples import Samples
 from ..utils import resolve_dtype
 
 logger = logging.getLogger("aspire_tpu_torch")
+
+
+def combine_replicates(result, logzs, errs, label: str):
+    """Attach the replicates' mean log Z to ``result`` with the
+    consistency-scaled error: the between-replicate spread over sqrt(k)
+    where it agrees with the single-run errors (within 1.5 times their
+    rms), the spread itself where the replicates scatter beyond them, and
+    at least the single-run rms over sqrt(k). The one rule of every
+    replicate tier (SMC, PT)."""
+    k = len(logzs)
+    between_sd = float(np.std(logzs, ddof=1))
+    single_rms = float(np.sqrt(np.mean(np.square(errs))))
+    consistent = between_sd <= 1.5 * single_rms
+    between = between_sd / math.sqrt(k) if consistent else between_sd
+    single = single_rms / math.sqrt(k)
+    result.log_evidence = float(np.mean(logzs))
+    result.log_evidence_error = max(between, single)
+    result.log_evidence_replicates = np.asarray(logzs)
+    result.log_evidence_error_single = single_rms
+    logger.info(
+        "Replicated %s log evidence: %.3f +/- %.3f (between-run %.3f, "
+        "single-run rms %.3f)", label, result.log_evidence,
+        result.log_evidence_error, between, single_rms)
+    return result
 
 
 class _SamplesView:
@@ -82,6 +108,20 @@ class Sampler:
 
     def _make_view(self, x) -> _SamplesView:
         return _SamplesView(x, parameters=self.parameters)
+
+    def _replicate_evidence(self, k: int, run_one: Callable, label: str):
+        """The ``n_replicates`` tier: ``k`` runs of ``run_one()`` (each
+        returning ``(samples, log Z, error)`` and continuing the sampler's
+        generator), the last run's samples given the replicates' log Z
+        (:func:`combine_replicates`)."""
+        logzs, errs = [], []
+        result = None
+        for r in range(k):
+            logger.info("%s replicate %d/%d", label, r + 1, k)
+            result, lz, err = run_one()
+            logzs.append(float(lz))
+            errs.append(float(err))
+        return combine_replicates(result, logzs, errs, label)
 
     def evaluate_log_likelihood(self, x) -> torch.Tensor:
         self.n_likelihood_evaluations += int(x.shape[0])

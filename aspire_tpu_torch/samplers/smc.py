@@ -902,10 +902,15 @@ class SMCSampler(Sampler):
         target_efficiency_rate: float = 1.0,
         n_final_samples: int | None = None,
         sampler_kwargs: dict | None = None,
+        checkpoint_callback: Callable[[dict], None] | None = None,
+        checkpoint_every: int | None = None,
+        checkpoint_file_path: str | None = None,
+        resume_from: str | bytes | dict | None = None,
         store_sample_history: bool | None = None,
         beta_tolerance: float = DEFAULT_BETA_TOLERANCE,
         device_ladder: bool | None = None,
         device_ladder_max_iters: int = 256,
+        n_replicates: int | None = None,
     ) -> Samples:
         """Run adaptive-tempered SMC; returns posterior samples with the
         log evidence and its error. ``n_steps`` fixes the beta ladder
@@ -919,7 +924,37 @@ class SMCSampler(Sampler):
         and the target can be captured, as the JAX package does.
         ``device_ladder_max_iters`` sizes its history buffers: a run that
         needs more rungs continues on the host ladder (``max_n_steps``, a
-        cumulative cap, takes its place when set)."""
+        cumulative cap, takes its place when set).
+
+        ``n_replicates`` > 1 runs that many independent runs, each going on
+        with the sampler's generator, and gives the last run's samples the
+        replicates' log Z (:func:`~aspire_tpu_torch.samplers.base.
+        combine_replicates`). The checkpoint and resume arguments need HDF5,
+        which is not ported: each raises when set."""
+        if n_replicates is not None and n_replicates > 1:
+            if (resume_from is not None or checkpoint_callback is not None
+                    or checkpoint_file_path is not None):
+                raise ValueError(
+                    "n_replicates runs independent replicates; combine it "
+                    "with checkpointing/resume per replicate manually "
+                    "instead.")
+            return self._sample_replicated(n_replicates, n_samples, dict(
+                n_steps=n_steps, adaptive=adaptive,
+                min_beta_step=min_beta_step, max_beta_step=max_beta_step,
+                max_n_steps=max_n_steps, target_efficiency=target_efficiency,
+                target_efficiency_rate=target_efficiency_rate,
+                n_final_samples=n_final_samples,
+                sampler_kwargs=sampler_kwargs,
+                store_sample_history=store_sample_history,
+                beta_tolerance=beta_tolerance, device_ladder=device_ladder,
+                device_ladder_max_iters=device_ladder_max_iters))
+        for name, value in (("checkpoint_callback", checkpoint_callback),
+                            ("checkpoint_every", checkpoint_every),
+                            ("checkpoint_file_path", checkpoint_file_path),
+                            ("resume_from", resume_from)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"{name} needs HDF5, not ported yet")
         self.sampler_kwargs = dict(self.default_sampler_kwargs)
         self.sampler_kwargs.update(sampler_kwargs or {})
         for name in UNPORTED_SAMPLER_KWARGS:
@@ -1066,6 +1101,22 @@ class SMCSampler(Sampler):
         logger.info("Log evidence: %.3f +/- %.3f", out.log_evidence,
                     out.log_evidence_error)
         return out
+
+    def _sample_replicated(self, k: int, n_samples: int,
+                           kwargs: dict) -> Samples:
+        """``k`` independent runs (``sample(n_samples, **kwargs)``), each
+        going on with the sampler's generator; their histories in
+        ``replicate_histories``."""
+        histories = []
+
+        def run_one():
+            s = self.sample(n_samples, **kwargs)
+            histories.append(self.history)
+            return s, s.log_evidence, s.log_evidence_error
+
+        result = self._replicate_evidence(k, run_one, "SMC")
+        self.replicate_histories = histories
+        return result
 
 
 class PCNSMC(SMCSampler):

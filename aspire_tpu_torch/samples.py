@@ -3,8 +3,10 @@
 :class:`Samples` carries importance weights, the evidence and the ESS;
 :class:`SMCSamples` carries particles at an inverse temperature ``beta``
 with the per-step evidence ratio and resampling; :class:`MCMCSamples` a
-chain ``(n_steps, n_walkers, d)`` stored flat. The parallel-tempered
-container and HDF5 persistence are not ported yet.
+chain ``(n_steps, n_walkers, d)`` stored flat; :class:`PTMCMCSamples` the
+parallel-tempered chains ``(n_temps, n_steps, n_walkers, d)`` with the
+thermodynamic-integration and stepping-stone evidence estimators. HDF5
+persistence and the plots are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +41,86 @@ def incremental_log_weights(log_q, log_likelihood, log_prior, beta_prev,
 
 def _maybe(fn, value):
     return fn(value) if value is not None else None
+
+
+def _host(value) -> np.ndarray | None:
+    """A tensor or array-like as a host numpy array (None stays None)."""
+    if value is None:
+        return None
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+# -- the ladder's evidence reductions -----------------------------------
+#
+# ``betas`` ascending (the prior first); the log-likelihood matrix
+# ``(T, S)`` is centred per rung on the host in float64 and reduced in
+# float64. Error bars use the delta method with n / tau effective samples
+# per rung, tau the integrated autocorrelation time of the rung's logL.
+
+
+def _trapezoid_weights(betas: torch.Tensor) -> torch.Tensor:
+    """Node weights ``w`` with ``w @ f == trapezoid(f, betas)``."""
+    gaps = torch.diff(betas)
+    w = torch.zeros_like(betas)
+    w[:-1] += 0.5 * gaps
+    w[1:] += 0.5 * gaps
+    return w
+
+
+def _ti_spread_error(betas, logl_centered, tau) -> torch.Tensor:
+    """Delta-method TI quadrature error from centred draws: the rungs are
+    independent chains, each mean's variance deflated by ``S / tau``."""
+    betas, logl_centered, tau = (torch.as_tensor(np.asarray(v, np.float64))
+                                 for v in (betas, logl_centered, tau))
+    w = _trapezoid_weights(betas)
+    n_eff = logl_centered.shape[1] / tau
+    var_of_mean = torch.var(logl_centered, dim=1, correction=0) / n_eff
+    return torch.sqrt(torch.sum(w**2 * var_of_mean))
+
+
+def _stepping_stone_reduce(betas, logl_centered, tau):
+    """Stepping stone over centred draws: ``log r_j = log E_{beta_j}[
+    L^{dbeta_j}]`` from the hotter rung ``j`` by a max-shifted mean-exp,
+    every rung at once; the error ``sqrt(sum relvar(g_j) / n_eff_j)``.
+    An all-``-inf`` rung is shifted by 0 (it gives an honest ``-inf``
+    ratio, not NaN), and the exponent is clipped at 0, a no-op in exact
+    arithmetic that keeps a rung whose logL spans 1e19 finite."""
+    betas, logl_centered, tau = (torch.as_tensor(np.asarray(v, np.float64))
+                                 for v in (betas, logl_centered, tau))
+    gaps = torch.diff(betas)
+    a = gaps[:, None] * logl_centered[:-1]
+    shift = torch.max(a, dim=1, keepdim=True).values
+    shift = torch.where(torch.isfinite(shift), shift,
+                        torch.zeros_like(shift))
+    g = torch.exp(torch.clamp(a - shift, max=0.0))
+    g_mean = torch.mean(g, dim=1)
+    log_r = torch.log(g_mean) + shift[:, 0]
+    n_eff = logl_centered.shape[1] / tau[:-1]
+    rel_var = torch.var(g, dim=1, correction=0) / (n_eff * g_mean**2)
+    return torch.sum(log_r), torch.sqrt(torch.sum(rel_var))
+
+
+def _integrated_autocorr_1d(series: np.ndarray, c: float = 5.0) -> float:
+    """Sokal-windowed IAT of a ``(n_steps, n_chains)`` scalar series; 1.0
+    for a constant or too short series (usable as an ESS deflator)."""
+    series = np.asarray(series, dtype=np.float64)
+    n = series.shape[0]
+    if n < 4:
+        return 1.0
+    centered = series - series.mean(axis=0, keepdims=True)
+    nfft = 1 << (2 * n - 1).bit_length()
+    spec = np.fft.rfft(centered, n=nfft, axis=0)
+    acf = np.fft.irfft(spec * np.conjugate(spec), n=nfft, axis=0)[:n].real
+    acf = acf.mean(axis=1)
+    if not np.isfinite(acf[0]) or acf[0] <= 0:
+        return 1.0
+    rho = acf / acf[0]
+    tau_running = 2.0 * np.cumsum(rho) - 1.0
+    window = np.nonzero(np.arange(n) >= c * tau_running)[0]
+    tau = tau_running[window[0]] if window.size else tau_running[-1]
+    return float(max(tau, 1.0))
 
 
 @dataclass
@@ -380,3 +462,213 @@ class MCMCSamples(BaseSamples):
 
     def to_samples(self) -> Samples:
         return Samples.from_samples(self)
+
+
+@dataclass
+class PTMCMCSamples(MCMCSamples):
+    """Parallel-tempered chains ``(n_temps, n_steps, n_walkers, d)`` stored
+    flat, with their inverse temperatures (``betas``: 1-d, strictly
+    decreasing, the cold chain first at 1) and the run's per-rung move
+    and per-pair swap acceptance, which ride through ``post_process`` and
+    ``subsample``."""
+
+    betas: Any = None
+    #: per-rung stretch-move acceptance rate, shape (T,)
+    move_acceptance: Any = None
+    #: per-adjacent-pair swap acceptance rate, shape (T-1,)
+    swap_acceptance: Any = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.betas is None:
+            return
+        self.betas = _host(self.betas)
+        betas = np.atleast_1d(np.asarray(self.betas, dtype=float))
+        if betas.ndim != 1:
+            raise ValueError("betas must be one-dimensional")
+        if self.chain_shape is not None and len(betas) != self.chain_shape[0]:
+            raise ValueError(f"Got {len(betas)} betas for "
+                             f"{self.chain_shape[0]} temperature rungs")
+        if len(betas) > 1 and np.any(np.diff(betas) >= 0):
+            raise ValueError("betas must be strictly decreasing (cold chain "
+                             "first)")
+        if not np.isclose(betas[0], 1.0):
+            raise ValueError(f"betas must start at 1 (cold chain); got "
+                             f"{betas[0]}")
+
+    def __getitem__(self, idx):
+        raise NotImplementedError(
+            "Slicing is not supported for PTMCMCSamples. Use "
+            "at_temperature() to extract samples at a specific temperature.")
+
+    def _with(self, x, pick, chain_shape, **kwargs) -> "PTMCMCSamples":
+        """A ladder of the same rungs: ``x`` and every density field through
+        ``pick`` (a ``(T, ...)`` tensor to a flat one)."""
+        return self.__class__(
+            x=x, log_likelihood=_maybe(pick, self.log_likelihood),
+            log_prior=_maybe(pick, self.log_prior),
+            log_q=_maybe(pick, self.log_q), parameters=self.parameters,
+            dtype=self.dtype, device=self.device, chain_shape=chain_shape,
+            betas=self.betas, move_acceptance=self.move_acceptance,
+            swap_acceptance=self.swap_acceptance, **kwargs)
+
+    def post_process(self, burn_in: int | None = None,
+                     thin: int | None = None) -> "PTMCMCSamples":
+        """Burn-in and thinning along every rung's step axis (axis 1)."""
+        if self.chain_shape is None:
+            raise ValueError("chain_shape is not set")
+        burn_in = 0 if burn_in is None else burn_in
+        thin = 1 if thin is None else thin
+        chain = self.chain[:, burn_in::thin]
+        return self._with(
+            chain.reshape(-1, self.dims),
+            lambda v: self._reshape_like_chain(v)[:, burn_in::thin]
+            .reshape(-1),
+            tuple(chain.shape[:-1]), burn_in=burn_in, thin=thin)
+
+    def compute_autocorrelation_time(self, c: float = 5.0) -> torch.Tensor:
+        """Per-rung, per-parameter integrated autocorrelation time, shape
+        ``(T, d)``."""
+        taus = []
+        for t in range(self.n_temperatures):
+            sub = self.at_temperature(t)
+            sub.autocorrelation_time = None
+            taus.append(sub.compute_autocorrelation_time(c))
+        self.autocorrelation_time = torch.stack(taus)
+        return self.autocorrelation_time
+
+    @property
+    def n_temperatures(self) -> int:
+        return self.chain_shape[0]
+
+    def at_temperature(self, index: int) -> MCMCSamples:
+        """The samples of rung ``index`` as plain MCMCSamples."""
+        def pick(value):
+            return self._reshape_like_chain(value)[index].reshape(-1)
+
+        return MCMCSamples(
+            x=self.chain[index].reshape(-1, self.dims),
+            log_likelihood=_maybe(pick, self.log_likelihood),
+            log_prior=_maybe(pick, self.log_prior),
+            log_q=_maybe(pick, self.log_q), parameters=self.parameters,
+            dtype=self.dtype, device=self.device,
+            chain_shape=self.chain_shape[1:], burn_in=self.burn_in,
+            thin=self.thin,
+            autocorrelation_time=(self.autocorrelation_time[index]
+                                  if self.autocorrelation_time is not None
+                                  else None))
+
+    def cold_chain(self) -> MCMCSamples:
+        return self.at_temperature(0)
+
+    def subsample(self, n: int, rng=None, *,
+                  generator: torch.Generator | None = None
+                  ) -> "PTMCMCSamples":
+        """``n`` (step, walker) entries of every rung, drawn without
+        replacement and independently per rung (a shared index would keep
+        the rungs step-aligned, against the independence the evidence
+        errors assume), from ``generator``, or one seeded from ``rng`` (a
+        numpy Generator, a fresh one by default)."""
+        n_temps = self.n_temperatures
+        flat = self.chain.reshape(n_temps, -1, self.dims)
+        total = flat.shape[1]
+        if n > total:
+            raise ValueError(
+                f"Cannot subsample {n} from {total} samples per temperature")
+        if generator is None:
+            rng = rng or np.random.default_rng()
+            generator = torch.Generator(device=self.x.device)
+            generator.manual_seed(int(rng.integers(2**63)))
+        idx = torch.stack([
+            torch.randperm(total, generator=generator,
+                           device=generator.device)[:n]
+            for _ in range(n_temps)]).to(self.x.device)
+
+        def pick(value):
+            v = self._reshape_like_chain(value).reshape(n_temps, -1)
+            return torch.take_along_dim(v, idx, dim=1).reshape(-1)
+
+        return self._with(
+            torch.take_along_dim(flat, idx[:, :, None], dim=1)
+            .reshape(-1, self.dims), pick, (n_temps, n, 1),
+            burn_in=self.burn_in, thin=self.thin)
+
+    def _ladder_logl(self, burn_in_fraction: float | None,
+                     correlated: bool):
+        """``(betas, logl, tau)``, the rungs ordered prior to posterior:
+        betas (T,) ascending, logl (T, S) after the burn-in, tau each
+        rung's logL autocorrelation time (ones unless ``correlated``)."""
+        if self.betas is None:
+            raise ValueError(
+                "This ladder has no inverse temperatures (betas=None); "
+                "evidence estimation needs them.")
+        if self.log_likelihood is None:
+            raise ValueError(
+                "Evidence estimation needs per-sample log-likelihoods.")
+        by_rung = _host(self._reshape_like_chain(self.log_likelihood))
+        if burn_in_fraction:
+            skip = int(round(by_rung.shape[1] * burn_in_fraction))
+            by_rung = by_rung[:, skip:]
+        if by_rung[0].size == 0:
+            raise ValueError(
+                "Burn-in removed every step of the chain; lower "
+                "burn_in_fraction or run longer chains.")
+        ascending = np.argsort(np.asarray(self.betas))
+        betas = np.asarray(self.betas, dtype=np.float64)[ascending]
+        by_rung = np.asarray(by_rung, dtype=np.float64)[ascending]
+        tau = (np.array([_integrated_autocorr_1d(r) for r in by_rung])
+               if correlated else np.ones(len(betas)))
+        return betas, by_rung.reshape(len(betas), -1), tau
+
+    def log_evidence_thermodynamic_integration(
+            self, burn_in_fraction: float | None = 0.1,
+            method: str = "variance",
+            correlated: bool = True) -> tuple[float, float]:
+        """Thermodynamic-integration log Z over the ladder (the trapezoid
+        of the rung means of logL). ``method``: "variance", the
+        delta-method sampling error; "coarse", ``|I_full - I_half|`` from
+        every other rung; "total", the sampling error plus the Richardson
+        estimate of the remaining trapezoid bias, ``|I_full - I_half| /
+        3``."""
+        betas, logl, tau = self._ladder_logl(burn_in_fraction, correlated)
+        rung_means = logl.mean(axis=1)
+        logz = float(np.trapezoid(rung_means, betas))
+        err = float(_ti_spread_error(betas, logl - rung_means[:, None], tau))
+        if method == "variance":
+            return logz, err
+        keep = sorted(set(range(0, len(betas), 2)) | {len(betas) - 1})
+        coarse = float(np.trapezoid(rung_means[keep], betas[keep]))
+        if method == "coarse":
+            return logz, abs(logz - coarse)
+        if method == "total":
+            return logz, err + abs(logz - coarse) / 3.0
+        raise ValueError(
+            f"Unknown TI error method {method!r}; expected 'variance', "
+            "'coarse' or 'total'.")
+
+    def log_evidence_stepping_stone(
+            self, burn_in_fraction: float | None = 0.1,
+            correlated: bool = True) -> tuple[float, float]:
+        """Stepping-stone log Z, the product of the rungs' power ratios;
+        needs a rung at beta = 0. Each rung is centred on its maximum (so
+        every exponent is at most 0), an all-``-inf`` rung on 0, and the
+        base ``sum dbeta_j ref_j`` added back in float64."""
+        betas, logl, tau = self._ladder_logl(burn_in_fraction, correlated)
+        if betas[0] != 0.0:
+            raise ValueError(
+                "The stepping-stone estimator needs a rung at beta=0 "
+                f"(the prior); the hottest rung supplied is at "
+                f"beta={betas[0]}.")
+        rung_ref = logl.max(axis=1)
+        rung_ref = np.where(np.isfinite(rung_ref), rung_ref, 0.0)
+        shifted, err = _stepping_stone_reduce(
+            betas, logl - rung_ref[:, None], tau)
+        base = float(np.sum(np.diff(betas) * rung_ref[:-1]))
+        return base + float(shifted), float(err)
+
+    def plot_chain(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the PTMCMCSamples plots need matplotlib, which the port does "
+            "not use yet")
+
+    plot_ladder = plot_chain

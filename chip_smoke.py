@@ -108,7 +108,13 @@ main paths (6, 7, 8) right after the build:
    step, and a CNF inside, on the mixture at n = 16384); the standalone
    samplers (``phase_mcmc``: minipcn's tpCN and pCN, emcee, and tpCN
    with a flow preconditioning, 16384 walkers on the bounded Gaussian,
-   each dimension's moments against N(2, 1));
+   each dimension's moments against N(2, 1)); the parallel-tempered
+   sampler (``phase_ptmcmc``: a float64 run on the card against the CPU
+   under the same draws, ``benchmarks/validate.py``'s PT rows on the four
+   targets at 512 walkers against their truths, the funnel on three fits
+   combined, with the seconds and device operations a round; PT with a
+   flow preconditioning, B3 in every half-move; SMC with
+   ``n_replicates=3`` on the mixture);
 12. print kernel and plain times, each kernel's bound, the kernels JSON
    line and the result line. A time is device time: one CUDA-event pair
    around 20 back-to-back calls after a warm-up (cuda_ms); the earlier
@@ -144,6 +150,8 @@ pipeline of nsf-tpu and of maf-rqs (``ladder_profile``).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -963,6 +971,10 @@ def hierarchical_chain_setup(device, n: int, steps: int, n_layers: int = 6):
 #: The JAX package's validation rows (benchmarks/validate.py:299,309), each
 #: with the nsf-tpu flow at its d: (problem name, d).
 VALIDATE_ROWS = {"rosenbrock": ("rosenbrock", 2), "funnel": ("funnel", 5)}
+#: the validation's other two targets, whose rows only ``phase_ptmcmc``
+#: runs through ``validate_aspire``
+PT_ONLY_ROWS = {"gaussian": ("gaussian", 4),
+                "mixture": ("gaussian_mixture", 4)}
 
 
 def validate_chain_setup(device, n: int, steps: int, row: str):
@@ -2070,6 +2082,24 @@ def phase_main_path(device, n_anchor: int, n_pipeline: int) -> dict:
             "split_log_z_err": split.log_evidence_error}
 
 
+#: the fitted problems the phases share, by helper, device and arguments:
+#: each is fitted once a run (no phase changes a fitted flow; a sampler is
+#: made afresh at every ``sample_posterior``)
+_FITTED: dict = {}
+
+
+def fitted_once(fn):
+    """``fn(device, ...)`` made once per distinct call, then shared."""
+    @functools.wraps(fn)
+    def shared(device, *args, **kw):
+        key = (fn.__name__, str(device), repr(args), repr(sorted(kw.items())))
+        if key not in _FITTED:
+            _FITTED[key] = fn(device, *args, **kw)
+        return _FITTED[key]
+    return shared
+
+
+@fitted_once
 def bounded_aspire(device, **kw):
     """``GaussianProblem(dims=4)`` (N(2, 1) likelihood, U(-10, 10)^4
     prior, log Z = -4 ln 20) on its prior bounds, with an nsf-tpu flow
@@ -2312,34 +2342,38 @@ def funnel_truth(dims: int = 5, scale: float = 3.0,
     return float(lse(log_int) + np.log(dv))
 
 
-def combine_replicates(logzs, errs) -> tuple[float, float]:
-    """The replicates' log Z and its error: ``aspire_tpu/samplers/base.py::
-    combine_replicates``'s arithmetic, copied (the mean; the between-run
-    spread over sqrt(k) where it agrees with the single-run errors, the
-    spread itself where it does not, at least their rms over sqrt(k))."""
-    import numpy as np
+def combined_log_z(logzs, errs, label: str) -> tuple[float, float]:
+    """The replicates' log Z and its error by the port's
+    ``combine_replicates`` (the JAX package's rule: the mean; the
+    between-run spread over sqrt(k) where it agrees with the single-run
+    errors, the spread itself where it does not, at least their rms over
+    sqrt(k))."""
+    import types
 
-    k = len(logzs)
-    between_sd = float(np.std(logzs, ddof=1))
-    single_rms = float(np.sqrt(np.mean(np.square(errs))))
-    consistent = between_sd <= 1.5 * single_rms
-    between = between_sd / math.sqrt(k) if consistent else between_sd
-    return float(np.mean(logzs)), max(between, single_rms / math.sqrt(k))
+    from aspire_tpu_torch.samplers.base import combine_replicates
+
+    out = combine_replicates(types.SimpleNamespace(), list(logzs),
+                             list(errs), label)
+    return out.log_evidence, out.log_evidence_error
 
 
+@fitted_once
 def validate_aspire(device, row: str, seed: int = 1):
     """A validation row as ``benchmarks/validate.py`` runs it: the problem
-    (``VALIDATE_ROWS``) on its prior bounds, an nsf-tpu flow at the given
-    seed fitted for 25 epochs at batch 512 on 8192 of its initial draws
-    (``default_rng(0)``)."""
+    (``VALIDATE_ROWS``, or ``PT_ONLY_ROWS``) on its prior bounds, an
+    nsf-tpu flow at the given seed fitted for 25 epochs at batch 512 on
+    8192 fit draws of ``default_rng(0)`` (the Gaussian's N(1, 1.2), the
+    others' own initial draws)."""
     import numpy as np
 
     from aspire_tpu_torch import Aspire, Samples
     from aspire_tpu_torch.models import get_problem
 
-    name, d = VALIDATE_ROWS[row]
+    name, d = {**VALIDATE_ROWS, **PT_ONLY_ROWS}[row]
     p = get_problem(name, dims=d)
-    init = Samples(p.draw_initial_samples(np.random.default_rng(0), 8192))
+    rng = np.random.default_rng(0)
+    init = Samples(rng.normal(1.0, 1.2, size=(8192, d)) if row == "gaussian"
+                   else p.draw_initial_samples(rng, 8192))
     asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
                  dims=d, prior_bounds=p.prior_bounds, flow_backend="nsf",
                  architecture="nsf-tpu", seed=seed, device=device)
@@ -2447,7 +2481,7 @@ def phase_validate_targets(device, n_anchor: int, n_pipeline: int) -> dict:
     B2 launch: Rosenbrock's log Z within max(5 sigma, 0.02) of the
     quadrature truth; the funnel's from three fits (seeds 1, 2, 3; the
     reference gates it on flow-refit replicates) combined as the
-    reference combines them (``combine_replicates``), held the same way;
+    reference combines them (``combined_log_z``), held the same way;
     (c) the ``n_pipeline`` pipelines: the device ladder in turns with the
     host ladder (1 B2 and 0 B1 a rung, one population for both),
     ``replay_check``, and the split route (B1, CHAIN_STEPS + 2 a rung) in
@@ -2470,8 +2504,8 @@ def phase_validate_targets(device, n_anchor: int, n_pipeline: int) -> dict:
             _, asp = validate_aspire(device, row, seed)
             asps.setdefault(row, asp)
             anchors.append(validate_anchor(asp, n_anchor))
-        log_z, err = (combine_replicates([a["log_z"] for a in anchors],
-                                         [a["log_z_err"] for a in anchors])
+        log_z, err = (combined_log_z([a["log_z"] for a in anchors],
+                                     [a["log_z_err"] for a in anchors], row)
                       if len(anchors) > 1 else
                       (anchors[0]["log_z"], anchors[0]["log_z_err"]))
         out[row]["anchor"] = {"log_z": log_z, "log_z_err": err,
@@ -3064,20 +3098,9 @@ NUTS_PIPELINE = {"n_steps": 2, "max_depth": 4}
 
 def mixture_aspire(device, seed: int = 1):
     """The 4-d Gaussian mixture fitted as ``validate_aspire`` fits a
-    validation row: nsf-tpu at ``seed``, 25 epochs at batch 512 on 8192
-    of its initial draws (``default_rng(0)``)."""
-    import numpy as np
-
-    from aspire_tpu_torch import Aspire, Samples
-    from aspire_tpu_torch.models import GaussianMixtureProblem
-
-    p = GaussianMixtureProblem(dims=4)
-    init = Samples(p.draw_initial_samples(np.random.default_rng(0), 8192))
-    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
-                 dims=4, prior_bounds=p.prior_bounds, flow_backend="nsf",
-                 architecture="nsf-tpu", seed=seed, device=device)
-    asp.fit(init, n_epochs=25, batch_size=512)
-    return p, asp
+    validation row (nsf-tpu at ``seed``, 25 epochs at batch 512 on 8192 of
+    its initial draws of ``default_rng(0)``)."""
+    return validate_aspire(device, "mixture", seed)
 
 
 def gradient_anchor(asp, sampler: str, kwargs: dict, n: int,
@@ -3198,7 +3221,7 @@ def phase_gradient_samplers(device, n_anchor: int, n_pipeline: int) -> dict:
     validation rows are (``mixture_aspire``), each sampler of
     ``GRADIENT_ANCHORS`` gated against the analytic log Z; ``rwmh_smc``
     and ``hmc_smc`` on the Rosenbrock row (one fit) and the funnel row
-    (three fits, combined by ``combine_replicates``), gated against their
+    (three fits, combined by ``combined_log_z``), gated against their
     quadrature truths; ``nuts_smc`` with ``device_ladder=True`` refused;
     (d) BASELINE config 3 (``baseline_config3``);
     (e) the ``n_pipeline`` pipelines on the mixture: each of
@@ -3237,8 +3260,9 @@ def phase_gradient_samplers(device, n_anchor: int, n_pipeline: int) -> dict:
                 runs[name].append(gradient_anchor(
                     row_asp, name, GRADIENT_ANCHORS[name], n_anchor, None))
         for name, rr in runs.items():
-            log_z, err = (combine_replicates([r["log_z"] for r in rr],
-                                             [r["log_z_err"] for r in rr])
+            log_z, err = (combined_log_z([r["log_z"] for r in rr],
+                                         [r["log_z_err"] for r in rr],
+                                         f"{row} {name}")
                           if len(rr) > 1 else (rr[0]["log_z"],
                                                rr[0]["log_z_err"]))
             v = {"log_z": log_z, "log_z_err": err, "truth": row_truth,
@@ -3771,6 +3795,321 @@ def phase_mcmc(device, walkers: int) -> dict:
     return out
 
 
+#: The validation's PT rows (``benchmarks/validate.py:52-76``): its PT
+#: kwargs verbatim, at its walker count n // 32; the funnel on three fits.
+PT_ROWS = ("gaussian", "mixture", "rosenbrock", "funnel")
+PT_KWARGS = dict(n_steps=800, n_temperatures=12, betas="adaptive",
+                 swap_every=5, ladder_pilot_steps=40,
+                 ladder_pilot_iterations=2)
+PT_WALKERS = N_VALIDATE // 32
+#: The card against the CPU in float64: geometric rungs, walkers, rounds.
+PT_CHECK = dict(n_temps=4, n=1024, rounds=8, swap_every=2)
+PT_CHECK_TOL = 1e-9
+#: Flow-preconditioned PT on the bounded Gaussian: each half-move inverts
+#: T x n / 2 = 4096 states (one B3 launch).
+PT_FLOW = dict(n_temperatures=8, n_samples=1024, n_steps=50, swap_every=1)
+#: The rounds of the timed run on each row's ladder (seconds a round).
+PT_TIMED_ROUNDS = 20
+
+
+@contextlib.contextmanager
+def pt_draw_stream(record: list | None = None, replay: list | None = None,
+                   device=None):
+    """The samplers' draw functions (``kernels._randint``, ``_uniform``)
+    recording each draw into ``record``, or returning ``replay``'s draws in
+    order, moved to ``device``."""
+    from aspire_tpu_torch.samplers import kernels as K
+
+    saved = K._randint, K._uniform
+
+    def wrap(fn):
+        def draw(*args):
+            if replay is not None:
+                return replay.pop(0).to(device)
+            v = fn(*args)
+            record.append(v.clone())
+            return v
+        return draw
+
+    K._randint, K._uniform = wrap(saved[0]), wrap(saved[1])
+    try:
+        yield
+    finally:
+        K._randint, K._uniform = saved
+
+
+def max_diff(a, b) -> float:
+    """Largest |a - b| over two tensors or arrays, equal infinities and
+    NaNs counting 0 and any other non-finite mismatch infinity."""
+    import torch
+
+    a, b = (torch.as_tensor(v).detach().double().cpu() for v in (a, b))
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    if not bool((same | (torch.isfinite(a) & torch.isfinite(b))).all()):
+        return math.inf
+    diff = torch.where(same, torch.zeros_like(a), (a - b).abs())
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def pt_device_check(device) -> dict:
+    """``PT_CHECK``'s run on the bounded Gaussian (``GaussianProblem(
+    dims=4)``), float64, from one numpy seed's initial states, on the CPU
+    and then on ``device`` with the CPU run's draws replayed
+    (``pt_draw_stream``): chain, logL, logPi and both acceptances within
+    PT_CHECK_TOL."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch.models import GaussianProblem
+    from aspire_tpu_torch.samplers import ParallelTemperedSampler
+
+    c = PT_CHECK
+    p = GaussianProblem(dims=4)
+    x0 = np.random.default_rng(7).uniform(-3.0, 7.0,
+                                          size=(c["n_temps"] * c["n"], 4))
+    betas = np.concatenate([0.5 ** np.arange(c["n_temps"] - 1), [0.0]])
+
+    def run(dev, **stream):
+        sampler = ParallelTemperedSampler(
+            p.log_likelihood, p.log_prior, 4, prior_flow=None,
+            dtype="float64", device=dev, rng=7)
+        with pt_draw_stream(**stream):
+            return sampler.sample(c["n"], n_steps=c["rounds"]
+                                  * c["swap_every"], betas=betas,
+                                  swap_every=c["swap_every"], _init_x=x0)
+
+    draws = []
+    cpu = run(torch.device("cpu"), record=draws)
+    out = {**c, "draws": len(draws)}
+    card = run(device, replay=draws, device=device)
+    if draws:
+        raise AssertionError(f"the card's run left {len(draws)} draws")
+    out["max_abs_diff"] = {
+        "chain": max_diff(card.chain, cpu.chain),
+        **{k: max_diff(getattr(card, k), getattr(cpu, k))
+           for k in ("log_likelihood", "log_prior", "move_acceptance",
+                     "swap_acceptance")}}
+    out["move_acceptance"] = cpu.move_acceptance.tolist()
+    out["swap_acceptance"] = cpu.swap_acceptance.tolist()
+    log(f"PT on the card against the CPU, float64: {out}")
+    if not all(v <= PT_CHECK_TOL for v in out["max_abs_diff"].values()):
+        raise AssertionError(f"PT: the card's run left the CPU's: {out}")
+    return out
+
+
+def pt_continue(sampler, post, rounds: int):
+    """``rounds`` more rounds of ``post``'s run (its ladder, walkers and
+    ``PT_KWARGS``'s swap_every) from its final states."""
+    se = PT_KWARGS["swap_every"]
+    n = post.chain_shape[2]
+    return sampler.sample(n, n_steps=rounds * se, betas=post.betas,
+                          swap_every=se,
+                          _init_x=post.chain[:, -1].reshape(-1, post.dims))
+
+
+def pt_round_kernels(sampler, post) -> dict:
+    """The device operations (kernels, copies, fills) of one PT round on
+    ``post``'s ladder and their device time: ``torch.profiler``'s CUDA
+    activity over a 2-round run less that over a 1-round run, which share
+    everything else."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts, us = [], []
+    for rounds in (1, 2):
+        for attempt in range(3):  # a trace can come back without the card's
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                pt_continue(sampler, post, rounds)
+                torch.cuda.synchronize()
+            ops = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            if ops:
+                break
+            log(f"the profiler recorded no PT kernel (trace {attempt})")
+        counts.append(sum(e.count for e in ops))
+        us.append(sum(getattr(e, "device_time_total", 0) for e in ops))
+    return {"ops": counts[1] - counts[0], "device_ms": (us[1] - us[0]) / 1e3}
+
+
+def pt_row(asp, truth: float, profile_round: bool) -> dict:
+    """One PT row: ``sample_posterior(sampler="ptmcmc", PT_WALKERS walkers,
+    store_sample_history=False, **PT_KWARGS)`` on ``asp`` (the
+    validation's own call), timed; its stepping-stone and TI ("total") log
+    Z, rungs, acceptances, evaluations, rounds, B3 launches; then
+    PT_TIMED_ROUNDS more rounds timed (seconds a round) and, with
+    ``profile_round``, the device operations of one round and their
+    device time noted for the end of the run (``pt_round_kernels``)."""
+    import numpy as np
+    import torch
+
+    on_card = asp.device.type == "cuda"
+    reset_launch_counts()
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post = asp.sample_posterior(sampler="ptmcmc", n_samples=PT_WALKERS,
+                                store_sample_history=False, **PT_KWARGS)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sampler = asp.sampler
+    out = {"walkers": PT_WALKERS, "wall_s": wall,
+           "evaluations": sampler.n_likelihood_evaluations,
+           "rounds": post.chain_shape[1], "rungs": len(post.betas),
+           "betas": np.asarray(post.betas).tolist(),
+           "b3": sampling_launches(), "launches": launch_counts(),
+           "move_acceptance_mean": float(np.mean(post.move_acceptance)),
+           "swap_acceptance_min": float(np.min(post.swap_acceptance)),
+           "truth": truth}
+    out["log_z"], out["log_z_err"] = post.log_evidence_stepping_stone()
+    out["ti_log_z"], out["ti_err"] = (
+        post.log_evidence_thermodynamic_integration(method="total"))
+    x = post.cold_chain().x
+    if not (bool(torch.isfinite(x).all()) and math.isfinite(out["log_z"])
+            and math.isfinite(out["log_z_err"])):
+        raise AssertionError(f"PT samples or log Z not finite: {out}")
+    if on_card and out["b3"] < 1:
+        raise AssertionError(f"the PT probe took no B3 launch: {out}")
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt_continue(sampler, post, PT_TIMED_ROUNDS)
+    if on_card:
+        torch.cuda.synchronize()
+    out["s_per_round"] = (time.perf_counter() - t0) / PT_TIMED_ROUNDS
+    if on_card and profile_round:
+        _KERNEL_MS_LATER.append(lambda: out.__setitem__(
+            "round_profile", pt_round_kernels(sampler, post)))
+    return out
+
+
+def pt_flow_preconditioned(device) -> dict:
+    """``PT_FLOW`` on the bounded Gaussian (``bounded_aspire``) with
+    ``preconditioning="flow"`` (nsf-tpu inside, ``FLOW_PRECOND_FIT``): B3
+    at least twice a move (each half-move's inverse), the stepping-stone
+    log Z printed beside the truth, not gated."""
+    import torch
+
+    p, asp = bounded_aspire(device)
+    on_card = device.type == "cuda"
+    reset_launch_counts()
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post = asp.sample_posterior(
+        sampler="ptmcmc", preconditioning="flow",
+        preconditioning_kwargs=dict(fit_kwargs=FLOW_PRECOND_FIT), **PT_FLOW)
+    if on_card:
+        torch.cuda.synchronize()
+    out = {**PT_FLOW, "wall_s": time.perf_counter() - t0,
+           "b3": sampling_launches(), "launches": launch_counts(),
+           "truth": p.true_log_evidence}
+    out["log_z"], out["log_z_err"] = post.log_evidence_stepping_stone()
+    log(f"PT with preconditioning=\"flow\": {out}")
+    if not bool(torch.isfinite(post.x).all()) or (
+            on_card and out["b3"] < 2 * PT_FLOW["n_steps"]):
+        raise AssertionError(f"flow-preconditioned PT: {out}")
+    return out
+
+
+def phase_ptmcmc(device, n_smc: int) -> dict:
+    """The parallel-tempered sampler (``samplers/mcmc.py``:
+    ``ParallelTemperedSampler``, ``PTMCMCSamples``) and the replicate tier:
+
+    (a) ``pt_device_check``: the card against the CPU in float64;
+    (b) the validation's PT rows (``PT_ROWS``, ``pt_row``), each fitted as
+    ``validate_aspire`` fits it, the stepping-stone log Z within max(5
+    sigma, 0.02) of the truth (``benchmarks/validate.py``'s gate), the
+    funnel's three fits (seeds 1-3) combined by ``combined_log_z``;
+    (c) ``pt_flow_preconditioned``;
+    (d) SMC with ``n_replicates=3`` on the mixture row's fit at ``n_smc``
+    (20-step tpCN), the replicates' log Z in the same gate.
+    """
+    import numpy as np
+
+    from aspire_tpu_torch.models import GaussianMixtureProblem, GaussianProblem
+
+    out = {"device_check": pt_device_check(device), "rows": {}}
+    truths = {"gaussian": GaussianProblem(dims=4).true_log_evidence,
+              "mixture": mixture_truth(GaussianMixtureProblem(dims=4)),
+              "rosenbrock": rosenbrock_truth(), "funnel": funnel_truth()}
+    fits = {}
+    for row in PT_ROWS:
+        runs = []
+        for seed in ((1, 2, 3) if row == "funnel" else (1,)):
+            _, asp = validate_aspire(device, row, seed)
+            fits.setdefault(row, asp)
+            runs.append(pt_row(asp, truths[row], profile_round=seed == 1))
+        log_z, err = (combined_log_z([r["log_z"] for r in runs],
+                                     [r["log_z_err"] for r in runs],
+                                     f"{row} PT") if len(runs) > 1 else
+                      (runs[0]["log_z"], runs[0]["log_z_err"]))
+        v = {"log_z": log_z, "log_z_err": err, "truth": truths[row],
+             "runs": runs}
+        out["rows"][row] = v
+        log(f"{row} PT row, {PT_WALKERS} walkers: {v}")
+        if not abs(log_z - truths[row]) < max(5 * err, 0.02):
+            raise AssertionError(f"{row} PT row off the truth: {v}")
+    out["flow"] = pt_flow_preconditioned(device)
+
+    asp = fits["mixture"]
+    t0 = time.perf_counter()
+    post = asp.sample_posterior(sampler="smc", n_samples=n_smc,
+                                n_replicates=3, store_sample_history=False,
+                                sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    v = {"log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
+         "replicates": np.asarray(post.log_evidence_replicates).tolist(),
+         "single_run_err": post.log_evidence_error_single,
+         "wall_s": time.perf_counter() - t0, "truth": truths["mixture"]}
+    out["smc_replicates"] = v
+    log(f"SMC with n_replicates=3 on the mixture, n={n_smc}: {v}")
+    if len(v["replicates"]) != 3 or not abs(
+            v["log_z"] - v["truth"]) < max(5 * v["log_z_err"], 0.02):
+        raise AssertionError(f"SMC replicate tier off the truth: {v}")
+    return out
+
+
+def report_ptmcmc(card: str, pt: dict) -> None:
+    """Print ``phase_ptmcmc``'s results, one line each."""
+    c = pt["device_check"]
+    print(f"[{card}] PT on the card vs the CPU (float64, bounded Gaussian, "
+          f"{c['n_temps']} rungs x {c['n']} walkers, {c['rounds']} rounds of "
+          f"{c['swap_every']} moves, {c['draws']} draws replayed): max |diff| "
+          f"{c['max_abs_diff']}", flush=True)
+    for row, v in pt["rows"].items():
+        r = v["runs"][0]
+        print(f"[{card}] PT row {row}, {r['walkers']} walkers, "
+              f"{PT_KWARGS}: stepping-stone log Z {v['log_z']:.4f} +/- "
+              f"{v['log_z_err']:.4f} vs {v['truth']:.4f}"
+              f"{' (3 fits combined)' if len(v['runs']) > 1 else ''}; "
+              + "; ".join(
+                  f"fit {i + 1}: TI {u['ti_log_z']:.4f} +/- {u['ti_err']:.4f}"
+                  f", {u['rungs']} rungs, move acceptance "
+                  f"{u['move_acceptance_mean']:.3f}, min swap acceptance "
+                  f"{u['swap_acceptance_min']:.3f}, {u['wall_s']:.3f} s, "
+                  f"{u['evaluations']} evaluations, {u['rounds']} rounds, "
+                  f"{u['s_per_round'] * 1e3:.3f} ms a round"
+                  + (f" ({u['round_profile']['ops']} device ops, "
+                     f"{u['round_profile']['device_ms']:.3f} ms of device "
+                     f"time)" if "round_profile" in u else "")
+                  + f", B3 {u['b3']}" for i, u in enumerate(v["runs"])),
+              flush=True)
+    v = pt["flow"]
+    print(f"[{card}] PT with preconditioning=\"flow\" (nsf-tpu inside) on "
+          f"the bounded Gaussian, {v['n_temperatures']} rungs x "
+          f"{v['n_samples']} walkers, {v['n_steps']} moves: stepping-stone "
+          f"log Z {v['log_z']:.4f} +/- {v['log_z_err']:.4f} (truth "
+          f"{v['truth']:.4f}, not gated), {v['wall_s']:.3f} s, B3 {v['b3']}",
+          flush=True)
+    v = pt["smc_replicates"]
+    print(f"[{card}] SMC n_replicates=3 on the mixture, n={N_VALIDATE}: "
+          f"log Z {v['log_z']:.4f} +/- {v['log_z_err']:.4f} (replicates "
+          f"{[round(z, 4) for z in v['replicates']]}) vs {v['truth']:.4f}, "
+          f"{v['wall_s']:.3f} s", flush=True)
+
+
 def report_new_paths(card: str, cnf: dict, fp: dict, mcmc: dict) -> None:
     """Print ``phase_cnf``'s, ``phase_flow_preconditioning``'s and
     ``phase_mcmc``'s results, one line each."""
@@ -4232,6 +4571,7 @@ def main() -> int:
     cnf = timed(phase_cnf, device, N_VALIDATE, N_PIPELINE)
     flow_precond = timed(phase_flow_preconditioning, device, N_VALIDATE)
     mcmc = timed(phase_mcmc, device, N_VALIDATE)
+    pt = timed(phase_ptmcmc, device, N_VALIDATE)
     # The profiler last: after it has traced the card, every launch costs
     # the host more, and the pipelines and short kernels' events show it.
     timed(read_kernel_ms)
@@ -4297,6 +4637,7 @@ def main() -> int:
           f"{user['eval']['plain_ms']:.4f} ms at n={N_PIPELINE}", flush=True)
     report_gradient(card, gradient)
     report_new_paths(card, cnf, flow_precond, mcmc)
+    report_ptmcmc(card, pt)
     for name, (arch, *_) in coupling_flows().items():
         v = coupling["flows"][name]
         b = coupling_bound(arch, N_COUPLING)
@@ -4456,6 +4797,9 @@ def main() -> int:
                  "b1", "b3", "rungs", "b1_per_rung", "b3_per_rung")}
              for inner in ("nsf-tpu", "cnf")},
          "launches_b3_mcmc": {name: v["b3"] for name, v in mcmc.items()},
+         "launches_b3_pt_rows": {row: [r["b3"] for r in v["runs"]]
+                                 for row, v in pt["rows"].items()},
+         "launches_b3_pt_flow_preconditioned": pt["flow"]["b3"],
          "max_abs_err": coupling["max_abs_err"],
          **coupling_entry(coupling, "nsf-tpu"), "library_ms": None,
          "wrapper_ms": coupling["wrapper_ms"],

@@ -52,16 +52,13 @@ def test_registry_resolves_the_ported_names():
 @pytest.mark.parametrize("name", ["mcmc", "pcn", "minipcn", "ensemble",
                                   "emcee", "ptmcmc", "parallel_tempered"])
 def test_unported_mcmc_samplers_raise(name):
-    """The parallel-tempered sampler is not ported and raises; the
-    standalone pCN and ensemble samplers, once unported too, resolve to
-    their classes."""
-    if name in ("ptmcmc", "parallel_tempered"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_sampler_class(name)
-    else:
-        want = "EnsembleSampler" if name in ("ensemble", "emcee") else (
-            "PCNSampler")
-        assert get_sampler_class(name).__name__ == want
+    """The standalone MCMC samplers, once unported, all resolve to their
+    classes now: pCN, ensemble and parallel-tempered."""
+    want = {"ensemble": "EnsembleSampler", "emcee": "EnsembleSampler",
+            "ptmcmc": "ParallelTemperedSampler",
+            "parallel_tempered": "ParallelTemperedSampler"}.get(
+                name, "PCNSampler")
+    assert get_sampler_class(name).__name__ == want
 
 
 @pytest.fixture(scope="module")

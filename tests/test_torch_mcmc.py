@@ -24,6 +24,7 @@ from aspire_tpu_torch.models import GaussianProblem
 from aspire_tpu_torch.samplers import (
     SAMPLER_REGISTRY,
     EnsembleSampler,
+    ParallelTemperedSampler,
     PCNSampler,
     get_sampler_class,
 )
@@ -166,15 +167,13 @@ def test_run_chain_stores_the_chain():
 
 
 def test_registry_matches_jax():
-    resolved = {k: v for k, v in jsamplers.SAMPLER_REGISTRY.items()
-                if k not in ("ptmcmc", "parallel_tempered")}
-    assert len(resolved) == 16 and set(SAMPLER_REGISTRY) == set(resolved)
+    resolved = jsamplers.SAMPLER_REGISTRY
+    assert len(resolved) == 18 and set(SAMPLER_REGISTRY) == set(resolved)
     for key, cls in resolved.items():
         assert get_sampler_class(key).__name__ == cls.__name__
         assert get_sampler_class(key.upper()) is SAMPLER_REGISTRY[key]
     for key in ("ptmcmc", "parallel_tempered"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_sampler_class(key)
+        assert get_sampler_class(key) is ParallelTemperedSampler
 
 
 @pytest.fixture(scope="module")

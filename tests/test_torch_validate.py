@@ -9,7 +9,7 @@ interpret mode, on the same injected noise), the tensor-core packing at
 d = 2 and d = 5 (halves padded to (d + 1) / 2 dims with zero padding
 slots) read back as the kernels read it, the kernel configuration tables
 against ``csrc/common.cuh``, and ``chip_smoke.py``'s copies of the
-quadrature truths and of ``combine_replicates``. The chains' flows are cut
+quadrature truths and its ``combined_log_z``. The chains' flows are cut
 to 2 layers of (16, 16) hidden units so the tests stay quick;
 ``tests/test_torch_validate_slice.py`` runs the rows end to end.
 """
@@ -357,10 +357,11 @@ def test_quadrature_copies_equal_validate():
     ([-16.1, -16.5, -16.3], [0.01, 0.01, 0.01]),
 ])
 def test_combine_replicates_copy_matches_jax(logzs, errs):
-    """``chip_smoke.combine_replicates`` is the reference's arithmetic, in
-    both its branches (a spread within the single-run errors, and
-    beyond)."""
+    """``chip_smoke.combined_log_z`` (the port's ``combine_replicates``,
+    which took the place of the script's copy) is the reference's
+    arithmetic, in both its branches (a spread within the single-run
+    errors, and beyond)."""
     result = types.SimpleNamespace()
     jcombine(result, logzs, errs, "test")
-    assert chip_smoke.combine_replicates(logzs, errs) == pytest.approx(
+    assert chip_smoke.combined_log_z(logzs, errs, "test") == pytest.approx(
         (result.log_evidence, result.log_evidence_error), rel=1e-12)

@@ -85,7 +85,8 @@ def test_rosenbrock_slice_log_evidence_matches_jax(jax_fits):
 
 def test_funnel_slice_replicates_match_jax(jax_fits):
     """The funnel's SMC, three runs a package (seeds 1-3) on the same flow,
-    combined as the reference gates the funnel (``combine_replicates``):
+    combined as the reference gates the funnel (``combine_replicates``,
+    through ``chip_smoke.combined_log_z``):
     one run's error understates its spread on this flow (about 0.05
     against 0.25-0.3 between seeds, in both packages), so single runs are
     not compared. Every port mutation on the whole-chain route, finite
@@ -103,7 +104,8 @@ def test_funnel_slice_replicates_match_jax(jax_fits):
         jpost = _smc(jasp, n)
         ref.append((float(jpost.log_evidence),
                     float(jpost.log_evidence_error)))
-    (lz, err), (jlz, jerr) = (chip_smoke.combine_replicates(*zip(*runs))
+    (lz, err), (jlz, jerr) = (chip_smoke.combined_log_z(*zip(*runs),
+                                                        "funnel")
                               for runs in (port, ref))
     assert np.isfinite(lz) and np.isfinite(err)
     assert abs(lz - jlz) < max(5 * np.hypot(err, jerr), 0.15)
