@@ -1,14 +1,17 @@
 """Flow wrapper: architecture + data transform + training.
 
-Counterpart of ``aspire_tpu/flows/base.py`` (no HDF5 persistence yet).
-The wrapper owns the parameter dict, the fitted data transform, its
-device and a ``torch.Generator`` for initialisation and sampling;
-``log_prob``/``sample`` compose the data transform's log-Jacobians as the
-JAX package does.
+Counterpart of ``aspire_tpu/flows/base.py``. The wrapper owns the
+parameter dict, the fitted data transform, its device and a
+``torch.Generator`` for initialisation and sampling; ``log_prob``/
+``sample`` compose the data transform's log-Jacobians as the JAX package
+does. ``save``/``load`` keep the JAX package's HDF5 layout (config,
+parameters by the JAX package's leaf order, data transform), so a flow
+file of either package loads in the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Any
 
@@ -48,7 +51,9 @@ class Flow:
         self.device = resolve_device(device)
         if isinstance(architecture, Architecture):
             self.architecture = architecture
+            self._architecture_name = type(architecture).__name__.lower()
         else:
+            self._architecture_name = architecture
             self.architecture = get_architecture(
                 architecture, dims, dtype=str(dtype).replace("torch.", ""),
                 **architecture_kwargs,
@@ -58,6 +63,14 @@ class Flow:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(0 if seed is None else int(seed))
         self.params = self.architecture.init(self.generator, self.device)
+
+    def config_dict(self) -> dict:
+        return {
+            "dims": self.dims,
+            "architecture": self._architecture_name,
+            "dtype": str(self.dtype).replace("torch.", ""),
+            "architecture_config": dataclasses.asdict(self.architecture),
+        }
 
     # -- densities ---------------------------------------------------------
 
@@ -122,3 +135,40 @@ class Flow:
         self.params, history = fit_flow(
             self.loss_fn, self.params, x_t, self.generator, config)
         return history
+
+    # -- persistence -------------------------------------------------------
+
+    def save(self, h5_file, path: str = "flow") -> None:
+        from ..io import save_dict_to_hdf5, save_pytree_to_hdf5
+
+        if path in h5_file:
+            del h5_file[path]
+        grp = h5_file.create_group(path)
+        grp.attrs["class"] = type(self).__name__
+        save_dict_to_hdf5(grp, "config", self.config_dict())
+        save_pytree_to_hdf5(grp, "params", self.params)
+        self.data_transform.save(grp, "data_transform")
+
+    @classmethod
+    def load(cls, h5_file, path: str = "flow", device: Any = "cuda"
+             ) -> "Flow":
+        """The flow saved at ``path`` (by either package) on ``device``."""
+        from ..io import load_dict_from_hdf5, load_pytree_from_hdf5
+
+        grp = h5_file[path]
+        config = load_dict_from_hdf5(grp, "config")
+        arch_config = config.pop("architecture_config", {})
+        arch_config.pop("dims", None)
+        arch_config.pop("dtype", None)
+        if "n_hidden" in arch_config:
+            arch_config["n_hidden"] = tuple(int(h) for h in
+                                            arch_config["n_hidden"])
+        data_transform = None
+        if "data_transform" in grp:
+            data_transform = BaseTransform.load(grp, "data_transform",
+                                                device=resolve_device(device))
+        flow = cls(dims=config["dims"], architecture=config["architecture"],
+                   data_transform=data_transform, dtype=config["dtype"],
+                   device=device, **arch_config)
+        flow.params = load_pytree_from_hdf5(grp, "params", flow.params)
+        return flow

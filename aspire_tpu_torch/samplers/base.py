@@ -1,17 +1,29 @@
 """Sampler base class: problem definition, evaluation count, initial draws,
-and the replicate tier's statistics.
+the replicate tier's statistics, config capture and the checkpoint
+protocol.
 
-Counterpart of ``aspire_tpu/samplers/base.py`` without checkpointing. The
-sampler owns the user ``log_likelihood``/``log_prior`` callables (each
-takes a view with ``.x`` of shape ``(n, d)`` and returns ``(n,)``), the
-flow proposal, the preconditioning transform, its device and a
-``torch.Generator`` seeded from ``rng``.
+Counterpart of ``aspire_tpu/samplers/base.py``. The sampler owns the user
+``log_likelihood``/``log_prior`` callables (each takes a view with ``.x``
+of shape ``(n, d)`` and returns ``(n,)``), the flow proposal, the
+preconditioning transform, its device and a ``torch.Generator`` seeded
+from ``rng``.
+
+A checkpoint state is a dict of host data only (numpy arrays, Python
+scalars, the port's history and samples with numpy fields), so it
+unpickles without a card. It carries the generator's state
+(``generator_state``, with ``generator_device``) in place of the JAX
+package's PRNG key; a JAX package checkpoint's ``key`` seeds the generator
+by :func:`seed_from_jax_key` (not the JAX stream). On file, the JAX
+package's layout: ``checkpoint/state`` (the pickled state) and
+``checkpoint/arrays/<field>`` (the particle arrays).
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import math
+import pickle
 from typing import Any, Callable
 
 import numpy as np
@@ -19,7 +31,7 @@ import torch
 
 from ..flows.bijectors import standard_normal_log_prob, standard_normal_sample
 from ..samples import Samples
-from ..utils import resolve_dtype
+from ..utils import dtype_name, function_id, resolve_dtype
 
 logger = logging.getLogger("aspire_tpu_torch")
 
@@ -46,6 +58,40 @@ def combine_replicates(result, logzs, errs, label: str):
         "single-run rms %.3f)", label, result.log_evidence,
         result.log_evidence_error, between, single_rms)
     return result
+
+
+def seed_from_jax_key(key) -> int:
+    """The generator seed for a JAX package checkpoint's ``key`` (its key
+    data, any PRNG implementation): the first 8 bytes of the SHA-256 of the
+    key data as little-endian uint32 words, read as a little-endian
+    unsigned integer. A resumed run then draws a fixed stream of its own,
+    not the JAX package's."""
+    words = np.ascontiguousarray(np.asarray(key), dtype="<u4").tobytes()
+    return int.from_bytes(hashlib.sha256(words).digest()[:8], "little")
+
+
+def generator_state(generator: torch.Generator) -> dict:
+    """A generator's state as host data: its bytes and its device type."""
+    return {"generator_state": generator.get_state().numpy().copy(),
+            "generator_device": generator.device.type}
+
+
+def restore_generator(generator: torch.Generator, state: dict) -> None:
+    """Set ``generator`` from a checkpoint: the port's own state (whose
+    device type must be the generator's: a CPU state on a CUDA generator,
+    or the reverse, raises ``ValueError``), else a JAX package ``key``
+    (:func:`seed_from_jax_key`); a state with neither leaves it as it is."""
+    if state.get("generator_state") is not None:
+        saved = state.get("generator_device")
+        if saved != generator.device.type:
+            raise ValueError(
+                f"the checkpoint's generator state was written on a {saved} "
+                f"generator; this sampler's generator is on "
+                f"{generator.device.type}: resume on a {saved} device")
+        generator.set_state(torch.as_tensor(
+            np.asarray(state["generator_state"], dtype=np.uint8)))
+    elif state.get("key") is not None:
+        generator.manual_seed(seed_from_jax_key(state["key"]))
 
 
 class _SamplesView:
@@ -105,6 +151,7 @@ class Sampler:
         self.n_likelihood_evaluations = 0
         self._capturable_target = None
         self._differentiable_target = None
+        self._call_history: dict = {}
 
     def _make_view(self, x) -> _SamplesView:
         return _SamplesView(x, parameters=self.parameters)
@@ -263,3 +310,161 @@ class Sampler:
         samples = (collected[0] if len(collected) == 1
                    else Samples.concatenate(collected))
         return samples[:n_samples]
+
+    # -- config --------------------------------------------------------------
+
+    #: sample() kwargs scrubbed from recorded calls: they point at
+    #: artifacts of a previous run a replayed call must not open again
+    _scrub_sample_kwargs: tuple = ("resume_from",)
+
+    def config_dict(self, include_sample_calls: str | bool = "last") -> dict:
+        """The JAX package's sampler record: class, dims, names, dtype, the
+        callables' ids, the evaluations and the last (or every) recorded
+        ``sample`` call."""
+        config = {
+            "class": type(self).__name__,
+            "dims": self.dims,
+            "parameters": self.parameters,
+            "dtype": dtype_name(self.dtype),
+            "log_likelihood": function_id(self.log_likelihood),
+            "log_prior": function_id(self.log_prior),
+            "n_likelihood_evaluations": self.n_likelihood_evaluations,
+        }
+        history = self._call_history.get("sample")
+        if history and include_sample_calls:
+            calls = history.to_dict()
+            if include_sample_calls == "last":
+                config["sample_calls"] = calls[str(len(history.calls) - 1)]
+                recorded = [config["sample_calls"]]
+            else:
+                config["sample_calls"] = calls
+                recorded = list(calls.values())
+            for call in recorded:
+                for key in self._scrub_sample_kwargs:
+                    call["kwargs"].pop(key, None)
+        return config
+
+    # -- checkpoint protocol -----------------------------------------------
+
+    #: array fields of the samples written as arrays of their own on file
+    _CHECKPOINT_ARRAY_FIELDS = ("x", "log_likelihood", "log_prior", "log_q")
+
+    def build_checkpoint_state(self, samples, iteration: int,
+                               meta: dict | None = None,
+                               generator: torch.Generator | None = None,
+                               evaluations: int | None = None,
+                               **extra) -> dict:
+        """A checkpoint of host data: the samples as a host copy, the config,
+        ``generator``'s state (the sampler's by default), the evaluations
+        (the sampler's count by default) and what the sampler adds
+        (:meth:`_checkpoint_extra_state`, given ``extra``)."""
+        state = {
+            "sampler_class": type(self).__name__,
+            "iteration": iteration,
+            "samples": samples.to_numpy() if samples is not None else None,
+            "config": self.config_dict(),
+            "parameters": self.parameters,
+            "meta": meta or {},
+            **generator_state(generator or self.generator),
+            "n_likelihood_evaluations": (self.n_likelihood_evaluations
+                                         if evaluations is None
+                                         else evaluations),
+        }
+        state.update(self._checkpoint_extra_state(**extra))
+        return state
+
+    def _checkpoint_extra_state(self) -> dict:
+        return {}
+
+    @staticmethod
+    def serialize_checkpoint_state(state: dict) -> bytes:
+        """The bytes of a checkpoint state (host data: they unpickle
+        without a card)."""
+        return pickle.dumps(state)
+
+    def save_checkpoint_to_hdf(self, state: dict, file_path: str,
+                               path: str = "checkpoint") -> None:
+        """Write ``state``: the particle arrays at ``{path}/arrays/<field>``
+        (one shard each), the rest pickled at ``{path}/state`` with the
+        samples' class, names and beta (``samples_spec``)."""
+        from ..io import AspireFile, save_sharded_array, save_state_bytes
+
+        state = dict(state)
+        samples = state.pop("samples", None)
+        with AspireFile(file_path, "a") as f:
+            if samples is not None:
+                for name in self._CHECKPOINT_ARRAY_FIELDS:
+                    value = getattr(samples, name, None)
+                    if value is not None:
+                        save_sharded_array(f, f"{path}/arrays/{name}", value)
+                state["samples_spec"] = {
+                    "class": type(samples).__name__,
+                    "parameters": samples.parameters,
+                    "beta": getattr(samples, "beta", None)}
+            save_state_bytes(f, pickle.dumps(state), path=path)
+
+    def default_file_checkpoint_callback(
+            self, file_path: str | None) -> Callable[[dict], None]:
+        if file_path is None:
+            raise ValueError(
+                "checkpoint_file_path must be provided to use the default "
+                "file checkpoint callback")
+
+        def callback(state: dict) -> None:
+            self.save_checkpoint_to_hdf(state, file_path)
+
+        return callback
+
+    @classmethod
+    def load_checkpoint_from_file(cls, file_path: str,
+                                  path: str = "checkpoint") -> dict:
+        """A checkpoint written by either package, its particle arrays as
+        host numpy in the samples (of the port's class the file names)."""
+        from .. import samples as samples_module
+        from ..io import (
+            h5py_module,
+            load_pickle,
+            load_sharded_array,
+            load_state_bytes,
+        )
+
+        with h5py_module().File(file_path, "r") as f:
+            state = load_pickle(load_state_bytes(f, path=path))
+            spec = state.pop("samples_spec", None)
+            if spec is None:
+                return state  # the samples rode in the blob
+            arrays = {name: load_sharded_array(f, f"{path}/arrays/{name}")
+                      for name in cls._CHECKPOINT_ARRAY_FIELDS
+                      if f"{path}/arrays/{name}" in f}
+        klass = getattr(samples_module, spec["class"])
+        kwargs = dict(arrays, parameters=spec.get("parameters"))
+        if spec.get("beta") is not None and "beta" in (
+                klass.__dataclass_fields__):
+            kwargs["beta"] = spec["beta"]
+        built = klass(**kwargs)
+        # The saved bytes, not the constructor's conversions.
+        for name, value in arrays.items():
+            setattr(built, name, value)
+        state["samples"] = built
+        return state
+
+    def restore_from_checkpoint(self, source: str | bytes | dict
+                                ) -> tuple[Samples, dict]:
+        """The samples and state of a checkpoint given as a file path, the
+        bytes of :meth:`serialize_checkpoint_state`, or the state dict; the
+        generator and the evaluation count restored from it."""
+        if isinstance(source, str):
+            state = self.load_checkpoint_from_file(source)
+        elif isinstance(source, bytes):
+            from ..io import load_pickle
+
+            state = load_pickle(source)
+        elif isinstance(source, dict):
+            state = source
+        else:
+            raise TypeError(
+                f"Cannot restore from object of type {type(source)}")
+        restore_generator(self.generator, state)
+        self.n_likelihood_evaluations = state.get(
+            "n_likelihood_evaluations", self.n_likelihood_evaluations)
+        return state["samples"], state

@@ -4,10 +4,12 @@
 from __future__ import annotations
 
 from ..samples import Samples
+from ..utils import track_calls
 from .base import Sampler
 
 
 class ImportanceSampler(Sampler):
+    @track_calls
     def sample(self, n_samples: int) -> Samples:
         x, log_q = self.prior_flow.sample_and_log_prob(
             n_samples, generator=self.generator)

@@ -17,22 +17,28 @@ then returns the chain in data space as
   thermodynamic-integration and stepping-stone evidence.
 
 With a flow preconditioning every step inverts the preconditioning's flow
-(B3 for a coupling flow on the card). Chain checkpoints need HDF5, which
-the port does not have yet: asking for one raises.
+(B3 for a coupling flow on the card). Given ``checkpoint_file_path``, each
+writes its finished chain in data space to the file (HDF5, the JAX
+package's ``checkpoint/mcmc_chain``); the parallel-tempered sampler also
+writes a resumable state every ``state_checkpoint_every`` rounds
+(``checkpoint/pt_state``), from which ``resume_from`` continues the run
+bit for bit.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 from typing import Callable
 
 import numpy as np
 import torch
 
 from ..samples import MCMCSamples, PTMCMCSamples
+from ..utils import to_numpy, track_calls
 from . import kernels as K
-from .base import Sampler
+from .base import Sampler, generator_state, restore_generator
 
 logger = logging.getLogger("aspire_tpu_torch")
 
@@ -62,7 +68,11 @@ def _bisect_pt_beta(log_l, log_base, beta_prev, target: float,
 
 class MCMCSampler(Sampler):
     """Base for MCMC samplers: the posterior log-density in the
-    preconditioned space, and the chain's way back to data space."""
+    preconditioned space, the chain's way back to data space, and the
+    chain's checkpoint."""
+
+    chain_checkpoint_path = "checkpoint"
+    chain_dataset_name = "mcmc_chain"
 
     def make_log_prob(self) -> Callable:
         """``z -> logL(x) + logPi(x) + log|dx/dz|`` with ``x`` the
@@ -87,30 +97,65 @@ class MCMCSampler(Sampler):
 
         return log_prob
 
-    @staticmethod
-    def _check_checkpoint(file_path, every) -> None:
-        """A chain checkpoint (written unless ``every <= 0``) needs HDF5."""
-        if file_path is not None and (every is None or every > 0):
-            raise NotImplementedError(
-                "MCMC chain checkpoints need HDF5, which is not ported yet")
+    # -- chain checkpoints ---------------------------------------------------
+
+    def _maybe_checkpoint_chain(self, chain, iteration: int,
+                                file_path: str | None, every: int | None,
+                                extra_attrs: dict | None = None) -> None:
+        """Write the finished data-space chain (before burn-in and
+        thinning) where a path was given, unless ``every <= 0``."""
+        if file_path is None or (every is not None and every <= 0):
+            return
+        self.save_chain_checkpoint(to_numpy(chain), int(iteration),
+                                   str(file_path), extra_attrs=extra_attrs)
+
+    def save_chain_checkpoint(self, chain: np.ndarray, iteration: int,
+                              file_path: str,
+                              extra_attrs: dict | None = None) -> None:
+        from ..io import AspireFile
+
+        with AspireFile(file_path, "a") as f:
+            grp = f.require_group(self.chain_checkpoint_path)
+            if self.chain_dataset_name in grp:
+                del grp[self.chain_dataset_name]
+            ds = grp.create_dataset(self.chain_dataset_name,
+                                    data=np.asarray(chain))
+            ds.attrs["iteration"] = iteration
+            ds.attrs["shape"] = chain.shape
+            for key, value in (extra_attrs or {}).items():
+                ds.attrs[key] = value
+
+    def load_chain_checkpoint(self, file_path: str):
+        """The chain and its iteration as saved (by either package)."""
+        from ..io import h5py_module
+
+        with h5py_module().File(file_path, "r") as f:
+            ds = f[self.chain_checkpoint_path][self.chain_dataset_name]
+            return np.asarray(ds[()]), int(ds.attrs["iteration"])
 
     def _finalize_chain(self, chain_z: torch.Tensor, burn_in: int,
-                        thin: int) -> MCMCSamples:
-        """Invert the preconditioning over the whole chain, evaluate the
-        target on it, then apply the burn-in and thinning."""
+                        thin: int, checkpoint_file_path: str | None = None,
+                        checkpoint_every: int | None = None
+                        ) -> MCMCSamples:
+        """Invert the preconditioning over the whole chain (and write it
+        where a checkpoint path was given), evaluate the target on it, then
+        apply the burn-in and thinning."""
         n_steps, n_walkers, d = chain_z.shape
         x, _ = self.invert_preconditioning(chain_z.reshape(-1, d))
+        chain = x.reshape(n_steps, n_walkers, d)
+        self._maybe_checkpoint_chain(chain, n_steps, checkpoint_file_path,
+                                     checkpoint_every)
         samples = MCMCSamples.from_chain(
-            x.reshape(n_steps, n_walkers, d), parameters=self.parameters,
-            dtype=self.dtype)
+            chain, parameters=self.parameters, dtype=self.dtype)
         samples.log_prior = self.evaluate_log_prior(samples.x)
         samples.log_likelihood = self.evaluate_log_likelihood(samples.x)
         return samples.post_process(burn_in=burn_in, thin=thin)
 
     @torch.no_grad()
     def _run(self, n_samples: int, n_steps: int, make_step: Callable,
-             initial_step_size: float, burn_in: int,
-             thin: int) -> MCMCSamples:
+             initial_step_size: float, burn_in: int, thin: int,
+             checkpoint_file_path: str | None = None,
+             checkpoint_every: int | None = None) -> MCMCSamples:
         """Draw, precondition, run ``n_steps`` steps of ``make_step(
         log_prob_fn, z)`` from every walker and finish the chain; the
         evaluations the JAX package counts, (n_steps + 1) n."""
@@ -127,7 +172,9 @@ class MCMCSampler(Sampler):
         self.n_likelihood_evaluations += (n_steps + 1) * z.shape[0]
         acceptance = float(torch.mean(final.n_accept / n_steps))
         logger.info("Mean acceptance rate: %.3f", acceptance)
-        samples = self._finalize_chain(chain, burn_in, thin)
+        samples = self._finalize_chain(chain, burn_in, thin,
+                                       checkpoint_file_path,
+                                       checkpoint_every)
         samples.acceptance_rate = acceptance
         return samples
 
@@ -135,6 +182,7 @@ class MCMCSampler(Sampler):
 class PCNSampler(MCMCSampler):
     """(t)pCN MCMC on the posterior (the reference's ``minipcn``)."""
 
+    @track_calls
     def sample(
         self,
         n_samples: int,
@@ -154,7 +202,6 @@ class PCNSampler(MCMCSampler):
         states."""
         if step_fn not in ("pcn", "tpcn"):
             raise ValueError(f"Unknown step function: {step_fn}")
-        self._check_checkpoint(checkpoint_file_path, checkpoint_every)
         n_steps = n_steps or 5 * self.dims
         generator = self.generator
 
@@ -171,12 +218,14 @@ class PCNSampler(MCMCSampler):
                 adaptation_rate=adaptation_rate)
 
         return self._run(n_samples, n_steps, make_step, initial_step_size,
-                         burn_in, thin)
+                         burn_in, thin, checkpoint_file_path,
+                         checkpoint_every)
 
 
 class EnsembleSampler(MCMCSampler):
     """Affine-invariant ensemble MCMC (the reference's ``emcee``)."""
 
+    @track_calls
     def sample(
         self,
         n_samples: int,
@@ -189,14 +238,13 @@ class EnsembleSampler(MCMCSampler):
     ) -> MCMCSamples:
         """``n_samples`` walkers, ``n_steps`` stretch moves each (scale
         ``a``); the samples carry their autocorrelation time."""
-        self._check_checkpoint(checkpoint_file_path, checkpoint_every)
         generator = self.generator
 
         def make_step(log_prob_fn, z):
             return lambda s: K.stretch_step(s, generator, log_prob_fn, a=a)
 
         samples = self._run(n_samples, n_steps, make_step, 1.0, burn_in,
-                            thin)
+                            thin, checkpoint_file_path, checkpoint_every)
         samples.compute_autocorrelation_time()
         return samples
 
@@ -398,12 +446,86 @@ class ParallelTemperedSampler(MCMCSampler):
 
         return self._replicate_evidence(k, run_one, "PT stepping-stone")
 
-    def save_pt_state(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PT state checkpoints need HDF5, which is not ported yet")
+    #: HDF5 group holding the resumable mid-run PT state
+    pt_state_path = "checkpoint/pt_state"
 
-    load_pt_state = save_pt_state
+    def save_pt_state(self, file_path: str, *, betas, generator,
+                      rounds_done: int, swap_every: int, n_steps: int,
+                      n_samples: int, a: float, carry, chunks) -> None:
+        """Write a resumable mid-run state: ``carry`` (z, logL, logPi, move
+        and swap acceptance counts), ``chunks`` (the rounds so far, each a
+        (chain, chain_ll, chain_lp) block) and ``generator``'s state after
+        ``rounds_done`` rounds, so a resumed run draws what the
+        uninterrupted one draws. Written to a sibling group first and moved
+        into place, so a kill mid-save leaves one complete state (both
+        places are read back)."""
+        from ..io import AspireFile
 
+        new_path = self.pt_state_path + "_new"
+        z, ll, lp, move_acc, swap_acc = carry
+        gen = generator_state(generator)
+        with AspireFile(file_path, "a") as f:
+            if new_path in f:
+                del f[new_path]
+            g = f.require_group(new_path)
+            for name, value in (("z", z), ("ll", ll), ("lp", lp),
+                                ("move_acc", move_acc),
+                                ("swap_acc", swap_acc),
+                                ("betas", np.asarray(betas, float)),
+                                ("generator_state", gen["generator_state"])):
+                g.create_dataset(name, data=to_numpy(value))
+            for i, name in enumerate(("chain", "chain_ll", "chain_lp")):
+                g.create_dataset(name, data=np.concatenate(
+                    [to_numpy(c[i]) for c in chunks], axis=0))
+            g.attrs["rounds_done"] = int(rounds_done)
+            g.attrs["swap_every"] = int(swap_every)
+            g.attrs["n_steps"] = int(n_steps)
+            g.attrs["n_samples"] = int(n_samples)
+            g.attrs["a"] = float(a)
+            g.attrs["generator_device"] = gen["generator_device"]
+            if self.pt_state_path in f:
+                del f[self.pt_state_path]
+            f.move(new_path, self.pt_state_path)
+
+    def load_pt_state(self, file_path: str) -> dict:
+        """A mid-run PT state (arrays as numpy, attributes as Python
+        scalars), its generator state restored into the sampler's
+        generator (:func:`~aspire_tpu_torch.samplers.base.
+        restore_generator`; a JAX package state's round keys seed it by its
+        rule, not the JAX stream)."""
+        from ..io import h5py_module
+
+        if not isinstance(file_path, (str, bytes, os.PathLike)):
+            raise TypeError("PT resume_from expects a checkpoint file path; "
+                            f"got {type(file_path).__name__}.")
+        with h5py_module().File(file_path, "r") as f:
+            path = self.pt_state_path
+            if path not in f:
+                if self.pt_state_path + "_new" not in f:
+                    raise ValueError(
+                        f"{file_path!r} holds no resumable PT state "
+                        f"({self.pt_state_path} missing). Mid-run state "
+                        "checkpoints are written only when sample() ran "
+                        "with state_checkpoint_every > 0 and "
+                        "preconditioning=None.")
+                path = self.pt_state_path + "_new"
+            g = f[path]
+            state = {k: np.asarray(g[k][()]) for k in g.keys()}
+            for k, v in g.attrs.items():
+                if isinstance(v, np.floating):
+                    v = float(v)
+                elif isinstance(v, np.integer):
+                    v = int(v)
+                elif isinstance(v, bytes):
+                    v = v.decode()
+                state[k] = v
+        if "generator_state" not in state and "round_keys" in state:
+            state["key"] = state["round_keys"][state["rounds_done"]
+                                               % len(state["round_keys"])]
+        restore_generator(self.generator, state)
+        return state
+
+    @track_calls
     @torch.no_grad()
     def sample(
         self,
@@ -441,7 +563,15 @@ class ParallelTemperedSampler(MCMCSampler):
         from its nearest rung's final states, until the ladder stops
         moving. ``_init_x`` gives the ``(T n, d)`` initial states. The
         evaluations counted: ``T n`` at the start and ``T n`` per move,
-        the pilots' too. Checkpoints and resume need HDF5: each raises."""
+        the pilots' too.
+
+        ``checkpoint_file_path`` writes the finished chain with its ladder
+        (unless ``checkpoint_every <= 0``) and, with
+        ``state_checkpoint_every`` > 0 and no preconditioning, a resumable
+        state every that many rounds and at the end (:meth:`save_pt_state`).
+        ``resume_from`` (that file) continues the run from its last state:
+        the result is the uninterrupted run's, bit for bit, and the
+        finished rounds are not paid for again."""
         if n_steps < swap_every:
             raise ValueError(
                 f"n_steps ({n_steps}) must be at least swap_every "
@@ -461,11 +591,26 @@ class ParallelTemperedSampler(MCMCSampler):
                 ladder_probe_size=ladder_probe_size,
                 ladder_pilot_steps=ladder_pilot_steps,
                 ladder_pilot_iterations=ladder_pilot_iterations))
-        self._check_checkpoint(checkpoint_file_path, checkpoint_every)
-        if state_checkpoint_every or resume_from is not None:
-            raise NotImplementedError(
-                "PT state checkpoints and resume need HDF5, which is not "
-                "ported yet")
+        pt_resume = None
+        if resume_from is not None:
+            pt_resume = self.load_pt_state(resume_from)
+            mismatches = {
+                "n_steps": (int(pt_resume["n_steps"]), n_steps),
+                "swap_every": (int(pt_resume["swap_every"]), swap_every),
+                "n_samples": (int(pt_resume["n_samples"]), n_samples),
+                "a": (float(pt_resume.get("a", a)), float(a)),
+            }
+            bad = {k: v for k, v in mismatches.items() if v[0] != v[1]}
+            if bad:
+                raise ValueError(
+                    "resume_from state disagrees with this call's "
+                    f"configuration: {bad} (saved, requested).")
+            # The saved ladder is the run's: its adaptation and pilots ran.
+            betas = np.asarray(pt_resume["betas"], dtype=float)
+            ladder_pilot_steps = 0
+            logger.info("Resuming PT sampling at round %d/%d from %s",
+                        int(pt_resume["rounds_done"]),
+                        n_steps // swap_every, resume_from)
         d = self.dims
         probe = probe_full = None
         if isinstance(betas, str):
@@ -493,7 +638,7 @@ class ParallelTemperedSampler(MCMCSampler):
                 probe_x = torch.cat([probe_x.to(extra.x.dtype), extra.x])
             pilot_init = probe_x[:need]
             for pilot_round in range(max(ladder_pilot_iterations, 1)):
-                pilot = ParallelTemperedSampler.sample(
+                pilot = ParallelTemperedSampler.sample.__wrapped__(
                     self, n_samples, n_steps=ladder_pilot_steps,
                     betas=np.asarray(betas),
                     swap_every=min(swap_every, ladder_pilot_steps), a=a,
@@ -523,25 +668,38 @@ class ParallelTemperedSampler(MCMCSampler):
         betas = np.sort(np.asarray(betas, dtype=float))[::-1].copy()
         n_temps = len(betas)
 
-        if _init_x is not None:
-            init_x = torch.as_tensor(_init_x, device=self.device).reshape(
-                -1, d)
-            if init_x.shape[0] != n_samples * n_temps:
-                raise ValueError(
-                    f"_init_x supplies {init_x.shape[0]} states; the run "
-                    f"needs n_temperatures * n_samples = "
-                    f"{n_temps * n_samples}.")
-        elif probe is not None and n_temps > 1:
-            rest = self.draw_initial_samples(n_samples * (n_temps - 1))
-            init_x = torch.cat([probe.x, rest.x])
-        elif probe is not None:
-            init_x = probe.x
+        if pt_resume is not None:
+            # The saved states are data-space states (a state is written
+            # only without preconditioning): a transform configured on
+            # this sampler is not the run's.
+            precond = self.preconditioning_transform
+            if precond is not None:
+                logger.warning(
+                    "PT resume: the checkpointed run used no preconditioning "
+                    "transform; ignoring the configured one for this call so "
+                    "the saved states keep their meaning.")
+                precond = None
+            z = torch.as_tensor(pt_resume["z"], device=self.device)
         else:
-            init_x = self.draw_initial_samples(n_samples * n_temps).x
-        z = self.fit_preconditioning_transform(init_x).reshape(
-            n_temps, n_samples, d)
-        # fit_preconditioning_transform may have (re)fitted it.
-        precond = self.preconditioning_transform
+            if _init_x is not None:
+                init_x = torch.as_tensor(_init_x, device=self.device
+                                         ).reshape(-1, d)
+                if init_x.shape[0] != n_samples * n_temps:
+                    raise ValueError(
+                        f"_init_x supplies {init_x.shape[0]} states; the run "
+                        f"needs n_temperatures * n_samples = "
+                        f"{n_temps * n_samples}.")
+            elif probe is not None and n_temps > 1:
+                rest = self.draw_initial_samples(n_samples * (n_temps - 1))
+                init_x = torch.cat([probe.x, rest.x])
+            elif probe is not None:
+                init_x = probe.x
+            else:
+                init_x = self.draw_initial_samples(n_samples * n_temps).x
+            z = self.fit_preconditioning_transform(init_x).reshape(
+                n_temps, n_samples, d)
+            # fit_preconditioning_transform may have (re)fitted it.
+            precond = self.preconditioning_transform
         dtype, device = z.dtype, z.device
         betas_t = torch.as_tensor(betas, dtype=dtype, device=device)
 
@@ -630,29 +788,73 @@ class ParallelTemperedSampler(MCMCSampler):
             return z, ll, lp, swap_acc
 
         n_rounds = n_steps // swap_every
-        ll, lp = logl_logp(z.reshape(-1, d))
-        ll, lp = ll.reshape(n_temps, n_samples), lp.reshape(n_temps,
-                                                            n_samples)
-        move_acc = torch.zeros(n_temps, dtype=dtype, device=device)
-        swap_acc = torch.zeros(max(n_temps - 1, 0), dtype=dtype,
-                               device=device)
-        chain, chain_ll, chain_lp = [], [], []
-        for _ in range(n_rounds):
+        # Mid-run states: only without preconditioning (the states live in
+        # the transform's space, which a fresh fit would not reproduce).
+        save_every = None
+        if (checkpoint_file_path is not None and state_checkpoint_every
+                and int(state_checkpoint_every) > 0):
+            if precond is not None:
+                logger.warning("Mid-run PT state checkpoints require "
+                               "preconditioning=None; only the final chain "
+                               "will be saved.")
+            else:
+                save_every = int(state_checkpoint_every)
+        # Blocks of finished rounds, each (chain, chain_ll, chain_lp) of
+        # shape (rounds, T, n, ...), and the rounds since the last block.
+        chunks, pending = [], []
+        if pt_resume is not None:
+            rounds_done = int(pt_resume["rounds_done"])
+            ll, lp, move_acc, swap_acc = (
+                torch.as_tensor(pt_resume[k], device=device)
+                for k in ("ll", "lp", "move_acc", "swap_acc"))
+            if rounds_done:
+                chunks.append(tuple(
+                    torch.as_tensor(pt_resume[k], device=device)
+                    for k in ("chain", "chain_ll", "chain_lp")))
+            new_evals = 0
+        else:
+            rounds_done = 0
+            ll, lp = logl_logp(z.reshape(-1, d))
+            ll, lp = ll.reshape(n_temps, n_samples), lp.reshape(n_temps,
+                                                                n_samples)
+            move_acc = torch.zeros(n_temps, dtype=dtype, device=device)
+            swap_acc = torch.zeros(max(n_temps - 1, 0), dtype=dtype,
+                                   device=device)
+            new_evals = n_temps * n_samples  # the initial pass
+
+        def flush():
+            if pending:
+                chunks.append(tuple(torch.stack([r[i] for r in pending])
+                                    for i in range(3)))
+                pending.clear()
+
+        for r in range(rounds_done, n_rounds):
             for _ in range(swap_every):
                 z, ll, lp, n_acc = one_move(z, ll, lp)
                 move_acc = move_acc + n_acc
             for lo, other, pair in passes:
                 z, ll, lp, swap_acc = swap_pass(z, ll, lp, swap_acc, lo,
                                                 other, pair)
-            chain.append(z)
-            chain_ll.append(ll)
-            chain_lp.append(lp)
-        # One tempered density pass per move, plus the initial pass.
-        self.n_likelihood_evaluations += (
-            n_temps * n_samples * (1 + n_rounds * swap_every))
+            pending.append((z, ll, lp))
+            # One tempered density pass per move.
+            new_evals += swap_every * n_temps * n_samples
+            if save_every is not None and ((r + 1) % save_every == 0
+                                           or r + 1 == n_rounds):
+                flush()
+                self.save_pt_state(
+                    checkpoint_file_path, betas=betas,
+                    generator=self.generator, rounds_done=r + 1,
+                    swap_every=swap_every, n_steps=n_steps,
+                    n_samples=n_samples, a=a,
+                    carry=(z, ll, lp, move_acc, swap_acc), chunks=chunks)
+        flush()
+        self.n_likelihood_evaluations += new_evals
 
         # (n_rounds, T, n, ...) -> (T, n_rounds, n, ...)
-        flat = torch.stack(chain, dim=1).reshape(-1, d)
+        chain, chain_ll, chain_lp = (
+            torch.cat([c[i] for c in chunks]).transpose(0, 1)
+            for i in range(3))
+        flat = chain.reshape(-1, d)
         if precond is None:
             x = flat
             log_j = torch.zeros(flat.shape[0], dtype=dtype, device=device)
@@ -664,8 +866,8 @@ class ParallelTemperedSampler(MCMCSampler):
             betas=betas)
         # The carried densities are the chain's: no second evaluation. The
         # carried logPi is the z-space density; the Jacobian comes off.
-        samples.log_likelihood = torch.stack(chain_ll, dim=1).reshape(-1)
-        samples.log_prior = torch.stack(chain_lp, dim=1).reshape(-1) - log_j
+        samples.log_likelihood = chain_ll.reshape(-1)
+        samples.log_prior = chain_lp.reshape(-1) - log_j
         samples.burn_in = burn_in
         samples.thin = thin
         samples.move_acceptance = (
@@ -681,4 +883,10 @@ class ParallelTemperedSampler(MCMCSampler):
                 float(samples.swap_acceptance.mean()),
                 float(samples.swap_acceptance.min()),
                 int(samples.swap_acceptance.argmin()))
+        # The finished (T, rounds, n, d) chain with its ladder (a pilot
+        # passes no path, so it never writes).
+        self._maybe_checkpoint_chain(
+            samples.chain, n_rounds * swap_every, checkpoint_file_path,
+            checkpoint_every,
+            extra_attrs={"betas": np.asarray(betas, dtype=float)})
         return samples

@@ -27,10 +27,16 @@ the JAX package's ``_fused_chain_spec`` chooses between its TPU kernel and
 its XLA chain. History records which ran. A gradient kernel's chain
 differentiates the tempered density with autograd
 (:func:`value_and_grad_batch`), through the flow kernels' backward.
+
+Either ladder checkpoints every ``checkpoint_every`` temperatures (host
+data only: :meth:`Sampler.build_checkpoint_state`), the device ladder
+between replays (nothing is added to the captured rung), and a run resumes
+from a checkpoint's file, bytes or dict on either ladder.
 """
 
 from __future__ import annotations
 
+import copy
 import gc
 import logging
 import math
@@ -51,7 +57,8 @@ from ..ops._build import add_launches, launch_counts, load_user_library
 from ..ops.resampling import get_resampler
 from ..ops.special import effective_sample_size
 from ..samples import Samples, SMCSamples, incremental_log_weights
-from ..transforms import BaseTransform
+from ..transforms import BaseTransform, get_transform_class
+from ..utils import track_calls
 from .base import Sampler
 from . import kernels as K
 
@@ -72,6 +79,12 @@ _UNSET = object()
 
 class BetaScheduleError(RuntimeError):
     """The adaptive beta ladder stalled."""
+
+
+def checkpoint_due(iteration: int, every: int | None) -> bool:
+    """The cadence of both ladders' checkpoints: every ``every``-th
+    temperature (``every <= 0`` or None: none but the final one)."""
+    return every is not None and every > 0 and iteration % every == 0
 
 
 def _scalar(value, like: dict) -> torch.Tensor:
@@ -793,14 +806,18 @@ class SMCSampler(Sampler):
 
     def _run_device_ladder(self, samples: SMCSamples, *, min_beta_step,
                            max_beta_step, beta_tolerance, max_iters: int,
-                           store_history: bool = False
+                           store_history: bool = False,
+                           checkpoint_callback: Callable | None = None,
+                           checkpoint_every: int | None = None
                            ) -> tuple[SMCSamples, int]:
         """Run the adaptive ladder rung by rung on the device: a replay of
         the captured rung per temperature on the card, the body eagerly on
         the CPU, each followed by one read of the rung's flags; at most
         ``max_iters`` rungs. The history buffers are fetched once, at the
         end (or at a fault, which raises after the rungs that ran are in
-        the history)."""
+        the history), and at a rung whose checkpoint is due
+        (:meth:`_ladder_checkpoint`: the run's iterations so far counted
+        from the history it started with, as the host ladder counts)."""
         reason = self._ladder_refusal()
         if reason is not None:
             raise ValueError(reason)
@@ -817,6 +834,8 @@ class SMCSampler(Sampler):
         if ladder.on_card:
             ladder.generator.set_state(self.generator.get_state())
         state = ladder.state
+        base_iteration = len(self.history.beta)
+        base_evals = self.n_likelihood_evaluations
         while True:
             ladder.rung()
             flags = ladder.read_flags()
@@ -831,6 +850,10 @@ class SMCSampler(Sampler):
                 raise_mutation_faults(flags["nan_q"], flags["nan_target"],
                                       flags["chol_info"],
                                       where=f"device ladder rung {it}: ")
+            if checkpoint_callback is not None and checkpoint_due(
+                    base_iteration + it, checkpoint_every):
+                checkpoint_callback(self._ladder_checkpoint(
+                    ladder, it, base_iteration, base_evals))
             if not flags["running"]:
                 break
             if ladder.on_card and ladder.graph is None:
@@ -844,6 +867,38 @@ class SMCSampler(Sampler):
                 "efficiency.")
         return self._ladder_samples(state, beta, clone=True), it
 
+    def _ladder_checkpoint(self, ladder: DeviceLadder, it: int,
+                           base_iteration: int, base_evals: int) -> dict:
+        """The checkpoint at rung ``it`` of a device-ladder run (the JAX
+        package's ``_ladder_checkpoint_host``): the population cloned to the
+        host, the history the run started with (and the rungs' routes and
+        snapshots, appended as they ran) plus the first ``it`` rows of the
+        history buffers, the lineage fraction, the evaluations so far and
+        the state of the ladder's own generator, which the rungs draw
+        from."""
+        buffers, f_lin, evals = self._ladder_rows(ladder.state, it)
+        history = copy.deepcopy(self.history)
+        self._replay_ladder_history(history, it, buffers)
+        beta = buffers["beta_h"][-1]
+        return self.build_checkpoint_state(
+            self._ladder_samples(ladder.state, beta, clone=False),
+            base_iteration + it, meta={"beta": beta},
+            generator=ladder.generator, evaluations=base_evals + evals,
+            history=history, lineage_fraction=f_lin)
+
+    @staticmethod
+    def _ladder_rows(state: dict, it: int) -> tuple[dict, float, int]:
+        """The first ``it`` rows of the history buffers, the lineage
+        fraction and the rungs' evaluations, in one transfer."""
+        rows = torch.cat([
+            torch.stack([state[name][:it] for name in LADDER_HISTORY]
+                        ).reshape(-1),
+            torch.stack([state["f_lin"], state["ev_h"][:it].sum().double()]),
+        ]).tolist()
+        buffers = {name: rows[k * it:(k + 1) * it]
+                   for k, name in enumerate(LADDER_HISTORY)}
+        return buffers, rows[-2], int(rows[-1])
+
     def _finish_ladder(self, ladder: DeviceLadder, it: int) -> float:
         """Fetch the ``it`` rungs' history buffers, the lineage fraction and
         the evaluation count in one transfer, replay them into the history
@@ -852,13 +907,7 @@ class SMCSampler(Sampler):
         state = ladder.state
         if ladder.on_card:
             self.generator.set_state(ladder.generator.get_state())
-        rows = torch.cat([
-            torch.stack([state[name][:it] for name in LADDER_HISTORY]
-                        ).reshape(-1),
-            torch.stack([state["f_lin"], state["ev_h"][:it].sum().double()]),
-        ]).tolist()
-        buffers = {name: rows[k * it:(k + 1) * it]
-                   for k, name in enumerate(LADDER_HISTORY)}
+        buffers, self._lineage_fraction, evals = self._ladder_rows(state, it)
         self._replay_ladder_history(self.history, it, buffers)
         n = state["x"].shape[0]
         for i in range(it):
@@ -866,8 +915,7 @@ class SMCSampler(Sampler):
                         "%.3f", i + 1, buffers["beta_h"][i],
                         buffers["ess_h"][i], buffers["ess_h"][i] / n,
                         buffers["ratio_h"][i])
-        self._lineage_fraction, evals = rows[-2:]
-        self.n_likelihood_evaluations += int(evals)
+        self.n_likelihood_evaluations += evals
         step = state["step"].clone()
         if step.dim():
             self._step_size_carry_fused = step
@@ -879,17 +927,18 @@ class SMCSampler(Sampler):
                         clone: bool) -> SMCSamples:
         """The ladder's population as samples at ``beta``; cloned out of
         the state, which a later run of a cached ladder overwrites."""
-        copy = (lambda t: t.clone()) if clone else (lambda t: t)
-        new = SMCSamples(x=copy(state["x"]), beta=beta,
+        take = (lambda t: t.clone()) if clone else (lambda t: t)
+        new = SMCSamples(x=take(state["x"]), beta=beta,
                          dtype=self.dtype, parameters=self.parameters,
                          device=self.device)
-        new.log_q = copy(state["lq"])
-        new.log_prior = copy(state["lpi"])
-        new.log_likelihood = copy(state["ll"])
+        new.log_q = take(state["lq"])
+        new.log_prior = take(state["lpi"])
+        new.log_likelihood = take(state["ll"])
         return new
 
     # -- main loop ---------------------------------------------------------
 
+    @track_calls
     def sample(
         self,
         n_samples: int,
@@ -926,11 +975,23 @@ class SMCSampler(Sampler):
         needs more rungs continues on the host ladder (``max_n_steps``, a
         cumulative cap, takes its place when set).
 
+        ``checkpoint_callback`` receives a checkpoint state (host data) every
+        ``checkpoint_every`` temperatures (every one by default) and once at
+        the end; ``checkpoint_every`` alone writes them to
+        ``checkpoint_file_path`` (HDF5, the JAX package's layout).
+        ``resume_from`` (a file path, the bytes of
+        :meth:`serialize_checkpoint_state` or a state dict) continues a run
+        from its checkpoint on either ladder: its population, beta,
+        history, lineage fraction, generator, evaluations and mutation
+        options; the step sizes re-adapt from their defaults, as in the JAX
+        package, so a resumed run is not the uninterrupted one. A
+        checkpoint at beta 1 skips the loop. ``max_n_steps`` counts the
+        iterations the checkpoint had.
+
         ``n_replicates`` > 1 runs that many independent runs, each going on
         with the sampler's generator, and gives the last run's samples the
         replicates' log Z (:func:`~aspire_tpu_torch.samplers.base.
-        combine_replicates`). The checkpoint and resume arguments need HDF5,
-        which is not ported: each raises when set."""
+        combine_replicates`)."""
         if n_replicates is not None and n_replicates > 1:
             if (resume_from is not None or checkpoint_callback is not None
                     or checkpoint_file_path is not None):
@@ -948,13 +1009,6 @@ class SMCSampler(Sampler):
                 store_sample_history=store_sample_history,
                 beta_tolerance=beta_tolerance, device_ladder=device_ladder,
                 device_ladder_max_iters=device_ladder_max_iters))
-        for name, value in (("checkpoint_callback", checkpoint_callback),
-                            ("checkpoint_every", checkpoint_every),
-                            ("checkpoint_file_path", checkpoint_file_path),
-                            ("resume_from", resume_from)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name} needs HDF5, not ported yet")
         self.sampler_kwargs = dict(self.default_sampler_kwargs)
         self.sampler_kwargs.update(sampler_kwargs or {})
         for name in UNPORTED_SAMPLER_KWARGS:
@@ -970,12 +1024,24 @@ class SMCSampler(Sampler):
         self._step_size_carry_fused = None
         self._lineage_fraction = 1.0
         self._kernel_target_value = _UNSET
-        self.history = SMCHistory()
         self.ladder = None
 
-        init = self.draw_initial_samples(n_samples)
-        samples = SMCSamples.from_samples(init, beta=0.0, dtype=self.dtype)
-        beta = 0.0
+        resumed = resume_from is not None
+        if resumed:
+            logger.info("Resuming SMC sampling from checkpoint: %s",
+                        resume_from if isinstance(resume_from, str)
+                        else "checkpoint data")
+            samples, beta, iterations = self.restore_smc_checkpoint(
+                resume_from)
+            logger.info("Resumed SMC sampling at iteration %d with "
+                        "beta=%.4f", iterations, beta)
+        else:
+            init = self.draw_initial_samples(n_samples)
+            samples = SMCSamples.from_samples(init, beta=0.0,
+                                              dtype=self.dtype)
+            beta = 0.0
+            iterations = 0
+            self.history = SMCHistory()
         if store_sample_history:
             self.history.sample_history.append(samples.to_numpy())
         for name in ("log_q", "log_prior", "log_likelihood"):
@@ -1008,6 +1074,26 @@ class SMCSampler(Sampler):
         else:
             max_beta_step = 1.0
 
+        if checkpoint_callback is None and checkpoint_every is not None:
+            checkpoint_callback = self.default_file_checkpoint_callback(
+                checkpoint_file_path)
+        if checkpoint_callback is not None and checkpoint_every is None:
+            checkpoint_every = 1
+
+        def maybe_checkpoint(force: bool = False) -> None:
+            if checkpoint_callback is not None and (
+                    force or checkpoint_due(iterations, checkpoint_every)):
+                checkpoint_callback(self.build_checkpoint_state(
+                    samples, iterations, meta={"beta": beta}))
+
+        run_host_ladder = True
+        last_beta = self.history.beta[-1] if self.history.beta else beta
+        if resumed and last_beta >= 1.0:
+            run_host_ladder = False
+            logger.info("Checkpoint beta %.4f indicates the SMC loop already "
+                        "completed; skipping to the final mutation steps",
+                        last_beta)
+
         if device_ladder is None:
             device_ladder = (self.adaptive
                              and self.preconditioning_transform is None
@@ -1019,9 +1105,7 @@ class SMCSampler(Sampler):
                     "can capture, no preconditioning; pass "
                     "device_ladder=False to force the host ladder).")
 
-        iterations = 0
-        run_host_ladder = True
-        if device_ladder:
+        if run_host_ladder and device_ladder:
             samples, ladder_iters = self._run_device_ladder(
                 samples, min_beta_step=min_beta_step,
                 max_beta_step=max_beta_step, beta_tolerance=beta_tolerance,
@@ -1029,7 +1113,9 @@ class SMCSampler(Sampler):
                 max_iters=(max(max_n_steps - iterations, 1)
                            if max_n_steps is not None
                            else device_ladder_max_iters),
-                store_history=store_sample_history)
+                store_history=store_sample_history,
+                checkpoint_callback=checkpoint_callback,
+                checkpoint_every=checkpoint_every)
             iterations += ladder_iters
             beta = samples.beta
             if beta < 1.0 and max_n_steps is None:
@@ -1078,6 +1164,7 @@ class SMCSampler(Sampler):
             self._update_lineage_after_mutation()
             if store_sample_history:
                 self.history.sample_history.append(samples.to_numpy())
+            maybe_checkpoint()
             if beta == 1.0 or (max_n_steps is not None
                                and iterations >= max_n_steps):
                 break
@@ -1097,10 +1184,64 @@ class SMCSampler(Sampler):
         samples.log_evidence = float(np.sum(self.history.log_norm_ratio))
         samples.log_evidence_error = float(
             np.sqrt(np.sum(self.history.log_norm_ratio_var)))
+        maybe_checkpoint(force=True)
         out = samples.to_standard_samples()
         logger.info("Log evidence: %.3f +/- %.3f", out.log_evidence,
                     out.log_evidence_error)
         return out
+
+    # -- config and checkpoints ----------------------------------------------
+
+    def config_dict(self, include_sample_calls: str | bool = "last") -> dict:
+        config = super().config_dict(include_sample_calls)
+        config["resampling_method"] = self.resampling_method
+        return config
+
+    def _checkpoint_extra_state(self, history: SMCHistory | None = None,
+                                lineage_fraction: float | None = None
+                                ) -> dict:
+        """The history (a copy of the sampler's by default), the mutation
+        options, the lineage fraction and a fitted flow preconditioning's
+        transport map (``checkpoint_payload``)."""
+        extra = {
+            "history": (copy.deepcopy(self.history) if history is None
+                        else history),
+            "sampler_kwargs": self.sampler_kwargs,
+            "lineage_fraction": (self._lineage_fraction
+                                 if lineage_fraction is None
+                                 else lineage_fraction),
+        }
+        payload_fn = getattr(self.preconditioning_transform,
+                             "checkpoint_payload", None)
+        if payload_fn is not None:
+            extra["preconditioning_state"] = payload_fn()
+        return extra
+
+    def restore_smc_checkpoint(self, source) -> tuple[SMCSamples, float,
+                                                       int]:
+        """The population, beta and iteration of a checkpoint; the
+        sampler's history, mutation options, lineage fraction and a fitted
+        flow preconditioning restored from it."""
+        samples, state = self.restore_from_checkpoint(source)
+        meta = state.get("meta") or {}
+        beta = meta.get("beta") if isinstance(meta, dict) else None
+        if beta is None:
+            beta = state.get("beta", 0.0)
+        self.history = copy.deepcopy(state.get("history") or SMCHistory())
+        if state.get("sampler_kwargs"):
+            self.sampler_kwargs = dict(state["sampler_kwargs"])
+        self._lineage_fraction = float(state.get("lineage_fraction", 1.0))
+        payload = state.get("preconditioning_state")
+        if payload is not None:
+            self.preconditioning_transform = get_transform_class(
+                payload["class"]).from_checkpoint_payload(
+                    payload, device=self.device)
+            logger.info("Restored the fitted preconditioning transport map "
+                        "from the checkpoint.")
+        samples = SMCSamples.from_samples(samples, beta=beta,
+                                          dtype=self.dtype,
+                                          device=self.device)
+        return samples, beta, int(state.get("iteration", 0))
 
     def _sample_replicated(self, k: int, n_samples: int,
                            kwargs: dict) -> Samples:

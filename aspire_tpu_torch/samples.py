@@ -5,8 +5,10 @@
 with the per-step evidence ratio and resampling; :class:`MCMCSamples` a
 chain ``(n_steps, n_walkers, d)`` stored flat; :class:`PTMCMCSamples` the
 parallel-tempered chains ``(n_temps, n_steps, n_walkers, d)`` with the
-thermodynamic-integration and stepping-stone evidence estimators. HDF5
-persistence and the plots are not ported yet.
+thermodynamic-integration and stepping-stone evidence estimators. Each
+saves to and loads from HDF5 in the JAX package's layout (a file of either
+package loads in the other) and has the JAX package's plots; h5py,
+matplotlib and pandas are imported at first use.
 """
 
 from __future__ import annotations
@@ -23,7 +25,13 @@ import torch
 
 from .ops.resampling import get_resampler
 from .ops.special import effective_sample_size, logsumexp
-from .utils import as_tensor, resolve_dtype
+from .utils import (
+    as_tensor,
+    dtype_name,
+    require_module,
+    resolve_dtype,
+    to_numpy,
+)
 
 logger = logging.getLogger("aspire_tpu_torch")
 
@@ -39,17 +47,15 @@ def incremental_log_weights(log_q, log_likelihood, log_prior, beta_prev,
                        torch.full_like(log_w, -math.inf), log_w)
 
 
+def _copy_value(value):
+    """A copy of a field's value (a tensor is cloned)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().clone()
+    return copy.deepcopy(value)
+
+
 def _maybe(fn, value):
     return fn(value) if value is not None else None
-
-
-def _host(value) -> np.ndarray | None:
-    """A tensor or array-like as a host numpy array (None stays None)."""
-    if value is None:
-        return None
-    if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy()
-    return np.asarray(value)
 
 
 # -- the ladder's evidence reductions -----------------------------------
@@ -193,6 +199,105 @@ class BaseSamples:
                 setattr(out, f.name, value.detach().cpu().numpy().copy())
         return out
 
+    # -- conversion and persistence -------------------------------------
+
+    def to_dict(self, flat: bool = True, copy: bool = True) -> dict:
+        """Every field but ``x`` (and the port's ``device``), with the
+        columns of ``x`` by parameter name: flat, or under ``"samples"``."""
+        out = {}
+        for f in dataclasses.fields(self):
+            if f.name in ("x", "device"):
+                continue
+            value = getattr(self, f.name)
+            if copy:
+                try:
+                    value = _copy_value(value)
+                except Exception:  # noqa: BLE001 - keep an uncopyable value
+                    pass
+            out[f.name] = value
+        columns = dict(zip(self.parameters, self.x.T, strict=True))
+        if flat:
+            out.update(columns)
+        else:
+            out["samples"] = columns
+        return out
+
+    @classmethod
+    def from_dict(cls, dictionary: dict, device: Any = None):
+        """Samples from :meth:`to_dict`'s form (either package's)."""
+        dictionary = dict(dictionary)
+        if "samples" in dictionary:
+            columns = dictionary.pop("samples")
+            parameters = dictionary.pop("parameters", None)
+            if parameters is None:
+                parameters = sorted(columns.keys())
+            x = np.stack([np.asarray(columns[p]) for p in parameters],
+                         axis=-1)
+        else:
+            parameters = dictionary.pop("parameters", None)
+            if parameters is None:
+                raise ValueError(
+                    "Parameters must be provided if samples are not nested "
+                    "in a 'samples' key")
+            x = np.stack([np.asarray(dictionary.pop(p)) for p in parameters],
+                         axis=-1)
+        init_fields = {f.name for f in dataclasses.fields(cls) if f.init}
+        kwargs = {k: v for k, v in dictionary.items()
+                  if k in init_fields and k != "device"}
+        return cls(x=x, parameters=list(parameters), device=device, **kwargs)
+
+    def to_dataframe(self, include: list[str] | None = None):
+        pd = require_module("pandas", "to_dataframe")
+        host = self.to_numpy()
+        data = dict(zip(self.parameters, host.x.T, strict=True))
+        n = len(host.x)
+        for key in (["log_likelihood", "log_prior", "log_q"]
+                    if include is None else include):
+            value = getattr(host, key, None)
+            data[key] = (np.asarray(value) if value is not None
+                         else np.full(n, np.nan))
+        return pd.DataFrame(data)
+
+    def _encode_for_hdf5(self, flat: bool = True) -> dict:
+        dictionary = self.to_numpy().to_dict(flat=flat)
+        dictionary["dtype"] = dtype_name(self.dtype)
+        dictionary["__class__"] = type(self).__name__
+        return dictionary
+
+    def save(self, h5_file, path: str = "samples", flat: bool = False):
+        from .io import save_dict_to_hdf5
+
+        save_dict_to_hdf5(h5_file, path, self._encode_for_hdf5(flat=flat))
+
+    @classmethod
+    def load(cls, h5_file, path: str = "samples", device: Any = None):
+        from .io import load_dict_from_hdf5
+
+        dictionary = load_dict_from_hdf5(h5_file, path)
+        dictionary.pop("__class__", None)
+        return cls.from_dict(dictionary, device=device)
+
+    # -- plotting -----------------------------------------------------------
+
+    def plot_corner(self, parameters: list[str] | None = None, fig=None,
+                    **kwargs):
+        """A corner plot: the ``corner`` package's where it is installed,
+        else :func:`aspire_tpu_torch.plot.corner_plot`."""
+        kwargs = copy.deepcopy(kwargs)
+        kwargs.setdefault("labels", self.parameters)
+        x = self.x
+        if parameters is not None:
+            x = x[:, [self.parameters.index(p) for p in parameters]]
+            kwargs["labels"] = parameters
+        x = to_numpy(x)
+        try:
+            import corner
+        except ImportError:
+            from .plot import corner_plot
+
+            return corner_plot(x, fig=fig, **kwargs)
+        return corner.corner(x, fig=fig, **kwargs)
+
     @classmethod
     def concatenate(cls, samples: list) -> "BaseSamples":
         if not samples:
@@ -265,6 +370,17 @@ class Samples(BaseSamples):
             raise RuntimeError("Samples do not contain weights!")
         return self.effective_sample_size / len(self.x)
 
+    @property
+    def scaled_weights(self):
+        return torch.exp(self.log_w - torch.max(self.log_w))
+
+    def plot_corner(self, include_weights: bool = True, **kwargs):
+        kwargs = copy.deepcopy(kwargs)
+        if (include_weights and self.log_w is not None
+                and "weights" not in kwargs):
+            kwargs["weights"] = to_numpy(self.scaled_weights)
+        return super().plot_corner(**kwargs)
+
     def __getitem__(self, idx):
         sliced = super().__getitem__(idx)
         sliced.log_evidence = self.log_evidence
@@ -280,6 +396,10 @@ class SMCSamples(BaseSamples):
     beta: float | None = None
     log_evidence: float | None = None
     log_evidence_error: float | None = None
+
+    def log_p_t(self, beta):
+        return (1 - beta) * self.log_q + beta * (self.log_likelihood
+                                                 + self.log_prior)
 
     def unnormalized_log_weights(self, beta) -> torch.Tensor:
         return incremental_log_weights(
@@ -482,7 +602,7 @@ class PTMCMCSamples(MCMCSamples):
         super().__post_init__()
         if self.betas is None:
             return
-        self.betas = _host(self.betas)
+        self.betas = to_numpy(self.betas)
         betas = np.atleast_1d(np.asarray(self.betas, dtype=float))
         if betas.ndim != 1:
             raise ValueError("betas must be one-dimensional")
@@ -605,7 +725,7 @@ class PTMCMCSamples(MCMCSamples):
         if self.log_likelihood is None:
             raise ValueError(
                 "Evidence estimation needs per-sample log-likelihoods.")
-        by_rung = _host(self._reshape_like_chain(self.log_likelihood))
+        by_rung = to_numpy(self._reshape_like_chain(self.log_likelihood))
         if burn_in_fraction:
             skip = int(round(by_rung.shape[1] * burn_in_fraction))
             by_rung = by_rung[:, skip:]
@@ -666,9 +786,54 @@ class PTMCMCSamples(MCMCSamples):
         base = float(np.sum(np.diff(betas) * rung_ref[:-1]))
         return base + float(shifted), float(err)
 
-    def plot_chain(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the PTMCMCSamples plots need matplotlib, which the port does "
-            "not use yet")
+    def plot_chain(self, beta_index: int, n_walkers: int | None = None,
+                   **kwargs):
+        """Trace of every parameter of rung ``beta_index`` per step."""
+        plt = require_module("matplotlib.pyplot", "plotting")
+        chain = to_numpy(self.chain)[beta_index]  # (n_steps, n_walkers, d)
+        if n_walkers is not None:
+            chain = chain[:, :n_walkers]
+        d = chain.shape[-1]
+        fig, axes = plt.subplots(d, 1, sharex=True, figsize=(8, 2 * d))
+        if d == 1:
+            axes = [axes]
+        for k, ax in enumerate(axes):
+            ax.plot(chain[:, :, k], alpha=0.5, **kwargs)
+            ax.set_ylabel(self.parameters[k])
+        axes[-1].set_xlabel("step")
+        return fig
 
-    plot_ladder = plot_chain
+    def plot_ladder(self, swap_floor: float = 0.15):
+        """Ladder diagnostics: the swap acceptance of each adjacent pair at
+        its midpoint (pairs under ``swap_floor`` flagged) and the move
+        acceptance of each rung, the rungs drawn as ticks."""
+        plt = require_module("matplotlib.pyplot", "plotting")
+        if (self.betas is None or self.swap_acceptance is None
+                or self.move_acceptance is None):
+            raise ValueError(
+                "plot_ladder needs betas and the recorded acceptance "
+                "diagnostics (run the PT sampler to get them).")
+        betas = np.asarray(self.betas, dtype=float)
+        swap = np.asarray(self.swap_acceptance, dtype=float)
+        move = np.asarray(self.move_acceptance, dtype=float)
+        mids = 0.5 * (betas[:-1] + betas[1:])
+        fig, (ax_swap, ax_move) = plt.subplots(2, 1, sharex=True,
+                                               figsize=(8, 5))
+        low = swap < swap_floor
+        ax_swap.plot(mids, swap, "o-", color="C0")
+        if low.any():
+            ax_swap.plot(mids[low], swap[low], "o", color="C3",
+                         label=f"below floor ({swap_floor})")
+            ax_swap.legend()
+        ax_swap.axhline(swap_floor, color="C3", ls="--", lw=0.8)
+        ax_swap.set_ylabel("swap acceptance")
+        ax_swap.set_ylim(0, 1.05)
+        ax_move.plot(betas, move, "s-", color="C1")
+        ax_move.set_ylabel("move acceptance")
+        ax_move.set_ylim(0, 1.05)
+        ax_move.set_xlabel(r"inverse temperature $\beta$")
+        for ax in (ax_swap, ax_move):
+            for b in betas:
+                ax.axvline(b, color="0.85", lw=0.5, zorder=0)
+        fig.tight_layout()
+        return fig

@@ -3,7 +3,11 @@
 Counterpart of ``aspire_tpu/transforms.py``. Every ``forward``/``inverse``
 returns ``(y, log_j)`` with the Jacobian reduced over the feature axis,
 shape ``(n,)``. Fitted state (the affine mean/std, a preconditioning
-flow's parameters) lives on the transform's device.
+flow's parameters) lives on the transform's device. Every transform saves
+to and loads from HDF5 in the JAX package's layout (a group with its class
+name, its config and its fitted state: a file of either package loads in
+the other), and gives its fitted state as host arrays for a checkpoint
+(:meth:`BaseTransform.host_state`).
 """
 
 from __future__ import annotations
@@ -15,9 +19,24 @@ from typing import Any
 import numpy as np
 import torch
 
-from .utils import as_tensor, resolve_dtype
+from .utils import as_tensor, resolve_dtype, to_numpy
 
 logger = logging.getLogger("aspire_tpu_torch")
+
+_TRANSFORM_REGISTRY: dict[str, type] = {}
+
+
+def register_transform(cls):
+    """Register ``cls`` by name for :meth:`BaseTransform.load`."""
+    _TRANSFORM_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def get_transform_class(name: str) -> type:
+    try:
+        return _TRANSFORM_REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"Unknown transform class: {name}") from None
 
 
 def _name_list(names) -> list:
@@ -45,7 +64,69 @@ class BaseTransform:
         return {"dtype": str(self.dtype).replace("torch.", "")
                 if self.dtype else None}
 
+    # -- persistence ----------------------------------------------------------
 
+    def save(self, h5_file, path: str = "data_transform"):
+        from .io import save_dict_to_hdf5
+
+        if path in h5_file:
+            del h5_file[path]
+        grp = h5_file.create_group(path)
+        grp.attrs["class"] = type(self).__name__
+        save_dict_to_hdf5(grp, "config", self.config_dict())
+        self._save_state(grp)
+
+    @classmethod
+    def load(cls, h5_file, path: str = "data_transform",
+             strict: bool = False, device: Any = "cpu"):
+        """The transform saved at ``path`` (by either package), of the class
+        its group names, on ``device``."""
+        from .io import load_dict_from_hdf5
+
+        grp = h5_file[path]
+        class_name = grp.attrs["class"]
+        target = get_transform_class(class_name)
+        if strict and target is not cls:
+            raise ValueError(
+                f"Expected class {cls.__name__}, got {class_name}.")
+        obj = target(**load_dict_from_hdf5(grp, "config"), device=device)
+        obj._load_state(grp)
+        return obj
+
+    def _fitted_arrays(self) -> dict:
+        """The fitted state as named tensors (none before a fit)."""
+        return {}
+
+    def _set_fitted_arrays(self, arrays: dict) -> None:
+        pass
+
+    def _save_state(self, grp):
+        for name, value in self._fitted_arrays().items():
+            grp.create_dataset(name, data=to_numpy(value))
+
+    def _load_state(self, grp):
+        arrays = {name: grp[name][()] for name in ("mean", "std")
+                  if name in grp}
+        if arrays:
+            self._set_fitted_arrays(arrays)
+
+    def host_state(self) -> dict:
+        """Class, config and fitted state as host arrays: what a checkpoint
+        keeps of a transform (no tensor of any device)."""
+        return {"class": type(self).__name__, "config": self.config_dict(),
+                "arrays": {k: to_numpy(v).copy()
+                           for k, v in self._fitted_arrays().items()}}
+
+    @staticmethod
+    def from_host_state(state: dict, device: Any = "cpu") -> "BaseTransform":
+        obj = get_transform_class(state["class"])(**state["config"],
+                                                  device=device)
+        if state["arrays"]:
+            obj._set_fitted_arrays(state["arrays"])
+        return obj
+
+
+@register_transform
 class IdentityTransform(BaseTransform):
     def fit(self, x):
         return self._as(x)
@@ -59,6 +140,7 @@ class IdentityTransform(BaseTransform):
         return y, torch.zeros(len(y), dtype=y.dtype, device=y.device)
 
 
+@register_transform
 class PeriodicTransform(BaseTransform):
     """Wrap values into ``[lower, upper)`` with zero Jacobian."""
 
@@ -131,6 +213,7 @@ class BoundedTransform(BaseTransform):
         }
 
 
+@register_transform
 class ProbitTransform(BoundedTransform):
     def forward(self, x):
         y, log_j_unit = self.to_unit_interval(x)
@@ -146,6 +229,7 @@ class ProbitTransform(BoundedTransform):
         return x, log_j + log_j_unit
 
 
+@register_transform
 class LogitTransform(BoundedTransform):
     def forward(self, x):
         y, log_j_unit = self.to_unit_interval(x)
@@ -162,6 +246,7 @@ class LogitTransform(BoundedTransform):
         return x, log_j + log_j_unit
 
 
+@register_transform
 class AffineTransform(BaseTransform):
     """Whitening fit to the data's mean and (population) std."""
 
@@ -189,7 +274,17 @@ class AffineTransform(BaseTransform):
         return x, -self._log_j() * torch.ones(
             y.shape[0], dtype=y.dtype, device=y.device)
 
+    def _fitted_arrays(self) -> dict:
+        if self._mean is None:
+            return {}
+        return {"mean": self._mean, "std": self._std}
 
+    def _set_fitted_arrays(self, arrays: dict) -> None:
+        self._mean = self._as(arrays["mean"])
+        self._std = self._as(arrays["std"])
+
+
+@register_transform
 class CompositeTransform(BaseTransform):
     """Masked composition: periodic wrap, bounded -> unbounded, affine."""
 
@@ -327,6 +422,26 @@ class CompositeTransform(BaseTransform):
             log_j = log_j + lj
         return y, log_j
 
+    def _fitted_arrays(self) -> dict:
+        if self._affine_transform is None:
+            return {}
+        return self._affine_transform._fitted_arrays()
+
+    def _set_fitted_arrays(self, arrays: dict) -> None:
+        if self._affine_transform is not None:
+            self._affine_transform._set_fitted_arrays(arrays)
+
+    def _save_state(self, grp):
+        """The JAX package's layout: the affine step's state in a group of
+        its own."""
+        if self._fitted_arrays():
+            self._affine_transform._save_state(
+                grp.create_group("affine_transform"))
+
+    def _load_state(self, grp):
+        if self._affine_transform is not None and "affine_transform" in grp:
+            self._affine_transform._load_state(grp["affine_transform"])
+
     def config_dict(self):
         return super().config_dict() | {
             "parameters": self.parameters,
@@ -339,6 +454,7 @@ class CompositeTransform(BaseTransform):
         }
 
 
+@register_transform
 class FlowTransform(CompositeTransform):
     """Composite without periodic support: the flow's data transform."""
 
@@ -372,6 +488,7 @@ class FlowTransform(CompositeTransform):
 
 
 
+@register_transform
 class FlowPreconditioningTransform(BaseTransform):
     """Preconditioning by an inner normalizing flow used as a transport
     map: ``fit`` trains a fresh flow on the particles (a
@@ -382,8 +499,9 @@ class FlowPreconditioningTransform(BaseTransform):
 
     Not a :class:`CompositeTransform`: it lowers to no transform program,
     so a chain preconditioned by it takes the split route, and the device
-    ladder refuses it, as in the JAX package. Saving a fitted one needs
-    HDF5, which the port does not have yet.
+    ladder refuses it, as in the JAX package. A fitted one saves its flow's
+    parameters and inner data transform (HDF5, and the checkpoint payload
+    of an SMC state).
     """
 
     def __init__(
@@ -491,9 +609,52 @@ class FlowPreconditioningTransform(BaseTransform):
         self._inner_data_transform = self.flow.data_transform
         self._arch = self.flow.architecture
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError(
-            "saving or loading a FlowPreconditioningTransform needs HDF5, "
-            "which is not ported yet")
+    def _save_state(self, grp):
+        """The fitted transport map: the flow's parameters (by the JAX
+        package's leaf order) and its data transform."""
+        if self._params is None:
+            return
+        from .io import save_pytree_to_hdf5
 
-    _save_state = _load_state = save
+        save_pytree_to_hdf5(grp, "flow_params", self._params)
+        self._inner_data_transform.save(grp, "inner_data_transform")
+
+    def _load_state(self, grp):
+        if "flow_params" not in grp:
+            return  # saved unfitted
+        from .io import load_pytree_from_hdf5
+
+        self._rebuild_flow(BaseTransform.load(grp, "inner_data_transform",
+                                              device=self.device), None)
+        self._params = load_pytree_from_hdf5(grp, "flow_params",
+                                             like=self.flow.params)
+        self.flow.params = self._params
+
+    def checkpoint_payload(self) -> dict | None:
+        """The fitted state as host data (config, the parameters as numpy
+        in their nesting, the inner data transform's :meth:`host_state`),
+        or None unfitted."""
+        if self._params is None:
+            return None
+        from .io import tree_unflatten, tree_flatten
+
+        return {"class": type(self).__name__, "config": self.config_dict(),
+                "params": tree_unflatten(self._params, [
+                    to_numpy(v).copy() for v in tree_flatten(self._params)]),
+                "inner_data_transform":
+                    self._inner_data_transform.host_state()}
+
+    @classmethod
+    def from_checkpoint_payload(cls, payload: dict, device: Any = "cpu"
+                                ) -> "FlowPreconditioningTransform":
+        from .io import tree_flatten, tree_unflatten
+
+        obj = cls(**payload["config"], device=device)
+        params = payload["params"]
+        obj._rebuild_flow(
+            BaseTransform.from_host_state(payload["inner_data_transform"],
+                                          device=device),
+            tree_unflatten(params, [
+                torch.as_tensor(v, device=obj.device)
+                for v in tree_flatten(params)]))
+        return obj

@@ -8,7 +8,10 @@ JAX array, a numpy array or a list all convert the same way.
 
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+import functools
+import importlib
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -30,6 +33,36 @@ def resolve_dtype(dtype: Any) -> torch.dtype | None:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(f"Unsupported dtype: {dtype!r}") from None
+
+
+def require_module(name: str, what: str):
+    """Import ``name`` at first use (h5py, matplotlib, pandas: none is
+    needed to run a sampler, and the card's machine has none); an
+    ``ImportError`` naming the package where it is missing."""
+    try:
+        return importlib.import_module(name)
+    except ImportError as err:
+        raise ImportError(
+            f"{what} needs the {name.split('.')[0]!r} package, which is not "
+            f"installed here ({err})") from err
+
+
+def dtype_name(dtype: Any) -> str | None:
+    """A dtype's name as the JAX package writes it (``"float32"``)."""
+    if dtype is None:
+        return None
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return np.dtype(dtype).name
+
+
+def to_numpy(x: Any) -> np.ndarray | None:
+    """A tensor (on any device) or array-like as a host numpy array."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def resolve_device(device: Any) -> torch.device:
@@ -134,3 +167,67 @@ def _copy_affine_state(src, dst, dtype, device) -> None:
         return
     dst._mean = as_tensor(np.array(src._mean), dtype=dtype, device=device)
     dst._std = as_tensor(np.array(src._std), dtype=dtype, device=device)
+
+
+# -- call tracking (the JAX package's ``track_calls``) ---------------------
+
+
+@dataclasses.dataclass
+class CallHistory:
+    """Record of calls to a tracked method (args/kwargs per call)."""
+
+    calls: list = dataclasses.field(default_factory=list)
+
+    def add_call(self, args: tuple, kwargs: dict) -> None:
+        self.calls.append({"args": args, "kwargs": kwargs})
+
+    @property
+    def last(self) -> dict | None:
+        return self.calls[-1] if self.calls else None
+
+    def to_dict(self) -> dict:
+        return {str(i): {"args": _sanitize_for_config(call["args"]),
+                         "kwargs": _sanitize_for_config(call["kwargs"])}
+                for i, call in enumerate(self.calls)}
+
+
+def _sanitize_for_config(obj: Any) -> Any:
+    """Call arguments in a storable form: callables as id strings, tensors
+    as host arrays."""
+    if callable(obj) and not isinstance(obj, type):
+        return function_id(obj)
+    if isinstance(obj, dict):
+        return {k: _sanitize_for_config(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_sanitize_for_config(v) for v in obj)
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        return to_numpy(obj)
+    return obj
+
+
+def track_calls(method: Callable) -> Callable:
+    """Record every call of ``method`` on the instance, under
+    ``_call_history[method_name]`` (read by ``Sampler.config_dict``)."""
+
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        if not hasattr(self, "_call_history"):
+            self._call_history = {}
+        self._call_history.setdefault(
+            method.__name__, CallHistory()).add_call(args, kwargs)
+        return method(self, *args, **kwargs)
+
+    return wrapper
+
+
+def function_id(fn: Callable) -> str | None:
+    """``module:qualname`` of a callable: user functions are recorded by id
+    and supplied again on resume, never pickled."""
+    if fn is None:
+        return None
+    module = getattr(fn, "__module__", None)
+    qualname = getattr(fn, "__qualname__", getattr(fn, "__name__", None))
+    if qualname is None:
+        qualname = type(fn).__qualname__
+        module = type(fn).__module__
+    return f"{module}:{qualname}"

@@ -114,7 +114,12 @@ main paths (6, 7, 8) right after the build:
    targets at 512 walkers against their truths, the funnel on three fits
    combined, with the seconds and device operations a round; PT with a
    flow preconditioning, B3 in every half-move; SMC with
-   ``n_replicates=3`` on the mixture);
+   ``n_replicates=3`` on the mixture); checkpoint and resume
+   (``phase_checkpoint``: the mixture's 131072 pipeline on the device
+   ladder with every rung's state handed over against none, the same bits,
+   the middle state's bytes resumed on both ladders and the last state's,
+   on the whole-chain and split routes; the HDF5 paths, which raise
+   ``ImportError`` where h5py is missing; the cost of a checkpoint a rung);
 12. print kernel and plain times, each kernel's bound, the kernels JSON
    line and the result line. A time is device time: one CUDA-event pair
    around 20 back-to-back calls after a warm-up (cuda_ms); the earlier
@@ -144,7 +149,8 @@ with their errors against float64 and each checkout's ptxas report
 (``wide_ab``).
 ``--accumulation`` reads B2's flow density (on the d = 4
 chain and on config 5's) and B4 against float64 over 20 draws each
-(``accumulation``). ``--ladder-profile`` profiles one warmed device-ladder
+(``accumulation``). ``--checkpoint`` runs ``phase_checkpoint`` alone
+(``checkpoint_alone``). ``--ladder-profile`` profiles one warmed device-ladder
 pipeline of nsf-tpu and of maf-rqs (``ladder_profile``).
 """
 
@@ -3071,12 +3077,15 @@ def rwmh_chain_times(device, n: int, steps: int) -> dict:
 
 #: the samplers of the JAX package's validation rows on the mixture
 #: (``benchmarks/validate.py:30-52``) and their ``sampler_kwargs``
+#: the anchors at N_VALIDATE on the mixture; NUTS's chain and tree depth
+#: cut (from 5 steps at the default depth 8, 78.7-118.5 s) to keep it under
+#: 30 s, its gate unchanged
 GRADIENT_ANCHORS = {
     "rwmh_smc": {"n_steps": 20},
     "emcee_smc": {"n_steps": 20},
     "mala_smc": {"n_steps": 100},
     "hmc_smc": {"n_steps": 5, "n_leapfrog": 10},
-    "nuts_smc": {"n_steps": 5, "n_leapfrog": 10},
+    "nuts_smc": {"n_steps": 3, "max_depth": 5},
 }
 
 #: the 131072 pipelines' samplers on the mixture, both ladders in turns,
@@ -4071,6 +4080,308 @@ def phase_ptmcmc(device, n_smc: int) -> dict:
     return out
 
 
+#: the histories a checkpoint's must match bit for bit
+CHECKPOINT_HISTORY = ("beta", "ess", "ess_target", "eff_target",
+                      "log_norm_ratio", "log_norm_ratio_var",
+                      "mcmc_acceptance", "mcmc_autocorr", "lineage_fraction",
+                      "mutation_route", "nonfinite_target")
+
+
+def checkpoint_run(asp, run: dict, callback=None, states: bool = False,
+                   **kw) -> dict:
+    """One ``sample_posterior`` of ``run`` on ``asp`` with the launch counts
+    set to 0 just before it and read just after; its checkpoint states go
+    to ``callback``, or with ``states`` into the result (in memory)."""
+    import torch
+
+    states = [] if states else None
+    if states is not None:
+        callback = states.append
+    replays = {id(v[1]): v[1].replays for v in asp.ladder_cache.values()}
+    reset_launch_counts()
+    on_card = asp.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post, hist = asp.sample_posterior(
+        **run, return_history=True,
+        checkpoint_callback=callback, **kw)
+    if on_card:
+        torch.cuda.synchronize()
+    lad = asp.sampler.ladder
+    return {"post": post, "hist": hist, "states": states,
+            "wall_s": time.perf_counter() - t0, "launches": launch_counts(),
+            "ladder": lad,
+            "replayed": (lad.replays - replays[id(lad)]
+                         if lad is not None and id(lad) in replays else None)}
+
+
+def same_checkpoint(a: dict, b: dict) -> bool:
+    """Two checkpoint states the same bits (its config aside)."""
+    import numpy as np
+
+    if set(a) != set(b):
+        return False
+    for key in a:
+        va, vb = a[key], b[key]
+        if key == "config":
+            continue
+        if key == "samples":
+            if va.beta != vb.beta or not all(np.array_equal(
+                    getattr(va, f), getattr(vb, f)) for f in (
+                        "x", "log_likelihood", "log_prior", "log_q")):
+                return False
+        elif key == "history":
+            if any(getattr(va, f) != getattr(vb, f)
+                   for f in CHECKPOINT_HISTORY):
+                return False
+        elif isinstance(va, np.ndarray):
+            if not np.array_equal(va, vb):
+                return False
+        elif va != vb:
+            return False
+    return True
+
+
+def checkpoint_checks(asp, run: dict, need: dict,
+                      truth: float | None = None) -> dict:
+    """The device ladder's checkpoint on ``run`` (the default path, its rung
+    replayed from the ladder cache): (1) a run with every rung's state
+    handed to a callback against a run without, the same bits (population,
+    log Z, history), the same launches (``need`` a rung at least, each
+    kernel of the path launched), the ladder replayed once per rung and
+    never captured again; (2) the middle state's bytes resumed on the device
+    ladder and on the host ladder: one population, the state's history as
+    the prefix, beta 1 (and ``check_result`` against ``truth``); (3) the last
+    state (beta 1) resumed: no rung runs, no kernel launches."""
+    import torch
+
+    from aspire_tpu_torch.io import load_pickle
+    from aspire_tpu_torch.samplers.base import Sampler
+
+    checkpoint_run(asp, run, device_ladder=True)  # captures if not cached
+    off = checkpoint_run(asp, run, device_ladder=True)
+    on = checkpoint_run(asp, run, device_ladder=True, states=True)
+    on_card = asp.device.type == "cuda"
+    rungs = len(off["hist"].beta)
+    per_rung = {k: v / rungs for k, v in on["launches"].items()}
+    out = {"rungs": rungs, "states": len(on["states"]),
+           "launches_off": off["launches"], "launches_on": on["launches"],
+           "same_bits": torch.equal(on["post"].x, off["post"].x)
+           and on["post"].log_evidence == off["post"].log_evidence
+           and all(getattr(on["hist"], f) == getattr(off["hist"], f)
+                   for f in CHECKPOINT_HISTORY),
+           "replays": [off["replayed"], on["replayed"]],
+           "one_ladder": on["ladder"] is off["ladder"]}
+    log(f"checkpoints on vs off: {out}")
+    if not out["same_bits"] or on["launches"] != off["launches"]:
+        raise AssertionError(f"checkpoints changed the run: {out}")
+    if [s["iteration"] for s in on["states"]] != [*range(1, rungs + 1),
+                                                  rungs]:
+        raise AssertionError("a rung's checkpoint is missing: "
+                             f"{[s['iteration'] for s in on['states']]}")
+    if on_card and (out["replays"] != [rungs, rungs] or not out["one_ladder"]
+                    or any(on["launches"][k] < v * rungs
+                           for k, v in need.items())):
+        raise AssertionError(f"the ladder's graph did not replay once a rung "
+                             f"with {need} launches a rung: {out}")
+    out["launches_per_rung"] = per_rung
+    if any(isinstance(v, torch.Tensor) for state in on["states"]
+           for v in (*state.values(), *vars(state["samples"]).values())):
+        raise AssertionError("a checkpoint state holds a tensor")
+    # The host ladder's states at the same rungs (reported: the CPU tests
+    # hold the two ladders' states to the same bits).
+    host = checkpoint_run(asp, run, device_ladder=False, states=True)
+    out["host_ladder_states_same_bits"] = len(host["states"]) == len(
+        on["states"]) and all(same_checkpoint(a, b) for a, b in zip(
+            host["states"], on["states"]))
+
+    mid_state = on["states"][rungs // 2 - 1]
+    mid = Sampler.serialize_checkpoint_state(mid_state)
+    prefix = load_pickle(mid)["history"]
+    k = len(prefix.beta)
+    resumed = {}
+    for ladder in (True, False):
+        r = checkpoint_run(asp, run, device_ladder=ladder, resume_from=mid)
+        hist = r["hist"]
+        if any(getattr(hist, f)[:k] != getattr(prefix, f)
+               for f in CHECKPOINT_HISTORY) or hist.beta[-1] != 1.0:
+            which = "device" if ladder else "host"
+            raise AssertionError(f"resumed run ({which} ladder) lost the "
+                                 "checkpoint's history or stopped short of "
+                                 "beta 1")
+        if truth is not None:
+            check_result(r["post"], run["n_samples"], truth, asp.dims)
+        resumed["device" if ladder else "host"] = r
+    rd, rh = resumed["device"], resumed["host"]
+    out["resume"] = {
+        "from_iteration": mid_state["iteration"], "bytes": len(mid),
+        "rungs": len(rd["hist"].beta), "ladders_same_bits": torch.equal(
+            rd["post"].x, rh["post"].x),
+        "log_z": rd["post"].log_evidence,
+        "log_z_err": rd["post"].log_evidence_error,
+        "host_log_z": rh["post"].log_evidence,
+        "launches": rd["launches"], "host_launches": rh["launches"],
+        "replayed": rd["replayed"]}
+    log(f"resumed from rung {mid_state['iteration']}: {out['resume']}")
+    if not out["resume"]["ladders_same_bits"]:
+        raise AssertionError("the two ladders resumed one checkpoint into "
+                             "different populations")
+    last = checkpoint_run(asp, run, device_ladder=True,
+                          resume_from=Sampler.serialize_checkpoint_state(
+                              on["states"][-1]))
+    out["resume_last"] = {"rungs": len(last["hist"].beta),
+                          "launches": last["launches"],
+                          "ladder": last["ladder"] is not None}
+    log(f"resumed from the last state: {out['resume_last']}")
+    if (len(last["hist"].beta) != rungs or last["ladder"] is not None
+            or any(last["launches"].values())):
+        raise AssertionError(f"a completed checkpoint ran the loop again: "
+                             f"{out['resume_last']}")
+    return out
+
+
+def phase_checkpoint(device, n: int) -> dict:
+    """Checkpoint and resume on the card, on the mixture fitted as the
+    validation rows are (``mixture_aspire``, nsf-tpu) at ``n``:
+
+    (1)-(3) ``checkpoint_checks`` on the whole-chain route (B2 a rung, B3
+    the initial draws) and (4) on the split route (``fused_chain=False``,
+    CHAIN_STEPS + 2 B1 launches a rung);
+    (5) the HDF5 paths (``checkpoint_path``, ``Aspire.resume_from_file``):
+    where h5py is missing each raises ``ImportError`` naming it; where it is
+    present a run file is written and resumed;
+    (6) the pipeline with a checkpoint every rung (each state serialised to
+    bytes, as a file writer would pickle it), with the states only built,
+    and with none, in turns after a warm-up, medians of 3, and the bytes a
+    checkpoint takes. PT and MCMC state checkpoints are files only, as in
+    the JAX package: they run in the CPU tests.
+    """
+    import importlib.util
+    import tempfile
+
+    from aspire_tpu_torch import Aspire
+    from aspire_tpu_torch.samplers.base import Sampler
+
+    p, asp = mixture_aspire(device)
+    truth = p.true_log_evidence()
+    run = dict(sampler="smc", n_samples=n, store_sample_history=False,
+               sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    out = {"n": n, "fused": checkpoint_checks(asp, run, {"chain": 1}, truth)}
+    b3 = checkpoint_run(asp, run, device_ladder=True)["launches"]["coupling"]
+    out["fused"]["b3_launches"] = b3
+    if device.type == "cuda" and b3 < 1:
+        raise AssertionError("the initial draws did not launch B3")
+    split_run = dict(run, sampler_kwargs=dict(n_steps=CHAIN_STEPS,
+                                              fused_chain=False))
+    out["split"] = checkpoint_checks(asp, split_run,
+                                     {"coupling": CHAIN_STEPS + 2}, truth)
+
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/run.h5"
+        try:
+            asp.sample_posterior(**run, checkpoint_path=path)
+            resumed = Aspire.resume_from_file(
+                path, log_likelihood=p.log_likelihood,
+                log_prior=p.log_prior, device=device)
+            post = resumed.sample_posterior()
+            check_result(post, n, truth, asp.dims)
+            files = "h5py present: a run file written and resumed"
+        except ImportError as err:
+            if has_h5py or "'h5py'" not in str(err):
+                raise
+            try:
+                Aspire.resume_from_file(path, log_likelihood=p.log_likelihood,
+                                        log_prior=p.log_prior, device=device)
+                raise AssertionError("resume_from_file ran without h5py")
+            except ImportError as err2:
+                if "'h5py'" not in str(err2):
+                    raise
+            files = ("h5py absent: checkpoint_path and resume_from_file "
+                     "each raised ImportError naming h5py")
+    out["files"] = files
+    log(files)
+
+    sizes = []
+
+    def to_bytes(state):
+        sizes.append(len(Sampler.serialize_checkpoint_state(state)))
+
+    # "state": the states built and dropped; "on": built and serialised.
+    # A warm-up of each, then in turns (off, state, on, on, state, off, off,
+    # state, on).
+    callbacks = {"off": None, "state": lambda state: None, "on": to_bytes}
+    walls = {mode: [] for mode in callbacks}
+    turns = ("off", "state", "on", "on", "state", "off", "off", "state", "on")
+    for i, mode in enumerate(("off", "state", "on", *turns)):
+        r = checkpoint_run(asp, run, device_ladder=True,
+                           callback=callbacks[mode])
+        if i >= 3:
+            walls[mode].append(r["wall_s"])
+    med = {mode: sorted(w)[1] for mode, w in walls.items()}
+    n_states = out["fused"]["states"]
+    out["times"] = {
+        "off_s": med["off"], "on_s": med["on"], "state_s": med["state"],
+        "walls_s": walls, "checkpoints_a_run": n_states,
+        "ms_per_checkpoint": (med["on"] - med["off"]) / n_states * 1e3,
+        "ms_per_state": (med["state"] - med["off"]) / n_states * 1e3,
+        "bytes_per_checkpoint": [min(sizes), max(sizes)]}
+    log(f"pipeline with a checkpoint every rung vs none: {out['times']}")
+    return out
+
+
+def checkpoint_alone() -> dict:
+    """``phase_checkpoint`` alone at N_PIPELINE after the kernels' build
+    and the mixture's fit, its lines printed; its times, the bytes a
+    checkpoint takes, the file paths' case and the phase's seconds."""
+    import torch
+
+    from aspire_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    _build.load_library()
+    device = torch.device("cuda")
+    mixture_aspire(device)
+    t0 = time.perf_counter()
+    ck = phase_checkpoint(device, N_PIPELINE)
+    phase_s = time.perf_counter() - t0
+    report_checkpoint(card_line(), ck)
+    return {"n": ck["n"], "times": ck["times"], "files": ck["files"],
+            "phase_s": phase_s}
+
+
+def report_checkpoint(card: str, ck: dict) -> None:
+    """Print ``phase_checkpoint``'s results, one line each."""
+    for route, v in (("whole-chain route (B2)", ck["fused"]),
+                     ("split route (B1)", ck["split"])):
+        r = v["resume"]
+        print(f"[{card}] checkpoints, {route}, n={ck['n']}: every rung's "
+              f"state ({v['states']} a run of {v['rungs']} rungs) changed "
+              f"nothing (same bits: {v['same_bits']}; launches on "
+              f"{v['launches_on']} vs off {v['launches_off']}; replays "
+              f"{v['replays']}, one ladder {v['one_ladder']}; the host "
+              f"ladder's states the same bits: "
+              f"{v['host_ladder_states_same_bits']}); rung "
+              f"{r['from_iteration']}'s {r['bytes']} bytes resumed on both "
+              f"ladders, same bits {r['ladders_same_bits']}, {r['rungs']} "
+              f"rungs, log Z {r['log_z']:.4f} +/- {r['log_z_err']:.4f} "
+              f"(launches {r['launches']}, host ladder {r['host_launches']});"
+              f" the last state resumed: {v['resume_last']['rungs']} rungs "
+              f"kept, launches {v['resume_last']['launches']}", flush=True)
+    t = ck["times"]
+    print(f"[{card}] pipeline with a checkpoint every rung (serialised to "
+          f"bytes) vs none, n={ck['n']}, in turns: {t['on_s']:.4f} s vs "
+          f"{t['off_s']:.4f} s (medians of 3; {t['checkpoints_a_run']} "
+          f"checkpoints a run, {t['ms_per_checkpoint']:.3f} ms each, "
+          f"{t['ms_per_state']:.3f} ms of it building the state: "
+          f"{t['state_s']:.4f} s a run without the bytes, "
+          f"{t['bytes_per_checkpoint'][0]}-{t['bytes_per_checkpoint'][1]} "
+          f"bytes each); file paths: {ck['files']}; PT and MCMC state "
+          f"checkpoints are files only (CPU tests)", flush=True)
+
+
 def report_ptmcmc(card: str, pt: dict) -> None:
     """Print ``phase_ptmcmc``'s results, one line each."""
     c = pt["device_check"]
@@ -4572,6 +4883,7 @@ def main() -> int:
     flow_precond = timed(phase_flow_preconditioning, device, N_VALIDATE)
     mcmc = timed(phase_mcmc, device, N_VALIDATE)
     pt = timed(phase_ptmcmc, device, N_VALIDATE)
+    ck = timed(phase_checkpoint, device, N_PIPELINE)
     # The profiler last: after it has traced the card, every launch costs
     # the host more, and the pipelines and short kernels' events show it.
     timed(read_kernel_ms)
@@ -4638,6 +4950,7 @@ def main() -> int:
     report_gradient(card, gradient)
     report_new_paths(card, cnf, flow_precond, mcmc)
     report_ptmcmc(card, pt)
+    report_checkpoint(card, ck)
     for name, (arch, *_) in coupling_flows().items():
         v = coupling["flows"][name]
         b = coupling_bound(arch, N_COUPLING)
@@ -4800,6 +5113,12 @@ def main() -> int:
          "launches_b3_pt_rows": {row: [r["b3"] for r in v["runs"]]
                                  for row, v in pt["rows"].items()},
          "launches_b3_pt_flow_preconditioned": pt["flow"]["b3"],
+         "launches_checkpoint_phase": {
+             "b3_initial_draws": ck["fused"]["b3_launches"],
+             "b1_split_checkpointed_run": ck["split"]["launches_on"][
+                 "coupling"],
+             "b1_split_resumed_device_ladder": ck["split"]["resume"][
+                 "launches"]["coupling"]},
          "max_abs_err": coupling["max_abs_err"],
          **coupling_entry(coupling, "nsf-tpu"), "library_ms": None,
          "wrapper_ms": coupling["wrapper_ms"],
@@ -4812,6 +5131,12 @@ def main() -> int:
          "launches": main_path["launches"]["chain"],
          "launches_device_ladder": main_path["ladders"]["launches"]["chain"],
          "device_ladder_rungs": main_path["ladders"]["rungs"],
+         "launches_checkpoint_phase": {
+             "checkpointed_run": ck["fused"]["launches_on"]["chain"],
+             "resumed_device_ladder": ck["fused"]["resume"]["launches"][
+                 "chain"],
+             "resumed_host_ladder": ck["fused"]["resume"]["host_launches"][
+                 "chain"]},
          "launches_per_replay_profiled": main_path["replay_vs_eager"][
              "replay_kernels"]["chain"],
          "max_abs_err": chain["max_abs_err"],
@@ -5014,5 +5339,9 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--ladder-profile":
         print(card_line(), flush=True)
         print(json.dumps({"ladder_profile": ladder_profile()}), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--checkpoint":
+        print(card_line(), flush=True)
+        print(json.dumps({"checkpoint": checkpoint_alone()}), flush=True)
         sys.exit(0)
     sys.exit(main())

@@ -139,12 +139,32 @@ def test_aspire_defaults_match_jax(overrides):
     assert tt.affine_transform is overrides.get("affine_transform", False)
 
 
-def test_unfitted_transform_raises_and_save_is_not_ported():
+def test_unfitted_transform_raises_and_save_is_not_ported(tmp_path):
+    """An unfitted transport map raises on use, saves its config alone (and
+    loads back unfitted) and has no checkpoint payload; a fitted one saves
+    its map, which loads back exactly (HDF5, the JAX package's layout)."""
+    import h5py
+
+    from aspire_tpu_torch.transforms import BaseTransform
+
     t = FlowPreconditioningTransform(parameters=["a", "b"], device="cpu")
     for fn in (t.forward, t.inverse):
         with pytest.raises(RuntimeError, match="not fitted"):
             fn(torch.zeros((4, 2)))
-    with pytest.raises(NotImplementedError, match="HDF5"):
-        t.save(None)
-    with pytest.raises(NotImplementedError, match="HDF5"):
-        t._save_state(None)
+    assert t.checkpoint_payload() is None
+    fitted = FlowPreconditioningTransform(
+        parameters=["a", "b"], device="cpu", flow_backend="nsf",
+        flow_kwargs=dict(architecture="nsf", n_layers=2, n_hidden=(8, 8)),
+        fit_kwargs=dict(n_epochs=2))
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(256, 2)),
+                        dtype=torch.float32)
+    fitted.fit(x)
+    with h5py.File(tmp_path / "t.h5", "w") as f:
+        t.save(f, "unfitted")
+        fitted.save(f, "fitted")
+    with h5py.File(tmp_path / "t.h5", "r") as f:
+        back = BaseTransform.load(f, "unfitted")
+        loaded = BaseTransform.load(f, "fitted")
+    assert back._params is None and back.config_dict() == t.config_dict()
+    for a, b in zip(fitted.forward(x), loaded.forward(x)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -1,4 +1,6 @@
-"""aspire_tpu_torch imports and runs without JAX, h5py or optax."""
+"""aspire_tpu_torch imports and runs without JAX, h5py, matplotlib, pandas
+or optax: its SMC checkpoints and resumes in memory, and each file, plot or
+frame path raises ``ImportError`` naming the missing package."""
 
 import pathlib
 import re
@@ -10,7 +12,7 @@ PACKAGE = ROOT / "aspire_tpu_torch"
 
 _SCRIPT = """
 import sys
-for name in ("jax", "jaxlib", "h5py", "optax"):
+for name in ("jax", "jaxlib", "h5py", "optax", "matplotlib", "pandas"):
     sys.modules[name] = None
 import importlib, pkgutil
 import aspire_tpu_torch
@@ -19,15 +21,36 @@ for mod in pkgutil.walk_packages(aspire_tpu_torch.__path__, "aspire_tpu_torch.")
 import numpy as np, torch
 from aspire_tpu_torch import Aspire, Samples
 from aspire_tpu_torch.models import GaussianProblem
+from aspire_tpu_torch.samplers.base import Sampler
 p = GaussianProblem(dims=2)
 asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior, dims=2,
              n_hidden=(8, 8), n_layers=2, seed=0, device="cpu")
 asp.fit(Samples(p.draw_initial_samples(np.random.default_rng(0), 512)),
         n_epochs=2, batch_size=128)
-s = asp.sample_posterior(sampler="smc", n_samples=256,
-                         sampler_kwargs=dict(n_steps=2))
-assert np.isfinite(s.log_evidence)
-assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m]}
+run = dict(sampler="smc", n_samples=256, sampler_kwargs=dict(n_steps=2))
+states = []
+s = asp.sample_posterior(**run, checkpoint_callback=states.append)
+assert np.isfinite(s.log_evidence) and states
+mid = Sampler.serialize_checkpoint_state(states[0])
+r = asp.sample_posterior(**run, resume_from=mid)
+assert np.isfinite(r.log_evidence) and asp.sampler.history.beta[-1] == 1.0
+for fn, package in (
+        (lambda: asp.sample_posterior(**run, checkpoint_path="x.h5"), "h5py"),
+        (lambda: asp.sampler.sample(256, checkpoint_every=1,
+                                    checkpoint_file_path="x.h5"), "h5py"),
+        (lambda: Aspire.resume_from_file("x.h5", log_likelihood=None,
+                                         log_prior=None), "h5py"),
+        (lambda: s.plot_corner(), "matplotlib"),
+        (lambda: asp.sampler.history.plot(), "matplotlib"),
+        (lambda: s.to_dataframe(), "pandas")):
+    try:
+        fn()
+    except ImportError as err:
+        assert repr(package) in str(err), err
+    else:
+        raise AssertionError(f"no ImportError naming {package}")
+loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m]}
+assert not loaded & {"jax", "h5py", "matplotlib", "pandas"}, loaded
 print("ok")
 """
 
@@ -60,7 +83,7 @@ def test_port_sources_never_import_jax():
 
 _USER_SCRIPT = """
 import sys
-for name in ("jax", "jaxlib", "h5py", "optax"):
+for name in ("jax", "jaxlib", "h5py", "optax", "matplotlib", "pandas"):
     sys.modules[name] = None
 import numpy as np, torch
 torch.set_num_threads(1)

@@ -232,16 +232,29 @@ def test_standalone_samplers_on_the_bounded_gaussian(gaussian, run):
     _moments_hold(samples, walkers, kept)
 
 
-def test_unknown_step_fn_and_checkpoints_raise(gaussian):
+def test_unknown_step_fn_and_checkpoints_raise(gaussian, tmp_path):
+    """An unknown step function raises; a chain checkpoint writes the
+    finished data-space chain (before burn-in), as the JAX package's."""
     _, asp = gaussian
     with pytest.raises(ValueError, match="Unknown step function"):
         asp.sample_posterior(sampler="minipcn", n_samples=64, step_fn="rwmh")
     for sampler in ("minipcn", "emcee"):
-        with pytest.raises(NotImplementedError, match="HDF5"):
-            asp.sample_posterior(sampler=sampler, n_samples=64,
-                                 checkpoint_file_path="chain.h5")
-    # checkpoint_every <= 0 disables the checkpoint, as in the JAX package.
+        path = str(tmp_path / f"{sampler}.h5")
+        samples = asp.sample_posterior(sampler=sampler, n_samples=64,
+                                       n_steps=3, burn_in=1,
+                                       checkpoint_file_path=path)
+        chain, it = asp.sampler.load_chain_checkpoint(path)
+        assert chain.shape == (3, 64, asp.dims) and it == 3
+        np.testing.assert_array_equal(chain[1:].reshape(-1, asp.dims),
+                                      samples.x.numpy())
+    # checkpoint_every <= 0 disables the checkpoint, as in the JAX package
+    # (the facade's run file still gets its config and flow).
+    path = tmp_path / "off.h5"
     samples = asp.sample_posterior(sampler="emcee", n_samples=64, n_steps=2,
-                                   checkpoint_file_path="chain.h5",
+                                   checkpoint_path=str(path),
                                    checkpoint_every=0)
     assert samples.chain_shape == (2, 64)
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        assert "flow" in f and "checkpoint/mcmc_chain" not in f

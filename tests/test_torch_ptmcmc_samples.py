@@ -8,7 +8,7 @@ whose logL spans 1e19 and beside an all ``-inf`` rung); ``_bisect_pt_beta``,
 and pilot arrays; ``combine_replicates`` and the SMC and PT
 ``n_replicates`` tiers; every sampler's ``sample()`` parameter names
 against the JAX package's; ``sample_posterior``'s drop of keywords no
-sampler takes, and the unported checkpoint arguments raising.
+sampler takes, and the checkpoint arguments the port once refused.
 """
 
 import inspect
@@ -106,8 +106,17 @@ def test_pt_samples_methods_match_jax():
         np.testing.assert_array_equal(pt.swap_acceptance, swap)
     with pytest.raises(NotImplementedError, match="at_temperature"):
         t[0:3]
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        t.plot_ladder()
+    # The JAX package's ladder plot: two panels, the pairs and the rungs.
+    import matplotlib
+
+    matplotlib.use("Agg")
+    fig = t.plot_ladder()
+    assert len(fig.axes) == 2
+    np.testing.assert_array_equal(fig.axes[1].get_lines()[0].get_ydata(),
+                                  move)
+    import matplotlib.pyplot as plt
+
+    plt.close(fig)
 
 
 @pytest.mark.parametrize("burn_in_fraction", [0.1, None, 0.3])
@@ -385,27 +394,45 @@ def test_unknown_kwargs_are_dropped_with_the_jax_warning(fitted, caplog):
             "['store_sample_history']") in caplog.text
 
 
-def test_unported_checkpoint_arguments_raise(fitted):
+def test_unported_checkpoint_arguments_raise(fitted, tmp_path):
+    """The checkpoint arguments the port once refused are ported: SMC hands
+    states to ``checkpoint_callback``, writes ``checkpoint_file_path`` and
+    resumes from it; PT writes its chain and states and resumes from them;
+    the facade writes ``checkpoint_path``. A replicated run still refuses
+    them, and PT still needs ``n_steps >= swap_every``."""
     ll, lp = _gaussian_target()
     smc = PCNSMC(log_likelihood=ll, log_prior=lp, dims=4,
                  prior_flow=fitted.flow, device="cpu")
-    for name, value in (("checkpoint_callback", print),
-                        ("checkpoint_every", 2),
-                        ("checkpoint_file_path", "run.h5"),
-                        ("resume_from", "run.h5")):
-        with pytest.raises(NotImplementedError, match=f"{name} needs HDF5"):
-            smc.sample(64, **{name: value})
+    states = []
+    smc.sample(64, checkpoint_callback=states.append,
+               sampler_kwargs=dict(n_steps=2))
+    assert states[-1]["iteration"] == len(smc.history.beta)
+    run = str(tmp_path / "run.h5")
+    smc.sample(64, checkpoint_every=2, checkpoint_file_path=run,
+               sampler_kwargs=dict(n_steps=2))
+    smc.sample(64, resume_from=run, sampler_kwargs=dict(n_steps=2))
+    assert smc.history.beta[-1] == 1.0
+    with pytest.raises(ValueError, match="checkpoint_file_path"):
+        smc.sample(64, checkpoint_every=2)
+    with pytest.raises(ValueError, match="n_replicates"):
+        smc.sample(64, n_replicates=2, checkpoint_callback=print)
     pt = ParallelTemperedSampler(log_likelihood=ll, log_prior=lp, dims=4,
                                  prior_flow=fitted.flow, device="cpu")
-    for kw in (dict(checkpoint_file_path="run.h5"),
-               dict(state_checkpoint_every=2), dict(resume_from="run.h5")):
-        with pytest.raises(NotImplementedError, match="HDF5"):
-            pt.sample(64, n_steps=2, **kw)
-    for method in (pt.save_pt_state, pt.load_pt_state):
-        with pytest.raises(NotImplementedError, match="HDF5"):
-            method("run.h5")
+    pt_run = str(tmp_path / "pt.h5")
+    out = pt.sample(64, n_steps=2, checkpoint_file_path=pt_run,
+                    state_checkpoint_every=1)
+    chain, it = pt.load_chain_checkpoint(pt_run)
+    assert chain.shape == (*out.chain_shape, 4) and it == 2
+    assert pt.load_pt_state(pt_run)["rounds_done"] == 2
+    again = pt.sample(64, n_steps=2, resume_from=pt_run)
+    np.testing.assert_array_equal(again.x.numpy(), out.x.numpy())
     with pytest.raises(ValueError, match="at least swap_every"):
         pt.sample(64, n_steps=2, swap_every=3)
-    with pytest.raises(NotImplementedError, match="HDF5"):
-        fitted.sample_posterior(sampler="smc", n_samples=64,
-                                checkpoint_path="run.h5")
+    import h5py
+
+    fitted.sample_posterior(sampler="smc", n_samples=64,
+                            checkpoint_path=str(tmp_path / "facade.h5"),
+                            sampler_kwargs=dict(n_steps=2))
+    with h5py.File(tmp_path / "facade.h5", "r") as f:
+        assert {"aspire_config", "flow", "sampler_config",
+                "checkpoint"} <= set(f)
