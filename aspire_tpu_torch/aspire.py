@@ -372,6 +372,10 @@ class Aspire:
             self._write_run_file(checkpoint_path, policy, on_policy_file,
                                  config=checkpoint_save_config, after=True)
         samples.parameters = self.parameters
+        logger.info("Sampled %d samples from the posterior", len(samples))
+        logger.info("Number of likelihood evaluations: %s",
+                    self.n_likelihood_evaluations)
+        logger.info("Sample summary:\n%s", samples)
         if return_history:
             return samples, getattr(self._sampler, "history", None)
         return samples

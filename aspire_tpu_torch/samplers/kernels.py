@@ -519,6 +519,65 @@ def stretch_step(state: ChainState, generator, log_prob_fn: Callable,
                       n_evals=state.n_evals + n)
 
 
+def flow_imh_move(state: ChainState, x_prop, lq_prop, u, beta,
+                  target_fn: Callable, flow_log_prob: Callable,
+                  value_and_grad_fn: Callable | None = None) -> ChainState:
+    """Independence Metropolis move from the flow (the move of the JAX
+    package's ``_make_flow_imh_step``) on a given proposal: ``x_prop`` with
+    its flow density ``lq_prop`` (a draw of the flow) and the acceptance
+    uniforms ``u``. For the tempered target ``p_t ~ q^(1-beta) (L pi)^beta``
+    and the proposal ``q`` the log-acceptance is ``beta (log L pi' - lq') -
+    (log p_t(x) - lq(x))``: ``target_fn`` gives ``log pi + log L`` (NaN
+    taken as -inf), ``flow_log_prob`` the flow density of the current
+    points. A gradient kernel passes ``value_and_grad_fn``, which refreshes
+    the density and gradient of the whole batch after the move. The step
+    size is kept; the evaluations are n, plus n with the refresh."""
+    n, dtype = state.x.shape[0], state.x.dtype
+    x_prop, lq_prop = x_prop.to(dtype), lq_prop.to(dtype)
+    llpi_prop = target_fn(x_prop).to(dtype)
+    llpi_prop = torch.where(torch.isnan(llpi_prop),
+                            torch.full_like(llpi_prop, -math.inf), llpi_prop)
+    lq_cur = flow_log_prob(state.x).to(dtype)
+    log_alpha = beta * (llpi_prop - lq_prop) - (state.log_prob - lq_cur)
+    accept = torch.log(u) < log_alpha
+    x = torch.where(accept[:, None], x_prop, state.x)
+    lp_prop = ((1 - beta) * lq_prop + beta * llpi_prop).to(
+        state.log_prob.dtype)
+    log_prob = torch.where(accept, lp_prop, state.log_prob)
+    grad, extra = state.grad, n
+    if value_and_grad_fn is not None:
+        log_prob, grad = value_and_grad_fn(x)
+        extra += n
+    return ChainState(x=x, log_prob=log_prob, step_size=state.step_size,
+                      n_accept=state.n_accept + accept.to(dtype), grad=grad,
+                      n_evals=state.n_evals + extra)
+
+
+def mix_flow_moves(local_step: Callable, imh_step: Callable, generator,
+                   flow_moves: int) -> Callable:
+    """The JAX package's mixture of a local kernel with the flow's
+    independence move: each chain step is, for the whole population, the
+    move with probability ``1 / flow_moves`` and the local step otherwise.
+    The JAX package branches on its coin (``lax.cond``); a CUDA graph cannot
+    branch on a device value, so here every step runs both and keeps one
+    by a single coin on the device (``torch.where``): the same Markov
+    kernel, at the cost of both branches. The evaluation count adds the
+    kept branch's only. Draws per step, in order: the coin, the local
+    step's, the move's (``imh_step``'s flow draw, then its uniforms)."""
+    p_move = 1.0 / float(flow_moves)
+
+    def step(state: ChainState) -> ChainState:
+        move = _uniform(generator, (), state.x) < p_move
+        local, imh = local_step(state), imh_step(state)
+        return ChainState(**{
+            name: (None if getattr(local, name) is None else torch.where(
+                move, getattr(imh, name), getattr(local, name)))
+            for name in ("x", "log_prob", "step_size", "n_accept", "grad",
+                         "n_evals")})
+
+    return step
+
+
 def lag1_autocorr_time(s1, s2, c1, n_steps: int) -> torch.Tensor:
     """AR(1) integrated autocorrelation time from deviation sums."""
     m = n_steps + 1
@@ -547,29 +606,112 @@ def chain_mixing_ratio(x0, s1, s2, n_steps: int) -> torch.Tensor:
     return torch.clamp(torch.min(ratio), 0.0, 1.0)
 
 
+#: tau reported for a chain with no variance at all (frozen walkers): the
+#: AR(1) estimator's saturation at rho <= 0.9999
+_FROZEN_TAU = 2e4
+
+
+def sokal_tau_from_chain(chain: torch.Tensor, x0: torch.Tensor,
+                         c: float = 5.0) -> torch.Tensor:
+    """Windowed (Sokal) integrated autocorrelation time of a stored chain
+    (the JAX package's ``sokal_tau_from_chain``), on the device.
+
+    ``chain`` is ``(n_steps, n_walkers, d)``, ``x0`` the ``(n_walkers, d)``
+    start points, prepended as step 0; the deviations from ``x0`` keep
+    float32 sums safe far from the origin. Per walker and dimension the
+    autocovariance comes from a zero-padded FFT over the time axis
+    (``|rfft|^2``, then ``irfft``: the linear, not circular, lag sums), is
+    averaged over the walkers, and summed with the Sokal/Geyer window (the
+    smallest lag ``W >= c tau(W)``, else the longest); the worst dimension
+    is reported, a dimension with no variance at ``_FROZEN_TAU``, all
+    clipped to ``[1, _FROZEN_TAU]``. The JAX package rounds the spectrum's
+    product to ``complex64``; this keeps the chain's precision (float32
+    chains agree to float32 rounding, float64 ones to about 1e-6 relative).
+    """
+    dev = chain - x0[None]
+    dev = torch.cat([torch.zeros_like(dev[:1]), dev], dim=0)
+    m = dev.shape[0]
+    y = dev - torch.mean(dev, dim=0, keepdim=True)
+    nfft = 1
+    while nfft < 2 * m:
+        nfft *= 2
+    f = torch.fft.rfft(y, n=nfft, dim=0)
+    acov = torch.fft.irfft(f * f.conj(), n=nfft, dim=0)[:m]
+    g = torch.mean(acov, dim=1)  # walker-averaged, (m, d)
+    g0 = torch.clamp(g[0], min=1e-30)
+    taus = 1.0 + 2.0 * torch.cumsum(g[1:] / g0, dim=0)
+    lags = torch.arange(1, m, dtype=taus.dtype, device=taus.device)[:, None]
+    ok = lags >= c * taus
+    idx = torch.where(torch.any(ok, dim=0),
+                      torch.argmax(ok.to(torch.int8), dim=0),
+                      torch.full_like(g0, m - 2, dtype=torch.int64))
+    tau_dim = torch.gather(taus, 0, idx[None, :])[0]
+    tau_dim = torch.where(g[0] > 1e-30, tau_dim,
+                          torch.full_like(tau_dim, _FROZEN_TAU))
+    return torch.clamp(torch.max(tau_dim), 1.0, _FROZEN_TAU)
+
+
+def tau_walker_indices(n_walkers: int, tau_walkers: int,
+                       device=None) -> torch.Tensor:
+    """The strided walker subset a windowed tau is estimated on when the
+    chain is not stored: ``(arange(w) * n) // w`` with ``w = min(tau_walkers,
+    n)``, which spreads over the (resampled, roughly ancestor-sorted)
+    population for every ``(n, w)`` (a plain ``n // w`` stride is a
+    contiguous prefix when ``w <= n < 2w``)."""
+    w = max(1, min(int(tau_walkers), n_walkers))
+    return (torch.arange(w, device=device) * n_walkers) // w
+
+
+def pool_chain(chain: torch.Tensor) -> torch.Tensor:
+    """Every state of a stored ``(k, M, d)`` chain as one population,
+    ancestor-major (``(k, M, d) -> (M, k, d) -> (M k, d)``): waste-free
+    SMC's pooling, in the JAX package's order."""
+    return chain.transpose(0, 1).reshape(-1, chain.shape[-1])
+
+
 def run_chain(step_fn: Callable[[ChainState], ChainState],
-              state: ChainState, n_steps: int, store_chain: bool = False):
+              state: ChainState, n_steps: int, store_chain: bool = False,
+              windowed_tau: bool = False, tau_walkers: int | None = None):
     """Run ``n_steps`` steps, tracking the online AR(1)/mixing sums.
 
     Returns ``(final_state, ChainStats)``, and with ``store_chain`` the
     positions after every step, ``(n_steps, n, d)``, as a third value (the
     JAX package's ``store_chain=True``; its last step is the final state).
+    ``windowed_tau`` reports the windowed Sokal tau
+    (:func:`sokal_tau_from_chain`) instead of the AR(1) surrogate: from the
+    stored chain, or without one from the ``tau_walkers`` subset
+    (:func:`tau_walker_indices`), stored at every step.
     """
+    if windowed_tau and not (store_chain or tau_walkers):
+        raise ValueError("windowed_tau requires either store_chain=True or "
+                         "tau_walkers=<n>")
     x0 = state.x
     prev_d = torch.zeros_like(x0)
     s1, s2, c1 = prev_d.clone(), prev_d.clone(), prev_d.clone()
     chain = (torch.empty((n_steps, *x0.shape), dtype=x0.dtype,
                          device=x0.device) if store_chain else None)
+    sub_idx = sub_chain = None
+    if windowed_tau and not store_chain:
+        sub_idx = tau_walker_indices(x0.shape[0], tau_walkers, x0.device)
+        sub_chain = torch.empty((n_steps, len(sub_idx), x0.shape[1]),
+                                dtype=x0.dtype, device=x0.device)
     for i in range(n_steps):
         state = step_fn(state)
         if store_chain:
             chain[i] = state.x
+        if sub_idx is not None:
+            sub_chain[i] = state.x[sub_idx]
         delta = state.x - x0
         s1 = s1 + delta
         s2 = s2 + delta**2
         c1 = c1 + delta * prev_d
         prev_d = delta
-    stats = ChainStats(tau=lag1_autocorr_time(s1, s2, c1, n_steps),
+    if not windowed_tau:
+        tau = lag1_autocorr_time(s1, s2, c1, n_steps)
+    elif store_chain:
+        tau = sokal_tau_from_chain(chain, x0)
+    else:
+        tau = sokal_tau_from_chain(sub_chain, x0[sub_idx])
+    stats = ChainStats(tau=tau,
                        mixing=chain_mixing_ratio(x0, s1, s2, n_steps))
     return (state, stats, chain) if store_chain else (state, stats)
-

@@ -65,9 +65,9 @@ from . import kernels as K
 logger = logging.getLogger("aspire_tpu_torch")
 
 DEFAULT_BETA_TOLERANCE = 1e-8
-#: sampler_kwargs the JAX package reads and the port does not implement:
-#: each raises when set rather than being ignored
-UNPORTED_SAMPLER_KWARGS = ("waste_free", "windowed_tau", "flow_moves")
+#: walkers of the strided subset a windowed tau is estimated on when the
+#: chain is not stored (``sampler_kwargs["tau_walkers"]``)
+DEFAULT_TAU_WALKERS = 1024
 #: the rung flags the device ladder reads back after each rung, in order
 LADDER_FLAGS = ("it", "done", "stalled", "running", "nan_q", "nonfinite",
                 "nan_target", "chol_info")
@@ -331,6 +331,10 @@ class SMCSampler(Sampler):
         self._step_size_carry_fused = None
         self._lineage_fraction = 1.0
         self._last_chain_stats = None
+        self._last_waste_free = False
+        #: particle-steps of the mutations (a waste-free rung runs n / k
+        #: chains of k steps), the JAX package's profiler counter
+        self.particle_steps = 0
         self._kernel_target_value = _UNSET
         self.ladder = None
 
@@ -415,10 +419,14 @@ class SMCSampler(Sampler):
         view = self._make_view(x)
         return self.log_prior(view), self.log_likelihood(view)
 
-    def _fused_chain_spec(self, kwargs, n: int, dtype) -> dict | None:
+    def _fused_chain_spec(self, kwargs, n: int, dtype,
+                          waste_free: bool = False,
+                          windowed_tau: bool = False) -> dict | None:
         """Dispatch predicate for the whole-chain kernel (None -> split).
 
-        Mirrors the JAX package's ``_fused_chain_spec``: a coupling flow
+        Mirrors the JAX package's ``_fused_chain_spec``: no waste-free
+        pooling, windowed tau or flow moves (the kernel stores no chain and
+        has no flow draw), a coupling flow
         (a MAF always takes the split chain, on every device), float32, a
         data transform and a preconditioning transform (or none) that lower
         to programs (``FM.canonicalize_transform``: identity, affine,
@@ -432,7 +440,8 @@ class SMCSampler(Sampler):
         fit), and both lowered for the kernel (``blocks``), here, outside
         any CUDA graph capture.
         """
-        if kwargs.get("fused_chain", "auto") in (False, "off"):
+        if (kwargs.get("fused_chain", "auto") in (False, "off")
+                or waste_free or windowed_tau or kwargs.get("flow_moves")):
             return None
         arch = self.prior_flow.architecture
         if not isinstance(arch, Coupling):
@@ -500,11 +509,47 @@ class SMCSampler(Sampler):
         return Mutation(x, lq, lpi, ll, acceptance, tau, mixing, steps, info,
                         (n_steps + 1) * n)
 
-    def _mutate_split(self, z, beta, n_steps, step0, generator) -> Mutation:
+    def _make_flow_imh_step(self, local_step: Callable, log_prob_fn,
+                            beta, flow_moves: int, needs_grad: bool,
+                            generator) -> Callable:
+        """The local kernel mixed with the flow's independence move (the
+        JAX package's ``_make_flow_imh_step``; :func:`K.mix_flow_moves`):
+        the proposal is a fresh draw of the flow (its sampling pass, the
+        coupling kernel on a CUDA batch), scored by :func:`K.flow_imh_move`.
+        Runs without preconditioning, so the chain's space is the data
+        space."""
+        flow = self.prior_flow
+
+        def target_fn(x):
+            view = self._make_view(x)
+            return (torch.as_tensor(self.log_prior(view)).reshape(-1)
+                    + torch.as_tensor(self.log_likelihood(view)).reshape(-1))
+
+        vg = partial(value_and_grad_batch, log_prob_fn) if needs_grad else None
+
+        def imh_step(state):
+            n = state.x.shape[0]
+            x_prop, lq_prop = flow.sample_and_log_prob(n, generator=generator)
+            u = K._uniform(generator, n, state.x)
+            return K.flow_imh_move(state, x_prop, lq_prop, u, beta, target_fn,
+                                   flow.log_prob, vg)
+
+        return K.mix_flow_moves(local_step, imh_step, generator, flow_moves)
+
+    def _mutate_split(self, z, beta, n_steps, step0, generator,
+                      waste_free: bool = False,
+                      windowed_tau: bool = False) -> Mutation:
         """The per-step chain at ``beta`` from the step size ``step0``
         (<= 0 takes the initial step size), started from the densities and,
         for a gradient kernel, their gradients; then the densities
+        refreshed. ``sampler_kwargs["flow_moves"]`` mixes in the flow's
+        independence move; ``windowed_tau`` records the windowed Sokal tau
+        (from ``tau_walkers`` walkers unless the chain is stored);
+        ``waste_free`` runs ``z``'s M chains, stores them and pools every
+        state, ancestor-major (``(k, M, d) -> (M, k, d) -> (M k, d)``, the
+        JAX package's order), as the population whose densities are
         refreshed."""
+        kwargs = self._mutation_kwargs()
         ref, info = K.gaussian_reference_info(z)
 
         def log_prob_fn(zz):
@@ -512,6 +557,10 @@ class SMCSampler(Sampler):
 
         step_fn, init_step, needs_grad = self._kernel_step_builder(
             log_prob_fn, ref, generator)
+        if kwargs.get("flow_moves"):
+            step_fn = self._make_flow_imh_step(
+                step_fn, log_prob_fn, beta, int(kwargs["flow_moves"]),
+                needs_grad, generator)
         if needs_grad:
             lp, grad = value_and_grad_batch(log_prob_fn, z)
         else:
@@ -520,8 +569,13 @@ class SMCSampler(Sampler):
             x=z, log_prob=lp,
             step_size=torch.where(step0 > 0, step0, float(init_step)),
             n_accept=torch.zeros_like(z[:, 0]), grad=grad)
-        final, stats = K.run_chain(step_fn, state, n_steps)
-        x, _ = self.invert_preconditioning(final.x)
+        final, stats, *chain = K.run_chain(
+            step_fn, state, n_steps, store_chain=waste_free,
+            windowed_tau=windowed_tau,
+            tau_walkers=int(kwargs.get("tau_walkers")
+                            or DEFAULT_TAU_WALKERS))
+        z_out = K.pool_chain(chain[0]) if waste_free else final.x
+        x, _ = self.invert_preconditioning(z_out)
         log_q = self.prior_flow.log_prob(x)
         log_pi = self.evaluate_log_prior(x)
         view = self._make_view(x)
@@ -531,6 +585,17 @@ class SMCSampler(Sampler):
                         stats.mixing, final.step_size, info,
                         final.n_evals + z.shape[0] + x.shape[0])
 
+    def _chain_options(self, kwargs: dict, waste_free=None,
+                       windowed_tau=None) -> tuple[bool, bool]:
+        """``(waste_free, windowed_tau)`` of a mutation: the arguments where
+        given, else ``sampler_kwargs``; waste-free pooling stores the chain,
+        so it records the windowed tau, as in the JAX package."""
+        if waste_free is None:
+            waste_free = bool(kwargs.get("waste_free", False))
+        if windowed_tau is None:
+            windowed_tau = bool(kwargs.get("windowed_tau", False)) or waste_free
+        return waste_free, windowed_tau
+
     def _mutation_kwargs(self) -> dict:
         kwargs = dict(self.default_sampler_kwargs)
         kwargs.update(self.sampler_kwargs or {})
@@ -538,17 +603,44 @@ class SMCSampler(Sampler):
 
     @torch.no_grad()
     def mutate(self, samples: SMCSamples, beta: float,
-               n_steps: int | None = None) -> SMCSamples:
+               n_steps: int | None = None, waste_free: bool | None = None,
+               windowed_tau: bool | None = None) -> SMCSamples:
         """Fit the preconditioning, run the chain at ``beta``, and return
         the mutated particles with refreshed densities. Autograd is off
         (as in the device ladder's body): no density holds a graph over a
         chain, a CNF's 64 ODE steps included; a gradient kernel turns it
         on for its own evaluations (:func:`value_and_grad_batch`) and a
-        flow preconditioning's fit for its training."""
+        flow preconditioning's fit for its training.
+
+        ``waste_free`` and ``windowed_tau`` default to ``sampler_kwargs``'
+        (:meth:`_chain_options`). As in the JAX package, waste-free pooling
+        needs a target a CUDA graph can capture, a windowed tau on any
+        other target falls back to the AR(1) surrogate with a warning, and
+        ``flow_moves`` needs such a target and no preconditioning."""
         kwargs = self._mutation_kwargs()
         n_steps = int(n_steps or kwargs.get("n_steps") or 5 * self.dims)
+        waste_free, windowed_tau = self._chain_options(kwargs, waste_free,
+                                                       windowed_tau)
+        if kwargs.get("flow_moves"):
+            if self.preconditioning_transform is not None:
+                raise ValueError(
+                    "flow_moves independence steps propose in the flow's own "
+                    "space; run with preconditioning=None.")
+            if not self.target_is_capturable():
+                raise ValueError("flow_moves requires a target a CUDA graph "
+                                 "can capture (see target_is_capturable).")
+        if waste_free and not self.target_is_capturable():
+            raise ValueError("waste_free mutation requires a target a CUDA "
+                             "graph can capture (see target_is_capturable).")
+        if windowed_tau and not self.target_is_capturable():
+            logger.warning(
+                "windowed_tau requires a target a CUDA graph can capture to "
+                "store the mutation chains; recording the AR(1) surrogate "
+                "tau instead.")
+            windowed_tau = False
         z = self.fit_preconditioning_transform(samples.x)
-        spec = self._fused_chain_spec(kwargs, z.shape[0], z.dtype)
+        spec = self._fused_chain_spec(kwargs, z.shape[0], z.dtype, waste_free,
+                                      windowed_tau)
         unset = dict(dtype=z.dtype, device=z.device)
         if spec is not None:
             carry, nt = self._step_size_carry_fused, z.shape[0] // FM.TILE
@@ -562,7 +654,8 @@ class SMCSampler(Sampler):
             carry = self._step_size_carry
             step0 = carry if carry is not None else torch.full((), -1.0,
                                                                **unset)
-            m = self._mutate_split(z, beta, n_steps, step0, self.generator)
+            m = self._mutate_split(z, beta, n_steps, step0, self.generator,
+                                   waste_free, windowed_tau)
             self._step_size_carry = m.step
             route = "split"
         (acceptance, tau, mixing, nan_q, nonfinite, nan_target,
@@ -575,6 +668,7 @@ class SMCSampler(Sampler):
         self.history.mutation_route.append(route)
         self.history.nonfinite_target.append(int(nonfinite))
         self._last_chain_stats = (tau, mixing)
+        self._last_waste_free = waste_free
         raise_mutation_faults(nan_q, nan_target, info)
         new = SMCSamples(x=m.x, beta=beta, dtype=self.dtype,
                          parameters=self.parameters, device=self.device)
@@ -597,6 +691,10 @@ class SMCSampler(Sampler):
         rho = max((tau - 1.0) / (tau + 1.0), 0.0)
         recovered = (1.0 - rho ** (2 * k)) * mixing
         self._lineage_fraction += (1.0 - self._lineage_fraction) * recovered
+        if self._last_waste_free:
+            # The pooled chain states hold at most ~k / tau effectively
+            # independent draws per ancestor.
+            self._lineage_fraction /= max(min(tau, k), 1.0)
 
     # -- the device ladder ---------------------------------------------------
 
@@ -632,9 +730,13 @@ class SMCSampler(Sampler):
         kernel, None: the split chain), the lineage recursion, the history
         buffers at index ``it`` and the flags. The new state is copied into
         the state's own tensors, so a CUDA graph of the body reads and
-        writes the same memory on every replay; nothing reads back."""
+        writes the same memory on every replay; nothing reads back.
+        Waste-free SMC resamples n / k ancestors and pools their chains
+        back to the n rows of the state, so the graph keeps its shapes."""
         resampler = get_resampler(self.resampling_method)
         adaptive_min_step = self.adaptive_min_beta_step
+        waste_free, windowed_tau = self._chain_options(
+            self._mutation_kwargs())
 
         def body(s: dict) -> None:
             with torch.no_grad():
@@ -651,7 +753,8 @@ class SMCSampler(Sampler):
                 stalled = beta <= beta_prev
                 log_w = incremental_log_weights(s["lq"], s["ll"], s["lpi"],
                                                 beta_prev, beta)
-                x_r = s["x"][resampler(generator, log_w, n)]
+                n_chains = n // n_steps if waste_free else n
+                x_r = s["x"][resampler(generator, log_w, n_chains)]
                 f_lin = torch.clamp(
                     s["f_lin"] * torch.clamp(ess.double(), min=1.0) / n,
                     min=1.0 / n, max=1.0)
@@ -660,11 +763,15 @@ class SMCSampler(Sampler):
                                            s["step"], generator)
                 else:
                     m = self._mutate_split(x_r, beta, n_steps, s["step"],
-                                           generator)
+                                           generator, waste_free,
+                                           windowed_tau)
                 tau, mixing = m.tau.double(), m.mixing.double()
                 rho = torch.clamp((tau - 1.0) / (tau + 1.0), min=0.0)
                 f_lin = f_lin + (1.0 - f_lin) * (
                     (1.0 - rho ** (2 * n_steps)) * mixing)
+                if waste_free:
+                    f_lin = f_lin / torch.clamp(
+                        torch.clamp(tau, max=float(n_steps)), min=1.0)
                 i = s["it"]
                 for name, v in zip(LADDER_HISTORY, (
                         beta, ess, ess1, ratio, var.double() / s["f_lin"],
@@ -824,7 +931,8 @@ class SMCSampler(Sampler):
         kwargs = self._mutation_kwargs()
         n_steps = int(kwargs.get("n_steps") or 5 * self.dims)
         n = len(samples)
-        spec = self._fused_chain_spec(kwargs, n, samples.x.dtype)
+        spec = self._fused_chain_spec(kwargs, n, samples.x.dtype,
+                                      *self._chain_options(kwargs))
         route = "fused_kernel" if spec is not None else "split"
         ladder = self._device_ladder(samples, spec, n_steps, max_iters)
         self.ladder = ladder
@@ -859,6 +967,8 @@ class SMCSampler(Sampler):
             if ladder.on_card and ladder.graph is None:
                 ladder.capture()
         beta = self._finish_ladder(ladder, it)
+        self.particle_steps += it * n_steps * (
+            n // n_steps if self._chain_options(kwargs)[0] else n)
         if flags["stalled"]:
             raise BetaScheduleError(
                 "Device ladder stalled: beta did not increase. Consider "
@@ -1011,10 +1121,6 @@ class SMCSampler(Sampler):
                 device_ladder_max_iters=device_ladder_max_iters))
         self.sampler_kwargs = dict(self.default_sampler_kwargs)
         self.sampler_kwargs.update(sampler_kwargs or {})
-        for name in UNPORTED_SAMPLER_KWARGS:
-            if self.sampler_kwargs.get(name):
-                raise NotImplementedError(
-                    f"sampler_kwargs[{name!r}] is not ported")
         if store_sample_history is None:
             # One host copy of the population per temperature: by default
             # only at plot sizes, as in the JAX package.
@@ -1023,6 +1129,7 @@ class SMCSampler(Sampler):
         self._step_size_carry = None
         self._step_size_carry_fused = None
         self._lineage_fraction = 1.0
+        self._last_waste_free = False
         self._kernel_target_value = _UNSET
         self.ladder = None
 
@@ -1049,6 +1156,21 @@ class SMCSampler(Sampler):
                 raise ValueError(
                     f"{name.replace('_', ' ').capitalize()} contains NaN "
                     "values")
+        waste_free = bool(self.sampler_kwargs.get("waste_free", False))
+        k_steps = int(self.sampler_kwargs.get("n_steps") or 5 * self.dims)
+        if waste_free:
+            if not self.target_is_capturable():
+                raise ValueError(
+                    "waste_free SMC requires a target a CUDA graph can "
+                    "capture (the pooled chain states are gathered on the "
+                    "device; see target_is_capturable).")
+            if len(samples) % k_steps:
+                raise ValueError(
+                    "waste_free SMC pools k * (n/k) states back into the "
+                    f"population: n_samples ({len(samples)}) must be "
+                    f"divisible by the mutation n_steps ({k_steps}); got "
+                    f"remainder {len(samples) % k_steps}. Adjust n_samples "
+                    "or sampler_kwargs['n_steps'].")
 
         self.target_efficiency = target_efficiency
         self.target_efficiency_rate = target_efficiency_rate
@@ -1157,11 +1279,17 @@ class SMCSampler(Sampler):
             logger.info("it %d - beta %.6g, ESS %.1f, log ratio %.3f",
                         iterations, beta, ess, ratio)
             n_before = len(samples)
-            samples = samples.resample(beta, self.generator,
-                                       method=self.resampling_method)
+            # Waste-free SMC (Dau & Chopin 2020) resamples M = n/k
+            # ancestors; the mutation pools their k-step chains back to n.
+            samples = samples.resample(
+                beta, self.generator,
+                n_samples=max(n_before // k_steps, 1) if waste_free else None,
+                method=self.resampling_method)
             self._update_lineage_after_resample(ess, n_before)
             samples = self.mutate(samples, beta)
             self._update_lineage_after_mutation()
+            self.particle_steps += k_steps * (
+                len(samples) // k_steps if waste_free else len(samples))
             if store_sample_history:
                 self.history.sample_history.append(samples.to_numpy())
             maybe_checkpoint()
@@ -1179,7 +1307,15 @@ class SMCSampler(Sampler):
             final = samples.resample(1.0, self.generator,
                                      n_samples=n_final_samples,
                                      method=self.resampling_method)
-            samples = self.mutate(final, 1.0, n_steps=n_final_steps)
+            # The returned samples' recorded tau: the windowed estimate on
+            # a capturable target (from the tau_walkers subset, affordable
+            # at any n), as in the JAX package; an explicit windowed_tau
+            # wins either way.
+            user_tau = self.sampler_kwargs.get("windowed_tau")
+            samples = self.mutate(
+                final, 1.0, n_steps=n_final_steps, waste_free=False,
+                windowed_tau=(bool(user_tau) if user_tau is not None
+                              else self.target_is_capturable()))
 
         samples.log_evidence = float(np.sum(self.history.log_norm_ratio))
         samples.log_evidence_error = float(

@@ -189,6 +189,10 @@ class BaseSamples:
     def __getitem__(self, idx):
         return self.__class__(**self._fields(idx))
 
+    def __str__(self) -> str:
+        return (f"No. samples: {len(self.x)}\n"
+                f"No. parameters: {self.x.shape[-1]}\n")
+
     def to_numpy(self) -> "BaseSamples":
         """A host copy: every tensor field as a numpy array (the JAX
         package's ``to_numpy``)."""
@@ -341,6 +345,8 @@ class Samples(BaseSamples):
     log_evidence_error: Any = None
     log_w: Any = field(init=False, default=None)
     weights: Any = field(init=False, default=None)
+    evidence: Any = field(init=False, default=None)
+    evidence_error: Any = field(init=False, default=None)
     effective_sample_size: Any = field(init=False, default=None)
 
     def __post_init__(self):
@@ -350,11 +356,14 @@ class Samples(BaseSamples):
             self.compute_weights()
 
     def compute_weights(self) -> None:
-        """log_w = logL + logPi - log_q; evidence, delta-method error, ESS."""
+        """log_w = logL + logPi - log_q; evidence, delta-method error, ESS.
+        The relative error is computed in max-shifted space, so it does not
+        underflow float32 at a large ``|log Z|``."""
         self.log_w = self.log_likelihood + self.log_prior - self.log_q
         n = len(self.x)
         self.log_evidence = logsumexp(self.log_w) - math.log(n)
         self.weights = torch.exp(self.log_w)
+        self.evidence = torch.exp(self.log_evidence)
         m = torch.max(self.log_w)
         u = torch.exp(torch.clamp(self.log_w - m, max=0.0))
         u_mean = torch.mean(u)
@@ -362,6 +371,7 @@ class Samples(BaseSamples):
         self.log_evidence_error = torch.where(
             u_mean > 0, sigma_u / u_mean, torch.full_like(u_mean, math.inf)
         )
+        self.evidence_error = self.log_evidence_error * self.evidence
         self.effective_sample_size = effective_sample_size(self.log_w - m)
 
     @property
@@ -373,6 +383,30 @@ class Samples(BaseSamples):
     @property
     def scaled_weights(self):
         return torch.exp(self.log_w - torch.max(self.log_w))
+
+    def rejection_sample(self, generator: torch.Generator | None = None,
+                         rng=None) -> "Samples":
+        """Unweighted samples by rejection: row i is kept where
+        ``log_w_i - max log_w > log u_i``. The uniforms are drawn on the
+        samples' device from ``generator``, or else on the host from the
+        numpy ``rng`` (``rng.uniform(size=n)`` in the weights' dtype, so a
+        seed keeps the rows the JAX package keeps). The accept mask stays on
+        the device."""
+        n = len(self.x)
+        if generator is not None:
+            log_u = torch.log(torch.rand(n, generator=generator,
+                                         dtype=self.log_w.dtype,
+                                         device=self.log_w.device))
+        else:
+            rng = rng or np.random.default_rng()
+            log_u = torch.as_tensor(np.log(rng.uniform(size=n)),
+                                    dtype=self.log_w.dtype,
+                                    device=self.log_w.device)
+        accept = self.log_w - torch.max(self.log_w) > log_u
+        return self.__class__(
+            x=self.x[accept], log_likelihood=self.log_likelihood[accept],
+            log_prior=self.log_prior[accept], dtype=self.dtype,
+            parameters=self.parameters, device=self.device)
 
     def plot_corner(self, include_weights: bool = True, **kwargs):
         kwargs = copy.deepcopy(kwargs)
@@ -386,6 +420,19 @@ class Samples(BaseSamples):
         sliced.log_evidence = self.log_evidence
         sliced.log_evidence_error = self.log_evidence_error
         return sliced
+
+    def __str__(self) -> str:
+        out = super().__str__()
+        if self.log_evidence is not None:
+            out += f"Log evidence: {float(self.log_evidence):.2f}"
+            if self.log_evidence_error is not None:
+                out += f" +/- {float(self.log_evidence_error):.2f}"
+            out += "\n"
+        if self.log_w is not None:
+            out += (f"Effective sample size: "
+                    f"{float(self.effective_sample_size):.1f}\n"
+                    f"Efficiency: {float(self.efficiency):.2f}\n")
+        return out
 
 
 @dataclass
@@ -474,6 +521,12 @@ class SMCSamples(BaseSamples):
         sliced.log_evidence = self.log_evidence
         sliced.log_evidence_error = self.log_evidence_error
         return sliced
+
+    def __str__(self) -> str:
+        out = super().__str__()
+        if self.log_evidence is not None:
+            out += f"Log evidence: {float(self.log_evidence):.2f}\n"
+        return out
 
 
 @dataclass

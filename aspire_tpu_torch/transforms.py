@@ -144,6 +144,9 @@ class IdentityTransform(BaseTransform):
 class PeriodicTransform(BaseTransform):
     """Wrap values into ``[lower, upper)`` with zero Jacobian."""
 
+    name = "periodic"
+    requires_prior_bounds = True
+
     def __init__(self, lower, upper, dtype: Any = None, device="cpu"):
         super().__init__(dtype=dtype, device=device)
         self.lower = self._as(lower)
@@ -174,13 +177,20 @@ class PeriodicTransform(BaseTransform):
 class BoundedTransform(BaseTransform):
     """Linear map ``[lower, upper] <-> [0, 1]``; subclasses unbound it."""
 
+    name = "bounded"
+    requires_prior_bounds = True
+
     def __init__(self, lower, upper, eps: float = 1e-6, dtype: Any = None,
                  device="cpu"):
         super().__init__(dtype=dtype, device=device)
         self.lower = torch.atleast_1d(self._as(lower))
         self.upper = torch.atleast_1d(self._as(upper))
         self.eps = eps
-        if bool(torch.any((self.upper - self.lower) == 0.0)):
+        self.interval_check(self.lower, self.upper)
+
+    def interval_check(self, lower, upper) -> None:
+        """Raise where a range is empty at the transform's precision."""
+        if bool(torch.any((upper - lower) == 0.0)):
             raise ValueError(
                 f"Current floating precision ({self.dtype}) is too small "
                 "for specified parameter ranges"
@@ -215,6 +225,8 @@ class BoundedTransform(BaseTransform):
 
 @register_transform
 class ProbitTransform(BoundedTransform):
+    name = "probit"
+
     def forward(self, x):
         y, log_j_unit = self.to_unit_interval(x)
         y = torch.clamp(y, self.eps, 1.0 - self.eps)
@@ -231,6 +243,8 @@ class ProbitTransform(BoundedTransform):
 
 @register_transform
 class LogitTransform(BoundedTransform):
+    name = "logit"
+
     def forward(self, x):
         y, log_j_unit = self.to_unit_interval(x)
         y = torch.clamp(y, self.eps, 1.0 - self.eps)
@@ -250,12 +264,16 @@ class LogitTransform(BoundedTransform):
 class AffineTransform(BaseTransform):
     """Whitening fit to the data's mean and (population) std."""
 
+    name = "affine"
+    requires_prior_bounds = False
+
     def __init__(self, dtype: Any = None, device="cpu"):
         super().__init__(dtype=dtype, device=device)
         self._mean = None
         self._std = None
 
-    def _log_j(self):
+    @property
+    def log_abs_det_jacobian(self) -> torch.Tensor:
         return -torch.log(torch.abs(self._std)).sum()
 
     def fit(self, x):
@@ -266,12 +284,12 @@ class AffineTransform(BaseTransform):
 
     def forward(self, x):
         y = (x - self._mean) / self._std
-        return y, self._log_j() * torch.ones(
+        return y, self.log_abs_det_jacobian * torch.ones(
             y.shape[0], dtype=y.dtype, device=y.device)
 
     def inverse(self, y):
         x = y * self._std + self._mean
-        return x, -self._log_j() * torch.ones(
+        return x, -self.log_abs_det_jacobian * torch.ones(
             y.shape[0], dtype=y.dtype, device=y.device)
 
     def _fitted_arrays(self) -> dict:
@@ -367,6 +385,18 @@ class CompositeTransform(BaseTransform):
         self._periodic_index, self._bounded_index = (
             torch.as_tensor(np.flatnonzero(m), device=self.device)
             for m in (self._periodic_mask, self._bounded_mask))
+
+    @property
+    def prior_bounds(self):
+        return self._prior_bounds_config
+
+    @property
+    def periodic_mask(self) -> torch.Tensor:
+        return torch.as_tensor(self._periodic_mask, device=self.device)
+
+    @property
+    def bounded_mask(self) -> torch.Tensor:
+        return torch.as_tensor(self._bounded_mask, device=self.device)
 
     @property
     def is_identity(self) -> bool:

@@ -1,4 +1,5 @@
-"""Dtype/device resolution and converters from the JAX package's state.
+"""Logger configuration, dtype/device resolution and converters from the
+JAX package's state.
 
 The port never imports JAX. The converters take the JAX package's flow
 parameter pytree (nested dicts of arrays) and its fitted transform
@@ -11,10 +12,42 @@ from __future__ import annotations
 import dataclasses
 import functools
 import importlib
+import logging
+import sys
 from typing import Any, Callable
 
 import numpy as np
 import torch
+
+def configure_logger(level: str | int = "INFO", log_file: str | None = None,
+                     include_ecosystem: bool = True) -> logging.Logger:
+    """Configure the ``aspire_tpu_torch`` logger (the JAX package's
+    ``configure_logger``): a stream handler on stdout at ``level``, and a
+    file handler with ``log_file``. With ``include_ecosystem`` every logger
+    whose name starts with ``aspire_tpu_torch_`` gets ``level`` and
+    propagates into the package logger, so plugins share the
+    configuration."""
+    if isinstance(level, str):
+        level = getattr(logging, level.upper())
+    pkg_logger = logging.getLogger("aspire_tpu_torch")
+    pkg_logger.setLevel(level)
+    fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s",
+                            "%H:%M:%S")
+    handlers = [logging.StreamHandler(sys.stdout)]
+    if log_file is not None:
+        handlers.append(logging.FileHandler(log_file))
+    for handler in handlers:
+        handler.setFormatter(fmt)
+        handler.setLevel(level)
+        pkg_logger.addHandler(handler)
+    if include_ecosystem:
+        for name in list(logging.root.manager.loggerDict):
+            if name.startswith("aspire_tpu_torch_"):
+                eco = logging.getLogger(name)
+                eco.setLevel(level)
+                eco.propagate = True
+    return pkg_logger
+
 
 _DTYPES = {
     "float32": torch.float32,

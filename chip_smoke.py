@@ -1812,15 +1812,20 @@ def ladder_turns(asp, run: dict, need: dict, truth: float | None = None,
     and each pass ``check_result`` when ``truth`` is given. On the card
     every run of a ladder must give the population its first run gave
     (one seed repeats a run: the resampling sums in a fixed order);
-    whether the two ladders give one population is reported.
+    whether the two ladders give one population is reported, and per run
+    (``per_run``) its ladder, rungs, B3 launches, evaluations and the range
+    of its recorded taus.
     ``warm=False`` when the caller's own run was the device ladder's
     warm-up; ``turns``, fewer turns for a long run (the medians then of
     fewer walls)."""
     import torch
 
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
     runs = (["device", "host"] if warm else []) + list(turns)
     walls = {"device": [], "host": []}
     last, first, repeats = {}, {}, {"device": True, "host": True}
+    per_run = []
     on_card = asp.device.type == "cuda"
     for i, ladder in enumerate(runs):
         replays = {id(v[1]): v[1].replays for v in asp.ladder_cache.values()}
@@ -1837,6 +1842,11 @@ def ladder_turns(asp, run: dict, need: dict, truth: float | None = None,
         if i >= len(runs) - len(turns):
             walls[ladder].append(wall)
         lad, rungs = asp.sampler.ladder, len(hist.beta)
+        per_run.append({"ladder": ladder, "rungs": rungs,
+                        "b3": FC.sampling_launches.count,
+                        "evaluations": asp.sampler.n_likelihood_evaluations,
+                        "tau_range": [min(hist.mcmc_autocorr),
+                                      max(hist.mcmc_autocorr)]})
         log(f"{ladder} ladder run {i}: {wall:.4f} s, {rungs} rungs"
             + (f", {lad.replays - replays.get(id(lad), 0)} replays"
                f"{'' if id(lad) in replays else ' (captured)'}"
@@ -1881,7 +1891,7 @@ def ladder_turns(asp, run: dict, need: dict, truth: float | None = None,
            "log_z": dpost.log_evidence, "log_z_err": dpost.log_evidence_error,
            "host_log_z": hpost.log_evidence,
            "host_log_z_err": hpost.log_evidence_error, "tolerance": tol,
-           "runs_repeat": repeats,
+           "runs_repeat": repeats, "per_run": per_run,
            "ladders_agree_bitwise": torch.equal(first["device"],
                                                 first["host"])}
     log(f"ladders in turns: {out}")
@@ -3288,8 +3298,8 @@ def phase_gradient_samplers(device, n_anchor: int, n_pipeline: int) -> dict:
     for name, (kw, per_rung) in GRADIENT_PIPELINES.items():
         run = dict(sampler=name, n_samples=n_pipeline,
                    store_sample_history=False, sampler_kwargs=kw)
-        # Four turns for the gradient chains (seconds a run), six else.
-        turns = (("device", "host", "host", "device")
+        # Two turns for the gradient chains (seconds a run), six else.
+        turns = (("device", "host")
                  if name in ("mala_smc", "hmc_smc") else
                  ("device", "host", "host", "device", "device", "host"))
         ladders = ladder_turns(asp, run, {k: v for k, v in per_rung.items()
@@ -3390,6 +3400,287 @@ def rwmh_kernel_row(gradient: dict, b2_bound: dict) -> dict:
         **b2_bound, "library_ms": None}
 
 
+#: ``benchmarks/validate.py``'s last SMC rows (:42-51) and the waste-free
+#: run of ``examples/evidence_example.py`` (:83), on the 4-d mixture at
+#: N_VALIDATE: label -> (sampler, sample_posterior keywords)
+SMC_OPTION_ROWS = {
+    "smc+windowed_tau": ("smc", {"sampler_kwargs": {
+        "n_steps": 20, "windowed_tau": True}}),
+    "mala_smc+jackknife5": ("mala_smc", {"sampler_kwargs": {"n_steps": 10},
+                                         "n_replicates": 5}),
+    "mala_smc+flow_moves+jackknife5": ("mala_smc", {"sampler_kwargs": {
+        "n_steps": 10, "flow_moves": 5}, "n_replicates": 5}),
+    "smc+waste_free": ("smc", {"sampler_kwargs": {
+        "n_steps": 16, "waste_free": True}}),
+}
+
+#: the options' N_PIPELINE pipelines on the mixture (tpCN, both ladders in
+#: turns) and the launches a rung captures that follow from the code: B1
+#: once for the chain's start, once per step (the target's tempered
+#: density) and once for the refresh, plus per flow move step one B1 (the
+#: current points' flow density) and one B3 (the proposal, counted under
+#: "coupling" too and alone under "b3"); B2 never
+SMC_OPTION_PIPELINES = {
+    "waste_free": ({"n_steps": 16, "waste_free": True},
+                   {"coupling": 18, "chain": 0, "maf": 0, "b3": 0}),
+    "windowed_tau": ({"n_steps": 20, "windowed_tau": True},
+                     {"coupling": 22, "chain": 0, "maf": 0, "b3": 0}),
+    "flow_moves": ({"n_steps": 10, "flow_moves": 5},
+                   {"coupling": 32, "chain": 0, "maf": 0, "b3": 10}),
+}
+
+#: the waste-free/standard evaluation ratio's ceiling
+#: (``tests/test_integration.py:735``)
+WASTE_FREE_EVAL_RATIO = 0.4
+
+
+def captured_b3(ladder) -> int:
+    """The B3 launches ``ladder``'s capture counted (``FC.sampling_launches``,
+    also inside ``captured_launches``' coupling count)."""
+    from aspire_tpu_torch.ops import _build
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    return ladder.captured[_build.LaunchCounter.made.index(
+        FC.sampling_launches)]
+
+
+def smc_option_row(asp, label: str, truth: float, n: int) -> dict:
+    """One of ``SMC_OPTION_ROWS`` at n on ``asp``'s default path, gated by
+    ``benchmarks/validate.py``'s rule (``check_result``; a replicated row
+    on its combined log Z and error): its log Z, walls, routes, launches
+    (B3 alone under "b3") and evaluations."""
+    import torch
+
+    sampler, kw = SMC_OPTION_ROWS[label]
+    sync = torch.cuda.synchronize if asp.device.type == "cuda" else (
+        lambda: None)
+    reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    post = asp.sample_posterior(sampler=sampler, n_samples=n,
+                                store_sample_history=False, **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    hist = asp.sampler.history
+    out = {"log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
+           "truth": truth, "wall_s": wall, "rungs": len(hist.beta),
+           "routes": sorted(set(hist.mutation_route)),
+           "launches": {**launch_counts(), "b3": sampling_launches()},
+           "evaluations": asp.sampler.n_likelihood_evaluations,
+           "ladder": "device" if asp.sampler.ladder is not None else "host",
+           "tau_range": [min(hist.mcmc_autocorr), max(hist.mcmc_autocorr)],
+           "replicates": None}
+    reps = getattr(post, "log_evidence_replicates", None)
+    if reps is not None:
+        out["replicates"] = [float(v) for v in reps]
+    log(f"{label} at n={n}: {out}")
+    if out["routes"] != ["split"] or out["launches"]["chain"]:
+        raise AssertionError(f"{label}: mutations off the split route: {out}")
+    if not 1.0 <= out["tau_range"][0] <= out["tau_range"][1] <= 2e4:
+        raise AssertionError(f"{label}: a tau out of [1, 2e4]: {out}")
+    check_result(post, n, truth, asp.dims)
+    return out
+
+
+def flow_move_cost(asp, n: int) -> dict:
+    """What the flow moves cost a rung: the device ladder's replays of the
+    flow-move pipeline against the same 10-step tpCN split chain without
+    them (``fused_chain=False``). The ladder cache holds one graph, so the
+    two take blocks in turns (on, off, off, on), each block a run that
+    captures its graph and two timed runs that replay it; medians of the 4
+    walls of each (host clock to ``torch.cuda.synchronize()``), and the
+    seconds a rung more."""
+    import torch
+
+    kw = SMC_OPTION_PIPELINES["flow_moves"][0]
+    runs = {"on": kw, "off": {"n_steps": kw["n_steps"], "fused_chain": False}}
+    walls, rungs = {"on": [], "off": []}, {}
+    for name in ("on", "off", "off", "on"):
+        for timed_run in (False, True, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, hist = asp.sample_posterior(
+                sampler="smc", n_samples=n, store_sample_history=False,
+                sampler_kwargs=runs[name], return_history=True)
+            torch.cuda.synchronize()
+            if timed_run:
+                walls[name].append(time.perf_counter() - t0)
+            rungs[name] = len(hist.beta)
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    out = {"on_s": med["on"], "off_s": med["off"], "walls": walls,
+           "rungs": rungs, "per_rung_s": med["on"] / rungs["on"]
+           - med["off"] / rungs["off"]}
+    log(f"flow moves' cost at n={n}: {out}")
+    return out
+
+
+def phase_smc_options(device, n_rows: int, n_pipeline: int) -> dict:
+    """The SMC options ``windowed_tau``, ``waste_free`` and ``flow_moves``
+    on the 4-d mixture fitted as the validation rows are
+    (``mixture_aspire``) and on BASELINE config 5:
+
+    (a) ``SMC_OPTION_ROWS`` at ``n_rows``, each within
+    ``benchmarks/validate.py``'s gate of the analytic log Z;
+    (b) the waste-free pipeline at ``n_pipeline`` on both ladders in turns
+    (``ladder_turns``): one population for both, the launches a rung
+    captured as listed, every run's evaluations under
+    ``WASTE_FREE_EVAL_RATIO`` times the standard 16-step run's (B2);
+    (c) the windowed-tau and flow-move (tpCN) pipelines the same way,
+    every recorded tau in [1, 2e4], every run's B3 launches one for the
+    initial draws plus one per chain step of every rung; on the card, the
+    flow moves' cost a rung (``flow_move_cost``);
+    (d) config 5 waste-free: ``n_steps=32, waste_free=True`` at N_HIER on
+    the device ladder (M = 32768 chains, B1 in the wide form, a stored
+    chain of 32 x 32768 x 32 floats), twice (the capture, then replays),
+    printed beside the standard run's, not gated (PERF.md section 7).
+    """
+    import torch
+
+    on_card = device.type == "cuda"
+    p, asp = mixture_aspire(device)
+    truth = p.true_log_evidence()
+    out = {"rows": {label: smc_option_row(asp, label, truth, n_rows)
+                    for label in SMC_OPTION_ROWS}}
+
+    reset_launch_counts()
+    std = asp.sample_posterior(sampler="smc", n_samples=n_pipeline,
+                               store_sample_history=False,
+                               sampler_kwargs={"n_steps": 16})
+    out["standard_evaluations"] = asp.sampler.n_likelihood_evaluations
+    out["standard_log_z"] = std.log_evidence
+    out["pipelines"] = {}
+    for name, (kw, per_rung) in SMC_OPTION_PIPELINES.items():
+        run = dict(sampler="smc", n_samples=n_pipeline,
+                   store_sample_history=False, sampler_kwargs=kw)
+        ladders = ladder_turns(asp, run, {"coupling": per_rung["coupling"]},
+                               turns=("device", "host", "host", "device"))
+        (_, lad), = (asp.ladder_cache.values() if on_card
+                     else ((None, asp.sampler.ladder),))
+        captured = ({**captured_launches(lad), "b3": captured_b3(lad)}
+                    if on_card else per_rung)
+        out["pipelines"][name] = dict(ladders, per_rung=captured)
+        runs = ladders["per_run"]
+        faults = []
+        if not ladders["ladders_agree_bitwise"] or captured != per_rung:
+            faults.append(f"per rung {captured} (want {per_rung})")
+        if any(not 1.0 <= r["tau_range"][0] <= r["tau_range"][1] <= 2e4
+               for r in runs):
+            faults.append("a tau out of [1, 2e4]")
+        if on_card and any(r["b3"] != 1 + per_rung["b3"] * r["rungs"]
+                           for r in runs):
+            faults.append("B3 launches not 1 + one per chain step")
+        if name == "waste_free" and any(
+                r["evaluations"] >= WASTE_FREE_EVAL_RATIO
+                * out["standard_evaluations"] for r in runs):
+            faults.append(f"evaluations not under {WASTE_FREE_EVAL_RATIO} "
+                          f"x the standard {out['standard_evaluations']}")
+        if faults:
+            raise AssertionError(f"{name} pipeline: {faults}; {ladders}")
+    if on_card:
+        out["flow_move_cost"] = flow_move_cost(asp, n_pipeline)
+
+    _, hasp, _ = hierarchical_aspire(device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    runs = []
+    for _ in range(2):
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        post, hist = hasp.sample_posterior(
+            sampler="smc", n_samples=N_HIER, store_sample_history=False,
+            sampler_kwargs=dict(n_steps=HIER_STEPS, waste_free=True),
+            return_history=True)
+        sync()
+        lad = hasp.sampler.ladder
+        runs.append({"smc_wall_s": time.perf_counter() - t0,
+                     "log_z": post.log_evidence,
+                     "log_z_err": post.log_evidence_error,
+                     "rungs": len(hist.beta),
+                     "evaluations": hasp.sampler.n_likelihood_evaluations,
+                     "launches": launch_counts(),
+                     "per_rung": (captured_launches(lad) if on_card
+                                  else {"coupling": HIER_STEPS + 2}),
+                     "capture_s": lad.capture_s, "replays": lad.replays})
+        log(f"config 5 waste-free at n={N_HIER}: {runs[-1]}")
+        if (tuple(post.x.shape) != (N_HIER, 32)
+                or not bool(torch.isfinite(post.x).all())
+                or not math.isfinite(post.log_evidence)
+                or set(hist.mutation_route) != {"split"}
+                or runs[-1]["per_rung"]["coupling"] != HIER_STEPS + 2):
+            raise AssertionError(f"config 5 waste-free: {runs[-1]}")
+    out["config5"] = runs
+    return out
+
+
+def report_smc_options(card: str, opts: dict, hier: dict | None) -> None:
+    """Print ``phase_smc_options``' results, one line each."""
+    for label, v in opts["rows"].items():
+        print(f"[{card}] {label} on the 4-d mixture (nsf-tpu, fitted as the "
+              f"validation rows), n={N_VALIDATE}: log Z {v['log_z']:.4f} +/- "
+              f"{v['log_z_err']:.4f} vs analytic {v['truth']:.4f}; "
+              f"{v['rungs']} rungs on the {v['ladder']} ladder in "
+              f"{v['wall_s']:.3f} s, {v['evaluations']} evaluations, "
+              f"launches {v['launches']}, tau {v['tau_range']}"
+              + (f", replicates {v['replicates']}" if v["replicates"]
+                 else ""), flush=True)
+    c = opts.get("flow_move_cost")
+    rungs = c["rungs"] if c else {}
+    print(f"[{card}] flow moves' cost, n={N_PIPELINE}, 10-step tpCN on the "
+          f"device ladder: {c['on_s']:.4f} s with flow_moves=5 "
+          f"({rungs['on']} rungs) vs {c['off_s']:.4f} s without "
+          f"({rungs['off']} rungs), medians in turns: "
+          f"{c['per_rung_s'] * 1e3:.2f} ms a rung more" if c else
+          f"[{card}] flow moves' cost not measured (no card)", flush=True)
+    for name, v in opts["pipelines"].items():
+        print(f"[{card}] {name} pipeline, n={N_PIPELINE}: device ladder "
+              f"{v['device_s']:.4f} s vs host ladder {v['host_s']:.4f} s "
+              f"(medians in turns; {v['rungs']} rungs, per rung "
+              f"{v['per_rung']}; capture {v['capture_s']:.3f} s); one "
+              f"population: {v['ladders_agree_bitwise']}; log Z "
+              f"{v['log_z']:.4f} +/- {v['log_z_err']:.4f} vs host "
+              f"{v['host_log_z']:.4f}; evaluations "
+              f"{[r['evaluations'] for r in v['per_run']]} (standard "
+              f"16-step run {opts['standard_evaluations']}); B3 "
+              f"{[r['b3'] for r in v['per_run']]}", flush=True)
+    std = (f"standard run {hier['log_z']:.4f} +/- {hier['log_z_err']:.4f}, "
+           f"smc_wall_s {hier['smc_wall_s']:.2f}, {hier['smc_evaluations']} "
+           f"evaluations, {hier['n_temperatures']} temperatures"
+           if hier else "standard run not made in this call")
+    for i, r in enumerate(opts["config5"]):
+        print(f"[{card}] BASELINE config 5 waste-free (n={N_HIER}, "
+              f"{HIER_STEPS} steps, {N_HIER // HIER_STEPS} chains), run {i}: "
+              f"log Z {r['log_z']:.4f} +/- {r['log_z_err']:.4f}, smc_wall_s "
+              f"{r['smc_wall_s']:.2f} (capture {r['capture_s']:.3f} s), "
+              f"{r['evaluations']} evaluations, {r['rungs']} temperatures, "
+              f"per rung {r['per_rung']}; {std}", flush=True)
+
+
+def smc_options_alone() -> dict:
+    """``phase_smc_options`` alone after the kernels' build (with the
+    mixture's and config 5's fits), its lines printed; its seconds."""
+    import torch
+
+    from aspire_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    _build.load_library()
+    device = torch.device("cuda")
+    mixture_aspire(device)
+    hierarchical_aspire(device)
+    t0 = time.perf_counter()
+    opts = phase_smc_options(device, N_VALIDATE, N_PIPELINE)
+    phase_s = time.perf_counter() - t0
+    report_smc_options(card_line(), opts, None)
+    return {"phase_s": phase_s,
+            "rows": {k: v["wall_s"] for k, v in opts["rows"].items()},
+            "pipelines": {k: [v["device_s"], v["host_s"]]
+                          for k, v in opts["pipelines"].items()},
+            "flow_move_cost": opts.get("flow_move_cost"),
+            "config5": [r["smc_wall_s"] for r in opts["config5"]]}
+
+
 #: ``benchmarks/validate.py``'s CNF rows (:370-440), in its order.
 CNF_ROWS = ("gaussian", "mixture", "rosenbrock", "funnel")
 #: Their flow, ``Aspire(flow_matching=True, n_steps=64, seed=1)`` (the
@@ -3399,8 +3690,9 @@ CNF_FIT = dict(n_epochs=120, batch_size=512)
 #: The importance rows' efficiency floor (``run_gate``'s ``eff_floor``).
 CNF_EFF_FLOOR = 0.01
 #: The CNF pipeline's chain, cut in depth from the rows' 20 steps for the
-#: script's time (a 20-step run at n = 131072 took 84-88 s on the H100).
-CNF_PIPELINE_STEPS = 5
+#: script's time (a 20-step run at n = 131072 took 84-88 s on the H100, a
+#: 5-step run 24.7-26.5 s).
+CNF_PIPELINE_STEPS = 3
 #: The card-against-CPU check's n: the CPU's passes (float32 and float64)
 #: at full width take tens of seconds at 16384.
 CNF_CHECK_N = 2048
@@ -4605,6 +4897,31 @@ def regression_flop(dims: int) -> int:
     return REGRESSION_POINTS * (2 * (dims - 1) + 4) + 2 * dims
 
 
+@fitted_once
+def hierarchical_aspire(device):
+    """BASELINE config 5's problem and flow (benchmarks/hierarchical.py): the
+    d = 32 hierarchical posterior, nsf 6 x (128, 128), 8 bins, fitted on
+    N_HIER_TRAIN draws of ``default_rng(7)`` (20 epochs, batch 1024); and
+    the fit's seconds."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import HierarchicalProblem
+
+    problem = HierarchicalProblem(32)
+    initial = Samples(problem.draw_initial_samples(np.random.default_rng(7),
+                                                   N_HIER_TRAIN))
+    asp = Aspire(log_likelihood=problem.log_likelihood,
+                 log_prior=problem.log_prior, dims=32, flow_backend="nsf",
+                 n_layers=6, n_hidden=(128, 128), seed=3, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    asp.fit(initial, n_epochs=20, batch_size=1024)
+    torch.cuda.synchronize()
+    return problem, asp, time.perf_counter() - t0
+
+
 def phase_hierarchical(device) -> dict:
     """BASELINE config 5 (benchmarks/hierarchical.py) at its full width:
     the d = 32 hierarchical posterior, nsf 6 x (128, 128), 8 bins.
@@ -4628,11 +4945,8 @@ def phase_hierarchical(device) -> dict:
     Then the kernels' times at the config's n (plain torch at
     N_HIER_ROUTES).
     """
-    import numpy as np
     import torch
 
-    from aspire_tpu_torch import Aspire, Samples
-    from aspire_tpu_torch.models import HierarchicalProblem
     from aspire_tpu_torch.ops import fused_coupling as FC
     from aspire_tpu_torch.ops import fused_mutation as FM
 
@@ -4655,18 +4969,8 @@ def phase_hierarchical(device) -> dict:
                                      setup=hierarchical_chain_setup)
 
     # 2. The pipeline.
-    problem = HierarchicalProblem(32)
-    initial = Samples(problem.draw_initial_samples(np.random.default_rng(7),
-                                                   N_HIER_TRAIN))
-    asp = Aspire(log_likelihood=problem.log_likelihood,
-                 log_prior=problem.log_prior, dims=32, flow_backend="nsf",
-                 n_layers=6, n_hidden=(128, 128), seed=3, device=device)
     reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    asp.fit(initial, n_epochs=20, batch_size=1024)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    _, asp, fit_s = hierarchical_aspire(device)
     arch = asp.flow.architecture
     if FC.config_id(arch) != 2 or arch.n_layers != 6:
         raise AssertionError(f"config 5's flow is not configuration 2: {arch}")
@@ -4684,6 +4988,7 @@ def phase_hierarchical(device) -> dict:
     torch.cuda.synchronize()
     smc_s = time.perf_counter() - t0
     capture_s = asp.sampler.ladder.capture_s
+    smc_evals = asp.sampler.n_likelihood_evaluations
     launches = {**launch_counts(), "coupling_importance": is_launches}
     routes = hist.mutation_route
     log(f"config 5 pipeline: fit {fit_s:.2f} s, importance "
@@ -4709,7 +5014,9 @@ def phase_hierarchical(device) -> dict:
             and math.isfinite(post.log_evidence_error)):
         raise AssertionError("config 5 log Z is not finite")
     # The device ladder (this run's was its capture) against the host one.
-    ladders = ladder_turns(asp, smc_run, {"chain": 1}, warm=False)
+    # Four turns: a run at this n takes ~7 s (the script's time).
+    ladders = ladder_turns(asp, smc_run, {"chain": 1}, warm=False,
+                           turns=("device", "host", "host", "device"))
     replay = replay_check(asp) if on_card else None
 
     # 3. Route agreement.
@@ -4742,7 +5049,8 @@ def phase_hierarchical(device) -> dict:
         raise AssertionError(f"routes disagree on log Z: {a} vs {b}")
     out.update({
         "fit_s": fit_s, "importance_s": importance_s, "smc_wall_s": smc_s,
-        "smc_capture_s": capture_s, "ladders": ladders,
+        "smc_capture_s": capture_s, "smc_evaluations": smc_evals,
+        "ladders": ladders,
         "replay_vs_eager": replay, "n_temperatures": len(hist.beta),
         "log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
         "log_z_importance": float(is_post.log_evidence),
@@ -4873,6 +5181,7 @@ def main() -> int:
                      N_PIPELINE)
     maf_path = timed(phase_maf_main_path, device, N_CHAIN, N_PIPELINE)
     hier = timed(phase_hierarchical, device)
+    opts = timed(phase_smc_options, device, N_VALIDATE, N_PIPELINE)
     coupling = timed(phase_coupling, device, N_COUPLING)
     chain = timed(phase_chain, device, N_CHAIN, CHAIN_STEPS)
     maf = timed(phase_maf, device, N_COUPLING)
@@ -4948,6 +5257,7 @@ def main() -> int:
           f"{user['eval']['ms']:.4f} ms vs callables "
           f"{user['eval']['plain_ms']:.4f} ms at n={N_PIPELINE}", flush=True)
     report_gradient(card, gradient)
+    report_smc_options(card, opts, hier)
     report_new_paths(card, cnf, flow_precond, mcmc)
     report_ptmcmc(card, pt)
     report_checkpoint(card, ck)
@@ -5113,6 +5423,19 @@ def main() -> int:
          "launches_b3_pt_rows": {row: [r["b3"] for r in v["runs"]]
                                  for row, v in pt["rows"].items()},
          "launches_b3_pt_flow_preconditioned": pt["flow"]["b3"],
+         "launches_smc_options": {
+             "rows": {k: v["launches"]["coupling"]
+                      for k, v in opts["rows"].items()},
+             "rows_b3": {k: v["launches"]["b3"]
+                         for k, v in opts["rows"].items()},
+             "pipelines_last_device_run": {
+                 k: v["launches"]["coupling"]
+                 for k, v in opts["pipelines"].items()},
+             "pipelines_b3_per_run": {
+                 k: [r["b3"] for r in v["per_run"]]
+                 for k, v in opts["pipelines"].items()},
+             "per_rung": {k: v["per_rung"]
+                          for k, v in opts["pipelines"].items()}},
          "launches_checkpoint_phase": {
              "b3_initial_draws": ck["fused"]["b3_launches"],
              "b1_split_checkpointed_run": ck["split"]["launches_on"][
@@ -5238,6 +5561,9 @@ def main() -> int:
          "source": "aspire_tpu_torch/csrc/coupling.cu",
          "replaces": "aspire_tpu/ops/fused_coupling.py:445",
          "launches_run": "split route at n=131072",
+         "launches_waste_free": opts["config5"][-1]["launches"]["coupling"],
+         "launches_per_rung_waste_free": opts["config5"][-1]["per_rung"][
+             "coupling"],
          "max_abs_err": hier_err},
         {**hier_row("coupling_kernel B3, config 5", "inverse_",
                     hier["launches"]["coupling"], hb1),
@@ -5339,6 +5665,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--ladder-profile":
         print(card_line(), flush=True)
         print(json.dumps({"ladder_profile": ladder_profile()}), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--smc-options":
+        print(card_line(), flush=True)
+        print(json.dumps({"smc_options": smc_options_alone()}), flush=True)
         sys.exit(0)
     if len(sys.argv) == 2 and sys.argv[1] == "--checkpoint":
         print(card_line(), flush=True)

@@ -1,8 +1,8 @@
 """aspire_tpu_torch SMC building blocks against the JAX package (float64):
 the beta bisection and per-iteration statistics, resampling with a fixed
 uniform, the evidence reductions of the sample containers; the sampler's
-per-temperature sample history against the JAX package's, and the
-sampler options the port refuses."""
+per-temperature sample history against the JAX package's, the sampler
+options once refused (now ported) and those the port refuses."""
 
 import jax
 import jax.numpy as jnp
@@ -185,16 +185,44 @@ def test_sample_history_follows_its_option(n, store, count):
     assert all(s.x.shape == (n, 2) for s in history.sample_history)
 
 
+@pytest.fixture(scope="module")
+def options_aspire():
+    """The sample-history problem's flow, fitted once for the options."""
+    p = GaussianMixtureProblem(dims=2)
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=2, seed=1, device="cpu", **HISTORY_FLOW)
+    asp.fit(Samples(p.draw_initial_samples(np.random.default_rng(0), 512)),
+            **HISTORY_FIT)
+    return asp
+
+
 @pytest.mark.parametrize("name", ["waste_free", "windowed_tau",
                                   "flow_moves"])
-def test_unported_sampler_options_raise(name):
-    """Options the JAX package reads and the port does not implement
-    raise rather than return a standard-SMC result."""
-    sampler = TSMC.PCNSMC(log_likelihood=lambda x: x.sum(-1),
-                          log_prior=lambda x: x.sum(-1), dims=2,
-                          prior_flow=None, device="cpu")
-    with pytest.raises(NotImplementedError, match=name):
-        sampler.sample(64, sampler_kwargs={name: True})
+def test_unported_sampler_options_raise(options_aspire, name):
+    """The three options the JAX package reads, once refused, are ported:
+    a run completes and records what its option implies. Each takes the
+    per-step chain where the run would otherwise take the whole-chain
+    kernel (its plain version here); waste-free resamples n / k ancestors
+    and pools their chains back to n (M k + M + n evaluations a rung, k
+    steps for each of M chains); every recorded tau lies in [1, 2e4];
+    flow moves (``True``: every step) cost n a step, as the local step
+    does."""
+    n, k = 64, 4
+    post, hist = options_aspire.sample_posterior(
+        sampler="smc", n_samples=n, return_history=True,
+        store_sample_history=False, sampler_kwargs={name: True, "n_steps": k})
+    sampler = options_aspire.sampler
+    rungs = len(hist.beta)
+    assert hist.beta[-1] == 1.0 and post.x.shape == (n, 2)
+    assert hist.mutation_route == ["split"] * rungs
+    assert np.isfinite(post.log_evidence)
+    m = n // k if name == "waste_free" else n
+    assert sampler.n_likelihood_evaluations == n + rungs * (m * k + m + n)
+    assert sampler.particle_steps == rungs * m * k
+    taus = hist.mcmc_autocorr
+    assert all(1.0 <= t <= 2e4 for t in taus)
+    if name == "flow_moves":
+        assert all(0 < a <= 1 for a in hist.mcmc_acceptance)
 
 
 @pytest.mark.parametrize("where", ["Aspire", "sample_posterior"])
