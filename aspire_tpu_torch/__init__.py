@@ -24,10 +24,10 @@ from .samples import (  # noqa: E402,F401
 )
 from .aspire import Aspire  # noqa: E402,F401
 from .samplers import ParallelTemperedSampler  # noqa: E402,F401
-from .utils import configure_logger  # noqa: E402,F401
+from .utils import PoolHandler, configure_logger  # noqa: E402,F401
 
 logging.getLogger("aspire_tpu_torch").addHandler(logging.NullHandler())
 
 __all__ = ["Aspire", "BaseSamples", "MCMCSamples", "ParallelTemperedSampler",
-           "PTMCMCSamples", "Samples", "SMCSamples", "__version__",
-           "configure_logger"]
+           "PoolHandler", "PTMCMCSamples", "Samples", "SMCSamples",
+           "__version__", "configure_logger"]

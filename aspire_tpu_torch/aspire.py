@@ -1,5 +1,4 @@
-"""The user-facing ``Aspire`` facade (counterpart of ``aspire_tpu/aspire.py``
-without pools or the flow-refit replicate tier).
+"""The user-facing ``Aspire`` facade (counterpart of ``aspire_tpu/aspire.py``).
 
 ``flow_matching=True`` makes the flow a CNF (:class:`~aspire_tpu_torch.
 flows.FlowMatching`); ``preconditioning="flow"`` gives a sampler a flow
@@ -32,14 +31,16 @@ from typing import Any, Callable
 from .checkpointing import CheckpointPolicy, ResumeState, open_run_file
 from .flows import Flow, default_architecture_for_backend, get_flow_class
 from .history import FlowHistory
-from .samplers import SMCSampler, get_sampler_class
+from .samplers import SMCSampler
+from .samplers import get_sampler_class as _registry_get_sampler_class
+from .samplers.base import combine_replicates
 from .samples import Samples
 from .transforms import (
     CompositeTransform,
     FlowPreconditioningTransform,
     FlowTransform,
 )
-from .utils import function_id, resolve_device
+from .utils import PoolHandler, function_id, resolve_device
 
 logger = logging.getLogger("aspire_tpu_torch")
 
@@ -96,6 +97,8 @@ class Aspire:
         self.seed = seed
         self._flow = flow
         self._sampler = None
+        #: kept by ``fit``; ``replicated_evidence`` refits the flow to it
+        self.training_samples: Samples | None = None
         #: the run-file state: a write policy for the current file and a
         #: primed continuation, swapped wholesale by ``auto_checkpoint``
         self._checkpoints: CheckpointPolicy | None = None
@@ -189,6 +192,7 @@ class Aspire:
                         "was loaded.")
             return FlowHistory()
         x = samples.x if hasattr(samples, "x") else samples
+        self.training_samples = samples
         history = self.flow.fit(x, **kwargs)
 
         policy = self._checkpoints
@@ -221,6 +225,9 @@ class Aspire:
         return Samples(x=x, log_q=log_q, parameters=self.parameters,
                        dtype=self.dtype, device=self.device)
 
+    def get_sampler_class(self, sampler_type: str) -> type:
+        return _registry_get_sampler_class(sampler_type)
+
     def init_sampler(self, sampler_type: str,
                      preconditioning: str | None = None,
                      preconditioning_kwargs: dict | None = None,
@@ -230,7 +237,7 @@ class Aspire:
         composite, dropped when it is a no-op; or "flow": a flow of this
         Aspire's backend, kwargs and ``flow_matching``, with no affine
         step, refitted to the particles at each use)."""
-        SamplerClass = get_sampler_class(sampler_type)
+        SamplerClass = self.get_sampler_class(sampler_type)
         if sampler_type != "importance" and preconditioning is None:
             preconditioning = "default"
         preconditioning = preconditioning.lower() if preconditioning else None
@@ -320,7 +327,7 @@ class Aspire:
                 kwargs.update(resume.sample_overrides)
                 if resume.n_samples is not None and n_samples == 1000:
                     n_samples = resume.n_samples
-        SamplerClass = get_sampler_class(sampler)
+        SamplerClass = self.get_sampler_class(sampler)
         init_params: dict = {}
         for klass in SamplerClass.__mro__:
             init = klass.__dict__.get("__init__")
@@ -379,6 +386,68 @@ class Aspire:
         if return_history:
             return samples, getattr(self._sampler, "history", None)
         return samples
+
+    def replicated_evidence(self, n_replicates: int, *,
+                            refit_flow: bool = True,
+                            fit_kwargs: dict | None = None,
+                            **sample_kwargs: Any):
+        """log Z over ``n_replicates`` independent pipelines (the JAX
+        package's ``replicated_evidence``): before each run, with
+        ``refit_flow``, the flow is re-initialised in place at seed ``seed
+        + 101 + r`` and refitted to the samples the last ``fit`` kept, so
+        the error includes the flow fit's seed variation, which the
+        sampler-level ``n_replicates`` (one shared flow) cannot see.
+        ``sample_kwargs`` go to :meth:`sample_posterior` as they are; PT
+        runs are read by their stepping stone. The last run's samples carry
+        the combination (:func:`~aspire_tpu_torch.samplers.base.
+        combine_replicates`) and ``log_evidence_replicates``.
+
+        The refits are diagnostic: the checkpoint policy is set aside for
+        the call, so the run file's fitted flow is never rewritten. The
+        flow object stays the same; its parameters are new tensors at each
+        refit, so each replicate captures its own device ladder."""
+        if n_replicates < 2:
+            raise ValueError("n_replicates must be >= 2")
+        # A keyword n_replicates binds to this method's own argument, so the
+        # sampler-level tier cannot be nested in this one.
+        if refit_flow and self.training_samples is None:
+            raise ValueError(
+                "replicated_evidence(refit_flow=True) needs a prior "
+                "fit() so the training samples are retained.")
+        sampler_name = sample_kwargs.get("sampler", "importance")
+        base_seed = self.seed if self.seed is not None else 0
+        fit_kwargs = dict(fit_kwargs or {})
+        # A loaded checkpointed flow must not turn the refits into reruns
+        # of one fit (with the policy set aside no file is written).
+        fit_kwargs.setdefault("overwrite", True)
+        logzs, errs = [], []
+        result = None
+        saved_policy = self._checkpoints
+        self._checkpoints = None
+        try:
+            for r in range(n_replicates):
+                logger.info("Pipeline replicate %d/%d", r + 1, n_replicates)
+                if refit_flow:
+                    if self.flow is None:
+                        self.init_flow()
+                    self.flow.reinitialize(base_seed + 101 + r)
+                    self.fit(self.training_samples, **fit_kwargs)
+                result = self.sample_posterior(**sample_kwargs)
+                if sampler_name in ("ptmcmc", "parallel_tempered"):
+                    lz, err = result.log_evidence_stepping_stone()
+                else:
+                    lz, err = result.log_evidence, result.log_evidence_error
+                logzs.append(float(lz))
+                errs.append(float(err))
+        finally:
+            self._checkpoints = saved_policy
+        return combine_replicates(result, logzs, errs, "pipeline")
+
+    def enable_pool(self, pool, **kwargs) -> PoolHandler:
+        """A :class:`~aspire_tpu_torch.utils.PoolHandler` that maps the
+        likelihood (which takes ``map_fn``) over ``pool`` within its
+        block."""
+        return PoolHandler(self, pool, **kwargs)
 
     def _write_run_file(self, path: str, policy, on_policy_file: bool, *,
                         config: bool, after: bool = False) -> None:

@@ -36,10 +36,21 @@ from .nets import apply_made, apply_mlp, init_made, init_mlp, made_masks
 
 @dataclasses.dataclass(frozen=True)
 class Architecture:
+    """Base config; subclasses implement init/forward/inverse."""
+
     dims: int
     n_layers: int = 4
     n_hidden: tuple = (64, 64)
     dtype: str = "float32"
+
+    def init(self, generator: torch.Generator, device="cpu") -> dict:
+        raise NotImplementedError
+
+    def forward(self, params, x):
+        raise NotImplementedError
+
+    def inverse(self, params, z):
+        raise NotImplementedError
 
     @property
     def torch_dtype(self) -> torch.dtype:

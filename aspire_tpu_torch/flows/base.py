@@ -61,8 +61,7 @@ class Flow:
         self.data_transform = data_transform or IdentityTransform(
             dtype=self.dtype, device=self.device)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(0 if seed is None else int(seed))
-        self.params = self.architecture.init(self.generator, self.device)
+        self.reinitialize(0 if seed is None else seed)
 
     def config_dict(self) -> dict:
         return {
@@ -71,6 +70,20 @@ class Flow:
             "dtype": str(self.dtype).replace("torch.", ""),
             "architecture_config": dataclasses.asdict(self.architecture),
         }
+
+    def reinitialize(self, key: int | None = None) -> None:
+        """A fresh parameter draw on this flow object (the JAX package's
+        ``reinitialize``): an ``int`` seeds the flow's generator and draws
+        the architecture's initialisation from it, as ``Flow(seed=key)``
+        does, so parameters and generator state are those of a new flow at
+        that seed; ``None`` takes the seed from the flow's generator. The
+        parameters are new tensors, so no device ladder or kernel packing
+        made for the old ones is reused."""
+        if key is None:
+            key = int(torch.randint(0, 2**63 - 1, (), device=self.device,
+                                    generator=self.generator))
+        self.generator.manual_seed(int(key))
+        self.params = self.architecture.init(self.generator, self.device)
 
     # -- densities ---------------------------------------------------------
 

@@ -202,8 +202,7 @@ class FlowMatching(Flow):
         self.data_transform = data_transform or IdentityTransform(
             dtype=self.dtype, device=self.device)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(0 if seed is None else int(seed))
-        self.params = self.architecture.init(self.generator, self.device)
+        self.reinitialize(0 if seed is None else seed)
 
     def config_dict(self) -> dict:
         return {

@@ -182,6 +182,15 @@ class Problem:
     #: validation rows are no part of the package, as in the JAX package)
     true_log_evidence = None
 
+    def log_likelihood(self, samples):
+        raise NotImplementedError
+
+    def log_prior(self, samples):
+        raise NotImplementedError
+
+    def draw_initial_samples(self, rng, n: int) -> np.ndarray:
+        raise NotImplementedError
+
     def kernel_target(self, device="cpu"):
         """``(id or KernelSource, constants)`` for the chain kernel, or
         None."""

@@ -30,6 +30,11 @@ import functools
 import torch
 
 from ..flows.architectures import MAF, Coupling
+from ..flows.bijectors import (  # noqa: F401 - public, as in JAX package
+    DEFAULT_MIN_BIN_HEIGHT,
+    DEFAULT_MIN_BIN_WIDTH,
+    DEFAULT_MIN_DERIVATIVE,
+)
 from ._build import LaunchCounter, check, load_library
 
 #: Below this batch the plain path is already launch-bound; training
@@ -49,6 +54,10 @@ KERNEL_CONFIGS = {
     ("rqs", 2, (64, 64), 8): 3,
     ("rqs", 5, (64, 64), 8): 4,
 }
+
+#: The most dims a compiled coupling configuration takes (the JAX
+#: package's bound on fusing a coupling flow).
+MAX_FUSED_DIMS = max(key[1] for key in KERNEL_CONFIGS)
 
 #: (dims, n_hidden, num_bins) of an RQS MAF -> configuration id of the MAF
 #: density kernel; mirrors ASPIRE_MAF_CONFIGS in csrc/common.cuh. A table

@@ -27,6 +27,18 @@ def effective_sample_size(log_w: torch.Tensor) -> torch.Tensor:
     return torch.exp(2 * logsumexp(log_w) - logsumexp(2 * log_w))
 
 
+def logit(x: torch.Tensor, eps: float | None = None) -> torch.Tensor:
+    """``log(x) - log1p(-x)``, ``x`` first clamped to ``[eps, 1 - eps]``
+    with an ``eps``."""
+    if eps is not None:
+        x = torch.clamp(x, eps, 1.0 - eps)
+    return torch.log(x) - torch.log1p(-x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
 def log_evidence_from_log_weights(
     log_w: torch.Tensor, n: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:

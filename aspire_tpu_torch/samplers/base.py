@@ -257,6 +257,11 @@ class Sampler:
             return x
         return self.preconditioning_transform.fit(x)
 
+    def apply_preconditioning(self, x):
+        if self.preconditioning_transform is None:
+            return x
+        return self.preconditioning_transform.forward(x)[0]
+
     def invert_preconditioning(self, z):
         if self.preconditioning_transform is None:
             return z, torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)

@@ -3,9 +3,13 @@
 
 from __future__ import annotations
 
+import logging
+
 from ..samples import Samples
 from ..utils import track_calls
 from .base import Sampler
+
+logger = logging.getLogger("aspire_tpu_torch")
 
 
 class ImportanceSampler(Sampler):

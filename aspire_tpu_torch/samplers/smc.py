@@ -368,6 +368,26 @@ class SMCSampler(Sampler):
             return lo + (hi - lo) * (beta**self.target_efficiency_rate)
         return self._target_efficiency
 
+    def determine_beta(self, delta, beta: float, beta_step: float,
+                       min_beta_step: float, max_beta_step: float = 1.0,
+                       beta_tolerance: float = DEFAULT_BETA_TOLERANCE
+                       ) -> tuple[float, float]:
+        """The next beta and the step floor for the log-density increments
+        ``delta`` (the JAX package's ``determine_beta``): the ladder's own
+        :func:`iteration_stats` with ``delta`` as the whole increment, and
+        its stall check."""
+        delta = torch.as_tensor(delta)
+        zeros = torch.zeros_like(delta)
+        target_eff = float(self.current_target_efficiency(beta))
+        beta_new, min_step, beta_star = iteration_stats(
+            delta, zeros, zeros, beta, min(beta + beta_step, 1.0), target_eff,
+            beta_tolerance, min_beta_step, max_beta_step,
+            adaptive=self.adaptive,
+            adaptive_min_step=self.adaptive_min_beta_step)[:3].tolist()
+        _check_beta_progress(beta_new, beta_star, beta, target_eff,
+                             beta_tolerance, min_step, self.adaptive)
+        return beta_new, min_step
+
     # -- tempered target ---------------------------------------------------
 
     def tempered_log_prob(self, z: torch.Tensor, beta):
@@ -376,8 +396,10 @@ class SMCSampler(Sampler):
         x, log_j = self.invert_preconditioning(z)
         log_q = self.prior_flow.log_prob(x)
         view = self._make_view(x)
-        log_pi = torch.as_tensor(self.log_prior(view)).reshape(-1)
-        log_l = torch.as_tensor(self.log_likelihood(view)).reshape(-1)
+        log_pi = torch.as_tensor(self.log_prior(view),
+                                 device=x.device).reshape(-1)
+        log_l = torch.as_tensor(self.log_likelihood(view),
+                                device=x.device).reshape(-1)
         log_p = (1 - beta) * log_q + beta * (log_l + log_pi) + log_j
         return torch.where(torch.isnan(log_p),
                            torch.full_like(log_p, -math.inf), log_p).to(z.dtype)
@@ -522,8 +544,10 @@ class SMCSampler(Sampler):
 
         def target_fn(x):
             view = self._make_view(x)
-            return (torch.as_tensor(self.log_prior(view)).reshape(-1)
-                    + torch.as_tensor(self.log_likelihood(view)).reshape(-1))
+            return (torch.as_tensor(self.log_prior(view),
+                                    device=x.device).reshape(-1)
+                    + torch.as_tensor(self.log_likelihood(view),
+                                      device=x.device).reshape(-1))
 
         vg = partial(value_and_grad_batch, log_prob_fn) if needs_grad else None
 
@@ -579,7 +603,8 @@ class SMCSampler(Sampler):
         log_q = self.prior_flow.log_prob(x)
         log_pi = self.evaluate_log_prior(x)
         view = self._make_view(x)
-        log_l = torch.as_tensor(self.log_likelihood(view)).reshape(-1)
+        log_l = torch.as_tensor(self.log_likelihood(view),
+                                device=x.device).reshape(-1)
         acceptance = torch.mean(final.n_accept / max(n_steps, 1))
         return Mutation(x, log_q, log_pi, log_l, acceptance, stats.tau,
                         stats.mixing, final.step_size, info,

@@ -1,5 +1,6 @@
-"""Logger configuration, dtype/device resolution and converters from the
-JAX package's state.
+"""Logger configuration, dtype/device resolution, converters from the JAX
+package's state, the host pool for a likelihood (``PoolHandler``) and
+signature-based keyword routing.
 
 The port never imports JAX. The converters take the JAX package's flow
 parameter pytree (nested dicts of arrays) and its fitted transform
@@ -12,12 +13,16 @@ from __future__ import annotations
 import dataclasses
 import functools
 import importlib
+import inspect
 import logging
 import sys
 from typing import Any, Callable
 
 import numpy as np
 import torch
+
+logger = logging.getLogger("aspire_tpu_torch")
+
 
 def configure_logger(level: str | int = "INFO", log_file: str | None = None,
                      include_ecosystem: bool = True) -> logging.Logger:
@@ -29,8 +34,7 @@ def configure_logger(level: str | int = "INFO", log_file: str | None = None,
     configuration."""
     if isinstance(level, str):
         level = getattr(logging, level.upper())
-    pkg_logger = logging.getLogger("aspire_tpu_torch")
-    pkg_logger.setLevel(level)
+    logger.setLevel(level)
     fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s",
                             "%H:%M:%S")
     handlers = [logging.StreamHandler(sys.stdout)]
@@ -39,14 +43,14 @@ def configure_logger(level: str | int = "INFO", log_file: str | None = None,
     for handler in handlers:
         handler.setFormatter(fmt)
         handler.setLevel(level)
-        pkg_logger.addHandler(handler)
+        logger.addHandler(handler)
     if include_ecosystem:
         for name in list(logging.root.manager.loggerDict):
             if name.startswith("aspire_tpu_torch_"):
                 eco = logging.getLogger(name)
                 eco.setLevel(level)
                 eco.propagate = True
-    return pkg_logger
+    return logger
 
 
 _DTYPES = {
@@ -264,3 +268,91 @@ def function_id(fn: Callable) -> str | None:
         qualname = type(fn).__qualname__
         module = type(fn).__module__
     return f"{module}:{qualname}"
+
+
+# -- the host pool (the JAX package's ``PoolHandler``) ---------------------
+
+
+class PoolHandler:
+    """Context manager that maps a host likelihood over a process pool.
+
+    The likelihood (and, with ``parallelize_prior``, the prior) must take a
+    ``map_fn`` keyword; within the block ``aspire``'s callable is the
+    original with ``map_fn=pool.map``, and on exit the original comes back
+    and, with ``close_pool``, the pool is closed and joined. The callable
+    hands its rows to the host itself and maps a function the workers can
+    import (module level, not a lambda); on a process that holds a CUDA
+    context the pool is made with the ``spawn`` start method.
+    """
+
+    def __init__(self, aspire, pool, parallelize_prior: bool = False,
+                 close_pool: bool = True):
+        self.aspire = aspire
+        self.pool = pool
+        self.parallelize_prior = parallelize_prior
+        self.close_pool = close_pool
+        self._originals = {}
+
+    @staticmethod
+    def _accepts_map_fn(fn: Callable) -> bool:
+        try:
+            sig = inspect.signature(fn)
+        except (TypeError, ValueError):
+            return False
+        return "map_fn" in sig.parameters or any(
+            p.kind is inspect.Parameter.VAR_KEYWORD
+            for p in sig.parameters.values())
+
+    def __enter__(self):
+        fns = ["log_likelihood"]
+        if self.parallelize_prior:
+            fns.append("log_prior")
+        for name in fns:
+            fn = getattr(self.aspire, name)
+            if not self._accepts_map_fn(fn):
+                raise ValueError(
+                    f"{name} must accept a `map_fn` keyword argument to be "
+                    "used with PoolHandler")
+            self._originals[name] = fn
+            setattr(self.aspire, name,
+                    functools.partial(fn, map_fn=self.pool.map))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._originals.items():
+            setattr(self.aspire, name, fn)
+        self._originals.clear()
+        if self.close_pool:
+            self.pool.close()
+            self.pool.join()
+        return False
+
+
+# -- keyword routing by signature ----------------------------------------
+
+
+def split_kwargs_by_signature(fn: Callable, kwargs: dict
+                              ) -> tuple[dict, dict]:
+    """``kwargs`` split into those ``fn`` takes and the rest (all taken
+    when ``fn`` has ``**kwargs``)."""
+    sig = inspect.signature(fn)
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD
+           for p in sig.parameters.values()):
+        return dict(kwargs), {}
+    accepted, rest = {}, {}
+    for k, v in kwargs.items():
+        (accepted if k in sig.parameters else rest)[k] = v
+    return accepted, rest
+
+
+def get_parameter_names(dims: int, parameters: list[str] | None
+                        ) -> list[str]:
+    """``parameters`` as a list (``ValueError`` unless there are ``dims``
+    of them), or ``x_0 ... x_{dims-1}``."""
+    if parameters is not None:
+        if len(parameters) != dims:
+            raise ValueError(
+                f"Number of parameters ({len(parameters)}) does not match "
+                f"dims ({dims})")
+        return list(parameters)
+    return [f"x_{i}" for i in range(dims)]

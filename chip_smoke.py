@@ -49,10 +49,17 @@ main paths (6, 7, 8) right after the build:
    (``phase_validate_targets``): Rosenbrock at d = 2 (logit + affine data
    transform) and Neal's funnel at d = 5 (affine) with nsf-tpu fitted as
    ``benchmarks/validate.py`` fits it, B1/B3 at both shapes and B2 on each
-   row against plain, the anchors at n = 16384 against the quadrature
-   truths (the funnel's from three fits, combined as the reference
-   combines replicates), and the 131072 pipelines on both ladders and
-   both routes; then a user's own target (``phase_user_target``:
+   row against plain, Rosenbrock's anchor at n = 16384 against its
+   quadrature truth, and the 131072 pipelines on both ladders and both
+   routes; then the last single-device surface (``phase_replicated``):
+   the funnel's anchor through ``Aspire.replicated_evidence`` (three flow
+   refits, every mutation on B2, a device ladder captured for each
+   replicate) against its quadrature truth, replicate 1's pipeline alone
+   on a fresh ``Aspire`` (no stale graph or packing), a host likelihood
+   over a ``spawn`` pool (``Aspire.enable_pool``; the host ladder, the
+   split route on B1) bit for bit the run without it, and
+   ``Aspire.get_sampler_class`` over the registry; then a user's own
+   target (``phase_user_target``:
    ``PolynomialRegression``, its CUDA source built into an instance of
    B2 of its own, cold and then cached, a broken source refused; the
    instance's evaluation entry against the user's torch callables; B2
@@ -150,7 +157,8 @@ with their errors against float64 and each checkout's ptxas report
 ``--accumulation`` reads B2's flow density (on the d = 4
 chain and on config 5's) and B4 against float64 over 20 draws each
 (``accumulation``). ``--checkpoint`` runs ``phase_checkpoint`` alone
-(``checkpoint_alone``). ``--ladder-profile`` profiles one warmed device-ladder
+(``checkpoint_alone``), ``--replicated`` ``phase_replicated``
+(``replicated_alone``). ``--ladder-profile`` profiles one warmed device-ladder
 pipeline of nsf-tpu and of maf-rqs (``ladder_profile``).
 """
 
@@ -2373,13 +2381,16 @@ def combined_log_z(logzs, errs, label: str) -> tuple[float, float]:
     return out.log_evidence, out.log_evidence_error
 
 
-@fitted_once
-def validate_aspire(device, row: str, seed: int = 1):
-    """A validation row as ``benchmarks/validate.py`` runs it: the problem
-    (``VALIDATE_ROWS``, or ``PT_ONLY_ROWS``) on its prior bounds, an
-    nsf-tpu flow at the given seed fitted for 25 epochs at batch 512 on
-    8192 fit draws of ``default_rng(0)`` (the Gaussian's N(1, 1.2), the
-    others' own initial draws)."""
+#: How ``benchmarks/validate.py`` fits a row's flow.
+VALIDATE_FIT = {"n_epochs": 25, "batch_size": 512}
+
+
+def validation_row(device, row: str, seed: int = 1):
+    """A validation row as ``benchmarks/validate.py`` sets it up, not yet
+    fitted: the problem (``VALIDATE_ROWS``, or ``PT_ONLY_ROWS``), an
+    ``Aspire`` on its prior bounds with an nsf-tpu flow at the given seed,
+    and its 8192 fit draws of ``default_rng(0)`` (the Gaussian's N(1,
+    1.2), the others' own initial draws)."""
     import numpy as np
 
     from aspire_tpu_torch import Aspire, Samples
@@ -2393,7 +2404,16 @@ def validate_aspire(device, row: str, seed: int = 1):
     asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
                  dims=d, prior_bounds=p.prior_bounds, flow_backend="nsf",
                  architecture="nsf-tpu", seed=seed, device=device)
-    asp.fit(init, n_epochs=25, batch_size=512)
+    return p, asp, init
+
+
+@fitted_once
+def validate_aspire(device, row: str, seed: int = 1):
+    """A validation row as ``benchmarks/validate.py`` runs it
+    (``validation_row``), its flow fitted as the script fits it
+    (``VALIDATE_FIT``)."""
+    p, asp, init = validation_row(device, row, seed)
+    asp.fit(init, **VALIDATE_FIT)
     return p, asp
 
 
@@ -2493,11 +2513,10 @@ def phase_validate_targets(device, n_anchor: int, n_pipeline: int) -> dict:
     (a) B1/B3 at both shapes against plain at N_COUPLING, B2 on each row's
     chain against the plain chain at N_CHAIN x CHAIN_STEPS, and their
     times (``validate_kernels``);
-    (b) the anchors at ``n_anchor`` with 20-step tpCN, every mutation one
-    B2 launch: Rosenbrock's log Z within max(5 sigma, 0.02) of the
-    quadrature truth; the funnel's from three fits (seeds 1, 2, 3; the
-    reference gates it on flow-refit replicates) combined as the
-    reference combines them (``combined_log_z``), held the same way;
+    (b) Rosenbrock's anchor at ``n_anchor`` with 20-step tpCN, every
+    mutation one B2 launch, its log Z within max(5 sigma, 0.02) of the
+    quadrature truth (the funnel's anchor, gated on flow-refit replicates
+    as the reference gates it, is ``phase_replicated``'s);
     (c) the ``n_pipeline`` pipelines: the device ladder in turns with the
     host ladder (1 B2 and 0 B1 a rung, one population for both),
     ``replay_check``, and the split route (B1, CHAIN_STEPS + 2 a rung) in
@@ -2512,25 +2531,17 @@ def phase_validate_targets(device, n_anchor: int, n_pipeline: int) -> dict:
         out[row] = {"kernels": validate_kernels(
             device, row, N_COUPLING, N_CHAIN, n_pipeline)}
         log(f"{row}: kernels against plain: {out[row]['kernels']}")
-    asps = {}
-    for row in VALIDATE_ROWS:
-        seeds = (1,) if row == "rosenbrock" else (1, 2, 3)
-        anchors = []
-        for seed in seeds:
-            _, asp = validate_aspire(device, row, seed)
-            asps.setdefault(row, asp)
-            anchors.append(validate_anchor(asp, n_anchor))
-        log_z, err = (combined_log_z([a["log_z"] for a in anchors],
-                                     [a["log_z_err"] for a in anchors], row)
-                      if len(anchors) > 1 else
-                      (anchors[0]["log_z"], anchors[0]["log_z_err"]))
-        out[row]["anchor"] = {"log_z": log_z, "log_z_err": err,
-                              "runs": anchors, "truth": out["truth"][row]}
-        log(f"{row} anchor, n={n_anchor}: {out[row]['anchor']}")
-        # benchmarks/validate.py's gate.
-        if not abs(log_z - out["truth"][row]) < max(5 * err, 0.02):
-            raise AssertionError(f"{row} anchor off the truth: "
-                                 f"{out[row]['anchor']}")
+    asps = {row: validate_aspire(device, row, 1)[1] for row in VALIDATE_ROWS}
+    anchor = validate_anchor(asps["rosenbrock"], n_anchor)
+    out["rosenbrock"]["anchor"] = {
+        "log_z": anchor["log_z"], "log_z_err": anchor["log_z_err"],
+        "runs": [anchor], "truth": out["truth"]["rosenbrock"]}
+    log(f"rosenbrock anchor, n={n_anchor}: {out['rosenbrock']['anchor']}")
+    # benchmarks/validate.py's gate.
+    if not abs(anchor["log_z"] - out["truth"]["rosenbrock"]) < max(
+            5 * anchor["log_z_err"], 0.02):
+        raise AssertionError(f"rosenbrock anchor off the truth: "
+                             f"{out['rosenbrock']['anchor']}")
 
     pipeline = dict(sampler="smc", n_samples=n_pipeline,
                     store_sample_history=False,
@@ -2559,6 +2570,331 @@ def phase_validate_targets(device, n_anchor: int, n_pipeline: int) -> dict:
         log(f"{row} pipelines, n={n_pipeline}: B2 {ladders}; split "
             f"{ladders_split}")
     return out
+
+
+#: The funnel row's flow-refit replicates as ``benchmarks/validate.py``
+#: asks for them (``replicated_evidence(3, refit_flow=True, ...)``).
+REPLICATES = 3
+#: ``phase_replicated``'s host pool: its workers, and the row chunks a
+#: likelihood call maps over them.
+POOL_WORKERS, POOL_CHUNKS = 4, 8
+
+
+def mixture_rows_log_likelihood(x):
+    """``GaussianMixtureProblem(dims)``'s log likelihood (its defaults:
+    means +2 and -2 in every dim, variances 0.5 and 1) of the rows of the
+    host array ``x``, in numpy and ``x``'s dtype: the function a host pool
+    maps (at module level, so a ``spawn`` worker imports it)."""
+    import numpy as np
+
+    d = x.shape[-1]
+    comps = [-0.5 * np.sum((x - mu) ** 2, axis=-1) / var
+             - 0.5 * d * math.log(2 * math.pi * var)
+             for mu, var in ((2.0, 0.5), (-2.0, 1.0))]
+    return (np.logaddexp(*comps) - math.log(2.0)).astype(x.dtype, copy=False)
+
+
+def pooled_mixture_log_likelihood(samples, map_fn=map):
+    """The mixture's likelihood as a user of ``Aspire.enable_pool`` writes
+    it: the rows to the host, ``mixture_rows_log_likelihood`` mapped over
+    POOL_CHUNKS chunks of them with ``map_fn`` (``pool.map`` within the
+    pool's block), the values handed back as numpy."""
+    import numpy as np
+
+    x = samples.x.detach().cpu().numpy()
+    return np.concatenate(list(map_fn(mixture_rows_log_likelihood,
+                                      np.array_split(x, POOL_CHUNKS))))
+
+
+def replicated_funnel(device, n: int) -> dict:
+    """``phase_replicated`` (a)-(c): a fresh funnel row (``validation_row``,
+    fitted as ``validate_aspire`` fits it) through ``replicated_evidence(
+    REPLICATES, refit_flow=True, fit_kwargs=VALIDATE_FIT)`` with SMC at n,
+    20-step tpCN and no sample history, each replicate's run recorded
+    (log Z, routes, B2 and B3 launches, whether its device ladder was
+    captured in that run and in how many seconds, its weights); then the
+    stale-graph check: a second fresh row whose flow is re-initialised at
+    replicate 1's seed and fitted alike, run once."""
+    import weakref
+
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch.flows.train import param_leaves
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    on_card = device.type == "cuda"
+    truth = funnel_truth()
+    run = dict(sampler="smc", n_samples=n, store_sample_history=False,
+               sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    _, asp, init = validation_row(device, "funnel", 1)
+    asp.fit(init, **VALIDATE_FIT)
+    flow = asp.flow
+    runs, weights = [], []
+    sample_posterior = asp.sample_posterior
+
+    def recorded(**kw):
+        """``asp.sample_posterior``, with what each replicate's run did."""
+        earlier = [weakref.ref(v[1]) for v in asp.ladder_cache.values()]
+        weights.append(torch.cat([t.detach().reshape(-1) for t in
+                                  param_leaves(asp.flow.params)]).cpu())
+        before, b3 = launch_counts(), FC.sampling_launches.count
+        t0 = time.perf_counter()
+        post = sample_posterior(**kw)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        routes = asp.sampler.history.mutation_route
+        lad = asp.sampler.ladder
+        runs.append({
+            "log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
+            "wall_s": wall, "routes": sorted(set(routes)),
+            "n_mutations": len(routes),
+            "launches": {k: v - before[k] for k, v in launch_counts().items()},
+            "b3": FC.sampling_launches.count - b3,
+            "config": FC.config_id(asp.flow.architecture),
+            "ladder": "host" if lad is None else "device",
+            "captured_here": lad is not None and lad.graph is not None
+            and all(r() is not lad for r in earlier),
+            "capture_s": None if lad is None else lad.capture_s})
+        log(f"funnel replicate {len(runs)}: {runs[-1]}")
+        return post
+
+    asp.sample_posterior = recorded
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        post = asp.replicated_evidence(REPLICATES, refit_flow=True,
+                                       fit_kwargs=dict(VALIDATE_FIT), **run)
+    finally:
+        del asp.sample_posterior
+    out = {"n": n, "truth": truth, "log_z": post.log_evidence,
+           "log_z_err": post.log_evidence_error,
+           "replicates": np.asarray(post.log_evidence_replicates).tolist(),
+           "single_run_err": post.log_evidence_error_single,
+           "call_s": time.perf_counter() - t0, "runs": runs,
+           "launches": launch_counts(),
+           "last_routes": sorted(set(asp.sampler.history.mutation_route)),
+           "same_flow_object": asp.flow is flow,
+           "distinct_weights": all(
+               not torch.equal(a, b) for i, a in enumerate(weights)
+               for b in weights[i + 1:])}
+    log(f"funnel replicated_evidence, n={n}: {out}")
+    # benchmarks/validate.py's gate, on the combined log Z and error.
+    if not abs(out["log_z"] - truth) < max(5 * out["log_z_err"], 0.02):
+        raise AssertionError(f"funnel replicates off the truth: {out}")
+    if (len(runs) != REPLICATES or out["replicates"] != [
+            r["log_z"] for r in runs] or len(set(out["replicates"])) == 1
+            or not out["same_flow_object"] or not out["distinct_weights"]
+            or out["last_routes"] != ["fused_kernel"]
+            or any(r["routes"] != ["fused_kernel"] for r in runs)):
+        raise AssertionError(f"funnel replicates: {out}")
+    if on_card and (
+            out["launches"]["chain"] != sum(r["n_mutations"] for r in runs)
+            or any(r["launches"]["chain"] != r["n_mutations"] or r["b3"] < 1
+                   or not r["captured_here"] for r in runs)):
+        raise AssertionError(f"funnel replicates' kernels: {out}")
+
+    # (c) No stale graph or packing: replicate 1's pipeline alone.
+    _, again, init = validation_row(device, "funnel", 1)
+    again.init_flow()
+    again.flow.reinitialize(1 + 101 + 0)
+    again.fit(init, **VALIDATE_FIT)
+    same = torch.equal(torch.cat([t.detach().reshape(-1) for t in
+                                  param_leaves(again.flow.params)]).cpu(),
+                       weights[0])
+    solo = again.sample_posterior(**run)
+    first = runs[0]
+    tol = max(5 * math.hypot(first["log_z_err"], solo.log_evidence_error),
+              0.15)
+    out["stale_check"] = {
+        "weights_bit_identical": same, "log_z": solo.log_evidence,
+        "log_z_err": solo.log_evidence_error,
+        "replicate_1_log_z": first["log_z"],
+        "log_z_bit_identical": solo.log_evidence == first["log_z"],
+        "tolerance": tol}
+    log(f"funnel replicate 1 alone: {out['stale_check']}")
+    if (same and solo.log_evidence != first["log_z"]) or (
+            abs(solo.log_evidence - first["log_z"]) >= tol):
+        raise AssertionError(f"replicate 1 alone: {out['stale_check']}")
+    out["anchor"] = {"log_z": out["log_z"], "log_z_err": out["log_z_err"],
+                     "runs": runs, "truth": truth}
+    return out
+
+
+def pooled_likelihood(device, n: int) -> dict:
+    """``phase_replicated`` (d): ``GaussianMixtureProblem(dims=4)`` with the
+    main path's nsf-tpu fit (as ``phase_uncapturable_target`` fits it) and
+    ``pooled_mixture_log_likelihood``, SMC at n with 20-step tpCN and no
+    sample history, with ``map_fn=map`` and then within
+    ``asp.enable_pool`` over a ``spawn`` pool of POOL_WORKERS: each run on
+    the host ladder (the likelihood hands back numpy, so it cannot be
+    captured) and the split route, B1 on every density pass and B3 on the
+    draw; the same log Z bit for bit, in the anchor's gate; the pool
+    closed and the likelihood restored on exit."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch import Aspire, PoolHandler, Samples
+    from aspire_tpu_torch.models import GaussianMixtureProblem
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    on_card = device.type == "cuda"
+    p = GaussianMixtureProblem(dims=4)
+    x = torch.as_tensor(p.draw_initial_samples(np.random.default_rng(1),
+                                               1000), dtype=torch.float32)
+    numpy_err = max_err(torch.as_tensor(mixture_rows_log_likelihood(
+        x.numpy())), p.log_likelihood(Samples(x)))
+    init = Samples(p.draw_initial_samples(np.random.default_rng(42), 4000))
+    asp = Aspire(log_likelihood=pooled_mixture_log_likelihood,
+                 log_prior=p.log_prior, dims=4, parameters=p.parameters,
+                 flow_backend="nsf", architecture="nsf-tpu", seed=1,
+                 device=device)
+    asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
+    run = dict(sampler="smc", n_samples=n, store_sample_history=False,
+               sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+
+    def timed_run():
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        post = asp.sample_posterior(**run)
+        if on_card:
+            torch.cuda.synchronize()
+        sampler = asp.sampler
+        routes = sampler.history.mutation_route
+        b3 = FC.sampling_launches.count
+        return post, {
+            "wall_s": time.perf_counter() - t0, "log_z": post.log_evidence,
+            "log_z_err": post.log_evidence_error,
+            "ladder": "host" if sampler.ladder is None else "device",
+            "capturable": sampler.target_is_capturable(),
+            "routes": sorted(set(routes)), "n_mutations": len(routes),
+            "b1": launch_counts()["coupling"] - b3, "b3": b3}
+
+    plain_post, plain = timed_run()
+    pool = multiprocessing.get_context("spawn").Pool(POOL_WORKERS)
+    with asp.enable_pool(pool) as handler:
+        is_handler = isinstance(handler, PoolHandler)
+        swapped = asp.log_likelihood is not pooled_mixture_log_likelihood
+        pooled_post, pooled = timed_run()
+    try:
+        pool.map(mixture_rows_log_likelihood, [x.numpy()])
+        closed = False
+    except ValueError:
+        closed = True
+    out = {"n": n, "map": plain, "pool": pooled, "workers": POOL_WORKERS,
+           "chunks": POOL_CHUNKS, "numpy_max_abs_err": numpy_err,
+           "truth": p.true_log_evidence(),
+           "log_z_bit_identical": pooled["log_z"] == plain["log_z"]
+           and torch.equal(pooled_post.x, plain_post.x),
+           "handler": is_handler and swapped, "pool_closed": closed,
+           "restored": asp.log_likelihood is pooled_mixture_log_likelihood}
+    log(f"pooled host likelihood, n={n}: {out}")
+    for name, r in (("map", plain), ("pool", pooled)):
+        if (r["ladder"], r["capturable"], r["routes"]) != (
+                "host", False, ["split"]) or (on_card and (
+                r["b1"] < (CHAIN_STEPS + 2) * r["n_mutations"]
+                or r["b3"] < 1)):
+            raise AssertionError(f"the {name} run of the pooled likelihood: "
+                                 f"{r}")
+    if not (out["log_z_bit_identical"] and out["handler"]
+            and out["pool_closed"] and out["restored"]
+            and numpy_err < 1e-4):
+        raise AssertionError(f"pooled host likelihood: {out}")
+    check_result(pooled_post, n, out["truth"])
+    return out
+
+
+def phase_replicated(device, n: int, n_pool: int) -> dict:
+    """The last single-device surface of the port:
+
+    (a) the funnel row through the port's ``Aspire.replicated_evidence``
+    at ``n`` (``replicated_funnel``), gated as ``benchmarks/validate.py``
+    gates it: |log Z - ``funnel_truth()``| < max(5 sigma, 0.02) on the
+    combination;
+    (b) every replicate on the card's kernels with its own weights: each
+    mutation one B2 launch (counted over the call), B3 for each
+    replicate's initial draws, a device ladder captured in each
+    replicate's run (its seconds), distinct log Z;
+    (c) no stale graph or packing: replicate 1's pipeline on a fresh
+    ``Aspire``, bit for bit where its fitted weights are, else within
+    max(5 combined sigma, 0.15);
+    (d) a host likelihood over a ``spawn`` pool (``pooled_likelihood``) at
+    ``n_pool``, bit for bit the run without the pool;
+    (e) ``Aspire.get_sampler_class`` for every key of the registry.
+    """
+    from aspire_tpu_torch import Aspire
+    from aspire_tpu_torch.samplers import SAMPLER_REGISTRY
+
+    out = {"funnel": replicated_funnel(device, n),
+           "pool": pooled_likelihood(device, n_pool)}
+    asp = Aspire(log_likelihood=None, log_prior=None, dims=2, device=device)
+    classes = {k: asp.get_sampler_class(k) is v
+               for k, v in SAMPLER_REGISTRY.items()}
+    out["registry"] = {"keys": len(classes), "all_match": all(
+        classes.values())}
+    if out["registry"] != {"keys": 18, "all_match": True}:
+        raise AssertionError(f"the sampler registry: {classes}")
+    return out
+
+
+def report_replicated(card: str, rep: dict, phase_s: float) -> None:
+    """Print ``phase_replicated``'s results and its seconds, a line each."""
+    f, c, pool = rep["funnel"], rep["funnel"]["stale_check"], rep["pool"]
+    per_replicate = "; ".join(
+        f"{r['n_mutations']} mutations, B2 {r['launches']['chain']}, B3 "
+        f"{r['b3']}, "
+        f"{r['ladder']} ladder captured in {r['capture_s']} s, run "
+        f"{r['wall_s']:.3f} s" for r in f["runs"])
+    print(f"[{card}] funnel replicated_evidence({REPLICATES}, refit_flow="
+          f"True), n={f['n']}: log Z {f['log_z']:.4f} +/- "
+          f"{f['log_z_err']:.4f} vs quadrature {f['truth']:.4f} (replicates "
+          f"{', '.join(f'{v:.4f}' for v in f['replicates'])}; single-run "
+          f"rms {f['single_run_err']:.4f}); call {f['call_s']:.1f} s; per "
+          f"replicate: {per_replicate}", flush=True)
+    print(f"[{card}] funnel replicate 1 alone (reinitialize({1 + 101}), "
+          f"fit, SMC): weights bit-identical {c['weights_bit_identical']}, "
+          f"log Z {c['log_z']:.6f} vs {c['replicate_1_log_z']:.6f} "
+          f"(bit-identical {c['log_z_bit_identical']}, tolerance "
+          f"{c['tolerance']:.4f})", flush=True)
+    m, p = pool["map"], pool["pool"]
+    print(f"[{card}] pooled host likelihood (mixture d=4, nsf-tpu, "
+          f"n={pool['n']}, {pool['workers']} spawn workers x "
+          f"{pool['chunks']} chunks): map_fn=map {m['wall_s']:.3f} s, pool "
+          f"{p['wall_s']:.3f} s; log Z {p['log_z']:.4f} +/- "
+          f"{p['log_z_err']:.4f} vs analytic {pool['truth']:.4f}, bit-"
+          f"identical {pool['log_z_bit_identical']}; {p['ladder']} ladder, "
+          f"{p['routes']} route, B1 {p['b1']} in {p['n_mutations']} "
+          f"mutations, B3 {p['b3']}", flush=True)
+    print(f"[{card}] phase_replicated: {phase_s:.1f} s (registry "
+          f"{rep['registry']['keys']} keys)", flush=True)
+
+
+def replicated_alone() -> dict:
+    """``phase_replicated`` alone after the kernels' build, its lines
+    printed; its seconds and each part's numbers."""
+    import torch
+
+    from aspire_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    _build.load_library()
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    rep = phase_replicated(device, N_VALIDATE, N_CHAIN)
+    phase_s = time.perf_counter() - t0
+    report_replicated(card_line(), rep, phase_s)
+    f = rep["funnel"]
+    return {"phase_s": phase_s, "log_z": f["log_z"],
+            "log_z_err": f["log_z_err"], "replicates": f["replicates"],
+            "capture_s": [r["capture_s"] for r in f["runs"]],
+            "stale_check": f["stale_check"],
+            "pool_s": rep["pool"]["pool"]["wall_s"],
+            "map_s": rep["pool"]["map"]["wall_s"]}
 
 
 #: A user's own target on B2 (``models/targets.py``'s protocol): Bayesian
@@ -5176,6 +5512,8 @@ def main() -> int:
                                              device, N_CHAIN)
     bounded = timed(phase_bounded_path, device, N_CHAIN, N_PIPELINE)
     validate = timed(phase_validate_targets, device, N_VALIDATE, N_PIPELINE)
+    replicated = timed(phase_replicated, device, N_VALIDATE, N_CHAIN)
+    validate["funnel"]["anchor"] = replicated["funnel"]["anchor"]
     user = timed(phase_user_target, device, N_CHAIN, N_PIPELINE)
     gradient = timed(phase_gradient_samplers, device, N_VALIDATE,
                      N_PIPELINE)
@@ -5238,6 +5576,7 @@ def main() -> int:
               f"{k['inverse_plain_ms']:.4f}); B2 {k['chain_ms']:.4f} ms "
               f"events, {k['chain_kernel_ms']:.4f} ms alone (plain "
               f"{k['chain_plain_ms']:.4f})", flush=True)
+    report_replicated(card, replicated, seconds["phase_replicated"])
     ul, us, ut, ub = (user["ladders"], user["ladders_split"], user["times"],
                       user["build"])
     print(f"[{card}] user target (polynomial regression, d=4, "
@@ -5673,5 +6012,9 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--checkpoint":
         print(card_line(), flush=True)
         print(json.dumps({"checkpoint": checkpoint_alone()}), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--replicated":
+        print(card_line(), flush=True)
+        print(json.dumps({"replicated": replicated_alone()}), flush=True)
         sys.exit(0)
     sys.exit(main())

@@ -133,3 +133,13 @@ def test_bounded_split_chain_is_captured(cuda):
     assert asp.sampler.ladder.graph is not None
     assert set(asp.sampler.history.mutation_route) == {"split"}
     chip_smoke.check_result(post, 8192, p.true_log_evidence)
+
+
+def test_a_numpy_likelihood_runs_on_the_card(cuda):
+    """A host likelihood that hands back numpy (as a pooled one does): its
+    values are put on the particles' device in every density the split
+    chain evaluates, the run takes the host ladder, and a ``spawn`` pool
+    gives the run without it bit for bit (``chip_smoke.pooled_likelihood``
+    at n = 8192)."""
+    out = chip_smoke.pooled_likelihood(cuda, 8192)
+    assert out["log_z_bit_identical"] and out["pool"]["ladder"] == "host"
