@@ -46,7 +46,7 @@ logger = logging.getLogger("aspire_tpu_torch")
 
 #: keywords of the JAX package's sampler constructors the port does not
 #: implement: given to ``sample_posterior`` they raise, never dropped
-UNPORTED_SAMPLER_INIT_KWARGS = ("mesh", "prng_impl", "resampling_impl")
+UNPORTED_SAMPLER_INIT_KWARGS = ("prng_impl",)
 
 
 class Aspire:
@@ -308,7 +308,9 @@ class Aspire:
         continuation (``resume_from_file``, ``auto_checkpoint(resume=True)``)
         resumes the recorded sampler with the recorded ``n_samples``.
 
-        As in the JAX package, keywords that neither the sampler's
+        As in the JAX package, the sampler constructor's keywords (SMC's
+        ``mesh`` and ``resampling_impl`` among them) go to the sampler,
+        keywords that neither the sampler's
         constructor nor its ``sample`` takes are dropped with a warning;
         the JAX package's constructor keywords the port lacks
         (``UNPORTED_SAMPLER_INIT_KWARGS``) raise ``TypeError``."""

@@ -113,6 +113,12 @@ class Flow:
         z = standard_normal_sample(
             (n, self.dims), generator or self.generator, dtype=self.dtype,
             device=self.device)
+        return self.from_latent(z)
+
+    def from_latent(self, z: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The samples of latent draws ``z ~ N(0, I)`` and their log
+        density (:meth:`sample_and_log_prob` given its draws)."""
         x_t, log_det = self.architecture.inverse(self.params, z)
         log_q = standard_normal_log_prob(z) - log_det
         x, log_j = self.data_transform.inverse(x_t)
@@ -125,8 +131,12 @@ class Flow:
         z, log_det = self.architecture.forward(params, batch)
         return -torch.mean(standard_normal_log_prob(z) + log_det)
 
-    def fit(self, x, **kwargs):
-        """Fit the data transform, then train by maximum likelihood."""
+    def fit(self, x, sharding=None, **kwargs):
+        """Fit the data transform, then train by maximum likelihood.
+        ``sharding`` (:func:`~aspire_tpu_torch.parallel.mesh.
+        particle_sharding`) trains data-parallel over its mesh, every rank
+        passing the whole ``x`` (:func:`~aspire_tpu_torch.flows.train.
+        fit_flow`)."""
         x_t = self.data_transform.fit(self._as(x))
         for old, new in _FIT_ALIASES.items():
             if old in kwargs:
@@ -146,7 +156,8 @@ class Flow:
         config = TrainConfig(**{k: v for k, v in kwargs.items()
                                 if k in fields})
         self.params, history = fit_flow(
-            self.loss_fn, self.params, x_t, self.generator, config)
+            self.loss_fn, self.params, x_t, self.generator, config,
+            sharding=sharding)
         return history
 
     # -- persistence -------------------------------------------------------

@@ -215,6 +215,19 @@ class FlowMatching(Flow):
             },
         }
 
+    def fit(self, x, sharding=None, **kwargs):
+        """:meth:`Flow.fit`; data-parallel training over a mesh of more
+        than one rank waits for the CFM loss's draws to be made at the
+        global batch's shape, as the SMC's are."""
+        if (sharding is not None and not sharding.replicated
+                and sharding.mesh.size > 1):
+            from ..samplers.base import MESH_SLICE_II
+
+            raise NotImplementedError(
+                "FlowMatching.fit(sharding=...) on a mesh of more than one "
+                f"rank {MESH_SLICE_II}")
+        return super().fit(x, sharding=sharding, **kwargs)
+
     def loss_fn(self, params, batch) -> torch.Tensor:
         """The CFM loss at fresh draws of ``t ~ U(0, 1)`` and ``x0 ~ N(0,
         I)`` from the flow's generator: each training batch and each

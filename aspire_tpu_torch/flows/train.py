@@ -108,12 +108,36 @@ def clone_params(params):
     return [clone_params(v) for v in params]
 
 
+def _sharded_mean(loss: torch.Tensor, grads, mesh):
+    """The means over the ranks of this rank's loss and gradients (every
+    rank's the same bits): one exchange of all of them."""
+    from ..parallel.mesh import all_reduce
+
+    flat = torch.cat([loss.detach().reshape(1),
+                      *(g.reshape(-1) for g in grads)])
+    flat = all_reduce(flat, mesh) / mesh.size
+    out, at = [], 1
+    for g in grads:
+        out.append(flat[at:at + g.numel()].reshape(g.shape))
+        at += g.numel()
+    return flat[0], out
+
+
 def fit_flow(loss_fn: Callable, params: dict, x: torch.Tensor,
-             generator: torch.Generator, config: TrainConfig
-             ) -> tuple[dict, FlowHistory]:
+             generator: torch.Generator, config: TrainConfig,
+             sharding=None) -> tuple[dict, FlowHistory]:
     """Minimise ``loss_fn(params, batch)``; returns (best params, history).
     A loss that draws (the CNF's) draws from its own generator at every
-    call, the validation loss's included."""
+    call, the validation loss's included.
+
+    ``sharding`` (:func:`~aspire_tpu_torch.parallel.mesh.particle_sharding`)
+    trains data-parallel over its mesh: every rank passes the whole ``x``
+    and shuffles it alike on its generator; the training and validation
+    sets are trimmed to a multiple of the mesh size (as the JAX package
+    trims them), ``batch_size`` is the global batch (it must divide by the
+    mesh size), each rank takes its rows of every batch and of the
+    validation set, and the losses and gradients are averaged over the
+    ranks, so the parameters stay the same on every rank bit for bit."""
     if not bool(torch.isfinite(x).all()):
         raise ValueError("Training data contains NaN or inf values")
     n = x.shape[0]
@@ -123,6 +147,20 @@ def fit_flow(loss_fn: Callable, params: dict, x: torch.Tensor,
     x_train, x_val = x[n_val:], x[:n_val]
     batch_size = min(config.batch_size, n_train)
     n_batches = max(n_train // batch_size, 1)
+    mesh, val_sharded = None, False
+    if sharding is not None and not sharding.replicated:
+        mesh = sharding.mesh
+        n_train = (n_train // mesh.size) * mesh.size
+        x_train = x_train[:n_train]
+        batch_size = min(config.batch_size, n_train)
+        if batch_size % mesh.size:
+            raise ValueError(
+                f"batch_size ({batch_size}) must be divisible by the mesh "
+                f"size ({mesh.size}): each rank takes its rows of a batch")
+        n_batches = max(n_train // batch_size, 1)
+        n_val_even = (n_val // mesh.size) * mesh.size
+        if n_val_even:
+            x_val, val_sharded = mesh.local_rows(x_val[:n_val_even]), True
 
     params = clone_params(params)
     leaves = param_leaves(params)
@@ -138,17 +176,24 @@ def fit_flow(loss_fn: Callable, params: dict, x: torch.Tensor,
             n_batches, batch_size, -1)
         losses = []
         for batch in batches:
+            if mesh is not None:
+                batch = mesh.local_rows(batch)
             # Autograd on also when the caller has it off (a flow
             # preconditioning fits inside an SMC mutation).
             with torch.enable_grad():
                 loss = loss_fn(params, batch)
                 grads = torch.autograd.grad(loss, leaves)
+            if mesh is not None:
+                loss, grads = _sharded_mean(loss, grads, mesh)
             opt.step(list(grads))
             losses.append(loss.detach())
         train_loss = float(torch.stack(losses).mean())
         if n_val:
             with torch.no_grad():
-                val_loss = float(loss_fn(params, x_val))
+                val = loss_fn(params, x_val)
+                if val_sharded:
+                    val = _sharded_mean(val, (), mesh)[0]
+                val_loss = float(val)
         else:
             val_loss = train_loss
         history.training_loss.append(train_loss)

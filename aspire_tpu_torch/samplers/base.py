@@ -6,7 +6,9 @@ Counterpart of ``aspire_tpu/samplers/base.py``. The sampler owns the user
 ``log_likelihood``/``log_prior`` callables (each takes a view with ``.x``
 of shape ``(n, d)`` and returns ``(n,)``), the flow proposal, the
 preconditioning transform, its device and a ``torch.Generator`` seeded
-from ``rng``.
+from ``rng``. With a ``mesh`` (:mod:`aspire_tpu_torch.parallel.mesh`, whose
+docstring gives the model of execution) the device is the mesh's and the
+particle arrays are sharded over its ranks (:meth:`Sampler.shard_array`).
 
 A checkpoint state is a dict of host data only (numpy arrays, Python
 scalars, the port's history and samples with numpy fields), so it
@@ -34,6 +36,10 @@ from ..samples import Samples
 from ..utils import dtype_name, function_id, resolve_dtype
 
 logger = logging.getLogger("aspire_tpu_torch")
+
+#: what a run on a mesh of more than one rank cannot do yet
+MESH_SLICE_II = ("waits for the second multi-device slice of the port "
+                 "(ROADMAP A item 2 (ii))")
 
 
 def combine_replicates(result, logzs, errs, label: str):
@@ -137,6 +143,7 @@ class Sampler:
         preconditioning_transform=None,
         rng: Any = None,
         device: Any = None,
+        mesh: Any = None,
     ):
         self.log_likelihood = log_likelihood
         self.log_prior = log_prior
@@ -145,13 +152,81 @@ class Sampler:
         self.dtype = resolve_dtype(dtype)
         self.parameters = parameters
         self.preconditioning_transform = preconditioning_transform
+        self.mesh = mesh
         self.device = torch.device(
             device if device is not None else prior_flow.device)
+        if mesh is not None:
+            self.device = self._mesh_device(mesh)
         self.generator = make_generator(rng, self.device)
         self.n_likelihood_evaluations = 0
         self._capturable_target = None
         self._differentiable_target = None
         self._call_history: dict = {}
+
+    def _mesh_device(self, mesh) -> torch.device:
+        """The mesh's device, which the flow's must be (a bare ``"cuda"``
+        is the current card)."""
+        def placed(d):
+            d = torch.device(d)
+            if d.type == "cuda" and d.index is None:
+                return torch.device("cuda", torch.cuda.current_device())
+            return d
+
+        if placed(self.prior_flow.device) != mesh.device:
+            raise ValueError(
+                f"the flow is on {self.prior_flow.device} and the mesh's "
+                f"rank {mesh.rank} on {mesh.device}: build the flow (the "
+                "Aspire) on the mesh's device")
+        return mesh.device
+
+    # -- sharding ------------------------------------------------------------
+
+    def shard_array(self, x):
+        """This rank's rows of ``x`` where its leading (particle) axis
+        divides by the mesh size; ``x`` itself otherwise or without a
+        mesh."""
+        if self.mesh is None or x.dim() < 1 or x.shape[0] % self.mesh.size:
+            return x
+        return self.mesh.local_rows(x)
+
+    def multiprocess(self) -> bool:
+        """True on a mesh of more than one rank."""
+        return self.mesh is not None and self.mesh.size > 1
+
+    def refuse_multiprocess(self, what: str) -> None:
+        """Raise ``NotImplementedError`` naming ``what`` on a mesh of more
+        than one rank."""
+        if self.multiprocess():
+            raise NotImplementedError(
+                f"{what} on a mesh of more than one rank {MESH_SLICE_II}")
+
+    def check_replicated_flow(self) -> None:
+        """On a mesh of more than one rank: raise ``ValueError`` unless
+        every rank's flow parameters and data transform (the tensors the
+        device ladder's cache compares) are bit-identical. One all-gather
+        of a float64 digest per tensor; nothing is broadcast."""
+        if not self.multiprocess():
+            return
+        from ..flows.train import param_leaves
+        from ..parallel.mesh import all_gather_rows
+        from .smc import _tensors_of
+
+        flow = self.prior_flow
+        digests = [float(int.from_bytes(hashlib.sha256(
+            t.detach().cpu().numpy().tobytes()).digest()[:6], "little"))
+            for t in (*param_leaves(flow.params),
+                      *_tensors_of(flow.data_transform))]
+        mine = torch.tensor(digests, dtype=torch.float64,
+                            device=self.device)
+        every = all_gather_rows(mine[None], self.mesh)
+        differ = [r for r in range(self.mesh.size)
+                  if not torch.equal(every[r], every[0])]
+        if differ:
+            raise ValueError(
+                f"the flow differs between ranks: ranks {differ} hold "
+                "parameters or a data transform other than rank 0's (every "
+                "rank must hold the same flow: fit it with the same seed "
+                "and data, or load the same weights)")
 
     def _make_view(self, x) -> _SamplesView:
         return _SamplesView(x, parameters=self.parameters)

@@ -11,6 +11,13 @@ MAF kernel evaluates it (a gradient kernel's backward recomputes through
 the plain path, as the JAX package's ``custom_vjp`` does). The whole-chain
 kernel (:mod:`aspire_tpu_torch.ops.fused_mutation`) replaces this loop
 where its predicate holds.
+
+Every function that draws for or reduces over the particles takes a
+``mesh`` (None: one process, the code as it was): with one, ``x`` holds
+this rank's rows, each draw is made at the whole population's shape and
+the rank keeps its rows, and each reduction over the particles is made on
+the gathered whole (:mod:`aspire_tpu_torch.parallel.mesh`), so every rank
+makes the one-process run's draws and sums.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..parallel.mesh import all_gather_rows
 
 
 @dataclass
@@ -52,11 +61,31 @@ class ChainStats(NamedTuple):
     mixing: torch.Tensor
 
 
-def gaussian_reference_info(x: torch.Tensor, jitter: float = 1e-6
+def _gathered(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole population of this rank's rows ``x`` (``x`` without a
+    mesh)."""
+    return x if mesh is None else all_gather_rows(x, mesh)
+
+
+def _rows(full: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a draw made at the whole population's shape
+    (all of it without a mesh)."""
+    return full if mesh is None else mesh.local_rows(full)
+
+
+def _whole_count(n: int, mesh) -> int:
+    """The whole population's row count of this rank's ``n``."""
+    return n if mesh is None else n * mesh.size
+
+
+def gaussian_reference_info(x: torch.Tensor, jitter: float = 1e-6,
+                            mesh=None
                             ) -> tuple[GaussianReference, torch.Tensor]:
     """Ensemble mean and covariance of the particles, and ``cholesky_ex``'s
     ``info`` (0 where the covariance factorised), with no host sync: the
-    device ladder carries ``info`` into its fault flags."""
+    device ladder carries ``info`` into its fault flags. On a mesh, of the
+    gathered population (the same on every rank)."""
+    x = _gathered(x, mesh)
     mean = torch.mean(x, dim=0)
     xc = x - mean
     eye = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
@@ -134,9 +163,14 @@ def _gamma_rejection(generator, alpha: float, n: int, dtype, device):
     return out
 
 
-def gamma_fixed_shape(generator, alpha: float, n: int, dtype, device):
+def gamma_fixed_shape(generator, alpha: float, n: int, dtype, device,
+                      mesh=None):
     """Gamma(alpha, 1); for integer ``2 alpha`` the closed construction
-    ``sum of floor(alpha) exponentials (+ half a squared normal)``."""
+    ``sum of floor(alpha) exponentials (+ half a squared normal)``. On a
+    mesh, ``n`` of the whole population's ``n S`` variates, this rank's."""
+    if mesh is not None:
+        return mesh.local_rows(gamma_fixed_shape(
+            generator, alpha, n * mesh.size, dtype, device))
     k = int(round(2.0 * alpha))
     if abs(2.0 * alpha - k) > 1e-9 or k <= 0:
         return _gamma_rejection(generator, alpha, n, dtype, device)
@@ -180,21 +214,39 @@ def _randint(generator, low: int, high: int, shape, like):
                          device=like.device)
 
 
+def _normal_rows(generator, like, mesh):
+    """:func:`_normal` of ``like``'s shape; on a mesh drawn at the whole
+    population's shape (as a stride-0 view of ``like``, nothing
+    allocated), this rank's rows kept."""
+    if mesh is not None:
+        like = like[:1].expand(_whole_count(like.shape[0], mesh),
+                               *like.shape[1:])
+    return _rows(_normal(generator, like), mesh)
+
+
+def _uniform_rows(generator, n: int, like, mesh):
+    """:func:`_uniform` of ``n`` values; on a mesh of the whole
+    population's count, this rank's ``n`` kept."""
+    return _rows(_uniform(generator, _whole_count(n, mesh), like), mesh)
+
+
 def mh_update(state: ChainState, generator, x_prop, lp_prop, log_alpha, *,
               target_acceptance: float, adaptation_rate: float,
               max_log_step: float = 0.0, grad_prop=None,
-              eval_amount=None) -> ChainState:
+              eval_amount=None, mesh=None) -> ChainState:
     """NaN guard, accept/select and step adaptation, shared by kernels
     (the JAX package's ``_mh_update``): a NaN ``log_alpha`` (a NaN density
     or gradient) is a rejection. ``grad_prop`` is selected with the
     positions; ``eval_amount`` (a number or a 0-d tensor) is the step's
-    target evaluations, n by default."""
+    target evaluations, n by default (this rank's rows on a mesh, whose
+    step size adapts to the whole population's mean acceptance)."""
     n = state.x.shape[0]
     log_alpha = torch.where(torch.isnan(log_alpha),
                             torch.full_like(log_alpha, -math.inf), log_alpha)
-    u = _uniform(generator, n, state.x)
+    u = _uniform_rows(generator, n, state.x, mesh)
     accept = torch.log(u) < log_alpha
-    acc_prob = torch.mean(torch.exp(torch.clamp(log_alpha, max=0.0)))
+    acc_prob = torch.mean(torch.exp(torch.clamp(_gathered(log_alpha, mesh),
+                                                max=0.0)))
     grad = state.grad
     if grad_prop is not None:
         grad = torch.where(accept[:, None], grad_prop, state.grad)
@@ -212,10 +264,10 @@ def mh_update(state: ChainState, generator, x_prop, lp_prop, log_alpha, *,
 
 def pcn_step(state: ChainState, generator, log_prob_fn: Callable,
              ref: GaussianReference, target_acceptance: float = 0.234,
-             adaptation_rate: float = 0.1) -> ChainState:
+             adaptation_rate: float = 0.1, mesh=None) -> ChainState:
     """pCN under N(mean, chol chol^T)."""
     s = torch.clamp(state.step_size, max=1.0)
-    xi = _normal(generator, state.x)
+    xi = _normal_rows(generator, state.x, mesh)
     x_prop = (ref.mean
               + torch.sqrt(torch.clamp(1 - s**2, min=0.0))
               * (state.x - ref.mean) + s * xi @ ref.chol.T)
@@ -224,22 +276,22 @@ def pcn_step(state: ChainState, generator, log_prob_fn: Callable,
         mahalanobis_sq(ref, x_prop) - mahalanobis_sq(ref, state.x))
     return mh_update(state, generator, x_prop, lp_prop, log_alpha,
                      target_acceptance=target_acceptance,
-                     adaptation_rate=adaptation_rate)
+                     adaptation_rate=adaptation_rate, mesh=mesh)
 
 
 def tpcn_step(state: ChainState, generator, log_prob_fn: Callable,
               ref: GaussianReference, nu: float = 5.0,
               target_acceptance: float = 0.234,
-              adaptation_rate: float = 0.1) -> ChainState:
+              adaptation_rate: float = 0.1, mesh=None) -> ChainState:
     """t-preconditioned Crank-Nicolson (scale mixture of pCN steps)."""
     n, d = state.x.shape
     s = torch.clamp(state.step_size, max=1.0)
     r2_old = mahalanobis_sq(ref, state.x)
     alpha_gamma = 0.5 * (nu + d)
     w = gamma_fixed_shape(generator, alpha_gamma, n, state.x.dtype,
-                          state.x.device)
+                          state.x.device, mesh=mesh)
     w = w / (0.5 * (nu + r2_old))
-    xi = _normal(generator, state.x)
+    xi = _normal_rows(generator, state.x, mesh)
     x_prop = (ref.mean
               + torch.sqrt(torch.clamp(1 - s**2, min=0.0))
               * (state.x - ref.mean)
@@ -250,29 +302,30 @@ def tpcn_step(state: ChainState, generator, log_prob_fn: Callable,
         torch.log(nu + r2_new) - torch.log(nu + r2_old))
     return mh_update(state, generator, x_prop, lp_prop, log_alpha,
                      target_acceptance=target_acceptance,
-                     adaptation_rate=adaptation_rate)
+                     adaptation_rate=adaptation_rate, mesh=mesh)
 
 
 def rwmh_step(state: ChainState, generator, log_prob_fn: Callable,
               ref: GaussianReference, target_acceptance: float = 0.234,
-              adaptation_rate: float = 0.1) -> ChainState:
+              adaptation_rate: float = 0.1, mesh=None) -> ChainState:
     """Gaussian random walk with the ensemble-covariance proposal."""
-    xi = _normal(generator, state.x)
+    xi = _normal_rows(generator, state.x, mesh)
     x_prop = state.x + state.step_size * xi @ ref.chol.T
     lp_prop = log_prob_fn(x_prop)
     return mh_update(state, generator, x_prop, lp_prop,
                      lp_prop - state.log_prob,
                      target_acceptance=target_acceptance,
-                     adaptation_rate=adaptation_rate, max_log_step=2.3)
+                     adaptation_rate=adaptation_rate, max_log_step=2.3,
+                     mesh=mesh)
 
 
 def mala_step(state: ChainState, generator, value_and_grad_fn: Callable,
               target_acceptance: float = 0.574,
-              adaptation_rate: float = 0.1) -> ChainState:
+              adaptation_rate: float = 0.1, mesh=None) -> ChainState:
     """Metropolis-adjusted Langevin; the gradients ride in the state.
     ``value_and_grad_fn(x)`` returns ``(log_prob, grad)``."""
     eps = state.step_size
-    xi = _normal(generator, state.x)
+    xi = _normal_rows(generator, state.x, mesh)
     mean_fwd = state.x + 0.5 * eps**2 * state.grad
     x_prop = mean_fwd + eps * xi
     lp_prop, grad_prop = value_and_grad_fn(x_prop)
@@ -283,13 +336,13 @@ def mala_step(state: ChainState, generator, value_and_grad_fn: Callable,
     return mh_update(state, generator, x_prop, lp_prop, log_alpha,
                      target_acceptance=target_acceptance,
                      adaptation_rate=adaptation_rate, max_log_step=2.3,
-                     grad_prop=grad_prop)
+                     grad_prop=grad_prop, mesh=mesh)
 
 
 def hmc_step(state: ChainState, generator, value_and_grad_fn: Callable,
              n_leapfrog: int = 10, target_acceptance: float = 0.651,
              adaptation_rate: float = 0.05,
-             jitter_trajectory: bool = False) -> ChainState:
+             jitter_trajectory: bool = False, mesh=None) -> ChainState:
     """Hamiltonian step of ``n_leapfrog`` leapfrog integrations; the last
     one's evaluation is the proposal's (``n_leapfrog`` evaluations a step,
     not ``n_leapfrog + 1``).
@@ -303,7 +356,7 @@ def hmc_step(state: ChainState, generator, value_and_grad_fn: Callable,
     """
     n = state.x.shape[0]
     eps = state.step_size
-    p0 = _normal(generator, state.x)
+    p0 = _normal_rows(generator, state.x, mesh)
     length = (_randint(generator, 1, n_leapfrog + 1, (), state.x)
               if jitter_trajectory else None)
     x, p, grad, lp = state.x, p0, state.grad, state.log_prob
@@ -326,7 +379,7 @@ def hmc_step(state: ChainState, generator, value_and_grad_fn: Callable,
                      adaptation_rate=adaptation_rate, max_log_step=2.3,
                      grad_prop=grad,
                      eval_amount=(n_leapfrog * n if length is None
-                                  else length * n))
+                                  else length * n), mesh=mesh)
 
 
 # NUTS (iterative, bounded depth): the JAX package's per-particle tree
@@ -671,7 +724,8 @@ def pool_chain(chain: torch.Tensor) -> torch.Tensor:
 
 def run_chain(step_fn: Callable[[ChainState], ChainState],
               state: ChainState, n_steps: int, store_chain: bool = False,
-              windowed_tau: bool = False, tau_walkers: int | None = None):
+              windowed_tau: bool = False, tau_walkers: int | None = None,
+              mesh=None):
     """Run ``n_steps`` steps, tracking the online AR(1)/mixing sums.
 
     Returns ``(final_state, ChainStats)``, and with ``store_chain`` the
@@ -681,6 +735,11 @@ def run_chain(step_fn: Callable[[ChainState], ChainState],
     (:func:`sokal_tau_from_chain`) instead of the AR(1) surrogate: from the
     stored chain, or without one from the ``tau_walkers`` subset
     (:func:`tau_walker_indices`), stored at every step.
+
+    On a mesh the state holds this rank's rows and the stored chain is its
+    walkers; the statistics are of the whole population: the sums and
+    chains are gathered once, after the last step, and the walker subset
+    is the one-process run's, each rank storing the walkers it holds.
     """
     if windowed_tau and not (store_chain or tau_walkers):
         raise ValueError("windowed_tau requires either store_chain=True or "
@@ -690,9 +749,17 @@ def run_chain(step_fn: Callable[[ChainState], ChainState],
     s1, s2, c1 = prev_d.clone(), prev_d.clone(), prev_d.clone()
     chain = (torch.empty((n_steps, *x0.shape), dtype=x0.dtype,
                          device=x0.device) if store_chain else None)
-    sub_idx = sub_chain = None
+    sub_idx = sub_chain = sub_counts = None
     if windowed_tau and not store_chain:
-        sub_idx = tau_walker_indices(x0.shape[0], tau_walkers, x0.device)
+        sub_idx = tau_walker_indices(_whole_count(x0.shape[0], mesh),
+                                     tau_walkers, x0.device)
+        if mesh is not None:
+            # the subset's walkers this rank holds, and each rank's count
+            n_loc = x0.shape[0]
+            owner = sub_idx // n_loc
+            sub_counts = [int(c) for c in torch.bincount(
+                owner, minlength=mesh.size).tolist()]
+            sub_idx = sub_idx[owner == mesh.rank] - mesh.rank * n_loc
         sub_chain = torch.empty((n_steps, len(sub_idx), x0.shape[1]),
                                 dtype=x0.dtype, device=x0.device)
     for i in range(n_steps):
@@ -706,12 +773,31 @@ def run_chain(step_fn: Callable[[ChainState], ChainState],
         s2 = s2 + delta**2
         c1 = c1 + delta * prev_d
         prev_d = delta
+    x0_all = x0
+    if mesh is not None:
+        x0_all, s1, s2, c1 = (t.contiguous() for t in _gathered(
+            torch.cat([x0, s1, s2, c1], dim=1), mesh).split(x0.shape[1],
+                                                            dim=1))
     if not windowed_tau:
         tau = lag1_autocorr_time(s1, s2, c1, n_steps)
     elif store_chain:
-        tau = sokal_tau_from_chain(chain, x0)
+        tau = sokal_tau_from_chain(_gathered_walkers(chain, mesh), x0_all)
     else:
-        tau = sokal_tau_from_chain(sub_chain, x0[sub_idx])
+        sub, sub0 = sub_chain, x0[sub_idx]
+        if mesh is not None:
+            both = all_gather_rows(torch.cat([sub0[None], sub]).transpose(
+                0, 1), mesh, sub_counts).transpose(0, 1)
+            sub0, sub = both[0].contiguous(), both[1:].contiguous()
+        tau = sokal_tau_from_chain(sub, sub0)
     stats = ChainStats(tau=tau,
-                       mixing=chain_mixing_ratio(x0, s1, s2, n_steps))
+                       mixing=chain_mixing_ratio(x0_all, s1, s2, n_steps))
     return (state, stats, chain) if store_chain else (state, stats)
+
+
+def _gathered_walkers(chain: torch.Tensor, mesh) -> torch.Tensor:
+    """A stored ``(k, n, d)`` chain of this rank's walkers as the whole
+    population's (walkers in rank order)."""
+    if mesh is None:
+        return chain
+    return all_gather_rows(chain.transpose(0, 1), mesh).transpose(
+        0, 1).contiguous()

@@ -159,6 +159,7 @@ class MCMCSampler(Sampler):
         """Draw, precondition, run ``n_steps`` steps of ``make_step(
         log_prob_fn, z)`` from every walker and finish the chain; the
         evaluations the JAX package counts, (n_steps + 1) n."""
+        self.refuse_multiprocess(f"{type(self).__name__}'s walker sharding")
         init = self.draw_initial_samples(n_samples)
         z = self.fit_preconditioning_transform(init.x)
         log_prob_fn = self.make_log_prob()
@@ -572,6 +573,7 @@ class ParallelTemperedSampler(MCMCSampler):
         ``resume_from`` (that file) continues the run from its last state:
         the result is the uninterrupted run's, bit for bit, and the
         finished rounds are not paid for again."""
+        self.refuse_multiprocess("ParallelTemperedSampler's walker sharding")
         if n_steps < swap_every:
             raise ValueError(
                 f"n_steps ({n_steps}) must be at least swap_every "

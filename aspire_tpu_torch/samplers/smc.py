@@ -32,6 +32,15 @@ Either ladder checkpoints every ``checkpoint_every`` temperatures (host
 data only: :meth:`Sampler.build_checkpoint_state`), the device ladder
 between replays (nothing is added to the captured rung), and a run resumes
 from a checkpoint's file, bytes or dict on either ladder.
+
+On a mesh (``mesh=``, :mod:`aspire_tpu_torch.parallel.mesh`) the host ladder
+runs SPMD over the ranks: each holds a block of the population's rows, the
+statistics and the resampling index are computed by every rank alike from
+gathered vectors, ``resampling_impl`` moves the resampled rows, and every
+mutation takes the split chain (as the JAX package's does on a mesh). The
+device ladder, checkpoints, sample history, resuming and the samplers whose
+moves span the population (``emcee_smc``, ``nuts_smc``) raise on a mesh of
+more than one rank: they wait for the second multi-device slice.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ import numpy as np
 import torch
 
 from ..flows.architectures import Coupling
+from ..flows.bijectors import standard_normal_sample
 from ..flows.train import param_leaves
 from ..history import SMCHistory
 from ..models.targets import KernelSource
@@ -56,10 +66,11 @@ from ..ops import fused_mutation as FM
 from ..ops._build import add_launches, launch_counts, load_user_library
 from ..ops.resampling import get_resampler
 from ..ops.special import effective_sample_size
+from ..parallel.mesh import all_gather_rows, all_reduce
 from ..samples import Samples, SMCSamples, incremental_log_weights
 from ..transforms import BaseTransform, get_transform_class
 from ..utils import track_calls
-from .base import Sampler
+from .base import MESH_SLICE_II, Sampler
 from . import kernels as K
 
 logger = logging.getLogger("aspire_tpu_torch")
@@ -320,9 +331,13 @@ class SMCSampler(Sampler):
     default_sampler_kwargs: dict = {}
 
     def __init__(self, *args, resampling_method: str = "systematic",
+                 resampling_impl: str = "auto",
                  ladder_cache: dict | None = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.resampling_method = resampling_method
+        #: how a mesh's resampling moves rows: "auto" (a gather), "ring"
+        #: or "alltoall" (:meth:`SMCSamples.resample`)
+        self.resampling_impl = resampling_impl
         self.ladder_cache = {} if ladder_cache is None else ladder_cache
         self.history = SMCHistory()
         self.sampler_kwargs: dict = {}
@@ -406,8 +421,9 @@ class SMCSampler(Sampler):
 
     # -- mutation ----------------------------------------------------------
 
-    def _kernel_step_builder(self, log_prob_fn, ref, generator):
-        """Return ``(step_fn, init_step, needs_grad)``; overridden."""
+    def _kernel_step_builder(self, log_prob_fn, ref, generator, mesh=None):
+        """Return ``(step_fn, init_step, needs_grad)``, the steps drawing
+        and reducing over ``mesh`` (this rank's rows); overridden."""
         raise NotImplementedError
 
     def _fused_kernel_config(self, kwargs) -> dict | None:
@@ -448,7 +464,7 @@ class SMCSampler(Sampler):
 
         Mirrors the JAX package's ``_fused_chain_spec``: no waste-free
         pooling, windowed tau or flow moves (the kernel stores no chain and
-        has no flow draw), a coupling flow
+        has no flow draw), no mesh, a coupling flow
         (a MAF always takes the split chain, on every device), float32, a
         data transform and a preconditioning transform (or none) that lower
         to programs (``FM.canonicalize_transform``: identity, affine,
@@ -463,7 +479,8 @@ class SMCSampler(Sampler):
         any CUDA graph capture.
         """
         if (kwargs.get("fused_chain", "auto") in (False, "off")
-                or waste_free or windowed_tau or kwargs.get("flow_moves")):
+                or waste_free or windowed_tau or kwargs.get("flow_moves")
+                or self.mesh is not None):
             return None
         arch = self.prior_flow.architecture
         if not isinstance(arch, Coupling):
@@ -533,13 +550,14 @@ class SMCSampler(Sampler):
 
     def _make_flow_imh_step(self, local_step: Callable, log_prob_fn,
                             beta, flow_moves: int, needs_grad: bool,
-                            generator) -> Callable:
+                            generator, mesh=None) -> Callable:
         """The local kernel mixed with the flow's independence move (the
         JAX package's ``_make_flow_imh_step``; :func:`K.mix_flow_moves`):
         the proposal is a fresh draw of the flow (its sampling pass, the
         coupling kernel on a CUDA batch), scored by :func:`K.flow_imh_move`.
         Runs without preconditioning, so the chain's space is the data
-        space."""
+        space. On a mesh the latent normals and the uniforms are drawn for
+        the whole population and the rank's rows kept."""
         flow = self.prior_flow
 
         def target_fn(x):
@@ -553,8 +571,15 @@ class SMCSampler(Sampler):
 
         def imh_step(state):
             n = state.x.shape[0]
-            x_prop, lq_prop = flow.sample_and_log_prob(n, generator=generator)
-            u = K._uniform(generator, n, state.x)
+            if mesh is None:
+                x_prop, lq_prop = flow.sample_and_log_prob(
+                    n, generator=generator)
+            else:
+                x_prop, lq_prop = flow.from_latent(mesh.local_rows(
+                    standard_normal_sample(
+                        (n * mesh.size, flow.dims), generator,
+                        dtype=flow.dtype, device=flow.device)))
+            u = K._uniform_rows(generator, n, state.x, mesh)
             return K.flow_imh_move(state, x_prop, lq_prop, u, beta, target_fn,
                                    flow.log_prob, vg)
 
@@ -562,7 +587,7 @@ class SMCSampler(Sampler):
 
     def _mutate_split(self, z, beta, n_steps, step0, generator,
                       waste_free: bool = False,
-                      windowed_tau: bool = False) -> Mutation:
+                      windowed_tau: bool = False, mesh=None) -> Mutation:
         """The per-step chain at ``beta`` from the step size ``step0``
         (<= 0 takes the initial step size), started from the densities and,
         for a gradient kernel, their gradients; then the densities
@@ -572,19 +597,21 @@ class SMCSampler(Sampler):
         ``waste_free`` runs ``z``'s M chains, stores them and pools every
         state, ancestor-major (``(k, M, d) -> (M, k, d) -> (M k, d)``, the
         JAX package's order), as the population whose densities are
-        refreshed."""
+        refreshed. On a mesh ``z`` is this rank's rows (its chains' pooled
+        states are its block of the pooled population: ancestor-major, the
+        ancestors in rank order) and the evaluation count is this rank's."""
         kwargs = self._mutation_kwargs()
-        ref, info = K.gaussian_reference_info(z)
+        ref, info = K.gaussian_reference_info(z, mesh=mesh)
 
         def log_prob_fn(zz):
             return self.tempered_log_prob(zz, beta)
 
         step_fn, init_step, needs_grad = self._kernel_step_builder(
-            log_prob_fn, ref, generator)
+            log_prob_fn, ref, generator, mesh)
         if kwargs.get("flow_moves"):
             step_fn = self._make_flow_imh_step(
                 step_fn, log_prob_fn, beta, int(kwargs["flow_moves"]),
-                needs_grad, generator)
+                needs_grad, generator, mesh)
         if needs_grad:
             lp, grad = value_and_grad_batch(log_prob_fn, z)
         else:
@@ -597,7 +624,7 @@ class SMCSampler(Sampler):
             step_fn, state, n_steps, store_chain=waste_free,
             windowed_tau=windowed_tau,
             tau_walkers=int(kwargs.get("tau_walkers")
-                            or DEFAULT_TAU_WALKERS))
+                            or DEFAULT_TAU_WALKERS), mesh=mesh)
         z_out = K.pool_chain(chain[0]) if waste_free else final.x
         x, _ = self.invert_preconditioning(z_out)
         log_q = self.prior_flow.log_prob(x)
@@ -605,7 +632,8 @@ class SMCSampler(Sampler):
         view = self._make_view(x)
         log_l = torch.as_tensor(self.log_likelihood(view),
                                 device=x.device).reshape(-1)
-        acceptance = torch.mean(final.n_accept / max(n_steps, 1))
+        acceptance = torch.mean(K._gathered(final.n_accept, mesh)
+                                / max(n_steps, 1))
         return Mutation(x, log_q, log_pi, log_l, acceptance, stats.tau,
                         stats.mixing, final.step_size, info,
                         final.n_evals + z.shape[0] + x.shape[0])
@@ -629,7 +657,7 @@ class SMCSampler(Sampler):
     @torch.no_grad()
     def mutate(self, samples: SMCSamples, beta: float,
                n_steps: int | None = None, waste_free: bool | None = None,
-               windowed_tau: bool | None = None) -> SMCSamples:
+               windowed_tau: bool | None = None, mesh=None) -> SMCSamples:
         """Fit the preconditioning, run the chain at ``beta``, and return
         the mutated particles with refreshed densities. Autograd is off
         (as in the device ladder's body): no density holds a graph over a
@@ -641,7 +669,12 @@ class SMCSampler(Sampler):
         (:meth:`_chain_options`). As in the JAX package, waste-free pooling
         needs a target a CUDA graph can capture, a windowed tau on any
         other target falls back to the AR(1) surrogate with a warning, and
-        ``flow_moves`` needs such a target and no preconditioning."""
+        ``flow_moves`` needs such a target and no preconditioning.
+
+        ``mesh``: ``samples`` holds this rank's rows of a population
+        sharded over it; the preconditioning is fitted to the gathered
+        population, the chain draws and reduces over the mesh, and the
+        recorded statistics and counts are the whole population's."""
         kwargs = self._mutation_kwargs()
         n_steps = int(n_steps or kwargs.get("n_steps") or 5 * self.dims)
         waste_free, windowed_tau = self._chain_options(kwargs, waste_free,
@@ -663,7 +696,11 @@ class SMCSampler(Sampler):
                 "store the mutation chains; recording the AR(1) surrogate "
                 "tau instead.")
             windowed_tau = False
-        z = self.fit_preconditioning_transform(samples.x)
+        if mesh is None or self.preconditioning_transform is None:
+            z = self.fit_preconditioning_transform(samples.x)
+        else:
+            z = mesh.local_rows(self.fit_preconditioning_transform(
+                all_gather_rows(samples.x, mesh)))
         spec = self._fused_chain_spec(kwargs, z.shape[0], z.dtype, waste_free,
                                       windowed_tau)
         unset = dict(dtype=z.dtype, device=z.device)
@@ -680,14 +717,20 @@ class SMCSampler(Sampler):
             step0 = carry if carry is not None else torch.full((), -1.0,
                                                                **unset)
             m = self._mutate_split(z, beta, n_steps, step0, self.generator,
-                                   waste_free, windowed_tau)
+                                   waste_free, windowed_tau, mesh)
             self._step_size_carry = m.step
             route = "split"
+        faults = mutation_faults(m)
+        evals = m.evals
+        if mesh is not None:
+            *faults, evals = all_reduce(torch.stack([
+                torch.as_tensor(v, device=z.device).to(torch.int64)
+                for v in (*faults, evals)]), mesh).unbind()
         (acceptance, tau, mixing, nan_q, nonfinite, nan_target,
          info) = torch.stack([
              v.double() for v in (m.acceptance, m.tau, m.mixing,
-                                  *mutation_faults(m), m.info)]).tolist()
-        self.n_likelihood_evaluations += int(m.evals)
+                                  *faults, m.info)]).tolist()
+        self.n_likelihood_evaluations += int(evals)
         self.history.mcmc_acceptance.append(acceptance)
         self.history.mcmc_autocorr.append(tau)
         self.history.mutation_route.append(route)
@@ -720,6 +763,54 @@ class SMCSampler(Sampler):
             # The pooled chain states hold at most ~k / tau effectively
             # independent draws per ancestor.
             self._lineage_fraction /= max(min(tau, k), 1.0)
+
+    # -- a mesh ----------------------------------------------------------------
+
+    def _mesh_refusal(self) -> str | None:
+        """Why this sampler's mutation cannot run on a mesh of more than
+        one rank, or None; overridden."""
+        return None
+
+    def _refuse_on_mesh(self, options: dict) -> None:
+        """Raise ``NotImplementedError`` for what a run on a mesh of more
+        than one rank cannot do yet: the options among ``options`` (name:
+        whether it is asked for) and the sampler's own refusal."""
+        if not self.multiprocess():
+            return
+        reason = self._mesh_refusal()
+        asked = [name for name, on in options.items() if on]
+        if reason is None and not asked:
+            return
+        what = reason or f"{', '.join(asked)} on a mesh of more than one rank"
+        raise NotImplementedError(f"{what} {MESH_SLICE_II}")
+
+    @staticmethod
+    def _on_mesh(mesh) -> dict:
+        """``mutate``'s keyword for a population sharded over ``mesh``
+        (none for one held whole, so ``mutate`` is called as ever)."""
+        return {} if mesh is None else {"mesh": mesh}
+
+    def _whole_densities(self, samples: SMCSamples, mesh) -> tuple:
+        """``(log_likelihood, log_prior, log_q)`` of the whole population:
+        this rank's gathered over ``mesh`` (one gather), or as they are."""
+        fields = (samples.log_likelihood, samples.log_prior, samples.log_q)
+        if mesh is None:
+            return fields
+        if len({f.dtype for f in fields}) > 1:
+            return tuple(all_gather_rows(f, mesh) for f in fields)
+        return tuple(v.contiguous() for v in all_gather_rows(
+            torch.stack(fields, dim=1), mesh).unbind(1))
+
+    def _whole_population(self, samples: SMCSamples, mesh) -> SMCSamples:
+        """The whole population from every rank's rows (the run's result on
+        every rank)."""
+        if mesh is None:
+            return samples
+        return SMCSamples(
+            **{name: all_gather_rows(getattr(samples, name), mesh)
+               for name in ("x", "log_likelihood", "log_prior", "log_q")},
+            beta=samples.beta, dtype=self.dtype,
+            parameters=self.parameters, device=self.device)
 
     # -- the device ladder ---------------------------------------------------
 
@@ -1126,7 +1217,16 @@ class SMCSampler(Sampler):
         ``n_replicates`` > 1 runs that many independent runs, each going on
         with the sampler's generator, and gives the last run's samples the
         replicates' log Z (:func:`~aspire_tpu_torch.samplers.base.
-        combine_replicates`)."""
+        combine_replicates`).
+
+        With a mesh (the sampler's ``mesh``) the population is drawn whole
+        on every rank and sharded over the ranks (where ``n_samples``
+        divides by their number), the host ladder runs SPMD (the device
+        ladder is never chosen), ``resampling_impl`` moves the resampled
+        rows, and every rank returns the whole population with the same
+        log Z. ``store_sample_history`` defaults to False on a mesh of more
+        than one rank, where the device ladder, checkpoints, the sample
+        history and ``resume_from`` raise ``NotImplementedError``."""
         if n_replicates is not None and n_replicates > 1:
             if (resume_from is not None or checkpoint_callback is not None
                     or checkpoint_file_path is not None):
@@ -1146,10 +1246,26 @@ class SMCSampler(Sampler):
                 device_ladder_max_iters=device_ladder_max_iters))
         self.sampler_kwargs = dict(self.default_sampler_kwargs)
         self.sampler_kwargs.update(sampler_kwargs or {})
+        self._refuse_on_mesh({
+            "checkpointing": (checkpoint_callback is not None
+                              or checkpoint_every is not None),
+            "store_sample_history=True": store_sample_history,
+            "resume_from": resume_from is not None})
+        if self.mesh is not None and device_ladder:
+            raise NotImplementedError(f"device_ladder=True on a mesh "
+                                      f"{MESH_SLICE_II}")
+        if self.resampling_impl != "auto" and self.mesh is None:
+            raise ValueError(
+                f"resampling_impl={self.resampling_impl!r} needs a "
+                "mesh-sharded population (pass mesh=... to the "
+                "sampler); use 'auto' for single-device runs.")
+        self.check_replicated_flow()
         if store_sample_history is None:
             # One host copy of the population per temperature: by default
-            # only at plot sizes, as in the JAX package.
-            store_sample_history = n_samples <= 10_000
+            # only at plot sizes, as in the JAX package, and never on a
+            # mesh of more than one rank.
+            store_sample_history = (n_samples <= 10_000
+                                    and not self.multiprocess())
         n_final_steps = self.sampler_kwargs.pop("n_final_steps", None)
         self._step_size_carry = None
         self._step_size_carry_fused = None
@@ -1181,6 +1297,15 @@ class SMCSampler(Sampler):
                 raise ValueError(
                     f"{name.replace('_', ' ').capitalize()} contains NaN "
                     "values")
+        # The rows on a mesh: a block per rank where the population tiles
+        # it (``mesh`` below), else the whole population on every rank.
+        mesh = None
+        if self.mesh is not None and len(samples) % self.mesh.size == 0:
+            mesh = self.mesh
+            for name in ("x", "log_q", "log_prior", "log_likelihood"):
+                setattr(samples, name, self.shard_array(getattr(samples,
+                                                                name)))
+        ranks = mesh.size if mesh is not None else 1
         waste_free = bool(self.sampler_kwargs.get("waste_free", False))
         k_steps = int(self.sampler_kwargs.get("n_steps") or 5 * self.dims)
         if waste_free:
@@ -1189,13 +1314,19 @@ class SMCSampler(Sampler):
                     "waste_free SMC requires a target a CUDA graph can "
                     "capture (the pooled chain states are gathered on the "
                     "device; see target_is_capturable).")
-            if len(samples) % k_steps:
+            n_now = len(samples) * ranks
+            if n_now % k_steps:
                 raise ValueError(
                     "waste_free SMC pools k * (n/k) states back into the "
-                    f"population: n_samples ({len(samples)}) must be "
+                    f"population: n_samples ({n_now}) must be "
                     f"divisible by the mutation n_steps ({k_steps}); got "
-                    f"remainder {len(samples) % k_steps}. Adjust n_samples "
+                    f"remainder {n_now % k_steps}. Adjust n_samples "
                     "or sampler_kwargs['n_steps'].")
+            if self.mesh is not None and (n_now // k_steps) % self.mesh.size:
+                raise ValueError(
+                    "waste_free SMC on a mesh shards the M = n/k ancestor "
+                    f"population: M ({n_now // k_steps}) must be divisible "
+                    f"by the mesh size ({self.mesh.size}).")
 
         self.target_efficiency = target_efficiency
         self.target_efficiency_rate = target_efficiency_rate
@@ -1242,7 +1373,7 @@ class SMCSampler(Sampler):
                         last_beta)
 
         if device_ladder is None:
-            device_ladder = (self.adaptive
+            device_ladder = (self.mesh is None and self.adaptive
                              and self.preconditioning_transform is None
                              and not store_sample_history
                              and self._ladder_refusal() is None)
@@ -1279,7 +1410,7 @@ class SMCSampler(Sampler):
             beta_prev = samples.beta
             target_eff = float(self.current_target_efficiency(beta_prev))
             stats = iteration_stats(
-                samples.log_likelihood, samples.log_prior, samples.log_q,
+                *self._whole_densities(samples, mesh),
                 beta_prev, min(beta + beta_step, 1.0), target_eff,
                 beta_tolerance, min_beta_step, max_beta_step,
                 adaptive=self.adaptive,
@@ -1291,7 +1422,7 @@ class SMCSampler(Sampler):
             self.history.eff_target.append(
                 float(self.current_target_efficiency(beta)))
             self.history.beta.append(beta)
-            eff = ess / len(samples)
+            eff = ess / (len(samples) * ranks)
             if eff < 0.1:
                 logger.warning("it %d - Low sample efficiency: %.2f",
                                iterations, eff)
@@ -1303,18 +1434,20 @@ class SMCSampler(Sampler):
             self.history.lineage_fraction.append(self._lineage_fraction)
             logger.info("it %d - beta %.6g, ESS %.1f, log ratio %.3f",
                         iterations, beta, ess, ratio)
-            n_before = len(samples)
+            n_before = len(samples) * ranks
             # Waste-free SMC (Dau & Chopin 2020) resamples M = n/k
             # ancestors; the mutation pools their k-step chains back to n.
             samples = samples.resample(
                 beta, self.generator,
                 n_samples=max(n_before // k_steps, 1) if waste_free else None,
-                method=self.resampling_method)
+                method=self.resampling_method, impl=self.resampling_impl,
+                mesh=mesh)
             self._update_lineage_after_resample(ess, n_before)
-            samples = self.mutate(samples, beta)
+            samples = self.mutate(samples, beta, **self._on_mesh(mesh))
             self._update_lineage_after_mutation()
+            n_after = len(samples) * ranks
             self.particle_steps += k_steps * (
-                len(samples) // k_steps if waste_free else len(samples))
+                n_after // k_steps if waste_free else n_after)
             if store_sample_history:
                 self.history.sample_history.append(samples.to_numpy())
             maybe_checkpoint()
@@ -1322,16 +1455,31 @@ class SMCSampler(Sampler):
                                and iterations >= max_n_steps):
                 break
 
-        if n_final_samples is not None and len(samples) != n_final_samples:
+        if (n_final_samples is not None
+                and len(samples) * ranks != n_final_samples):
             if float(samples.beta or 0.0) < 1.0:
                 self.history.log_norm_ratio.append(
-                    float(samples.log_evidence_ratio(1.0)))
+                    float(samples.log_evidence_ratio(1.0, mesh)))
                 self.history.log_norm_ratio_var.append(
-                    float(samples.log_evidence_ratio_variance(1.0))
+                    float(samples.log_evidence_ratio_variance(1.0, mesh))
                     / self._lineage_fraction)
+            # The collective schedule where the final size tiles the mesh,
+            # else the gather (the JAX package's rule).
+            final_impl = self.resampling_impl
+            if (final_impl != "auto" and self.mesh is not None
+                    and n_final_samples % self.mesh.size):
+                logger.debug(
+                    "n_final_samples (%d) does not tile the %d-device "
+                    "mesh; the final draw uses the GSPMD gather "
+                    "instead of resampling_impl=%r.", n_final_samples,
+                    self.mesh.size, final_impl)
+                final_impl = "auto"
             final = samples.resample(1.0, self.generator,
                                      n_samples=n_final_samples,
-                                     method=self.resampling_method)
+                                     method=self.resampling_method,
+                                     impl=final_impl, mesh=mesh)
+            if mesh is not None and n_final_samples % mesh.size:
+                mesh = None  # the gather left the whole draw on every rank
             # The returned samples' recorded tau: the windowed estimate on
             # a capturable target (from the tau_walkers subset, affordable
             # at any n), as in the JAX package; an explicit windowed_tau
@@ -1340,8 +1488,10 @@ class SMCSampler(Sampler):
             samples = self.mutate(
                 final, 1.0, n_steps=n_final_steps, waste_free=False,
                 windowed_tau=(bool(user_tau) if user_tau is not None
-                              else self.target_is_capturable()))
+                              else self.target_is_capturable()),
+                **self._on_mesh(mesh))
 
+        samples = self._whole_population(samples, mesh)
         samples.log_evidence = float(np.sum(self.history.log_norm_ratio))
         samples.log_evidence_error = float(
             np.sqrt(np.sum(self.history.log_norm_ratio_var)))
@@ -1356,6 +1506,7 @@ class SMCSampler(Sampler):
     def config_dict(self, include_sample_calls: str | bool = "last") -> dict:
         config = super().config_dict(include_sample_calls)
         config["resampling_method"] = self.resampling_method
+        config["resampling_impl"] = self.resampling_impl
         return config
 
     def _checkpoint_extra_state(self, history: SMCHistory | None = None,
@@ -1450,12 +1601,12 @@ class PCNSMC(SMCSampler):
         }
 
     def _kernel_step_builder(self, log_prob_fn: Callable, ref,
-                             generator: torch.Generator):
+                             generator: torch.Generator, mesh=None):
         kwargs = self._mutation_kwargs()
         step_name = kwargs.get("step_fn", "tpcn")
         common = dict(
             target_acceptance=kwargs.get("target_acceptance_rate", 0.234),
-            adaptation_rate=kwargs.get("adaptation_rate", 0.1))
+            adaptation_rate=kwargs.get("adaptation_rate", 0.1), mesh=mesh)
         gen = generator
         if step_name == "pcn":
             def step(state):
@@ -1480,7 +1631,13 @@ class EnsembleSMC(SMCSampler):
     def default_sampler_kwargs(self):
         return {"n_steps": 5 * self.dims, "a": 2.0}
 
-    def _kernel_step_builder(self, log_prob_fn, ref, generator):
+    def _mesh_refusal(self) -> str | None:
+        return ("emcee_smc / ensemble_smc on a mesh of more than one rank "
+                "(the stretch move's partners span the whole population)")
+
+    def _kernel_step_builder(self, log_prob_fn, ref, generator, mesh=None):
+        # its partners span the population: refused on a mesh of more than
+        # one rank (_mesh_refusal); on one rank its rows are the whole
         return (partial(K.stretch_step, generator=generator,
                         log_prob_fn=log_prob_fn,
                         a=self._mutation_kwargs().get("a", 2.0)),
@@ -1543,7 +1700,14 @@ class GradientSMC(SMCSampler):
             return NUTS_LADDER_REFUSAL
         return super()._ladder_refusal()
 
-    def _kernel_step_builder(self, log_prob_fn, ref, generator):
+    def _mesh_refusal(self) -> str | None:
+        if self._kernel() == "nuts":
+            return ("nuts_smc on a mesh of more than one rank (its doubling "
+                    "loop makes a data-dependent number of draws, which "
+                    "would part the ranks' generators)")
+        return None
+
+    def _kernel_step_builder(self, log_prob_fn, ref, generator, mesh=None):
         kwargs = self._mutation_kwargs()
         kernel = self._kernel(kwargs)
         init_step = kwargs.get("step_size", 0.1)
@@ -1553,7 +1717,7 @@ class GradientSMC(SMCSampler):
                             log_prob_fn=log_prob_fn, ref=ref,
                             target_acceptance=kwargs.get(
                                 "target_acceptance_rate", 0.234),
-                            adaptation_rate=rate),
+                            adaptation_rate=rate, mesh=mesh),
                     init_step, False)
         if kernel not in ("mala", "hmc", "nuts"):
             raise ValueError(f"Unknown gradient kernel: {kernel}")
@@ -1568,14 +1732,16 @@ class GradientSMC(SMCSampler):
                       adaptation_rate=rate)
         if kernel == "mala":
             step = partial(K.mala_step, target_acceptance=kwargs.get(
-                "target_acceptance_rate", 0.574), **common)
+                "target_acceptance_rate", 0.574), mesh=mesh, **common)
         elif kernel == "hmc":
             step = partial(
                 K.hmc_step, n_leapfrog=kwargs.get("n_leapfrog", 10),
                 target_acceptance=kwargs.get("target_acceptance_rate", 0.651),
                 jitter_trajectory=kwargs.get("jitter_trajectory", False),
-                **common)
+                mesh=mesh, **common)
         else:
+            # a data-dependent number of draws: refused on a mesh of more
+            # than one rank (_mesh_refusal); on one rank its rows are all
             step = partial(
                 K.nuts_step, max_depth=kwargs.get("max_depth", 8),
                 target_acceptance=kwargs.get("target_acceptance_rate", 0.8),

@@ -23,8 +23,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from .ops.resampling import get_resampler
+from .ops.resampling import (
+    alltoall_move,
+    get_resampler,
+    global_index,
+    ring_move,
+)
 from .ops.special import effective_sample_size, logsumexp
+from .parallel.mesh import all_gather_rows
 from .utils import (
     as_tensor,
     dtype_name,
@@ -453,18 +459,24 @@ class SMCSamples(BaseSamples):
             self.log_q, self.log_likelihood, self.log_prior, self.beta, beta
         )
 
-    def log_evidence_ratio(self, beta) -> torch.Tensor:
+    def _global_log_weights(self, beta, mesh) -> torch.Tensor:
+        """The incremental log-weights of the whole population: this
+        rank's, gathered over ``mesh`` where the rows are sharded."""
         log_w = self.unnormalized_log_weights(beta)
-        return logsumexp(log_w) - math.log(len(self.x))
+        return log_w if mesh is None else all_gather_rows(log_w, mesh)
 
-    def log_evidence_ratio_variance(self, beta) -> torch.Tensor:
+    def log_evidence_ratio(self, beta, mesh=None) -> torch.Tensor:
+        log_w = self._global_log_weights(beta, mesh)
+        return logsumexp(log_w) - math.log(log_w.shape[0])
+
+    def log_evidence_ratio_variance(self, beta, mesh=None) -> torch.Tensor:
         """Delta-method variance of the per-step evidence ratio."""
-        log_w = self.unnormalized_log_weights(beta)
+        log_w = self._global_log_weights(beta, mesh)
         m = torch.max(log_w)
         u = torch.exp(torch.clamp(log_w - m, max=0.0))
         mean_w = torch.mean(u)
         var_w = torch.var(u, correction=0)
-        return torch.where(mean_w != 0, var_w / (len(self) * mean_w**2),
+        return torch.where(mean_w != 0, var_w / (log_w.shape[0] * mean_w**2),
                            torch.full_like(mean_w, math.nan))
 
     def log_weights(self, beta) -> torch.Tensor:
@@ -477,9 +489,22 @@ class SMCSamples(BaseSamples):
 
     def resample(self, beta, generator: torch.Generator,
                  n_samples: int | None = None,
-                 method: str = "systematic") -> "SMCSamples":
-        """Resample the particles to temperature ``beta``."""
-        n = len(self.x)
+                 method: str = "systematic", impl: str = "auto",
+                 mesh=None) -> "SMCSamples":
+        """Resample the particles to temperature ``beta``.
+
+        ``mesh`` (:class:`~aspire_tpu_torch.parallel.mesh.ProcessMesh`)
+        says the rows are sharded over it: these are this rank's, and
+        ``n_samples`` (the whole population's size by default) counts the
+        whole output. Every rank draws the same global index from the
+        gathered log-weights, then ``impl`` moves the rows: ``"auto"``
+        gathers them and takes this rank's block of ``data[idx]`` (all of
+        it where ``n_samples`` does not divide by the mesh size: the
+        output is then the whole population on every rank), ``"ring"``
+        and ``"alltoall"`` run the schedules of
+        :mod:`aspire_tpu_torch.ops.resampling`, bit for bit the same rows;
+        they need a mesh and an ``n_samples`` that divides by its size."""
+        n = len(self.x) * (mesh.size if mesh is not None else 1)
         if n_samples is None:
             n_samples = n
         if beta == self.beta and n_samples == n:
@@ -488,21 +513,71 @@ class SMCSamples(BaseSamples):
                 "samples"
             )
             return self
+        if impl not in ("auto", "ring", "alltoall"):
+            raise ValueError(
+                f"Unknown resampling impl {impl!r}: use 'auto', 'ring' "
+                "or 'alltoall'.")
+        if impl != "auto":
+            if mesh is None:
+                raise ValueError(
+                    f"impl={impl!r} needs a mesh-sharded population; use "
+                    "impl='auto' for single-device runs.")
+            if n_samples % mesh.size:
+                raise ValueError(
+                    f"impl={impl!r} emits n_samples/S rows per shard: "
+                    f"n_samples ({n_samples}) must be divisible by the "
+                    f"mesh size ({mesh.size}).")
         if beta == self.beta:
-            log_w = torch.zeros(n, dtype=self.x.dtype, device=self.x.device)
+            log_w = torch.zeros(len(self.x), dtype=self.x.dtype,
+                                device=self.x.device)
         else:
             log_w = self.unnormalized_log_weights(beta)
-        idx = get_resampler(method)(generator, log_w, int(n_samples))
+        fields = {"x": self.x, "log_likelihood": self.log_likelihood,
+                  "log_prior": self.log_prior, "log_q": self.log_q}
+        if mesh is None:
+            idx = get_resampler(method)(generator, log_w, int(n_samples))
+            moved = {name: v[idx] for name, v in fields.items()}
+        else:
+            moved = self._moved_on_mesh(fields, global_index(
+                generator, log_w, mesh, method, int(n_samples)), impl, mesh)
         return self.__class__(
-            x=self.x[idx],
-            log_likelihood=self.log_likelihood[idx],
-            log_prior=self.log_prior[idx],
-            log_q=self.log_q[idx],
+            **moved,
             beta=beta,
             dtype=self.dtype,
             parameters=self.parameters,
             device=self.device,
         )
+
+    @staticmethod
+    def _moved_on_mesh(fields: dict, idx: torch.Tensor, impl: str,
+                       mesh) -> dict:
+        """The fields' rows at the global index ``idx``, this rank's block
+        of them (all where ``idx`` does not divide by the mesh size), moved
+        by ``impl``: one matrix per dtype, as the JAX package packs them,
+        so each field keeps its precision."""
+        cols = {name: v.reshape(v.shape[0], -1) for name, v in fields.items()}
+        groups: dict = {}
+        for name, v in cols.items():
+            groups.setdefault(v.dtype, []).append(name)
+        tiles = idx.shape[0] % mesh.size == 0
+        out = {}
+        for names in groups.values():
+            packed = torch.cat([cols[name] for name in names], dim=1)
+            if impl == "ring":
+                rows = ring_move(idx, packed, mesh)
+            elif impl == "alltoall":
+                rows = alltoall_move(idx, packed, mesh)[0]
+            else:
+                rows = all_gather_rows(packed, mesh)[idx]
+                if tiles:
+                    rows = mesh.local_rows(rows)
+            col = 0
+            for name in names:
+                width = cols[name].shape[1]
+                out[name] = rows[:, col:col + width].reshape(
+                    -1, *fields[name].shape[1:]).contiguous()
+                col += width
+        return out
 
     def to_standard_samples(self) -> Samples:
         return Samples(

@@ -93,7 +93,13 @@ main paths (6, 7, 8) right after the build:
    timed in turns with the host ladder; ``replay_check``); the
    whole-chain and split routes (every split density pass on B1)
    agreeing on log Z at n = 131072; the log Z printed beside the
-   quadrature truth and the reference's TPU record;
+   quadrature truth and the reference's TPU record; then the SMC options
+   (``phase_smc_options``) and the mesh (``phase_mesh``): the mixture's
+   131072 pipeline on the host ladder's split route in this process, the
+   same run on NCCL at world size 1 (bit for bit) and on two gloo ranks on
+   the one card, each with the ring, all-to-all and gathering resampling
+   schedules, ranks as ``spawn`` children; the all-to-all's overflow; a
+   data-parallel flow fit;
 9. the staged coupling kernels (D1-D3), as the dev scripts'
    A/B runs them: their flow (4 coupling layers, (64, 64), 8 bins) at
    n = 131072, each variant through its wrapper and timed in turns with
@@ -158,7 +164,7 @@ with their errors against float64 and each checkout's ptxas report
 chain and on config 5's) and B4 against float64 over 20 draws each
 (``accumulation``). ``--checkpoint`` runs ``phase_checkpoint`` alone
 (``checkpoint_alone``), ``--replicated`` ``phase_replicated``
-(``replicated_alone``). ``--ladder-profile`` profiles one warmed device-ladder
+(``replicated_alone``), ``--mesh`` ``phase_mesh`` (``mesh_alone``). ``--ladder-profile`` profiles one warmed device-ladder
 pipeline of nsf-tpu and of maf-rqs (``ladder_profile``).
 """
 
@@ -4017,6 +4023,362 @@ def smc_options_alone() -> dict:
             "config5": [r["smc_wall_s"] for r in opts["config5"]]}
 
 
+#: ``phase_mesh``: the resampling schedules, each job's time limit (s),
+#: its data-parallel fit
+MESH_IMPLS = ("auto", "ring", "alltoall")
+MESH_JOB_TIMEOUT_S = 300
+MESH_DP_FIT = dict(n_epochs=3, batch_size=512, learning_rate=3e-3)
+#: the all-to-all's bucket in the op-level overflow check: on two ranks the
+#: default cap is the whole output block, which no pair can pass
+MESH_OVERFLOW_CAP = 16
+
+
+def mesh_aspire(device, state=None):
+    """The main path's problem and Aspire (the 4-d mixture, nsf-tpu at
+    seed 1): fitted as ``phase_main_path`` fits it, or, given ``state``
+    (the fitted flow's parameters and data transform), built and loaded
+    with it, never fitted."""
+    import numpy as np
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import GaussianMixtureProblem
+
+    p = GaussianMixtureProblem(dims=4)
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=4, parameters=p.parameters, flow_backend="nsf",
+                 architecture="nsf-tpu", seed=1, device=device)
+    if state is None:
+        asp.fit(Samples(p.draw_initial_samples(np.random.default_rng(42),
+                                               4000)),
+                n_epochs=20, batch_size=512, learning_rate=3e-3)
+    else:
+        asp.init_flow()
+        asp.flow.params, asp.flow.data_transform = state
+    return p, asp
+
+
+def mesh_pipeline(asp, n: int, mesh=None, impl: str = "auto") -> dict:
+    """The mixture's pipeline at ``n`` on the host ladder and the split
+    route (``fused_chain=False``, the route a mesh takes), 20-step tpCN,
+    with the launch counts set to 0 just before and read just after; on
+    ``mesh`` with ``resampling_impl=impl``. Its wall (host clock to a
+    synchronise), rungs, betas, log Z, population, generator state and
+    B1/B3/B2 launches."""
+    import torch
+
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    on_card = asp.device.type == "cuda"
+    on_mesh = {} if mesh is None else dict(mesh=mesh, resampling_impl=impl)
+    reset_launch_counts()
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post, hist = asp.sample_posterior(
+        sampler="smc", n_samples=n, return_history=True,
+        store_sample_history=False, device_ladder=False,
+        sampler_kwargs=dict(n_steps=CHAIN_STEPS, fused_chain=False),
+        **on_mesh)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, b3 = launch_counts(), FC.sampling_launches.count
+    return {"wall_s": wall, "rungs": len(hist.beta), "beta": list(hist.beta),
+            "log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
+            "x": post.x.cpu(), "generator": asp.sampler.generator.get_state(
+            ).cpu(), "b1": counts["coupling"] - b3, "b3": b3,
+            "b2": counts["chain"], "routes": sorted(set(
+                hist.mutation_route)), "post": post}
+
+
+def mesh_overflow(x, mesh) -> dict:
+    """The all-to-all's overflow at the op level: one-hot weights on
+    ``x``'s rows (the whole population) give an index of one row only,
+    which passes the bucket of MESH_OVERFLOW_CAP rows; the move takes the
+    ring and gives ``x[idx]``."""
+    import torch
+
+    from aspire_tpu_torch.ops import resampling as R
+    from aspire_tpu_torch.parallel import mesh as M
+
+    lw = torch.full((x.shape[0],), -50.0, device=x.device)
+    lw[3] = 50.0
+    idx = R.systematic_resample(None, lw, u=0.5)
+    M.reset_collective_counts()
+    rows, took_ring = R.alltoall_move(idx, mesh.local_rows(x), mesh,
+                                      cap=MESH_OVERFLOW_CAP)
+    counts = dict(M.collective_counts)
+    whole = M.all_gather_rows(rows, mesh)
+    return {"took_ring": took_ring, "equal": bool(torch.equal(whole,
+                                                               x[idx])),
+            "counts": counts}
+
+
+def mesh_dp_fit(p, mesh) -> dict:
+    """``Flow.fit`` data-parallel over ``mesh``: the main path's 4000
+    draws, an nsf-tpu flow at seed 2, MESH_DP_FIT; its seconds, losses
+    and parameters (on the host)."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch.flows import Flow
+    from aspire_tpu_torch.flows.train import param_leaves
+    from aspire_tpu_torch.parallel import particle_sharding
+
+    flow = Flow(dims=4, architecture="nsf-tpu", seed=2, device=mesh.device)
+    x = p.draw_initial_samples(np.random.default_rng(42), 4000)
+    sync = (torch.cuda.synchronize if mesh.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    history = flow.fit(x, sharding=particle_sharding(mesh), **MESH_DP_FIT)
+    sync()
+    return {"s": time.perf_counter() - t0,
+            "loss": list(history.training_loss),
+            "params": [t.detach().cpu() for t in param_leaves(flow.params)]}
+
+
+def mesh_rank(rank: int, size: int, backend: str, folder: str, n: int,
+              device_type: str) -> None:
+    """One rank of ``phase_mesh``'s job (a ``spawn`` child; the script is
+    its ``__mp_main__``): it joins ``size`` ranks on ``backend``, builds
+    the main path's Aspire on its card (the CPU where ``device_type`` is
+    ``"cpu``, a rehearsal) from ``folder/flow.pt`` (no fit and
+    no build: the parent built the kernels), runs the pipeline for each of
+    MESH_IMPLS on the mesh after an untimed warm-up run, and on more than
+    one rank the overflow check
+    and the data-parallel fit; its results go to ``folder/rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from aspire_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(num_processes=size, process_id=rank,
+                           backend=backend,
+                           init_method=f"file://{folder}/rdv")
+    mesh = make_mesh(device="cpu" if device_type == "cpu" else None)
+    state = torch.load(f"{folder}/flow.pt", map_location=mesh.device,
+                       weights_only=False)
+    p, asp = mesh_aspire(mesh.device, state)
+    out = {"mesh": [mesh.size, mesh.rank, mesh.backend, str(mesh.device)],
+           "runs": {}}
+    # The warm-up: the process's first run, on the all-to-all, which opens
+    # NCCL's connections to every peer (a first exchange between two
+    # cards pays for its connection: ~0.6 s a rung of the four-card ring
+    # when it came first).
+    mesh_pipeline(asp, n, mesh, "alltoall")
+    for impl in MESH_IMPLS:
+        run = mesh_pipeline(asp, n, mesh, impl)
+        post = run.pop("post")
+        out["runs"][impl] = run
+    if size > 1:
+        out["overflow"] = mesh_overflow(post.x, mesh)
+        out["dp_fit"] = mesh_dp_fit(p, mesh)
+    torch.save(out, f"{folder}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def mesh_job(size: int, backend: str, state, n: int,
+             device_type: str) -> tuple[list, float]:
+    """``size`` ranks of ``mesh_rank`` on ``backend`` with the flow
+    ``state``, in a temporary folder, joined within MESH_JOB_TIMEOUT_S;
+    each rank's results and the job's seconds."""
+    import tempfile
+
+    import torch
+
+    from aspire_tpu_torch.parallel.mesh import spawn_ranks
+
+    with tempfile.TemporaryDirectory() as folder:
+        torch.save(state, f"{folder}/flow.pt")
+        t0 = time.perf_counter()
+        spawn_ranks(mesh_rank, size, (size, backend, folder, n,
+                                      device_type),
+                    timeout=MESH_JOB_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(f"{folder}/rank{r}.pt", weights_only=False)
+                 for r in range(size)]
+    return ranks, seconds
+
+
+def same_run(a: dict, b: dict) -> bool:
+    """Two pipelines' betas, log Z, populations and generator states the
+    same bits."""
+    import torch
+
+    return (a["beta"] == b["beta"] and a["log_z"] == b["log_z"]
+            and torch.equal(a["x"], b["x"])
+            and torch.equal(a["generator"], b["generator"]))
+
+
+def check_mesh_job(ranks: list, ref: dict, truth: float, n: int,
+                   on_card: bool, exact: bool, what: str) -> None:
+    """Hold a job's runs (``mesh_rank``'s results) to the reference run
+    ``ref``: for each impl every rank the same bits; the first rank's
+    betas, log Z and population (a)'s bits where ``exact``, else reported,
+    and log Z within 1e-3 of (a)'s where the population is (a)'s bit for
+    bit and within max(5 combined sigma, 0.15) where it is not (a plain
+    op whose rounding depends on the rows it is given lets the chains
+    part); the anchor's gate; the split route; per rank 22 B1 a rung on its
+    rows, 1 B3 and no B2 on the card. With more than one rank, the
+    all-to-all's overflow and the data-parallel fit. Raises on a miss."""
+    import torch
+
+    for impl in MESH_IMPLS:
+        runs = [r["runs"][impl] for r in ranks]
+        a = runs[0]
+        lockstep = same_run(a, ref)
+        tol = (1e-3 if lockstep else max(5 * math.hypot(
+            a["log_z_err"], ref["log_z_err"]), 0.15))
+        a.update(same_as_reference=lockstep, tolerance=tol,
+                 beta_bits_as_reference=a["beta"] == ref["beta"],
+                 log_z_bits_as_reference=a["log_z"] == ref["log_z"])
+        need = (CHAIN_STEPS + 2) * a["rungs"]
+        if not (all(same_run(a, r) for r in runs[1:])
+                and (lockstep or not exact)
+                and abs(a["log_z"] - ref["log_z"]) < tol
+                and abs(a["log_z"] - truth) < max(5 * a["log_z_err"], 0.02)
+                and bool(torch.isfinite(a["x"]).all())
+                and a["x"].shape == (n, 4) and a["routes"] == ["split"]
+                and all(not on_card or (r["b1"], r["b3"], r["b2"])
+                        == (need, 1, 0) for r in runs)):
+            raise AssertionError(f"{what}, {impl}: {runs} against the "
+                                 f"reference {ref}")
+    if len(ranks) == 1:
+        return
+    overflow = [r["overflow"] for r in ranks]
+    if not all(o["took_ring"] and o["equal"] for o in overflow):
+        raise AssertionError(f"{what}, the all-to-all's overflow: "
+                             f"{overflow}")
+    fits = [r["dp_fit"] for r in ranks]
+    if not (all(all(torch.equal(u, v) for u, v in zip(
+            fits[0]["params"], f["params"])) for f in fits[1:])
+            and fits[0]["loss"][-1] < fits[0]["loss"][0]):
+        raise AssertionError(f"{what}, the data-parallel fit: "
+                             f"{[f['loss'] for f in fits]}")
+
+
+def phase_mesh(device, n: int) -> dict:
+    """The mesh (``aspire_tpu_torch.parallel``) on the card, ranks as
+    ``spawn`` children of this script:
+
+    (a) the reference: the mixture's pipeline at ``n`` in this process, no
+    mesh, on the host ladder and the split route (``mesh_pipeline``; after
+    a warm-up run, as every rank's runs), within the anchor's gate of the
+    analytic log Z, 22 B1 a rung, 1 B3, no B2;
+    (b) NCCL over every card of the machine, a child each (world size 1
+    on a one-card machine; gloo on the CPU): for each of MESH_IMPLS the
+    same run on the mesh, held by ``check_mesh_job``; at world size 1 the
+    same bits as (a) (betas, log Z, population, generator state);
+    (c) two ranks on the one card over gloo (asked for by name: NCCL takes
+    one card a rank), n / 2 rows each, held by ``check_mesh_job``: both
+    ranks the same bits; the overflow at the op level taking the ring and
+    giving ``x[idx]``;
+    (d) with (c) (and (b) on more than one card) the ranks' data-parallel
+    ``Flow.fit``: the parameters the same bits on every rank, the loss
+    falling.
+    Every job is joined within MESH_JOB_TIMEOUT_S; a rank that fails or
+    hangs fails the phase. The gloo figures are gloo on one card, staged
+    through the host: not NCCL's, and no scaling figure."""
+    import torch
+
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    p, asp = mesh_aspire(device)
+    truth = p.true_log_evidence()
+    mesh_pipeline(asp, n)  # the warm-up, as each rank's
+    ref = mesh_pipeline(asp, n)
+    check_result(ref.pop("post"), n, truth)
+    out = {"n": n, "truth": truth, "reference": ref}
+    if ref["routes"] != ["split"] or (on_card and (
+            (ref["b1"], ref["b3"], ref["b2"])
+            != ((CHAIN_STEPS + 2) * ref["rungs"], 1, 0))):
+        raise AssertionError(f"the reference pipeline: {ref}")
+    out["a_s"] = time.perf_counter() - t0
+    state = (asp.flow.params, asp.flow.data_transform)
+    cards = torch.cuda.device_count() if on_card else 1
+    out["nccl"], out["b_s"] = mesh_job(cards, "nccl" if on_card else "gloo",
+                                       state, n, device.type)
+    check_mesh_job(out["nccl"], ref, truth, n, on_card, cards == 1,
+                   f"NCCL at world size {cards}")
+    out["gloo"], out["c_s"] = mesh_job(2, "gloo", state, n, device.type)
+    check_mesh_job(out["gloo"], ref, truth, n, on_card, False,
+                   "two gloo ranks")
+    for q in (*out["nccl"], *out["gloo"]):
+        for run in q["runs"].values():
+            del run["x"], run["generator"]
+        q.get("dp_fit", {}).pop("params", None)
+    del ref["x"], ref["generator"]
+    return out
+
+
+def report_mesh(card: str, mesh: dict, phase_s: float) -> None:
+    """Print ``phase_mesh``'s results and its seconds, a line each."""
+    ref, n = mesh["reference"], mesh["n"]
+
+    def per_rung(run):
+        return run["wall_s"] / max(run["rungs"], 1)
+
+    def runs(ranks):
+        return "; ".join(
+            f"{impl} {per_rung(r):.4f} s a rung, log Z {r['log_z']:.4f} "
+            f"+/- {r['log_z_err']:.4f} (bits as (a): betas "
+            f"{r['beta_bits_as_reference']}, log Z "
+            f"{r['log_z_bits_as_reference']}, population "
+            f"{r['same_as_reference']}; tolerance {r['tolerance']:.4f}), "
+            f"per rank B1 {[q['runs'][impl]['b1'] for q in ranks]} / B3 "
+            f"{[q['runs'][impl]['b3'] for q in ranks]} / B2 "
+            f"{[q['runs'][impl]['b2'] for q in ranks]} in {r['rungs']} "
+            "rungs" for impl in MESH_IMPLS
+            for r in (ranks[0]["runs"][impl],))
+
+    def extras(ranks):
+        if len(ranks) == 1:
+            return ""
+        fit = ranks[0]["dp_fit"]
+        return (f"; overflow {ranks[0]['overflow']}; data-parallel "
+                f"Flow.fit (nsf-tpu, 4000 rows, {MESH_DP_FIT}) "
+                f"{fit['s']:.2f} s, loss {fit['loss'][0]:.4f} -> "
+                f"{fit['loss'][-1]:.4f}, the same parameters on every rank")
+
+    print(f"[{card}] mesh (a) one process, no mesh, n={n}, host ladder, "
+          f"split route: log Z {ref['log_z']:.4f} +/- {ref['log_z_err']:.4f}"
+          f" vs analytic {mesh['truth']:.4f}; {ref['rungs']} rungs, "
+          f"{per_rung(ref):.4f} s a rung; B1 {ref['b1']}, B3 {ref['b3']}, "
+          f"B2 {ref['b2']}; part {mesh['a_s']:.1f} s", flush=True)
+    nccl, gloo = mesh["nccl"], mesh["gloo"]
+    print(f"[{card}] mesh (b) {nccl[0]['mesh'][2]} at world size "
+          f"{len(nccl)} (rank 0 {nccl[0]['mesh']}), {n // len(nccl)} rows "
+          f"a rank: {runs(nccl)}{extras(nccl)}; part {mesh['b_s']:.1f} s",
+          flush=True)
+    print(f"[{card}] mesh (c, d) two ranks on one card over gloo (staged "
+          f"through the host; not NCCL, no scaling figure), {n // 2} rows "
+          f"a rank: {runs(gloo)}{extras(gloo)}; part {mesh['c_s']:.1f} s",
+          flush=True)
+    print(f"[{card}] phase_mesh: {phase_s:.1f} s", flush=True)
+
+
+def mesh_alone() -> dict:
+    """``phase_mesh`` alone after the kernels' build, its lines printed;
+    its seconds and each part's."""
+    import torch
+
+    from aspire_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    _build.load_library()
+    t0 = time.perf_counter()
+    mesh = phase_mesh(torch.device("cuda"), N_PIPELINE)
+    phase_s = time.perf_counter() - t0
+    report_mesh(card_line(), mesh, phase_s)
+    return {"phase_s": phase_s, **{k: mesh[k] for k in (
+        "a_s", "b_s", "c_s")}}
+
+
 #: ``benchmarks/validate.py``'s CNF rows (:370-440), in its order.
 CNF_ROWS = ("gaussian", "mixture", "rosenbrock", "funnel")
 #: Their flow, ``Aspire(flow_matching=True, n_steps=64, seed=1)`` (the
@@ -5520,6 +5882,7 @@ def main() -> int:
     maf_path = timed(phase_maf_main_path, device, N_CHAIN, N_PIPELINE)
     hier = timed(phase_hierarchical, device)
     opts = timed(phase_smc_options, device, N_VALIDATE, N_PIPELINE)
+    mesh = timed(phase_mesh, device, N_PIPELINE)
     coupling = timed(phase_coupling, device, N_COUPLING)
     chain = timed(phase_chain, device, N_CHAIN, CHAIN_STEPS)
     maf = timed(phase_maf, device, N_COUPLING)
@@ -5597,6 +5960,7 @@ def main() -> int:
           f"{user['eval']['plain_ms']:.4f} ms at n={N_PIPELINE}", flush=True)
     report_gradient(card, gradient)
     report_smc_options(card, opts, hier)
+    report_mesh(card, mesh, seconds["phase_mesh"])
     report_new_paths(card, cnf, flow_precond, mcmc)
     report_ptmcmc(card, pt)
     report_checkpoint(card, ck)
@@ -5775,6 +6139,15 @@ def main() -> int:
                  for k, v in opts["pipelines"].items()},
              "per_rung": {k: v["per_rung"]
                           for k, v in opts["pipelines"].items()}},
+         "launches_mesh": {
+             world: {impl: {k: r["runs"][impl][k]
+                            for k in ("b1", "b3", "rungs")}
+                     for impl in MESH_IMPLS}
+             for world, r in (
+                 *((f"nccl_world_{len(mesh['nccl'])}_rank_{k}", q)
+                   for k, q in enumerate(mesh["nccl"])),
+                 *((f"gloo_world_2_rank_{k}", q)
+                   for k, q in enumerate(mesh["gloo"])))},
          "launches_checkpoint_phase": {
              "b3_initial_draws": ck["fused"]["b3_launches"],
              "b1_split_checkpointed_run": ck["split"]["launches_on"][
@@ -6016,5 +6389,9 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--replicated":
         print(card_line(), flush=True)
         print(json.dumps({"replicated": replicated_alone()}), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--mesh":
+        print(card_line(), flush=True)
+        print(json.dumps({"mesh": mesh_alone()}), flush=True)
         sys.exit(0)
     sys.exit(main())

@@ -229,15 +229,36 @@ def test_unported_sampler_options_raise(options_aspire, name):
 @pytest.mark.parametrize("name,value", [("prng_impl", "rbg"),
                                         ("resampling_impl", "ring")])
 def test_unported_impl_options_raise(name, value, where):
-    """``prng_impl`` and ``resampling_impl`` are in no signature of the
-    port: given to ``Aspire`` (which hands unknown keywords to the flow)
-    or to ``sample_posterior``, they raise instead of being dropped."""
-    p = GaussianMixtureProblem(dims=2)
-    init = Samples(p.draw_initial_samples(np.random.default_rng(0), 64))
+    """``prng_impl`` is in no signature of the port: given to ``Aspire``
+    (which hands unknown keywords to the flow) or to ``sample_posterior``,
+    it raises ``TypeError`` instead of being dropped. ``resampling_impl``
+    is SMC's, as in the JAX package, and the same call raises what the JAX
+    package's raises, beside it: the flow's ``TypeError`` from ``Aspire``,
+    and from ``sample_posterior`` without a mesh the ``ValueError`` that
+    asks for a mesh-sharded population."""
     kw = {name: value}
-    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
-                 dims=2, device="cpu", flow_backend="nsf",
-                 **(kw if where == "Aspire" else {}))
-    with pytest.raises(TypeError, match=name):
+
+    def call(aspire_cls, samples_cls, problem_cls, **device):
+        p = problem_cls(dims=2)
+        init = samples_cls(p.draw_initial_samples(np.random.default_rng(0),
+                                                  64))
+        asp = aspire_cls(log_likelihood=p.log_likelihood,
+                         log_prior=p.log_prior, dims=2, flow_backend="nsf",
+                         **device, **(kw if where == "Aspire" else {}))
         asp.fit(init, n_epochs=1, batch_size=32)
-        asp.sample_posterior(sampler="smc", n_samples=256, **kw)
+        asp.sample_posterior(sampler="smc", n_samples=256,
+                             **(kw if where == "sample_posterior" else {}))
+
+    if name == "prng_impl":
+        with pytest.raises(TypeError, match=name):
+            call(Aspire, Samples, GaussianMixtureProblem, device="cpu")
+        return
+    with pytest.raises((TypeError, ValueError)) as want:
+        call(JAspire, JSamples, JMixture)
+    with pytest.raises(want.type) as got:
+        call(Aspire, Samples, GaussianMixtureProblem, device="cpu")
+    if where == "Aspire":
+        assert name in str(got.value) and name in str(want.value)
+    else:
+        assert "mesh-sharded" in str(got.value)
+        assert str(got.value) == str(want.value)

@@ -421,12 +421,7 @@ NOT_PORTED = {
     "ops.fused_coupling:prepare_params":
         "JAX plumbing: the Pallas kernel's weight stacking",
     "samples:Array": "JAX plumbing: the jax.Array alias",
-    "parallel": "multi-device, the next slice",
-    "parallel.mesh": "multi-device, the next slice",
-    "ops.resampling:ring_resample_matrix": "multi-device, the next slice",
-    "ops.resampling:alltoall_resample_matrix":
-        "multi-device, the next slice",
-    "samplers.base:Sampler.shard_array": "multi-device, the next slice",
+    "parallel.mesh:walker_sharding": "PT walker sharding, slice (ii)",
     "io:save_shard_blocks": "multi-device, the next slice",
     "io:checkpoint_barrier": "multi-device, the next slice",
     "io:checkpoint_shard_files": "multi-device, the next slice",
