@@ -31,6 +31,8 @@ from typing import Any, Callable
 from .checkpointing import CheckpointPolicy, ResumeState, open_run_file
 from .flows import Flow, default_architecture_for_backend, get_flow_class
 from .history import FlowHistory
+from .io import checkpoint_barrier
+from .parallel.mesh import process_index
 from .samplers import SMCSampler
 from .samplers import get_sampler_class as _registry_get_sampler_class
 from .samplers.base import combine_replicates
@@ -202,7 +204,13 @@ class Aspire:
         # Only the policy's own file settles its ledger.
         on_policy_file = (policy is not None
                           and str(checkpoint_path) == policy.path)
-        if checkpoint_path is not None:
+        if checkpoint_path is not None and process_index() != 0:
+            # Rank 0 writes the run file; the others keep its ledger.
+            if on_policy_file:
+                if checkpoint_save_config:
+                    policy.settle("config")
+                policy.settle("flow")
+        elif checkpoint_path is not None:
             from .io import AspireFile
 
             with AspireFile(checkpoint_path, "a") as h5_file:
@@ -455,8 +463,17 @@ class Aspire:
                         config: bool, after: bool = False) -> None:
         """The run file's config (before sampling where it is absent; after
         sampling always, which settles the policy's), after sampling the
-        sampler's record, and the flow once per policy."""
+        sampler's record, and the flow once per policy. On more than one
+        process rank 0 writes them; the others keep the policy's ledger."""
         from .io import AspireFile
+
+        if process_index() != 0:
+            if on_policy_file:
+                if config and after:
+                    policy.settle("config")
+                if self.flow is not None and policy.owes("flow"):
+                    policy.settle("flow")
+            return
 
         with AspireFile(path, "a") as h5_file:
             if config and (after or "aspire_config" not in h5_file):
@@ -554,6 +571,8 @@ class Aspire:
         run.load_flow_into(aspire, required=True)
         aspire._resume = run.resume_state(sampler=sampler,
                                           overrides=resume_kwargs)
+        # Every process has read the file before rank 0 writes to it.
+        checkpoint_barrier()
         # Later checkpoints go on into the same file, which has both.
         aspire._checkpoints = CheckpointPolicy(path=str(file_path),
                                                config=False, flow=False)
@@ -582,6 +601,8 @@ class Aspire:
                 if run.load_flow_into(self, required=False):
                     self._checkpoints.settle("flow")
                 self._skip_fit = self.flow is not None
+            # Every process has read the file before rank 0 writes to it.
+            checkpoint_barrier()
         try:
             yield self
         finally:

@@ -24,6 +24,35 @@ constexpr float kHalfLog2Pi = 0.91893853320467274f;
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 
+// The current device's multiprocessor count and largest opt-in dynamic
+// shared memory per block, read once per device. A launch runs on the
+// current device, which the Python wrappers make the card of the tensors
+// the kernel reads, so one process may drive several cards.
+struct DeviceLimits {
+  int sms;
+  int max_smem;
+};
+
+constexpr int kMaxDevices = 64;
+
+inline DeviceLimits current_device_limits() {
+  static DeviceLimits cache[kMaxDevices] = {};
+  int device = 0;
+  cudaGetDevice(&device);
+  DeviceLimits fresh = {0, 0};
+  DeviceLimits* slot =
+      device >= 0 && device < kMaxDevices ? &cache[device] : &fresh;
+  if (slot->sms == 0) {
+    int sms = 0, max_smem = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaDeviceGetAttribute(&max_smem,
+                           cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    slot->max_smem = max_smem;
+    slot->sms = sms;
+  }
+  return *slot;
+}
+
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }

@@ -156,12 +156,7 @@ int launch_coupling(const float* x, float* z, float* ld, const float* w,
                     int n, int n_layers, float tb, cudaStream_t stream) {
   using S = MmaShape<D, H1, H2, K, RQS>;
   if (n <= 0 || n_layers <= 0) return 0;
-  static int sms = 0;  // queried once per process (one card)
-  if (sms == 0) {
-    int device = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
+  const int sms = current_device_limits().sms;
   // Enough warps per block to give every SM a block, at most kCouplingWarps.
   int warps = ((n + 31) / 32 + sms - 1) / sms;
   warps = warps < 1 ? 1 : (warps > kCouplingWarps ? kCouplingWarps : warps);

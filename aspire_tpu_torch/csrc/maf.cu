@@ -403,15 +403,8 @@ int launch_maf(const float* x, float* z, float* ld, const float* w, int n,
                int n_layers, float tb, cudaStream_t stream) {
   using S = MafShape<D, H1, H2, K>;
   if (n <= 0) return 0;
-  // Queried once per process (one card).
-  static int sms = 0, max_smem = 0;
-  if (sms == 0) {
-    int device = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           device);
-  }
+  const DeviceLimits limits = current_device_limits();
+  const int sms = limits.sms, max_smem = limits.max_smem;
   const long long weight_bytes = 4LL * n_layers * S::SIZE;
   const long long stage_bytes = 4LL * S::STAGE;
   long long warps = (max_smem - weight_bytes) / stage_bytes;

@@ -282,11 +282,9 @@ int launch_staged(const float* x, float* z, float* ld, const float* w,
                 "the paired schedule: two 16-row tiles per warp");
   static_assert(PAIRED || !MICRO, "rqs_micro is the paired schedule's");
   using L = StagedLayout<D, H1, H2, K, S, PAIRED>;
-  int device = 0, sms = 0, max_smem = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         device);
+  const DeviceLimits limits = current_device_limits();
+  const int sms = limits.sms, max_smem = limits.max_smem;
+  int per_sm = 0;
   const long long weights = 4LL * n_layers * L::LAYER;
   const long long buffers = 4LL * Q * L::BUFFER;
   int warps = 2 * Q * S / 32, per_block = 1;  // tiles a block takes at once

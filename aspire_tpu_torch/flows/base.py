@@ -126,8 +126,10 @@ class Flow:
 
     # -- training ----------------------------------------------------------
 
-    def loss_fn(self, params, batch) -> torch.Tensor:
-        """Mean negative log-likelihood in the transformed space."""
+    def loss_fn(self, params, batch, mesh=None) -> torch.Tensor:
+        """Mean negative log-likelihood in the transformed space (of this
+        rank's rows on ``mesh``: the loss draws nothing)."""
+        del mesh
         z, log_det = self.architecture.forward(params, batch)
         return -torch.mean(standard_normal_log_prob(z) + log_det)
 

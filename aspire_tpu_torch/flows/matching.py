@@ -215,25 +215,19 @@ class FlowMatching(Flow):
             },
         }
 
-    def fit(self, x, sharding=None, **kwargs):
-        """:meth:`Flow.fit`; data-parallel training over a mesh of more
-        than one rank waits for the CFM loss's draws to be made at the
-        global batch's shape, as the SMC's are."""
-        if (sharding is not None and not sharding.replicated
-                and sharding.mesh.size > 1):
-            from ..samplers.base import MESH_SLICE_II
-
-            raise NotImplementedError(
-                "FlowMatching.fit(sharding=...) on a mesh of more than one "
-                f"rank {MESH_SLICE_II}")
-        return super().fit(x, sharding=sharding, **kwargs)
-
-    def loss_fn(self, params, batch) -> torch.Tensor:
+    def loss_fn(self, params, batch, mesh=None) -> torch.Tensor:
         """The CFM loss at fresh draws of ``t ~ U(0, 1)`` and ``x0 ~ N(0,
         I)`` from the flow's generator: each training batch and each
-        validation loss draws its own."""
-        t = torch.rand((batch.shape[0], 1), generator=self.generator,
+        validation loss draws its own. ``mesh``: ``batch`` is this rank's
+        rows of a batch sharded over it (``Flow.fit(sharding=)``), whose
+        draws are made at the whole batch's shape, the rank keeping its
+        rows, so every rank's generator stays in the one-process fit's
+        state."""
+        rows = batch.shape[0] * (mesh.size if mesh is not None else 1)
+        t = torch.rand((rows, 1), generator=self.generator,
                        dtype=batch.dtype, device=batch.device)
-        x0 = standard_normal_sample(batch.shape, self.generator,
+        x0 = standard_normal_sample((rows, *batch.shape[1:]), self.generator,
                                     dtype=batch.dtype, device=batch.device)
+        if mesh is not None:
+            t, x0 = mesh.local_rows(t), mesh.local_rows(x0)
         return cfm_loss(params, batch, t, x0)

@@ -128,7 +128,9 @@ def fit_flow(loss_fn: Callable, params: dict, x: torch.Tensor,
              sharding=None) -> tuple[dict, FlowHistory]:
     """Minimise ``loss_fn(params, batch)``; returns (best params, history).
     A loss that draws (the CNF's) draws from its own generator at every
-    call, the validation loss's included.
+    call, the validation loss's included; on a mesh it is called as
+    ``loss_fn(params, batch, mesh)`` for a batch of this rank's rows, and
+    draws at the whole batch's shape.
 
     ``sharding`` (:func:`~aspire_tpu_torch.parallel.mesh.particle_sharding`)
     trains data-parallel over its mesh: every rank passes the whole ``x``
@@ -181,7 +183,8 @@ def fit_flow(loss_fn: Callable, params: dict, x: torch.Tensor,
             # Autograd on also when the caller has it off (a flow
             # preconditioning fits inside an SMC mutation).
             with torch.enable_grad():
-                loss = loss_fn(params, batch)
+                loss = (loss_fn(params, batch) if mesh is None
+                        else loss_fn(params, batch, mesh))
                 grads = torch.autograd.grad(loss, leaves)
             if mesh is not None:
                 loss, grads = _sharded_mean(loss, grads, mesh)
@@ -190,7 +193,8 @@ def fit_flow(loss_fn: Callable, params: dict, x: torch.Tensor,
         train_loss = float(torch.stack(losses).mean())
         if n_val:
             with torch.no_grad():
-                val = loss_fn(params, x_val)
+                val = (loss_fn(params, x_val, mesh) if val_sharded
+                       else loss_fn(params, x_val))
                 if val_sharded:
                     val = _sharded_mean(val, (), mesh)[0]
                 val_loss = float(val)

@@ -6,8 +6,12 @@ same value encoding (the ``__none__``, ``__string__``, ``__pickle__`` and
 ``__empty_dict__`` sentinels), pytrees stored leaf by leaf (``leaf_{i}``,
 with ``leaf_spec``, ``n_leaves`` and ``treedef`` attributes) in the order
 of ``jax.tree_util.tree_flatten`` (dict keys sorted, lists in order), and
-particle arrays as shard datasets tagged with their global offsets, here
-in their single-process form (one ``shard_p0_<starts>`` dataset).
+particle arrays as shard datasets tagged with their global offsets
+(``shard_p<process>_<starts>``): on a mesh of more than one rank each
+process writes its own rows to its own file (:func:`process_checkpoint_path`)
+and a loader reassembles them across the files
+(:func:`checkpoint_shard_files`, :func:`load_sharded_array`). The process
+index is the rank in the started ``torch.distributed`` group.
 
 ``h5py`` is imported at first use: the port runs its samplers without it,
 and every function here raises ``ImportError`` naming it where it is
@@ -327,44 +331,133 @@ def load_pytree_from_hdf5(h5_file, path: str, like: Any) -> Any:
 # -- particle arrays --------------------------------------------------------------
 
 
-def save_sharded_array(h5_file, path: str, arr) -> None:
-    """Write ``arr`` (a tensor or array) as one shard spanning its global
-    shape: the single-process form of the JAX package's shard layout."""
+def save_sharded_array(h5_file, path: str, arr, starts=None,
+                       global_rows: int | None = None) -> None:
+    """Write ``arr`` (a tensor or array) as this process's shard datasets
+    (the JAX package's layout): the whole array as one shard at offset 0,
+    or, given ``starts`` (the global row offset of each block of ``arr``,
+    its rows split evenly among them) and ``global_rows`` (the whole
+    array's row count), this rank's blocks of a row-sharded array. The
+    group is written anew."""
     if path in h5_file:
         del h5_file[path]
-    group = h5_file.require_group(path)
     arr = to_numpy(arr)
-    group.attrs["global_shape"] = np.asarray(arr.shape, dtype=np.int64)
-    group.attrs["dtype"] = str(arr.dtype)
-    starts = (0,) * arr.ndim
-    ds = group.create_dataset(
-        "shard_p0_" + "_".join(map(str, starts)), data=arr)
-    ds.attrs["start"] = np.asarray(starts, dtype=np.int64)
+    if starts is None:
+        starts, global_rows = [0], arr.shape[0] if arr.ndim else 0
+    if arr.ndim == 0:
+        group = h5_file.require_group(path)
+        group.attrs["global_shape"] = np.asarray((), dtype=np.int64)
+        group.attrs["dtype"] = str(arr.dtype)
+        ds = group.create_dataset(f"shard_p{_process_index()}_", data=arr)
+        ds.attrs["start"] = np.asarray((), dtype=np.int64)
+        return
+    size = arr.shape[0] // max(len(starts), 1)
+    save_shard_blocks(h5_file, path, arr, (global_rows, *arr.shape[1:]),
+                      starts, [size] * len(starts))
 
 
-def load_sharded_array(h5_files, path: str) -> np.ndarray:
+def save_shard_blocks(h5_file, path: str, local, global_shape, starts,
+                      sizes) -> None:
+    """Write this process's row blocks of a row-sharded array: ``local``
+    holds its rows (block after block), ``starts`` and ``sizes`` each
+    block's global row offset and length. One dataset per block,
+    ``shard_p<process>_<start>_0...``, tagged with its offset, in the
+    group that carries the whole array's ``global_shape`` and ``dtype``:
+    :func:`load_sharded_array` reassembles across the processes' files."""
+    local = np.asarray(local)
+    group = h5_file.require_group(path)
+    group.attrs["global_shape"] = np.asarray(global_shape, dtype=np.int64)
+    group.attrs["dtype"] = str(local.dtype)
+    row = 0
+    for start, size in zip(starts, sizes):
+        starts_nd = (int(start),) + (0,) * (local.ndim - 1)
+        name = "shard_p{}_{}".format(_process_index(),
+                                     "_".join(map(str, starts_nd)))
+        if name in group:
+            del group[name]
+        ds = group.create_dataset(name, data=local[row:row + size])
+        ds.attrs["start"] = np.asarray(starts_nd, dtype=np.int64)
+        row += size
+
+
+def load_sharded_array(h5_files, path: str, sharding=None) -> np.ndarray:
     """Reassemble an array saved shard-wise (by either package, from one
-    file or several) into host numpy; an element no shard covers raises."""
+    file or several, one per writing process) into host numpy: the whole
+    array, or with ``sharding`` (:class:`~aspire_tpu_torch.parallel.mesh.
+    Sharding`) this rank's block of its axis, each dataset read only where
+    it overlaps the region (the writing and reading meshes need not
+    match). An element of the region no shard covers raises."""
     if not isinstance(h5_files, (list, tuple)):
         h5_files = [h5_files]
     groups = [f[path] for f in h5_files if path in f]
     if not groups:
         raise KeyError(f"No shard group {path!r} in the given files")
     shape = tuple(int(s) for s in groups[0].attrs["global_shape"])
-    out = np.empty(shape, np.dtype(groups[0].attrs["dtype"]))
-    filled = np.zeros(shape, dtype=bool)
+    dtype = np.dtype(groups[0].attrs["dtype"])
+    bounds = [(0, n) for n in shape]
+    if sharding is not None and not sharding.replicated:
+        axis, mesh = sharding.axis, sharding.mesh
+        block = shape[axis] // mesh.size
+        bounds[axis] = (mesh.rank * block, (mesh.rank + 1) * block)
+    out_shape = tuple(hi - lo for lo, hi in bounds)
+    out = np.empty(out_shape, dtype)
+    # An element-wise fill mask: shards may overlap (a whole copy on every
+    # process), so a count cannot prove coverage, and a lost file must
+    # raise rather than hand back np.empty's bytes.
+    filled = np.zeros(out_shape, dtype=bool)
     for group in groups:
         for ds in group.values():
             starts = tuple(int(s) for s in ds.attrs["start"])
-            region = tuple(slice(s, s + e) for s, e in zip(starts, ds.shape))
-            out[region] = ds[()]
-            filled[region] = True
+            lo = [max(b[0], s) for b, s in zip(bounds, starts)]
+            hi = [min(b[1], s + e) for b, s, e in zip(bounds, starts,
+                                                      ds.shape)]
+            if any(a >= z for a, z in zip(lo, hi)):
+                continue
+            src = tuple(slice(a - s, z - s) for a, z, s in zip(lo, hi,
+                                                               starts))
+            dst = tuple(slice(a - b[0], z - b[0])
+                        for a, z, b in zip(lo, hi, bounds))
+            out[dst] = ds[src]
+            filled[dst] = True
     if not filled.all():
         raise ValueError(
             f"Shard files leave {int(filled.size - filled.sum())}/"
             f"{filled.size} elements of {path!r} unfilled (missing "
             "per-process shard files?)")
     return out
+
+
+def _process_index() -> int:
+    from .parallel.mesh import process_index
+
+    return process_index()
+
+
+def checkpoint_barrier(tag: str = "aspire_tpu_checkpoint") -> None:
+    """Wait until every process has written its shard file: a no-op for
+    one process, else a barrier over the default mesh's ranks (every rank
+    of the process group where no mesh was made). ``tag`` names it, as the
+    JAX package's does."""
+    del tag  # a torch.distributed barrier has no name
+    from .parallel import mesh as M
+
+    if M.process_count() > 1:
+        M.barrier(M._MESH)
+
+
+def checkpoint_shard_files(file_path: str) -> list[str]:
+    """All files of a sharded checkpoint: the main file and, in sorted
+    order, the ``<file>.proc<rank>`` files of the other processes."""
+    import glob
+
+    return [str(file_path)] + sorted(glob.glob(str(file_path) + ".proc*"))
+
+
+def process_checkpoint_path(file_path: str) -> str:
+    """Where this process writes its shards of a checkpoint: the file
+    itself on rank 0, ``<file>.proc<rank>`` elsewhere."""
+    idx = _process_index()
+    return str(file_path) if idx == 0 else f"{file_path}.proc{idx}"
 
 
 # -- state bytes ------------------------------------------------------------------

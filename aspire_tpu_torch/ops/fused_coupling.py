@@ -412,11 +412,14 @@ def coupling_packed_plain(arch, mode: str, packed: torch.Tensor,
 _coupling_pack_cache: dict = {}
 
 
-def packed_coupling_params(arch, params: dict) -> torch.Tensor:
-    """:func:`prepare_mma_params`, packed once per set of parameters (as
-    :func:`packed_maf_params`): the ``n_steps + 2`` density passes of a
-    split-chain mutation pack once."""
-    return _pack_once(_coupling_pack_cache, prepare_mma_params, arch, params)
+def packed_coupling_params(arch, params: dict,
+                           device: torch.device | None = None
+                           ) -> torch.Tensor:
+    """:func:`prepare_mma_params`, packed once per set of parameters and
+    card (as :func:`packed_maf_params`): the ``n_steps + 2`` density passes
+    of a split-chain mutation pack once."""
+    return _pack_once(_coupling_pack_cache, prepare_mma_params, arch, params,
+                      device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -452,12 +455,13 @@ def launch_packed(arch, mode: str, weights: torch.Tensor,
     n = x.shape[0]
     z = torch.empty_like(x)
     ld = torch.empty(n, dtype=x.dtype, device=x.device)
-    code = lib.aspire_coupling(
-        x.data_ptr(), z.data_ptr(), ld.data_ptr(), weights.data_ptr(),
-        n, arch.n_layers, float(arch.tail_bound), cfg,
-        1 if mode == "forward" else 0,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):
+        code = lib.aspire_coupling(
+            x.data_ptr(), z.data_ptr(), ld.data_ptr(), weights.data_ptr(),
+            n, arch.n_layers, float(arch.tail_bound), cfg,
+            1 if mode == "forward" else 0,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     launches.count += 1
     if mode != "forward":
         sampling_launches.count += 1
@@ -472,7 +476,8 @@ def coupling_kernel_apply(arch, mode: str, params: dict, x: torch.Tensor):
         return fn(params, x)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
-    return launch_packed(arch, mode, packed_coupling_params(arch, params),
+    return launch_packed(arch, mode,
+                         packed_coupling_params(arch, params, x.device),
                          x.contiguous())
 
 
@@ -785,21 +790,28 @@ def maf_packed_plain(arch, packed: torch.Tensor, x: torch.Tensor):
     return z, log_det
 
 
-def _pack_once(cache: dict, pack, arch, params: dict) -> torch.Tensor:
-    """``pack(arch, params)``, kept in ``cache`` with the parameter tensors
-    themselves and their in-place version counters: the same tensors at
-    the same versions give the kept packing; a new or updated tensor packs
-    anew (an update made through ``.data`` bypasses the version counter
-    and is not seen)."""
+def _pack_once(cache: dict, pack, arch, params: dict,
+               device: torch.device | None = None) -> torch.Tensor:
+    """``pack(arch, params)``, kept in ``cache`` per card with the parameter
+    tensors themselves and their in-place version counters: the same
+    tensors at the same versions give the kept packing; a new or updated
+    tensor packs anew (an update made through ``.data`` bypasses the
+    version counter and is not seen). A CUDA ``device`` (the card of the
+    tensors the kernel reads) gets its own copy where the parameters live
+    on another card; None keeps the parameters' device."""
     _, leaves = _flatten(params)
     key = (arch, tuple(t._version for t in leaves))
-    hit = cache.get("key")
+    slot = cache.setdefault(str(device), {})
+    hit = slot.get("key")
     if (hit is not None and hit[0] == key
             and len(hit[1]) == len(leaves)
             and all(a is b for a, b in zip(hit[1], leaves))):
-        return cache["packed"]
+        return slot["packed"]
     packed = pack(arch, params)
-    cache.update(key=(key, tuple(leaves)), packed=packed)
+    if (device is not None and device.type == "cuda"
+            and packed.device != device):
+        packed = packed.to(device)
+    slot.update(key=(key, tuple(leaves)), packed=packed)
     return packed
 
 
@@ -808,17 +820,20 @@ _maf_pack_cache: dict = {}
 
 def kept_packings() -> tuple:
     """The packings the caches hold now. A CUDA graph that launched a
-    kernel on one holds it, since a cache keeps only its latest packing."""
-    return tuple(cache["packed"] for cache in (_coupling_pack_cache,
-                                               _maf_pack_cache)
-                 if "packed" in cache)
+    kernel on one holds it, since a cache keeps only its latest packing
+    per card."""
+    return tuple(slot["packed"] for cache in (_coupling_pack_cache,
+                                              _maf_pack_cache)
+                 for slot in cache.values() if "packed" in slot)
 
 
-def packed_maf_params(arch, params: dict) -> torch.Tensor:
-    """:func:`prepare_maf_params`, packed once per set of parameters
-    (:func:`_pack_once`), so the ``n_steps + 2`` density passes of a
+def packed_maf_params(arch, params: dict,
+                      device: torch.device | None = None) -> torch.Tensor:
+    """:func:`prepare_maf_params`, packed once per set of parameters and
+    card (:func:`_pack_once`), so the ``n_steps + 2`` density passes of a
     split-chain mutation pack once."""
-    return _pack_once(_maf_pack_cache, prepare_maf_params, arch, params)
+    return _pack_once(_maf_pack_cache, prepare_maf_params, arch, params,
+                      device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -851,11 +866,12 @@ def launch_maf(arch, weights: torch.Tensor, x: torch.Tensor):
     n = x.shape[0]
     z = torch.empty_like(x)
     ld = torch.empty(n, dtype=x.dtype, device=x.device)
-    code = lib.aspire_maf(
-        x.data_ptr(), z.data_ptr(), ld.data_ptr(), weights.data_ptr(),
-        n, arch.n_layers, float(arch.tail_bound), cfg,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):
+        code = lib.aspire_maf(
+            x.data_ptr(), z.data_ptr(), ld.data_ptr(), weights.data_ptr(),
+            n, arch.n_layers, float(arch.tail_bound), cfg,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     maf_launches.count += 1
     check(code, "MAF kernel")
     return z, ld
@@ -868,7 +884,8 @@ def maf_kernel_apply(arch, params: dict, x: torch.Tensor):
         return arch.forward_plain(params, x)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
-    return launch_maf(arch, packed_maf_params(arch, params), x.contiguous())
+    return launch_maf(arch, packed_maf_params(arch, params, x.device),
+                      x.contiguous())
 
 
 def fused_maf_forward(arch, params: dict, x: torch.Tensor):

@@ -729,7 +729,7 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     if _consts_library_layout(chain_lib, d) != consts_layout(d):
         raise RuntimeError("chain constant block disagrees with the kernel "
                            "library")
-    weights = FC.packed_coupling_params(arch, params)
+    weights = FC.packed_coupling_params(arch, params, z0.device)
     smem = chain_shared_bytes(arch, consts_layout(d)[-1])
     if smem > lib.aspire_max_shared_bytes():
         raise ValueError(f"chain kernel needs {smem} bytes of shared memory")
@@ -758,21 +758,23 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     scratch = (torch.empty(3 * d * n, dtype=torch.float32, device=z0.device)
                if FC.mma_wide(arch) else None)
     launch = chain_lib.aspire_chain_user if user else chain_lib.aspire_chain
-    code = launch(
-        z0.data_ptr(), weights.data_ptr(), consts.data_ptr(),
-        step0.data_ptr(), noise.data_ptr() if noise is not None else None,
-        z.data_ptr(), lq.data_ptr(), lpi.data_ptr(), ll.data_ptr(),
-        nacc.data_ptr(), stats.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
-        n, arch.n_layers, cfg.n_steps, KERNELS[cfg.kernel], cfg.gamma_m,
-        cfg.gamma_odd, cfg.noise_rows, program_level(data_transform, precond),
-        USER_TARGET if user else int(target_id), beta_dev.data_ptr(),
-        float(cfg.nu), float(cfg.target_acceptance),
-        float(cfg.adaptation_rate), float(cfg.max_log_step),
-        float(arch.tail_bound), seed_dev.data_ptr(), FC.config_id(arch),
-        torch.cuda.current_stream(z0.device).cuda_stream,
-        *((user_consts.data_ptr(),) if user else ()),
-    )
+    with torch.cuda.device(z0.device):
+        code = launch(
+            z0.data_ptr(), weights.data_ptr(), consts.data_ptr(),
+            step0.data_ptr(), noise.data_ptr() if noise is not None else None,
+            z.data_ptr(), lq.data_ptr(), lpi.data_ptr(), ll.data_ptr(),
+            nacc.data_ptr(), stats.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            n, arch.n_layers, cfg.n_steps, KERNELS[cfg.kernel], cfg.gamma_m,
+            cfg.gamma_odd, cfg.noise_rows,
+            program_level(data_transform, precond),
+            USER_TARGET if user else int(target_id), beta_dev.data_ptr(),
+            float(cfg.nu), float(cfg.target_acceptance),
+            float(cfg.adaptation_rate), float(cfg.max_log_step),
+            float(arch.tail_bound), seed_dev.data_ptr(), FC.config_id(arch),
+            torch.cuda.current_stream(z0.device).cuda_stream,
+            *((user_consts.data_ptr(),) if user else ()),
+        )
     launches.count += 1
     check(code, "chain kernel")
     return z, lq, lpi, ll, nacc, stats[:, 0].clone(), stats
@@ -796,9 +798,10 @@ def user_target_eval(target: UserTarget, consts: torch.Tensor, config: int,
     n, d = x.shape
     lpi, ll = (torch.empty(n, dtype=torch.float32, device=x.device)
                for _ in range(2))
-    code = lib.aspire_user_target(
-        x.data_ptr(), n, d, consts.data_ptr(), lpi.data_ptr(), ll.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        code = lib.aspire_user_target(
+            x.data_ptr(), n, d, consts.data_ptr(), lpi.data_ptr(),
+            ll.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     user_target_launches.count += 1
     check(code, "user target")
     return lpi, ll

@@ -54,9 +54,11 @@ def prng_uniforms(seed, shape, device) -> torch.Tensor:
         raise ValueError(f"unsupported device {device}")
     out = torch.empty(shape, dtype=torch.float32, device=device)
     lib = load_library()
-    code = lib.aspire_prng_uniforms(
-        out.data_ptr(), out.numel(), int(seed[0]) & _MASK,
-        int(seed[1]) & _MASK, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(out.device):
+        code = lib.aspire_prng_uniforms(
+            out.data_ptr(), out.numel(), int(seed[0]) & _MASK,
+            int(seed[1]) & _MASK,
+            torch.cuda.current_stream(out.device).cuda_stream)
     launches.count += 1
     check(code, "uniforms kernel")
     return out

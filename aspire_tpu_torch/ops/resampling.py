@@ -166,7 +166,8 @@ def _default_cap(out_rows: int, n_shards: int) -> int:
 
 
 def alltoall_move(idx: torch.Tensor, block: torch.Tensor, mesh,
-                  cap: int | None = None) -> tuple[torch.Tensor, bool]:
+                  cap: int | None = None, on_device: bool = False
+                  ) -> tuple[torch.Tensor, bool | torch.Tensor]:
     """This rank's rows of ``data[idx]`` by one all-to-all of per-(source,
     destination) buckets of ``cap`` rows, and whether the ring was taken
     instead. Each source sends the rows a destination wants from its block
@@ -174,15 +175,27 @@ def alltoall_move(idx: torch.Tensor, block: torch.Tensor, mesh,
     running rank per source. Every rank counts the rows of every pair from
     the global index alike, so where any pair passes ``cap`` every rank
     takes the ring on the same index (the JAX package's overflow fallback),
-    and no collective decides it."""
+    and no collective decides it.
+
+    Where ``cap`` is at least the rows a rank emits (the default at 2 and 4
+    ranks), no pair can pass it and nothing is counted. Otherwise the
+    decision is a host read of the pair counts, or with ``on_device`` (a
+    rung a CUDA graph captures, which allows no read) a flag on the device:
+    both schedules run on the same index and the flag selects the ring's
+    rows, the JAX package's ``lax.cond`` on its ``pmax`` with both branches
+    paid for. The flag, a 0-d bool tensor, is then what is returned."""
     chunk, s, me = block.shape[0], mesh.size, mesh.rank
     out_rows = _out_rows(mesh, idx.shape[0])
     cap = min(int(cap if cap is not None else _default_cap(out_rows, s)),
               out_rows)
     src_of = (idx // chunk).reshape(s, out_rows)  # [dst, j]: source rank
-    pair = torch.stack([(src_of == t).sum(1) for t in range(s)])  # [src, dst]
-    if int(pair.max()) > cap:
-        return ring_move(idx, block, mesh), True
+    overflow = False
+    if cap < out_rows:
+        pair = torch.stack([(src_of == t).sum(1) for t in range(s)])
+        if on_device:
+            overflow = pair.max() > cap
+        elif int(pair.max()) > cap:
+            return ring_move(idx, block, mesh), True
     sends = []
     for t in range(s):
         idx_t = idx[t * out_rows:(t + 1) * out_rows]
@@ -197,7 +210,11 @@ def alltoall_move(idx: torch.Tensor, block: torch.Tensor, mesh,
     onehot = src[:, None] == torch.arange(s, device=src.device)[None, :]
     rank = torch.gather(torch.cumsum(onehot.to(torch.int64), 0), 1,
                         src[:, None])[:, 0] - 1
-    return recv[src, torch.clamp(rank, max=cap - 1)], False
+    out = recv[src, torch.clamp(rank, max=cap - 1)]
+    if isinstance(overflow, torch.Tensor):
+        ring = ring_move(idx, block, mesh)
+        out = torch.where(overflow, ring, out)
+    return out, overflow
 
 
 def global_index(generator, log_w: torch.Tensor, mesh,

@@ -325,10 +325,11 @@ def _launch(counter: LaunchCounter, arch, weights: torch.Tensor,
     n = x.shape[0]
     z = torch.empty_like(x)
     ld = torch.empty(n, dtype=x.dtype, device=x.device)
-    code = lib.aspire_staged(
-        x.data_ptr(), z.data_ptr(), ld.data_ptr(), weights.data_ptr(), n,
-        arch.n_layers, float(arch.tail_bound), cfg,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        code = lib.aspire_staged(
+            x.data_ptr(), z.data_ptr(), ld.data_ptr(), weights.data_ptr(), n,
+            arch.n_layers, float(arch.tail_bound), cfg,
+            torch.cuda.current_stream(x.device).cuda_stream)
     counter.count += 1
     check(code, "staged coupling kernel")
     return z, ld
@@ -356,15 +357,16 @@ def interleaved_apply(arch, params: dict, x: torch.Tensor):
     """D1: the density pass over two sub-tiles per tile."""
     if x.device.type == "cpu":
         return staged_plain(arch, params, x, 2, sub_tile(arch, 2))
-    return launch_interleaved(arch, FC.packed_coupling_params(arch, params),
-                              x.contiguous())
+    return launch_interleaved(
+        arch, FC.packed_coupling_params(arch, params, x.device),
+        x.contiguous())
 
 
 def q_apply(arch, params: dict, x: torch.Tensor, q: int):
     """D2: the density pass over ``q`` sub-tiles per tile."""
     if x.device.type == "cpu":
         return staged_plain(arch, params, x, q, sub_tile(arch, q))
-    return launch_q(arch, FC.packed_coupling_params(arch, params),
+    return launch_q(arch, FC.packed_coupling_params(arch, params, x.device),
                     x.contiguous(), q)
 
 
@@ -374,5 +376,6 @@ def packed_apply(arch, params: dict, x: torch.Tensor, micro: bool = False):
     if x.device.type == "cpu":
         return paired_plain(arch, params, x, sub_tile(arch, 2, True),
                             micro)
-    return launch_packed(arch, FC.packed_coupling_params(arch, params),
-                         x.contiguous(), micro)
+    return launch_packed(
+        arch, FC.packed_coupling_params(arch, params, x.device),
+        x.contiguous(), micro)

@@ -53,7 +53,9 @@ DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
 #: the primitives' calls, by name, since the last reset: the resampling
 #: schedules read apart by them (``"all_gather"`` of vectors,
 #: ``"all_gather_rows"`` of matrices, ``"all_reduce"``, ``"shift"``,
-#: ``"all_to_all"``)
+#: ``"all_to_all"``, ``"barrier"``). A collective captured in a CUDA graph
+#: is counted at each replay, not at the capture
+#: (:func:`captured_collectives`, :func:`add_collectives`).
 collective_counts: collections.Counter = collections.Counter()
 
 _MESH: "ProcessMesh | None" = None
@@ -161,6 +163,25 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "data", *,
                        axis_name=axis_name, backend=backend, device=device)
 
 
+def _run_rank(rank: int, fn, *args) -> None:
+    """``fn(rank, *args)`` in a rank of :func:`spawn_ranks`, then, where
+    ``fn`` left its process group started, the group left together: a
+    barrier (no rank closes its connections while a peer's last exchange
+    is on the wire, which aborted that peer) and ``destroy_process_group``
+    (after a collection, so no captured ladder holds NCCL's communicator,
+    ROADMAP C19)."""
+    import gc
+
+    fn(rank, *args)
+    dist = _dist()
+    if dist.is_initialized():
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        barrier()
+        dist.destroy_process_group()
+
+
 def spawn_ranks(fn, size: int, args: tuple = (),
                 timeout: float = 600.0) -> None:
     """Run ``fn(rank, *args)`` in ``size`` ``spawn`` processes on this host
@@ -168,13 +189,22 @@ def spawn_ranks(fn, size: int, args: tuple = (),
     ranks; ``fn`` sits at a module's top level) and wait at most
     ``timeout`` seconds for all of them. A rank that raises or exits
     non-zero ends the others and raises here, as does the timeout; no
-    process is left running."""
+    process is left running. The ranks' gloo traffic stays on the
+    loopback interface unless ``GLOO_SOCKET_IFNAME`` says otherwise: on a
+    host with another interface, gloo's own choice let ranks of several
+    jobs started at once abort (``std::terminate``)."""
     import time
 
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(fn, args=args, nprocs=size, join=False,
-                             start_method="spawn")
+    saved = os.environ.get("GLOO_SOCKET_IFNAME")
+    os.environ["GLOO_SOCKET_IFNAME"] = saved or "lo"
+    try:
+        ctx = mp.start_processes(_run_rank, args=(fn, *args), nprocs=size,
+                                 join=False, start_method="spawn")
+    finally:
+        if saved is None:
+            del os.environ["GLOO_SOCKET_IFNAME"]
     deadline = time.monotonic() + timeout
     try:
         while not ctx.join(timeout=1.0):
@@ -204,12 +234,14 @@ def set_mesh(mesh: ProcessMesh | None) -> None:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Sharding:
-    """Where the rows of an array live: a block per rank
-    (``replicated=False``) or the whole array on every rank."""
+    """Where an array lives: a block of its ``axis`` per rank
+    (``replicated=False``; axis 0, the rows, for particle arrays) or the
+    whole array on every rank."""
 
     mesh: ProcessMesh
     axis_name: str = "data"
     replicated: bool = False
+    axis: int = 0
 
 
 def particle_sharding(mesh: ProcessMesh,
@@ -220,6 +252,14 @@ def particle_sharding(mesh: ProcessMesh,
 
 def replicated_sharding(mesh: ProcessMesh) -> Sharding:
     return Sharding(mesh, mesh.axis_name, replicated=True)
+
+
+def walker_sharding(mesh: ProcessMesh, axis_name: str = "data") -> Sharding:
+    """``(T, n, ...)`` tempered ensembles: a block of the walkers (axis 1)
+    per rank, the temperature axis whole (the parallel-tempering sampler's:
+    the tempered sweeps evaluate each rank's walkers, the swaps stay on the
+    rank)."""
+    return Sharding(mesh, axis_name, axis=1)
 
 
 def shard_particles(tree, mesh: ProcessMesh, axis_name: str = "data"):
@@ -323,5 +363,58 @@ def all_to_all(send: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
     return out.reshape(send.shape)
 
 
+def barrier(mesh: ProcessMesh | None = None) -> None:
+    """Wait until every rank of ``mesh`` (every rank of the started
+    process group where None) has reached it: one integer all-reduce on
+    the mesh's device, read back on the host. A checkpoint's writers meet
+    here once every rank's file is closed."""
+    dist = _dist()
+    if mesh is None:
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if str(dist.get_backend()) == "nccl"
+                  else torch.device("cpu"))
+        group = dist.group.WORLD
+    else:
+        device, group = mesh.device, mesh.group
+    collective_counts["barrier"] += 1
+    flag = torch.ones(1, dtype=torch.int64, device=device)
+    dist.all_reduce(flag, group=group)
+    int(flag.item())
+
+
+def process_index() -> int:
+    """This process's rank in the started process group (0 without
+    one): the JAX package's ``jax.process_index``."""
+    dist = _dist()
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The started process group's size (1 without one)."""
+    dist = _dist()
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def reset_collective_counts() -> None:
     collective_counts.clear()
+
+
+def captured_collectives(before: dict) -> collections.Counter:
+    """The collectives counted since ``before`` (a copy of
+    :data:`collective_counts` taken just before a CUDA graph's capture),
+    taken back off the counts: a capture runs nothing. Each replay of the
+    graph adds them (:func:`add_collectives`)."""
+    made = collections.Counter(collective_counts)
+    made.subtract(before)
+    made = +made
+    collective_counts.subtract(made)
+    for name in [k for k, v in collective_counts.items() if v <= 0]:
+        del collective_counts[name]
+    return made
+
+
+def add_collectives(made: dict) -> None:
+    """Add one replay's collectives (:func:`captured_collectives`)."""
+    collective_counts.update(made)

@@ -17,11 +17,16 @@ unpickles without a card. It carries the generator's state
 package's PRNG key; a JAX package checkpoint's ``key`` seeds the generator
 by :func:`seed_from_jax_key` (not the JAX stream). On file, the JAX
 package's layout: ``checkpoint/state`` (the pickled state) and
-``checkpoint/arrays/<field>`` (the particle arrays).
+``checkpoint/arrays/<field>`` (the particle arrays). On a mesh of more
+than one rank every rank writes its own rows, as shard blocks, to its own
+file (the main file on rank 0, ``<file>.proc<rank>`` elsewhere), rank 0
+the state, and the ranks meet at a barrier; loading reassembles the arrays
+across the files, so the reading mesh need not be the writing one.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import logging
 import math
@@ -36,11 +41,6 @@ from ..samples import Samples
 from ..utils import dtype_name, function_id, resolve_dtype
 
 logger = logging.getLogger("aspire_tpu_torch")
-
-#: what a run on a mesh of more than one rank cannot do yet
-MESH_SLICE_II = ("waits for the second multi-device slice of the port "
-                 "(ROADMAP A item 2 (ii))")
-
 
 def combine_replicates(result, logzs, errs, label: str):
     """Attach the replicates' mean log Z to ``result`` with the
@@ -192,13 +192,6 @@ class Sampler:
     def multiprocess(self) -> bool:
         """True on a mesh of more than one rank."""
         return self.mesh is not None and self.mesh.size > 1
-
-    def refuse_multiprocess(self, what: str) -> None:
-        """Raise ``NotImplementedError`` naming ``what`` on a mesh of more
-        than one rank."""
-        if self.multiprocess():
-            raise NotImplementedError(
-                f"{what} on a mesh of more than one rank {MESH_SLICE_II}")
 
     def check_replicated_flow(self) -> None:
         """On a mesh of more than one rank: raise ``ValueError`` unless
@@ -426,22 +419,41 @@ class Sampler:
 
     # -- checkpoint protocol -----------------------------------------------
 
+    @staticmethod
+    def _history_snapshot(samples: Samples, mesh) -> Samples:
+        """A host snapshot of the population for ``sample_history`` and the
+        checkpoints (the JAX package's ``_history_snapshot``): all of it,
+        or on a mesh of more than one rank this rank's rows, tagged with
+        their global offset (``shard_starts``, ``shard_sizes``,
+        ``global_n``), which :meth:`Sampler.save_checkpoint_to_hdf` writes
+        as this rank's shard blocks. No gather."""
+        snap = samples.to_numpy()
+        if mesh is not None and mesh.size > 1:
+            m = len(snap.x)
+            snap.shard_starts = [mesh.rank * m]
+            snap.shard_sizes = [m]
+            snap.global_n = m * mesh.size
+        return snap
+
     #: array fields of the samples written as arrays of their own on file
     _CHECKPOINT_ARRAY_FIELDS = ("x", "log_likelihood", "log_prior", "log_q")
 
     def build_checkpoint_state(self, samples, iteration: int,
                                meta: dict | None = None,
                                generator: torch.Generator | None = None,
-                               evaluations: int | None = None,
+                               evaluations: int | None = None, mesh=None,
                                **extra) -> dict:
-        """A checkpoint of host data: the samples as a host copy, the config,
-        ``generator``'s state (the sampler's by default), the evaluations
-        (the sampler's count by default) and what the sampler adds
-        (:meth:`_checkpoint_extra_state`, given ``extra``)."""
+        """A checkpoint of host data: the samples as a host copy (on
+        ``mesh``, the mesh the rows are sharded over, this rank's rows:
+        :meth:`_history_snapshot`), the config, ``generator``'s state (the
+        sampler's by default), the evaluations (the sampler's count by
+        default) and what the sampler adds (:meth:`_checkpoint_extra_state`,
+        given ``extra``)."""
         state = {
             "sampler_class": type(self).__name__,
             "iteration": iteration,
-            "samples": samples.to_numpy() if samples is not None else None,
+            "samples": (self._history_snapshot(samples, mesh)
+                        if samples is not None else None),
             "config": self.config_dict(),
             "parameters": self.parameters,
             "meta": meta or {},
@@ -464,24 +476,67 @@ class Sampler:
 
     def save_checkpoint_to_hdf(self, state: dict, file_path: str,
                                path: str = "checkpoint") -> None:
-        """Write ``state``: the particle arrays at ``{path}/arrays/<field>``
-        (one shard each), the rest pickled at ``{path}/state`` with the
-        samples' class, names and beta (``samples_spec``)."""
-        from ..io import AspireFile, save_sharded_array, save_state_bytes
+        """Write ``state`` (the JAX package's sharded writer): the particle
+        arrays at ``{path}/arrays/<field>`` as shard datasets, the rest
+        pickled at ``{path}/state`` with the samples' class, names and beta
+        (``samples_spec``). Every process writes to its own file
+        (:func:`~aspire_tpu_torch.io.process_checkpoint_path`): its rows
+        where the samples are a shard-local snapshot, else the whole
+        arrays; a history of shard-local snapshots goes in as each rank's
+        blocks of every rung (``{path}/history/sample_history/<i>``), the
+        blob keeping their class and beta (``history_shard_snapshots``).
+        Only rank 0 writes the state; then every process waits at the
+        barrier (:func:`~aspire_tpu_torch.io.checkpoint_barrier`)."""
+        from ..io import (
+            AspireFile,
+            checkpoint_barrier,
+            process_checkpoint_path,
+            save_shard_blocks,
+            save_sharded_array,
+            save_state_bytes,
+        )
+        from ..parallel.mesh import process_index
 
         state = dict(state)
         samples = state.pop("samples", None)
-        with AspireFile(file_path, "a") as f:
+        history = state.get("history")
+        snaps = list(getattr(history, "sample_history", None) or [])
+        shard_snaps = None
+        if any(getattr(s, "shard_starts", None) is not None for s in snaps):
+            shard_snaps = snaps
+            hist_copy = copy.copy(history)
+            hist_copy.sample_history = []
+            state["history"] = hist_copy
+            state["history_shard_snapshots"] = [
+                {"class": type(s).__name__, "beta": getattr(s, "beta", None)}
+                for s in snaps]
+        with AspireFile(process_checkpoint_path(file_path), "a") as f:
             if samples is not None:
                 for name in self._CHECKPOINT_ARRAY_FIELDS:
                     value = getattr(samples, name, None)
                     if value is not None:
-                        save_sharded_array(f, f"{path}/arrays/{name}", value)
-                state["samples_spec"] = {
-                    "class": type(samples).__name__,
-                    "parameters": samples.parameters,
-                    "beta": getattr(samples, "beta", None)}
-            save_state_bytes(f, pickle.dumps(state), path=path)
+                        save_sharded_array(
+                            f, f"{path}/arrays/{name}", value,
+                            *_shard_of(samples))
+            for i, snap in enumerate(shard_snaps or ()):
+                for name in self._CHECKPOINT_ARRAY_FIELDS:
+                    value = getattr(snap, name, None)
+                    if value is None:
+                        continue
+                    value = np.asarray(value)
+                    starts, n = _shard_of(snap) or ([0], len(value))
+                    save_shard_blocks(
+                        f, f"{path}/history/sample_history/{i}/{name}",
+                        value, (n,) + value.shape[1:], starts,
+                        getattr(snap, "shard_sizes", None) or [len(value)])
+            if process_index() == 0:
+                if samples is not None:
+                    state["samples_spec"] = {
+                        "class": type(samples).__name__,
+                        "parameters": samples.parameters,
+                        "beta": getattr(samples, "beta", None)}
+                save_state_bytes(f, pickle.dumps(state), path=path)
+        checkpoint_barrier()
 
     def default_file_checkpoint_callback(
             self, file_path: str | None) -> Callable[[dict], None]:
@@ -498,34 +553,61 @@ class Sampler:
     @classmethod
     def load_checkpoint_from_file(cls, file_path: str,
                                   path: str = "checkpoint") -> dict:
-        """A checkpoint written by either package, its particle arrays as
-        host numpy in the samples (of the port's class the file names)."""
+        """A checkpoint written by either package, on any number of
+        processes: its particle arrays reassembled across the main file and
+        its ``.proc<rank>`` siblings (:func:`~aspire_tpu_torch.io.
+        checkpoint_shard_files`) as host numpy in the samples (of the
+        port's class the file names), and a shard-local sample history's
+        populations rung by rung. A region no file covers raises."""
         from .. import samples as samples_module
         from ..io import (
+            checkpoint_shard_files,
             h5py_module,
             load_pickle,
             load_sharded_array,
             load_state_bytes,
         )
 
-        with h5py_module().File(file_path, "r") as f:
+        h5py = h5py_module()
+        with h5py.File(file_path, "r") as f:
             state = load_pickle(load_state_bytes(f, path=path))
-            spec = state.pop("samples_spec", None)
-            if spec is None:
-                return state  # the samples rode in the blob
-            arrays = {name: load_sharded_array(f, f"{path}/arrays/{name}")
-                      for name in cls._CHECKPOINT_ARRAY_FIELDS
-                      if f"{path}/arrays/{name}" in f}
-        klass = getattr(samples_module, spec["class"])
-        kwargs = dict(arrays, parameters=spec.get("parameters"))
-        if spec.get("beta") is not None and "beta" in (
-                klass.__dataclass_fields__):
-            kwargs["beta"] = spec["beta"]
-        built = klass(**kwargs)
-        # The saved bytes, not the constructor's conversions.
-        for name, value in arrays.items():
-            setattr(built, name, value)
-        state["samples"] = built
+        spec = state.pop("samples_spec", None)
+        snap_specs = state.pop("history_shard_snapshots", None)
+        if spec is None and snap_specs is None:
+            return state  # the samples rode in the blob
+
+        def build(klass_name, arrays, parameters, beta):
+            klass = getattr(samples_module, klass_name)
+            kwargs = dict(arrays, parameters=parameters)
+            if beta is not None and "beta" in klass.__dataclass_fields__:
+                kwargs["beta"] = beta
+            built = klass(**kwargs)
+            # The saved bytes, not the constructor's conversions.
+            for name, value in arrays.items():
+                setattr(built, name, value)
+            return built
+
+        files = [h5py.File(p, "r") for p in checkpoint_shard_files(file_path)]
+        try:
+            def fields(base):
+                return {name: load_sharded_array(files, f"{base}/{name}")
+                        for name in cls._CHECKPOINT_ARRAY_FIELDS
+                        if any(f"{base}/{name}" in f for f in files)}
+
+            if spec is not None:
+                state["samples"] = build(spec["class"],
+                                         fields(f"{path}/arrays"),
+                                         spec.get("parameters"),
+                                         spec.get("beta"))
+            if snap_specs is not None and state.get("history") is not None:
+                for i, sp in enumerate(snap_specs):
+                    state["history"].sample_history.append(build(
+                        sp.get("class", "SMCSamples"),
+                        fields(f"{path}/history/sample_history/{i}"),
+                        state.get("parameters"), sp.get("beta")))
+        finally:
+            for f in files:
+                f.close()
         return state
 
     def restore_from_checkpoint(self, source: str | bytes | dict
@@ -534,7 +616,11 @@ class Sampler:
         bytes of :meth:`serialize_checkpoint_state`, or the state dict; the
         generator and the evaluation count restored from it."""
         if isinstance(source, str):
+            from ..io import checkpoint_barrier
+
             state = self.load_checkpoint_from_file(source)
+            # Every process has read the files before any writes to them.
+            checkpoint_barrier()
         elif isinstance(source, bytes):
             from ..io import load_pickle
 
@@ -548,3 +634,14 @@ class Sampler:
         self.n_likelihood_evaluations = state.get(
             "n_likelihood_evaluations", self.n_likelihood_evaluations)
         return state["samples"], state
+
+
+def _shard_of(samples) -> tuple:
+    """``(starts, global rows)`` of a shard-local snapshot (its rows' offset
+    and the whole population's size), ``()`` for a whole population: the
+    trailing arguments :func:`~aspire_tpu_torch.io.save_sharded_array`
+    takes."""
+    starts = getattr(samples, "shard_starts", None)
+    if starts is None:
+        return ()
+    return list(starts), int(samples.global_n)

@@ -28,7 +28,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..parallel.mesh import all_gather_rows
+from ..parallel.mesh import all_gather_rows, all_reduce
 
 
 @dataclass
@@ -230,6 +230,15 @@ def _uniform_rows(generator, n: int, like, mesh):
     return _rows(_uniform(generator, _whole_count(n, mesh), like), mesh)
 
 
+def _any_running(flags: torch.Tensor, mesh) -> bool:
+    """Whether any particle's flag holds, over the whole population: a
+    host read, of one integer all-reduce on a mesh, so every rank leaves
+    a loop at the same trip and makes the same draws."""
+    if mesh is None:
+        return bool(flags.any())
+    return bool(all_reduce(flags.any().to(torch.int64).reshape(1), mesh))
+
+
 def mh_update(state: ChainState, generator, x_prop, lp_prop, log_alpha, *,
               target_acceptance: float, adaptation_rate: float,
               max_log_step: float = 0.0, grad_prop=None,
@@ -416,7 +425,7 @@ def _where(mask, new, old):
 
 def nuts_trajectory(generator, z0, lp0, grad0, value_and_grad_fn: Callable,
                     step_size, max_depth: int = 8,
-                    max_delta_energy: float = 1000.0):
+                    max_delta_energy: float = 1000.0, mesh=None):
     """One NUTS trajectory for every particle: multinomial progressive
     sampling, the checkpoint stack's U-turn checks, ``max_depth`` doublings
     at most. Returns ``(z, lp, grad, accept_stat, n_leaf)``: ``accept_stat``
@@ -431,9 +440,14 @@ def nuts_trajectory(generator, z0, lp0, grad0, value_and_grad_fn: Callable,
     the loops stop when every particle has, and a stopped particle's
     leaves in between are computed and discarded. A read costs far less
     than the leaf's gradient evaluation; a CUDA graph could not make it.
+
+    On a mesh the rows are this rank's: every draw is made at the whole
+    population's shape and each read is of the whole population's flag
+    (:func:`_any_running`, an integer all-reduce), so every rank makes the
+    one-process run's doublings, leaves and draws.
     """
     n, d = z0.shape
-    p0 = _normal(generator, z0)
+    p0 = _normal_rows(generator, z0, mesh)
     h0 = 0.5 * torch.sum(p0 * p0, dim=-1) - lp0
     eps = step_size.to(z0.dtype)
 
@@ -453,10 +467,13 @@ def nuts_trajectory(generator, z0, lp0, grad0, value_and_grad_fn: Callable,
     n_leaf = torch.zeros(n, dtype=torch.int64, device=z0.device)
     for depth in range(max_depth):
         running = ~turning & ~diverging
-        if depth and not bool(running.any()):
+        if depth and not _any_running(running, mesh):
             break
-        forward = _uniform(generator, n, z0) < 0.5
-        u_picks = _uniform(generator, (1 << depth, n), z0)
+        forward = _uniform_rows(generator, n, z0, mesh) < 0.5
+        u_picks = _uniform(generator, (1 << depth, _whole_count(n, mesh)),
+                           z0)
+        if mesh is not None:
+            u_picks = u_picks[:, mesh.rank * n:(mesh.rank + 1) * n]
         z = torch.where(forward[:, None], zr, zl)
         p = torch.where(forward[:, None], pr, -pl)
         g = torch.where(forward[:, None], gr, gl)
@@ -468,7 +485,7 @@ def nuts_trajectory(generator, z0, lp0, grad0, value_and_grad_fn: Callable,
         sp = 0
         for i in range(1 << depth):
             live = running & ~s_turn & ~s_div
-            if i and not bool(live.any()):
+            if i and not _any_running(live, mesh):
                 break
             z_n, p_n, g_n, lp_n = leapfrog(z, p, g)
             lw = h0 - (0.5 * torch.sum(p_n * p_n, dim=-1) - lp_n)
@@ -496,7 +513,7 @@ def nuts_trajectory(generator, z0, lp0, grad0, value_and_grad_fn: Callable,
                 torch.zeros_like(lw))
             n_leaf = n_leaf + live.to(torch.int64)
         ok = running & ~s_turn & ~s_div
-        u_swap = _uniform(generator, n, z0)
+        u_swap = _uniform_rows(generator, n, z0, mesh)
         swap = ok & (torch.log(u_swap) < s_logw - logw)
         left, right = ok & ~forward, ok & forward
         zl, pl, gl = (_where(left, new, old)
@@ -516,18 +533,20 @@ def nuts_trajectory(generator, z0, lp0, grad0, value_and_grad_fn: Callable,
 def nuts_step(state: ChainState, generator, value_and_grad_fn: Callable,
               max_depth: int = 8, max_delta_energy: float = 1000.0,
               target_acceptance: float = 0.8,
-              adaptation_rate: float = 0.05) -> ChainState:
+              adaptation_rate: float = 0.05, mesh=None) -> ChainState:
     """One NUTS transition of the whole batch (:func:`nuts_trajectory`);
     ``n_accept`` gains each particle's mean Metropolis ratio, so the
     recorded acceptance stays comparable with the other kernels, and the
-    evaluation count the leapfrogs the particles took."""
+    evaluation count the leapfrogs the particles took (this rank's on a
+    mesh, whose step size adapts to the whole population's mean)."""
     x, lp, grad, accept_stat, n_leaf = nuts_trajectory(
         generator, state.x, state.log_prob, state.grad, value_and_grad_fn,
         state.step_size, max_depth=max_depth,
-        max_delta_energy=max_delta_energy)
+        max_delta_energy=max_delta_energy, mesh=mesh)
     return ChainState(
         x=x, log_prob=lp,
-        step_size=adapt_step_size(state.step_size, torch.mean(accept_stat),
+        step_size=adapt_step_size(state.step_size,
+                                  torch.mean(_gathered(accept_stat, mesh)),
                                   target_acceptance, adaptation_rate,
                                   max_log_step=2.3),
         n_accept=state.n_accept + accept_stat, grad=grad,
@@ -535,13 +554,21 @@ def nuts_step(state: ChainState, generator, value_and_grad_fn: Callable,
 
 
 def stretch_step(state: ChainState, generator, log_prob_fn: Callable,
-                 a: float = 2.0) -> ChainState:
+                 a: float = 2.0, mesh=None) -> ChainState:
     """Goodman-Weare stretch move with red-black halves: each half proposes
     against a partner drawn from the other half, so both update as
     batched operations; an odd n splits unevenly (the first half n // 2).
     Draws per half, in order: the partners, the stretch uniforms, the
-    accept uniforms."""
-    n, d = state.x.shape
+    accept uniforms.
+
+    On a mesh the halves are the whole population's, which span the
+    ranks: each half-move gathers the population once (the partners), and
+    each rank proposes and evaluates its own rows of the moving half, from
+    draws made at the half's whole shape (a rank with none of its rows in
+    the half evaluates nothing). The evaluation count is this rank's."""
+    n_loc, d = state.x.shape
+    n = _whole_count(n_loc, mesh)
+    r0 = 0 if mesh is None else mesh.rank * n_loc
     half = n // 2
     x, lp, n_accept = state.x, state.log_prob, state.n_accept
     lo, hi = math.sqrt(1 / a), math.sqrt(a)
@@ -551,25 +578,34 @@ def stretch_step(state: ChainState, generator, log_prob_fn: Callable,
         pick = _randint(generator, 0, o1 - o0, (n_move,), x)
         u = _uniform(generator, n_move, x)
         z = (u * (hi - lo) + lo) ** 2
-        partners = x[o0 + pick]
-        x_move = x[m0:m1]
-        x_prop = partners + z[:, None] * (x_move - partners)
+        # this rank's rows of the moving half: [s0, s1) of the population
+        s0 = max(m0, r0)
+        s1 = max(min(m1, r0 + n_loc), s0)
+        mine, own = slice(s0 - m0, s1 - m0), slice(s0 - r0, s1 - r0)
+        partners = _gathered(x, mesh)[o0 + pick[mine]]
+        x_move = x[own]
+        x_prop = partners + z[mine, None] * (x_move - partners)
+        accept_u = _uniform(generator, n_move, x)
+        if s1 == s0:
+            continue
         lp_prop = log_prob_fn(x_prop)
-        log_alpha = (d - 1) * torch.log(z) + lp_prop - lp[m0:m1]
+        log_alpha = (d - 1) * torch.log(z[mine]) + lp_prop - lp[own]
         log_alpha = torch.where(torch.isnan(log_alpha),
                                 torch.full_like(log_alpha, -math.inf),
                                 log_alpha)
-        accept = torch.log(_uniform(generator, n_move, x)) < log_alpha
-        x = torch.cat([x[:m0], torch.where(accept[:, None], x_prop, x_move),
-                       x[m1:]])
-        lp = torch.cat([lp[:m0], torch.where(accept, lp_prop, lp[m0:m1]),
-                        lp[m1:]])
-        n_accept = torch.cat([n_accept[:m0],
-                              n_accept[m0:m1] + accept.to(n_accept.dtype),
-                              n_accept[m1:]])
+        accept = torch.log(accept_u[mine]) < log_alpha
+        x = torch.cat([x[:own.start],
+                       torch.where(accept[:, None], x_prop, x_move),
+                       x[own.stop:]])
+        lp = torch.cat([lp[:own.start], torch.where(accept, lp_prop,
+                                                    lp[own]),
+                        lp[own.stop:]])
+        n_accept = torch.cat([n_accept[:own.start],
+                              n_accept[own] + accept.to(n_accept.dtype),
+                              n_accept[own.stop:]])
     return ChainState(x=x, log_prob=lp, step_size=state.step_size,
                       n_accept=n_accept, grad=state.grad,
-                      n_evals=state.n_evals + n)
+                      n_evals=state.n_evals + n_loc)
 
 
 def flow_imh_move(state: ChainState, x_prop, lq_prop, u, beta,
@@ -751,15 +787,19 @@ def run_chain(step_fn: Callable[[ChainState], ChainState],
                          device=x0.device) if store_chain else None)
     sub_idx = sub_chain = sub_counts = None
     if windowed_tau and not store_chain:
-        sub_idx = tau_walker_indices(_whole_count(x0.shape[0], mesh),
-                                     tau_walkers, x0.device)
+        n_all = _whole_count(x0.shape[0], mesh)
+        sub_idx = tau_walker_indices(n_all, tau_walkers, x0.device)
         if mesh is not None:
-            # the subset's walkers this rank holds, and each rank's count
-            n_loc = x0.shape[0]
-            owner = sub_idx // n_loc
-            sub_counts = [int(c) for c in torch.bincount(
-                owner, minlength=mesh.size).tolist()]
-            sub_idx = sub_idx[owner == mesh.rank] - mesh.rank * n_loc
+            # the subset's walkers this rank holds and each rank's count,
+            # from the subset's formula on the host (no read back: the
+            # device ladder's rung captures this)
+            n_loc, w = x0.shape[0], len(sub_idx)
+            # the first subset entry (k n) // w at or past rank r's rows
+            first = [min(-(-r * n_loc * w // n_all), w)
+                     for r in range(mesh.size + 1)]
+            sub_counts = [first[r + 1] - first[r] for r in range(mesh.size)]
+            sub_idx = sub_idx[first[mesh.rank]:first[mesh.rank + 1]] - (
+                mesh.rank * n_loc)
         sub_chain = torch.empty((n_steps, len(sub_idx), x0.shape[1]),
                                 dtype=x0.dtype, device=x0.device)
     for i in range(n_steps):

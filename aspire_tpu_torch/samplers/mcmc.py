@@ -35,6 +35,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..parallel import mesh as M
 from ..samples import MCMCSamples, PTMCMCSamples
 from ..utils import to_numpy, track_calls
 from . import kernels as K
@@ -112,8 +113,13 @@ class MCMCSampler(Sampler):
     def save_chain_checkpoint(self, chain: np.ndarray, iteration: int,
                               file_path: str,
                               extra_attrs: dict | None = None) -> None:
+        """Write the chain with its iteration (and ``extra_attrs``); on
+        more than one process only rank 0 writes (every rank holds the
+        same chain)."""
         from ..io import AspireFile
 
+        if M.process_index() != 0:
+            return
         with AspireFile(file_path, "a") as f:
             grp = f.require_group(self.chain_checkpoint_path)
             if self.chain_dataset_name in grp:
@@ -158,8 +164,10 @@ class MCMCSampler(Sampler):
              checkpoint_every: int | None = None) -> MCMCSamples:
         """Draw, precondition, run ``n_steps`` steps of ``make_step(
         log_prob_fn, z)`` from every walker and finish the chain; the
-        evaluations the JAX package counts, (n_steps + 1) n."""
-        self.refuse_multiprocess(f"{type(self).__name__}'s walker sharding")
+        evaluations the JAX package counts, (n_steps + 1) n. On more than
+        one process every rank runs the whole ensemble, as the JAX
+        package's multi-process runs do (its walkers are sharded on one
+        process's devices only): the same run on every rank."""
         init = self.draw_initial_samples(n_samples)
         z = self.fit_preconditioning_transform(init.x)
         log_prob_fn = self.make_log_prob()
@@ -459,9 +467,12 @@ class ParallelTemperedSampler(MCMCSampler):
         ``rounds_done`` rounds, so a resumed run draws what the
         uninterrupted one draws. Written to a sibling group first and moved
         into place, so a kill mid-save leaves one complete state (both
-        places are read back)."""
+        places are read back). Only rank 0 writes on more than one
+        process."""
         from ..io import AspireFile
 
+        if M.process_index() != 0:
+            return
         new_path = self.pt_state_path + "_new"
         z, ll, lp, move_acc, swap_acc = carry
         gen = generator_state(generator)
@@ -572,8 +583,20 @@ class ParallelTemperedSampler(MCMCSampler):
         state every that many rounds and at the end (:meth:`save_pt_state`).
         ``resume_from`` (that file) continues the run from its last state:
         the result is the uninterrupted run's, bit for bit, and the
-        finished rounds are not paid for again."""
-        self.refuse_multiprocess("ParallelTemperedSampler's walker sharding")
+        finished rounds are not paid for again. On more than one process
+        neither resuming nor mid-run states are available (the JAX
+        package's rules: ``resume_from`` raises, the states are skipped
+        with a warning); only rank 0 writes files.
+
+        With a mesh (the sampler's ``mesh``) whose size divides
+        ``n_samples``, and a target a CUDA graph can capture (the JAX
+        package's jittable target), the walkers are sharded
+        (:func:`~aspire_tpu_torch.parallel.mesh.walker_sharding`): each
+        rank evaluates its walkers of every rung, a half-move gathers the
+        ensemble for its partners, the swaps stay on the rank, every draw
+        is made at the whole ensemble's shape, the acceptance counts are
+        all-reduced, and the chain is gathered to every rank at the end:
+        the one-process run on every rank."""
         if n_steps < swap_every:
             raise ValueError(
                 f"n_steps ({n_steps}) must be at least swap_every "
@@ -595,6 +618,10 @@ class ParallelTemperedSampler(MCMCSampler):
                 ladder_pilot_iterations=ladder_pilot_iterations))
         pt_resume = None
         if resume_from is not None:
+            if M.process_count() > 1:
+                raise ValueError(
+                    "PT resume_from is single-controller only (the "
+                    "chunked resume path gathers chains to host).")
             pt_resume = self.load_pt_state(resume_from)
             mismatches = {
                 "n_steps": (int(pt_resume["n_steps"]), n_steps),
@@ -723,6 +750,34 @@ class ParallelTemperedSampler(MCMCSampler):
             return torch.where(torch.isnan(v), torch.full_like(v, -math.inf),
                                v)
 
+        # The walker sharding: this rank's walkers [r0, r1) of every rung.
+        sharding = None
+        if self.mesh is not None and self.target_is_capturable():
+            if n_samples % self.mesh.size == 0:
+                sharding = M.walker_sharding(self.mesh)
+            else:
+                logger.debug("n_samples (%d) does not tile the %d-device "
+                             "mesh; PT runs without walker sharding.",
+                             n_samples, self.mesh.size)
+        r0, r1 = 0, n_samples
+        if sharding is not None:
+            m = n_samples // sharding.mesh.size
+            r0, r1 = sharding.mesh.rank * m, (sharding.mesh.rank + 1) * m
+            z = z[:, r0:r1]
+
+        def whole(t):
+            """The whole ensemble of this rank's walkers ``t`` (axis 1)."""
+            if sharding is None:
+                return t
+            return M.all_gather_rows(t.movedim(1, 0).contiguous(),
+                                     sharding.mesh).movedim(0, 1)
+
+        def counted(counts):
+            """Per-rung accept counts (int64) of the whole ensemble."""
+            if sharding is None:
+                return counts
+            return M.all_reduce(counts, sharding.mesh)
+
         half = n_samples // 2
         blocks = ((0, half, half, n_samples), (half, n_samples, 0, half))
         lo_s, hi_s = math.sqrt(1 / a), math.sqrt(a)
@@ -730,7 +785,9 @@ class ParallelTemperedSampler(MCMCSampler):
         bt = betas_t[:, None]
 
         def one_move(z, ll, lp):
-            """One tempered red-black stretch move of every rung."""
+            """One tempered red-black stretch move of every rung: of this
+            rank's walkers of the moving half, against partners of the
+            whole ensemble's other half."""
             n_acc = torch.zeros(n_temps, dtype=dtype, device=device)
             for m0, m1, o0, o1 in blocks:
                 n_move = m1 - m0
@@ -738,27 +795,35 @@ class ParallelTemperedSampler(MCMCSampler):
                                   (n_temps, n_move), z)
                 u = K._uniform(self.generator, (n_temps, n_move), z)
                 g = (u * (hi_s - lo_s) + lo_s) ** 2
-                partners = z[rungs, o0 + pick]
-                z_move = z[:, m0:m1]
-                z_prop = partners + g[..., None] * (z_move - partners)
+                # this rank's walkers of the half: [a, b) of the ensemble
+                a, b = max(m0, r0), max(min(m1, r1), max(m0, r0))
+                mine, own = slice(a - m0, b - m0), slice(a - r0, b - r0)
+                partners = whole(z)[rungs, o0 + pick[:, mine]]
+                z_move = z[:, own]
+                z_prop = partners + g[:, mine, None] * (z_move - partners)
+                accept_u = K._uniform(self.generator, (n_temps, n_move), z)
+                if b == a:  # none of this rank's walkers moves
+                    continue
                 ll_prop, lp_prop = logl_logp(z_prop.reshape(-1, d))
-                ll_prop = ll_prop.reshape(n_temps, n_move)
-                lp_prop = lp_prop.reshape(n_temps, n_move)
+                ll_prop = ll_prop.reshape(n_temps, b - a)
+                lp_prop = lp_prop.reshape(n_temps, b - a)
                 t_prop = bt * ll_prop + lp_prop
                 # A NaN current density (beta = 0 with logL = -inf) must
                 # not freeze the walker: -inf accepts any finite proposal.
-                t_curr = nan_to_neg_inf(bt * ll[:, m0:m1] + lp[:, m0:m1])
+                t_curr = nan_to_neg_inf(bt * ll[:, own] + lp[:, own])
                 log_alpha = nan_to_neg_inf(
-                    (d - 1) * torch.log(g) + t_prop - t_curr)
-                accept = torch.log(K._uniform(
-                    self.generator, (n_temps, n_move), z)) < log_alpha
-                z = torch.cat([z[:, :m0], torch.where(
-                    accept[..., None], z_prop, z_move), z[:, m1:]], dim=1)
-                ll = torch.cat([ll[:, :m0], torch.where(
-                    accept, ll_prop, ll[:, m0:m1]), ll[:, m1:]], dim=1)
-                lp = torch.cat([lp[:, :m0], torch.where(
-                    accept, lp_prop, lp[:, m0:m1]), lp[:, m1:]], dim=1)
+                    (d - 1) * torch.log(g[:, mine]) + t_prop - t_curr)
+                accept = torch.log(accept_u[:, mine]) < log_alpha
+                z = torch.cat([z[:, :own.start], torch.where(
+                    accept[..., None], z_prop, z_move), z[:, own.stop:]],
+                    dim=1)
+                ll = torch.cat([ll[:, :own.start], torch.where(
+                    accept, ll_prop, ll[:, own]), ll[:, own.stop:]], dim=1)
+                lp = torch.cat([lp[:, :own.start], torch.where(
+                    accept, lp_prop, lp[:, own]), lp[:, own.stop:]], dim=1)
                 n_acc = n_acc + accept.sum(dim=1).to(dtype)
+            if sharding is not None:
+                n_acc = counted(n_acc.to(torch.int64)).to(dtype)
             return z, ll, lp, n_acc
 
         # Even/odd (DEO) passes: all disjoint adjacent pairs of a parity
@@ -780,13 +845,14 @@ class ParallelTemperedSampler(MCMCSampler):
             d_beta = betas_t[lo] - betas_t[lo + 1]
             log_alpha = -d_beta[:, None] * (ll[lo] - ll[lo + 1])
             u = torch.log(K._uniform(self.generator,
-                                     (lo.shape[0], n_samples), z))
+                                     (lo.shape[0], n_samples), z)[:, r0:r1])
             swap = u < log_alpha
             mask = torch.cat([swap, torch.zeros_like(swap[:1])])[pair]
             z = torch.where(mask[..., None], z[other], z)
             ll = torch.where(mask, ll[other], ll)
             lp = torch.where(mask, lp[other], lp)
-            swap_acc = swap_acc.index_add(0, lo, swap.sum(dim=1).to(dtype))
+            swap_acc = swap_acc.index_add(
+                0, lo, counted(swap.sum(dim=1)).to(dtype))
             return z, ll, lp, swap_acc
 
         n_rounds = n_steps // swap_every
@@ -799,6 +865,10 @@ class ParallelTemperedSampler(MCMCSampler):
                 logger.warning("Mid-run PT state checkpoints require "
                                "preconditioning=None; only the final chain "
                                "will be saved.")
+            elif M.process_count() > 1:
+                logger.warning("Mid-run PT state checkpoints are single-"
+                               "controller only; only the final chain will "
+                               "be saved.")
             else:
                 save_every = int(state_checkpoint_every)
         # Blocks of finished rounds, each (chain, chain_ll, chain_lp) of
@@ -817,8 +887,8 @@ class ParallelTemperedSampler(MCMCSampler):
         else:
             rounds_done = 0
             ll, lp = logl_logp(z.reshape(-1, d))
-            ll, lp = ll.reshape(n_temps, n_samples), lp.reshape(n_temps,
-                                                                n_samples)
+            ll, lp = ll.reshape(n_temps, r1 - r0), lp.reshape(n_temps,
+                                                              r1 - r0)
             move_acc = torch.zeros(n_temps, dtype=dtype, device=device)
             swap_acc = torch.zeros(max(n_temps - 1, 0), dtype=dtype,
                                    device=device)
@@ -852,9 +922,11 @@ class ParallelTemperedSampler(MCMCSampler):
         flush()
         self.n_likelihood_evaluations += new_evals
 
-        # (n_rounds, T, n, ...) -> (T, n_rounds, n, ...)
+        # (n_rounds, T, n, ...) -> (T, n_rounds, n, ...), the walkers
+        # gathered to every rank
         chain, chain_ll, chain_lp = (
-            torch.cat([c[i] for c in chunks]).transpose(0, 1)
+            whole(torch.cat([c[i] for c in chunks]).transpose(0, 1)
+                  .transpose(1, 2)).transpose(1, 2)
             for i in range(3))
         flat = chain.reshape(-1, d)
         if precond is None:

@@ -33,14 +33,18 @@ data only: :meth:`Sampler.build_checkpoint_state`), the device ladder
 between replays (nothing is added to the captured rung), and a run resumes
 from a checkpoint's file, bytes or dict on either ladder.
 
-On a mesh (``mesh=``, :mod:`aspire_tpu_torch.parallel.mesh`) the host ladder
-runs SPMD over the ranks: each holds a block of the population's rows, the
+On a mesh (``mesh=``, :mod:`aspire_tpu_torch.parallel.mesh`) both ladders
+run SPMD over the ranks: each holds a block of the population's rows, the
 statistics and the resampling index are computed by every rank alike from
 gathered vectors, ``resampling_impl`` moves the resampled rows, and every
 mutation takes the split chain (as the JAX package's does on a mesh). The
-device ladder, checkpoints, sample history, resuming and the samplers whose
-moves span the population (``emcee_smc``, ``nuts_smc``) raise on a mesh of
-more than one rank: they wait for the second multi-device slice.
+device ladder's rung is captured where the mesh's backend can be captured
+(NCCL on the card) and runs eagerly every rung where it cannot (gloo, which
+stages CUDA tensors through the host): :attr:`DeviceLadder.mode`. Each rank
+writes its own rows of a checkpoint, and of the sample history, to its own
+file (:meth:`Sampler.save_checkpoint_to_hdf`); a run resumes from them on a
+mesh of any size. The stretch move gathers the population once a
+half-move, NUTS all-reduces its loops' flags.
 """
 
 from __future__ import annotations
@@ -66,11 +70,13 @@ from ..ops import fused_mutation as FM
 from ..ops._build import add_launches, launch_counts, load_user_library
 from ..ops.resampling import get_resampler
 from ..ops.special import effective_sample_size
+from ..ops.resampling import alltoall_move, ring_move
+from ..parallel import mesh as M
 from ..parallel.mesh import all_gather_rows, all_reduce
 from ..samples import Samples, SMCSamples, incremental_log_weights
 from ..transforms import BaseTransform, get_transform_class
 from ..utils import track_calls
-from .base import MESH_SLICE_II, Sampler
+from .base import Sampler
 from . import kernels as K
 
 logger = logging.getLogger("aspire_tpu_torch")
@@ -243,25 +249,42 @@ class DeviceLadder:
     dict, :meth:`SMCSampler._ladder_body`), its state, and on the card the
     rung captured in a CUDA graph.
 
-    On a CUDA device the first rung runs eagerly on a side stream (the
-    capture's warm-up, which also fills the kernels' packed-weight caches)
-    and the next is captured; from then on every rung, in this call and in
-    later calls that find the ladder in the cache, is one replay. The
-    graph draws from ``generator``, registered with it, whose state the
-    sampler loads before a run and takes back after it. A replay runs no
-    Python, so it adds the launches the capture counted to the wrappers'
-    counters (``captured``). On the CPU the body runs eagerly every rung.
+    ``mode`` is ``"captured"`` on the card without a mesh or on a mesh whose
+    backend a CUDA graph can capture (NCCL), and ``"eager"`` elsewhere: on
+    the CPU, and on the card over gloo, whose collectives stage CUDA tensors
+    through the host. It is chosen from the mesh's backend before the first
+    rung, never by trying a capture.
+
+    Captured, the first rung runs eagerly on a side stream (the capture's
+    warm-up, which also fills the kernels' packed-weight caches and opens
+    NCCL's communicator) and the next is captured; from then on every rung,
+    in this call and in later calls that find the ladder in the cache, is
+    one replay. The graph draws from ``generator``, registered with it,
+    whose state the sampler loads before a run and takes back after it. A
+    replay runs no Python, so it adds the launches and the collectives the
+    capture counted to their counters (``captured``, ``collectives``).
+    Eager, the body runs every rung.
+
+    A graph that captured NCCL's all-to-all (``resampling_impl="ring"`` or
+    ``"alltoall"``) keeps the communicator from shutting down: drop the
+    cached ladders (``Aspire.ladder_cache.clear()``, then ``gc.collect()``)
+    before ``torch.distributed.destroy_process_group()``, which otherwise
+    waits forever.
     """
 
     def __init__(self, body: Callable, state: dict,
-                 generator: torch.Generator, keep=()):
+                 generator: torch.Generator, keep=(), mesh=None):
         self.body, self.state, self.generator = body, state, generator
         self.on_card = state["x"].is_cuda
+        self.mesh = mesh
+        self.mode = ("captured" if self.on_card and (
+            mesh is None or mesh.backend == "nccl") else "eager")
         #: what the graph reads and nothing else holds: the flow's
         #: parameters, the run's chain spec and the packed weights
         self.keep = keep
         self.graph = None
         self.captured: tuple = ()
+        self.collectives: dict = {}
         self.replays = 0
         self.capture_s = None
         self._pinned = (torch.empty(len(LADDER_FLAGS), dtype=torch.int64,
@@ -269,12 +292,14 @@ class DeviceLadder:
                         if self.on_card else None)
 
     def rung(self) -> None:
-        """Run one rung: a replay, or the body eagerly."""
+        """Run one rung: a replay, the warm-up on a side stream, or the
+        body eagerly."""
         if self.graph is not None:
             self.graph.replay()
             add_launches(self.captured)
+            M.add_collectives(self.collectives)
             self.replays += 1
-        elif self.on_card:
+        elif self.mode == "captured":
             device = self.state["x"].device
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
@@ -285,28 +310,38 @@ class DeviceLadder:
             self.body(self.state)
 
     def capture(self) -> None:
-        """Capture the body in a CUDA graph (the launches it records are
-        not counted: a capture runs nothing). Unreachable objects are
-        collected first: a ladder a run replaced sits in a reference cycle
-        (its body closes over its sampler), and the garbage collector,
-        left to itself, may free its graph in the middle of this capture,
-        which a capture does not allow (it fails)."""
+        """Capture the body in a CUDA graph (the launches and collectives
+        it records are not counted: a capture runs nothing). Unreachable
+        objects are collected first: a ladder a run replaced sits in a
+        reference cycle (its body closes over its sampler), and the garbage
+        collector, left to itself, may free its graph in the middle of this
+        capture, which a capture does not allow (it fails). On a mesh the
+        card is synchronised first and the capture is the thread's own
+        (``capture_error_mode="thread_local"``): NCCL's watchdog thread
+        queries CUDA events while the rung is captured."""
         t0 = time.perf_counter()
         gc.collect()
         before = launch_counts()
+        collectives = dict(M.collective_counts)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph):
+        mode = "global"
+        if self.mesh is not None:
+            torch.cuda.synchronize()
+            mode = "thread_local"
+        with torch.cuda.graph(graph, capture_error_mode=mode):
             self.body(self.state)
         self.captured = tuple(a - b for a, b in zip(launch_counts(), before))
         add_launches(tuple(-k for k in self.captured))
+        self.collectives = M.captured_collectives(collectives)
         self.keep = (*self.keep, *FC.kept_packings())
         self.graph = graph
         torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t0
         logger.info("Captured the device ladder's rung in a CUDA graph in "
-                    "%.3f s (%d kernel-wrapper launches per replay)",
-                    self.capture_s, sum(self.captured))
+                    "%.3f s (%d kernel-wrapper launches and %d collectives "
+                    "per replay)", self.capture_s, sum(self.captured),
+                    sum(self.collectives.values()))
 
     def read_flags(self) -> dict:
         """The rung's flags (``LADDER_FLAGS``): one small device-to-host
@@ -766,24 +801,6 @@ class SMCSampler(Sampler):
 
     # -- a mesh ----------------------------------------------------------------
 
-    def _mesh_refusal(self) -> str | None:
-        """Why this sampler's mutation cannot run on a mesh of more than
-        one rank, or None; overridden."""
-        return None
-
-    def _refuse_on_mesh(self, options: dict) -> None:
-        """Raise ``NotImplementedError`` for what a run on a mesh of more
-        than one rank cannot do yet: the options among ``options`` (name:
-        whether it is asked for) and the sampler's own refusal."""
-        if not self.multiprocess():
-            return
-        reason = self._mesh_refusal()
-        asked = [name for name, on in options.items() if on]
-        if reason is None and not asked:
-            return
-        what = reason or f"{', '.join(asked)} on a mesh of more than one rank"
-        raise NotImplementedError(f"{what} {MESH_SLICE_II}")
-
     @staticmethod
     def _on_mesh(mesh) -> dict:
         """``mutate``'s keyword for a population sharded over ``mesh``
@@ -793,7 +810,14 @@ class SMCSampler(Sampler):
     def _whole_densities(self, samples: SMCSamples, mesh) -> tuple:
         """``(log_likelihood, log_prior, log_q)`` of the whole population:
         this rank's gathered over ``mesh`` (one gather), or as they are."""
-        fields = (samples.log_likelihood, samples.log_prior, samples.log_q)
+        return self._gathered_densities(
+            (samples.log_likelihood, samples.log_prior, samples.log_q), mesh)
+
+    @staticmethod
+    def _gathered_densities(fields: tuple, mesh) -> tuple:
+        """The density vectors ``fields`` of the whole population: this
+        rank's gathered over ``mesh`` (one gather for vectors of one
+        dtype), or as they are."""
         if mesh is None:
             return fields
         if len({f.dtype for f in fields}) > 1:
@@ -837,7 +861,7 @@ class SMCSampler(Sampler):
         return None
 
     def _ladder_body(self, spec: dict | None, n_steps: int,
-                     generator: torch.Generator) -> Callable:
+                     generator: torch.Generator, mesh=None) -> Callable:
         """One rung of the device ladder as a function of its state dict,
         the JAX package's ``while_loop`` body (``smc.py:1754-2024``) in
         its order: the target efficiency at the previous beta, the
@@ -848,29 +872,48 @@ class SMCSampler(Sampler):
         the state's own tensors, so a CUDA graph of the body reads and
         writes the same memory on every replay; nothing reads back.
         Waste-free SMC resamples n / k ancestors and pools their chains
-        back to the n rows of the state, so the graph keeps its shapes."""
+        back to the n rows of the state, so the graph keeps its shapes.
+
+        On ``mesh`` the state holds this rank's rows: the statistics and
+        the incremental weights are computed on the gathered densities
+        (one gather), every rank draws the same global index, the
+        sampler's ``resampling_impl`` moves the rows (the all-to-all's
+        overflow decided on the device), the split chain draws and reduces
+        over the mesh, and the faults and evaluations are all-reduced as
+        integers: every rank writes the same history and flags."""
         resampler = get_resampler(self.resampling_method)
+        impl = self.resampling_impl
+        ranks = mesh.size if mesh is not None else 1
         adaptive_min_step = self.adaptive_min_beta_step
         waste_free, windowed_tau = self._chain_options(
             self._mutation_kwargs())
 
         def body(s: dict) -> None:
             with torch.no_grad():
-                n = s["x"].shape[0]
+                n = s["x"].shape[0] * ranks
                 beta_prev = s["beta"]
                 target_eff = (s["eff_lo"] + (s["eff_hi"] - s["eff_lo"])
                               * beta_prev.double() ** s["eff_rate"]
                               ).to(beta_prev.dtype)
+                ll, lpi, lq = self._gathered_densities(
+                    (s["ll"], s["lpi"], s["lq"]), mesh)
                 (beta, min_step, _, ess, ess1, ratio,
                  var) = iteration_stats(
-                    s["ll"], s["lpi"], s["lq"], beta_prev, 1.0, target_eff,
+                    ll, lpi, lq, beta_prev, 1.0, target_eff,
                     s["tol"], s["min_step"], s["max_step"], adaptive=True,
                     adaptive_min_step=adaptive_min_step).unbind()
                 stalled = beta <= beta_prev
-                log_w = incremental_log_weights(s["lq"], s["ll"], s["lpi"],
-                                                beta_prev, beta)
+                log_w = incremental_log_weights(lq, ll, lpi, beta_prev, beta)
                 n_chains = n // n_steps if waste_free else n
-                x_r = s["x"][resampler(generator, log_w, n_chains)]
+                idx = resampler(generator, log_w, n_chains)
+                if mesh is None:
+                    x_r = s["x"][idx]
+                elif impl == "ring":
+                    x_r = ring_move(idx, s["x"], mesh)
+                elif impl == "alltoall":
+                    x_r = alltoall_move(idx, s["x"], mesh, on_device=True)[0]
+                else:
+                    x_r = mesh.local_rows(all_gather_rows(s["x"], mesh)[idx])
                 f_lin = torch.clamp(
                     s["f_lin"] * torch.clamp(ess.double(), min=1.0) / n,
                     min=1.0 / n, max=1.0)
@@ -880,7 +923,13 @@ class SMCSampler(Sampler):
                 else:
                     m = self._mutate_split(x_r, beta, n_steps, s["step"],
                                            generator, waste_free,
-                                           windowed_tau)
+                                           windowed_tau, mesh)
+                faults, evals = mutation_faults(m), m.evals
+                if mesh is not None:
+                    *faults, evals = all_reduce(torch.stack([
+                        torch.as_tensor(v, device=s["x"].device).to(
+                            torch.int64) for v in (*faults, evals)]),
+                        mesh).unbind()
                 tau, mixing = m.tau.double(), m.mixing.double()
                 rho = torch.clamp((tau - 1.0) / (tau + 1.0), min=0.0)
                 f_lin = f_lin + (1.0 - f_lin) * (
@@ -893,17 +942,16 @@ class SMCSampler(Sampler):
                         beta, ess, ess1, ratio, var.double() / s["f_lin"],
                         m.acceptance, tau, s["f_lin"])):
                     s[name].index_copy_(0, i, v.double().reshape(1))
-                if isinstance(m.evals, torch.Tensor):
-                    s["ev_h"].index_copy_(0, i, m.evals.reshape(1))
+                if isinstance(evals, torch.Tensor):
+                    s["ev_h"].index_copy_(0, i, evals.reshape(1))
                 else:
-                    s["ev_h"].index_fill_(0, i, m.evals)
+                    s["ev_h"].index_fill_(0, i, evals)
                 done = beta >= 1.0
                 it = i + 1
                 running = ~done & ~stalled & (it < s["iter_cap"])
                 s["flags"].copy_(torch.stack([
                     v.reshape(()).to(torch.int64) for v in (
-                        it, done, stalled, running, *mutation_faults(m),
-                        m.info)]))
+                        it, done, stalled, running, *faults, m.info)]))
                 for name, v in (("x", m.x), ("lq", m.lq), ("lpi", m.lpi),
                                 ("ll", m.ll), ("beta", beta),
                                 ("min_step", min_step), ("step", m.step),
@@ -967,33 +1015,42 @@ class SMCSampler(Sampler):
                 *((name, 0.0) for name in LADDER_HISTORY)):
             state[name].fill_(value)
 
-    def _ladder_key(self, spec, n_steps: int, max_iters: int, samples):
+    def _ladder_key(self, spec, n_steps: int, max_iters: int, samples,
+                    mesh=None):
         """What a captured rung depends on besides the state it reads: the
         JAX package's cache key (``smc.py:1623-1630``) and the population's
-        size and dtype, the resampler, the target and the flow."""
+        size and dtype, the resampler, the target and the flow, and the
+        mesh its collectives run on (its size, this rank, its backend and
+        device) with the resampling's movement."""
         return ("ladder", type(self), n_steps, max_iters,
                 self.adaptive_min_beta_step,
                 "fused_kernel" if spec is not None else "split",
                 repr(sorted(self.sampler_kwargs.items())),
                 self.resampling_method, tuple(samples.x.shape),
                 samples.x.dtype, str(samples.x.device), self.log_likelihood,
-                self.log_prior, id(self.prior_flow))
+                self.log_prior, id(self.prior_flow),
+                None if mesh is None else (
+                    mesh.size, mesh.rank, mesh.backend, str(mesh.device),
+                    id(mesh.group)),
+                self.resampling_impl)
 
     def _device_ladder(self, samples, spec, n_steps: int,
-                       max_iters: int) -> DeviceLadder:
+                       max_iters: int, mesh=None) -> DeviceLadder:
         """This run's ladder: on the card the cached one while its key, the
         flow's parameters and its data transform's tensors (the same
         tensors at the same versions, on either route: the graph reads
         them) hold, else a new one, which takes the cached one's place; on
-        the CPU a new one on the sampler's generator."""
+        the CPU a new one on the sampler's generator. ``mesh``: the rows
+        are this rank's of a population sharded over it."""
         if not samples.x.is_cuda:
             return DeviceLadder(
-                self._ladder_body(spec, n_steps, self.generator),
-                self._ladder_state(samples, spec, max_iters), self.generator)
+                self._ladder_body(spec, n_steps, self.generator, mesh),
+                self._ladder_state(samples, spec, max_iters), self.generator,
+                mesh=mesh)
         leaves = [*param_leaves(self.prior_flow.params),
                   *_tensors_of(self.prior_flow.data_transform)]
         params = tuple((t, t._version) for t in leaves)
-        key = self._ladder_key(spec, n_steps, max_iters, samples)
+        key = self._ladder_key(spec, n_steps, max_iters, samples, mesh)
         kept, ladder = self.ladder_cache.get(key, ((), None))
         if ladder is not None and len(kept) == len(params) and all(
                 a is b and v == w for (a, v), (b, w) in zip(kept, params)):
@@ -1004,9 +1061,9 @@ class SMCSampler(Sampler):
         self.ladder_cache.clear()
         generator = torch.Generator(device=samples.x.device)
         ladder = DeviceLadder(
-            self._ladder_body(spec, n_steps, generator),
+            self._ladder_body(spec, n_steps, generator, mesh),
             self._ladder_state(samples, spec, max_iters), generator,
-            keep=(self.prior_flow, spec))
+            keep=(self.prior_flow, spec), mesh=mesh)
         self.ladder_cache[key] = (params, ladder)
         return ladder
 
@@ -1031,16 +1088,24 @@ class SMCSampler(Sampler):
                            max_beta_step, beta_tolerance, max_iters: int,
                            store_history: bool = False,
                            checkpoint_callback: Callable | None = None,
-                           checkpoint_every: int | None = None
+                           checkpoint_every: int | None = None, mesh=None
                            ) -> tuple[SMCSamples, int]:
         """Run the adaptive ladder rung by rung on the device: a replay of
         the captured rung per temperature on the card, the body eagerly on
-        the CPU, each followed by one read of the rung's flags; at most
-        ``max_iters`` rungs. The history buffers are fetched once, at the
-        end (or at a fault, which raises after the rungs that ran are in
-        the history), and at a rung whose checkpoint is due
+        the CPU (and over gloo), each followed by one read of the rung's
+        flags; at most ``max_iters`` rungs. The history buffers are fetched
+        once, at the end (or at a fault, which raises after the rungs that
+        ran are in the history), and at a rung whose checkpoint is due
         (:meth:`_ladder_checkpoint`: the run's iterations so far counted
-        from the history it started with, as the host ladder counts)."""
+        from the history it started with, as the host ladder counts).
+
+        On ``mesh`` the rows are this rank's and every rank runs the same
+        rungs. The ladder comes back to the host after every rung, so a
+        checkpoint is written between two rungs, shard-local (each rank's
+        rows to its own file), and the sample history is each rank's rows:
+        the port needs no counterpart of the JAX package's
+        ``_run_device_ladder_chunked``, which runs its compiled ladder in
+        chunks to reach the host at all on a mesh of many processes."""
         reason = self._ladder_refusal()
         if reason is not None:
             raise ValueError(reason)
@@ -1050,8 +1115,11 @@ class SMCSampler(Sampler):
         spec = self._fused_chain_spec(kwargs, n, samples.x.dtype,
                                       *self._chain_options(kwargs))
         route = "fused_kernel" if spec is not None else "split"
-        ladder = self._device_ladder(samples, spec, n_steps, max_iters)
+        ladder = self._device_ladder(samples, spec, n_steps, max_iters, mesh)
         self.ladder = ladder
+        logger.info("Device ladder mode: %s (%s)", ladder.mode,
+                    "a mesh over " + mesh.backend if mesh is not None
+                    else "one process")
         self._load_ladder(ladder.state, samples, min_beta_step=min_beta_step,
                           max_beta_step=max_beta_step,
                           beta_tolerance=beta_tolerance, max_iters=max_iters)
@@ -1067,24 +1135,26 @@ class SMCSampler(Sampler):
             self.history.mutation_route.append(route)
             self.history.nonfinite_target.append(flags["nonfinite"])
             if store_history:
-                self.history.sample_history.append(self._ladder_samples(
-                    state, float(state["beta"]), clone=False).to_numpy())
+                self.history.sample_history.append(self._history_snapshot(
+                    self._ladder_samples(state, float(state["beta"]),
+                                         clone=False), mesh))
             if flags["nan_q"] or flags["nan_target"] or flags["chol_info"]:
-                self._finish_ladder(ladder, it)
+                self._finish_ladder(ladder, it, mesh)
                 raise_mutation_faults(flags["nan_q"], flags["nan_target"],
                                       flags["chol_info"],
                                       where=f"device ladder rung {it}: ")
             if checkpoint_callback is not None and checkpoint_due(
                     base_iteration + it, checkpoint_every):
                 checkpoint_callback(self._ladder_checkpoint(
-                    ladder, it, base_iteration, base_evals))
+                    ladder, it, base_iteration, base_evals, mesh))
             if not flags["running"]:
                 break
-            if ladder.on_card and ladder.graph is None:
+            if ladder.mode == "captured" and ladder.graph is None:
                 ladder.capture()
-        beta = self._finish_ladder(ladder, it)
+        beta = self._finish_ladder(ladder, it, mesh)
+        n_all = n * (mesh.size if mesh is not None else 1)
         self.particle_steps += it * n_steps * (
-            n // n_steps if self._chain_options(kwargs)[0] else n)
+            n_all // n_steps if self._chain_options(kwargs)[0] else n_all)
         if flags["stalled"]:
             raise BetaScheduleError(
                 "Device ladder stalled: beta did not increase. Consider "
@@ -1094,14 +1164,15 @@ class SMCSampler(Sampler):
         return self._ladder_samples(state, beta, clone=True), it
 
     def _ladder_checkpoint(self, ladder: DeviceLadder, it: int,
-                           base_iteration: int, base_evals: int) -> dict:
+                           base_iteration: int, base_evals: int,
+                           mesh=None) -> dict:
         """The checkpoint at rung ``it`` of a device-ladder run (the JAX
         package's ``_ladder_checkpoint_host``): the population cloned to the
         host, the history the run started with (and the rungs' routes and
         snapshots, appended as they ran) plus the first ``it`` rows of the
         history buffers, the lineage fraction, the evaluations so far and
         the state of the ladder's own generator, which the rungs draw
-        from."""
+        from; on ``mesh`` this rank's rows of the population."""
         buffers, f_lin, evals = self._ladder_rows(ladder.state, it)
         history = copy.deepcopy(self.history)
         self._replay_ladder_history(history, it, buffers)
@@ -1110,7 +1181,7 @@ class SMCSampler(Sampler):
             self._ladder_samples(ladder.state, beta, clone=False),
             base_iteration + it, meta={"beta": beta},
             generator=ladder.generator, evaluations=base_evals + evals,
-            history=history, lineage_fraction=f_lin)
+            mesh=mesh, history=history, lineage_fraction=f_lin)
 
     @staticmethod
     def _ladder_rows(state: dict, it: int) -> tuple[dict, float, int]:
@@ -1125,7 +1196,8 @@ class SMCSampler(Sampler):
                    for k, name in enumerate(LADDER_HISTORY)}
         return buffers, rows[-2], int(rows[-1])
 
-    def _finish_ladder(self, ladder: DeviceLadder, it: int) -> float:
+    def _finish_ladder(self, ladder: DeviceLadder, it: int,
+                       mesh=None) -> float:
         """Fetch the ``it`` rungs' history buffers, the lineage fraction and
         the evaluation count in one transfer, replay them into the history
         and the sampler, keep the step-size carry, and give the
@@ -1135,7 +1207,7 @@ class SMCSampler(Sampler):
             self.generator.set_state(ladder.generator.get_state())
         buffers, self._lineage_fraction, evals = self._ladder_rows(state, it)
         self._replay_ladder_history(self.history, it, buffers)
-        n = state["x"].shape[0]
+        n = state["x"].shape[0] * (mesh.size if mesh is not None else 1)
         for i in range(it):
             logger.info("it %d - beta %.6g, ESS %.1f (%.2f eff), log ratio "
                         "%.3f", i + 1, buffers["beta_h"][i],
@@ -1221,12 +1293,17 @@ class SMCSampler(Sampler):
 
         With a mesh (the sampler's ``mesh``) the population is drawn whole
         on every rank and sharded over the ranks (where ``n_samples``
-        divides by their number), the host ladder runs SPMD (the device
-        ladder is never chosen), ``resampling_impl`` moves the resampled
+        divides by their number), either ladder runs SPMD (the device
+        ladder's mode, captured or eager, by the mesh's backend:
+        :class:`DeviceLadder`), ``resampling_impl`` moves the resampled
         rows, and every rank returns the whole population with the same
-        log Z. ``store_sample_history`` defaults to False on a mesh of more
-        than one rank, where the device ladder, checkpoints, the sample
-        history and ``resume_from`` raise ``NotImplementedError``."""
+        log Z. Each rank writes its own rows of a checkpoint and of the
+        sample history (which defaults to False on a mesh of more than one
+        rank); ``resume_from`` reads the whole arrays (a checkpoint's
+        files, from a mesh of any size) and each rank keeps its rows.
+        ``checkpoint_every=0`` writes no checkpoint but the final one on
+        either ladder (the JAX package's chunked ladder on a mesh of many
+        processes reads 0 as every rung)."""
         if n_replicates is not None and n_replicates > 1:
             if (resume_from is not None or checkpoint_callback is not None
                     or checkpoint_file_path is not None):
@@ -1246,14 +1323,6 @@ class SMCSampler(Sampler):
                 device_ladder_max_iters=device_ladder_max_iters))
         self.sampler_kwargs = dict(self.default_sampler_kwargs)
         self.sampler_kwargs.update(sampler_kwargs or {})
-        self._refuse_on_mesh({
-            "checkpointing": (checkpoint_callback is not None
-                              or checkpoint_every is not None),
-            "store_sample_history=True": store_sample_history,
-            "resume_from": resume_from is not None})
-        if self.mesh is not None and device_ladder:
-            raise NotImplementedError(f"device_ladder=True on a mesh "
-                                      f"{MESH_SLICE_II}")
         if self.resampling_impl != "auto" and self.mesh is None:
             raise ValueError(
                 f"resampling_impl={self.resampling_impl!r} needs a "
@@ -1290,8 +1359,6 @@ class SMCSampler(Sampler):
             beta = 0.0
             iterations = 0
             self.history = SMCHistory()
-        if store_sample_history:
-            self.history.sample_history.append(samples.to_numpy())
         for name in ("log_q", "log_prior", "log_likelihood"):
             if bool(torch.isnan(getattr(samples, name)).any()):
                 raise ValueError(
@@ -1300,12 +1367,17 @@ class SMCSampler(Sampler):
         # The rows on a mesh: a block per rank where the population tiles
         # it (``mesh`` below), else the whole population on every rank.
         mesh = None
-        if self.mesh is not None and len(samples) % self.mesh.size == 0:
+        if getattr(samples, "shard_local", False):
+            mesh = self.mesh
+        elif self.mesh is not None and len(samples) % self.mesh.size == 0:
             mesh = self.mesh
             for name in ("x", "log_q", "log_prior", "log_likelihood"):
                 setattr(samples, name, self.shard_array(getattr(samples,
                                                                 name)))
         ranks = mesh.size if mesh is not None else 1
+        if store_sample_history:
+            self.history.sample_history.append(
+                self._history_snapshot(samples, mesh))
         waste_free = bool(self.sampler_kwargs.get("waste_free", False))
         k_steps = int(self.sampler_kwargs.get("n_steps") or 5 * self.dims)
         if waste_free:
@@ -1358,11 +1430,14 @@ class SMCSampler(Sampler):
         if checkpoint_callback is not None and checkpoint_every is None:
             checkpoint_every = 1
 
-        def maybe_checkpoint(force: bool = False) -> None:
+        def maybe_checkpoint(force: bool = False, rows=None) -> None:
+            """The checkpoint due at this iteration; ``rows``: the mesh
+            the population's rows are sharded over (each rank writes its
+            own)."""
             if checkpoint_callback is not None and (
                     force or checkpoint_due(iterations, checkpoint_every)):
                 checkpoint_callback(self.build_checkpoint_state(
-                    samples, iterations, meta={"beta": beta}))
+                    samples, iterations, meta={"beta": beta}, mesh=rows))
 
         run_host_ladder = True
         last_beta = self.history.beta[-1] if self.history.beta else beta
@@ -1373,7 +1448,7 @@ class SMCSampler(Sampler):
                         last_beta)
 
         if device_ladder is None:
-            device_ladder = (self.mesh is None and self.adaptive
+            device_ladder = (self.adaptive
                              and self.preconditioning_transform is None
                              and not store_sample_history
                              and self._ladder_refusal() is None)
@@ -1393,7 +1468,7 @@ class SMCSampler(Sampler):
                            else device_ladder_max_iters),
                 store_history=store_sample_history,
                 checkpoint_callback=checkpoint_callback,
-                checkpoint_every=checkpoint_every)
+                checkpoint_every=checkpoint_every, mesh=mesh)
             iterations += ladder_iters
             beta = samples.beta
             if beta < 1.0 and max_n_steps is None:
@@ -1449,8 +1524,9 @@ class SMCSampler(Sampler):
             self.particle_steps += k_steps * (
                 n_after // k_steps if waste_free else n_after)
             if store_sample_history:
-                self.history.sample_history.append(samples.to_numpy())
-            maybe_checkpoint()
+                self.history.sample_history.append(
+                    self._history_snapshot(samples, mesh))
+            maybe_checkpoint(rows=mesh)
             if beta == 1.0 or (max_n_steps is not None
                                and iterations >= max_n_steps):
                 break
@@ -1533,8 +1609,23 @@ class SMCSampler(Sampler):
                                                        int]:
         """The population, beta and iteration of a checkpoint; the
         sampler's history, mutation options, lineage fraction and a fitted
-        flow preconditioning restored from it."""
+        flow preconditioning restored from it. A state whose samples are a
+        shard-local snapshot (a checkpoint callback's dict on a mesh of
+        more than one rank) holds this rank's rows: it resumes on a mesh
+        of that layout only (a checkpoint's files resume on any), and the
+        samples come back marked ``shard_local``."""
         samples, state = self.restore_from_checkpoint(source)
+        starts = getattr(samples, "shard_starts", None)
+        if starts is not None:
+            m = len(samples.x)
+            if not (self.mesh is not None and list(starts)
+                    == [self.mesh.rank * m]
+                    and samples.global_n == m * self.mesh.size):
+                raise ValueError(
+                    f"the checkpoint holds rows {list(starts)} (+{m}) of "
+                    f"{samples.global_n}, one rank's shard: resume it on "
+                    "the mesh that wrote it, or resume from its files, "
+                    "which any mesh reads whole")
         meta = state.get("meta") or {}
         beta = meta.get("beta") if isinstance(meta, dict) else None
         if beta is None:
@@ -1553,6 +1644,7 @@ class SMCSampler(Sampler):
         samples = SMCSamples.from_samples(samples, beta=beta,
                                           dtype=self.dtype,
                                           device=self.device)
+        samples.shard_local = starts is not None
         return samples, beta, int(state.get("iteration", 0))
 
     def _sample_replicated(self, k: int, n_samples: int,
@@ -1631,16 +1723,12 @@ class EnsembleSMC(SMCSampler):
     def default_sampler_kwargs(self):
         return {"n_steps": 5 * self.dims, "a": 2.0}
 
-    def _mesh_refusal(self) -> str | None:
-        return ("emcee_smc / ensemble_smc on a mesh of more than one rank "
-                "(the stretch move's partners span the whole population)")
-
     def _kernel_step_builder(self, log_prob_fn, ref, generator, mesh=None):
-        # its partners span the population: refused on a mesh of more than
-        # one rank (_mesh_refusal); on one rank its rows are the whole
+        # on a mesh the halves span the ranks: each half-move gathers the
+        # population for the partners (K.stretch_step)
         return (partial(K.stretch_step, generator=generator,
                         log_prob_fn=log_prob_fn,
-                        a=self._mutation_kwargs().get("a", 2.0)),
+                        a=self._mutation_kwargs().get("a", 2.0), mesh=mesh),
                 1.0, False)
 
 
@@ -1700,13 +1788,6 @@ class GradientSMC(SMCSampler):
             return NUTS_LADDER_REFUSAL
         return super()._ladder_refusal()
 
-    def _mesh_refusal(self) -> str | None:
-        if self._kernel() == "nuts":
-            return ("nuts_smc on a mesh of more than one rank (its doubling "
-                    "loop makes a data-dependent number of draws, which "
-                    "would part the ranks' generators)")
-        return None
-
     def _kernel_step_builder(self, log_prob_fn, ref, generator, mesh=None):
         kwargs = self._mutation_kwargs()
         kernel = self._kernel(kwargs)
@@ -1740,12 +1821,12 @@ class GradientSMC(SMCSampler):
                 jitter_trajectory=kwargs.get("jitter_trajectory", False),
                 mesh=mesh, **common)
         else:
-            # a data-dependent number of draws: refused on a mesh of more
-            # than one rank (_mesh_refusal); on one rank its rows are all
+            # a data-dependent number of draws: its loops end on the whole
+            # population's flags on a mesh (an integer all-reduce a trip)
             step = partial(
                 K.nuts_step, max_depth=kwargs.get("max_depth", 8),
                 target_acceptance=kwargs.get("target_acceptance_rate", 0.8),
-                **common)
+                mesh=mesh, **common)
         return step, init_step, True
 
 

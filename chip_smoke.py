@@ -4026,11 +4026,25 @@ def smc_options_alone() -> dict:
 #: ``phase_mesh``: the resampling schedules, each job's time limit (s),
 #: its data-parallel fit
 MESH_IMPLS = ("auto", "ring", "alltoall")
-MESH_JOB_TIMEOUT_S = 300
+MESH_JOB_TIMEOUT_S = 420
 MESH_DP_FIT = dict(n_epochs=3, batch_size=512, learning_rate=3e-3)
 #: the all-to-all's bucket in the op-level overflow check: on two ranks the
 #: default cap is the whole output block, which no pair can pass
 MESH_OVERFLOW_CAP = 16
+#: (f) the checkpointed runs' population (the pipeline's n over this:
+#: 16384 on the card) and the rung they resume from
+MESH_CK_PART, MESH_RESUME_RUNG = 8, 3
+#: (g) the population moves on the mesh: their population (n over this:
+#: 4096 on the card) and options
+MESH_MOVES_PART = 32
+MESH_MOVES = {"emcee_smc": dict(n_steps=CHAIN_STEPS),
+              "nuts_smc": dict(n_steps=2, max_depth=4)}
+#: (h) parallel tempering with its walkers sharded, and the standalone
+#: tpCN every rank runs whole
+MESH_PT = dict(n_samples=512, n_temperatures=4, n_steps=8, swap_every=2)
+MESH_TPCN = dict(n_samples=4096, n_steps=CHAIN_STEPS, step_fn="tpcn")
+#: (i) the CNF's data-parallel fit: one epoch of the main path's draws
+MESH_CNF_FIT = dict(n_epochs=1, batch_size=512, learning_rate=3e-3)
 
 
 def mesh_aspire(device, state=None):
@@ -4057,38 +4071,250 @@ def mesh_aspire(device, state=None):
     return p, asp
 
 
-def mesh_pipeline(asp, n: int, mesh=None, impl: str = "auto") -> dict:
-    """The mixture's pipeline at ``n`` on the host ladder and the split
-    route (``fused_chain=False``, the route a mesh takes), 20-step tpCN,
-    with the launch counts set to 0 just before and read just after; on
-    ``mesh`` with ``resampling_impl=impl``. Its wall (host clock to a
-    synchronise), rungs, betas, log Z, population, generator state and
-    B1/B3/B2 launches."""
+def mesh_pipeline(asp, n: int, mesh=None, impl: str = "auto",
+                  ladder: bool = False) -> dict:
+    """The mixture's pipeline at ``n`` on the host ladder (``ladder``: the
+    device ladder) and the split route (``fused_chain=False``, the route a
+    mesh takes), 20-step tpCN, with the launch and collective counts set
+    to 0 just before and read just after; on ``mesh`` with
+    ``resampling_impl=impl``. Its wall (host clock to a synchronise),
+    rungs, betas, log Z, population, generator state, B1/B3/B2 launches,
+    collectives, and on the device ladder its mode and replays."""
     import torch
 
     from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.parallel import mesh as M
 
     on_card = asp.device.type == "cuda"
     on_mesh = {} if mesh is None else dict(mesh=mesh, resampling_impl=impl)
+    replays = {id(v[1]): v[1].replays for v in asp.ladder_cache.values()}
     reset_launch_counts()
+    M.reset_collective_counts()
     if on_card:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     post, hist = asp.sample_posterior(
         sampler="smc", n_samples=n, return_history=True,
-        store_sample_history=False, device_ladder=False,
+        store_sample_history=False, device_ladder=ladder,
         sampler_kwargs=dict(n_steps=CHAIN_STEPS, fused_chain=False),
         **on_mesh)
     if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, b3 = launch_counts(), FC.sampling_launches.count
+    run = asp.sampler.ladder if ladder else None
     return {"wall_s": wall, "rungs": len(hist.beta), "beta": list(hist.beta),
             "log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
             "x": post.x.cpu(), "generator": asp.sampler.generator.get_state(
             ).cpu(), "b1": counts["coupling"] - b3, "b3": b3,
             "b2": counts["chain"], "routes": sorted(set(
-                hist.mutation_route)), "post": post}
+                hist.mutation_route)), "post": post,
+            "collectives": dict(M.collective_counts),
+            "mode": None if run is None else run.mode,
+            "replays": None if run is None else (
+                run.replays - replays.get(id(run), 0))}
+
+
+def mesh_checkpointed(asp, n: int, mesh, ladder: bool) -> dict:
+    """(f) The mixture's run at ``n`` on the host or the device ladder
+    (split route) with a checkpoint a rung, in memory (the card's machine
+    has no HDF5), and its sample history (on a mesh each rank's rows);
+    the same run without checkpoints; the run resumed from rung
+    MESH_RESUME_RUNG's state. Each run's population, log Z, betas and
+    generator state; the checkpoints' iterations; the history's rows."""
+    run = dict(device_ladder=ladder, sampler_kwargs=dict(
+        n_steps=CHAIN_STEPS, fused_chain=False))
+
+    def summary(post, sampler):
+        return {"x": post.x.cpu(), "log_z": post.log_evidence,
+                "log_z_err": post.log_evidence_error,
+                "beta": list(sampler.history.beta),
+                "generator": sampler.generator.get_state().cpu()}
+
+    states = []
+    sampler = asp.init_sampler("smc", mesh=mesh)
+    post = sampler.sample(n, checkpoint_callback=states.append,
+                          store_sample_history=True, **run)
+    out = summary(post, sampler)
+    out["history"] = [
+        (list(getattr(h, "shard_starts", None) or [0]), h.x.copy())
+        for h in sampler.history.sample_history]
+    out["iterations"] = [st["iteration"] for st in states]
+    plain = asp.init_sampler("smc", mesh=mesh)
+    out["plain"] = summary(plain.sample(n, store_sample_history=True,
+                                        **run), plain)
+    resumed = asp.init_sampler("smc", mesh=mesh)
+    out["resumed"] = summary(resumed.sample(
+        n, resume_from=states[MESH_RESUME_RUNG - 1], **run), resumed)
+    return out
+
+
+def mesh_moves(asp, n: int, mesh=None) -> dict:
+    """(g) ``emcee_smc`` and ``nuts_smc`` on the mixture at ``n`` (the
+    device ladder where the sampler takes it): each one's population, log
+    Z, betas, generator state and collectives."""
+    from aspire_tpu_torch.parallel import mesh as M
+
+    out = {}
+    for name, kwargs in MESH_MOVES.items():
+        M.reset_collective_counts()
+        post, hist = asp.sample_posterior(
+            sampler=name, n_samples=n, return_history=True,
+            sampler_kwargs=kwargs, **({} if mesh is None else dict(
+                mesh=mesh)))
+        out[name] = {"x": post.x.cpu(), "log_z": post.log_evidence,
+                     "log_z_err": post.log_evidence_error,
+                     "beta": list(hist.beta), "generator":
+                     asp.sampler.generator.get_state().cpu(),
+                     "collectives": dict(M.collective_counts)}
+    return out
+
+
+def mesh_pt(asp, mesh=None) -> dict:
+    """(h) Parallel tempering with its walkers sharded (MESH_PT) and the
+    standalone tpCN (MESH_TPCN, every rank the whole ensemble): their
+    chains, generator states, collectives and PT's stepping-stone log Z."""
+    from aspire_tpu_torch.parallel import mesh as M
+
+    on_mesh = {} if mesh is None else dict(mesh=mesh)
+    out = {}
+    for name, kwargs in (("ptmcmc", MESH_PT), ("minipcn", MESH_TPCN)):
+        M.reset_collective_counts()
+        post = asp.sample_posterior(sampler=name, **kwargs, **on_mesh)
+        out[name] = {"x": post.x.cpu(), "generator":
+                     asp.sampler.generator.get_state().cpu(),
+                     "collectives": dict(M.collective_counts)}
+        if name == "ptmcmc":
+            out[name]["log_z"], out[name]["log_z_err"] = (
+                post.log_evidence_stepping_stone())
+    return out
+
+
+def mesh_cnf_fit(p, mesh) -> dict:
+    """(i) The CNF's data-parallel fit over ``mesh``: the main path's 4000
+    draws, the velocity field at its default width at seed 2, one epoch
+    (MESH_CNF_FIT); its seconds, losses and parameters."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch.flows import FlowMatching
+    from aspire_tpu_torch.flows.train import param_leaves
+    from aspire_tpu_torch.parallel import particle_sharding
+
+    flow = FlowMatching(dims=4, seed=2, device=mesh.device)
+    x = p.draw_initial_samples(np.random.default_rng(42), 4000)
+    sync = (torch.cuda.synchronize if mesh.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    history = flow.fit(x, sharding=particle_sharding(mesh), **MESH_CNF_FIT)
+    sync()
+    return {"s": time.perf_counter() - t0,
+            "loss": list(history.training_loss),
+            "params": [t.detach().cpu() for t in param_leaves(flow.params)]}
+
+
+def _on_card(value, device):
+    """``value`` with every tensor it holds (in dicts, lists, tuples and a
+    transform program) copied to ``device``."""
+    import torch
+
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    if isinstance(value, dict):
+        return {k: _on_card(v, device) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_on_card(v, device) for v in value)
+    if isinstance(value, FM.TDProgram):
+        return FM.TDProgram(value.ops, _on_card(value.params, device),
+                            value.n_params_per_op)
+    return value
+
+
+def two_card_check(n: int = N_CHAIN) -> dict:
+    """C18: every kernel wrapper launches on its tensors' card. Each
+    kernel runs on ``cuda:1`` tensors while ``cuda:0`` is the current
+    device, and on the same values on ``cuda:0``: the outputs the same
+    bits, one launch each. B1 and B3 (nsf-tpu), B1 with its parameters on
+    ``cuda:0`` and its input on ``cuda:1`` (the packing cache hands back a
+    packing on ``cuda:1``), B4 (maf-rqs), B2 (``chain_setup``'s chain,
+    Philox seeded), the user target's evaluation entry, D1, D2 at Q = 4,
+    D3 and D4. Raises on a difference; needs two cards."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch.flows.architectures import maf_rqs
+    from aspire_tpu_torch.ops import _build
+    from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.ops import fused_mutation as FM
+    from aspire_tpu_torch.ops import prng as PR
+    from aspire_tpu_torch.ops import staged_coupling as SC
+
+    if torch.cuda.device_count() < 2:
+        raise RuntimeError("the two-card check needs two cards")
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    arch, params = perturbed_flow(d0, seed=2)
+    maf, maf_params = perturbed_flow(d0, seed=4, arch=maf_rqs(4))
+    sarch, sparams = staged_flow(d0)
+    gen = torch.Generator(device=d0)
+    gen.manual_seed(5)
+    x = 2.0 * torch.randn((n, 4), generator=gen, device=d0)
+    cfg, cparams, z0, beta, step0, refs, (tid, tconsts), dt, _ = chain_setup(
+        d0, n, CHAIN_STEPS)
+    problem = PolynomialRegression()
+    source, uconsts = problem.kernel_target(d0)
+    user = FM.UserTarget(source, None)
+    xu = torch.as_tensor(problem.posterior_draws(np.random.default_rng(5), n,
+                                                 widen=2.0),
+                         dtype=torch.float32, device=d0)
+    seed = torch.tensor([11, 12], dtype=torch.int64, device=d0)
+    calls = {
+        "B1": lambda d: FC.coupling_kernel_apply(
+            arch, "forward", _on_card(params, d), x.to(d)),
+        "B3": lambda d: FC.coupling_kernel_apply(
+            arch, "inverse", _on_card(params, d), x.to(d)),
+        "B1, parameters on cuda:0": lambda d: FC.coupling_kernel_apply(
+            arch, "forward", params, x.to(d)),
+        "B4": lambda d: FC.maf_kernel_apply(maf, _on_card(maf_params, d),
+                                            x.to(d)),
+        "B2": lambda d: FM.fused_mh_chain(
+            cfg, _on_card(cparams, d), z0.to(d), beta, seed.to(d),
+            step0.to(d), *_on_card(refs, d), (tid, tconsts.to(d)),
+            data_transform=_on_card(dt, d)),
+        "user target": lambda d: FM.user_target_eval(
+            user, uconsts.to(d), 0, xu.to(d)),
+        "D1": lambda d: SC.interleaved_apply(sarch, _on_card(sparams, d),
+                                             x.to(d)),
+        "D2": lambda d: SC.q_apply(sarch, _on_card(sparams, d), x.to(d), 4),
+        "D3": lambda d: SC.packed_apply(sarch, _on_card(sparams, d),
+                                        x.to(d)),
+        "D4": lambda d: (PR.prng_uniforms(PROBE_SEED, (8, n), d),),
+    }
+    out = {}
+    with torch.cuda.device(d0):
+        for name, call in calls.items():
+            reset_launch_counts()
+            on0 = call(d0)
+            on1 = call(d1)
+            torch.cuda.synchronize(d0)
+            torch.cuda.synchronize(d1)
+            # every counter the call moved (B3 moves two): two launches
+            counts = [k for k in _build.launch_counts() if k]
+            devices = sorted({str(t.device) for t in on1
+                              if isinstance(t, torch.Tensor)})
+            same = all(torch.equal(a.cpu(), b.cpu())
+                       for a, b in zip(on0, on1)
+                       if isinstance(a, torch.Tensor))
+            out[name] = {"same_bits": same, "devices": devices,
+                         "launches": counts}
+            if not same or devices != ["cuda:1"] or set(counts) != {2}:
+                raise AssertionError(f"C18, {name} on cuda:1 with cuda:0 "
+                                     f"current: {out[name]}")
+    log(f"C18: every wrapper launched on its tensors' card: {out}")
+    return out
+
 
 
 def mesh_overflow(x, mesh) -> dict:
@@ -4146,10 +4372,12 @@ def mesh_rank(rank: int, size: int, backend: str, folder: str, n: int,
     ``"cpu``, a rehearsal) from ``folder/flow.pt`` (no fit and
     no build: the parent built the kernels), runs the pipeline for each of
     MESH_IMPLS on the mesh after an untimed warm-up run, and on more than
-    one rank the overflow check
-    and the data-parallel fit; its results go to ``folder/rank{rank}.pt``."""
+    one rank the overflow check and the data-parallel fit; then (e) the
+    device ladder for each of MESH_IMPLS, (f) the checkpointed runs and
+    their resumes, (g) the population moves, (h) PT and the standalone
+    tpCN and (i) the CNF's fit; its results go to
+    ``folder/rank{rank}.pt``."""
     import torch
-    import torch.distributed as dist
 
     from aspire_tpu_torch.parallel import initialize_distributed, make_mesh
 
@@ -4176,8 +4404,35 @@ def mesh_rank(rank: int, size: int, backend: str, folder: str, n: int,
     if size > 1:
         out["overflow"] = mesh_overflow(post.x, mesh)
         out["dp_fit"] = mesh_dp_fit(p, mesh)
+    # (e) the device ladder on the mesh, each impl: its first run captures
+    # the rung (over NCCL) after an eager first rung, the second replays.
+    out["ladder"] = {}
+    for impl in MESH_IMPLS:
+        mesh_pipeline(asp, n, mesh, impl, ladder=True)
+        run = mesh_pipeline(asp, n, mesh, impl, ladder=True)
+        run.pop("post")
+        out["ladder"][impl] = run
+    log(f"mesh rank {rank} of {size} ({backend}): (e) done")
+    t0 = time.perf_counter()
+    out["checkpointed"] = {
+        name: mesh_checkpointed(asp, n // MESH_CK_PART, mesh, on)
+        for name, on in (("host", False), ("device", True))}
+    out["f_s"] = time.perf_counter() - t0
+    log(f"mesh rank {rank} of {size} ({backend}): (f) {out['f_s']:.1f} s")
+    t0 = time.perf_counter()
+    out["moves"] = mesh_moves(asp, n // MESH_MOVES_PART, mesh)
+    out["g_s"] = time.perf_counter() - t0
+    log(f"mesh rank {rank} of {size} ({backend}): (g) {out['g_s']:.1f} s")
+    t0 = time.perf_counter()
+    out["pt"] = mesh_pt(asp, mesh)
+    out["h_s"] = time.perf_counter() - t0
+    log(f"mesh rank {rank} of {size} ({backend}): (h) {out['h_s']:.1f} s")
+    out["cnf_fit"] = mesh_cnf_fit(p, mesh)
+    log(f"mesh rank {rank} of {size} ({backend}): (i) "
+        f"{out['cnf_fit']['s']:.1f} s")
     torch.save(out, f"{folder}/rank{rank}.pt")
-    dist.destroy_process_group()
+    # spawn_ranks leaves the group once this returns, after a collection:
+    # no captured ladder is left to hold NCCL (ROADMAP C19).
 
 
 def mesh_job(size: int, backend: str, state, n: int,
@@ -4260,6 +4515,123 @@ def check_mesh_job(ranks: list, ref: dict, truth: float, n: int,
                              f"{[f['loss'] for f in fits]}")
 
 
+def _held(got: dict, want: dict, exact: bool) -> dict:
+    """A mesh run ``got`` beside the one-process run ``want``: whether its
+    population, log Z, betas and generator are ``want``'s bits, and where
+    they are not (``exact`` False), whether log Z is within max(5 combined
+    sigma, 0.15) of ``want``'s; ``ok`` says it passed."""
+    import torch
+
+    same = (got["log_z"] == want["log_z"] and got["beta"] == want["beta"]
+            and torch.equal(got["x"], want["x"])
+            and torch.equal(got["generator"], want["generator"]))
+    tol = max(5 * math.hypot(got.get("log_z_err", 0.0),
+                             want.get("log_z_err", 0.0)), 0.15)
+    near = abs(got["log_z"] - want["log_z"]) < tol
+    return {"same_bits": same, "tolerance": tol, "ok": same or (
+        not exact and near and bool(torch.isfinite(got["x"]).all()))}
+
+
+def _same_bits(a: dict, b: dict) -> bool:
+    import torch
+
+    return all(torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+               else a[k] == b[k] for k in a if k != "collectives")
+
+
+def check_mesh_slice_ii(ranks: list, refs: dict, truth: float, n: int,
+                        on_card: bool, exact: bool, captured: bool,
+                        what: str) -> dict:
+    """Hold a job's (e)-(i) (``mesh_rank``) to the parent's one-process
+    runs ``refs``: every rank the same bits throughout; (e) the device
+    ladder's mode (``captured``: over NCCL), for each impl the reference's
+    bits where ``exact`` and else ``check_mesh_job``'s tolerance, the
+    anchor's gate, 22 B1 a rung a rank, 1 B3, no B2, the replays; (f) each
+    ladder's checkpointed run the run without checkpoints bit for bit, a
+    checkpoint a rung and one at the end, the history's rows reassembled
+    the reference's history where ``exact`` and else ending in the run's
+    population, the resumed run the reference's resume where ``exact``;
+    (g) and (h) against the references (bits where ``exact``; PT's
+    stepping stone and the moves' log Z within the tolerance), the
+    standalone tpCN the reference's bits, the moves and PT gathering;
+    (i) the CNF's parameters the same bits on every rank, its loss
+    finite. Raises on a miss; returns what it read."""
+    import numpy as np
+    import torch
+
+    first, out = ranks[0], {}
+    mode = "captured" if captured else "eager"
+    for impl in MESH_IMPLS:
+        runs = [r["ladder"][impl] for r in ranks]
+        a, ref = runs[0], refs["ladder"]
+        held = _held(a, ref, exact)
+        need = (CHAIN_STEPS + 2) * a["rungs"]
+        ok = (all(same_run(a, r) for r in runs[1:]) and held["ok"]
+              and abs(a["log_z"] - truth) < max(5 * a["log_z_err"], 0.02)
+              and all(r["mode"] == mode for r in runs)
+              and a["x"].shape == (n, 4) and a["routes"] == ["split"]
+              and all(not on_card or (r["b1"], r["b3"], r["b2"])
+                      == (need, 1, 0) for r in runs)
+              and all(r["replays"] == (a["rungs"] if captured else 0)
+                      for r in runs))
+        out[f"e {impl}"] = held
+        if not ok:
+            raise AssertionError(f"{what}, (e) the device ladder, {impl}: "
+                                 f"{runs} against {ref}")
+    for ladder in ("host", "device"):
+        got = [r["checkpointed"][ladder] for r in ranks]
+        ref = refs["checkpointed"][ladder]
+        a = got[0]
+        rungs = len(a["beta"])
+        history = [np.concatenate([b for _, b in sorted(
+            (g["history"][i] for g in got), key=lambda e: e[0][0])])
+            for i in range(len(a["history"]))]
+        history_ok = (all(np.array_equal(h, q) for h, (_, q) in zip(
+            history, ref["history"])) if exact else np.array_equal(
+                history[-1], a["x"].numpy()))
+        resumed = _held(a["resumed"], ref["resumed"], exact)
+        out[f"f {ladder}"] = {"rungs": rungs, "history": history_ok,
+                              "resumed": resumed}
+        if not (all(_same_bits(g["plain"], a["plain"]) and _same_bits(
+                g["resumed"], a["resumed"]) for g in got)
+                and _same_bits({k: a[k] for k in a["plain"]}, a["plain"])
+                and a["iterations"] == [*range(1, rungs + 1), rungs]
+                and len(history) == rungs + 1 and history_ok
+                and resumed["ok"] and rungs > MESH_RESUME_RUNG):
+            raise AssertionError(f"{what}, (f) checkpoints on the {ladder} "
+                                 f"ladder: {out[f'f {ladder}']}")
+    for part, names in (("moves", MESH_MOVES), ("pt", ("ptmcmc",
+                                                       "minipcn"))):
+        for name in names:
+            got = [r[part][name] for r in ranks]
+            ref = refs[part][name]
+            a = got[0]
+            if name == "minipcn":
+                held = {"same_bits": torch.equal(a["x"], ref["x"])
+                        and torch.equal(a["generator"], ref["generator"])}
+                held["ok"] = held["same_bits"] and not a["collectives"]
+            elif name == "ptmcmc":
+                held = _held(dict(a, beta=None), dict(ref, beta=None), exact)
+                held["ok"] = held["ok"] and (len(ranks) == 1 or a[
+                    "collectives"].get("all_gather_rows", 0) > 0)
+            else:
+                held = _held(a, ref, exact)
+                held["ok"] = held["ok"] and abs(a["log_z"] - truth) < max(
+                    5 * a["log_z_err"], 0.02) and (len(ranks) == 1 or a[
+                        "collectives"].get("all_gather_rows", 0) > 0)
+            out[f"{part} {name}"] = held
+            if not (held["ok"] and all(_same_bits(g, a) for g in got[1:])):
+                raise AssertionError(f"{what}, {part} {name}: {held}")
+    fits = [r["cnf_fit"] for r in ranks]
+    if not (all(all(torch.equal(u, v) for u, v in zip(
+            fits[0]["params"], f["params"])) for f in fits[1:])
+            and all(math.isfinite(v) for v in fits[0]["loss"])):
+        raise AssertionError(f"{what}, (i) the CNF's fit: "
+                             f"{[f['loss'] for f in fits]}")
+    out["cnf_fit_s"] = fits[0]["s"]
+    return out
+
+
 def phase_mesh(device, n: int) -> dict:
     """The mesh (``aspire_tpu_torch.parallel``) on the card, ranks as
     ``spawn`` children of this script:
@@ -4278,7 +4650,16 @@ def phase_mesh(device, n: int) -> dict:
     giving ``x[idx]``;
     (d) with (c) (and (b) on more than one card) the ranks' data-parallel
     ``Flow.fit``: the parameters the same bits on every rank, the loss
-    falling.
+    falling;
+    (e)-(i) in the same jobs (``check_mesh_slice_ii``): the device ladder
+    on the mesh for each of MESH_IMPLS, its rung captured over NCCL and
+    eager over gloo, against a one-process device-ladder reference (split
+    route, captured) run here; the checkpointed runs (a checkpoint a rung
+    on each ladder, in memory), their resume from rung MESH_RESUME_RUNG
+    and the sample history's rows; ``emcee_smc`` and ``nuts_smc``; PT with
+    its walkers sharded and the standalone tpCN; the CNF's data-parallel
+    fit. Each reference runs here, in one process.
+    With two cards or more, C18's check (``two_card_check``) runs here.
     Every job is joined within MESH_JOB_TIMEOUT_S; a rank that fails or
     hangs fails the phase. The gloo figures are gloo on one card, staged
     through the host: not NCCL's, and no scaling figure."""
@@ -4286,6 +4667,9 @@ def phase_mesh(device, n: int) -> dict:
 
     on_card = device.type == "cuda"
     t0 = time.perf_counter()
+    if on_card:
+        log(f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} (a "
+            "capture of collectives needs 2.9.6 or later)")
     p, asp = mesh_aspire(device)
     truth = p.true_log_evidence()
     mesh_pipeline(asp, n)  # the warm-up, as each rank's
@@ -4296,21 +4680,56 @@ def phase_mesh(device, n: int) -> dict:
             (ref["b1"], ref["b3"], ref["b2"])
             != ((CHAIN_STEPS + 2) * ref["rungs"], 1, 0))):
         raise AssertionError(f"the reference pipeline: {ref}")
+    # The one-process references of (e)-(h).
+    mesh_pipeline(asp, n, ladder=True)  # its capture
+    refs = {"ladder": mesh_pipeline(asp, n, ladder=True)}
+    check_result(refs["ladder"].pop("post"), n, truth)
+    if refs["ladder"]["mode"] != ("captured" if on_card else "eager") or (
+            on_card and (refs["ladder"]["b1"], refs["ladder"]["b3"],
+                         refs["ladder"]["b2"], refs["ladder"]["replays"])
+            != ((CHAIN_STEPS + 2) * refs["ladder"]["rungs"], 1, 0,
+                refs["ladder"]["rungs"])):
+        raise AssertionError(f"the device-ladder reference: "
+                             f"{refs['ladder']}")
+    refs["checkpointed"] = {
+        name: mesh_checkpointed(asp, n // MESH_CK_PART, None, on)
+        for name, on in (("host", False), ("device", True))}
+    refs["moves"] = mesh_moves(asp, n // MESH_MOVES_PART)
+    refs["pt"] = mesh_pt(asp)
+    out["ladder_reference"] = refs["ladder"]
     out["a_s"] = time.perf_counter() - t0
-    state = (asp.flow.params, asp.flow.data_transform)
     cards = torch.cuda.device_count() if on_card else 1
+    if cards >= 2:
+        t1 = time.perf_counter()
+        out["two_card"] = two_card_check()
+        out["two_card_s"] = time.perf_counter() - t1
+    else:
+        log("C18's two-card check (every wrapper on cuda:1 tensors while "
+            "cuda:0 is current) needs two cards: this machine has "
+            f"{cards}; not run")
+    state = (asp.flow.params, asp.flow.data_transform)
     out["nccl"], out["b_s"] = mesh_job(cards, "nccl" if on_card else "gloo",
                                        state, n, device.type)
     check_mesh_job(out["nccl"], ref, truth, n, on_card, cards == 1,
                    f"NCCL at world size {cards}")
+    out["nccl_ii"] = check_mesh_slice_ii(
+        out["nccl"], refs, truth, n, on_card, cards == 1, on_card,
+        f"NCCL at world size {cards}")
     out["gloo"], out["c_s"] = mesh_job(2, "gloo", state, n, device.type)
     check_mesh_job(out["gloo"], ref, truth, n, on_card, False,
                    "two gloo ranks")
+    out["gloo_ii"] = check_mesh_slice_ii(out["gloo"], refs, truth, n,
+                                         on_card, False, False,
+                                         "two gloo ranks")
     for q in (*out["nccl"], *out["gloo"]):
-        for run in q["runs"].values():
+        for run in (*q["runs"].values(), *q["ladder"].values()):
             del run["x"], run["generator"]
         q.get("dp_fit", {}).pop("params", None)
+        for key in ("checkpointed", "moves", "pt"):
+            q.pop(key)
+        q["cnf_fit"].pop("params")
     del ref["x"], ref["generator"]
+    del refs["ladder"]["x"], refs["ladder"]["generator"]
     return out
 
 
@@ -4357,6 +4776,37 @@ def report_mesh(card: str, mesh: dict, phase_s: float) -> None:
           f"through the host; not NCCL, no scaling figure), {n // 2} rows "
           f"a rank: {runs(gloo)}{extras(gloo)}; part {mesh['c_s']:.1f} s",
           flush=True)
+    lref = mesh["ladder_reference"]
+    print(f"[{card}] mesh (e) reference: one process, device ladder "
+          f"({lref['mode']}), split route, n={n}: log Z "
+          f"{lref['log_z']:.4f} +/- {lref['log_z_err']:.4f}; "
+          f"{lref['rungs']} rungs, {per_rung(lref):.4f} s a rung, "
+          f"{lref['replays']} replays; B1 {lref['b1']}, B3 {lref['b3']}, "
+          f"B2 {lref['b2']}", flush=True)
+    for label, ranks, held in (("NCCL", nccl, mesh["nccl_ii"]),
+                               ("gloo", gloo, mesh["gloo_ii"])):
+        q = ranks[0]
+        ladder = "; ".join(
+            f"{impl} {q['ladder'][impl]['mode']} "
+            f"{per_rung(q['ladder'][impl]):.4f} s a rung, log Z "
+            f"{q['ladder'][impl]['log_z']:.4f}, bits as reference "
+            f"{held[f'e {impl}']['same_bits']}, per rank B1 "
+            f"{[r['ladder'][impl]['b1'] for r in ranks]} / B3 "
+            f"{[r['ladder'][impl]['b3'] for r in ranks]} / B2 "
+            f"{[r['ladder'][impl]['b2'] for r in ranks]} in "
+            f"{q['ladder'][impl]['rungs']} rungs, collectives "
+            f"{q['ladder'][impl]['collectives']}" for impl in MESH_IMPLS)
+        print(f"[{card}] mesh (e) {label} at world size {len(ranks)}: "
+              f"{ladder}", flush=True)
+        print(f"[{card}] mesh (f)-(i) {label} at world size {len(ranks)}: "
+              f"{ {k: v for k, v in held.items() if k[0] in 'fmpc'} }; "
+              f"(f) {q['f_s']:.1f} s, (g) {q['g_s']:.1f} s, (h) "
+              f"{q['h_s']:.1f} s, (i) {q['cnf_fit']['s']:.1f} s, loss "
+              f"{q['cnf_fit']['loss']}", flush=True)
+    if "two_card" in mesh:
+        print(f"[{card}] mesh C18 two-card check "
+              f"({mesh['two_card_s']:.1f} s): {mesh['two_card']}",
+              flush=True)
     print(f"[{card}] phase_mesh: {phase_s:.1f} s", flush=True)
 
 
@@ -6140,9 +6590,14 @@ def main() -> int:
              "per_rung": {k: v["per_rung"]
                           for k, v in opts["pipelines"].items()}},
          "launches_mesh": {
-             world: {impl: {k: r["runs"][impl][k]
-                            for k in ("b1", "b3", "rungs")}
-                     for impl in MESH_IMPLS}
+             world: {**{impl: {k: r["runs"][impl][k]
+                               for k in ("b1", "b3", "rungs")}
+                        for impl in MESH_IMPLS},
+                     **{f"device_ladder_{impl}": {
+                         k: r["ladder"][impl][k]
+                         for k in ("b1", "b3", "b2", "rungs", "replays",
+                                   "mode")}
+                        for impl in MESH_IMPLS}}
              for world, r in (
                  *((f"nccl_world_{len(mesh['nccl'])}_rank_{k}", q)
                    for k, q in enumerate(mesh["nccl"])),

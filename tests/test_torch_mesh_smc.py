@@ -50,7 +50,6 @@ N_FINAL = 101
 #: the data-parallel fit: 520 rows (52 validation, 468 training), global
 #: batches of 52, 3 epochs; every count divides by 2 and 4
 DP_ROWS, DP_FIT = 520, dict(n_epochs=3, batch_size=52, learning_rate=3e-3)
-SLICE_II = "second multi-device slice"
 
 
 def fitted_aspire():
@@ -105,35 +104,79 @@ def _outcome(fn) -> tuple:
     return None
 
 
-def _refusals(asp, mesh) -> dict:
-    """Each thing a mesh of more than one rank refuses, run."""
+def _summary(out) -> dict:
+    """What a call returned, for comparing ranks and runs: a run's
+    population, log Z, betas and generator, or a fit's parameters."""
+    if isinstance(out, dict):
+        return out
+    if isinstance(out, tuple):  # (samples, history)
+        out, hist = out
+        return {"x": out.x.clone(), "log_z": out.log_evidence,
+                "beta": list(hist.beta)}
+    return {"x": out.x.clone(), "log_z": getattr(out, "log_evidence", None)}
+
+
+def _slice_ii_calls(asp, mesh, folder: str) -> dict:
+    """Each call a mesh of more than one rank refused before the second
+    multi-device slice, run: its summary and the generator's state, or
+    what it raised. ``mesh`` None: the same calls in one process."""
     from aspire_tpu_torch.flows import FlowMatching
+    from aspire_tpu_torch.flows.train import param_leaves
     from aspire_tpu_torch.parallel import particle_sharding
 
     kw = dict(sampler_kwargs=dict(n_steps=STEPS))
+    on_mesh = {} if mesh is None else dict(mesh=mesh)
+    states = []
 
     def smc(**sample):
-        return asp.init_sampler("smc", mesh=mesh).sample(N, **kw, **sample)
+        sampler = asp.init_sampler("smc", **on_mesh)
+        post = sampler.sample(N, **kw, **sample)
+        out = {"x": post.x.clone(), "log_z": post.log_evidence,
+               "beta": list(sampler.history.beta),
+               "generator": sampler.generator.get_state().clone()}
+        if "store_sample_history" in sample:  # else its defaults differ
+            out["history"] = len(sampler.history.sample_history)
+        return out
 
     def facade(sampler, **sample):
-        return asp.sample_posterior(sampler=sampler, n_samples=N, mesh=mesh,
-                                    **sample)
+        post = asp.sample_posterior(sampler=sampler, n_samples=N,
+                                    **on_mesh, **sample)
+        return {**_summary(post),
+                "generator": asp.sampler.generator.get_state().clone()}
 
-    return {name: _outcome(fn) for name, fn in {
+    def cnf_fit():
+        flow = FlowMatching(dims=2, device="cpu", dtype="float64",
+                            n_hidden=(8, 8), seed=3)
+        flow.fit(dp_data(), sharding=None if mesh is None
+                 else particle_sharding(mesh), n_epochs=1)
+        return {"params": [t.detach().clone()
+                           for t in param_leaves(flow.params)]}
+
+    def checkpointed():
+        out = smc(checkpoint_callback=states.append)
+        return {**out, "iterations": [s["iteration"] for s in states]}
+
+    calls = {
         "device_ladder": lambda: smc(device_ladder=True),
-        "checkpoint_every": lambda: smc(checkpoint_every=1,
-                                        checkpoint_file_path="unused.h5"),
-        "checkpoint_callback": lambda: smc(checkpoint_callback=print),
+        "checkpoint_every": lambda: smc(
+            checkpoint_every=1, checkpoint_file_path=f"{folder}/ck.h5"),
+        "checkpoint_callback": checkpointed,
         "store_sample_history": lambda: smc(store_sample_history=True),
-        "resume_from": lambda: smc(resume_from={}),
+        "resume_from": lambda: smc(resume_from=states[1]),
         "emcee_smc": lambda: facade("emcee_smc", **kw),
         "nuts_smc": lambda: facade("nuts_smc", **kw),
         "ptmcmc": lambda: facade("ptmcmc", n_steps=2, n_temperatures=2),
         "minipcn": lambda: facade("minipcn", n_steps=2),
         "emcee": lambda: facade("emcee", n_steps=2),
-        "cnf_fit": lambda: FlowMatching(dims=2, device="cpu").fit(
-            dp_data(), sharding=particle_sharding(mesh), n_epochs=1),
-    }.items()}
+        "cnf_fit": cnf_fit,
+    }
+    out = {}
+    for name, fn in calls.items():
+        try:
+            out[name] = fn()
+        except Exception as err:  # noqa: BLE001 - recorded for the test
+            out[name] = (type(err).__name__, str(err))
+    return out
 
 
 def _rank_job(rank: int, size: int, folder: str) -> None:
@@ -167,7 +210,7 @@ def _rank_job(rank: int, size: int, folder: str) -> None:
         out["routing"] = (asp.sampler.mesh is mesh,
                           asp.sampler.resampling_impl, str(
                               asp.sampler.device))
-        out["refusals"] = _refusals(asp, mesh)
+        out["slice_ii"] = _slice_ii_calls(asp, mesh, folder)
         out["waste_free_tiling"] = _outcome(lambda: asp.init_sampler(
             "smc", mesh=mesh).sample(N, sampler_kwargs=dict(
                 n_steps=N, waste_free=True)))
@@ -194,7 +237,7 @@ def _leaves(flow):
 
 
 @pytest.fixture(scope="module")
-def one_process():
+def one_process(tmp_path_factory):
     """The same runs in one process, no mesh."""
     asp = fitted_aspire()
     out = {case: run_case(asp, case) for case in CASES}
@@ -203,6 +246,8 @@ def one_process():
     history = flow.fit(dp_data(), **DP_FIT)
     out["dp_fit"] = ([t.detach().clone() for t in _leaves(flow)],
                      history.training_loss, history.validation_loss)
+    out["slice_ii"] = _slice_ii_calls(
+        fitted_aspire(), None, str(tmp_path_factory.mktemp("slice_ii")))
     return out
 
 
@@ -274,13 +319,40 @@ REFUSED = ("device_ladder", "checkpoint_every", "checkpoint_callback",
            "ptmcmc", "minipcn", "emcee", "cnf_fit")
 
 
+def _equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal(u, v) for u, v in zip(a, b))
+    return a == b
+
+
 @pytest.mark.parametrize("name", REFUSED)
-def test_mesh_of_two_refuses_what_waits_for_slice_ii(jobs, name):
-    """On two ranks each of these raises ``NotImplementedError`` naming the
-    second multi-device slice, on every rank alike."""
-    got = [r["refusals"][name] for r in jobs[2]]
-    assert got[0] == got[1]
-    assert got[0][0] == "NotImplementedError" and SLICE_II in got[0][1]
+def test_mesh_of_two_refuses_what_waits_for_slice_ii(jobs, one_process,
+                                                    name):
+    """Each call a mesh of two ranks refused until the second multi-device
+    slice (``NotImplementedError``) now runs on two ranks: the same result
+    on every rank, and the one-process call's (its population, log Z,
+    betas and generator state bit for bit; the CNF's parameters within
+    rtol 1e-8); the checkpoints came a rung, the resume from the second
+    rung's state, the history a rung and the initial draw."""
+    got = [r["slice_ii"][name] for r in jobs[2]]
+    want = one_process["slice_ii"][name]
+    assert isinstance(got[0], dict), got[0]
+    assert _equal(got[0], got[1])
+    if name == "cnf_fit":
+        for a, b in zip(got[0]["params"], want["params"]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-8,
+                                       atol=1e-10)
+        return
+    assert _equal(got[0], want), (got[0], want)
+    if name == "checkpoint_callback":
+        rungs = len(want["beta"])
+        assert got[0]["iterations"] == [*range(1, rungs + 1), rungs]
+    if name == "store_sample_history":
+        assert got[0]["history"] == len(want["beta"]) + 1
 
 
 def test_waste_free_ancestors_must_tile_the_mesh(jobs):

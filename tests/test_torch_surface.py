@@ -421,11 +421,6 @@ NOT_PORTED = {
     "ops.fused_coupling:prepare_params":
         "JAX plumbing: the Pallas kernel's weight stacking",
     "samples:Array": "JAX plumbing: the jax.Array alias",
-    "parallel.mesh:walker_sharding": "PT walker sharding, slice (ii)",
-    "io:save_shard_blocks": "multi-device, the next slice",
-    "io:checkpoint_barrier": "multi-device, the next slice",
-    "io:checkpoint_shard_files": "multi-device, the next slice",
-    "io:process_checkpoint_path": "multi-device, the next slice",
 }
 
 
