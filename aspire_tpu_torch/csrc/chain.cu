@@ -50,8 +50,8 @@
 // - A user's own target (models/targets.py KernelSource) is built into an
 //   instance of its own (ops/_build.py::build_user): the build defines
 //   ASPIRE_USER_TARGET as the path of the source, which defines
-//   user_target<D>(c, x, lpi, ll), and ASPIRE_USER_CHAIN_CONFIG(X) as the
-//   flow's row of ASPIRE_CHAIN_CONFIGS, the one configuration it compiles.
+//   user_target<D>(c, x, lpi, ll), and ASPIRE_INSTANCE_CONFIG(X) as the
+//   flow's configuration row, the one it compiles.
 //   That instance evaluates the user's target alone (id kUser), its
 //   constants read from global memory through ChainArgs::user_consts
 //   (any length: the constant block's target region holds 2D + 2
@@ -63,8 +63,16 @@
 
 #ifdef ASPIRE_USER_TARGET
 #include ASPIRE_USER_TARGET
+#endif
+// An instance built for one shape at first use (ops/_build.py::
+// build_instance, a user's target's too) defines ASPIRE_INSTANCE_CONFIG(X)
+// as its configuration row, the one it compiles; one built for a flow
+// whose layers do not fit resident also defines ASPIRE_STREAMED and
+// compiles the whole-layer chain that streams them
+// (chain_kernel_streamed) in place of chain_kernel.
+#ifdef ASPIRE_INSTANCE_CONFIG
 #undef ASPIRE_CHAIN_CONFIGS
-#define ASPIRE_CHAIN_CONFIGS(X) ASPIRE_USER_CHAIN_CONFIG(X)
+#define ASPIRE_CHAIN_CONFIGS(X) ASPIRE_INSTANCE_CONFIG(X)
 #endif
 
 namespace aspire {
@@ -135,6 +143,7 @@ struct Consts {
   static constexpr int KEY = BETA + 1;
   static constexpr int LOG_J = KEY + 2;  // data transform's, then pc's
   static constexpr int SIZE = round4(LOG_J + 2);
+  static_assert(SIZE == chain_consts_floats(D), "coupling_mma.cuh's count");
 };
 
 struct ChainArgs {
@@ -502,9 +511,10 @@ __device__ __forceinline__ float tile_sum(float v, float* scratch,
 // constant block where they are used, so that no register holds them
 // across the flow. Without, the data transform is the affine map or none
 // (ChainArgs::programs), dt_lj its log-Jacobian, and x = z.
-template <int D, int H1, int H2, int K, bool PROGS, int TARGETS>
+template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS,
+          bool STREAM>
 __device__ __forceinline__ void tempered(const ChainArgs& a,
-                                         const float* __restrict__ w,
+                                         float* __restrict__ w,
                                          const float* __restrict__ c,
                                          float* __restrict__ buf, int lane,
                                          float dt_lj, const float (&z)[D],
@@ -512,7 +522,7 @@ __device__ __forceinline__ void tempered(const ChainArgs& a,
                                          float& ll) {
   using C = Consts<D>;
   using P = Prog<D>;
-  using S = MmaShape<D, H1, H2, K, true>;
+  using S = MmaShape<D, H1, H2, K, RQS>;
   float f[S::DP];  // and the flow's padding slot at an odd D, 0
   if constexpr (S::DP > D) f[D] = 0.f;
   float ld = 0.f;
@@ -530,7 +540,12 @@ __device__ __forceinline__ void tempered(const ChainArgs& a,
                  : z[i];
     }
   }
-  flow_density<S>(w, a.n_layers, a.tail_bound, buf, lane, f, ld);
+  if constexpr (STREAM) {
+    flow_density_streamed<S>(a.weights, w, a.n_layers, a.tail_bound, buf,
+                             lane, f, ld);
+  } else {
+    flow_density<S>(w, a.n_layers, a.tail_bound, buf, lane, f, ld);
+  }
   float zz = 0.f;
 #pragma unroll
   for (int i = 0; i < D; ++i) zz += f[i] * f[i];
@@ -585,19 +600,25 @@ __device__ __forceinline__ float mahal2(const float* __restrict__ c,
   return r2;
 }
 
-template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS>
-__global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
-  static_assert(RQS, "the chain kernel's flow is a neural spline flow");
-  using S = MmaShape<D, H1, H2, K, true>;
+// The whole-layer chain (chain_kernel, and chain_kernel_streamed with
+// STREAM): every layer's weights resident in shared memory, or (STREAM)
+// two layer buffers the flow passes stream the layers through.
+template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS,
+          bool STREAM>
+__device__ __forceinline__ void chain_body(const ChainArgs& a) {
+  using S = MmaShape<D, H1, H2, K, RQS>;
   using C = Consts<D>;
   extern __shared__ float4 smem4[];
   float* w = reinterpret_cast<float*>(smem4);
-  const int wfloats = a.n_layers * S::SIZE;
+  const int wfloats = STREAM ? 2 * S::SIZE : a.n_layers * S::SIZE;
   float* c = w + wfloats;
   float* scratch = c + C::SIZE;
   const int lane = threadIdx.x & 31;
   float* buf = scratch + 2 * kWarps + (threadIdx.x >> 5) * S::STAGE;
-  load_shared(smem4, reinterpret_cast<const float4*>(a.weights), wfloats / 4);
+  if constexpr (!STREAM) {
+    load_shared(smem4, reinterpret_cast<const float4*>(a.weights),
+                wfloats / 4);
+  }
   load_shared(reinterpret_cast<float4*>(c),
               reinterpret_cast<const float4*>(a.consts), C::SIZE / 4);
   __syncthreads();
@@ -614,8 +635,9 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
     prev[i] = s1[i] = s2[i] = c1[i] = 0.f;
   }
   float lp, lq, lpi, ll;
-  tempered<D, H1, H2, K, PROGS, TARGETS>(a, w, c, buf, lane, dt_lj, x, lp,
-                                         lq, lpi, ll);
+  tempered<D, H1, H2, K, RQS, PROGS, TARGETS, STREAM>(a, w, c, buf, lane,
+                                                      dt_lj, x, lp, lq, lpi,
+                                                      ll);
   float r2 = (a.kernel == kRWMH) ? 0.f : mahal2<D>(c, x);
   float s = a.step0[blockIdx.x];
   float nacc = 0.f;
@@ -687,8 +709,8 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
                                 : alpha_g * logf((a.nu + r2n) / (a.nu + r2));
     }
     float lp_p, lq_p, lpi_p, ll_p;
-    tempered<D, H1, H2, K, PROGS, TARGETS>(a, w, c, buf, lane, dt_lj, xp,
-                                           lp_p, lq_p, lpi_p, ll_p);
+    tempered<D, H1, H2, K, RQS, PROGS, TARGETS, STREAM>(
+        a, w, c, buf, lane, dt_lj, xp, lp_p, lq_p, lpi_p, ll_p);
     const float log_alpha = nan_to_neg_inf(lp_p - lp + corr);
     const float acc_p = expf(fminf(log_alpha, 0.f));
     const bool accept = u_acc < acc_p;
@@ -748,6 +770,19 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
     }
   }
 }
+
+template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS>
+__global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
+  chain_body<D, H1, H2, K, RQS, PROGS, TARGETS, false>(a);
+}
+
+#ifdef ASPIRE_STREAMED
+template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS>
+__global__ void __launch_bounds__(kTile, 1)
+    chain_kernel_streamed(ChainArgs a) {
+  chain_body<D, H1, H2, K, RQS, PROGS, TARGETS, true>(a);
+}
+#endif
 
 // Coordinate i of a particle whose coordinates lie kTile floats apart in
 // shared memory (the wide form's [D][kTile] arrays).
@@ -822,7 +857,7 @@ __device__ __forceinline__ void tempered_wide(
 // warps' buffers: 189,136 B at d = 32, one block per SM.
 template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS>
 __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
-  using S = MmaShape<D, H1, H2, K, true>;
+  using S = MmaShape<D, H1, H2, K, RQS>;
   using C = Consts<D>;
   extern __shared__ float4 smem4[];
   float* c = reinterpret_cast<float*>(smem4);
@@ -836,6 +871,7 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
   float* F = pb + 16 * S::ROW;
   float* xi = F + lane * S::FROW;
   WideStream<S> ws{res, ring, a.weights, a.n_layers, true, 0};
+  if constexpr (D % 2 == 1) F[lane * S::FROW + D] = 0.f;  // padding slot
   load_shared(smem4, reinterpret_cast<const float4*>(a.consts), C::SIZE / 4);
   __syncthreads();
   if (tid == 0) store_launch_scalars<D, PROGS>(a, c);
@@ -980,13 +1016,26 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
 
 template <int D, int H1, int H2, int K, bool RQS, int TARGETS>
 int launch_chain(const ChainArgs& a, cudaStream_t stream) {
-  using S = MmaShape<D, H1, H2, K, true>;
+  using S = MmaShape<D, H1, H2, K, RQS>;
   // Every layer's weights, or (wide) two [D][kTile] arrays and the
   // stream's slots.
   const size_t state = S::WIDE ? 2 * D * kTile + 2 * (S::RES + S::CHUNK)
                                : (size_t)a.n_layers * S::SIZE;
-  const size_t smem = sizeof(float) * (state + Consts<D>::SIZE + 2 * kWarps +
-                                       kWarps * S::STAGE);
+  size_t smem = sizeof(float) * (state + Consts<D>::SIZE + 2 * kWarps +
+                                 kWarps * S::STAGE);
+#ifdef ASPIRE_STREAMED
+  // The streamed instance: the whole-layer form's two layer buffers.
+  if constexpr (!S::WIDE) {
+    smem = sizeof(float) * (2 * S::SIZE + Consts<D>::SIZE + 2 * kWarps +
+                            kWarps * S::STAGE);
+  }
+#else
+  // A flow too deep for its layers to stay resident takes the streamed
+  // instance (-4 here).
+  if (!S::WIDE && smem > (size_t)current_device_limits().max_smem) {
+    return -4;
+  }
+#endif
 #ifdef ASPIRE_USER_TARGET
   if (a.target_id != kUser) return -3;
 #else
@@ -998,8 +1047,13 @@ int launch_chain(const ChainArgs& a, cudaStream_t stream) {
     kernel = progs ? chain_kernel_wide<D, H1, H2, K, RQS, true, TARGETS>
                    : chain_kernel_wide<D, H1, H2, K, RQS, false, TARGETS>;
   } else {
+#ifdef ASPIRE_STREAMED
+    kernel = progs ? chain_kernel_streamed<D, H1, H2, K, RQS, true, TARGETS>
+                   : chain_kernel_streamed<D, H1, H2, K, RQS, false, TARGETS>;
+#else
     kernel = progs ? chain_kernel<D, H1, H2, K, RQS, true, TARGETS>
                    : chain_kernel<D, H1, H2, K, RQS, false, TARGETS>;
+#endif
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1062,7 +1116,7 @@ int aspire_consts_layout(int dims, int* out, int capacity) {
 int aspire_chain_layout(int config, int* out, int capacity) {
 #define ASPIRE_CHAIN_LAYOUT_CASE(ID, D, H1, H2, K, RQS, TARGETS)                  \
   if (config == ID) {                                                   \
-    using S = aspire::MmaShape<D, H1, H2, K, true>;                     \
+    using S = aspire::MmaShape<D, H1, H2, K, RQS>;                      \
     const int v[] = {S::SIZE, S::W1,  S::B1,    S::W2,                  \
                      S::B2,   S::W3,  S::B3,    S::ROW,                 \
                      S::STAGE, S::RES, S::CHUNK};                       \
@@ -1076,10 +1130,12 @@ int aspire_chain_layout(int config, int* out, int capacity) {
 }
 
 // Returns the launch's cudaError_t; -1 for an unknown configuration, -2
-// when n is not a multiple of the tile and -3 for a target id the
+// when n is not a multiple of the tile, -3 for a target id the
 // configuration does not compile (ASPIRE_CHAIN_CONFIGS' TARGETS; an
 // instance built with a user's source compiles kUser alone, and its entry,
-// aspire_chain_user, takes the user target's constants last).
+// aspire_chain_user, takes the user target's constants last) and -4 for a
+// flow too deep for its layers to stay resident in a library without the
+// streamed form (the prebuilt one, or a resident instance).
 // scratch: 3 * D * n floats for a wide configuration (MmaShape::WIDE),
 // else unused. beta (one float) and
 // seed (two 64-bit integers, each read as its low 32 bits) are device

@@ -43,9 +43,15 @@
 
 #include "coupling_mma.cuh"
 
-namespace aspire {
+// An instance built for one shape at first use (ops/_build.py::
+// build_instance) defines ASPIRE_INSTANCE_CONFIG(X) as its configuration
+// row, the one it compiles.
+#ifdef ASPIRE_INSTANCE_CONFIG
+#undef ASPIRE_COUPLING_CONFIGS
+#define ASPIRE_COUPLING_CONFIGS(X) ASPIRE_INSTANCE_CONFIG(X)
+#endif
 
-constexpr int kCouplingWarps = 8;  // most warps per block
+namespace aspire {
 
 // The block's threads start copying one packed layer (S::SIZE floats, a
 // multiple of 4) into dst.
@@ -57,21 +63,19 @@ __device__ __forceinline__ void copy_layer(float* dst,
   }
 }
 
-// Blocks of coupling_kernel an SM holds at the most warps: two where two
-// fit its shared memory (228 KB, 1 KB reserved a block), capping a thread
-// at 128 registers, else one, which leaves it 255 (nsf-tpu at d = 5, whose
-// 128-register build spilled 1.2-2 KB).
+// Blocks of the coupling kernel an SM holds at the most warps (S::WARPS):
+// two where two fit its shared memory (228 KB, 1 KB reserved a block),
+// capping a thread at 128 registers, else one, which leaves it 255 (nsf-tpu
+// at d = 5, whose 128-register build spilled 1.2-2 KB).
 template <class S>
 struct CouplingBlocks {
   static constexpr int PER_SM =
-      2 * (4 * (2 * S::SIZE + kCouplingWarps * S::STAGE) + 1024) <= 233472
-          ? 2
-          : 1;
+      2 * (4 * (S::BUFS + S::WARPS * S::STAGE) + 1024) <= 233472 ? 2 : 1;
 };
 
 template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
 __global__ void __launch_bounds__(
-    32 * kCouplingWarps,
+    32 * MmaShape<D, H1, H2, K, RQS>::WARPS,
     CouplingBlocks<MmaShape<D, H1, H2, K, RQS>>::PER_SM)
     coupling_kernel(const float* __restrict__ x, float* __restrict__ z,
                     float* __restrict__ log_det,
@@ -118,12 +122,15 @@ __global__ void __launch_bounds__(
 
 // The wide form (MmaShape::WIDE, coupling_layer_wide): each warp's 32
 // particles in its shared buffer, each layer streamed through the block in
-// chunks (WideStream), blocks of up to 8 warps, two per SM (114,688 B of
-// shared memory each at d = 32, (128, 128); 128 registers, a few hundred
-// bytes of spill): 9-10% faster than one block of 255 registers (NVIDIA
-// H100 80GB HBM3 at 700 W, PERF.md).
+// chunks (WideStream), blocks of up to 8 warps, two per SM where they fit
+// (114,688 B of shared memory each at d = 32, (128, 128); 128 registers, a
+// few hundred bytes of spill): 9-10% faster than one block of 255
+// registers (NVIDIA H100 80GB HBM3 at 700 W, PERF.md). At an odd D a
+// particle's row keeps its padding slot, dim D, at 0.
 template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
-__global__ void __launch_bounds__(32 * kCouplingWarps, 2)
+__global__ void __launch_bounds__(
+    32 * MmaShape<D, H1, H2, K, RQS>::WARPS,
+    CouplingBlocks<MmaShape<D, H1, H2, K, RQS>>::PER_SM)
     coupling_kernel_wide(const float* __restrict__ x, float* __restrict__ z,
                          float* __restrict__ log_det,
                          const float* __restrict__ weights, int n,
@@ -142,6 +149,7 @@ __global__ void __launch_bounds__(32 * kCouplingWarps, 2)
     const size_t e = first * D + k;
     F[(k / D) * S::FROW + k % D] = e < end ? x[e] : 0.f;
   }
+  if constexpr (D % 2 == 1) F[lane * S::FROW + D] = 0.f;
   float ld = 0.f;
   flow_pass_wide<S, DENSITY>(ws, tail_bound, F, pb, lane, ld);
   for (int k = lane; k < 32 * D; k += 32) {
@@ -156,17 +164,16 @@ int launch_coupling(const float* x, float* z, float* ld, const float* w,
                     int n, int n_layers, float tb, cudaStream_t stream) {
   using S = MmaShape<D, H1, H2, K, RQS>;
   if (n <= 0 || n_layers <= 0) return 0;
+  static_assert(S::WARPS >= 1, "no block of this shape fits an SM");
   const int sms = current_device_limits().sms;
-  // Enough warps per block to give every SM a block, at most kCouplingWarps.
+  // Enough warps per block to give every SM a block, at most S::WARPS.
   int warps = ((n + 31) / 32 + sms - 1) / sms;
-  warps = warps < 1 ? 1 : (warps > kCouplingWarps ? kCouplingWarps : warps);
+  warps = warps < 1 ? 1 : (warps > S::WARPS ? S::WARPS : warps);
   const int threads = 32 * warps;
   // Weight buffers: two whole layers, or (wide) two resident parts and two
   // chunks.
-  const int weights = S::WIDE ? 2 * (S::RES + S::CHUNK) : 2 * S::SIZE;
-  const int smem = (int)sizeof(float) * (weights + warps * S::STAGE);
-  const int max_smem =
-      (int)sizeof(float) * (weights + kCouplingWarps * S::STAGE);
+  const int smem = (int)sizeof(float) * (S::BUFS + warps * S::STAGE);
+  const int max_smem = (int)sizeof(float) * (S::BUFS + S::WARPS * S::STAGE);
   void (*kernel)(const float*, float*, float*, const float*, int, int, float);
   if constexpr (S::WIDE) {
     kernel = coupling_kernel_wide<D, H1, H2, K, RQS, DENSITY>;
@@ -206,7 +213,7 @@ int aspire_coupling_layout(int config, int* out, int capacity) {
     using S = aspire::MmaShape<D, H1, H2, K, RQS>;                     \
     const int v[] = {S::SIZE,  S::W1,  S::B1,    S::W2,                \
                      S::B2,    S::W3,  S::B3,    S::ROW,               \
-                     S::STAGE, S::RES, S::CHUNK, aspire::kCouplingWarps}; \
+                     S::STAGE, S::RES, S::CHUNK, S::WARPS};            \
     const int count = (int)(sizeof(v) / sizeof(v[0]));                 \
     for (int e = 0; e < count && e < capacity; ++e) out[e] = v[e];     \
     return count;                                                      \

@@ -39,6 +39,32 @@
 
 namespace aspire {
 
+// Shared memory one block may hold on an H100 (227 KB, the opt-in
+// maximum), in floats: the forms below are chosen against it.
+constexpr int kMaxBlockFloats = 232448 / 4;
+// Most warps in a block of the coupling kernel; the warps of the chain
+// kernel's block (its 256-particle tile).
+constexpr int kMaxCouplingWarps = 8;
+constexpr int kChainBlockWarps = 8;
+// The wide form's chunks of W2 and W3 aim at this many floats (16 KB).
+constexpr int kChunkFloats = 4096;
+
+// The chain kernel's constant block at D, in floats (chain.cu Consts<D>).
+__host__ __device__ constexpr int chain_consts_floats(int d) {
+  return round4(d + 2 * d * d + 2 * (8 * d + 3) + 2 * d + 2 + 1 + 2 + 2);
+}
+
+// The most k-steps (up to `most`, halving) that divide `steps` and keep a
+// chunk of `floats_per_step` floats a k-step within kChunkFloats; 1 where
+// none does.
+__host__ __device__ constexpr int chunk_steps(int steps, int most,
+                                              int floats_per_step) {
+  for (int k = most; k > 1; k /= 2) {
+    if (steps % k == 0 && k * floats_per_step <= kChunkFloats) return k;
+  }
+  return 1;
+}
+
 // Packed weight layout (built by ops/fused_coupling.py::prepare_mma_params),
 // per coupling layer, every section starting on a multiple of 4 floats.
 // Layer l transforms the A = (D + 1) / 2 active dims 2a + (l & 1),
@@ -58,9 +84,20 @@ namespace aspire {
 //
 // The wide layout (MmaShape::WIDE) puts the sections a layer reads
 // throughout first, then the streamed ones in the order the warps read
-// them: W1, b1, b2, b3, then W2 (as above), then W3 by groups of GD = 2
-// active dims, the fragment of group q, k-step s and the group's n-tile m
-// at index (q * KS2 + s) * NG + m (NG = GD * G / 8 n-tiles per group).
+// them: W1 (rows CP = C rounded up to 4 floats apart, zero past C), b1,
+// b2, b3, then W2 (as above), then W3 by groups of GD = 2 active dims, the
+// fragment of group q, k-step s and the group's n-tile m at index
+// (q * KS2 + s) * NG + m (NG = GD * G / 8 n-tiles per group). At an odd A
+// the last group's second slot is a padding slot (zero W3 columns and b3):
+// the layout holds AS = 2 * GROUPS active slots.
+//
+// The form is the shape's, so the coupling kernel (B1/B3) and the chain
+// kernel (B2) read one packing: the whole-layer form where its
+// accumulators fit 128 floats a thread (below), two layers fit one block
+// beside one warp's buffer (the coupling kernel streams layers through
+// two buffers, with as many warps as fit, WARPS), and the chain kernel's
+// block (8 warps, two layers: it streams them where its depth does not fit
+// resident) fits; else the wide form.
 template <int D_, int H1_, int H2_, int K_, bool RQS_>
 struct MmaShape {
   static_assert(H1_ % 8 == 0 && H2_ % 8 == 0, "hidden widths must be /8");
@@ -73,23 +110,35 @@ struct MmaShape {
   static constexpr int DP = 2 * A;
   static constexpr int P = RQS ? 3 * K - 1 : 2;
   static constexpr int G = (P + 7) / 8 * 8;
-  static constexpr int OUT = A * G;
   static constexpr int KS1 = H1 / 8;  // k-steps of W2
   static constexpr int KS2 = H2 / 8;  // n-tiles of W2, k-steps of W3
-  static constexpr int NT = OUT / 8;  // n-tiles of W3
   static constexpr int NTD = G / 8;   // n-tiles of one active dim's group
+  // The whole-layer form's floats per layer and warp buffer.
+  static constexpr int WHOLE_SIZE =
+      round4(round4(round4(H1 * C) + H1) + 64 * KS1 * KS2 + H2 +
+             64 * KS2 * (A * G / 8) + A * G);
+  static constexpr int WHOLE_STAGE = 32 * (A * G + 4);
   // The whole-layer form holds acc[2][KS2][4] and out[2][NT][4] per
   // thread; past 128 floats it takes the output one dim at a time
   // (BY_DIM: out[2][NTD][4]; 88 floats at d = 5, against 136), and where
-  // that passes 128 too the shape takes the wide form.
-  static constexpr bool WIDE = 8 * (KS2 + NTD) > 128;
-  static constexpr bool BY_DIM = !WIDE && 8 * (KS2 + NT) > 128;
+  // that passes 128 too, or its blocks do not fit, the shape takes the
+  // wide form.
+  static constexpr bool WIDE =
+      8 * (KS2 + NTD) > 128 ||
+      kMaxBlockFloats - 2 * WHOLE_SIZE < WHOLE_STAGE ||
+      2 * WHOLE_SIZE + chain_consts_floats(D) + 2 * kChainBlockWarps +
+              kChainBlockWarps * WHOLE_STAGE >
+          kMaxBlockFloats;
+  static constexpr bool BY_DIM = !WIDE && 8 * (KS2 + A * G / 8) > 128;
   static constexpr int GD = 2;           // active dims per output group
+  static constexpr int GROUPS = (A + GD - 1) / GD;
+  static constexpr int AS = WIDE ? GD * GROUPS : A;  // active slots packed
+  static constexpr int CP = WIDE ? round4(C) : C;    // W1's row stride
+  static constexpr int OUT = AS * G;
+  static constexpr int NT = OUT / 8;     // n-tiles of W3
   static constexpr int NG = GD * G / 8;  // n-tiles per group
-  static_assert(!WIDE || (D % 2 == 0 && A % GD == 0),
-                "the wide form takes D/2 even");
   static constexpr int W1 = 0;
-  static constexpr int B1 = round4(W1 + H1 * C);
+  static constexpr int B1 = round4(W1 + H1 * CP);
   static constexpr int W2 =
       WIDE ? round4(round4(round4(B1 + H1) + H2) + OUT) : round4(B1 + H1);
   static constexpr int B2 = WIDE ? round4(B1 + H1) : W2 + 64 * KS1 * KS2;
@@ -101,26 +150,33 @@ struct MmaShape {
   // floats (wide: one row tile's GD groups), rows ROW floats apart (the 4
   // extra floats put the 8 rows a quarter warp reads with float4 loads in
   // distinct banks). Wide: then the warp's 32 particles, FROW apart (read
-  // and written one float at a time).
+  // and written one float at a time; at an odd D the row's last float is
+  // the padding slot, 0).
   static constexpr int ROW = (WIDE ? GD * G : OUT) + 4;
   static constexpr int FROW = D + 1;
   static constexpr int STAGE = WIDE ? 16 * ROW + 32 * FROW : 32 * ROW;
   // Wide streaming: the resident part (W1 .. b3) of a layer, and its W2
   // and W3 in chunks of KW2 k-steps (all n-tiles) and of KW3 k-steps of
-  // one group; a row tile reads NC2 + NC3 chunks, a layer CPL (40 at
-  // d = 32, (128, 128): 16 KB chunks; 32 KB chunks, 20 a layer, ran B1
-  // 3.5% faster and B2 1.1% slower, and leave no room for B1's second
-  // block: PERF.md).
+  // one group, as many as keep a chunk within kChunkFloats; a row tile
+  // reads NC2 + NC3 chunks, a layer CPL (40 at d = 32, (128, 128): 16 KB
+  // chunks; 32 KB chunks, 20 a layer, ran B1 3.5% faster and B2 1.1%
+  // slower, and leave no room for B1's second block: PERF.md).
   static constexpr int RES = WIDE ? W2 : 0;
-  static constexpr int KW2 = KS1 % 4 == 0 ? 4 : (KS1 % 2 == 0 ? 2 : 1);
-  static constexpr int KW3 =
-      KS2 % 8 == 0 ? 8 : (KS2 % 4 == 0 ? 4 : (KS2 % 2 == 0 ? 2 : 1));
+  static constexpr int KW2 = chunk_steps(KS1, 4, 64 * KS2);
+  static constexpr int KW3 = chunk_steps(KS2, 8, 64 * NG);
   static constexpr int C2 = 64 * KW2 * KS2;
   static constexpr int C3 = 64 * KW3 * NG;
   static constexpr int NC2 = KS1 / KW2;
-  static constexpr int NC3 = A / GD * (KS2 / KW3);
+  static constexpr int NC3 = GROUPS * (KS2 / KW3);
   static constexpr int CPL = 2 * (NC2 + NC3);
   static constexpr int CHUNK = WIDE ? (C2 > C3 ? C2 : C3) : 0;
+  // A coupling-kernel block: its weight buffers (two layers, or two
+  // resident parts and two chunks) and as many warps as fit beside them,
+  // at most kMaxCouplingWarps.
+  static constexpr int BUFS = WIDE ? 2 * (RES + CHUNK) : 2 * SIZE;
+  static constexpr int FIT = (kMaxBlockFloats - BUFS) / STAGE;
+  static constexpr int WARPS =
+      FIT < kMaxCouplingWarps ? FIT : kMaxCouplingWarps;
 };
 
 // 16 bytes from global to shared memory, asynchronously (cp.async, L2
@@ -510,6 +566,31 @@ __device__ __forceinline__ void flow_density(const float* __restrict__ w,
   }
 }
 
+// The flow density pass of the warp's 32 particles with the layers
+// streamed from global memory (src, every layer's packed weights) through
+// two layer buffers at bufs (2 x SIZE floats), as the coupling kernel
+// streams them: cp.async one layer ahead, one block barrier per layer. All
+// of the block's threads call it together.
+template <class S>
+__device__ __forceinline__ void flow_density_streamed(
+    const float* __restrict__ src, float* __restrict__ bufs, int n_layers,
+    float tb, float* __restrict__ buf, int lane, float (&f)[S::DP],
+    float& log_det) {
+  __syncthreads();  // every warp is done with the last pass's buffers
+  copy_async(bufs, src, S::SIZE);
+#pragma unroll 1
+  for (int layer = 0; layer < n_layers; ++layer) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (layer + 1 < n_layers) {
+      copy_async(bufs + ((layer + 1) & 1) * S::SIZE,
+                 src + (size_t)(layer + 1) * S::SIZE, S::SIZE);
+    }
+    coupling_layer_mma<S, true>(bufs + (layer & 1) * S::SIZE, layer, tb, buf,
+                                lane, f, log_det);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The wide form (MmaShape::WIDE)
 // ---------------------------------------------------------------------------
@@ -610,21 +691,31 @@ __device__ __forceinline__ void coupling_layer_wide(
     WideStream<S>& ws, int step, float tb, float* __restrict__ F,
     float* __restrict__ pb, int lane, float (&ldp)[2]) {
   static_assert(S::GD == 2, "a lane per (row of a tile, dim of a group)");
-  static_assert(S::C % 4 == 0 && 16 * S::C <= 16 * S::ROW,
+  static_assert(S::CP % 4 == 0 && S::CP <= S::ROW,
                 "the tile's inputs are read as float4s from pb");
   const int odd = ws.layer_of(step) & 1;
   const int g = lane >> 2, t = lane & 3;
   const float* res = ws.resident(step);
 #pragma unroll 1
   for (int m = 0; m < 2; ++m) {
-    // The conditioning inputs of the tile's row r at pb[r * C + c] (the
-    // last group's transformers are done with pb: __syncwarp below them).
-    for (int e = lane; e < 16 * S::C; e += 32) {
-      pb[e] = F[(16 * m + e / S::C) * S::FROW + 2 * (e % S::C) + 1 - odd];
+    // The conditioning inputs of the tile's row r at pb[r * CP + c], 0
+    // past C (the last group's transformers are done with pb: __syncwarp
+    // below them).
+    if constexpr (S::CP == S::C) {
+      for (int e = lane; e < 16 * S::C; e += 32) {
+        pb[e] = F[(16 * m + e / S::C) * S::FROW + 2 * (e % S::C) + 1 - odd];
+      }
+    } else {
+      for (int e = lane; e < 16 * S::CP; e += 32) {
+        const int c = e % S::CP;
+        pb[e] = c < S::C
+                    ? F[(16 * m + e / S::CP) * S::FROW + 2 * c + 1 - odd]
+                    : 0.f;
+      }
     }
     __syncwarp();
-    const float4* u0 = reinterpret_cast<const float4*>(pb + g * S::C);
-    const float4* u1 = reinterpret_cast<const float4*>(pb + (g + 8) * S::C);
+    const float4* u0 = reinterpret_cast<const float4*>(pb + g * S::CP);
+    const float4* u1 = reinterpret_cast<const float4*>(pb + (g + 8) * S::CP);
     float acc[S::KS2][4];
 #pragma unroll
     for (int j = 0; j < S::KS2; ++j) {
@@ -640,11 +731,11 @@ __device__ __forceinline__ void coupling_layer_wide(
         const int s = c2 * S::KW2 + sl;
         const int unit = 8 * s + 2 * t;
         const float4* w0 =
-            reinterpret_cast<const float4*>(res + S::W1 + unit * S::C);
-        const float4* w1 = w0 + S::C / 4;
+            reinterpret_cast<const float4*>(res + S::W1 + unit * S::CP);
+        const float4* w1 = w0 + S::CP / 4;
         float a[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int c = 0; c < S::C / 4; ++c) {
+        for (int c = 0; c < S::CP / 4; ++c) {
           const float4 x0 = u0[c], x1 = u1[c], v0 = w0[c], v1 = w1[c];
           a[0] = dot4(v0, x0, a[0]);
           a[1] = dot4(v0, x1, a[1]);
@@ -675,7 +766,7 @@ __device__ __forceinline__ void coupling_layer_wide(
     }
     __syncwarp();  // every lane's reads of the inputs in pb are done
 #pragma unroll 1
-    for (int q = 0; q < S::A / S::GD; ++q) {
+    for (int q = 0; q < S::GROUPS; ++q) {
       float out[S::NG][4];
 #pragma unroll
       for (int n = 0; n < S::NG; ++n) {
@@ -724,14 +815,24 @@ __device__ __forceinline__ void coupling_layer_wide(
         if (4 * c + 2 < S::P) par[4 * c + 2] = v.z;
         if (4 * c + 3 < S::P) par[4 * c + 3] = v.w;
       }
-      float* v = F + (16 * m + r) * S::FROW + 2 * (q * S::GD + ad) + odd;
+      const int dim = 2 * (q * S::GD + ad) + odd;
+      float* v = F + (16 * m + r) * S::FROW + dim;
+      // A padding slot (dim D at an odd D, or the last group's second slot
+      // at an odd A) keeps its value and adds nothing.
+      constexpr bool kPadded = S::D % 2 == 1 || S::AS > S::A;
+      const bool live = !kPadded || dim < S::D;
+      const float value = live ? *v : 0.f;
       float y, e;
       if constexpr (S::RQS) {
-        rqs<S::K, DENSITY>(*v, par, tb, y, e);
+        rqs<S::K, DENSITY>(value, par, tb, y, e);
       } else {
-        affine<DENSITY>(*v, par, y, e);
+        affine<DENSITY>(value, par, y, e);
       }
-      *v = y;
+      if (live) {
+        *v = y;
+      } else {
+        e = 0.f;
+      }
       // (selects, not ldp[m]: a register array takes no runtime index)
       ldp[0] += m == 0 ? e : 0.f;
       ldp[1] += m == 1 ? e : 0.f;

@@ -48,9 +48,27 @@
 //   dealt warp-major over the blocks so a small batch (n = 8192: 512
 //   tiles) still spreads over every SM.
 
+// - Every other shape (d <= 32, up to 32 bins, any hidden widths, /8 once
+//   packed) gets an instance of its own, built at first use
+//   (ops/_build.py::build_instance, which defines ASPIRE_INSTANCE_CONFIG(X)
+//   as its configuration row). Where a flow's layers do not fit one block
+//   beside a warp's buffer, its instance (ASPIRE_STREAMED) streams them
+//   (maf_kernel_streamed, compiled in place of maf_kernel):
+//   per layer its head (W1, b1, b2, b3) to a buffer of its own, then W2's
+//   fragments by chunks of n-tiles (the first layer's k-steps recomputed
+//   for each chunk) and W3's by two dims at a time through two shared
+//   slots with cp.async, one block barrier each, the same packing and
+//   split-TF32 products; each warp's 16 particles go through the layer
+//   together, two dims' splines at a time (lane = row x dim).
+
 #include <utility>
 
 #include "common.cuh"
+
+#ifdef ASPIRE_INSTANCE_CONFIG
+#undef ASPIRE_MAF_CONFIGS
+#define ASPIRE_MAF_CONFIGS(X) ASPIRE_INSTANCE_CONFIG(X)
+#endif
 
 namespace aspire {
 
@@ -398,6 +416,336 @@ __global__ void __launch_bounds__(32 * kMafMaxWarps, 1)
   }
 }
 
+#ifdef ASPIRE_STREAMED
+// The streamed form's layout of the same packing (MafShape): per layer a
+// head (W1 and b1, b2, b3) copied to a buffer of its own (HEAD floats,
+// two: this layer's and the next), then items through two slots of SLOT
+// floats: W2's fragments by chunks of n-tiles (chunk c: n-tiles
+// w2_start(c) .. w2_end(w2_start(c)) - 1, at most kMafChunkFrags
+// fragments unless one n-tile has more), then W3's by chunks of two dims
+// (chunk q: dims 2q and 2q + 1, from chunk_start(q) floats past W3). A
+// warp's buffer: its tile's coordinates in and out ([16][D] each; dims
+// reversed as they are written out) and two dims' spline parameters
+// ([16][PROW]).
+constexpr int kMafChunkFrags = 64;
+
+template <int D, int H1, int H2, int K>
+struct MafStream : MafShape<D, H1, H2, K> {
+  using S = MafShape<D, H1, H2, K>;
+  static constexpr int NT2 = H2 / 8;
+  __host__ __device__ static constexpr int w2_end(int j) {
+    int f = 0, e = j;
+    while (e < NT2 && (e == j || f + S::ks2(e) <= kMafChunkFrags)) {
+      f += S::ks2(e);
+      ++e;
+    }
+    return e;
+  }
+  __host__ __device__ static constexpr int w2_start(int c) {
+    int j = 0;
+    for (int i = 0; i < c; ++i) j = w2_end(j);
+    return j;
+  }
+  __host__ __device__ static constexpr int w2_chunks() {
+    int c = 0;
+    for (int j = 0; j < NT2; j = w2_end(j)) ++c;
+    return c;
+  }
+  static constexpr int NW = w2_chunks();
+  static constexpr int NQ = (D + 1) / 2;
+  __host__ __device__ static constexpr int chunk_start(int q) {
+    return 64 * S::f3_before(2 * q < D ? 2 * q : D);
+  }
+  __host__ __device__ static constexpr int max_chunk() {
+    int m = 0;
+    for (int c = 0; c < NW; ++c) {
+      const int j = w2_start(c);
+      const int f = 64 * (S::f2_before(w2_end(j)) - S::f2_before(j));
+      m = f > m ? f : m;
+    }
+    for (int q = 0; q < NQ; ++q) {
+      const int f = chunk_start(q + 1) - chunk_start(q);
+      m = f > m ? f : m;
+    }
+    return m;
+  }
+  static constexpr int SLOT = round4(max_chunk());
+  static constexpr int HB2 = S::W2;         // the head: W1, b1 (as packed),
+  static constexpr int HB3 = S::W2 + H2;    // b2, b3
+  static constexpr int HEAD = round4(HB3 + D * S::G);
+  static constexpr int PROW = 2 * S::G + 4;
+  static constexpr int XS = round4(kMafTile * D);
+  static constexpr int WSTAGE = 2 * XS + kMafTile * PROW;
+  static constexpr int BUFS = 2 * SLOT + 2 * HEAD;
+};
+
+// 16 bytes from global to shared memory, asynchronously (cp.async, L2
+// only: every block reads the same weights), as coupling_mma.cuh's.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Wait for every cp.async this thread started.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The block's threads start copying `floats` (a multiple of 4) into dst.
+__device__ __forceinline__ void copy_async(float* dst,
+                                           const float* __restrict__ src,
+                                           int floats) {
+  for (int i = 4 * threadIdx.x; i < floats; i += 4 * blockDim.x) {
+    cp_async16(dst + i, src + i);
+  }
+}
+
+// The block starts copying layer w's head (W1, b1, b2, b3) into head.
+template <class T>
+__device__ __forceinline__ void copy_head(float* head,
+                                          const float* __restrict__ w) {
+  copy_async(head, w, T::HB2);
+  copy_async(head + T::HB2, w + T::B2, T::HB3 - T::HB2);
+  copy_async(head + T::HB3, w + T::B3, T::HEAD - T::HB3);
+}
+
+// W2 chunk C's products into acc (maf_made's second layer for its
+// n-tiles), the first layer's k-steps recomputed from the head's W1 and
+// b1 and the tile's inputs (xa, xb: rows g and g + 8), for the k-steps the
+// chunk's n-tiles read; w2 holds the chunk's fragments.
+template <int D, int H1, int H2, int K, int C>
+__device__ __forceinline__ void maf_w2_chunk(
+    const float* __restrict__ head, const float* __restrict__ w2,
+    const float (&xa)[MafShape<D, H1, H2, K>::MD],
+    const float (&xb)[MafShape<D, H1, H2, K>::MD], float (&acc)[H2 / 8][4],
+    int lane) {
+  using T = MafStream<D, H1, H2, K>;
+  constexpr int MD = T::MD;
+  constexpr int J0 = T::w2_start(C), J1 = T::w2_end(J0);
+  const int t = lane & 3;
+  // Degrees are sorted, so the chunk's last n-tile reads the most k-steps.
+  static_for<T::ks2(J1 - 1)>([&](auto s_) {
+    constexpr int s = decltype(s_)::value;
+    float h[4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int u = 8 * s + 2 * t + c;
+      int deg = 1;
+      static_for<MD - 1>([&](auto d_) {
+        constexpr int e = T::ends(H1, decltype(d_)::value + 1);
+        deg += u >= e ? 1 : 0;
+      });
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int i = 0; i < MD; ++i) {
+        if (i < deg) {
+          const float wi = head[T::W1 + u * D + i];
+          a = fmaf(wi, xa[i], a);
+          b = fmaf(wi, xb[i], b);
+        }
+      }
+      const float bias = head[T::B1 + u];
+      h[2 * c] = fmaxf(a + bias, 0.f);
+      h[2 * c + 1] = fmaxf(b + bias, 0.f);
+    }
+    uint32_t hh[4], hl[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_tf32(h[r], hh[r], hl[r]);
+    static_for<J1 - J0>([&](auto j_) {
+      constexpr int j = J0 + decltype(j_)::value;
+      if constexpr (s < T::ks2(j)) {
+        constexpr int off = 64 * (T::f2_before(j) - T::f2_before(J0) + s);
+        mma_split(acc[j], hh, hl,
+                  *reinterpret_cast<const float2*>(w2 + off + 2 * lane));
+      }
+    });
+  });
+}
+
+// The spline parameters of dims 2Q and 2Q + 1 of the warp's tile, from h2
+// (acc), chunk Q's W3 fragments at w3 and the layer's b3, to
+// raw[row * PROW + (i - 2Q) * G + p]: maf_made's products for those dims,
+// in its order (dim 0's parameters are its bias).
+template <int D, int H1, int H2, int K, int Q>
+__device__ __forceinline__ void maf_chunk_params(
+    const float* __restrict__ w3, const float* __restrict__ b3,
+    const float (&acc)[H2 / 8][4], float* __restrict__ raw, int lane) {
+  using S = MafStream<D, H1, H2, K>;
+  const int g = lane >> 2, t = lane & 3;
+  static_for<2>([&](auto e_) {
+    constexpr int i = 2 * Q + decltype(e_)::value;
+    if constexpr (i < D) {
+      float out[S::NT][4];
+#pragma unroll
+      for (int m = 0; m < S::NT; ++m) {
+        out[m][0] = out[m][1] = out[m][2] = out[m][3] = 0.f;
+      }
+      static_for<S::ks3(i)>([&](auto s_) {
+        constexpr int s = decltype(s_)::value;
+        uint32_t ah[4], al[4];
+        split_tf32(acc[s][0], ah[0], al[0]);
+        split_tf32(acc[s][2], ah[1], al[1]);
+        split_tf32(acc[s][1], ah[2], al[2]);
+        split_tf32(acc[s][3], ah[3], al[3]);
+        static_for<S::NT>([&](auto m_) {
+          constexpr int m = decltype(m_)::value;
+          constexpr int off =
+              64 * (S::f3_before(i) - S::f3_before(2 * Q) + s * S::NT + m);
+          mma_split(out[m], ah, al,
+                    *reinterpret_cast<const float2*>(w3 + off + 2 * lane));
+        });
+      });
+      float* r = raw + (i - 2 * Q) * S::G;
+#pragma unroll
+      for (int m = 0; m < S::NT; ++m) {
+        const int q = 8 * m + 2 * t;
+        const float2 bias = *reinterpret_cast<const float2*>(b3 + i * S::G + q);
+        *reinterpret_cast<float2*>(r + g * S::PROW + q) =
+            make_float2(out[m][0] + bias.x, out[m][1] + bias.y);
+        *reinterpret_cast<float2*>(r + (g + 8) * S::PROW + q) =
+            make_float2(out[m][2] + bias.x, out[m][3] + bias.y);
+      }
+    }
+  });
+}
+
+// The streamed form: a block of up to 16 warps takes a group of 16-particle
+// tiles, one a warp (a tile past n computes on zeros and stores nothing),
+// and runs them through the layers together, every layer's items streamed
+// through the two slots (MafStream), one barrier an item; the blocks walk
+// over the groups.
+template <int D, int H1, int H2, int K>
+__global__ void __launch_bounds__(32 * kMafMaxWarps, 1)
+    maf_kernel_streamed(const float* __restrict__ x, float* __restrict__ z,
+                        float* __restrict__ log_det,
+                        const float* __restrict__ weights, int n,
+                        int n_layers, float tail_bound) {
+  using S = MafStream<D, H1, H2, K>;
+  constexpr int IPL = S::NW + S::NQ;  // ring items a layer
+  constexpr int MD = S::MD;
+  extern __shared__ float4 maf_smem4[];
+  float* slots = reinterpret_cast<float*>(maf_smem4);
+  float* heads = slots + 2 * S::SLOT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int g = lane >> 2;
+  float* const stage = heads + 2 * S::HEAD + warp * S::WSTAGE;
+  float* raw = stage + 2 * S::XS;
+  const int tiles = (n + kMafTile - 1) / kMafTile;
+  for (int first = blockIdx.x * warps; first < tiles;
+       first += gridDim.x * warps) {
+    const int base = (first + warp) * kMafTile;
+    float* in = stage;
+    float* out = stage + S::XS;
+    for (int e = lane; e < kMafTile * D; e += 32) {
+      in[e] = base + e / D < n ? x[(size_t)base * D + e] : 0.f;
+    }
+    float ld = 0.f;
+    __syncthreads();  // every warp is done with the slots' last reads
+    copy_head<S>(heads, weights);
+    copy_async(slots, weights + S::W2, 64 * S::f2_before(S::w2_end(0)));
+#pragma unroll 1
+    for (int layer = 0; layer < n_layers; ++layer) {
+      const float* wl = weights + (size_t)layer * S::SIZE;
+      const float* head = heads + (layer & 1) * S::HEAD;
+      const int parity = (layer * IPL) & 1;  // item 0's slot
+      float xa[MD], xb[MD];
+      float acc[H2 / 8][4];
+#pragma unroll
+      for (int j = 0; j < H2 / 8; ++j) {
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      }
+      // Item i of the layer has landed once its thread's copies have and
+      // every thread passed the barrier; the barrier also says every warp
+      // is done with the slot the next item overwrites (item i - 1's), and
+      // at the last item with the head buffer the next layer's takes.
+      static_for<IPL>([&](auto i_) {
+        constexpr int i = decltype(i_)::value;
+        cp_async_wait_all();
+        __syncthreads();
+        float* next = slots + ((parity + i + 1) & 1) * S::SLOT;
+        if constexpr (i + 1 < S::NW) {
+          constexpr int j = S::w2_start(i + 1);
+          copy_async(next, wl + S::W2 + 64 * S::f2_before(j),
+                     64 * (S::f2_before(S::w2_end(j)) - S::f2_before(j)));
+        } else if constexpr (i + 1 < IPL) {
+          constexpr int q = i + 1 - S::NW;
+          copy_async(next, wl + S::W3 + S::chunk_start(q),
+                     S::chunk_start(q + 1) - S::chunk_start(q));
+        } else {
+          if (layer + 1 < n_layers) {
+            copy_head<S>(heads + ((layer + 1) & 1) * S::HEAD,
+                         wl + S::SIZE);
+            copy_async(next, wl + S::SIZE + S::W2,
+                       64 * S::f2_before(S::w2_end(0)));
+          }
+        }
+        const float* item = slots + ((parity + i) & 1) * S::SLOT;
+        if constexpr (i < S::NW) {
+          if constexpr (i == 0) {
+#pragma unroll
+            for (int k = 0; k < MD; ++k) {
+              xa[k] = in[g * D + k];
+              xb[k] = in[(g + 8) * D + k];
+            }
+          }
+          maf_w2_chunk<D, H1, H2, K, i>(head, item, xa, xb, acc, lane);
+          if constexpr (i + 1 == S::NW) {
+            // h2 = relu(acc + b2), kept as the accumulator fragments.
+            const int t = lane & 3;
+#pragma unroll
+            for (int j = 0; j < H2 / 8; ++j) {
+              const float2 bias = *reinterpret_cast<const float2*>(
+                  head + S::HB2 + 8 * j + 2 * t);
+              acc[j][0] = fmaxf(acc[j][0] + bias.x, 0.f);
+              acc[j][1] = fmaxf(acc[j][1] + bias.y, 0.f);
+              acc[j][2] = fmaxf(acc[j][2] + bias.x, 0.f);
+              acc[j][3] = fmaxf(acc[j][3] + bias.y, 0.f);
+            }
+          }
+        } else {
+          constexpr int q = i - S::NW;
+          maf_chunk_params<D, H1, H2, K, q>(item, head + S::HB3, acc, raw,
+                                            lane);
+          __syncwarp();
+          const int r = lane & (kMafTile - 1), dim = 2 * q + (lane >> 4);
+          if (dim < D) {
+            const float4* src = reinterpret_cast<const float4*>(
+                raw + r * S::PROW + (lane >> 4) * S::G);
+            float par[S::P];
+#pragma unroll
+            for (int c = 0; c < S::G / 4; ++c) {
+              const float4 v = src[c];
+              if (4 * c + 0 < S::P) par[4 * c + 0] = v.x;
+              if (4 * c + 1 < S::P) par[4 * c + 1] = v.y;
+              if (4 * c + 2 < S::P) par[4 * c + 2] = v.z;
+              if (4 * c + 3 < S::P) par[4 * c + 3] = v.w;
+            }
+            float y, e;
+            rqs<K, true>(in[r * D + dim], par, tail_bound, y, e);
+            out[r * D + (D - 1 - dim)] = y;
+            ld += e;
+          }
+          __syncwarp();
+        }
+      });
+      float* done = in;
+      in = out;
+      out = done;
+    }
+    // A particle's dims are split over lanes r and r + 16.
+    ld += __shfl_xor_sync(0xffffffffu, ld, 16);
+    if (lane < kMafTile && base + lane < n) log_det[base + lane] = ld;
+    for (int e = lane; e < kMafTile * D; e += 32) {
+      if (base + e / D < n) z[(size_t)base * D + e] = in[e];
+    }
+    __syncwarp();
+  }
+}
+#endif
+
 template <int D, int H1, int H2, int K>
 int launch_maf(const float* x, float* z, float* ld, const float* w, int n,
                int n_layers, float tb, cudaStream_t stream) {
@@ -407,6 +755,24 @@ int launch_maf(const float* x, float* z, float* ld, const float* w, int n,
   const int sms = limits.sms, max_smem = limits.max_smem;
   const long long weight_bytes = 4LL * n_layers * S::SIZE;
   const long long stage_bytes = 4LL * S::STAGE;
+#ifdef ASPIRE_STREAMED
+  // The streamed instance, for a flow whose layers do not fit resident.
+  {
+    using T = MafStream<D, H1, H2, K>;
+    long long fit = (max_smem - 4LL * T::BUFS) / (4LL * T::WSTAGE);
+    const int warps = (int)(fit > kMafMaxWarps ? kMafMaxWarps : fit);
+    if (warps < 1) return (int)cudaErrorInvalidConfiguration;
+    const int smem = 4 * (T::BUFS + warps * T::WSTAGE);
+    auto kernel = maf_kernel_streamed<D, H1, H2, K>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int groups = ((n + kMafTile - 1) / kMafTile + warps - 1) / warps;
+    kernel<<<groups < sms ? groups : sms, 32 * warps, smem, stream>>>(
+        x, z, ld, w, n, n_layers, tb);
+    return (int)cudaGetLastError();
+  }
+#else
   long long warps = (max_smem - weight_bytes) / stage_bytes;
   if (warps > kMafMaxWarps) warps = kMafMaxWarps;
   if (warps < 1) return (int)cudaErrorInvalidConfiguration;
@@ -420,6 +786,7 @@ int launch_maf(const float* x, float* z, float* ld, const float* w, int n,
   kernel<<<blocks, (int)(32 * warps), smem, stream>>>(x, z, ld, w, n,
                                                      n_layers, tb);
   return (int)cudaGetLastError();
+#endif
 }
 
 }  // namespace aspire

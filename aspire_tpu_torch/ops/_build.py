@@ -4,9 +4,12 @@ The sources in ``aspire_tpu_torch/csrc`` compile into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 cached under ``aspire_tpu_torch/_build`` by a hash of the sources and
 flags: one ``nvcc -c`` per source, all started together, then one link.
-A user's target (``models/targets.py`` ``KernelSource``) gets a library
-of its own, ``csrc/chain.cu`` compiled for one chain configuration with
-the source in it (:func:`build_user`). Nothing here runs at import time.
+A flow shape outside the library's tables gets an instance of its own at
+its first use: ``csrc/coupling.cu``, ``chain.cu`` or ``maf.cu`` compiled
+for that one configuration row (:func:`build_instance`, cached beside the
+library by a hash of the source, the flags and the row); so does a user's
+target (``models/targets.py`` ``KernelSource``), in ``chain.cu`` with the
+source in it (:func:`build_user`). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -29,8 +33,6 @@ NVCC_FLAGS = [
 ]
 
 _lib: ctypes.CDLL | None = None
-#: user-target libraries loaded in this process, by (source, configuration)
-_user_libs: dict[tuple, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -138,88 +140,185 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def chain_config_row(config: int) -> str:
-    """Chain configuration ``config``'s row of ``ASPIRE_CHAIN_CONFIGS``
-    in ``csrc/common.cuh``, as ``X(...)``."""
+def chain_config_row(config: int) -> tuple:
+    """Chain configuration ``config``'s row of ``ASPIRE_CHAIN_CONFIGS`` in
+    ``csrc/common.cuh``, its values after the id: ``(D, H1, H2, K, RQS,
+    TARGETS)``."""
     text = (CSRC / "common.cuh").read_text()
     table = re.search(r"#define ASPIRE_CHAIN_CONFIGS\(X\)(.*?)(?:\n\n|\Z)",
                       text, re.S).group(1)
     for row in re.findall(r"X\(([^)]*)\)", table):
-        if int(row.split(",")[0]) == config:
-            return f"X({row.strip()})"
+        cid, *values = (v.strip() for v in row.split(","))
+        if int(cid) == config:
+            return tuple(v == "true" if v in ("true", "false") else int(v)
+                         for v in values)
     raise ValueError(f"no chain configuration {config}")
 
 
-def user_library_path(source, config: int) -> Path:
-    """Where :func:`build_user` puts the instance of ``source`` (a
-    ``KernelSource``) for chain configuration ``config``: keyed by a hash
-    of the chain kernel's sources, the flags, the configuration and the
-    user source."""
+#: the source each kind of instance compiles; a ``_streamed`` kind
+#: defines ``ASPIRE_STREAMED``: the form that streams a flow's layers, for
+#: a flow too deep for them to stay resident
+INSTANCE_SOURCES = {"coupling": "coupling.cu", "chain": "chain.cu",
+                    "chain_streamed": "chain.cu", "maf": "maf.cu",
+                    "maf_streamed": "maf.cu"}
+#: instances loaded in this process, by (kind, row, user source), and a
+#: lock per instance, so threads asking for one build it once while
+#: another instance builds beside it
+_instances: dict[tuple, ctypes.CDLL] = {}
+_instance_locks: dict[tuple, threading.Lock] = {}
+_locks_lock = threading.Lock()
+
+
+def instance_row(row: tuple) -> str:
+    """A configuration row as its source reads it: ``X(0, ...)``, id 0."""
+    return "X(0, " + ", ".join(
+        ("true" if v else "false") if isinstance(v, bool) else str(int(v))
+        for v in row) + ")"
+
+
+def instance_path(kind: str, row: tuple, user=None) -> Path:
+    """Where :func:`build_instance` puts the instance of ``kind``
+    (``INSTANCE_SOURCES``) for configuration ``row`` (its values after the
+    id), with the user target ``user`` (a ``KernelSource``, the chain
+    only): keyed by a hash of the kind's source and the headers, the
+    flags, the row and the user source."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / "chain.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for src in [CSRC / INSTANCE_SOURCES[kind], *sorted(CSRC.glob("*.cuh"))]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(chain_config_row(config).encode())
-    digest.update(source.cuda.encode())
-    name = re.sub(r"\W", "_", source.name)[:32]
-    return BUILD_DIR / f"libaspire_user_{name}_{digest.hexdigest()[:16]}.so"
+    digest.update(instance_row(row).encode())
+    if user is not None:
+        digest.update(user.cuda.encode())
+        name = "user_" + re.sub(r"\W", "_", user.name)[:32]
+    else:
+        name = f"{kind}_" + "_".join(str(int(v)) for v in row)
+    return BUILD_DIR / f"libaspire_{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build_user(source, config: int) -> Path:
-    """Compile ``csrc/chain.cu`` with the user target ``source`` (a
-    ``KernelSource``) for chain configuration ``config`` alone, unless that
-    instance exists: one ``nvcc`` of a generated file that defines
-    ``ASPIRE_USER_TARGET`` (the source's path) and
-    ``ASPIRE_USER_CHAIN_CONFIG`` (the configuration's row), then includes
-    ``chain.cu``. The ptxas report is kept beside the library. Raises
-    ``RuntimeError`` with nvcc's message when it fails."""
-    out = user_library_path(source, config)
+def build_instance(kind: str, row: tuple, user=None) -> Path:
+    """Compile ``csrc/<kind's source>`` for the one configuration ``row``
+    (with the user target ``user`` for the chain), unless that instance
+    exists: one ``nvcc`` of a generated file that defines
+    ``ASPIRE_INSTANCE_CONFIG`` (the row, id 0; and ``ASPIRE_USER_TARGET``,
+    the user source's path), then includes the source. Written to a
+    temporary file and moved into place, so processes building the same
+    instance at once leave one whole library. The ptxas report is kept
+    beside the library. Raises ``RuntimeError`` with nvcc's message when it
+    fails."""
+    out = instance_path(kind, row, user)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        target = Path(tmp, "user_target.cuh")
-        target.write_text(source.cuda)
-        unit = Path(tmp, "user_chain.cu")
-        unit.write_text(
-            f"#define ASPIRE_USER_TARGET \"{target}\"\n"
-            f"#define ASPIRE_USER_CHAIN_CONFIG(X) "
-            f"{chain_config_row(config)}\n"
-            f"#include \"{CSRC / 'chain.cu'}\"\n")
+        lines = []
+        if user is not None:
+            target = Path(tmp, "user_target.cuh")
+            target.write_text(user.cuda)
+            lines.append(f"#define ASPIRE_USER_TARGET \"{target}\"")
+        if kind.endswith("_streamed"):
+            lines.append("#define ASPIRE_STREAMED 1")
+        lines += [f"#define ASPIRE_INSTANCE_CONFIG(X) {instance_row(row)}",
+                  f"#include \"{CSRC / INSTANCE_SOURCES[kind]}\"", ""]
+        unit = Path(tmp, f"instance_{kind}.cu")
+        unit.write_text("\n".join(lines))
         lib = Path(tmp, out.name)
         run = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
                               str(unit)], capture_output=True, text=True)
         text = run.stdout + run.stderr
-        out.with_suffix(".log").write_text(f"== {source.name}\n{text}")
+        what = user.name if user is not None else instance_row(row)
+        log = Path(tmp, "log")
+        log.write_text(f"== {kind} {what}\n{text}")
+        os.replace(log, out.with_suffix(".log"))
         if run.returncode:
-            raise RuntimeError(f"nvcc failed on the user target "
-                               f"{source.name!r} ({run.returncode}):\n"
-                               f"{text[-4000:]}")
+            raise RuntimeError(f"nvcc failed on the {kind} instance {what!r} "
+                               f"({run.returncode}):\n{text[-4000:]}")
         os.replace(lib, out)
     return out
 
 
-def load_user_library(source, config: int) -> ctypes.CDLL:
-    """The chain kernel instance of the user target ``source`` for chain
-    configuration ``config``, built on first use (:func:`build_user`) and
-    loaded once per process (later calls hash no source)."""
-    lib = _user_libs.get((source, config))
-    if lib is None:
-        lib = ctypes.CDLL(str(build_user(source, config)))
+def _bind_instance(kind: str, lib: ctypes.CDLL, user) -> None:
+    """Set the argument and result types of an instance's C entries."""
+    kind = kind.split("_")[0]
+    if kind == "coupling":
+        lib.aspire_coupling_layout.argtypes = [_I, _P, _I]
+        lib.aspire_coupling_layout.restype = _I
+        lib.aspire_coupling.argtypes = [_P, _P, _P, _P, _I, _I, _F, _I, _I,
+                                        _P]
+        lib.aspire_coupling.restype = _I
+    elif kind == "maf":
+        for fn in (lib.aspire_maf_layer_floats, lib.aspire_maf_stage_floats):
+            fn.argtypes, fn.restype = [_I], _I
+        lib.aspire_maf_ksteps.argtypes = [_I, _P, _I]
+        lib.aspire_maf_ksteps.restype = _I
+        lib.aspire_maf.argtypes = [_P, _P, _P, _P, _I, _I, _F, _I, _P]
+        lib.aspire_maf.restype = _I
+    else:
         lib.aspire_chain_tile.argtypes = []
         lib.aspire_chain_tile.restype = _I
         lib.aspire_consts_layout.argtypes = [_I, _P, _I]
         lib.aspire_consts_layout.restype = _I
         lib.aspire_chain_layout.argtypes = [_I, _P, _I]
         lib.aspire_chain_layout.restype = _I
-        lib.aspire_chain_user.argtypes = (
-            [_P] * 12 + [_I] * 9 + [_P] + [_F] * 5 + [_P, _I, _P, _P])
-        lib.aspire_chain_user.restype = _I
-        lib.aspire_user_target.argtypes = [_P, _I, _I, _P, _P, _P, _P]
-        lib.aspire_user_target.restype = _I
-        _user_libs[source, config] = lib
+        chain = [_P] * 12 + [_I] * 9 + [_P] + [_F] * 5 + [_P, _I, _P]
+        if user is None:
+            lib.aspire_chain.argtypes = chain
+            lib.aspire_chain.restype = _I
+        else:
+            lib.aspire_chain_user.argtypes = chain + [_P]
+            lib.aspire_chain_user.restype = _I
+            lib.aspire_user_target.argtypes = [_P, _I, _I, _P, _P, _P, _P]
+            lib.aspire_user_target.restype = _I
+
+
+def load_instance(kind: str, row: tuple, user=None) -> ctypes.CDLL:
+    """The instance of ``kind`` for configuration ``row`` (and the user
+    target ``user``), built at its first use (:func:`build_instance`) and
+    loaded once per process: threads asking for it at once build it once,
+    and later calls hash no source. Its configuration id is 0."""
+    key = (kind, tuple(row), user)
+    lib = _instances.get(key)
+    if lib is None:
+        with _locks_lock:
+            lock = _instance_locks.setdefault(key, threading.Lock())
+        with lock:
+            lib = _instances.get(key)
+            if lib is None:
+                lib = ctypes.CDLL(str(build_instance(kind, row, user)))
+                _bind_instance(kind, lib, user)
+                _instances[key] = lib
     return lib
+
+
+def user_library_path(source, row, kind: str = "chain") -> Path:
+    """Where the chain instance (``kind``: ``"chain"``, or
+    ``"chain_streamed"`` for a flow too deep to stay resident) of the user
+    target ``source`` (a ``KernelSource``) for configuration ``row`` (its
+    values, or a prebuilt chain configuration's id) is built
+    (:func:`instance_path`)."""
+    return instance_path(kind, _chain_row(row), source)
+
+
+def build_user(source, row, kind: str = "chain") -> Path:
+    """:func:`build_instance` of the chain with the user target ``source``
+    at ``row`` (its values, or a prebuilt chain configuration's id): that
+    instance compiles the user's target alone (id ``kUser``)."""
+    return build_instance(kind, _chain_row(row), source)
+
+
+def load_user_library(source, row, kind: str = "chain") -> ctypes.CDLL:
+    """The chain instance of the user target ``source`` for ``row`` (its
+    values, or a prebuilt chain configuration's id), built on first use
+    (:func:`build_user`) and loaded once per process."""
+    return load_instance(kind, _chain_row(row), source)
+
+
+def _chain_row(row) -> tuple:
+    """A user instance's row: ``row`` (or a prebuilt configuration's), its
+    TARGETS column 1 as ``fused_mutation.chain_row`` gives it (the
+    instance compiles the user's target alone, whatever the column)."""
+    row = chain_config_row(row) if isinstance(row, int) else tuple(row)
+    return (*row[:5], 1)
 
 
 def check(code: int, what: str) -> None:
@@ -229,6 +328,9 @@ def check(code: int, what: str) -> None:
     if code == -3:
         raise ValueError(f"{what}: target not compiled into this "
                          "configuration")
+    if code == -4:
+        raise ValueError(f"{what}: the flow's layers do not fit one block "
+                         "and this library has no streamed form")
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
 

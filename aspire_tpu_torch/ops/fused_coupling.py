@@ -25,6 +25,7 @@ a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -35,18 +36,20 @@ from ..flows.bijectors import (  # noqa: F401 - public, as in JAX package
     DEFAULT_MIN_BIN_WIDTH,
     DEFAULT_MIN_DERIVATIVE,
 )
-from ._build import LaunchCounter, check, load_library
+from ._build import LaunchCounter, check, load_instance, load_library
 
 #: Below this batch the plain path is already launch-bound; training
 #: batches stay on the plain autograd path (the JAX package's threshold).
 MIN_FUSED_N = 4096
 
 #: (transformer, dims, n_hidden, num_bins) -> configuration id compiled
-#: into the library; mirrors ASPIRE_COUPLING_CONFIGS in csrc/common.cuh
-#: (hidden widths multiples of 8; an odd d pads each half of a layer to
-#: (d + 1) // 2 dims). Configuration 2 is BASELINE config 5's flow (nsf,
-#: 6 x (128, 128) at d = 32): depth is no part of the key; 3 and 4 are
-#: nsf-tpu at d = 2 and d = 5, the JAX package's validation rows.
+#: into the prebuilt library; mirrors ASPIRE_COUPLING_CONFIGS in
+#: csrc/common.cuh (hidden widths multiples of 8; an odd d pads each half
+#: of a layer to (d + 1) // 2 dims). Configuration 2 is BASELINE config
+#: 5's flow (nsf, 6 x (128, 128) at d = 32): depth is no part of the key;
+#: 3 and 4 are nsf-tpu at d = 2 and d = 5, the JAX package's validation
+#: rows. Every other shape the kernel takes builds an instance of its own
+#: at first use (``_build.load_instance``).
 KERNEL_CONFIGS = {
     ("rqs", 4, (64, 64), 8): 0,
     ("affine", 4, (64, 64), None): 1,
@@ -55,9 +58,14 @@ KERNEL_CONFIGS = {
     ("rqs", 5, (64, 64), 8): 4,
 }
 
-#: The most dims a compiled coupling configuration takes (the JAX
-#: package's bound on fusing a coupling flow).
-MAX_FUSED_DIMS = max(key[1] for key in KERNEL_CONFIGS)
+#: What the JAX package's predicates take (``should_fuse``): at most 32
+#: dims, RQS with at most 32 bins (or affine), at most 8 MB of float32
+#: conditioner weights (``_weight_bytes``; twice them for a MAF). The port
+#: also takes only two hidden layers (its products: W1 on FMAs, W2 and W3
+#: on the tensor cores).
+MAX_FUSED_DIMS = 32
+MAX_FUSED_BINS = 32
+MAX_WEIGHT_BYTES = 8 * 1024 * 1024
 
 #: (dims, n_hidden, num_bins) of an RQS MAF -> configuration id of the MAF
 #: density kernel; mirrors ASPIRE_MAF_CONFIGS in csrc/common.cuh. A table
@@ -68,9 +76,14 @@ MAF_KERNEL_CONFIGS = {
 
 #: Shared memory one block may hold on an H100 (227 KB).
 MAX_SHARED_BYTES = 232448
+_MAX_BLOCK_FLOATS = MAX_SHARED_BYTES // 4
 
-#: Most warps in a block of the coupling kernel (kCouplingWarps).
+#: Most warps in a block of the coupling kernel (kMaxCouplingWarps); the
+#: chain kernel's block (its 256-particle tile); the wide form's chunk
+#: target in floats (coupling_mma.cuh kChunkFloats).
 COUPLING_WARPS = 8
+_CHAIN_WARPS = 8
+_CHUNK_FLOATS = 4096
 
 launches = LaunchCounter()
 #: the coupling kernel's launches in sampling mode (B3) alone, also
@@ -79,13 +92,85 @@ sampling_launches = LaunchCounter()
 maf_launches = LaunchCounter()
 
 
+def kernel_hidden(arch) -> tuple[int, ...]:
+    """The hidden widths the kernels compute with: each rounded up to a
+    multiple of 8, the padded units' incoming and outgoing weights zero
+    (:func:`pad_hidden`), which leaves the function as it is."""
+    return tuple(-(-int(h) // 8) * 8 for h in arch.n_hidden)
+
+
+def kernel_arch(arch):
+    """``arch`` at :func:`kernel_hidden`'s widths (itself where they are
+    its own)."""
+    hidden = kernel_hidden(arch)
+    if hidden == tuple(arch.n_hidden):
+        return arch
+    return dataclasses.replace(arch, n_hidden=hidden)
+
+
+def pad_hidden(arch, params: dict) -> dict:
+    """``params`` with each hidden layer zero-padded to
+    :func:`kernel_hidden` (the new units last: zero incoming weights and
+    bias, zero outgoing weights); ``params`` itself where nothing pads."""
+    hidden = kernel_hidden(arch)
+    if hidden == tuple(arch.n_hidden):
+        return params
+    pad = torch.nn.functional.pad
+    layers = []
+    for net in params["layers"]:
+        (l1, l2, l3) = net["layers"]
+        p1 = hidden[0] - l1["w"].shape[1]
+        p2 = hidden[1] - l2["w"].shape[1]
+        layers.append({"layers": [
+            {"w": pad(l1["w"], (0, p1)), "b": pad(l1["b"], (0, p1))},
+            {"w": pad(l2["w"], (0, p2, 0, p1)), "b": pad(l2["b"], (0, p2))},
+            {"w": pad(l3["w"], (0, 0, 0, p2)), "b": l3["b"]}]})
+    return {"layers": layers}
+
+
+def reference_weight_bytes(arch) -> int:
+    """The JAX package's ``_weight_bytes``: float32 bytes of every layer's
+    conditioner, its output layer ``(d + 1) // 2`` parameter groups of 8
+    rows (affine) or ``3K`` rounded up to 8."""
+    d = arch.dims
+    group = (8 if arch.transformer == "affine"
+             else -(-3 * arch.num_bins // 8) * 8)
+    sizes = [d, *arch.n_hidden, (d + 1) // 2 * group]
+    per_layer = sum(sizes[i] * sizes[i + 1] + sizes[i + 1]
+                    for i in range(len(sizes) - 1))
+    return 4 * arch.n_layers * per_layer
+
+
+def _reference_takes(arch) -> bool:
+    """What the JAX package's ``should_fuse`` reads of the flow, with two
+    hidden layers."""
+    return (len(arch.n_hidden) == 2
+            and 1 <= arch.dims <= MAX_FUSED_DIMS
+            and arch.transformer in ("affine", "rqs")
+            and (arch.transformer == "affine"
+                 or arch.num_bins <= MAX_FUSED_BINS)
+            and reference_weight_bytes(arch) <= MAX_WEIGHT_BYTES)
+
+
 def config_id(arch) -> int | None:
+    """The prebuilt library's configuration of a coupling flow (its hidden
+    widths as :func:`kernel_hidden` pads them), or None: that shape gets
+    an instance of its own at first use (:func:`coupling_library`)."""
     if not isinstance(arch, Coupling):
         return None
     bins = arch.num_bins if arch.transformer == "rqs" else None
     return KERNEL_CONFIGS.get(
-        (arch.transformer, arch.dims, tuple(arch.n_hidden), bins)
+        (arch.transformer, arch.dims, kernel_hidden(arch), bins)
     )
+
+
+def coupling_row(arch) -> tuple:
+    """The flow's configuration row of ``ASPIRE_COUPLING_CONFIGS`` (its
+    values after the id): ``(D, H1, H2, K, RQS)``, hidden widths padded,
+    K 1 for an affine flow."""
+    h1, h2 = kernel_hidden(arch)
+    rqs = arch.transformer == "rqs"
+    return (arch.dims, h1, h2, arch.num_bins if rqs else 1, rqs)
 
 
 def _round4(x: int) -> int:
@@ -101,32 +186,45 @@ def _packed_floats(sections) -> int:
     return _round4(size)
 
 
+def coupling_takes(arch) -> bool:
+    """Whether the coupling kernel takes the flow: what the JAX package's
+    predicate takes (:func:`_reference_takes`), where a block of its form
+    fits one SM (:func:`coupling_warps`)."""
+    return (isinstance(arch, Coupling) and _reference_takes(arch)
+            and coupling_warps(arch) >= 1)
+
+
 def mma_weight_buffers(arch) -> int:
     """Floats of a block's weight buffers in the tensor-core pass: two
     whole layers, or in the wide form two resident parts and two chunks
     (neither grows with depth)."""
-    size, *_, stage, res, chunk = mma_layout(arch)
-    return 2 * (res + chunk) if mma_wide(arch) else 2 * size
+    return mma_shape(arch)["bufs"]
+
+
+def coupling_warps(arch) -> int:
+    """Warps in a block of the coupling kernel at its most (MmaShape::
+    WARPS): as many as fit beside its weight buffers, at most 8."""
+    return mma_shape(arch)["warps"]
 
 
 def coupling_shared_bytes(arch) -> int:
     """Shared memory of a coupling kernel block at its most warps: its
     weight buffers (:func:`mma_weight_buffers`) and a warp buffer per
     warp."""
-    return 4 * (mma_weight_buffers(arch)
-                + COUPLING_WARPS * mma_layout(arch)[8])
+    shape = mma_shape(arch)
+    return 4 * (shape["bufs"] + shape["warps"] * shape["stage"])
 
 
 def should_fuse(arch, x: torch.Tensor) -> bool:
-    """True when the CUDA kernel applies to this (architecture, batch)."""
+    """True when the CUDA kernel applies to this (architecture, batch): a
+    CUDA float32 batch of at least ``MIN_FUSED_N`` rows and a flow the
+    kernel takes (:func:`coupling_takes`)."""
     return (
         x.is_cuda
         and x.dim() == 2
         and x.shape[0] >= MIN_FUSED_N
         and x.dtype == torch.float32
-        and len(arch.n_hidden) == 2
-        and config_id(arch) is not None
-        and coupling_shared_bytes(arch) <= MAX_SHARED_BYTES
+        and coupling_takes(arch)
     )
 
 
@@ -200,55 +298,116 @@ def mma_half(arch) -> int:
     return (arch.dims + 1) // 2
 
 
-def _mma_tiles(arch) -> tuple[int, int, int]:
-    """(KS1, KS2, NT): W2's k-steps, W2's n-tiles (W3's k-steps) and W3's
-    n-tiles."""
-    h1, h2 = tuple(arch.n_hidden)
-    return h1 // 8, h2 // 8, mma_half(arch) * mma_group(arch) // 8
+def chain_consts_floats(d: int) -> int:
+    """Floats of the chain kernel's constant block at ``d``
+    (coupling_mma.cuh ``chain_consts_floats``)."""
+    return _round4(d + 2 * d * d + 2 * (8 * d + 3) + 2 * d + 2 + 1 + 2 + 2)
+
+
+def _chunk_steps(steps: int, most: int, floats_per_step: int) -> int:
+    """coupling_mma.cuh ``chunk_steps``: the most k-steps (``most``,
+    halving) dividing ``steps`` whose chunk stays within 4096 floats."""
+    k = most
+    while k > 1:
+        if steps % k == 0 and k * floats_per_step <= _CHUNK_FLOATS:
+            return k
+        k //= 2
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def mma_shape(arch) -> dict:
+    """The shape's constants as ``MmaShape`` computes them, at
+    :func:`kernel_hidden`'s widths: the form (``wide`` where the
+    whole-layer form's accumulators pass 128 floats a thread, two of its
+    layers do not fit a block beside one warp's buffer, or the chain
+    kernel's block of 8 warps and two layers does not fit; ``by_dim``),
+    the active slots packed (``slots``: the wide form pads an odd half to
+    whole groups of two) and W1's row stride (``cp``), the sections and
+    their offsets, a layer's and a warp buffer's floats, the wide form's
+    resident part and chunk, and a coupling kernel block's weight buffers
+    and most warps."""
+    h1, h2 = kernel_hidden(arch)
+    d, half, g = arch.dims, mma_half(arch), mma_group(arch)
+    ks1, ks2, ntd = h1 // 8, h2 // 8, g // 8
+    whole_size = _round4(_round4(_round4(h1 * half) + h1) + 64 * ks1 * ks2
+                         + h2 + 64 * ks2 * (half * g // 8) + half * g)
+    whole_stage = 32 * (half * g + 4)
+    wide = (8 * (ks2 + ntd) > 128
+            or _MAX_BLOCK_FLOATS - 2 * whole_size < whole_stage
+            or (2 * whole_size + chain_consts_floats(d) + 2 * _CHAIN_WARPS
+                + _CHAIN_WARPS * whole_stage) > _MAX_BLOCK_FLOATS)
+    slots = WIDE_GROUP_DIMS * -(-half // WIDE_GROUP_DIMS) if wide else half
+    cp = _round4(half) if wide else half
+    out = slots * g
+    sec = {"w1": (h1, cp), "b1": (h1,), "w2": (ks1 * ks2, 32, 2),
+           "b2": (h2,), "w3": (ks2 * out // 8, 32, 2), "b3": (slots, g)}
+    order = (("w1", "b1", "b2", "b3", "w2", "w3") if wide else
+             ("w1", "b1", "w2", "b2", "w3", "b3"))
+    offsets, off = {}, 0
+    for name in order:
+        off = _round4(off)
+        offsets[name] = off
+        off += int(torch.Size(sec[name]).numel())
+    size = _round4(off)
+    ng = WIDE_GROUP_DIMS * g // 8
+    row = (WIDE_GROUP_DIMS * g if wide else out) + 4
+    stage = 16 * row + 32 * (d + 1) if wide else 32 * row
+    kw2, kw3 = _chunk_steps(ks1, 4, 64 * ks2), _chunk_steps(ks2, 8, 64 * ng)
+    res = offsets["w2"] if wide else 0
+    chunk = max(64 * kw2 * ks2, 64 * kw3 * ng) if wide else 0
+    bufs = 2 * (res + chunk) if wide else 2 * size
+    return {"wide": wide,
+            "by_dim": not wide and 8 * (ks2 + half * g // 8) > 128,
+            "slots": slots, "cp": cp,
+            "sections": [(name, sec[name]) for name in order],
+            "offsets": offsets, "size": size, "row": row, "stage": stage,
+            "res": res, "chunk": chunk, "bufs": bufs,
+            "warps": min((_MAX_BLOCK_FLOATS - bufs) // stage,
+                         COUPLING_WARPS)}
 
 
 def mma_wide(arch) -> bool:
-    """Whether the shape takes the wide form (MmaShape::WIDE): even the
-    output one active dim at a time leaves both row tiles' accumulators,
-    ``8 * (KS2 + G/8)`` floats a thread, past 128."""
-    _, ks2, _ = _mma_tiles(arch)
-    return 8 * (ks2 + mma_group(arch) // 8) > 128
+    """Whether the shape takes the wide form (MmaShape::WIDE,
+    :func:`mma_shape`)."""
+    return mma_shape(arch)["wide"]
+
+
+def mma_form(arch) -> str:
+    """The coupling kernel's form at this shape, as ``chip_smoke.py``
+    prints it: ``"wide"`` or ``"whole-layer"`` (``", by dim"`` where the
+    output layer goes one dim at a time), then its most warps a block."""
+    shape = mma_shape(arch)
+    form = "wide" if shape["wide"] else "whole-layer"
+    by_dim = ", by dim" if shape["by_dim"] else ""
+    return f"{form}{by_dim}, {shape['warps']} warps"
+
+
+def mma_sections(arch) -> list[tuple[str, tuple]]:
+    """Sections of one layer of the packed buffer, in order, with their
+    shapes: W1 ``(H1, cp)`` of the conditioning inputs, b1, W2 as
+    ``(H1/8 * H2/8, 32, 2)`` mma B fragments, b2, W3 as ``(H2/8 * slots *
+    G/8, 32, 2)`` fragments, b3 ``(slots, G)`` (:func:`mma_shape`'s
+    ``cp`` and ``slots``: the half, or in the wide form its row stride
+    rounded to 4 floats and whole groups of two), hidden widths
+    :func:`kernel_hidden`'s. The wide form puts the sections a layer reads
+    throughout first (W1, b1, b2, b3) and then the streamed ones (W2, then
+    W3 by groups of two active dims)."""
+    return mma_shape(arch)["sections"]
+
+
+def _section_offsets(arch) -> tuple[dict, int]:
+    """Each section's offset in a packed layer, and the layer's floats."""
+    shape = mma_shape(arch)
+    return shape["offsets"], shape["size"]
 
 
 def _w3_group_cols(arch) -> int:
     """W3 columns per fragment group: a group of two active dims in the
     wide form, all of them otherwise."""
-    half, g = mma_half(arch), mma_group(arch)
-    return WIDE_GROUP_DIMS * g if mma_wide(arch) else half * g
-
-
-def mma_sections(arch) -> list[tuple[str, tuple]]:
-    """Sections of one layer of the packed buffer, in order, with their
-    shapes (``half`` = :func:`mma_half`): W1 ``(H1, half)`` of the
-    conditioning inputs, b1, W2 as ``(H1/8 * H2/8, 32, 2)`` mma B
-    fragments, b2, W3 as ``(H2/8 * half * G/8, 32, 2)`` fragments, b3
-    ``(half, G)``. The wide
-    form puts the sections a layer reads throughout first (W1, b1, b2, b3)
-    and then the streamed ones (W2, then W3 by groups of two active
-    dims)."""
-    h1, h2 = tuple(arch.n_hidden)
-    half, g = mma_half(arch), mma_group(arch)
-    sec = {"w1": (h1, half), "b1": (h1,),
-           "w2": (h1 // 8 * (h2 // 8), 32, 2), "b2": (h2,),
-           "w3": (h2 // 8 * (half * g // 8), 32, 2), "b3": (half, g)}
-    order = (("w1", "b1", "b2", "b3", "w2", "w3") if mma_wide(arch) else
-             ("w1", "b1", "w2", "b2", "w3", "b3"))
-    return [(name, sec[name]) for name in order]
-
-
-def _section_offsets(arch) -> tuple[dict, int]:
-    """Each section's offset in a packed layer, and the layer's floats."""
-    offsets, off = {}, 0
-    for name, shape in mma_sections(arch):
-        off = _round4(off)
-        offsets[name] = off
-        off += int(torch.Size(shape).numel())
-    return offsets, _round4(off)
+    shape = mma_shape(arch)
+    g = mma_group(arch)
+    return WIDE_GROUP_DIMS * g if shape["wide"] else shape["slots"] * g
 
 
 @functools.lru_cache(maxsize=None)
@@ -260,18 +419,11 @@ def mma_layout(arch) -> tuple[int, ...]:
     rows; wide form: those of one 16-row tile's group, then the warp's 32
     particles, ``D + 1`` floats apart), then the wide form's resident part
     and largest chunk (0 and 0 otherwise)."""
-    offsets, size = _section_offsets(arch)
-    ks1, ks2, _ = _mma_tiles(arch)
+    shape = mma_shape(arch)
+    offsets = shape["offsets"]
     names = ("w1", "b1", "w2", "b2", "w3", "b3")
-    if not mma_wide(arch):
-        row = mma_half(arch) * mma_group(arch) + 4
-        return (size, *(offsets[k] for k in names), row, 32 * row, 0, 0)
-    row = _w3_group_cols(arch) + 4
-    kw2 = 4 if ks1 % 4 == 0 else (2 if ks1 % 2 == 0 else 1)
-    kw3 = next(k for k in (8, 4, 2, 1) if ks2 % k == 0)
-    chunk = max(64 * kw2 * ks2, 64 * kw3 * _w3_group_cols(arch) // 8)
-    return (size, *(offsets[k] for k in names), row,
-            16 * row + 32 * (arch.dims + 1), offsets["w2"], chunk)
+    return (shape["size"], *(offsets[k] for k in names), shape["row"],
+            shape["stage"], shape["res"], shape["chunk"])
 
 
 @functools.lru_cache(maxsize=None)
@@ -305,44 +457,44 @@ def _layer_dims(layer: int) -> tuple[slice, slice]:
 
 
 def _dense_layer(arch, layer: int, net: dict):
-    """One layer's conditioner as the kernel computes it, each half of
-    the layer :func:`mma_half` dims (a padding slot's weights zero): W1
-    ``(H1, half)`` on the conditioning inputs, b1, W2 ``(H1, H2)``, b2, W3
-    ``(H2, half * G)`` and b3 ``(half, G)`` of the active dims' parameter
-    groups, each zero-padded to G."""
+    """One layer's conditioner as the kernel computes it (hidden widths
+    already :func:`kernel_hidden`'s), each half of the layer in its
+    :func:`mma_shape` slots (a padding slot's weights zero): W1
+    ``(H1, cp)`` on the conditioning inputs, b1, W2 ``(H1, H2)``, b2, W3
+    ``(H2, slots * G)`` and b3 ``(slots, G)`` of the active dims'
+    parameter groups, each zero-padded to G."""
     d, P, G = arch.dims, arch.n_params_per_dim, mma_group(arch)
-    half = mma_half(arch)
+    shape = mma_shape(arch)
+    slots, cp = shape["slots"], shape["cp"]
     active, cond = _layer_dims(layer)
     l1, l2, l3 = net["layers"]
     h2 = l3["w"].shape[0]
     pad = torch.nn.functional.pad
     w3 = l3["w"].reshape(h2, d, P)[:, active]
-    w3 = pad(w3, (0, G - P, 0, half - w3.shape[1]))
+    w3 = pad(w3, (0, G - P, 0, slots - w3.shape[1]))
     b3 = l3["b"].reshape(d, P)[active]
-    b3 = pad(b3, (0, G - P, 0, half - b3.shape[0]))
+    b3 = pad(b3, (0, G - P, 0, slots - b3.shape[0]))
     w1 = l1["w"][cond].t()
-    return (pad(w1, (0, half - w1.shape[1])), l1["b"], l2["w"], l2["b"],
+    return (pad(w1, (0, cp - w1.shape[1])), l1["b"], l2["w"], l2["b"],
             w3.reshape(h2, -1), b3)
 
 
 def _mma_fragment_indices(arch, device):
     """The fragment index pairs of W2 and W3 (:func:`_fragments`)."""
-    h1, h2 = tuple(arch.n_hidden)
+    h1, h2 = kernel_hidden(arch)
     return (_fragments(h1, h2, device),
-            _fragments(h2, mma_half(arch) * mma_group(arch), device,
-                       _w3_group_cols(arch)))
+            _fragments(h2, mma_shape(arch)["slots"] * mma_group(arch),
+                       device, _w3_group_cols(arch)))
 
 
 def prepare_mma_params(arch, params: dict) -> torch.Tensor:
     """Pack every layer's conditioner into the tensor-core flat layout
-    (:func:`mma_sections`), in the parameters' dtype: W2 and W3 as mma B
+    (:func:`mma_sections`), in the parameters' dtype, hidden widths padded
+    to :func:`kernel_hidden`'s (:func:`pad_hidden`): W2 and W3 as mma B
     fragments, in float32 each weight the sum of two TF32 values
     (:func:`split_tf32_sum`, so the kernel splits it exactly); float64
     parameters (tests of the layout) are kept as they are."""
-    h1, h2 = tuple(arch.n_hidden)
-    if h1 % 8 or h2 % 8:
-        raise ValueError(f"the tensor-core pass takes a coupling flow with "
-                         f"hidden widths /8: {arch}")
+    params = pad_hidden(arch, params)
     dev = params["layers"][0]["layers"][0]["w"].device
     (r2, c2), (r3, c3) = _mma_fragment_indices(arch, dev)
     order = [name for name, _ in mma_sections(arch)]
@@ -366,27 +518,28 @@ def mma_conditioner_plain(arch, packed: torch.Tensor, layer: int,
     padding slot's input 0), the fragments gathered back into W2 and W3,
     each active dim's padded group cut to its parameters (the padding
     slot's dropped). For tests of the layout: no kernel path calls it."""
-    h1, h2 = tuple(arch.n_hidden)
-    half, G = mma_half(arch), mma_group(arch)
+    h1, h2 = kernel_hidden(arch)
+    shape = mma_shape(arch)
+    slots, G = shape["slots"], mma_group(arch)
     buf = packed.reshape(arch.n_layers, -1)[layer]
     offsets, _ = _section_offsets(arch)
     sec = {name: buf[offsets[name]:offsets[name]
-                     + int(torch.Size(shape).numel())].reshape(shape)
-           for name, shape in mma_sections(arch)}
+                     + int(torch.Size(dims).numel())].reshape(dims)
+           for name, dims in mma_sections(arch)}
     for name, (rows, cols), k_in, n_out in zip(
             ("w2", "w3"), _mma_fragment_indices(arch, buf.device),
-            (h1, h2), (h2, half * G)):
+            (h1, h2), (h2, slots * G)):
         dense = buf.new_zeros((k_in, n_out))
         dense[rows, cols] = sec[name]
         sec[name] = dense
     active, cond = _layer_dims(layer)
     xc = x[:, cond]
-    xc = torch.nn.functional.pad(xc, (0, half - xc.shape[1]))
+    xc = torch.nn.functional.pad(xc, (0, shape["cp"] - xc.shape[1]))
     h = torch.relu(xc @ sec["w1"].t() + sec["b1"])
     h = torch.relu(h @ sec["w2"] + sec["b2"])
     out = h @ sec["w3"] + sec["b3"].reshape(-1)
     n_active = x[:, active].shape[1]
-    return out.reshape(-1, half, G)[:, :n_active, :arch.n_params_per_dim]
+    return out.reshape(-1, slots, G)[:, :n_active, :arch.n_params_per_dim]
 
 
 def coupling_packed_plain(arch, mode: str, packed: torch.Tensor,
@@ -422,11 +575,21 @@ def packed_coupling_params(arch, params: dict,
                       device)
 
 
+def coupling_library(arch):
+    """``(library, configuration id)`` of the coupling kernel for the
+    flow's shape: the prebuilt library's configuration
+    (:func:`config_id`), else the shape's instance, built at its first use
+    (``_build.load_instance``, id 0)."""
+    cfg = config_id(arch)
+    if cfg is not None:
+        return load_library(), cfg
+    return load_instance("coupling", coupling_row(arch)), 0
+
+
 @functools.lru_cache(maxsize=None)
-def _coupling_library_layout(cfg: int) -> tuple[int, ...]:
-    """The loaded library's layout of coupling configuration ``cfg``
+def _coupling_library_layout(lib, cfg: int) -> tuple[int, ...]:
+    """Library ``lib``'s layout of coupling configuration ``cfg``
     (``aspire_coupling_layout``), read once per process."""
-    lib = load_library()
     out = (ctypes.c_int * 16)()
     count = lib.aspire_coupling_layout(cfg, out, len(out))
     if not 0 <= count <= len(out):
@@ -437,16 +600,17 @@ def _coupling_library_layout(cfg: int) -> tuple[int, ...]:
 def launch_packed(arch, mode: str, weights: torch.Tensor,
                   x: torch.Tensor):
     """Launch the kernel on a CUDA ``x`` with weights already packed by
-    :func:`prepare_mma_params`."""
-    lib = load_library()
-    cfg = config_id(arch)
-    if cfg is None:
-        raise ValueError(f"no coupling kernel compiled for {arch}")
+    :func:`prepare_mma_params`: the prebuilt library's configuration or
+    the shape's instance (:func:`coupling_library`)."""
+    if not coupling_takes(arch):
+        raise ValueError(f"the coupling kernel does not take {arch}")
+    main = load_library()
+    lib, cfg = coupling_library(arch)
     layout = mma_layout(arch)
-    library = _coupling_library_layout(cfg)
-    _check_launch(lib, "coupling kernel", arch, weights, x, library[0],
+    library = _coupling_library_layout(lib, cfg)
+    _check_launch(main, "coupling kernel", arch, weights, x, library[0],
                   layout[0], coupling_shared_bytes(arch))
-    if library != (*layout, COUPLING_WARPS):
+    if library != (*layout, coupling_warps(arch)):
         raise RuntimeError("coupling weight layout disagrees with the kernel "
                            "library")
     if weights.numel() != arch.n_layers * layout[0] or weights.data_ptr() % 16:
@@ -551,10 +715,18 @@ def fused_coupling_apply(arch, mode: str, params: dict, x: torch.Tensor):
 
 
 def maf_config_id(arch) -> int | None:
+    """The prebuilt library's configuration of an RQS MAF (its hidden
+    widths as :func:`kernel_hidden` pads them), or None."""
     if not isinstance(arch, MAF) or arch.transformer != "rqs":
         return None
     return MAF_KERNEL_CONFIGS.get(
-        (arch.dims, tuple(arch.n_hidden), arch.num_bins))
+        (arch.dims, kernel_hidden(arch), arch.num_bins))
+
+
+def maf_row(arch) -> tuple:
+    """The MAF's configuration row of ``ASPIRE_MAF_CONFIGS`` (its values
+    after the id): ``(D, H1, H2, K)``, hidden widths padded."""
+    return (arch.dims, *kernel_hidden(arch), arch.num_bins)
 
 
 def maf_group(arch) -> int:
@@ -630,24 +802,89 @@ def maf_stage_floats(arch) -> int:
     return 16 * d + (d - 1) * 16 * maf_group(arch)
 
 
-def maf_shared_bytes(arch) -> int:
-    """Shared memory of a MAF kernel block with one warp: every layer's
-    packed weights and one warp's buffer."""
+def maf_resident_bytes(arch) -> int:
+    """Shared memory of a resident MAF kernel block with one warp: every
+    layer's packed weights and one warp's buffer."""
     return 4 * (arch.n_layers * maf_layer_floats(arch) + maf_stage_floats(arch))
 
 
+#: W2 fragments a streamed MAF chunk holds at most (maf.cu kMafChunkFrags)
+_MAF_CHUNK_FRAGS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def maf_stream_layout(arch) -> dict:
+    """The streamed MAF form's block (maf.cu ``MafStream``): a layer's
+    head (W1, b1, b2, b3; ``head`` floats, two buffers), its items through
+    two slots (``slot`` floats each: W2's fragments by chunks of n-tiles
+    of at most 64 fragments, ``w2_chunks`` of them, then W3's by two
+    dims), a warp's buffer (``stage``: its tile in and out, two dims'
+    parameters) and the most warps beside them (up to 16)."""
+    d, g = arch.dims, maf_group(arch)
+    ks2, ks3 = maf_ksteps(arch)
+    offsets, off = {}, 0
+    for name, shape in maf_sections(arch):
+        off = _round4(off)
+        offsets[name] = off
+        off += int(torch.Size(shape).numel())
+    chunks, j = [], 0
+    while j < len(ks2):
+        e, f = j, 0
+        while e < len(ks2) and (e == j or f + ks2[e] <= _MAF_CHUNK_FRAGS):
+            f, e = f + ks2[e], e + 1
+        chunks.append(64 * f)
+        j = e
+    w2_chunks = len(chunks)
+    chunks += [64 * (g // 8) * sum(ks3[2 * q:2 * q + 2])
+               for q in range((d + 1) // 2)]
+    slot = _round4(max(chunks))
+    head = _round4(offsets["w2"] + arch.n_hidden[1] + d * g)
+    stage = 2 * _round4(16 * d) + 16 * (2 * g + 4)
+    bufs = 2 * slot + 2 * head
+    return {"slot": slot, "head": head, "w2_chunks": w2_chunks,
+            "stage": stage, "bufs": bufs,
+            "warps": min((_MAX_BLOCK_FLOATS - bufs) // stage, 16)}
+
+
+def maf_form(arch) -> str:
+    """``"resident"`` where every layer's weights fit one block beside a
+    warp's buffer (the prebuilt form), else ``"streamed"``."""
+    return ("resident" if maf_resident_bytes(arch) <= MAX_SHARED_BYTES
+            else "streamed")
+
+
+def maf_shared_bytes(arch) -> int:
+    """Shared memory of a MAF kernel block of the flow's form with one
+    warp."""
+    if maf_form(arch) == "resident":
+        return maf_resident_bytes(arch)
+    layout = maf_stream_layout(arch)
+    return 4 * (layout["bufs"] + layout["stage"])
+
+
+def maf_takes(arch) -> bool:
+    """Whether the MAF kernel takes the flow: what the JAX package's
+    ``should_fuse_maf`` takes (RQS, twice its weight bytes within 8 MB,
+    and ``should_fuse``'s bounds), with two hidden layers, where a block
+    of its form fits one SM."""
+    return (isinstance(arch, MAF) and arch.transformer == "rqs"
+            and _reference_takes(arch) and arch.dims >= 2
+            and 2 * reference_weight_bytes(arch) <= MAX_WEIGHT_BYTES
+            and (maf_form(arch) == "resident"
+                 or maf_stream_layout(arch)["warps"] >= 1))
+
+
 def should_fuse_maf(arch, x: torch.Tensor) -> bool:
-    """True when the CUDA MAF kernel applies: an RQS MAF in a compiled
-    configuration whose weights fit one block's shared memory, on a CUDA
-    float32 batch of at least ``MIN_FUSED_N`` rows. Affine MAF runs plain
-    (the JAX package measured its fusion as neutral)."""
+    """True when the CUDA MAF kernel applies: a flow it takes
+    (:func:`maf_takes`) on a CUDA float32 batch of at least
+    ``MIN_FUSED_N`` rows. Affine MAF runs plain (the JAX package measured
+    its fusion as neutral)."""
     return (
         x.is_cuda
         and x.dim() == 2
         and x.shape[0] >= MIN_FUSED_N
         and x.dtype == torch.float32
-        and maf_config_id(arch) is not None
-        and maf_shared_bytes(arch) <= MAX_SHARED_BYTES
+        and maf_takes(arch)
     )
 
 
@@ -684,7 +921,8 @@ def _maf_sorted_weights(arch, net: dict):
     d, P, G = arch.dims, arch.n_params_per_dim, maf_group(arch)
     h1, h2 = tuple(arch.n_hidden)
     if h1 % 8 or h2 % 8:
-        raise ValueError(f"the MAF kernel takes hidden widths /8: {arch}")
+        raise ValueError(f"the MAF packing takes hidden widths /8 "
+                         f"(kernel_arch, pad_hidden): {arch}")
     l1, l2, l3 = net["layers"]
     m1, m2, m3 = arch.masks(l1["w"])
     o1 = degree_order(arch, h1).to(l1["w"].device)
@@ -720,6 +958,7 @@ def prepare_maf_params(arch, params: dict) -> torch.Tensor:
     the mma fragments of the blocks the masks keep, in float32 each as the
     sum of two TF32 values (:func:`split_tf32_sum`). Float64 parameters
     (tests of the layout) keep their weights as they are."""
+    params, arch = pad_hidden(arch, params), kernel_arch(arch)
     chunks = []
     (r2, c2), (r3, c3) = _maf_fragments(arch)
     for net in params["layers"]:
@@ -836,12 +1075,25 @@ def packed_maf_params(arch, params: dict,
                       device)
 
 
+def maf_library(arch):
+    """``(library, configuration id)`` of the MAF kernel for the flow: the
+    prebuilt library's configuration where it has the shape and the
+    flow's layers fit resident, else the shape's instance (its streamed
+    kind where they do not), built at its first use
+    (``_build.load_instance``, id 0)."""
+    cfg = maf_config_id(arch)
+    resident = maf_form(arch) == "resident"
+    if cfg is not None and resident:
+        return load_library(), cfg
+    return load_instance("maf" if resident else "maf_streamed",
+                         maf_row(arch)), 0
+
+
 @functools.lru_cache(maxsize=None)
-def _maf_library_layout(cfg: int) -> tuple[int, int, tuple[int, ...]]:
-    """The loaded library's layout of MAF configuration ``cfg``: floats per
+def _maf_library_layout(lib, cfg: int) -> tuple[int, int, tuple[int, ...]]:
+    """Library ``lib``'s layout of MAF configuration ``cfg``: floats per
     layer, floats per warp buffer, and the k-steps of W2's n-tiles then
     W3's dims (MafBlocks), read once per process."""
-    lib = load_library()
     out = (ctypes.c_int * 256)()
     count = lib.aspire_maf_ksteps(cfg, out, len(out))
     if not 0 <= count <= len(out):
@@ -852,16 +1104,18 @@ def _maf_library_layout(cfg: int) -> tuple[int, int, tuple[int, ...]]:
 
 def launch_maf(arch, weights: torch.Tensor, x: torch.Tensor):
     """Launch the MAF density kernel on a CUDA ``x`` with weights already
-    packed by :func:`prepare_maf_params`."""
-    lib = load_library()
-    cfg = maf_config_id(arch)
-    if cfg is None:
-        raise ValueError(f"no MAF kernel compiled for {arch}")
-    layer, stage, ksteps = _maf_library_layout(cfg)
-    _check_launch(lib, "MAF kernel", arch, weights, x, layer,
-                  maf_layer_floats(arch), maf_shared_bytes(arch))
-    ks2, ks3 = maf_ksteps(arch)
-    if stage != maf_stage_floats(arch) or ksteps != ks2 + ks3:
+    packed by :func:`prepare_maf_params`: the prebuilt library's
+    configuration or the shape's instance (:func:`maf_library`)."""
+    if not maf_takes(arch):
+        raise ValueError(f"the MAF kernel does not take {arch}")
+    main = load_library()
+    lib, cfg = maf_library(arch)
+    karch = kernel_arch(arch)
+    layer, stage, ksteps = _maf_library_layout(lib, cfg)
+    _check_launch(main, "MAF kernel", arch, weights, x, layer,
+                  maf_layer_floats(karch), maf_shared_bytes(karch))
+    ks2, ks3 = maf_ksteps(karch)
+    if stage != maf_stage_floats(karch) or ksteps != ks2 + ks3:
         raise RuntimeError("MAF buffer layout disagrees with the kernel library")
     n = x.shape[0]
     z = torch.empty_like(x)

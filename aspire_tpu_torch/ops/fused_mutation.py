@@ -48,7 +48,13 @@ from .. import transforms as T
 from ..flows.architectures import Coupling
 from ..models.targets import KernelSource, target_densities
 from . import fused_coupling as FC
-from ._build import LaunchCounter, check, load_library, load_user_library
+from ._build import (
+    LaunchCounter,
+    check,
+    load_instance,
+    load_library,
+    load_user_library,
+)
 
 # The chain kernel's weight layout is the tensor-core pass's it shares with
 # the coupling kernel (csrc/coupling_mma.cuh), under the chain's names.
@@ -60,12 +66,17 @@ from .fused_coupling import prepare_mma_params as prepare_chain_params
 
 TILE = 256
 KERNELS = {"tpcn": 0, "pcn": 1, "rwmh": 2}
-#: configuration id the chain kernel is compiled for -> the in-kernel
-#: target ids it compiles (ASPIRE_CHAIN_CONFIGS and its TARGETS column:
-#: ids 4 and 5 only at d = 2 and d = 5, so the d = 4 and d = 32 kernels
-#: keep the code they had before them)
+#: configuration id of the prebuilt library's chain kernel -> the
+#: in-kernel target ids it compiles (ASPIRE_CHAIN_CONFIGS and its TARGETS
+#: column: ids 4 and 5 only at d = 2 and d = 5, so the d = 4 and d = 32
+#: kernels keep the code they had before them). Any other shape, target
+#: id or depth runs an instance built at first use, which compiles every
+#: id (:data:`TARGET_IDS`) and streams layers too deep to stay resident
+#: (:func:`chain_library`).
 CHAIN_CONFIGS = {0: (1, 2, 3), 2: (1, 2, 3), 3: (1, 2, 3, 4, 5),
                  4: (1, 2, 3, 4, 5)}
+#: the in-kernel target ids (csrc/chain.cu ``TargetId``, but ``kUser``)
+TARGET_IDS = (1, 2, 3, 4, 5)
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 #: the user target's id in an instance built with its source (chain.cu
 #: ``kUser``)
@@ -516,15 +527,64 @@ def combine_tile_stats(stats: torch.Tensor, d: int, tile: int = TILE):
 
 
 def kernel_supports(cfg: ChainConfig, target_id=None) -> bool:
-    """Whether the chain kernel is compiled for this flow configuration
-    (and, given, for the in-kernel target ``target_id``; a
-    :class:`UserTarget` is built for any configuration)."""
+    """Whether the chain kernel takes this chain: a coupling flow the
+    coupling kernel takes (``FC.coupling_takes``: the JAX package's
+    ``should_fuse`` with two hidden layers) whose chain block fits one SM
+    (:func:`chain_shared_bytes`), a kernel of ``KERNELS``, and (given) an
+    in-kernel target id or a :class:`UserTarget` (built for any shape)."""
     arch = cfg.arch
-    return (isinstance(arch, Coupling) and len(arch.n_hidden) == 2
-            and FC.config_id(arch) in CHAIN_CONFIGS
+    return (isinstance(arch, Coupling) and FC.coupling_takes(arch)
             and cfg.kernel in KERNELS
+            and chain_shared_bytes(arch, consts_layout(arch.dims)[-1])
+            <= FC.MAX_SHARED_BYTES
             and (target_id is None or isinstance(target_id, UserTarget)
-                 or int(target_id) in CHAIN_CONFIGS[FC.config_id(arch)]))
+                 or int(target_id) in TARGET_IDS))
+
+
+def chain_row(arch) -> tuple:
+    """The flow's configuration row of ``ASPIRE_CHAIN_CONFIGS`` for an
+    instance built at first use (its values after the id): the coupling
+    row and every in-kernel target (TARGETS 1)."""
+    return (*FC.coupling_row(arch), 1)
+
+
+def chain_resident(arch) -> bool:
+    """Whether a whole-layer chain block holds every layer of the flow
+    (else its instance streams them: ``chain_kernel_streamed``)."""
+    layout = chain_layout(arch)
+    warps = TILE // 32
+    return not FC.mma_wide(arch) and 4 * (
+        arch.n_layers * layout[0] + consts_layout(arch.dims)[-1]
+        + 2 * warps + warps * layout[8]) <= FC.MAX_SHARED_BYTES
+
+
+def chain_form(arch) -> str:
+    """The chain kernel's form for the flow, as ``chip_smoke.py`` prints
+    it: ``"wide"``, ``"whole-layer, resident"`` or ``"whole-layer,
+    streamed"``."""
+    if FC.mma_wide(arch):
+        return "wide"
+    return "whole-layer, " + ("resident" if chain_resident(arch)
+                              else "streamed")
+
+
+def chain_library(cfg: ChainConfig, target_id):
+    """``(library, configuration id)`` of the chain kernel for the chain:
+    a user target's instance at the flow's row, the prebuilt library's
+    configuration where it has the shape and the target id and holds the
+    flow's layers resident, else the shape's instance (every target id),
+    its streamed kind where the layers do not fit resident, built at its
+    first use (``_build.load_instance``, id 0)."""
+    arch = cfg.arch
+    kind = ("chain" if FC.mma_wide(arch) or chain_resident(arch)
+            else "chain_streamed")
+    if isinstance(target_id, UserTarget):
+        return load_user_library(target_id.source, chain_row(arch), kind), 0
+    cid = FC.config_id(arch)
+    if (cid in CHAIN_CONFIGS and int(target_id) in CHAIN_CONFIGS[cid]
+            and kind == "chain"):
+        return load_library(), cid
+    return load_instance(kind, chain_row(arch)), 0
 
 
 #: a lowered program's per-dimension op codes, and the ops-present flag
@@ -626,12 +686,15 @@ def chain_consts(d: int, ref_mean, ref_chol, ref_ichol, dt_block, pc_block,
 def chain_shared_bytes(arch, consts_floats: int) -> int:
     """Shared memory of a chain kernel block: the constant block, two
     rows of tile-sum scratch, a warp buffer per warp, and every layer's
-    weights, or in the wide form two ``(d, TILE)`` state arrays and the
-    weight stream's buffers (:func:`FC.mma_weight_buffers`)."""
+    weights (two layer buffers where they do not all fit:
+    :func:`chain_resident`), or in the wide form two ``(d, TILE)`` state
+    arrays and the weight stream's buffers (:func:`FC.mma_weight_buffers`)."""
     layout = chain_layout(arch)
     warps = TILE // 32
-    state = (2 * arch.dims * TILE + FC.mma_weight_buffers(arch)
-             if FC.mma_wide(arch) else arch.n_layers * layout[0])
+    if FC.mma_wide(arch):
+        state = 2 * arch.dims * TILE + FC.mma_weight_buffers(arch)
+    else:
+        state = (arch.n_layers if chain_resident(arch) else 2) * layout[0]
     return 4 * (state + consts_floats + 2 * warps + warps * layout[8])
 
 
@@ -703,10 +766,9 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     if not kernel_supports(cfg, target_id):
         raise ValueError(f"no chain kernel compiled for {arch}/{cfg.kernel} "
                          f"with target {target_id}")
-    # A user target runs on its own instance: the chain entry and layouts
-    # of the library built with its source for this configuration.
-    chain_lib = (load_user_library(target_id.source, FC.config_id(arch))
-                 if user else lib)
+    # The prebuilt library's configuration, the shape's instance, or a
+    # user target's instance: its chain entry and layouts.
+    chain_lib, cid = chain_library(cfg, target_id)
     if z0.dtype != torch.float32 or not z0.is_contiguous():
         raise TypeError("the chain kernel takes a contiguous float32 z0")
     if d != arch.dims or n % TILE or chain_lib.aspire_chain_tile() != TILE:
@@ -723,7 +785,7 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
             raise ValueError(f"noise must have shape "
                              f"{(cfg.n_steps, cfg.noise_rows, n)}")
     layout = chain_layout(arch)
-    if _chain_library_layout(chain_lib, FC.config_id(arch)) != layout:
+    if _chain_library_layout(chain_lib, cid) != layout:
         raise RuntimeError("chain weight layout disagrees with the kernel "
                            "library")
     if _consts_library_layout(chain_lib, d) != consts_layout(d):
@@ -771,7 +833,7 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
             USER_TARGET if user else int(target_id), beta_dev.data_ptr(),
             float(cfg.nu), float(cfg.target_acceptance),
             float(cfg.adaptation_rate), float(cfg.max_log_step),
-            float(arch.tail_bound), seed_dev.data_ptr(), FC.config_id(arch),
+            float(arch.tail_bound), seed_dev.data_ptr(), cid,
             torch.cuda.current_stream(z0.device).cuda_stream,
             *((user_consts.data_ptr(),) if user else ()),
         )
@@ -780,12 +842,13 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     return z, lq, lpi, ll, nacc, stats[:, 0].clone(), stats
 
 
-def user_target_eval(target: UserTarget, consts: torch.Tensor, config: int,
+def user_target_eval(target: UserTarget, consts: torch.Tensor, config,
                      x: torch.Tensor):
     """``(log_prior, log_likelihood)`` of the user target at ``x (n, d)``
     in data space, NaN -> -inf: on a CUDA tensor one launch of the
-    instance built with its source for chain configuration ``config``
-    (the arithmetic the chain runs), on a CPU tensor its plain version."""
+    instance built with its source for ``config`` (a prebuilt chain
+    configuration's id, or a row as :func:`chain_row` gives it: the
+    arithmetic the chain runs), on a CPU tensor its plain version."""
     if x.device.type == "cpu":
         return _densities(target, consts, x)
     if not x.is_cuda:

@@ -38,8 +38,10 @@ from __future__ import annotations
 import collections
 import dataclasses
 import datetime
+import functools
 import logging
 import os
+import weakref
 from typing import Any
 
 import torch
@@ -60,11 +62,49 @@ collective_counts: collections.Counter = collections.Counter()
 
 _MESH: "ProcessMesh | None" = None
 
+#: the device ladders whose captured rung holds NCCL collectives: NCCL's
+#: communicator cannot be destroyed while such a graph lives (it waits
+#: for every graph that captured one of its kernels to be destroyed first,
+#: ROADMAP C19), so ``destroy_process_group`` releases them first
+#: (:func:`track_captured`)
+_captured: "weakref.WeakSet" = weakref.WeakSet()
+
 
 def _dist():
     import torch.distributed as dist
 
     return dist
+
+
+def track_captured(ladder) -> None:
+    """Note a device ladder whose rung was captured with NCCL collectives,
+    and make ``torch.distributed.destroy_process_group`` release the graphs
+    of every such ladder (:func:`release_captured`) before the group goes:
+    a plain ``destroy_process_group()`` then returns with the ladders still
+    cached (their next run captures again)."""
+    _captured.add(ladder)
+    dist = _dist()
+    c10d = dist.distributed_c10d
+    destroy = c10d.destroy_process_group
+    if getattr(destroy, "releases_captured_ladders", False):
+        return
+
+    @functools.wraps(destroy)
+    def destroy_process_group(*args, **kwargs):
+        release_captured()
+        return destroy(*args, **kwargs)
+
+    destroy_process_group.releases_captured_ladders = True
+    c10d.destroy_process_group = destroy_process_group
+    dist.destroy_process_group = destroy_process_group
+
+
+def release_captured() -> None:
+    """Destroy the captured graphs of the ladders :func:`track_captured`
+    noted (each ``DeviceLadder.release``)."""
+    for ladder in list(_captured):
+        ladder.release()
+    _captured.clear()
 
 
 def initialize_distributed(coordinator_address: str | None = None,
@@ -167,19 +207,21 @@ def _run_rank(rank: int, fn, *args) -> None:
     """``fn(rank, *args)`` in a rank of :func:`spawn_ranks`, then, where
     ``fn`` left its process group started, the group left together: a
     barrier (no rank closes its connections while a peer's last exchange
-    is on the wire, which aborted that peer) and ``destroy_process_group``
-    (after a collection, so no captured ladder holds NCCL's communicator,
-    ROADMAP C19)."""
+    is on the wire, which aborted that peer), ``destroy_process_group``
+    (which releases the captured ladders first: :func:`track_captured`),
+    and then a collection, so no object of the group that ``fn``'s
+    reference cycles still hold is left for the interpreter's exit (a
+    gloo rank aborted there now and then, ROADMAP C20)."""
     import gc
 
     fn(rank, *args)
     dist = _dist()
     if dist.is_initialized():
-        gc.collect()
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
         barrier()
         dist.destroy_process_group()
+        gc.collect()
 
 
 def spawn_ranks(fn, size: int, args: tuple = (),

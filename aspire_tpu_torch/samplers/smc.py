@@ -67,7 +67,7 @@ from ..history import SMCHistory
 from ..models.targets import KernelSource
 from ..ops import fused_coupling as FC
 from ..ops import fused_mutation as FM
-from ..ops._build import add_launches, launch_counts, load_user_library
+from ..ops._build import add_launches, launch_counts
 from ..ops.resampling import get_resampler
 from ..ops.special import effective_sample_size
 from ..ops.resampling import alltoall_move, ring_move
@@ -265,11 +265,11 @@ class DeviceLadder:
     capture counted to their counters (``captured``, ``collectives``).
     Eager, the body runs every rung.
 
-    A graph that captured NCCL's all-to-all (``resampling_impl="ring"`` or
-    ``"alltoall"``) keeps the communicator from shutting down: drop the
-    cached ladders (``Aspire.ladder_cache.clear()``, then ``gc.collect()``)
-    before ``torch.distributed.destroy_process_group()``, which otherwise
-    waits forever.
+    A graph that captured NCCL's kernels (the all-to-all of
+    ``resampling_impl="ring"`` or ``"alltoall"``) keeps NCCL's communicator
+    from being destroyed, so the mesh notes every ladder captured over NCCL
+    and ``torch.distributed.destroy_process_group`` releases their graphs
+    first (``mesh.track_captured``, :meth:`release`).
     """
 
     def __init__(self, body: Callable, state: dict,
@@ -309,6 +309,14 @@ class DeviceLadder:
         else:
             self.body(self.state)
 
+    def release(self) -> None:
+        """Destroy the captured graph (the mesh's teardown, before its
+        process group goes); the next rung warms up and captures again."""
+        if self.graph is not None:
+            torch.cuda.synchronize()
+            self.graph.reset()
+            self.graph = None
+
     def capture(self) -> None:
         """Capture the body in a CUDA graph (the launches and collectives
         it records are not counted: a capture runs nothing). Unreachable
@@ -337,6 +345,8 @@ class DeviceLadder:
         self.keep = (*self.keep, *FC.kept_packings())
         self.graph = graph
         torch.cuda.synchronize()
+        if self.mesh is not None:
+            M.track_captured(self)
         self.capture_s = time.perf_counter() - t0
         logger.info("Captured the device ladder's rung in a CUDA graph in "
                     "%.3f s (%d kernel-wrapper launches and %d collectives "
@@ -505,9 +515,10 @@ class SMCSampler(Sampler):
         to programs (``FM.canonicalize_transform``: identity, affine,
         logit, probit, periodic and their masked composites), a target with
         an in-kernel id or a user's source, an integer ``nu + d`` for tpCN,
-        whole tiles, and on a CUDA device a kernel compiled for the flow's
-        shape. A user's source is built into its instance here, at first
-        use (outside any CUDA graph capture); a failed build raises. The spec holds
+        whole tiles, and on a CUDA device a flow the kernel takes
+        (``FM.kernel_supports``). A shape outside the prebuilt library, or
+        a user's source, is built into its instance here, at first use
+        (outside any CUDA graph capture); a failed build raises. The spec holds
         both programs, the preconditioning's from the transform as fitted
         when the spec is made (``mutate`` makes one per mutation, after the
         fit), and both lowered for the kernel (``blocks``), here, outside
@@ -546,9 +557,7 @@ class SMCSampler(Sampler):
         if self.device.type == "cuda":
             if not FM.kernel_supports(cfg, kcfg["target"][0]):
                 return None
-            if isinstance(kcfg["target"][0], FM.UserTarget):
-                load_user_library(kcfg["target"][0].source,
-                                  FC.config_id(arch))
+            FM.chain_library(cfg, kcfg["target"][0])
         kcfg["blocks"] = tuple(
             FM.program_block(kcfg[k], self.dims, self.device)
             for k in ("data_transform", "precond"))

@@ -107,10 +107,15 @@ def test_should_fuse_takes_every_depth_it_took():
         assert len(sizes) == 1
         assert all(FC.should_fuse(make(4, n_layers=k), _cuda_batch())
                    for k in range(1, 41))
-    # What it still refuses: small or CPU batches, uncompiled shapes.
+    # What it still refuses: small or CPU batches, and shapes the JAX
+    # package's predicate refuses. Any other shape it takes is taken (an
+    # instance built for it at first use: tests/test_torch_shapes.py holds
+    # the rule case by case).
     assert not FC.should_fuse(nsf_tpu(4), _cuda_batch(FC.MIN_FUSED_N - 1))
     assert not FC.should_fuse(nsf_tpu(4), torch.zeros(8192, 4))
-    assert not FC.should_fuse(nsf(4, n_hidden=(32, 32)), _cuda_batch())
+    assert FC.should_fuse(nsf(4, n_hidden=(32, 32)), _cuda_batch())
+    assert FC.config_id(nsf(4, n_hidden=(32, 32))) is None
+    assert not FC.should_fuse(nsf(4, num_bins=33), _cuda_batch())
 
 
 def test_packed_coupling_params_packs_once_per_parameter_set():

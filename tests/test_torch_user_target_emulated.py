@@ -3,7 +3,7 @@
 As ``tests/test_torch_chain_emulated.py`` runs ``csrc/chain.cu`` under the
 stand-in CUDA runtime, this compiles it as ``ops/_build.py::build_user``
 does: ``ASPIRE_USER_TARGET`` the user's source (``chip_smoke``'s
-``PolynomialRegression``, 128 points), ``ASPIRE_USER_CHAIN_CONFIG`` the
+``PolynomialRegression``, 128 points), ``ASPIRE_INSTANCE_CONFIG`` the
 row of configuration 0 (nsf-tpu at d = 4), the only one built. Checked:
 one tile, two tpCN steps, the affine data transform, on injected noise
 nudged as ``chip_smoke.phase_chain`` nudges it, against the plain chain
@@ -107,7 +107,8 @@ def harness(tmp_path_factory):
     (root / "user_target.cuh").write_text(chip_smoke.REGRESSION_CUDA)
     (root / "chain_emulated.cpp").write_text(
         f'#define ASPIRE_USER_TARGET "{root / "user_target.cuh"}"\n'
-        f"#define ASPIRE_USER_CHAIN_CONFIG(X) {_build.chain_config_row(0)}\n"
+        f"#define ASPIRE_INSTANCE_CONFIG(X) "
+        f"{_build.instance_row(_build.chain_config_row(0))}\n"
         + emulated_source("chain.cu"))
     (root / "harness.cpp").write_text(HARNESS)
     build = subprocess.run(

@@ -330,8 +330,12 @@ def test_config_tables_mirror_common_cuh():
             arch, FM.consts_layout(d)[-1]) <= FC.MAX_SHARED_BYTES
         # Both fit the 2d + 2 target floats of the constant block.
         assert FM.consts_layout(d)[3] - FM.consts_layout(d)[2] >= 2
+    # At d = 4 the prebuilt chain compiles ids 1-3; Rosenbrock (4) and the
+    # funnel (5) are taken too, on the shape's instance built at first use.
     cfg4 = FM.ChainConfig(nsf_tpu(4), "tpcn", 20)
-    assert FM.kernel_supports(cfg4, 2) and not FM.kernel_supports(cfg4, 4)
+    assert FM.kernel_supports(cfg4, 2) and FM.kernel_supports(cfg4, 4)
+    assert 4 not in FM.CHAIN_CONFIGS[FC.config_id(nsf_tpu(4))]
+    assert not FM.kernel_supports(cfg4, 6)
 
 
 def test_quadrature_copies_equal_validate():

@@ -11,14 +11,17 @@ n = 16384: a capture, then replays), and then
   ``destroy_process_group()``;
 - ``auto_only``: runs only the gather's ladder (no all-to-all captured)
   and destroys the group with its graph alive;
-- ``keep``: destroys the group with the all-to-all's graph alive;
+- ``keep``: destroys the group with the all-to-all's graph alive (a
+  plain ``destroy_process_group()``, which releases the mesh's captured
+  ladders first: ``mesh.track_captured``);
 - ``exit``: exits without destroying the group.
 
 Each variant's exit code, seconds and the seconds ``destroy`` took are
 printed; a child that hangs dumps its Python stack and ends. From the
-repository root, on the machine with the card:
+repository root, on the machine with the card (all variants, or those
+named):
 
-    python3 tools/mesh_teardown_probe.py
+    python3 tools/mesh_teardown_probe.py [VARIANT ...]
 """
 
 import faulthandler
@@ -70,7 +73,7 @@ def child(variant: str, folder: str) -> None:
     print(variant, "destroyed in", time.time() - t, flush=True)
 
 
-def main() -> None:
+def main(variants) -> None:
     import torch
 
     import chip_smoke as cs
@@ -84,7 +87,7 @@ def main() -> None:
     folder = tempfile.mkdtemp()
     torch.save((asp.flow.params, asp.flow.data_transform),
                f"{folder}/flow.pt")
-    for variant in VARIANTS:
+    for variant in variants:
         t = time.time()
         try:
             r = subprocess.run([sys.executable, __file__, variant, folder],
@@ -97,7 +100,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3:
+    if len(sys.argv) == 3 and sys.argv[1] in VARIANTS and Path(
+            sys.argv[2]).is_dir():
         child(sys.argv[1], sys.argv[2])
     else:
-        main()
+        main(sys.argv[1:] or VARIANTS)
