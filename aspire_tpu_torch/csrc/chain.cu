@@ -30,8 +30,9 @@
 // - The flow density is the tensor-core coupling pass of coupling_mma.cuh,
 //   shared with the coupling-flow kernel (coupling.cu): a warp's 32
 //   particles are two 16-row tiles of mma.sync m16n8k8 TF32 for the
-//   conditioner's two wide products in split form (float32 accuracy), W1
-//   on FP32 FMAs, and every thread runs the inverse splines of its own
+//   conditioner's products past W1 (any hidden depth) in split form
+//   (float32 accuracy), W1 on FP32 FMAs, and every thread runs the inverse
+//   splines of its own
 //   particle, so the coordinates, the log-det and the chain state never
 //   leave its registers. All layers' weights stay in shared memory.
 // - The block's 256 particles are both the adaptation tile (the step size
@@ -511,7 +512,7 @@ __device__ __forceinline__ float tile_sum(float v, float* scratch,
 // constant block where they are used, so that no register holds them
 // across the flow. Without, the data transform is the affine map or none
 // (ChainArgs::programs), dt_lj its log-Jacobian, and x = z.
-template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS,
+template <int D, class HID, int K, bool RQS, bool PROGS, int TARGETS,
           bool STREAM>
 __device__ __forceinline__ void tempered(const ChainArgs& a,
                                          float* __restrict__ w,
@@ -522,7 +523,7 @@ __device__ __forceinline__ void tempered(const ChainArgs& a,
                                          float& ll) {
   using C = Consts<D>;
   using P = Prog<D>;
-  using S = MmaShape<D, H1, H2, K, RQS>;
+  using S = MmaShape<D, HID, K, RQS>;
   float f[S::DP];  // and the flow's padding slot at an odd D, 0
   if constexpr (S::DP > D) f[D] = 0.f;
   float ld = 0.f;
@@ -603,10 +604,10 @@ __device__ __forceinline__ float mahal2(const float* __restrict__ c,
 // The whole-layer chain (chain_kernel, and chain_kernel_streamed with
 // STREAM): every layer's weights resident in shared memory, or (STREAM)
 // two layer buffers the flow passes stream the layers through.
-template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS,
+template <int D, class HID, int K, bool RQS, bool PROGS, int TARGETS,
           bool STREAM>
 __device__ __forceinline__ void chain_body(const ChainArgs& a) {
-  using S = MmaShape<D, H1, H2, K, RQS>;
+  using S = MmaShape<D, HID, K, RQS>;
   using C = Consts<D>;
   extern __shared__ float4 smem4[];
   float* w = reinterpret_cast<float*>(smem4);
@@ -635,7 +636,7 @@ __device__ __forceinline__ void chain_body(const ChainArgs& a) {
     prev[i] = s1[i] = s2[i] = c1[i] = 0.f;
   }
   float lp, lq, lpi, ll;
-  tempered<D, H1, H2, K, RQS, PROGS, TARGETS, STREAM>(a, w, c, buf, lane,
+  tempered<D, HID, K, RQS, PROGS, TARGETS, STREAM>(a, w, c, buf, lane,
                                                       dt_lj, x, lp, lq, lpi,
                                                       ll);
   float r2 = (a.kernel == kRWMH) ? 0.f : mahal2<D>(c, x);
@@ -709,7 +710,7 @@ __device__ __forceinline__ void chain_body(const ChainArgs& a) {
                                 : alpha_g * logf((a.nu + r2n) / (a.nu + r2));
     }
     float lp_p, lq_p, lpi_p, ll_p;
-    tempered<D, H1, H2, K, RQS, PROGS, TARGETS, STREAM>(
+    tempered<D, HID, K, RQS, PROGS, TARGETS, STREAM>(
         a, w, c, buf, lane, dt_lj, xp, lp_p, lq_p, lpi_p, ll_p);
     const float log_alpha = nan_to_neg_inf(lp_p - lp + corr);
     const float acc_p = expf(fminf(log_alpha, 0.f));
@@ -771,16 +772,16 @@ __device__ __forceinline__ void chain_body(const ChainArgs& a) {
   }
 }
 
-template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS>
+template <int D, class HID, int K, bool RQS, bool PROGS, int TARGETS>
 __global__ void __launch_bounds__(kTile, 1) chain_kernel(ChainArgs a) {
-  chain_body<D, H1, H2, K, RQS, PROGS, TARGETS, false>(a);
+  chain_body<D, HID, K, RQS, PROGS, TARGETS, false>(a);
 }
 
 #ifdef ASPIRE_STREAMED
-template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS>
+template <int D, class HID, int K, bool RQS, bool PROGS, int TARGETS>
 __global__ void __launch_bounds__(kTile, 1)
     chain_kernel_streamed(ChainArgs a) {
-  chain_body<D, H1, H2, K, RQS, PROGS, TARGETS, true>(a);
+  chain_body<D, HID, K, RQS, PROGS, TARGETS, true>(a);
 }
 #endif
 
@@ -855,9 +856,9 @@ __device__ __forceinline__ void tempered_wide(
 // flow's weights stream through the block per pass (WideStream). Shared
 // memory: constants, two [D][kTile] arrays, the stream's slots and the
 // warps' buffers: 189,136 B at d = 32, one block per SM.
-template <int D, int H1, int H2, int K, bool RQS, bool PROGS, int TARGETS>
+template <int D, class HID, int K, bool RQS, bool PROGS, int TARGETS>
 __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
-  using S = MmaShape<D, H1, H2, K, RQS>;
+  using S = MmaShape<D, HID, K, RQS>;
   using C = Consts<D>;
   extern __shared__ float4 smem4[];
   float* c = reinterpret_cast<float*>(smem4);
@@ -1014,9 +1015,9 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
   }
 }
 
-template <int D, int H1, int H2, int K, bool RQS, int TARGETS>
+template <int D, class HID, int K, bool RQS, int TARGETS>
 int launch_chain(const ChainArgs& a, cudaStream_t stream) {
-  using S = MmaShape<D, H1, H2, K, RQS>;
+  using S = MmaShape<D, HID, K, RQS>;
   // Every layer's weights, or (wide) two [D][kTile] arrays and the
   // stream's slots.
   const size_t state = S::WIDE ? 2 * D * kTile + 2 * (S::RES + S::CHUNK)
@@ -1044,15 +1045,15 @@ int launch_chain(const ChainArgs& a, cudaStream_t stream) {
   const bool progs = a.programs == kPrograms;
   void (*kernel)(ChainArgs);
   if constexpr (S::WIDE) {
-    kernel = progs ? chain_kernel_wide<D, H1, H2, K, RQS, true, TARGETS>
-                   : chain_kernel_wide<D, H1, H2, K, RQS, false, TARGETS>;
+    kernel = progs ? chain_kernel_wide<D, HID, K, RQS, true, TARGETS>
+                   : chain_kernel_wide<D, HID, K, RQS, false, TARGETS>;
   } else {
 #ifdef ASPIRE_STREAMED
-    kernel = progs ? chain_kernel_streamed<D, H1, H2, K, RQS, true, TARGETS>
-                   : chain_kernel_streamed<D, H1, H2, K, RQS, false, TARGETS>;
+    kernel = progs ? chain_kernel_streamed<D, HID, K, RQS, true, TARGETS>
+                   : chain_kernel_streamed<D, HID, K, RQS, false, TARGETS>;
 #else
-    kernel = progs ? chain_kernel<D, H1, H2, K, RQS, true, TARGETS>
-                   : chain_kernel<D, H1, H2, K, RQS, false, TARGETS>;
+    kernel = progs ? chain_kernel<D, HID, K, RQS, true, TARGETS>
+                   : chain_kernel<D, HID, K, RQS, false, TARGETS>;
 #endif
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -1094,7 +1095,7 @@ int aspire_chain_tile() { return aspire::kTile; }
 // floats, into out (up to capacity entries).
 // Returns their number, or -1 for a d no chain configuration has.
 int aspire_consts_layout(int dims, int* out, int capacity) {
-#define ASPIRE_CONSTS_CASE(ID, D, H1, H2, K, RQS, TARGETS)                       \
+#define ASPIRE_CONSTS_CASE(ID, D, HID, K, RQS, TARGETS)                       \
   if (dims == D) {                                                     \
     using C = aspire::Consts<D>;                                       \
     const int v[] = {C::DT,   C::PC,    C::TARGET, C::BETA,            \
@@ -1109,20 +1110,14 @@ int aspire_consts_layout(int dims, int* out, int capacity) {
 }
 
 // The packed layout of chain configuration `config`, as MmaShape
-// computes it: floats per layer, the offsets of W1, b1, W2, b2, W3 and b3,
-// the warp buffer's row stride and size, then the wide form's resident
-// part and chunk (0 for the whole-layer form), into out (up to capacity
-// entries). Returns their number, or -1 for an unknown configuration.
+// computes it (mma_layout_table), into out (up to capacity entries).
+// Returns their number, or -1 for an unknown configuration.
 int aspire_chain_layout(int config, int* out, int capacity) {
-#define ASPIRE_CHAIN_LAYOUT_CASE(ID, D, H1, H2, K, RQS, TARGETS)                  \
-  if (config == ID) {                                                   \
-    using S = aspire::MmaShape<D, H1, H2, K, RQS>;                      \
-    const int v[] = {S::SIZE, S::W1,  S::B1,    S::W2,                  \
-                     S::B2,   S::W3,  S::B3,    S::ROW,                 \
-                     S::STAGE, S::RES, S::CHUNK};                       \
-    const int count = (int)(sizeof(v) / sizeof(v[0]));                  \
-    for (int e = 0; e < count && e < capacity; ++e) out[e] = v[e];      \
-    return count;                                                       \
+#define ASPIRE_CHAIN_LAYOUT_CASE(ID, D, HID, K, RQS, TARGETS)           \
+  if (config == ID) {                                                  \
+    return aspire::mma_layout_table<                                   \
+        aspire::MmaShape<D, ASPIRE_HIDDEN HID, K, RQS>>(out, capacity, \
+                                                        false);        \
   }
   ASPIRE_CHAIN_CONFIGS(ASPIRE_CHAIN_LAYOUT_CASE)
 #undef ASPIRE_CHAIN_LAYOUT_CASE
@@ -1168,9 +1163,9 @@ int aspire_chain(
   a.user_consts = user_consts;
 #endif
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ASPIRE_CHAIN_CASE(ID, D, H1, H2, K, RQS, TARGETS) \
+#define ASPIRE_CHAIN_CASE(ID, D, HID, K, RQS, TARGETS) \
   if (config == ID) {                                     \
-    return aspire::launch_chain<D, H1, H2, K, RQS, TARGETS>(a, s); \
+    return aspire::launch_chain<D, ASPIRE_HIDDEN HID, K, RQS, TARGETS>(a, s); \
   }
   ASPIRE_CHAIN_CONFIGS(ASPIRE_CHAIN_CASE)
 #undef ASPIRE_CHAIN_CASE
@@ -1184,7 +1179,7 @@ int aspire_chain(
 int aspire_user_target(const float* x, int n, int dims, const float* c,
                        float* lpi, float* ll, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ASPIRE_USER_TARGET_CASE(ID, D, H1, H2, K, RQS, TARGETS)       \
+#define ASPIRE_USER_TARGET_CASE(ID, D, HID, K, RQS, TARGETS)       \
   if (dims == D) {                                                    \
     aspire::user_target_kernel<D><<<(n + 255) / 256, 256, 0, s>>>(    \
         x, n, c, lpi, ll);                                            \

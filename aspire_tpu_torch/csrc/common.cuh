@@ -248,34 +248,51 @@ __device__ __forceinline__ void load_shared(float4* dst,
 
 }  // namespace aspire
 
+// The hidden widths of a conditioner, in order: any number of them, each
+// a multiple of 8 (ops/fused_coupling.py::kernel_hidden pads them).
+namespace aspire {
+template <int... WIDTHS>
+struct Hidden {
+  static constexpr int N = sizeof...(WIDTHS);
+  __host__ __device__ static constexpr int width(int i) {
+    constexpr int w[] = {WIDTHS..., 0};
+    return w[i];
+  }
+};
+}  // namespace aspire
+
+// A configuration row's hidden widths, written in parentheses: (64, 64),
+// (128,), () for none, as the type Hidden<...>.
+#define ASPIRE_HIDDEN(...) aspire::Hidden<__VA_ARGS__>
+
 // Coupling-flow kernel configurations compiled into the library: (id, D,
-// H1, H2, K, RQS), hidden widths multiples of 8 (coupling_mma.cuh
+// (H...), K, RQS), hidden widths multiples of 8 (coupling_mma.cuh
 // MmaShape; an odd D pads each half of a layer to (D + 1) / 2 dims).
 // ops/fused_coupling.py::KERNEL_CONFIGS mirrors this list. Configuration 2
 // is BASELINE config 5's flow (nsf, 6 x (128, 128) at d = 32; depth is no
 // part of a configuration); 3 and 4 are nsf-tpu at d = 2 and d = 5, the
 // JAX package's validation rows (Rosenbrock, Neal's funnel).
 #define ASPIRE_COUPLING_CONFIGS(X) \
-  X(0, 4, 64, 64, 8, true)         \
-  X(1, 4, 64, 64, 1, false)        \
-  X(2, 32, 128, 128, 8, true)      \
-  X(3, 2, 64, 64, 8, true)         \
-  X(4, 5, 64, 64, 8, true)
+  X(0, 4, (64, 64), 8, true)       \
+  X(1, 4, (64, 64), 1, false)      \
+  X(2, 32, (128, 128), 8, true)    \
+  X(3, 2, (64, 64), 8, true)       \
+  X(4, 5, (64, 64), 8, true)
 
 // Configurations of the whole-chain kernel (a subset of the above), with
 // the in-kernel targets each compiles (TARGETS, chain.cu kLastTarget: 0
 // for ids 1-3, 1 for ids 1-5). ops/fused_mutation.py::CHAIN_CONFIGS
 // mirrors this list.
-#define ASPIRE_CHAIN_CONFIGS(X)  \
-  X(0, 4, 64, 64, 8, true, 0)    \
-  X(2, 32, 128, 128, 8, true, 0) \
-  X(3, 2, 64, 64, 8, true, 1)    \
-  X(4, 5, 64, 64, 8, true, 1)
+#define ASPIRE_CHAIN_CONFIGS(X)    \
+  X(0, 4, (64, 64), 8, true, 0)    \
+  X(2, 32, (128, 128), 8, true, 0) \
+  X(3, 2, (64, 64), 8, true, 1)    \
+  X(4, 5, (64, 64), 8, true, 1)
 
 // Configurations of the MAF-RQS density kernel (maf.cu, whose MafShape is
-// the packed layout): (id, D, H1, H2, K), hidden widths multiples of 8.
+// the packed layout): (id, D, (H...), K), hidden widths multiples of 8.
 // ops/fused_coupling.py::MAF_KERNEL_CONFIGS mirrors this list.
-#define ASPIRE_MAF_CONFIGS(X) X(0, 4, 64, 64, 8)
+#define ASPIRE_MAF_CONFIGS(X) X(0, 4, (64, 64), 8)
 
 // Configurations of the tile-cooperative coupling density pass
 // (staged_coupling.cu): (id, D, H1, H2, K, Q, S, PAIRED, MICRO), Q sub-tiles

@@ -4,15 +4,17 @@
 // (called through _pallas_apply, modes "forward" and "inverse").
 //
 // What bounds it on an H100: operations. Per particle and layer the
-// conditioner costs about H1*D/2 + H1*H2 + H2*A*P multiply-adds (~7.1k
-// for nsf-tpu at d = 4, three layers ~21k) against 20 bytes of input and
-// output, so device memory is idle.
+// conditioner costs about H_0*D/2 + the sum of H_j*H_{j+1} + H_last*A*P
+// multiply-adds (~7.1k for nsf-tpu at d = 4, three layers ~21k) against
+// 20 bytes of input and output, so device memory is idle.
 //
 // Design:
 // - The tensor-core coupling pass of coupling_mma.cuh, shared with the
 //   whole-chain kernel (chain.cu): a warp's 32 particles are two 16-row
-//   tiles of mma.sync m16n8k8 for the conditioner's two wide products in
-//   split TF32 (float32 accuracy), W1 on FP32 FMAs, and each thread runs
+//   tiles of mma.sync m16n8k8 for the conditioner's products past W1 (any
+//   hidden depth) in split TF32 (float32 accuracy), W1 on FP32 FMAs (with
+//   no hidden layer, the one product, each thread its own particle's),
+//   and each thread runs
 //   the transformers (spline or affine, inverse for the density pass,
 //   forward for sampling) of its own particle.
 // - Weights streamed one layer at a time. A block keeps two layer buffers
@@ -73,15 +75,15 @@ struct CouplingBlocks {
       2 * (4 * (S::BUFS + S::WARPS * S::STAGE) + 1024) <= 233472 ? 2 : 1;
 };
 
-template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
+template <int D, class HID, int K, bool RQS, bool DENSITY>
 __global__ void __launch_bounds__(
-    32 * MmaShape<D, H1, H2, K, RQS>::WARPS,
-    CouplingBlocks<MmaShape<D, H1, H2, K, RQS>>::PER_SM)
+    32 * MmaShape<D, HID, K, RQS>::WARPS,
+    CouplingBlocks<MmaShape<D, HID, K, RQS>>::PER_SM)
     coupling_kernel(const float* __restrict__ x, float* __restrict__ z,
                     float* __restrict__ log_det,
                     const float* __restrict__ weights, int n, int n_layers,
                     float tail_bound) {
-  using S = MmaShape<D, H1, H2, K, RQS>;
+  using S = MmaShape<D, HID, K, RQS>;
   extern __shared__ float4 coupling_smem4[];
   float* layers = reinterpret_cast<float*>(coupling_smem4);
   float* buf = layers + 2 * S::SIZE + (threadIdx.x >> 5) * S::STAGE;
@@ -127,15 +129,15 @@ __global__ void __launch_bounds__(
 // few hundred bytes of spill): 9-10% faster than one block of 255
 // registers (NVIDIA H100 80GB HBM3 at 700 W, PERF.md). At an odd D a
 // particle's row keeps its padding slot, dim D, at 0.
-template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
+template <int D, class HID, int K, bool RQS, bool DENSITY>
 __global__ void __launch_bounds__(
-    32 * MmaShape<D, H1, H2, K, RQS>::WARPS,
-    CouplingBlocks<MmaShape<D, H1, H2, K, RQS>>::PER_SM)
+    32 * MmaShape<D, HID, K, RQS>::WARPS,
+    CouplingBlocks<MmaShape<D, HID, K, RQS>>::PER_SM)
     coupling_kernel_wide(const float* __restrict__ x, float* __restrict__ z,
                          float* __restrict__ log_det,
                          const float* __restrict__ weights, int n,
                          int n_layers, float tail_bound) {
-  using S = MmaShape<D, H1, H2, K, RQS>;
+  using S = MmaShape<D, HID, K, RQS>;
   extern __shared__ float4 coupling_smem4[];
   float* smem = reinterpret_cast<float*>(coupling_smem4);
   WideStream<S> ws{smem, smem + 2 * S::RES, weights, n_layers, DENSITY, 0};
@@ -159,10 +161,10 @@ __global__ void __launch_bounds__(
   if (first + lane < (size_t)n) log_det[first + lane] = ld;
 }
 
-template <int D, int H1, int H2, int K, bool RQS, bool DENSITY>
+template <int D, class HID, int K, bool RQS, bool DENSITY>
 int launch_coupling(const float* x, float* z, float* ld, const float* w,
                     int n, int n_layers, float tb, cudaStream_t stream) {
-  using S = MmaShape<D, H1, H2, K, RQS>;
+  using S = MmaShape<D, HID, K, RQS>;
   if (n <= 0 || n_layers <= 0) return 0;
   static_assert(S::WARPS >= 1, "no block of this shape fits an SM");
   const int sms = current_device_limits().sms;
@@ -176,9 +178,9 @@ int launch_coupling(const float* x, float* z, float* ld, const float* w,
   const int max_smem = (int)sizeof(float) * (S::BUFS + S::WARPS * S::STAGE);
   void (*kernel)(const float*, float*, float*, const float*, int, int, float);
   if constexpr (S::WIDE) {
-    kernel = coupling_kernel_wide<D, H1, H2, K, RQS, DENSITY>;
+    kernel = coupling_kernel_wide<D, HID, K, RQS, DENSITY>;
   } else {
-    kernel = coupling_kernel<D, H1, H2, K, RQS, DENSITY>;
+    kernel = coupling_kernel<D, HID, K, RQS, DENSITY>;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
@@ -202,21 +204,15 @@ int aspire_max_shared_bytes() {
 }
 
 // The packed layout of coupling configuration `config`, as MmaShape
-// computes it: floats per layer, the offsets of W1, b1, W2, b2, W3 and b3,
-// the warp buffer's row stride and size, the wide form's resident part and
-// chunk (0 for the whole-layer form), then the most warps per block,
-// into out (up to capacity entries). Returns their number, or -1 for an
-// unknown configuration.
+// computes it (mma_layout_table, with the most warps per block last), into
+// out (up to capacity entries). Returns their number, or -1 for an unknown
+// configuration.
 int aspire_coupling_layout(int config, int* out, int capacity) {
-#define ASPIRE_COUPLING_LAYOUT_CASE(ID, D, H1, H2, K, RQS)              \
+#define ASPIRE_COUPLING_LAYOUT_CASE(ID, D, HID, K, RQS)                 \
   if (config == ID) {                                                  \
-    using S = aspire::MmaShape<D, H1, H2, K, RQS>;                     \
-    const int v[] = {S::SIZE,  S::W1,  S::B1,    S::W2,                \
-                     S::B2,    S::W3,  S::B3,    S::ROW,               \
-                     S::STAGE, S::RES, S::CHUNK, S::WARPS};            \
-    const int count = (int)(sizeof(v) / sizeof(v[0]));                 \
-    for (int e = 0; e < count && e < capacity; ++e) out[e] = v[e];     \
-    return count;                                                      \
+    return aspire::mma_layout_table<                                   \
+        aspire::MmaShape<D, ASPIRE_HIDDEN HID, K, RQS>>(out, capacity, \
+                                                        true);         \
   }
   ASPIRE_COUPLING_CONFIGS(ASPIRE_COUPLING_LAYOUT_CASE)
 #undef ASPIRE_COUPLING_LAYOUT_CASE
@@ -230,12 +226,13 @@ int aspire_coupling(const float* x, float* z, float* log_det,
                     float tail_bound, int config, int density,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ASPIRE_COUPLING_CASE(ID, D, H1, H2, K, RQS)                        \
+#define ASPIRE_COUPLING_CASE(ID, D, HID, K, RQS)                          \
   if (config == ID) {                                                     \
-    return density ? aspire::launch_coupling<D, H1, H2, K, RQS, true>(    \
+    using H = ASPIRE_HIDDEN HID;                                          \
+    return density ? aspire::launch_coupling<D, H, K, RQS, true>(         \
                          x, z, log_det, weights, n, n_layers, tail_bound, \
                          s)                                               \
-                   : aspire::launch_coupling<D, H1, H2, K, RQS, false>(   \
+                   : aspire::launch_coupling<D, H, K, RQS, false>(        \
                          x, z, log_det, weights, n, n_layers, tail_bound, \
                          s);                                              \
   }

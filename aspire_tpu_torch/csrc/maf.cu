@@ -16,10 +16,12 @@
 // logarithms), about half of the time each (PERF.md).
 //
 // Design:
-// - Tensor cores. The two wide products, h1 (16 x H1) . W2 and h2 (16 x
-//   H2) . W3, run as mma.sync m16n8k8 TF32 over a tile of 16 particles per
-//   warp, in split form (3xTF32): every operand is a = hi + lo in two TF32
-//   values and each product takes lo.hi + hi.lo + hi.hi, which keeps
+// - Tensor cores. The products past the first layer (with two hidden
+//   layers h1 (16 x H1) . W2 and h2 (16 x H2) . W3; any depth takes each
+//   hidden product in turn, and with none the inputs are W3's A
+//   fragments), run as mma.sync m16n8k8 TF32 over a tile of 16 particles
+//   per warp, in split form (3xTF32): every operand is a = hi + lo in two
+//   TF32 values and each product takes lo.hi + hi.lo + hi.hi, which keeps
 //   float32 accuracy (single-pass TF32 keeps about three decimal digits,
 //   and the spline parameters pass through four splines). The packed
 //   weights are stored as such sums already, so their split is exact and
@@ -78,27 +80,44 @@ constexpr int kMafMaxWarps = 16;  // warps per block, as shared memory allows
 // Packed MAF weight layout (built by ops/fused_coupling.py::
 // prepare_maf_params), per flow layer, hidden units sorted by MADE degree
 // (degree j % (D - 1) + 1 of unit j, stably sorted), every weight
-// premultiplied by its mask, every W2 and W3 weight rounded to the sum of
-// two TF32 values (split_tf32_sum):
-//   W1  (H1 x D)        W1[u*D + i] = w0[i][unit u] * m0
-//   b1  (H1)
-//   W2  F2 fragments    n-tile j (units 8j..8j+7) for k-steps s < ks2(j)
-//   b2  (H2)
+// premultiplied by its mask, every hidden-product and W3 weight rounded to
+// the sum of two TF32 values (split_tf32_sum). With NH hidden layers of
+// widths H_0 .. H_{NH-1}:
+//   W1  (H_0 x D)       W1[u*D + i] = w0[i][unit u] * m0
+//   b1  (H_0)
+//   per hidden product j < NH - 1 (h_j -> h_{j+1}; W2 and b2 for j = 0):
+//   WH_j  FH(j) fragments  n-tile n (units 8n..8n+7 of h_{j+1}) for
+//                         k-steps s < ksh(j, n)
+//   BH_j  (H_{j+1})
 //   W3  F3 fragments    dim i, k-step s < ks3(i), n-tile m < NT
-//   b3  (D x G)         b3[i*G + q] = b2[i*P + q], q < P
+//   b3  (D x G)         b3[i*G + q] = b_out[i*P + q], q < P
 // A fragment is 32 lanes x 2 floats: lane 4g + t holds W[8s + 2t][8j + g]
 // and W[8s + 2t + 1][8j + g] (rows: sorted input units, columns: sorted
 // output units or the D x G parameter columns). P = 3K - 1 spline
-// parameters of a dim are padded to G = a multiple of 8. MafBlocks counts
-// the kept blocks; MafShape, complete only once MafBlocks is, places the
-// sections.
-template <int D, int H1, int H2, int K>
+// parameters of a dim are padded to G = a multiple of 8. With no hidden
+// layer W3's rows are the inputs (dim i reads inputs < i) and the layer is
+// W3 and b3 alone. MafBlocks counts the kept blocks and places the
+// sections; MafShape, complete only once MafBlocks is, holds them.
+template <int D, class HID, int K>
 struct MafBlocks {
-  static_assert(H1 % 8 == 0 && H2 % 8 == 0, "hidden widths must be /8");
+  static constexpr int NH = HID::N;  // hidden layers
+  __host__ __device__ static constexpr int HW(int i) { return HID::width(i); }
+  __host__ __device__ static constexpr int KS(int i) {
+    return HID::width(i) / 8;
+  }
+  static constexpr int H1 = NH ? HID::width(0) : 0;       // first hidden
+  static constexpr int HL = NH ? HID::width(NH - 1) : 0;  // last hidden
   static constexpr int P = 3 * K - 1;
   static constexpr int G = (P + 7) / 8 * 8;
   static constexpr int NT = G / 8;  // n-tiles per dim
   static constexpr int MD = D > 1 ? D - 1 : 1;  // highest hidden degree
+  static constexpr int DIMS = D;
+  __host__ __device__ static constexpr bool widths_ok() {
+    for (int i = 0; i < NH; ++i) {
+      if (HW(i) <= 0 || HW(i) % 8) return false;
+    }
+    return true;
+  }
   // Hidden units of degree <= d among h units (the sorted segment ends).
   __host__ __device__ static constexpr int ends(int h, int d) {
     int c = 0;
@@ -111,35 +130,57 @@ struct MafBlocks {
     while (d < MD && u >= ends(h, d)) ++d;
     return d;
   }
-  // k-steps of W2 for n-tile j, of W3 for dim i.
-  __host__ __device__ static constexpr int ks2(int j) {
-    return (ends(H1, degree(H2, 8 * j + 7)) + 7) / 8;
+  // k-steps of hidden product j for n-tile n; of W2 (j = 0) for n-tile n;
+  // of W3 for dim i (the last hidden layer's units of degree <= i, or with
+  // no hidden layer the inputs below i).
+  __host__ __device__ static constexpr int ksh(int j, int n) {
+    return (ends(HW(j), degree(HW(j + 1), 8 * n + 7)) + 7) / 8;
   }
+  __host__ __device__ static constexpr int ks2(int n) { return ksh(0, n); }
   __host__ __device__ static constexpr int ks3(int i) {
-    return (ends(H2, i) + 7) / 8;
+    return ((NH ? ends(HL, i) : (i < D ? i : D)) + 7) / 8;
   }
-  __host__ __device__ static constexpr int f2_before(int j) {
+  __host__ __device__ static constexpr int fh_before(int j, int n) {
     int f = 0;
-    for (int q = 0; q < j; ++q) f += ks2(q);
+    for (int q = 0; q < n; ++q) f += ksh(j, q);
     return f;
+  }
+  __host__ __device__ static constexpr int f2_before(int n) {
+    return fh_before(0, n);
+  }
+  __host__ __device__ static constexpr int FH(int j) {
+    return fh_before(j, KS(j + 1));
   }
   __host__ __device__ static constexpr int f3_before(int i) {
     int f = 0;
     for (int q = 0; q < i; ++q) f += NT * ks3(q);
     return f;
   }
+  static constexpr int W1 = NH ? 0 : -1;
+  static constexpr int B1 = NH ? round4(H1 * D) : -1;
+  // Offsets of hidden product j's fragments (WH) and bias (BH).
+  __host__ __device__ static constexpr int WH(int j) {
+    return j == 0 ? round4(B1 + H1) : round4(BH(j - 1) + HW(j));
+  }
+  __host__ __device__ static constexpr int BH(int j) {
+    return WH(j) + 64 * FH(j);
+  }
+  __host__ __device__ static constexpr int w3_offset() {
+    return NH == 0   ? 0
+           : NH == 1 ? round4(B1 + H1)
+                     : round4(BH(NH - 2) + HL);
+  }
 };
 
-template <int D, int H1, int H2, int K>
-struct MafShape : MafBlocks<D, H1, H2, K> {
-  using B = MafBlocks<D, H1, H2, K>;
-  static constexpr int F2 = B::f2_before(H2 / 8);
+template <int D, class HID, int K>
+struct MafShape : MafBlocks<D, HID, K> {
+  using B = MafBlocks<D, HID, K>;
+  static_assert(B::widths_ok(), "hidden widths must be /8");
+  static constexpr int F2 = B::NH >= 2 ? B::FH(0) : 0;
   static constexpr int F3 = B::f3_before(D);
-  static constexpr int W1 = 0;
-  static constexpr int B1 = round4(W1 + H1 * D);
-  static constexpr int W2 = round4(B1 + H1);
-  static constexpr int B2 = W2 + 64 * F2;
-  static constexpr int W3 = round4(B2 + H2);
+  static constexpr int W2 = B::NH >= 2 ? B::WH(0) : -1;
+  static constexpr int B2 = B::NH >= 2 ? B::BH(0) : -1;
+  static constexpr int W3 = B::w3_offset();
   static constexpr int B3 = W3 + 64 * F3;
   static constexpr int SIZE = round4(B3 + D * B::G);  // floats per layer
   // Per-warp shared buffer: the tile's coordinates (16 x D) and the
@@ -210,79 +251,149 @@ __device__ __forceinline__ void mma_split(float (&acc)[4],
   for (int i = 0; i < 4; ++i) acc[i] += d[i];
 }
 
-// One MADE over the warp's tile (coordinates xs, [16][D]): the spline
-// parameters of dims 1..D-1 into raw ([D - 1][16][G]). Lane 4g + t owns
-// particles g and g + 8 of every fragment.
-template <int D, int H1, int H2, int K>
-__device__ __forceinline__ void maf_made(const float* __restrict__ w,
-                                         const float* __restrict__ xs,
-                                         float* __restrict__ raw, int lane) {
-  using S = MafShape<D, H1, H2, K>;
+// The A fragment of k-step s of the first hidden layer (h_0 = relu(W1 x +
+// b1), a unit of degree d reading the inputs below d) for the tile's rows
+// g and g + 8 (their inputs xa, xb): units 8s + 2t and 8s + 2t + 1, in
+// A-fragment order (g, u0), (g + 8, u0), (g, u1), (g + 8, u1). W1 and b1
+// at w's offsets S::W1, S::B1 (the layer's, or a streamed head's).
+template <class S>
+__device__ __forceinline__ void maf_first_values(const float* __restrict__ w,
+                                                 const float (&xa)[S::MD],
+                                                 const float (&xb)[S::MD],
+                                                 int s, int t, float (&h)[4]) {
   constexpr int MD = S::MD;
-  const int g = lane >> 2, t = lane & 3;
-  float xa[MD], xb[MD];
 #pragma unroll
-  for (int i = 0; i < MD; ++i) {
-    xa[i] = xs[g * D + i];
-    xb[i] = xs[(g + 8) * D + i];
-  }
-  // Second hidden layer's accumulators, one fragment per n-tile.
-  float acc[H2 / 8][4];
+  for (int c = 0; c < 2; ++c) {
+    const int u = 8 * s + 2 * t + c;
+    int deg = 1;
+    static_for<MD - 1>([&](auto d_) {
+      constexpr int e = S::ends(S::H1, decltype(d_)::value + 1);
+      deg += u >= e ? 1 : 0;
+    });
+    float a = 0.f, b = 0.f;
 #pragma unroll
-  for (int j = 0; j < H2 / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  }
-  static_for<H1 / 8>([&](auto s_) {
-    constexpr int s = decltype(s_)::value;
-    // First hidden layer, units 8s + 2t and 8s + 2t + 1, in A-fragment
-    // order: (g, u0), (g + 8, u0), (g, u1), (g + 8, u1).
-    float h[4];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int u = 8 * s + 2 * t + c;
-      int deg = 1;
-      static_for<MD - 1>([&](auto d_) {
-        constexpr int e = S::ends(H1, decltype(d_)::value + 1);
-        deg += u >= e ? 1 : 0;
-      });
-      float a = 0.f, b = 0.f;
-#pragma unroll
-      for (int i = 0; i < MD; ++i) {
-        if (i < deg) {
-          const float wi = w[S::W1 + u * D + i];
-          a = fmaf(wi, xa[i], a);
-          b = fmaf(wi, xb[i], b);
-        }
+    for (int i = 0; i < MD; ++i) {
+      if (i < deg) {
+        const float wi = w[S::W1 + u * S::DIMS + i];
+        a = fmaf(wi, xa[i], a);
+        b = fmaf(wi, xb[i], b);
       }
-      const float bias = w[S::B1 + u];
-      h[2 * c] = fmaxf(a + bias, 0.f);
-      h[2 * c + 1] = fmaxf(b + bias, 0.f);
     }
-    uint32_t hh[4], hl[4];
+    const float bias = w[S::B1 + u];
+    h[2 * c] = fmaxf(a + bias, 0.f);
+    h[2 * c + 1] = fmaxf(b + bias, 0.f);
+  }
+}
+
+template <class S>
+struct MafFirstFragment {
+  const float* __restrict__ w;
+  const float (&xa)[S::MD];
+  const float (&xb)[S::MD];
+  int t;
+
+  __device__ __forceinline__ void operator()(int s, uint32_t (&hh)[4],
+                                             uint32_t (&hl)[4]) const {
+    float h[4];
+    maf_first_values<S>(w, xa, xb, s, t, h);
 #pragma unroll
     for (int r = 0; r < 4; ++r) split_tf32(h[r], hh[r], hl[r]);
-    static_for<H2 / 8>([&](auto j_) {
+  }
+};
+
+// The A fragment of k-step s of a product whose input is a hidden layer
+// held as accumulator fragments: the accumulator of n-tile s, (g, 2t),
+// (g, 2t+1), (g+8, 2t), (g+8, 2t+1), is the A fragment of k-step s in the
+// order (g, 2t), (g+8, 2t), (g, 2t+1), (g+8, 2t+1).
+template <int N>
+struct MafAccFragment {
+  const float (&acc)[N][4];
+
+  __device__ __forceinline__ void operator()(int s, uint32_t (&ah)[4],
+                                             uint32_t (&al)[4]) const {
+    split_tf32(acc[s][0], ah[0], al[0]);
+    split_tf32(acc[s][2], ah[1], al[1]);
+    split_tf32(acc[s][1], ah[2], al[2]);
+    split_tf32(acc[s][3], ah[3], al[3]);
+  }
+};
+
+// The A fragment of k-step s of the inputs themselves (no hidden layer):
+// x[row][8s + 2t + e] of the tile's rows g and g + 8 (xs, [16][D]), 0 past
+// D.
+template <int D>
+struct MafInputFragment {
+  const float* __restrict__ xs;
+  int g, t;
+
+  __device__ __forceinline__ void operator()(int s, uint32_t (&ah)[4],
+                                             uint32_t (&al)[4]) const {
+    const int c = 8 * s + 2 * t;
+    const float v[4] = {c < D ? xs[g * D + c] : 0.f,
+                        c < D ? xs[(g + 8) * D + c] : 0.f,
+                        c + 1 < D ? xs[g * D + c + 1] : 0.f,
+                        c + 1 < D ? xs[(g + 8) * D + c + 1] : 0.f};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_tf32(v[r], ah[r], al[r]);
+  }
+};
+
+// h_{j+1} += over the k-steps each n-tile reads (ksh(j, n), block
+// triangular) of hidden product j, A from frag (h_j), the fragments at
+// w + at (the product's, in fh_before order); k-step outer.
+template <class S, int J, int KMAX, class Frag>
+__device__ __forceinline__ void maf_hidden_product(
+    const float* __restrict__ w, int at, const Frag& frag,
+    float (&acc)[S::KS(J + 1)][4], int lane) {
+  static_for<KMAX>([&](auto s_) {
+    constexpr int s = decltype(s_)::value;
+    uint32_t hh[4], hl[4];
+    frag(s, hh, hl);
+    static_for<S::KS(J + 1)>([&](auto j_) {
       constexpr int j = decltype(j_)::value;
-      if constexpr (s < S::ks2(j)) {
-        constexpr int off = S::W2 + 64 * (S::f2_before(j) + s);
+      if constexpr (s < S::ksh(J, j)) {
+        constexpr int off = 64 * (S::fh_before(J, j) + s);
         mma_split(acc[j], hh, hl,
-                  *reinterpret_cast<const float2*>(w + off + 2 * lane));
+                  *reinterpret_cast<const float2*>(w + at + off + 2 * lane));
       }
     });
   });
-  // h2 = relu(acc + b2), kept as the accumulator fragments.
+}
+
+// h = relu(acc + b) for the first COUNT n-tiles, the bias at b, kept as
+// the accumulator fragments.
+template <int COUNT, int N>
+__device__ __forceinline__ void maf_bias_relu(const float* __restrict__ b,
+                                              float (&acc)[N][4], int t) {
 #pragma unroll
-  for (int j = 0; j < H2 / 8; ++j) {
-    const float2 bias =
-        *reinterpret_cast<const float2*>(w + S::B2 + 8 * j + 2 * t);
+  for (int j = 0; j < COUNT; ++j) {
+    const float2 bias = *reinterpret_cast<const float2*>(b + 8 * j + 2 * t);
     acc[j][0] = fmaxf(acc[j][0] + bias.x, 0.f);
     acc[j][1] = fmaxf(acc[j][1] + bias.y, 0.f);
     acc[j][2] = fmaxf(acc[j][2] + bias.x, 0.f);
     acc[j][3] = fmaxf(acc[j][3] + bias.y, 0.f);
   }
-  // Output layer, dims 1..D-1 (dim 0's parameters are its bias), k-step
-  // outer so every dim's n-tiles are independent products in flight.
-  constexpr int DO = D > 1 ? D - 1 : 1;
+}
+
+template <int N>
+__device__ __forceinline__ void maf_zero(float (&acc)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+}
+
+// The output layer of one MADE over the warp's tile, dims 1..D-1 (dim 0's
+// parameters are its bias), A of k-step s from frag, k-step outer so every
+// dim's n-tiles are independent products in flight; the spline parameters
+// into raw ([D - 1][16][G]).
+template <class S, class Frag>
+__device__ __forceinline__ void maf_output(const float* __restrict__ w,
+                                           const Frag& frag,
+                                           float* __restrict__ raw,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  constexpr int DO = S::DIMS > 1 ? S::DIMS - 1 : 1;
   float out[DO][S::NT][4];
 #pragma unroll
   for (int i = 0; i < DO; ++i) {
@@ -291,17 +402,11 @@ __device__ __forceinline__ void maf_made(const float* __restrict__ w,
       out[i][m][0] = out[i][m][1] = out[i][m][2] = out[i][m][3] = 0.f;
     }
   }
-  static_for<S::ks3(D - 1)>([&](auto s_) {
+  static_for<S::ks3(S::DIMS - 1)>([&](auto s_) {
     constexpr int s = decltype(s_)::value;
-    // The accumulator of n-tile s, (g, 2t), (g, 2t+1), (g+8, 2t),
-    // (g+8, 2t+1), is the A fragment of k-step s in the order (g, 2t),
-    // (g+8, 2t), (g, 2t+1), (g+8, 2t+1).
     uint32_t ah[4], al[4];
-    split_tf32(acc[s][0], ah[0], al[0]);
-    split_tf32(acc[s][2], ah[1], al[1]);
-    split_tf32(acc[s][1], ah[2], al[2]);
-    split_tf32(acc[s][3], ah[3], al[3]);
-    static_for<D - 1>([&](auto i_) {
+    frag(s, ah, al);
+    static_for<S::DIMS - 1>([&](auto i_) {
       constexpr int i = decltype(i_)::value + 1;
       if constexpr (s < S::ks3(i)) {
         static_for<S::NT>([&](auto m_) {
@@ -314,7 +419,7 @@ __device__ __forceinline__ void maf_made(const float* __restrict__ w,
       }
     });
   });
-  static_for<D - 1>([&](auto i_) {
+  static_for<S::DIMS - 1>([&](auto i_) {
     constexpr int i = decltype(i_)::value + 1;
     float* r = raw + (i - 1) * kMafTile * S::G;
 #pragma unroll
@@ -330,16 +435,71 @@ __device__ __forceinline__ void maf_made(const float* __restrict__ w,
   });
 }
 
+// The MADE from hidden layer J (its activations in acc) on: each further
+// hidden product, then the output layer.
+template <class S, int J>
+__device__ __forceinline__ void maf_made_rest(const float* __restrict__ w,
+                                              const float (&acc)[S::KS(J)][4],
+                                              float* __restrict__ raw,
+                                              int lane) {
+  if constexpr (J + 1 < S::NH) {
+    float next[S::KS(J + 1)][4];
+    maf_zero(next);
+    maf_hidden_product<S, J, S::ksh(J, S::KS(J + 1) - 1)>(
+        w, S::WH(J), MafAccFragment<S::KS(J)>{acc}, next, lane);
+    maf_bias_relu<S::KS(J + 1)>(w + S::BH(J), next, lane & 3);
+    maf_made_rest<S, J + 1>(w, next, raw, lane);
+  } else {
+    maf_output<S>(w, MafAccFragment<S::KS(J)>{acc}, raw, lane);
+  }
+}
+
+// One MADE over the warp's tile (coordinates xs, [16][D]): the spline
+// parameters of dims 1..D-1 into raw ([D - 1][16][G]). Lane 4g + t owns
+// particles g and g + 8 of every fragment. h_0 comes from the FMAs k-step
+// by k-step straight into the first tensor product (W2, or with one hidden
+// layer W3); with no hidden layer the inputs are W3's A fragments.
+template <int D, class HID, int K>
+__device__ __forceinline__ void maf_made(const float* __restrict__ w,
+                                         const float* __restrict__ xs,
+                                         float* __restrict__ raw, int lane) {
+  using S = MafShape<D, HID, K>;
+  constexpr int MD = S::MD;
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (S::NH == 0) {
+    maf_output<S>(w, MafInputFragment<D>{xs, g, t}, raw, lane);
+  } else {
+    float xa[MD], xb[MD];
+#pragma unroll
+    for (int i = 0; i < MD; ++i) {
+      xa[i] = xs[g * D + i];
+      xb[i] = xs[(g + 8) * D + i];
+    }
+    const MafFirstFragment<S> first{w, xa, xb, t};
+    if constexpr (S::NH == 1) {
+      maf_output<S>(w, first, raw, lane);
+    } else {
+      // Second hidden layer's accumulators, one fragment per n-tile.
+      float acc[S::KS(1)][4];
+      maf_zero(acc);
+      maf_hidden_product<S, 0, S::KS(0)>(w, S::W2, first, acc, lane);
+      // h2 = relu(acc + b2), kept as the accumulator fragments.
+      maf_bias_relu<S::KS(1)>(w + S::B2, acc, t);
+      maf_made_rest<S, 1>(w, acc, raw, lane);
+    }
+  }
+}
+
 // The inverse spline of every (particle, dim) of the tile, then the
 // reversal of dims, in place in xs. Lane l takes the pairs e = l, l + 32,
 // ... (particle e % 16, dim e / 16), all of one particle. Returns the
 // lane's log-det sum.
-template <int D, int H1, int H2, int K>
+template <int D, class HID, int K>
 __device__ __forceinline__ float maf_splines(const float* __restrict__ w,
                                              float* __restrict__ xs,
                                              const float* __restrict__ raw,
                                              int lane, float tb) {
-  using S = MafShape<D, H1, H2, K>;
+  using S = MafShape<D, HID, K>;
   constexpr int R = (kMafTile * D + 31) / 32;
   const int p = lane & (kMafTile - 1);
   float y[R];
@@ -374,12 +534,12 @@ __device__ __forceinline__ float maf_splines(const float* __restrict__ w,
   return ld;
 }
 
-template <int D, int H1, int H2, int K>
+template <int D, class HID, int K>
 __global__ void __launch_bounds__(32 * kMafMaxWarps, 1)
     maf_kernel(const float* __restrict__ x, float* __restrict__ z,
                float* __restrict__ log_det, const float* __restrict__ weights,
                int n, int n_layers, float tail_bound) {
-  using S = MafShape<D, H1, H2, K>;
+  using S = MafShape<D, HID, K>;
   extern __shared__ float4 maf_smem4[];
   float* smem = reinterpret_cast<float*>(maf_smem4);
   load_shared(maf_smem4, reinterpret_cast<const float4*>(weights),
@@ -402,9 +562,9 @@ __global__ void __launch_bounds__(32 * kMafMaxWarps, 1)
 #pragma unroll 1
     for (int layer = 0; layer < n_layers; ++layer) {
       const float* w = smem + layer * S::SIZE;
-      maf_made<D, H1, H2, K>(w, xs, raw, lane);
+      maf_made<D, HID, K>(w, xs, raw, lane);
       __syncwarp();
-      ld += maf_splines<D, H1, H2, K>(w, xs, raw, lane, tail_bound);
+      ld += maf_splines<D, HID, K>(w, xs, raw, lane, tail_bound);
     }
     // A particle's pairs are split over lanes p and p + 16.
     ld += __shfl_xor_sync(0xffffffffu, ld, 16);
@@ -418,60 +578,92 @@ __global__ void __launch_bounds__(32 * kMafMaxWarps, 1)
 
 #ifdef ASPIRE_STREAMED
 // The streamed form's layout of the same packing (MafShape): per layer a
-// head (W1 and b1, b2, b3) copied to a buffer of its own (HEAD floats,
-// two: this layer's and the next), then items through two slots of SLOT
-// floats: W2's fragments by chunks of n-tiles (chunk c: n-tiles
-// w2_start(c) .. w2_end(w2_start(c)) - 1, at most kMafChunkFrags
-// fragments unless one n-tile has more), then W3's by chunks of two dims
-// (chunk q: dims 2q and 2q + 1, from chunk_start(q) floats past W3). A
-// warp's buffer: its tile's coordinates in and out ([16][D] each; dims
-// reversed as they are written out) and two dims' spline parameters
-// ([16][PROW]).
+// head (W1 and b1, every hidden product's bias, b3) copied to a buffer of
+// its own (HEAD floats, two: this layer's and the next), then items
+// through two slots of SLOT floats: each hidden product's fragments by
+// chunks of n-tiles (product j's chunk c: n-tiles wstart(j, c) ..
+// wend(j, wstart(j, c)) - 1, at most kMafChunkFrags fragments unless one
+// n-tile has more), then W3's by chunks of two dims (chunk q: dims 2q and
+// 2q + 1, from chunk_start(q) floats past W3). A warp's buffer: its tile's
+// coordinates in and out ([16][D] each; dims reversed as they are written
+// out) and two dims' spline parameters ([16][PROW]).
 constexpr int kMafChunkFrags = 64;
 
-template <int D, int H1, int H2, int K>
-struct MafStream : MafShape<D, H1, H2, K> {
-  using S = MafShape<D, H1, H2, K>;
-  static constexpr int NT2 = H2 / 8;
-  __host__ __device__ static constexpr int w2_end(int j) {
+template <int D, class HID, int K>
+struct MafStream : MafShape<D, HID, K> {
+  using S = MafShape<D, HID, K>;
+  __host__ __device__ static constexpr int wend(int p, int j) {
     int f = 0, e = j;
-    while (e < NT2 && (e == j || f + S::ks2(e) <= kMafChunkFrags)) {
-      f += S::ks2(e);
+    while (e < S::KS(p + 1) &&
+           (e == j || f + S::ksh(p, e) <= kMafChunkFrags)) {
+      f += S::ksh(p, e);
       ++e;
     }
     return e;
   }
-  __host__ __device__ static constexpr int w2_start(int c) {
+  __host__ __device__ static constexpr int wstart(int p, int c) {
     int j = 0;
-    for (int i = 0; i < c; ++i) j = w2_end(j);
+    for (int i = 0; i < c; ++i) j = wend(p, j);
     return j;
   }
-  __host__ __device__ static constexpr int w2_chunks() {
+  __host__ __device__ static constexpr int wchunks(int p) {
     int c = 0;
-    for (int j = 0; j < NT2; j = w2_end(j)) ++c;
+    for (int j = 0; j < S::KS(p + 1); j = wend(p, j)) ++c;
     return c;
   }
-  static constexpr int NW = w2_chunks();
+  // Items of the hidden products before product p's first.
+  __host__ __device__ static constexpr int item_base(int p) {
+    int c = 0;
+    for (int q = 0; q < p; ++q) c += wchunks(q);
+    return c;
+  }
+  static constexpr int NW = item_base(S::NH > 1 ? S::NH - 1 : 0);
+  // The hidden product of item i < NW.
+  __host__ __device__ static constexpr int product_of(int i) {
+    int p = 0;
+    while (i >= item_base(p + 1)) ++p;
+    return p;
+  }
   static constexpr int NQ = (D + 1) / 2;
   __host__ __device__ static constexpr int chunk_start(int q) {
     return 64 * S::f3_before(2 * q < D ? 2 * q : D);
   }
+  // Item i of a layer: its offset in the layer and its floats.
+  __host__ __device__ static constexpr int item_offset(int i) {
+    for (int p = 0; p + 1 < S::NH; ++p) {
+      if (i < item_base(p + 1)) {
+        return S::WH(p) + 64 * S::fh_before(p, wstart(p, i - item_base(p)));
+      }
+    }
+    return S::W3 + chunk_start(i - NW);
+  }
+  __host__ __device__ static constexpr int item_floats(int i) {
+    for (int p = 0; p + 1 < S::NH; ++p) {
+      if (i < item_base(p + 1)) {
+        const int j = wstart(p, i - item_base(p));
+        return 64 * (S::fh_before(p, wend(p, j)) - S::fh_before(p, j));
+      }
+    }
+    return chunk_start(i - NW + 1) - chunk_start(i - NW);
+  }
   __host__ __device__ static constexpr int max_chunk() {
     int m = 0;
-    for (int c = 0; c < NW; ++c) {
-      const int j = w2_start(c);
-      const int f = 64 * (S::f2_before(w2_end(j)) - S::f2_before(j));
-      m = f > m ? f : m;
-    }
-    for (int q = 0; q < NQ; ++q) {
-      const int f = chunk_start(q + 1) - chunk_start(q);
-      m = f > m ? f : m;
+    for (int i = 0; i < NW + NQ; ++i) {
+      m = item_floats(i) > m ? item_floats(i) : m;
     }
     return m;
   }
   static constexpr int SLOT = round4(max_chunk());
-  static constexpr int HB2 = S::W2;         // the head: W1, b1 (as packed),
-  static constexpr int HB3 = S::W2 + H2;    // b2, b3
+  // The head: W1 and b1 (as packed, up to the first streamed section),
+  // then each hidden product's bias, then b3.
+  static constexpr int FIRST = S::NH >= 2 ? S::W2 : S::W3;
+  __host__ __device__ static constexpr int hbh(int p) {
+    int o = FIRST;
+    for (int q = 0; q < p; ++q) o += S::HW(q + 1);
+    return o;
+  }
+  static constexpr int HB2 = FIRST;  // b2's place in the head
+  static constexpr int HB3 = hbh(S::NH > 1 ? S::NH - 1 : 0);
   static constexpr int HEAD = round4(HB3 + D * S::G);
   static constexpr int PROW = 2 * S::G + 4;
   static constexpr int XS = round4(kMafTile * D);
@@ -502,61 +694,38 @@ __device__ __forceinline__ void copy_async(float* dst,
   }
 }
 
-// The block starts copying layer w's head (W1, b1, b2, b3) into head.
+// The block starts copying layer w's head (W1, b1, each hidden product's
+// bias, b3) into head.
 template <class T>
 __device__ __forceinline__ void copy_head(float* head,
                                           const float* __restrict__ w) {
-  copy_async(head, w, T::HB2);
-  copy_async(head + T::HB2, w + T::B2, T::HB3 - T::HB2);
+  copy_async(head, w, T::FIRST);
+  static_for<(T::NH > 1 ? T::NH - 1 : 0)>([&](auto p_) {
+    constexpr int p = decltype(p_)::value;
+    copy_async(head + T::hbh(p), w + T::BH(p), T::HW(p + 1));
+  });
   copy_async(head + T::HB3, w + T::B3, T::HEAD - T::HB3);
 }
 
-// W2 chunk C's products into acc (maf_made's second layer for its
-// n-tiles), the first layer's k-steps recomputed from the head's W1 and
-// b1 and the tile's inputs (xa, xb: rows g and g + 8), for the k-steps the
-// chunk's n-tiles read; w2 holds the chunk's fragments.
-template <int D, int H1, int H2, int K, int C>
-__device__ __forceinline__ void maf_w2_chunk(
-    const float* __restrict__ head, const float* __restrict__ w2,
-    const float (&xa)[MafShape<D, H1, H2, K>::MD],
-    const float (&xb)[MafShape<D, H1, H2, K>::MD], float (&acc)[H2 / 8][4],
+// Hidden product P's chunk C (its n-tiles' fragments at w2) into acc:
+// for P = 0 the first layer's k-steps recomputed from the head's W1 and b1
+// and the tile's inputs (xa, xb: rows g and g + 8) for the k-steps the
+// chunk's n-tiles read; else A from the last hidden layer (prev).
+template <class T, int P, int C, class Frag, int N>
+__device__ __forceinline__ void maf_product_chunk(
+    const float* __restrict__ w2, const Frag& frag, float (&acc)[N][4],
     int lane) {
-  using T = MafStream<D, H1, H2, K>;
-  constexpr int MD = T::MD;
-  constexpr int J0 = T::w2_start(C), J1 = T::w2_end(J0);
-  const int t = lane & 3;
+  constexpr int J0 = T::wstart(P, C), J1 = T::wend(P, J0);
   // Degrees are sorted, so the chunk's last n-tile reads the most k-steps.
-  static_for<T::ks2(J1 - 1)>([&](auto s_) {
+  static_for<T::ksh(P, J1 - 1)>([&](auto s_) {
     constexpr int s = decltype(s_)::value;
-    float h[4];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int u = 8 * s + 2 * t + c;
-      int deg = 1;
-      static_for<MD - 1>([&](auto d_) {
-        constexpr int e = T::ends(H1, decltype(d_)::value + 1);
-        deg += u >= e ? 1 : 0;
-      });
-      float a = 0.f, b = 0.f;
-#pragma unroll
-      for (int i = 0; i < MD; ++i) {
-        if (i < deg) {
-          const float wi = head[T::W1 + u * D + i];
-          a = fmaf(wi, xa[i], a);
-          b = fmaf(wi, xb[i], b);
-        }
-      }
-      const float bias = head[T::B1 + u];
-      h[2 * c] = fmaxf(a + bias, 0.f);
-      h[2 * c + 1] = fmaxf(b + bias, 0.f);
-    }
     uint32_t hh[4], hl[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) split_tf32(h[r], hh[r], hl[r]);
+    frag(s, hh, hl);
     static_for<J1 - J0>([&](auto j_) {
       constexpr int j = J0 + decltype(j_)::value;
-      if constexpr (s < T::ks2(j)) {
-        constexpr int off = 64 * (T::f2_before(j) - T::f2_before(J0) + s);
+      if constexpr (s < T::ksh(P, j)) {
+        constexpr int off =
+            64 * (T::fh_before(P, j) - T::fh_before(P, J0) + s);
         mma_split(acc[j], hh, hl,
                   *reinterpret_cast<const float2*>(w2 + off + 2 * lane));
       }
@@ -564,73 +733,83 @@ __device__ __forceinline__ void maf_w2_chunk(
   });
 }
 
-// The spline parameters of dims 2Q and 2Q + 1 of the warp's tile, from h2
-// (acc), chunk Q's W3 fragments at w3 and the layer's b3, to
-// raw[row * PROW + (i - 2Q) * G + p]: maf_made's products for those dims,
-// in its order (dim 0's parameters are its bias).
-template <int D, int H1, int H2, int K, int Q>
+// The spline parameters of dims 2Q and 2Q + 1 of the warp's tile, A of
+// k-step s from frag (the last hidden layer, or the inputs), chunk Q's W3
+// fragments at w3 and the layer's b3, to raw[row * PROW + (i - 2Q) * G +
+// p]: maf_made's products for those dims, in its order (dim 0's
+// parameters are its bias).
+template <class T, int Q, class Frag>
 __device__ __forceinline__ void maf_chunk_params(
     const float* __restrict__ w3, const float* __restrict__ b3,
-    const float (&acc)[H2 / 8][4], float* __restrict__ raw, int lane) {
-  using S = MafStream<D, H1, H2, K>;
+    const Frag& frag, float* __restrict__ raw, int lane) {
+  constexpr int D = T::DIMS;
   const int g = lane >> 2, t = lane & 3;
   static_for<2>([&](auto e_) {
     constexpr int i = 2 * Q + decltype(e_)::value;
     if constexpr (i < D) {
-      float out[S::NT][4];
+      float out[T::NT][4];
 #pragma unroll
-      for (int m = 0; m < S::NT; ++m) {
+      for (int m = 0; m < T::NT; ++m) {
         out[m][0] = out[m][1] = out[m][2] = out[m][3] = 0.f;
       }
-      static_for<S::ks3(i)>([&](auto s_) {
+      static_for<T::ks3(i)>([&](auto s_) {
         constexpr int s = decltype(s_)::value;
         uint32_t ah[4], al[4];
-        split_tf32(acc[s][0], ah[0], al[0]);
-        split_tf32(acc[s][2], ah[1], al[1]);
-        split_tf32(acc[s][1], ah[2], al[2]);
-        split_tf32(acc[s][3], ah[3], al[3]);
-        static_for<S::NT>([&](auto m_) {
+        frag(s, ah, al);
+        static_for<T::NT>([&](auto m_) {
           constexpr int m = decltype(m_)::value;
           constexpr int off =
-              64 * (S::f3_before(i) - S::f3_before(2 * Q) + s * S::NT + m);
+              64 * (T::f3_before(i) - T::f3_before(2 * Q) + s * T::NT + m);
           mma_split(out[m], ah, al,
                     *reinterpret_cast<const float2*>(w3 + off + 2 * lane));
         });
       });
-      float* r = raw + (i - 2 * Q) * S::G;
+      float* r = raw + (i - 2 * Q) * T::G;
 #pragma unroll
-      for (int m = 0; m < S::NT; ++m) {
+      for (int m = 0; m < T::NT; ++m) {
         const int q = 8 * m + 2 * t;
-        const float2 bias = *reinterpret_cast<const float2*>(b3 + i * S::G + q);
-        *reinterpret_cast<float2*>(r + g * S::PROW + q) =
+        const float2 bias =
+            *reinterpret_cast<const float2*>(b3 + i * T::G + q);
+        *reinterpret_cast<float2*>(r + g * T::PROW + q) =
             make_float2(out[m][0] + bias.x, out[m][1] + bias.y);
-        *reinterpret_cast<float2*>(r + (g + 8) * S::PROW + q) =
+        *reinterpret_cast<float2*>(r + (g + 8) * T::PROW + q) =
             make_float2(out[m][2] + bias.x, out[m][3] + bias.y);
       }
     }
   });
 }
 
+// The largest hidden width in n-tiles (the streamed form's accumulator
+// arrays, one per hidden layer, each used up to its own width).
+template <class T>
+__host__ __device__ constexpr int max_ks() {
+  int m = 1;
+  for (int i = 0; i < T::NH; ++i) m = T::KS(i) > m ? T::KS(i) : m;
+  return m;
+}
+
 // The streamed form: a block of up to 16 warps takes a group of 16-particle
 // tiles, one a warp (a tile past n computes on zeros and stores nothing),
 // and runs them through the layers together, every layer's items streamed
 // through the two slots (MafStream), one barrier an item; the blocks walk
-// over the groups.
-template <int D, int H1, int H2, int K>
+// over the groups. With one hidden layer h_0 is computed whole (from the
+// head's W1, b1) at the layer's first W3 item.
+template <int D, class HID, int K>
 __global__ void __launch_bounds__(32 * kMafMaxWarps, 1)
     maf_kernel_streamed(const float* __restrict__ x, float* __restrict__ z,
                         float* __restrict__ log_det,
                         const float* __restrict__ weights, int n,
                         int n_layers, float tail_bound) {
-  using S = MafStream<D, H1, H2, K>;
+  using S = MafStream<D, HID, K>;
   constexpr int IPL = S::NW + S::NQ;  // ring items a layer
   constexpr int MD = S::MD;
+  constexpr int NH = S::NH;
   extern __shared__ float4 maf_smem4[];
   float* slots = reinterpret_cast<float*>(maf_smem4);
   float* heads = slots + 2 * S::SLOT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
-  const int g = lane >> 2;
+  const int g = lane >> 2, t = lane & 3;
   float* const stage = heads + 2 * S::HEAD + warp * S::WSTAGE;
   float* raw = stage + 2 * S::XS;
   const int tiles = (n + kMafTile - 1) / kMafTile;
@@ -645,18 +824,23 @@ __global__ void __launch_bounds__(32 * kMafMaxWarps, 1)
     float ld = 0.f;
     __syncthreads();  // every warp is done with the slots' last reads
     copy_head<S>(heads, weights);
-    copy_async(slots, weights + S::W2, 64 * S::f2_before(S::w2_end(0)));
+    copy_async(slots, weights + S::item_offset(0), S::item_floats(0));
 #pragma unroll 1
     for (int layer = 0; layer < n_layers; ++layer) {
       const float* wl = weights + (size_t)layer * S::SIZE;
       const float* head = heads + (layer & 1) * S::HEAD;
       const int parity = (layer * IPL) & 1;  // item 0's slot
       float xa[MD], xb[MD];
-      float acc[H2 / 8][4];
+      // Hidden layer i's accumulators (i >= 1; i = 0 with one hidden
+      // layer), each used up to its own width of n-tiles.
+      float acc[NH > 0 ? NH : 1][max_ks<S>()][4];
+      static_for<(NH > 1 ? NH - 1 : 0)>([&](auto p_) {
+        constexpr int p = decltype(p_)::value + 1;
 #pragma unroll
-      for (int j = 0; j < H2 / 8; ++j) {
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      }
+        for (int j = 0; j < S::KS(p); ++j) {
+          acc[p][j][0] = acc[p][j][1] = acc[p][j][2] = acc[p][j][3] = 0.f;
+        }
+      });
       // Item i of the layer has landed once its thread's copies have and
       // every thread passed the barrier; the barrier also says every warp
       // is done with the slot the next item overwrites (item i - 1's), and
@@ -666,49 +850,60 @@ __global__ void __launch_bounds__(32 * kMafMaxWarps, 1)
         cp_async_wait_all();
         __syncthreads();
         float* next = slots + ((parity + i + 1) & 1) * S::SLOT;
-        if constexpr (i + 1 < S::NW) {
-          constexpr int j = S::w2_start(i + 1);
-          copy_async(next, wl + S::W2 + 64 * S::f2_before(j),
-                     64 * (S::f2_before(S::w2_end(j)) - S::f2_before(j)));
-        } else if constexpr (i + 1 < IPL) {
-          constexpr int q = i + 1 - S::NW;
-          copy_async(next, wl + S::W3 + S::chunk_start(q),
-                     S::chunk_start(q + 1) - S::chunk_start(q));
+        if constexpr (i + 1 < IPL) {
+          copy_async(next, wl + S::item_offset(i + 1), S::item_floats(i + 1));
         } else {
           if (layer + 1 < n_layers) {
-            copy_head<S>(heads + ((layer + 1) & 1) * S::HEAD,
-                         wl + S::SIZE);
-            copy_async(next, wl + S::SIZE + S::W2,
-                       64 * S::f2_before(S::w2_end(0)));
+            copy_head<S>(heads + ((layer + 1) & 1) * S::HEAD, wl + S::SIZE);
+            copy_async(next, wl + S::SIZE + S::item_offset(0),
+                       S::item_floats(0));
           }
         }
         const float* item = slots + ((parity + i) & 1) * S::SLOT;
-        if constexpr (i < S::NW) {
-          if constexpr (i == 0) {
+        if constexpr (i == 0 && NH > 0) {
 #pragma unroll
-            for (int k = 0; k < MD; ++k) {
-              xa[k] = in[g * D + k];
-              xb[k] = in[(g + 8) * D + k];
-            }
+          for (int k = 0; k < MD; ++k) {
+            xa[k] = in[g * D + k];
+            xb[k] = in[(g + 8) * D + k];
           }
-          maf_w2_chunk<D, H1, H2, K, i>(head, item, xa, xb, acc, lane);
-          if constexpr (i + 1 == S::NW) {
-            // h2 = relu(acc + b2), kept as the accumulator fragments.
-            const int t = lane & 3;
-#pragma unroll
-            for (int j = 0; j < H2 / 8; ++j) {
-              const float2 bias = *reinterpret_cast<const float2*>(
-                  head + S::HB2 + 8 * j + 2 * t);
-              acc[j][0] = fmaxf(acc[j][0] + bias.x, 0.f);
-              acc[j][1] = fmaxf(acc[j][1] + bias.y, 0.f);
-              acc[j][2] = fmaxf(acc[j][2] + bias.x, 0.f);
-              acc[j][3] = fmaxf(acc[j][3] + bias.y, 0.f);
-            }
+        }
+        if constexpr (i < S::NW) {
+          // Hidden product p's chunk c.
+          constexpr int p = S::product_of(i);
+          constexpr int c = i - S::item_base(p);
+          if constexpr (p == 0) {
+            maf_product_chunk<S, 0, c>(
+                item, MafFirstFragment<S>{head, xa, xb, t}, acc[1], lane);
+          } else {
+            maf_product_chunk<S, p, c>(
+                item, MafAccFragment<max_ks<S>()>{acc[p]}, acc[p + 1], lane);
+          }
+          if constexpr (c + 1 == S::wchunks(p)) {
+            // h = relu(acc + b), kept as the accumulator fragments.
+            maf_bias_relu<S::KS(p + 1)>(head + S::hbh(p), acc[p + 1], t);
           }
         } else {
           constexpr int q = i - S::NW;
-          maf_chunk_params<D, H1, H2, K, q>(item, head + S::HB3, acc, raw,
-                                            lane);
+          if constexpr (NH == 1 && q == 0) {
+            // h_0 whole, in the accumulators' order.
+#pragma unroll
+            for (int s = 0; s < S::KS(0); ++s) {
+              float h[4];
+              maf_first_values<S>(head, xa, xb, s, t, h);
+              acc[0][s][0] = h[0];
+              acc[0][s][1] = h[2];
+              acc[0][s][2] = h[1];
+              acc[0][s][3] = h[3];
+            }
+          }
+          if constexpr (NH == 0) {
+            maf_chunk_params<S, q>(item, head + S::HB3,
+                                   MafInputFragment<D>{in, g, t}, raw, lane);
+          } else {
+            maf_chunk_params<S, q>(item, head + S::HB3,
+                                   MafAccFragment<max_ks<S>()>{acc[NH - 1]},
+                                   raw, lane);
+          }
           __syncwarp();
           const int r = lane & (kMafTile - 1), dim = 2 * q + (lane >> 4);
           if (dim < D) {
@@ -746,10 +941,10 @@ __global__ void __launch_bounds__(32 * kMafMaxWarps, 1)
 }
 #endif
 
-template <int D, int H1, int H2, int K>
+template <int D, class HID, int K>
 int launch_maf(const float* x, float* z, float* ld, const float* w, int n,
                int n_layers, float tb, cudaStream_t stream) {
-  using S = MafShape<D, H1, H2, K>;
+  using S = MafShape<D, HID, K>;
   if (n <= 0) return 0;
   const DeviceLimits limits = current_device_limits();
   const int sms = limits.sms, max_smem = limits.max_smem;
@@ -758,12 +953,12 @@ int launch_maf(const float* x, float* z, float* ld, const float* w, int n,
 #ifdef ASPIRE_STREAMED
   // The streamed instance, for a flow whose layers do not fit resident.
   {
-    using T = MafStream<D, H1, H2, K>;
+    using T = MafStream<D, HID, K>;
     long long fit = (max_smem - 4LL * T::BUFS) / (4LL * T::WSTAGE);
     const int warps = (int)(fit > kMafMaxWarps ? kMafMaxWarps : fit);
     if (warps < 1) return (int)cudaErrorInvalidConfiguration;
     const int smem = 4 * (T::BUFS + warps * T::WSTAGE);
-    auto kernel = maf_kernel_streamed<D, H1, H2, K>;
+    auto kernel = maf_kernel_streamed<D, HID, K>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -777,7 +972,7 @@ int launch_maf(const float* x, float* z, float* ld, const float* w, int n,
   if (warps > kMafMaxWarps) warps = kMafMaxWarps;
   if (warps < 1) return (int)cudaErrorInvalidConfiguration;
   const int smem = (int)(weight_bytes + warps * stage_bytes);
-  auto kernel = maf_kernel<D, H1, H2, K>;
+  auto kernel = maf_kernel<D, HID, K>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -789,14 +984,29 @@ int launch_maf(const float* x, float* z, float* ld, const float* w, int n,
 #endif
 }
 
+// The k-step table of aspire_maf_ksteps.
+template <class B>
+int maf_ksteps_table(int* out, int capacity) {
+  int count = 0;
+  for (int p = 0; p + 1 < B::NH; ++p) {
+    for (int j = 0; j < B::KS(p + 1); ++j, ++count) {
+      if (count < capacity) out[count] = B::ksh(p, j);
+    }
+  }
+  for (int i = 0; i < B::DIMS; ++i, ++count) {
+    if (count < capacity) out[count] = B::ks3(i);
+  }
+  return count;
+}
+
 }  // namespace aspire
 
 extern "C" {
 
 // Floats per layer of the packed MAF weight buffer for a configuration id.
 int aspire_maf_layer_floats(int config) {
-#define ASPIRE_MAF_SIZE_CASE(ID, D, H1, H2, K) \
-  if (config == ID) return aspire::MafShape<D, H1, H2, K>::SIZE;
+#define ASPIRE_MAF_SIZE_CASE(ID, D, HID, K) \
+  if (config == ID) return aspire::MafShape<D, ASPIRE_HIDDEN HID, K>::SIZE;
   ASPIRE_MAF_CONFIGS(ASPIRE_MAF_SIZE_CASE)
 #undef ASPIRE_MAF_SIZE_CASE
   return -1;
@@ -804,26 +1014,22 @@ int aspire_maf_layer_floats(int config) {
 
 // Floats of one warp's shared buffer for a configuration id.
 int aspire_maf_stage_floats(int config) {
-#define ASPIRE_MAF_STAGE_CASE(ID, D, H1, H2, K) \
-  if (config == ID) return aspire::MafShape<D, H1, H2, K>::STAGE;
+#define ASPIRE_MAF_STAGE_CASE(ID, D, HID, K) \
+  if (config == ID) return aspire::MafShape<D, ASPIRE_HIDDEN HID, K>::STAGE;
   ASPIRE_MAF_CONFIGS(ASPIRE_MAF_STAGE_CASE)
 #undef ASPIRE_MAF_STAGE_CASE
   return -1;
 }
 
-// The k-steps the kernel multiplies, as MafBlocks computes them: ks2(j) of
-// W2's n-tiles j < H2 / 8, then ks3(i) of the dims i < D, into out (up to
-// capacity entries). Returns their number, or -1 for an unknown
-// configuration.
+// The k-steps the kernel multiplies, as MafBlocks computes them: ksh(p, j)
+// of each hidden product p's n-tiles j < H_{p+1} / 8 (W2's for p = 0), then
+// ks3(i) of the dims i < D, into out (up to capacity entries). Returns
+// their number, or -1 for an unknown configuration.
 int aspire_maf_ksteps(int config, int* out, int capacity) {
-#define ASPIRE_MAF_KSTEPS_CASE(ID, D, H1, H2, K)                      \
-  if (config == ID) {                                                \
-    using B = aspire::MafBlocks<D, H1, H2, K>;                       \
-    const int count = H2 / 8 + D;                                    \
-    for (int e = 0; e < count && e < capacity; ++e) {                \
-      out[e] = e < H2 / 8 ? B::ks2(e) : B::ks3(e - H2 / 8);          \
-    }                                                                \
-    return count;                                                    \
+#define ASPIRE_MAF_KSTEPS_CASE(ID, D, HID, K)                             \
+  if (config == ID) {                                                    \
+    return aspire::maf_ksteps_table<                                     \
+        aspire::MafBlocks<D, ASPIRE_HIDDEN HID, K>>(out, capacity);      \
   }
   ASPIRE_MAF_CONFIGS(ASPIRE_MAF_KSTEPS_CASE)
 #undef ASPIRE_MAF_KSTEPS_CASE
@@ -836,10 +1042,10 @@ int aspire_maf(const float* x, float* z, float* log_det,
                const float* weights, int n, int n_layers, float tail_bound,
                int config, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ASPIRE_MAF_CASE(ID, D, H1, H2, K)                                 \
+#define ASPIRE_MAF_CASE(ID, D, HID, K)                                    \
   if (config == ID) {                                                    \
-    return aspire::launch_maf<D, H1, H2, K>(x, z, log_det, weights, n,   \
-                                            n_layers, tail_bound, s);    \
+    return aspire::launch_maf<D, ASPIRE_HIDDEN HID, K>(                  \
+        x, z, log_det, weights, n, n_layers, tail_bound, s);             \
   }
   ASPIRE_MAF_CONFIGS(ASPIRE_MAF_CASE)
 #undef ASPIRE_MAF_CASE

@@ -111,7 +111,7 @@ __global__ void __launch_bounds__(2 * Q * S, 1)
                       float* __restrict__ log_det,
                       const float* __restrict__ weights, int n, int n_layers,
                       float tb) {
-  using M = MmaShape<D, H1, H2, K, true>;
+  using M = MmaShape<D, Hidden<H1, H2>, K, true>;
   using Buf = MmaStagedBuffers<M, S>;
   constexpr int T = 2 * S;  // threads per sub-tile, a warp per 16 rows
   static_assert(S % 16 == 0, "sub-tiles are multiples of 16 particles");
@@ -228,7 +228,7 @@ __global__ void __launch_bounds__(32 * kPairedWarps, 1)
                   float* __restrict__ log_det,
                   const float* __restrict__ weights, int n, int n_layers,
                   float tb) {
-  using M = MmaShape<D, H1, H2, K, true>;
+  using M = MmaShape<D, Hidden<H1, H2>, K, true>;
   extern __shared__ float4 smem4[];
   float* w = reinterpret_cast<float*>(smem4);
   load_shared(smem4, reinterpret_cast<const float4*>(weights),
@@ -264,7 +264,7 @@ __global__ void __launch_bounds__(32 * kPairedWarps, 1)
 // registers).
 template <int D, int H1, int H2, int K, int S, bool PAIRED>
 struct StagedLayout {
-  using M = MmaShape<D, H1, H2, K, true>;
+  using M = MmaShape<D, Hidden<H1, H2>, K, true>;
   static constexpr int LAYER = M::SIZE;
   static constexpr int BUFFER =
       PAIRED ? S * M::ROW : MmaStagedBuffers<M, S>::SIZE;

@@ -140,18 +140,34 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def _row_value(v: str):
+    """One value of a configuration row as ``csrc/common.cuh`` writes it:
+    ``true``/``false``, an int, or hidden widths in parentheses (a
+    tuple)."""
+    v = v.strip()
+    if v.startswith("("):
+        return tuple(int(h) for h in v[1:-1].split(",") if h.strip())
+    return v == "true" if v in ("true", "false") else int(v)
+
+
+def config_rows(macro: str) -> list[tuple]:
+    """The rows ``X(...)`` of ``macro`` in ``csrc/common.cuh``, each
+    value read by :func:`_row_value` (the id first)."""
+    text = (CSRC / "common.cuh").read_text()
+    table = re.search(rf"#define {macro}\(X\)(.*?)(?:\n\n|\Z)", text,
+                      re.S).group(1)
+    return [tuple(_row_value(v) for v in re.findall(r"\s*(\([^()]*\)|[^,]+)",
+                                                    row))
+            for row in re.findall(r"X\(((?:[^()]|\([^()]*\))*)\)", table)]
+
+
 def chain_config_row(config: int) -> tuple:
     """Chain configuration ``config``'s row of ``ASPIRE_CHAIN_CONFIGS`` in
-    ``csrc/common.cuh``, its values after the id: ``(D, H1, H2, K, RQS,
+    ``csrc/common.cuh``, its values after the id: ``(D, (H...), K, RQS,
     TARGETS)``."""
-    text = (CSRC / "common.cuh").read_text()
-    table = re.search(r"#define ASPIRE_CHAIN_CONFIGS\(X\)(.*?)(?:\n\n|\Z)",
-                      text, re.S).group(1)
-    for row in re.findall(r"X\(([^)]*)\)", table):
-        cid, *values = (v.strip() for v in row.split(","))
-        if int(cid) == config:
-            return tuple(v == "true" if v in ("true", "false") else int(v)
-                         for v in values)
+    for cid, *values in config_rows("ASPIRE_CHAIN_CONFIGS"):
+        if cid == config:
+            return tuple(values)
     raise ValueError(f"no chain configuration {config}")
 
 
@@ -169,11 +185,19 @@ _instance_locks: dict[tuple, threading.Lock] = {}
 _locks_lock = threading.Lock()
 
 
+def _row_text(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, tuple):
+        return "(" + ", ".join(str(int(h)) for h in v) + ")"
+    return str(int(v))
+
+
 def instance_row(row: tuple) -> str:
-    """A configuration row as its source reads it: ``X(0, ...)``, id 0."""
-    return "X(0, " + ", ".join(
-        ("true" if v else "false") if isinstance(v, bool) else str(int(v))
-        for v in row) + ")"
+    """A configuration row as its source reads it: ``X(0, ...)``, id 0,
+    the hidden widths in parentheses (``(64, 64)``, ``(128,)`` as
+    ``(128)``, none as ``()``)."""
+    return "X(0, " + ", ".join(_row_text(v) for v in row) + ")"
 
 
 def instance_path(kind: str, row: tuple, user=None) -> Path:
@@ -191,7 +215,9 @@ def instance_path(kind: str, row: tuple, user=None) -> Path:
         digest.update(user.cuda.encode())
         name = "user_" + re.sub(r"\W", "_", user.name)[:32]
     else:
-        name = f"{kind}_" + "_".join(str(int(v)) for v in row)
+        name = f"{kind}_" + "_".join(
+            "h" + "x".join(map(str, v)) if isinstance(v, tuple)
+            else str(int(v)) for v in row)
     return BUILD_DIR / f"libaspire_{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -318,7 +344,7 @@ def _chain_row(row) -> tuple:
     TARGETS column 1 as ``fused_mutation.chain_row`` gives it (the
     instance compiles the user's target alone, whatever the column)."""
     row = chain_config_row(row) if isinstance(row, int) else tuple(row)
-    return (*row[:5], 1)
+    return (*row[:4], 1)
 
 
 def check(code: int, what: str) -> None:

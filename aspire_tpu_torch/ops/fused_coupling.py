@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import os
 
 import torch
 
@@ -39,8 +40,16 @@ from ..flows.bijectors import (  # noqa: F401 - public, as in JAX package
 from ._build import LaunchCounter, check, load_instance, load_library
 
 #: Below this batch the plain path is already launch-bound; training
-#: batches stay on the plain autograd path (the JAX package's threshold).
-MIN_FUSED_N = 4096
+#: batches stay on the plain autograd path (the JAX package's threshold,
+#: read once, at import, from ``ASPIRE_TPU_FUSED_MIN_N`` as it reads it).
+MIN_FUSED_N = int(os.environ.get("ASPIRE_TPU_FUSED_MIN_N", "4096"))
+
+
+def fused_enabled() -> bool:
+    """The JAX package's kill switch, read at every call: any value of
+    ``ASPIRE_TPU_FUSED`` but ``"1"`` turns the flow kernels off (B1/B3,
+    B4, and the chain kernel unless ``fused_chain=True`` forces it)."""
+    return os.environ.get("ASPIRE_TPU_FUSED", "1") == "1"
 
 #: (transformer, dims, n_hidden, num_bins) -> configuration id compiled
 #: into the prebuilt library; mirrors ASPIRE_COUPLING_CONFIGS in
@@ -60,9 +69,9 @@ KERNEL_CONFIGS = {
 
 #: What the JAX package's predicates take (``should_fuse``): at most 32
 #: dims, RQS with at most 32 bins (or affine), at most 8 MB of float32
-#: conditioner weights (``_weight_bytes``; twice them for a MAF). The port
-#: also takes only two hidden layers (its products: W1 on FMAs, W2 and W3
-#: on the tensor cores).
+#: conditioner weights (``_weight_bytes``; twice them for a MAF), any
+#: number of hidden layers (the first on FMAs, every further product on the
+#: tensor cores; none: one product on FMAs).
 MAX_FUSED_DIMS = 32
 MAX_FUSED_BINS = 32
 MAX_WEIGHT_BYTES = 8 * 1024 * 1024
@@ -116,15 +125,16 @@ def pad_hidden(arch, params: dict) -> dict:
     if hidden == tuple(arch.n_hidden):
         return params
     pad = torch.nn.functional.pad
+    grow = [h - n for h, n in zip(hidden, arch.n_hidden)]
     layers = []
     for net in params["layers"]:
-        (l1, l2, l3) = net["layers"]
-        p1 = hidden[0] - l1["w"].shape[1]
-        p2 = hidden[1] - l2["w"].shape[1]
-        layers.append({"layers": [
-            {"w": pad(l1["w"], (0, p1)), "b": pad(l1["b"], (0, p1))},
-            {"w": pad(l2["w"], (0, p2, 0, p1)), "b": pad(l2["b"], (0, p2))},
-            {"w": pad(l3["w"], (0, 0, 0, p2)), "b": l3["b"]}]})
+        dense = []
+        for i, layer in enumerate(net["layers"]):
+            rows = grow[i - 1] if i else 0
+            cols = grow[i] if i < len(grow) else 0
+            dense.append({"w": pad(layer["w"], (0, cols, 0, rows)),
+                          "b": pad(layer["b"], (0, cols))})
+        layers.append({"layers": dense})
     return {"layers": layers}
 
 
@@ -142,10 +152,8 @@ def reference_weight_bytes(arch) -> int:
 
 
 def _reference_takes(arch) -> bool:
-    """What the JAX package's ``should_fuse`` reads of the flow, with two
-    hidden layers."""
-    return (len(arch.n_hidden) == 2
-            and 1 <= arch.dims <= MAX_FUSED_DIMS
+    """What the JAX package's ``should_fuse`` reads of the flow."""
+    return (1 <= arch.dims <= MAX_FUSED_DIMS
             and arch.transformer in ("affine", "rqs")
             and (arch.transformer == "affine"
                  or arch.num_bins <= MAX_FUSED_BINS)
@@ -166,24 +174,14 @@ def config_id(arch) -> int | None:
 
 def coupling_row(arch) -> tuple:
     """The flow's configuration row of ``ASPIRE_COUPLING_CONFIGS`` (its
-    values after the id): ``(D, H1, H2, K, RQS)``, hidden widths padded,
-    K 1 for an affine flow."""
-    h1, h2 = kernel_hidden(arch)
+    values after the id): ``(D, (H...), K, RQS)``, every hidden width
+    padded (so the row names the depth), K 1 for an affine flow."""
     rqs = arch.transformer == "rqs"
-    return (arch.dims, h1, h2, arch.num_bins if rqs else 1, rqs)
+    return (arch.dims, kernel_hidden(arch), arch.num_bins if rqs else 1, rqs)
 
 
 def _round4(x: int) -> int:
     return -(-x // 4) * 4
-
-
-def _packed_floats(sections) -> int:
-    """Floats of one packed layer whose sections (given by their sizes)
-    each start on a multiple of 4 floats."""
-    size = 0
-    for section in sections:
-        size = _round4(size) + section
-    return _round4(size)
 
 
 def coupling_takes(arch) -> bool:
@@ -216,11 +214,13 @@ def coupling_shared_bytes(arch) -> int:
 
 
 def should_fuse(arch, x: torch.Tensor) -> bool:
-    """True when the CUDA kernel applies to this (architecture, batch): a
-    CUDA float32 batch of at least ``MIN_FUSED_N`` rows and a flow the
-    kernel takes (:func:`coupling_takes`)."""
+    """True when the CUDA kernel applies to this (architecture, batch):
+    the switch on (:func:`fused_enabled`), a CUDA float32 batch of at least
+    ``MIN_FUSED_N`` rows and a flow the kernel takes
+    (:func:`coupling_takes`)."""
     return (
-        x.is_cuda
+        fused_enabled()
+        and x.is_cuda
         and x.dim() == 2
         and x.shape[0] >= MIN_FUSED_N
         and x.dtype == torch.float32
@@ -315,56 +315,111 @@ def _chunk_steps(steps: int, most: int, floats_per_step: int) -> int:
     return 1
 
 
+def hidden_products(arch) -> list[tuple[str, str, int, int]]:
+    """The tensor-core products between hidden layers (``MmaShape::WH``,
+    ``BH``): ``(weights, bias, k_in, n_out)`` of h_j -> h_{j+1}, named
+    ``w2``/``b2`` for j = 0 and ``w2.j``/``b2.j`` after it, at
+    :func:`kernel_hidden`'s widths."""
+    hidden = kernel_hidden(arch)
+    return [("w2" if j == 0 else f"w2.{j}", "b2" if j == 0 else f"b2.{j}",
+             hidden[j], hidden[j + 1]) for j in range(len(hidden) - 1)]
+
+
+def _slots_cp(arch, wide: bool) -> tuple[int, int]:
+    """The active slots packed and W1's row stride (``MmaShape::AS``,
+    ``CP``): the half, or in the wide form whole groups of two and the
+    stride rounded to 4 floats (rounded too with no hidden layer)."""
+    half = mma_half(arch)
+    slots = WIDE_GROUP_DIMS * -(-half // WIDE_GROUP_DIMS) if wide else half
+    return slots, _round4(half) if wide or not arch.n_hidden else half
+
+
+def _mma_sections_of(arch, wide: bool) -> list[tuple[str, tuple]]:
+    """The sections of one packed layer in order with their shapes, in the
+    whole-layer or the wide form (:func:`mma_sections`)."""
+    hidden = kernel_hidden(arch)
+    g = mma_group(arch)
+    slots, cp = _slots_cp(arch, wide)
+    out = slots * g
+    if not hidden:
+        return [("w3", (out, cp)), ("b3", (slots, g))]
+    prods = hidden_products(arch)
+    w1 = [("w1", (hidden[0], cp)), ("b1", (hidden[0],))]
+    w3 = ("w3", (hidden[-1] // 8 * out // 8, 32, 2))
+    b3 = ("b3", (slots, g))
+    frags = [(w, (k // 8 * n // 8, 32, 2)) for w, _, k, n in prods]
+    biases = [(b, (n,)) for _, b, _, n in prods]
+    if wide:
+        return [*w1, *biases, b3, *frags, w3]
+    return [*w1, *[x for pair in zip(frags, biases) for x in pair], w3, b3]
+
+
+def _offsets(sections) -> tuple[dict, int]:
+    """Each section's offset (each on a multiple of 4 floats) and the
+    layer's floats."""
+    offsets, off = {}, 0
+    for name, shape in sections:
+        off = _round4(off)
+        offsets[name] = off
+        off += int(torch.Size(shape).numel())
+    return offsets, _round4(off)
+
+
 @functools.lru_cache(maxsize=None)
 def mma_shape(arch) -> dict:
     """The shape's constants as ``MmaShape`` computes them, at
     :func:`kernel_hidden`'s widths: the form (``wide`` where the
     whole-layer form's accumulators pass 128 floats a thread, two of its
     layers do not fit a block beside one warp's buffer, or the chain
-    kernel's block of 8 warps and two layers does not fit; ``by_dim``),
-    the active slots packed (``slots``: the wide form pads an odd half to
-    whole groups of two) and W1's row stride (``cp``), the sections and
-    their offsets, a layer's and a warp buffer's floats, the wide form's
-    resident part and chunk, and a coupling kernel block's weight buffers
-    and most warps."""
-    h1, h2 = kernel_hidden(arch)
+    kernel's block of 8 warps and two layers does not fit; never with no
+    hidden layer; ``by_dim``), the active slots packed (``slots``: the wide
+    form pads an odd half to whole groups of two) and W1's row stride
+    (``cp``), the sections and their offsets, a layer's and a warp
+    buffer's floats, the wide form's resident part and chunk, and a
+    coupling kernel block's weight buffers and most warps."""
+    hidden = kernel_hidden(arch)
+    nh = len(hidden)
     d, half, g = arch.dims, mma_half(arch), mma_group(arch)
-    ks1, ks2, ntd = h1 // 8, h2 // 8, g // 8
-    whole_size = _round4(_round4(_round4(h1 * half) + h1) + 64 * ks1 * ks2
-                         + h2 + 64 * ks2 * (half * g // 8) + half * g)
-    whole_stage = 32 * (half * g + 4)
-    wide = (8 * (ks2 + ntd) > 128
-            or _MAX_BLOCK_FLOATS - 2 * whole_size < whole_stage
-            or (2 * whole_size + chain_consts_floats(d) + 2 * _CHAIN_WARPS
-                + _CHAIN_WARPS * whole_stage) > _MAX_BLOCK_FLOATS)
-    slots = WIDE_GROUP_DIMS * -(-half // WIDE_GROUP_DIMS) if wide else half
-    cp = _round4(half) if wide else half
+    ks, ntd = [h // 8 for h in hidden], g // 8
+    _, whole_size = _offsets(_mma_sections_of(arch, False))
+    whole_stage = 32 * (half * g + 4) if nh else 0
+    if nh == 0:
+        regs = False
+    elif nh == 1:
+        regs = 8 * (half * g // 8) > 128
+    else:
+        regs = (any(8 * (ks[j] + ks[j + 1]) > 128 for j in range(1, nh - 1))
+                or 8 * (ks[-1] + ntd) > 128)
+    wide = nh > 0 and (
+        regs or _MAX_BLOCK_FLOATS - 2 * whole_size < whole_stage
+        or (2 * whole_size + chain_consts_floats(d) + 2 * _CHAIN_WARPS
+            + _CHAIN_WARPS * whole_stage) > _MAX_BLOCK_FLOATS)
+    sections = _mma_sections_of(arch, wide)
+    offsets, size = _offsets(sections)
+    slots, cp = _slots_cp(arch, wide)
     out = slots * g
-    sec = {"w1": (h1, cp), "b1": (h1,), "w2": (ks1 * ks2, 32, 2),
-           "b2": (h2,), "w3": (ks2 * out // 8, 32, 2), "b3": (slots, g)}
-    order = (("w1", "b1", "b2", "b3", "w2", "w3") if wide else
-             ("w1", "b1", "w2", "b2", "w3", "b3"))
-    offsets, off = {}, 0
-    for name in order:
-        off = _round4(off)
-        offsets[name] = off
-        off += int(torch.Size(sec[name]).numel())
-    size = _round4(off)
     ng = WIDE_GROUP_DIMS * g // 8
     row = (WIDE_GROUP_DIMS * g if wide else out) + 4
-    stage = 16 * row + 32 * (d + 1) if wide else 32 * row
-    kw2, kw3 = _chunk_steps(ks1, 4, 64 * ks2), _chunk_steps(ks2, 8, 64 * ng)
-    res = offsets["w2"] if wide else 0
-    chunk = max(64 * kw2 * ks2, 64 * kw3 * ng) if wide else 0
+    if wide:
+        stage = 16 * row + 32 * (d + 1) + (16 * cp if nh == 1 else 0)
+    else:
+        stage = 32 * row if nh else 0
+    chunks = [64 * _chunk_steps(ks[j], 4, 64 * ks[j + 1]) * ks[j + 1]
+              for j in range(nh - 1)]
+    chunks.append(64 * _chunk_steps(ks[-1], 8, 64 * ng) * ng if nh else 0)
+    first = "w2" if nh >= 2 else "w3"
+    res = offsets[first] if wide else 0
+    chunk = max(chunks) if wide else 0
     bufs = 2 * (res + chunk) if wide else 2 * size
+    fit = ((_MAX_BLOCK_FLOATS - bufs) // stage if stage
+           else (COUPLING_WARPS if bufs <= _MAX_BLOCK_FLOATS else 0))
     return {"wide": wide,
-            "by_dim": not wide and 8 * (ks2 + half * g // 8) > 128,
-            "slots": slots, "cp": cp,
-            "sections": [(name, sec[name]) for name in order],
+            "by_dim": not wide and nh >= 2 and 8 * (ks[-1] + half * g // 8)
+            > 128,
+            "slots": slots, "cp": cp, "sections": sections,
             "offsets": offsets, "size": size, "row": row, "stage": stage,
             "res": res, "chunk": chunk, "bufs": bufs,
-            "warps": min((_MAX_BLOCK_FLOATS - bufs) // stage,
-                         COUPLING_WARPS)}
+            "warps": min(fit, COUPLING_WARPS)}
 
 
 def mma_wide(arch) -> bool:
@@ -376,23 +431,27 @@ def mma_wide(arch) -> bool:
 def mma_form(arch) -> str:
     """The coupling kernel's form at this shape, as ``chip_smoke.py``
     prints it: ``"wide"`` or ``"whole-layer"`` (``", by dim"`` where the
-    output layer goes one dim at a time), then its most warps a block."""
+    output layer goes one dim at a time; ``"linear"`` with no hidden
+    layer), then its most warps a block."""
     shape = mma_shape(arch)
-    form = "wide" if shape["wide"] else "whole-layer"
+    form = ("wide" if shape["wide"] else "whole-layer" if arch.n_hidden
+            else "linear")
     by_dim = ", by dim" if shape["by_dim"] else ""
     return f"{form}{by_dim}, {shape['warps']} warps"
 
 
 def mma_sections(arch) -> list[tuple[str, tuple]]:
     """Sections of one layer of the packed buffer, in order, with their
-    shapes: W1 ``(H1, cp)`` of the conditioning inputs, b1, W2 as
-    ``(H1/8 * H2/8, 32, 2)`` mma B fragments, b2, W3 as ``(H2/8 * slots *
-    G/8, 32, 2)`` fragments, b3 ``(slots, G)`` (:func:`mma_shape`'s
-    ``cp`` and ``slots``: the half, or in the wide form its row stride
-    rounded to 4 floats and whole groups of two), hidden widths
-    :func:`kernel_hidden`'s. The wide form puts the sections a layer reads
-    throughout first (W1, b1, b2, b3) and then the streamed ones (W2, then
-    W3 by groups of two active dims)."""
+    shapes: W1 ``(H_0, cp)`` of the conditioning inputs, b1, then per
+    hidden product (:func:`hidden_products`) its ``(H_j/8 * H_{j+1}/8, 32,
+    2)`` mma B fragments and bias, W3 as ``(H_last/8 * slots * G/8, 32,
+    2)`` fragments, b3 ``(slots, G)`` (:func:`mma_shape`'s ``cp`` and
+    ``slots``: the half, or in the wide form its row stride rounded to 4
+    floats and whole groups of two), hidden widths :func:`kernel_hidden`'s.
+    The wide form puts the sections a layer reads throughout first (W1,
+    b1, every hidden bias, b3) and then the streamed ones (the hidden
+    products, then W3 by groups of two active dims). With no hidden layer:
+    W3 ``(slots * G, cp)`` dense (on FMAs) and b3."""
     return mma_shape(arch)["sections"]
 
 
@@ -414,16 +473,21 @@ def _w3_group_cols(arch) -> int:
 def mma_layout(arch) -> tuple[int, ...]:
     """The layout as the library reports it (``aspire_chain_layout``, the
     first entries of ``aspire_coupling_layout``): floats per layer, the
-    offsets of W1, b1, W2, b2, W3 and b3, the row stride and the floats of
-    a warp's buffer (whole-layer form: the transformer parameters of 32
-    rows; wide form: those of one 16-row tile's group, then the warp's 32
-    particles, ``D + 1`` floats apart), then the wide form's resident part
-    and largest chunk (0 and 0 otherwise)."""
+    offsets of W1, b1, W2, b2, W3 and b3 (-1 for a section the shape has
+    not), the row stride and the floats of a warp's buffer (whole-layer
+    form: the transformer parameters of 32 rows; wide form: those of one
+    16-row tile's group, then the warp's 32 particles, ``D + 1`` floats
+    apart, then with one hidden layer the tile's inputs), then the wide
+    form's resident part and largest chunk (0 and 0 otherwise), then the
+    offsets of every further hidden product's fragments and bias."""
     shape = mma_shape(arch)
     offsets = shape["offsets"]
     names = ("w1", "b1", "w2", "b2", "w3", "b3")
-    return (shape["size"], *(offsets[k] for k in names), shape["row"],
-            shape["stage"], shape["res"], shape["chunk"])
+    extra = [offsets[k] for w, b, _, _ in hidden_products(arch)[1:]
+             for k in (w, b)]
+    return (shape["size"], *(offsets.get(k, -1) for k in names),
+            shape["row"], shape["stage"], shape["res"], shape["chunk"],
+            *extra)
 
 
 @functools.lru_cache(maxsize=None)
@@ -456,55 +520,77 @@ def _layer_dims(layer: int) -> tuple[slice, slice]:
     return slice(odd, None, 2), slice(1 - odd, None, 2)
 
 
-def _dense_layer(arch, layer: int, net: dict):
+def _dense_layer(arch, layer: int, net: dict) -> dict:
     """One layer's conditioner as the kernel computes it (hidden widths
     already :func:`kernel_hidden`'s), each half of the layer in its
-    :func:`mma_shape` slots (a padding slot's weights zero): W1
-    ``(H1, cp)`` on the conditioning inputs, b1, W2 ``(H1, H2)``, b2, W3
-    ``(H2, slots * G)`` and b3 ``(slots, G)`` of the active dims'
-    parameter groups, each zero-padded to G."""
+    :func:`mma_shape` slots (a padding slot's weights zero), by section
+    name: W1 ``(H_0, cp)`` on the conditioning inputs, b1, each hidden
+    product ``(H_j, H_{j+1})`` and bias, W3 ``(H_last, slots * G)`` and b3
+    ``(slots, G)`` of the active dims' parameter groups, each zero-padded
+    to G; with no hidden layer W3 ``(slots * G, cp)`` on the conditioning
+    inputs."""
     d, P, G = arch.dims, arch.n_params_per_dim, mma_group(arch)
     shape = mma_shape(arch)
     slots, cp = shape["slots"], shape["cp"]
     active, cond = _layer_dims(layer)
-    l1, l2, l3 = net["layers"]
-    h2 = l3["w"].shape[0]
+    dense, last = net["layers"], net["layers"][-1]
     pad = torch.nn.functional.pad
-    w3 = l3["w"].reshape(h2, d, P)[:, active]
-    w3 = pad(w3, (0, G - P, 0, slots - w3.shape[1]))
-    b3 = l3["b"].reshape(d, P)[active]
+    rows = last["w"].shape[0]
+    w3 = last["w"].reshape(rows, d, P)[:, active]
+    w3 = pad(w3, (0, G - P, 0, slots - w3.shape[1])).reshape(rows, -1)
+    b3 = last["b"].reshape(d, P)[active]
     b3 = pad(b3, (0, G - P, 0, slots - b3.shape[0]))
-    w1 = l1["w"][cond].t()
-    return (pad(w1, (0, cp - w1.shape[1])), l1["b"], l2["w"], l2["b"],
-            w3.reshape(h2, -1), b3)
+    if len(dense) == 1:
+        w3 = w3[cond].t()
+        return {"w3": pad(w3, (0, cp - w3.shape[1])), "b3": b3}
+    w1 = dense[0]["w"][cond].t()
+    out = {"w1": pad(w1, (0, cp - w1.shape[1])), "b1": dense[0]["b"],
+           "w3": w3, "b3": b3}
+    for (w, b, _, _), layer_j in zip(hidden_products(arch), dense[1:-1]):
+        out[w], out[b] = layer_j["w"], layer_j["b"]
+    return out
 
 
-def _mma_fragment_indices(arch, device):
-    """The fragment index pairs of W2 and W3 (:func:`_fragments`)."""
-    h1, h2 = kernel_hidden(arch)
-    return (_fragments(h1, h2, device),
-            _fragments(h2, mma_shape(arch)["slots"] * mma_group(arch),
+def _fragment_sections(arch) -> list[str]:
+    """The sections packed as mma fragments: each hidden product, then
+    W3 (none with no hidden layer)."""
+    if not arch.n_hidden:
+        return []
+    return [w for w, _, _, _ in hidden_products(arch)] + ["w3"]
+
+
+def _mma_fragment_indices(arch, device) -> tuple:
+    """The fragment index pairs (:func:`_fragments`) of every tensor-core
+    product, in :func:`_fragment_sections`' order."""
+    if not arch.n_hidden:
+        return ()
+    return (*(_fragments(k, n, device)
+              for _, _, k, n in hidden_products(arch)),
+            _fragments(kernel_hidden(arch)[-1],
+                       mma_shape(arch)["slots"] * mma_group(arch),
                        device, _w3_group_cols(arch)))
 
 
 def prepare_mma_params(arch, params: dict) -> torch.Tensor:
     """Pack every layer's conditioner into the tensor-core flat layout
     (:func:`mma_sections`), in the parameters' dtype, hidden widths padded
-    to :func:`kernel_hidden`'s (:func:`pad_hidden`): W2 and W3 as mma B
-    fragments, in float32 each weight the sum of two TF32 values
+    to :func:`kernel_hidden`'s (:func:`pad_hidden`): the products past W1
+    as mma B fragments, in float32 each weight the sum of two TF32 values
     (:func:`split_tf32_sum`, so the kernel splits it exactly); float64
-    parameters (tests of the layout) are kept as they are."""
+    parameters (tests of the layout) are kept as they are. With no hidden
+    layer the one product stays dense (FMAs)."""
     params = pad_hidden(arch, params)
     dev = params["layers"][0]["layers"][0]["w"].device
-    (r2, c2), (r3, c3) = _mma_fragment_indices(arch, dev)
+    frags = list(zip(_fragment_sections(arch),
+                     _mma_fragment_indices(arch, dev)))
     order = [name for name, _ in mma_sections(arch)]
     chunks = []
     for layer, net in enumerate(params["layers"]):
-        w1, b1, w2, b2, w3, b3 = _dense_layer(arch, layer, net)
-        w2, w3 = w2[r2, c2], w3[r3, c3]
-        if w2.dtype == torch.float32:
-            w2, w3 = split_tf32_sum(w2), split_tf32_sum(w3)
-        sec = dict(w1=w1, b1=b1, w2=w2, b2=b2, w3=w3, b3=b3)
+        sec = _dense_layer(arch, layer, net)
+        for name, (rows, cols) in frags:
+            sec[name] = sec[name][rows, cols]
+            if sec[name].dtype == torch.float32:
+                sec[name] = split_tf32_sum(sec[name])
         _append_sections(chunks, [sec[name] for name in order])
     return _concat(chunks, arch.n_layers * mma_layout(arch)[0], arch,
                    chunks[0].dtype)
@@ -515,10 +601,11 @@ def mma_conditioner_plain(arch, packed: torch.Tensor, layer: int,
     """The ``(n, a, P)`` transformer parameters that layer ``layer``'s
     conditioner gives the ``a`` active dims of ``x``, read from the packed
     buffer the way the kernels read it: W1 on the conditioning inputs (a
-    padding slot's input 0), the fragments gathered back into W2 and W3,
-    each active dim's padded group cut to its parameters (the padding
-    slot's dropped). For tests of the layout: no kernel path calls it."""
-    h1, h2 = kernel_hidden(arch)
+    padding slot's input 0), the fragments gathered back into each
+    product, each active dim's padded group cut to its parameters (the
+    padding slot's dropped). For tests of the layout: no kernel path calls
+    it."""
+    hidden = kernel_hidden(arch)
     shape = mma_shape(arch)
     slots, G = shape["slots"], mma_group(arch)
     buf = packed.reshape(arch.n_layers, -1)[layer]
@@ -526,18 +613,25 @@ def mma_conditioner_plain(arch, packed: torch.Tensor, layer: int,
     sec = {name: buf[offsets[name]:offsets[name]
                      + int(torch.Size(dims).numel())].reshape(dims)
            for name, dims in mma_sections(arch)}
-    for name, (rows, cols), k_in, n_out in zip(
-            ("w2", "w3"), _mma_fragment_indices(arch, buf.device),
-            (h1, h2), (h2, slots * G)):
-        dense = buf.new_zeros((k_in, n_out))
+    outs = {w: n for w, _, _, n in hidden_products(arch)}
+    outs["w3"] = slots * G
+    for name, (rows, cols) in zip(_fragment_sections(arch),
+                                  _mma_fragment_indices(arch, buf.device)):
+        k_in = hidden[0] if name == "w2" else (
+            hidden[-1] if name == "w3" else hidden[int(name[3:])])
+        dense = buf.new_zeros((k_in, outs[name]))
         dense[rows, cols] = sec[name]
         sec[name] = dense
     active, cond = _layer_dims(layer)
     xc = x[:, cond]
     xc = torch.nn.functional.pad(xc, (0, shape["cp"] - xc.shape[1]))
-    h = torch.relu(xc @ sec["w1"].t() + sec["b1"])
-    h = torch.relu(h @ sec["w2"] + sec["b2"])
-    out = h @ sec["w3"] + sec["b3"].reshape(-1)
+    if not hidden:
+        out = xc @ sec["w3"].t() + sec["b3"].reshape(-1)
+    else:
+        h = torch.relu(xc @ sec["w1"].t() + sec["b1"])
+        for w, b, _, _ in hidden_products(arch):
+            h = torch.relu(h @ sec[w] + sec[b])
+        out = h @ sec["w3"] + sec["b3"].reshape(-1)
     n_active = x[:, active].shape[1]
     return out.reshape(-1, slots, G)[:, :n_active, :arch.n_params_per_dim]
 
@@ -590,7 +684,7 @@ def coupling_library(arch):
 def _coupling_library_layout(lib, cfg: int) -> tuple[int, ...]:
     """Library ``lib``'s layout of coupling configuration ``cfg``
     (``aspire_coupling_layout``), read once per process."""
-    out = (ctypes.c_int * 16)()
+    out = (ctypes.c_int * 256)()
     count = lib.aspire_coupling_layout(cfg, out, len(out))
     if not 0 <= count <= len(out):
         raise RuntimeError(f"coupling configuration {cfg} has no layout table")
@@ -725,8 +819,8 @@ def maf_config_id(arch) -> int | None:
 
 def maf_row(arch) -> tuple:
     """The MAF's configuration row of ``ASPIRE_MAF_CONFIGS`` (its values
-    after the id): ``(D, H1, H2, K)``, hidden widths padded."""
-    return (arch.dims, *kernel_hidden(arch), arch.num_bins)
+    after the id): ``(D, (H...), K)``, hidden widths padded."""
+    return (arch.dims, kernel_hidden(arch), arch.num_bins)
 
 
 def maf_group(arch) -> int:
@@ -759,39 +853,56 @@ def degree_ends(arch, width: int) -> list[int]:
 
 
 @functools.lru_cache(maxsize=None)
+def maf_product_ksteps(arch) -> tuple[tuple[int, ...], ...]:
+    """The 8-wide k-steps the kernel multiplies in each hidden product
+    (h_j -> h_{j+1}, in sorted unit order), per n-tile ``n`` of h_{j+1}:
+    output units ``8n .. 8n+7`` read the units of h_j up to the highest
+    degree among them."""
+    hidden = tuple(arch.n_hidden)
+    out = []
+    for h_in, h_out in zip(hidden, hidden[1:]):
+        ends = degree_ends(arch, h_in)
+        deg = torch.sort(_hidden_degrees(arch, h_out)).values
+        out.append(tuple(-(-ends[int(deg[8 * n + 7])] // 8)
+                         for n in range(h_out // 8)))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
 def maf_ksteps(arch) -> tuple[tuple[int, ...], tuple[int, ...]]:
-    """The 8-wide k-steps the kernel multiplies, in sorted unit order:
-    per n-tile ``j`` of W2 (output units ``8j .. 8j+7`` read the first-layer
-    units up to the highest degree among them) and per dim ``i`` of W3
-    (dim ``i`` reads the second-layer units of degree <= i; none for dim
-    0)."""
-    h1, h2 = tuple(arch.n_hidden)
-    e1, e2 = degree_ends(arch, h1), degree_ends(arch, h2)
-    deg2 = torch.sort(_hidden_degrees(arch, h2)).values
-    ks2 = tuple(-(-e1[int(deg2[8 * j + 7])] // 8) for j in range(h2 // 8))
-    ks3 = tuple(-(-e2[min(i, _max_degree(arch))] // 8)
+    """The 8-wide k-steps the kernel multiplies, in sorted unit order: per
+    n-tile of every hidden product (:func:`maf_product_ksteps`, in order;
+    W2's alone with two hidden layers) and per dim ``i`` of W3 (dim ``i``
+    reads the last hidden layer's units of degree <= i, or with no hidden
+    layer the inputs below i; none for dim 0)."""
+    hidden = tuple(arch.n_hidden)
+    ends = (degree_ends(arch, hidden[-1]) if hidden
+            else list(range(arch.dims + 1)))
+    ks3 = tuple(-(-ends[min(i, len(ends) - 1)] // 8)
                 for i in range(arch.dims))
-    return ks2, ks3
+    return sum(maf_product_ksteps(arch), ()), ks3
 
 
 def maf_sections(arch) -> list[tuple[str, tuple]]:
     """Sections of one layer of the packed MAF buffer, in order, with
     their shapes (csrc/maf.cu MafShape), hidden units in degree order:
-    W1 ``(H1, D)``, b1, W2 as ``(F2, 32, 2)`` mma B fragments (the kept
-    blocks only), b2, W3 as ``(F3, 32, 2)`` fragments (dims 1..D-1), b3
-    ``(D, G)``."""
-    d, (h1, h2), g = arch.dims, tuple(arch.n_hidden), maf_group(arch)
-    ks2, ks3 = maf_ksteps(arch)
-    f2, f3 = sum(ks2), (g // 8) * sum(ks3)
-    return [("w1", (h1, d)), ("b1", (h1,)), ("w2", (f2, 32, 2)),
-            ("b2", (h2,)), ("w3", (f3, 32, 2)), ("b3", (d, g))]
+    W1 ``(H_0, D)``, b1, each hidden product's ``(F_j, 32, 2)`` mma B
+    fragments (the kept blocks only) and bias (named as
+    :func:`hidden_products`), W3 as ``(F3, 32, 2)`` fragments (dims
+    1..D-1), b3 ``(D, G)``; with no hidden layer W3 and b3 alone."""
+    d, hidden, g = arch.dims, tuple(arch.n_hidden), maf_group(arch)
+    _, ks3 = maf_ksteps(arch)
+    out = [("w1", (hidden[0], d)), ("b1", (hidden[0],))] if hidden else []
+    for (w, b, _, n), ks in zip(hidden_products(arch),
+                                maf_product_ksteps(arch)):
+        out += [(w, (sum(ks), 32, 2)), (b, (n,))]
+    return out + [("w3", ((g // 8) * sum(ks3), 32, 2)), ("b3", (d, g))]
 
 
 @functools.lru_cache(maxsize=None)
 def maf_layer_floats(arch) -> int:
     """Floats per layer of the packed MAF buffer (MafShape::SIZE)."""
-    return _packed_floats(int(torch.Size(shape).numel())
-                          for _, shape in maf_sections(arch))
+    return _offsets(maf_sections(arch))[1]
 
 
 def maf_stage_floats(arch) -> int:
@@ -815,30 +926,30 @@ _MAF_CHUNK_FRAGS = 64
 @functools.lru_cache(maxsize=None)
 def maf_stream_layout(arch) -> dict:
     """The streamed MAF form's block (maf.cu ``MafStream``): a layer's
-    head (W1, b1, b2, b3; ``head`` floats, two buffers), its items through
-    two slots (``slot`` floats each: W2's fragments by chunks of n-tiles
-    of at most 64 fragments, ``w2_chunks`` of them, then W3's by two
-    dims), a warp's buffer (``stage``: its tile in and out, two dims'
-    parameters) and the most warps beside them (up to 16)."""
+    head (W1, b1, every hidden bias, b3; ``head`` floats, two buffers),
+    its items through two slots (``slot`` floats each: each hidden
+    product's fragments by chunks of n-tiles of at most 64 fragments,
+    ``w2_chunks`` of them in all, then W3's by two dims), a warp's buffer
+    (``stage``: its tile in and out, two dims' parameters) and the most
+    warps beside them (up to 16)."""
     d, g = arch.dims, maf_group(arch)
-    ks2, ks3 = maf_ksteps(arch)
-    offsets, off = {}, 0
-    for name, shape in maf_sections(arch):
-        off = _round4(off)
-        offsets[name] = off
-        off += int(torch.Size(shape).numel())
-    chunks, j = [], 0
-    while j < len(ks2):
-        e, f = j, 0
-        while e < len(ks2) and (e == j or f + ks2[e] <= _MAF_CHUNK_FRAGS):
-            f, e = f + ks2[e], e + 1
-        chunks.append(64 * f)
-        j = e
+    _, ks3 = maf_ksteps(arch)
+    offsets, _ = _offsets(maf_sections(arch))
+    chunks = []
+    for ks in maf_product_ksteps(arch):
+        j = 0
+        while j < len(ks):
+            e, f = j, 0
+            while e < len(ks) and (e == j or f + ks[e] <= _MAF_CHUNK_FRAGS):
+                f, e = f + ks[e], e + 1
+            chunks.append(64 * f)
+            j = e
     w2_chunks = len(chunks)
     chunks += [64 * (g // 8) * sum(ks3[2 * q:2 * q + 2])
                for q in range((d + 1) // 2)]
     slot = _round4(max(chunks))
-    head = _round4(offsets["w2"] + arch.n_hidden[1] + d * g)
+    first = offsets["w2" if len(arch.n_hidden) >= 2 else "w3"]
+    head = _round4(first + sum(arch.n_hidden[1:]) + d * g)
     stage = 2 * _round4(16 * d) + 16 * (2 * g + 4)
     bufs = 2 * slot + 2 * head
     return {"slot": slot, "head": head, "w2_chunks": w2_chunks,
@@ -865,8 +976,8 @@ def maf_shared_bytes(arch) -> int:
 def maf_takes(arch) -> bool:
     """Whether the MAF kernel takes the flow: what the JAX package's
     ``should_fuse_maf`` takes (RQS, twice its weight bytes within 8 MB,
-    and ``should_fuse``'s bounds), with two hidden layers, where a block
-    of its form fits one SM."""
+    and ``should_fuse``'s bounds), where a block of its form fits one
+    SM."""
     return (isinstance(arch, MAF) and arch.transformer == "rqs"
             and _reference_takes(arch) and arch.dims >= 2
             and 2 * reference_weight_bytes(arch) <= MAX_WEIGHT_BYTES
@@ -875,12 +986,13 @@ def maf_takes(arch) -> bool:
 
 
 def should_fuse_maf(arch, x: torch.Tensor) -> bool:
-    """True when the CUDA MAF kernel applies: a flow it takes
-    (:func:`maf_takes`) on a CUDA float32 batch of at least
-    ``MIN_FUSED_N`` rows. Affine MAF runs plain (the JAX package measured
-    its fusion as neutral)."""
+    """True when the CUDA MAF kernel applies: the switch on
+    (:func:`fused_enabled`), a flow it takes (:func:`maf_takes`) on a CUDA
+    float32 batch of at least ``MIN_FUSED_N`` rows. Affine MAF runs plain
+    (the JAX package measured its fusion as neutral)."""
     return (
-        x.is_cuda
+        fused_enabled()
+        and x.is_cuda
         and x.dim() == 2
         and x.shape[0] >= MIN_FUSED_N
         and x.dtype == torch.float32
@@ -889,49 +1001,76 @@ def should_fuse_maf(arch, x: torch.Tensor) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _maf_fragments(arch):
-    """(row, column) of every entry of the packed W2 and W3 fragments,
-    each a ``(F, 32, 2)`` index pair into the sorted ``(H1, H2)`` W2 and
-    ``(H2, D * G)`` W3: lane ``4g + t`` of the fragment for k-step ``s``
-    and n-tile ``j`` holds rows ``8s + 2t`` and ``8s + 2t + 1`` of column
-    ``8j + g`` (the mma B fragment, with the k order that lets one
-    product's accumulator serve as the next one's A fragment)."""
+def _maf_fragments(arch) -> dict:
+    """(row, column) of every entry of the packed fragments, by section
+    name, each a ``(F, 32, 2)`` index pair into the sorted ``(H_j,
+    H_{j+1})`` hidden product and the ``(H_last, D * G)`` W3 (``(D, D *
+    G)`` on the inputs with no hidden layer): lane ``4g + t`` of the
+    fragment for k-step ``s`` and n-tile ``j`` holds rows ``8s + 2t`` and
+    ``8s + 2t + 1`` of column ``8j + g`` (the mma B fragment, with the k
+    order that lets one product's accumulator serve as the next one's A
+    fragment)."""
     lane = torch.arange(32)
     rows = 2 * (lane % 4)[:, None] + torch.arange(2)[None, :]
     cols = (lane // 4)[:, None].expand(32, 2)
     g, nt = maf_group(arch), maf_group(arch) // 8
-    ks2, ks3 = maf_ksteps(arch)
-    w2 = [(8 * s + rows, 8 * j + cols)
-          for j, k in enumerate(ks2) for s in range(k)]
-    w3 = [(8 * s + rows, i * g + 8 * m + cols)
-          for i, k in enumerate(ks3) for s in range(k) for m in range(nt)]
+    _, ks3 = maf_ksteps(arch)
 
     def stack(frags):
         if not frags:
             return (torch.zeros((0, 32, 2), dtype=torch.long),) * 2
         return tuple(torch.stack(f) for f in zip(*frags))
 
-    return stack(w2), stack(w3)
+    out = {w: stack([(8 * s + rows, 8 * j + cols)
+                     for j, k in enumerate(ks) for s in range(k)])
+           for (w, _, _, _), ks in zip(hidden_products(arch),
+                                       maf_product_ksteps(arch))}
+    out["w3"] = stack([(8 * s + rows, i * g + 8 * m + cols)
+                       for i, k in enumerate(ks3) for s in range(k)
+                       for m in range(nt)])
+    return out
 
 
-def _maf_sorted_weights(arch, net: dict):
-    """One layer's MADE, mask-premultiplied, hidden units in degree order:
-    W1 ``(H1, D)``, b1, W2 ``(H1, H2)``, b2, W3 ``(H2, D * G)``, b3
-    ``(D, G)`` (each dim's P parameters zero-padded to G)."""
+def _maf_dense_shapes(arch) -> dict:
+    """The dense shape each fragment section packs (``_maf_fragments``):
+    ``(rows, columns)`` with the rows padded to whole k-steps."""
+    hidden = tuple(arch.n_hidden)
+    out = {w: (k, n) for w, _, k, n in hidden_products(arch)}
+    rows = hidden[-1] if hidden else -(-arch.dims // 8) * 8
+    out["w3"] = (rows, arch.dims * maf_group(arch))
+    return out
+
+
+def _maf_sorted_weights(arch, net: dict) -> dict:
+    """One layer's MADE, mask-premultiplied, hidden units in degree order,
+    by section name: W1 ``(H_0, D)``, b1, each hidden product ``(H_j,
+    H_{j+1})`` and bias, W3 ``(rows, D * G)`` (rows: the last hidden
+    layer's units, or the inputs padded to whole k-steps) and b3 ``(D,
+    G)`` (each dim's P parameters zero-padded to G)."""
     d, P, G = arch.dims, arch.n_params_per_dim, maf_group(arch)
-    h1, h2 = tuple(arch.n_hidden)
-    if h1 % 8 or h2 % 8:
+    hidden = tuple(arch.n_hidden)
+    if any(h % 8 for h in hidden):
         raise ValueError(f"the MAF packing takes hidden widths /8 "
                          f"(kernel_arch, pad_hidden): {arch}")
-    l1, l2, l3 = net["layers"]
-    m1, m2, m3 = arch.masks(l1["w"])
-    o1 = degree_order(arch, h1).to(l1["w"].device)
-    o2 = degree_order(arch, h2).to(l1["w"].device)
-    w3 = torch.nn.functional.pad((l3["w"] * m3)[o2].reshape(h2, d, P),
-                                 (0, G - P)).reshape(h2, d * G)
-    b3 = torch.nn.functional.pad(l3["b"].reshape(d, P), (0, G - P))
-    return ((l1["w"] * m1)[:, o1].t(), l1["b"][o1],
-            (l2["w"] * m2)[o1][:, o2], l2["b"][o2], w3, b3)
+    dense = net["layers"]
+    masks = arch.masks(dense[0]["w"])
+    dev = dense[0]["w"].device
+    orders = [degree_order(arch, h).to(dev) for h in hidden]
+    w = [layer["w"] * m for layer, m in zip(dense, masks)]
+    last = w[-1][orders[-1]] if hidden else w[-1]
+    rows = _maf_dense_shapes(arch)["w3"][0]
+    w3 = torch.nn.functional.pad(last.reshape(-1, d, P), (0, G - P))
+    w3 = torch.nn.functional.pad(w3.reshape(-1, d * G),
+                                 (0, 0, 0, rows - w3.shape[0]))
+    b3 = torch.nn.functional.pad(dense[-1]["b"].reshape(d, P), (0, G - P))
+    out = {"w3": w3, "b3": b3}
+    if hidden:
+        out["w1"] = w[0][:, orders[0]].t()
+        out["b1"] = dense[0]["b"][orders[0]]
+    for j, (wn, bn, _, _) in enumerate(hidden_products(arch)):
+        out[wn] = w[j + 1][orders[j]][:, orders[j + 1]]
+        out[bn] = dense[j + 1]["b"][orders[j + 1]]
+    return out
 
 
 def _round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -960,35 +1099,34 @@ def prepare_maf_params(arch, params: dict) -> torch.Tensor:
     (tests of the layout) keep their weights as they are."""
     params, arch = pad_hidden(arch, params), kernel_arch(arch)
     chunks = []
-    (r2, c2), (r3, c3) = _maf_fragments(arch)
+    frags = _maf_fragments(arch)
+    order = [name for name, _ in maf_sections(arch)]
     for net in params["layers"]:
-        w1, b1, w2, b2, w3, b3 = _maf_sorted_weights(arch, net)
-        dev = w1.device
-        w2, w3 = w2[r2.to(dev), c2.to(dev)], w3[r3.to(dev), c3.to(dev)]
-        if w2.dtype == torch.float32:
-            w2, w3 = split_tf32_sum(w2), split_tf32_sum(w3)
-        _append_sections(chunks, [w1, b1, w2, b2, w3, b3])
+        sec = _maf_sorted_weights(arch, net)
+        dev = sec["w3"].device
+        for name, (rows, cols) in frags.items():
+            sec[name] = sec[name][rows.to(dev), cols.to(dev)]
+            if sec[name].dtype == torch.float32:
+                sec[name] = split_tf32_sum(sec[name])
+        _append_sections(chunks, [sec[name] for name in order])
     return _concat(chunks, arch.n_layers * maf_layer_floats(arch), arch,
                    chunks[0].dtype)
 
 
 def unpack_maf_layer(arch, layer: torch.Tensor) -> dict:
     """One layer of the packed buffer as its sections (by name), the
-    fragments scattered back into the sorted ``(H1, H2)`` W2 and
-    ``(H2, D * G)`` W3 (zeros outside the kept blocks)."""
+    fragments scattered back into the sorted dense products
+    (:func:`_maf_dense_shapes`; zeros outside the kept blocks)."""
     sections, off = {}, 0
     for name, shape in maf_sections(arch):
         off = _round4(off)
         size = int(torch.Size(shape).numel())
         sections[name] = layer[off:off + size].reshape(shape)
         off += size
-    h1, h2 = tuple(arch.n_hidden)
-    (r2, c2), (r3, c3) = _maf_fragments(arch)
     dev = layer.device
-    for name, (rows, cols), shape in (
-            ("w2", (r2, c2), (h1, h2)),
-            ("w3", (r3, c3), (h2, arch.dims * maf_group(arch)))):
-        dense = layer.new_zeros(shape)
+    shapes = _maf_dense_shapes(arch)
+    for name, (rows, cols) in _maf_fragments(arch).items():
+        dense = layer.new_zeros(shapes[name])
         dense[rows.to(dev), cols.to(dev)] = sections[name]
         sections[name] = dense
     return sections
@@ -1002,26 +1140,33 @@ def maf_packed_plain(arch, packed: torch.Tensor, x: torch.Tensor):
     alone, then the inverse spline of every dim and the reversal of dims.
     For tests of the layout: no kernel path calls it."""
     d, P, G = arch.dims, arch.n_params_per_dim, maf_group(arch)
-    h1, h2 = tuple(arch.n_hidden)
-    e1 = degree_ends(arch, h1)
-    ks2, ks3 = maf_ksteps(arch)
+    hidden = tuple(arch.n_hidden)
+    _, ks3 = maf_ksteps(arch)
     n = x.shape[0]
     log_det = x.new_zeros(n)
     z = x
     for layer in packed.reshape(arch.n_layers, -1):
         sec = unpack_maf_layer(arch, layer)
-        h = x.new_empty((n, h1))
-        for deg in range(1, len(e1)):
-            seg = slice(e1[deg - 1], e1[deg])
-            h[:, seg] = z[:, :deg] @ sec["w1"][seg, :deg].t() + sec["b1"][seg]
-        h = torch.relu(h)
-        hh = torch.cat([h[:, :8 * k] @ sec["w2"][:8 * k, 8 * j:8 * j + 8]
-                        for j, k in enumerate(ks2)], dim=1)
-        hh = torch.relu(hh + sec["b2"])
+        if hidden:
+            e1 = degree_ends(arch, hidden[0])
+            h = x.new_empty((n, hidden[0]))
+            for deg in range(1, len(e1)):
+                seg = slice(e1[deg - 1], e1[deg])
+                h[:, seg] = (z[:, :deg] @ sec["w1"][seg, :deg].t()
+                             + sec["b1"][seg])
+            h = torch.relu(h)
+        else:
+            h = torch.nn.functional.pad(
+                z, (0, sec["w3"].shape[0] - d))
+        for (w, b, _, _), ks in zip(hidden_products(arch),
+                                    maf_product_ksteps(arch)):
+            h = torch.relu(torch.cat(
+                [h[:, :8 * k] @ sec[w][:8 * k, 8 * j:8 * j + 8]
+                 for j, k in enumerate(ks)], dim=1) + sec[b])
         par = [sec["b3"][0, :P].expand(n, P)]
         for i in range(1, d):
             cols = slice(i * G, i * G + P)
-            par.append(hh[:, :8 * ks3[i]] @ sec["w3"][:8 * ks3[i], cols]
+            par.append(h[:, :8 * ks3[i]] @ sec["w3"][:8 * ks3[i], cols]
                        + sec["b3"][i, :P])
         y, eld = arch._elementwise(z, torch.stack(par, dim=1), inverse=True)
         log_det = log_det + eld.sum(-1)
@@ -1094,7 +1239,7 @@ def _maf_library_layout(lib, cfg: int) -> tuple[int, int, tuple[int, ...]]:
     """Library ``lib``'s layout of MAF configuration ``cfg``: floats per
     layer, floats per warp buffer, and the k-steps of W2's n-tiles then
     W3's dims (MafBlocks), read once per process."""
-    out = (ctypes.c_int * 256)()
+    out = (ctypes.c_int * 4096)()
     count = lib.aspire_maf_ksteps(cfg, out, len(out))
     if not 0 <= count <= len(out):
         raise RuntimeError(f"MAF configuration {cfg} has no k-step table")
@@ -1114,8 +1259,8 @@ def launch_maf(arch, weights: torch.Tensor, x: torch.Tensor):
     layer, stage, ksteps = _maf_library_layout(lib, cfg)
     _check_launch(main, "MAF kernel", arch, weights, x, layer,
                   maf_layer_floats(karch), maf_shared_bytes(karch))
-    ks2, ks3 = maf_ksteps(karch)
-    if stage != maf_stage_floats(karch) or ksteps != ks2 + ks3:
+    if stage != maf_stage_floats(karch) or ksteps != sum(maf_ksteps(karch),
+                                                         ()):
         raise RuntimeError("MAF buffer layout disagrees with the kernel library")
     n = x.shape[0]
     z = torch.empty_like(x)

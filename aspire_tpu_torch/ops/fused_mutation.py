@@ -526,14 +526,18 @@ def combine_tile_stats(stats: torch.Tensor, d: int, tile: int = TILE):
 # ---------------------------------------------------------------------------
 
 
-def kernel_supports(cfg: ChainConfig, target_id=None) -> bool:
-    """Whether the chain kernel takes this chain: a coupling flow the
-    coupling kernel takes (``FC.coupling_takes``: the JAX package's
-    ``should_fuse`` with two hidden layers) whose chain block fits one SM
+def kernel_supports(cfg: ChainConfig, target_id=None,
+                    forced: bool = False) -> bool:
+    """Whether the chain kernel takes this chain: the switch on
+    (``FC.fused_enabled``, the JAX package's ``should_fuse`` in its
+    ``_fused_chain_spec``) unless ``forced`` (``fused_chain=True``), a
+    coupling flow the coupling kernel takes (``FC.coupling_takes``: the
+    JAX package's ``should_fuse``) whose chain block fits one SM
     (:func:`chain_shared_bytes`), a kernel of ``KERNELS``, and (given) an
     in-kernel target id or a :class:`UserTarget` (built for any shape)."""
     arch = cfg.arch
-    return (isinstance(arch, Coupling) and FC.coupling_takes(arch)
+    return ((forced or FC.fused_enabled())
+            and isinstance(arch, Coupling) and FC.coupling_takes(arch)
             and cfg.kernel in KERNELS
             and chain_shared_bytes(arch, consts_layout(arch.dims)[-1])
             <= FC.MAX_SHARED_BYTES
@@ -763,7 +767,7 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     n, d = z0.shape
     target_id, tconsts = target
     user = isinstance(target_id, UserTarget)
-    if not kernel_supports(cfg, target_id):
+    if not kernel_supports(cfg, target_id, forced=True):
         raise ValueError(f"no chain kernel compiled for {arch}/{cfg.kernel} "
                          f"with target {target_id}")
     # The prebuilt library's configuration, the shape's instance, or a

@@ -515,7 +515,9 @@ class SMCSampler(Sampler):
         to programs (``FM.canonicalize_transform``: identity, affine,
         logit, probit, periodic and their masked composites), a target with
         an in-kernel id or a user's source, an integer ``nu + d`` for tpCN,
-        whole tiles, and on a CUDA device a flow the kernel takes
+        whole tiles, the switch on (``FC.fused_enabled``: the reference's
+        ``should_fuse``) unless ``fused_chain=True`` forces the kernel past
+        it, and on a CUDA device a flow the kernel takes
         (``FM.kernel_supports``). A shape outside the prebuilt library, or
         a user's source, is built into its instance here, at first use
         (outside any CUDA graph capture); a failed build raises. The spec holds
@@ -524,7 +526,9 @@ class SMCSampler(Sampler):
         fit), and both lowered for the kernel (``blocks``), here, outside
         any CUDA graph capture.
         """
-        if (kwargs.get("fused_chain", "auto") in (False, "off")
+        mode = kwargs.get("fused_chain", "auto")
+        forced = mode is True
+        if (mode in (False, "off") or (not forced and not FC.fused_enabled())
                 or waste_free or windowed_tau or kwargs.get("flow_moves")
                 or self.mesh is not None):
             return None
@@ -555,7 +559,7 @@ class SMCSampler(Sampler):
             arch, kcfg["kernel"], 1, nu=kcfg["nu"],
             gamma_m=kcfg["gamma_m"], gamma_odd=kcfg["gamma_odd"])
         if self.device.type == "cuda":
-            if not FM.kernel_supports(cfg, kcfg["target"][0]):
+            if not FM.kernel_supports(cfg, kcfg["target"][0], forced):
                 return None
             FM.chain_library(cfg, kcfg["target"][0])
         kcfg["blocks"] = tuple(

@@ -85,7 +85,7 @@ main paths (6, 7, 8) right after the build:
    ``replay_check``);
 8. BASELINE config 5 (``phase_hierarchical``): the d = 32 hierarchical
    posterior with an nsf 6 x (128, 128), 8-bin flow at its full width
-   and n: B1/B3 at that shape against plain at n = 16384 and 1048576, B2
+   and n: B1/B3 at that shape against plain at n = 16384 and 131072, B2
    on the hierarchical target against the plain chain at 8192 x 32 steps;
    the pipeline (fit on 32768 draws, importance sampling on 262144, SMC on
    1048576 particles with 32-step tpCN: every mutation on B2, the draws
@@ -140,11 +140,17 @@ main paths (6, 7, 8) right after the build:
    nsf-tpu's widths at d = 15, 32 and 10, B2 at d = 15 (the wide form at
    an odd d; injected noise and its Philox stream), d = 10 (the funnel;
    its layers streamed) and realnvp and Rosenbrock (ids 1-5) at d = 4, B4
-   at d = 15 (the streamed form), each against plain at the card rule and
-   timed; the main path at d = 15 (the mixture, nsf-tpu fitted on 8192
-   of its initial draws, SMC at n = 131072 on both ladders and both
-   routes, log Z against the analytic evidence); the realnvp, Rosenbrock,
-   funnel and maf-rqs rows at n = 8192 with their launches and log Z;
+   at d = 15 (the streamed form), and at hidden depths other than two
+   B1/B3, B2 and B4 at d = 4 with (128,) and (64, 64, 64), B1/B3 and B2
+   at nsf 6 x (128, 128, 128) d = 32 (the wide form) and B4 at maf-rqs
+   (64, 64, 64) d = 15 (streamed), each against plain at the card rule
+   and timed; the main path at d = 15 (the mixture, nsf-tpu fitted on
+   8192 of its initial draws, SMC at n = 131072 on both ladders and both
+   routes, log Z against the analytic evidence) and at d = 4 with nsf-tpu
+   and maf-rqs at those two depths (anchors at n = 8192 held to the
+   analytic rule, pipelines at n = 131072 on both ladders, nsf-tpu's on
+   both routes); the realnvp, Rosenbrock, funnel and maf-rqs rows at
+   n = 8192 with their launches and log Z;
 12. print kernel and plain times, each kernel's bound, the kernels JSON
    line and the result line. A time is device time: one CUDA-event pair
    around 20 back-to-back calls after a warm-up (cuda_ms); the earlier
@@ -429,17 +435,20 @@ def launch_counts() -> dict:
 
 def coupling_flop_parts(arch) -> tuple[int, int]:
     """FLOP per particle of one coupling-flow pass, 2 per multiply-add, as
-    (first layer, the two wide layers): per layer the conditioner's
-    products over the conditioning inputs, then both hidden layers and the
+    (first layer, every further product): per layer the conditioner's
+    products over the conditioning inputs, then each hidden product and the
     active dims' spline parameters (the splines' few hundred operations
-    are not counted). The chain kernel runs the first part on the FP32
-    pipe and the second on the tensor cores."""
-    h1, h2 = arch.n_hidden
+    are not counted). The kernels run the first part on the FP32 pipe and
+    the second on the tensor cores; with no hidden layer the one product
+    is the first part."""
+    sizes = list(arch.n_hidden)
     first = wide = 0
     for layer in range(arch.n_layers):
         active = len([i for i in range(arch.dims) if i % 2 == layer % 2])
-        first += 2 * (arch.dims - active) * h1
-        wide += 2 * (h1 * h2 + h2 * active * arch.n_params_per_dim)
+        out = active * arch.n_params_per_dim
+        chain = [arch.dims - active, *sizes, out]
+        first += 2 * chain[0] * chain[1]
+        wide += 2 * sum(a * b for a, b in zip(chain[1:], chain[2:]))
     return first, wide
 
 
@@ -451,15 +460,18 @@ def coupling_flop(arch) -> int:
 def maf_flop(arch) -> tuple[int, int]:
     """FLOP per particle of the MAF density pass: per layer the MADE's
     products by the weights its masks keep (a masked weight is zero and
-    needs no product), 2 FLOP per multiply-add; as (first layer, the
-    two wide layers), the part the MAF kernel runs on the FP32 pipe and
-    the part it runs on the tensor cores."""
+    needs no product), 2 FLOP per multiply-add; as (first layer, every
+    further product), the part the MAF kernel runs on the FP32 pipe and
+    the part it runs on the tensor cores (with no hidden layer, all of it
+    on the tensor cores)."""
     from aspire_tpu_torch.flows.nets import made_masks
 
     masks, _ = made_masks(arch.dims, list(arch.n_hidden),
                           arch.n_params_per_dim)
     kept = [arch.n_layers * 2 * int(m.sum()) for m in masks]
-    return kept[0], kept[1] + kept[2]
+    if not arch.n_hidden:  # the one product on the tensor cores
+        return 0, kept[0]
+    return kept[0], sum(kept[1:])
 
 
 def bound(flop: float, nbytes: float, tensor_flop: float = 0.0) -> dict:
@@ -1397,7 +1409,7 @@ def maf_turn() -> dict:
     """One turn of ``maf_ab``, in the checkout whose ``aspire_tpu_torch``
     the process imports: its B4 through ``launch_maf`` on ``phase_maf``'s
     flow at n = N_COUPLING and N_CHAIN, by events and single calls, then
-    alone."""
+    alone; and a digest of its outputs."""
     import torch
 
     from aspire_tpu_torch.flows.architectures import maf_rqs
@@ -1419,9 +1431,10 @@ def maf_turn() -> dict:
         key = f"B4 n={n}"
         times[key] = {"ms": cuda_ms(run), "ms_single_call": cuda_ms_single(run)}
         later.append((key, run))
+    outputs = [t for _, run in later for t in run()]
     for key, run in later:
         times[key]["kernel_ms"] = kernel_ms(run, "maf_kernel")
-    return {"times": times}
+    return {"times": times, "digest": digest(outputs)}
 
 
 def coupling_turn(n: int, draws: int) -> dict:
@@ -1429,7 +1442,8 @@ def coupling_turn(n: int, draws: int) -> dict:
     ``aspire_tpu_torch`` the process imports: B1 and B3 of every flow of
     ``coupling_flows`` on input draw 1, packed once in that checkout's
     layout and launched through its ``launch_packed``, by events and then
-    alone; and ``coupling_accuracy`` of its wrapper on ``draws`` draws."""
+    alone; ``coupling_accuracy`` of its wrapper on ``draws`` draws; and a
+    digest of every case's outputs."""
     import torch
 
     from aspire_tpu_torch.ops import fused_coupling as FC
@@ -1452,9 +1466,10 @@ def coupling_turn(n: int, draws: int) -> dict:
                           "ms_single_call": cuda_ms_single(run)}
             later.append((key, run))
     accuracy = coupling_accuracy(dev, n, draws)
+    outputs = [t for _, run in later for t in run()]
     for key, run in later:
         times[key]["kernel_ms"] = kernel_ms(run, "coupling_kernel")
-    return {"times": times, "accuracy": accuracy}
+    return {"times": times, "accuracy": accuracy, "digest": digest(outputs)}
 
 
 # One turn of an A/B (chain_ab, maf_ab, coupling_ab, staged_ab, wide_ab),
@@ -1509,8 +1524,12 @@ def chain_ab(parent: str) -> dict:
 def maf_ab(parent: str) -> dict:
     """B4 of the checkout at ``parent`` against this one's, at
     n = N_COUPLING and N_CHAIN, in turns (parent, change, change, parent),
-    each turn a process of its own as in ``chain_ab`` (``maf_turn``)."""
-    return path_ab(parent, "maf_turn", "", "maf", ())
+    each turn a process of its own as in ``chain_ab`` (``maf_turn``); and
+    whether both checkouts' outputs are the same bits."""
+    out = path_ab(parent, "maf_turn", "", "maf", ("digest",))
+    out["outputs_identical"] = (out["parent"]["digest"]
+                                == out["change"]["digest"])
+    return out
 
 
 def coupling_ab(parent: str, draws: int = 20) -> dict:
@@ -1519,9 +1538,13 @@ def coupling_ab(parent: str, draws: int = 20) -> dict:
     n = N_COUPLING, in turns (parent, change, change, parent) on the same
     card, each turn a process of its own as in ``chain_ab``: their times,
     and the card rule read on ``draws`` input draws per flow (the same in
-    both turns of a checkout: the kernels are deterministic)."""
-    return path_ab(parent, "coupling_turn", f"{N_COUPLING}, {draws}",
-                   "coupling")
+    both turns of a checkout: the kernels are deterministic); and whether
+    both checkouts' outputs on draw 1 are the same bits."""
+    out = path_ab(parent, "coupling_turn", f"{N_COUPLING}, {draws}",
+                  "coupling", ("accuracy", "digest"))
+    out["outputs_identical"] = (out["parent"]["digest"]
+                                == out["change"]["digest"])
+    return out
 
 
 def staged_launchers(arch, params) -> dict:
@@ -6182,7 +6205,9 @@ def phase_hierarchical(device) -> dict:
     the d = 32 hierarchical posterior, nsf 6 x (128, 128), 8 bins.
 
     1. B1 and B3 at the config's flow shape against the plain pass (float64
-       deciding the points where they disagree), at N_HIER_CHECK and N_HIER;
+       deciding the points where they disagree), at N_HIER_CHECK and
+       N_HIER_ROUTES (the kernel N_HIER runs; the N_HIER check was cut for
+       the script's time);
        B2 on the hierarchical target against the plain chain (injected
        noise, Philox replay, independent noise) at 8192 x HIER_STEPS.
     2. The pipeline, launch counts from 0: fit on 32,768 draws (20 epochs,
@@ -6211,7 +6236,7 @@ def phase_hierarchical(device) -> dict:
     # 1. The kernels at the config's shape.
     flow = (hierarchical_flow(), 12, 0.05)
     checks = {}
-    for n in (N_HIER_CHECK, N_HIER):
+    for n in (N_HIER_CHECK, N_HIER_ROUTES):
         c = coupling_outputs(device, flow, n, 1)
         bad = {what: assert_kernel_close(*v, f"config 5 {what}, n={n}")
                for what, v in c["outputs"].items()}
@@ -6363,6 +6388,12 @@ SHAPES_FIT_DRAWS = 8192
 SHAPES_FIT = dict(n_epochs=20, batch_size=512, learning_rate=3e-3)
 SHAPES_TURNS = ("device", "host")
 SHAPES_SCALE = 0.05
+#: the hidden depths other than two the main path runs at d = 4 (the
+#: reference's advice, one 128-wide layer, and three 64-wide layers), by
+#: name; and the wide form's three-layer shape (BASELINE config 5's flow
+#: with one more hidden layer), checked against its plain pass
+DEPTHS = {"(128,)": (128,), "(64, 64, 64)": (64, 64, 64)}
+DEPTH_WIDE = "nsf 6 x (128, 128, 128) d=32"
 #: the instances the phase builds while the earlier phases run
 #: (``start_builds``): name -> seconds, or the error
 _SHAPES_BUILDS: dict = {}
@@ -6381,18 +6412,31 @@ def shapes_instances() -> dict:
     from aspire_tpu_torch.ops import fused_mutation as FM
 
     d = SHAPES_DIMS
+    wide3 = nsf(32, n_layers=6, n_hidden=(128, 128, 128), num_bins=8)
     coupling = {f"B1/B3 nsf-tpu d={d}": nsf_tpu(d),
                 "B1/B3 nsf-tpu d=32 (64, 64)": nsf_tpu(32),
-                "B1/B3 nsf-tpu d=10": nsf_tpu(10)}
+                "B1/B3 nsf-tpu d=10": nsf_tpu(10),
+                **{f"B1/B3 nsf-tpu {k} d=4": nsf_tpu(4, n_hidden=h)
+                   for k, h in DEPTHS.items()},
+                f"B1/B3 {DEPTH_WIDE}": wide3}
     chain = {f"B2 nsf-tpu d={d}": nsf_tpu(d), "B2 nsf-tpu d=10": nsf_tpu(10),
-             "B2 realnvp d=4": realnvp(4), "B2 nsf d=4, ids 1-5": nsf(4)}
+             "B2 realnvp d=4": realnvp(4), "B2 nsf d=4, ids 1-5": nsf(4),
+             **{f"B2 nsf-tpu {k} d=4": nsf_tpu(4, n_hidden=h)
+                for k, h in DEPTHS.items()},
+             f"B2 {DEPTH_WIDE}": wide3}
+    maf = {f"B4 maf-rqs d={d}": maf_rqs(d),
+           **{f"B4 maf-rqs {k} d=4": maf_rqs(4, n_hidden=h)
+              for k, h in DEPTHS.items()},
+           f"B4 maf-rqs (64, 64, 64) d={d}": maf_rqs(d,
+                                                     n_hidden=(64, 64, 64))}
     return {**{k: ("coupling", a, FC.coupling_row(a))
                for k, a in coupling.items()},
             **{k: ("chain" if FC.mma_wide(a) or FM.chain_resident(a)
                    else "chain_streamed", a, FM.chain_row(a))
                for k, a in chain.items()},
-            f"B4 maf-rqs d={d}": ("maf_streamed", maf_rqs(d),
-                                  FC.maf_row(maf_rqs(d)))}
+            **{k: ("maf" if FC.maf_form(a) == "resident" else
+                   "maf_streamed", a, FC.maf_row(a))
+               for k, a in maf.items()}}
 
 
 def user_instances(device) -> dict:
@@ -6487,7 +6531,10 @@ def shapes_builds(threads: dict) -> dict:
 def shapes_coupling_checks(device, n: int) -> dict:
     """B1/B3 of each coupling instance against plain at n (float64
     arbitration), timed (events, single calls, alone) with plain torch
-    beside, and its bound."""
+    beside, and its bound. At hidden depths other than two the round trip
+    (B3 of the plain path's latents) is held to float64's inverse of the
+    same latents, the input deciding; its reading against the input alone
+    (the older rows' gate) is reported beside it."""
     from aspire_tpu_torch.ops import fused_coupling as FC
 
     out = {}
@@ -6495,13 +6542,32 @@ def shapes_coupling_checks(device, n: int) -> dict:
         if kind != "coupling":
             continue
         c = coupling_outputs(device, (arch, 21, SHAPES_SCALE), n, 1)
+        outputs, strict = c["outputs"], {}
+        if len(arch.n_hidden) != 2:
+            # At depths other than two the round trip is held to float64's
+            # inverse of the same float32 latents, the input deciding: the
+            # kernel may miss the input only where that exact inverse misses
+            # it too (``tools/round_trip_probe.py``: at 0.05 the (128,) flow
+            # loses the input in its float32 latents, float64's inverse off
+            # it by up to 4.5e-4). The reading against the input alone (the
+            # older rows' gate) is reported beside it.
+            x_k, x_p, x_e = outputs["sampling x"]
+            x64 = c["x"].double()
+            e_k, _, _ = rule_points(x_k, c["x"], x64)
+            strict = {"points": e_k.numel(),
+                      "max_abs_err": max_err(x_k, c["x"]),
+                      "plain_max_abs_err": max_err(x_p, c["x"]),
+                      "float64_max_abs_err": max_err(x_e, x64)}
+            outputs = {**outputs, "round trip x": (x_k, x_e, x64)}
         bad = {what: assert_kernel_close(*v, f"{name} {what}")
-               for what, v in c["outputs"].items()}
+               for what, v in outputs.items()}
         v = {"max_abs_err": max(max_err(k, p) for what, (k, p, _)
-                                in c["outputs"].items()
+                                in outputs.items()
                                 if not what.startswith("round trip")),
              "ill_conditioned_points": bad, "form": FC.mma_form(arch),
              **coupling_bound(arch, n)}
+        if strict:
+            v["round_trip_against_input"] = strict
         if device.type == "cuda":
             a, params, x, z = c["arch"], c["params"], c["x"], c["z"]
             coupling_times(a, params, x, z, v)
@@ -6582,49 +6648,55 @@ def shapes_chain_checks(device, n: int, n_time: int) -> dict:
 
 
 def shapes_maf_check(device, n: int) -> dict:
-    """B4 of the maf-rqs instance at d = SHAPES_DIMS (4 layers, (64, 64),
-    8 bins: the streamed form) against plain at n and at N_CHAIN + 37 (a
+    """B4 of each MAF instance (maf-rqs at d = SHAPES_DIMS, 4 layers,
+    (64, 64) and (64, 64, 64), 8 bins: the streamed form; at d = 4 at the
+    other depths: resident) against plain at n and at N_CHAIN + 37 (a
     ragged last tile), float64 arbitration; timed at n with plain torch
     beside, and its bound."""
     import torch
 
     from aspire_tpu_torch.ops import fused_coupling as FC
 
-    (_, arch, _), = (v for v in shapes_instances().values()
-                     if v[0].startswith("maf"))
-    arch, params = perturbed_flow(device, 22, arch, SHAPES_SCALE)
-    params64 = as_float64(params)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(23)
-    fp32_flop, tensor_flop = maf_flop(arch)
-    out = {"max_abs_err": 0.0, "ill_conditioned_points": 0,
-           "form": FC.maf_form(arch),
-           **bound(n * fp32_flop, density_bytes(
-               arch, n, 4 * arch.n_layers * FC.maf_layer_floats(arch)),
-               tensor_flop=n * tensor_flop)}
-    for m in (n, N_CHAIN + 37):
-        x = 2.0 * torch.randn((m, arch.dims), generator=gen, device=device)
-        z_k, ld_k = FC.maf_kernel_apply(arch, params, x)
-        z_p, ld_p = arch.forward_plain(params, x)
-        z_e, ld_e = arch.forward_plain(params64, x.double())
-        out["ill_conditioned_points"] += assert_kernel_close(
-            z_k, z_p, z_e, f"maf-rqs d={arch.dims} z, n={m}")
-        out["ill_conditioned_points"] += assert_kernel_close(
-            ld_k, ld_p, ld_e, f"maf-rqs d={arch.dims} log_det, n={m}")
-        out["max_abs_err"] = max(out["max_abs_err"], max_err(z_k, z_p),
-                                 max_err(ld_k, ld_p))
-        if device.type == "cuda" and m == n:
-            w = FC.prepare_maf_params(arch, params)
-            out["ms"] = cuda_ms(lambda: FC.launch_maf(arch, w, x))
-            out["ms_single_call"] = cuda_ms_single(
-                lambda: FC.launch_maf(arch, w, x))
-            out["plain_ms"] = cuda_ms(lambda: arch.forward_plain(params, x),
-                                      5)
-            kernel_ms_later(out, "kernel_ms",
-                            lambda x=x, w=w: FC.launch_maf(arch, w, x),
-                            "maf_kernel")
-    log(f"maf-rqs d={arch.dims} against plain: {out}")
-    return out
+    outs = {}
+    for name, (kind, arch, _) in shapes_instances().items():
+        if not kind.startswith("maf"):
+            continue
+        arch, params = perturbed_flow(device, 22, arch, SHAPES_SCALE)
+        params64 = as_float64(params)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(23)
+        fp32_flop, tensor_flop = maf_flop(arch)
+        out = {"max_abs_err": 0.0, "ill_conditioned_points": 0,
+               "form": FC.maf_form(arch),
+               **bound(n * fp32_flop, density_bytes(
+                   arch, n, 4 * arch.n_layers * FC.maf_layer_floats(arch)),
+                   tensor_flop=n * tensor_flop)}
+        for m in (n, N_CHAIN + 37):
+            x = 2.0 * torch.randn((m, arch.dims), generator=gen,
+                                  device=device)
+            z_k, ld_k = FC.maf_kernel_apply(arch, params, x)
+            z_p, ld_p = arch.forward_plain(params, x)
+            z_e, ld_e = arch.forward_plain(params64, x.double())
+            out["ill_conditioned_points"] += assert_kernel_close(
+                z_k, z_p, z_e, f"{name} z, n={m}")
+            out["ill_conditioned_points"] += assert_kernel_close(
+                ld_k, ld_p, ld_e, f"{name} log_det, n={m}")
+            out["max_abs_err"] = max(out["max_abs_err"], max_err(z_k, z_p),
+                                     max_err(ld_k, ld_p))
+            if device.type == "cuda" and m == n:
+                w = FC.prepare_maf_params(arch, params)
+                out["ms"] = cuda_ms(lambda: FC.launch_maf(arch, w, x))
+                out["ms_single_call"] = cuda_ms_single(
+                    lambda: FC.launch_maf(arch, w, x))
+                out["plain_ms"] = cuda_ms(
+                    lambda: arch.forward_plain(params, x), 5)
+                kernel_ms_later(out, "kernel_ms",
+                                lambda x=x, w=w, a=arch: FC.launch_maf(a, w,
+                                                                       x),
+                                "maf_kernel")
+        log(f"{name} against plain: {out}")
+        outs[name] = out
+    return outs
 
 
 def analytic_rule(log_z: float, err: float, truth: float) -> bool:
@@ -6632,16 +6704,54 @@ def analytic_rule(log_z: float, err: float, truth: float) -> bool:
     return abs(log_z - truth) < max(5 * err, 0.02)
 
 
+def route_pipelines(asp, n: int, truth: float, label: str) -> dict:
+    """SMC at n with 20-step tpCN on ``asp`` on the device ladder in turns
+    with the host ladder, on the whole-chain route (B3 the draws, B2 once a
+    rung, every mutation ``fused_kernel``) and on the split route (B1,
+    CHAIN_STEPS + 2 a rung); the two ladders' and the two routes' log Z
+    within max(5 combined sigma, 0.15); each route's log Z read against the
+    analytic evidence by ``check_result``'s rule (a miss on the whole-chain
+    route where the split route holds fails; on both, it is reported)."""
+    pipeline = dict(sampler="smc", n_samples=n, store_sample_history=False,
+                    sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+    split = dict(pipeline, sampler_kwargs=dict(n_steps=CHAIN_STEPS,
+                                               fused_chain=False))
+    out = {}
+    for route, run, need in (("fused", pipeline, {"chain": 1}),
+                             ("split", split,
+                              {"coupling": CHAIN_STEPS + 2})):
+        v = ladder_turns(asp, run, need, turns=SHAPES_TURNS)
+        routes = set(asp.sampler.history.mutation_route)
+        want = {"fused": {"fused_kernel"}, "split": {"split"}}[route]
+        b3 = [r["b3"] for r in v["per_run"]]
+        if routes != want or (asp.device.type == "cuda" and min(b3) < 1):
+            raise AssertionError(f"{label} {route}: routes {routes}, B3 "
+                                 f"launches a run {b3}")
+        v["analytic"] = {
+            ladder: analytic_rule(v[f"{pre}log_z"], v[f"{pre}log_z_err"],
+                                  truth)
+            for ladder, pre in (("device", ""), ("host", "host_"))}
+        out[route] = v
+    tol = max(5 * math.hypot(out["fused"]["log_z_err"],
+                             out["split"]["log_z_err"]), 0.15)
+    out["routes_tolerance"] = tol
+    if abs(out["fused"]["log_z"] - out["split"]["log_z"]) >= tol:
+        raise AssertionError(f"{label}: routes disagree on log Z: "
+                             f"{out['fused']} against {out['split']}")
+    fused_ok = all(out["fused"]["analytic"].values())
+    split_ok = all(out["split"]["analytic"].values())
+    out["analytic_rule"] = {"fused": fused_ok, "split": split_ok}
+    if split_ok and not fused_ok:
+        raise AssertionError(f"{label}: the whole-chain route misses the "
+                             f"analytic evidence {truth} where the split "
+                             f"route holds it: {out['fused']}")
+    return out
+
+
 def shapes_main_path(device, n: int) -> dict:
     """The main path at d = SHAPES_DIMS: ``GaussianMixtureProblem``, an
-    nsf-tpu flow fitted on SHAPES_FIT_DRAWS of its initial draws, SMC with
-    20-step tpCN at n on the device ladder in turns with the host ladder,
-    on the whole-chain route (B3 the draws, B2 once a rung, every mutation
-    ``fused_kernel``) and on the split route (B1, CHAIN_STEPS + 2 a rung);
-    the two ladders' and the two routes' log Z within max(5 combined
-    sigma, 0.15); each route's log Z read against the analytic evidence by
-    ``check_result``'s rule (a miss on the whole-chain route where the
-    split route holds fails; on both, it is reported)."""
+    nsf-tpu flow fitted on SHAPES_FIT_DRAWS of its initial draws, then
+    ``route_pipelines`` at n."""
     import numpy as np
 
     from aspire_tpu_torch import Aspire, Samples
@@ -6658,40 +6768,132 @@ def shapes_main_path(device, n: int) -> dict:
     t0 = time.perf_counter()
     asp.fit(init, **SHAPES_FIT)
     fit_s = time.perf_counter() - t0
-    pipeline = dict(sampler="smc", n_samples=n, store_sample_history=False,
-                    sampler_kwargs=dict(n_steps=CHAIN_STEPS))
-    split = dict(pipeline, sampler_kwargs=dict(n_steps=CHAIN_STEPS,
-                                               fused_chain=False))
-    out = {"truth": truth, "fit_draws": SHAPES_FIT_DRAWS, "fit_s": fit_s}
-    for route, run, need in (("fused", pipeline, {"chain": 1}),
-                             ("split", split,
-                              {"coupling": CHAIN_STEPS + 2})):
-        v = ladder_turns(asp, run, need, turns=SHAPES_TURNS)
-        routes = set(asp.sampler.history.mutation_route)
-        want = {"fused": {"fused_kernel"}, "split": {"split"}}[route]
-        b3 = [r["b3"] for r in v["per_run"]]
-        if routes != want or (device.type == "cuda" and min(b3) < 1):
-            raise AssertionError(f"d={d} {route}: routes {routes}, B3 "
-                                 f"launches a run {b3}")
-        v["analytic"] = {
-            ladder: analytic_rule(v[f"{pre}log_z"], v[f"{pre}log_z_err"],
-                                  truth)
-            for ladder, pre in (("device", ""), ("host", "host_"))}
-        out[route] = v
-    tol = max(5 * math.hypot(out["fused"]["log_z_err"],
-                             out["split"]["log_z_err"]), 0.15)
-    out["routes_tolerance"] = tol
-    if abs(out["fused"]["log_z"] - out["split"]["log_z"]) >= tol:
-        raise AssertionError(f"d={d}: routes disagree on log Z: "
-                             f"{out['fused']} against {out['split']}")
-    fused_ok = all(out["fused"]["analytic"].values())
-    split_ok = all(out["split"]["analytic"].values())
-    out["analytic_rule"] = {"fused": fused_ok, "split": split_ok}
-    if split_ok and not fused_ok:
-        raise AssertionError(f"d={d}: the whole-chain route misses the "
-                             f"analytic evidence {truth} where the split "
-                             f"route holds it: {out['fused']}")
+    out = {"truth": truth, "fit_draws": SHAPES_FIT_DRAWS, "fit_s": fit_s,
+           **route_pipelines(asp, n, truth, f"d={d}")}
     log(f"d={d} main path: {out}")
+    return out
+
+
+def depth_paths(device, n_anchor: int, n_pipeline: int) -> dict:
+    """The main path at the hidden depths of DEPTHS, on the JAX package's
+    ``bench.py`` problem unchanged (the 4-d mixture, 4000 initial draws, a
+    20-epoch fit, 20-step tpCN): per depth an nsf-tpu flow (3 layers, 8
+    bins) and a maf-rqs flow at those widths. Each anchor at ``n_anchor``
+    holds the analytic rule (``check_result``), with its launch counts:
+    nsf-tpu every mutation on B2 (one launch each), its draws on B3;
+    maf-rqs every mutation on the split chain, its density passes on B4
+    (>= CHAIN_STEPS + 2 a mutation). Then the pipelines at ``n_pipeline``:
+    nsf-tpu's ``route_pipelines`` (the device ladder in turns with the host
+    ladder, whole-chain and split routes), maf-rqs's device ladder in turns
+    with the host ladder (B4 CHAIN_STEPS + 2 a rung)."""
+    import numpy as np
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import GaussianMixtureProblem
+
+    p = GaussianMixtureProblem(dims=4)
+    truth = p.true_log_evidence()
+    init = Samples(p.draw_initial_samples(np.random.default_rng(42), 4000))
+    out = {}
+    for key, hidden in DEPTHS.items():
+        for backend, route in (("nsf-tpu", "fused_kernel"),
+                               ("maf-rqs", "split")):
+            label = f"{backend} {key}"
+            kw = (dict(flow_backend="nsf", architecture="nsf-tpu")
+                  if backend == "nsf-tpu" else dict(flow_backend="maf-rqs"))
+            asp = Aspire(log_likelihood=p.log_likelihood,
+                         log_prior=p.log_prior, dims=4,
+                         parameters=p.parameters, n_hidden=hidden, seed=1,
+                         device=device, **kw)
+            t0 = time.perf_counter()
+            asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
+            if tuple(asp.flow.architecture.n_hidden) != hidden:
+                raise AssertionError(f"{label}: flow "
+                                     f"{asp.flow.architecture}")
+            v = {"fit_s": time.perf_counter() - t0, "truth": truth,
+                 "architecture": repr(asp.flow.architecture)}
+            v["anchor"] = a = shapes_anchor(asp, n_anchor, route)
+            counts, muts = a["launches"], a["n_mutations"]
+            if device.type == "cuda" and (
+                    (route == "fused_kernel" and (counts["chain"] != muts
+                                                  or a["b3"] < 1))
+                    or (route == "split" and counts["maf"] < (
+                        CHAIN_STEPS + 2) * muts)):
+                raise AssertionError(f"{label}: launches {counts}, B3 "
+                                     f"{a['b3']} for {muts} mutations")
+            a["analytic_rule"] = analytic_rule(a["log_z"], a["log_z_err"],
+                                               truth)
+            if not a["analytic_rule"]:
+                raise AssertionError(f"{label} anchor misses the analytic "
+                                     f"evidence {truth}: {a}")
+            if backend == "nsf-tpu":
+                v.update(route_pipelines(asp, n_pipeline, truth, label))
+            else:
+                run = dict(sampler="smc", n_samples=n_pipeline,
+                           store_sample_history=False,
+                           sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+                v["pipeline"] = ladder_turns(asp, run,
+                                             {"maf": CHAIN_STEPS + 2},
+                                             turns=SHAPES_TURNS)
+                v["pipeline"]["analytic"] = {
+                    ladder: analytic_rule(v["pipeline"][f"{pre}log_z"],
+                                          v["pipeline"][f"{pre}log_z_err"],
+                                          truth)
+                    for ladder, pre in (("device", ""), ("host", "host_"))}
+            out[label] = v
+            log(f"{label} at d=4: {v}")
+    return out
+
+
+def depth_wide_runs(device, n_chain: int, n: int) -> dict:
+    """The wide form at three hidden layers (DEPTH_WIDE) through the
+    entry points a user calls: ``Flow.sample_and_log_prob`` and
+    ``Flow.log_prob`` of the flow at d = 32 (its weights its
+    initialisation from a seed) at n, B3 once and B1 once; then SMC at
+    ``n_chain`` with 20-step tpCN on the 32-d mixture with that flow
+    fitted briefly (the analytic evidence printed, no gate: a kernel check
+    with no pipeline), every mutation one B2 launch; and the streamed B4 at
+    three hidden layers (maf-rqs (64, 64, 64) at d = SHAPES_DIMS) through
+    ``Flow.log_prob`` at n, one launch."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.flows.base import Flow
+    from aspire_tpu_torch.models import GaussianMixtureProblem
+
+    arch = shapes_instances()[f"B1/B3 {DEPTH_WIDE}"][1]
+    passes = shapes_flow_passes(device, n, arch, DEPTH_WIDE)
+    out = {"flow_launches": passes["launches"], "b3": passes["b3"],
+           "max_abs_log_q_diff": passes["max_abs_log_q_diff"]}
+    p = GaussianMixtureProblem(dims=32)
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=32, parameters=p.parameters, flow_backend="nsf",
+                 n_layers=arch.n_layers, n_hidden=arch.n_hidden,
+                 num_bins=arch.num_bins, seed=1, device=device)
+    asp.fit(Samples(p.draw_initial_samples(np.random.default_rng(42),
+                                           n_chain)),
+            n_epochs=5, batch_size=512, learning_rate=3e-3)
+    if asp.flow.architecture != arch:
+        raise AssertionError(f"{DEPTH_WIDE}: flow {asp.flow.architecture}")
+    a = shapes_anchor(asp, n_chain, "fused_kernel")
+    if device.type == "cuda" and a["launches"]["chain"] != a["n_mutations"]:
+        raise AssertionError(f"{DEPTH_WIDE} anchor: launches "
+                             f"{a['launches']}, {a['n_mutations']} mutations")
+    out["anchor"] = {**a, "truth": p.true_log_evidence()}
+    name = f"B4 maf-rqs (64, 64, 64) d={SHAPES_DIMS}"
+    maf = Flow(SHAPES_DIMS, architecture=shapes_instances()[name][1], seed=3,
+               device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    reset_launch_counts()
+    log_p = maf.log_prob(torch.randn((n, SHAPES_DIMS), generator=gen,
+                                     device=device))
+    out["maf_launches"] = launch_counts()
+    if not bool(torch.isfinite(log_p).all()) or (
+            device.type == "cuda" and out["maf_launches"]["maf"] != 1):
+        raise AssertionError(f"{name} Flow.log_prob: {out['maf_launches']}")
+    log(f"{DEPTH_WIDE} runs: {out}")
     return out
 
 
@@ -6790,25 +6992,27 @@ def shapes_rows(device, n: int) -> dict:
     return out
 
 
-def shapes_flow_passes(device, n: int) -> dict:
-    """The d = 32 (64, 64) instance through ``Flow``'s entry points (a
-    user's draw and density of an nsf-tpu flow at d = 32, its weights the
-    flow's initialisation from a seed) at n: B3 once, B1 once, finite."""
+def shapes_flow_passes(device, n: int, architecture="nsf-tpu",
+                       label: str = "d=32") -> dict:
+    """A coupling instance through ``Flow``'s entry points (a user's draw
+    and density of a flow at d = 32, by default nsf-tpu's (64, 64), its
+    weights the flow's initialisation from a seed) at n: B3 once, B1 once,
+    finite."""
     import torch
 
     from aspire_tpu_torch.flows.base import Flow
 
-    flow = Flow(32, architecture="nsf-tpu", seed=3, device=device)
+    flow = Flow(32, architecture=architecture, seed=3, device=device)
     reset_launch_counts()
     x, log_q = flow.sample_and_log_prob(n)
     log_p = flow.log_prob(x)
     out = {"launches": launch_counts(), "b3": int(sampling_launches())}
     if not bool(torch.isfinite(log_p).all() & torch.isfinite(log_q).all()):
-        raise AssertionError("d=32 flow passes not finite")
+        raise AssertionError(f"{label} flow passes not finite")
     if device.type == "cuda" and out["launches"]["coupling"] != 2:
-        raise AssertionError(f"d=32 flow passes off B1/B3: {out}")
+        raise AssertionError(f"{label} flow passes off B1/B3: {out}")
     out["max_abs_log_q_diff"] = max_err(log_p, log_q)
-    log(f"d=32 flow passes at n={n}: {out}")
+    log(f"{label} flow passes at n={n}: {out}")
     return out
 
 
@@ -6821,11 +7025,15 @@ def phase_shapes(device, threads: dict, n_chain: int,
     instance against its plain version at the card rule: B1/B3 at
     nsf-tpu's widths at d = SHAPES_DIMS, 32 and 10, B2 with injected noise
     at d = SHAPES_DIMS (and its Philox stream), 10, and realnvp and
-    Rosenbrock at d = 4, B4 at d = SHAPES_DIMS (``shapes_coupling_checks``,
+    Rosenbrock at d = 4, B4 at d = SHAPES_DIMS, and each of them at the
+    hidden depths of DEPTHS at d = 4, B1/B3 and B2 at DEPTH_WIDE, B4 at
+    d = SHAPES_DIMS with three hidden layers (``shapes_coupling_checks``,
     ``shapes_chain_checks``, ``shapes_maf_check``); (c) the main path at
-    d = SHAPES_DIMS at ``n_pipeline`` (``shapes_main_path``); (d) the
-    smaller rows at ``n_chain`` (``shapes_rows``) and the d = 32 flow's
-    passes (``shapes_flow_passes``)."""
+    d = SHAPES_DIMS at ``n_pipeline`` (``shapes_main_path``) and at the
+    depths of DEPTHS (``depth_paths``: anchors at ``n_chain``, pipelines at
+    ``n_pipeline``); (d) the smaller rows at ``n_chain`` (``shapes_rows``),
+    the d = 32 flow's passes (``shapes_flow_passes``) and DEPTH_WIDE's
+    (``depth_wide_runs``)."""
     seconds = {}
 
     def part(key, fn, *args):
@@ -6841,6 +7049,8 @@ def phase_shapes(device, threads: dict, n_chain: int,
     part("main_path", shapes_main_path, device, n_pipeline)
     part("rows", shapes_rows, device, n_chain)
     part("flow_d32", shapes_flow_passes, device, N_COUPLING)
+    part("depths", depth_paths, device, n_chain, n_pipeline)
+    part("depth_wide", depth_wide_runs, device, n_chain, N_COUPLING)
     out["seconds"] = seconds
     return out
 
@@ -6862,11 +7072,11 @@ def report_shapes(card: str, shapes: dict, phase_s: float) -> None:
                       "ms", "kernel_ms", "plain_ms", "inverse_ms",
                       "inverse_kernel_ms", "inverse_plain_ms", "bound_ms")
                       if k in v), flush=True)
-    m = shapes["maf"]
-    print(f"[{card}] B4 maf-rqs d={SHAPES_DIMS} ({m['form']}): max abs err "
-          f"{m['max_abs_err']:.3g}; {m['ms']:.4f} ms events, "
-          f"{m['kernel_ms']:.4f} ms alone, plain {m['plain_ms']:.4f} ms, "
-          f"bound {m['bound_ms']:.4f} ms", flush=True)
+    for name, m in shapes["maf"].items():
+        print(f"[{card}] {name} ({m['form']}): max abs err "
+              f"{m['max_abs_err']:.3g}; {m['ms']:.4f} ms events, "
+              f"{m['kernel_ms']:.4f} ms alone, plain {m['plain_ms']:.4f} ms, "
+              f"bound {m['bound_ms']:.4f} ms", flush=True)
     mp = shapes["main_path"]
     for route in ("fused", "split"):
         v = mp[route]
@@ -6883,6 +7093,32 @@ def report_shapes(card: str, shapes: dict, phase_s: float) -> None:
               + (f" vs {v['truth']:.4f}" if "truth" in v else "")
               + f"; {v['n_mutations']} mutations on {v['routes']}, "
               f"launches {v['launches']}", flush=True)
+    for label, v in shapes["depths"].items():
+        a = v["anchor"]
+        print(f"[{card}] {label} d=4 anchor n={N_CHAIN}: log Z "
+              f"{a['log_z']:.4f} +/- {a['log_z_err']:.4f} vs analytic "
+              f"{v['truth']:.4f} (rule held: {a['analytic_rule']}); "
+              f"{a['n_mutations']} mutations on {a['routes']}, launches "
+              f"{a['launches']}, B3 {a['b3']}", flush=True)
+        runs = ({"fused": v["fused"], "split": v["split"]} if "fused" in v
+                else {"split": v["pipeline"]})
+        for route, r in runs.items():
+            print(f"[{card}] {label} d=4 pipeline, {route} route, "
+                  f"n={N_PIPELINE}: device ladder {r['device_s']:.4f} s vs "
+                  f"host {r['host_s']:.4f} s; {r['rungs']} rungs; log Z "
+                  f"{r['log_z']:.4f} +/- {r['log_z_err']:.4f} (host "
+                  f"{r['host_log_z']:.4f} +/- {r['host_log_z_err']:.4f}, "
+                  f"within {r['tolerance']:.4f}) vs analytic "
+                  f"{v['truth']:.4f} (rule held: {r['analytic']}); launches "
+                  f"a run {r['launches']}, B3 "
+                  f"{[p['b3'] for p in r['per_run']]}", flush=True)
+    w = shapes["depth_wide"]
+    print(f"[{card}] {DEPTH_WIDE}: Flow passes at n={N_COUPLING} launches "
+          f"{w['flow_launches']}; anchor n={N_CHAIN} log Z "
+          f"{w['anchor']['log_z']:.4f} +/- {w['anchor']['log_z_err']:.4f} "
+          f"(analytic {w['anchor']['truth']:.4f}, no gate), "
+          f"{w['anchor']['n_mutations']} mutations, launches "
+          f"{w['anchor']['launches']}", flush=True)
     print(f"[{card}] phase_shapes {phase_s:.1f} s (the builds waited "
           f"{b['waited_s']:.1f} s); by part: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in shapes["seconds"].items()),
@@ -6892,6 +7128,7 @@ def report_shapes(card: str, shapes: dict, phase_s: float) -> None:
 def shapes_kernel_rows(shapes: dict) -> list:
     """The kernels line's rows of the first-use instances."""
     b, mp, rows = shapes["builds"], shapes["main_path"], shapes["rows"]
+    dp, wide = shapes["depths"], shapes["depth_wide"]
     d = SHAPES_DIMS
     coupling_launches = {
         f"B1/B3 nsf-tpu d={d}": (
@@ -6902,7 +7139,17 @@ def shapes_kernel_rows(shapes: dict) -> list:
             shapes["flow_d32"]["launches"]["coupling"],
             "Flow.sample_and_log_prob and Flow.log_prob at d=32"),
         "B1/B3 nsf-tpu d=10": (rows["funnel d=10"]["launches"]["coupling"],
-                               "funnel d=10 anchor")}
+                               "funnel d=10 anchor"),
+        **{f"B1/B3 nsf-tpu {k} d=4": (
+            dp[f"nsf-tpu {k}"]["split"]["launches"]["coupling"]
+            + dp[f"nsf-tpu {k}"]["fused"]["launches"]["coupling"],
+            f"nsf-tpu {k} d=4 pipeline, last device-ladder run of each "
+            "route") for k in DEPTHS},
+        f"B1/B3 {DEPTH_WIDE}": (
+            wide["flow_launches"]["coupling"]
+            + wide["anchor"]["launches"]["coupling"],
+            f"Flow.sample_and_log_prob and Flow.log_prob, and the anchor, "
+            f"at {DEPTH_WIDE}")}
     chain_launches = {
         f"B2 nsf-tpu d={d}": (mp["fused"]["launches"]["chain"],
                               f"d={d} main path, last device-ladder run"),
@@ -6911,7 +7158,23 @@ def shapes_kernel_rows(shapes: dict) -> list:
         "B2 realnvp d=4": (rows["realnvp d=4"]["launches"]["chain"],
                            "realnvp d=4 anchor"),
         "B2 nsf d=4, ids 1-5": (rows["rosenbrock d=4"]["launches"]["chain"],
-                                "Rosenbrock d=4 anchor")}
+                                "Rosenbrock d=4 anchor"),
+        **{f"B2 nsf-tpu {k} d=4": (
+            dp[f"nsf-tpu {k}"]["fused"]["launches"]["chain"],
+            f"nsf-tpu {k} d=4 pipeline, last device-ladder run")
+           for k in DEPTHS},
+        f"B2 {DEPTH_WIDE}": (wide["anchor"]["launches"]["chain"],
+                             f"the 32-d mixture anchor at {DEPTH_WIDE}")}
+    maf_launches = {
+        f"B4 maf-rqs d={d}": (rows[f"maf-rqs d={d}"]["launches"]["maf"],
+                              f"maf-rqs d={d} anchor"),
+        **{f"B4 maf-rqs {k} d=4": (
+            dp[f"maf-rqs {k}"]["pipeline"]["launches"]["maf"],
+            f"maf-rqs {k} d=4 pipeline, last device-ladder run")
+           for k in DEPTHS},
+        f"B4 maf-rqs (64, 64, 64) d={d}": (
+            wide["maf_launches"]["maf"],
+            f"Flow.log_prob of maf-rqs (64, 64, 64) at d={d}")}
     out = []
     keys = ("max_abs_err", "ms", "ms_single_call", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "flop", "tensor_flop", "bytes")
@@ -6935,15 +7198,15 @@ def shapes_kernel_rows(shapes: dict) -> list:
             "launches": launches, "launches_run": run, "form": v["form"],
             "target": v["target"], **{k: v[k] for k in keys},
             "library_ms": None, "build": b[name]})
-    m = shapes["maf"]
-    name = f"B4 maf-rqs d={d}"
-    out.append({
-        "name": f"maf_kernel {name}, first-use instance", "route": "cuda",
-        "source": "aspire_tpu_torch/csrc/maf.cu",
-        "replaces": "aspire_tpu/ops/fused_coupling.py:598",
-        "launches": rows[f"maf-rqs d={d}"]["launches"]["maf"],
-        "launches_run": f"maf-rqs d={d} anchor", "form": m["form"],
-        **{k: m[k] for k in keys}, "library_ms": None, "build": b[name]})
+    for name, (launches, run) in maf_launches.items():
+        m = shapes["maf"][name]
+        out.append({
+            "name": f"maf_kernel {name}, first-use instance",
+            "route": "cuda", "source": "aspire_tpu_torch/csrc/maf.cu",
+            "replaces": "aspire_tpu/ops/fused_coupling.py:598",
+            "launches": launches, "launches_run": run, "form": m["form"],
+            **{k: m[k] for k in keys}, "library_ms": None,
+            "build": b[name]})
     return out
 
 

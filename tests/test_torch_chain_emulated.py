@@ -63,10 +63,10 @@ HARNESS = r"""
 #include <cstdlib>
 #include "chain_emulated.cpp"
 namespace aspire { float4 smem4[232448 / 16]; }
-using S = aspire::MmaShape<4, 64, 64, 8, true>;
-using W = aspire::MmaShape<32, 128, 128, 8, true>;
-using S2 = aspire::MmaShape<2, 64, 64, 8, true>;
-using S5 = aspire::MmaShape<5, 64, 64, 8, true>;
+using S = aspire::MmaShape<4, aspire::Hidden<64, 64>, 8, true>;
+using W = aspire::MmaShape<32, aspire::Hidden<128, 128>, 8, true>;
+using S2 = aspire::MmaShape<2, aspire::Hidden<64, 64>, 8, true>;
+using S5 = aspire::MmaShape<5, aspire::Hidden<64, 64>, 8, true>;
 // Configuration 0 (nsf-tpu at d = 4), 2 (the wide form at d = 32), 3 or 4
 // (nsf-tpu at d = 2 and d = 5, every in-kernel target), the instance that
 // applies programs or the one without (launch_chain's choice).
@@ -75,13 +75,14 @@ void run_chain(const aspire::ChainArgs& a, int nt) {
   for (int b = 0; b < nt; ++b) {
     emu_run_block(b, 256, [&] {
       if constexpr (CFG == 0) {
-        aspire::chain_kernel<4, 64, 64, 8, true, PROGS, 0>(a);
+        aspire::chain_kernel<4, aspire::Hidden<64, 64>, 8, true, PROGS, 0>(a);
       } else if constexpr (CFG == 2) {
-        aspire::chain_kernel_wide<32, 128, 128, 8, true, PROGS, 0>(a);
+        aspire::chain_kernel_wide<32, aspire::Hidden<128, 128>, 8, true, PROGS,
+                                  0>(a);
       } else if constexpr (CFG == 3) {
-        aspire::chain_kernel<2, 64, 64, 8, true, PROGS, 1>(a);
+        aspire::chain_kernel<2, aspire::Hidden<64, 64>, 8, true, PROGS, 1>(a);
       } else {
-        aspire::chain_kernel<5, 64, 64, 8, true, PROGS, 1>(a);
+        aspire::chain_kernel<5, aspire::Hidden<64, 64>, 8, true, PROGS, 1>(a);
       }
     });
   }

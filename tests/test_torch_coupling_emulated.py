@@ -51,19 +51,20 @@ void launch(const float* x, float* z, float* ld, const float* w, int n,
   for (int b = 0; b < blocks; ++b) {
     emu_run_block(b, blockDim.x, [&] {
       if constexpr (CFG == 0) {
-        aspire::coupling_kernel<4, 64, 64, 8, true, DENSITY>(
+        aspire::coupling_kernel<4, aspire::Hidden<64, 64>, 8, true, DENSITY>(
             x, z, ld, w, n, layers, 5.0f);
       } else if constexpr (CFG == 1) {
-        aspire::coupling_kernel<4, 64, 64, 1, false, DENSITY>(
+        aspire::coupling_kernel<4, aspire::Hidden<64, 64>, 1, false, DENSITY>(
             x, z, ld, w, n, layers, 5.0f);
       } else if constexpr (CFG == 2) {
-        aspire::coupling_kernel_wide<32, 128, 128, 8, true, DENSITY>(
+        aspire::coupling_kernel_wide<32, aspire::Hidden<128, 128>, 8, true,
+                                     DENSITY>(
             x, z, ld, w, n, layers, 5.0f);
       } else if constexpr (CFG == 3) {
-        aspire::coupling_kernel<2, 64, 64, 8, true, DENSITY>(
+        aspire::coupling_kernel<2, aspire::Hidden<64, 64>, 8, true, DENSITY>(
             x, z, ld, w, n, layers, 5.0f);
       } else {
-        aspire::coupling_kernel<5, 64, 64, 8, true, DENSITY>(
+        aspire::coupling_kernel<5, aspire::Hidden<64, 64>, 8, true, DENSITY>(
             x, z, ld, w, n, layers, 5.0f);
       }
     });

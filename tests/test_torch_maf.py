@@ -252,17 +252,10 @@ def test_maf_kernel_layout_fits_one_block():
 def test_maf_kernel_configs_mirror_common_cuh():
     """``MAF_KERNEL_CONFIGS`` is ``ASPIRE_MAF_CONFIGS``, and every compiled
     shape takes the kernel's hidden widths (multiples of 8)."""
-    import re
-    from pathlib import Path
+    from aspire_tpu_torch.ops import _build
 
-    text = (Path(__file__).resolve().parent.parent / "aspire_tpu_torch"
-            / "csrc" / "common.cuh").read_text()
-    body = text[text.index("#define ASPIRE_MAF_CONFIGS"):]
-    rows = re.findall(r"X\(([^)]*)\)", body.split("\n\n")[0])
-    parsed = {}
-    for row in rows:
-        f = [int(v) for v in row.split(",")]
-        parsed[(f[1], (f[2], f[3]), f[4])] = f[0]
+    parsed = {(d, hidden, k): cid for cid, d, hidden, k
+              in _build.config_rows("ASPIRE_MAF_CONFIGS")}
     assert parsed == FC.MAF_KERNEL_CONFIGS
     assert all(h % 8 == 0 for _, hidden, _ in parsed for h in hidden)
 

@@ -307,7 +307,7 @@ int main(int argc, char** argv) {
     const int count = aspire_maf_ksteps(0, ks, 256);
     printf("%d %d", aspire_maf_layer_floats(0), aspire_maf_stage_floats(0));
     for (int e = 0; e < count; ++e) printf(" %d", ks[e]);
-    using B = aspire::MafShape<4, H, H, 8>;
+    using B = aspire::MafShape<4, aspire::Hidden<H, H>, 8>;
     printf("\n%d %d", B::SIZE, B::STAGE);
     for (int j = 0; j < H / 8; ++j) printf(" %d", B::ks2(j));
     for (int i = 0; i < 4; ++i) printf(" %d", B::ks3(i));
@@ -316,7 +316,7 @@ int main(int argc, char** argv) {
   }
   const int n = atoi(argv[1]), layers = atoi(argv[2]);
   const int blocks = atoi(argv[3]), warps = atoi(argv[4]);
-  using S = aspire::MafShape<4, H, H, 8>;
+  using S = aspire::MafShape<4, aspire::Hidden<H, H>, 8>;
   std::vector<float> x(4 * n), z(4 * n, -1.f), ld(n, -1.f);
   std::vector<float> w(layers * S::SIZE);
   FILE* f = fopen(argv[5], "rb");
@@ -327,8 +327,8 @@ int main(int argc, char** argv) {
   gridDim = {(unsigned)blocks, 1, 1};
   for (int b = 0; b < blocks; ++b) {
     emu_run_block(b, 32 * warps, [&] {
-      aspire::maf_kernel<4, H, H, 8>(x.data(), z.data(), ld.data(),
-                                     w.data(), n, layers, 5.0f);
+      aspire::maf_kernel<4, aspire::Hidden<H, H>, 8>(
+          x.data(), z.data(), ld.data(), w.data(), n, layers, 5.0f);
     });
   }
   f = fopen(argv[6], "wb");

@@ -5,10 +5,10 @@
   predicates (``aspire_tpu/ops/fused_coupling.py`` ``should_fuse`` and
   ``should_fuse_maf``; its chain takes every flow ``should_fuse`` takes)
   take: a CUDA float32 batch of at least ``MIN_FUSED_N`` rows, d <= 32,
-  affine or RQS with up to 32 bins, weights within 8 MB. The JAX
-  predicates ask for a TPU backend, which the test names for them. The
-  port also refuses a number of hidden layers other than two, and the
-  shapes no block of its forms holds (listed, each asserted as such).
+  affine or RQS with up to 32 bins, weights within 8 MB, any number of
+  hidden layers. The JAX predicates ask for a TPU backend, which the test
+  names for them. The port refuses only the shapes no block of its forms
+  holds (listed, each asserted as such).
 - **Which library runs a shape**: the prebuilt library where it has the
   shape (the target id, and the depth resident), else the shape's
   instance, built at first use; nothing else (``coupling_library``,
@@ -115,15 +115,20 @@ def test_should_fuse_mirrors_the_reference(monkeypatch, transformer, d,
 
 
 def test_what_the_port_refuses_beyond_the_reference(monkeypatch):
-    """Three hidden layers (the port's products are W1 on FMAs, W2 and W3
-    on the tensor cores); and the shapes no block of the forms holds:
-    B2 at 32 bins from d = 26 (8 warps of two dims' parameter groups), a
-    1024-wide 1-layer coupling flow at d = 25 with 24 bins (the wide
-    form's resident W1 parts)."""
+    """Three hidden layers are taken, as the reference takes them (the
+    first on FMAs, every further product on the tensor cores), by B1/B3,
+    B2 and B4; what the port still refuses is the shapes no block of the
+    forms holds: B2 at 32 bins from d = 26 (8 warps of two dims' parameter
+    groups), a 1024-wide 1-layer coupling flow at d = 25 with 24 bins (the
+    wide form's resident W1 parts)."""
     three = dict(dims=4, n_layers=3, n_hidden=(64, 64, 64),
                  transformer="rqs", num_bins=8)
     assert _reference(monkeypatch, JCoupling(**three), 8192, jnp.float32)
-    assert not FC.should_fuse(Coupling(**three), _Batch())
+    assert FC.should_fuse(Coupling(**three), _Batch())
+    assert FM.kernel_supports(FM.ChainConfig(Coupling(**three), "tpcn", 20))
+    assert _reference(monkeypatch, JMAF(**three), 8192, jnp.float32,
+                      maf=True)
+    assert FC.should_fuse_maf(MAF(**three), _Batch())
     wide32 = dict(dims=26, n_layers=3, n_hidden=(64, 64), transformer="rqs",
                   num_bins=32)
     assert _reference(monkeypatch, JCoupling(**wide32), 8192, jnp.float32)
@@ -198,21 +203,21 @@ def test_the_library_each_shape_runs(monkeypatch):
     assert FC.coupling_library(nsf(4, n_hidden=(60, 60))) == ("prebuilt", 0)
     assert FC.config_id(nsf(4, n_hidden=(60, 60))) == 0
     assert FC.coupling_library(nsf_tpu(15)) == ("coupling instance", 0)
-    assert calls[-1] == ("coupling", (15, 64, 64, 8, True))
+    assert calls[-1] == ("coupling", (15, (64, 64), 8, True))
     assert FC.coupling_library(realnvp(5)) == ("coupling instance", 0)
-    assert calls[-1] == ("coupling", (5, 64, 64, 1, False))
+    assert calls[-1] == ("coupling", (5, (64, 64), 1, False))
 
     cfg = FM.ChainConfig(nsf_tpu(4), "tpcn", 20)
     assert FM.chain_library(cfg, 1) == ("prebuilt", 0)
     assert FM.chain_library(cfg, 4) == ("chain instance", 0)
-    assert calls[-1] == ("chain", (4, 64, 64, 8, True, 1))
+    assert calls[-1] == ("chain", (4, (64, 64), 8, True, 1))
     deep = FM.ChainConfig(nsf(4, n_layers=7), "tpcn", 20)
     assert not FM.chain_resident(deep.arch)
     assert FM.chain_library(deep, 1) == ("chain_streamed instance", 0)
-    assert calls[-1] == ("chain_streamed", (4, 64, 64, 8, True, 1))
+    assert calls[-1] == ("chain_streamed", (4, (64, 64), 8, True, 1))
     assert FM.chain_library(FM.ChainConfig(realnvp(4), "rwmh", 5), 2) == (
         "chain instance", 0)
-    assert calls[-1] == ("chain", (4, 64, 64, 1, False, 1))
+    assert calls[-1] == ("chain", (4, (64, 64), 1, False, 1))
     assert FM.chain_form(nsf_tpu(15)) == "wide"
     assert FM.chain_form(nsf_tpu(4)) == "whole-layer, resident"
 
@@ -222,7 +227,7 @@ def test_the_library_each_shape_runs(monkeypatch):
         "maf_streamed instance", 0)
     assert FC.maf_library(maf_rqs(6)) == ("maf instance", 0)
     assert FC.maf_library(maf_rqs(15)) == ("maf_streamed instance", 0)
-    assert calls[-1] == ("maf_streamed", (15, 64, 64, 8))
+    assert calls[-1] == ("maf_streamed", (15, (64, 64), 8))
     assert FC.maf_form(maf_rqs(15)) == "streamed"
 
 
@@ -273,7 +278,7 @@ def test_build_instance_compiles_the_row_once(fake_nvcc):
     path = _build.instance_path("coupling", row)
     assert set(paths) == {path} and path.parent == fake_nvcc
     unit = path.read_text()
-    assert ("#define ASPIRE_INSTANCE_CONFIG(X) X(0, 15, 64, 64, 8, true)"
+    assert ("#define ASPIRE_INSTANCE_CONFIG(X) X(0, 15, (64, 64), 8, true)"
             in unit)
     assert f'#include "{_build.CSRC / "coupling.cu"}"' in unit
     assert path.with_suffix(".log").exists()
@@ -287,6 +292,28 @@ def test_build_instance_compiles_the_row_once(fake_nvcc):
     mtime = os.stat(path).st_mtime_ns
     assert _build.build_instance("coupling", row) == path
     assert os.stat(path).st_mtime_ns == mtime
+
+
+def test_instance_rows_name_the_depth(fake_nvcc):
+    """An instance's row names every hidden width (padded), so flows of
+    two depths never share a library; a user target's chain instance
+    (``_build.build_user``) takes the depth's row too."""
+    from aspire_tpu_torch.models.targets import KernelSource
+
+    rows = [FC.coupling_row(nsf_tpu(4, n_hidden=h))
+            for h in ((128,), (64, 64), (64, 64, 64), (60, 60, 60), ())]
+    assert rows[3] == rows[2] == (4, (64, 64, 64), 8, True)
+    paths = {_build.instance_path("coupling", r) for r in rows}
+    assert len(paths) == 4
+    unit = _build.build_instance("coupling", rows[2]).read_text()
+    assert "X(0, 4, (64, 64, 64), 8, true)" in unit
+    assert "X(0, 4, (), 8, true)" in _build.build_instance(
+        "coupling", rows[4]).read_text()
+    source = KernelSource("depth_probe", "// a stand-in source\n")
+    row = FM.chain_row(nsf_tpu(4, n_hidden=(128,)))
+    path = _build.build_user(source, row)
+    assert path == _build.user_library_path(source, row)
+    assert "X(0, 4, (128), 8, true, 1)" in path.read_text()
 
 
 def test_failed_instance_build_raises_with_nvcc_message(fake_nvcc):

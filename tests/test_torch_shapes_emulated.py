@@ -27,6 +27,7 @@ About 20 s of one worker, most of it the builds. Skips where no ``g++``
 with C++20 is installed on x86-64.
 """
 
+import dataclasses
 import shutil
 import subprocess
 
@@ -35,7 +36,7 @@ import pytest
 import torch
 
 import chip_smoke
-from aspire_tpu_torch.flows.architectures import maf_rqs, nsf_tpu
+from aspire_tpu_torch.flows.architectures import Coupling, maf_rqs, nsf_tpu
 from aspire_tpu_torch.ops import _build
 from aspire_tpu_torch.ops import fused_coupling as FC
 from aspire_tpu_torch.ops import fused_mutation as FM
@@ -47,7 +48,7 @@ from test_torch_maf_emulated import (
     emulated_source,
 )
 
-ROW = "ROW_D, ROW_H1, ROW_H2, ROW_K, ROW_RQS"
+ROW = "ROW_D, ROW_HID, ROW_K, ROW_RQS"
 
 COUPLING = r"""
 #include <cstdio>
@@ -55,17 +56,17 @@ COUPLING = r"""
 #include <vector>
 #include "instance.cpp"
 namespace aspire { float4 coupling_smem4[232448 / 16]; }
-using S = aspire::MmaShape<ROW_D, ROW_H1, ROW_H2, ROW_K, ROW_RQS>;
+using S = aspire::MmaShape<ROW_D, ROW_HID, ROW_K, ROW_RQS>;
 template <bool DENSITY>
 void launch(const float* x, float* z, float* ld, const float* w, int n,
             int layers, int blocks) {
   for (int b = 0; b < blocks; ++b) {
     emu_run_block(b, blockDim.x, [&] {
       if constexpr (S::WIDE) {
-        aspire::coupling_kernel_wide<ROW_D, ROW_H1, ROW_H2, ROW_K, ROW_RQS,
+        aspire::coupling_kernel_wide<ROW_D, ROW_HID, ROW_K, ROW_RQS,
                                      DENSITY>(x, z, ld, w, n, layers, 5.0f);
       } else {
-        aspire::coupling_kernel<ROW_D, ROW_H1, ROW_H2, ROW_K, ROW_RQS,
+        aspire::coupling_kernel<ROW_D, ROW_HID, ROW_K, ROW_RQS,
                                 DENSITY>(x, z, ld, w, n, layers, 5.0f);
       }
     });
@@ -106,7 +107,7 @@ CHAIN = r"""
 #include <vector>
 #include "instance.cpp"
 namespace aspire { float4 smem4[232448 / 16]; }
-using S = aspire::MmaShape<ROW_D, ROW_H1, ROW_H2, ROW_K, ROW_RQS>;
+using S = aspire::MmaShape<ROW_D, ROW_HID, ROW_K, ROW_RQS>;
 // The instance's chain in the form launch_chain picks: wide, whole-layer
 // resident, or (a streamed instance) whole-layer streamed.
 template <bool PROGS>
@@ -114,14 +115,14 @@ void run_chain(const aspire::ChainArgs& a, int nt) {
   for (int b = 0; b < nt; ++b) {
     emu_run_block(b, 256, [&] {
       if constexpr (S::WIDE) {
-        aspire::chain_kernel_wide<ROW_D, ROW_H1, ROW_H2, ROW_K, ROW_RQS,
+        aspire::chain_kernel_wide<ROW_D, ROW_HID, ROW_K, ROW_RQS,
                                   PROGS, 1>(a);
       } else {
 #ifdef ASPIRE_STREAMED
-        aspire::chain_kernel_streamed<ROW_D, ROW_H1, ROW_H2, ROW_K, ROW_RQS,
+        aspire::chain_kernel_streamed<ROW_D, ROW_HID, ROW_K, ROW_RQS,
                                       PROGS, 1>(a);
 #else
-        aspire::chain_kernel<ROW_D, ROW_H1, ROW_H2, ROW_K, ROW_RQS, PROGS,
+        aspire::chain_kernel<ROW_D, ROW_HID, ROW_K, ROW_RQS, PROGS,
                              1>(a);
 #endif
       }
@@ -187,21 +188,26 @@ MAF = r"""
 #include <vector>
 #include "instance.cpp"
 namespace aspire { float4 maf_smem4[232448 / 16]; }
-using T = aspire::MafStream<ROW_D, ROW_H1, ROW_H2, ROW_K>;
+using S = aspire::MafShape<ROW_D, ROW_HID, ROW_K>;
 int main(int argc, char** argv) {
   if (argc == 2) {  // the instance's layout, then the streamed block's
     int ks[256];
     const int count = aspire_maf_ksteps(0, ks, 256);
     printf("%d %d", aspire_maf_layer_floats(0), aspire_maf_stage_floats(0));
     for (int e = 0; e < count; ++e) printf(" %d", ks[e]);
+#ifdef ASPIRE_STREAMED
+    using T = aspire::MafStream<ROW_D, ROW_HID, ROW_K>;
     printf("\n%d %d %d %d %d\n", T::SLOT, T::HEAD, T::NW, T::WSTAGE,
            T::BUFS);
+#else
+    printf("\n");
+#endif
     return 0;
   }
   const int n = atoi(argv[1]), layers = atoi(argv[2]);
   const int blocks = atoi(argv[3]), warps = atoi(argv[4]);
   std::vector<float> x(ROW_D * n), z(ROW_D * n, -1.f), ld(n, -1.f);
-  std::vector<float> w(layers * T::SIZE);
+  std::vector<float> w(layers * S::SIZE);
   FILE* f = fopen(argv[5], "rb");
   if (fread(x.data(), 4, x.size(), f) != x.size()) return 2;
   if (fread(w.data(), 4, w.size(), f) != w.size()) return 3;
@@ -210,8 +216,13 @@ int main(int argc, char** argv) {
   gridDim = {(unsigned)blocks, 1, 1};
   for (int b = 0; b < blocks; ++b) {
     emu_run_block(b, 32 * warps, [&] {
-      aspire::maf_kernel_streamed<ROW_D, ROW_H1, ROW_H2, ROW_K>(
+#ifdef ASPIRE_STREAMED
+      aspire::maf_kernel_streamed<ROW_D, ROW_HID, ROW_K>(
           x.data(), z.data(), ld.data(), w.data(), n, layers, 5.0f);
+#else
+      aspire::maf_kernel<ROW_D, ROW_HID, ROW_K>(
+          x.data(), z.data(), ld.data(), w.data(), n, layers, 5.0f);
+#endif
     });
   }
   f = fopen(argv[6], "wb");
@@ -235,6 +246,50 @@ BUILDS = {
              FC.maf_row(maf_rqs(6, n_hidden=(192, 192)))),
 }
 
+#: Hidden depths other than two: name -> (flow, the form it takes). Every
+#: form at one and three hidden layers (B1/B3 whole-layer and wide; B2
+#: resident, streamed and wide; B4 resident and streamed), no hidden layer
+#: in B1/B3's form, B2's resident one and B4's resident one, and four
+#: hidden layers in B1/B3's whole-layer form.
+DEPTH_COUPLING = {
+    "c1": (Coupling(dims=4, n_layers=2, n_hidden=(16,),
+                    transformer="affine"), "whole-layer, 8 warps"),
+    "c1wide": (nsf_tpu(15, n_hidden=(16,), n_layers=2), "wide, 8 warps"),
+    "c3": (nsf_tpu(5, n_hidden=(16, 16, 16), n_layers=2),
+           "whole-layer, 8 warps"),
+    "c3wide": (nsf_tpu(15, n_hidden=(16, 16, 16), n_layers=2),
+               "wide, 8 warps"),
+    "c0": (nsf_tpu(5, n_hidden=(), n_layers=2), "linear, 8 warps"),
+    "c4": (nsf_tpu(6, n_hidden=(16, 8, 16, 8), n_layers=2),
+           "whole-layer, 8 warps"),
+}
+DEPTH_CHAIN = {
+    "ch1": (nsf_tpu(4, n_hidden=(16,)), "whole-layer, resident"),
+    "ch1s": (nsf_tpu(10, n_hidden=(64,), n_layers=4),
+             "whole-layer, streamed"),
+    "ch1wide": (nsf_tpu(15, n_hidden=(16,)), "wide"),
+    "ch3": (nsf_tpu(4, n_hidden=(16, 16, 16)), "whole-layer, resident"),
+    "ch3s": (nsf_tpu(8, n_hidden=(64, 64, 64), n_layers=4),
+             "whole-layer, streamed"),
+    "ch3wide": (nsf_tpu(15, n_hidden=(16, 16, 16)), "wide"),
+    "ch0": (nsf_tpu(4, n_hidden=()), "whole-layer, resident"),
+}
+DEPTH_MAF = {
+    "m1": (maf_rqs(4, n_hidden=(16,)), "resident"),
+    "m1s": (maf_rqs(15, n_hidden=(64,)), "streamed"),
+    "m3": (maf_rqs(4, n_hidden=(16, 16, 16)), "resident"),
+    "m3s": (maf_rqs(15, n_hidden=(64, 64, 64)), "streamed"),
+    "m0": (maf_rqs(5, n_hidden=()), "resident"),
+}
+BUILDS.update(
+    {k: ("coupling", COUPLING, FC.coupling_row(a))
+     for k, (a, _) in DEPTH_COUPLING.items()}
+    | {k: ("chain" if FC.mma_wide(a) or FM.chain_resident(a)
+           else "chain_streamed", CHAIN, FM.chain_row(a))
+       for k, (a, _) in DEPTH_CHAIN.items()}
+    | {k: ("maf" if form == "resident" else "maf_streamed", MAF,
+           FC.maf_row(a)) for k, (a, form) in DEPTH_MAF.items()})
+
 
 @pytest.fixture(scope="module")
 def harnesses(tmp_path_factory):
@@ -253,7 +308,8 @@ def harnesses(tmp_path_factory):
             + emulated_source(_build.INSTANCE_SOURCES[kind]))
         (sub / "harness.cpp").write_text(harness)
         values = [("true" if v else "false") if isinstance(v, bool) else
-                  str(v) for v in row]
+                  "aspire::Hidden<" + ",".join(map(str, v)) + ">"
+                  if isinstance(v, tuple) else str(v) for v in row]
         defines = [f"-D{k}={v}" for k, v in zip(ROW.split(", "), values)]
         procs[name] = subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-w", *defines, f"-I{sub}", "-o",
@@ -409,6 +465,101 @@ def test_instance_streamed_maf_matches_plain(harnesses, name, arch):
     arch, params = chip_smoke.perturbed_flow(torch.device("cpu"), 9, arch,
                                              0.05)
     n = 4 * 16 + 7
+    x = 2.0 * torch.as_tensor(np.random.default_rng(n).normal(
+        size=(n, d)).astype(np.float32))
+    packed = FC.prepare_maf_params(arch, params)
+    inp = harnesses / f"in_{name}.bin"
+    out = harnesses / f"out_{name}.bin"
+    np.concatenate([x.numpy().ravel(), packed.numpy()]).tofile(inp)
+    subprocess.run([str(harnesses / f"run_{name}"), str(n),
+                    str(arch.n_layers), "2", "2", str(inp), str(out)],
+                   check=True, timeout=600)
+    res = torch.as_tensor(np.fromfile(out, dtype=np.float32))
+    z, ld = res[:d * n].reshape(n, d), res[d * n:]
+    z_p, ld_p = arch.forward_plain(params, x)
+    z_e, ld_e = arch.forward_plain(chip_smoke.as_float64(params), x.double())
+    chip_smoke.assert_kernel_close(z, z_p, z_e, f"emulated {name} z")
+    chip_smoke.assert_kernel_close(ld, ld_p, ld_e, f"emulated {name} log_det")
+    z_r, ld_r = FC.maf_packed_plain(arch, packed, x)
+    torch.testing.assert_close(z, z_r, **chip_smoke.COUPLING_TOL)
+    torch.testing.assert_close(ld, ld_r, **chip_smoke.COUPLING_TOL)
+
+
+@pytest.mark.parametrize("name", DEPTH_COUPLING)
+def test_depth_coupling_tables_and_forms(harnesses, name):
+    """A coupling instance at another hidden depth: its layout table (the
+    extra hidden products' offsets before the warps) equals the Python
+    packing's, its form the Python rule's, the one named."""
+    arch, form = DEPTH_COUPLING[name]
+    table, (wide,) = _lines(harnesses / f"run_{name}")
+    assert table == [*FC.mma_layout(arch), FC.coupling_warps(arch)]
+    assert wide == FC.mma_wide(arch)
+    assert FC.mma_form(arch) == form
+
+
+@pytest.mark.parametrize("mode", ["forward", "inverse"])
+@pytest.mark.parametrize("name", DEPTH_COUPLING)
+def test_depth_coupling_matches_plain(harnesses, name, mode):
+    """B1 (density) and B3 (sampling) at one, three, four and no hidden
+    layers, in the whole-layer and the wide form, on a ragged block of two
+    warps, against the plain pass (card tolerance, float64 arbitration)
+    and the packed reader."""
+    arch, params = chip_smoke.perturbed_flow(torch.device("cpu"), 7,
+                                             DEPTH_COUPLING[name][0], 0.05)
+    n = 64 - 5
+    x = torch.as_tensor(np.random.default_rng(n).normal(
+        size=(n, arch.dims)).astype(np.float32))
+    packed, y, ld = _coupling(harnesses, name, arch, params, mode, x, 2)
+    plain = arch.forward_plain if mode == "forward" else arch.inverse_plain
+    y_p, ld_p = plain(params, x)
+    y_e, ld_e = plain(chip_smoke.as_float64(params), x.double())
+    chip_smoke.assert_kernel_close(y, y_p, y_e, f"emulated {name} {mode} y")
+    chip_smoke.assert_kernel_close(ld, ld_p, ld_e,
+                                   f"emulated {name} {mode} log_det")
+    y_r, ld_r = FC.coupling_packed_plain(arch, mode, packed, x)
+    torch.testing.assert_close(y, y_r, **chip_smoke.COUPLING_TOL)
+    torch.testing.assert_close(ld, ld_r, **chip_smoke.COUPLING_TOL)
+
+
+@pytest.mark.parametrize("name", DEPTH_CHAIN)
+def test_depth_chain_matches_plain(harnesses, name):
+    """B2 at one, three and no hidden layers in each of its forms (the
+    whole-layer chain resident and streaming its layers, the wide chain):
+    its layout table and constant block against the Python packing, then
+    one tile, two tpCN steps on the mixture with the affine data transform
+    on injected noise (three layers, or the flow's own depth where it has
+    fewer) against the plain chain at the card check's tolerances."""
+    arch, form = DEPTH_CHAIN[name]
+    table, consts = _lines(harnesses / f"run_{name}")
+    assert table == list(FM.chain_layout(arch))
+    assert consts == list(FM.consts_layout(arch.dims))
+    assert FM.chain_form(arch) == form
+    run = dataclasses.replace(arch, n_layers=min(arch.n_layers, 3))
+    _chain(harnesses, name, chip_smoke.shapes_chain_setup(
+        torch.device("cpu"), FM.TILE, 2, run))
+
+
+@pytest.mark.parametrize("name", DEPTH_MAF)
+def test_depth_maf_matches_plain(harnesses, name):
+    """B4 at one, three and no hidden layers, resident and streamed: its
+    layout (the k-steps of every hidden product, then W3's) and the
+    streamed block against the Python mirror, then 2 layers on 5 tiles
+    (the last ragged) over 2 blocks of 2 warps against the plain pass
+    (card tolerance, float64 arbitration) and the packed reader."""
+    arch, form = DEPTH_MAF[name]
+    assert FC.maf_form(arch) == form
+    (layer, stage, *ksteps), *block = _lines(harnesses / f"run_{name}")
+    assert [layer, stage, *ksteps] == [FC.maf_layer_floats(arch),
+                                       FC.maf_stage_floats(arch),
+                                       *sum(FC.maf_ksteps(arch), ())]
+    if form == "streamed":
+        (block,) = block
+        layout = FC.maf_stream_layout(arch)
+        assert block == [layout[k] for k in ("slot", "head", "w2_chunks",
+                                             "stage", "bufs")]
+    arch, params = chip_smoke.perturbed_flow(
+        torch.device("cpu"), 9, dataclasses.replace(arch, n_layers=2), 0.05)
+    d, n = arch.dims, 4 * 16 + 7
     x = 2.0 * torch.as_tensor(np.random.default_rng(n).normal(
         size=(n, d)).astype(np.float32))
     packed = FC.prepare_maf_params(arch, params)

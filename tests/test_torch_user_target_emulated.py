@@ -43,7 +43,7 @@ template <bool PROGS>
 void run_chain(const aspire::ChainArgs& a, int nt) {
   for (int b = 0; b < nt; ++b) {
     emu_run_block(b, 256, [&] {
-      aspire::chain_kernel<4, 64, 64, 8, true, PROGS, 0>(a);
+      aspire::chain_kernel<4, aspire::Hidden<64, 64>, 8, true, PROGS, 0>(a);
     });
   }
 }
@@ -65,7 +65,7 @@ int main(int argc, char** argv) {
   const float beta = atof(argv[11]), nu = atof(argv[12]);
   const float target_acc = atof(argv[13]), rate = atof(argv[14]);
   const float max_log_step = atof(argv[15]), tail = atof(argv[16]);
-  using S = aspire::MmaShape<4, 64, 64, 8, true>;
+  using S = aspire::MmaShape<4, aspire::Hidden<64, 64>, 8, true>;
   int layout[8];
   const int nt = n / 256, cs = layout[aspire_consts_layout(4, layout, 8) - 1];
   std::vector<float> z0(4 * n), w(layers * S::SIZE), c(cs), step0(nt);

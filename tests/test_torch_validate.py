@@ -294,12 +294,11 @@ def test_packing_reads_back_like_jax(d, mode):
 
 
 def _table(macro: str) -> list[tuple]:
-    """The rows ``X(...)`` of ``macro`` in csrc/common.cuh."""
-    text = (CSRC / "common.cuh").read_text()
-    body = re.search(rf"#define {macro}\(X\)(.*?)(?:\n\n|\Z)", text,
-                     re.S).group(1)
-    return [tuple(v.strip() for v in row.split(","))
-            for row in re.findall(r"X\(([^)]*)\)", body)]
+    """The rows ``X(...)`` of ``macro`` in csrc/common.cuh, each value
+    read (the hidden widths, in parentheses, as a tuple)."""
+    from aspire_tpu_torch.ops import _build
+
+    return _build.config_rows(macro)
 
 
 def test_config_tables_mirror_common_cuh():
@@ -308,12 +307,11 @@ def test_config_tables_mirror_common_cuh():
     TARGETS column compiles (chain.cu ``kLastTarget``): ids 1-3 at
     d = 4 and d = 32, 1-5 at the validation rows' d = 2 and d = 5."""
     coupling = {}
-    for cid, d, h1, h2, k, rqs in _table("ASPIRE_COUPLING_CONFIGS"):
-        key = ("rqs" if rqs == "true" else "affine", int(d),
-               (int(h1), int(h2)), int(k) if rqs == "true" else None)
-        coupling[key] = int(cid)
+    for cid, d, hidden, k, rqs in _table("ASPIRE_COUPLING_CONFIGS"):
+        key = ("rqs" if rqs else "affine", d, hidden, k if rqs else None)
+        coupling[key] = cid
     assert coupling == FC.KERNEL_CONFIGS
-    chain = {int(cid): tuple(range(1, (3, 5)[int(targets)] + 1))
+    chain = {cid: tuple(range(1, (3, 5)[targets] + 1))
              for cid, *_, targets in _table("ASPIRE_CHAIN_CONFIGS")}
     assert chain == FM.CHAIN_CONFIGS
     last = re.search(r"kLastTarget\[2\] = \{(\w+), (\w+)\}",
