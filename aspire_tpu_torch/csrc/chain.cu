@@ -47,7 +47,12 @@
 //   BASELINE config 5's d = 32, 6 x (128, 128) flow, 1.6 MB of weights)
 //   take chain_kernel_wide: the same chain with its state in shared memory
 //   and the flow's layers streamed through the block per pass (the wide
-//   form of coupling_mma.cuh, rounded k-step sums).
+//   form of coupling_mma.cuh, rounded k-step sums). Where that block
+//   passes 227 KB (config 5's flow at 20 bins: 237,056 B), ChainWidePlan
+//   moves the chain state to global memory, then holds one resident part
+//   of a layer, then moves the warps' particle rows to global memory too,
+//   as far as the block needs; the tile, the Philox counters, the noise
+//   rows and the arithmetic stay the same.
 // - A user's own target (models/targets.py KernelSource) is built into an
 //   instance of its own (ops/_build.py::build_user): the build defines
 //   ASPIRE_USER_TARGET as the path of the source, which defines
@@ -59,6 +64,8 @@
 //   floats), and adds an entry that evaluates user_target alone over n
 //   points (aspire_user_target). Without the define nothing of it is
 //   compiled.
+
+#include <type_traits>
 
 #include "coupling_mma.cuh"
 
@@ -844,6 +851,41 @@ __device__ __forceinline__ void tempered_wide(
   }
 }
 
+// The wide chain's block, at LEVEL: the shape's stream (MmaShape) with
+// the stream's plan changed as the level says. ChainWidePlan picks it.
+template <class M, int LEVEL>
+struct ChainWideAt : M {
+  static constexpr bool ONE_RES = M::ONE_RES || LEVEL >= 2;
+  static constexpr int RESB = (ONE_RES ? 1 : 2) * M::RES;
+  // A warp's buffer in shared memory: the group parameters, the warp's
+  // particle rows unless they are in global memory (LEVEL 3), then with
+  // one hidden layer the row tile's inputs.
+  static constexpr int UB = 16 * M::ROW + (LEVEL >= 3 ? 0 : 32 * M::FROW);
+  static constexpr int STAGE = M::STAGE - (LEVEL >= 3 ? 32 * M::FROW : 0);
+};
+
+// The wide chain's block (chain_kernel_wide) at the first level whose block
+// fits one SM (ops/fused_mutation.py::chain_wide_plan mirrors it): 0 the
+// shape's stream (MmaShape) with the chain state, two [D][kTile] arrays, and
+// the warps' particle rows in shared memory; 1 the state arrays in global
+// memory (ChainArgs::scratch after the statistics' sums, per tile); 2 also
+// one resident part of a layer (MmaShape::ONE_RES's stream); 3 also the
+// particle rows in global memory (after the state, per warp).
+template <int D, class M>
+struct ChainWidePlan {
+  __host__ __device__ static constexpr int floats(int level) {
+    const bool one = M::ONE_RES || level >= 2;
+    return Consts<D>::SIZE + 2 * kWarps + (level == 0 ? 2 * D * kTile : 0) +
+           (one ? 1 : 2) * M::RES + 2 * M::CHUNK +
+           kWarps * (M::STAGE - (level >= 3 ? 32 * M::FROW : 0));
+  }
+  static constexpr int LEVEL = floats(0) <= kMaxBlockFloats   ? 0
+                               : floats(1) <= kMaxBlockFloats ? 1
+                               : floats(2) <= kMaxBlockFloats ? 2
+                                                              : 3;
+  using S = std::conditional_t<LEVEL == 0, M, ChainWideAt<M, LEVEL>>;
+};
+
 // The chain in the wide form (MmaShape::WIDE: BASELINE config 5's d = 32,
 // (128, 128) flow), the same algorithm, tile, Philox stream and arithmetic
 // of the chain as chain_kernel. A thread's state does not fit its
@@ -855,21 +897,37 @@ __device__ __forceinline__ void tempered_wide(
 // the previous step's deviation is x - x0 before the step's update. The
 // flow's weights stream through the block per pass (WideStream). Shared
 // memory: constants, two [D][kTile] arrays, the stream's slots and the
-// warps' buffers: 189,136 B at d = 32, one block per SM.
+// warps' buffers: 189,136 B at d = 32, one block per SM. A flow whose block
+// does not fit takes a level of ChainWidePlan: its state arrays, and then
+// its particle rows, in global memory after the sums (each read and written
+// by the threads that own it, in the same order), one resident slot.
 template <int D, class HID, int K, bool RQS, bool PROGS, int TARGETS>
 __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
-  using S = MmaShape<D, HID, K, RQS>;
+  using Plan = ChainWidePlan<D, MmaShape<D, HID, K, RQS>>;
+  using S = typename Plan::S;
   using C = Consts<D>;
   extern __shared__ float4 smem4[];
   float* c = reinterpret_cast<float*>(smem4);
   float* scratch = c + C::SIZE;
-  float* X = scratch + 2 * kWarps;
-  float* XP = X + D * kTile;
-  float* res = XP + D * kTile;
-  float* ring = res + 2 * S::RES;
   const int tid = threadIdx.x, lane = tid & 31;
+  float *X, *XP, *res, *F;
+  if constexpr (Plan::LEVEL == 0) {
+    X = scratch + 2 * kWarps;
+    XP = X + D * kTile;
+    res = XP + D * kTile;
+  } else {
+    X = a.scratch + 3 * (size_t)D * a.n + (size_t)blockIdx.x * 2 * D * kTile;
+    XP = X + D * kTile;
+    res = scratch + 2 * kWarps;
+  }
+  float* ring = res + S::RESB;
   float* pb = ring + 2 * S::CHUNK + (tid >> 5) * S::STAGE;
-  float* F = pb + 16 * S::ROW;
+  if constexpr (Plan::LEVEL >= 3) {
+    F = a.scratch + 5 * (size_t)D * a.n +
+        ((size_t)blockIdx.x * kWarps + (tid >> 5)) * 32 * S::FROW;
+  } else {
+    F = pb + 16 * S::ROW;
+  }
   float* xi = F + lane * S::FROW;
   WideStream<S> ws{res, ring, a.weights, a.n_layers, true, 0};
   if constexpr (D % 2 == 1) F[lane * S::FROW + D] = 0.f;  // padding slot
@@ -1018,12 +1076,14 @@ __global__ void __launch_bounds__(kTile, 1) chain_kernel_wide(ChainArgs a) {
 template <int D, class HID, int K, bool RQS, int TARGETS>
 int launch_chain(const ChainArgs& a, cudaStream_t stream) {
   using S = MmaShape<D, HID, K, RQS>;
-  // Every layer's weights, or (wide) two [D][kTile] arrays and the
-  // stream's slots.
-  const size_t state = S::WIDE ? 2 * D * kTile + 2 * (S::RES + S::CHUNK)
-                               : (size_t)a.n_layers * S::SIZE;
-  size_t smem = sizeof(float) * (state + Consts<D>::SIZE + 2 * kWarps +
+  // Every layer's weights, or (wide) the block ChainWidePlan picks.
+  size_t smem = sizeof(float) * ((size_t)a.n_layers * S::SIZE +
+                                 Consts<D>::SIZE + 2 * kWarps +
                                  kWarps * S::STAGE);
+  if constexpr (S::WIDE) {
+    using Plan = ChainWidePlan<D, S>;
+    smem = sizeof(float) * Plan::floats(Plan::LEVEL);
+  }
 #ifdef ASPIRE_STREAMED
   // The streamed instance: the whole-layer form's two layer buffers.
   if constexpr (!S::WIDE) {
@@ -1109,6 +1169,25 @@ int aspire_consts_layout(int dims, int* out, int capacity) {
   return -1;
 }
 
+// The wide chain's block of configuration `config` (ChainWidePlan): its
+// level and floats of shared memory, into out (up to capacity entries);
+// (-1, 0) for the whole-layer form. Returns their number, or -1 for an
+// unknown configuration.
+int aspire_chain_plan(int config, int* out, int capacity) {
+#define ASPIRE_CHAIN_PLAN_CASE(ID, D, HID, K, RQS, TARGETS)               \
+  if (config == ID) {                                                  \
+    using M = aspire::MmaShape<D, ASPIRE_HIDDEN HID, K, RQS>;          \
+    using P = aspire::ChainWidePlan<D, M>;                             \
+    const int v[] = {M::WIDE ? P::LEVEL : -1,                          \
+                     M::WIDE ? P::floats(P::LEVEL) : 0};               \
+    for (int e = 0; e < 2 && e < capacity; ++e) out[e] = v[e];         \
+    return 2;                                                          \
+  }
+  ASPIRE_CHAIN_CONFIGS(ASPIRE_CHAIN_PLAN_CASE)
+#undef ASPIRE_CHAIN_PLAN_CASE
+  return -1;
+}
+
 // The packed layout of chain configuration `config`, as MmaShape
 // computes it (mma_layout_table), into out (up to capacity entries).
 // Returns their number, or -1 for an unknown configuration.
@@ -1131,10 +1210,11 @@ int aspire_chain_layout(int config, int* out, int capacity) {
 // aspire_chain_user, takes the user target's constants last) and -4 for a
 // flow too deep for its layers to stay resident in a library without the
 // streamed form (the prebuilt one, or a resident instance).
-// scratch: 3 * D * n floats for a wide configuration (MmaShape::WIDE),
-// else unused. beta (one float) and
-// seed (two 64-bit integers, each read as its low 32 bits) are device
-// memory, read when the kernel runs.
+// scratch: for a wide configuration (MmaShape::WIDE) 3 * D * n floats,
+// then at ChainWidePlan's level 1 or more 2 * D * n for the state arrays,
+// at level 3 (D + 1) * n more for the particle rows; else unused. beta
+// (one float) and seed (two 64-bit integers, each read as its low 32 bits)
+// are device memory, read when the kernel runs.
 #ifdef ASPIRE_USER_TARGET
 int aspire_chain_user(
 #else

@@ -35,7 +35,11 @@
 //   6 x (128, 128), 8 bins, 761,856 tensor-core FLOP per particle and pass)
 //   take coupling_kernel_wide: each layer streamed in chunks of W2 and W3
 //   through two shared slots, one row tile and one group of two active
-//   dims at a time (coupling_mma.cuh, coupling_layer_wide).
+//   dims at a time (coupling_mma.cuh, coupling_layer_wide). Where two
+//   layers' resident parts leave no warp beside the chunks (one coupling
+//   layer of (1024, 1024) at d = 25, 24 bins: 2 x 19,440 floats), the
+//   block holds one (MmaShape::ONE_RES) and loads the next layer's once
+//   every warp is done with it.
 // - Odd d (nsf-tpu at d = 5, the funnel's validation row) pads both halves
 //   of a layer to (d + 1) / 2 dims with a zero-weight slot; its output
 //   layer goes one active dim at a time (MmaShape::BY_DIM), which keeps a
@@ -140,9 +144,9 @@ __global__ void __launch_bounds__(
   using S = MmaShape<D, HID, K, RQS>;
   extern __shared__ float4 coupling_smem4[];
   float* smem = reinterpret_cast<float*>(coupling_smem4);
-  WideStream<S> ws{smem, smem + 2 * S::RES, weights, n_layers, DENSITY, 0};
+  WideStream<S> ws{smem, smem + S::RESB, weights, n_layers, DENSITY, 0};
   const int lane = threadIdx.x & 31;
-  float* pb = smem + 2 * S::RES + 2 * S::CHUNK + (threadIdx.x >> 5) * S::STAGE;
+  float* pb = smem + S::RESB + 2 * S::CHUNK + (threadIdx.x >> 5) * S::STAGE;
   float* F = pb + 16 * S::ROW;
   // The warp's particles, read and written as one contiguous run.
   const size_t first = (size_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31u);

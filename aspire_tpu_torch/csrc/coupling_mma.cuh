@@ -268,6 +268,9 @@ struct MmaShape : MmaForm<D_, HID, K_, RQS_> {
   // No hidden layer: none (each thread computes its own parameters).
   static constexpr int ROW = (F::WIDE ? F::GD * F::G : F::OUT) + 4;
   static constexpr int FROW = F::D + 1;
+  // Wide, one hidden layer: where the row tile's inputs sit in the warp's
+  // buffer (after the group parameters and the particles).
+  static constexpr int UB = 16 * ROW + 32 * FROW;
   static constexpr int STAGE =
       F::WIDE ? 16 * ROW + 32 * FROW + (F::NH == 1 ? 16 * F::CP : 0)
               : (F::NH ? 32 * ROW : 0);
@@ -282,10 +285,16 @@ struct MmaShape : MmaForm<D_, HID, K_, RQS_> {
   static constexpr int NC3 = F::NH ? F::GROUPS * (F::KSL / F::KW3) : 0;
   static constexpr int CPL = 2 * (NCP + NC3);
   static constexpr int CHUNK = F::WIDE ? F::max_chunk() : 0;
-  // A coupling-kernel block: its weight buffers (two layers, or two
+  // One resident part where two leave no warp beside the chunks (a layer's
+  // part then loads once every warp is done with the last layer's: one
+  // more barrier a layer, no copy ahead).
+  static constexpr bool ONE_RES =
+      F::WIDE && kMaxBlockFloats - 2 * (RES + CHUNK) < STAGE;
+  static constexpr int RESB = (ONE_RES ? 1 : 2) * RES;  // resident slots
+  // A coupling-kernel block: its weight buffers (two layers, or the
   // resident parts and two chunks) and as many warps as fit beside them,
   // at most kMaxCouplingWarps.
-  static constexpr int BUFS = F::WIDE ? 2 * (RES + CHUNK) : 2 * SIZE;
+  static constexpr int BUFS = F::WIDE ? RESB + 2 * CHUNK : 2 * SIZE;
   static constexpr int FIT =
       STAGE ? (kMaxBlockFloats - BUFS) / STAGE
             : (BUFS <= kMaxBlockFloats ? kMaxCouplingWarps : 0);
@@ -857,13 +866,14 @@ __device__ __forceinline__ void flow_density_streamed(
 
 // A pass's weights streamed through the block's shared memory: two slots
 // for a layer's resident part (RES floats: W1, b1, every hidden product's
-// bias, b3) and two for its chunks of the hidden products and W3 (CHUNK
-// floats), in the order the warps read them (per layer and row tile: each
-// hidden product's NCH chunks, then W3's NC3 by groups). Every thread of
-// the block calls begin() and next() in the same order.
+// bias, b3; one with S::ONE_RES) and two for its chunks of the hidden
+// products and W3 (CHUNK floats), in the order the warps read them (per
+// layer and row tile: each hidden product's NCH chunks, then W3's NC3 by
+// groups). Every thread of the block calls begin() and next() in the same
+// order.
 template <class S>
 struct WideStream {
-  float* res;                   // 2 x S::RES floats
+  float* res;                   // S::RESB floats
   float* ring;                  // 2 x S::CHUNK floats
   const float* w;  // every layer's packed weights
   int n_layers;
@@ -907,7 +917,10 @@ struct WideStream {
 
   // The next chunk, once it has landed; then start copying the chunk after
   // it, and at a layer's first chunk the next layer's resident part, into
-  // the slots every warp is done with (the barrier says so).
+  // the slots every warp is done with (the barrier says so). With one
+  // resident slot, a layer's first chunk (but the pass's first) copies the
+  // layer's part into it, every warp being done with the last layer's, and
+  // waits for it.
   __device__ __forceinline__ const float* next() {
     cp_async_wait_all();
     __syncthreads();
@@ -918,7 +931,13 @@ struct WideStream {
       copy_async(ring + ((j + 1) & 1) * S::CHUNK, src, floats);
     }
     const int step = j / S::CPL;
-    if (j % S::CPL == 0 && step + 1 < n_layers) {
+    if constexpr (S::ONE_RES) {
+      if (j % S::CPL == 0 && step > 0) {
+        copy_async(res, layer_src(step), S::RES);
+        cp_async_wait_all();
+        __syncthreads();
+      }
+    } else if (j % S::CPL == 0 && step + 1 < n_layers) {
       copy_async(res + ((step + 1) & 1) * S::RES, layer_src(step + 1),
                  S::RES);
     }
@@ -927,7 +946,11 @@ struct WideStream {
 
   // Step `step`'s resident part: valid after the step's first next().
   __device__ __forceinline__ const float* resident(int step) const {
-    return res + (step & 1) * S::RES;
+    if constexpr (S::ONE_RES) {
+      return res;
+    } else {
+      return res + (step & 1) * S::RES;
+    }
   }
 };
 
@@ -1117,7 +1140,7 @@ __device__ __forceinline__ void coupling_layer_wide(
   const int odd = ws.layer_of(step) & 1;
   const int g = lane >> 2, t = lane & 3;
   const float* res = ws.resident(step);
-  float* ub = S::NH == 1 ? pb + 16 * S::ROW + 32 * S::FROW : pb;
+  float* ub = S::NH == 1 ? pb + S::UB : pb;
 #pragma unroll 1
   for (int m = 0; m < 2; ++m) {
     // The conditioning inputs of the tile's row r at ub[r * CP + c], 0

@@ -61,8 +61,15 @@
 //   for each chunk) and W3's by two dims at a time through two shared
 //   slots with cp.async, one block barrier each, the same packing and
 //   split-TF32 products; each warp's 16 particles go through the layer
-//   together, two dims' splines at a time (lane = row x dim).
+//   together, two dims' splines at a time (lane = row x dim). Where two
+//   dims' W3 fragments leave no warp (maf-rqs 4 x (256, 256) at d = 4, 20
+//   bins: 27,648 floats an item), the instance compiles the chunked form
+//   (maf_kernel_chunked) in its place: W3 by k-steps too, and where the
+//   head alone leaves no warp (a 768- or 1024-wide first layer from
+//   d = 21), W1
+//   streamed as well, h_0 made whole from its items.
 
+#include <type_traits>
 #include <utility>
 
 #include "common.cuh"
@@ -118,11 +125,14 @@ struct MafBlocks {
     }
     return true;
   }
-  // Hidden units of degree <= d among h units (the sorted segment ends).
+  // Hidden units of degree <= d among h units (the sorted segment ends):
+  // unit j has degree j % MD + 1, so each whole run of MD units holds
+  // min(d, MD) of them and the last, partial run min(h % MD, d). In closed
+  // form, so that the streamed forms' tables at wide layers stay within
+  // the compiler's constant-evaluation budget.
   __host__ __device__ static constexpr int ends(int h, int d) {
-    int c = 0;
-    for (int j = 0; j < h; ++j) c += (j % MD + 1 <= d) ? 1 : 0;
-    return c;
+    if (d <= 0) return 0;
+    return h / MD * (d < MD ? d : MD) + (h % MD < d ? h % MD : d);
   }
   // Degree of sorted hidden unit u among h units.
   __host__ __device__ static constexpr int degree(int h, int u) {
@@ -939,6 +949,398 @@ __global__ void __launch_bounds__(32 * kMafMaxWarps, 1)
     __syncwarp();
   }
 }
+
+// The chunked form (maf_kernel_chunked), for a flow whose streamed form
+// leaves no warp beside its slots and heads: the streamed form's items, but
+// each pair of dims' W3 fragments in chunks of KC3 k-steps (item (q, c):
+// dim 2q's fragments of k-steps c KC3 .. (c + 1) KC3 - 1, then dim
+// 2q + 1's, each as far as the dim reads), the pair's parameters summed
+// over its chunks in the k order of the other forms (so their bits); at
+// LEVEL 2, where that leaves no warp either, W1 streams too, by KW1
+// k-steps of units at the layer's first items, h_0 made whole from them,
+// and the head keeps the biases alone (b1, each hidden product's, b3). The
+// level is the first whose block holds a warp
+// (ops/fused_coupling.py::maf_stream_layout mirrors it).
+constexpr int kMafBlockFloats = 232448 / 4;  // an H100 block's most
+constexpr int kMafW1Floats = 4096;           // a W1 item's floats at most
+
+template <int D, class HID, int K>
+struct MafChunked : MafStream<D, HID, K> {
+  using T = MafStream<D, HID, K>;
+  static constexpr int KC3 =
+      kMafChunkFrags / (2 * T::NT) > 1 ? kMafChunkFrags / (2 * T::NT) : 1;
+  // k-steps of dim i in W3 chunk c (0 past D).
+  __host__ __device__ static constexpr int cnt(int i, int c) {
+    if (i >= D) return 0;
+    const int e = T::ks3(i) - c * KC3;
+    return e <= 0 ? 0 : (e < KC3 ? e : KC3);
+  }
+  // Chunks of pair q (one at least), the W3 items before pair q's first,
+  // and the pair of W3 item j.
+  __host__ __device__ static constexpr int nc3(int q) {
+    const int hi = T::ks3(2 * q + 1 < D ? 2 * q + 1 : 2 * q);
+    return hi > KC3 ? (hi + KC3 - 1) / KC3 : 1;
+  }
+  __host__ __device__ static constexpr int c3_before(int q) {
+    int c = 0;
+    for (int p = 0; p < q; ++p) c += nc3(p);
+    return c;
+  }
+  __host__ __device__ static constexpr int pair_of(int j) {
+    int q = 0;
+    while (j >= c3_before(q + 1)) ++q;
+    return q;
+  }
+  static constexpr int N3 = c3_before(T::NQ);
+  static constexpr int KW1 =
+      T::NH && kMafW1Floats / (8 * D) > 1 ? kMafW1Floats / (8 * D) : 1;
+  static constexpr int NW1 = T::NH ? (T::KS(0) + KW1 - 1) / KW1 : 0;
+  __host__ __device__ static constexpr int items_max() {
+    int m = 0;
+    for (int i = 0; i < T::NW; ++i) {
+      m = T::item_floats(i) > m ? T::item_floats(i) : m;
+    }
+    for (int q = 0; q < T::NQ; ++q) {
+      for (int c = 0; c < nc3(q); ++c) {
+        const int f = 64 * T::NT * (cnt(2 * q, c) + cnt(2 * q + 1, c));
+        m = f > m ? f : m;
+      }
+    }
+    return m;
+  }
+  __host__ __device__ static constexpr int slot(int level) {
+    const int w1 = level == 2 ? 8 * D * (KW1 < T::KS(0) ? KW1 : T::KS(0)) : 0;
+    return round4(items_max() > w1 ? items_max() : w1);
+  }
+  __host__ __device__ static constexpr int head(int level) {
+    int biases = D * T::G;
+    for (int p = 0; p < T::NH; ++p) biases += T::HW(p);
+    return level == 2 ? round4(biases) : T::HEAD;
+  }
+  __host__ __device__ static constexpr bool fits(int level) {
+    return 2 * slot(level) + 2 * head(level) + T::WSTAGE <= kMafBlockFloats;
+  }
+  static constexpr int LEVEL = fits(1) ? 1 : 2;
+  static constexpr int SLOT = slot(LEVEL);
+  static constexpr int HEAD = head(LEVEL);
+  static constexpr int BUFS = 2 * SLOT + 2 * HEAD;
+  static constexpr int NI1 = LEVEL == 2 ? NW1 : 0;  // W1 items a layer
+  static constexpr int IPL = NI1 + T::NW + N3;      // items a layer
+  // The head's sections: b1 (HB1), each hidden product's bias, b3 (HB3).
+  static constexpr int HB1 = LEVEL == 2 ? 0 : T::B1;
+  __host__ __device__ static constexpr int hbh(int p) {
+    return LEVEL == 2 ? T::HW(0) + (T::hbh(p) - T::FIRST) : T::hbh(p);
+  }
+  static constexpr int HB3 = hbh(T::NH > 1 ? T::NH - 1 : 0);
+};
+
+// The streamed instance's form: 0 the streamed form (maf_kernel_streamed)
+// where its block holds a warp, else the chunked form's level.
+template <int D, class HID, int K>
+__host__ __device__ constexpr int maf_stream_level() {
+  using T = MafStream<D, HID, K>;
+  return T::BUFS + T::WSTAGE <= kMafBlockFloats ? 0
+                                                : MafChunked<D, HID, K>::LEVEL;
+}
+
+// The block starts copying the chunked form's layer head (b1, each hidden
+// product's bias, b3; at level 1 the streamed form's head) into head.
+template <class U>
+__device__ __forceinline__ void copy_chunked_head(float* head,
+                                                  const float* __restrict__ w) {
+  if constexpr (U::LEVEL == 2) {
+    copy_async(head, w + U::B1, U::HW(0));
+    static_for<(U::NH > 1 ? U::NH - 1 : 0)>([&](auto p_) {
+      constexpr int p = decltype(p_)::value;
+      copy_async(head + U::hbh(p), w + U::BH(p), U::HW(p + 1));
+    });
+    copy_async(head + U::HB3, w + U::B3, U::HEAD - U::HB3);
+  } else {
+    copy_head<typename U::T>(head, w);
+  }
+}
+
+// The block starts copying item I of the chunked form's layer w into dst:
+// W1's rows of k-steps I KW1 .. (I + 1) KW1 - 1, a hidden product's chunk,
+// or a W3 chunk (its two dims' runs of fragments one after the other).
+template <class U, int I>
+__device__ __forceinline__ void copy_chunked_item(
+    float* dst, const float* __restrict__ w) {
+  constexpr int D = U::DIMS;
+  if constexpr (I < U::NI1) {
+    constexpr int s0 = I * U::KW1;
+    constexpr int s1 = s0 + U::KW1 < U::KS(0) ? s0 + U::KW1 : U::KS(0);
+    copy_async(dst, w + U::W1 + 8 * s0 * D, 8 * (s1 - s0) * D);
+  } else if constexpr (I < U::NI1 + U::NW) {
+    copy_async(dst, w + U::item_offset(I - U::NI1),
+               U::item_floats(I - U::NI1));
+  } else {
+    constexpr int j = I - U::NI1 - U::NW;
+    constexpr int q = U::pair_of(j), c = j - U::c3_before(q);
+    constexpr int a = U::cnt(2 * q, c), b = U::cnt(2 * q + 1, c);
+    copy_async(dst, w + U::W3 + 64 * (U::f3_before(2 * q) + c * U::KC3 * U::NT),
+               64 * U::NT * a);
+    if constexpr (b > 0) {
+      copy_async(dst + 64 * U::NT * a,
+                 w + U::W3 +
+                     64 * (U::f3_before(2 * q + 1) + c * U::KC3 * U::NT),
+                 64 * U::NT * b);
+    }
+  }
+}
+
+// maf_first_values with W1's rows of k-steps s0 on at w1 (a W1 item) and
+// b1 at b1: units 8s + 2t and 8s + 2t + 1 of rows g and g + 8.
+template <class S>
+__device__ __forceinline__ void maf_first_rows(
+    const float* __restrict__ w1, int s0, const float* __restrict__ b1,
+    const float (&xa)[S::MD], const float (&xb)[S::MD], int s, int t,
+    float (&h)[4]) {
+  constexpr int MD = S::MD;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int u = 8 * s + 2 * t + c;
+    int deg = 1;
+    static_for<MD - 1>([&](auto d_) {
+      constexpr int e = S::ends(S::H1, decltype(d_)::value + 1);
+      deg += u >= e ? 1 : 0;
+    });
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int i = 0; i < MD; ++i) {
+      if (i < deg) {
+        const float wi = w1[(u - 8 * s0) * S::DIMS + i];
+        a = fmaf(wi, xa[i], a);
+        b = fmaf(wi, xb[i], b);
+      }
+    }
+    const float bias = b1[u];
+    h[2 * c] = fmaxf(a + bias, 0.f);
+    h[2 * c + 1] = fmaxf(b + bias, 0.f);
+  }
+}
+
+// W3 chunk C of pair Q (its two dims' runs at w3) into the pair's sums o3,
+// A of k-step s from frag, k-step outer: the products of maf_chunk_params
+// for those k-steps, in its order for each sum.
+template <class U, int Q, int C, class Frag>
+__device__ __forceinline__ void maf_chunk_products(
+    const float* __restrict__ w3, const Frag& frag,
+    float (&o3)[2][U::NT][4], int lane) {
+  static_for<(U::cnt(2 * Q, C) > U::cnt(2 * Q + 1, C)
+                   ? U::cnt(2 * Q, C)
+                   : U::cnt(2 * Q + 1, C))>([&](auto s_) {
+    constexpr int sl = decltype(s_)::value;
+    uint32_t ah[4], al[4];
+    frag(C * U::KC3 + sl, ah, al);
+    static_for<2>([&](auto e_) {
+      constexpr int e = decltype(e_)::value;
+      if constexpr (sl < U::cnt(2 * Q + e, C)) {
+        constexpr int base = 64 * U::NT * (e ? U::cnt(2 * Q, C) : 0);
+        static_for<U::NT>([&](auto m_) {
+          constexpr int m = decltype(m_)::value;
+          mma_split(o3[e][m], ah, al,
+                    *reinterpret_cast<const float2*>(
+                        w3 + base + 64 * (sl * U::NT + m) + 2 * lane));
+        });
+      }
+    });
+  });
+}
+
+// The chunked form: maf_kernel_streamed's walk over the tiles and layers,
+// with MafChunked's items; a pair of dims' parameters are summed over its
+// W3 chunks, then its splines run as the streamed form's do.
+template <int D, class HID, int K>
+__global__ void __launch_bounds__(32 * kMafMaxWarps, 1)
+    maf_kernel_chunked(const float* __restrict__ x, float* __restrict__ z,
+                       float* __restrict__ log_det,
+                       const float* __restrict__ weights, int n,
+                       int n_layers, float tail_bound) {
+  using U = MafChunked<D, HID, K>;
+  constexpr int IPL = U::IPL;
+  constexpr int MD = U::MD;
+  constexpr int NH = U::NH;
+  extern __shared__ float4 maf_smem4[];
+  float* slots = reinterpret_cast<float*>(maf_smem4);
+  float* heads = slots + 2 * U::SLOT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* const stage = heads + 2 * U::HEAD + warp * U::WSTAGE;
+  float* raw = stage + 2 * U::XS;
+  const int tiles = (n + kMafTile - 1) / kMafTile;
+  for (int first = blockIdx.x * warps; first < tiles;
+       first += gridDim.x * warps) {
+    const int base = (first + warp) * kMafTile;
+    float* in = stage;
+    float* out = stage + U::XS;
+    for (int e = lane; e < kMafTile * D; e += 32) {
+      in[e] = base + e / D < n ? x[(size_t)base * D + e] : 0.f;
+    }
+    float ld = 0.f;
+    __syncthreads();  // every warp is done with the slots' last reads
+    copy_chunked_head<U>(heads, weights);
+    copy_chunked_item<U, 0>(slots, weights);
+#pragma unroll 1
+    for (int layer = 0; layer < n_layers; ++layer) {
+      const float* wl = weights + (size_t)layer * U::SIZE;
+      const float* head = heads + (layer & 1) * U::HEAD;
+      const int parity = (layer * IPL) & 1;  // item 0's slot
+      float xa[MD], xb[MD];
+      // Hidden layer i's accumulators (h_0 too where it is made whole),
+      // each used up to its own width of n-tiles; the pair's sums.
+      float acc[NH > 0 ? NH : 1][max_ks<U>()][4];
+      float o3[2][U::NT][4];
+      static_for<(NH > 1 ? NH - 1 : 0)>([&](auto p_) {
+        constexpr int p = decltype(p_)::value + 1;
+#pragma unroll
+        for (int j = 0; j < U::KS(p); ++j) {
+          acc[p][j][0] = acc[p][j][1] = acc[p][j][2] = acc[p][j][3] = 0.f;
+        }
+      });
+      // As the streamed form's: item i has landed once its thread's copies
+      // have and every thread passed the barrier, which also says every
+      // warp is done with the slot the next item overwrites and, at the
+      // last item, with the head buffer the next layer's takes.
+      static_for<IPL>([&](auto i_) {
+        constexpr int i = decltype(i_)::value;
+        cp_async_wait_all();
+        __syncthreads();
+        float* next = slots + ((parity + i + 1) & 1) * U::SLOT;
+        if constexpr (i + 1 < IPL) {
+          copy_chunked_item<U, i + 1>(next, wl);
+        } else {
+          if (layer + 1 < n_layers) {
+            copy_chunked_head<U>(heads + ((layer + 1) & 1) * U::HEAD,
+                                 wl + U::SIZE);
+            copy_chunked_item<U, 0>(next, wl + U::SIZE);
+          }
+        }
+        const float* item = slots + ((parity + i) & 1) * U::SLOT;
+        if constexpr (i == 0 && NH > 0) {
+#pragma unroll
+          for (int k = 0; k < MD; ++k) {
+            xa[k] = in[g * D + k];
+            xb[k] = in[(g + 8) * D + k];
+          }
+        }
+        if constexpr (i < U::NI1) {
+          // h_0's k-steps of this W1 item, whole, in the accumulators'
+          // order.
+          constexpr int s0 = i * U::KW1;
+          constexpr int s1 = s0 + U::KW1 < U::KS(0) ? s0 + U::KW1 : U::KS(0);
+          static_for<s1 - s0>([&](auto s_) {
+            constexpr int s = s0 + decltype(s_)::value;
+            float h[4];
+            maf_first_rows<U>(item, s0, head + U::HB1, xa, xb, s, t, h);
+            acc[0][s][0] = h[0];
+            acc[0][s][1] = h[2];
+            acc[0][s][2] = h[1];
+            acc[0][s][3] = h[3];
+          });
+        } else if constexpr (i < U::NI1 + U::NW) {
+          // Hidden product p's chunk c.
+          constexpr int w = i - U::NI1;
+          constexpr int p = U::product_of(w);
+          constexpr int c = w - U::item_base(p);
+          if constexpr (p == 0 && U::LEVEL == 1) {
+            maf_product_chunk<U, 0, c>(
+                item, MafFirstFragment<U>{head, xa, xb, t}, acc[1], lane);
+          } else {
+            maf_product_chunk<U, p, c>(
+                item, MafAccFragment<max_ks<U>()>{acc[p]}, acc[p + 1], lane);
+          }
+          if constexpr (c + 1 == U::wchunks(p)) {
+            // h = relu(acc + b), kept as the accumulator fragments.
+            maf_bias_relu<U::KS(p + 1)>(head + U::hbh(p), acc[p + 1], t);
+          }
+        } else {
+          constexpr int j = i - U::NI1 - U::NW;
+          constexpr int q = U::pair_of(j), c = j - U::c3_before(q);
+          if constexpr (NH == 1 && U::LEVEL == 1 && j == 0) {
+            // h_0 whole, in the accumulators' order.
+#pragma unroll
+            for (int s = 0; s < U::KS(0); ++s) {
+              float h[4];
+              maf_first_values<U>(head, xa, xb, s, t, h);
+              acc[0][s][0] = h[0];
+              acc[0][s][1] = h[2];
+              acc[0][s][2] = h[1];
+              acc[0][s][3] = h[3];
+            }
+          }
+          if constexpr (c == 0) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+#pragma unroll
+              for (int m = 0; m < U::NT; ++m) {
+                o3[e][m][0] = o3[e][m][1] = o3[e][m][2] = o3[e][m][3] = 0.f;
+              }
+            }
+          }
+          if constexpr (NH == 0) {
+            maf_chunk_products<U, q, c>(item, MafInputFragment<D>{in, g, t},
+                                        o3, lane);
+          } else {
+            maf_chunk_products<U, q, c>(
+                item, MafAccFragment<max_ks<U>()>{acc[NH - 1]}, o3, lane);
+          }
+          if constexpr (c + 1 == U::nc3(q)) {
+            // The pair's parameters plus b3 to raw, then its splines.
+            static_for<2>([&](auto e_) {
+              constexpr int e = decltype(e_)::value;
+              constexpr int dim = 2 * q + e;
+              if constexpr (dim < D) {
+                float* r = raw + e * U::G;
+#pragma unroll
+                for (int m = 0; m < U::NT; ++m) {
+                  const int col = 8 * m + 2 * t;
+                  const float2 bias = *reinterpret_cast<const float2*>(
+                      head + U::HB3 + dim * U::G + col);
+                  *reinterpret_cast<float2*>(r + g * U::PROW + col) =
+                      make_float2(o3[e][m][0] + bias.x, o3[e][m][1] + bias.y);
+                  *reinterpret_cast<float2*>(r + (g + 8) * U::PROW + col) =
+                      make_float2(o3[e][m][2] + bias.x, o3[e][m][3] + bias.y);
+                }
+              }
+            });
+            __syncwarp();
+            const int r = lane & (kMafTile - 1), dim = 2 * q + (lane >> 4);
+            if (dim < D) {
+              const float4* src = reinterpret_cast<const float4*>(
+                  raw + r * U::PROW + (lane >> 4) * U::G);
+              float par[U::P];
+#pragma unroll
+              for (int c4 = 0; c4 < U::G / 4; ++c4) {
+                const float4 v = src[c4];
+                if (4 * c4 + 0 < U::P) par[4 * c4 + 0] = v.x;
+                if (4 * c4 + 1 < U::P) par[4 * c4 + 1] = v.y;
+                if (4 * c4 + 2 < U::P) par[4 * c4 + 2] = v.z;
+                if (4 * c4 + 3 < U::P) par[4 * c4 + 3] = v.w;
+              }
+              float y, e;
+              rqs<K, true>(in[r * D + dim], par, tail_bound, y, e);
+              out[r * D + (D - 1 - dim)] = y;
+              ld += e;
+            }
+            __syncwarp();
+          }
+        }
+      });
+      float* done = in;
+      in = out;
+      out = done;
+    }
+    // A particle's dims are split over lanes r and r + 16.
+    ld += __shfl_xor_sync(0xffffffffu, ld, 16);
+    if (lane < kMafTile && base + lane < n) log_det[base + lane] = ld;
+    for (int e = lane; e < kMafTile * D; e += 32) {
+      if (base + e / D < n) z[(size_t)base * D + e] = in[e];
+    }
+    __syncwarp();
+  }
+}
 #endif
 
 template <int D, class HID, int K>
@@ -951,14 +1353,23 @@ int launch_maf(const float* x, float* z, float* ld, const float* w, int n,
   const long long weight_bytes = 4LL * n_layers * S::SIZE;
   const long long stage_bytes = 4LL * S::STAGE;
 #ifdef ASPIRE_STREAMED
-  // The streamed instance, for a flow whose layers do not fit resident.
+  // The streamed instance, for a flow whose layers do not fit resident: the
+  // streamed form, or the chunked one where its block holds no warp.
   {
-    using T = MafStream<D, HID, K>;
+    constexpr bool chunked = maf_stream_level<D, HID, K>() > 0;
+    using T = std::conditional_t<chunked, MafChunked<D, HID, K>,
+                                 MafStream<D, HID, K>>;
     long long fit = (max_smem - 4LL * T::BUFS) / (4LL * T::WSTAGE);
     const int warps = (int)(fit > kMafMaxWarps ? kMafMaxWarps : fit);
     if (warps < 1) return (int)cudaErrorInvalidConfiguration;
     const int smem = 4 * (T::BUFS + warps * T::WSTAGE);
-    auto kernel = maf_kernel_streamed<D, HID, K>;
+    void (*kernel)(const float*, float*, float*, const float*, int, int,
+                   float);
+    if constexpr (chunked) {
+      kernel = maf_kernel_chunked<D, HID, K>;
+    } else {
+      kernel = maf_kernel_streamed<D, HID, K>;
+    }
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -1035,6 +1446,29 @@ int aspire_maf_ksteps(int config, int* out, int capacity) {
 #undef ASPIRE_MAF_KSTEPS_CASE
   return -1;
 }
+
+#ifdef ASPIRE_STREAMED
+// The streamed instance's block for a configuration id: its form (0 the
+// streamed form, 1 or 2 the chunked form's level), the floats of a slot,
+// of a head, of a warp's buffer and of the slots and heads, into out (up
+// to capacity entries). Returns their number, or -1 for an unknown
+// configuration.
+int aspire_maf_stream_layout(int config, int* out, int capacity) {
+#define ASPIRE_MAF_STREAM_CASE(ID, D, HID, K)                              \
+  if (config == ID) {                                                     \
+    using H = ASPIRE_HIDDEN HID;                                          \
+    constexpr int level = aspire::maf_stream_level<D, H, K>();            \
+    using T = std::conditional_t<level != 0, aspire::MafChunked<D, H, K>, \
+                                 aspire::MafStream<D, H, K>>;             \
+    const int v[] = {level, T::SLOT, T::HEAD, T::WSTAGE, T::BUFS};        \
+    for (int e = 0; e < 5 && e < capacity; ++e) out[e] = v[e];            \
+    return 5;                                                             \
+  }
+  ASPIRE_MAF_CONFIGS(ASPIRE_MAF_STREAM_CASE)
+#undef ASPIRE_MAF_STREAM_CASE
+  return -1;
+}
+#endif
 
 // x, z: (n, D) row-major; log_det: (n,). Data -> latent only.
 // Returns the launch's cudaError_t, or -1 for an unknown configuration.

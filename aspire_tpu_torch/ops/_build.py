@@ -122,6 +122,8 @@ def load_library() -> ctypes.CDLL:
     lib.aspire_chain.restype = _I
     lib.aspire_chain_layout.argtypes = [_I, _P, _I]
     lib.aspire_chain_layout.restype = _I
+    lib.aspire_chain_plan.argtypes = [_I, _P, _I]
+    lib.aspire_chain_plan.restype = _I
     lib.aspire_maf_layer_floats.argtypes = [_I]
     lib.aspire_maf_layer_floats.restype = _I
     lib.aspire_maf_stage_floats.argtypes = [_I]
@@ -286,6 +288,8 @@ def _bind_instance(kind: str, lib: ctypes.CDLL, user) -> None:
         lib.aspire_consts_layout.restype = _I
         lib.aspire_chain_layout.argtypes = [_I, _P, _I]
         lib.aspire_chain_layout.restype = _I
+        lib.aspire_chain_plan.argtypes = [_I, _P, _I]
+        lib.aspire_chain_plan.restype = _I
         chain = [_P] * 12 + [_I] * 9 + [_P] + [_F] * 5 + [_P, _I, _P]
         if user is None:
             lib.aspire_chain.argtypes = chain

@@ -194,8 +194,8 @@ def coupling_takes(arch) -> bool:
 
 def mma_weight_buffers(arch) -> int:
     """Floats of a block's weight buffers in the tensor-core pass: two
-    whole layers, or in the wide form two resident parts and two chunks
-    (neither grows with depth)."""
+    whole layers, or in the wide form two resident parts (one where two
+    leave no warp) and two chunks (neither grows with depth)."""
     return mma_shape(arch)["bufs"]
 
 
@@ -376,7 +376,9 @@ def mma_shape(arch) -> dict:
     form pads an odd half to whole groups of two) and W1's row stride
     (``cp``), the sections and their offsets, a layer's and a warp
     buffer's floats, the wide form's resident part and chunk, and a
-    coupling kernel block's weight buffers and most warps."""
+    coupling kernel block's weight buffers and most warps. The wide form
+    holds one resident part (``one_res``) where two leave no warp beside
+    the chunks."""
     hidden = kernel_hidden(arch)
     nh = len(hidden)
     d, half, g = arch.dims, mma_half(arch), mma_group(arch)
@@ -410,7 +412,10 @@ def mma_shape(arch) -> dict:
     first = "w2" if nh >= 2 else "w3"
     res = offsets[first] if wide else 0
     chunk = max(chunks) if wide else 0
-    bufs = 2 * (res + chunk) if wide else 2 * size
+    # One resident part where two leave no warp beside the chunks.
+    one_res = wide and _MAX_BLOCK_FLOATS - 2 * (res + chunk) < stage
+    bufs = ((1 if one_res else 2) * res + 2 * chunk if wide
+            else 2 * size)
     fit = ((_MAX_BLOCK_FLOATS - bufs) // stage if stage
            else (COUPLING_WARPS if bufs <= _MAX_BLOCK_FLOATS else 0))
     return {"wide": wide,
@@ -418,7 +423,7 @@ def mma_shape(arch) -> dict:
             > 128,
             "slots": slots, "cp": cp, "sections": sections,
             "offsets": offsets, "size": size, "row": row, "stage": stage,
-            "res": res, "chunk": chunk, "bufs": bufs,
+            "res": res, "chunk": chunk, "one_res": one_res, "bufs": bufs,
             "warps": min(fit, COUPLING_WARPS)}
 
 
@@ -432,12 +437,14 @@ def mma_form(arch) -> str:
     """The coupling kernel's form at this shape, as ``chip_smoke.py``
     prints it: ``"wide"`` or ``"whole-layer"`` (``", by dim"`` where the
     output layer goes one dim at a time; ``"linear"`` with no hidden
-    layer), then its most warps a block."""
+    layer; ``", one resident part"`` where the wide form holds one),
+    then its most warps a block."""
     shape = mma_shape(arch)
     form = ("wide" if shape["wide"] else "whole-layer" if arch.n_hidden
             else "linear")
     by_dim = ", by dim" if shape["by_dim"] else ""
-    return f"{form}{by_dim}, {shape['warps']} warps"
+    one_res = ", one resident part" if shape["one_res"] else ""
+    return f"{form}{by_dim}{one_res}, {shape['warps']} warps"
 
 
 def mma_sections(arch) -> list[tuple[str, tuple]]:
@@ -923,6 +930,43 @@ def maf_resident_bytes(arch) -> int:
 _MAF_CHUNK_FRAGS = 64
 
 
+def _maf_stream_items(arch, split3: bool, stream_w1: bool) -> tuple:
+    """The floats of each item a streamed MAF layer streams (maf.cu
+    ``MafStream``), in order: with ``stream_w1`` W1 by ``kw1`` k-steps of
+    units; each hidden product's fragments by chunks of n-tiles of at most
+    64 fragments; W3's by pairs of dims, with ``split3`` each pair by
+    ``kc3`` k-steps. Returns the items' floats, the W2 chunks' count and
+    ``(kw1, kc3)``."""
+    d, g = arch.dims, maf_group(arch)
+    _, ks3 = maf_ksteps(arch)
+    hidden = tuple(arch.n_hidden)
+    kw1 = max(1, _CHUNK_FLOATS // (8 * d)) if hidden else 0
+    items = ([8 * d * min(kw1, hidden[0] // 8 - s)
+              for s in range(0, hidden[0] // 8, kw1)]
+             if stream_w1 and hidden else [])
+    w2 = []
+    for ks in maf_product_ksteps(arch):
+        j = 0
+        while j < len(ks):
+            e, f = j, 0
+            while e < len(ks) and (e == j or f + ks[e] <= _MAF_CHUNK_FRAGS):
+                f, e = f + ks[e], e + 1
+            w2.append(64 * f)
+            j = e
+    items += w2
+    nt = g // 8
+    kc3 = max(1, _MAF_CHUNK_FRAGS // (2 * nt))
+    for q in range((d + 1) // 2):
+        pair = ks3[2 * q:2 * q + 2]
+        if not split3:
+            items.append(64 * nt * sum(pair))
+            continue
+        for s in range(0, max(max(pair), 1), kc3):
+            items.append(64 * nt * sum(max(0, min(k, s + kc3) - s)
+                                       for k in pair))
+    return items, len(w2), (kw1, kc3)
+
+
 @functools.lru_cache(maxsize=None)
 def maf_stream_layout(arch) -> dict:
     """The streamed MAF form's block (maf.cu ``MafStream``): a layer's
@@ -931,35 +975,40 @@ def maf_stream_layout(arch) -> dict:
     product's fragments by chunks of n-tiles of at most 64 fragments,
     ``w2_chunks`` of them in all, then W3's by two dims), a warp's buffer
     (``stage``: its tile in and out, two dims' parameters) and the most
-    warps beside them (up to 16)."""
+    warps beside them (up to 16). Where that leaves no warp, each pair of
+    dims' W3 streams by ``kc3`` k-steps (``split3``); where that leaves
+    none either, W1 streams too, by ``kw1`` k-steps of units, and the head
+    keeps the biases alone (``stream_w1``): ``level`` 0, 1 or 2, as
+    maf.cu's ``maf_stream_level``."""
     d, g = arch.dims, maf_group(arch)
-    _, ks3 = maf_ksteps(arch)
+    hidden = tuple(arch.n_hidden)
     offsets, _ = _offsets(maf_sections(arch))
-    chunks = []
-    for ks in maf_product_ksteps(arch):
-        j = 0
-        while j < len(ks):
-            e, f = j, 0
-            while e < len(ks) and (e == j or f + ks[e] <= _MAF_CHUNK_FRAGS):
-                f, e = f + ks[e], e + 1
-            chunks.append(64 * f)
-            j = e
-    w2_chunks = len(chunks)
-    chunks += [64 * (g // 8) * sum(ks3[2 * q:2 * q + 2])
-               for q in range((d + 1) // 2)]
-    slot = _round4(max(chunks))
-    first = offsets["w2" if len(arch.n_hidden) >= 2 else "w3"]
-    head = _round4(first + sum(arch.n_hidden[1:]) + d * g)
     stage = 2 * _round4(16 * d) + 16 * (2 * g + 4)
-    bufs = 2 * slot + 2 * head
-    return {"slot": slot, "head": head, "w2_chunks": w2_chunks,
-            "stage": stage, "bufs": bufs,
-            "warps": min((_MAX_BLOCK_FLOATS - bufs) // stage, 16)}
+    for split3, stream_w1 in ((False, False), (True, False), (True, True)):
+        items, w2_chunks, (kw1, kc3) = _maf_stream_items(arch, split3,
+                                                        stream_w1)
+        slot = _round4(max(items))
+        if stream_w1:
+            head = _round4(sum(hidden) + d * g)
+        else:
+            first = offsets["w2" if len(hidden) >= 2 else "w3"]
+            head = _round4(first + sum(hidden[1:]) + d * g)
+        bufs = 2 * slot + 2 * head
+        warps = min((_MAX_BLOCK_FLOATS - bufs) // stage, 16)
+        if warps >= 1:
+            break
+    return {"level": int(split3) + int(stream_w1), "slot": slot,
+            "head": head, "w2_chunks": w2_chunks,
+            "split3": split3, "stream_w1": stream_w1,
+            "kc3": kc3 if split3 else 0, "kw1": kw1 if stream_w1 else 0,
+            "stage": stage, "bufs": bufs, "warps": warps}
 
 
 def maf_form(arch) -> str:
     """``"resident"`` where every layer's weights fit one block beside a
-    warp's buffer (the prebuilt form), else ``"streamed"``."""
+    warp's buffer (the prebuilt form), else ``"streamed"`` (the streamed
+    or, at :func:`maf_stream_layout`'s level 1 or 2, the chunked form of
+    the streamed instance)."""
     return ("resident" if maf_resident_bytes(arch) <= MAX_SHARED_BYTES
             else "streamed")
 
@@ -976,13 +1025,15 @@ def maf_shared_bytes(arch) -> int:
 def maf_takes(arch) -> bool:
     """Whether the MAF kernel takes the flow: what the JAX package's
     ``should_fuse_maf`` takes (RQS, twice its weight bytes within 8 MB,
-    and ``should_fuse``'s bounds), where a block of its form fits one
-    SM."""
-    return (isinstance(arch, MAF) and arch.transformer == "rqs"
+    and ``should_fuse``'s bounds), where a block of its form fits one SM
+    (every such flow since the chunked form)."""
+    if not (isinstance(arch, MAF) and arch.transformer == "rqs"
             and _reference_takes(arch) and arch.dims >= 2
-            and 2 * reference_weight_bytes(arch) <= MAX_WEIGHT_BYTES
-            and (maf_form(arch) == "resident"
-                 or maf_stream_layout(arch)["warps"] >= 1))
+            and 2 * reference_weight_bytes(arch) <= MAX_WEIGHT_BYTES):
+        return False
+    karch = kernel_arch(arch)
+    return (maf_form(karch) == "resident"
+            or maf_stream_layout(karch)["warps"] >= 1)
 
 
 def should_fuse_maf(arch, x: torch.Tensor) -> bool:

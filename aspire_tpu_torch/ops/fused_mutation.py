@@ -9,7 +9,10 @@ packed layout of the coupling kernel (:func:`prepare_chain_params` is
 weights); this module checks the packing against the library's and
 launches. A shape in the wide form (``fused_coupling.mma_wide``, BASELINE
 config 5's d = 32 flow) keeps its chain state in shared memory and its
-per-particle running sums in a scratch tensor the wrapper allocates. :func:`chain_plain` is the same algorithm in
+per-particle running sums in a scratch tensor the wrapper allocates; where
+that block does not fit, its plan (:func:`chain_wide_plan`) moves the
+state, then the particle rows, to the scratch tensor and holds one
+resident part of a layer. :func:`chain_plain` is the same algorithm in
 torch: the version a CPU tensor runs and the one the kernel is held
 against on the card.
 
@@ -533,8 +536,10 @@ def kernel_supports(cfg: ChainConfig, target_id=None,
     ``_fused_chain_spec``) unless ``forced`` (``fused_chain=True``), a
     coupling flow the coupling kernel takes (``FC.coupling_takes``: the
     JAX package's ``should_fuse``) whose chain block fits one SM
-    (:func:`chain_shared_bytes`), a kernel of ``KERNELS``, and (given) an
-    in-kernel target id or a :class:`UserTarget` (built for any shape)."""
+    (:func:`chain_shared_bytes`: every such flow since the wide block's
+    levels, :func:`chain_wide_plan`), a kernel of ``KERNELS``, and
+    (given) an in-kernel target id or a :class:`UserTarget` (built for any
+    shape)."""
     arch = cfg.arch
     return ((forced or FC.fused_enabled())
             and isinstance(arch, Coupling) and FC.coupling_takes(arch)
@@ -562,12 +567,20 @@ def chain_resident(arch) -> bool:
         + 2 * warps + warps * layout[8]) <= FC.MAX_SHARED_BYTES
 
 
+#: the wide chain's block at each level of :func:`chain_wide_plan`, as
+#: :func:`chain_form` names it
+_WIDE_LEVELS = ("wide", "wide, state in global memory",
+                "wide, state in global memory, one resident part",
+                "wide, state and particle rows in global memory, one "
+                "resident part")
+
+
 def chain_form(arch) -> str:
     """The chain kernel's form for the flow, as ``chip_smoke.py`` prints
-    it: ``"wide"``, ``"whole-layer, resident"`` or ``"whole-layer,
-    streamed"``."""
+    it: ``"wide"`` (with its block's level past 0, :func:`chain_wide_plan`),
+    ``"whole-layer, resident"`` or ``"whole-layer, streamed"``."""
     if FC.mma_wide(arch):
-        return "wide"
+        return _WIDE_LEVELS[chain_wide_plan(arch)["level"]]
     return "whole-layer, " + ("resident" if chain_resident(arch)
                               else "streamed")
 
@@ -687,18 +700,47 @@ def chain_consts(d: int, ref_mean, ref_chol, ref_ichol, dt_block, pc_block,
     return torch.nn.functional.pad(flat, (0, size - flat.numel())).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def chain_wide_plan(arch) -> dict:
+    """The wide chain block (csrc/chain.cu ``ChainWide``), at the first of
+    these levels whose block fits one SM (the last where none does): 0
+    the shape's stream (``FC.mma_shape``), the chain state's two ``(d,
+    TILE)`` arrays and the warps' particle rows (``32 (d + 1)`` floats a
+    warp) in shared memory; 1 the state arrays in global memory (the
+    wrapper's scratch, per tile); 2 also one resident part of a layer
+    (``one_res``); 3 also the particle rows in global memory. Returns the
+    level, the floats in shared memory of the state arrays, the resident
+    buffers, the chunk and a warp's buffer, and the block's floats."""
+    shape = FC.mma_shape(arch)
+    warps = TILE // 32
+    res, chunk = shape["res"], shape["chunk"]
+    for level in range(4):
+        state = 2 * arch.dims * TILE if level == 0 else 0
+        one_res = shape["one_res"] or level >= 2
+        stage = shape["stage"] - (32 * (arch.dims + 1) if level == 3 else 0)
+        res_bufs = (1 if one_res else 2) * res
+        floats = (consts_layout(arch.dims)[-1] + 2 * warps + state + res_bufs
+                  + 2 * chunk + warps * stage)
+        if 4 * floats <= FC.MAX_SHARED_BYTES:
+            break
+    return {"level": level, "state": state, "one_res": one_res,
+            "res_bufs": res_bufs, "chunk": chunk, "stage": stage,
+            "floats": floats}
+
+
 def chain_shared_bytes(arch, consts_floats: int) -> int:
     """Shared memory of a chain kernel block: the constant block, two
     rows of tile-sum scratch, a warp buffer per warp, and every layer's
     weights (two layer buffers where they do not all fit:
-    :func:`chain_resident`), or in the wide form two ``(d, TILE)`` state
-    arrays and the weight stream's buffers (:func:`FC.mma_weight_buffers`)."""
+    :func:`chain_resident`), or in the wide form its plan's state arrays
+    and weight stream's buffers (:func:`chain_wide_plan`)."""
     layout = chain_layout(arch)
     warps = TILE // 32
     if FC.mma_wide(arch):
-        state = 2 * arch.dims * TILE + FC.mma_weight_buffers(arch)
-    else:
-        state = (arch.n_layers if chain_resident(arch) else 2) * layout[0]
+        plan = chain_wide_plan(arch)
+        return 4 * (plan["state"] + plan["res_bufs"] + 2 * plan["chunk"]
+                    + consts_floats + 2 * warps + warps * plan["stage"])
+    state = (arch.n_layers if chain_resident(arch) else 2) * layout[0]
     return 4 * (state + consts_floats + 2 * warps + warps * layout[8])
 
 
@@ -711,6 +753,30 @@ def _chain_library_layout(lib, cfg: int) -> tuple[int, ...]:
     if not 0 <= count <= len(out):
         raise RuntimeError(f"chain configuration {cfg} has no layout table")
     return tuple(out[:count])
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_library_plan(lib, cfg: int) -> tuple[int, ...]:
+    """Library ``lib``'s wide chain block of configuration ``cfg``
+    (``aspire_chain_plan``: the level and the block's floats; ``(-1, 0)``
+    for the whole-layer form), read once per process."""
+    out = (ctypes.c_int * 2)()
+    if lib.aspire_chain_plan(cfg, out, len(out)) != 2:
+        raise RuntimeError(f"chain configuration {cfg} has no block plan")
+    return tuple(out)
+
+
+def chain_scratch_floats(arch, n: int) -> int:
+    """Floats of the wide chain's scratch at n particles: the statistics'
+    running sums ``(3, d, n)``, then at :func:`chain_wide_plan`'s level 1
+    or more the state arrays ``(2, d, n)`` (per tile ``(2, d, TILE)``), at
+    level 3 the particle rows ``(n, d + 1)``; 0 for the whole-layer
+    form."""
+    if not FC.mma_wide(arch):
+        return 0
+    level, d = chain_wide_plan(arch)["level"], arch.dims
+    return (3 * d * n + (2 * d * n if level >= 1 else 0)
+            + ((d + 1) * n if level >= 3 else 0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -795,6 +861,11 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
     if _consts_library_layout(chain_lib, d) != consts_layout(d):
         raise RuntimeError("chain constant block disagrees with the kernel "
                            "library")
+    plan = chain_wide_plan(arch)
+    if _chain_library_plan(chain_lib, cid) != (
+            (plan["level"], plan["floats"]) if FC.mma_wide(arch) else (-1, 0)):
+        raise RuntimeError("wide chain block disagrees with the kernel "
+                           "library")
     weights = FC.packed_coupling_params(arch, params, z0.device)
     smem = chain_shared_bytes(arch, consts_layout(d)[-1])
     if smem > lib.aspire_max_shared_bytes():
@@ -820,9 +891,10 @@ def fused_mh_chain(cfg: ChainConfig, params: dict, z0: torch.Tensor, beta,
                                      device=z0.device) for _ in range(4))
     stats = torch.empty((nt, 4 * d + 1), dtype=torch.float32,
                         device=z0.device)
-    # The wide form's per-particle running sums (3, d, n).
-    scratch = (torch.empty(3 * d * n, dtype=torch.float32, device=z0.device)
-               if FC.mma_wide(arch) else None)
+    # The wide form's per-particle running sums, and its plan's state.
+    floats = chain_scratch_floats(arch, n)
+    scratch = (torch.empty(floats, dtype=torch.float32, device=z0.device)
+               if floats else None)
     launch = chain_lib.aspire_chain_user if user else chain_lib.aspire_chain
     with torch.cuda.device(z0.device):
         code = launch(

@@ -150,7 +150,14 @@ main paths (6, 7, 8) right after the build:
    and maf-rqs at those two depths (anchors at n = 8192 held to the
    analytic rule, pipelines at n = 131072 on both ladders, nsf-tpu's on
    both routes); the realnvp, Rosenbrock, funnel and maf-rqs rows at
-   n = 8192 with their launches and log Z;
+   n = 8192 with their launches and log Z; the corner forms
+   (``corner_instances``: B1/B3 with one resident part, B2's wide block
+   with its state in global memory, B4's chunked form) each against plain
+   at the card rule and timed, the main path at maf-rqs 4 x (256, 256),
+   20 bins (d = 4, the anchor held to the analytic rule, the pipeline on
+   both ladders) and at config 5's flow at 20 bins on the 32-d mixture
+   (whole-chain and split routes agreeing), and the other corners through
+   a user's entry points;
 12. print kernel and plain times, each kernel's bound, the kernels JSON
    line and the result line. A time is device time: one CUDA-event pair
    around 20 back-to-back calls after a warm-up (cuda_ms); the earlier
@@ -255,6 +262,23 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plain_once_ms(fn) -> float:
+    """Device time of one call with no warm-up, one CUDA-event pair: the
+    plain chain's time (0.3-12 s a call at the sizes timed), where a
+    warm-up call and repeats would cost the script seconds each and change
+    the reading by the first call's allocations only."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def cuda_ms_single(fn, reps: int = 20) -> float:
@@ -1345,7 +1369,7 @@ def time_chain(device, n: int, steps: int) -> dict:
     out = {
         "ms": cuda_ms(kernel),
         "ms_single_call": cuda_ms_single(kernel),
-        "plain_ms": cuda_ms(lambda: FM.chain_plain(
+        "plain_ms": plain_once_ms(lambda: FM.chain_plain(
             cfg, params, z0, beta, step0, *refs, target,
             data_transform=dt, seed=seed)),
     }
@@ -2379,9 +2403,9 @@ def time_chain_programs(device, n: int, steps: int) -> dict:
         kernel_ms_later(out[kind], "kernel_ms", call(kind), "chain_kernel",
                         reps=5)
     cfg, params, z0, beta, step0, refs, target, dt, _, pc = runs["logit"]
-    out["logit"]["plain_ms"] = cuda_ms(lambda: FM.chain_plain(
+    out["logit"]["plain_ms"] = plain_once_ms(lambda: FM.chain_plain(
         cfg, params, z0, beta, step0, *refs, target, data_transform=dt,
-        precond=pc, seed=(1, 2)), reps=3)
+        precond=pc, seed=(1, 2)))
     log(f"B2 with each program in turns with affine-only, n={n}: {out}")
     return out
 
@@ -2622,9 +2646,9 @@ def validate_kernels(device, row: str, n: int, n_chain: int,
 
     out["chain_ms"] = cuda_ms(chain)
     out["chain_ms_single_call"] = cuda_ms_single(chain)
-    out["chain_plain_ms"] = cuda_ms(lambda: FM.chain_plain(
+    out["chain_plain_ms"] = plain_once_ms(lambda: FM.chain_plain(
         cfg, cparams, z0, beta, step0, *refs, target, data_transform=dt,
-        seed=(1, 2)), 3)
+        seed=(1, 2)))
     kernel_ms_later(out, "chain_kernel_ms", chain, "chain_kernel", reps=5)
     out["chain_program_level"] = FM.program_level(dt, None)
     torch.cuda.synchronize()
@@ -3353,9 +3377,9 @@ def user_chain_times(device, n: int) -> dict:
         kernel_ms_later(out[kind], "kernel_ms", call(kind), "chain_kernel",
                         reps=5)
     cfg, params, z0, beta, step0, refs, target, dt, _, _ = runs["user"]
-    out["user"]["plain_ms"] = cuda_ms(lambda: FM.chain_plain(
+    out["user"]["plain_ms"] = plain_once_ms(lambda: FM.chain_plain(
         cfg, params, z0, beta, step0, *refs, target, data_transform=dt,
-        seed=(1, 2)), reps=3)
+        seed=(1, 2)))
     log(f"B2 on the user target in turns with the mixture, n={n}: {out}")
     return out
 
@@ -3582,6 +3606,11 @@ GRADIENT_PIPELINES = {
     "emcee_smc": ({"n_steps": 10}, {"coupling": 22, "chain": 0, "maf": 0}),
 }
 
+#: the pipelines above whose runs take seconds (1.5-1.9 s at 131072): their
+#: ladder turns skip the warm-up pair (the device ladder's capture in its
+#: first run) for the script's time
+LONG_GRADIENT_PIPELINES = ("mala_smc", "hmc_smc")
+
 #: NUTS at 131072 (the host ladder): its chain and tree depth cut (the
 #: chain from 2 steps to 1 for the script's time)
 NUTS_PIPELINE = {"n_steps": 1, "max_depth": 4}
@@ -3668,8 +3697,9 @@ def baseline_config3(device) -> dict:
 def maf_gradient_pipeline(device, n: int) -> dict:
     """maf-rqs, fitted as ``phase_maf_main_path`` fits it, with
     ``mala_smc`` at n (``GRADIENT_PIPELINES``' chain) on the device ladder
-    in turns with the host ladder, two runs each: every value of its
-    chains on B4, the launches a rung its capture counted."""
+    in turns with the host ladder, one run each (no warm-up pair: the
+    device run captures its ladder): every value of its chains on B4, the
+    launches a rung its capture counted."""
     import numpy as np
 
     from aspire_tpu_torch import Aspire, Samples
@@ -3685,7 +3715,7 @@ def maf_gradient_pipeline(device, n: int) -> dict:
     per_rung = {"coupling": 0, "chain": 0, "maf": per_rung["coupling"]}
     run = dict(sampler="mala_smc", n_samples=n, store_sample_history=False,
                sampler_kwargs=kw)
-    ladders = ladder_turns(asp, run, {"maf": per_rung["maf"]},
+    ladders = ladder_turns(asp, run, {"maf": per_rung["maf"]}, warm=False,
                            turns=("device", "host"))
     on_card = device.type == "cuda"
     (_, lad), = asp.ladder_cache.values() if on_card else ((None, None),)
@@ -3771,10 +3801,12 @@ def phase_gradient_samplers(device, n_anchor: int, n_pipeline: int) -> dict:
         run = dict(sampler=name, n_samples=n_pipeline,
                    store_sample_history=False, sampler_kwargs=kw)
         # Two turns (RWMH and the stretch move took six before, cut for
-        # the script's time).
+        # the script's time); MALA's and HMC's (1.5-1.9 s a run) without
+        # the warm-up pair, the first device run capturing its ladder.
         turns = ("device", "host")
         ladders = ladder_turns(asp, run, {k: v for k, v in per_rung.items()
-                                          if v}, turns=turns)
+                                          if v}, turns=turns,
+                               warm=name not in LONG_GRADIENT_PIPELINES)
         (_, lad), = (asp.ladder_cache.values() if on_card
                      else ((None, None),))
         captured = captured_launches(lad) if on_card else None
@@ -6371,9 +6403,9 @@ def phase_hierarchical(device) -> dict:
         chain["ms" + key] = cuda_ms(kernel, reps)
         chain["ms_single_call" + key] = cuda_ms_single(kernel, reps)
         if n == N_HIER_ROUTES:
-            chain["plain_ms"] = cuda_ms(lambda: FM.chain_plain(
+            chain["plain_ms"] = plain_once_ms(lambda: FM.chain_plain(
                 cfg, cparams, z0, 0.7, step0, *refs, target,
-                data_transform=dt, seed=(1, 2)), 1)
+                data_transform=dt, seed=(1, 2)))
     out["chain_times"] = chain
     log(f"config 5 kernel times: {times}, chain {chain}")
     return out
@@ -6453,8 +6485,8 @@ def user_instances(device) -> dict:
 
 
 def start_builds(device) -> dict:
-    """Build every instance of ``shapes_instances`` and of
-    ``user_instances`` cold (any cached build removed first), all at
+    """Build every instance of ``shapes_instances``, ``corner_instances``
+    and ``user_instances`` cold (any cached build removed first), all at
     once, each nvcc on a thread of its own at the lowest priority, while
     the earlier phases run; each one's seconds (or its error) in
     ``_SHAPES_BUILDS``. Returns the threads by instance name."""
@@ -6475,7 +6507,8 @@ def start_builds(device) -> dict:
             _SHAPES_BUILDS[name] = {"error": repr(err)}
 
     builds = {**{name: (kind, row, None) for name, (kind, _, row)
-                 in shapes_instances().items()},
+                 in {**shapes_instances(), **corner_instances(),
+                     **corner_draw_instances()}.items()},
               **{name: (kind, row, source) for name, (kind, _, row, source)
                  in user_instances(device).items()}}
     threads = {name: threading.Thread(target=one, args=(name, *b),
@@ -6499,23 +6532,35 @@ def built(threads: dict, name: str) -> dict:
     return result
 
 
-def shapes_builds(threads: dict) -> dict:
-    """Wait for ``start_builds``' threads of ``shapes_instances``; raise
-    with nvcc's message where a build failed. Per instance: its cold
-    seconds, its cached seconds (the same build again: the sources
-    hashed, the library found), its form and its kernels' ptxas registers
-    and spills."""
+def maf_form_text(arch) -> str:
+    """B4's form as ``phase_shapes`` prints it: ``FC.maf_form``, and the
+    chunked form's level where the streamed instance takes it."""
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    form = FC.maf_form(arch)
+    level = (FC.maf_stream_layout(FC.kernel_arch(arch))["level"]
+             if form == "streamed" else 0)
+    return f"{form}, chunked level {level}" if level else form
+
+
+def shapes_builds(threads: dict, instances: dict | None = None) -> dict:
+    """Wait for ``start_builds``' threads of ``instances`` (by default
+    ``shapes_instances``); raise with nvcc's message where a build failed.
+    Per instance: its cold seconds, its cached seconds (the same build
+    again: the sources hashed, the library found), its form and its
+    kernels' ptxas registers and spills."""
     from aspire_tpu_torch.ops import _build
     from aspire_tpu_torch.ops import fused_coupling as FC
     from aspire_tpu_torch.ops import fused_mutation as FM
 
+    instances = instances or shapes_instances()
     t0 = time.perf_counter()
-    for name in shapes_instances():
+    for name in instances:
         threads[name].join()
     out = {"waited_s": time.perf_counter() - t0}
     forms = {"coupling": FC.mma_form, "chain": FM.chain_form,
-             "maf": FC.maf_form}
-    for name, (kind, arch, row) in shapes_instances().items():
+             "maf": maf_form_text}
+    for name, (kind, arch, row) in instances.items():
         t0 = time.perf_counter()
         path = _build.build_instance(kind, row)
         form = forms[kind.split("_")[0]](arch)
@@ -6528,20 +6573,24 @@ def shapes_builds(threads: dict) -> dict:
     return out
 
 
-def shapes_coupling_checks(device, n: int) -> dict:
-    """B1/B3 of each coupling instance against plain at n (float64
-    arbitration), timed (events, single calls, alone) with plain torch
-    beside, and its bound. At hidden depths other than two the round trip
-    (B3 of the plain path's latents) is held to float64's inverse of the
-    same latents, the input deciding; its reading against the input alone
-    (the older rows' gate) is reported beside it."""
+def shapes_coupling_checks(device, n: int,
+                           instances: dict | None = None) -> dict:
+    """B1/B3 of each coupling instance of ``instances`` (by default
+    ``shapes_instances``) against plain at n (float64 arbitration), timed
+    (events, single calls, alone) with plain torch beside, and its bound.
+    At hidden depths other than two the round trip (B3 of the plain path's
+    latents) is held to float64's inverse of the same latents, the input
+    deciding; its reading against the input alone (the older rows' gate)
+    is reported beside it. Each flow is perturbed by SHAPES_SCALE, or by
+    its scale in CORNER_SCALES."""
     from aspire_tpu_torch.ops import fused_coupling as FC
 
     out = {}
-    for name, (kind, arch, _) in shapes_instances().items():
+    for name, (kind, arch, _) in (instances or shapes_instances()).items():
         if kind != "coupling":
             continue
-        c = coupling_outputs(device, (arch, 21, SHAPES_SCALE), n, 1)
+        c = coupling_outputs(device, (arch, 21, CORNER_SCALES.get(
+            name, SHAPES_SCALE)), n, 1)
         outputs, strict = c["outputs"], {}
         if len(arch.n_hidden) != 2:
             # At depths other than two the round trip is held to float64's
@@ -6585,12 +6634,15 @@ def shapes_coupling_checks(device, n: int) -> dict:
     return out
 
 
-def shapes_chain_checks(device, n: int, n_time: int) -> dict:
-    """B2 of each chain instance against the plain chain on its row's
-    target (``shapes_chain_setup``) on injected, nudged noise at n x
-    CHAIN_STEPS; at d = SHAPES_DIMS also its Philox stream against the
-    same stream injected, bit for bit; each timed at ``n_time`` (events,
-    single calls, alone) with the plain chain beside, and its bound."""
+def shapes_chain_checks(device, n: int, n_time: int,
+                        instances: dict | None = None) -> dict:
+    """B2 of each chain instance of ``instances`` (by default
+    ``shapes_instances``) against the plain chain on its row's target
+    (``shapes_chain_setup``) on injected, nudged noise at n x
+    CHAIN_STEPS; at d = SHAPES_DIMS (every instance given) also its
+    Philox stream against the same stream injected, bit for bit; each
+    timed at ``n_time`` (events, single calls, alone) with the plain chain
+    beside, and its bound."""
     import torch
 
     from aspire_tpu_torch.models import FunnelProblem, RosenbrockProblem
@@ -6599,7 +6651,7 @@ def shapes_chain_checks(device, n: int, n_time: int) -> dict:
     problems = {"B2 nsf-tpu d=10": FunnelProblem(),
                 "B2 nsf d=4, ids 1-5": RosenbrockProblem(dims=4)}
     out = {}
-    for name, (kind, arch, _) in shapes_instances().items():
+    for name, (kind, arch, _) in (instances or shapes_instances()).items():
         if not kind.startswith("chain"):
             continue
         problem = problems.get(name)
@@ -6611,7 +6663,7 @@ def shapes_chain_checks(device, n: int, n_time: int) -> dict:
              "GaussianMixtureProblem",
              **chain_bound(arch, n_time, CHAIN_STEPS)}
         cfg, params, z0, beta, step0, refs, target, dt, _ = setup
-        if arch.dims == SHAPES_DIMS:
+        if arch.dims == SHAPES_DIMS or instances is not None:
             seed = (0x12345678, 0x9ABCDEF0)
             drawn = FM.fused_mh_chain(cfg, params, z0, beta, seed, step0,
                                       *refs, target, data_transform=dt)
@@ -6638,36 +6690,38 @@ def shapes_chain_checks(device, n: int, n_time: int) -> dict:
 
             v["ms"] = cuda_ms(chain, 5)
             v["ms_single_call"] = cuda_ms_single(chain, 5)
-            v["plain_ms"] = cuda_ms(lambda: FM.chain_plain(
+            v["plain_ms"] = plain_once_ms(lambda: FM.chain_plain(
                 cfg, params, z0, beta, step0, *refs, target,
-                data_transform=dt, seed=(1, 2)), 1)
+                data_transform=dt, seed=(1, 2)))
             kernel_ms_later(v, "kernel_ms", chain, "chain_kernel", reps=3)
         out[name] = v
         log(f"{name} against the plain chain at n={n}: {v}")
     return out
 
 
-def shapes_maf_check(device, n: int) -> dict:
+def shapes_maf_check(device, n: int, instances: dict | None = None) -> dict:
     """B4 of each MAF instance (maf-rqs at d = SHAPES_DIMS, 4 layers,
     (64, 64) and (64, 64, 64), 8 bins: the streamed form; at d = 4 at the
     other depths: resident) against plain at n and at N_CHAIN + 37 (a
     ragged last tile), float64 arbitration; timed at n with plain torch
-    beside, and its bound."""
+    beside, and its bound. Each flow is perturbed by SHAPES_SCALE, or by
+    its scale in CORNER_SCALES."""
     import torch
 
     from aspire_tpu_torch.ops import fused_coupling as FC
 
     outs = {}
-    for name, (kind, arch, _) in shapes_instances().items():
+    for name, (kind, arch, _) in (instances or shapes_instances()).items():
         if not kind.startswith("maf"):
             continue
-        arch, params = perturbed_flow(device, 22, arch, SHAPES_SCALE)
+        arch, params = perturbed_flow(device, 22, arch, CORNER_SCALES.get(
+            name, SHAPES_SCALE))
         params64 = as_float64(params)
         gen = torch.Generator(device=device)
         gen.manual_seed(23)
         fp32_flop, tensor_flop = maf_flop(arch)
         out = {"max_abs_err": 0.0, "ill_conditioned_points": 0,
-               "form": FC.maf_form(arch),
+               "form": maf_form_text(arch),
                **bound(n * fp32_flop, density_bytes(
                    arch, n, 4 * arch.n_layers * FC.maf_layer_floats(arch)),
                    tensor_flop=n * tensor_flop)}
@@ -6774,18 +6828,20 @@ def shapes_main_path(device, n: int) -> dict:
     return out
 
 
-def depth_paths(device, n_anchor: int, n_pipeline: int) -> dict:
-    """The main path at the hidden depths of DEPTHS, on the JAX package's
-    ``bench.py`` problem unchanged (the 4-d mixture, 4000 initial draws, a
-    20-epoch fit, 20-step tpCN): per depth an nsf-tpu flow (3 layers, 8
-    bins) and a maf-rqs flow at those widths. Each anchor at ``n_anchor``
-    holds the analytic rule (``check_result``), with its launch counts:
-    nsf-tpu every mutation on B2 (one launch each), its draws on B3;
-    maf-rqs every mutation on the split chain, its density passes on B4
-    (>= CHAIN_STEPS + 2 a mutation). Then the pipelines at ``n_pipeline``:
-    nsf-tpu's ``route_pipelines`` (the device ladder in turns with the host
-    ladder, whole-chain and split routes), maf-rqs's device ladder in turns
-    with the host ladder (B4 CHAIN_STEPS + 2 a rung)."""
+def depth_row(device, label: str, backend: str, shape: dict, n_anchor: int,
+              n_pipeline: int) -> dict:
+    """The main path on the JAX package's ``bench.py`` problem unchanged
+    (the 4-d mixture, 4000 initial draws, a 20-epoch fit, 20-step tpCN)
+    with an nsf-tpu (3 layers, 8 bins) or maf-rqs flow of ``shape`` (its
+    ``n_hidden``, and any other architecture fields given). The anchor at
+    ``n_anchor`` holds the analytic rule (``check_result``), with its
+    launch counts: nsf-tpu every mutation on B2 (one launch each), its
+    draws on B3; maf-rqs every mutation on the split chain, its density
+    passes on B4 (>= CHAIN_STEPS + 2 a mutation). Then the pipeline at
+    ``n_pipeline``: nsf-tpu's ``route_pipelines`` (the device ladder in
+    turns with the host ladder, whole-chain and split routes), maf-rqs's
+    device ladder in turns with the host ladder (B4 CHAIN_STEPS + 2 a
+    rung)."""
     import numpy as np
 
     from aspire_tpu_torch import Aspire, Samples
@@ -6794,55 +6850,57 @@ def depth_paths(device, n_anchor: int, n_pipeline: int) -> dict:
     p = GaussianMixtureProblem(dims=4)
     truth = p.true_log_evidence()
     init = Samples(p.draw_initial_samples(np.random.default_rng(42), 4000))
-    out = {}
-    for key, hidden in DEPTHS.items():
-        for backend, route in (("nsf-tpu", "fused_kernel"),
-                               ("maf-rqs", "split")):
-            label = f"{backend} {key}"
-            kw = (dict(flow_backend="nsf", architecture="nsf-tpu")
-                  if backend == "nsf-tpu" else dict(flow_backend="maf-rqs"))
-            asp = Aspire(log_likelihood=p.log_likelihood,
-                         log_prior=p.log_prior, dims=4,
-                         parameters=p.parameters, n_hidden=hidden, seed=1,
-                         device=device, **kw)
-            t0 = time.perf_counter()
-            asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
-            if tuple(asp.flow.architecture.n_hidden) != hidden:
-                raise AssertionError(f"{label}: flow "
-                                     f"{asp.flow.architecture}")
-            v = {"fit_s": time.perf_counter() - t0, "truth": truth,
-                 "architecture": repr(asp.flow.architecture)}
-            v["anchor"] = a = shapes_anchor(asp, n_anchor, route)
-            counts, muts = a["launches"], a["n_mutations"]
-            if device.type == "cuda" and (
-                    (route == "fused_kernel" and (counts["chain"] != muts
-                                                  or a["b3"] < 1))
-                    or (route == "split" and counts["maf"] < (
-                        CHAIN_STEPS + 2) * muts)):
-                raise AssertionError(f"{label}: launches {counts}, B3 "
-                                     f"{a['b3']} for {muts} mutations")
-            a["analytic_rule"] = analytic_rule(a["log_z"], a["log_z_err"],
-                                               truth)
-            if not a["analytic_rule"]:
-                raise AssertionError(f"{label} anchor misses the analytic "
-                                     f"evidence {truth}: {a}")
-            if backend == "nsf-tpu":
-                v.update(route_pipelines(asp, n_pipeline, truth, label))
-            else:
-                run = dict(sampler="smc", n_samples=n_pipeline,
-                           store_sample_history=False,
-                           sampler_kwargs=dict(n_steps=CHAIN_STEPS))
-                v["pipeline"] = ladder_turns(asp, run,
-                                             {"maf": CHAIN_STEPS + 2},
-                                             turns=SHAPES_TURNS)
-                v["pipeline"]["analytic"] = {
-                    ladder: analytic_rule(v["pipeline"][f"{pre}log_z"],
-                                          v["pipeline"][f"{pre}log_z_err"],
-                                          truth)
-                    for ladder, pre in (("device", ""), ("host", "host_"))}
-            out[label] = v
-            log(f"{label} at d=4: {v}")
-    return out
+    route = "fused_kernel" if backend == "nsf-tpu" else "split"
+    kw = (dict(flow_backend="nsf", architecture="nsf-tpu")
+          if backend == "nsf-tpu" else dict(flow_backend="maf-rqs"))
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=4, parameters=p.parameters, seed=1, device=device,
+                 **shape, **kw)
+    t0 = time.perf_counter()
+    asp.fit(init, n_epochs=20, batch_size=512, learning_rate=3e-3)
+    arch = asp.flow.architecture
+    if any(getattr(arch, k) != (tuple(v) if isinstance(v, tuple) else v)
+           for k, v in shape.items()):
+        raise AssertionError(f"{label}: flow {arch}")
+    v = {"fit_s": time.perf_counter() - t0, "truth": truth,
+         "architecture": repr(arch)}
+    v["anchor"] = a = shapes_anchor(asp, n_anchor, route)
+    counts, muts = a["launches"], a["n_mutations"]
+    if device.type == "cuda" and (
+            (route == "fused_kernel" and (counts["chain"] != muts
+                                          or a["b3"] < 1))
+            or (route == "split" and counts["maf"] < (
+                CHAIN_STEPS + 2) * muts)):
+        raise AssertionError(f"{label}: launches {counts}, B3 "
+                             f"{a['b3']} for {muts} mutations")
+    a["analytic_rule"] = analytic_rule(a["log_z"], a["log_z_err"], truth)
+    if not a["analytic_rule"]:
+        raise AssertionError(f"{label} anchor misses the analytic "
+                             f"evidence {truth}: {a}")
+    if backend == "nsf-tpu":
+        v.update(route_pipelines(asp, n_pipeline, truth, label))
+    else:
+        run = dict(sampler="smc", n_samples=n_pipeline,
+                   store_sample_history=False,
+                   sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+        v["pipeline"] = ladder_turns(asp, run, {"maf": CHAIN_STEPS + 2},
+                                     turns=SHAPES_TURNS)
+        v["pipeline"]["analytic"] = {
+            ladder: analytic_rule(v["pipeline"][f"{pre}log_z"],
+                                  v["pipeline"][f"{pre}log_z_err"], truth)
+            for ladder, pre in (("device", ""), ("host", "host_"))}
+    log(f"{label} at d=4: {v}")
+    return v
+
+
+def depth_paths(device, n_anchor: int, n_pipeline: int) -> dict:
+    """``depth_row`` at the hidden depths of DEPTHS, each an nsf-tpu flow
+    and a maf-rqs flow at those widths."""
+    return {f"{backend} {key}": depth_row(device, f"{backend} {key}",
+                                          backend, {"n_hidden": hidden},
+                                          n_anchor, n_pipeline)
+            for key, hidden in DEPTHS.items()
+            for backend in ("nsf-tpu", "maf-rqs")}
 
 
 def depth_wide_runs(device, n_chain: int, n: int) -> dict:
@@ -6897,16 +6955,191 @@ def depth_wide_runs(device, n_chain: int, n: int) -> dict:
     return out
 
 
-def shapes_anchor(asp, n: int, route: str) -> dict:
+#: The flow kernels' corner forms (ROADMAP B9 item 1: flows the older
+#: forms' blocks did not hold): (a) maf-rqs 4 x (256, 256) at d = 4 with
+#: 20 bins (B4 chunked, W3 by k-steps) on ``bench.py``'s problem, (b)
+#: config 5's flow at 20 bins (B2's wide block with its state in global
+#: memory) on the 32-d mixture; the B2 drives' fit (the anchors print log Z,
+#: no gate) and B2's timing n (kernel and plain chain).
+CORNER_MAF = "maf-rqs 4 x (256, 256) d=4, 20 bins"
+CORNER_WIDE = "nsf 6 x (128, 128) d=32, 20 bins"
+CORNER_FIT = dict(n_epochs=2, batch_size=512, learning_rate=3e-3)
+N_CORNER_TIME = 16384
+#: a corner flow's perturbation in the kernel checks where SHAPES_SCALE's
+#: leaves the check's reference ill-conditioned, as nsf-7's 0.1 does: a
+#: 512- or 1024-wide layer sums 8-16 times nsf-tpu's perturbed terms. At
+#: 0.05 (on the CPU, n = 131072 and 16384) the (1024, 1024) flow's plain
+#: float32 round trip misses the input by up to 2.9e-4, and the d = 15
+#: (512,) MAF's plain float32 pass misses float64 beyond COUPLING_TOL at 3
+#: points, where the kernel's own summation order in plain torch
+#: (``maf_packed_plain``) misses the card rule against it at 7 (the
+#: kernel on the card at 28); at 0.025 none does.
+CORNER_SCALES = {"B1/B3 nsf 1 x (1024, 1024) d=25, 24 bins": 0.025,
+                 "B4 maf-rqs 4 x (512,) d=15, 8 bins": 0.025}
+
+
+def corner_instances() -> dict:
+    """The instances of the corner forms ``phase_shapes`` builds, checks
+    and drives: name -> (kind, flow, configuration row). B1/B3 with one
+    resident part (nsf 1 x (1024, 1024) at d = 25, 24 bins) and at (b)'s
+    flow (the wide form, its split route); B2 at (b)'s flow, at 32 bins
+    and at 4 x (512,) 8 bins (state in global memory); B4 at (a)'s flow
+    and at maf-rqs 4 x (512,) d = 15, 8 bins (chunked, W3 by k-steps)."""
+    from aspire_tpu_torch.flows.architectures import maf_rqs, nsf
+    from aspire_tpu_torch.ops import fused_coupling as FC
+    from aspire_tpu_torch.ops import fused_mutation as FM
+
+    wide = nsf(32, n_layers=6, n_hidden=(128, 128), num_bins=20)
+    coupling = {"B1/B3 nsf 1 x (1024, 1024) d=25, 24 bins": nsf(
+        25, n_layers=1, n_hidden=(1024, 1024), num_bins=24),
+        f"B1/B3 {CORNER_WIDE}": wide}
+    chain = {f"B2 {CORNER_WIDE}": wide,
+             "B2 nsf 6 x (128, 128) d=32, 32 bins": nsf(
+                 32, n_layers=6, n_hidden=(128, 128), num_bins=32),
+             "B2 nsf 4 x (512,) d=32, 8 bins": nsf(
+                 32, n_layers=4, n_hidden=(512,), num_bins=8)}
+    maf = {f"B4 {CORNER_MAF}": maf_rqs(4, n_hidden=(256, 256), num_bins=20),
+           "B4 maf-rqs 4 x (512,) d=15, 8 bins": maf_rqs(15,
+                                                          n_hidden=(512,))}
+    return {**{k: ("coupling", a, FC.coupling_row(a))
+               for k, a in coupling.items()},
+            **{k: ("chain", a, FM.chain_row(a)) for k, a in chain.items()},
+            **{k: ("maf_streamed", a, FC.maf_row(a)) for k, a in maf.items()}}
+
+
+def corner_draw_instances() -> dict:
+    """The coupling instances the B2 corners' anchors draw their initial
+    particles with (B3), where ``corner_instances`` has none at that
+    shape: built with the rest while the earlier phases run (built at the
+    anchor's first draw they took 18-30 s of the phase on the card), not
+    checked on their own."""
+    from aspire_tpu_torch.ops import fused_coupling as FC
+
+    corners = corner_instances()
+    rows = {row for kind, _, row in corners.values() if kind == "coupling"}
+    return {f"B3 of {name}": ("coupling", a, FC.coupling_row(a))
+            for name, (kind, a, _) in corners.items()
+            if kind == "chain" and FC.coupling_row(a) not in rows}
+
+
+def corner_maf_path(device, n_anchor: int, n_pipeline: int) -> dict:
+    """(a) The main path at B4's corner, as ``depth_paths`` runs its
+    maf-rqs rows (``depth_row``): maf-rqs 4 x (256, 256), 20 bins, on
+    ``bench.py``'s problem, the anchor at ``n_anchor`` held to the analytic
+    rule, the pipeline at ``n_pipeline`` on the device ladder in turns with
+    the host ladder."""
+    arch = corner_instances()[f"B4 {CORNER_MAF}"][1]
+    return depth_row(device, CORNER_MAF, "maf-rqs",
+                     {"n_layers": arch.n_layers, "n_hidden": arch.n_hidden,
+                      "num_bins": arch.num_bins}, n_anchor, n_pipeline)
+
+
+def corner_wide_path(device, n_anchor: int) -> dict:
+    """(b) The main path at B2's corner: config 5's flow at 20 bins fitted
+    briefly (5 epochs) on the 32-d mixture's initial draws, as
+    ``depth_wide_runs`` fits its flow; the anchor at ``n_anchor`` on the
+    whole-chain route (B2 one launch a mutation) against the split route
+    (``fused_chain=False``, B1 at least CHAIN_STEPS + 2 a mutation),
+    within max(5 combined sigma, 0.15); the analytic value printed
+    beside."""
+    import numpy as np
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.models import GaussianMixtureProblem
+
+    arch = corner_instances()[f"B2 {CORNER_WIDE}"][1]
+    p = GaussianMixtureProblem(dims=32)
+    asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                 dims=32, parameters=p.parameters, flow_backend="nsf",
+                 n_layers=arch.n_layers, n_hidden=arch.n_hidden,
+                 num_bins=arch.num_bins, seed=1, device=device)
+    t0 = time.perf_counter()
+    asp.fit(Samples(p.draw_initial_samples(np.random.default_rng(42),
+                                           n_anchor)),
+            n_epochs=5, batch_size=512, learning_rate=3e-3)
+    if asp.flow.architecture != arch:
+        raise AssertionError(f"{CORNER_WIDE}: flow {asp.flow.architecture}")
+    out = {"fit_s": time.perf_counter() - t0, "truth": p.true_log_evidence()}
+    fused = shapes_anchor(asp, n_anchor, "fused_kernel")
+    split = shapes_anchor(asp, n_anchor, "split", fused_chain=False)
+    if device.type == "cuda" and (
+            fused["launches"]["chain"] != fused["n_mutations"]
+            or split["launches"]["chain"] != 0
+            or split["launches"]["coupling"] < (CHAIN_STEPS + 2)
+            * split["n_mutations"]):
+        raise AssertionError(f"{CORNER_WIDE}: launches {fused['launches']} "
+                             f"whole-chain, {split['launches']} split")
+    tol = max(5 * math.hypot(fused["log_z_err"], split["log_z_err"]), 0.15)
+    out.update(fused=fused, split=split, routes_tolerance=tol)
+    if abs(fused["log_z"] - split["log_z"]) >= tol:
+        raise AssertionError(f"{CORNER_WIDE}: routes disagree on log Z: "
+                             f"{fused} against {split}")
+    log(f"{CORNER_WIDE} anchors: {out}")
+    return out
+
+
+def corner_drives(device, n_anchor: int, n: int) -> dict:
+    """The corner instances no main path above runs, through the entry
+    points a user calls, the launch counts set to 0 just before and read
+    just after: B2 at 32 bins and at 4 x (512,) in an anchor at
+    ``n_anchor`` on the 32-d mixture (the flow fitted CORNER_FIT; log Z
+    printed, no gate: a kernel drive with no pipeline), every mutation one
+    B2 launch; B1/B3 with one resident part through ``Flow``'s draw and
+    density at n (B3 once, B1 once); B4 at d = 15 through
+    ``Flow.log_prob`` at n (once)."""
+    import numpy as np
+    import torch
+
+    from aspire_tpu_torch import Aspire, Samples
+    from aspire_tpu_torch.flows.base import Flow
+    from aspire_tpu_torch.models import GaussianMixtureProblem
+
+    inst = corner_instances()
+    out = {}
+    p = GaussianMixtureProblem(dims=32)
+    draws = Samples(p.draw_initial_samples(np.random.default_rng(42),
+                                           n_anchor))
+    for name in ("B2 nsf 6 x (128, 128) d=32, 32 bins",
+                 "B2 nsf 4 x (512,) d=32, 8 bins"):
+        arch = inst[name][1]
+        asp = Aspire(log_likelihood=p.log_likelihood, log_prior=p.log_prior,
+                     dims=32, parameters=p.parameters, flow_backend="nsf",
+                     n_layers=arch.n_layers, n_hidden=arch.n_hidden,
+                     num_bins=arch.num_bins, seed=1, device=device)
+        asp.fit(draws, **CORNER_FIT)
+        a = shapes_anchor(asp, n_anchor, "fused_kernel")
+        if device.type == "cuda" and a["launches"]["chain"] != a[
+                "n_mutations"]:
+            raise AssertionError(f"{name}: launches {a['launches']}, "
+                                 f"{a['n_mutations']} mutations")
+        out[name] = {**a, "truth": p.true_log_evidence()}
+    name = "B1/B3 nsf 1 x (1024, 1024) d=25, 24 bins"
+    out[name] = shapes_flow_passes(device, n, inst[name][1], name)
+    name = "B4 maf-rqs 4 x (512,) d=15, 8 bins"
+    maf = Flow(15, architecture=inst[name][1], seed=3, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    reset_launch_counts()
+    log_p = maf.log_prob(torch.randn((n, 15), generator=gen, device=device))
+    out[name] = {"launches": launch_counts()}
+    if not bool(torch.isfinite(log_p).all()) or (
+            device.type == "cuda" and out[name]["launches"]["maf"] != 1):
+        raise AssertionError(f"{name} Flow.log_prob: {out[name]}")
+    log(f"corner drives: {out}")
+    return out
+
+
+def shapes_anchor(asp, n: int, route: str, **sampler_kwargs) -> dict:
     """SMC at n with 20-step tpCN on ``asp``'s default path (the device
-    ladder on the card), the launch counts set to 0 just before and read
-    just after: every mutation on ``route`` (``"fused_kernel"``: one B2
-    launch each), its log Z."""
+    ladder on the card; ``sampler_kwargs`` added to the sampler's), the
+    launch counts set to 0 just before and read just after: every mutation
+    on ``route`` (``"fused_kernel"``: one B2 launch each), its log Z."""
     import torch
 
     reset_launch_counts()
     post = asp.sample_posterior(sampler="smc", n_samples=n,
-                                sampler_kwargs=dict(n_steps=CHAIN_STEPS))
+                                sampler_kwargs=dict(n_steps=CHAIN_STEPS,
+                                                    **sampler_kwargs))
     launches = launch_counts()
     routes = asp.sampler.history.mutation_route
     out = {"log_z": post.log_evidence, "log_z_err": post.log_evidence_error,
@@ -6995,14 +7228,15 @@ def shapes_rows(device, n: int) -> dict:
 def shapes_flow_passes(device, n: int, architecture="nsf-tpu",
                        label: str = "d=32") -> dict:
     """A coupling instance through ``Flow``'s entry points (a user's draw
-    and density of a flow at d = 32, by default nsf-tpu's (64, 64), its
-    weights the flow's initialisation from a seed) at n: B3 once, B1 once,
-    finite."""
+    and density of a flow at d = 32, by default nsf-tpu's (64, 64), or at
+    an architecture's own d; its weights the flow's initialisation from a
+    seed) at n: B3 once, B1 once, finite."""
     import torch
 
     from aspire_tpu_torch.flows.base import Flow
 
-    flow = Flow(32, architecture=architecture, seed=3, device=device)
+    dims = getattr(architecture, "dims", 32)
+    flow = Flow(dims, architecture=architecture, seed=3, device=device)
     reset_launch_counts()
     x, log_q = flow.sample_and_log_prob(n)
     log_p = flow.log_prob(x)
@@ -7051,6 +7285,16 @@ def phase_shapes(device, threads: dict, n_chain: int,
     part("flow_d32", shapes_flow_passes, device, N_COUPLING)
     part("depths", depth_paths, device, n_chain, n_pipeline)
     part("depth_wide", depth_wide_runs, device, n_chain, N_COUPLING)
+    corners = corner_instances()
+    part("corner_builds", shapes_builds, threads, corners)
+    part("corner_coupling", shapes_coupling_checks, device, N_VALIDATE,
+         corners)
+    part("corner_chain", shapes_chain_checks, device, n_chain,
+         N_CORNER_TIME, corners)
+    part("corner_maf", shapes_maf_check, device, N_COUPLING, corners)
+    part("corner_maf_path", corner_maf_path, device, n_chain, n_pipeline)
+    part("corner_wide_path", corner_wide_path, device, n_chain)
+    part("corner_drives", corner_drives, device, n_chain, N_VALIDATE)
     out["seconds"] = seconds
     return out
 
@@ -7119,6 +7363,46 @@ def report_shapes(card: str, shapes: dict, phase_s: float) -> None:
           f"(analytic {w['anchor']['truth']:.4f}, no gate), "
           f"{w['anchor']['n_mutations']} mutations, launches "
           f"{w['anchor']['launches']}", flush=True)
+    cb = shapes["corner_builds"]
+    for name, (kind, _, _) in corner_instances().items():
+        v = {**shapes[{"coupling": "corner_coupling", "chain": "corner_chain",
+                       "maf": "corner_maf"}[kind.split("_")[0]]][name],
+             "build": cb[name]}
+        print(f"[{card}] corner {name} ({v['form']}): built "
+              f"{v['build']['cold_s']:.1f} s cold, "
+              f"{v['build']['cached_s']:.3f} s cached, ptxas "
+              f"{v['build']['ptxas']}; max abs err {v['max_abs_err']:.3g}; "
+              + ", ".join(f"{k} {v[k]:.4f} ms" for k in (
+                  "ms", "kernel_ms", "plain_ms", "inverse_ms",
+                  "inverse_kernel_ms", "inverse_plain_ms", "bound_ms")
+                  if k in v), flush=True)
+    cm = shapes["corner_maf_path"]
+    a, r = cm["anchor"], cm["pipeline"]
+    print(f"[{card}] {CORNER_MAF} anchor n={N_CHAIN}: log Z "
+          f"{a['log_z']:.4f} +/- {a['log_z_err']:.4f} vs analytic "
+          f"{cm['truth']:.4f} (rule held: {a['analytic_rule']}); "
+          f"{a['n_mutations']} mutations on {a['routes']}, launches "
+          f"{a['launches']}; pipeline n={N_PIPELINE}: device ladder "
+          f"{r['device_s']:.4f} s vs host {r['host_s']:.4f} s; {r['rungs']} "
+          f"rungs; log Z {r['log_z']:.4f} +/- {r['log_z_err']:.4f} (host "
+          f"{r['host_log_z']:.4f} +/- {r['host_log_z_err']:.4f}, within "
+          f"{r['tolerance']:.4f}; rule held: {r['analytic']}); launches a run "
+          f"{r['launches']}", flush=True)
+    cw = shapes["corner_wide_path"]
+    print(f"[{card}] {CORNER_WIDE} anchors n={N_CHAIN}: whole-chain route "
+          f"log Z {cw['fused']['log_z']:.4f} +/- "
+          f"{cw['fused']['log_z_err']:.4f} ({cw['fused']['n_mutations']} "
+          f"mutations, launches {cw['fused']['launches']}), split route "
+          f"{cw['split']['log_z']:.4f} +/- {cw['split']['log_z_err']:.4f} "
+          f"(launches {cw['split']['launches']}), within "
+          f"{cw['routes_tolerance']:.4f}; analytic {cw['truth']:.4f} (no "
+          f"gate)", flush=True)
+    for name, v in shapes["corner_drives"].items():
+        print(f"[{card}] corner drive {name}: launches {v['launches']}"
+              + (f"; anchor log Z {v['log_z']:.4f} +/- {v['log_z_err']:.4f}"
+                 f" (analytic {v['truth']:.4f}, no gate), "
+                 f"{v['n_mutations']} mutations" if "log_z" in v else ""),
+              flush=True)
     print(f"[{card}] phase_shapes {phase_s:.1f} s (the builds waited "
           f"{b['waited_s']:.1f} s); by part: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in shapes["seconds"].items()),
@@ -7175,6 +7459,35 @@ def shapes_kernel_rows(shapes: dict) -> list:
         f"B4 maf-rqs (64, 64, 64) d={d}": (
             wide["maf_launches"]["maf"],
             f"Flow.log_prob of maf-rqs (64, 64, 64) at d={d}")}
+    cm, cw = shapes["corner_maf_path"], shapes["corner_wide_path"]
+    drives = shapes["corner_drives"]
+    one_res = "B1/B3 nsf 1 x (1024, 1024) d=25, 24 bins"
+    coupling_launches.update({
+        one_res: (drives[one_res]["launches"]["coupling"],
+                  "Flow.sample_and_log_prob and Flow.log_prob at d=25"),
+        f"B1/B3 {CORNER_WIDE}": (
+            cw["split"]["launches"]["coupling"]
+            + cw["fused"]["launches"]["coupling"],
+            f"the 32-d mixture anchors at {CORNER_WIDE}, both routes")})
+    chain_launches.update({
+        f"B2 {CORNER_WIDE}": (cw["fused"]["launches"]["chain"],
+                              f"the 32-d mixture anchor at {CORNER_WIDE}"),
+        **{name: (drives[name]["launches"]["chain"],
+                  f"the 32-d mixture anchor at {name[3:]}")
+           for name in ("B2 nsf 6 x (128, 128) d=32, 32 bins",
+                        "B2 nsf 4 x (512,) d=32, 8 bins")}})
+    maf_launches.update({
+        f"B4 {CORNER_MAF}": (cm["pipeline"]["launches"]["maf"],
+                             f"{CORNER_MAF} pipeline, last device-ladder "
+                             "run"),
+        "B4 maf-rqs 4 x (512,) d=15, 8 bins": (
+            drives["B4 maf-rqs 4 x (512,) d=15, 8 bins"]["launches"]["maf"],
+            "Flow.log_prob of maf-rqs 4 x (512,) at d=15")})
+    shapes = {**shapes,
+              "coupling": {**shapes["coupling"], **shapes["corner_coupling"]},
+              "chain": {**shapes["chain"], **shapes["corner_chain"]},
+              "maf": {**shapes["maf"], **shapes["corner_maf"]}}
+    b = {**b, **shapes["corner_builds"]}
     out = []
     keys = ("max_abs_err", "ms", "ms_single_call", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "flop", "tensor_flop", "bytes")

@@ -233,10 +233,9 @@ def test_predicates_mirror_the_reference_at_every_depth(monkeypatch, hidden):
     """Over d in {2, 7, 16, 32}, 8- and 32-bin splines and affine maps, at
     depths 0-4: ``should_fuse`` is the JAX ``should_fuse``,
     ``kernel_supports`` takes every such flow for the chain (the JAX
-    chain takes what ``should_fuse`` takes) but the one corner of ROADMAP
-    B9 item 1 the grid meets (32 bins from d = 26 in the wide form: the
-    wide chain block's 8 warp buffers of two dims' parameter groups beside
-    its state arrays pass 227 KB), and ``should_fuse_maf`` is the JAX
+    chain takes what ``should_fuse`` takes), the wide chain's 32 bins from
+    d = 26 too (its block's state in global memory,
+    ``FM.chain_wide_plan``), and ``should_fuse_maf`` is the JAX
     ``should_fuse_maf`` for the RQS MAFs of the grid."""
     for d, transformer, bins in GRID:
         kw = dict(dims=d, n_layers=3, n_hidden=hidden,
@@ -244,10 +243,7 @@ def test_predicates_mirror_the_reference_at_every_depth(monkeypatch, hidden):
         ref = _reference(monkeypatch, JCoupling(**kw))
         arch = Coupling(**kw)
         assert FC.should_fuse(arch, _Batch(d=d)) == ref, kw
-        corner = (transformer == "rqs" and bins == 32 and d >= 26
-                  and FC.mma_wide(arch))
-        assert FM.kernel_supports(FM.ChainConfig(arch, "tpcn", 20)) == (
-            ref and not corner), kw
+        assert FM.kernel_supports(FM.ChainConfig(arch, "tpcn", 20)) == ref, kw
         ref_maf = _reference(monkeypatch, JMAF(**kw), maf=True)
         assert FC.should_fuse_maf(MAF(**kw), _Batch(d=d)) == ref_maf, kw
 

@@ -115,12 +115,13 @@ def test_should_fuse_mirrors_the_reference(monkeypatch, transformer, d,
 
 
 def test_what_the_port_refuses_beyond_the_reference(monkeypatch):
-    """Three hidden layers are taken, as the reference takes them (the
-    first on FMAs, every further product on the tensor cores), by B1/B3,
-    B2 and B4; what the port still refuses is the shapes no block of the
-    forms holds: B2 at 32 bins from d = 26 (8 warps of two dims' parameter
-    groups), a 1024-wide 1-layer coupling flow at d = 25 with 24 bins (the
-    wide form's resident W1 parts)."""
+    """Nothing: three hidden layers are taken, as the reference takes them
+    (the first on FMAs, every further product on the tensor cores), by
+    B1/B3, B2 and B4; so are the shapes the older forms' blocks did not
+    hold: B2 at 32 bins from d = 26 (the wide chain's state in global
+    memory), a 1024-wide 1-layer coupling flow at d = 25 with 24 bins
+    (B1/B3 with one resident part; B2 with its particle rows in global
+    memory too)."""
     three = dict(dims=4, n_layers=3, n_hidden=(64, 64, 64),
                  transformer="rqs", num_bins=8)
     assert _reference(monkeypatch, JCoupling(**three), 8192, jnp.float32)
@@ -133,14 +134,18 @@ def test_what_the_port_refuses_beyond_the_reference(monkeypatch):
                   num_bins=32)
     assert _reference(monkeypatch, JCoupling(**wide32), 8192, jnp.float32)
     assert FC.should_fuse(Coupling(**wide32), _Batch(d=26))
-    assert not FM.kernel_supports(FM.ChainConfig(Coupling(**wide32),
-                                                 "tpcn", 20))
+    assert FM.kernel_supports(FM.ChainConfig(Coupling(**wide32),
+                                             "tpcn", 20))
+    assert FM.chain_wide_plan(Coupling(**wide32))["level"] == 1
     assert FM.kernel_supports(FM.ChainConfig(
         Coupling(**dict(wide32, dims=25)), "tpcn", 20))
     big = dict(dims=25, n_layers=1, n_hidden=(1024, 1024),
                transformer="rqs", num_bins=24)
     assert _reference(monkeypatch, JCoupling(**big), 8192, jnp.float32)
-    assert not FC.should_fuse(Coupling(**big), _Batch(d=25))
+    assert FC.should_fuse(Coupling(**big), _Batch(d=25))
+    assert FC.mma_shape(Coupling(**big))["one_res"]
+    assert FM.kernel_supports(FM.ChainConfig(Coupling(**big), "tpcn", 20))
+    assert FM.chain_wide_plan(Coupling(**big))["level"] == 3
 
 
 #: (d, hidden, bins, layers, n): RQS MAFs the port and the reference hold
@@ -172,16 +177,22 @@ def test_should_fuse_maf_mirrors_the_reference(monkeypatch, d, hidden,
 
 def test_maf_widths_the_streamed_form_does_not_hold(monkeypatch):
     """Where two dims' W3 fragments pass half a block (32 bins at d = 4
-    with (192, 192): 120 KB an item, two slots), the port refuses an RQS
-    MAF the reference takes; W2 of any width streams by n-tiles, so 8
-    bins at that width are taken."""
+    with (192, 192): 120 KB an item, two slots), the streamed form holds
+    no warp; the port takes the RQS MAF the reference takes all the same,
+    in the chunked form (W3 by k-steps, level 1). W2 of any width streams
+    by n-tiles, so 8 bins at that width keep the streamed form."""
     kw = dict(dims=4, n_layers=2, n_hidden=(192, 192), transformer="rqs",
               num_bins=32)
     assert _reference(monkeypatch, JMAF(**kw), 8192, jnp.float32, maf=True)
-    assert not FC.should_fuse_maf(MAF(**kw), _Batch())
+    arch = MAF(**kw)
+    assert FC.should_fuse_maf(arch, _Batch())
+    layout = FC.maf_stream_layout(arch)
+    assert layout["level"] == 1 and layout["split3"]
+    assert layout["warps"] >= 1 and layout["slot"] <= 4096
     taken = MAF(**dict(kw, num_bins=8))
     assert FC.should_fuse_maf(taken, _Batch())
     assert FC.maf_stream_layout(taken)["w2_chunks"] > 1
+    assert FC.maf_stream_layout(taken)["level"] == 0
 
 
 def test_the_library_each_shape_runs(monkeypatch):

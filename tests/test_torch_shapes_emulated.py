@@ -139,6 +139,9 @@ int main(int argc, char** argv) {
     count = aspire_consts_layout(d, v, 16);
     for (int e = 0; e < count; ++e) printf("%d ", v[e]);
     printf("\n");
+    count = aspire_chain_plan(0, v, 16);
+    for (int e = 0; e < count; ++e) printf("%d ", v[e]);
+    printf("\n");
     return 0;
   }
   const int n = atoi(argv[1]), layers = atoi(argv[2]), steps = atoi(argv[3]);
@@ -154,7 +157,10 @@ int main(int argc, char** argv) {
   std::vector<float> z0(d * n), w(layers * S::SIZE), c(cs), step0(nt);
   std::vector<float> noise((size_t)steps * rows * n);
   std::vector<float> z(d * n), lq(n), lpi(n), ll(n), nacc(n);
-  std::vector<float> stats(nt * (4 * d + 1)), scratch(3 * d * n, -7.f);
+  // The wide chain's scratch at its plan's last level (ChainWidePlan):
+  // the sums, the state arrays and the particle rows.
+  std::vector<float> stats(nt * (4 * d + 1));
+  std::vector<float> scratch((size_t)(6 * d + 1) * n, -7.f);
   FILE* f = fopen(argv[15], "rb");
   for (auto* v : {&z0, &w, &c, &step0, &noise}) {
     if (fread(v->data(), 4, v->size(), f) != v->size()) return 2;
@@ -196,9 +202,10 @@ int main(int argc, char** argv) {
     printf("%d %d", aspire_maf_layer_floats(0), aspire_maf_stage_floats(0));
     for (int e = 0; e < count; ++e) printf(" %d", ks[e]);
 #ifdef ASPIRE_STREAMED
-    using T = aspire::MafStream<ROW_D, ROW_HID, ROW_K>;
-    printf("\n%d %d %d %d %d\n", T::SLOT, T::HEAD, T::NW, T::WSTAGE,
-           T::BUFS);
+    int v[8];
+    aspire_maf_stream_layout(0, v, 8);
+    printf("\n%d %d %d %d %d %d\n", v[1], v[2],
+           aspire::MafStream<ROW_D, ROW_HID, ROW_K>::NW, v[3], v[4], v[0]);
 #else
     printf("\n");
 #endif
@@ -217,8 +224,13 @@ int main(int argc, char** argv) {
   for (int b = 0; b < blocks; ++b) {
     emu_run_block(b, 32 * warps, [&] {
 #ifdef ASPIRE_STREAMED
-      aspire::maf_kernel_streamed<ROW_D, ROW_HID, ROW_K>(
-          x.data(), z.data(), ld.data(), w.data(), n, layers, 5.0f);
+      if constexpr (aspire::maf_stream_level<ROW_D, ROW_HID, ROW_K>()) {
+        aspire::maf_kernel_chunked<ROW_D, ROW_HID, ROW_K>(
+            x.data(), z.data(), ld.data(), w.data(), n, layers, 5.0f);
+      } else {
+        aspire::maf_kernel_streamed<ROW_D, ROW_HID, ROW_K>(
+            x.data(), z.data(), ld.data(), w.data(), n, layers, 5.0f);
+      }
 #else
       aspire::maf_kernel<ROW_D, ROW_HID, ROW_K>(
           x.data(), z.data(), ld.data(), w.data(), n, layers, 5.0f);
@@ -379,6 +391,15 @@ def test_instance_coupling_matches_plain(harnesses, name, arch, n, warps,
     torch.testing.assert_close(ld, ld_r, **chip_smoke.COUPLING_TOL)
 
 
+def _chain_plan(arch) -> list[int]:
+    """What the instance's ``aspire_chain_plan`` reports: the wide block's
+    level and floats (``FM.chain_wide_plan``), ``[-1, 0]`` otherwise."""
+    if not FC.mma_wide(arch):
+        return [-1, 0]
+    plan = FM.chain_wide_plan(arch)
+    return [plan["level"], plan["floats"]]
+
+
 def _chain(harnesses, name, setup):
     cfg, params, z0, beta, step0, refs, target, dt, gen = setup
     arch = cfg.arch
@@ -417,9 +438,10 @@ def test_instance_chain_tables_match_python(harnesses):
     Python packing's: the wide form at d = 15, the whole-layer form at
     d = 10."""
     for name, arch in (("chain15", nsf_tpu(15)), ("chain10", nsf_tpu(10))):
-        table, consts = _lines(harnesses / f"run_{name}")
+        table, consts, plan = _lines(harnesses / f"run_{name}")
         assert table == list(FM.chain_layout(arch))
         assert consts == list(FM.consts_layout(arch.dims))
+        assert plan == _chain_plan(arch)
     assert FC.mma_wide(nsf_tpu(15)) and not FC.mma_wide(nsf_tpu(10))
     assert FM.chain_form(nsf_tpu(10)) == "whole-layer, streamed"
 
@@ -460,7 +482,7 @@ def test_instance_streamed_maf_matches_plain(harnesses, name, arch):
                                        FC.maf_stage_floats(arch), *ks2, *ks3]
     layout = FC.maf_stream_layout(arch)
     assert block == [layout[k] for k in ("slot", "head", "w2_chunks",
-                                         "stage", "bufs")]
+                                         "stage", "bufs", "level")]
     assert layout["w2_chunks"] == (1 if d == 15 else 7)
     arch, params = chip_smoke.perturbed_flow(torch.device("cpu"), 9, arch,
                                              0.05)
@@ -530,9 +552,10 @@ def test_depth_chain_matches_plain(harnesses, name):
     on injected noise (three layers, or the flow's own depth where it has
     fewer) against the plain chain at the card check's tolerances."""
     arch, form = DEPTH_CHAIN[name]
-    table, consts = _lines(harnesses / f"run_{name}")
+    table, consts, plan = _lines(harnesses / f"run_{name}")
     assert table == list(FM.chain_layout(arch))
     assert consts == list(FM.consts_layout(arch.dims))
+    assert plan == _chain_plan(arch)
     assert FM.chain_form(arch) == form
     run = dataclasses.replace(arch, n_layers=min(arch.n_layers, 3))
     _chain(harnesses, name, chip_smoke.shapes_chain_setup(
@@ -556,7 +579,7 @@ def test_depth_maf_matches_plain(harnesses, name):
         (block,) = block
         layout = FC.maf_stream_layout(arch)
         assert block == [layout[k] for k in ("slot", "head", "w2_chunks",
-                                             "stage", "bufs")]
+                                             "stage", "bufs", "level")]
     arch, params = chip_smoke.perturbed_flow(
         torch.device("cpu"), 9, dataclasses.replace(arch, n_layers=2), 0.05)
     d, n = arch.dims, 4 * 16 + 7
